@@ -1,0 +1,186 @@
+"""ccsmeth-tpu-torch CLI: the ``call_mods`` subcommand of ``ccsmeth_tpu/cli.py``
+(flags mirror ``cli.py:324-391``) plus ``--device``.
+
+Usage:
+    python -m ccsmeth_tpu_torch.cli call_mods -i reads.bam -o out -m model.npz \\
+        --mode align --ref ref.fa [--device cuda|cpu] [--precision fp32|bf16]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ._version import __version__
+from .utils.process import display_args, str2bool
+
+
+def _add_extraction_args(p):
+    g = p.add_argument_group("EXTRACTION")
+    g.add_argument("--mode", type=str, default="denovo", choices=["denovo", "align"],
+                   help="denovo: without reference position info; align: with. "
+                        "default denovo")
+    g.add_argument("--holeids_e", type=str, default=None,
+                   help="file contains holeids to be extracted, default None")
+    g.add_argument("--holeids_ne", type=str, default=None,
+                   help="file contains holeids not to be extracted, default None")
+    g.add_argument("--motifs", type=str, default="CG",
+                   help="motif seq to be extracted, default CG; comma-separated, IUPAC ok")
+    g.add_argument("--mod_loc", type=int, default=0,
+                   help="0-based location of the targeted base in the motif, default 0")
+    g.add_argument("--methy_label", type=int, choices=[1, 0], default=1,
+                   help="label of the interested modified bases (training), default 1")
+    g.add_argument("--norm", type=str, default="zscore",
+                   choices=["zscore", "min-mean", "min-max", "mad", "none"],
+                   help="normalization method for ipd/pw, default zscore")
+    g.add_argument("--no_decode", action="store_true", default=False,
+                   help="do not use CodecV1 to decode ipd/pw")
+    g.add_argument("--holes_batch", type=int, default=50,
+                   help="number of reads per batch, default 50")
+    ga = p.add_argument_group("EXTRACTION ALIGN_MODE")
+    ga.add_argument("--ref", type=str, default=None,
+                    help="path to genome reference (fasta), required in align mode")
+    ga.add_argument("--mapq", type=int, default=1, help="MAPQ cutoff, default 1")
+    ga.add_argument("--identity", type=float, default=0.0,
+                    help="identity cutoff [0.0-1.0], default 0.0")
+    ga.add_argument("--no_supplementary", action="store_true", default=False,
+                    help="not use supplementary alignment")
+    ga.add_argument("--skip_unmapped", type=str, default="yes",
+                    help="if skipping unmapped sites in reads, yes or no, default yes")
+    p.add_argument("--path_to_samtools", type=str, default=None,
+                   help=argparse.SUPPRESS)
+
+
+def _add_model_args(p):
+    g = p.add_argument_group("MODEL_HYPER")
+    g.add_argument("--model_type", type=str, default="attbigru2s",
+                   choices=["attbilstm2s", "attbigru2s", "transencoder2s",
+                            "attbilstm2s2", "attbigru2s2"],
+                   help="model type, default attbigru2s (the only one ported)")
+    g.add_argument("--seq_len", type=int, default=21, help="len of kmer, default 21")
+    g.add_argument("--is_npass", type=str, default="yes",
+                   help="if using num_pass features, yes or no, default yes")
+    g.add_argument("--is_stds", type=str, default="no",
+                   help="if using std features, yes or no, default no")
+    g.add_argument("--is_sn", type=str, default="no",
+                   help="if using signal-to-noise features, yes or no, default no")
+    g.add_argument("--is_map", type=str, default="no",
+                   help="if using mapping features, yes or no, default no")
+    g.add_argument("--class_num", type=int, default=2)
+    g.add_argument("--dropout_rate", type=float, default=0)
+    gr = p.add_argument_group("MODEL_HYPER RNN")
+    gr.add_argument("--layer_rnn", type=int, default=3, help="BiRNN layer num, default 3")
+    gr.add_argument("--hid_rnn", type=int, default=256, help="BiRNN hidden size, default 256")
+    gt = p.add_argument_group("MODEL_HYPER TRANSFORMER")
+    gt.add_argument("--layer_trans", type=int, default=6)
+    gt.add_argument("--nhead", type=int, default=4)
+    gt.add_argument("--d_model", type=int, default=256)
+    gt.add_argument("--dim_ff", type=int, default=512)
+
+
+def main_call_mods(args):
+    from .pipeline.call_mods import CallModsConfig, call_mods_bam
+
+    display_args(args)
+    cfg = CallModsConfig(
+        model_file=args.model_file, model_type=args.model_type, seq_len=args.seq_len,
+        is_npass=str2bool(args.is_npass), is_stds=str2bool(args.is_stds),
+        is_sn=str2bool(args.is_sn), is_map=str2bool(args.is_map),
+        class_num=args.class_num, dropout_rate=args.dropout_rate,
+        batch_size=args.batch_size, layer_rnn=args.layer_rnn, hid_rnn=args.hid_rnn,
+        layer_trans=args.layer_trans, nhead=args.nhead, d_model=args.d_model,
+        dim_ff=args.dim_ff, holes_batch=args.holes_batch, keep_pulse=args.keep_pulse,
+        no_sort=args.no_sort, threads=args.threads, mode=args.mode, ref=args.ref,
+        motifs=args.motifs, mod_loc=args.mod_loc, methy_label=args.methy_label,
+        norm=args.norm, no_decode=args.no_decode, mapq=args.mapq,
+        identity=args.identity, no_supplementary=args.no_supplementary,
+        skip_unmapped=str2bool(args.skip_unmapped), holeids_e=args.holeids_e,
+        holeids_ne=args.holeids_ne, gzip_out=args.gzip,
+        rnn_backend=args.rnn_backend, precision=args.precision,
+        dispatch_fuse=args.dispatch_fuse, sort_mem_mb=args.sort_mem_mb,
+        transfer_quant=args.transfer_quant, fetch_quant=args.fetch_quant,
+        profile_dir=args.profile_dir, h0_mode=args.h0_mode, tseed=args.tseed,
+        num_processes=args.num_processes, process_id=args.process_id,
+        device=args.device)
+    if not (args.input.endswith(".bam") or args.input.endswith(".sam")):
+        raise NotImplementedError("features TSV input not yet ported")
+    if args.seq_len % 2 == 0:
+        raise ValueError("--seq_len must be odd")
+    call_mods_bam(cfg, args.input, args.output)
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="ccsmeth-tpu-torch",
+        description="detecting DNA methylation from PacBio CCS reads — "
+                    "PyTorch + CUDA port of ccsmeth-tpu")
+    parser.add_argument("-v", "--version", action="version",
+                        version="ccsmeth-tpu-torch {}".format(__version__))
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("call_mods", help="call modifications")
+    gi = p.add_argument_group("INPUT")
+    gi.add_argument("--input", "-i", type=str, required=True,
+                    help="input file: bam/sam")
+    go = p.add_argument_group("OUTPUT")
+    go.add_argument("--output", "-o", type=str, required=True,
+                    help="output prefix ([out].modbam.bam)")
+    go.add_argument("--gzip", action="store_true", default=False)
+    go.add_argument("--keep_pulse", action="store_true", default=False)
+    go.add_argument("--no_sort", action="store_true", default=False)
+    gc = p.add_argument_group("CALL")
+    gc.add_argument("--model_file", "-m", type=str, required=True,
+                    help="trained model (.ckpt torch or .npz native)")
+    _add_model_args(p)
+    gc.add_argument("--batch_size", "-b", type=int, default=512)
+    gc.add_argument("--device", type=str, default="cuda",
+                    help="cuda[:i] (default) or cpu; cuda without a GPU raises")
+    gc.add_argument("--rnn_backend", type=str, default="xla",
+                    choices=["xla", "pallas", "pallas_layer"],
+                    help="kept for flag parity: on cuda every value runs the "
+                         "BiGRU through the hand-written kernel, on cpu "
+                         "through its plain PyTorch version")
+    gc.add_argument("--use_compile", type=str, default="no",
+                    help="[IGNORED] reference-CLI compatibility")
+    gc.add_argument("--precision", type=str, default="fp32",
+                    choices=["fp32", "bf16"],
+                    help="operand type of the BiGRU (f32 accumulation), default fp32")
+    gc.add_argument("--sort_mem_mb", type=int, default=512,
+                    help="memory budget for the output-modbam external merge "
+                         "sort, default 512")
+    gc.add_argument("--dispatch_fuse", type=int, default=8,
+                    help="batches grouped per dispatch_many call, default 8")
+    gc.add_argument("--transfer_quant", type=str, default="auto",
+                    choices=["auto", "none", "int8"],
+                    help="int8-quantize IPD/PW means for the host->device copy "
+                         "(zscore/mad norms). auto = int8 on bf16, none on fp32")
+    gc.add_argument("--fetch_quant", type=str, default="auto",
+                    choices=["auto", "u8", "none"],
+                    help="u8 fetches floor(p*256) ML bytes from the device. "
+                         "auto = u8 on bf16, exact probs on fp32")
+    gc.add_argument("--profile_dir", type=str, default=None,
+                    help="device trace output (not yet ported; raises)")
+    gc.add_argument("--h0_mode", type=str, default="zeros",
+                    choices=["zeros", "randn"],
+                    help="RNN initial state: zeros (randn is not yet ported; raises)")
+    gs = p.add_argument_group("SCALE-OUT")
+    gs.add_argument("--num_processes", type=int, default=1,
+                    help="share-nothing scale-out (not yet ported beyond 1)")
+    gs.add_argument("--process_id", type=int, default=0)
+    _add_extraction_args(p)
+    p.add_argument("--threads", "-p", type=int, default=10)
+    p.add_argument("--threads_call", type=int, default=3,
+                   help="[compat] advisory only")
+    p.add_argument("--tseed", type=int, default=1234)
+    p.set_defaults(func=main_call_mods)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = get_parser().parse_args(argv)
+    args.func(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

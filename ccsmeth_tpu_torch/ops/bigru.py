@@ -1,0 +1,213 @@
+"""Kernel K1: the whole bidirectional GRU stack in one CUDA launch.
+
+Counterpart of ``ccsmeth_tpu/ops/bigru_pallas.py`` (``_make_stack_kernel``,
+reached through ``birnn_apply_pallas_stacked``). The kernel source is
+``csrc/bigru_stack.cu``; its header says what bounds it on an H100 and what the
+design does about that.
+
+``birnn_stack`` takes time-major input and the ``_layer_weights`` layout of the
+JAX package (``bigru_pallas.py:411-420``):
+
+    x      (L, N, C)   operand type (float32 or bfloat16), contiguous
+    layers [(w_ih (2, C, 3H) operand type, b_ih (2, 3H) f32,
+             w_hh (2, H, 3H) operand type, b_hh (2, 3H) f32), ...]
+    ->     out (L, N, 2H) operand type, h_n (2*NL, N, H) f32 (torch order)
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+version, ``models/rnn.py``'s BiGRU with zero h0. ``launches`` counts kernel
+launches. The kernel is compiled with ``nvcc`` at first use into
+``build/kernels/`` beside the package; nothing here imports a GPU toolchain at
+import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import torch
+
+from ..models.rnn import birnn_tm
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                   "bigru_stack.cu")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+THREADS = 256  # BIGRU_THREADS in the source
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0  # kernel launches since the caller last set it to 0
+plain_calls = 0  # plain-version runs (CPU tensors, or birnn_stack_plain)
+
+_lib = None
+_lock = threading.Lock()
+build_log = ""  # nvcc's -Xptxas -v report of the last build
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else "nvcc"
+
+
+def library_path() -> str:
+    """Build output path, keyed by the source's content and the flags."""
+    h = hashlib.sha256()
+    with open(SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, "libbigru_stack_{}.so".format(
+        h.hexdigest()[:16]))
+
+
+def build() -> str:
+    """Compile ``csrc/bigru_stack.cu`` if its library is missing; returns the
+    library path. Raises with nvcc's output when the build fails."""
+    global build_log
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "{}.{}.tmp".format(so, os.getpid())
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, SRC]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
+            " ".join(cmd), proc.stdout, proc.stderr))
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, so)
+    return so
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.bigru_stack_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            _lib = lib
+    return _lib
+
+
+def _check(layers, x: torch.Tensor, compute_dtype) -> int:
+    """Raise on anything the kernel does not take; returns H."""
+    if compute_dtype not in _DTYPE_CODE:
+        raise ValueError("compute_dtype must be float32 or bfloat16")
+    if x.dim() != 3:
+        raise ValueError("x must be (L, N, C), got {}".format(tuple(x.shape)))
+    if x.dtype != compute_dtype:
+        raise TypeError("x is {}, expected {}".format(x.dtype, compute_dtype))
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if not layers:
+        raise ValueError("at least one layer is required")
+    H = layers[0][2].shape[1]
+    cin = x.shape[2]
+    for li, (wih, bih, whh, bhh) in enumerate(layers):
+        want = {"w_ih": ((2, cin, 3 * H), compute_dtype, wih),
+                "b_ih": ((2, 3 * H), torch.float32, bih),
+                "w_hh": ((2, H, 3 * H), compute_dtype, whh),
+                "b_hh": ((2, 3 * H), torch.float32, bhh)}
+        for name, (shape, dt, t) in want.items():
+            if tuple(t.shape) != shape or t.dtype != dt:
+                raise ValueError("layer {} {}: got {} {}, expected {} {}".format(
+                    li, name, tuple(t.shape), t.dtype, shape, dt))
+            if t.device != x.device:
+                raise ValueError("layer {} {} is on {}, x on {}".format(
+                    li, name, t.device, x.device))
+            if not t.is_contiguous():
+                raise ValueError("layer {} {} must be contiguous".format(li, name))
+        cin = 2 * H
+    return H
+
+
+def birnn_stack_plain(layers, x: torch.Tensor, compute_dtype=torch.float32):
+    """The plain version of K1 on any device: same contract as birnn_stack."""
+    global plain_calls
+    _check(layers, x, compute_dtype)
+    plain_calls += 1
+    return birnn_tm(layers, x, None, compute_dtype)
+
+
+def tile_shape(N: int, H: int, n_sms: int) -> tuple[int, int]:
+    """(rows per thread R, thread rows TY): the block's tile is TY*R rows.
+    Takes the largest R in 8, 4, 2, 1 that still gives about one block per SM,
+    so large batches reuse each weight read across more rows."""
+    ty = max(1, THREADS // (H // 4))
+    for r in (8, 4, 2):
+        if -(-N // (ty * r)) >= 0.9 * n_sms:
+            return r, ty
+    return 1, ty
+
+
+def _shared_bytes(C0: int, H: int, bt: int) -> int:
+    return (2 * H + max(C0, 2 * H)) * bt * 4
+
+
+def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32):
+    """Whole-stack BiGRU, zero h0: kernel K1 on CUDA, the plain version on CPU.
+
+    See the module docstring for shapes. No fallback: a CUDA input that the
+    kernel cannot take, or a failed build or launch, raises."""
+    global launches
+    H = _check(layers, x, compute_dtype)
+    if x.device.type == "cpu":
+        return birnn_stack_plain(layers, x, compute_dtype)
+    if x.device.type != "cuda":
+        raise ValueError("birnn_stack runs on cuda or cpu, not {}".format(
+            x.device.type))
+    L, N, C0 = x.shape
+    NL = len(layers)
+    if H % 4 != 0 or H // 4 > THREADS or NL > 8:
+        raise ValueError("kernel takes H % 4 == 0, H <= 1024 and <= 8 layers "
+                         "(H={}, NL={})".format(H, NL))
+    if any(t.data_ptr() % 16 for ly in layers for t in ly) or x.data_ptr() % 16:
+        raise ValueError("kernel operands must be 16-byte aligned")
+    props = torch.cuda.get_device_properties(x.device)
+    r, ty = tile_shape(N, H, props.multi_processor_count)
+    while r > 1 and _shared_bytes(C0, H, ty * r) > 227 * 1024:
+        r //= 2
+    if _shared_bytes(C0, H, ty * r) > 227 * 1024:
+        raise ValueError("tile does not fit in shared memory (C={}, H={})"
+                         .format(C0, H))
+    lib = _load()
+    out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
+    scratch = torch.empty_like(out) if NL > 1 else out
+    hn = torch.empty((2 * NL, N, H), dtype=torch.float32, device=x.device)
+
+    def ptrs(i):
+        arr = (ctypes.c_uint64 * NL)(*[ly[i].data_ptr() for ly in layers])
+        return arr
+
+    wih, bih, whh, bhh = ptrs(0), ptrs(1), ptrs(2), ptrs(3)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.bigru_stack_launch(
+            _DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), hn.data_ptr(), ctypes.addressof(wih),
+            ctypes.addressof(bih), ctypes.addressof(whh), ctypes.addressof(bhh),
+            NL, L, N, C0, H, r, ty, stream)
+    if rc != 0:
+        raise RuntimeError("bigru_stack launch failed: cudaError {}".format(rc))
+    launches += 1
+    return out, hn
+
+
+def stack_flops(L: int, N: int, C0: int, H: int, NL: int) -> int:
+    """Matrix FLOPs of the stack: per row, layer and direction, L steps of
+    2*(Cin + H)*3H (the input projection and the recurrent product)."""
+    total = 0
+    for li in range(NL):
+        cin = C0 if li == 0 else 2 * H
+        total += 2 * L * 2 * (cin + H) * 3 * H
+    return total * N

@@ -1,0 +1,333 @@
+// Whole-network bidirectional GRU inference: every layer, both directions and
+// all L timesteps of one batch tile in ONE launch, zero h0.
+//
+// Replaces: ccsmeth_tpu/ops/bigru_pallas.py::_make_stack_kernel (GRU cell,
+//   dir_batched=False), launched there by _fused_stack_call. The TPU layouts
+//   (n_chains sub-tiles, dir_batched) are MXU scheduling choices and are not
+//   carried over; the math is.
+//
+// Bound on an H100 SXM: the attbigru2s stack (NL=3, H=256, L=21, C=11) does
+//   232.7 MFLOP of matrix work per CpG site (bench.py:53-72), about 116 MFLOP
+//   per strand row, against ~60 bytes of input and ~21 KB of output per row.
+//   That is far above the card's ~295 FLOP/byte ridge, so the stack is
+//   compute-bound: at 989 TFLOP/s bf16 dense (tensor cores) the least time is
+//   0.24 us per site.
+//
+// What this design does about that: nothing yet. It is the simple, correct
+//   version: FP32 FMAs on the CUDA cores (67 TFLOP/s peak), no tensor cores,
+//   weights streamed from L2 (the whole network is ~2.77M parameters, 11 MB in
+//   fp32, so it stays resident in the 50 MB L2). wgmma with TMA-fed weight
+//   tiles, and splitting W_hh across a thread-block cluster so it can live in
+//   shared memory, are for a later change.
+//
+// Design:
+//   - one block owns Bt = TY * R batch rows and runs all layers and both
+//     directions for them (directions one after the other), so no host round
+//     trip happens between layers;
+//   - thread (tx, ty) owns hidden units j0 = 4*tx .. j0+3 of rows
+//     ty*R .. ty*R+R-1 and keeps, for each, the four gate sums it needs:
+//     r and z (input and recurrent parts summed), the input part of n and the
+//     recurrent part of n (b_hn stays inside the reset product, as in torch);
+//   - per timestep the input projection x_t @ W_ih is computed in the same
+//     loop as h @ W_hh: the TPU kernel also projects inside its own body;
+//   - h (f32, double-buffered) and the staged x_t tile live in shared memory,
+//     k-major ([k][row]) so a thread reads its R rows with vector loads;
+//   - the next layer's input (L, N, 2H) goes to a global ping-pong buffer in
+//     the operand type (the wrapper allocates it); the last layer writes the
+//     output tensor itself; __syncthreads() orders the block's own writes and
+//     reads, and a block only ever touches its own rows;
+//   - gate math is f32 whatever the operand type; with bf16 operands the
+//     weights, the layer inputs and the h operand of the recurrent product are
+//     bf16 values, products are exact in f32 and sums accumulate in f32;
+//   - the ragged last tile is masked here: rows >= N read zeros and store
+//     nothing.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//   -Xcompiler -fPIC (ops/bigru.py builds it at first use). The C entry point
+//   returns cudaGetLastError() after the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define BIGRU_MAX_LAYERS 8
+#define BIGRU_THREADS 256
+
+struct StackParams {
+  const void* x;      // (L, N, C0) operand type
+  void* out;          // (L, N, 2H) operand type: the last layer's output
+  void* scratch;      // (L, N, 2H) operand type: ping-pong buffer (NL > 1)
+  float* hn;          // (2*NL, N, H) f32, torch order [l0 fwd, l0 bwd, ...]
+  const void* wih[BIGRU_MAX_LAYERS];   // (2, Cin, 3H) operand type
+  const float* bih[BIGRU_MAX_LAYERS];  // (2, 3H) f32
+  const void* whh[BIGRU_MAX_LAYERS];   // (2, H, 3H) operand type
+  const float* bhh[BIGRU_MAX_LAYERS];  // (2, 3H) f32
+  int NL, L, N, C0, H;
+};
+
+template <typename T>
+struct Op;
+
+template <>
+struct Op<float> {
+  static __device__ __forceinline__ void load4(const float* p, float w[4]) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+  static __device__ __forceinline__ float to_f(float v) { return v; }
+  static __device__ __forceinline__ float from_f(float v) { return v; }
+  // the h operand of the recurrent product, in the operand type
+  static __device__ __forceinline__ float operand(float v) { return v; }
+};
+
+template <>
+struct Op<__nv_bfloat16> {
+  static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                               float w[4]) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = __uint_as_float(v.x << 16);
+    w[1] = __uint_as_float(v.x & 0xffff0000u);
+    w[2] = __uint_as_float(v.y << 16);
+    w[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+  static __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float operand(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+
+// R consecutive f32 values from shared memory (16-byte aligned when R % 4 == 0)
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, float v[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+  } else if constexpr (R == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) v[i] = p[i];
+  }
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(BIGRU_THREADS, 1)
+    bigru_stack_kernel(const StackParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int H = p.H, L = p.L, N = p.N, G = 3 * H;
+  const int TX = H / 4;
+  const int TY = blockDim.x / TX;
+  const int Bt = TY * R;
+  const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;
+  const int j0 = 4 * tx;
+  const int rr0 = ty * R;  // this thread's first row within the tile
+  const int row0 = blockIdx.x * Bt;
+
+  float* hs_a = smem;                // [H][Bt]
+  float* hs_b = smem + H * Bt;       // [H][Bt]
+  float* xs = smem + 2 * H * Bt;     // [Cin][Bt]
+
+  for (int l = 0; l < p.NL; ++l) {
+    const int Cin = (l == 0) ? p.C0 : 2 * H;
+    // layer l writes out when NL-1-l is even, else scratch; layer l+1 reads it
+    const T* xin =
+        (l == 0) ? static_cast<const T*>(p.x)
+                 : static_cast<const T*>(((p.NL - l) % 2 == 0) ? p.out
+                                                                : p.scratch);
+    T* xout = static_cast<T*>(((p.NL - 1 - l) % 2 == 0) ? p.out : p.scratch);
+    for (int d = 0; d < 2; ++d) {
+      const T* Wih = static_cast<const T*>(p.wih[l]) + (size_t)d * Cin * G;
+      const T* Whh = static_cast<const T*>(p.whh[l]) + (size_t)d * H * G;
+      const float* bi = p.bih[l] + d * G;
+      const float* bh = p.bhh[l] + d * G;
+      float b_r[4], b_z[4], b_xn[4], b_hn[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        b_r[j] = bi[j0 + j] + bh[j0 + j];
+        b_z[j] = bi[H + j0 + j] + bh[H + j0 + j];
+        b_xn[j] = bi[2 * H + j0 + j];
+        b_hn[j] = bh[2 * H + j0 + j];
+      }
+      float* hc = hs_a;
+      float* hnx = hs_b;
+      for (int i = tid; i < H * Bt; i += blockDim.x) hc[i] = 0.0f;
+
+      for (int s = 0; s < L; ++s) {
+        const int t = (d == 0) ? s : L - 1 - s;
+        // stage x_t of this tile's rows as f32, k-major; ragged rows read 0
+        const T* xt = xin + (size_t)t * N * Cin;
+        for (int i = tid; i < Bt * Cin; i += blockDim.x) {
+          const int r = i / Cin, c = i - r * Cin;
+          const int row = row0 + r;
+          xs[c * Bt + r] =
+              (row < N) ? Op<T>::to_f(xt[(size_t)row * Cin + c]) : 0.0f;
+        }
+        __syncthreads();
+
+        float ar[R][4], az[R][4], axn[R][4], ahn[R][4];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            ar[r][j] = b_r[j];
+            az[r][j] = b_z[j];
+            axn[r][j] = b_xn[j];
+            ahn[r][j] = b_hn[j];
+          }
+        }
+        // input projection x_t @ W_ih
+#pragma unroll 2
+        for (int k = 0; k < Cin; ++k) {
+          float wr[4], wz[4], wn[4], xv[R];
+          const T* wk = Wih + (size_t)k * G + j0;
+          Op<T>::load4(wk, wr);
+          Op<T>::load4(wk + H, wz);
+          Op<T>::load4(wk + 2 * H, wn);
+          load_rows<R>(xs + k * Bt + rr0, xv);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              ar[r][j] = fmaf(xv[r], wr[j], ar[r][j]);
+              az[r][j] = fmaf(xv[r], wz[j], az[r][j]);
+              axn[r][j] = fmaf(xv[r], wn[j], axn[r][j]);
+            }
+          }
+        }
+        // recurrent product h @ W_hh, h rounded to the operand type
+#pragma unroll 2
+        for (int k = 0; k < H; ++k) {
+          float wr[4], wz[4], wn[4], hv[R];
+          const T* wk = Whh + (size_t)k * G + j0;
+          Op<T>::load4(wk, wr);
+          Op<T>::load4(wk + H, wz);
+          Op<T>::load4(wk + 2 * H, wn);
+          load_rows<R>(hc + k * Bt + rr0, hv);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float h = Op<T>::operand(hv[r]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              ar[r][j] = fmaf(h, wr[j], ar[r][j]);
+              az[r][j] = fmaf(h, wz[j], az[r][j]);
+              ahn[r][j] = fmaf(h, wn[j], ahn[r][j]);
+            }
+          }
+        }
+        // gates (f32): r, z, n = tanh(xn + r * hn), h' = (1 - z) n + z h
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = row0 + rr0 + r;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float rg = sigmoid_f(ar[r][j]);
+            const float zg = sigmoid_f(az[r][j]);
+            const float ng = tanhf(axn[r][j] + rg * ahn[r][j]);
+            const int sidx = (j0 + j) * Bt + rr0 + r;
+            const float hnew = (1.0f - zg) * ng + zg * hc[sidx];
+            hnx[sidx] = hnew;
+            if (row < N) {
+              xout[((size_t)t * N + row) * 2 * H + d * H + j0 + j] =
+                  Op<T>::from_f(hnew);
+              if (s == L - 1)
+                p.hn[((size_t)(2 * l + d) * N + row) * H + j0 + j] = hnew;
+            }
+          }
+        }
+        __syncthreads();
+        float* tmp = hc;
+        hc = hnx;
+        hnx = tmp;
+      }
+    }
+  }
+}
+
+template <typename T, int R>
+static int launch_typed(const StackParams& p, int block_rows_y,
+                        cudaStream_t stream) {
+  const int TX = p.H / 4;
+  const int threads = TX * block_rows_y;
+  const int Bt = block_rows_y * R;
+  const int cmax = p.C0 > 2 * p.H ? p.C0 : 2 * p.H;
+  const size_t smem = (size_t)(2 * p.H + cmax) * Bt * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bigru_stack_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int grid = (p.N + Bt - 1) / Bt;
+  bigru_stack_kernel<T, R><<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. wih/bih/whh/bhh: host arrays of NL device
+// pointers. rows_per_thread (R) in {1, 2, 4, 8}; block_rows_y (TY) threads
+// along the batch, TX = H / 4 along the hidden units, TX * TY <= 256.
+// Returns 0 or a cudaError_t value.
+int bigru_stack_launch(int dtype, const void* x, void* out, void* scratch,
+                       void* hn, const uint64_t* wih, const uint64_t* bih,
+                       const uint64_t* whh, const uint64_t* bhh, int NL, int L,
+                       int N, int C0, int H, int rows_per_thread,
+                       int block_rows_y, void* stream) {
+  if (NL < 1 || NL > BIGRU_MAX_LAYERS || H < 4 || H % 4 != 0 || L < 1 ||
+      N < 1 || C0 < 1 || block_rows_y < 1 ||
+      (H / 4) * block_rows_y > BIGRU_THREADS)
+    return (int)cudaErrorInvalidValue;
+  StackParams p;
+  p.x = x;
+  p.out = out;
+  p.scratch = scratch;
+  p.hn = static_cast<float*>(hn);
+  for (int l = 0; l < NL; ++l) {
+    p.wih[l] = reinterpret_cast<const void*>(wih[l]);
+    p.bih[l] = reinterpret_cast<const float*>(bih[l]);
+    p.whh[l] = reinterpret_cast<const void*>(whh[l]);
+    p.bhh[l] = reinterpret_cast<const float*>(bhh[l]);
+  }
+  p.NL = NL;
+  p.L = L;
+  p.N = N;
+  p.C0 = C0;
+  p.H = H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = rows_per_thread;
+  if (dtype == 0) {
+    if (R == 8) return launch_typed<float, 8>(p, block_rows_y, s);
+    if (R == 4) return launch_typed<float, 4>(p, block_rows_y, s);
+    if (R == 2) return launch_typed<float, 2>(p, block_rows_y, s);
+    if (R == 1) return launch_typed<float, 1>(p, block_rows_y, s);
+  } else if (dtype == 1) {
+    if (R == 8) return launch_typed<__nv_bfloat16, 8>(p, block_rows_y, s);
+    if (R == 4) return launch_typed<__nv_bfloat16, 4>(p, block_rows_y, s);
+    if (R == 2) return launch_typed<__nv_bfloat16, 2>(p, block_rows_y, s);
+    if (R == 1) return launch_typed<__nv_bfloat16, 1>(p, block_rows_y, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

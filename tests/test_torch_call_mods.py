@@ -1,0 +1,121 @@
+"""Golden gate for the port: call_mods BAM -> modbam on CPU against
+tests/goldens/mmml.tsv, through the library and through the CLI.
+
+The goldens came from ccsmeth_tpu's XLA path on 8 virtual CPU devices
+(tests/make_goldens.py:29-30), whose shard shapes move the last ulp of the
+probs; so MM strings and row order must be equal and ML bytes at most 1 apart.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from ccsmeth_tpu_torch.bamio import BamReader
+from ccsmeth_tpu_torch.pipeline.call_mods import CallModsConfig, call_mods_bam
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLD = os.path.join(REPO, "tests", "goldens")
+BAM = os.path.join(GOLD, "reads.bam")
+REF = os.path.join(GOLD, "ref.fa")
+CKPT = os.path.join(GOLD, "attbigru2s_2x64.ckpt.npz")
+
+
+def _dump(modbam: str) -> list[tuple[str, str, str]]:
+    """qname, MM, ML rows as tests/make_goldens.py:91-97 writes them."""
+    rows = []
+    for rec in BamReader(modbam):
+        mm = rec.get_tag("MM") if rec.has_tag("MM") else "."
+        ml = (",".join(str(int(x)) for x in rec.get_tag("ML"))
+              if rec.has_tag("ML") else ".")
+        rows.append((rec.qname, mm, ml))
+    return rows
+
+
+def _compare_with_golden(rows):
+    with open(os.path.join(GOLD, "mmml.tsv")) as f:
+        gold = [tuple(line.rstrip("\n").split("\t")) for line in f]
+    assert [r[0] for r in rows] == [g[0] for g in gold]
+    assert [r[1] for r in rows] == [g[1] for g in gold]
+    n_bytes = n_diff = 0
+    for (_q, _mm, ml), (_gq, _gmm, gml) in zip(rows, gold):
+        assert (ml == ".") == (gml == ".")
+        if ml == ".":
+            continue
+        a = np.asarray(ml.split(","), np.int64)
+        b = np.asarray(gml.split(","), np.int64)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1
+        n_bytes += a.size
+        n_diff += int((a != b).sum())
+    assert n_bytes > 0
+    print("ML bytes differing from the golden by 1: {} of {}".format(
+        n_diff, n_bytes))
+
+
+def test_call_mods_bam_matches_golden(tmp_path):
+    cfg = CallModsConfig(model_file=CKPT, mode="align", ref=REF, batch_size=64,
+                         layer_rnn=2, hid_rnn=64, threads=2, no_sort=True,
+                         device="cpu")
+    _compare_with_golden(_dump(call_mods_bam(cfg, BAM, str(tmp_path / "mods"))))
+
+
+def test_cli_call_mods_matches_golden(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    cmd = [sys.executable, "-m", "ccsmeth_tpu_torch.cli", "call_mods",
+           "--input", BAM, "--output", str(tmp_path / "mods"),
+           "--model_file", CKPT, "--mode", "align", "--ref", REF,
+           "--batch_size", "64", "--layer_rnn", "2", "--hid_rnn", "64",
+           "--threads", "2", "--no_sort", "--device", "cpu"]
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    _compare_with_golden(_dump(str(tmp_path / "mods.modbam.bam")))
+
+
+def test_sorted_output_is_indexed(tmp_path):
+    cfg = CallModsConfig(model_file=CKPT, mode="align", ref=REF, batch_size=64,
+                         layer_rnn=2, hid_rnn=64, threads=2, device="cpu")
+    out = call_mods_bam(cfg, BAM, str(tmp_path / "s"))
+    assert os.path.exists(out + ".bai")
+    recs = list(BamReader(out))
+    pos = [(r.ref_id, r.pos) for r in recs]
+    assert pos == sorted(pos) and len(recs) == 24
+
+
+@pytest.mark.parametrize("bad", ["cuda_without_gpu", "randn_h0", "processes",
+                                 "shape_mismatch", "transencoder"])
+def test_unsupported_requests_raise(tmp_path, bad):
+    import torch
+
+    kw = dict(model_file=CKPT, mode="align", ref=REF, layer_rnn=2, hid_rnn=64,
+              device="cpu")
+    if bad == "cuda_without_gpu":
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present")
+        kw["device"] = "cuda"
+        err = RuntimeError
+    elif bad == "randn_h0":
+        kw["h0_mode"] = "randn"
+        err = ValueError
+    elif bad == "processes":
+        kw["num_processes"] = 2
+        err = NotImplementedError
+    elif bad == "shape_mismatch":
+        kw["hid_rnn"] = 256
+        err = ValueError
+    else:
+        kw["model_type"] = "transencoder2s"
+        err = NotImplementedError
+    with pytest.raises(err):
+        call_mods_bam(CallModsConfig(**kw), BAM, str(tmp_path / "x"))
+
+
+def test_cli_rejects_features_tsv(tmp_path):
+    from ccsmeth_tpu_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="features TSV input not yet ported"):
+        main(["call_mods", "-i", os.path.join(GOLD, "features.tsv"),
+              "-o", str(tmp_path / "o"), "-m", CKPT, "--device", "cpu"])

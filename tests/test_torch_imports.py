@@ -1,0 +1,53 @@
+"""The PyTorch port stands alone: importing every module of ccsmeth_tpu_torch
+pulls in no jax, no triton and no module of the JAX package."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "ccsmeth_tpu_torch")
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import ccsmeth_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(ccsmeth_tpu_torch.__path__,
+                                               "ccsmeth_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "triton")
+             or m.split(".")[0].startswith("jax")
+             or m == "ccsmeth_tpu" or m.startswith("ccsmeth_tpu."))
+print(len(names))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_triton_or_jax_package():
+    # a fresh interpreter without tests/conftest.py (which imports jax)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert int(lines[-2]) >= 25  # every module of the package was imported
+    assert lines[-1] == "BAD []", lines[-1]
+
+
+def test_port_sources_never_import_jax_or_the_jax_package():
+    offenders = []
+    for root, _dirs, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                text = fh.read()
+            # the package imports itself relatively, so even its own name
+            # never follows "from" or "import"
+            for needle in ("import jax", "from jax", "from ccsmeth_tpu",
+                           "import ccsmeth_tpu", "import triton"):
+                if needle in text:
+                    offenders.append((os.path.relpath(path, REPO), needle))
+    assert not offenders, offenders
