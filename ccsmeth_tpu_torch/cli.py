@@ -1,9 +1,13 @@
-"""ccsmeth-tpu-torch CLI: the ``call_mods`` subcommand of ``ccsmeth_tpu/cli.py``
-(flags mirror ``cli.py:324-391``) plus ``--device``.
+"""ccsmeth-tpu-torch CLI: the ``call_mods`` and ``train`` subcommands of
+``ccsmeth_tpu/cli.py`` (flags mirror ``cli.py:324-391`` and ``:238-294``) plus
+``--device``.
 
 Usage:
     python -m ccsmeth_tpu_torch.cli call_mods -i reads.bam -o out -m model.npz \\
         --mode align --ref ref.fa [--device cuda|cpu] [--precision fp32|bf16]
+    python -m ccsmeth_tpu_torch.cli train --train_file train.tsv \\
+        --valid_file valid.tsv --model_dir models [--device cuda|cpu] \\
+        [--precision fp32|bf16]
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ def _add_extraction_args(p):
                    help=argparse.SUPPRESS)
 
 
-def _add_model_args(p):
+def _add_model_args(p, train=False):
     g = p.add_argument_group("MODEL_HYPER")
     g.add_argument("--model_type", type=str, default="attbigru2s",
                    choices=["attbilstm2s", "attbigru2s", "transencoder2s",
@@ -67,7 +71,7 @@ def _add_model_args(p):
     g.add_argument("--is_map", type=str, default="no",
                    help="if using mapping features, yes or no, default no")
     g.add_argument("--class_num", type=int, default=2)
-    g.add_argument("--dropout_rate", type=float, default=0)
+    g.add_argument("--dropout_rate", type=float, default=0.5 if train else 0)
     gr = p.add_argument_group("MODEL_HYPER RNN")
     gr.add_argument("--layer_rnn", type=int, default=3, help="BiRNN layer num, default 3")
     gr.add_argument("--hid_rnn", type=int, default=256, help="BiRNN hidden size, default 256")
@@ -107,6 +111,89 @@ def main_call_mods(args):
     if args.seq_len % 2 == 0:
         raise ValueError("--seq_len must be odd")
     call_mods_bam(cfg, args.input, args.output)
+
+
+def main_train(args):
+    from .training import TrainConfig, train
+
+    display_args(args)
+    train(TrainConfig(
+        train_file=args.train_file, valid_file=args.valid_file,
+        model_dir=args.model_dir, model_type=args.model_type, seq_len=args.seq_len,
+        is_npass=str2bool(args.is_npass), is_sn=str2bool(args.is_sn),
+        is_map=str2bool(args.is_map), is_stds=str2bool(args.is_stds),
+        class_num=args.class_num, dropout_rate=args.dropout_rate,
+        layer_rnn=args.layer_rnn, hid_rnn=args.hid_rnn,
+        layer_trans=args.layer_trans, nhead=args.nhead, d_model=args.d_model,
+        dim_ff=args.dim_ff, optim_type=args.optim_type, batch_size=args.batch_size,
+        lr_scheduler=args.lr_scheduler, lr=args.lr, lr_decay=args.lr_decay,
+        lr_decay_step=args.lr_decay_step, lr_patience=args.lr_patience,
+        lr_mode_strategy=args.lr_mode_strategy, max_epoch_num=args.max_epoch_num,
+        min_epoch_num=args.min_epoch_num, pos_weight=args.pos_weight,
+        step_interval=args.step_interval, init_model=args.init_model,
+        step_fuse=args.step_fuse, dl_offsets=args.dl_offsets,
+        train_transfer=args.train_transfer,
+        save_opt_state=args.save_opt_state, resume_from=args.resume_from,
+        rnn_backend=args.rnn_backend, precision=args.precision,
+        tseed=args.tseed, device=args.device))
+
+
+def _add_train_args(p):
+    gi = p.add_argument_group("INPUT")
+    gi.add_argument("--train_file", type=str, required=True)
+    gi.add_argument("--valid_file", type=str, required=True)
+    go = p.add_argument_group("OUTPUT")
+    go.add_argument("--model_dir", type=str, required=True)
+    _add_model_args(p, train=True)
+    g = p.add_argument_group("TRAINING")
+    g.add_argument("--optim_type", type=str, default="Adam",
+                   choices=["Adam", "RMSprop", "SGD", "Ranger", "LookaheadAdam"])
+    g.add_argument("--batch_size", type=int, default=512)
+    g.add_argument("--lr_scheduler", type=str, default="StepLR",
+                   choices=["StepLR", "ReduceLROnPlateau"])
+    g.add_argument("--lr", type=float, default=0.001)
+    g.add_argument("--lr_decay", type=float, default=0.1)
+    g.add_argument("--lr_decay_step", type=int, default=1)
+    g.add_argument("--lr_patience", type=int, default=0)
+    g.add_argument("--lr_mode_strategy", type=str, default="last",
+                   choices=["last", "mean", "max"])
+    g.add_argument("--max_epoch_num", type=int, default=50)
+    g.add_argument("--min_epoch_num", type=int, default=10)
+    g.add_argument("--pos_weight", type=float, default=1.0)
+    g.add_argument("--step_interval", type=int, default=500)
+    g.add_argument("--step_fuse", type=int, default=8,
+                   help="batches per host->device copy between logging "
+                        "boundaries, run as that many steps in turn; "
+                        "1 = one copy per step")
+    g.add_argument("--dl_num_workers", type=int, default=0,
+                   help="[IGNORED] data loading is vectorized in-process")
+    g.add_argument("--dl_offsets", action="store_true", default=False,
+                   help="stream training data out-of-core (chunked windowed "
+                        "shuffle) instead of loading it all in RAM")
+    g.add_argument("--init_model", type=str, default=None)
+    g.add_argument("--rnn_backend", type=str, default="xla",
+                   choices=["xla", "pallas"],
+                   help="kept for flag parity: on cuda every value trains the "
+                        "BiGRU through the hand-written kernels, on cpu "
+                        "through their plain PyTorch versions")
+    g.add_argument("--precision", type=str, default="fp32",
+                   choices=["fp32", "bf16"],
+                   help="operand type of the BiGRU (f32 accumulation), default fp32")
+    g.add_argument("--train_transfer", type=str, default="fp32",
+                   choices=["fp32", "bf16", "packed"],
+                   help="wire format of the train batch: fp32 (bf16 and "
+                        "packed are not yet ported; they raise)")
+    g.add_argument("--use_compile", type=str, default="no",
+                   help="[IGNORED] reference-CLI compatibility")
+    g.add_argument("--save_opt_state", action="store_true", default=False,
+                   help="persist optimizer state + epoch next to each checkpoint")
+    g.add_argument("--resume_from", type=str, default=None,
+                   help="params .ckpt.npz to resume from (restores optimizer "
+                        "state + epoch when its .train_state.npz, written by "
+                        "this package, exists)")
+    g.add_argument("--tseed", type=int, default=1234)
+    g.add_argument("--device", type=str, default="cuda",
+                   help="cuda[:i] (default) or cpu; cuda without a GPU raises")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -173,6 +260,10 @@ def get_parser() -> argparse.ArgumentParser:
                    help="[compat] advisory only")
     p.add_argument("--tseed", type=int, default=1234)
     p.set_defaults(func=main_call_mods)
+
+    p = sub.add_parser("train", help="train a model")
+    _add_train_args(p)
+    p.set_defaults(func=main_train)
     return parser
 
 

@@ -5,7 +5,8 @@ scalar-kinetics, two-strand GRU family:
   - per strand, the kmer embedding concatenated with the scalar kinetics
     channels (``attrnn.py:199-214``);
   - both strands stacked on the batch axis and run through ONE shared BiGRU
-    (``attrnn.py:243-244``), by default kernel K1 (``ops/bigru.py``);
+    (``attrnn.py:243-244``): kernel K1 (``ops/bigru.py``) for inference,
+    kernels K4/K5 (``ops/bigru_vjp.py``) for training;
   - the attention query is the last layer's [fwd; bwd] h_n
     (``attrnn.py:217-221``);
   - attention per strand, then ``fc1`` and softmax (``attrnn.py:302-323``).
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import bigru
+from ..ops import bigru, bigru_vjp
 from ..utils.constants import NEMBED_BASE, N_VOCAB
 from .attention import Attention, init_attention
 from .config import AttRNNConfig
@@ -99,25 +100,40 @@ class AttRNN(nn.Module):
             parts.append(chan("maps"))
         return torch.cat(parts, dim=2)
 
-    def forward(self, feats: dict, compute_dtype=torch.float32, rnn_fn=None):
+    def forward(self, feats: dict, compute_dtype=torch.float32, train=False,
+                generator=None, rnn_fn=None):
         """feats: kmer, kpass, ipd_means, pw_means (and stds/sns/maps when the
         config enables them), each also with suffix '2' for the reverse
         strand, as (B, L) tensors (sns (B, 4)). The BiGRU runs with operands
-        in compute_dtype through ``rnn_fn``: ``ops.bigru.birnn_stack`` (K1)
-        by default, or its plain version ``ops.bigru.birnn_stack_plain``;
-        attention and head run in f32."""
-        rnn_fn = bigru.birnn_stack if rnn_fn is None else rnn_fn
+        in compute_dtype; attention and head run in f32.
+
+        train=False (inference) runs the BiGRU through ``rnn_fn``:
+        ``ops.bigru.birnn_stack`` (K1) by default, or its plain version
+        ``ops.bigru.birnn_stack_plain``. train=True runs it layer by layer
+        through ``ops.bigru_vjp.birnn_apply_trainable`` (K4/K5), with dropout
+        at cfg.dropout_rate between layers and on the context before fc1
+        (``attrnn.py:257-267,320-321``), masks drawn from ``generator``
+        (no generator: no dropout)."""
         cfg = self.cfg
         H = cfg.hidden_size
         B = feats["kmer"].shape[0]
         both = torch.cat([self.strand_input(feats, ""),
                           self.strand_input(feats, "2")], dim=0)  # (2B, L, C)
-        x_tm = both.transpose(0, 1).to(compute_dtype).contiguous()
-        out_tm, h_n = rnn_fn(self.rnn.stacked(compute_dtype), x_tm, compute_dtype)
-        outs = out_tm.transpose(0, 1).float()  # (2B, L, 2H)
+        if train:
+            outs, h_n = bigru_vjp.birnn_apply_trainable(
+                self.rnn.stacked(), both, compute_dtype, cfg.dropout_rate,
+                generator)
+        else:
+            rnn_fn = bigru.birnn_stack if rnn_fn is None else rnn_fn
+            x_tm = both.transpose(0, 1).to(compute_dtype).contiguous()
+            out_tm, h_n = rnn_fn(self.rnn.stacked(compute_dtype), x_tm,
+                                 compute_dtype)
+            outs = out_tm.transpose(0, 1).float()  # (2B, L, 2H)
         last = h_n.reshape(cfg.num_layers, 2, 2 * B, H)[-1]  # (2, 2B, H)
         query = last.transpose(0, 1).reshape(2 * B, 1, 2 * H)
         ctx, _ = self._att3(query, outs)  # (2B, 2H)
         out = torch.cat([ctx[:B], ctx[B:]], dim=1)  # (B, 4H)
+        if train:
+            out = bigru_vjp.dropout(out, cfg.dropout_rate, generator)
         logits = self.fc1(out)
         return logits, torch.softmax(logits, dim=1)

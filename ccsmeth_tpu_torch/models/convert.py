@@ -2,7 +2,9 @@
 
 ``attrnn_state_dict_from_params`` turns a ``ccsmeth_tpu`` params pytree
 (numpy leaves: ``init_attrnn`` output or ``params_io.load_params`` of a native
-``.npz``) into ``AttRNN``'s state_dict. ``torch_ckpt_to_params`` is the
+``.npz``) into ``AttRNN``'s state_dict, and ``attrnn_params_from_state_dict``
+carries it back, so a model trained here is saved with ``params_io`` in the
+JAX package's own ``.ckpt.npz`` format. ``torch_ckpt_to_params`` is the
 counterpart of ``ccsmeth_tpu/models/convert.py``'s: reference ``.ckpt`` ->
 params pytree.
 
@@ -39,6 +41,30 @@ def attrnn_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tenso
     sd["fc1.weight"] = t(np.asarray(params["fc1"]["w"]).T)
     sd["fc1.bias"] = t(params["fc1"]["b"])
     return sd
+
+
+def attrnn_params_from_state_dict(sd) -> dict:
+    """AttRNN state_dict (tensors on any device, or numpy) -> params pytree
+    (numpy float32): the inverse of ``attrnn_state_dict_from_params``."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                        np.float32) for k, v in sd.items()}
+    num_layers = sum(1 for k in sd if k.startswith("rnn.weight_ih_l")
+                     and not k.endswith("_reverse"))
+    return {"embed": sd["embed.weight"], "rnn": _rnn_layers(sd, "rnn", num_layers),
+            "att": _attention(sd), "fc1": _lin(sd, "fc1")}
+
+
+# state_dict keys stored (out, in) here and input-major in the params pytree
+_TRANSPOSED = ("fc1.weight", "_att3.Wa.weight", "_att3.Ua.weight",
+               "_att3.va.weight")
+
+
+def gc_dims(names) -> list:
+    """Per state_dict key, the dims Ranger's gradient centralization averages
+    over so that it equals the JAX package's on the params pytree (every dim
+    but the first of the pytree leaf): (0,) for the Linear weights, which the
+    pytree keeps transposed, None (the default) for the rest."""
+    return [(0,) if n in _TRANSPOSED else None for n in names]
 
 
 def load_torch_state_dict(path: str) -> "OrderedDict[str, np.ndarray]":

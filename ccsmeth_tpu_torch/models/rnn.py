@@ -42,6 +42,17 @@ def init_rnn_params(rng: np.random.RandomState, input_size: int, hidden_size: in
     return layers
 
 
+def gru_cell(xg: torch.Tensor, hg: torch.Tensor, h: torch.Tensor):
+    """One GRU step from its gate sums: xg = x_t W_ih + b_ih and
+    hg = h W_hh + b_hh, both (N, 3H) in f32, gate order r, z, n. Returns
+    (h', r, z, n); hg[:, 2H:] is hg_n, the recurrent part of n."""
+    H = h.shape[-1]
+    r = torch.sigmoid(xg[:, :H] + hg[:, :H])
+    z = torch.sigmoid(xg[:, H:2 * H] + hg[:, H:2 * H])
+    n = torch.tanh(xg[:, 2 * H:] + r * hg[:, 2 * H:])
+    return (1.0 - z) * n + z * h, r, z, n
+
+
 def birnn_tm(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
              compute_dtype=torch.float32):
     """Time-major stacked BiGRU.
@@ -72,12 +83,7 @@ def birnn_tm(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
             ys = [None] * L
             for s in range(L):
                 t = s if d == 0 else L - 1 - s
-                hg = op(h) @ w + b
-                g = xg[t]
-                r = torch.sigmoid(g[:, :H] + hg[:, :H])
-                z = torch.sigmoid(g[:, H:2 * H] + hg[:, H:2 * H])
-                n = torch.tanh(g[:, 2 * H:] + r * hg[:, 2 * H:])
-                h = (1.0 - z) * n + z * h
+                h = gru_cell(xg[t], op(h) @ w + b, h)[0]
                 ys[t] = h
             h_ns.append(h)
             outs.append(torch.stack(ys))

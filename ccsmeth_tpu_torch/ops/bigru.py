@@ -16,28 +16,21 @@ JAX package (``bigru_pallas.py:411-420``):
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version, ``models/rnn.py``'s BiGRU with zero h0. ``launches`` counts kernel
 launches. The kernel is compiled with ``nvcc`` at first use into
-``build/kernels/`` beside the package; nothing here imports a GPU toolchain at
-import time.
+``build/kernels/`` beside the package (``nvcc.py``); nothing here imports a GPU
+toolchain at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 
 import torch
 
 from ..models.rnn import birnn_tm
+from . import nvcc
 
-SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                   "bigru_stack.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SRC = "bigru_stack.cu"
 THREADS = 256  # BIGRU_THREADS in the source
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,39 +43,12 @@ _lock = threading.Lock()
 build_log = ""  # nvcc's -Xptxas -v report of the last build
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def library_path() -> str:
-    """Build output path, keyed by the source's content and the flags."""
-    h = hashlib.sha256()
-    with open(SRC, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, "libbigru_stack_{}.so".format(
-        h.hexdigest()[:16]))
-
-
 def build() -> str:
     """Compile ``csrc/bigru_stack.cu`` if its library is missing; returns the
     library path. Raises with nvcc's output when the build fails."""
     global build_log
-    so = library_path()
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "{}.{}.tmp".format(so, os.getpid())
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, SRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(
-            " ".join(cmd), proc.stdout, proc.stderr))
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, so)
+    so, log = nvcc.build(SRC)
+    build_log = log or build_log
     return so
 
 

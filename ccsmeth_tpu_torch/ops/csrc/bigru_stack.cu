@@ -46,12 +46,9 @@
 //   -Xcompiler -fPIC (ops/bigru.py builds it at first use). The C entry point
 //   returns cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gru_common.cuh"
 
 #define BIGRU_MAX_LAYERS 8
-#define BIGRU_THREADS 256
 
 struct StackParams {
   const void* x;      // (L, N, C0) operand type
@@ -64,71 +61,6 @@ struct StackParams {
   const float* bhh[BIGRU_MAX_LAYERS];  // (2, 3H) f32
   int NL, L, N, C0, H;
 };
-
-template <typename T>
-struct Op;
-
-template <>
-struct Op<float> {
-  static __device__ __forceinline__ void load4(const float* p, float w[4]) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  }
-  static __device__ __forceinline__ float to_f(float v) { return v; }
-  static __device__ __forceinline__ float from_f(float v) { return v; }
-  // the h operand of the recurrent product, in the operand type
-  static __device__ __forceinline__ float operand(float v) { return v; }
-};
-
-template <>
-struct Op<__nv_bfloat16> {
-  static __device__ __forceinline__ void load4(const __nv_bfloat16* p,
-                                               float w[4]) {
-    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = __uint_as_float(v.x << 16);
-    w[1] = __uint_as_float(v.x & 0xffff0000u);
-    w[2] = __uint_as_float(v.y << 16);
-    w[3] = __uint_as_float(v.y & 0xffff0000u);
-  }
-  static __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float operand(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
-
-// R consecutive f32 values from shared memory (16-byte aligned when R % 4 == 0)
-template <int R>
-__device__ __forceinline__ void load_rows(const float* p, float v[R]) {
-  if constexpr (R % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < R; i += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + i);
-      v[i] = q.x;
-      v[i + 1] = q.y;
-      v[i + 2] = q.z;
-      v[i + 3] = q.w;
-    }
-  } else if constexpr (R == 2) {
-    const float2 q = *reinterpret_cast<const float2*>(p);
-    v[0] = q.x;
-    v[1] = q.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < R; ++i) v[i] = p[i];
-  }
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 template <typename T, int R>
 __global__ void __launch_bounds__(BIGRU_THREADS, 1)
@@ -196,45 +128,8 @@ __global__ void __launch_bounds__(BIGRU_THREADS, 1)
             ahn[r][j] = b_hn[j];
           }
         }
-        // input projection x_t @ W_ih
-#pragma unroll 2
-        for (int k = 0; k < Cin; ++k) {
-          float wr[4], wz[4], wn[4], xv[R];
-          const T* wk = Wih + (size_t)k * G + j0;
-          Op<T>::load4(wk, wr);
-          Op<T>::load4(wk + H, wz);
-          Op<T>::load4(wk + 2 * H, wn);
-          load_rows<R>(xs + k * Bt + rr0, xv);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              ar[r][j] = fmaf(xv[r], wr[j], ar[r][j]);
-              az[r][j] = fmaf(xv[r], wz[j], az[r][j]);
-              axn[r][j] = fmaf(xv[r], wn[j], axn[r][j]);
-            }
-          }
-        }
-        // recurrent product h @ W_hh, h rounded to the operand type
-#pragma unroll 2
-        for (int k = 0; k < H; ++k) {
-          float wr[4], wz[4], wn[4], hv[R];
-          const T* wk = Whh + (size_t)k * G + j0;
-          Op<T>::load4(wk, wr);
-          Op<T>::load4(wk + H, wz);
-          Op<T>::load4(wk + 2 * H, wn);
-          load_rows<R>(hc + k * Bt + rr0, hv);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float h = Op<T>::operand(hv[r]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              ar[r][j] = fmaf(h, wr[j], ar[r][j]);
-              az[r][j] = fmaf(h, wz[j], az[r][j]);
-              ahn[r][j] = fmaf(h, wn[j], ahn[r][j]);
-            }
-          }
-        }
+        gru_gate_sums<T, R>(xs, Cin, hc, H, Bt, rr0, j0, Wih, Whh, ar, az, axn,
+                            ahn);
         // gates (f32): r, z, n = tanh(xn + r * hn), h' = (1 - z) n + z h
 #pragma unroll
         for (int r = 0; r < R; ++r) {
