@@ -60,7 +60,8 @@ def _add_model_args(p, train=False):
     g.add_argument("--model_type", type=str, default="attbigru2s",
                    choices=["attbilstm2s", "attbigru2s", "transencoder2s",
                             "attbilstm2s2", "attbigru2s2"],
-                   help="model type, default attbigru2s (the only one ported)")
+                   help="model type, default attbigru2s (ported: attbigru2s, "
+                        "attbilstm2s)")
     g.add_argument("--seq_len", type=int, default=21, help="len of kmer, default 21")
     g.add_argument("--is_npass", type=str, default="yes",
                    help="if using num_pass features, yes or no, default yes")
@@ -174,11 +175,11 @@ def _add_train_args(p):
     g.add_argument("--rnn_backend", type=str, default="xla",
                    choices=["xla", "pallas"],
                    help="kept for flag parity: on cuda every value trains the "
-                        "BiGRU through the hand-written kernels, on cpu "
+                        "BiRNN through the hand-written kernels, on cpu "
                         "through their plain PyTorch versions")
     g.add_argument("--precision", type=str, default="fp32",
                    choices=["fp32", "bf16"],
-                   help="operand type of the BiGRU (f32 accumulation), default fp32")
+                   help="operand type of the BiRNN (f32 accumulation), default fp32")
     g.add_argument("--train_transfer", type=str, default="fp32",
                    choices=["fp32", "bf16", "packed"],
                    help="wire format of the train batch: fp32 (bf16 and "
@@ -225,13 +226,13 @@ def get_parser() -> argparse.ArgumentParser:
     gc.add_argument("--rnn_backend", type=str, default="xla",
                     choices=["xla", "pallas", "pallas_layer"],
                     help="kept for flag parity: on cuda every value runs the "
-                         "BiGRU through the hand-written kernel, on cpu "
+                         "BiRNN through the hand-written kernel, on cpu "
                          "through its plain PyTorch version")
     gc.add_argument("--use_compile", type=str, default="no",
                     help="[IGNORED] reference-CLI compatibility")
     gc.add_argument("--precision", type=str, default="fp32",
                     choices=["fp32", "bf16"],
-                    help="operand type of the BiGRU (f32 accumulation), default fp32")
+                    help="operand type of the BiRNN (f32 accumulation), default fp32")
     gc.add_argument("--sort_mem_mb", type=int, default=512,
                     help="memory budget for the output-modbam external merge "
                          "sort, default 512")

@@ -1,17 +1,19 @@
-"""attbigru2s, the default call_mods model, as a torch nn.Module.
+"""attbigru2s (the default call_mods model) and attbilstm2s as a torch
+nn.Module.
 
 Counterpart of ``ccsmeth_tpu/models/attrnn.py`` (``apply_attrnn :224``) for the
-scalar-kinetics, two-strand GRU family:
+scalar-kinetics, two-strand families, GRU or LSTM cell:
   - per strand, the kmer embedding concatenated with the scalar kinetics
     channels (``attrnn.py:199-214``);
-  - both strands stacked on the batch axis and run through ONE shared BiGRU
-    (``attrnn.py:243-244``): kernel K1 (``ops/bigru.py``) for inference,
-    kernels K4/K5 (``ops/bigru_vjp.py``) for training;
+  - both strands stacked on the batch axis and run through ONE shared BiRNN
+    (``attrnn.py:243-244``): kernel K1 (``ops/bigru.py``, both cells) for
+    inference; kernels K4/K5 (``ops/bigru_vjp.py``, GRU) or K6
+    (``ops/bilstm_vjp.py``, LSTM) for training;
   - the attention query is the last layer's [fwd; bwd] h_n
     (``attrnn.py:217-221``);
   - attention per strand, then ``fc1`` and softmax (``attrnn.py:302-323``).
 
-h0 is zero, the engine's deterministic default. Attribute names reproduce the
+h0 (and the LSTM's c0) is zero, the engine's deterministic default. Attribute names reproduce the
 reference state_dict keys (``embed``, ``rnn.weight_ih_l{k}[_reverse]`` ...,
 ``_att3.{Wa,Ua,va}``, ``fc1``), so a reference checkpoint loads with
 ``load_state_dict`` once its ``module.`` prefix is stripped.
@@ -29,7 +31,7 @@ from ..ops import bigru, bigru_vjp
 from ..utils.constants import NEMBED_BASE, N_VOCAB
 from .attention import Attention, init_attention
 from .config import AttRNNConfig
-from .rnn import BiGRU, init_rnn_params
+from .rnn import BiRNN, init_rnn_params
 
 
 def _lin_init(rng, fan_in, fan_out, initrange=None):
@@ -63,19 +65,24 @@ def init_attrnn(seed, cfg: AttRNNConfig) -> dict:
     return params
 
 
+PORTED = ("attbigru2s", "attbilstm2s")
+
+
 class AttRNN(nn.Module):
-    """attbigru2s forward: feats dict of tensors -> (logits, probs)."""
+    """attbigru2s / attbilstm2s forward: feats dict of tensors -> (logits,
+    probs)."""
 
     def __init__(self, cfg: AttRNNConfig):
         super().__init__()
-        if cfg.model_type != "attbigru2s":
+        if cfg.model_type not in PORTED:
             raise NotImplementedError(
-                "model_type {} is not yet ported (attbigru2s only)".format(
-                    cfg.model_type))
+                "model_type {} is not yet ported ({} only)".format(
+                    cfg.model_type, ", ".join(PORTED)))
         self.cfg = cfg
         H = cfg.hidden_size
         self.embed = nn.Embedding(N_VOCAB, NEMBED_BASE)
-        self.rnn = BiGRU(NEMBED_BASE + cfg.feas_ccs, H, cfg.num_layers)
+        self.rnn = BiRNN(NEMBED_BASE + cfg.feas_ccs, H, cfg.num_layers,
+                         cfg.rnn_cell)
         self._att3 = Attention(2 * H, 2 * H, H)
         self.fc1 = nn.Linear(4 * H, cfg.num_classes)
 
@@ -104,13 +111,14 @@ class AttRNN(nn.Module):
                 generator=None, rnn_fn=None):
         """feats: kmer, kpass, ipd_means, pw_means (and stds/sns/maps when the
         config enables them), each also with suffix '2' for the reverse
-        strand, as (B, L) tensors (sns (B, 4)). The BiGRU runs with operands
+        strand, as (B, L) tensors (sns (B, 4)). The BiRNN runs with operands
         in compute_dtype; attention and head run in f32.
 
-        train=False (inference) runs the BiGRU through ``rnn_fn``:
+        train=False (inference) runs the BiRNN through ``rnn_fn``:
         ``ops.bigru.birnn_stack`` (K1) by default, or its plain version
         ``ops.bigru.birnn_stack_plain``. train=True runs it layer by layer
-        through ``ops.bigru_vjp.birnn_apply_trainable`` (K4/K5), with dropout
+        through ``ops.bigru_vjp.birnn_apply_trainable`` (K4/K5 for the GRU,
+        K6 for the LSTM), with dropout
         at cfg.dropout_rate between layers and on the context before fc1
         (``attrnn.py:257-267,320-321``), masks drawn from ``generator``
         (no generator: no dropout)."""
@@ -122,12 +130,12 @@ class AttRNN(nn.Module):
         if train:
             outs, h_n = bigru_vjp.birnn_apply_trainable(
                 self.rnn.stacked(), both, compute_dtype, cfg.dropout_rate,
-                generator)
+                generator, cfg.rnn_cell)
         else:
             rnn_fn = bigru.birnn_stack if rnn_fn is None else rnn_fn
             x_tm = both.transpose(0, 1).to(compute_dtype).contiguous()
             out_tm, h_n = rnn_fn(self.rnn.stacked(compute_dtype), x_tm,
-                                 compute_dtype)
+                                 compute_dtype, cfg.rnn_cell)
             outs = out_tm.transpose(0, 1).float()  # (2B, L, 2H)
         last = h_n.reshape(cfg.num_layers, 2, 2 * B, H)[-1]  # (2, 2B, H)
         query = last.transpose(0, 1).reshape(2 * B, 1, 2 * H)

@@ -1,15 +1,17 @@
-"""Bidirectional multi-layer GRU in plain PyTorch.
+"""Bidirectional multi-layer GRU and LSTM in plain PyTorch.
 
-Counterpart of ``ccsmeth_tpu/models/rnn.py`` (``birnn_apply :49``, GRU cell).
-Gate math follows torch.nn.GRU: gate order r, z, n with ``b_hn`` inside the
-reset product (``ccsmeth_tpu/models/rnn.py:92-95``). This is also the plain
-version beside kernel K1 (``ops/bigru.py``): with bf16 operands it rounds the
-weights, the layer inputs and the h operand of the recurrent product to bf16,
-multiplies exactly and sums in float32, as the kernel does.
+Counterpart of ``ccsmeth_tpu/models/rnn.py`` (``birnn_apply :49``). Gate math
+follows torch.nn.GRU and torch.nn.LSTM: GRU gate order r, z, n with ``b_hn``
+inside the reset product (``ccsmeth_tpu/models/rnn.py:92-95``); LSTM gate
+order i, f, g, o (``:104-115``). This is also the plain version beside kernel
+K1 (``ops/bigru.py``): with bf16 operands it rounds the weights, the layer
+inputs and the h operand of the recurrent product to bf16, multiplies exactly
+and sums in float32, as the kernel does; the LSTM's c stays float32.
 
-``BiGRU`` holds its parameters under nn.GRU's names (``weight_ih_l{k}``,
-``weight_hh_l{k}``, ``bias_ih_l{k}``, ``bias_hh_l{k}``, ``_reverse`` for the
-backward direction), so a reference checkpoint loads into it unchanged.
+``BiRNN`` holds its parameters under nn.GRU's or nn.LSTM's names
+(``weight_ih_l{k}``, ``weight_hh_l{k}``, ``bias_ih_l{k}``, ``bias_hh_l{k}``,
+``_reverse`` for the backward direction), so a reference checkpoint loads
+into it unchanged.
 """
 
 from __future__ import annotations
@@ -53,21 +55,48 @@ def gru_cell(xg: torch.Tensor, hg: torch.Tensor, h: torch.Tensor):
     return (1.0 - z) * n + z * h, r, z, n
 
 
-def birnn_tm(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
-             compute_dtype=torch.float32):
-    """Time-major stacked BiGRU.
+def lstm_cell(g: torch.Tensor, c: torch.Tensor):
+    """One LSTM step from its summed gates g = x_t W_ih + b_ih + h W_hh + b_hh,
+    (N, 4H) in f32, gate order i, f, g, o, and the cell state c (N, H) f32.
+    Returns (h', c', i, f, g, o)."""
+    H = c.shape[-1]
+    i = torch.sigmoid(g[:, :H])
+    f = torch.sigmoid(g[:, H:2 * H])
+    gg = torch.tanh(g[:, 2 * H:3 * H])
+    o = torch.sigmoid(g[:, 3 * H:])
+    c_new = f * c + i * gg
+    return o * torch.tanh(c_new), c_new, i, f, gg, o
 
-    layers: [(w_ih (2, C, 3H), b_ih (2, 3H), w_hh (2, H, 3H), b_hh (2, 3H))]
-    per layer, direction 0 forward and 1 backward (the ``_layer_weights``
-    layout). x: (L, N, C). h0: optional (2*NL, N, H) in torch order; zero by
-    default. Returns (out (L, N, 2H) in compute_dtype, h_n (2*NL, N, H) f32).
-    Between layers the activations are rounded to compute_dtype.
+
+def n_gates(cell: str) -> int:
+    if cell not in ("gru", "lstm"):
+        raise ValueError("cell must be gru or lstm, got {!r}".format(cell))
+    return 3 if cell == "gru" else 4
+
+
+def birnn_tm(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
+             compute_dtype=torch.float32, cell: str = "gru",
+             c0: torch.Tensor | None = None):
+    """Time-major stacked BiGRU or BiLSTM.
+
+    layers: [(w_ih (2, C, G), b_ih (2, G), w_hh (2, H, G), b_hh (2, G))] per
+    layer, G = 3H (GRU) or 4H (LSTM), direction 0 forward and 1 backward (the
+    ``_layer_weights`` layout). x: (L, N, C). h0 (and c0 for the LSTM):
+    optional (2*NL, N, H) in torch order; zero by default. Returns
+    (out (L, N, 2H) in compute_dtype, h_n (2*NL, N, H) f32); c_n is not
+    returned, as in the JAX package. Between layers the activations are
+    rounded to compute_dtype.
     """
     L, N, _ = x.shape
     H = layers[0][2].shape[1]
+    G = n_gates(cell) * H
 
     def op(t):
         return t.to(compute_dtype).float()
+
+    def state0(s0, k):
+        return (torch.zeros((N, H), dtype=torch.float32, device=x.device)
+                if s0 is None else s0[k].float())
 
     inp = x
     h_ns = []
@@ -75,15 +104,19 @@ def birnn_tm(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
         flat = op(inp).reshape(L * N, -1)
         outs = []
         for d in (0, 1):
-            xg = (flat @ op(wih[d]) + bih[d].float()).reshape(L, N, 3 * H)
+            xg = (flat @ op(wih[d]) + bih[d].float()).reshape(L, N, G)
             w = op(whh[d])
             b = bhh[d].float()
-            h = (torch.zeros((N, H), dtype=torch.float32, device=x.device)
-                 if h0 is None else h0[2 * li + d].float())
+            h = state0(h0, 2 * li + d)
+            c = state0(c0, 2 * li + d)
             ys = [None] * L
             for s in range(L):
                 t = s if d == 0 else L - 1 - s
-                h = gru_cell(xg[t], op(h) @ w + b, h)[0]
+                hg = op(h) @ w + b
+                if cell == "gru":
+                    h = gru_cell(xg[t], hg, h)[0]
+                else:
+                    h, c = lstm_cell(xg[t] + hg, c)[:2]
                 ys[t] = h
             h_ns.append(h)
             outs.append(torch.stack(ys))
@@ -92,18 +125,19 @@ def birnn_tm(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
 
 
 def birnn_apply(layers, x: torch.Tensor, h0: torch.Tensor | None = None,
-                compute_dtype=torch.float32):
+                compute_dtype=torch.float32, cell: str = "gru",
+                c0: torch.Tensor | None = None):
     """Batch-major form, the same function as ``ccsmeth_tpu``'s birnn_apply:
     x (B, L, C) -> (outputs (B, L, 2H) f32, h_n (2*NL, B, H) f32)."""
-    out, h_n = birnn_tm(layers, x.transpose(0, 1), h0, compute_dtype)
+    out, h_n = birnn_tm(layers, x.transpose(0, 1), h0, compute_dtype, cell, c0)
     return out.transpose(0, 1).float(), h_n
 
 
 def layer_weights(layer: dict, compute_dtype=torch.float32, device=None):
     """One layer of a params pytree ({'fwd': {'w_ih', 'w_hh', 'b_ih', 'b_hh'},
     'bwd': ...}, torch (G*H, in) layout; numpy arrays or tensors) -> the
-    stacked kernel layout (w_ih (2, C, 3H), b_ih, w_hh (2, H, 3H), b_hh),
-    weights in compute_dtype and biases in f32."""
+    stacked kernel layout (w_ih (2, C, G), b_ih, w_hh (2, H, G), b_hh),
+    G = 3H or 4H, weights in compute_dtype and biases in f32."""
     def both(key, transpose):
         ts = [torch.as_tensor(layer[d][key], device=device) for d in ("fwd", "bwd")]
         return torch.stack([t.T if transpose else t for t in ts])
@@ -114,17 +148,20 @@ def layer_weights(layer: dict, compute_dtype=torch.float32, device=None):
             both("b_hh", False).float().contiguous())
 
 
-class BiGRU(nn.Module):
-    """Parameter holder with nn.GRU's names; ``stacked`` gives the kernel
-    layout. It runs through ``ops.bigru.birnn_stack`` (or its plain version),
-    never through cuDNN."""
+class BiRNN(nn.Module):
+    """Parameter holder with nn.GRU's (cell 'gru') or nn.LSTM's (cell
+    'lstm') names; ``stacked`` gives the kernel layout. It runs through
+    ``ops.bigru.birnn_stack`` (or its plain version) and the training
+    kernels' autograd functions, never through cuDNN."""
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int):
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int,
+                 cell: str = "gru"):
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
-        G = 3 * hidden_size
+        self.cell = cell
+        G = n_gates(cell) * hidden_size
         for k in range(num_layers):
             in_sz = input_size if k == 0 else 2 * hidden_size
             for suf in ("", "_reverse"):
@@ -145,8 +182,8 @@ class BiGRU(nn.Module):
                 p.uniform_(-k, k, generator=generator)
 
     def stacked(self, compute_dtype=torch.float32):
-        """[(w_ih (2, C, 3H), b_ih (2, 3H) f32, w_hh (2, H, 3H), b_hh f32)]
-        per layer, weights in compute_dtype."""
+        """[(w_ih (2, C, G), b_ih (2, G) f32, w_hh (2, H, G), b_hh f32)] per
+        layer, G = 3H (GRU) or 4H (LSTM), weights in compute_dtype."""
         names = (("w_ih", "weight_ih"), ("w_hh", "weight_hh"),
                  ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))
         return [layer_weights(

@@ -1,20 +1,20 @@
-"""Kernel K1: the whole bidirectional GRU stack in one CUDA launch.
+"""Kernel K1: the whole bidirectional GRU or LSTM stack in one CUDA launch.
 
 Counterpart of ``ccsmeth_tpu/ops/bigru_pallas.py`` (``_make_stack_kernel``,
-reached through ``birnn_apply_pallas_stacked``). The kernel source is
-``csrc/bigru_stack.cu``; its header says what bounds it on an H100 and what the
-design does about that.
+GRU and LSTM cells, reached through ``birnn_apply_pallas_stacked``). The
+kernel source is ``csrc/bigru_stack.cu``, one template instantiated per cell;
+its header says what bounds it on an H100 and what the design does about that.
 
 ``birnn_stack`` takes time-major input and the ``_layer_weights`` layout of the
-JAX package (``bigru_pallas.py:411-420``):
+JAX package (``bigru_pallas.py:411-420``), G = 3H (cell 'gru') or 4H ('lstm'):
 
     x      (L, N, C)   operand type (float32 or bfloat16), contiguous
-    layers [(w_ih (2, C, 3H) operand type, b_ih (2, 3H) f32,
-             w_hh (2, H, 3H) operand type, b_hh (2, 3H) f32), ...]
+    layers [(w_ih (2, C, G) operand type, b_ih (2, G) f32,
+             w_hh (2, H, G) operand type, b_hh (2, G) f32), ...]
     ->     out (L, N, 2H) operand type, h_n (2*NL, N, H) f32 (torch order)
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version, ``models/rnn.py``'s BiGRU with zero h0. ``launches`` counts kernel
+version, ``models/rnn.py``'s ``birnn_tm`` with zero h0 (and c0). ``launches`` counts kernel
 launches. The kernel is compiled with ``nvcc`` at first use into
 ``build/kernels/`` beside the package (``nvcc.py``); nothing here imports a GPU
 toolchain at import time.
@@ -27,13 +27,12 @@ import threading
 
 import torch
 
-from ..models.rnn import birnn_tm
+from ..models.rnn import birnn_tm, n_gates
 from . import nvcc
+from .kernel_args import DTYPE_CODE, SMEM_LIMIT, THREADS, tile_shape
 
 SRC = "bigru_stack.cu"
-THREADS = 256  # BIGRU_THREADS in the source
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_CELL_CODE = {"gru": 0, "lstm": 1}
 
 launches = 0  # kernel launches since the caller last set it to 0
 plain_calls = 0  # plain-version runs (CPU tensors, or birnn_stack_plain)
@@ -59,15 +58,16 @@ def _load():
             lib = ctypes.CDLL(build())
             fn = lib.bigru_stack_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             _lib = lib
     return _lib
 
 
-def _check(layers, x: torch.Tensor, compute_dtype) -> int:
+def _check(layers, x: torch.Tensor, compute_dtype, cell: str) -> int:
     """Raise on anything the kernel does not take; returns H."""
-    if compute_dtype not in _DTYPE_CODE:
+    ng = n_gates(cell)
+    if compute_dtype not in DTYPE_CODE:
         raise ValueError("compute_dtype must be float32 or bfloat16")
     if x.dim() != 3:
         raise ValueError("x must be (L, N, C), got {}".format(tuple(x.shape)))
@@ -80,10 +80,10 @@ def _check(layers, x: torch.Tensor, compute_dtype) -> int:
     H = layers[0][2].shape[1]
     cin = x.shape[2]
     for li, (wih, bih, whh, bhh) in enumerate(layers):
-        want = {"w_ih": ((2, cin, 3 * H), compute_dtype, wih),
-                "b_ih": ((2, 3 * H), torch.float32, bih),
-                "w_hh": ((2, H, 3 * H), compute_dtype, whh),
-                "b_hh": ((2, 3 * H), torch.float32, bhh)}
+        want = {"w_ih": ((2, cin, ng * H), compute_dtype, wih),
+                "b_ih": ((2, ng * H), torch.float32, bih),
+                "w_hh": ((2, H, ng * H), compute_dtype, whh),
+                "b_hh": ((2, ng * H), torch.float32, bhh)}
         for name, (shape, dt, t) in want.items():
             if tuple(t.shape) != shape or t.dtype != dt:
                 raise ValueError("layer {} {}: got {} {}, expected {} {}".format(
@@ -97,38 +97,33 @@ def _check(layers, x: torch.Tensor, compute_dtype) -> int:
     return H
 
 
-def birnn_stack_plain(layers, x: torch.Tensor, compute_dtype=torch.float32):
+def birnn_stack_plain(layers, x: torch.Tensor, compute_dtype=torch.float32,
+                      cell: str = "gru"):
     """The plain version of K1 on any device: same contract as birnn_stack."""
     global plain_calls
-    _check(layers, x, compute_dtype)
+    _check(layers, x, compute_dtype, cell)
     plain_calls += 1
-    return birnn_tm(layers, x, None, compute_dtype)
+    return birnn_tm(layers, x, None, compute_dtype, cell)
 
 
-def tile_shape(N: int, H: int, n_sms: int) -> tuple[int, int]:
-    """(rows per thread R, thread rows TY): the block's tile is TY*R rows.
-    Takes the largest R in 8, 4, 2, 1 that still gives about one block per SM,
-    so large batches reuse each weight read across more rows."""
-    ty = max(1, THREADS // (H // 4))
-    for r in (8, 4, 2):
-        if -(-N // (ty * r)) >= 0.9 * n_sms:
-            return r, ty
-    return 1, ty
+def _shared_bytes(C0: int, H: int, bt: int, cell: str = "gru") -> int:
+    """K1's dynamic shared memory for a tile of bt rows: h twice, the staged
+    x_t, and (LSTM) c, all f32."""
+    h_arrays = 2 if cell == "gru" else 3
+    return (h_arrays * H + max(C0, 2 * H)) * bt * 4
 
 
-def _shared_bytes(C0: int, H: int, bt: int) -> int:
-    return (2 * H + max(C0, 2 * H)) * bt * 4
-
-
-def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32):
-    """Whole-stack BiGRU, zero h0: kernel K1 on CUDA, the plain version on CPU.
+def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
+                cell: str = "gru"):
+    """Whole-stack BiGRU or BiLSTM, zero h0 (and c0): kernel K1 on CUDA, the
+    plain version on CPU.
 
     See the module docstring for shapes. No fallback: a CUDA input that the
     kernel cannot take, or a failed build or launch, raises."""
     global launches
-    H = _check(layers, x, compute_dtype)
+    H = _check(layers, x, compute_dtype, cell)
     if x.device.type == "cpu":
-        return birnn_stack_plain(layers, x, compute_dtype)
+        return birnn_stack_plain(layers, x, compute_dtype, cell)
     if x.device.type != "cuda":
         raise ValueError("birnn_stack runs on cuda or cpu, not {}".format(
             x.device.type))
@@ -141,9 +136,9 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32):
         raise ValueError("kernel operands must be 16-byte aligned")
     props = torch.cuda.get_device_properties(x.device)
     r, ty = tile_shape(N, H, props.multi_processor_count)
-    while r > 1 and _shared_bytes(C0, H, ty * r) > 227 * 1024:
+    while r > 1 and _shared_bytes(C0, H, ty * r, cell) > SMEM_LIMIT:
         r //= 2
-    if _shared_bytes(C0, H, ty * r) > 227 * 1024:
+    if _shared_bytes(C0, H, ty * r, cell) > SMEM_LIMIT:
         raise ValueError("tile does not fit in shared memory (C={}, H={})"
                          .format(C0, H))
     lib = _load()
@@ -159,7 +154,7 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.bigru_stack_launch(
-            _DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
+            _CELL_CODE[cell], DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), hn.data_ptr(), ctypes.addressof(wih),
             ctypes.addressof(bih), ctypes.addressof(whh), ctypes.addressof(bhh),
             NL, L, N, C0, H, r, ty, stream)
@@ -169,11 +164,11 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32):
     return out, hn
 
 
-def stack_flops(L: int, N: int, C0: int, H: int, NL: int) -> int:
+def stack_flops(L: int, N: int, C0: int, H: int, NL: int, cell: str = "gru") -> int:
     """Matrix FLOPs of the stack: per row, layer and direction, L steps of
-    2*(Cin + H)*3H (the input projection and the recurrent product)."""
+    2*(Cin + H)*G (the input projection and the recurrent product)."""
     total = 0
     for li in range(NL):
         cin = C0 if li == 0 else 2 * H
-        total += 2 * L * 2 * (cin + H) * 3 * H
+        total += 2 * L * 2 * (cin + H) * n_gates(cell) * H
     return total * N

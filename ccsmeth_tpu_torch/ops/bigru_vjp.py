@@ -34,12 +34,11 @@ import threading
 import torch
 
 from ..models.rnn import gru_cell
-from . import bigru, nvcc
+from . import bilstm_vjp, nvcc
+from .kernel_args import (DTYPE_CODE, cuda_checks, device_of, dims, expect, op,
+                         tile, wgrad_slices)
 
 SRC = "bigru_train.cu"
-SMEM_LIMIT = 227 * 1024
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches_fwd = 0  # K4 launches since the caller last set it to 0
 launches_bwd = 0  # K5 launches
@@ -73,51 +72,27 @@ def _load():
     return _lib
 
 
-def _expect(name, t, shape, dtype, device):
-    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
-        raise ValueError("{}: got {} {}, expected {} {}".format(
-            name, tuple(t.shape), t.dtype, tuple(shape), dtype))
-    if t.device != device:
-        raise ValueError("{} is on {}, expected {}".format(name, t.device, device))
-    if not t.is_contiguous():
-        raise ValueError("{} must be contiguous".format(name))
-
-
-def _dims(x, w_hh, compute_dtype):
-    if compute_dtype not in _DTYPE_CODE:
-        raise ValueError("compute_dtype must be float32 or bfloat16")
-    if x.dim() != 3 or w_hh.dim() != 3:
-        raise ValueError("x must be (L, N, C) and w_hh (2, H, 3H)")
-    L, N, C = x.shape
-    return L, N, C, w_hh.shape[1]
-
-
 def _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype):
-    L, N, C, H = _dims(x, w_hh, compute_dtype)
+    L, N, C, H = dims(x, w_hh, compute_dtype)
     dev = x.device
-    _expect("x", x, (L, N, C), compute_dtype, dev)
-    _expect("w_ih", w_ih, (2, C, 3 * H), compute_dtype, dev)
-    _expect("b_ih", b_ih, (2, 3 * H), torch.float32, dev)
-    _expect("w_hh", w_hh, (2, H, 3 * H), compute_dtype, dev)
-    _expect("b_hh", b_hh, (2, 3 * H), torch.float32, dev)
+    expect("x", x, (L, N, C), compute_dtype, dev)
+    expect("w_ih", w_ih, (2, C, 3 * H), compute_dtype, dev)
+    expect("b_ih", b_ih, (2, 3 * H), torch.float32, dev)
+    expect("w_hh", w_hh, (2, H, 3 * H), compute_dtype, dev)
+    expect("b_hh", b_hh, (2, 3 * H), torch.float32, dev)
     return L, N, C, H
 
 
 def _check_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype):
-    L, N, C, H = _dims(x, w_hh, compute_dtype)
+    L, N, C, H = dims(x, w_hh, compute_dtype)
     dev = x.device
-    _expect("x", x, (L, N, C), compute_dtype, dev)
-    _expect("w_ih", w_ih, (2, C, 3 * H), compute_dtype, dev)
-    _expect("w_hh", w_hh, (2, H, 3 * H), compute_dtype, dev)
-    _expect("dout", dout, (L, N, 2 * H), compute_dtype, dev)
-    _expect("out", out, (L, N, 2 * H), compute_dtype, dev)
-    _expect("gates", gates, (2, L, N, 4 * H), compute_dtype, dev)
+    expect("x", x, (L, N, C), compute_dtype, dev)
+    expect("w_ih", w_ih, (2, C, 3 * H), compute_dtype, dev)
+    expect("w_hh", w_hh, (2, H, 3 * H), compute_dtype, dev)
+    expect("dout", dout, (L, N, 2 * H), compute_dtype, dev)
+    expect("out", out, (L, N, 2 * H), compute_dtype, dev)
+    expect("gates", gates, (2, L, N, 4 * H), compute_dtype, dev)
     return L, N, C, H
-
-
-def _op(t, compute_dtype):
-    """An operand as the kernel sees it: rounded to compute_dtype, in f32."""
-    return t.to(compute_dtype).float()
 
 
 def bigru_layer_train_fwd_plain(x, w_ih, b_ih, w_hh, b_hh,
@@ -127,16 +102,16 @@ def bigru_layer_train_fwd_plain(x, w_ih, b_ih, w_hh, b_hh,
     global plain_calls
     L, N, C, H = _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
     plain_calls += 1
-    flat = _op(x, compute_dtype).reshape(L * N, C)
+    flat = op(x, compute_dtype).reshape(L * N, C)
     outs, gates = [], []
     for d in (0, 1):
-        xg = (flat @ _op(w_ih[d], compute_dtype) + b_ih[d]).reshape(L, N, 3 * H)
-        w = _op(w_hh[d], compute_dtype)
+        xg = (flat @ op(w_ih[d], compute_dtype) + b_ih[d]).reshape(L, N, 3 * H)
+        w = op(w_hh[d], compute_dtype)
         h = torch.zeros((N, H), dtype=torch.float32, device=x.device)
         ys, gs = [None] * L, [None] * L
         for s in range(L):
             t = s if d == 0 else L - 1 - s
-            hg = _op(h, compute_dtype) @ w + b_hh[d]
+            hg = op(h, compute_dtype) @ w + b_hh[d]
             h, r, z, n = gru_cell(xg[t], hg, h)
             ys[t] = h
             gs[t] = torch.cat([r, z, n, hg[:, 2 * H:]], dim=1)
@@ -175,8 +150,8 @@ def bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates,
             h_prev[1:] = o[:-1]
         else:
             h_prev[:-1] = o[1:]
-        w_ihT = _op(w_ih[d], compute_dtype).T
-        w_hhT = _op(w_hh[d], compute_dtype).T
+        w_ihT = op(w_ih[d], compute_dtype).T
+        w_hhT = op(w_hh[d], compute_dtype).T
         dxg_all = torch.empty((L, N, 3 * H), dtype=f32, device=dev)
         dhg_all = torch.empty((L, N, 3 * H), dtype=f32, device=dev)
         dh = torch.zeros((N, H), dtype=f32, device=dev)
@@ -188,59 +163,34 @@ def bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates,
             dr = dn * hgn[t] * r[t] * (1.0 - r[t])
             dxg = torch.cat([dr, dz, dn], dim=1)
             dhg = torch.cat([dr, dz, dn * r[t]], dim=1)
-            dh = dt * z[t] + _op(dhg, compute_dtype) @ w_hhT
-            dx[t] += _op(dxg, compute_dtype) @ w_ihT
+            dh = dt * z[t] + op(dhg, compute_dtype) @ w_hhT
+            dx[t] += op(dxg, compute_dtype) @ w_ihT
             dxg_all[t] = dxg
             dhg_all[t] = dhg
         dxg_all = dxg_all.reshape(L * N, 3 * H)
         dhg_all = dhg_all.reshape(L * N, 3 * H)
-        dw_ih[d] = xs.T @ _op(dxg_all, compute_dtype)
-        dw_hh[d] = h_prev.reshape(L * N, H).T @ _op(dhg_all, compute_dtype)
+        dw_ih[d] = xs.T @ op(dxg_all, compute_dtype)
+        dw_hh[d] = h_prev.reshape(L * N, H).T @ op(dhg_all, compute_dtype)
         db_ih[d] = dxg_all.sum(0)
         db_hh[d] = dhg_all.sum(0)
     return dx, dw_ih, db_ih, dw_hh, db_hh
-
-
-def _cuda_checks(tensors, H):
-    if H % 4 != 0 or H // 4 > bigru.THREADS:
-        raise ValueError("kernel takes H % 4 == 0 and H <= 1024 (H={})".format(H))
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("kernel operands must be 16-byte aligned")
-
-
-def _tile(N, H, x, smem_per_row):
-    """(R, TY) for a block of TY*R rows: K1's choice, with R halved until the
-    block's shared memory fits."""
-    props = torch.cuda.get_device_properties(x.device)
-    r, ty = bigru.tile_shape(N, H, props.multi_processor_count)
-    while r > 1 and smem_per_row * ty * r > SMEM_LIMIT:
-        r //= 2
-    if smem_per_row * ty * r > SMEM_LIMIT:
-        raise ValueError("tile does not fit in shared memory (H={})".format(H))
-    return r, ty
-
-
-def _device_of(x):
-    if x.device.type not in ("cuda", "cpu"):
-        raise ValueError("runs on cuda or cpu, not {}".format(x.device.type))
-    return x.device.type
 
 
 def bigru_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32):
     """K4 on CUDA, the plain version on CPU: (out, gates) in the store type."""
     global launches_fwd
     L, N, C, H = _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
-    if _device_of(x) == "cpu":
+    if device_of(x) == "cpu":
         return bigru_layer_train_fwd_plain(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
-    _cuda_checks((x, w_ih, b_ih, w_hh, b_hh), H)
-    r, ty = _tile(N, H, x, (2 * H + C) * 4)
+    cuda_checks((x, w_ih, b_ih, w_hh, b_hh), H)
+    r, ty = tile(N, H, x, (2 * H + C) * 4)
     lib = _load()
     out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
     gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.bigru_train_fwd_launch(
-            _DTYPE_CODE[compute_dtype], x.data_ptr(), w_ih.data_ptr(),
+            DTYPE_CODE[compute_dtype], x.data_ptr(), w_ih.data_ptr(),
             b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
             gates.data_ptr(), L, N, C, H, r, ty, stream)
     if rc != 0:
@@ -255,14 +205,14 @@ def bigru_layer_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype=torch.float32
     the same inputs give bit-equal results."""
     global launches_bwd
     L, N, C, H = _check_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype)
-    if _device_of(x) == "cpu":
+    if device_of(x) == "cpu":
         return bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates, compute_dtype)
     # transposed, contiguous copies keep the reads along the 3H contraction
     # of dx = dxg W_ih^T and dh = dhg W_hh^T coalesced (a layout change only)
     w_ihT = w_ih.transpose(-1, -2).contiguous()
     w_hhT = w_hh.transpose(-1, -2).contiguous()
-    _cuda_checks((dout, x, out, gates, w_ihT, w_hhT), H)
-    r, ty = _tile(N, H, x, 6 * H * 4)
+    cuda_checks((dout, x, out, gates, w_ihT, w_hhT), H)
+    r, ty = tile(N, H, x, 6 * H * 4)
     lib = _load()
     dev = x.device
     f32 = torch.float32
@@ -273,14 +223,14 @@ def bigru_layer_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype=torch.float32
     # [dW_ih | dW_hh | db_ih | db_hh] in one buffer, returned as views
     sizes = (2 * C * G, 2 * H * G, 2 * G, 2 * G)
     grads = torch.empty(sum(sizes), dtype=f32, device=dev)
-    slices = wgrad_slices(L * N, C, H, torch.cuda.get_device_properties(
+    slices = wgrad_slices(L * N, C, H, G, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     part = (torch.empty(slices * grads.numel(), dtype=f32, device=dev)
             if slices > 1 else grads)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.bigru_train_bwd_launch(
-            _DTYPE_CODE[compute_dtype], dout.data_ptr(), x.data_ptr(),
+            DTYPE_CODE[compute_dtype], dout.data_ptr(), x.data_ptr(),
             out.data_ptr(), gates.data_ptr(), w_ihT.data_ptr(),
             w_hhT.data_ptr(), dx.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
             grads.data_ptr(), part.data_ptr(), slices, L, N, C, H, r, ty, stream)
@@ -290,14 +240,6 @@ def bigru_layer_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype=torch.float32
     dw_ih, dw_hh, db_ih, db_hh = grads.split(sizes)
     return (dx, dw_ih.view(2, C, G), db_ih.view(2, G), dw_hh.view(2, H, G),
             db_hh.view(2, G))
-
-
-def wgrad_slices(rows: int, C: int, H: int, n_sms: int) -> int:
-    """Row slices of K5's weight-gradient phase: enough 64 x 64 output tiles
-    in flight for about four blocks per SM, each slice at least 256 rows."""
-    tile = 64
-    tiles = -(-3 * H // tile) * (-(-C // tile) + -(-H // tile)) * 2
-    return max(1, min(32, -(-4 * n_sms // tiles), rows // 256))
 
 
 class BiGRULayerFn(torch.autograd.Function):
@@ -340,18 +282,23 @@ def dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
 
 
 def birnn_apply_trainable(layers, x: torch.Tensor, compute_dtype=torch.float32,
-                          dropout_rate: float = 0.0, generator=None):
-    """Differentiable multi-layer BiGRU on K4/K5, zero h0: the port's
-    ``birnn_apply_pallas_trainable`` (``bigru_pallas_vjp.py:577-616``).
+                          dropout_rate: float = 0.0, generator=None,
+                          cell: str = "gru"):
+    """Differentiable multi-layer BiGRU on K4/K5 (cell 'gru') or BiLSTM on K6
+    ('lstm'), zero h0 (and c0): the port's ``birnn_apply_pallas_trainable``
+    (``bigru_pallas_vjp.py:577-616``).
 
-    layers: ``BiGRU.stacked()`` (f32, differentiable). x: (N, L, C). Inter-
+    layers: ``BiRNN.stacked()`` (f32, differentiable). x: (N, L, C). Inter-
     layer dropout (every layer's output but the last) is applied between the
     kernel launches. Returns (out (N, L, 2H) f32, h_n (2*NL, N, H) f32)."""
+    layer_fns = {"gru": BiGRULayerFn, "lstm": bilstm_vjp.BiLSTMLayerFn}
+    if cell not in layer_fns:
+        raise ValueError("cell must be gru or lstm, got {!r}".format(cell))
     H = layers[0][2].shape[1]
     x_tm = x.transpose(0, 1).to(compute_dtype).contiguous()
     h_ns = []
     for li, (wih, bih, whh, bhh) in enumerate(layers):
-        out = BiGRULayerFn.apply(x_tm, wih, bih, whh, bhh, compute_dtype)
+        out = layer_fns[cell].apply(x_tm, wih, bih, whh, bhh, compute_dtype)
         h_ns += [out[-1, :, :H], out[0, :, H:]]
         x_tm = out
         if li < len(layers) - 1:

@@ -46,15 +46,15 @@
 //       direction adding to what the forward one wrote (same thread, same
 //       element). W_hh^T and W_ih^T come transposed and contiguous from the
 //       wrapper so the reads along the 3H contraction stay coalesced.
-//   (b) bigru_train_wgrad_kernel, the weight gradients: dW_ih[d] = X^T DXG,
-//       dW_hh[d] = H_prev^T DHG over the L N rows, and the column sums of DXG
-//       and DHG for db_ih and db_hh. The rows are cut into S fixed slices
-//       (enough blocks to fill the card; one block walking all 21,504 rows
-//       of a 64 x 64 tile leaves the SMs waiting on its loads). Each element
-//       of a slice's partial has one owner thread that sums the slice's rows
-//       in order (16-row chunks staged in shared memory); then
-//       bigru_train_sum_slices adds the S partials of each element in slice
-//       order.
+//   (b) rnn_train_wgrad_kernel (rnn_train_common.cuh, shared with K6), the
+//       weight gradients: dW_ih[d] = X^T DXG, dW_hh[d] = H_prev^T DHG over
+//       the L N rows, and the column sums of DXG and DHG for db_ih and db_hh.
+//       The rows are cut into S fixed slices (enough blocks to fill the card;
+//       one block walking all 21,504 rows of a 64 x 64 tile leaves the SMs
+//       waiting on its loads). Each element of a slice's partial has one
+//       owner thread that sums the slice's rows in order (16-row chunks
+//       staged in shared memory); then rnn_train_sum_slices adds the S
+//       partials of each element in slice order.
 //   Rows >= N (the ragged last tile) read zeros in (a), store nothing, and
 //   phase (b) sums only the L N real rows, so they add nothing to dW.
 //
@@ -67,7 +67,7 @@
 //   -Xcompiler -fPIC (ops/bigru_vjp.py builds it at first use). Each C entry
 //   point returns cudaGetLastError() after its launches.
 
-#include "gru_common.cuh"
+#include "rnn_train_common.cuh"
 
 struct FwdParams {
   const void* x;      // (L, N, C) T
@@ -205,8 +205,6 @@ __global__ void __launch_bounds__(BIGRU_THREADS, 1)
   const T* dout = static_cast<const T*>(p.dout);
   const T* out = static_cast<const T*>(p.out);
   const T* gates = static_cast<const T*>(p.gates);
-  const int n_cq = C / CW;  // dx column groups
-  const int n_items = TY * n_cq;
 
   for (int d = 0; d < 2; ++d) {
     const T* WihT = static_cast<const T*>(p.wihT) + (size_t)d * G * C;
@@ -281,181 +279,19 @@ __global__ void __launch_bounds__(BIGRU_THREADS, 1)
         for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
-        // one weight load per iteration: unrolled 8 deep so eight L2 loads
-        // are in flight (with one block an SM, latency sets this loop's pace)
-#pragma unroll 8
-        for (int g = 0; g < G; ++g) {
-          float w[4], v[R];
-          Op<T>::load4(WhhT + (size_t)g * H + j0, w);
-          load_rows<R>(hg_s + g * Bt + rr0, v);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float a = Op<T>::operand(v[r]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(a, w[j], acc[r][j]);
-          }
-        }
+        rec_hidden_product<T, R>(WhhT, G, H, hg_s, Bt, rr0, j0, acc);
 #pragma unroll
         for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int j = 0; j < 4; ++j) dh[r][j] += acc[r][j];
       }
 
-      // 3) dx (+)= dxg W_ih^T: work items of R rows x CW columns
-      for (int item = tid; item < n_items; item += blockDim.x) {
-        const int ry = item / n_cq;
-        const int c0 = (item - ry * n_cq) * CW;
-        float acc[R][CW];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int c = 0; c < CW; ++c) acc[r][c] = 0.0f;
-#pragma unroll 8
-        for (int g = 0; g < G; ++g) {
-          float w[CW], v[R];
-          const T* wg = WihT + (size_t)g * C + c0;
-          if constexpr (CW == 4) {
-            Op<T>::load4(wg, w);
-          } else {
-            w[0] = Op<T>::to_f(wg[0]);
-          }
-          load_rows<R>(xg_s + g * Bt + ry * R, v);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float a = Op<T>::operand(v[r]);
-#pragma unroll
-            for (int c = 0; c < CW; ++c) acc[r][c] = fmaf(a, w[c], acc[r][c]);
-          }
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = row0 + ry * R + r;
-          if (row < N) {
-            float* dxp = p.dx + ((size_t)t * N + row) * C + c0;
-#pragma unroll
-            for (int c = 0; c < CW; ++c)
-              dxp[c] = (d == 0) ? acc[r][c] : dxp[c] + acc[r][c];
-          }
-        }
-      }
+      // 3) dx (+)= dxg W_ih^T
+      rec_input_product<T, R, CW>(WihT, G, C, xg_s, Bt, row0, N,
+                                  p.dx + (size_t)t * N * C, d == 1);
       __syncthreads();
     }
   }
-}
-
-// Phase (b): out[m][n] = sum_k A(k, m) op(B[k][n]) and colsum[n] =
-// sum_k B[k][n], k = t N + row over one slice of the L N rows, in order.
-// A(k, m) is a[(k + koff) lda + m] for k in [klo, khi) and 0 elsewhere: the
-// layer input x, or h_prev read from out one step earlier in the direction's
-// own time. out and colsum are offsets into the slice's partial.
-struct WgradJob {
-  const void* a;
-  long long koff;
-  int lda, klo, khi, M;
-  const float* b;  // (L N, 3H) f32
-  long long out;   // (M, 3H)
-  long long colsum;  // (3H)
-};
-
-struct WgradParams {
-  WgradJob job[4];  // (ih, fwd), (ih, bwd), (hh, fwd), (hh, bwd)
-  float* part;      // (S, T)
-  long long T;      // floats per slice partial
-  int K, G, S, Ks;  // Ks rows per slice, a multiple of WG_KC
-};
-
-#define WG_TILE 64
-#define WG_KC 16
-
-template <typename T>
-__global__ void __launch_bounds__(BIGRU_THREADS)
-    bigru_train_wgrad_kernel(const WgradParams p) {
-  __shared__ __align__(16) float As[WG_KC][WG_TILE];
-  __shared__ __align__(16) float Bs[WG_KC][WG_TILE];
-  const int slice = blockIdx.z % p.S;
-  const WgradJob jb = p.job[blockIdx.z / p.S];
-  const int k_end = min(p.K, (slice + 1) * p.Ks);
-  float* part = p.part + (size_t)slice * p.T;
-  const int m0 = blockIdx.y * WG_TILE;
-  const int n0 = blockIdx.x * WG_TILE;
-  if (m0 >= jb.M) return;  // a block-uniform exit, before any barrier
-  const int G = p.G;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const T* a = static_cast<const T*>(jb.a);
-  const bool do_colsum = (blockIdx.y == 0);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  float cs = 0.0f;
-
-  for (int k0 = slice * p.Ks; k0 < k_end; k0 += WG_KC) {
-    // stage 16 rows x 64 columns of A and of B (4 values a thread each)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = tid + q * BIGRU_THREADS;
-      const int kk = i / WG_TILE, c = i % WG_TILE;
-      const int k = k0 + kk;
-      const int m = m0 + c, n = n0 + c;
-      float av = 0.0f, bv = 0.0f;
-      if (k < k_end) {
-        if (m < jb.M && k >= jb.klo && k < jb.khi)
-          av = Op<T>::to_f(a[(size_t)(k + jb.koff) * jb.lda + m]);
-        if (n < G) bv = jb.b[(size_t)k * G + n];
-      }
-      As[kk][c] = av;
-      Bs[kk][c] = bv;
-    }
-    __syncthreads();
-    if (do_colsum && tid < WG_TILE) {
-#pragma unroll
-      for (int kk = 0; kk < WG_KC; ++kk) cs += Bs[kk][tid];
-    }
-#pragma unroll
-    for (int kk = 0; kk < WG_KC; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bq = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float am[4] = {av.x, av.y, av.z, av.w};
-      const float bn[4] = {Op<T>::operand(bq.x), Op<T>::operand(bq.y),
-                           Op<T>::operand(bq.z), Op<T>::operand(bq.w)};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(am[i], bn[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= jb.M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < G) part[jb.out + (size_t)m * G + n] = acc[i][j];
-    }
-  }
-  if (do_colsum && tid < WG_TILE && n0 + tid < G) part[jb.colsum + n0 + tid] = cs;
-}
-
-// out[i] = sum over the S slice partials of element i, in slice order
-__global__ void __launch_bounds__(BIGRU_THREADS)
-    bigru_train_sum_slices(const float* part, float* out, long long T, int S) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < T;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int sl = 0; sl < S; ++sl) s += part[(size_t)sl * T + i];
-    out[i] = s;
-  }
-}
-
-static int set_smem(const void* kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T, int R>
@@ -496,57 +332,8 @@ static int bwd_typed(const BwdParams& p, int R, int block_rows_y,
   if (R == 2) e = rec_cw<T, 2>(p, block_rows_y, s);
   if (R == 1) e = rec_cw<T, 1>(p, block_rows_y, s);
   if (e) return e;
-
-  const int H = p.H, G = 3 * H, C = p.C, L = p.L, N = p.N, S = p.S;
-  const long long LN = (long long)L * N;
-  WgradParams w;
-  w.K = (int)LN;
-  w.G = G;
-  w.S = S;
-  w.Ks = (int)(((LN + S - 1) / S + WG_KC - 1) / WG_KC * WG_KC);
-  w.T = 2LL * C * G + 2LL * H * G + 4LL * G;
-  w.part = (S == 1) ? p.grads : p.part;
-  const long long o_wih = 0, o_whh = 2LL * C * G;
-  const long long o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
-  for (int d = 0; d < 2; ++d) {
-    WgradJob& ih = w.job[d];
-    ih.a = p.x;
-    ih.koff = 0;
-    ih.lda = C;
-    ih.klo = 0;
-    ih.khi = (int)LN;
-    ih.M = C;
-    ih.b = p.dxg + (size_t)d * LN * G;
-    ih.out = o_wih + (long long)d * C * G;
-    ih.colsum = o_bih + d * G;
-    WgradJob& hh = w.job[2 + d];
-    // h_prev of row k = t N + row: out[t - 1] (fwd half) or out[t + 1] (bwd)
-    hh.a = static_cast<const T*>(p.out) + d * H;
-    hh.koff = (d == 0) ? -(long long)N : (long long)N;
-    hh.lda = 2 * H;
-    hh.klo = (d == 0) ? N : 0;
-    hh.khi = (d == 0) ? (int)LN : (int)(LN - N);
-    hh.M = H;
-    hh.b = p.dhg + (size_t)d * LN * G;
-    hh.out = o_whh + (long long)d * H * G;
-    hh.colsum = o_bhh + d * G;
-  }
-  const int mmax = C > H ? C : H;
-  dim3 grid((G + WG_TILE - 1) / WG_TILE, (mmax + WG_TILE - 1) / WG_TILE, 4 * S);
-  bigru_train_wgrad_kernel<T><<<grid, BIGRU_THREADS, 0, s>>>(w);
-  if (S > 1) {
-    e = (int)cudaGetLastError();
-    if (e) return e;
-    const long long blocks = (w.T + BIGRU_THREADS - 1) / BIGRU_THREADS;
-    bigru_train_sum_slices<<<(int)(blocks < 4096 ? blocks : 4096), BIGRU_THREADS,
-                             0, s>>>(p.part, p.grads, w.T, S);
-  }
-  return (int)cudaGetLastError();
-}
-
-static bool shape_ok(int L, int N, int C, int H, int block_rows_y) {
-  return L >= 1 && N >= 1 && C >= 1 && H >= 4 && H % 4 == 0 &&
-         block_rows_y >= 1 && (H / 4) * block_rows_y <= BIGRU_THREADS;
+  return wgrad_run<T>(p.x, p.out, p.dxg, p.dhg, p.L, p.N, p.C, p.H, 3 * p.H,
+                      p.S, false, p.grads, p.part, s);
 }
 
 extern "C" {

@@ -1,5 +1,6 @@
-// Device helpers shared by the GRU kernels: bigru_stack.cu (K1, inference)
-// and bigru_train.cu (K4 training forward, K5 backward).
+// Device helpers shared by the RNN kernels: bigru_stack.cu (K1, inference,
+// GRU and LSTM cells), bigru_train.cu (K4 GRU training forward, K5 backward)
+// and bilstm_train.cu (K6, the LSTM's training forward and backward).
 //
 // Operand types: T is float or __nv_bfloat16. Values are widened to f32 for
 // every FMA, so products of bf16 operands are exact and sums accumulate in
@@ -140,4 +141,71 @@ __device__ __forceinline__ void gru_gate_sums(
       }
     }
   }
+}
+
+// The gate sums of one LSTM step for one thread's R rows (rr0 ..) and four
+// hidden units (j0 ..), as gru_gate_sums: the input projection x_t @ W_ih and
+// the recurrent product h @ W_hh, W_ih (Cin, 4H) / W_hh (H, 4H), gate order
+// i, f, g, o. On entry each sum holds its bias b_ih + b_hh; on return it holds
+// the whole pre-activation. The h operand is rounded to T.
+template <typename T, int R>
+__device__ __forceinline__ void lstm_gate_sums(
+    const float* xs, int Cin, const float* hs, int H, int Bt, int rr0, int j0,
+    const T* Wih, const T* Whh, float (&ai)[R][4], float (&af)[R][4],
+    float (&ag)[R][4], float (&ao)[R][4]) {
+  const int G = 4 * H;
+#pragma unroll 2
+  for (int k = 0; k < Cin; ++k) {
+    float wi[4], wf[4], wg[4], wo[4], xv[R];
+    const T* wk = Wih + (size_t)k * G + j0;
+    Op<T>::load4(wk, wi);
+    Op<T>::load4(wk + H, wf);
+    Op<T>::load4(wk + 2 * H, wg);
+    Op<T>::load4(wk + 3 * H, wo);
+    load_rows<R>(xs + k * Bt + rr0, xv);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ai[r][j] = fmaf(xv[r], wi[j], ai[r][j]);
+        af[r][j] = fmaf(xv[r], wf[j], af[r][j]);
+        ag[r][j] = fmaf(xv[r], wg[j], ag[r][j]);
+        ao[r][j] = fmaf(xv[r], wo[j], ao[r][j]);
+      }
+    }
+  }
+#pragma unroll 2
+  for (int k = 0; k < H; ++k) {
+    float wi[4], wf[4], wg[4], wo[4], hv[R];
+    const T* wk = Whh + (size_t)k * G + j0;
+    Op<T>::load4(wk, wi);
+    Op<T>::load4(wk + H, wf);
+    Op<T>::load4(wk + 2 * H, wg);
+    Op<T>::load4(wk + 3 * H, wo);
+    load_rows<R>(hs + k * Bt + rr0, hv);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float h = Op<T>::operand(hv[r]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ai[r][j] = fmaf(h, wi[j], ai[r][j]);
+        af[r][j] = fmaf(h, wf[j], af[r][j]);
+        ag[r][j] = fmaf(h, wg[j], ag[r][j]);
+        ao[r][j] = fmaf(h, wo[j], ao[r][j]);
+      }
+    }
+  }
+}
+
+// One LSTM cell update from its pre-activations (f32): i, f, o sigmoid, g
+// tanh, c' = f c + i g, h' = o tanh(c'). Writes the four activations back
+// into the argument slots and returns h'; c is updated in place.
+__device__ __forceinline__ float lstm_update(float& i, float& f, float& g,
+                                             float& o, float& c) {
+  i = sigmoid_f(i);
+  f = sigmoid_f(f);
+  g = tanhf(g);
+  o = sigmoid_f(o);
+  c = f * c + i * g;
+  return o * tanhf(c);
 }

@@ -28,6 +28,7 @@ from .._version import __version__
 from ..bamio import BamReader, BamWriter, sort_bam
 from ..features import ExtractConfig, batch_from_reads, extract_read_features
 from ..models import AttRNN, AttRNNConfig, attrnn_state_dict_from_params, init_attrnn
+from ..models.attrnn import PORTED
 from ..models.convert import torch_ckpt_to_params
 from ..models.params_io import _flatten, load_params
 from ..parallel.predict import make_predict_fn
@@ -84,9 +85,9 @@ class CallModsConfig:
     holeids_ne: str | None = None
     gzip_out: bool = False
     # kept for flag parity with ccsmeth_tpu: on cuda every value runs the
-    # BiGRU through kernel K1, on cpu through its plain version
+    # BiRNN through kernel K1, on cpu through its plain version
     rnn_backend: str = "xla"
-    precision: str = "fp32"  # fp32 | bf16: operand type of the BiGRU
+    precision: str = "fp32"  # fp32 | bf16: operand type of the BiRNN
     # group k batches per dispatch_many call (k launches in a row here)
     dispatch_fuse: int = 8
     # 'int8': int8 IPD/PW means on the host->device copy (zscore/mad only);
@@ -124,10 +125,10 @@ class CallModsConfig:
         )
 
     def model_config(self) -> AttRNNConfig:
-        if self.model_type != "attbigru2s":
+        if self.model_type not in PORTED:
             raise NotImplementedError(
-                "--model_type {} is not yet ported (attbigru2s only)".format(
-                    self.model_type))
+                "--model_type {} is not yet ported ({} only)".format(
+                    self.model_type, ", ".join(PORTED)))
         return AttRNNConfig(
             seq_len=self.seq_len, num_layers=self.layer_rnn,
             num_classes=self.class_num, dropout_rate=0.0,

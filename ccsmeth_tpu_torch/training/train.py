@@ -1,10 +1,11 @@
 """Training loop on one GPU (or the CPU, when asked).
 
 Counterpart of ``ccsmeth_tpu/training/train.py`` for one device: no mesh, no
-``shard_map`` and no collectives. The model is ``AttRNN`` (attbigru2s); its
-BiGRU trains through kernels K4/K5 (``ops/bigru_vjp.py``) on CUDA and through
-their plain versions on the CPU, and validation runs the inference forward,
-kernel K1, in f32 as the JAX package's eval step does.
+``shard_map`` and no collectives. The model is ``AttRNN`` (attbigru2s or
+attbilstm2s); its BiRNN trains through kernels K4/K5 (``ops/bigru_vjp.py``,
+GRU) or K6 (``ops/bilstm_vjp.py``, LSTM) on CUDA and through their plain
+versions on the CPU, and validation runs the inference forward, kernel K1, in
+f32 as the JAX package's eval step does.
 
 Loop semantics as the JAX package's (and the reference's train.py): weighted
 CE [1, pos_weight] normalized by the weight sum, grad-clip 0.5, validation
@@ -33,6 +34,7 @@ import torch
 
 from ..models import (AttRNN, AttRNNConfig, attrnn_params_from_state_dict,
                       attrnn_state_dict_from_params, init_attrnn)
+from ..models.attrnn import PORTED
 from ..models.convert import gc_dims, torch_ckpt_to_params
 from ..models.params_io import load_params, save_params
 from ..pipeline.call_mods import resolve_device
@@ -88,8 +90,8 @@ class TrainConfig:
     # run in turn, with the same numbers as single steps
     step_fuse: int = 8
     dl_offsets: bool = False  # out-of-core streaming loader
-    rnn_backend: str = "xla"  # flag parity: every value trains through K4/K5
-    precision: str = "fp32"  # fp32 | bf16 (BiGRU operand type)
+    rnn_backend: str = "xla"  # flag parity: every value trains through K4/K5/K6
+    precision: str = "fp32"  # fp32 | bf16 (BiRNN operand type)
     train_transfer: str = "fp32"  # only fp32 is ported
     dist_coordinator: str | None = None  # trainm: not ported
     num_processes: int = 1
@@ -105,10 +107,10 @@ class TrainConfig:
 
 
 def _check_unported(cfg: TrainConfig) -> None:
-    if cfg.model_type != "attbigru2s":
+    if cfg.model_type not in PORTED:
         raise NotImplementedError(
-            "--model_type {} is not yet ported for training (attbigru2s "
-            "only)".format(cfg.model_type))
+            "--model_type {} is not yet ported for training ({} only)".format(
+                cfg.model_type, ", ".join(PORTED)))
     if cfg.train_transfer != "fp32":
         raise NotImplementedError(
             "--train_transfer {} is not yet ported (fp32 only)".format(
@@ -242,7 +244,7 @@ def make_train_step(model: AttRNN, optimizer, pos_weight: float,
                     compute_dtype=torch.float32):
     """(feats, labels, mask, generator) -> loss: the forward in training mode
     (dropout from ``generator``), the weighted CE, its gradients through
-    autograd (K5 for the BiGRU on CUDA), then clip and the optimizer, which
+    autograd (K5 or K6's backward for the BiRNN on CUDA), then clip and the optimizer, which
     updates the model's parameters in place. ``optimizer.init`` must have
     run on ``model.parameters()``. ``step.packed(flat, generator)`` takes one
     packed (B, n_cols) batch, ``step.pack_batch`` makes one."""

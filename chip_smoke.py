@@ -9,27 +9,28 @@ does not print its last line:
   1. the card: nvidia-smi name and power limit, torch's device name; TF32 off;
   2. build: every kernel source of the main paths is compiled from the
      checkout, one nvcc per source, all started together;
-  3. kernels: kernel K1 (ops/csrc/bigru_stack.cu) at the call_mods path's
-     shapes (attbigru2s: NL=3, H=256, L=21, C=11; 2B = 1024 and 16384 rows,
-     fp32 and bf16) against its plain PyTorch version on the card, timed with
-     CUDA events beside the plain version, cuDNN's nn.GRU and the card's bound;
-  4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu) at the train
-     path's shapes (one layer, H=256, L=21, 2B = 1024 rows, C = 11 and 512,
-     fp32 and bf16) against their plain versions, K5 run twice for bit-equal
-     gradients, timed beside the plain versions, cuDNN's one-layer
-     bidirectional nn.GRU (forward in training mode, and backward) and the
-     bound;
-  5. model: full-width attbigru2s with numpy-seeded weights, probs through K1
-     against probs through the plain version;
-  6. call_mods end to end: the port's CLI ``call_mods --mode align --device
-     cuda`` on a simulated aligned BAM, in fp32 and bf16, with K1's launch
-     count read around the runs;
-  7. train end to end: the port's CLI ``train --device cuda`` at the
-     attbigru2s defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
-     synthetic features TSV, with K4/K5/K1 launch counts read around the run,
-     then a few bf16 steps;
-  8. profile: torch.profiler over a few full-width training steps, device
-     time per kernel and the device's idle share;
+  3. kernels: kernel K1 (ops/csrc/bigru_stack.cu), GRU cell and LSTM cell, at
+     the call_mods path's shapes (attbigru2s / attbilstm2s: NL=3, H=256,
+     L=21, C=11; 2B = 1024 and 16384 rows, fp32 and bf16) against its plain
+     PyTorch version on the card, timed with CUDA events beside the plain
+     version, cuDNN's nn.GRU / nn.LSTM and the card's bound;
+  4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu, GRU) and K6
+     (ops/csrc/bilstm_train.cu, LSTM) at the train paths' shapes (one layer,
+     H=256, L=21, 2B = 1024 rows, C = 11 and 512, fp32 and bf16) against
+     their plain versions, each backward run twice for bit-equal gradients,
+     timed beside the plain versions, cuDNN's one-layer bidirectional
+     nn.GRU / nn.LSTM (forward in training mode, and backward) and the bound;
+  5. model: full-width attbigru2s and attbilstm2s with numpy-seeded weights,
+     probs through K1 against probs through the plain version;
+  6. call_mods end to end, once per model: the port's CLI ``call_mods --mode
+     align --device cuda [--model_type attbilstm2s]`` on a simulated aligned
+     BAM, in fp32 and bf16, with K1's launch count read around the runs;
+  7. train end to end, once per model: the port's CLI ``train --device cuda``
+     at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
+     synthetic features TSV, with the training kernels' and K1's launch
+     counts read around the run, then a few bf16 steps;
+  8. profile: torch.profiler over a few full-width training steps of each
+     model, device time per kernel and the device's idle share;
   9. one ``kernels`` JSON line, then the ``ok`` line.
 
 It needs a CUDA device and the repository checkout around it; without either it
@@ -48,8 +49,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 SEED = 20261016
 
-# attbigru2s at full width (ccsmeth_tpu/models/config.py defaults)
+# attbigru2s / attbilstm2s at full width (ccsmeth_tpu/models/config.py
+# defaults)
 NL, H, L, C = 3, 256, 21, 11
+MODELS = {"gru": "attbigru2s", "lstm": "attbilstm2s"}
 ROWS = (1024, 16384)  # 2B for batch 512 (the CLI default) and batch 8192
 REPS = 11
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -60,7 +63,8 @@ PEAK_BYTES = 3.35e12
 # E2E input: ~62k CpG sites on 330 HiFi-like 2 kb reads
 E2E_READS, E2E_READ_LEN, E2E_REF_LEN = 330, 2000, 300_000
 # train input: separable synthetic features, 32 steps of batch 512 an epoch
-TRAIN_ROWS, VALID_ROWS, TRAIN_EPOCHS, STEP_INTERVAL = 16384, 4096, 3, 8
+TRAIN_ROWS, VALID_ROWS, STEP_INTERVAL = 16384, 4096, 8
+TRAIN_EPOCHS = {"gru": 3, "lstm": 3}
 BF16_TRAIN_ROWS = 2048
 
 
@@ -105,14 +109,14 @@ def phase_build():
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp
+    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp
 
     def build(mod):
         t0 = time.time()
         so = mod.build()
         return so, time.time() - t0
 
-    mods = (bigru, bigru_vjp)
+    mods = (bigru, bigru_vjp, bilstm_vjp)
     t0 = time.time()
     with ThreadPoolExecutor(len(mods)) as ex:
         built = list(ex.map(build, mods))
@@ -126,17 +130,33 @@ def phase_build():
     return secs
 
 
-def _layers(torch, dtype, device):
+def _layers(torch, dtype, device, cell):
     import numpy as np
 
     from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 
     rng = np.random.RandomState(SEED)
-    layers_np = init_rnn_params(rng, C, H, NL)
+    layers_np = init_rnn_params(rng, C, H, NL, cell)
     return layers_np, [layer_weights(ld, dtype, device) for ld in layers_np]
 
 
-def phase_kernels(torch, smi):
+def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
+    """cuDNN's bidirectional nn.GRU / nn.LSTM with the port's weights: the
+    yardstick, never used by the port."""
+    cls = torch.nn.GRU if cell == "gru" else torch.nn.LSTM
+    mod = cls(cin, H, n_layers, bidirectional=True).to("cuda", dt)
+    with torch.no_grad():
+        for k, ld in enumerate(layers_np):
+            for d, suf in (("fwd", ""), ("bwd", "_reverse")):
+                for name, key in (("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
+                                  ("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
+                    getattr(mod, "{}_l{}{}".format(name, k, suf)).copy_(
+                        torch.from_numpy(ld[d][key]))
+    mod.flatten_parameters()
+    return mod
+
+
+def phase_kernels(torch, smi, cell):
     import numpy as np
 
     from ccsmeth_tpu_torch.ops import bigru
@@ -146,49 +166,42 @@ def phase_kernels(torch, smi):
         x_np = np.random.RandomState(SEED + rows).randn(L, rows, C).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
-            layers_np, ly = _layers(torch, dt, "cuda")
+            layers_np, ly = _layers(torch, dt, "cuda", cell)
             x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
-            out, hn = bigru.birnn_stack(ly, x, dt)
+            out, hn = bigru.birnn_stack(ly, x, dt, cell)
             torch.cuda.synchronize()
-            ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt)
+            ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
             assert out.shape == (L, rows, 2 * H) and hn.shape == (2 * NL, rows, H)
             assert bool(torch.isfinite(out.float()).all())
             assert bool(torch.isfinite(hn).all())
             err_out = (out.float() - ref_out.float()).abs().max().item()
             err_hn = (hn - ref_hn).abs().max().item()
-            assert max(err_out, err_hn) <= TOL[dname], (rows, dname, err_out, err_hn)
+            assert max(err_out, err_hn) <= TOL[dname], (cell, rows, dname, err_out,
+                                                        err_hn)
 
-            # cuDNN's bidirectional GRU with the same weights: the yardstick
-            gru = torch.nn.GRU(C, H, NL, bidirectional=True).to("cuda", dt)
-            with torch.no_grad():
-                for k, ld in enumerate(layers_np):
-                    for d, suf in (("fwd", ""), ("bwd", "_reverse")):
-                        for name, key in (("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
-                                          ("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
-                            getattr(gru, "{}_l{}{}".format(name, k, suf)).copy_(
-                                torch.from_numpy(ld[d][key]))
-            gru.flatten_parameters()
+            lib = _cudnn(torch, cell, C, NL, layers_np, dt)
             with torch.inference_mode():
-                kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, dt), torch)
-                plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt), torch)
-                library_ms = time_ms(lambda: gru(x), torch)
-            flops = bigru.stack_flops(L, rows, C, H, NL)
+                kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, dt, cell), torch)
+                plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell),
+                                   torch)
+                library_ms = time_ms(lambda: lib(x), torch)
+            flops = bigru.stack_flops(L, rows, C, H, NL, cell)
             nbytes = (x.numel() * x.element_size()
                       + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
                       + out.numel() * out.element_size() + hn.numel() * 4)
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
-            cell = {"phase": "kernel", "name": "bigru_stack", "rows": rows,
-                    "dtype": dname, "max_abs_err_out": err_out,
-                    "max_abs_err_hn": err_hn, "tol": TOL[dname],
-                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                    "gflop": flops / 1e9,
-                    "tflops_achieved": flops / kernel_ms / 1e9, "card": smi}
-            emit(cell)
-            cells.append(cell)
-            del gru, out, hn, ref_out, ref_hn
+            res = {"phase": "kernel", "name": "bigru_stack", "cell": cell,
+                   "rows": rows, "dtype": dname, "max_abs_err_out": err_out,
+                   "max_abs_err_hn": err_hn, "tol": TOL[dname],
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "gflop": flops / 1e9,
+                   "tflops_achieved": flops / kernel_ms / 1e9, "card": smi}
+            emit(res)
+            cells.append(res)
+            del lib, out, hn, ref_out, ref_hn
     return cells
 
 
@@ -202,24 +215,37 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def phase_train_kernels(torch, smi):
-    """K4 and K5 for one layer at the train path's shapes against their plain
-    versions. Tolerances: fp32 out, gates and dx 1e-5; dW and db
+def phase_train_kernels(torch, smi, cell):
+    """One layer's training kernels at the train path's shapes against their
+    plain versions: K4/K5 (cell 'gru') or K6's forward and backward
+    ('lstm'). Tolerances: fp32 outputs, residuals and dx 1e-5; dW and db
     1e-5 * max|ref| + 1e-5, since they sum L * 2B = 21,504 rows in another
-    order. bf16 (against the plain version with bf16 operands): out and gates
-    1e-2, one bf16 ulp on [0.5, 1) where an f32 sum in another order rounds
-    the other way; dx, dW and db 1e-2 * max|ref| + 1e-5, since a dxg/dhg
-    operand rounded to bf16 the other way moves one product by 2^-8 of it."""
+    order. bf16 (against the plain version with bf16 operands): outputs and
+    residuals 1e-2 (times max|ref| where that exceeds 1, as the LSTM's cell
+    state may), one bf16 ulp on [0.5, 1) where an f32 sum in another order
+    rounds the other way; dx, dW and db 1e-2 * max|ref| + 1e-5, since a
+    gate-gradient operand rounded to bf16 the other way moves one product by
+    2^-8 of it."""
     import numpy as np
 
     from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
-    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 
+    if cell == "gru":
+        V, fwd, fwd_plain = (bigru_vjp, bigru_vjp.bigru_layer_train_fwd,
+                             bigru_vjp.bigru_layer_train_fwd_plain)
+        bwd, bwd_plain = bigru_vjp.bigru_layer_bwd, bigru_vjp.bigru_layer_bwd_plain
+        res_names, kname = ("out", "gates"), "bigru_train"
+    else:
+        V, fwd, fwd_plain = (bilstm_vjp, bilstm_vjp.bilstm_layer_train_fwd,
+                             bilstm_vjp.bilstm_layer_train_fwd_plain)
+        bwd, bwd_plain = bilstm_vjp.bilstm_layer_bwd, bilstm_vjp.bilstm_layer_bwd_plain
+        res_names, kname = ("out", "c", "gates"), "bilstm_train"
     rows = ROWS[0]
     cells = []
     for cin in (C, 2 * H):
         rng = np.random.RandomState(SEED + cin)
-        ld = init_rnn_params(rng, cin, H, 1)[0]
+        ld = init_rnn_params(rng, cin, H, 1, cell)[0]
         x_np = rng.randn(L, rows, cin).astype(np.float32)
         dout_np = rng.randn(L, rows, 2 * H).astype(np.float32)
         for dname in ("float32", "bfloat16"):
@@ -228,20 +254,21 @@ def phase_train_kernels(torch, smi):
             wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
             dout = torch.from_numpy(dout_np).to("cuda", dt)
-            out, gates = V.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt)
-            ref_out, ref_gates = V.bigru_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+            res = fwd(x, wih, bih, whh, bhh, dt)
+            ref_res = fwd_plain(x, wih, bih, whh, bhh, dt)
             # both backward versions get the same residuals
-            args = (dout, x, wih, whh, ref_out, ref_gates, dt)
-            got = V.bigru_layer_bwd(*args)
-            again = V.bigru_layer_bwd(*args)
+            args = (dout, x, wih, whh) + tuple(ref_res) + (dt,)
+            got = bwd(*args)
+            again = bwd(*args)
             torch.cuda.synchronize()
-            ref = V.bigru_layer_bwd_plain(*args)
+            ref = bwd_plain(*args)
             names = ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh")
             assert all(torch.equal(a, b) for a, b in zip(got, again)), \
-                "K5 is not bit-equal across two runs"
-            errs = {"out": (out.float() - ref_out.float()).abs().max().item(),
-                    "gates": (gates.float() - ref_gates.float()).abs().max().item()}
-            tols = {"out": 1e-5 if f32 else 1e-2, "gates": 1e-5 if f32 else 1e-2}
+                "{} backward is not bit-equal across two runs".format(kname)
+            errs, tols = {}, {}
+            for nm, a, r in zip(res_names, res, ref_res):
+                errs[nm] = (a.float() - r.float()).abs().max().item()
+                tols[nm] = 1e-5 if f32 else 1e-2 * max(1.0, r.float().abs().max().item())
             for nm, a, r in zip(names, got, ref):
                 assert bool(torch.isfinite(a).all()), nm
                 errs[nm] = (a - r).abs().max().item()
@@ -249,50 +276,42 @@ def phase_train_kernels(torch, smi):
                 tols[nm] = (1e-5 if (f32 and nm == "dx") else
                             (1e-5 if f32 else 1e-2) * scale + 1e-5)
             bad = {k: (errs[k], tols[k]) for k in errs if errs[k] > tols[k]}
-            assert not bad, (cin, dname, bad)
+            assert not bad, (cell, cin, dname, bad)
 
-            # cuDNN's one-layer bidirectional GRU with the same weights
-            gru = torch.nn.GRU(cin, H, 1, bidirectional=True).to("cuda", dt)
-            with torch.no_grad():
-                for d, suf in (("fwd", ""), ("bwd", "_reverse")):
-                    for name, key in (("weight_ih", "w_ih"), ("weight_hh", "w_hh"),
-                                      ("bias_ih", "b_ih"), ("bias_hh", "b_hh")):
-                        getattr(gru, "{}_l0{}".format(name, suf)).copy_(
-                            torch.from_numpy(ld[d][key]))
-            gru.flatten_parameters()
-            gru.train()
+            # cuDNN's one-layer bidirectional GRU / LSTM with the same weights
+            lib = _cudnn(torch, cell, cin, 1, [ld], dt)
+            lib.train()
             xg = x.detach().clone().requires_grad_(True)
-            lib_fwd_ms = time_ms(lambda: gru(xg), torch)
-            y = gru(xg)[0]
+            lib_fwd_ms = time_ms(lambda: lib(xg), torch)
+            y = lib(xg)[0]
             lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
-                y, [xg] + list(gru.parameters()), dout, retain_graph=True), torch)
-            k4_ms = time_ms(lambda: V.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt),
-                            torch)
-            k5_ms = time_ms(lambda: V.bigru_layer_bwd(*args), torch)
-            p4_ms = time_ms(lambda: V.bigru_layer_train_fwd_plain(x, wih, bih, whh,
-                                                                  bhh, dt), torch)
-            p5_ms = time_ms(lambda: V.bigru_layer_bwd_plain(*args), torch)
+                y, [xg] + list(lib.parameters()), dout, retain_graph=True), torch)
+            f_ms = time_ms(lambda: fwd(x, wih, bih, whh, bhh, dt), torch)
+            b_ms = time_ms(lambda: bwd(*args), torch)
+            pf_ms = time_ms(lambda: fwd_plain(x, wih, bih, whh, bhh, dt), torch)
+            pb_ms = time_ms(lambda: bwd_plain(*args), torch)
             weights = (wih, bih, whh, bhh)
-            b4, by4 = _bound(V.train_fwd_flops(L, rows, cin, H),
-                             _nbytes(x, *weights, out, gates), dname)
-            b5, by5 = _bound(V.train_bwd_flops(L, rows, cin, H),
-                             _nbytes(dout, x, wih, whh, out, gates, *got), dname)
-            for kname, ms, pms, lms, bms, bby, keys in (
-                    ("bigru_train_fwd", k4_ms, p4_ms, lib_fwd_ms, b4, by4,
-                     ("out", "gates")),
-                    ("bigru_train_bwd", k5_ms, p5_ms, lib_bwd_ms, b5, by5, names)):
-                cell = {"phase": "train_kernel", "name": kname, "rows": rows,
-                        "C": cin, "H": H, "L": L, "dtype": dname,
-                        "max_abs_err": {k: errs[k] for k in keys},
-                        "tol": {k: tols[k] for k in keys},
-                        "max_abs_err_max": max(errs[k] for k in keys),
-                        "kernel_ms": ms, "plain_ms": pms, "library_ms": lms,
-                        "bound_ms": bms, "bound_by": bby, "card": smi}
-                if kname == "bigru_train_bwd":
-                    cell["bit_equal_rerun"] = True
-                emit(cell)
-                cells.append(cell)
-            del gru, xg, y, got, again, ref, out, gates, ref_out, ref_gates
+            bf, byf = _bound(V.train_fwd_flops(L, rows, cin, H),
+                             _nbytes(x, *weights, *res), dname)
+            # db_hh is a copy of db_ih for the LSTM: written once
+            outs = got if cell == "gru" else got[:4]
+            bb, byb = _bound(V.train_bwd_flops(L, rows, cin, H),
+                             _nbytes(dout, x, wih, whh, *res, *outs), dname)
+            for name, ms, pms, lms, bms, bby, keys in (
+                    (kname + "_fwd", f_ms, pf_ms, lib_fwd_ms, bf, byf, res_names),
+                    (kname + "_bwd", b_ms, pb_ms, lib_bwd_ms, bb, byb, names)):
+                c = {"phase": "train_kernel", "name": name, "rows": rows,
+                     "C": cin, "H": H, "L": L, "dtype": dname,
+                     "max_abs_err": {k: errs[k] for k in keys},
+                     "tol": {k: tols[k] for k in keys},
+                     "max_abs_err_max": max(errs[k] for k in keys),
+                     "kernel_ms": ms, "plain_ms": pms, "library_ms": lms,
+                     "bound_ms": bms, "bound_by": bby, "card": smi}
+                if name.endswith("_bwd"):
+                    c["bit_equal_rerun"] = True
+                emit(c)
+                cells.append(c)
+            del lib, xg, y, got, again, ref, res, ref_res
     return cells
 
 
@@ -309,12 +328,12 @@ def _model_feats(B, seed):
     return feats
 
 
-def phase_model(torch):
+def phase_model(torch, model_type):
     from ccsmeth_tpu_torch.models import AttRNNConfig, init_attrnn
     from ccsmeth_tpu_torch.ops import bigru
     from ccsmeth_tpu_torch.pipeline.call_mods import build_model
 
-    cfg = AttRNNConfig()
+    cfg = AttRNNConfig(model_type=model_type)
     model = build_model(init_attrnn(SEED, cfg), cfg, "cuda")
     feats = {k: torch.from_numpy(v).cuda() for k, v in _model_feats(512, SEED).items()}
     res = {}
@@ -326,9 +345,9 @@ def phase_model(torch):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(p_k).all())
         err = (p_k - p_p).abs().max().item()
-        assert err < tol, (dname, err)
+        assert err < tol, (model_type, dname, err)
         res[dname] = err
-        emit({"phase": "model", "model": "attbigru2s 3x256", "batch": 512,
+        emit({"phase": "model", "model": model_type + " 3x256", "batch": 512,
               "dtype": dname, "max_abs_err_probs": err, "tol": tol})
     return res
 
@@ -346,7 +365,23 @@ def _read_tags(path):
     return out
 
 
-def phase_e2e(torch, smi):
+def _e2e_input():
+    from ccsmeth_tpu_torch.utils.simulate import make_synth_bam, write_fasta
+
+    os.makedirs(WORK, exist_ok=True)
+    bam = os.path.join(WORK, "reads.bam")
+    fasta = os.path.join(WORK, "ref.fa")
+    if not (os.path.exists(bam) and os.path.exists(fasta)):
+        t0 = time.time()
+        refseq, _ = make_synth_bam(bam, n_reads=E2E_READS, read_len=E2E_READ_LEN,
+                                   ref_len=E2E_REF_LEN, seed=SEED)
+        write_fasta(fasta, {"chrS": refseq})
+        log("e2e input: {} reads x {} bp, simulated in {:.1f} s".format(
+            E2E_READS, E2E_READ_LEN, time.time() - t0))
+    return bam, fasta
+
+
+def phase_e2e(torch, smi, model_type):
     import numpy as np
 
     from ccsmeth_tpu_torch import cli
@@ -354,19 +389,10 @@ def phase_e2e(torch, smi):
     from ccsmeth_tpu_torch.models.params_io import save_params
     from ccsmeth_tpu_torch.ops import bigru
     from ccsmeth_tpu_torch.pipeline import call_mods
-    from ccsmeth_tpu_torch.utils.simulate import make_synth_bam, write_fasta
 
-    os.makedirs(WORK, exist_ok=True)
-    bam = os.path.join(WORK, "reads.bam")
-    fasta = os.path.join(WORK, "ref.fa")
-    ckpt = os.path.join(WORK, "attbigru2s_3x256.ckpt.npz")
-    t0 = time.time()
-    refseq, _ = make_synth_bam(bam, n_reads=E2E_READS, read_len=E2E_READ_LEN,
-                               ref_len=E2E_REF_LEN, seed=SEED)
-    write_fasta(fasta, {"chrS": refseq})
-    save_params(ckpt, init_attrnn(SEED, AttRNNConfig()))
-    log("e2e input: {} reads x {} bp, simulated in {:.1f} s".format(
-        E2E_READS, E2E_READ_LEN, time.time() - t0))
+    bam, fasta = _e2e_input()
+    ckpt = os.path.join(WORK, model_type + "_3x256.ckpt.npz")
+    save_params(ckpt, init_attrnn(SEED, AttRNNConfig(model_type=model_type)))
 
     tags, runs = {}, {}
     bigru.launches = 0
@@ -374,10 +400,10 @@ def phase_e2e(torch, smi):
     total_launches = 0
     for prec in ("fp32", "bf16"):
         before = bigru.launches
-        prefix = os.path.join(WORK, "mods_" + prec)
+        prefix = os.path.join(WORK, "mods_{}_{}".format(model_type, prec))
         cli.main(["call_mods", "-i", bam, "-o", prefix, "-m", ckpt,
-                  "--mode", "align", "--ref", fasta, "--device", "cuda",
-                  "--precision", prec])
+                  "--model_type", model_type, "--mode", "align", "--ref", fasta,
+                  "--device", "cuda", "--precision", prec])
         torch.cuda.synchronize()
         run = dict(call_mods.LAST_RUN)
         n = bigru.launches - before
@@ -386,7 +412,7 @@ def phase_e2e(torch, smi):
         tags[prec] = _read_tags(prefix + ".modbam.bam")
         n_tagged = sum(1 for mm, ml in tags[prec].values() if ml is not None)
         assert n_tagged >= 0.9 * len(tags[prec]), (prec, n_tagged)
-        run.update(phase="e2e", precision=prec, k1_launches=n,
+        run.update(phase="e2e", model=model_type, precision=prec, k1_launches=n,
                    sites_per_s=run["sites"] / run["seconds"],
                    reads_with_mm_ml=n_tagged, card=smi)
         emit(run)
@@ -404,7 +430,8 @@ def phase_e2e(torch, smi):
         n_sites += ml.size
         n_close += int((np.abs(ml - ml_b) <= 2).sum())
     frac = n_close / n_sites
-    emit({"phase": "e2e", "fp32_vs_bf16_ml_within_2": frac, "sites": n_sites})
+    emit({"phase": "e2e", "model": model_type, "fp32_vs_bf16_ml_within_2": frac,
+          "sites": n_sites})
     assert frac >= 0.999, frac
     return total_launches, runs
 
@@ -436,68 +463,85 @@ def _write_feature_tsv(path, n, seed, seq_len=21):
             f.write("\t".join(row) + "\n")
 
 
-def _train_cli(cli, tr, va, mdir, prec, epochs, interval):
+def _train_cli(cli, model_type, tr, va, mdir, prec, epochs, interval):
     cli.main(["train", "--train_file", tr, "--valid_file", va, "--model_dir", mdir,
-              "--model_type", "attbigru2s", "--device", "cuda", "--precision", prec,
+              "--model_type", model_type, "--device", "cuda", "--precision", prec,
               "--max_epoch_num", str(epochs), "--min_epoch_num", str(epochs),
               "--step_interval", str(interval), "--tseed", str(SEED % 10000)])
 
 
-def phase_train(torch, smi):
-    """The train path at full width: the CLI at its attbigru2s defaults
-    (3x256, batch 512, dropout 0.5, Adam 1e-3, StepLR)."""
+def _train_input():
+    os.makedirs(WORK, exist_ok=True)
+    tr, va = os.path.join(WORK, "train.tsv"), os.path.join(WORK, "valid.tsv")
+    tr16 = os.path.join(WORK, "train_bf16.tsv")
+    if not all(os.path.exists(p) for p in (tr, va, tr16)):
+        t0 = time.time()
+        _write_feature_tsv(tr, TRAIN_ROWS, SEED)
+        _write_feature_tsv(va, VALID_ROWS, SEED + 1)
+        _write_feature_tsv(tr16, BF16_TRAIN_ROWS, SEED + 2)
+        log("train input: {} + {} rows, {:.1f} + {:.1f} MB, written in {:.1f} s"
+            .format(TRAIN_ROWS, VALID_ROWS, os.path.getsize(tr) / 1e6,
+                    os.path.getsize(va) / 1e6, time.time() - t0))
+    return tr, va, tr16
+
+
+def phase_train(torch, smi, cell, epochs):
+    """The train path at full width: the CLI at its defaults (3x256, batch
+    512, dropout 0.5, Adam 1e-3, StepLR) for attbigru2s (cell 'gru': kernels
+    K4/K5) or attbilstm2s ('lstm': K6), K1 validating. The launch counts of
+    every training kernel and of K1 are set to 0 just before the run and
+    read just after it."""
     import math
 
     import numpy as np
 
     from ccsmeth_tpu_torch import cli
     from ccsmeth_tpu_torch.models import AttRNNConfig
-    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp
+    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp
     from ccsmeth_tpu_torch.pipeline.call_mods import build_model, load_model_params
     from ccsmeth_tpu_torch.training.train import LAST_RUN
 
-    os.makedirs(WORK, exist_ok=True)
-    tr, va = os.path.join(WORK, "train.tsv"), os.path.join(WORK, "valid.tsv")
-    t0 = time.time()
-    _write_feature_tsv(tr, TRAIN_ROWS, SEED)
-    _write_feature_tsv(va, VALID_ROWS, SEED + 1)
-    log("train input: {} + {} rows, {:.1f} + {:.1f} MB, written in {:.1f} s".format(
-        TRAIN_ROWS, VALID_ROWS, os.path.getsize(tr) / 1e6, os.path.getsize(va) / 1e6,
-        time.time() - t0))
-    log("train cut: {} epochs of {} steps (a real run trains up to 50 epochs on "
-        "millions of rows)".format(TRAIN_EPOCHS, TRAIN_ROWS // 512))
+    model_type = MODELS[cell]
+    mine, other = ((bigru_vjp, bilstm_vjp) if cell == "gru"
+                   else (bilstm_vjp, bigru_vjp))
+    tr, va, tr16 = _train_input()
+    log("train cut ({}): {} epochs of {} steps (a real run trains up to 50 "
+        "epochs on millions of rows)".format(model_type, epochs, TRAIN_ROWS // 512))
 
-    bigru_vjp.launches_fwd = bigru_vjp.launches_bwd = bigru_vjp.plain_calls = 0
+    for V in (bigru_vjp, bilstm_vjp):
+        V.launches_fwd = V.launches_bwd = V.plain_calls = 0
     bigru.launches = bigru.plain_calls = 0
     t0 = time.time()
-    _train_cli(cli, tr, va, os.path.join(WORK, "models_fp32"), "fp32", TRAIN_EPOCHS,
-               STEP_INTERVAL)
+    _train_cli(cli, model_type, tr, va, os.path.join(WORK, model_type + "_fp32"),
+               "fp32", epochs, STEP_INTERVAL)
     torch.cuda.synchronize()
     wall = time.time() - t0
     run = dict(LAST_RUN)
-    counts = {"k4": bigru_vjp.launches_fwd, "k5": bigru_vjp.launches_bwd,
-              "k1": bigru.launches, "plain_vjp": bigru_vjp.plain_calls,
-              "plain_k1": bigru.plain_calls}
+    counts = {"fwd": mine.launches_fwd, "bwd": mine.launches_bwd,
+              "k1": bigru.launches, "plain_vjp": mine.plain_calls,
+              "plain_k1": bigru.plain_calls,
+              "other_cell": other.launches_fwd + other.launches_bwd + other.plain_calls}
     steps = run["steps"]
     n_valid = len(run["valid_losses"])
-    assert steps == TRAIN_EPOCHS * (TRAIN_ROWS // 512), steps
-    assert counts["k4"] == counts["k5"] == 3 * steps, counts
+    assert steps == epochs * (TRAIN_ROWS // 512), steps
+    assert counts["fwd"] == counts["bwd"] == 3 * steps, counts
     assert counts["k1"] == n_valid * math.ceil(VALID_ROWS / 512) > 0, counts
-    assert counts["plain_vjp"] == 0 and counts["plain_k1"] == 0, counts
+    assert counts["plain_vjp"] == counts["plain_k1"] == counts["other_cell"] == 0, \
+        counts
     assert np.all(np.isfinite(run["train_losses"] + run["valid_losses"])), run
     assert run["best_accuracy"] >= 0.9, run["best_accuracy"]
     # the checkpoint loads into the port's call_mods model
-    cfg = AttRNNConfig(dropout_rate=0.0)
+    cfg = AttRNNConfig(dropout_rate=0.0, model_type=model_type)
     model = build_model(load_model_params(run["ckpts"][-1], cfg), cfg, "cuda")
     feats = {k: torch.from_numpy(v).cuda() for k, v in _model_feats(512, SEED).items()}
     with torch.inference_mode():
         _l, probs = model(feats)
     assert probs.shape == (512, 2) and bool(torch.isfinite(probs).all())
 
-    per_epoch = steps / TRAIN_EPOCHS
+    per_epoch = steps / epochs
     steady = float(np.mean(run["epoch_wall_s"][1:]))
-    res = {"phase": "train", "precision": "fp32", "model": "attbigru2s 3x256",
-           "batch": 512, "steps": steps, "epochs": TRAIN_EPOCHS,
+    res = {"phase": "train", "precision": "fp32", "model": model_type + " 3x256",
+           "batch": 512, "steps": steps, "epochs": epochs,
            "validations": n_valid, "launches": counts,
            "best_accuracy": run["best_accuracy"],
            "train_losses": run["train_losses"], "valid_losses": run["valid_losses"],
@@ -509,26 +553,25 @@ def phase_train(torch, smi):
     emit(res)
 
     # a few steps in bf16
-    tr16 = os.path.join(WORK, "train_bf16.tsv")
-    _write_feature_tsv(tr16, BF16_TRAIN_ROWS, SEED + 2)
-    before = bigru_vjp.launches_fwd
-    _train_cli(cli, tr16, va, os.path.join(WORK, "models_bf16"), "bf16", 1,
-               BF16_TRAIN_ROWS // 512)
+    before = mine.launches_fwd
+    _train_cli(cli, model_type, tr16, va, os.path.join(WORK, model_type + "_bf16"),
+               "bf16", 1, BF16_TRAIN_ROWS // 512)
     torch.cuda.synchronize()
     run16 = dict(LAST_RUN)
-    assert bigru_vjp.launches_fwd - before == 3 * run16["steps"] > 0
+    assert mine.launches_fwd - before == 3 * run16["steps"] > 0
     assert np.all(np.isfinite(run16["train_losses"] + run16["valid_losses"])), run16
-    assert bigru_vjp.plain_calls == 0
-    emit({"phase": "train", "precision": "bf16", "steps": run16["steps"],
-          "train_losses": run16["train_losses"],
+    assert mine.plain_calls == 0
+    emit({"phase": "train", "precision": "bf16", "model": model_type + " 3x256",
+          "steps": run16["steps"], "train_losses": run16["train_losses"],
           "valid_losses": run16["valid_losses"],
           "best_accuracy": run16["best_accuracy"], "card": smi})
     return res
 
 
-def phase_profile(torch, smi, steps=5):
+def phase_profile(torch, smi, cell, steps=5):
     """Where a full-width training step's time goes: torch.profiler over
-    ``steps`` steps (attbigru2s 3x256, batch 512, fp32, dropout 0.5, Adam)
+    ``steps`` steps (attbigru2s or attbilstm2s 3x256, batch 512, fp32,
+    dropout 0.5, Adam)
     after two warm-up steps; device time per kernel name, the device's busy
     time against the host clock, and the step time. Launches here are not
     the train path's and are read nowhere."""
@@ -539,7 +582,7 @@ def phase_profile(torch, smi, steps=5):
     from ccsmeth_tpu_torch.training import build_optimizer
     from ccsmeth_tpu_torch.training.train import make_train_step
 
-    model = AttRNN(AttRNNConfig()).cuda()
+    model = AttRNN(AttRNNConfig(model_type=MODELS[cell])).cuda()
     opt = build_optimizer("Adam", 1e-3)
     opt.init(model.parameters())
     step = make_train_step(model, opt, 1.0)
@@ -564,7 +607,8 @@ def phase_profile(torch, smi, steps=5):
             rows.append((dev_us / steps / 1e3, e.count / steps, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    res = {"phase": "profile", "what": "train step, attbigru2s 3x256, batch 512, fp32",
+    res = {"phase": "profile",
+           "what": "train step, {} 3x256, batch 512, fp32".format(MODELS[cell]),
            "steps": steps, "step_ms_host": wall_ms, "device_ms_per_step": device_ms,
            "device_idle_share": (1.0 - device_ms / wall_ms) if device_ms else None,
            "top": [{"kernel": k[:90], "ms_per_step": ms, "calls_per_step": n}
@@ -588,43 +632,55 @@ def main():
     t_start = time.time()
     smi, name = phase_card(torch)
     phase_build()
-    cells = phase_kernels(torch, smi)
-    tcells = phase_train_kernels(torch, smi)
-    phase_model(torch)
-    launches, _runs = phase_e2e(torch, smi)
-    train_run = phase_train(torch, smi)
-    phase_profile(torch, smi)
-    main_cell = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == "float32")
-    k1 = {"name": "bigru_stack", "route": "cuda",
-          "source": "ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu",
-          "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:198",
-          "launches": launches,
-          "launches_train_path": train_run["launches"]["k1"],
-          "max_abs_err": max(max(c["max_abs_err_out"], c["max_abs_err_hn"])
-                             for c in cells),
-          "ms": main_cell["kernel_ms"], "plain_ms": main_cell["plain_ms"],
-          "bound_ms": main_cell["bound_ms"], "bound_by": main_cell["bound_by"],
-          "library_ms": main_cell["library_ms"],
-          "cell": "rows={} float32".format(ROWS[0]),
-          "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
-                                       "library_ms", "bound_ms", "bound_by",
-                                       "max_abs_err_out", "max_abs_err_hn")}
-                    for c in cells]}
-    kernels = [k1]
-    for kname, key, line in (("bigru_train_fwd", "k4", 31), ("bigru_train_bwd", "k5", 63)):
-        mine = [c for c in tcells if c["name"] == kname]
+    k1_cells = {cell: phase_kernels(torch, smi, cell) for cell in MODELS}
+    t_cells = {cell: phase_train_kernels(torch, smi, cell) for cell in MODELS}
+    for model_type in MODELS.values():
+        phase_model(torch, model_type)
+    e2e = {cell: phase_e2e(torch, smi, MODELS[cell])[0] for cell in MODELS}
+    train_runs = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell])
+                  for cell in MODELS}
+    for cell in MODELS:
+        phase_profile(torch, smi, cell)
+
+    kernels = []
+    for cell, kname, line in (("gru", "bigru_stack", 198),
+                              ("lstm", "bigru_stack_lstm", 238)):
+        cells = k1_cells[cell]
+        mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == "float32")
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu",
+            "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
+            "launches": e2e[cell],
+            "launches_train_path": train_runs[cell]["launches"]["k1"],
+            "max_abs_err": max(max(c["max_abs_err_out"], c["max_abs_err_hn"])
+                               for c in cells),
+            "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
+            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+            "library_ms": mc["library_ms"],
+            "cell": "{} rows={} float32".format(MODELS[cell], ROWS[0]),
+            "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by",
+                                         "max_abs_err_out", "max_abs_err_hn")}
+                      for c in cells]})
+    for cell, kname, src, key, line in (
+            ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
+            ("gru", "bigru_train_bwd", "bigru_train.cu", "bwd", 63),
+            ("lstm", "bilstm_train_fwd", "bilstm_train.cu", "fwd", 122),
+            ("lstm", "bilstm_train_bwd", "bilstm_train.cu", "bwd", 167)):
+        mine = [c for c in t_cells[cell] if c["name"] == kname]
         # the main cell: layers 1 and 2 of the stack (C = 2H), fp32
         mc = next(c for c in mine if c["C"] == 2 * H and c["dtype"] == "float32")
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu",
+            "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
             "replaces": "ccsmeth_tpu/ops/bigru_pallas_vjp.py:{}".format(line),
-            "launches": train_run["launches"][key],
+            "launches": train_runs[cell]["launches"][key],
             "max_abs_err": max(c["max_abs_err_max"] for c in mine),
             "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
             "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
             "library_ms": mc["library_ms"],
-            "cell": "rows={} C={} float32".format(mc["rows"], mc["C"]),
+            "cell": "{} rows={} C={} float32".format(MODELS[cell], mc["rows"], mc["C"]),
             "cells": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",
                                          "max_abs_err_max")} for c in mine]})

@@ -1,6 +1,6 @@
-"""attbigru2s: the port's AttRNN module against ccsmeth_tpu's apply_attrnn on
-the same params (carried across with attrnn_state_dict_from_params) and the
-same numpy feats, on CPU."""
+"""attbigru2s and attbilstm2s: the port's AttRNN module against ccsmeth_tpu's
+apply_attrnn on the same params (carried across with
+attrnn_state_dict_from_params) and the same numpy feats, on CPU."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -131,6 +131,80 @@ def test_bf16_forward_near_fp32():
 
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
-        AttRNN(AttRNNConfig(model_type="attbilstm2s"))
+        AttRNN(AttRNNConfig(model_type="attbilstm1s"))
     with pytest.raises(NotImplementedError):
         init_attrnn(0, AttRNNConfig(model_type="attbigru2s2"))
+
+
+LSTM = dict(CFG, model_type="attbilstm2s")
+
+
+def test_lstm_init_attrnn_equals_jax_init():
+    for cfg_kw in (LSTM, dict(model_type="attbilstm2s")):
+        p = dict(_flatten(init_attrnn(3, AttRNNConfig(**cfg_kw))))
+        q = dict(_flatten(jax_init_attrnn(3, JaxAttRNNConfig(**cfg_kw))))
+        assert p.keys() == q.keys()
+        for k in p:
+            np.testing.assert_array_equal(p[k], np.asarray(q[k]), err_msg=k)
+        H = cfg_kw.get("hidden_size", 256)
+        assert p["rnn/0/fwd/w_hh"].shape == (4 * H, H)
+
+
+@pytest.mark.parametrize("rnn_backend", ["xla", "pallas"])
+def test_lstm_forward_matches_apply_attrnn(rnn_backend):
+    """'pallas' runs the JAX package's stack kernel (LSTM cell) in interpret
+    mode; tolerances as for attbigru2s."""
+    params = init_attrnn(3, AttRNNConfig(**LSTM))
+    feats = _feats()
+    bigru.launches = 0
+    model = _port_model(params, AttRNNConfig(**LSTM))
+    assert model.rnn.cell == "lstm"
+    l_t, p_t = _port_forward(model, feats)
+    l_j, p_j = apply_attrnn(params, JaxAttRNNConfig(**LSTM), feats,
+                            rnn_backend=rnn_backend)
+    np.testing.assert_allclose(l_t, np.asarray(l_j), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(p_t, np.asarray(p_j), atol=5e-6)
+    assert bigru.launches == 0
+
+
+def test_lstm_state_dict_key_round_trip(tmp_path):
+    """attbilstm2s keys carry 4H-row tensors both ways: port state_dict ->
+    the JAX package's reference-ckpt reader -> apply_attrnn equals the port's
+    forward; params -> state_dict -> params and a reference-style .ckpt
+    through torch_ckpt_to_params give the same arrays back."""
+    from ccsmeth_tpu_torch.models import attrnn_params_from_state_dict
+    from ccsmeth_tpu_torch.models.convert import torch_ckpt_to_params
+
+    cfg = AttRNNConfig(**LSTM)
+    model = AttRNN(cfg)
+    model.rnn.reset_parameters(torch.Generator().manual_seed(1))
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    assert sd["rnn.weight_ih_l1_reverse"].shape == (4 * 32, 2 * 32)
+    params = _attrnn_from_sd(sd, JaxAttRNNConfig(**LSTM))
+    feats = _feats(seed=8)
+    l_t, p_t = _port_forward(model.eval(), feats)
+    l_j, p_j = apply_attrnn(params, JaxAttRNNConfig(**LSTM), feats)
+    np.testing.assert_allclose(l_t, np.asarray(l_j), atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(p_t, np.asarray(p_j), atol=5e-6)
+
+    want = dict(_flatten(init_attrnn(5, cfg)))
+    back = dict(_flatten(attrnn_params_from_state_dict(
+        attrnn_state_dict_from_params(init_attrnn(5, cfg)))))
+    path = str(tmp_path / "lstm.ckpt")
+    torch.save({"module." + k: v for k, v in
+                _port_model(init_attrnn(5, cfg), cfg).state_dict().items()}, path)
+    loaded = dict(_flatten(torch_ckpt_to_params(path, cfg)))
+    for got in (back, loaded):
+        assert got.keys() == want.keys()
+        for k in got:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_lstm_bf16_forward_near_fp32():
+    """bf16 operands in the BiLSTM (c kept f32) move probs by less than
+    2/256, the fast path's envelope (bench.py:170-173)."""
+    model = _port_model(init_attrnn(3, AttRNNConfig(**LSTM)), AttRNNConfig(**LSTM))
+    feats = _feats(seed=11)
+    _l, p32 = _port_forward(model, feats)
+    _l, p16 = _port_forward(model, feats, compute_dtype=torch.bfloat16)
+    assert np.abs(p16 - p32).max() < 2.0 / 256

@@ -80,10 +80,10 @@ def test_birnn_apply_with_explicit_h0_matches_jax():
 
 
 def test_bigru_module_stacked_layout():
-    """BiGRU's nn.GRU-named parameters give the same stacked layout as the
-    params pytree."""
+    """BiRNN's nn.GRU-named parameters (cell 'gru', the default) give the
+    same stacked layout as the params pytree."""
     layers, _x = _inputs()
-    mod = port_rnn.BiGRU(C, H, NL)
+    mod = port_rnn.BiRNN(C, H, NL)
     sd = {}
     for k, ld in enumerate(layers):
         for d, suf in (("fwd", ""), ("bwd", "_reverse")):

@@ -86,7 +86,8 @@ def test_sorted_output_is_indexed(tmp_path):
 
 
 @pytest.mark.parametrize("bad", ["cuda_without_gpu", "randn_h0", "processes",
-                                 "shape_mismatch", "transencoder"])
+                                 "shape_mismatch", "transencoder",
+                                 "gru_ckpt_as_lstm", "lstm_1s"])
 def test_unsupported_requests_raise(tmp_path, bad):
     import torch
 
@@ -106,6 +107,12 @@ def test_unsupported_requests_raise(tmp_path, bad):
     elif bad == "shape_mismatch":
         kw["hid_rnn"] = 256
         err = ValueError
+    elif bad == "gru_ckpt_as_lstm":  # 3H-row tensors where the LSTM has 4H
+        kw["model_type"] = "attbilstm2s"
+        err = ValueError
+    elif bad == "lstm_1s":
+        kw["model_type"] = "attbilstm1s"
+        err = NotImplementedError
     else:
         kw["model_type"] = "transencoder2s"
         err = NotImplementedError
@@ -119,3 +126,52 @@ def test_cli_rejects_features_tsv(tmp_path):
     with pytest.raises(NotImplementedError, match="features TSV input not yet ported"):
         main(["call_mods", "-i", os.path.join(GOLD, "features.tsv"),
               "-o", str(tmp_path / "o"), "-m", CKPT, "--device", "cpu"])
+
+
+def test_attbilstm2s_call_mods_matches_jax(tmp_path, monkeypatch):
+    """The slice as a whole: call_mods --model_type attbilstm2s on
+    tests/goldens/reads.bam with a seeded 2 x 32 checkpoint, through the JAX
+    package's call_mods_bam and through the port on the CPU. MM strings and
+    read order are equal; ML bytes are equal, except that one may differ by
+    1 where the port's prob lies within 1e-5 of the 1/256 boundary between
+    the two bytes (the JAX run shards over 8 virtual devices, which moves the
+    last ulp of a prob)."""
+    from ccsmeth_tpu.pipeline.call_mods import CallModsConfig as JaxCallModsConfig
+    from ccsmeth_tpu.pipeline.call_mods import call_mods_bam as jax_call_mods_bam
+    from ccsmeth_tpu_torch.models import AttRNNConfig, init_attrnn
+    from ccsmeth_tpu_torch.models.params_io import save_params
+    from ccsmeth_tpu_torch.pipeline import call_mods as port_call_mods
+
+    ckpt = str(tmp_path / "attbilstm2s_2x32.ckpt.npz")
+    save_params(ckpt, init_attrnn(17, AttRNNConfig(
+        model_type="attbilstm2s", num_layers=2, hidden_size=32, dropout_rate=0)))
+    kw = dict(model_file=ckpt, model_type="attbilstm2s", mode="align", ref=REF,
+              batch_size=64, layer_rnn=2, hid_rnn=32, threads=2, no_sort=True)
+    want = _dump(jax_call_mods_bam(JaxCallModsConfig(**kw), BAM,
+                                   str(tmp_path / "jax")))
+
+    probs = {}  # qname -> the port's probs in ML order (sorted by loc)
+    tag = port_call_mods.add_mm_ml_to_record
+
+    def recording_tag(rec, locs_probs, rm_pulse=True):
+        probs[rec.qname] = [p for _loc, p in sorted(locs_probs)]
+        return tag(rec, locs_probs, rm_pulse)
+
+    monkeypatch.setattr(port_call_mods, "add_mm_ml_to_record", recording_tag)
+    got = _dump(call_mods_bam(CallModsConfig(**kw, device="cpu"), BAM,
+                              str(tmp_path / "port")))
+    assert [r[:2] for r in got] == [w[:2] for w in want]
+    n_sites = 0
+    for (q, _mm, ml), (_q, _wmm, wml) in zip(got, want):
+        assert (ml == ".") == (wml == ".")
+        if ml == ".":
+            continue
+        a = np.asarray(ml.split(","), np.int64)
+        b = np.asarray(wml.split(","), np.int64)
+        assert a.shape == b.shape == (len(probs[q]),)
+        n_sites += a.size
+        for i in np.flatnonzero(a != b):
+            assert abs(a[i] - b[i]) == 1, (q, i, a[i], b[i])
+            assert abs(probs[q][i] - max(a[i], b[i]) / 256.0) <= 1e-5, (
+                q, i, probs[q][i], a[i], b[i])
+    assert n_sites > 500

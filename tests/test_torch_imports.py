@@ -75,7 +75,8 @@ def test_copied_module_equals_the_jax_package_module(module):
 
 
 @pytest.mark.parametrize("module", ["ops.bigru", "ops.bigru_vjp", "models.attrnn",
-                                    "training.train", "cli"])
+                                    "training.train", "cli", "ops.bilstm_vjp",
+                                    "ops.kernel_args"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle: each entry module imports on its own, first."""
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -1,6 +1,7 @@
 """Training in the port against the JAX package, on CPU: the full model's loss
 and gradients, one optimizer step, dropout, a learning run whose checkpoint
-the JAX package loads, resume, and the fused-step schedule."""
+the JAX package loads, resume, and the fused-step schedule; attbigru2s, and
+attbilstm2s for the loss, gradients, step and learning run."""
 
 import glob
 import os
@@ -22,7 +23,7 @@ from ccsmeth_tpu.training.train import save_train_state as jax_save_train_state
 from ccsmeth_tpu_torch.models import (AttRNN, AttRNNConfig, attrnn_params_from_state_dict,
                                       attrnn_state_dict_from_params, init_attrnn)
 from ccsmeth_tpu_torch.models.convert import gc_dims
-from ccsmeth_tpu_torch.ops import bigru, bigru_vjp
+from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp
 from ccsmeth_tpu_torch.training import TrainConfig, build_optimizer, train
 from ccsmeth_tpu_torch.training.data import load_feature_tsv
 from ccsmeth_tpu_torch.training.train import (_fuse_schedule, make_eval_step,
@@ -230,7 +231,7 @@ def test_step_fuse_matches_single_step(tmp_path):
     assert list(_fuse_schedule(20, 7, 3)) == [3, 3, 1, 3, 3, 1, 3, 3]
 
 
-@pytest.mark.parametrize("kw", [dict(model_type="attbilstm2s"),
+@pytest.mark.parametrize("kw", [dict(model_type="attbilstm1s"),
                                 dict(train_transfer="packed"),
                                 dict(num_processes=2),
                                 dict(dist_coordinator="localhost:1234")])
@@ -262,3 +263,85 @@ def test_streaming_loader_trains(tmp_path):
                           device="cpu"))
     assert r["steps"] == 2 * 7 and r["ckpts"]
     assert np.all(np.isfinite(r["valid_losses"]))
+
+
+LSTM = dict(CFG, model_type="attbilstm2s")
+
+
+def test_lstm_full_model_loss_and_grads_match_pallas_vjp():
+    """attbilstm2s: the port's loss and every gradient leaf (K6's plain
+    versions through BiLSTMLayerFn) against jax.grad through the JAX
+    package's custom-VJP LSTM kernels in interpret mode; the gate of
+    tests/test_pallas_vjp.py, atol 2e-4 / rtol 1e-3."""
+    params = init_attrnn(3, AttRNNConfig(**LSTM))
+    feats, labels = _feats(13, seed=1)
+    mask = np.ones(13, np.float32)
+    mask[[2, 7, 11]] = 0.0
+    jcfg = JaxAttRNNConfig(**LSTM)
+
+    def loss_fn(p):
+        logits, _ = apply_attrnn(p, jcfg, feats, rnn_backend="pallas", train=True,
+                                 dropout_rng=None)
+        per = optax.softmax_cross_entropy_with_integer_labels(logits, labels)
+        w = jnp.array([1.0, 1.5], jnp.float32)[labels] * mask
+        return jnp.sum(per * w) / jnp.maximum(jnp.sum(w), 1e-9)
+
+    loss_j, g_j = jax.value_and_grad(loss_fn)(params)
+    model = _model(params, LSTM)
+    ft, lt, mt = _t(feats, labels, mask)
+    before = (bigru_vjp.launches_fwd, bilstm_vjp.plain_calls)
+    logits, _ = model(ft, train=True)
+    loss = weighted_ce(logits, lt, mt, torch.tensor([1.0, 1.5]))
+    names = [n for n, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    g = attrnn_params_from_state_dict(dict(zip(names, grads)))
+    assert abs(loss.item() - float(loss_j)) <= 1e-5
+    _assert_tree_close(g, g_j, atol=2e-4, rtol=1e-3)
+    # the LSTM went through K6's plain versions, one forward and one
+    # backward a layer, and not through the GRU's
+    assert (bigru_vjp.launches_fwd, bilstm_vjp.plain_calls) == (
+        before[0], before[1] + 2 * LSTM["num_layers"])
+
+
+def test_lstm_sgd_step_matches_jax_train_step():
+    """One step of SGD (lr 1e-2, momentum 0.8, clip 0.5) on attbilstm2s
+    against JAX's make_train_step on its 8-device CPU mesh (default scan
+    backend, the same function), B=16."""
+    params = init_attrnn(4, AttRNNConfig(**LSTM))
+    feats, labels = _feats(16, seed=2)
+    mask = np.ones(16, np.float32)
+    tx = jax_build_optimizer("SGD", 1e-2)
+    jstep, _mesh = jax_make_train_step(JaxAttRNNConfig(**LSTM), tx, 1.5)
+    p_j, _o, loss_j = jstep(params, tx.init(params), feats, labels, mask,
+                            jax.random.PRNGKey(0))
+    model = _model(params, LSTM)
+    opt = build_optimizer("SGD", 1e-2)
+    opt.init(model.parameters(), gc_dims([n for n, _ in model.named_parameters()]))
+    loss = make_train_step(model, opt, 1.5)(*_t(feats, labels, mask))
+    assert abs(loss.item() - float(loss_j)) <= 1e-6
+    _assert_tree_close(attrnn_params_from_state_dict(model.state_dict()), p_j,
+                       atol=1e-6, rtol=0)
+
+
+def test_lstm_train_learns_and_jax_loads_the_checkpoint(tmp_path):
+    tr, va = str(tmp_path / "train.tsv"), str(tmp_path / "valid.tsv")
+    _write_feature_tsv(tr, n=600, seed=1)
+    _write_feature_tsv(va, n=120, seed=2)
+    result = train(TrainConfig(
+        train_file=tr, valid_file=va, model_dir=str(tmp_path / "models"),
+        model_type="attbilstm2s", layer_rnn=1, hid_rnn=24, batch_size=64,
+        dropout_rate=0.1, max_epoch_num=12, min_epoch_num=4, step_interval=5,
+        lr=0.01, lr_decay=0.5, lr_decay_step=4, tseed=7, device="cpu"))
+    assert result["best_accuracy"] > 0.9
+    assert result["steps"] > 0 and np.all(np.isfinite(result["train_losses"]))
+    saved = sorted(glob.glob(str(tmp_path / "models" / "attbilstm2s.b21_epoch*.ckpt.npz")))
+    assert saved
+    params = jax_load_params(saved[-1])
+    assert np.asarray(params["rnn"][0]["fwd"]["w_hh"]).shape == (4 * 24, 24)
+    kw = dict(num_layers=1, hidden_size=24, dropout_rate=0, model_type="attbilstm2s")
+    data = load_feature_tsv(va)
+    feats = {k: v[:32] for k, v in data.items() if k != "labels"}
+    _l, p_j = apply_attrnn(params, JaxAttRNNConfig(**kw), feats)
+    with torch.inference_mode():
+        _l, p_t = _model(params, kw)({k: torch.from_numpy(v) for k, v in feats.items()})
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=5e-6)
