@@ -4,7 +4,8 @@
 
 Usage:
     python -m ccsmeth_tpu_torch.cli call_mods -i reads.bam -o out -m model.npz \\
-        --mode align --ref ref.fa [--device cuda|cpu] [--precision fp32|bf16]
+        --mode align --ref ref.fa [--device cuda|cpu] [--precision fp32|bf16] \\
+        [--model_type attbilstm2s|transencoder2s] [--rnn_backend pallas_layer]
     python -m ccsmeth_tpu_torch.cli train --train_file train.tsv \\
         --valid_file valid.tsv --model_dir models [--device cuda|cpu] \\
         [--precision fp32|bf16]
@@ -61,7 +62,7 @@ def _add_model_args(p, train=False):
                    choices=["attbilstm2s", "attbigru2s", "transencoder2s",
                             "attbilstm2s2", "attbigru2s2"],
                    help="model type, default attbigru2s (ported: attbigru2s, "
-                        "attbilstm2s)")
+                        "attbilstm2s; transencoder2s for call_mods only)")
     g.add_argument("--seq_len", type=int, default=21, help="len of kmer, default 21")
     g.add_argument("--is_npass", type=str, default="yes",
                    help="if using num_pass features, yes or no, default yes")
@@ -225,14 +226,17 @@ def get_parser() -> argparse.ArgumentParser:
                     help="cuda[:i] (default) or cpu; cuda without a GPU raises")
     gc.add_argument("--rnn_backend", type=str, default="xla",
                     choices=["xla", "pallas", "pallas_layer"],
-                    help="kept for flag parity: on cuda every value runs the "
-                         "BiRNN through the hand-written kernel, on cpu "
-                         "through its plain PyTorch version")
+                    help="RNN models: pallas_layer runs the BiRNN one "
+                         "hand-written kernel launch per layer (K2), xla and "
+                         "pallas the whole stack in one (K1); transencoder2s "
+                         "runs its encoder kernel (K3) for every value; on "
+                         "cpu the plain PyTorch versions")
     gc.add_argument("--use_compile", type=str, default="no",
                     help="[IGNORED] reference-CLI compatibility")
     gc.add_argument("--precision", type=str, default="fp32",
                     choices=["fp32", "bf16"],
-                    help="operand type of the BiRNN (f32 accumulation), default fp32")
+                    help="operand type of the BiRNN or encoder (f32 "
+                         "accumulation), default fp32")
     gc.add_argument("--sort_mem_mb", type=int, default=512,
                     help="memory budget for the output-modbam external merge "
                          "sort, default 512")

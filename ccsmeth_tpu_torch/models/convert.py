@@ -4,13 +4,17 @@
 (numpy leaves: ``init_attrnn`` output or ``params_io.load_params`` of a native
 ``.npz``) into ``AttRNN``'s state_dict, and ``attrnn_params_from_state_dict``
 carries it back, so a model trained here is saved with ``params_io`` in the
-JAX package's own ``.ckpt.npz`` format. ``torch_ckpt_to_params`` is the
-counterpart of ``ccsmeth_tpu/models/convert.py``'s: reference ``.ckpt`` ->
-params pytree.
+JAX package's own ``.ckpt.npz`` format. ``transenc_state_dict_from_params``
+and ``transenc_params_from_state_dict`` do the same for ``TransEnc``
+(transencoder2s). ``torch_ckpt_to_params`` is the counterpart of
+``ccsmeth_tpu/models/convert.py``'s: reference ``.ckpt`` -> params pytree.
 
 Layout notes (``ccsmeth_tpu/models/convert.py:8-13``): nn.Linear stores
 (out, in) while the params pytree is input-major (in, out), so linear weights
-transpose; RNN tensors keep torch's layout and gate order and pass through.
+transpose; RNN tensors keep torch's layout and gate order and pass through;
+Conv1d weights (out, in, k) pass through; the attention's in_proj (3d, d)
+splits into the input-major wq, wk, wv; BatchNorm's running statistics are
+buffers of the state_dict.
 """
 
 from __future__ import annotations
@@ -20,26 +24,28 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .config import AttRNNConfig
+from .config import AttRNNConfig, TransEncConfig
+
+
+def _t(a) -> torch.Tensor:
+    """A float32 CPU tensor of an array."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
 
 
 def attrnn_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tensor]":
     """params pytree (numpy) -> AttRNN state_dict (float32 CPU tensors)."""
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
-
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    sd["embed.weight"] = t(params["embed"])
+    sd["embed.weight"] = _t(params["embed"])
     for k, ld in enumerate(params["rnn"]):
         for d, suf in (("fwd", ""), ("bwd", "_reverse")):
-            sd["rnn.weight_ih_l{}{}".format(k, suf)] = t(ld[d]["w_ih"])
-            sd["rnn.weight_hh_l{}{}".format(k, suf)] = t(ld[d]["w_hh"])
-            sd["rnn.bias_ih_l{}{}".format(k, suf)] = t(ld[d]["b_ih"])
-            sd["rnn.bias_hh_l{}{}".format(k, suf)] = t(ld[d]["b_hh"])
+            sd["rnn.weight_ih_l{}{}".format(k, suf)] = _t(ld[d]["w_ih"])
+            sd["rnn.weight_hh_l{}{}".format(k, suf)] = _t(ld[d]["w_hh"])
+            sd["rnn.bias_ih_l{}{}".format(k, suf)] = _t(ld[d]["b_ih"])
+            sd["rnn.bias_hh_l{}{}".format(k, suf)] = _t(ld[d]["b_hh"])
     for name in ("Wa", "Ua", "va"):
-        sd["_att3.{}.weight".format(name)] = t(np.asarray(params["att"][name]).T)
-    sd["fc1.weight"] = t(np.asarray(params["fc1"]["w"]).T)
-    sd["fc1.bias"] = t(params["fc1"]["b"])
+        sd["_att3.{}.weight".format(name)] = _t(np.asarray(params["att"][name]).T)
+    sd["fc1.weight"] = _t(np.asarray(params["fc1"]["w"]).T)
+    sd["fc1.bias"] = _t(params["fc1"]["b"])
     return sd
 
 
@@ -102,11 +108,125 @@ def _attention(sd, prefix="_att3"):
             for name in ("Wa", "Ua", "va")}
 
 
-def torch_ckpt_to_params(path: str, cfg: AttRNNConfig) -> dict:
-    """Reference .ckpt -> params pytree (scalar-kinetics families)."""
+def _src_embed_sd(p: dict, prefix: str, sd) -> None:
+    """SrcEmbed params -> state_dict entries under ``prefix``
+    (``conv_embed.{0,1,4,5}``, ``conv_embed_plus.{i}.conv_embed.{0,1}``)."""
+    def block(conv_key, bn_key, conv, bn):
+        sd[conv_key + ".weight"] = _t(conv)
+        for key, name in (("scale", "weight"), ("bias", "bias"),
+                          ("mean", "running_mean"), ("var", "running_var")):
+            sd["{}.{}".format(bn_key, name)] = _t(bn[key])
+        sd[bn_key + ".num_batches_tracked"] = torch.tensor(0)
+
+    ce = prefix + ".conv_embed"
+    block(ce + ".0", ce + ".1", p["conv1"], p["bn1"])
+    block(ce + ".4", ce + ".5", p["conv2"], p["bn2"])
+    for i, blk in enumerate(p["plus"]):
+        bp = "{}.conv_embed_plus.{}.conv_embed".format(prefix, i)
+        block(bp + ".0", bp + ".1", blk["conv"], blk["bn"])
+
+
+def transenc_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """transencoder2s params pytree (numpy) -> TransEnc state_dict (float32
+    CPU tensors, BatchNorm's num_batches_tracked 0): the inverse of
+    ``ccsmeth_tpu/models/convert.py``'s ``_transenc_from_sd``."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name in ("seq_embed", "ipd_embed", "pw_embed", "npass_embed", "map_embed"):
+        if name in params:
+            sd[name + ".weight"] = _t(params[name])
+    for name in ("ipd_std_embed", "pw_std_embed", "sn_embed", "trans_input"):
+        if name in params:
+            _src_embed_sd(params[name], name, sd)
+    sd["pos_encoder.pos_embed.weight"] = _t(params["pos_embed"])
+    for i, lp in enumerate(params["layers"]):
+        p = "transformer_encoder.layers.{}.".format(i)
+        sd[p + "self_attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(lp[k]).T for k in ("wq", "wk", "wv")]))
+        sd[p + "self_attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(lp[k]) for k in ("bq", "bk", "bv")]))
+        sd[p + "self_attn.out_proj.weight"] = _t(np.asarray(lp["wo"]).T)
+        sd[p + "self_attn.out_proj.bias"] = _t(lp["bo"])
+        for mod, key in (("linear1", "lin1"), ("linear2", "lin2")):
+            sd[p + mod + ".weight"] = _t(np.asarray(lp[key]["w"]).T)
+            sd[p + mod + ".bias"] = _t(lp[key]["b"])
+        for mod, key in (("norm1", "ln1"), ("norm2", "ln2")):
+            sd[p + mod + ".weight"] = _t(lp[key]["scale"])
+            sd[p + mod + ".bias"] = _t(lp[key]["bias"])
+    for i, idx in enumerate((0, 3)):
+        sd["classifier.{}.weight".format(idx)] = _t(np.asarray(params["classifier"][i]["w"]).T)
+        sd["classifier.{}.bias".format(idx)] = _t(params["classifier"][i]["b"])
+    return sd
+
+
+def transenc_params_from_state_dict(sd, cfg: TransEncConfig) -> dict:
+    """TransEnc (or reference) state_dict (tensors on any device, or numpy)
+    -> params pytree (numpy float32): the inverse of
+    ``transenc_state_dict_from_params``, with ``_transenc_from_sd``'s
+    mapping."""
+    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                        np.float32) for k, v in sd.items()}
+    d = cfg.d_model
+    params: dict = {
+        "seq_embed": sd["seq_embed.weight"],
+        "ipd_embed": sd["ipd_embed.weight"],
+        "pw_embed": sd["pw_embed.weight"],
+        "trans_input": _src_embed(sd, "trans_input", 1),
+        "pos_embed": sd["pos_encoder.pos_embed.weight"],
+        "classifier": [_lin(sd, "classifier.0"), _lin(sd, "classifier.3")],
+        "layers": [],
+    }
+    if cfg.is_npass:
+        params["npass_embed"] = sd["npass_embed.weight"]
+    if cfg.is_stds:
+        params["ipd_std_embed"] = _src_embed(sd, "ipd_std_embed", 1)
+        params["pw_std_embed"] = _src_embed(sd, "pw_std_embed", 1)
+    if cfg.is_sn:
+        params["sn_embed"] = _src_embed(sd, "sn_embed", 0)
+    if cfg.is_map:
+        params["map_embed"] = sd["map_embed.weight"]
+    for i in range(cfg.num_layers):
+        p = "transformer_encoder.layers.{}".format(i)
+        in_w = sd[p + ".self_attn.in_proj_weight"]  # (3d, d)
+        in_b = sd[p + ".self_attn.in_proj_bias"]
+        params["layers"].append({
+            "wq": np.ascontiguousarray(in_w[:d].T), "bq": in_b[:d],
+            "wk": np.ascontiguousarray(in_w[d:2 * d].T), "bk": in_b[d:2 * d],
+            "wv": np.ascontiguousarray(in_w[2 * d:].T), "bv": in_b[2 * d:],
+            "wo": np.ascontiguousarray(sd[p + ".self_attn.out_proj.weight"].T),
+            "bo": sd[p + ".self_attn.out_proj.bias"],
+            "lin1": _lin(sd, p + ".linear1"),
+            "lin2": _lin(sd, p + ".linear2"),
+            "ln1": {"scale": sd[p + ".norm1.weight"], "bias": sd[p + ".norm1.bias"]},
+            "ln2": {"scale": sd[p + ".norm2.weight"], "bias": sd[p + ".norm2.bias"]},
+        })
+    return params
+
+
+def _bn(sd, prefix):
+    return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"],
+            "mean": sd[prefix + ".running_mean"], "var": sd[prefix + ".running_var"]}
+
+
+def _src_embed(sd, prefix, block_plus):
+    p = {"conv1": sd[prefix + ".conv_embed.0.weight"],
+         "bn1": _bn(sd, prefix + ".conv_embed.1"),
+         "conv2": sd[prefix + ".conv_embed.4.weight"],
+         "bn2": _bn(sd, prefix + ".conv_embed.5"),
+         "plus": []}
+    for i in range(block_plus):
+        bp = "{}.conv_embed_plus.{}.conv_embed".format(prefix, i)
+        p["plus"].append({"conv": sd[bp + ".0.weight"], "bn": _bn(sd, bp + ".1")})
+    return p
+
+
+def torch_ckpt_to_params(path: str, cfg) -> dict:
+    """Reference .ckpt -> params pytree: the scalar-kinetics attrnn families
+    (AttRNNConfig) and transencoder2s (TransEncConfig)."""
+    if isinstance(cfg, TransEncConfig):
+        return transenc_params_from_state_dict(load_torch_state_dict(path), cfg)
     if not isinstance(cfg, AttRNNConfig) or cfg.embedded_kinetics:
         raise NotImplementedError(
-            "only the scalar-kinetics attrnn families are ported")
+            "only the scalar-kinetics attrnn families and transencoder2s are ported")
     sd = load_torch_state_dict(path)
     return {"embed": sd["embed.weight"], "fc1": _lin(sd, "fc1"),
             "rnn": _rnn_layers(sd, "rnn", cfg.num_layers),

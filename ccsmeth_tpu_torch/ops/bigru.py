@@ -18,6 +18,17 @@ version, ``models/rnn.py``'s ``birnn_tm`` with zero h0 (and c0). ``launches`` co
 launches. The kernel is compiled with ``nvcc`` at first use into
 ``build/kernels/`` beside the package (``nvcc.py``); nothing here imports a GPU
 toolchain at import time.
+
+Kernel K2, the per-layer counterpart (``bigru_pallas.py``: ``_fused_kernel
+:87``, ``_fused_lstm_kernel :36``, launched by ``_fused_layer_call :143``),
+is the same source's ``bigru_layer_launch``: K1's device code on one layer,
+the two directions in separate blocks. ``birnn_layers`` (the counterpart of
+``birnn_apply_pallas :447``) launches it once per layer and keeps the
+contract of ``birnn_stack``, except that h_n is rebuilt from the stored
+outputs as the JAX entry does (``:473``): the last forward step and the
+first backward step, in the operand type, widened to f32. ``bigru_layer``
+is the batch-major one-layer GRU entry (``bigru_layer_pallas :423``).
+``layer_launches`` and ``layer_plain_calls`` count K2 and its plain version.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ _CELL_CODE = {"gru": 0, "lstm": 1}
 
 launches = 0  # kernel launches since the caller last set it to 0
 plain_calls = 0  # plain-version runs (CPU tensors, or birnn_stack_plain)
+layer_launches = 0  # K2 launches (one per layer)
+layer_plain_calls = 0  # K2 plain-version runs (one per layer)
 
 _lib = None
 _lock = threading.Lock()
@@ -60,6 +73,10 @@ def _load():
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+            fn = lib.bigru_layer_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
             _lib = lib
     return _lib
 
@@ -162,6 +179,79 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
         raise RuntimeError("bigru_stack launch failed: cudaError {}".format(rc))
     launches += 1
     return out, hn
+
+
+def bigru_layer_tm_plain(layer, x: torch.Tensor, compute_dtype=torch.float32,
+                         cell: str = "gru") -> torch.Tensor:
+    """The plain version of K2 on any device: same contract as
+    bigru_layer_tm."""
+    global layer_plain_calls
+    _check([layer], x, compute_dtype, cell)
+    layer_plain_calls += 1
+    return birnn_tm([layer], x, None, compute_dtype, cell)[0]
+
+
+def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
+                   cell: str = "gru") -> torch.Tensor:
+    """One bidirectional GRU or LSTM layer, zero h0 (and c0): kernel K2 on
+    CUDA, the plain version on CPU. layer: (w_ih (2, C, G), b_ih (2, G) f32,
+    w_hh (2, H, G), b_hh (2, G) f32), weights in compute_dtype; x (L, N, C)
+    contiguous in compute_dtype -> out (L, N, 2H) in compute_dtype, both
+    directions in time order."""
+    global layer_launches
+    H = _check([layer], x, compute_dtype, cell)
+    if x.device.type == "cpu":
+        return bigru_layer_tm_plain(layer, x, compute_dtype, cell)
+    if x.device.type != "cuda":
+        raise ValueError("bigru_layer_tm runs on cuda or cpu, not {}".format(
+            x.device.type))
+    L, N, C = x.shape
+    if H % 4 != 0 or H // 4 > THREADS:
+        raise ValueError("kernel takes H % 4 == 0 and H <= 1024 (H={})".format(H))
+    if any(t.data_ptr() % 16 for t in layer) or x.data_ptr() % 16:
+        raise ValueError("kernel operands must be 16-byte aligned")
+    props = torch.cuda.get_device_properties(x.device)
+    # two blocks per row tile (one per direction): size the tiles for half
+    # the SMs
+    r, ty = tile_shape(N, H, max(1, props.multi_processor_count // 2))
+    while r > 1 and _shared_bytes(C, H, ty * r, cell) > SMEM_LIMIT:
+        r //= 2
+    if _shared_bytes(C, H, ty * r, cell) > SMEM_LIMIT:
+        raise ValueError("tile does not fit in shared memory (C={}, H={})"
+                         .format(C, H))
+    lib = _load()
+    out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
+    wih, bih, whh, bhh = layer
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.bigru_layer_launch(
+            _CELL_CODE[cell], DTYPE_CODE[compute_dtype], x.data_ptr(),
+            out.data_ptr(), wih.data_ptr(), bih.data_ptr(), whh.data_ptr(),
+            bhh.data_ptr(), L, N, C, H, r, ty, stream)
+    if rc != 0:
+        raise RuntimeError("bigru_layer launch failed: cudaError {}".format(rc))
+    layer_launches += 1
+    return out
+
+
+def birnn_layers(layers, x: torch.Tensor, compute_dtype=torch.float32,
+                 cell: str = "gru"):
+    """The stack one layer per launch (K2 on CUDA, its plain version on
+    CPU): the contract of birnn_stack, out (L, N, 2H) in compute_dtype and
+    h_n (2*NL, N, H) f32 rebuilt from the outputs."""
+    h_ns = []
+    for ly in layers:
+        x = bigru_layer_tm(ly, x, compute_dtype, cell)
+        H = x.shape[2] // 2
+        h_ns += [x[-1, :, :H].float(), x[0, :, H:].float()]
+    return x, torch.stack(h_ns)
+
+
+def bigru_layer(layer, x: torch.Tensor, compute_dtype=torch.float32) -> torch.Tensor:
+    """One bidirectional GRU layer, batch-major: x (B, L, C) -> (B, L, 2H)
+    f32 (``bigru_layer_pallas :423``)."""
+    x_tm = x.transpose(0, 1).to(compute_dtype).contiguous()
+    return bigru_layer_tm(layer, x_tm, compute_dtype, "gru").transpose(0, 1).float()
 
 
 def stack_flops(L: int, N: int, C0: int, H: int, NL: int, cell: str = "gru") -> int:

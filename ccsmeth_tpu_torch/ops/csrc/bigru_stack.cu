@@ -1,6 +1,7 @@
 // Whole-network bidirectional RNN inference (GRU or LSTM cell): every layer,
 // both directions and all L timesteps of one batch tile in ONE launch, zero
-// h0 (and c0).
+// h0 (and c0). The same kernel on one layer, the directions in separate
+// blocks, is kernel K2 (bigru_layer_launch at the end of this file).
 //
 // Replaces: ccsmeth_tpu/ops/bigru_pallas.py::_make_stack_kernel
 //   (dir_batched=False), GRU cell (:232) and LSTM cell (:238-245), launched
@@ -71,7 +72,9 @@ struct StackParams {
   int NL, L, N, C0, H;
 };
 
-template <typename T, int R, bool LSTM>
+// ONE_DIR (kernel K2): NL = 1 and block row blockIdx.y runs direction
+// blockIdx.y alone; K1's instantiations keep both directions in one block.
+template <typename T, int R, bool LSTM, bool ONE_DIR>
 __global__ void __launch_bounds__(BIGRU_THREADS, 1)
     bigru_stack_kernel(const StackParams p) {
   extern __shared__ __align__(16) float smem[];
@@ -99,7 +102,9 @@ __global__ void __launch_bounds__(BIGRU_THREADS, 1)
                  : static_cast<const T*>(((p.NL - l) % 2 == 0) ? p.out
                                                                 : p.scratch);
     T* xout = static_cast<T*>(((p.NL - 1 - l) % 2 == 0) ? p.out : p.scratch);
-    for (int d = 0; d < 2; ++d) {
+    const int d_lo = ONE_DIR ? (int)blockIdx.y : 0;
+    const int d_hi = ONE_DIR ? d_lo + 1 : 2;
+    for (int d = d_lo; d < d_hi; ++d) {
       const T* Wih = static_cast<const T*>(p.wih[l]) + (size_t)d * Cin * G;
       const T* Whh = static_cast<const T*>(p.whh[l]) + (size_t)d * H * G;
       const float* bi = p.bih[l] + d * G;
@@ -177,7 +182,7 @@ __global__ void __launch_bounds__(BIGRU_THREADS, 1)
             if (row < N) {
               xout[((size_t)t * N + row) * 2 * H + d * H + j0 + j] =
                   Op<T>::from_f(hnew);
-              if (s == L - 1)
+              if (!ONE_DIR && s == L - 1)
                 p.hn[((size_t)(2 * l + d) * N + row) * H + j0 + j] = hnew;
             }
           }
@@ -191,7 +196,7 @@ __global__ void __launch_bounds__(BIGRU_THREADS, 1)
   }
 }
 
-template <typename T, int R, bool LSTM>
+template <typename T, int R, bool LSTM, bool ONE_DIR>
 static int launch_typed(const StackParams& p, int block_rows_y,
                         cudaStream_t stream) {
   const int TX = p.H / 4;
@@ -202,23 +207,40 @@ static int launch_typed(const StackParams& p, int block_rows_y,
       (size_t)((LSTM ? 3 : 2) * p.H + cmax) * Bt * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        bigru_stack_kernel<T, R, LSTM>,
+        bigru_stack_kernel<T, R, LSTM, ONE_DIR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int grid = (p.N + Bt - 1) / Bt;
-  bigru_stack_kernel<T, R, LSTM><<<grid, threads, smem, stream>>>(p);
+  const dim3 grid((p.N + Bt - 1) / Bt, ONE_DIR ? 2 : 1);
+  bigru_stack_kernel<T, R, LSTM, ONE_DIR><<<grid, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool LSTM>
+template <typename T, bool LSTM, bool ONE_DIR>
 static int launch_rows(const StackParams& p, int R, int block_rows_y,
                        cudaStream_t s) {
-  if (R == 8) return launch_typed<T, 8, LSTM>(p, block_rows_y, s);
-  if (R == 4) return launch_typed<T, 4, LSTM>(p, block_rows_y, s);
-  if (R == 2) return launch_typed<T, 2, LSTM>(p, block_rows_y, s);
-  if (R == 1) return launch_typed<T, 1, LSTM>(p, block_rows_y, s);
+  if (R == 8) return launch_typed<T, 8, LSTM, ONE_DIR>(p, block_rows_y, s);
+  if (R == 4) return launch_typed<T, 4, LSTM, ONE_DIR>(p, block_rows_y, s);
+  if (R == 2) return launch_typed<T, 2, LSTM, ONE_DIR>(p, block_rows_y, s);
+  if (R == 1) return launch_typed<T, 1, LSTM, ONE_DIR>(p, block_rows_y, s);
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool ONE_DIR>
+static int launch(const StackParams& p, int cell, int dtype, int R, int ty,
+                  cudaStream_t s) {
+  if (dtype == 0)
+    return cell ? launch_rows<float, true, ONE_DIR>(p, R, ty, s)
+                : launch_rows<float, false, ONE_DIR>(p, R, ty, s);
+  if (dtype == 1)
+    return cell ? launch_rows<__nv_bfloat16, true, ONE_DIR>(p, R, ty, s)
+                : launch_rows<__nv_bfloat16, false, ONE_DIR>(p, R, ty, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+static bool bad_shape(int cell, int L, int N, int C0, int H, int block_rows_y) {
+  return H < 4 || H % 4 != 0 || L < 1 || N < 1 || C0 < 1 || block_rows_y < 1 ||
+         (H / 4) * block_rows_y > BIGRU_THREADS || (cell != 0 && cell != 1);
 }
 
 extern "C" {
@@ -234,9 +256,8 @@ int bigru_stack_launch(int cell, int dtype, const void* x, void* out,
                        const uint64_t* bhh, int NL, int L, int N, int C0,
                        int H, int rows_per_thread, int block_rows_y,
                        void* stream) {
-  if (NL < 1 || NL > BIGRU_MAX_LAYERS || H < 4 || H % 4 != 0 || L < 1 ||
-      N < 1 || C0 < 1 || block_rows_y < 1 ||
-      (H / 4) * block_rows_y > BIGRU_THREADS || (cell != 0 && cell != 1))
+  if (NL < 1 || NL > BIGRU_MAX_LAYERS ||
+      bad_shape(cell, L, N, C0, H, block_rows_y))
     return (int)cudaErrorInvalidValue;
   StackParams p;
   p.x = x;
@@ -254,15 +275,42 @@ int bigru_stack_launch(int cell, int dtype, const void* x, void* out,
   p.N = N;
   p.C0 = C0;
   p.H = H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = rows_per_thread, ty = block_rows_y;
-  if (dtype == 0)
-    return cell ? launch_rows<float, true>(p, R, ty, s)
-                : launch_rows<float, false>(p, R, ty, s);
-  if (dtype == 1)
-    return cell ? launch_rows<__nv_bfloat16, true>(p, R, ty, s)
-                : launch_rows<__nv_bfloat16, false>(p, R, ty, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<false>(p, cell, dtype, rows_per_thread, block_rows_y,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Kernel K2: ONE bidirectional layer, zero h0 (and c0). Replaces
+// ccsmeth_tpu/ops/bigru_pallas.py::_fused_kernel (GRU, :87) and
+// ::_fused_lstm_kernel (LSTM, :36), launched there by _fused_layer_call once
+// per layer. It is the kernel above with NL = 1 on a grid of (row tiles, 2)
+// (template argument ONE_DIR): with no next layer waiting for both
+// directions of a row, the two directions run in separate blocks, twice the
+// blocks of a K1 launch. out (L, N, 2H) holds both directions in time order
+// (the TPU kernel stores the backward one reversed and the caller flips it
+// back: layout only); no h_n is written, the caller rebuilds it from out as
+// the TPU entry does.
+int bigru_layer_launch(int cell, int dtype, const void* x, void* out,
+                       const void* wih, const void* bih, const void* whh,
+                       const void* bhh, int L, int N, int C, int H,
+                       int rows_per_thread, int block_rows_y, void* stream) {
+  if (bad_shape(cell, L, N, C, H, block_rows_y))
+    return (int)cudaErrorInvalidValue;
+  StackParams p;
+  p.x = x;
+  p.out = out;
+  p.scratch = out;
+  p.hn = nullptr;  // not written with ONE_DIR
+  p.wih[0] = wih;
+  p.bih[0] = static_cast<const float*>(bih);
+  p.whh[0] = whh;
+  p.bhh[0] = static_cast<const float*>(bhh);
+  p.NL = 1;
+  p.L = L;
+  p.N = N;
+  p.C0 = C;
+  p.H = H;
+  return launch<true>(p, cell, dtype, rows_per_thread, block_rows_y,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

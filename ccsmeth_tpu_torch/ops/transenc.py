@@ -1,0 +1,217 @@
+"""Kernel K3: the whole transencoder2s encoder plus the mean over positions.
+
+Counterpart of ``ccsmeth_tpu/ops/transenc_pallas.py`` (``_make_encoder_kernel
+:144``, launched by ``_encoder_call :335``, entry ``encoder_pooled_pallas
+:393``). The kernel source is ``csrc/transenc_encoder.cu``; its header says
+what bounds it on an H100 and what the design does about that.
+
+``encoder_pooled(stacked, x, compute_dtype, nhead)`` takes the weight layout
+of the JAX package's ``_stack_layer_params`` (``transenc_pallas.py:74-92``):
+
+    x       (N, L, D)       operand type (float32 or bfloat16), contiguous
+    stacked {wqkv (NL, D, 3D), wo (NL, D, D), w1 (NL, D, FF), w2 (NL, FF, D)
+             in the operand type, columns of wqkv q | k | v;
+             bqkv (NL, 3D), bo, b1, b2, ln1s, ln1b, ln2s, ln2b f32}
+    ->      (N, D) f32: NL post-LayerNorm layers, then the mean over L
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+version, ``encoder_pooled_plain``: the JAX package's ``_encoder`` + mean
+(``models/transenc.py:96-126``) in PyTorch, rounding every product operand to
+the operand type as the kernel does. ``launches`` and ``plain_calls`` count
+the two. The kernel is compiled with ``nvcc`` at first use (``nvcc.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+import torch.nn.functional as F
+
+from . import nvcc
+from .kernel_args import DTYPE_CODE, SMEM_LIMIT
+
+SRC = "transenc_encoder.cu"
+# the kernel's argument order
+NAMES = ("wqkv", "wo", "w1", "w2", "bqkv", "bo", "b1", "b2",
+         "ln1s", "ln1b", "ln2s", "ln2b")
+WARPS = 8  # ENC_WARPS in csrc/transenc_encoder.cu
+LMAX = 32  # ENC_LMAX
+
+launches = 0  # kernel launches since the caller last set it to 0
+plain_calls = 0  # plain-version runs (CPU tensors, or encoder_pooled_plain)
+
+_lib = None
+_lock = threading.Lock()
+build_log = ""  # nvcc's -Xptxas -v report of the last build
+
+
+def build() -> str:
+    """Compile ``csrc/transenc_encoder.cu`` if its library is missing; returns
+    the library path. Raises with nvcc's output when the build fails."""
+    global build_log
+    so, log = nvcc.build(SRC)
+    build_log = log or build_log
+    return so
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            fn = lib.transenc_encoder_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                           + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            _lib = lib
+    return _lib
+
+
+def stack_layers(layers, compute_dtype=torch.float32, device=None) -> dict:
+    """The JAX package's per-layer params ({wq, bq, wk, bk, wv, bv, wo, bo,
+    lin1 {w, b}, lin2 {w, b}, ln1 {scale, bias}, ln2}, input-major; numpy
+    arrays or tensors) -> the kernel's stacked dict, weights in compute_dtype
+    and the rest f32 (``_stack_layer_params``)."""
+    def t(a):
+        return torch.as_tensor(a, device=device).float()
+
+    def stack(fn, dt=torch.float32):
+        return torch.stack([fn(lp) for lp in layers]).to(dt).contiguous()
+
+    cd = compute_dtype
+    return {
+        "wqkv": stack(lambda lp: torch.cat([t(lp["wq"]), t(lp["wk"]), t(lp["wv"])], 1), cd),
+        "bqkv": stack(lambda lp: torch.cat([t(lp["bq"]), t(lp["bk"]), t(lp["bv"])])),
+        "wo": stack(lambda lp: t(lp["wo"]), cd),
+        "bo": stack(lambda lp: t(lp["bo"])),
+        "w1": stack(lambda lp: t(lp["lin1"]["w"]), cd),
+        "b1": stack(lambda lp: t(lp["lin1"]["b"])),
+        "w2": stack(lambda lp: t(lp["lin2"]["w"]), cd),
+        "b2": stack(lambda lp: t(lp["lin2"]["b"])),
+        "ln1s": stack(lambda lp: t(lp["ln1"]["scale"])),
+        "ln1b": stack(lambda lp: t(lp["ln1"]["bias"])),
+        "ln2s": stack(lambda lp: t(lp["ln2"]["scale"])),
+        "ln2b": stack(lambda lp: t(lp["ln2"]["bias"])),
+    }
+
+
+def _check(stacked, x: torch.Tensor, compute_dtype, nhead: int):
+    """Raise on anything the kernel does not take; returns (NL, L, D, FF)."""
+    if compute_dtype not in DTYPE_CODE:
+        raise ValueError("compute_dtype must be float32 or bfloat16")
+    if x.dim() != 3:
+        raise ValueError("x must be (N, L, D), got {}".format(tuple(x.shape)))
+    if x.dtype != compute_dtype:
+        raise TypeError("x is {}, expected {}".format(x.dtype, compute_dtype))
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    _N, L, D = x.shape
+    NL, FF = stacked["w1"].shape[0], stacked["w1"].shape[2]
+    if nhead < 1 or D % nhead != 0:
+        raise ValueError("d_model {} is not a multiple of nhead {}".format(D, nhead))
+    want = {"wqkv": (NL, D, 3 * D), "wo": (NL, D, D), "w1": (NL, D, FF),
+            "w2": (NL, FF, D), "bqkv": (NL, 3 * D), "bo": (NL, D),
+            "b1": (NL, FF), "b2": (NL, D), "ln1s": (NL, D), "ln1b": (NL, D),
+            "ln2s": (NL, D), "ln2b": (NL, D)}
+    for name in NAMES:
+        t = stacked[name]
+        dt = compute_dtype if name.startswith("w") else torch.float32
+        if tuple(t.shape) != want[name] or t.dtype != dt:
+            raise ValueError("{}: got {} {}, expected {} {}".format(
+                name, tuple(t.shape), t.dtype, want[name], dt))
+        if t.device != x.device:
+            raise ValueError("{} is on {}, x on {}".format(name, t.device, x.device))
+        if not t.is_contiguous():
+            raise ValueError("{} must be contiguous".format(name))
+    return NL, L, D, FF
+
+
+def encoder_pooled_plain(stacked, x: torch.Tensor, compute_dtype=torch.float32,
+                         nhead: int = 4) -> torch.Tensor:
+    """The plain version of K3 on any device: same contract as
+    encoder_pooled. Every product operand is rounded to compute_dtype (x, the
+    weights, q, k, v, the attention weights, the context, the hidden layer);
+    products sum in f32; softmax, LayerNorm, residuals and the mean are f32."""
+    global plain_calls
+    NL, L, D, _FF = _check(stacked, x, compute_dtype, nhead)
+    plain_calls += 1
+    N = x.shape[0]
+    HD = D // nhead
+
+    def op(t):
+        return t.to(compute_dtype).float()
+
+    h = x.float().reshape(N * L, D)
+    for li in range(NL):
+        def w(name):
+            return op(stacked[name][li])
+
+        qkv = op(op(h) @ w("wqkv") + stacked["bqkv"][li])
+        q, k, v = (qkv[:, i * D:(i + 1) * D].reshape(N, L, nhead, HD).transpose(1, 2)
+                   for i in range(3))
+        p = torch.softmax((q @ k.transpose(2, 3)) * (1.0 / HD ** 0.5), dim=-1)
+        ctx = (op(p) @ v).transpose(1, 2).reshape(N * L, D)
+        a = op(ctx) @ w("wo") + stacked["bo"][li]
+        h = F.layer_norm(h + a, (D,), stacked["ln1s"][li], stacked["ln1b"][li], 1e-5)
+        f = torch.relu(op(h) @ w("w1") + stacked["b1"][li])
+        f = op(f) @ w("w2") + stacked["b2"][li]
+        h = F.layer_norm(h + f, (D,), stacked["ln2s"][li], stacked["ln2b"][li], 1e-5)
+    return h.reshape(N, L, D).mean(dim=1)
+
+
+def tile_shape(L: int, D: int, FF: int) -> tuple[int, int, int]:
+    """(S samples per block, R rows per warp, shared row stride ld): the most
+    samples whose rows fit 8 warps of at most 8 rows and whose f32 tiles
+    (x: D columns; q|k|v or the hidden layer: max(3D, FF) columns) fit the
+    block's shared memory."""
+    for S in range(WARPS * 8 // L, 0, -1):
+        R = next(r for r in (2, 4, 6, 8) if WARPS * r >= S * L)
+        ld = WARPS * R + (4 if R % 4 == 0 else 2)
+        if (D + max(3 * D, FF)) * ld * 4 <= SMEM_LIMIT:
+            return S, R, ld
+    raise ValueError("one sample does not fit in shared memory (L={}, D={}, "
+                     "FF={})".format(L, D, FF))
+
+
+def encoder_pooled(stacked, x: torch.Tensor, compute_dtype=torch.float32,
+                   nhead: int = 4) -> torch.Tensor:
+    """The encoder stack and the mean over positions: kernel K3 on CUDA, the
+    plain version on CPU. See the module docstring for shapes. No fallback: a
+    CUDA input that the kernel cannot take, or a failed build or launch,
+    raises."""
+    global launches
+    NL, L, D, FF = _check(stacked, x, compute_dtype, nhead)
+    if x.device.type == "cpu":
+        return encoder_pooled_plain(stacked, x, compute_dtype, nhead)
+    if x.device.type != "cuda":
+        raise ValueError("encoder_pooled runs on cuda or cpu, not {}".format(
+            x.device.type))
+    if L > LMAX or D % 4 != 0 or FF % 4 != 0:
+        raise ValueError("kernel takes L <= 32 and D, FF multiples of 4 "
+                         "(L={}, D={}, FF={})".format(L, D, FF))
+    if x.data_ptr() % 16 or any(stacked[n].data_ptr() % 16 for n in NAMES):
+        raise ValueError("kernel operands must be 16-byte aligned")
+    S, R, ld = tile_shape(L, D, FF)
+    N = x.shape[0]
+    lib = _load()
+    out = torch.empty((N, D), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = lib.transenc_encoder_launch(
+            DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
+            *[stacked[n].data_ptr() for n in NAMES],
+            N, L, D, nhead, FF, NL, S, R, ld, stream)
+    if rc != 0:
+        raise RuntimeError("transenc_encoder launch failed: cudaError {}".format(rc))
+    launches += 1
+    return out
+
+
+def encoder_flops(N: int, L: int, D: int, FF: int, NL: int) -> int:
+    """Matrix FLOPs of the encoder: per sample and layer, the q|k|v product
+    (2*L*D*3D), scores and context (2 * 2*L*L*D over all heads), the output
+    projection (2*L*D*D) and the feed-forward pair (2 * 2*L*D*FF)."""
+    per_layer = 2 * L * D * 3 * D + 2 * 2 * L * L * D + 2 * L * D * D + 2 * 2 * L * D * FF
+    return per_layer * NL * N

@@ -27,7 +27,9 @@ import torch
 from .._version import __version__
 from ..bamio import BamReader, BamWriter, sort_bam
 from ..features import ExtractConfig, batch_from_reads, extract_read_features
-from ..models import AttRNN, AttRNNConfig, attrnn_state_dict_from_params, init_attrnn
+from ..models import (AttRNN, AttRNNConfig, TransEnc, TransEncConfig,
+                      attrnn_state_dict_from_params, init_attrnn, init_transenc,
+                      transenc_state_dict_from_params)
 from ..models.attrnn import PORTED
 from ..models.convert import torch_ckpt_to_params
 from ..models.params_io import _flatten, load_params
@@ -84,10 +86,12 @@ class CallModsConfig:
     holeids_e: str | None = None
     holeids_ne: str | None = None
     gzip_out: bool = False
-    # kept for flag parity with ccsmeth_tpu: on cuda every value runs the
-    # BiRNN through kernel K1, on cpu through its plain version
+    # RNN models: 'pallas_layer' runs the BiRNN one launch per layer
+    # (kernel K2), 'xla' and 'pallas' the whole stack in one (K1), on cpu
+    # through their plain versions; transencoder2s runs its encoder through
+    # K3 for every value, as ccsmeth_tpu runs its fused encoder kernel
     rnn_backend: str = "xla"
-    precision: str = "fp32"  # fp32 | bf16: operand type of the BiRNN
+    precision: str = "fp32"  # fp32 | bf16: operand type of the BiRNN / encoder
     # group k batches per dispatch_many call (k launches in a row here)
     dispatch_fuse: int = 8
     # 'int8': int8 IPD/PW means on the host->device copy (zscore/mad only);
@@ -124,10 +128,17 @@ class CallModsConfig:
             holes_batch=self.holes_batch,
         )
 
-    def model_config(self) -> AttRNNConfig:
+    def model_config(self) -> AttRNNConfig | TransEncConfig:
+        if self.model_type == "transencoder2s":
+            return TransEncConfig(
+                seq_len=self.seq_len, num_layers=self.layer_trans,
+                num_classes=self.class_num, dropout_rate=0.0, d_model=self.d_model,
+                nhead=self.nhead, dim_ff=self.dim_ff, is_npass=self.is_npass,
+                is_sn=self.is_sn, is_map=self.is_map, is_stds=self.is_stds,
+            )
         if self.model_type not in PORTED:
             raise NotImplementedError(
-                "--model_type {} is not yet ported ({} only)".format(
+                "--model_type {} is not yet ported ({}, transencoder2s only)".format(
                     self.model_type, ", ".join(PORTED)))
         return AttRNNConfig(
             seq_len=self.seq_len, num_layers=self.layer_rnn,
@@ -150,7 +161,7 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def load_model_params(model_file: str, model_cfg: AttRNNConfig) -> dict:
+def load_model_params(model_file: str, model_cfg) -> dict:
     """Load a native .npz checkpoint or convert a reference torch .ckpt into a
     params pytree, and check it against the config-implied shapes
     (``ccsmeth_tpu/pipeline/call_mods.py:165-221``)."""
@@ -170,7 +181,12 @@ def _check_params_shapes(params, model_cfg, model_file: str) -> None:
         def uniform(_lo, _hi, size=None):
             return np.zeros(() if size is None else size)
 
-    exp_flat = {k: v.shape for k, v in _flatten(init_attrnn(_ShapeProbeRng(), model_cfg))}
+        @staticmethod
+        def normal(_mu=0.0, _sigma=1.0, size=None):
+            return np.zeros(() if size is None else size)
+
+    init = init_transenc if isinstance(model_cfg, TransEncConfig) else init_attrnn
+    exp_flat = {k: v.shape for k, v in _flatten(init(_ShapeProbeRng(), model_cfg))}
     got_flat = {k: v.shape for k, v in _flatten(params)}
     problems = []
     for k, shp in exp_flat.items():
@@ -187,9 +203,17 @@ def _check_params_shapes(params, model_cfg, model_file: str) -> None:
                 model_file, "; ".join(problems[:8])))
 
 
-def build_model(params: dict, model_cfg: AttRNNConfig, device) -> AttRNN:
-    model = AttRNN(model_cfg)
-    model.load_state_dict(attrnn_state_dict_from_params(params))
+def build_model(params: dict, model_cfg, device,
+                rnn_backend: str = "xla") -> AttRNN | TransEnc:
+    """The model of the config's family with ``params`` loaded, in eval mode
+    on ``device``; rnn_backend picks the RNN models' kernel (K1, or K2 for
+    'pallas_layer')."""
+    if isinstance(model_cfg, TransEncConfig):
+        model = TransEnc(model_cfg)
+        model.load_state_dict(transenc_state_dict_from_params(params))
+    else:
+        model = AttRNN(model_cfg, rnn_backend)
+        model.load_state_dict(attrnn_state_dict_from_params(params))
     return model.eval().to(device)
 
 
@@ -203,8 +227,8 @@ def _get_holes(path: str) -> set:
 
 def _check_unported(cfg: CallModsConfig) -> None:
     if cfg.h0_mode != "zeros":
-        raise ValueError("--h0_mode randn is not yet ported: kernel K1 and "
-                         "its plain version are zero-h0 only")
+        raise ValueError("--h0_mode randn is not yet ported: kernels K1 and "
+                         "K2 and their plain versions are zero-h0 only")
     if cfg.num_processes > 1:
         raise NotImplementedError("--num_processes > 1 is not yet ported")
     if cfg.profile_dir:
@@ -278,7 +302,7 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     device = resolve_device(cfg.device)
     model_cfg = cfg.model_config()
     params = load_model_params(cfg.model_file, model_cfg)
-    model = build_model(params, model_cfg, device)
+    model = build_model(params, model_cfg, device, cfg.rnn_backend)
     predict = make_predict_fn(
         model, model_cfg, device,
         compute_dtype=torch.bfloat16 if cfg.precision == "bf16" else torch.float32,

@@ -86,7 +86,7 @@ def test_sorted_output_is_indexed(tmp_path):
 
 
 @pytest.mark.parametrize("bad", ["cuda_without_gpu", "randn_h0", "processes",
-                                 "shape_mismatch", "transencoder",
+                                 "shape_mismatch", "attbigru2s2",
                                  "gru_ckpt_as_lstm", "lstm_1s"])
 def test_unsupported_requests_raise(tmp_path, bad):
     import torch
@@ -113,8 +113,8 @@ def test_unsupported_requests_raise(tmp_path, bad):
     elif bad == "lstm_1s":
         kw["model_type"] = "attbilstm1s"
         err = NotImplementedError
-    else:
-        kw["model_type"] = "transencoder2s"
+    else:  # the embedded-kinetics family is not ported
+        kw["model_type"] = "attbigru2s2"
         err = NotImplementedError
     with pytest.raises(err):
         call_mods_bam(CallModsConfig(**kw), BAM, str(tmp_path / "x"))
@@ -175,3 +175,84 @@ def test_attbilstm2s_call_mods_matches_jax(tmp_path, monkeypatch):
             assert abs(probs[q][i] - max(a[i], b[i]) / 256.0) <= 1e-5, (
                 q, i, probs[q][i], a[i], b[i])
     assert n_sites > 500
+
+
+def test_transencoder2s_call_mods_matches_jax(tmp_path, monkeypatch):
+    """The transencoder2s slice as a whole: call_mods --model_type
+    transencoder2s on tests/goldens/reads.bam with a seeded 2 x 32
+    checkpoint, through the JAX package's call_mods_bam and through the port
+    on the CPU. Such a small random model gives nearly the same ML byte at
+    every site, so equal tags prove little: the probs the port's tagger
+    records are also held against the JAX package's apply_transenc on the
+    same extracted features, at 1e-5 (the tagger rounds them to 6 decimals)."""
+    from ccsmeth_tpu.models.config import TransEncConfig as JaxTransEncConfig
+    from ccsmeth_tpu.models.transenc import apply_transenc
+    from ccsmeth_tpu.pipeline.call_mods import CallModsConfig as JaxCallModsConfig
+    from ccsmeth_tpu.pipeline.call_mods import call_mods_bam as jax_call_mods_bam
+    from ccsmeth_tpu_torch.features import (ExtractConfig, batch_from_reads,
+                                            extract_read_features)
+    from ccsmeth_tpu_torch.models import TransEncConfig, init_transenc
+    from ccsmeth_tpu_torch.models.params_io import save_params
+    from ccsmeth_tpu_torch.ops import transenc
+    from ccsmeth_tpu_torch.pipeline import call_mods as port_call_mods
+    from ccsmeth_tpu_torch.utils.codecs import get_motif_seqs
+    from ccsmeth_tpu_torch.utils.fasta import DNAReference
+
+    shape = dict(num_layers=2, d_model=32, nhead=4, dim_ff=64, dropout_rate=0)
+    params = init_transenc(23, TransEncConfig(**shape))
+    ckpt = str(tmp_path / "transencoder2s_2x32.ckpt.npz")
+    save_params(ckpt, params)
+    kw = dict(model_file=ckpt, model_type="transencoder2s", mode="align", ref=REF,
+              batch_size=64, layer_trans=2, d_model=32, nhead=4, dim_ff=64,
+              threads=2, no_sort=True)
+    want = _dump(jax_call_mods_bam(JaxCallModsConfig(**kw), BAM, str(tmp_path / "jax")))
+
+    probs = {}  # qname -> the port's recorded probs in ML order (by loc)
+    tag = port_call_mods.add_mm_ml_to_record
+
+    def recording_tag(rec, locs_probs, rm_pulse=True):
+        probs[rec.qname] = [p for _loc, p in sorted(locs_probs)]
+        return tag(rec, locs_probs, rm_pulse)
+
+    monkeypatch.setattr(port_call_mods, "add_mm_ml_to_record", recording_tag)
+    plain = transenc.plain_calls
+    got = _dump(call_mods_bam(CallModsConfig(**kw, device="cpu"), BAM,
+                              str(tmp_path / "port")))
+    assert transenc.plain_calls - plain == port_call_mods.LAST_RUN["batches"] > 0
+    assert [r[:2] for r in got] == [w[:2] for w in want]
+    n_sites = 0
+    for (q, _mm, ml), (_q, _wmm, wml) in zip(got, want):
+        assert (ml == ".") == (wml == ".")
+        if ml == ".":
+            continue
+        a = np.asarray(ml.split(","), np.int64)
+        b = np.asarray(wml.split(","), np.int64)
+        assert a.shape == b.shape == (len(probs[q]),)
+        n_sites += a.size
+        for i in np.flatnonzero(a != b):
+            assert abs(a[i] - b[i]) == 1, (q, i, a[i], b[i])
+            assert abs(probs[q][i] - max(a[i], b[i]) / 256.0) <= 1e-5
+    assert n_sites > 500
+
+    # the JAX model on the port's extracted features, per read in loc order
+    reader = BamReader(BAM)
+    names = [r[0] for r in reader.header.references]
+    contigs = DNAReference(REF).getcontigs()
+    recs = list(reader)
+    reader.close()
+    reads = [extract_read_features(rec, get_motif_seqs("CG"), ExtractConfig(mode="align"),
+                                   contigs, None, None,
+                                   names[rec.ref_id] if rec.ref_id >= 0 else None)
+             for rec in recs]
+    kept = [i for i, r in enumerate(reads) if r is not None]
+    batch = batch_from_reads([reads[i] for i in kept])
+    _l, p = apply_transenc(params, JaxTransEncConfig(**shape), batch.model_feats())
+    p = np.asarray(p, np.float64)
+    p1n = p[:, 1] / (p[:, 0] + p[:, 1])
+    n_checked = 0
+    for j, i in enumerate(kept):
+        sel = np.flatnonzero(batch.read_idx == j)
+        jax_probs = p1n[sel[np.argsort(batch.locs[sel], kind="stable")]]
+        np.testing.assert_allclose(probs[recs[i].qname], jax_probs, atol=1e-5)
+        n_checked += sel.size
+    assert n_checked == n_sites
