@@ -28,6 +28,7 @@ Training is not ported (``train --model_type transencoder2s`` raises).
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -93,6 +94,38 @@ def init_transenc(seed, cfg: TransEncConfig) -> dict:
             "ln2": {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)},
         })
     return params
+
+
+def randomize_affine(params: dict, seed: int) -> dict:
+    """A copy of transencoder2s params whose attention and out-projection
+    biases, LayerNorm scales and biases, ``trans_input`` BatchNorm
+    parameters and running stats, and classifier biases are seeded random
+    values, different in every layer. init_transenc leaves them all 0 or 1,
+    as the reference's initialisation does; a trained checkpoint does not,
+    so checks of the model run on these to make every operand count."""
+    rng = np.random.RandomState(seed)
+    out = copy.deepcopy(params)
+
+    def bias(n):
+        return (rng.randn(n) * 0.2).astype(np.float32)
+
+    def scale(n):
+        return rng.uniform(0.5, 1.5, n).astype(np.float32)
+
+    for lp in out["layers"]:
+        d = lp["bq"].shape[0]
+        for k in ("bq", "bk", "bv", "bo"):
+            lp[k] = bias(d)
+        for k in ("ln1", "ln2"):
+            lp[k] = {"scale": scale(d), "bias": bias(d)}
+    for lin in out["classifier"]:
+        lin["b"] = bias(lin["b"].shape[0])
+    te = out["trans_input"]
+    for bn in [te["bn1"], te["bn2"]] + [b["bn"] for b in te["plus"]]:
+        c = bn["scale"].shape[0]
+        bn.update(scale=scale(c), bias=bias(c), mean=(rng.randn(c) * 0.1).astype(np.float32),
+                  var=rng.uniform(0.5, 2.0, c).astype(np.float32))
+    return out
 
 
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -190,6 +223,21 @@ class TransEnc(nn.Module):
         self.classifier = nn.Sequential(nn.Linear(2 * d, 2 * d), nn.ReLU(),
                                         nn.Dropout(cfg.dropout_rate),
                                         nn.Linear(2 * d, cfg.num_classes))
+        self._stack_key, self._stack = None, None
+
+    def stacked(self, compute_dtype=torch.float32) -> dict:
+        """The encoder's weights in the kernel layout, built once and reused
+        while no gradient is recorded and every encoder parameter is the
+        same storage at the same version: call_mods' batches share one copy,
+        and ``.to()`` or ``load_state_dict`` makes a new one."""
+        if torch.is_grad_enabled():
+            return self.transformer_encoder.stacked(compute_dtype)
+        key = (compute_dtype,) + tuple((p.data_ptr(), p._version)
+                                       for p in self.transformer_encoder.parameters())
+        if key != self._stack_key:
+            self._stack = self.transformer_encoder.stacked(compute_dtype)
+            self._stack_key = key
+        return self._stack
 
     def strand_input(self, feats: dict, suffix: str) -> torch.Tensor:
         """One strand's embedded and positioned encoder input (B, L, d_model)
@@ -227,8 +275,7 @@ class TransEnc(nn.Module):
                        self.strand_input(feats, "2")], dim=0)  # (2B, L, d)
         x = x.to(compute_dtype).contiguous()
         encoder_fn = transenc.encoder_pooled if encoder_fn is None else encoder_fn
-        pooled = encoder_fn(self.transformer_encoder.stacked(compute_dtype), x,
-                            compute_dtype, cfg.nhead)
+        pooled = encoder_fn(self.stacked(compute_dtype), x, compute_dtype, cfg.nhead)
         out = torch.cat([pooled[:B], pooled[B:]], dim=1)  # (B, 2d)
         logits = self.classifier[3](torch.relu(self.classifier[0](out)))
         return logits, torch.softmax(logits, dim=1)

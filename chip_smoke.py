@@ -251,14 +251,16 @@ def phase_k3_kernels(torch, smi):
     """K3 at the call_mods path's shapes (transencoder2s at full width,
     2B = 1024 and 16384 samples) against its plain version, timed beside it,
     nn.TransformerEncoder + mean and the bound. The input is random normal,
-    the scale of the embedded, positioned encoder input."""
+    the scale of the embedded, positioned encoder input; the biases and
+    LayerNorm parameters are random too, so each of K3's operands counts."""
     import numpy as np
 
     from ccsmeth_tpu_torch.models import TransEncConfig, init_transenc
+    from ccsmeth_tpu_torch.models.transenc import randomize_affine
     from ccsmeth_tpu_torch.ops import transenc
 
     cfg = TransEncConfig()
-    params = init_transenc(SEED, cfg)
+    params = randomize_affine(init_transenc(SEED, cfg), SEED)
     D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
     cells = []
     for rows in ROWS:
@@ -454,12 +456,14 @@ def _model_feats(B, seed):
 
 
 def _config_params(model_type):
-    """(config, numpy-seeded params) at full width."""
+    """(config, numpy-seeded params) at full width; transencoder2s with
+    random biases, LayerNorm and BatchNorm parameters (``randomize_affine``)."""
     from ccsmeth_tpu_torch.models import (AttRNNConfig, TransEncConfig, init_attrnn,
                                           init_transenc)
+    from ccsmeth_tpu_torch.models.transenc import randomize_affine
 
     if model_type == TRANSENC:
-        return TransEncConfig(), init_transenc(SEED, TransEncConfig())
+        return TransEncConfig(), randomize_affine(init_transenc(SEED, TransEncConfig()), SEED)
     cfg = AttRNNConfig(model_type=model_type)
     return cfg, init_attrnn(SEED, cfg)
 

@@ -180,7 +180,8 @@ def test_attbilstm2s_call_mods_matches_jax(tmp_path, monkeypatch):
 def test_transencoder2s_call_mods_matches_jax(tmp_path, monkeypatch):
     """The transencoder2s slice as a whole: call_mods --model_type
     transencoder2s on tests/goldens/reads.bam with a seeded 2 x 32
-    checkpoint, through the JAX package's call_mods_bam and through the port
+    checkpoint (random biases, LayerNorm and BatchNorm parameters), through
+    the JAX package's call_mods_bam and through the port
     on the CPU. Such a small random model gives nearly the same ML byte at
     every site, so equal tags prove little: the probs the port's tagger
     records are also held against the JAX package's apply_transenc on the
@@ -193,13 +194,14 @@ def test_transencoder2s_call_mods_matches_jax(tmp_path, monkeypatch):
                                             extract_read_features)
     from ccsmeth_tpu_torch.models import TransEncConfig, init_transenc
     from ccsmeth_tpu_torch.models.params_io import save_params
+    from ccsmeth_tpu_torch.models.transenc import randomize_affine
     from ccsmeth_tpu_torch.ops import transenc
     from ccsmeth_tpu_torch.pipeline import call_mods as port_call_mods
     from ccsmeth_tpu_torch.utils.codecs import get_motif_seqs
     from ccsmeth_tpu_torch.utils.fasta import DNAReference
 
     shape = dict(num_layers=2, d_model=32, nhead=4, dim_ff=64, dropout_rate=0)
-    params = init_transenc(23, TransEncConfig(**shape))
+    params = randomize_affine(init_transenc(23, TransEncConfig(**shape)), 23)
     ckpt = str(tmp_path / "transencoder2s_2x32.ckpt.npz")
     save_params(ckpt, params)
     kw = dict(model_file=ckpt, model_type="transencoder2s", mode="align", ref=REF,

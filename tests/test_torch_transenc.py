@@ -21,7 +21,7 @@ from ccsmeth_tpu_torch.models import (TransEnc, TransEncConfig, init_transenc,
 from ccsmeth_tpu_torch.models.attrnn import SrcEmbed, init_src_embed
 from ccsmeth_tpu_torch.models.convert import _src_embed_sd
 from ccsmeth_tpu_torch.models.params_io import _flatten
-from ccsmeth_tpu_torch.models.transenc import take_rows
+from ccsmeth_tpu_torch.models.transenc import randomize_affine, take_rows
 from ccsmeth_tpu_torch.ops import transenc
 from tests.synth import example_feats
 from tests.test_torch_call_mods import BAM, REF
@@ -76,9 +76,10 @@ def test_init_transenc_equals_jax_init(cfg_kw):
 @pytest.mark.parametrize("reference", ["pallas", "xla"])
 def test_encoder_plain_matches_jax(reference):
     """N = 50: a ragged tile for the Pallas kernel (48 samples a tile) and for
-    K3 (2 or 3 a block). Tolerance as tests/test_transenc_pallas.py."""
+    K3 (2 or 3 a block); random biases and LayerNorm parameters. Tolerance as
+    tests/test_transenc_pallas.py."""
     cfg = JaxTransEncConfig(**SMALL)
-    params = jax_init_transenc(5, cfg)
+    params = randomize_affine(init_transenc(5, TransEncConfig(**SMALL)), 5)
     x = np.random.RandomState(4).randn(50, 21, 64).astype(np.float32) * 0.4
     if reference == "pallas":
         want = encoder_pooled_pallas(params, cfg, jnp.asarray(x), interpret=True)
@@ -155,8 +156,9 @@ def test_take_rows_is_jnp_take_on_truncated_floats():
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 @pytest.mark.parametrize("feats_from", ["random", "reads.bam"])
 def test_forward_matches_apply_transenc(backend, feats_from):
-    """'pallas' runs the JAX package's fused encoder in interpret mode."""
-    params = init_transenc(7, TransEncConfig(**SMALL))
+    """'pallas' runs the JAX package's fused encoder in interpret mode.
+    Random biases, LayerNorm and BatchNorm parameters."""
+    params = randomize_affine(init_transenc(7, TransEncConfig(**SMALL)), 7)
     feats = example_feats(13, seed=2) if feats_from == "random" else _golden_feats()
     l_t, p_t = _port_forward(_port_model(params, TransEncConfig(**SMALL)), feats)
     l_j, p_j = apply_transenc(params, JaxTransEncConfig(**SMALL), feats, backend=backend)
@@ -168,7 +170,7 @@ def test_forward_matches_apply_transenc(backend, feats_from):
 def test_forward_with_every_option_matches_apply_transenc():
     """stds, sn and map channels on: the two std SrcEmbeds, the sn SrcEmbed
     without a plus block, and the map embedding."""
-    params = init_transenc(8, TransEncConfig(**ALL_OPTIONS))
+    params = randomize_affine(init_transenc(8, TransEncConfig(**ALL_OPTIONS)), 8)
     feats = example_feats(11, seed=3, optional="random")
     l_t, _ = _port_forward(_port_model(params, TransEncConfig(**ALL_OPTIONS)), feats)
     l_j, _ = apply_transenc(params, JaxTransEncConfig(**ALL_OPTIONS), feats)
@@ -189,7 +191,7 @@ def test_out_of_range_kinetics_give_nan_where_jax_does():
 
 def test_bf16_forward_stays_near_fp32():
     """bf16 encoder operands (the input cast first, as the JAX fast path)."""
-    params = init_transenc(7, TransEncConfig(**SMALL))
+    params = randomize_affine(init_transenc(7, TransEncConfig(**SMALL)), 7)
     model = _port_model(params, TransEncConfig(**SMALL))
     feats = example_feats(13, seed=2)
     _l, p32 = _port_forward(model, feats)
@@ -202,7 +204,7 @@ def test_bf16_forward_stays_near_fp32():
 
 def test_params_state_dict_round_trip():
     cfg = TransEncConfig(**ALL_OPTIONS)
-    params = init_transenc(4, cfg)
+    params = randomize_affine(init_transenc(4, cfg), 4)
     sd = transenc_state_dict_from_params(params)
     assert set(sd) == set(TransEnc(cfg).state_dict())
     back = dict(_flatten(transenc_params_from_state_dict(sd, cfg)))
@@ -217,7 +219,7 @@ def test_reference_named_checkpoint_loads_in_both_packages(tmp_path):
     BatchNorm counters included), saved with torch.save, converts to the same
     params in both packages."""
     cfg = TransEncConfig(**SMALL)
-    model = _port_model(init_transenc(6, cfg), cfg)
+    model = _port_model(randomize_affine(init_transenc(6, cfg), 6), cfg)
     path = str(tmp_path / "transenc.ckpt")
     torch.save({"module." + k: v for k, v in model.state_dict().items()}, path)
     got = dict(_flatten(torch_ckpt_to_params(path, cfg)))
@@ -225,3 +227,40 @@ def test_reference_named_checkpoint_loads_in_both_packages(tmp_path):
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+
+
+def test_randomize_affine_sets_every_trivial_operand():
+    """Every bias and LayerNorm / BatchNorm parameter that init_transenc
+    leaves 0 or 1 becomes random, different per layer; the weights stay."""
+    params = init_transenc(3, TransEncConfig(**SMALL))
+    rnd = randomize_affine(params, 3)
+    a, b = dict(_flatten(params)), dict(_flatten(rnd))
+    assert a.keys() == b.keys()
+    changed = {k for k in a if not np.array_equal(a[k], b[k])}
+    trivial = {k for k in a if np.all(a[k] == 0) or np.all(a[k] == 1)}
+    assert changed == trivial and len(changed) == 2 * 8 + 3 * 4 + 2
+    l0, l1 = rnd["layers"]
+    for k in ("bq", "bk", "bv", "bo"):
+        assert not np.array_equal(l0[k], l1[k])
+    assert not np.array_equal(l0["ln1"]["scale"], l1["ln1"]["scale"])
+
+
+def test_stacked_weights_are_built_once_per_parameter_state():
+    """TransEnc reuses the kernel layout across inference batches and makes
+    a new one when a parameter changes or gradients are recorded."""
+    cfg = TransEncConfig(**SMALL)
+    model = _port_model(randomize_affine(init_transenc(2, cfg), 2), cfg)
+    with torch.inference_mode():
+        first = model.stacked()
+        assert model.stacked() is first
+        assert model.stacked(torch.bfloat16) is not first
+        assert model.stacked(torch.bfloat16)["wqkv"].dtype == torch.bfloat16
+    params = randomize_affine(init_transenc(2, cfg), 3)
+    model.load_state_dict(transenc_state_dict_from_params(params))
+    with torch.inference_mode():
+        again = model.stacked()
+    assert again is not first
+    want = transenc.stack_layers(params["layers"])
+    for k in want:
+        assert torch.equal(again[k], want[k]), k
+    assert model.stacked()["wqkv"].requires_grad

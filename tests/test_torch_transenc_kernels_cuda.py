@@ -15,6 +15,7 @@ import torch
 
 from ccsmeth_tpu_torch.models import TransEncConfig, init_transenc
 from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+from ccsmeth_tpu_torch.models.transenc import randomize_affine
 from ccsmeth_tpu_torch.ops import bigru, transenc
 
 # K3's tolerances on the pooled (N, D) output, as in chip_smoke.py: fp32
@@ -39,11 +40,12 @@ def _need_card():
 def test_encoder_kernel_matches_plain(dtype, n, layers, d, ff):
     """Full width at 2B = 1024 and at a ragged N (the last tile holds one
     sample), and one narrower shape (D = 64, FF = 128, three samples a
-    block)."""
+    block); random biases and LayerNorm parameters, different per layer."""
     _need_card()
     dt = getattr(torch, dtype)
     cfg = TransEncConfig(num_layers=layers, d_model=d, dim_ff=ff)
-    st = transenc.stack_layers(init_transenc(n, cfg)["layers"], dt, "cuda")
+    params = randomize_affine(init_transenc(n, cfg), n)
+    st = transenc.stack_layers(params["layers"], dt, "cuda")
     x = torch.from_numpy(np.random.RandomState(n).randn(n, 21, d).astype(np.float32))
     x = x.to("cuda", dt)
     before = transenc.launches
