@@ -14,8 +14,10 @@ JAX package (``bigru_pallas.py:411-420``), G = 3H (cell 'gru') or 4H ('lstm'):
     ->     out (L, N, 2H) operand type, h_n (2*NL, N, H) f32 (torch order)
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
-version, ``models/rnn.py``'s ``birnn_tm`` with zero h0 (and c0). ``launches`` counts kernel
-launches. The kernel is compiled with ``nvcc`` at first use into
+version, ``models/rnn.py``'s ``birnn_tm`` with zero h0 (and c0). ``launches``
+counts kernel calls, one per ``birnn_stack`` call; ``cuda_launches`` counts the
+CUDA launches they made (one, or two a layer in the ``tc`` design), each where
+it is made. The kernel is compiled with ``nvcc`` at first use into
 ``build/kernels/`` beside the package (``nvcc.py``); nothing here imports a GPU
 toolchain at import time.
 
@@ -29,6 +31,21 @@ outputs as the JAX entry does (``:473``): the last forward step and the
 first backward step, in the operand type, widened to f32. ``bigru_layer``
 is the batch-major one-layer GRU entry (``bigru_layer_pallas :423``).
 ``layer_launches`` and ``layer_plain_calls`` count K2 and its plain version.
+
+K1 has two designs, and ``k1_plan`` is the shape rule that picks one for a
+CUDA call (``design_calls`` counts the calls each design took):
+
+- ``tc`` (``csrc/birnn_tc.cu``), bf16 on the tensor cores: per layer one
+  input-projection kernel and one recurrence kernel whose clusters of
+  CN = H / U CTAs keep W_hh in shared memory, U = the largest of 64, 32, 16
+  that divides H. It takes bf16 with H % 16 == 0, CN in {1, 2, 4, 8} and a
+  recurrence tile within the 227 KB of shared memory (H = 16, 64, 256, 128).
+  The recurrence kernel stages its own W_hh slice, gate-interleaved: row
+  (ub*NG + gate)*8 + i of CTA c holds column gate*H + c*U + 8*ub + i, so a
+  thread's accumulators hold every gate of its units;
+- ``simt`` (``csrc/bigru_stack.cu``), the f32-FMA kernel: fp32 always (no
+  TF32), and every bf16 shape that ``tc`` does not take. Its own limits
+  (H % 4 == 0, H <= 1024, NL <= 8) raise.
 """
 
 from __future__ import annotations
@@ -43,25 +60,41 @@ from . import nvcc
 from .kernel_args import DTYPE_CODE, SMEM_LIMIT, THREADS, tile_shape
 
 SRC = "bigru_stack.cu"
+TC_SRC = "birnn_tc.cu"  # K1's bf16 tensor-core design
+TC_ROWS = 64  # TC_ROWS in csrc/birnn_tc.cu: rows of a recurrence tile
 _CELL_CODE = {"gru": 0, "lstm": 1}
 
-launches = 0  # kernel launches since the caller last set it to 0
+launches = 0  # K1 calls (one per birnn_stack call) since the caller last set it to 0
+cuda_launches = 0  # K1's CUDA launches, counted at each launch
 plain_calls = 0  # plain-version runs (CPU tensors, or birnn_stack_plain)
 layer_launches = 0  # K2 launches (one per layer)
 layer_plain_calls = 0  # K2 plain-version runs (one per layer)
+design_calls = {"tc": 0, "simt": 0}  # birnn_stack's CUDA calls by design
 
 _lib = None
+_tc_lib = None
 _lock = threading.Lock()
-build_log = ""  # nvcc's -Xptxas -v report of the last build
 
 
-def build() -> str:
-    """Compile ``csrc/bigru_stack.cu`` if its library is missing; returns the
-    library path. Raises with nvcc's output when the build fails."""
-    global build_log
-    so, log = nvcc.build(SRC)
-    build_log = log or build_log
-    return so
+def build(src: str = SRC) -> str:
+    """Compile ``csrc/<src>`` (``SRC`` or ``TC_SRC``) if its library is
+    missing; returns the library path. Raises with nvcc's output when the
+    build fails."""
+    return nvcc.build(src)[0]
+
+
+def _load_tc():
+    global _tc_lib
+    with _lock:
+        if _tc_lib is None:
+            lib = ctypes.CDLL(build(TC_SRC))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.birnn_tc_proj_launch.restype = i
+            lib.birnn_tc_proj_launch.argtypes = [i] + [p] * 5 + [i] * 3 + [p]
+            lib.birnn_tc_rec_launch.restype = i
+            lib.birnn_tc_rec_launch.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
+            _tc_lib = lib
+    return _tc_lib
 
 
 def _load():
@@ -130,27 +163,36 @@ def _shared_bytes(C0: int, H: int, bt: int, cell: str = "gru") -> int:
     return (h_arrays * H + max(C0, 2 * H)) * bt * 4
 
 
-def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
-                cell: str = "gru"):
-    """Whole-stack BiGRU or BiLSTM, zero h0 (and c0): kernel K1 on CUDA, the
-    plain version on CPU.
+def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
+    """The shape rule that picks K1's design for a CUDA call (module
+    docstring); it depends on H, the cell and the dtype only. Returns
+    {"design": "tc", "U", "CN", "smem" (bytes a CTA of the recurrence)} or
+    {"design": "simt", "why"}."""
+    ng = n_gates(cell)
+    if compute_dtype != torch.bfloat16:
+        why = "fp32 keeps exact f32 arithmetic"
+    elif H % 16 != 0:
+        why = "H % 16 != 0"
+    else:
+        U = next(u for u in (64, 32, 16) if H % u == 0)
+        cn = H // U
+        smem = (ng * U + 2 * TC_ROWS) * (H + 8) * 2
+        if cn not in (1, 2, 4, 8):
+            why = "a cluster of {} CTAs".format(cn)
+        elif smem > SMEM_LIMIT:
+            why = "{} bytes of shared memory a CTA".format(smem)
+        else:
+            return {"design": "tc", "U": U, "CN": cn, "smem": smem}
+    return {"design": "simt", "why": why}
 
-    See the module docstring for shapes. No fallback: a CUDA input that the
-    kernel cannot take, or a failed build or launch, raises."""
-    global launches
-    H = _check(layers, x, compute_dtype, cell)
-    if x.device.type == "cpu":
-        return birnn_stack_plain(layers, x, compute_dtype, cell)
-    if x.device.type != "cuda":
-        raise ValueError("birnn_stack runs on cuda or cpu, not {}".format(
-            x.device.type))
+
+def _stack_simt(layers, x, compute_dtype, cell, H):
+    global launches, cuda_launches
     L, N, C0 = x.shape
     NL = len(layers)
     if H % 4 != 0 or H // 4 > THREADS or NL > 8:
         raise ValueError("kernel takes H % 4 == 0, H <= 1024 and <= 8 layers "
                          "(H={}, NL={})".format(H, NL))
-    if any(t.data_ptr() % 16 for ly in layers for t in ly) or x.data_ptr() % 16:
-        raise ValueError("kernel operands must be 16-byte aligned")
     props = torch.cuda.get_device_properties(x.device)
     r, ty = tile_shape(N, H, props.multi_processor_count)
     while r > 1 and _shared_bytes(C0, H, ty * r, cell) > SMEM_LIMIT:
@@ -162,12 +204,7 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
     out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
     scratch = torch.empty_like(out) if NL > 1 else out
     hn = torch.empty((2 * NL, N, H), dtype=torch.float32, device=x.device)
-
-    def ptrs(i):
-        arr = (ctypes.c_uint64 * NL)(*[ly[i].data_ptr() for ly in layers])
-        return arr
-
-    wih, bih, whh, bhh = ptrs(0), ptrs(1), ptrs(2), ptrs(3)
+    wih, bih, whh, bhh = _ptr_arrays(layers)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.bigru_stack_launch(
@@ -177,8 +214,104 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
             NL, L, N, C0, H, r, ty, stream)
     if rc != 0:
         raise RuntimeError("bigru_stack launch failed: cudaError {}".format(rc))
+    cuda_launches += 1
     launches += 1
+    design_calls["simt"] += 1
     return out, hn
+
+
+def tc_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
+                  b_hh: torch.Tensor, cell: str = "gru", xg=None) -> torch.Tensor:
+    """Phase (a) of K1's tc design, one layer: x (M, K) bf16, w_ih (2, K, G)
+    bf16, biases (2, G) f32 -> xg (2, M, G) f32 = x w_ih[d] + b_ih[d] + the
+    b_hh[d] columns outside the reset product (GRU: r, z; LSTM: all)."""
+    global cuda_launches
+    M, K = x.shape
+    G = w_ih.shape[2]
+    H = G // n_gates(cell)
+    if xg is None:
+        xg = torch.empty((2, M, G), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = _load_tc().birnn_tc_proj_launch(
+            _CELL_CODE[cell], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+            b_hh.data_ptr(), xg.data_ptr(), M, K, H, stream)
+    if rc != 0:
+        raise RuntimeError("birnn_tc projection failed: cudaError {}".format(rc))
+    cuda_launches += 1
+    return xg
+
+
+def tc_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                  L: int, N: int, U: int, cell: str = "gru", out=None, hn=None):
+    """Phase (b) of K1's tc design, one layer, both directions, zero h0 (and
+    c0): xg (2, L*N, G) f32, w_hh (2, H, G) bf16, b_hh (2, G) f32 -> out
+    (L, N, 2H) bf16, hn (2, N, H) f32; U hidden units a CTA (``k1_plan``)."""
+    global cuda_launches
+    H = w_hh.shape[1]
+    if out is None:
+        out = torch.empty((L, N, 2 * H), dtype=torch.bfloat16, device=xg.device)
+    if hn is None:
+        hn = torch.empty((2, N, H), dtype=torch.float32, device=xg.device)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    with torch.cuda.device(xg.device):
+        rc = _load_tc().birnn_tc_rec_launch(
+            _CELL_CODE[cell], xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            out.data_ptr(), hn.data_ptr(), L, N, H, U, stream)
+    if rc != 0:
+        raise RuntimeError("birnn_tc recurrence failed: cudaError {}".format(rc))
+    cuda_launches += 1
+    return out, hn
+
+
+def _stack_tc(layers, x, cell, H, plan):
+    """K1's tc design: per layer the projection, then the recurrence; the
+    layers' outputs alternate between two buffers, the last is ``out``."""
+    global launches
+    L, N, _C0 = x.shape
+    NL = len(layers)
+    bufs = [torch.empty((L, N, 2 * H), dtype=torch.bfloat16, device=x.device)
+            for _ in range(min(NL, 2))]
+    hn = torch.empty((2 * NL, N, H), dtype=torch.float32, device=x.device)
+    # the input projection of one layer, both directions, in f32
+    xg = torch.empty((2, L * N, n_gates(cell) * H), dtype=torch.float32,
+                     device=x.device)
+    inp = x
+    for li, (wih, bih, whh, bhh) in enumerate(layers):
+        tc_projection(inp.view(L * N, -1), wih, bih, bhh, cell, xg)
+        inp, _ = tc_recurrence(xg, whh, bhh, L, N, plan["U"], cell,
+                               out=bufs[(NL - 1 - li) % 2], hn=hn[2 * li:2 * li + 2])
+    launches += 1
+    design_calls["tc"] += 1
+    return inp, hn
+
+
+def _ptr_arrays(layers):
+    """Host arrays of the layers' device pointers: w_ih, b_ih, w_hh, b_hh."""
+    return [(ctypes.c_uint64 * len(layers))(*[ly[i].data_ptr() for ly in layers])
+            for i in range(4)]
+
+
+def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
+                cell: str = "gru"):
+    """Whole-stack BiGRU or BiLSTM, zero h0 (and c0): kernel K1 on CUDA, the
+    plain version on CPU.
+
+    See the module docstring for shapes and for ``k1_plan``, which picks the
+    design. No fallback: a CUDA input that the chosen design cannot take, or
+    a failed build or launch, raises."""
+    H = _check(layers, x, compute_dtype, cell)
+    if x.device.type == "cpu":
+        return birnn_stack_plain(layers, x, compute_dtype, cell)
+    if x.device.type != "cuda":
+        raise ValueError("birnn_stack runs on cuda or cpu, not {}".format(
+            x.device.type))
+    if any(t.data_ptr() % 16 for ly in layers for t in ly) or x.data_ptr() % 16:
+        raise ValueError("kernel operands must be 16-byte aligned")
+    plan = k1_plan(H, cell, compute_dtype)
+    if plan["design"] == "tc":
+        return _stack_tc(layers, x, cell, H, plan)
+    return _stack_simt(layers, x, compute_dtype, cell, H)
 
 
 def bigru_layer_tm_plain(layer, x: torch.Tensor, compute_dtype=torch.float32,

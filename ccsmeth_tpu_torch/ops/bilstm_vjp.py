@@ -48,16 +48,12 @@ plain_calls = 0  # runs of either plain version
 
 _lib = None
 _lock = threading.Lock()
-build_log = ""  # nvcc's -Xptxas -v report of the last build
 
 
 def build() -> str:
     """Compile ``csrc/bilstm_train.cu`` if its library is missing; returns
     the library path. Raises with nvcc's output when the build fails."""
-    global build_log
-    so, log = nvcc.build(SRC)
-    build_log = log or build_log
-    return so
+    return nvcc.build(SRC)[0]
 
 
 def _load():

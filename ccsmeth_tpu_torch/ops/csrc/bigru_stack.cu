@@ -17,12 +17,16 @@
 //   989 TFLOP/s bf16 dense (tensor cores) the least time is 0.24 us per site
 //   (GRU), 0.31 us (LSTM).
 //
-// What this design does about that: nothing yet. It is the simple, correct
+// What this design does about that: nothing. It is the simple, correct
 //   version: FP32 FMAs on the CUDA cores (67 TFLOP/s peak), no tensor cores,
 //   weights streamed from L2 (the GRU network is ~2.77M parameters, 11 MB in
 //   fp32, the LSTM one ~3.7M, 15 MB: both stay resident in the 50 MB L2).
-//   wgmma with TMA-fed weight tiles, and splitting W_hh across a thread-block
-//   cluster so it can live in shared memory, are for a later change.
+//   It is what sets its pace: each block reads all of W_ih and W_hh from L2
+//   at every step for its 8 rows, and the two directions run in turn.
+//   It serves fp32 (exact f32 arithmetic: a TF32 product would be ~1e-3 off)
+//   and the bf16 shapes that ops/bigru.py's k1_plan refuses; every other
+//   bf16 call runs birnn_tc.cu, the tensor-core design (its header says what
+//   bounds it). K2 is this kernel on one layer (ONE_DIR, below).
 //
 // Design:
 //   - one block owns Bt = TY * R batch rows and runs all layers and both

@@ -28,8 +28,9 @@
 //   cores, no tensor cores. The weights (12.6 MB in fp32 for six layers,
 //   6.3 MB in bf16) stay resident in the 50 MB L2 and are streamed from
 //   there; each block reads every weight once per tile of S samples, so L2
-//   traffic is 12.6 MB per tile. wgmma on bf16 tiles, and more rows per
-//   weight read, are for a later change.
+//   traffic is 12.6 MB per tile. It serves fp32 (exact f32 arithmetic, no
+//   TF32) and the bf16 shapes that ops/transenc.py's k3_plan refuses; every
+//   other bf16 call runs transenc_tc.cu, the tensor-core design.
 //
 // Design:
 //   - one block of 256 threads (8 warps) owns S samples, M = S*L rows,

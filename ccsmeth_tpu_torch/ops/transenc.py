@@ -18,7 +18,20 @@ A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version, ``encoder_pooled_plain``: the JAX package's ``_encoder`` + mean
 (``models/transenc.py:96-126``) in PyTorch, rounding every product operand to
 the operand type as the kernel does. ``launches`` and ``plain_calls`` count
-the two. The kernel is compiled with ``nvcc`` at first use (``nvcc.py``).
+the two; ``cuda_launches`` counts the CUDA launches (one a call), where each
+is made. The kernel is compiled with ``nvcc`` at first use (``nvcc.py``).
+
+K3 has two designs, and ``k3_plan`` is the shape rule that picks one for a
+CUDA call (``design_calls`` counts the calls each design took):
+
+- ``tc`` (``csrc/transenc_tc.cu``), bf16 on the tensor cores: 64 rows a CTA
+  (S = 64 // L samples), each product's weight streamed from its row-major
+  copy through a ring of 32 x 128 tiles, 128-column chunk after chunk, each
+  from k = 0 to K. It takes bf16 with L <= 32, D and FF multiples of 32,
+  D / nhead a multiple of 8, and shared memory within 227 KB;
+- ``simt`` (``csrc/transenc_encoder.cu``), the f32-FMA kernel: fp32 always
+  (no TF32), and every bf16 shape that ``tc`` does not take. Its own limits
+  (L <= 32, D and FF multiples of 4) raise.
 """
 
 from __future__ import annotations
@@ -33,27 +46,41 @@ from . import nvcc
 from .kernel_args import DTYPE_CODE, SMEM_LIMIT
 
 SRC = "transenc_encoder.cu"
+TC_SRC = "transenc_tc.cu"  # K3's bf16 tensor-core design
 # the kernel's argument order
 NAMES = ("wqkv", "wo", "w1", "w2", "bqkv", "bo", "b1", "b2",
          "ln1s", "ln1b", "ln2s", "ln2b")
 WARPS = 8  # ENC_WARPS in csrc/transenc_encoder.cu
 LMAX = 32  # ENC_LMAX
+TC_ROWS, TC_BK, TC_BN, TC_STAGES = 64, 32, 128, 3  # TE_* in csrc/transenc_tc.cu
 
 launches = 0  # kernel launches since the caller last set it to 0
+cuda_launches = 0  # K3's CUDA launches, counted at each launch
 plain_calls = 0  # plain-version runs (CPU tensors, or encoder_pooled_plain)
+design_calls = {"tc": 0, "simt": 0}  # encoder_pooled's CUDA calls by design
 
 _lib = None
+_tc_lib = None
 _lock = threading.Lock()
-build_log = ""  # nvcc's -Xptxas -v report of the last build
 
 
-def build() -> str:
-    """Compile ``csrc/transenc_encoder.cu`` if its library is missing; returns
-    the library path. Raises with nvcc's output when the build fails."""
-    global build_log
-    so, log = nvcc.build(SRC)
-    build_log = log or build_log
-    return so
+def build(src: str = SRC) -> str:
+    """Compile ``csrc/<src>`` (``SRC`` or ``TC_SRC``) if its library is
+    missing; returns the library path. Raises with nvcc's output when the
+    build fails."""
+    return nvcc.build(src)[0]
+
+
+def _load_tc():
+    global _tc_lib
+    with _lock:
+        if _tc_lib is None:
+            lib = ctypes.CDLL(build(TC_SRC))
+            fn = lib.transenc_tc_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            _tc_lib = lib
+    return _tc_lib
 
 
 def _load():
@@ -175,37 +202,69 @@ def tile_shape(L: int, D: int, FF: int) -> tuple[int, int, int]:
                      "FF={})".format(L, D, FF))
 
 
+def k3_plan(L: int, D: int, FF: int, nhead: int, compute_dtype=torch.bfloat16) -> dict:
+    """The shape rule that picks K3's design for a CUDA call (module
+    docstring). Returns {"design": "tc", "S" (samples a CTA), "smem" (bytes
+    a CTA)} or {"design": "simt", "why"}."""
+    smem = (TC_ROWS * (D + 8) * 6 + TC_ROWS * (max(3 * D, FF) + 8) * 2
+            + TC_STAGES * TC_BK * (TC_BN + 8) * 2)
+    if compute_dtype != torch.bfloat16:
+        why = "fp32 keeps exact f32 arithmetic"
+    elif L > LMAX:
+        why = "L > {}".format(LMAX)
+    elif D % 32 or FF % 32:
+        why = "D or FF not a multiple of 32"
+    elif nhead < 1 or D % nhead or (D // nhead) % 8:
+        why = "head width not a multiple of 8"
+    elif smem > SMEM_LIMIT:
+        why = "{} bytes of shared memory a CTA".format(smem)
+    else:
+        return {"design": "tc", "S": TC_ROWS // L, "smem": smem}
+    return {"design": "simt", "why": why}
+
+
 def encoder_pooled(stacked, x: torch.Tensor, compute_dtype=torch.float32,
                    nhead: int = 4) -> torch.Tensor:
     """The encoder stack and the mean over positions: kernel K3 on CUDA, the
-    plain version on CPU. See the module docstring for shapes. No fallback: a
-    CUDA input that the kernel cannot take, or a failed build or launch,
-    raises."""
-    global launches
+    plain version on CPU. See the module docstring for shapes and for
+    ``k3_plan``, which picks the design. No fallback: a CUDA input that the
+    chosen design cannot take, or a failed build or launch, raises."""
+    global launches, cuda_launches
     NL, L, D, FF = _check(stacked, x, compute_dtype, nhead)
     if x.device.type == "cpu":
         return encoder_pooled_plain(stacked, x, compute_dtype, nhead)
     if x.device.type != "cuda":
         raise ValueError("encoder_pooled runs on cuda or cpu, not {}".format(
             x.device.type))
-    if L > LMAX or D % 4 != 0 or FF % 4 != 0:
-        raise ValueError("kernel takes L <= 32 and D, FF multiples of 4 "
-                         "(L={}, D={}, FF={})".format(L, D, FF))
     if x.data_ptr() % 16 or any(stacked[n].data_ptr() % 16 for n in NAMES):
         raise ValueError("kernel operands must be 16-byte aligned")
-    S, R, ld = tile_shape(L, D, FF)
+    plan = k3_plan(L, D, FF, nhead, compute_dtype)
     N = x.shape[0]
-    lib = _load()
     out = torch.empty((N, D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = lib.transenc_encoder_launch(
-            DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
-            *[stacked[n].data_ptr() for n in NAMES],
-            N, L, D, nhead, FF, NL, S, R, ld, stream)
+    ptrs = [stacked[n].data_ptr() for n in NAMES]
+    if plan["design"] == "tc":
+        lib = _load_tc()
+        with torch.cuda.device(x.device):
+            rc = lib.transenc_tc_launch(x.data_ptr(), out.data_ptr(), *ptrs,
+                                        N, L, D, nhead, FF, NL, plan["S"], stream)
+    else:
+        if L > LMAX or D % 4 != 0 or FF % 4 != 0:
+            raise ValueError("kernel takes L <= 32 and D, FF multiples of 4 "
+                             "(L={}, D={}, FF={})".format(L, D, FF))
+        S, R, ld = tile_shape(L, D, FF)
+        lib = _load()
+        with torch.cuda.device(x.device):
+            rc = lib.transenc_encoder_launch(
+                DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(), *ptrs,
+                N, L, D, nhead, FF, NL, S, R, ld, stream)
     if rc != 0:
-        raise RuntimeError("transenc_encoder launch failed: cudaError {}".format(rc))
+        raise RuntimeError("transenc_{} launch failed: cudaError {}".format(
+            plan["design"], rc))
+    # either design is one CUDA launch
+    cuda_launches += 1
     launches += 1
+    design_calls[plan["design"]] += 1
     return out
 
 

@@ -9,14 +9,18 @@ does not print its last line:
   1. the card: nvidia-smi name and power limit, torch's device name; TF32 off;
   2. build: every kernel source of the main paths is compiled from the
      checkout, one nvcc per source, all started together;
-  3. kernels: kernel K1 (ops/csrc/bigru_stack.cu), GRU cell and LSTM cell, at
-     the call_mods path's shapes (attbigru2s / attbilstm2s: NL=3, H=256,
-     L=21, C=11; 2B = 1024 and 16384 rows, fp32 and bf16) against its plain
-     PyTorch version on the card, timed with CUDA events beside the plain
-     version, cuDNN's nn.GRU / nn.LSTM and the card's bound; kernel K3
-     (ops/csrc/transenc_encoder.cu, transencoder2s: 6 layers, d_model 256,
-     4 heads, FF 512, L=21) at 2B = 1024 and 16384 samples, fp32 and bf16,
-     beside its plain version, nn.TransformerEncoder + mean and the bound;
+  3. kernels: kernel K1, GRU cell and LSTM cell, at the call_mods path's
+     shapes (attbigru2s / attbilstm2s: NL=3, H=256, L=21, C=11; 2B = 1024
+     and 16384 rows, fp32 and bf16) against its plain PyTorch version on the
+     card, timed with CUDA events beside the plain version, cuDNN's nn.GRU /
+     nn.LSTM and the card's bound, with the design that the wrapper's shape
+     rule picked (fp32: ops/csrc/bigru_stack.cu; bf16: the tensor-core
+     design ops/csrc/birnn_tc.cu, also timed phase by phase and rerun for
+     bit-equal outputs) and its CUDA launches per call; kernel K3
+     (transencoder2s: 6 layers, d_model 256, 4 heads, FF 512, L=21; fp32:
+     ops/csrc/transenc_encoder.cu, bf16: ops/csrc/transenc_tc.cu) at
+     2B = 1024 and 16384 samples, fp32 and bf16, beside its plain version,
+     nn.TransformerEncoder + mean and the bound;
      kernel K2 (bigru_layer_launch in bigru_stack.cu), one layer of each cell
      at C = 11 and 512, 1024 rows, beside a one-layer cuDNN nn.GRU / nn.LSTM;
   4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu, GRU) and K6
@@ -45,6 +49,13 @@ does not print its last line:
 It needs a CUDA device and the repository checkout around it; without either it
 exits with an error and prints no result. It writes only under build/ of the
 checkout.
+
+    python3 chip_smoke.py --ab PARENT_TREE
+
+times K1 (both cells) and K3 at the kernel phase's shapes, in four turns in
+one process each: the checkout at PARENT_TREE (another commit, unpacked
+under a git-ignored directory), this checkout, this checkout, the parent.
+Each turn prints one JSON line; the last line compares the medians.
 """
 
 import json
@@ -124,21 +135,22 @@ def phase_build():
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp, transenc
+    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp, nvcc, transenc
 
-    def build(mod):
+    def build(src):
         t0 = time.time()
-        so = mod.build()
-        return so, time.time() - t0
+        so, log = nvcc.build(src)
+        return so, log, time.time() - t0
 
-    mods = (bigru, bigru_vjp, bilstm_vjp, transenc)
+    srcs = (bigru.SRC, bigru.TC_SRC, bigru_vjp.SRC, bilstm_vjp.SRC, transenc.SRC,
+            transenc.TC_SRC)
     t0 = time.time()
-    with ThreadPoolExecutor(len(mods)) as ex:
-        built = list(ex.map(build, mods))
-    for mod, (so, secs) in zip(mods, built):
+    with ThreadPoolExecutor(len(srcs)) as ex:
+        built = list(ex.map(build, srcs))
+    for so, blog, secs in built:
         log("build: {} in {:.1f} s".format(os.path.relpath(so, REPO), secs))
-        for ln in mod.build_log.splitlines():
-            if "registers" in ln or "spill" in ln:
+        for ln in blog.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
                 log("  ptxas: " + ln.strip())
     secs = time.time() - t0
     log("build: all kernels in {:.1f} s".format(secs))
@@ -157,9 +169,17 @@ def _layers(torch, dtype, device, cell):
 
 def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
     """cuDNN's bidirectional nn.GRU / nn.LSTM with the port's weights: the
-    yardstick, never used by the port."""
+    yardstick, never used by the port. Built on the card in its dtype, the
+    weights copied in, then flattened into cuDNN's one weight buffer. In
+    bf16 ``flatten_parameters`` does nothing (torch.backends.cudnn does not
+    list bf16 as a cuDNN type) while the forward still runs cuDNN, which
+    then warns and compacts the weights at every call; so bf16 flattens
+    through the call that ``flatten_parameters`` makes for the other types.
+    ``mod.weights_warning`` tells whether a forward still warns."""
+    import warnings
+
     cls = torch.nn.GRU if cell == "gru" else torch.nn.LSTM
-    mod = cls(cin, H, n_layers, bidirectional=True).to("cuda", dt)
+    mod = cls(cin, H, n_layers, bidirectional=True, device="cuda", dtype=dt)
     with torch.no_grad():
         for k, ld in enumerate(layers_np):
             for d, suf in (("fwd", ""), ("bwd", "_reverse")):
@@ -168,7 +188,55 @@ def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
                     getattr(mod, "{}_l{}{}".format(name, k, suf)).copy_(
                         torch.from_numpy(ld[d][key]))
     mod.flatten_parameters()
+    mod.flatten_error = None
+    if dt == torch.bfloat16 and torch._use_cudnn_rnn_flatten_weight():
+        import torch.backends.cudnn.rnn as cudnn_rnn
+
+        try:  # the yardstick only: a refusal is reported, the timing still runs
+            with torch.no_grad():
+                torch._cudnn_rnn_flatten_weight(
+                    mod._flat_weights, 4, cin, cudnn_rnn.get_cudnn_mode(mod.mode), H,
+                    0, n_layers, False, True)
+        except RuntimeError as e:
+            mod.flatten_error = str(e).splitlines()[0][:200]
+    probe = torch.zeros((2, 1, cin), device="cuda", dtype=dt)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mod(probe)
+    mod.weights_warning = any("contiguous chunk" in str(w.message) for w in caught)
     return mod
+
+
+def _tc_phases_ms(torch, ly, x, cell):
+    """Device time of each phase of K1's tensor-core design on the stack's
+    inputs: the projection of layer 0 (C = 11) and of a later layer
+    (C = 2H), and one layer's recurrence, also on 1 and 15 row tiles a
+    direction; medians of CUDA-event timings."""
+    from ccsmeth_tpu_torch.ops import bigru
+
+    Lx, N, _C = x.shape
+    U = bigru.k1_plan(H, cell)["U"]
+    wih, bih, whh, bhh = ly[0]
+    xg = bigru.tc_projection(x.view(Lx * N, -1), wih, bih, bhh, cell)
+    out, _hn = bigru.tc_recurrence(xg, whh, bhh, Lx, N, U, cell)
+    wih1, bih1, _whh1, bhh1 = ly[1]
+    x1 = out.view(Lx * N, -1)
+    # 1 row tile (a cluster a direction): the serial chain's latency alone;
+    # 15 (30 clusters), against the 16 of 1024 rows (32): where the time
+    # doubles, the card no longer holds every cluster at once
+    by_tiles = {}
+    for tiles in (1, 15):
+        rows = tiles * bigru.TC_ROWS
+        xg_t = torch.randn((2, Lx * rows, xg.shape[2]), device="cuda")
+        by_tiles[str(tiles)] = time_ms(lambda: bigru.tc_recurrence(
+            xg_t, whh, bhh, Lx, rows, U, cell), torch)
+    return {"recurrence_by_row_tiles": by_tiles,
+            "projection_c11": time_ms(lambda: bigru.tc_projection(
+                x.view(Lx * N, -1), wih, bih, bhh, cell, xg), torch),
+            "projection_c512": time_ms(lambda: bigru.tc_projection(
+                x1, wih1, bih1, bhh1, cell, xg), torch),
+            "recurrence": time_ms(lambda: bigru.tc_recurrence(
+                xg, whh, bhh, Lx, N, U, cell), torch)}
 
 
 def phase_kernels(torch, smi, cell):
@@ -181,10 +249,21 @@ def phase_kernels(torch, smi, cell):
         x_np = np.random.RandomState(SEED + rows).randn(L, rows, C).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
+            plan = bigru.k1_plan(H, cell, dt)
             layers_np, ly = _layers(torch, dt, "cuda", cell)
             x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
+            before = dict(bigru.design_calls)
+            bigru.cuda_launches = 0
             out, hn = bigru.birnn_stack(ly, x, dt, cell)
+            cuda_per_call = bigru.cuda_launches
+            out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
             torch.cuda.synchronize()
+            assert bigru.design_calls[plan["design"]] == before[plan["design"]] + 2
+            # tc: a projection and a recurrence a layer; simt: one launch
+            assert cuda_per_call == (2 * NL if plan["design"] == "tc" else 1), \
+                (plan, cuda_per_call)
+            rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
+            assert rerun_equal, (cell, rows, dname, "rerun differs")
             ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
             assert out.shape == (L, rows, 2 * H) and hn.shape == (2 * NL, rows, H)
             assert bool(torch.isfinite(out.float()).all())
@@ -200,6 +279,8 @@ def phase_kernels(torch, smi, cell):
                 plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell),
                                    torch)
                 library_ms = time_ms(lambda: lib(x), torch)
+                phases = (_tc_phases_ms(torch, ly, x, cell)
+                          if plan["design"] == "tc" else None)
             flops = bigru.stack_flops(L, rows, C, H, NL, cell)
             nbytes = (x.numel() * x.element_size()
                       + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
@@ -207,16 +288,23 @@ def phase_kernels(torch, smi, cell):
             t_ops = flops / PEAK_FLOPS[dname] * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
             res = {"phase": "kernel", "name": "bigru_stack", "cell": cell,
-                   "rows": rows, "dtype": dname, "max_abs_err_out": err_out,
+                   "rows": rows, "dtype": dname, "design": plan["design"],
+                   "cuda_launches_per_call": cuda_per_call,
+                   "max_abs_err_out": err_out,
                    "max_abs_err_hn": err_hn, "tol": TOL[dname],
+                   "rerun_bit_equal": rerun_equal,
                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "library_weights_warning": lib.weights_warning,
+                   "library_flatten_error": lib.flatten_error,
                    "gflop": flops / 1e9,
                    "tflops_achieved": flops / kernel_ms / 1e9, "card": smi}
+            if phases is not None:
+                res["tc_phases_ms"] = phases
             emit(res)
             cells.append(res)
-            del lib, out, hn, ref_out, ref_hn
+            del lib, out, hn, out2, hn2, ref_out, ref_hn
     return cells
 
 
@@ -267,10 +355,18 @@ def phase_k3_kernels(torch, smi):
         x_np = np.random.RandomState(SEED + rows).randn(rows, L, D).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
+            plan = transenc.k3_plan(L, D, FF, NH, dt)
             st = transenc.stack_layers(params["layers"], dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
+            before = dict(transenc.design_calls)
+            transenc.cuda_launches = 0
             got = transenc.encoder_pooled(st, x, dt, NH)
+            cuda_per_call = transenc.cuda_launches
+            again = transenc.encoder_pooled(st, x, dt, NH)
             torch.cuda.synchronize()
+            assert transenc.design_calls[plan["design"]] == before[plan["design"]] + 2
+            assert cuda_per_call == 1, cuda_per_call
+            assert torch.equal(got, again), (rows, dname, "rerun differs")
             ref = transenc.encoder_pooled_plain(st, x, dt, NH)
             assert got.shape == (rows, D) and bool(torch.isfinite(got).all())
             err = (got - ref).abs().max().item()
@@ -282,18 +378,32 @@ def phase_k3_kernels(torch, smi):
                 plain_ms = time_ms(
                     lambda: transenc.encoder_pooled_plain(st, x, dt, NH), torch)
                 library_ms = time_ms(lambda: lib(x).float().mean(1), torch)
+                waves = None
+                if plan["design"] == "tc" and rows == ROWS[0]:
+                    # one CTA, and one CTA on every SM: a CTA's time alone and
+                    # in a full wave
+                    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+                    waves = {"one_cta_ms": time_ms(lambda: transenc.encoder_pooled(
+                                 st, x[:plan["S"]], dt, NH), torch),
+                             "one_wave_ms": time_ms(lambda: transenc.encoder_pooled(
+                                 st, x[:plan["S"] * n_sm], dt, NH), torch),
+                             "sms": n_sm}
             flops = transenc.encoder_flops(rows, L, D, FF, NLT)
             bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
             res = {"phase": "kernel", "name": "transenc_encoder", "rows": rows,
-                   "dtype": dname, "max_abs_err": err, "tol": K3_TOL[dname],
+                   "dtype": dname, "design": plan["design"],
+                   "cuda_launches_per_call": cuda_per_call, "rerun_bit_equal": True,
+                   "max_abs_err": err, "tol": K3_TOL[dname],
                    "library_max_abs_diff": lib_err,
                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bms, "bound_by": bby,
                    "gflop": flops / 1e9, "tflops_achieved": flops / kernel_ms / 1e9,
                    "card": smi}
+            if waves is not None:
+                res["tc_waves"] = waves
             emit(res)
             cells.append(res)
-            del lib, got, ref
+            del lib, got, again, ref
     return cells
 
 
@@ -335,7 +445,7 @@ def phase_k2_kernels(torch, smi, cell):
                    "rows": rows, "C": cin, "dtype": dname, "max_abs_err": err,
                    "tol": TOL[dname], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bms, "bound_by": bby,
-                   "card": smi}
+                   "library_weights_warning": lib.weights_warning, "card": smi}
             emit(res)
             cells.append(res)
             del lib, out, ref
@@ -433,7 +543,8 @@ def phase_train_kernels(torch, smi, cell):
                      "tol": {k: tols[k] for k in keys},
                      "max_abs_err_max": max(errs[k] for k in keys),
                      "kernel_ms": ms, "plain_ms": pms, "library_ms": lms,
-                     "bound_ms": bms, "bound_by": bby, "card": smi}
+                     "bound_ms": bms, "bound_by": bby,
+                     "library_weights_warning": lib.weights_warning, "card": smi}
                 if name.endswith("_bwd"):
                     c["bit_equal_rerun"] = True
                 emit(c)
@@ -548,6 +659,24 @@ def _zero_counts():
     bigru.launches = bigru.plain_calls = 0
     bigru.layer_launches = bigru.layer_plain_calls = 0
     transenc.launches = transenc.plain_calls = 0
+    for mod in (bigru, transenc):
+        mod.cuda_launches = 0
+        for k in mod.design_calls:
+            mod.design_calls[k] = 0
+
+
+def _cuda_launches():
+    """K1's and K3's CUDA launches since the last _zero_counts."""
+    from ccsmeth_tpu_torch.ops import bigru, transenc
+
+    return {"k1": bigru.cuda_launches, "k3": transenc.cuda_launches}
+
+
+def _design_counts():
+    """K1's and K3's calls by design since the last _zero_counts."""
+    from ccsmeth_tpu_torch.ops import bigru, transenc
+
+    return {"k1": dict(bigru.design_calls), "k3": dict(transenc.design_calls)}
 
 
 def _all_counts():
@@ -611,14 +740,22 @@ def phase_e2e(torch, smi, model_type):
         run, tags[prec] = _call_mods(model_type, prec, "default")
         torch.cuda.synchronize()
         counts = _all_counts()
+        cuda = _cuda_launches()
         n = counts[name]
         total_launches += n
+        designs = _design_counts()[name]
         assert run["batches"] > 0 and n == run["batches"], (prec, counts, run)
         assert sum(counts.values()) == n, counts  # no other kernel, no plain run
+        # the shape rule: bf16 through the tensor-core design, fp32 the f32 one
+        design = "tc" if prec == "bf16" else "simt"
+        assert designs[design] == n, (prec, designs)
+        # K1-tc: a projection and a recurrence a layer; otherwise one launch
+        per_call = 2 * NL if (name == "k1" and design == "tc") else 1
+        assert cuda[name] == per_call * n and sum(cuda.values()) == cuda[name], cuda
         n_tagged = sum(1 for mm, ml in tags[prec].values() if ml is not None)
         assert n_tagged >= 0.9 * len(tags[prec]), (prec, n_tagged)
         run.update(phase="e2e", model=model_type, precision=prec, launches=counts,
-                   sites_per_s=run["sites"] / run["seconds"],
+                   designs=designs, cuda_launches=cuda, sites_per_s=run["sites"] / run["seconds"],
                    reads_with_mm_ml=n_tagged, card=smi)
         emit(run)
         runs[prec] = run
@@ -628,7 +765,12 @@ def phase_e2e(torch, smi, model_type):
           "fp32_vs_bf16_ml_within_2": within2, "sites": n_sites})
     if model_type != TRANSENC:
         assert within2 >= 0.999, within2
-    return {"launches": total_launches, "runs": runs, "tags": tags}
+    return {"launches": total_launches, "runs": runs, "tags": tags,
+            "launches_by_design": {d: sum(r["designs"][d] for r in runs.values())
+                                   for d in ("tc", "simt")},
+            "cuda_launches_by_design": {
+                ("tc" if p == "bf16" else "simt"): r["cuda_launches"][name]
+                for p, r in runs.items()}}
 
 
 def phase_e2e_layer(torch, smi, model_type, k1_tags):
@@ -642,6 +784,7 @@ def phase_e2e_layer(torch, smi, model_type, k1_tags):
     counts = _all_counts()
     assert run["batches"] > 0 and counts["k2"] == NL * run["batches"], (counts, run)
     assert sum(counts.values()) == counts["k2"], counts
+    assert sum(_cuda_launches().values()) == 0, _cuda_launches()  # no K1, no K3
     n_sites, equal, _within2 = _ml_shares(k1_tags, tags)
     run.update(phase="e2e", model=model_type, precision="fp32",
                rnn_backend="pallas_layer", launches=counts,
@@ -835,7 +978,81 @@ def phase_profile(torch, smi, cell, steps=5):
     return res
 
 
+def _time_tree(tree):
+    """One turn of ``--ab``: K1 (both cells) and K3 of the checkout at
+    ``tree``, through its own wrappers, at the kernel phase's shapes and
+    inputs; medians of CUDA-event timings, one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from ccsmeth_tpu_torch.models import TransEncConfig, init_transenc
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+    from ccsmeth_tpu_torch.models.transenc import randomize_affine
+    from ccsmeth_tpu_torch.ops import bigru, transenc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"phase": "ab_turn", "tree": os.path.abspath(tree),
+           "package": os.path.dirname(os.path.dirname(bigru.__file__)), "ms": {}}
+    with torch.inference_mode():
+        for cell in MODELS:
+            for rows in ROWS:
+                x_np = np.random.RandomState(SEED + rows).randn(L, rows, C).astype(np.float32)
+                for dname in ("float32", "bfloat16"):
+                    dt = getattr(torch, dname)
+                    ly = [layer_weights(ld, dt, "cuda") for ld in
+                          init_rnn_params(np.random.RandomState(SEED), C, H, NL, cell)]
+                    x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
+                    res["ms"]["k1 {} {} {}".format(cell, rows, dname)] = time_ms(
+                        lambda: bigru.birnn_stack(ly, x, dt, cell), torch)
+        cfg = TransEncConfig()
+        params = randomize_affine(init_transenc(SEED, cfg), SEED)
+        for rows in ROWS:
+            x_np = np.random.RandomState(SEED + rows).randn(rows, L, cfg.d_model)
+            for dname in ("float32", "bfloat16"):
+                dt = getattr(torch, dname)
+                st = transenc.stack_layers(params["layers"], dt, "cuda")
+                x = torch.from_numpy(x_np.astype(np.float32)).to("cuda", dt)
+                res["ms"]["k3 {} {}".format(rows, dname)] = time_ms(
+                    lambda: transenc.encoder_pooled(st, x, dt, cfg.nhead), torch)
+    emit(res)
+
+
+def main_ab(parent):
+    """Parent, change, change, parent: one process a turn (``_time_tree``);
+    the last line holds each shape's two medians per tree and their ratio."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: torch.cuda.is_available() is False")
+    smi = phase_card(torch)[0]
+    turns = []
+    for tree in (parent, REPO, REPO, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--time-tree", tree], capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.exit("turn on {} failed:\n{}".format(tree, proc.stderr[-4000:]))
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        log(json.dumps(line))
+        turns.append(line["ms"])
+    summary = {}
+    for key in turns[0]:
+        parent_ms, change_ms = [turns[0][key], turns[3][key]], [turns[1][key], turns[2][key]]
+        summary[key] = {"parent_ms": parent_ms, "change_ms": change_ms,
+                        "change_over_parent": statistics.mean(change_ms)
+                        / statistics.mean(parent_ms)}
+    emit({"phase": "ab", "order": "parent, change, change, parent",
+          "parent": os.path.abspath(parent), "card": smi, "ms": summary})
+
+
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
+        return _time_tree(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        return main_ab(sys.argv[2])
+    if len(sys.argv) != 1:
+        sys.exit("usage: chip_smoke.py [--ab PARENT_TREE]")
     if not os.path.isdir(os.path.join(REPO, "ccsmeth_tpu_torch")):
         sys.exit("chip_smoke.py: the ccsmeth_tpu_torch package is not beside "
                  "this script; run it from a checkout of the repository")
@@ -866,24 +1083,30 @@ def main():
     kernels = []
     for cell, kname, line in (("gru", "bigru_stack", 198),
                               ("lstm", "bigru_stack_lstm", 238)):
-        cells = k1_cells[cell]
-        mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == "float32")
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu",
-            "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
-            "launches": e2e[cell]["launches"],
-            "launches_train_path": train_runs[cell]["launches"]["k1"],
-            "max_abs_err": max(max(c["max_abs_err_out"], c["max_abs_err_hn"])
-                               for c in cells),
-            "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
-            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-            "library_ms": mc["library_ms"],
-            "cell": "{} rows={} float32".format(MODELS[cell], ROWS[0]),
-            "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by",
-                                         "max_abs_err_out", "max_abs_err_hn")}
-                      for c in cells]})
+        for design, src, dname in (("simt", "bigru_stack.cu", "float32"),
+                                   ("tc", "birnn_tc.cu", "bfloat16")):
+            cells = [c for c in k1_cells[cell] if c["design"] == design]
+            mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == dname)
+            entry = {
+                "name": kname + ("_tc" if design == "tc" else ""), "route": "cuda",
+                "design": design, "cuda_launches_per_call": mc["cuda_launches_per_call"],
+                "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
+                "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
+                "launches": e2e[cell]["launches_by_design"][design],
+                "cuda_launches": e2e[cell]["cuda_launches_by_design"][design],
+                "max_abs_err": max(max(c["max_abs_err_out"], c["max_abs_err_hn"])
+                                   for c in cells),
+                "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
+                "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+                "library_ms": mc["library_ms"],
+                "cell": "{} rows={} {}".format(MODELS[cell], ROWS[0], dname),
+                "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
+                                             "library_ms", "bound_ms", "bound_by",
+                                             "max_abs_err_out", "max_abs_err_hn")}
+                          for c in cells]}
+            if design == "simt":  # the train path validates in fp32
+                entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
+            kernels.append(entry)
     for cell, kname, src, key, line in (
             ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
             ("gru", "bigru_train_bwd", "bigru_train.cu", "bwd", 63),
@@ -905,20 +1128,26 @@ def main():
             "cells": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",
                                          "max_abs_err_max")} for c in mine]})
-    mc = next(c for c in k3_cells if c["rows"] == ROWS[0] and c["dtype"] == "float32")
-    kernels.append({
-        "name": "transenc_encoder", "route": "cuda",
-        "source": "ccsmeth_tpu_torch/ops/csrc/transenc_encoder.cu",
-        "replaces": "ccsmeth_tpu/ops/transenc_pallas.py:144",
-        "launches": e2e_k3["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in k3_cells),
-        "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
-        "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-        "library_ms": mc["library_ms"],
-        "cell": "{} rows={} float32".format(TRANSENC, ROWS[0]),
-        "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
-                                     "library_ms", "bound_ms", "bound_by",
-                                     "max_abs_err")} for c in k3_cells]})
+    for design, src, dname in (("simt", "transenc_encoder.cu", "float32"),
+                               ("tc", "transenc_tc.cu", "bfloat16")):
+        cells = [c for c in k3_cells if c["design"] == design]
+        mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == dname)
+        kernels.append({
+            "name": "transenc_encoder" + ("_tc" if design == "tc" else ""),
+            "route": "cuda", "design": design,
+            "cuda_launches_per_call": mc["cuda_launches_per_call"],
+            "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
+            "replaces": "ccsmeth_tpu/ops/transenc_pallas.py:144",
+            "launches": e2e_k3["launches_by_design"][design],
+            "cuda_launches": e2e_k3["cuda_launches_by_design"][design],
+            "max_abs_err": max(c["max_abs_err"] for c in cells),
+            "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
+            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+            "library_ms": mc["library_ms"],
+            "cell": "{} rows={} {}".format(TRANSENC, ROWS[0], dname),
+            "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by",
+                                         "max_abs_err")} for c in cells]})
     for cell, kname, line in (("gru", "bigru_layer", 87),
                               ("lstm", "bigru_layer_lstm", 36)):
         cells = k2_cells[cell]

@@ -1,5 +1,7 @@
-"""Kernel K1 (ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu) against its plain
-PyTorch version on the card. Needs a CUDA device and skips without one.
+"""Kernel K1 against its plain PyTorch version on the card: the f32 kernel
+(ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu) and the bf16 tensor-core design
+(csrc/birnn_tc.cu), the latter also phase by phase, with bit-equal reruns and
+the shape rule's choice. Needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -10,13 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+from ccsmeth_tpu_torch.models.rnn import (gru_cell, init_rnn_params, layer_weights,
+                                          lstm_cell, n_gates)
 from ccsmeth_tpu_torch.ops import bigru
 
 # tolerances of chip_smoke.py: fp32 1e-5 (measured 2.7e-7 at full width);
 # bf16 1e-2, one bf16 ulp on [0.25, 0.5) plus margin, since an f32 sum taken
 # in another order can round an activation the other way
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+RAGGED = (1, 13, 1000, 1029)  # rows: one row, a part tile, 15.6 and 16.1 tiles of 64
 
 
 @pytest.mark.cuda
@@ -54,3 +58,125 @@ def test_kernel_rejects_what_it_cannot_take():
     x = torch.zeros((21, 4, 11), device="cuda")
     with pytest.raises(ValueError):
         bigru.birnn_stack(ly, x, torch.float32)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _stack(rows, hidden, cell, dt, layers=3, seed=0):
+    rng = np.random.RandomState(seed + rows + hidden)
+    ly = [layer_weights(ld, dt, "cuda")
+          for ld in init_rnn_params(rng, 11, hidden, layers, cell)]
+    x = torch.from_numpy(rng.randn(21, rows, 11).astype(np.float32)).to("cuda", dt)
+    return ly, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [16, 64, 256])
+@pytest.mark.parametrize("rows", RAGGED)
+def test_tc_design_matches_plain(rows, hidden):
+    """The bf16 tensor-core design, GRU cell, three layers, against the plain
+    version; a rerun is bit-equal."""
+    _need_card()
+    cell, dt = "gru", torch.bfloat16
+    ly, x = _stack(rows, hidden, cell, dt)
+    before = bigru.design_calls["tc"], bigru.launches
+    out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
+    torch.cuda.synchronize()
+    assert (bigru.design_calls["tc"], bigru.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, out2) and torch.equal(hn, hn2)
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert out.dtype == dt and out.shape == (21, rows, 2 * hidden)
+    assert hn.dtype == torch.float32 and hn.shape == (6, rows, hidden)
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL["bfloat16"]
+    assert (hn - ref_hn).abs().max().item() <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden,cin,rows", [(16, 11, 13), (256, 11, 1029),
+                                             (256, 512, 1000), (64, 128, 1)])
+def test_tc_projection_matches_the_product(cell, hidden, cin, rows):
+    """Phase (a) against x W_ih + b in f32: bf16 products are exact in f32,
+    so only the order of the f32 sums differs."""
+    _need_card()
+    rng = np.random.RandomState(hidden + cin)
+    wih, bih, _whh, bhh = layer_weights(
+        init_rnn_params(rng, cin, hidden, 1, cell)[0], torch.bfloat16, "cuda")
+    x = torch.from_numpy(rng.randn(21 * rows, cin).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    before = bigru.cuda_launches
+    got = bigru.tc_projection(x, wih, bih, bhh, cell)
+    torch.cuda.synchronize()
+    assert bigru.cuda_launches == before + 1
+    G = n_gates(cell) * hidden
+    for d in (0, 1):
+        fold = bhh[d].clone()
+        if cell == "gru":
+            fold[2 * hidden:] = 0.0  # b_hn stays inside the reset product
+        ref = x.float() @ wih[d].float() + bih[d] + fold
+        assert got[d].shape == (21 * rows, G)
+        assert (got[d] - ref).abs().max().item() <= 1e-5 * (1.0 + ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden,rows", [(16, 13), (64, 1029), (256, 1000), (256, 1)])
+def test_tc_recurrence_matches_the_plain_cell(cell, hidden, rows):
+    """Phase (b) on given f32 gate inputs against models/rnn.py's cells, the
+    h operand rounded to bf16 as the kernel does; tolerance as the stack's."""
+    _need_card()
+    rng = np.random.RandomState(hidden + rows)
+    _wih, _bih, whh, bhh = layer_weights(
+        init_rnn_params(rng, 11, hidden, 1, cell)[0], torch.bfloat16, "cuda")
+    G, L = n_gates(cell) * hidden, 21
+    xg = torch.from_numpy(rng.randn(2, L * rows, G).astype(np.float32)).cuda()
+    U = bigru.k1_plan(hidden, cell)["U"]
+    before = bigru.cuda_launches
+    out, hn = bigru.tc_recurrence(xg, whh, bhh, L, rows, U, cell)
+    assert bigru.cuda_launches == before + 1
+    torch.cuda.synchronize()
+    for d in (0, 1):
+        xgd = xg[d].reshape(L, rows, G)
+        bias = torch.zeros(G, device="cuda")
+        if cell == "gru":
+            bias[2 * hidden:] = bhh[d][2 * hidden:]
+        h = torch.zeros((rows, hidden), device="cuda")
+        c = torch.zeros_like(h)
+        for s in range(L):
+            t = s if d == 0 else L - 1 - s
+            hg = h.to(torch.bfloat16).float() @ whh[d].float() + bias
+            if cell == "gru":
+                h = gru_cell(xgd[t], hg, h)[0]
+            else:
+                h, c = lstm_cell(xgd[t] + hg, c)[:2]
+            step = out[t, :, d * hidden:(d + 1) * hidden].float()
+            assert (step - h).abs().max().item() <= TOL["bfloat16"], (d, s)
+        assert (hn[d] - h).abs().max().item() <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_shape_rule_picks_the_design(cell):
+    """The model's shape (H = 256, 1024 rows) takes the tensor-core design in
+    bf16 and the f32 kernel in fp32; a bf16 H that the rule refuses (20)
+    takes the f32 kernel and still matches the plain version. A tc call is
+    two CUDA launches a layer (projection, recurrence), a simt call one."""
+    _need_card()
+    for hidden, dt, design in ((256, torch.bfloat16, "tc"), (256, torch.float32, "simt"),
+                               (20, torch.bfloat16, "simt")):
+        assert bigru.k1_plan(hidden, cell, dt)["design"] == design
+        ly, x = _stack(1024 if hidden == 256 else 37, hidden, cell, dt)
+        before, cuda_before = dict(bigru.design_calls), bigru.cuda_launches
+        out, _hn = bigru.birnn_stack(ly, x, dt, cell)
+        torch.cuda.synchronize()
+        assert bigru.design_calls[design] == before[design] + 1
+        assert bigru.cuda_launches - cuda_before == (2 * len(ly) if design == "tc" else 1)
+        other = "simt" if design == "tc" else "tc"
+        assert bigru.design_calls[other] == before[other]
+        if hidden == 20:
+            ref, _ = bigru.birnn_stack_plain(ly, x, dt, cell)
+            assert (out.float() - ref.float()).abs().max().item() <= TOL["bfloat16"]

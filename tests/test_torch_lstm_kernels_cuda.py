@@ -1,5 +1,5 @@
-"""K1's LSTM cell (ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu, cell 'lstm') and
-kernel K6 (ccsmeth_tpu_torch/ops/csrc/bilstm_train.cu) against their plain
+"""K1's LSTM cell (ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu, cell 'lstm'; its
+bf16 tensor-core design csrc/birnn_tc.cu) and kernel K6 (ccsmeth_tpu_torch/ops/csrc/bilstm_train.cu) against their plain
 PyTorch versions on the card. Needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -56,6 +56,32 @@ def test_k1_lstm_matches_plain(dtype, rows, hidden, layers):
     assert hn.dtype == torch.float32 and hn.shape == (2 * layers, rows, hidden)
     assert _err(out, ref_out) <= TOL[dtype]
     assert _err(hn, ref_hn) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [16, 64, 256])
+@pytest.mark.parametrize("rows", [1, 13, 1000, 1029])
+def test_k1_lstm_tc_design_matches_plain(rows, hidden):
+    """The bf16 tensor-core design (csrc/birnn_tc.cu), LSTM cell, three
+    layers: against the plain version at ragged row counts (one row, a part
+    tile, 15.6 and 16.1 tiles of 64), and bit-equal on a rerun."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = torch.bfloat16
+    rng = np.random.RandomState(rows + hidden)
+    ly = [layer_weights(ld, dt, "cuda")
+          for ld in init_rnn_params(rng, 11, hidden, 3, "lstm")]
+    x = torch.from_numpy(rng.randn(21, rows, 11).astype(np.float32)).to("cuda", dt)
+    before = bigru.design_calls["tc"]
+    out, hn = bigru.birnn_stack(ly, x, dt, "lstm")
+    out2, hn2 = bigru.birnn_stack(ly, x, dt, "lstm")
+    torch.cuda.synchronize()
+    assert bigru.design_calls["tc"] == before + 2
+    assert torch.equal(out, out2) and torch.equal(hn, hn2)
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, "lstm")
+    assert out.shape == (21, rows, 2 * hidden) and hn.shape == (6, rows, hidden)
+    assert _err(out, ref_out) <= TOL["bfloat16"]
+    assert _err(hn, ref_hn) <= TOL["bfloat16"]
 
 
 def _case(rows, hidden, cin, dtype, seed=0):

@@ -1,5 +1,6 @@
-"""Kernels K3 (ccsmeth_tpu_torch/ops/csrc/transenc_encoder.cu, the
-transencoder2s encoder + mean) and K2 (bigru_layer_launch in
+"""Kernels K3 (the transencoder2s encoder + mean: the f32 kernel
+ccsmeth_tpu_torch/ops/csrc/transenc_encoder.cu and the bf16 tensor-core
+design csrc/transenc_tc.cu) and K2 (bigru_layer_launch in
 ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu, one bidirectional GRU or LSTM
 layer) against their plain PyTorch versions on the card. Needs a CUDA device
 and skips without one.
@@ -56,6 +57,58 @@ def test_encoder_kernel_matches_plain(dtype, n, layers, d, ff):
     assert got.dtype == torch.float32 and got.shape == (n, d)
     assert bool(torch.isfinite(got).all())
     assert (got - ref).abs().max().item() <= K3_TOL[dtype]
+
+
+def _encoder_case(n, dt, layers=6, d=256, ff=512, seed=0):
+    cfg = TransEncConfig(num_layers=layers, d_model=d, dim_ff=ff)
+    params = randomize_affine(init_transenc(seed + n, cfg), seed + n)
+    st = transenc.stack_layers(params["layers"], dt, "cuda")
+    x = torch.from_numpy(np.random.RandomState(seed + n).randn(n, 21, d)
+                         .astype(np.float32)).to("cuda", dt)
+    return cfg, st, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 13, 1000, 1029])
+def test_encoder_tc_design_matches_plain(n):
+    """The bf16 tensor-core design at full width and ragged N (3 samples a
+    CTA: the last tile holds 1, 1, 1 and 0 padded samples of 3), bit-equal
+    on a rerun."""
+    _need_card()
+    dt = torch.bfloat16
+    cfg, st, x = _encoder_case(n, dt)
+    before = transenc.design_calls["tc"]
+    got = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+    again = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+    torch.cuda.synchronize()
+    assert transenc.design_calls["tc"] == before + 2
+    assert torch.equal(got, again)
+    ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
+    assert got.shape == (n, cfg.d_model) and bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= K3_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+def test_encoder_shape_rule_picks_the_design():
+    """transencoder2s's shape takes the tensor-core design in bf16 and the
+    f32 kernel in fp32; a bf16 D that the rule refuses (D = 36, not a
+    multiple of 32) takes the f32 kernel and still matches the plain
+    version."""
+    _need_card()
+    for d, ff, dt, design in ((256, 512, torch.bfloat16, "tc"),
+                              (256, 512, torch.float32, "simt"),
+                              (36, 64, torch.bfloat16, "simt")):
+        cfg, st, x = _encoder_case(64, dt, layers=2, d=d, ff=ff)
+        assert transenc.k3_plan(21, d, ff, cfg.nhead, dt)["design"] == design
+        before, cuda_before = dict(transenc.design_calls), transenc.cuda_launches
+        got = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+        torch.cuda.synchronize()
+        other = "simt" if design == "tc" else "tc"
+        assert transenc.design_calls[design] == before[design] + 1
+        assert transenc.cuda_launches == cuda_before + 1
+        assert transenc.design_calls[other] == before[other]
+        ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
+        assert (got - ref).abs().max().item() <= K3_TOL[str(dt).split(".")[1]]
 
 
 @pytest.mark.cuda
