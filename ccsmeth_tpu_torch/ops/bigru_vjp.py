@@ -4,8 +4,9 @@ Counterpart of ``ccsmeth_tpu/ops/bigru_pallas_vjp.py``: K4 replaces
 ``_fwd_kernel`` (the forward that keeps the gate residuals) and K5 replaces
 ``_bwd_kernel`` (the backward); together they are ``fused_bigru_layer_tm``, a
 ``jax.custom_vjp``, here ``BiGRULayerFn``, a ``torch.autograd.Function``. The
-source is ``csrc/bigru_train.cu``; its header says what bounds the kernels on
-an H100 and what the design does about that.
+source is ``csrc/bigru_train.cu`` with its products in
+``csrc/rnn_train_gemm.cuh``; its header says what bounds the kernels on an
+H100 and what the design does about that.
 
 Layouts (time-major; direction 0 forward, 1 backward, both in natural time
 order, unlike the TPU kernel which stores the backward half reversed):
@@ -19,11 +20,31 @@ order, unlike the TPU kernel which stores the backward half reversed):
     ->     dx (L, N, C), dw_ih (2, C, 3H), db_ih (2, 3H), dw_hh (2, H, 3H),
            db_hh (2, 3H), all f32
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version beside it. ``launches_fwd`` and ``launches_bwd`` count kernel launches,
-``plain_calls`` runs of the plain versions. The kernels are compiled with
-``nvcc`` at first use (``nvcc.py``); nothing here imports a GPU toolchain at
-import time.
+Each kernel is a few CUDA launches, one a phase: K4 the input projection
+(``k4_projection``; in the tc design K1-tc's projection kernel of
+``csrc/birnn_tc.cu``, the same function), then the recurrence
+(``k4_recurrence``); K5 the
+recurrence that carries dh (``k5_recurrence``), dx as one product
+(``k5_dx``), then the weight and bias gradients in fixed row slices and the
+in-order sum of the slices (``k5_weight_grads``). ``k45_plan`` is the shape
+rule that picks the design of a CUDA call:
+
+- ``tc``: bf16 on the tensor cores, for H a multiple of 32 whose cluster of
+  H / U CTAs (U = 64, or 32 where 64 does not divide H) has 1, 2, 4 or 8
+  CTAs and fits in shared memory (H = 32, 64, 128, 256);
+- ``simt``: exact f32 FMAs (no TF32), fp32 always and the bf16 shapes ``tc``
+  refuses: U = min(H, 32) units a CTA, clusters of 1, 2, 4 or 8 CTAs
+  (H = 16, 32, 64, 128, 256).
+
+What neither takes raises ``ValueError`` with the reason; nothing falls back
+to the plain version.
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor runs the plain
+version beside them. ``launches_fwd`` and ``launches_bwd`` count K4 and K5
+calls, ``design_calls`` those calls by design, ``cuda_launches`` each CUDA
+launch where it is made, ``plain_calls`` runs of the plain versions. The
+kernels are compiled with ``nvcc`` at first use (``nvcc.py``); nothing here
+imports a GPU toolchain at import time.
 """
 
 from __future__ import annotations
@@ -34,15 +55,21 @@ import threading
 import torch
 
 from ..models.rnn import gru_cell
-from . import bilstm_vjp, nvcc
-from .kernel_args import (DTYPE_CODE, cuda_checks, device_of, dims, expect, op,
-                         tile, wgrad_slices)
+from . import bigru, bilstm_vjp, nvcc
+from .kernel_args import (DTYPE_CODE, SMEM_LIMIT, cuda_checks, device_of, dims,
+                          expect, op)
 
 SRC = "bigru_train.cu"
+TC_ROWS_FWD = 64  # TC_FWD_ROWS in csrc/bigru_train.cu: rows of a K4 tc tile
+TC_ROWS_BWD = 32  # TC_BWD_ROWS: rows of a K5 tc tile
+GEMM_TILE = 128  # GM_BM = GM_BN in csrc/rnn_train_gemm.cuh
+_DESIGN_CODE = {"simt": 0, "tc": 1}
 
-launches_fwd = 0  # K4 launches since the caller last set it to 0
-launches_bwd = 0  # K5 launches
+launches_fwd = 0  # K4 calls since the caller last set it to 0
+launches_bwd = 0  # K5 calls
 plain_calls = 0  # runs of either plain version
+cuda_launches = 0  # K4's and K5's CUDA launches, counted at each launch
+design_calls = {"tc": 0, "simt": 0}  # K4 and K5 CUDA calls by design
 
 _lib = None
 _lock = threading.Lock()
@@ -60,12 +87,100 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.bigru_train_fwd_launch.restype = i
-            lib.bigru_train_fwd_launch.argtypes = [i] + [p] * 7 + [i] * 6 + [p]
-            lib.bigru_train_bwd_launch.restype = i
-            lib.bigru_train_bwd_launch.argtypes = [i] + [p] * 11 + [i] * 7 + [p]
+            for name, args in (
+                    ("k4_proj_launch", [i] + [p] * 5 + [i] * 3 + [p]),
+                    ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 4 + [p]),
+                    ("k5_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p]),
+                    ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 3 + [p]),
+                    ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 5 + [p]),
+                    ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p])):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = args
             _lib = lib
     return _lib
+
+
+def k5_smem(design: str, H: int, U: int, R: int) -> int:
+    """Shared memory of a K5 recurrence CTA (``k5_smem`` in the source): the
+    partials 2 x CN x R x U f32, dh R x U f32, the W_hh slice (simt 3U x H
+    f32; tc H x (3U + 8) bf16) and the step's dhg operand (simt R x (3U + 1)
+    f32; tc R x (3U + 8) bf16)."""
+    cn = H // U
+    tc = design == "tc"
+    w = H * (3 * U + 8) * 2 if tc else 3 * U * H * 4
+    dg = R * (3 * U + 8) * 2 if tc else R * (3 * U + 1) * 4
+    return 2 * cn * R * U * 4 + R * U * 4 + w + dg
+
+
+def _tc_plan(H: int):
+    """The tc design's geometry for H, or the reason it refuses H."""
+    if H % 32 != 0:
+        return "tc: H % 32 != 0"
+    U = 64 if H % 64 == 0 else 32
+    cn = H // U
+    if cn not in (1, 2, 4, 8):
+        return "tc: a cluster of {} CTAs".format(cn)
+    smem_fwd = (3 * U + 2 * TC_ROWS_FWD) * (H + 8) * 2
+    smem_bwd = k5_smem("tc", H, U, TC_ROWS_BWD)
+    if max(smem_fwd, smem_bwd) > SMEM_LIMIT:
+        return "tc: {} bytes of shared memory a CTA".format(max(smem_fwd, smem_bwd))
+    return {"design": "tc", "U": U, "CN": cn, "rows_fwd": TC_ROWS_FWD,
+            "rows_bwd": TC_ROWS_BWD, "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
+
+
+def _simt_plan(H: int):
+    """The simt design's geometry for H, or the reason it refuses H. A K4
+    thread owns 4 rows x 2 units (2048 / U rows a tile), a K5 thread 4 rows
+    x 8 units of the partial (8192 / H rows a tile)."""
+    U = min(H, 32)
+    if U % 16 != 0 or H % U != 0:
+        return "simt: H must be 16 or a multiple of 32 (H={})".format(H)
+    cn = H // U
+    if cn not in (1, 2, 4, 8):
+        return "simt: a cluster of {} CTAs".format(cn)
+    rows_fwd, rows_bwd = 2048 // U, 8192 // H
+    smem_fwd = (H * 3 * U + 2 * H * rows_fwd) * 4
+    smem_bwd = k5_smem("simt", H, U, rows_bwd)
+    if max(smem_fwd, smem_bwd) > SMEM_LIMIT:
+        return "simt: {} bytes of shared memory a CTA".format(max(smem_fwd, smem_bwd))
+    return {"design": "simt", "U": U, "CN": cn, "rows_fwd": rows_fwd,
+            "rows_bwd": rows_bwd, "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
+
+
+def k45_plan(H: int, compute_dtype=torch.float32) -> dict:
+    """The shape rule that picks K4's and K5's design for a CUDA call (module
+    docstring); it reads H and the dtype only, and any row count and C take
+    the design it picks. Returns {"design", "U", "CN", "rows_fwd",
+    "rows_bwd", "smem_fwd", "smem_bwd"}, for simt also "why" (why not tc).
+    Raises ValueError, naming both designs' reasons, for an H neither takes."""
+    if compute_dtype not in DTYPE_CODE:
+        raise ValueError("compute_dtype must be float32 or bfloat16")
+    if compute_dtype == torch.bfloat16:
+        tc = _tc_plan(H)
+        if isinstance(tc, dict):
+            return tc
+        why = tc
+    else:
+        why = "fp32 keeps exact f32 arithmetic"
+    simt = _simt_plan(H)
+    if isinstance(simt, str):
+        raise ValueError("K4/K5 take no design for H={}: {}; {}".format(H, simt, why))
+    return dict(simt, why=why)
+
+
+def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, design: str) -> int:
+    """Row slices S of K5's weight-gradient launch: the S in 1 .. 32 (each
+    slice at least 256 rows) with the least waves / S, the time of S x tiles
+    128 x 128 output tiles in waves of (blocks an SM: simt 2, tc 1) x n_sms,
+    each tile 1/S of the rows; the least S on a tie (the fewest partials)."""
+    t = GEMM_TILE
+    G = 3 * H
+    tiles = 2 * -(-G // t) * (-(-C // t) + -(-H // t))
+    slots = (2 if design == "simt" else 1) * n_sms
+    best = min(range(1, max(1, min(32, rows // 256)) + 1),
+               key=lambda S: (-(-S * tiles // slots) / S, S))
+    return best
 
 
 def _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype):
@@ -172,70 +287,134 @@ def bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates,
     return dx, dw_ih, db_ih, dw_hh, db_hh
 
 
+def _launch(fn, ref, *args, lib=None):
+    """One CUDA launch through the C entry ``fn`` (of ``csrc/bigru_train.cu``
+    unless ``lib`` is given) on ``ref``'s device and current stream; raises
+    unless it returns 0, and counts it."""
+    global cuda_launches
+    stream = torch.cuda.current_stream(ref.device).cuda_stream
+    with torch.cuda.device(ref.device):
+        rc = getattr(lib or _load(), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError("{} failed: cudaError {}".format(fn, rc))
+    cuda_launches += 1
+
+
+def _codes(plan, compute_dtype):
+    return _DESIGN_CODE[plan["design"]], DTYPE_CODE[compute_dtype]
+
+
+def k4_projection(x, w_ih, b_ih, b_hh, plan, compute_dtype):
+    """K4 (a), one CUDA launch: xg (2, L*N, 3H) f32 = x w_ih[d] + b_ih[d] +
+    the r and z columns of b_hh[d] (b_hn stays inside the reset product).
+    simt: ``rnn_train_gemm.cuh``; tc: K1-tc's projection kernel as it stands
+    (``csrc/birnn_tc.cu::rnn_proj_kernel``, the same function for the GRU)."""
+    L, N, C = x.shape
+    G = w_ih.shape[2]
+    xg = torch.empty((2, L * N, G), dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
+            xg.data_ptr(), L * N, C, G // 3)
+    if plan["design"] == "tc":
+        _launch("birnn_tc_proj_launch", x, 0, *args, lib=bigru._load_tc())
+    else:
+        _launch("k4_proj_launch", x, DTYPE_CODE[compute_dtype], *args)
+    return xg
+
+
+def k4_recurrence(xg, w_hh, b_hh, L, N, plan, compute_dtype):
+    """K4 (b), one CUDA launch: both directions from xg to out (L, N, 2H) and
+    gates (2, L, N, 4H) in the store type."""
+    H = w_hh.shape[1]
+    out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=xg.device)
+    gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=xg.device)
+    _launch("k4_rec_launch", xg, *_codes(plan, compute_dtype), xg.data_ptr(),
+            w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(), gates.data_ptr(), L, N, H,
+            plan["U"])
+    return out, gates
+
+
+def k5_recurrence(dout, out, gates, w_hh, plan, compute_dtype):
+    """K5 (a), one CUDA launch: the gate gradients dxg = [dr, dz, dn] and
+    dhg = [dr, dz, dn r], both (2, L*N, 3H) f32."""
+    L, N, H2 = out.shape
+    H = H2 // 2
+    dxg = torch.empty((2, L * N, 3 * H), dtype=torch.float32, device=out.device)
+    dhg = torch.empty_like(dxg)
+    _launch("k5_rec_launch", out, *_codes(plan, compute_dtype), dout.data_ptr(),
+            out.data_ptr(), gates.data_ptr(), w_hh.data_ptr(), dxg.data_ptr(),
+            dhg.data_ptr(), L, N, H, plan["U"], plan["rows_bwd"])
+    return dxg, dhg
+
+
+def k5_dx(dxg, w_ih, plan, compute_dtype):
+    """K5 (b), one CUDA launch: dx (L*N, C) f32 = sum_d op(dxg[d]) w_ih[d]^T,
+    reading w_ih in its own layout."""
+    M = dxg.shape[1]
+    C, G = w_ih.shape[1:]
+    dx = torch.empty((M, C), dtype=torch.float32, device=dxg.device)
+    _launch("k5_dx_launch", dxg, *_codes(plan, compute_dtype), dxg.data_ptr(),
+            w_ih.data_ptr(), dx.data_ptr(), M, C, G // 3)
+    return dx
+
+
+def k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype):
+    """K5 (c): dW_ih[d] = x^T op(dxg[d]), dW_hh[d] = h_prev^T op(dhg[d]) and
+    the column sums of dxg and dhg, over S fixed row slices (one CUDA
+    launch), then the S partials added in slice order (a second one when
+    S > 1). Returns (dw_ih, db_ih, dw_hh, db_hh), f32."""
+    L, N, C = x.shape
+    H = out.shape[2] // 2
+    G = 3 * H
+    dev = x.device
+    # [dW_ih | dW_hh | db_ih | db_hh] in one buffer, returned as views
+    sizes = (2 * C * G, 2 * H * G, 2 * G, 2 * G)
+    grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    S = k5_wgrad_slices(L * N, C, H, torch.cuda.get_device_properties(
+        dev).multi_processor_count, plan["design"])
+    part = (torch.empty(S * grads.numel(), dtype=torch.float32, device=dev)
+            if S > 1 else grads)
+    _launch("k5_wgrad_launch", x, *_codes(plan, compute_dtype), x.data_ptr(),
+            out.data_ptr(), dxg.data_ptr(), dhg.data_ptr(), part.data_ptr(), L, N, C, H, S)
+    if S > 1:
+        _launch("k5_sum_launch", x, part.data_ptr(), grads.data_ptr(), grads.numel(), S)
+    dw_ih, dw_hh, db_ih, db_hh = grads.split(sizes)
+    return dw_ih.view(2, C, G), db_ih.view(2, G), dw_hh.view(2, H, G), db_hh.view(2, G)
+
+
 def bigru_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32):
-    """K4 on CUDA, the plain version on CPU: (out, gates) in the store type."""
+    """K4 on CUDA (two launches: ``k4_projection``, ``k4_recurrence``), the
+    plain version on CPU: (out, gates) in the store type."""
     global launches_fwd
     L, N, C, H = _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
     if device_of(x) == "cpu":
         return bigru_layer_train_fwd_plain(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
+    plan = k45_plan(H, compute_dtype)
     cuda_checks((x, w_ih, b_ih, w_hh, b_hh), H)
-    r, ty = tile(N, H, x, (2 * H + C) * 4)
-    lib = _load()
-    out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
-    gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = lib.bigru_train_fwd_launch(
-            DTYPE_CODE[compute_dtype], x.data_ptr(), w_ih.data_ptr(),
-            b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            gates.data_ptr(), L, N, C, H, r, ty, stream)
-    if rc != 0:
-        raise RuntimeError("bigru_train_fwd launch failed: cudaError {}".format(rc))
+    xg = k4_projection(x, w_ih, b_ih, b_hh, plan, compute_dtype)
+    out, gates = k4_recurrence(xg, w_hh, b_hh, L, N, plan, compute_dtype)
     launches_fwd += 1
+    design_calls[plan["design"]] += 1
     return out, gates
 
 
 def bigru_layer_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype=torch.float32):
-    """K5 on CUDA, the plain version on CPU: (dx, dw_ih, db_ih, dw_hh, db_hh),
-    all f32. The weight gradients are summed without atomics, so two runs on
-    the same inputs give bit-equal results."""
+    """K5 on CUDA (three or four launches: ``k5_recurrence``, ``k5_dx``,
+    ``k5_weight_grads``), the plain version on CPU: (dx, dw_ih, db_ih, dw_hh,
+    db_hh), all f32. Every sum has one owner and a fixed order, no atomics,
+    so two runs on the same inputs give bit-equal results. The weights are
+    read in the layer's own layout, with no transposed copy."""
     global launches_bwd
     L, N, C, H = _check_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype)
     if device_of(x) == "cpu":
         return bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates, compute_dtype)
-    # transposed, contiguous copies keep the reads along the 3H contraction
-    # of dx = dxg W_ih^T and dh = dhg W_hh^T coalesced (a layout change only)
-    w_ihT = w_ih.transpose(-1, -2).contiguous()
-    w_hhT = w_hh.transpose(-1, -2).contiguous()
-    cuda_checks((dout, x, out, gates, w_ihT, w_hhT), H)
-    r, ty = tile(N, H, x, 6 * H * 4)
-    lib = _load()
-    dev = x.device
-    f32 = torch.float32
-    G = 3 * H
-    dx = torch.empty((L, N, C), dtype=f32, device=dev)
-    dxg = torch.empty((2, L, N, G), dtype=f32, device=dev)
-    dhg = torch.empty_like(dxg)
-    # [dW_ih | dW_hh | db_ih | db_hh] in one buffer, returned as views
-    sizes = (2 * C * G, 2 * H * G, 2 * G, 2 * G)
-    grads = torch.empty(sum(sizes), dtype=f32, device=dev)
-    slices = wgrad_slices(L * N, C, H, G, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    part = (torch.empty(slices * grads.numel(), dtype=f32, device=dev)
-            if slices > 1 else grads)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.bigru_train_bwd_launch(
-            DTYPE_CODE[compute_dtype], dout.data_ptr(), x.data_ptr(),
-            out.data_ptr(), gates.data_ptr(), w_ihT.data_ptr(),
-            w_hhT.data_ptr(), dx.data_ptr(), dxg.data_ptr(), dhg.data_ptr(),
-            grads.data_ptr(), part.data_ptr(), slices, L, N, C, H, r, ty, stream)
-    if rc != 0:
-        raise RuntimeError("bigru_train_bwd launch failed: cudaError {}".format(rc))
+    plan = k45_plan(H, compute_dtype)
+    cuda_checks((dout, x, w_ih, w_hh, out, gates), H)
+    dxg, dhg = k5_recurrence(dout, out, gates, w_hh, plan, compute_dtype)
+    dx = k5_dx(dxg, w_ih, plan, compute_dtype)
+    dw_ih, db_ih, dw_hh, db_hh = k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype)
     launches_bwd += 1
-    dw_ih, dw_hh, db_ih, db_hh = grads.split(sizes)
-    return (dx, dw_ih.view(2, C, G), db_ih.view(2, G), dw_hh.view(2, H, G),
-            db_hh.view(2, G))
+    design_calls[plan["design"]] += 1
+    return dx.view(L, N, C), dw_ih, db_ih, dw_hh, db_hh
 
 
 class BiGRULayerFn(torch.autograd.Function):

@@ -1,6 +1,7 @@
 // Device helpers shared by the RNN kernels: bigru_stack.cu (K1, inference,
-// GRU and LSTM cells), bigru_train.cu (K4 GRU training forward, K5 backward)
-// and bilstm_train.cu (K6, the LSTM's training forward and backward).
+// GRU and LSTM cells), bilstm_train.cu (K6, the LSTM's training forward and
+// backward) and, for Op<T> and sigmoid_f, bigru_train.cu (K4, K5) through
+// rnn_train_gemm.cuh.
 //
 // Operand types: T is float or __nv_bfloat16. Values are widened to f32 for
 // every FMA, so products of bf16 operands are exact and sums accumulate in

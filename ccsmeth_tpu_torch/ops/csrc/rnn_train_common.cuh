@@ -1,6 +1,7 @@
-// Pieces shared by the RNN training backwards: K5 (bigru_train.cu, GRU) and
-// K6 (bilstm_train.cu, LSTM). Both are two phases with no atomics, so two runs
-// on the same inputs give bit-equal results:
+// The pieces of K6's backward (bilstm_train.cu, LSTM); K5 (bigru_train.cu,
+// GRU) used them too until its redesign onto rnn_train_gemm.cuh, which K6
+// can adopt the same way. Two phases with no atomics, so two runs on the same
+// inputs give bit-equal results:
 //   (a) a recurrence kernel, one block per Bt rows, that walks each
 //       direction's time in reverse and writes the gate gradients to f32
 //       scratch; its two products (the recurrent carry dh and dx) are
@@ -10,8 +11,8 @@
 //       sums: rnn_train_wgrad_kernel over S fixed row slices, then
 //       rnn_train_sum_slices adding the S partials in slice order
 //       (wgrad_run launches both).
-// The GRU's B_ih and B_hh are its dxg and dhg; the LSTM's are one matrix, da,
-// whose column sum is both db_ih and db_hh.
+// wgrad_run takes separate B_ih and B_hh (a GRU's dxg and dhg); the LSTM's
+// are one matrix, da, whose column sum is both db_ih and db_hh.
 
 #pragma once
 

@@ -23,12 +23,14 @@ does not print its last line:
      nn.TransformerEncoder + mean and the bound;
      kernel K2 (bigru_layer_launch in bigru_stack.cu), one layer of each cell
      at C = 11 and 512, 1024 rows, beside a one-layer cuDNN nn.GRU / nn.LSTM;
-  4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu, GRU) and K6
-     (ops/csrc/bilstm_train.cu, LSTM) at the train paths' shapes (one layer,
-     H=256, L=21, 2B = 1024 rows, C = 11 and 512, fp32 and bf16) against
-     their plain versions, each backward run twice for bit-equal gradients,
-     timed beside the plain versions, cuDNN's one-layer bidirectional
-     nn.GRU / nn.LSTM (forward in training mode, and backward) and the bound;
+  4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu with
+     ops/csrc/rnn_train_gemm.cuh, GRU) and K6 (ops/csrc/bilstm_train.cu,
+     LSTM) at the train paths' shapes (one layer, H=256, L=21, 2B = 1024
+     rows, C = 11 and 512, fp32 and bf16) against their plain versions, each
+     backward run twice for bit-equal gradients, timed beside the plain
+     versions, cuDNN's one-layer bidirectional nn.GRU / nn.LSTM (forward in
+     training mode, and backward) and the bound; for K4/K5 the design that
+     ``k45_plan`` picked, the CUDA launches a call and each phase's time;
   5. model: full-width attbigru2s, attbilstm2s and transencoder2s with
      numpy-seeded weights, probs through K1 (K3) against probs through the
      plain version; transencoder2s once more with cuDNN's TF32 allowed, which
@@ -41,7 +43,8 @@ does not print its last line:
   7. train end to end, once per model: the port's CLI ``train --device cuda``
      at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
      synthetic features TSV, with the training kernels' and K1's launch
-     counts read around the run, then a few bf16 steps;
+     counts, K4/K5's calls by design and CUDA launches read around the run
+     (fp32: simt only), then a few bf16 steps (tc only);
   8. profile: torch.profiler over a few full-width training steps of each
      model, device time per kernel and the device's idle share;
   9. one ``kernels`` JSON line, then the ``ok`` line.
@@ -52,8 +55,8 @@ checkout.
 
     python3 chip_smoke.py --ab PARENT_TREE
 
-times K1 (both cells) and K3 at the kernel phase's shapes, in four turns in
-one process each: the checkout at PARENT_TREE (another commit, unpacked
+times K1 (both cells) and K3 at the kernel phase's shapes, and K4, K5 and K6
+at the train-kernel phase's, in four turns in one process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
 """
@@ -76,6 +79,7 @@ MODELS = {"gru": "attbigru2s", "lstm": "attbilstm2s"}
 TRANSENC = "transencoder2s"  # 6 layers, d_model 256, 4 heads, FF 512
 ROWS = (1024, 16384)  # 2B for batch 512 (the CLI default) and batch 8192
 REPS = 11
+AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # K3's pooled output: fp32 1e-4 (six layers of products summed in another
 # order than cuBLAS's); bf16 2e-2, since an f32 sum in another order can
@@ -452,6 +456,52 @@ def phase_k2_kernels(torch, smi, cell):
     return cells
 
 
+def _k5_cuda_launches(rows, cin, dt):
+    """K5's CUDA launches a call: recurrence, dx, weight gradients, and the
+    sum of the row slices when there is more than one."""
+    import torch
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    design = bigru_vjp.k45_plan(H, dt)["design"]
+    return 3 + (bigru_vjp.k5_wgrad_slices(L * rows, cin, H, n_sm, design) > 1)
+
+
+def _k45_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt):
+    """Device time of each phase of K4 and K5 on one layer's inputs: K4's
+    projection and recurrence, K5's recurrence, dx and weight gradients
+    (with the slice sum); and each recurrence on one row tile a direction
+    (one cluster each), its serial chain alone, against which the full
+    recurrence's time counts the waves of clusters; medians of CUDA-event
+    timings."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+
+    Lx, N, _C = x.shape
+    plan = V.k45_plan(whh.shape[1], dt)
+    xg = V.k4_projection(x, wih, bih, bhh, plan, dt)
+    out, gates = V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)
+    dxg, dhg = V.k5_recurrence(dout, out, gates, whh, plan, dt)
+    r4, r5 = plan["rows_fwd"], plan["rows_bwd"]
+    xg4 = torch.randn((2, Lx * r4, xg.shape[2]), device="cuda")
+    xg5 = torch.randn((2, Lx * r5, xg.shape[2]), device="cuda")
+    out5, gates5 = V.k4_recurrence(xg5, whh, bhh, Lx, r5, plan, dt)
+    dout5 = torch.randn((Lx, r5, out.shape[2]), device="cuda").to(dt)
+    return {"k4_projection": time_ms(lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
+                                     torch),
+            "k4_recurrence_one_tile": time_ms(
+                lambda: V.k4_recurrence(xg4, whh, bhh, Lx, r4, plan, dt), torch),
+            "k5_recurrence_one_tile": time_ms(
+                lambda: V.k5_recurrence(dout5, out5, gates5, whh, plan, dt), torch),
+            "k4_recurrence": time_ms(lambda: V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt),
+                                     torch),
+            "k5_recurrence": time_ms(lambda: V.k5_recurrence(dout, out, gates, whh, plan, dt),
+                                     torch),
+            "k5_dx": time_ms(lambda: V.k5_dx(dxg, wih, plan, dt), torch),
+            "k5_weight_grads": time_ms(lambda: V.k5_weight_grads(x, out, dxg, dhg, plan, dt),
+                                       torch)}
+
+
 def phase_train_kernels(torch, smi, cell):
     """One layer's training kernels at the train path's shapes against their
     plain versions: K4/K5 (cell 'gru') or K6's forward and backward
@@ -491,13 +541,23 @@ def phase_train_kernels(torch, smi, cell):
             wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
             dout = torch.from_numpy(dout_np).to("cuda", dt)
+            design = bigru_vjp.k45_plan(H, dt)["design"] if cell == "gru" else None
+            bigru_vjp.cuda_launches = 0
             res = fwd(x, wih, bih, whh, bhh, dt)
+            fwd_cuda = bigru_vjp.cuda_launches
             ref_res = fwd_plain(x, wih, bih, whh, bhh, dt)
             # both backward versions get the same residuals
             args = (dout, x, wih, whh) + tuple(ref_res) + (dt,)
+            bigru_vjp.cuda_launches = 0
             got = bwd(*args)
+            bwd_cuda = bigru_vjp.cuda_launches
             again = bwd(*args)
             torch.cuda.synchronize()
+            if cell == "gru":  # K4: projection, recurrence; K5: 3, + the slice sum
+                assert fwd_cuda == 2 and bwd_cuda == _k5_cuda_launches(rows, cin, dt), \
+                    (fwd_cuda, bwd_cuda)
+            else:
+                fwd_cuda = bwd_cuda = None  # K6 is one C call, not counted by launch
             ref = bwd_plain(*args)
             names = ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh")
             assert all(torch.equal(a, b) for a, b in zip(got, again)), \
@@ -527,6 +587,8 @@ def phase_train_kernels(torch, smi, cell):
             b_ms = time_ms(lambda: bwd(*args), torch)
             pf_ms = time_ms(lambda: fwd_plain(x, wih, bih, whh, bhh, dt), torch)
             pb_ms = time_ms(lambda: bwd_plain(*args), torch)
+            phases = (_k45_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt)
+                      if cell == "gru" else None)
             weights = (wih, bih, whh, bhh)
             bf, byf = _bound(V.train_fwd_flops(L, rows, cin, H),
                              _nbytes(x, *weights, *res), dname)
@@ -534,11 +596,12 @@ def phase_train_kernels(torch, smi, cell):
             outs = got if cell == "gru" else got[:4]
             bb, byb = _bound(V.train_bwd_flops(L, rows, cin, H),
                              _nbytes(dout, x, wih, whh, *res, *outs), dname)
-            for name, ms, pms, lms, bms, bby, keys in (
-                    (kname + "_fwd", f_ms, pf_ms, lib_fwd_ms, bf, byf, res_names),
-                    (kname + "_bwd", b_ms, pb_ms, lib_bwd_ms, bb, byb, names)):
+            for name, ms, pms, lms, bms, bby, keys, ncuda in (
+                    (kname + "_fwd", f_ms, pf_ms, lib_fwd_ms, bf, byf, res_names, fwd_cuda),
+                    (kname + "_bwd", b_ms, pb_ms, lib_bwd_ms, bb, byb, names, bwd_cuda)):
                 c = {"phase": "train_kernel", "name": name, "rows": rows,
-                     "C": cin, "H": H, "L": L, "dtype": dname,
+                     "C": cin, "H": H, "L": L, "dtype": dname, "design": design,
+                     "cuda_launches_per_call": ncuda,
                      "max_abs_err": {k: errs[k] for k in keys},
                      "tol": {k: tols[k] for k in keys},
                      "max_abs_err_max": max(errs[k] for k in keys),
@@ -547,6 +610,9 @@ def phase_train_kernels(torch, smi, cell):
                      "library_weights_warning": lib.weights_warning, "card": smi}
                 if name.endswith("_bwd"):
                     c["bit_equal_rerun"] = True
+                if phases is not None:
+                    c["phases_ms"] = {k: v for k, v in phases.items()
+                                      if k.startswith("k4" if name.endswith("_fwd") else "k5")}
                 emit(c)
                 cells.append(c)
             del lib, xg, y, got, again, ref, res, ref_res
@@ -869,6 +935,7 @@ def phase_train(torch, smi, cell, epochs):
 
     for V in (bigru_vjp, bilstm_vjp):
         V.launches_fwd = V.launches_bwd = V.plain_calls = 0
+    _zero_k45_designs()
     bigru.launches = bigru.plain_calls = 0
     t0 = time.time()
     _train_cli(cli, model_type, tr, va, os.path.join(WORK, model_type + "_fp32"),
@@ -887,6 +954,16 @@ def phase_train(torch, smi, cell, epochs):
     assert counts["k1"] == n_valid * math.ceil(VALID_ROWS / 512) > 0, counts
     assert counts["plain_vjp"] == counts["plain_k1"] == counts["other_cell"] == 0, \
         counts
+    # fp32 trains K4/K5 through the simt design only, each call's CUDA
+    # launches counted where they are made
+    designs, k45_cuda = dict(bigru_vjp.design_calls), bigru_vjp.cuda_launches
+    if cell == "gru":
+        per_step = sum(2 + _k5_cuda_launches(2 * 512, cin, torch.float32)
+                       for cin in (C, 2 * H, 2 * H))
+        assert designs == {"tc": 0, "simt": counts["fwd"] + counts["bwd"]}, designs
+        assert k45_cuda == per_step * steps, (k45_cuda, per_step, steps)
+    else:
+        assert designs == {"tc": 0, "simt": 0} and k45_cuda == 0, (designs, k45_cuda)
     assert np.all(np.isfinite(run["train_losses"] + run["valid_losses"])), run
     assert run["best_accuracy"] >= 0.9, run["best_accuracy"]
     # the checkpoint loads into the port's call_mods model
@@ -901,7 +978,8 @@ def phase_train(torch, smi, cell, epochs):
     steady = float(np.mean(run["epoch_wall_s"][1:]))
     res = {"phase": "train", "precision": "fp32", "model": model_type + " 3x256",
            "batch": 512, "steps": steps, "epochs": epochs,
-           "validations": n_valid, "launches": counts,
+           "validations": n_valid, "launches": counts, "k45_designs": designs,
+           "k45_cuda_launches": k45_cuda,
            "best_accuracy": run["best_accuracy"],
            "train_losses": run["train_losses"], "valid_losses": run["valid_losses"],
            "epoch_wall_s": run["epoch_wall_s"], "wall_s": wall,
@@ -911,20 +989,36 @@ def phase_train(torch, smi, cell, epochs):
            "card": smi}
     emit(res)
 
-    # a few steps in bf16
-    before = mine.launches_fwd
+    # a few steps in bf16: K4/K5 through the tc design only
+    before = (mine.launches_fwd, mine.launches_bwd)
+    _zero_k45_designs()
     _train_cli(cli, model_type, tr16, va, os.path.join(WORK, model_type + "_bf16"),
                "bf16", 1, BF16_TRAIN_ROWS // 512)
     torch.cuda.synchronize()
     run16 = dict(LAST_RUN)
-    assert mine.launches_fwd - before == 3 * run16["steps"] > 0
+    n16 = (mine.launches_fwd - before[0], mine.launches_bwd - before[1])
+    assert n16[0] == n16[1] == 3 * run16["steps"] > 0, n16
     assert np.all(np.isfinite(run16["train_losses"] + run16["valid_losses"])), run16
     assert mine.plain_calls == 0
+    designs16 = dict(bigru_vjp.design_calls)
+    if cell == "gru":
+        assert designs16 == {"tc": sum(n16), "simt": 0}, designs16
+    res["bf16_launches"] = {"fwd": n16[0], "bwd": n16[1], "k45_designs": designs16,
+                            "k45_cuda_launches": bigru_vjp.cuda_launches}
     emit({"phase": "train", "precision": "bf16", "model": model_type + " 3x256",
-          "steps": run16["steps"], "train_losses": run16["train_losses"],
+          "steps": run16["steps"], "launches": res["bf16_launches"],
+          "train_losses": run16["train_losses"],
           "valid_losses": run16["valid_losses"],
           "best_accuracy": run16["best_accuracy"], "card": smi})
     return res
+
+
+def _zero_k45_designs():
+    from ccsmeth_tpu_torch.ops import bigru_vjp
+
+    bigru_vjp.cuda_launches = 0
+    for k in bigru_vjp.design_calls:
+        bigru_vjp.design_calls[k] = 0
 
 
 def phase_profile(torch, smi, cell, steps=5):
@@ -980,8 +1074,10 @@ def phase_profile(torch, smi, cell, steps=5):
 
 def _time_tree(tree):
     """One turn of ``--ab``: K1 (both cells) and K3 of the checkout at
-    ``tree``, through its own wrappers, at the kernel phase's shapes and
-    inputs; medians of CUDA-event timings, one JSON line."""
+    ``tree`` at the kernel phase's shapes and inputs, and K4, K5 and K6
+    (forward and backward) at the train-kernel phase's (1024 rows, C = 11
+    and 512), fp32 and bf16, through the tree's own wrappers; medians of
+    CUDA-event timings, one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -1005,7 +1101,7 @@ def _time_tree(tree):
                           init_rnn_params(np.random.RandomState(SEED), C, H, NL, cell)]
                     x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
                     res["ms"]["k1 {} {} {}".format(cell, rows, dname)] = time_ms(
-                        lambda: bigru.birnn_stack(ly, x, dt, cell), torch)
+                        lambda: bigru.birnn_stack(ly, x, dt, cell), torch, AB_REPS)
         cfg = TransEncConfig()
         params = randomize_affine(init_transenc(SEED, cfg), SEED)
         for rows in ROWS:
@@ -1015,7 +1111,33 @@ def _time_tree(tree):
                 st = transenc.stack_layers(params["layers"], dt, "cuda")
                 x = torch.from_numpy(x_np.astype(np.float32)).to("cuda", dt)
                 res["ms"]["k3 {} {}".format(rows, dname)] = time_ms(
-                    lambda: transenc.encoder_pooled(st, x, dt, cfg.nhead), torch)
+                    lambda: transenc.encoder_pooled(st, x, dt, cfg.nhead), torch, AB_REPS)
+        # the training kernels at the train-kernel phase's cells: K4/K5 and
+        # K6 (the control), forward and backward
+        from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+        train = {"gru": ("k4", "k5", bigru_vjp.bigru_layer_train_fwd,
+                         bigru_vjp.bigru_layer_bwd),
+                 "lstm": ("k6f", "k6b", bilstm_vjp.bilstm_layer_train_fwd,
+                          bilstm_vjp.bilstm_layer_bwd)}
+        rows = ROWS[0]
+        for cell, (kf, kb, fwd, bwd) in train.items():
+            for cin in (C, 2 * H):
+                rng = np.random.RandomState(SEED + cin)
+                ld = init_rnn_params(rng, cin, H, 1, cell)[0]
+                x_np = rng.randn(L, rows, cin).astype(np.float32)
+                dout_np = rng.randn(L, rows, 2 * H).astype(np.float32)
+                for dname in ("float32", "bfloat16"):
+                    dt = getattr(torch, dname)
+                    wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
+                    x = torch.from_numpy(x_np).to("cuda", dt)
+                    dout = torch.from_numpy(dout_np).to("cuda", dt)
+                    kept = fwd(x, wih, bih, whh, bhh, dt)
+                    args = (dout, x, wih, whh) + tuple(kept) + (dt,)
+                    res["ms"]["{} C={} {}".format(kf, cin, dname)] = time_ms(
+                        lambda: fwd(x, wih, bih, whh, bhh, dt), torch, AB_REPS)
+                    res["ms"]["{} C={} {}".format(kb, cin, dname)] = time_ms(
+                        lambda: bwd(*args), torch, AB_REPS)
     emit(res)
 
 
@@ -1107,9 +1229,31 @@ def main():
             if design == "simt":  # the train path validates in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
             kernels.append(entry)
+    for kname, key, line in (("bigru_train_fwd", "fwd", 31), ("bigru_train_bwd", "bwd", 63)):
+        mine = [c for c in t_cells["gru"] if c["name"] == kname]
+        run = train_runs["gru"]
+        # simt: the fp32 train run; tc: its bf16 steps
+        for design, dname, launches in (("simt", "float32", run["launches"][key]),
+                                        ("tc", "bfloat16", run["bf16_launches"][key])):
+            cells = [c for c in mine if c["design"] == design]
+            # the main cell: layers 1 and 2 of the stack (C = 2H)
+            mc = next(c for c in cells if c["C"] == 2 * H and c["dtype"] == dname)
+            kernels.append({
+                "name": kname + ("_tc" if design == "tc" else ""), "route": "cuda",
+                "design": design, "cuda_launches_per_call": mc["cuda_launches_per_call"],
+                "source": "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu",
+                "replaces": "ccsmeth_tpu/ops/bigru_pallas_vjp.py:{}".format(line),
+                "launches": launches,
+                "max_abs_err": max(c["max_abs_err_max"] for c in cells),
+                "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
+                "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+                "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+                "cell": "{} rows={} C={} {}".format(MODELS["gru"], mc["rows"], mc["C"], dname),
+                "cells": [{k: c[k] for k in ("rows", "C", "dtype", "cuda_launches_per_call",
+                                             "kernel_ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by", "max_abs_err_max",
+                                             "phases_ms")} for c in cells]})
     for cell, kname, src, key, line in (
-            ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
-            ("gru", "bigru_train_bwd", "bigru_train.cu", "bwd", 63),
             ("lstm", "bilstm_train_fwd", "bilstm_train.cu", "fwd", 122),
             ("lstm", "bilstm_train_bwd", "bilstm_train.cu", "bwd", 167)):
         mine = [c for c in t_cells[cell] if c["name"] == kname]
