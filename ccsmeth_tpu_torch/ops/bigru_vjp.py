@@ -27,17 +27,23 @@ Each kernel is a few CUDA launches, one a phase: K4 the input projection
 recurrence that carries dh (``k5_recurrence``), dx as one product
 (``k5_dx``), then the weight and bias gradients in fixed row slices and the
 in-order sum of the slices (``k5_weight_grads``). ``k45_plan`` is the shape
-rule that picks the design of a CUDA call:
+rule that picks the design of a CUDA call, for this layer and for K6, the
+LSTM's (``bilstm_vjp``), whose kernels are these with four gates: the gate
+count NG (3 or 4) is the only input besides H and the dtype.
 
 - ``tc``: bf16 on the tensor cores, for H a multiple of 32 whose cluster of
-  H / U CTAs (U = 64, or 32 where 64 does not divide H) has 1, 2, 4 or 8
-  CTAs and fits in shared memory (H = 32, 64, 128, 256);
+  H / U CTAs (U = 64, or 32 where 64 does not divide H or does not fit) has
+  1, 2, 4 or 8 CTAs and fits in shared memory (H = 32, 64, 128, 256);
 - ``simt``: exact f32 FMAs (no TF32), fp32 always and the bf16 shapes ``tc``
   refuses: U = min(H, 32) units a CTA, clusters of 1, 2, 4 or 8 CTAs
-  (H = 16, 32, 64, 128, 256).
+  (H = 16, 32, 64, 128, 256); the forward tile holds 2 units a thread, or 1
+  where that does not fit (the LSTM at H = 256), the backward tile 8192 / H
+  rows, halved until it fits.
 
 What neither takes raises ``ValueError`` with the reason; nothing falls back
-to the plain version.
+to the plain version. The products of both layers (the projection, dx and the
+weight gradients) are the C entries of ``csrc/bigru_train.cu``, which take the
+gate count.
 
 A CUDA tensor launches the kernels (or raises); a CPU tensor runs the plain
 version beside them. ``launches_fwd`` and ``launches_bwd`` count K4 and K5
@@ -60,9 +66,10 @@ from .kernel_args import (DTYPE_CODE, SMEM_LIMIT, cuda_checks, device_of, dims,
                           expect, op)
 
 SRC = "bigru_train.cu"
-TC_ROWS_FWD = 64  # TC_FWD_ROWS in csrc/bigru_train.cu: rows of a K4 tc tile
-TC_ROWS_BWD = 32  # TC_BWD_ROWS: rows of a K5 tc tile
+TC_ROWS_FWD = 64  # TC_FWD_ROWS in csrc/rnn_train_rec.cuh: rows of a tc forward tile
+TC_ROWS_BWD = 32  # TC_BWD_ROWS: rows of a tc backward tile
 GEMM_TILE = 128  # GM_BM = GM_BN in csrc/rnn_train_gemm.cuh
+GATES = {"gru": 3, "lstm": 4}  # NG, the gate count of each cell
 _DESIGN_CODE = {"simt": 0, "tc": 1}
 
 launches_fwd = 0  # K4 calls since the caller last set it to 0
@@ -88,11 +95,11 @@ def _load():
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             for name, args in (
-                    ("k4_proj_launch", [i] + [p] * 5 + [i] * 3 + [p]),
-                    ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 4 + [p]),
+                    ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p]),
+                    ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p]),
                     ("k5_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p]),
-                    ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 3 + [p]),
-                    ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 5 + [p]),
+                    ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p]),
+                    ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 6 + [p]),
                     ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p])):
                 fn = getattr(lib, name)
                 fn.restype = i
@@ -101,81 +108,103 @@ def _load():
     return _lib
 
 
-def k5_smem(design: str, H: int, U: int, R: int) -> int:
-    """Shared memory of a K5 recurrence CTA (``k5_smem`` in the source): the
-    partials 2 x CN x R x U f32, dh R x U f32, the W_hh slice (simt 3U x H
-    f32; tc H x (3U + 8) bf16) and the step's dhg operand (simt R x (3U + 1)
-    f32; tc R x (3U + 8) bf16)."""
-    cn = H // U
+def k5_smem(design: str, H: int, U: int, R: int, ng: int = 3) -> int:
+    """Shared memory of a backward recurrence CTA (``bwd_smem`` in
+    ``csrc/rnn_train_rec.cuh``), NG = ng gates: the partials 2 x CN x R x U
+    f32, dh R x U f32 (the LSTM keeps dc there), the W_hh slice (simt NG U x H
+    f32; tc H x (NG U + 8) bf16) and the step's gate-gradient operand (simt
+    R x (NG U + 1) f32; tc R x (NG U + 8) bf16)."""
+    cn, ug = H // U, ng * U
     tc = design == "tc"
-    w = H * (3 * U + 8) * 2 if tc else 3 * U * H * 4
-    dg = R * (3 * U + 8) * 2 if tc else R * (3 * U + 1) * 4
+    w = H * (ug + 8) * 2 if tc else ug * H * 4
+    dg = R * (ug + 8) * 2 if tc else R * (ug + 1) * 4
     return 2 * cn * R * U * 4 + R * U * 4 + w + dg
 
 
-def _tc_plan(H: int):
-    """The tc design's geometry for H, or the reason it refuses H."""
+def _tc_plan(H: int, ng: int):
+    """The tc design's geometry for H and NG gates, or the reason it refuses
+    H (the first reason, where U = 64 and 32 both fail)."""
     if H % 32 != 0:
         return "tc: H % 32 != 0"
-    U = 64 if H % 64 == 0 else 32
-    cn = H // U
-    if cn not in (1, 2, 4, 8):
-        return "tc: a cluster of {} CTAs".format(cn)
-    smem_fwd = (3 * U + 2 * TC_ROWS_FWD) * (H + 8) * 2
-    smem_bwd = k5_smem("tc", H, U, TC_ROWS_BWD)
-    if max(smem_fwd, smem_bwd) > SMEM_LIMIT:
-        return "tc: {} bytes of shared memory a CTA".format(max(smem_fwd, smem_bwd))
-    return {"design": "tc", "U": U, "CN": cn, "rows_fwd": TC_ROWS_FWD,
-            "rows_bwd": TC_ROWS_BWD, "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
+    why = None
+    for U in (64, 32):
+        if H % U != 0:
+            continue
+        cn = H // U
+        smem_fwd = (ng * U + 2 * TC_ROWS_FWD) * (H + 8) * 2
+        smem_bwd = k5_smem("tc", H, U, TC_ROWS_BWD, ng)
+        if cn not in (1, 2, 4, 8):
+            why = why or "tc: a cluster of {} CTAs".format(cn)
+        elif max(smem_fwd, smem_bwd) > SMEM_LIMIT:
+            why = why or "tc: {} bytes of shared memory a CTA".format(max(smem_fwd, smem_bwd))
+        else:
+            return {"design": "tc", "U": U, "CN": cn, "rows_fwd": TC_ROWS_FWD,
+                    "rows_bwd": TC_ROWS_BWD, "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
+    return why
 
 
-def _simt_plan(H: int):
-    """The simt design's geometry for H, or the reason it refuses H. A K4
-    thread owns 4 rows x 2 units (2048 / U rows a tile), a K5 thread 4 rows
-    x 8 units of the partial (8192 / H rows a tile)."""
+def _simt_plan(H: int, ng: int):
+    """The simt design's geometry for H and NG gates, or the reason it
+    refuses H. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
+    tile; UPT = 2, or 1 where that tile does not fit), a backward thread 4 rows
+    x 8 units of the partial (8192 / H rows a tile, halved until it fits)."""
     U = min(H, 32)
     if U % 16 != 0 or H % U != 0:
         return "simt: H must be 16 or a multiple of 32 (H={})".format(H)
     cn = H // U
     if cn not in (1, 2, 4, 8):
         return "simt: a cluster of {} CTAs".format(cn)
-    rows_fwd, rows_bwd = 2048 // U, 8192 // H
-    smem_fwd = (H * 3 * U + 2 * H * rows_fwd) * 4
-    smem_bwd = k5_smem("simt", H, U, rows_bwd)
-    if max(smem_fwd, smem_bwd) > SMEM_LIMIT:
-        return "simt: {} bytes of shared memory a CTA".format(max(smem_fwd, smem_bwd))
+
+    def smem_fwd(rows):
+        return (H * ng * U + 2 * H * rows) * 4
+
+    rows_fwd = 2048 // U if smem_fwd(2048 // U) <= SMEM_LIMIT else 1024 // U
+    rows_bwd = 8192 // H
+    while rows_bwd > 4 and k5_smem("simt", H, U, rows_bwd, ng) > SMEM_LIMIT:
+        rows_bwd //= 2
+    smem = (smem_fwd(rows_fwd), k5_smem("simt", H, U, rows_bwd, ng))
+    if max(smem) > SMEM_LIMIT:
+        return "simt: {} bytes of shared memory a CTA".format(max(smem))
     return {"design": "simt", "U": U, "CN": cn, "rows_fwd": rows_fwd,
-            "rows_bwd": rows_bwd, "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
+            "rows_bwd": rows_bwd, "smem_fwd": smem[0], "smem_bwd": smem[1]}
 
 
-def k45_plan(H: int, compute_dtype=torch.float32) -> dict:
-    """The shape rule that picks K4's and K5's design for a CUDA call (module
-    docstring); it reads H and the dtype only, and any row count and C take
-    the design it picks. Returns {"design", "U", "CN", "rows_fwd",
-    "rows_bwd", "smem_fwd", "smem_bwd"}, for simt also "why" (why not tc).
-    Raises ValueError, naming both designs' reasons, for an H neither takes."""
+def k45_plan(H: int, compute_dtype=torch.float32, cell: str = "gru") -> dict:
+    """The shape rule that picks the design of a CUDA call of K4/K5 (cell
+    'gru') or K6 ('lstm'), whose kernels differ only in the gate count
+    (module docstring); it reads H, the dtype and the cell only, and any row
+    count and C take the design it picks. Returns {"design", "U", "CN",
+    "rows_fwd", "rows_bwd", "smem_fwd", "smem_bwd", "cell", "gates"}, for
+    simt also "why" (why not tc). Raises ValueError, naming both designs'
+    reasons, for an H neither takes."""
     if compute_dtype not in DTYPE_CODE:
         raise ValueError("compute_dtype must be float32 or bfloat16")
+    if cell not in GATES:
+        raise ValueError("cell must be gru or lstm, got {!r}".format(cell))
+    ng = GATES[cell]
     if compute_dtype == torch.bfloat16:
-        tc = _tc_plan(H)
+        tc = _tc_plan(H, ng)
         if isinstance(tc, dict):
-            return tc
+            return dict(tc, cell=cell, gates=ng)
         why = tc
     else:
         why = "fp32 keeps exact f32 arithmetic"
-    simt = _simt_plan(H)
+    simt = _simt_plan(H, ng)
     if isinstance(simt, str):
-        raise ValueError("K4/K5 take no design for H={}: {}; {}".format(H, simt, why))
-    return dict(simt, why=why)
+        raise ValueError("{} no design for H={}: {}; {}".format(
+            "K4/K5 take" if cell == "gru" else "K6 takes", H, simt, why))
+    return dict(simt, why=why, cell=cell, gates=ng)
 
 
-def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, design: str) -> int:
-    """Row slices S of K5's weight-gradient launch: the S in 1 .. 32 (each
-    slice at least 256 rows) with the least waves / S, the time of S x tiles
-    128 x 128 output tiles in waves of (blocks an SM: simt 2, tc 1) x n_sms,
-    each tile 1/S of the rows; the least S on a tie (the fewest partials)."""
+def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, design: str,
+                    ng: int = 3) -> int:
+    """Row slices S of the weight-gradient launch (NG = ng gates, G = NG H
+    columns): the S in 1 .. 32 (each slice at least 256 rows) with the least
+    waves / S, the time of S x tiles 128 x 128 output tiles in waves of
+    (blocks an SM: simt 2, tc 1) x n_sms, each tile 1/S of the rows; the
+    least S on a tie (the fewest partials)."""
     t = GEMM_TILE
-    G = 3 * H
+    G = ng * H
     tiles = 2 * -(-G // t) * (-(-C // t) + -(-H // t))
     slots = (2 if design == "simt" else 1) * n_sms
     best = min(range(1, max(1, min(32, rows // 256)) + 1),
@@ -287,17 +316,21 @@ def bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates,
     return dx, dw_ih, db_ih, dw_hh, db_hh
 
 
-def _launch(fn, ref, *args, lib=None):
+def _launch(fn, plan, ref, *args, lib=None):
     """One CUDA launch through the C entry ``fn`` (of ``csrc/bigru_train.cu``
     unless ``lib`` is given) on ``ref``'s device and current stream; raises
-    unless it returns 0, and counts it."""
+    unless it returns 0, and counts it in the ``cuda_launches`` of the
+    layer the plan is for: this module's (K4/K5) or ``bilstm_vjp``'s (K6)."""
     global cuda_launches
     stream = torch.cuda.current_stream(ref.device).cuda_stream
     with torch.cuda.device(ref.device):
         rc = getattr(lib or _load(), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError("{} failed: cudaError {}".format(fn, rc))
-    cuda_launches += 1
+    if plan["cell"] == "lstm":
+        bilstm_vjp.cuda_launches += 1
+    else:
+        cuda_launches += 1
 
 
 def _codes(plan, compute_dtype):
@@ -305,19 +338,20 @@ def _codes(plan, compute_dtype):
 
 
 def k4_projection(x, w_ih, b_ih, b_hh, plan, compute_dtype):
-    """K4 (a), one CUDA launch: xg (2, L*N, 3H) f32 = x w_ih[d] + b_ih[d] +
-    the r and z columns of b_hh[d] (b_hn stays inside the reset product).
+    """The input projection, one CUDA launch (K4 (a), and K6's forward (a)
+    with the LSTM's plan): xg (2, L*N, G) f32 = x w_ih[d] + b_ih[d] + b_hh[d]
+    outside the GRU's reset product (its r and z columns; all of the LSTM's).
     simt: ``rnn_train_gemm.cuh``; tc: K1-tc's projection kernel as it stands
-    (``csrc/birnn_tc.cu::rnn_proj_kernel``, the same function for the GRU)."""
+    (``csrc/birnn_tc.cu::rnn_proj_kernel``, the same function for both cells)."""
     L, N, C = x.shape
-    G = w_ih.shape[2]
+    G, ng = w_ih.shape[2], plan["gates"]
     xg = torch.empty((2, L * N, G), dtype=torch.float32, device=x.device)
     args = (x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
-            xg.data_ptr(), L * N, C, G // 3)
+            xg.data_ptr(), L * N, C, G // ng)
     if plan["design"] == "tc":
-        _launch("birnn_tc_proj_launch", x, 0, *args, lib=bigru._load_tc())
+        _launch("birnn_tc_proj_launch", plan, x, int(ng == 4), *args, lib=bigru._load_tc())
     else:
-        _launch("k4_proj_launch", x, DTYPE_CODE[compute_dtype], *args)
+        _launch("k4_proj_launch", plan, x, DTYPE_CODE[compute_dtype], *args, ng)
     return xg
 
 
@@ -327,9 +361,9 @@ def k4_recurrence(xg, w_hh, b_hh, L, N, plan, compute_dtype):
     H = w_hh.shape[1]
     out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=xg.device)
     gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=xg.device)
-    _launch("k4_rec_launch", xg, *_codes(plan, compute_dtype), xg.data_ptr(),
+    _launch("k4_rec_launch", plan, xg, *_codes(plan, compute_dtype), xg.data_ptr(),
             w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(), gates.data_ptr(), L, N, H,
-            plan["U"])
+            plan["U"], plan["rows_fwd"])
     return out, gates
 
 
@@ -340,44 +374,53 @@ def k5_recurrence(dout, out, gates, w_hh, plan, compute_dtype):
     H = H2 // 2
     dxg = torch.empty((2, L * N, 3 * H), dtype=torch.float32, device=out.device)
     dhg = torch.empty_like(dxg)
-    _launch("k5_rec_launch", out, *_codes(plan, compute_dtype), dout.data_ptr(),
+    _launch("k5_rec_launch", plan, out, *_codes(plan, compute_dtype), dout.data_ptr(),
             out.data_ptr(), gates.data_ptr(), w_hh.data_ptr(), dxg.data_ptr(),
             dhg.data_ptr(), L, N, H, plan["U"], plan["rows_bwd"])
     return dxg, dhg
 
 
 def k5_dx(dxg, w_ih, plan, compute_dtype):
-    """K5 (b), one CUDA launch: dx (L*N, C) f32 = sum_d op(dxg[d]) w_ih[d]^T,
-    reading w_ih in its own layout."""
+    """dx, one CUDA launch (K5 (b), and K6's backward (b) on its da): dx
+    (L*N, C) f32 = sum_d op(dxg[d]) w_ih[d]^T, reading w_ih in its own
+    layout."""
     M = dxg.shape[1]
     C, G = w_ih.shape[1:]
+    ng = plan["gates"]
     dx = torch.empty((M, C), dtype=torch.float32, device=dxg.device)
-    _launch("k5_dx_launch", dxg, *_codes(plan, compute_dtype), dxg.data_ptr(),
-            w_ih.data_ptr(), dx.data_ptr(), M, C, G // 3)
+    _launch("k5_dx_launch", plan, dxg, *_codes(plan, compute_dtype), dxg.data_ptr(),
+            w_ih.data_ptr(), dx.data_ptr(), M, C, G // ng, ng)
     return dx
 
 
 def k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype):
-    """K5 (c): dW_ih[d] = x^T op(dxg[d]), dW_hh[d] = h_prev^T op(dhg[d]) and
-    the column sums of dxg and dhg, over S fixed row slices (one CUDA
-    launch), then the S partials added in slice order (a second one when
-    S > 1). Returns (dw_ih, db_ih, dw_hh, db_hh), f32."""
+    """The weight and bias gradients (K5 (c), and K6's backward (c), which
+    passes its one gate gradient da as both dxg and dhg): dW_ih[d] = x^T
+    op(dxg[d]), dW_hh[d] = h_prev^T op(dhg[d]) and the column sums of dxg and
+    dhg (of da once, db_hh then the same tensor as db_ih), over S fixed row
+    slices (one CUDA launch), then the S partials added in slice order (a
+    second one when S > 1). Returns (dw_ih, db_ih, dw_hh, db_hh), f32."""
     L, N, C = x.shape
     H = out.shape[2] // 2
-    G = 3 * H
+    G, ng = dxg.shape[2], plan["gates"]
+    one = dhg is dxg
     dev = x.device
-    # [dW_ih | dW_hh | db_ih | db_hh] in one buffer, returned as views
-    sizes = (2 * C * G, 2 * H * G, 2 * G, 2 * G)
+    # [dW_ih | dW_hh | db_ih | db_hh (two gate gradients only)] in one buffer,
+    # returned as views
+    sizes = (2 * C * G, 2 * H * G, 2 * G) + (() if one else (2 * G,))
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     S = k5_wgrad_slices(L * N, C, H, torch.cuda.get_device_properties(
-        dev).multi_processor_count, plan["design"])
+        dev).multi_processor_count, plan["design"], ng)
     part = (torch.empty(S * grads.numel(), dtype=torch.float32, device=dev)
             if S > 1 else grads)
-    _launch("k5_wgrad_launch", x, *_codes(plan, compute_dtype), x.data_ptr(),
-            out.data_ptr(), dxg.data_ptr(), dhg.data_ptr(), part.data_ptr(), L, N, C, H, S)
+    _launch("k5_wgrad_launch", plan, x, *_codes(plan, compute_dtype), x.data_ptr(),
+            out.data_ptr(), dxg.data_ptr(), dhg.data_ptr(), part.data_ptr(), L, N, C, H,
+            ng, S)
     if S > 1:
-        _launch("k5_sum_launch", x, part.data_ptr(), grads.data_ptr(), grads.numel(), S)
-    dw_ih, dw_hh, db_ih, db_hh = grads.split(sizes)
+        _launch("k5_sum_launch", plan, x, part.data_ptr(), grads.data_ptr(), grads.numel(),
+                S)
+    dw_ih, dw_hh, db_ih, *rest = grads.split(sizes)
+    db_hh = rest[0] if rest else db_ih
     return dw_ih.view(2, C, G), db_ih.view(2, G), dw_hh.view(2, H, G), db_hh.view(2, G)
 
 

@@ -6,7 +6,14 @@ and the gates) and the backward replaces ``_bwd_lstm_kernel``; together they
 are ``fused_bilstm_layer_tm``, a ``jax.custom_vjp``, here ``BiLSTMLayerFn``, a
 ``torch.autograd.Function``. The source is ``csrc/bilstm_train.cu``; its
 header says what bounds the kernels on an H100 and what the design does about
-that.
+that. The design is K4/K5's (``bigru_vjp``) with four gates: the recurrences
+are the templates of ``csrc/rnn_train_rec.cuh`` instantiated for the LSTM, and
+the products (the projection, dx, the weight gradients) are K4/K5's phase
+functions and C entries run with the LSTM's plan. ``bigru_vjp.k45_plan(H,
+dtype, "lstm")`` is the shape rule: ``tc`` (bf16 on the tensor cores, H = 32,
+64, 128, 256) or ``simt`` (exact f32 FMAs: fp32, and the bf16 shapes tc
+refuses, H = 16 .. 256); what neither takes raises ``ValueError``, and
+nothing falls back to the plain version.
 
 Layouts (time-major; direction 0 forward, 1 backward, both in natural time
 order, unlike the TPU kernel which stores the backward half reversed):
@@ -21,11 +28,20 @@ order, unlike the TPU kernel which stores the backward half reversed):
     ->     dx (L, N, C), dw_ih (2, C, 4H), db_ih (2, 4H), dw_hh (2, H, 4H),
            db_hh (2, 4H) (equal to db_ih), all f32
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version beside it. ``launches_fwd`` and ``launches_bwd`` count kernel launches,
-``plain_calls`` runs of the plain versions. The kernels are compiled with
-``nvcc`` at first use (``nvcc.py``); nothing here imports a GPU toolchain at
-import time.
+The forward is two CUDA launches, one a phase: the projection
+(``bigru_vjp.k4_projection``) and the recurrence (``k6_recurrence``); the
+backward three or four: the recurrence that carries dh and dc
+(``k6_bwd_recurrence``), dx (``bigru_vjp.k5_dx``) and the weight and bias
+gradients in fixed row slices with the in-order sum of the slices
+(``bigru_vjp.k5_weight_grads``).
+
+A CUDA tensor launches the kernels (or raises); a CPU tensor runs the plain
+version beside them. ``launches_fwd`` and ``launches_bwd`` count K6 calls,
+``design_calls`` those calls by design, ``cuda_launches`` each CUDA launch
+where it is made (also those of K4/K5's phase functions run with the LSTM's
+plan), ``plain_calls`` runs of the plain versions. The kernels are compiled
+with ``nvcc`` at first use (``nvcc.py``); nothing here imports a GPU
+toolchain at import time.
 """
 
 from __future__ import annotations
@@ -36,15 +52,16 @@ import threading
 import torch
 
 from ..models.rnn import lstm_cell
-from . import nvcc
-from .kernel_args import (DTYPE_CODE, cuda_checks, device_of, dims, expect, op,
-                         tile, wgrad_slices)
+from . import bigru_vjp, nvcc
+from .kernel_args import cuda_checks, device_of, dims, expect, op
 
 SRC = "bilstm_train.cu"
 
-launches_fwd = 0  # K6 forward launches since the caller last set it to 0
-launches_bwd = 0  # K6 backward launches
+launches_fwd = 0  # K6 forward calls since the caller last set it to 0
+launches_bwd = 0  # K6 backward calls
 plain_calls = 0  # runs of either plain version
+cuda_launches = 0  # K6's CUDA launches, counted at each launch
+design_calls = {"tc": 0, "simt": 0}  # K6 CUDA calls (forward and backward) by design
 
 _lib = None
 _lock = threading.Lock()
@@ -62,10 +79,11 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.bilstm_train_fwd_launch.restype = i
-            lib.bilstm_train_fwd_launch.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
-            lib.bilstm_train_bwd_launch.restype = i
-            lib.bilstm_train_bwd_launch.argtypes = [i] + [p] * 11 + [i] * 7 + [p]
+            for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p]),
+                               ("k6_bwd_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p])):
+                fn = getattr(lib, name)
+                fn.restype = i
+                fn.argtypes = args
             _lib = lib
     return _lib
 
@@ -184,75 +202,70 @@ def bilstm_layer_bwd_plain(dout, x, w_ih, w_hh, out, c, gates,
     return dx, dw_ih, db, dw_hh, db.clone()
 
 
+def k6_recurrence(xg, w_hh, L, N, plan, compute_dtype):
+    """K6 forward (b), one CUDA launch: both directions from the projection
+    xg (2, L*N, 4H) f32 to out (L, N, 2H), c (2, L, N, H) and gates
+    (2, L, N, 4H) in the store type."""
+    H = w_hh.shape[1]
+    dev = xg.device
+    out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=dev)
+    c = torch.empty((2, L, N, H), dtype=compute_dtype, device=dev)
+    gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=dev)
+    bigru_vjp._launch("k6_rec_launch", plan, xg, *bigru_vjp._codes(plan, compute_dtype),
+                      xg.data_ptr(), w_hh.data_ptr(), out.data_ptr(), c.data_ptr(),
+                      gates.data_ptr(), L, N, H, plan["U"], plan["rows_fwd"], lib=_load())
+    return out, c, gates
+
+
+def k6_bwd_recurrence(dout, c, gates, w_hh, plan, compute_dtype):
+    """K6 backward (a), one CUDA launch: the gate gradients
+    da = [di, df, dg, do] (2, L*N, 4H) f32, carrying dh and dc."""
+    _, L, N, H = c.shape
+    da = torch.empty((2, L * N, 4 * H), dtype=torch.float32, device=c.device)
+    bigru_vjp._launch("k6_bwd_rec_launch", plan, c, *bigru_vjp._codes(plan, compute_dtype),
+                      dout.data_ptr(), c.data_ptr(), gates.data_ptr(), w_hh.data_ptr(),
+                      da.data_ptr(), L, N, H, plan["U"], plan["rows_bwd"], lib=_load())
+    return da
+
+
 def bilstm_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32):
-    """K6's forward on CUDA, the plain version on CPU: (out, c, gates) in the
-    store type."""
+    """K6's forward on CUDA (two launches: ``bigru_vjp.k4_projection`` with
+    the LSTM's plan, ``k6_recurrence``), the plain version on CPU: (out, c,
+    gates) in the store type."""
     global launches_fwd
     L, N, C, H = _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
     if device_of(x) == "cpu":
         return bilstm_layer_train_fwd_plain(x, w_ih, b_ih, w_hh, b_hh, compute_dtype)
+    plan = bigru_vjp.k45_plan(H, compute_dtype, "lstm")
     cuda_checks((x, w_ih, b_ih, w_hh, b_hh), H)
-    r, ty = tile(N, H, x, (3 * H + C) * 4)
-    lib = _load()
-    dev = x.device
-    out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=dev)
-    c = torch.empty((2, L, N, H), dtype=compute_dtype, device=dev)
-    gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.bilstm_train_fwd_launch(
-            DTYPE_CODE[compute_dtype], x.data_ptr(), w_ih.data_ptr(),
-            b_ih.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(),
-            c.data_ptr(), gates.data_ptr(), L, N, C, H, r, ty, stream)
-    if rc != 0:
-        raise RuntimeError("bilstm_train_fwd launch failed: cudaError {}".format(rc))
+    xg = bigru_vjp.k4_projection(x, w_ih, b_ih, b_hh, plan, compute_dtype)
+    out, c, gates = k6_recurrence(xg, w_hh, L, N, plan, compute_dtype)
     launches_fwd += 1
+    design_calls[plan["design"]] += 1
     return out, c, gates
 
 
 def bilstm_layer_bwd(dout, x, w_ih, w_hh, out, c, gates,
                      compute_dtype=torch.float32):
-    """K6's backward on CUDA, the plain version on CPU: (dx, dw_ih, db_ih,
-    dw_hh, db_hh), all f32, db_hh a copy of db_ih. The weight gradients are
-    summed without atomics, so two runs on the same inputs give bit-equal
-    results."""
+    """K6's backward on CUDA (three or four launches: ``k6_bwd_recurrence``,
+    then ``bigru_vjp.k5_dx`` and ``bigru_vjp.k5_weight_grads`` on its da), the
+    plain version on CPU: (dx, dw_ih, db_ih, dw_hh, db_hh), all f32, db_hh a
+    copy of db_ih. Every sum has one owner and a fixed order, no atomics, so
+    two runs on the same inputs give bit-equal results. The weights are read
+    in the layer's own layout, with no transposed copy."""
     global launches_bwd
     L, N, C, H = _check_bwd(dout, x, w_ih, w_hh, out, c, gates, compute_dtype)
     if device_of(x) == "cpu":
         return bilstm_layer_bwd_plain(dout, x, w_ih, w_hh, out, c, gates,
                                       compute_dtype)
-    # transposed, contiguous copies keep the reads along the 4H contraction
-    # of dx = da W_ih^T and dh = da W_hh^T coalesced (a layout change only)
-    w_ihT = w_ih.transpose(-1, -2).contiguous()
-    w_hhT = w_hh.transpose(-1, -2).contiguous()
-    cuda_checks((dout, x, out, c, gates, w_ihT, w_hhT), H)
-    r, ty = tile(N, H, x, 4 * H * 4)
-    lib = _load()
-    dev = x.device
-    f32 = torch.float32
-    G = 4 * H
-    dx = torch.empty((L, N, C), dtype=f32, device=dev)
-    da = torch.empty((2, L, N, G), dtype=f32, device=dev)
-    # [dW_ih | dW_hh | db] in one buffer, returned as views
-    sizes = (2 * C * G, 2 * H * G, 2 * G)
-    grads = torch.empty(sum(sizes), dtype=f32, device=dev)
-    slices = wgrad_slices(L * N, C, H, G, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
-    part = (torch.empty(slices * grads.numel(), dtype=f32, device=dev)
-            if slices > 1 else grads)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = lib.bilstm_train_bwd_launch(
-            DTYPE_CODE[compute_dtype], dout.data_ptr(), x.data_ptr(),
-            out.data_ptr(), c.data_ptr(), gates.data_ptr(), w_ihT.data_ptr(),
-            w_hhT.data_ptr(), dx.data_ptr(), da.data_ptr(), grads.data_ptr(),
-            part.data_ptr(), slices, L, N, C, H, r, ty, stream)
-    if rc != 0:
-        raise RuntimeError("bilstm_train_bwd launch failed: cudaError {}".format(rc))
+    plan = bigru_vjp.k45_plan(H, compute_dtype, "lstm")
+    cuda_checks((dout, x, w_ih, w_hh, out, c, gates), H)
+    da = k6_bwd_recurrence(dout, c, gates, w_hh, plan, compute_dtype)
+    dx = bigru_vjp.k5_dx(da, w_ih, plan, compute_dtype)
+    dw_ih, db, dw_hh, _ = bigru_vjp.k5_weight_grads(x, out, da, da, plan, compute_dtype)
     launches_bwd += 1
-    dw_ih, dw_hh, db = grads.split(sizes)
-    db = db.view(2, G)
-    return dx, dw_ih.view(2, C, G), db, dw_hh.view(2, H, G), db.clone()
+    design_calls[plan["design"]] += 1
+    return dx.view(L, N, C), dw_ih, db, dw_hh, db.clone()
 
 
 class BiLSTMLayerFn(torch.autograd.Function):

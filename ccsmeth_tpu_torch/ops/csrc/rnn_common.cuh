@@ -1,6 +1,6 @@
 // Device helpers shared by the RNN kernels: bigru_stack.cu (K1, inference,
-// GRU and LSTM cells), bilstm_train.cu (K6, the LSTM's training forward and
-// backward) and, for Op<T> and sigmoid_f, bigru_train.cu (K4, K5) through
+// GRU and LSTM cells) and, for Op<T> and sigmoid_f, the training kernels
+// bigru_train.cu (K4, K5) and bilstm_train.cu (K6) through
 // rnn_train_gemm.cuh.
 //
 // Operand types: T is float or __nv_bfloat16. Values are widened to f32 for

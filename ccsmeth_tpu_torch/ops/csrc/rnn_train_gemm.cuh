@@ -1,10 +1,11 @@
 // The matrix products of the RNN training kernels, written once for the
-// three shapes a bidirectional layer needs (bigru_train.cu uses them for K4
-// and K5; K6 can adopt them the same way):
+// three shapes a bidirectional layer needs, G = NG H gate columns (the C
+// entries of bigru_train.cu run them for K4/K5, NG = 3, and for K6, NG = 4):
 //   the input projection  xg[d] = X W_ih[d] + bias       (M = L N, K = C)
-//   the input gradient    dx = sum_d op(DXG[d]) W_ih[d]^T (M = L N, K = 3H)
+//   the input gradient    dx = sum_d op(DXG[d]) W_ih[d]^T (M = L N, K = G)
 //   the weight gradients  dW[d] = A^T op(B[d])            (K = L N rows)
 // and the column sums of B beside the weight gradients (the bias gradients).
+// rnn_proj, rnn_dx and rnn_wgrad at the end describe each as jobs.
 //
 // One kernel template per route, both over the same job description:
 //   gemm_simt_kernel: exact f32 FMAs on the CUDA cores. Block tile 128 x 128,
@@ -468,4 +469,106 @@ static GemmOp gemm_op(const void* p, long long ld, long long koff, int klo, int 
   o.vec = (ld % 4 == 0) && (koff % 4 == 0) &&
           ((uintptr_t)p % (4 * sizeof(TV)) == 0);
   return o;
+}
+
+// The input projection of both directions: xg[d] (M, G) f32 = x (M, C)
+// W_ih[d] (C, G) + b_ih[d] + the first nfold columns of b_hh[d] (the GRU
+// keeps b_hn, its last H, inside the reset product; the LSTM folds all G).
+template <typename T>
+static int rnn_proj(const void* x, const void* wih, const float* bih, const float* bhh,
+                    float* xg, int M, int C, int G, int nfold, cudaStream_t s) {
+  GemmParams gp = {};
+  for (int d = 0; d < 2; ++d) {
+    GemmJob& jb = gp.job[d];
+    jb.a[0] = gemm_op<T>(x, C, 0, 0, C);
+    jb.b[0] = gemm_op<T>(static_cast<const T*>(wih) + (size_t)d * C * G, G, 0, 0, C);
+    jb.nseg = 1;
+    jb.M = M;
+    jb.N = G;
+    jb.c = xg + (size_t)d * M * G;
+    jb.ldc = G;
+    jb.bias0 = bih + d * G;
+    jb.bias1 = bhh + d * G;
+    jb.nfold = nfold;
+    jb.colsum = nullptr;
+  }
+  gp.K = C;
+  gp.S = 1;
+  gp.Ks = C;
+  gp.slice_stride = 0;
+  return gemm_run<T, true, T, false, T>(false, gp, 2, M, G, s);
+}
+
+// The input gradient: dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T, W_ih
+// read in its own (C, G) layout.
+template <typename T>
+static int rnn_dx(bool tc, const float* dxg, const void* wih, float* dx, int M, int C, int G,
+                  cudaStream_t s) {
+  GemmParams gp = {};
+  GemmJob& jb = gp.job[0];
+  for (int d = 0; d < 2; ++d) {
+    jb.a[d] = gemm_op<float>(dxg + (size_t)d * M * G, G, 0, 0, G);
+    // W_ih[d] (C, G) read as (k, n) -> p[n G + k]: W_ih^T without a copy
+    jb.b[d] = gemm_op<T>(static_cast<const T*>(wih) + (size_t)d * C * G, G, 0, 0, G);
+  }
+  jb.nseg = 2;
+  jb.M = M;
+  jb.N = C;
+  jb.c = dx;
+  jb.ldc = C;
+  jb.bias0 = jb.bias1 = nullptr;
+  jb.nfold = 0;
+  jb.colsum = nullptr;
+  gp.K = G;
+  gp.S = 1;
+  gp.Ks = G;
+  gp.slice_stride = 0;
+  return gemm_run<float, true, T, true, T>(tc, gp, 1, M, C, s);
+}
+
+// The weight and bias gradients over the L N rows in S fixed row slices, into
+// part (S slices of [dW_ih (2, C, G) | dW_hh (2, H, G) | db_ih (2, G) |
+// db_hh (2, G)] f32): dW_ih[d] = X^T op(dxg[d]), dW_hh[d] = H_prev^T
+// op(dhg[d]), H_prev the layer output one step back in the direction's own
+// time, and the column sums of dxg and dhg. dhg == dxg (the LSTM's one gate
+// gradient da): its column sum is taken once and db_hh is left out.
+template <typename T>
+static int rnn_wgrad(bool tc, const void* x, const void* out, const float* dxg,
+                     const float* dhg, float* part, int L, int N, int C, int H, int G, int S,
+                     cudaStream_t s) {
+  const int LN = L * N;
+  const bool one = dhg == dxg;
+  const long long o_whh = 2LL * C * G, o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
+  GemmParams gp = {};
+  for (int d = 0; d < 2; ++d) {
+    GemmJob& ih = gp.job[d];
+    ih.a[0] = gemm_op<T>(x, C, 0, 0, LN);  // X^T: (m = c, k = row) at x[k C + m]
+    ih.b[0] = gemm_op<float>(dxg + (size_t)d * LN * G, G, 0, 0, LN);
+    ih.nseg = 1;
+    ih.M = C;
+    ih.N = G;
+    ih.c = part + (size_t)d * C * G;
+    ih.ldc = G;
+    ih.bias0 = ih.bias1 = nullptr;
+    ih.nfold = 0;
+    ih.colsum = part + o_bih + d * G;
+    GemmJob& hh = gp.job[2 + d];
+    // h_prev of row k = t N + row: out[t - 1] (forward half) or out[t + 1]
+    hh.a[0] = gemm_op<T>(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N,
+                         d == 0 ? N : 0, d == 0 ? LN : LN - N);
+    hh.b[0] = gemm_op<float>(dhg + (size_t)d * LN * G, G, 0, 0, LN);
+    hh.nseg = 1;
+    hh.M = H;
+    hh.N = G;
+    hh.c = part + o_whh + (size_t)d * H * G;
+    hh.ldc = G;
+    hh.bias0 = hh.bias1 = nullptr;
+    hh.nfold = 0;
+    hh.colsum = one ? nullptr : part + o_bhh + d * G;
+  }
+  gp.K = LN;
+  gp.S = S;
+  gp.Ks = (int)((((long long)LN + S - 1) / S + TG_BK - 1) / TG_BK * TG_BK);
+  gp.slice_stride = one ? o_bhh : o_bhh + 2LL * G;
+  return gemm_run<T, false, float, false, T>(tc, gp, 4, C > H ? C : H, G, s);
 }

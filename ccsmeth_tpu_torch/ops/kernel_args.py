@@ -54,28 +54,7 @@ def cuda_checks(tensors, H):
         raise ValueError("kernel operands must be 16-byte aligned")
 
 
-def tile(N, H, x, smem_per_row):
-    """(R, TY) for a block of TY*R rows: K1's choice, with R halved until the
-    block's shared memory fits."""
-    props = torch.cuda.get_device_properties(x.device)
-    r, ty = tile_shape(N, H, props.multi_processor_count)
-    while r > 1 and smem_per_row * ty * r > SMEM_LIMIT:
-        r //= 2
-    if smem_per_row * ty * r > SMEM_LIMIT:
-        raise ValueError("tile does not fit in shared memory (H={})".format(H))
-    return r, ty
-
-
 def device_of(x):
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError("runs on cuda or cpu, not {}".format(x.device.type))
     return x.device.type
-
-
-def wgrad_slices(rows: int, C: int, H: int, G: int, n_sms: int) -> int:
-    """Row slices of a backward's weight-gradient phase (G gate columns):
-    enough 64 x 64 output tiles in flight for about four blocks per SM, each
-    slice at least 256 rows."""
-    t = 64
-    tiles = -(-G // t) * (-(-C // t) + -(-H // t)) * 2
-    return max(1, min(32, -(-4 * n_sms // tiles), rows // 256))

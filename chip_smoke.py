@@ -23,14 +23,16 @@ does not print its last line:
      nn.TransformerEncoder + mean and the bound;
      kernel K2 (bigru_layer_launch in bigru_stack.cu), one layer of each cell
      at C = 11 and 512, 1024 rows, beside a one-layer cuDNN nn.GRU / nn.LSTM;
-  4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu with
-     ops/csrc/rnn_train_gemm.cuh, GRU) and K6 (ops/csrc/bilstm_train.cu,
-     LSTM) at the train paths' shapes (one layer, H=256, L=21, 2B = 1024
-     rows, C = 11 and 512, fp32 and bf16) against their plain versions, each
-     backward run twice for bit-equal gradients, timed beside the plain
-     versions, cuDNN's one-layer bidirectional nn.GRU / nn.LSTM (forward in
-     training mode, and backward) and the bound; for K4/K5 the design that
-     ``k45_plan`` picked, the CUDA launches a call and each phase's time;
+  4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu, GRU) and K6
+     (ops/csrc/bilstm_train.cu, LSTM), both on ops/csrc/rnn_train_rec.cuh
+     and ops/csrc/rnn_train_gemm.cuh, at the train paths' shapes (one layer,
+     H=256, L=21, 2B = 1024 rows, C = 11 and 512, fp32 and bf16) against
+     their plain versions, each backward run twice for bit-equal gradients,
+     timed beside the plain versions, cuDNN's one-layer bidirectional
+     nn.GRU / nn.LSTM (forward in training mode, and backward) and the
+     bound, with the design that ``k45_plan`` picked, the CUDA launches a
+     call (asserted) and each phase's time, each recurrence also on one row
+     tile;
   5. model: full-width attbigru2s, attbilstm2s and transencoder2s with
      numpy-seeded weights, probs through K1 (K3) against probs through the
      plain version; transencoder2s once more with cuDNN's TF32 allowed, which
@@ -43,10 +45,11 @@ does not print its last line:
   7. train end to end, once per model: the port's CLI ``train --device cuda``
      at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
      synthetic features TSV, with the training kernels' and K1's launch
-     counts, K4/K5's calls by design and CUDA launches read around the run
-     (fp32: simt only), then a few bf16 steps (tc only);
+     counts, the training kernels' calls by design and CUDA launches read
+     around the run (fp32: simt only), then a few bf16 steps (tc only);
   8. profile: torch.profiler over a few full-width training steps of each
-     model, device time per kernel and the device's idle share;
+     model: the step's host and device ms, the device's idle share and the
+     device time per kernel;
   9. one ``kernels`` JSON line, then the ``ok`` line.
 
 It needs a CUDA device and the repository checkout around it; without either it
@@ -56,7 +59,8 @@ checkout.
     python3 chip_smoke.py --ab PARENT_TREE
 
 times K1 (both cells) and K3 at the kernel phase's shapes, and K4, K5 and K6
-at the train-kernel phase's, in four turns in one process each: the checkout at PARENT_TREE (another commit, unpacked
+(forward and backward) at the train-kernel phase's, in four turns in one
+process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
 """
@@ -456,50 +460,66 @@ def phase_k2_kernels(torch, smi, cell):
     return cells
 
 
-def _k5_cuda_launches(rows, cin, dt):
-    """K5's CUDA launches a call: recurrence, dx, weight gradients, and the
-    sum of the row slices when there is more than one."""
+def _bwd_cuda_launches(rows, cin, dt, cell):
+    """K5's (cell 'gru') or K6's backward ('lstm') CUDA launches a call:
+    recurrence, dx, weight gradients, and the sum of the row slices when
+    there is more than one."""
     import torch
 
     from ccsmeth_tpu_torch.ops import bigru_vjp
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    design = bigru_vjp.k45_plan(H, dt)["design"]
-    return 3 + (bigru_vjp.k5_wgrad_slices(L * rows, cin, H, n_sm, design) > 1)
+    plan = bigru_vjp.k45_plan(H, dt, cell)
+    return 3 + (bigru_vjp.k5_wgrad_slices(L * rows, cin, H, n_sm, plan["design"],
+                                          plan["gates"]) > 1)
 
 
-def _k45_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt):
-    """Device time of each phase of K4 and K5 on one layer's inputs: K4's
-    projection and recurrence, K5's recurrence, dx and weight gradients
-    (with the slice sum); and each recurrence on one row tile a direction
-    (one cluster each), its serial chain alone, against which the full
-    recurrence's time counts the waves of clusters; medians of CUDA-event
-    timings."""
+def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
+    """Device time of each phase of the training kernels on one layer's
+    inputs: the forward's projection and recurrence, the backward's
+    recurrence, dx and weight gradients (with the slice sum); and each
+    recurrence on one row tile a direction (one cluster each), its serial
+    chain alone, against which the full recurrence's time counts the waves of
+    clusters; medians of CUDA-event timings. Returns (forward phases,
+    backward phases), named k4_* / k5_* (cell 'gru') or k6_* ('lstm')."""
     from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
 
     Lx, N, _C = x.shape
-    plan = V.k45_plan(whh.shape[1], dt)
-    xg = V.k4_projection(x, wih, bih, bhh, plan, dt)
-    out, gates = V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)
-    dxg, dhg = V.k5_recurrence(dout, out, gates, whh, plan, dt)
+    plan = V.k45_plan(whh.shape[1], dt, cell)
     r4, r5 = plan["rows_fwd"], plan["rows_bwd"]
+    xg = V.k4_projection(x, wih, bih, bhh, plan, dt)
     xg4 = torch.randn((2, Lx * r4, xg.shape[2]), device="cuda")
     xg5 = torch.randn((2, Lx * r5, xg.shape[2]), device="cuda")
-    out5, gates5 = V.k4_recurrence(xg5, whh, bhh, Lx, r5, plan, dt)
-    dout5 = torch.randn((Lx, r5, out.shape[2]), device="cuda").to(dt)
-    return {"k4_projection": time_ms(lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
-                                     torch),
-            "k4_recurrence_one_tile": time_ms(
-                lambda: V.k4_recurrence(xg4, whh, bhh, Lx, r4, plan, dt), torch),
-            "k5_recurrence_one_tile": time_ms(
-                lambda: V.k5_recurrence(dout5, out5, gates5, whh, plan, dt), torch),
-            "k4_recurrence": time_ms(lambda: V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt),
-                                     torch),
-            "k5_recurrence": time_ms(lambda: V.k5_recurrence(dout, out, gates, whh, plan, dt),
-                                     torch),
-            "k5_dx": time_ms(lambda: V.k5_dx(dxg, wih, plan, dt), torch),
-            "k5_weight_grads": time_ms(lambda: V.k5_weight_grads(x, out, dxg, dhg, plan, dt),
-                                       torch)}
+    dout5 = torch.randn((Lx, r5, dout.shape[2]), device="cuda").to(dt)
+    if cell == "gru":
+        out, gates = V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)
+        dxg, dhg = V.k5_recurrence(dout, out, gates, whh, plan, dt)
+        out5, gates5 = V.k4_recurrence(xg5, whh, bhh, Lx, r5, plan, dt)
+        fwd = {"k4_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
+               "k4_recurrence_one_tile": lambda: V.k4_recurrence(xg4, whh, bhh, Lx, r4,
+                                                                 plan, dt),
+               "k4_recurrence": lambda: V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)}
+        bwd = {"k5_recurrence_one_tile": lambda: V.k5_recurrence(dout5, out5, gates5, whh,
+                                                                 plan, dt),
+               "k5_recurrence": lambda: V.k5_recurrence(dout, out, gates, whh, plan, dt),
+               "k5_dx": lambda: V.k5_dx(dxg, wih, plan, dt),
+               "k5_weight_grads": lambda: V.k5_weight_grads(x, out, dxg, dhg, plan, dt)}
+    else:
+        out, c, gates = V6.k6_recurrence(xg, whh, Lx, N, plan, dt)
+        da = V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+        _o5, c5, gates5 = V6.k6_recurrence(xg5, whh, Lx, r5, plan, dt)
+        fwd = {"k6_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
+               "k6_recurrence_one_tile": lambda: V6.k6_recurrence(xg4, whh, Lx, r4, plan, dt),
+               "k6_recurrence": lambda: V6.k6_recurrence(xg, whh, Lx, N, plan, dt)}
+        bwd = {"k6_bwd_recurrence_one_tile": lambda: V6.k6_bwd_recurrence(
+                   dout5, c5, gates5, whh, plan, dt),
+               "k6_bwd_recurrence": lambda: V6.k6_bwd_recurrence(dout, c, gates, whh,
+                                                                 plan, dt),
+               "k6_dx": lambda: V.k5_dx(da, wih, plan, dt),
+               "k6_weight_grads": lambda: V.k5_weight_grads(x, out, da, da, plan, dt)}
+    return ({k: time_ms(f, torch) for k, f in fwd.items()},
+            {k: time_ms(f, torch) for k, f in bwd.items()})
 
 
 def phase_train_kernels(torch, smi, cell):
@@ -541,23 +561,21 @@ def phase_train_kernels(torch, smi, cell):
             wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
             dout = torch.from_numpy(dout_np).to("cuda", dt)
-            design = bigru_vjp.k45_plan(H, dt)["design"] if cell == "gru" else None
-            bigru_vjp.cuda_launches = 0
+            design = bigru_vjp.k45_plan(H, dt, cell)["design"]
+            V.cuda_launches = 0
             res = fwd(x, wih, bih, whh, bhh, dt)
-            fwd_cuda = bigru_vjp.cuda_launches
+            fwd_cuda = V.cuda_launches
             ref_res = fwd_plain(x, wih, bih, whh, bhh, dt)
             # both backward versions get the same residuals
             args = (dout, x, wih, whh) + tuple(ref_res) + (dt,)
-            bigru_vjp.cuda_launches = 0
+            V.cuda_launches = 0
             got = bwd(*args)
-            bwd_cuda = bigru_vjp.cuda_launches
+            bwd_cuda = V.cuda_launches
             again = bwd(*args)
             torch.cuda.synchronize()
-            if cell == "gru":  # K4: projection, recurrence; K5: 3, + the slice sum
-                assert fwd_cuda == 2 and bwd_cuda == _k5_cuda_launches(rows, cin, dt), \
-                    (fwd_cuda, bwd_cuda)
-            else:
-                fwd_cuda = bwd_cuda = None  # K6 is one C call, not counted by launch
+            # forward: projection, recurrence; backward: 3, + the slice sum
+            assert fwd_cuda == 2 and bwd_cuda == _bwd_cuda_launches(rows, cin, dt, cell), \
+                (cell, fwd_cuda, bwd_cuda)
             ref = bwd_plain(*args)
             names = ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh")
             assert all(torch.equal(a, b) for a, b in zip(got, again)), \
@@ -587,8 +605,7 @@ def phase_train_kernels(torch, smi, cell):
             b_ms = time_ms(lambda: bwd(*args), torch)
             pf_ms = time_ms(lambda: fwd_plain(x, wih, bih, whh, bhh, dt), torch)
             pb_ms = time_ms(lambda: bwd_plain(*args), torch)
-            phases = (_k45_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt)
-                      if cell == "gru" else None)
+            phases = _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell)
             weights = (wih, bih, whh, bhh)
             bf, byf = _bound(V.train_fwd_flops(L, rows, cin, H),
                              _nbytes(x, *weights, *res), dname)
@@ -596,9 +613,11 @@ def phase_train_kernels(torch, smi, cell):
             outs = got if cell == "gru" else got[:4]
             bb, byb = _bound(V.train_bwd_flops(L, rows, cin, H),
                              _nbytes(dout, x, wih, whh, *res, *outs), dname)
-            for name, ms, pms, lms, bms, bby, keys, ncuda in (
-                    (kname + "_fwd", f_ms, pf_ms, lib_fwd_ms, bf, byf, res_names, fwd_cuda),
-                    (kname + "_bwd", b_ms, pb_ms, lib_bwd_ms, bb, byb, names, bwd_cuda)):
+            for name, ms, pms, lms, bms, bby, keys, ncuda, ph in (
+                    (kname + "_fwd", f_ms, pf_ms, lib_fwd_ms, bf, byf, res_names, fwd_cuda,
+                     phases[0]),
+                    (kname + "_bwd", b_ms, pb_ms, lib_bwd_ms, bb, byb, names, bwd_cuda,
+                     phases[1])):
                 c = {"phase": "train_kernel", "name": name, "rows": rows,
                      "C": cin, "H": H, "L": L, "dtype": dname, "design": design,
                      "cuda_launches_per_call": ncuda,
@@ -607,12 +626,10 @@ def phase_train_kernels(torch, smi, cell):
                      "max_abs_err_max": max(errs[k] for k in keys),
                      "kernel_ms": ms, "plain_ms": pms, "library_ms": lms,
                      "bound_ms": bms, "bound_by": bby,
-                     "library_weights_warning": lib.weights_warning, "card": smi}
+                     "library_weights_warning": lib.weights_warning, "card": smi,
+                     "phases_ms": ph}
                 if name.endswith("_bwd"):
                     c["bit_equal_rerun"] = True
-                if phases is not None:
-                    c["phases_ms"] = {k: v for k, v in phases.items()
-                                      if k.startswith("k4" if name.endswith("_fwd") else "k5")}
                 emit(c)
                 cells.append(c)
             del lib, xg, y, got, again, ref, res, ref_res
@@ -954,16 +971,15 @@ def phase_train(torch, smi, cell, epochs):
     assert counts["k1"] == n_valid * math.ceil(VALID_ROWS / 512) > 0, counts
     assert counts["plain_vjp"] == counts["plain_k1"] == counts["other_cell"] == 0, \
         counts
-    # fp32 trains K4/K5 through the simt design only, each call's CUDA
-    # launches counted where they are made
-    designs, k45_cuda = dict(bigru_vjp.design_calls), bigru_vjp.cuda_launches
-    if cell == "gru":
-        per_step = sum(2 + _k5_cuda_launches(2 * 512, cin, torch.float32)
-                       for cin in (C, 2 * H, 2 * H))
-        assert designs == {"tc": 0, "simt": counts["fwd"] + counts["bwd"]}, designs
-        assert k45_cuda == per_step * steps, (k45_cuda, per_step, steps)
-    else:
-        assert designs == {"tc": 0, "simt": 0} and k45_cuda == 0, (designs, k45_cuda)
+    # fp32 trains the cell's kernels (K4/K5 or K6) through the simt design
+    # only, each call's CUDA launches counted where they are made, and
+    # launches nothing of the other cell's
+    designs, k45_cuda = dict(mine.design_calls), mine.cuda_launches
+    per_step = sum(2 + _bwd_cuda_launches(2 * 512, cin, torch.float32, cell)
+                   for cin in (C, 2 * H, 2 * H))
+    assert designs == {"tc": 0, "simt": counts["fwd"] + counts["bwd"]}, designs
+    assert k45_cuda == per_step * steps, (k45_cuda, per_step, steps)
+    assert other.cuda_launches == sum(other.design_calls.values()) == 0
     assert np.all(np.isfinite(run["train_losses"] + run["valid_losses"])), run
     assert run["best_accuracy"] >= 0.9, run["best_accuracy"]
     # the checkpoint loads into the port's call_mods model
@@ -989,7 +1005,7 @@ def phase_train(torch, smi, cell, epochs):
            "card": smi}
     emit(res)
 
-    # a few steps in bf16: K4/K5 through the tc design only
+    # a few steps in bf16: K4/K5 or K6 through the tc design only
     before = (mine.launches_fwd, mine.launches_bwd)
     _zero_k45_designs()
     _train_cli(cli, model_type, tr16, va, os.path.join(WORK, model_type + "_bf16"),
@@ -1000,11 +1016,10 @@ def phase_train(torch, smi, cell, epochs):
     assert n16[0] == n16[1] == 3 * run16["steps"] > 0, n16
     assert np.all(np.isfinite(run16["train_losses"] + run16["valid_losses"])), run16
     assert mine.plain_calls == 0
-    designs16 = dict(bigru_vjp.design_calls)
-    if cell == "gru":
-        assert designs16 == {"tc": sum(n16), "simt": 0}, designs16
+    designs16 = dict(mine.design_calls)
+    assert designs16 == {"tc": sum(n16), "simt": 0}, designs16
     res["bf16_launches"] = {"fwd": n16[0], "bwd": n16[1], "k45_designs": designs16,
-                            "k45_cuda_launches": bigru_vjp.cuda_launches}
+                            "k45_cuda_launches": mine.cuda_launches}
     emit({"phase": "train", "precision": "bf16", "model": model_type + " 3x256",
           "steps": run16["steps"], "launches": res["bf16_launches"],
           "train_losses": run16["train_losses"],
@@ -1014,11 +1029,14 @@ def phase_train(torch, smi, cell, epochs):
 
 
 def _zero_k45_designs():
-    from ccsmeth_tpu_torch.ops import bigru_vjp
+    """The training kernels' (K4/K5 and K6) CUDA launches and calls by
+    design, set to 0."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 
-    bigru_vjp.cuda_launches = 0
-    for k in bigru_vjp.design_calls:
-        bigru_vjp.design_calls[k] = 0
+    for V in (bigru_vjp, bilstm_vjp):
+        V.cuda_launches = 0
+        for k in V.design_calls:
+            V.design_calls[k] = 0
 
 
 def phase_profile(torch, smi, cell, steps=5):
@@ -1068,6 +1086,8 @@ def phase_profile(torch, smi, cell, steps=5):
                    for ms, n, k in rows[:12]], "card": smi}
     if not rows:
         log("profile: torch.profiler recorded no device time")
+    log("profile {}: {:.2f} ms a step on the host, {:.2f} ms on the device, idle "
+        "share {}".format(MODELS[cell], wall_ms, device_ms, res["device_idle_share"]))
     emit(res)
     return res
 
@@ -1112,8 +1132,8 @@ def _time_tree(tree):
                 x = torch.from_numpy(x_np.astype(np.float32)).to("cuda", dt)
                 res["ms"]["k3 {} {}".format(rows, dname)] = time_ms(
                     lambda: transenc.encoder_pooled(st, x, dt, cfg.nhead), torch, AB_REPS)
-        # the training kernels at the train-kernel phase's cells: K4/K5 and
-        # K6 (the control), forward and backward
+        # the training kernels at the train-kernel phase's cells: K6 and
+        # K4/K5 (the control), forward and backward
         from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 
         train = {"gru": ("k4", "k5", bigru_vjp.bigru_layer_train_fwd,
@@ -1229,9 +1249,13 @@ def main():
             if design == "simt":  # the train path validates in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
             kernels.append(entry)
-    for kname, key, line in (("bigru_train_fwd", "fwd", 31), ("bigru_train_bwd", "bwd", 63)):
-        mine = [c for c in t_cells["gru"] if c["name"] == kname]
-        run = train_runs["gru"]
+    for cell, kname, src, key, line in (
+            ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
+            ("gru", "bigru_train_bwd", "bigru_train.cu", "bwd", 63),
+            ("lstm", "bilstm_train_fwd", "bilstm_train.cu", "fwd", 122),
+            ("lstm", "bilstm_train_bwd", "bilstm_train.cu", "bwd", 167)):
+        mine = [c for c in t_cells[cell] if c["name"] == kname]
+        run = train_runs[cell]
         # simt: the fp32 train run; tc: its bf16 steps
         for design, dname, launches in (("simt", "float32", run["launches"][key]),
                                         ("tc", "bfloat16", run["bf16_launches"][key])):
@@ -1241,37 +1265,18 @@ def main():
             kernels.append({
                 "name": kname + ("_tc" if design == "tc" else ""), "route": "cuda",
                 "design": design, "cuda_launches_per_call": mc["cuda_launches_per_call"],
-                "source": "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu",
+                "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
                 "replaces": "ccsmeth_tpu/ops/bigru_pallas_vjp.py:{}".format(line),
                 "launches": launches,
                 "max_abs_err": max(c["max_abs_err_max"] for c in cells),
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
-                "cell": "{} rows={} C={} {}".format(MODELS["gru"], mc["rows"], mc["C"], dname),
+                "cell": "{} rows={} C={} {}".format(MODELS[cell], mc["rows"], mc["C"], dname),
                 "cells": [{k: c[k] for k in ("rows", "C", "dtype", "cuda_launches_per_call",
                                              "kernel_ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by", "max_abs_err_max",
                                              "phases_ms")} for c in cells]})
-    for cell, kname, src, key, line in (
-            ("lstm", "bilstm_train_fwd", "bilstm_train.cu", "fwd", 122),
-            ("lstm", "bilstm_train_bwd", "bilstm_train.cu", "bwd", 167)):
-        mine = [c for c in t_cells[cell] if c["name"] == kname]
-        # the main cell: layers 1 and 2 of the stack (C = 2H), fp32
-        mc = next(c for c in mine if c["C"] == 2 * H and c["dtype"] == "float32")
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
-            "replaces": "ccsmeth_tpu/ops/bigru_pallas_vjp.py:{}".format(line),
-            "launches": train_runs[cell]["launches"][key],
-            "max_abs_err": max(c["max_abs_err_max"] for c in mine),
-            "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
-            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-            "library_ms": mc["library_ms"],
-            "cell": "{} rows={} C={} float32".format(MODELS[cell], mc["rows"], mc["C"]),
-            "cells": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by",
-                                         "max_abs_err_max")} for c in mine]})
     for design, src, dname in (("simt", "transenc_encoder.cu", "float32"),
                                ("tc", "transenc_tc.cu", "bfloat16")):
         cells = [c for c in k3_cells if c["design"] == design]

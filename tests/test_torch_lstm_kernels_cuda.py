@@ -1,6 +1,10 @@
 """K1's LSTM cell (ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu, cell 'lstm'; its
-bf16 tensor-core design csrc/birnn_tc.cu) and kernel K6 (ccsmeth_tpu_torch/ops/csrc/bilstm_train.cu) against their plain
-PyTorch versions on the card. Needs a CUDA device and skips without one.
+bf16 tensor-core design csrc/birnn_tc.cu) and kernel K6
+(ccsmeth_tpu_torch/ops/csrc/bilstm_train.cu, in both designs that
+``k45_plan(H, dtype, "lstm")`` picks: simt for fp32 and bf16 H = 16, tc for
+bf16 H = 32 .. 256) against their plain PyTorch versions on the card, phase
+by phase and whole, with the CUDA launches of each call. Needs a CUDA device
+and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_lstm_kernels_cuda.py
@@ -94,6 +98,51 @@ def _case(rows, hidden, cin, dtype, seed=0):
     return x, wih, bih, whh, bhh, dout
 
 
+def _fwd_matches_plain(x, wih, bih, whh, bhh, dt):
+    """K6's forward against its plain version, with its two CUDA launches
+    (projection, recurrence); returns the plain version's residuals."""
+    dname = str(dt).split(".")[-1]
+    before = bilstm_vjp.launches_fwd
+    bilstm_vjp.cuda_launches = 0
+    got = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    torch.cuda.synchronize()
+    assert bilstm_vjp.launches_fwd == before + 1 and bilstm_vjp.cuda_launches == 2
+    ref = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    for name, a, r in zip(("out", "c", "gates"), got, ref):
+        assert a.dtype == dt and a.shape == r.shape, name
+        tol = TOL[dname] * max(1.0, r.float().abs().max().item())
+        assert _err(a, r) <= tol, (name, _err(a, r), tol)
+    return ref
+
+
+def _bwd_matches_plain(dout, x, wih, whh, residuals, dt):
+    """K6's backward against its plain version on the same residuals, with
+    its CUDA launches (recurrence, dx, weight gradients, and the slice sum
+    when S > 1) and a bit-equal rerun."""
+    dname = str(dt).split(".")[-1]
+    L, N, C = x.shape
+    H = whh.shape[1]
+    plan = bigru_vjp.k45_plan(H, dt, "lstm")
+    S = bigru_vjp.k5_wgrad_slices(L * N, C, H, torch.cuda.get_device_properties(
+        0).multi_processor_count, plan["design"], 4)
+    args = (dout, x, wih, whh) + tuple(residuals) + (dt,)
+    before = bilstm_vjp.launches_bwd
+    bilstm_vjp.cuda_launches = 0
+    got = bilstm_vjp.bilstm_layer_bwd(*args)
+    assert bilstm_vjp.cuda_launches == 3 + (S > 1)
+    again = bilstm_vjp.bilstm_layer_bwd(*args)
+    torch.cuda.synchronize()
+    assert bilstm_vjp.launches_bwd == before + 2
+    ref = bilstm_vjp.bilstm_layer_bwd_plain(*args)
+    for name, a, b, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"),
+                             got, again, ref):
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        assert torch.equal(a, b), name  # no atomics: bit-equal on a rerun
+        tol = TOL[dname] if (name == "dx" and dt == torch.float32) else _grad_tol(r, dt)
+        assert _err(a, r) <= tol, (name, _err(a, r), tol)
+    assert torch.equal(got[2], got[4])  # db_ih = db_hh
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,hidden,cin", SHAPES)
@@ -102,15 +151,7 @@ def test_k6_forward_matches_plain(dtype, rows, hidden, cin):
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
     x, wih, bih, whh, bhh, _ = _case(rows, hidden, cin, dt)
-    before = bilstm_vjp.launches_fwd
-    got = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
-    torch.cuda.synchronize()
-    assert bilstm_vjp.launches_fwd == before + 1
-    ref = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
-    for name, a, r in zip(("out", "c", "gates"), got, ref):
-        assert a.dtype == dt and a.shape == r.shape, name
-        tol = TOL[dtype] * max(1.0, r.float().abs().max().item())
-        assert _err(a, r) <= tol, (name, _err(a, r), tol)
+    _fwd_matches_plain(x, wih, bih, whh, bhh, dt)
 
 
 @pytest.mark.cuda
@@ -121,21 +162,114 @@ def test_k6_backward_matches_plain_and_is_deterministic(dtype, rows, hidden, cin
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
     x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
+    residuals = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    _bwd_matches_plain(dout, x, wih, whh, residuals, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,design", [("float32", "simt"), ("bfloat16", "tc")])
+@pytest.mark.parametrize("hidden", [16, 64, 256])
+@pytest.mark.parametrize("rows", [1, 13, 1000, 1029])
+def test_k6_designs_at_ragged_rows(rows, hidden, dtype, design):
+    """Both designs at one row, a part tile and 1000 / 1029 rows (ragged
+    against tiles of 32, 64, 128 and 256 rows), at H = 16, 64 and 256 (the
+    simt forward's 2-unit and 1-unit threads, a tile cut to fit, clusters of
+    1, 2, 4 and 8). bf16 at H = 16 runs simt, as the shape rule says."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    want = "simt" if hidden == 16 else design
+    assert bigru_vjp.k45_plan(hidden, dt, "lstm")["design"] == want
+    x, wih, bih, whh, bhh, dout = _case(rows, hidden, 11 if rows % 2 else 128, dt)
+    before = bilstm_vjp.design_calls[want]
+    residuals = _fwd_matches_plain(x, wih, bih, whh, bhh, dt)
+    _bwd_matches_plain(dout, x, wih, whh, residuals, dt)
+    assert bilstm_vjp.design_calls[want] == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,hidden,cin", [(65, 32, 11), (1000, 256, 512),
+                                             (1024, 256, 11)])
+def test_each_k6_phase_matches_matmul(dtype, rows, hidden, cin):
+    """Each product of K6 alone, against torch.matmul in f32 on the same
+    operands rounded to the operand type: the projection (all of b_hh
+    folded), dx, dW_ih, dW_hh and the bias sum of the unrounded da; and the
+    backward recurrence's da against the plain step's gate gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
+    plan = bigru_vjp.k45_plan(hidden, dt, "lstm")
+    L, N, C, H = 21, rows, cin, hidden
+
+    def op(t):
+        return t.to(dt).float()
+
+    def sum_tol(a, b):
+        return 1e-5 * (a.abs() @ b.abs()).max().item() + 1e-6
+
+    xs = op(x).reshape(L * N, C)
+    xg = bigru_vjp.k4_projection(x, wih, bih, bhh, plan, dt)
+    for d in (0, 1):
+        ref = xs @ op(wih[d]) + (bih[d] + bhh[d])
+        assert _err(xg[d], ref) <= sum_tol(xs, op(wih[d])), ("xg", d)
+
+    out, c, gates = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    da = bilstm_vjp.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+    # the plain step's da at the direction's last step, where dh = dc = 0
+    for d, t in ((0, L - 1), (1, 0)):
+        g = gates[d, t].float()
+        i, f, gg, o = (g[:, k * H:(k + 1) * H] for k in range(4))
+        tc = torch.tanh(c[d, t].float())
+        dh_t = dout[t, :, d * H:(d + 1) * H].float()
+        dcv = dh_t * o * (1.0 - tc * tc)
+        cp = c[d, t - 1].float() if d == 0 else c[d, t + 1].float()
+        ref = torch.cat([dcv * gg * i * (1.0 - i), dcv * cp * f * (1.0 - f),
+                         dcv * i * (1.0 - gg * gg), dh_t * tc * o * (1.0 - o)], dim=1)
+        assert _err(da[d].view(L, N, 4 * H)[t], ref) <= 1e-5, ("da", d)
+
+    dx = bigru_vjp.k5_dx(da, wih, plan, dt)
+    a = torch.cat([op(da[0]), op(da[1])], dim=1)
+    b = torch.cat([op(wih[0]).T, op(wih[1]).T], dim=0)
+    assert _err(dx, a @ b) <= sum_tol(a, b), "dx"
+    dw_ih, db_ih, dw_hh, db_hh = bigru_vjp.k5_weight_grads(x, out, da, da, plan, dt)
+    assert db_hh.data_ptr() == db_ih.data_ptr()  # one gate gradient: one column sum
+    o = out.float()
+    for d in (0, 1):
+        h_prev = torch.zeros((L, N, H), device="cuda")
+        if d == 0:
+            h_prev[1:] = o[:-1, :, :H]
+        else:
+            h_prev[:-1] = o[1:, :, H:]
+        h_prev = h_prev.reshape(L * N, H)
+        assert _err(dw_ih[d], xs.T @ op(da[d])) <= sum_tol(xs.T, op(da[d])), ("dw_ih", d)
+        assert _err(dw_hh[d], h_prev.T @ op(da[d])) <= sum_tol(h_prev.T, op(da[d])), \
+            ("dw_hh", d)
+        ones = torch.ones((1, L * N), device="cuda")
+        assert _err(db_ih[d], da[d].sum(0)) <= sum_tol(ones, da[d]), ("db", d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [20, 48])
+def test_k6_refused_shape_raises_before_any_launch(hidden, dtype):
+    """H = 20 and 48: neither design takes them; K6 raises ValueError naming
+    both reasons and launches nothing, and no plain version runs in its
+    place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    x, wih, bih, whh, bhh, dout = _case(16, hidden, 11, dt)
     out, c, gates = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
-    args = (dout, x, wih, whh, out, c, gates, dt)
-    before = bilstm_vjp.launches_bwd
-    got = bilstm_vjp.bilstm_layer_bwd(*args)
-    again = bilstm_vjp.bilstm_layer_bwd(*args)
-    torch.cuda.synchronize()
-    assert bilstm_vjp.launches_bwd == before + 2
-    ref = bilstm_vjp.bilstm_layer_bwd_plain(*args)
-    for name, a, b, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"),
-                             got, again, ref):
-        assert a.dtype == torch.float32 and a.shape == r.shape, name
-        assert torch.equal(a, b), name  # no atomics: bit-equal on a rerun
-        tol = TOL[dtype] if (name == "dx" and dt == torch.float32) else _grad_tol(r, dt)
-        assert _err(a, r) <= tol, (name, _err(a, r), tol)
-    assert torch.equal(got[2], got[4])  # db_ih = db_hh
+    bilstm_vjp.cuda_launches = 0
+    plain = bilstm_vjp.plain_calls
+    with pytest.raises(ValueError, match="K6 takes no design for H={}: simt".format(hidden)):
+        bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    with pytest.raises(ValueError, match="no design for H={}".format(hidden)):
+        bilstm_vjp.bilstm_layer_bwd(dout, x, wih, whh, out, c, gates, dt)
+    assert bilstm_vjp.cuda_launches == 0 and bilstm_vjp.plain_calls == plain
 
 
 @pytest.mark.cuda

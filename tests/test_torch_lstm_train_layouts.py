@@ -1,0 +1,270 @@
+"""K6's shape rule and its backward's staged layout, on the CPU (no card): the
+planner ``k45_plan(H, dtype, "lstm")``, the one rule of K4/K5 and K6, for the
+LSTM's four gates; a model of the K6 backward recurrence's W_hh staging, its
+reduce-scatter of dh across the cluster and its dc kept by one owner
+(csrc/rnn_train_rec.cuh stages W_hh in shared memory itself), held to the
+kernel source and, through a plain backward in that layout, to
+``bilstm_layer_bwd_plain``; the weight-gradient slices at G = 4H; and the
+launch counters, which a CPU call leaves alone."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64, 256])
+def test_lstm_plan_takes_fp32_on_simt(hidden):
+    plan = bigru_vjp.k45_plan(hidden, torch.float32, "lstm")
+    assert plan["design"] == "simt" and "fp32" in plan["why"]
+    assert (plan["cell"], plan["gates"]) == ("lstm", 4)
+    U, cn = plan["U"], plan["CN"]
+    assert U == min(hidden, 32) and U * cn == hidden and cn in (1, 2, 4, 8)
+    # a forward thread owns 4 rows x 2 or 1 units, a backward thread 4 rows
+    # x 8 units of the partial (R rows a tile, at most 8192 / H)
+    upt = plan["rows_fwd"] * U // 1024
+    assert upt in (1, 2) and (plan["rows_fwd"] // 4) * (U // upt) == 256
+    assert plan["rows_bwd"] % 4 == 0 and (8192 // hidden) % plan["rows_bwd"] == 0
+    assert max(plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("hidden,U,cn", [(32, 32, 1), (64, 64, 1), (128, 64, 2),
+                                         (256, 64, 4)])
+def test_lstm_plan_takes_bf16_on_tc(hidden, U, cn):
+    plan = bigru_vjp.k45_plan(hidden, torch.bfloat16, "lstm")
+    assert (plan["design"], plan["U"], plan["CN"]) == ("tc", U, cn)
+    assert (plan["rows_fwd"], plan["rows_bwd"]) == (64, 32)
+    assert plan["smem_fwd"] == (4 * U + 128) * (hidden + 8) * 2
+    assert plan["smem_bwd"] == bigru_vjp.k5_smem("tc", hidden, U, 32, 4)
+    assert max(plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_LIMIT
+
+
+def test_lstm_plan_at_the_model_width():
+    """H = 256, the reckoning of csrc/bilstm_train.cu's header: tc CTAs of
+    202,752 (forward) and 65,536 + 8,192 + 135,168 + 16,896 = 225,792
+    (backward) bytes in clusters of 4; simt of 196,608 (32-row forward tiles
+    of 1 unit a thread: 2 units would need 262,144) and 217,216 in clusters
+    of 8. The GRU's plan at the same width is unchanged."""
+    tc = bigru_vjp.k45_plan(256, torch.bfloat16, "lstm")
+    simt = bigru_vjp.k45_plan(256, torch.float32, "lstm")
+    assert (tc["U"], tc["CN"], tc["smem_fwd"], tc["smem_bwd"]) == (64, 4, 202752, 225792)
+    assert tc["smem_bwd"] == 65536 + 8192 + 135168 + 16896 <= SMEM_LIMIT
+    assert (simt["U"], simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == \
+        (32, 8, 196608, 217216)
+    assert (simt["rows_fwd"], simt["rows_bwd"]) == (32, 32)
+    assert (256 * 4 * 32 + 2 * 256 * 64) * 4 == 262144 > SMEM_LIMIT
+    gru = bigru_vjp.k45_plan(256, torch.float32)
+    assert (gru["rows_fwd"], gru["smem_fwd"], gru["smem_bwd"]) == (64, 229376, 180352)
+
+
+def test_lstm_plan_cuts_the_simt_backward_tile_to_fit():
+    """H = 16 and 32: the backward's 8192 / H rows would need 235,520 and
+    246,784 bytes with four gates, so the tile halves; the GRU's fits."""
+    for hidden, rows, full in ((16, 256, 235520), (32, 128, 246784)):
+        plan = bigru_vjp.k45_plan(hidden, torch.float32, "lstm")
+        assert plan["rows_bwd"] == rows
+        assert bigru_vjp.k5_smem("simt", hidden, min(hidden, 32), 8192 // hidden, 4) == full
+        assert bigru_vjp.k45_plan(hidden, torch.float32)["rows_bwd"] == 8192 // hidden
+
+
+@pytest.mark.parametrize("hidden,dtype,reasons", [
+    (20, torch.float32, ["simt: H must be 16 or a multiple of 32", "fp32"]),
+    (48, torch.bfloat16, ["simt: H must be 16 or a multiple of 32", "tc: H % 32"]),
+    (96, torch.bfloat16, ["simt: a cluster of 3 CTAs", "tc: a cluster of 3 CTAs"]),
+    (512, torch.bfloat16, ["simt: a cluster of 16 CTAs", "tc: 426496 bytes"]),
+])
+def test_lstm_plan_names_why_it_refuses(hidden, dtype, reasons):
+    with pytest.raises(ValueError) as err:
+        bigru_vjp.k45_plan(hidden, dtype, "lstm")
+    msg = str(err.value)
+    assert msg.startswith("K6 takes no design for H={}".format(hidden))
+    for r in reasons:
+        assert r in msg, (r, msg)
+
+
+def test_plan_refuses_an_unknown_cell():
+    with pytest.raises(ValueError, match="cell must be gru or lstm"):
+        bigru_vjp.k45_plan(64, torch.float32, "rnn_tanh")
+
+
+def own_columns(H, U, c, ng=4):
+    """The W_hh columns of CTA c in the backward recurrence, in staged order:
+    k = gate*U + u holds column gate*H + c*U + u."""
+    gate = torch.arange(ng).view(-1, 1)
+    u = torch.arange(U).view(1, -1)
+    return (gate * H + c * U + u).reshape(-1)
+
+
+def stage(whh, U, design):
+    """One direction's W_hh (H, 4H) -> each CTA's shared-memory image: simt
+    [4U][H] (row k, unit j contiguous), tc [H][4U] (unit j, k contiguous;
+    the kernel pads each row by 8)."""
+    H = whh.shape[0]
+    slices = [whh[:, own_columns(H, U, c)] for c in range(H // U)]
+    return torch.stack([s.T if design == "simt" else s for s in slices])
+
+
+@pytest.mark.parametrize("hidden,design", [(16, "simt"), (256, "simt"), (64, "tc"),
+                                           (256, "tc")])
+def test_k6_staging_holds_each_ctas_four_gates(hidden, design):
+    U = bigru_vjp.k45_plan(hidden, torch.float32 if design == "simt" else torch.bfloat16,
+                           "lstm")["U"]
+    whh = torch.from_numpy(np.random.RandomState(hidden).randn(hidden, 4 * hidden)
+                           .astype(np.float32))
+    staged = stage(whh, U, design)
+    cn = hidden // U
+    assert staged.shape == ((cn, 4 * U, hidden) if design == "simt" else (cn, hidden, 4 * U))
+    for c, gate, u, j in ((0, 0, 0, 0), (cn - 1, 3, U - 1, hidden - 1), (cn // 2, 2, 3, 5)):
+        k = gate * U + u
+        v = staged[c, k, j] if design == "simt" else staged[c, j, k]
+        assert v == whh[j, gate * hidden + c * U + u]
+    # every column of W_hh is staged once, by the CTA that owns its unit
+    cols = torch.cat([own_columns(hidden, U, c) for c in range(cn)])
+    assert torch.equal(cols.sort().values, torch.arange(4 * hidden))
+
+
+def _k6_staged(dout, x, w_ih, w_hh, out, c, gates, compute_dtype, U, design):
+    """K6's backward in plain PyTorch, in the kernel's layout: per step, the
+    owner of each (row, unit) computes da from the residuals and its own dc
+    (elementwise, never exchanged); each CTA c multiplies its own 4U columns
+    of op(da) by its staged W_hh slice into a partial dh for all H units, and
+    the owner of units [c'U, (c'+1)U) adds the CN partials in rank order. dx
+    and the weight gradients as single products after the recurrence, the
+    bias sum of da once."""
+    L, N, C = x.shape
+    H = w_hh.shape[1]
+    cn = H // U
+
+    def op(t):
+        return t.to(compute_dtype).float()
+
+    dx = torch.zeros((L * N, C))
+    grads = []
+    xs = x.float().reshape(L * N, C)
+    for d in (0, 1):
+        g = gates[d].float()
+        ig, fg, gg, og = (g[..., k * H:(k + 1) * H] for k in range(4))
+        cd = c[d].float()
+        c_prev = torch.zeros_like(cd)
+        o = out[..., d * H:(d + 1) * H].float()
+        h_prev = torch.zeros_like(o)
+        if d == 0:
+            c_prev[1:], h_prev[1:] = cd[:-1], o[:-1]
+        else:
+            c_prev[:-1], h_prev[:-1] = cd[1:], o[1:]
+        staged = op(stage(w_hh[d], U, design))
+        da_all = torch.empty((L, N, 4 * H))
+        dh = torch.zeros((N, H))
+        dc = torch.zeros((N, H))
+        for s in range(L):
+            t = L - 1 - s if d == 0 else s
+            tc = torch.tanh(cd[t])
+            dt = dout[t, :, d * H:(d + 1) * H].float() + dh
+            dcv = dt * og[t] * (1.0 - tc * tc) + dc
+            da = torch.cat([dcv * gg[t] * ig[t] * (1.0 - ig[t]),
+                            dcv * c_prev[t] * fg[t] * (1.0 - fg[t]),
+                            dcv * ig[t] * (1.0 - gg[t] * gg[t]),
+                            dt * tc * og[t] * (1.0 - og[t])], dim=1)
+            dc = dcv * fg[t]
+            da_all[t] = da
+            dh = torch.zeros((N, H))
+            for r in range(cn):  # rank order
+                a = op(da[:, own_columns(H, U, r)])
+                dh = dh + (a @ staged[r] if design == "simt" else a @ staged[r].T)
+        da_all = da_all.reshape(L * N, 4 * H)
+        dx += op(da_all) @ op(w_ih[d]).T
+        grads.append((xs.T @ op(da_all), da_all.sum(0),
+                      h_prev.reshape(L * N, H).T @ op(da_all)))
+    dw_ih, db, dw_hh = (torch.stack([gr[i] for gr in grads]) for i in range(3))
+    return dx.reshape(L, N, C), dw_ih, db, dw_hh, db
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,U,design", [(16, 16, "simt"), (64, 32, "simt"),
+                                             (64, 64, "tc"), (128, 64, "tc")])
+def test_k6_staged_backward_equals_plain(hidden, U, design, dtype):
+    """fp32 to 1e-5 (1e-5 of max|ref| for the sums over L*N rows); bf16 to
+    1e-2 of max|ref|, where an f32 sum in another order rounds a gate
+    gradient operand to the neighbouring bf16 value."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(hidden + U)
+    wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, 11, hidden, 1, "lstm")[0], dt)
+    x = torch.from_numpy(rng.randn(6, 5, 11).astype(np.float32)).to(dt)
+    dout = torch.from_numpy(rng.randn(6, 5, 2 * hidden).astype(np.float32)).to(dt)
+    out, c, gates = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    got = _k6_staged(dout, x, wih, whh, out, c, gates, dt, U, design)
+    ref = bilstm_vjp.bilstm_layer_bwd_plain(dout, x, wih, whh, out, c, gates, dt)
+    for name, a, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got, ref):
+        scale = max(1.0, r.abs().max().item())
+        tol = (1e-5 if dt == torch.float32 else 1e-2) * scale
+        assert a.shape == r.shape and (a - r).abs().max().item() <= tol, name
+
+
+def test_k6_staging_model_follows_the_kernel_source():
+    """The model above is the kernel's: W_hh row j, column gate*H + u0 + u
+    goes to shared row k = gate*U + u (simt, [k][j]) or to row j, column k
+    (tc, [j][k]) over the NG U = 4U columns of a CTA, u0 = rank * U; dh is the
+    sum of the partials of ranks 0 .. CN-1 in order, with no carry term for
+    the LSTM; dc stays in the dh slot of the thread that owns the (row,
+    unit) and is read back there at the next step."""
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
+    with open(path) as f:
+        src = " ".join(f.read().split())
+    for line in ("constexpr int NG = LSTM ? 4 : 3;",
+                 "const int H = p.H, G = NG * H, L = p.L, N = p.N, U = p.U, R = p.R, "
+                 "UG = NG * U;",
+                 "const int j = i % H, k4 = (i / H) * 4;",
+                 "const int gate = k4 / U, u = k4 % U;",
+                 "for (int e = 0; e < 4; ++e) ws[(k4 + e) * H + j] = v[e];",
+                 "const int j = i / (UG / 8), k8 = (i % (UG / 8)) * 8;",
+                 "if constexpr (!LSTM) dh = dh_s[q];",
+                 "for (uint32_t c = 0; c < cn; ++c) dh += rcv[(size_t)c * R * U + q];",
+                 "const float dc = dt * og * (1.0f - tc * tc) + (s > 0 ? dh_s[q] : 0.0f);",
+                 "dh_s[q] = dc * fg;",
+                 "const int u0 = crank * U;"):
+        assert line in src, line
+    # the K6 entries run the LSTM's instantiations of those templates
+    with open(os.path.join(os.path.dirname(path), bilstm_vjp.SRC)) as f:
+        k6 = " ".join(f.read().split())
+    assert "fwd_rec_run<true>(" in k6 and "bwd_rec_run<true>(" in k6
+
+
+@pytest.mark.parametrize("cin,design,slices", [(512, "simt", 11), (11, "simt", 11),
+                                               (512, "tc", 11), (11, "tc", 11)])
+def test_k6_wgrad_slices_at_four_gates(cin, design, slices):
+    """1024 rows, H = 256, 132 SMs, G = 4H = 1024 columns: 2 x 8 x (C/128 + 2)
+    tiles of 128 x 128 (96 at C = 512, 48 at C = 11); the slices that fill
+    whole waves of blocks (simt 2 an SM, tc 1), the fewest on a tie: 11 x 96
+    tiles = 4 simt waves of 264 blocks."""
+    S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132, design, 4)
+    tiles = 2 * 8 * (-(-cin // 128) + 2)
+    slots = (2 if design == "simt" else 1) * 132
+    assert S == slices and (S * tiles) % slots == 0
+    assert bigru_vjp.k5_wgrad_slices(21 * 13, 11, 16, 132, "simt", 4) == 1
+
+
+def _counts():
+    return (bilstm_vjp.launches_fwd, bilstm_vjp.launches_bwd, bilstm_vjp.cuda_launches,
+            dict(bilstm_vjp.design_calls), bigru_vjp.cuda_launches,
+            dict(bigru_vjp.design_calls))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_k6_launches_nothing(dtype):
+    """On CPU tensors K6 runs its plain versions: two plain calls and no
+    kernel call, design or CUDA launch, of K6 or of K4/K5."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(9)
+    wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, 11, 16, 1, "lstm")[0], dt)
+    x = torch.from_numpy(rng.randn(4, 3, 11).astype(np.float32)).to(dt)
+    dout = torch.from_numpy(rng.randn(4, 3, 32).astype(np.float32)).to(dt)
+    before, plain = _counts(), bilstm_vjp.plain_calls
+    out, c, gates = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    grads = bilstm_vjp.bilstm_layer_bwd(dout, x, wih, whh, out, c, gates, dt)
+    assert _counts() == before and bilstm_vjp.plain_calls == plain + 2
+    assert len(grads) == 5 and all(bool(torch.isfinite(g).all()) for g in grads)

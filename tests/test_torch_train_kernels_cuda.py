@@ -10,6 +10,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 (tests/conftest.py imports JAX).
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -208,3 +210,41 @@ def test_refused_shape_raises_before_any_launch(hidden, dtype):
     with pytest.raises(ValueError, match="no design for H={}".format(hidden)):
         bigru_vjp.bigru_layer_bwd(dout, x, wih, whh, out, gates, dt)
     assert bigru_vjp.cuda_launches == 0 and bigru_vjp.plain_calls == plain
+
+
+# sha256 of K4's (out, gates) and K5's five gradients on ``_case(rows, hidden,
+# cin, dtype)``, taken on an H100 from the kernels as they were before their
+# recurrences moved into csrc/rnn_train_rec.cuh (shared with K6) and their
+# products' C entries took the gate count: the shared code leaves every bit
+# of K4/K5 as it was.
+K45_DIGESTS = {
+    (13, 16, 11, 'float32'): "180a2f9d85fd59e51466e1924c1f34a18188ac457c784cf830977ffda6335ee0",
+    (13, 16, 11, 'bfloat16'): "aa304aa465c0673d0a4496c1dfb4b85f1dae68df6b69911cb3c9ec05f4f573dc",
+    (65, 32, 11, 'float32'): "6ea874c7d79a49de2facf74b13c7895b49b4232efb8106c3ed4a073b14745f12",
+    (65, 32, 11, 'bfloat16'): "969ffcf793456c2a2ad6cd3d4c0097ea4eb36a4d9ecd9c3ce8a4c40069246e42",
+    (300, 64, 128, 'float32'): "5271ce3992aba15f518391cf9e6a26858500a6581d940442db4df068426029fb",
+    (300, 64, 128, 'bfloat16'): "380e7ca4d780af05fc3304c4c310d005b4c28bce32f53ce606921571ecded659",
+    (1000, 256, 512, 'float32'): "b31c6d3daf4f61a62214a6a029451b4b520a6cbd082dcce60f5f1e5fdcfa6443",
+    (1000, 256, 512, 'bfloat16'): "a47f76118f4ff22dac321670626e6a784425e8e81e004c5300181a567296927d",
+}
+
+
+def k45_digest(rows, hidden, cin, dtype):
+    """sha256 over the bytes of K4's and K5's outputs on one case."""
+    dt = getattr(torch, dtype)
+    x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
+    out, gates = bigru_vjp.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    grads = bigru_vjp.bigru_layer_bwd(dout, x, wih, whh, out, gates, dt)
+    h = hashlib.sha256()
+    for t in (out, gates) + tuple(grads):
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K45_DIGESTS))
+def test_k45_outputs_bit_equal_to_before_the_shared_header(case):
+    _need_card()
+    rows, hidden, cin, dtype = case
+    assert k45_digest(rows, hidden, cin, dtype) == K45_DIGESTS[case]
+

@@ -1,7 +1,8 @@
 """K4 and K5's shape rule and K5's staged layout, on the CPU (no card): the
 planner ``k45_plan`` that picks each call's design; a model of the K5
-recurrence's W_hh staging and reduce-scatter (csrc/bigru_train.cu stages W_hh
-in shared memory itself), held to the kernel source and, through a plain
+recurrence's W_hh staging and reduce-scatter (csrc/rnn_train_rec.cuh, the
+recurrences of csrc/bigru_train.cu, stages W_hh in shared memory itself),
+held to the kernel source and, through a plain
 backward in that layout, to ``bigru_layer_bwd_plain``; and the launch
 counters, which a CPU call leaves alone."""
 
@@ -192,14 +193,14 @@ def test_staging_model_follows_the_kernel_source():
     j, column gate*H + u0 + u goes to shared row k = gate*U + u (simt,
     [k][j]) or to row j, column k (tc, [j][k]), u0 = rank * U; the owner adds
     the partials of ranks 0 .. CN-1 in order."""
-    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", bigru_vjp.SRC)
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
     with open(path) as f:
         src = " ".join(f.read().split())
     for line in ("const int j = i % H, k4 = (i / H) * 4;",
                  "const int gate = k4 / U, u = k4 % U;",
                  "Op<T>::load4(W + (size_t)j * G + gate * H + u0 + u, v);",
                  "for (int e = 0; e < 4; ++e) ws[(k4 + e) * H + j] = v[e];",
-                 "const int j = i / (U3 / 8), k8 = (i % (U3 / 8)) * 8;",
+                 "const int j = i / (UG / 8), k8 = (i % (UG / 8)) * 8;",
                  "const int gate = k8 / U, u = k8 % U;",
                  "*reinterpret_cast<uint4*>(wb + j * DS + k8) = __ldg(reinterpret_cast<const "
                  "uint4*>( W + (size_t)j * G + gate * H + u0 + u));",
