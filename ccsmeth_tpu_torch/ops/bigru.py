@@ -1,9 +1,7 @@
-"""Kernel K1: the whole bidirectional GRU or LSTM stack in one CUDA launch.
+"""Kernel K1: the whole bidirectional GRU or LSTM stack; kernel K2: one layer.
 
 Counterpart of ``ccsmeth_tpu/ops/bigru_pallas.py`` (``_make_stack_kernel``,
-GRU and LSTM cells, reached through ``birnn_apply_pallas_stacked``). The
-kernel source is ``csrc/bigru_stack.cu``, one template instantiated per cell;
-its header says what bounds it on an H100 and what the design does about that.
+GRU and LSTM cells, reached through ``birnn_apply_pallas_stacked``).
 
 ``birnn_stack`` takes time-major input and the ``_layer_weights`` layout of the
 JAX package (``bigru_pallas.py:411-420``), G = 3H (cell 'gru') or 4H ('lstm'):
@@ -13,27 +11,27 @@ JAX package (``bigru_pallas.py:411-420``), G = 3H (cell 'gru') or 4H ('lstm'):
              w_hh (2, H, G) operand type, b_hh (2, G) f32), ...]
     ->     out (L, N, 2H) operand type, h_n (2*NL, N, H) f32 (torch order)
 
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+A CUDA tensor launches the kernels (or raises); a CPU tensor takes the plain
 version, ``models/rnn.py``'s ``birnn_tm`` with zero h0 (and c0). ``launches``
-counts kernel calls, one per ``birnn_stack`` call; ``cuda_launches`` counts the
-CUDA launches they made (one, or two a layer in the ``tc`` design), each where
-it is made. The kernel is compiled with ``nvcc`` at first use into
-``build/kernels/`` beside the package (``nvcc.py``); nothing here imports a GPU
-toolchain at import time.
+counts K1 calls, one per ``birnn_stack`` call; ``cuda_launches`` counts the
+CUDA launches they made, each where it is made. The kernels are compiled with
+``nvcc`` at first use into ``build/kernels/`` beside the package
+(``nvcc.py``); nothing here imports a GPU toolchain at import time.
 
 Kernel K2, the per-layer counterpart (``bigru_pallas.py``: ``_fused_kernel
 :87``, ``_fused_lstm_kernel :36``, launched by ``_fused_layer_call :143``),
-is the same source's ``bigru_layer_launch``: K1's device code on one layer,
-the two directions in separate blocks. ``birnn_layers`` (the counterpart of
-``birnn_apply_pallas :447``) launches it once per layer and keeps the
-contract of ``birnn_stack``, except that h_n is rebuilt from the stored
-outputs as the JAX entry does (``:473``): the last forward step and the
-first backward step, in the operand type, widened to f32. ``bigru_layer``
-is the batch-major one-layer GRU entry (``bigru_layer_pallas :423``).
-``layer_launches`` and ``layer_plain_calls`` count K2 and its plain version.
+runs one layer of K1's design: ``bigru_layer_tm``. ``birnn_layers`` (the
+counterpart of ``birnn_apply_pallas :447``) calls it once per layer and keeps
+the contract of ``birnn_stack``, except that h_n is rebuilt from the stored
+outputs as the JAX entry does (``:473``): the last forward step and the first
+backward step, in the operand type, widened to f32 (the recurrence's own f32
+h_n is scratch there). ``bigru_layer`` is the batch-major one-layer GRU entry
+(``bigru_layer_pallas :423``). K2 counts apart from K1: ``layer_launches``
+(one a layer), ``layer_cuda_launches``, ``layer_design_calls`` and
+``layer_plain_calls``.
 
-K1 has two designs, and ``k1_plan`` is the shape rule that picks one for a
-CUDA call (``design_calls`` counts the calls each design took):
+``k1_plan`` is the shape rule of both: it picks one of three designs from H,
+the cell and the dtype (``design_calls`` counts K1's calls by design):
 
 - ``tc`` (``csrc/birnn_tc.cu``), bf16 on the tensor cores: per layer one
   input-projection kernel and one recurrence kernel whose clusters of
@@ -43,10 +41,19 @@ CUDA call (``design_calls`` counts the calls each design took):
   The recurrence kernel stages its own W_hh slice, gate-interleaved: row
   (ub*NG + gate)*8 + i of CTA c holds column gate*H + c*U + 8*ub + i, so a
   thread's accumulators hold every gate of its units;
-- ``simt`` (``csrc/bigru_stack.cu``), the f32-FMA kernel: fp32 always (no
-  TF32), and every bf16 shape that ``tc`` does not take. Its own limits
-  (H % 4 == 0, H <= 1024, NL <= 8) raise.
-"""
+- ``simt`` (``csrc/birnn_simt.cu``), exact f32 FMAs (no TF32): per layer
+  K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``) and the
+  inference instantiation of the training forward's cluster recurrence
+  (``rnn_train_rec.cuh``), with ``k45_plan``'s simt geometry (U = min(H, 32),
+  clusters of H / U CTAs, 1024 UPT / U rows a tile). It takes fp32 and the
+  bf16 shapes that ``tc`` refuses, at H = 16 or a multiple of 32 with
+  clusters of 1, 2, 4 or 8 CTAs (H = 16, 32, 64, 128, 256);
+- ``l2`` (``csrc/bigru_stack.cu``), the first f32-FMA kernel: the whole stack
+  in one launch (K2: ``bigru_layer_launch``, one layer), weights streamed
+  from L2. It takes what neither of the others takes (H = 20, 48, 80, 512);
+  its own limits (H % 4 == 0, H <= 1024, NL <= 8) raise.
+
+A tc or simt call of K1 is two CUDA launches a layer, an l2 call one."""
 
 from __future__ import annotations
 
@@ -56,31 +63,47 @@ import threading
 import torch
 
 from ..models.rnn import birnn_tm, n_gates
-from . import nvcc
+from . import bigru_vjp, nvcc
 from .kernel_args import DTYPE_CODE, SMEM_LIMIT, THREADS, tile_shape
 
-SRC = "bigru_stack.cu"
-TC_SRC = "birnn_tc.cu"  # K1's bf16 tensor-core design
+SRC = "bigru_stack.cu"  # the l2 design
+TC_SRC = "birnn_tc.cu"  # the bf16 tensor-core design
+SIMT_SRC = "birnn_simt.cu"  # the simt design's recurrence
 TC_ROWS = 64  # TC_ROWS in csrc/birnn_tc.cu: rows of a recurrence tile
 _CELL_CODE = {"gru": 0, "lstm": 1}
 
 launches = 0  # K1 calls (one per birnn_stack call) since the caller last set it to 0
 cuda_launches = 0  # K1's CUDA launches, counted at each launch
 plain_calls = 0  # plain-version runs (CPU tensors, or birnn_stack_plain)
-layer_launches = 0  # K2 launches (one per layer)
+design_calls = {"tc": 0, "simt": 0, "l2": 0}  # birnn_stack's CUDA calls by design
+layer_launches = 0  # K2 calls (one per layer)
+layer_cuda_launches = 0  # K2's CUDA launches, counted at each launch
 layer_plain_calls = 0  # K2 plain-version runs (one per layer)
-design_calls = {"tc": 0, "simt": 0}  # birnn_stack's CUDA calls by design
+layer_design_calls = {"tc": 0, "simt": 0, "l2": 0}  # K2's CUDA calls by design
 
 _lib = None
 _tc_lib = None
+_simt_lib = None
 _lock = threading.Lock()
 
 
 def build(src: str = SRC) -> str:
-    """Compile ``csrc/<src>`` (``SRC`` or ``TC_SRC``) if its library is
-    missing; returns the library path. Raises with nvcc's output when the
-    build fails."""
+    """Compile ``csrc/<src>`` (``SRC``, ``TC_SRC`` or ``SIMT_SRC``) if its
+    library is missing; returns the library path. Raises with nvcc's output
+    when the build fails."""
     return nvcc.build(src)[0]
+
+
+def _load_simt():
+    global _simt_lib
+    with _lock:
+        if _simt_lib is None:
+            lib = ctypes.CDLL(build(SIMT_SRC))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.birnn_simt_rec_launch.restype = i
+            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
+            _simt_lib = lib
+    return _simt_lib
 
 
 def _load_tc():
@@ -164,10 +187,12 @@ def _shared_bytes(C0: int, H: int, bt: int, cell: str = "gru") -> int:
 
 
 def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
-    """The shape rule that picks K1's design for a CUDA call (module
-    docstring); it depends on H, the cell and the dtype only. Returns
-    {"design": "tc", "U", "CN", "smem" (bytes a CTA of the recurrence)} or
-    {"design": "simt", "why"}."""
+    """The shape rule that picks the design of a CUDA call of K1 or K2
+    (module docstring); it depends on H, the cell and the dtype only.
+    Returns {"design": "tc", "U", "CN", "smem" (bytes a CTA of the
+    recurrence)}, {"design": "simt", "U", "CN", "rows" (a recurrence tile),
+    "smem", "why"} or {"design": "l2", "why", "why_not_simt"}; "why" says
+    why not tc."""
     ng = n_gates(cell)
     if compute_dtype != torch.bfloat16:
         why = "fp32 keeps exact f32 arithmetic"
@@ -183,10 +208,15 @@ def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
             why = "{} bytes of shared memory a CTA".format(smem)
         else:
             return {"design": "tc", "U": U, "CN": cn, "smem": smem}
-    return {"design": "simt", "why": why}
+    simt = bigru_vjp.simt_plan(H, ng)
+    if isinstance(simt, str):
+        return {"design": "l2", "why": why, "why_not_simt": simt}
+    return {"design": "simt", "U": simt["U"], "CN": simt["CN"],
+            "rows": simt["rows_fwd"], "smem": simt["smem_fwd"], "why": why}
 
 
-def _stack_simt(layers, x, compute_dtype, cell, H):
+def _stack_l2(layers, x, compute_dtype, cell, H):
+    """K1's l2 design: the whole stack in one launch of ``bigru_stack.cu``."""
     global launches, cuda_launches
     L, N, C0 = x.shape
     NL = len(layers)
@@ -216,16 +246,29 @@ def _stack_simt(layers, x, compute_dtype, cell, H):
         raise RuntimeError("bigru_stack launch failed: cudaError {}".format(rc))
     cuda_launches += 1
     launches += 1
-    design_calls["simt"] += 1
+    design_calls["l2"] += 1
     return out, hn
 
 
+def _launched(name: str, rc: int, layer: bool):
+    """Raise unless a C entry returned 0; count the launch as K2's (layer)
+    or K1's."""
+    global cuda_launches, layer_cuda_launches
+    if rc != 0:
+        raise RuntimeError("{} failed: cudaError {}".format(name, rc))
+    if layer:
+        layer_cuda_launches += 1
+    else:
+        cuda_launches += 1
+
+
 def tc_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
-                  b_hh: torch.Tensor, cell: str = "gru", xg=None) -> torch.Tensor:
-    """Phase (a) of K1's tc design, one layer: x (M, K) bf16, w_ih (2, K, G)
+                  b_hh: torch.Tensor, cell: str = "gru", xg=None,
+                  layer: bool = False) -> torch.Tensor:
+    """Phase (a) of the tc design, one layer: x (M, K) bf16, w_ih (2, K, G)
     bf16, biases (2, G) f32 -> xg (2, M, G) f32 = x w_ih[d] + b_ih[d] + the
-    b_hh[d] columns outside the reset product (GRU: r, z; LSTM: all)."""
-    global cuda_launches
+    b_hh[d] columns outside the reset product (GRU: r, z; LSTM: all). The
+    launch counts as K2's when ``layer``, else as K1's."""
     M, K = x.shape
     G = w_ih.shape[2]
     H = G // n_gates(cell)
@@ -236,18 +279,16 @@ def tc_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
         rc = _load_tc().birnn_tc_proj_launch(
             _CELL_CODE[cell], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), xg.data_ptr(), M, K, H, stream)
-    if rc != 0:
-        raise RuntimeError("birnn_tc projection failed: cudaError {}".format(rc))
-    cuda_launches += 1
+    _launched("birnn_tc projection", rc, layer)
     return xg
 
 
 def tc_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                  L: int, N: int, U: int, cell: str = "gru", out=None, hn=None):
-    """Phase (b) of K1's tc design, one layer, both directions, zero h0 (and
+                  L: int, N: int, U: int, cell: str = "gru", out=None, hn=None,
+                  layer: bool = False):
+    """Phase (b) of the tc design, one layer, both directions, zero h0 (and
     c0): xg (2, L*N, G) f32, w_hh (2, H, G) bf16, b_hh (2, G) f32 -> out
     (L, N, 2H) bf16, hn (2, N, H) f32; U hidden units a CTA (``k1_plan``)."""
-    global cuda_launches
     H = w_hh.shape[1]
     if out is None:
         out = torch.empty((L, N, 2 * H), dtype=torch.bfloat16, device=xg.device)
@@ -258,31 +299,85 @@ def tc_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         rc = _load_tc().birnn_tc_rec_launch(
             _CELL_CODE[cell], xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
             out.data_ptr(), hn.data_ptr(), L, N, H, U, stream)
-    if rc != 0:
-        raise RuntimeError("birnn_tc recurrence failed: cudaError {}".format(rc))
-    cuda_launches += 1
+    _launched("birnn_tc recurrence", rc, layer)
     return out, hn
 
 
-def _stack_tc(layers, x, cell, H, plan):
-    """K1's tc design: per layer the projection, then the recurrence; the
-    layers' outputs alternate between two buffers, the last is ``out``."""
+def simt_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
+                    b_hh: torch.Tensor, cell: str = "gru", xg=None,
+                    layer: bool = False) -> torch.Tensor:
+    """Phase (a) of the simt design, one layer: ``tc_projection``'s function
+    in exact f32 on x (M, K) and w_ih (2, K, G) in the operand type, by
+    K4's projection kernel (``bigru_train.cu``'s ``k4_proj_launch``)."""
+    M, K = x.shape
+    G = w_ih.shape[2]
+    ng = n_gates(cell)
+    if xg is None:
+        xg = torch.empty((2, M, G), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        rc = bigru_vjp._load().k4_proj_launch(
+            DTYPE_CODE[x.dtype], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
+            b_hh.data_ptr(), xg.data_ptr(), M, K, G // ng, ng, stream)
+    _launched("k4_proj_launch", rc, layer)
+    return xg
+
+
+def simt_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                    L: int, N: int, plan: dict, cell: str = "gru", out=None, hn=None,
+                    layer: bool = False):
+    """Phase (b) of the simt design, one layer, both directions, zero h0
+    (and c0): xg (2, L*N, G) f32, w_hh (2, H, G) and out (L, N, 2H) in the
+    operand type, b_hh (2, G) f32 -> out, hn (2, N, H) f32; the cluster
+    geometry (U, rows) of ``k1_plan``."""
+    H = w_hh.shape[1]
+    if out is None:
+        out = torch.empty((L, N, 2 * H), dtype=w_hh.dtype, device=xg.device)
+    if hn is None:
+        hn = torch.empty((2, N, H), dtype=torch.float32, device=xg.device)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    with torch.cuda.device(xg.device):
+        rc = _load_simt().birnn_simt_rec_launch(
+            _CELL_CODE[cell], DTYPE_CODE[w_hh.dtype], xg.data_ptr(), w_hh.data_ptr(),
+            b_hh.data_ptr(), out.data_ptr(), hn.data_ptr(), L, N, H, plan["U"],
+            plan["rows"], stream)
+    _launched("birnn_simt recurrence", rc, layer)
+    return out, hn
+
+
+def _run_layer(plan, ly, x, cell, xg, out, hn, layer=False):
+    """One layer in the tc or simt design: the projection of x (L, N, C)
+    into xg, then the recurrence into out and hn."""
+    L, N, C = x.shape
+    wih, bih, whh, bhh = ly
+    if plan["design"] == "tc":
+        tc_projection(x.view(L * N, C), wih, bih, bhh, cell, xg, layer)
+        tc_recurrence(xg, whh, bhh, L, N, plan["U"], cell, out, hn, layer)
+    else:
+        simt_projection(x.view(L * N, C), wih, bih, bhh, cell, xg, layer)
+        simt_recurrence(xg, whh, bhh, L, N, plan, cell, out, hn, layer)
+
+
+def _stack_layers(layers, x, compute_dtype, cell, H, plan):
+    """K1's tc and simt designs: per layer the projection, then the
+    recurrence; one xg for all layers, the layers' outputs alternating
+    between two buffers, the last is ``out``."""
     global launches
     L, N, _C0 = x.shape
     NL = len(layers)
-    bufs = [torch.empty((L, N, 2 * H), dtype=torch.bfloat16, device=x.device)
+    bufs = [torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
             for _ in range(min(NL, 2))]
     hn = torch.empty((2 * NL, N, H), dtype=torch.float32, device=x.device)
     # the input projection of one layer, both directions, in f32
     xg = torch.empty((2, L * N, n_gates(cell) * H), dtype=torch.float32,
                      device=x.device)
     inp = x
-    for li, (wih, bih, whh, bhh) in enumerate(layers):
-        tc_projection(inp.view(L * N, -1), wih, bih, bhh, cell, xg)
-        inp, _ = tc_recurrence(xg, whh, bhh, L, N, plan["U"], cell,
-                               out=bufs[(NL - 1 - li) % 2], hn=hn[2 * li:2 * li + 2])
+    for li, ly in enumerate(layers):
+        out = bufs[(NL - 1 - li) % 2]
+        _run_layer(plan, ly, inp, cell, xg, out, hn[2 * li:2 * li + 2])
+        inp = out
     launches += 1
-    design_calls["tc"] += 1
+    design_calls[plan["design"]] += 1
     return inp, hn
 
 
@@ -309,9 +404,9 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
     if any(t.data_ptr() % 16 for ly in layers for t in ly) or x.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
     plan = k1_plan(H, cell, compute_dtype)
-    if plan["design"] == "tc":
-        return _stack_tc(layers, x, cell, H, plan)
-    return _stack_simt(layers, x, compute_dtype, cell, H)
+    if plan["design"] == "l2":
+        return _stack_l2(layers, x, compute_dtype, cell, H)
+    return _stack_layers(layers, x, compute_dtype, cell, H, plan)
 
 
 def bigru_layer_tm_plain(layer, x: torch.Tensor, compute_dtype=torch.float32,
@@ -324,25 +419,13 @@ def bigru_layer_tm_plain(layer, x: torch.Tensor, compute_dtype=torch.float32,
     return birnn_tm([layer], x, None, compute_dtype, cell)[0]
 
 
-def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
-                   cell: str = "gru") -> torch.Tensor:
-    """One bidirectional GRU or LSTM layer, zero h0 (and c0): kernel K2 on
-    CUDA, the plain version on CPU. layer: (w_ih (2, C, G), b_ih (2, G) f32,
-    w_hh (2, H, G), b_hh (2, G) f32), weights in compute_dtype; x (L, N, C)
-    contiguous in compute_dtype -> out (L, N, 2H) in compute_dtype, both
-    directions in time order."""
-    global layer_launches
-    H = _check([layer], x, compute_dtype, cell)
-    if x.device.type == "cpu":
-        return bigru_layer_tm_plain(layer, x, compute_dtype, cell)
-    if x.device.type != "cuda":
-        raise ValueError("bigru_layer_tm runs on cuda or cpu, not {}".format(
-            x.device.type))
+def _layer_l2(layer, x, compute_dtype, cell, H):
+    """K2 in the l2 design: ``bigru_stack.cu``'s ``bigru_layer_launch``, the
+    two directions in separate blocks."""
+    global layer_cuda_launches
     L, N, C = x.shape
     if H % 4 != 0 or H // 4 > THREADS:
         raise ValueError("kernel takes H % 4 == 0 and H <= 1024 (H={})".format(H))
-    if any(t.data_ptr() % 16 for t in layer) or x.data_ptr() % 16:
-        raise ValueError("kernel operands must be 16-byte aligned")
     props = torch.cuda.get_device_properties(x.device)
     # two blocks per row tile (one per direction): size the tiles for half
     # the SMs
@@ -361,9 +444,39 @@ def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
             _CELL_CODE[cell], DTYPE_CODE[compute_dtype], x.data_ptr(),
             out.data_ptr(), wih.data_ptr(), bih.data_ptr(), whh.data_ptr(),
             bhh.data_ptr(), L, N, C, H, r, ty, stream)
-    if rc != 0:
-        raise RuntimeError("bigru_layer launch failed: cudaError {}".format(rc))
+    _launched("bigru_layer launch", rc, True)
+    return out
+
+
+def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
+                   cell: str = "gru") -> torch.Tensor:
+    """One bidirectional GRU or LSTM layer, zero h0 (and c0): kernel K2 on
+    CUDA, the plain version on CPU. layer: (w_ih (2, C, G), b_ih (2, G) f32,
+    w_hh (2, H, G), b_hh (2, G) f32), weights in compute_dtype; x (L, N, C)
+    contiguous in compute_dtype -> out (L, N, 2H) in compute_dtype, both
+    directions in time order. ``k1_plan`` picks the design, as for K1: tc and
+    simt are two CUDA launches, l2 one."""
+    global layer_launches
+    H = _check([layer], x, compute_dtype, cell)
+    if x.device.type == "cpu":
+        return bigru_layer_tm_plain(layer, x, compute_dtype, cell)
+    if x.device.type != "cuda":
+        raise ValueError("bigru_layer_tm runs on cuda or cpu, not {}".format(
+            x.device.type))
+    if any(t.data_ptr() % 16 for t in layer) or x.data_ptr() % 16:
+        raise ValueError("kernel operands must be 16-byte aligned")
+    plan = k1_plan(H, cell, compute_dtype)
+    if plan["design"] == "l2":
+        out = _layer_l2(layer, x, compute_dtype, cell, H)
+    else:
+        L, N, _C = x.shape
+        out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
+        xg = torch.empty((2, L * N, n_gates(cell) * H), dtype=torch.float32,
+                         device=x.device)
+        hn = torch.empty((2, N, H), dtype=torch.float32, device=x.device)  # scratch
+        _run_layer(plan, layer, x, cell, xg, out, hn, layer=True)
     layer_launches += 1
+    layer_design_calls[plan["design"]] += 1
     return out
 
 

@@ -143,9 +143,10 @@ def _tc_plan(H: int, ng: int):
     return why
 
 
-def _simt_plan(H: int, ng: int):
+def simt_plan(H: int, ng: int):
     """The simt design's geometry for H and NG gates, or the reason it
-    refuses H. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
+    refuses H; K1's and K2's simt design (``bigru.k1_plan``) runs the same
+    forward recurrence with this geometry. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
     tile; UPT = 2, or 1 where that tile does not fit), a backward thread 4 rows
     x 8 units of the partial (8192 / H rows a tile, halved until it fits)."""
     U = min(H, 32)
@@ -189,7 +190,7 @@ def k45_plan(H: int, compute_dtype=torch.float32, cell: str = "gru") -> dict:
         why = tc
     else:
         why = "fp32 keeps exact f32 arithmetic"
-    simt = _simt_plan(H, ng)
+    simt = simt_plan(H, ng)
     if isinstance(simt, str):
         raise ValueError("{} no design for H={}: {}; {}".format(
             "K4/K5 take" if cell == "gru" else "K6 takes", H, simt, why))

@@ -23,10 +23,11 @@
 //   fp32, the LSTM one ~3.7M, 15 MB: both stay resident in the 50 MB L2).
 //   It is what sets its pace: each block reads all of W_ih and W_hh from L2
 //   at every step for its 8 rows, and the two directions run in turn.
-//   It serves fp32 (exact f32 arithmetic: a TF32 product would be ~1e-3 off)
-//   and the bf16 shapes that ops/bigru.py's k1_plan refuses; every other
-//   bf16 call runs birnn_tc.cu, the tensor-core design (its header says what
-//   bounds it). K2 is this kernel on one layer (ONE_DIR, below).
+//   It is the `l2` design of ops/bigru.py's k1_plan: it serves the shapes
+//   (either dtype; exact f32 arithmetic, no TF32) that the two faster designs
+//   refuse, birnn_tc.cu (bf16, tensor cores) and birnn_simt.cu (fp32 and
+//   the bf16 shapes tc refuses), e.g. H = 20, 48, 80, 512. K2's l2 design is
+//   this kernel on one layer (ONE_DIR, below).
 //
 // Design:
 //   - one block owns Bt = TY * R batch rows and runs all layers and both
@@ -283,8 +284,8 @@ int bigru_stack_launch(int cell, int dtype, const void* x, void* out,
                        static_cast<cudaStream_t>(stream));
 }
 
-// Kernel K2: ONE bidirectional layer, zero h0 (and c0). Replaces
-// ccsmeth_tpu/ops/bigru_pallas.py::_fused_kernel (GRU, :87) and
+// Kernel K2 in the l2 design: ONE bidirectional layer, zero h0 (and c0).
+// Replaces ccsmeth_tpu/ops/bigru_pallas.py::_fused_kernel (GRU, :87) and
 // ::_fused_lstm_kernel (LSTM, :36), launched there by _fused_layer_call once
 // per layer. It is the kernel above with NL = 1 on a grid of (row tiles, 2)
 // (template argument ONE_DIR): with no next layer waiting for both

@@ -126,6 +126,7 @@ int k4_rec_launch(int design, int dtype, const void* xg, const void* whh, const 
   rp.out = out;
   rp.gates = gates;
   rp.cseq = nullptr;
+  rp.hn = nullptr;
   rp.L = L;
   rp.N = N;
   rp.H = H;

@@ -88,6 +88,7 @@ int k6_rec_launch(int design, int dtype, const void* xg, const void* whh, void* 
   rp.out = out;
   rp.gates = gates;
   rp.cseq = cseq;
+  rp.hn = nullptr;
   rp.L = L;
   rp.N = N;
   rp.H = H;

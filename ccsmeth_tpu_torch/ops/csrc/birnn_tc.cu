@@ -10,8 +10,9 @@
 //       (tile of 64 rows, direction); CTA c owns hidden units
 //       [c U, (c+1) U) of every gate and keeps its slice of W_hh (H x NG U
 //       bf16) in shared memory for all L steps.
-// fp32 keeps the f32 kernel of bigru_stack.cu; ops/bigru.py's k1_plan is the
-// shape rule that picks this file or that one.
+// K2 (one layer) runs the same two kernels once. fp32 runs birnn_simt.cu
+// (the same two phases in exact f32), and the shapes neither takes run
+// bigru_stack.cu; ops/bigru.py's k1_plan is the shape rule among the three.
 //
 // Replaces: ccsmeth_tpu/ops/bigru_pallas.py::_make_stack_kernel (GRU :232,
 //   LSTM :238-245, launched by _fused_stack_call :373), as bigru_stack.cu

@@ -1,7 +1,7 @@
-// Device helpers shared by the RNN kernels: bigru_stack.cu (K1, inference,
-// GRU and LSTM cells) and, for Op<T> and sigmoid_f, the training kernels
-// bigru_train.cu (K4, K5) and bilstm_train.cu (K6) through
-// rnn_train_gemm.cuh.
+// Device helpers shared by the RNN kernels: bigru_stack.cu (K1's and K2's
+// l2 design, GRU and LSTM cells) and, for Op<T> and sigmoid_f, the training
+// kernels bigru_train.cu (K4, K5) and bilstm_train.cu (K6) and K1's and K2's
+// simt design birnn_simt.cu through rnn_train_gemm.cuh.
 //
 // Operand types: T is float or __nv_bfloat16. Values are widened to f32 for
 // every FMA, so products of bf16 operands are exact and sums accumulate in

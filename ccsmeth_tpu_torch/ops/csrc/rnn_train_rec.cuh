@@ -3,7 +3,9 @@
 // GRU, NG = 3 gates r, z, n) and bilstm_train.cu (K6; the LSTM, NG = 4 gates
 // i, f, g, o). The gate count, the gate math and what a step keeps are the
 // only differences; the layout of W_hh in shared memory, the exchange across
-// the cluster and the thread layouts are the same code.
+// the cluster and the thread layouts are the same code. birnn_simt.cu
+// instantiates the simt forward once more for inference (INFER: K1's and
+// K2's simt design): no residuals, each direction's last h to h_n.
 //
 //   forward (fwd_rec_simt_kernel, fwd_rec_tc_kernel): both directions at
 //     once from the projection xg (2, L N, G) f32. A cluster of CN = H / U
@@ -130,13 +132,16 @@ struct FwdRecParams {
   void* out;         // (L, N, 2H) T
   void* gates;       // (2, L, N, 4H) T: GRU r, z, n, hg_n; LSTM i, f, g, o
   void* cseq;        // (2, L, N, H) T: the LSTM's cell state (GRU: unused)
+  float* hn;         // (2, N, H) f32: each direction's last h (INFER only)
   int L, N, H;
 };
 
 // simt: U units a CTA, R = 1024 UPT / U rows a tile; thread (rg, ug) owns
 // rows 4 rg .. 4 rg + 3 and units UPT ug .. UPT ug + UPT - 1 (local) of
-// every gate
-template <typename T, bool LSTM, int U, int UPT>
+// every gate. INFER (K1's and K2's simt design, birnn_simt.cu) keeps no
+// residuals (gates, cseq unused) and writes the f32 h of the direction's last
+// step to hn; the arithmetic and the out stores are the training forward's.
+template <typename T, bool LSTM, int U, int UPT, bool INFER = false>
 __global__ void __launch_bounds__(REC_THREADS, 1) fwd_rec_simt_kernel(const FwdRecParams p) {
   constexpr int NG = LSTM ? 4 : 3;
   constexpr int R = 1024 * UPT / U;
@@ -244,7 +249,9 @@ __global__ void __launch_bounds__(REC_THREADS, 1) fwd_rec_simt_kernel(const FwdR
           a[1][e] = sigmoid_f(xc[i][1][e] + acc[i][1][e]);
           a[2][e] = tanhf(xc[i][2][e] + acc[i][2][e]);
           a[3][e] = sigmoid_f(xc[i][3][e] + acc[i][3][e]);
-          st[i][e] = a[1][e] * st[i][e] + a[0][e] * a[2][e];  // c' = f c + i g
+          // c' = f c + i g, the fused form written out: nvcc may fuse either
+          // product, and did so differently in the INFER instantiation
+          st[i][e] = fmaf(a[1][e], st[i][e], a[0][e] * a[2][e]);
           hnew[i][e] = a[3][e] * tanhf(st[i][e]);               // h' = o tanh(c')
         } else {
           a[0][e] = sigmoid_f(xc[i][0][e] + acc[i][0][e]);  // r
@@ -258,11 +265,15 @@ __global__ void __launch_bounds__(REC_THREADS, 1) fwd_rec_simt_kernel(const FwdR
       if (row < N) {
         const int unit = u0 + UPT * ug;
         st_units<UPT>(out + ((size_t)t * N + row) * 2 * H + d * H + unit, hnew[i]);
-        T* g = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
+        if constexpr (INFER) {
+          if (s == L - 1) st_units<UPT>(p.hn + ((size_t)d * N + row) * H + unit, hnew[i]);
+        } else {
+          T* g = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) st_units<UPT>(g + q * H, a[q]);
-        if constexpr (LSTM)
-          st_units<UPT>(cseq + (((size_t)d * L + t) * N + row) * H + unit, st[i]);
+          for (int q = 0; q < 4; ++q) st_units<UPT>(g + q * H, a[q]);
+          if constexpr (LSTM)
+            st_units<UPT>(cseq + (((size_t)d * L + t) * N + row) * H + unit, st[i]);
+        }
       }
     }
     // the new h (rounded to the operand type) to every CTA's next buffer
@@ -716,10 +727,24 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
 
 // ---------------------------------------------------------------- launch
 
+// The simt forward kernel for U units a CTA and UPT units a thread (1 only
+// for the LSTM, whose 64-row tile of 2 units does not fit at H = 256).
+template <typename T, bool LSTM, bool INFER>
+static const void* fwd_simt_kernel(int U, int upt) {
+  if (U == 32 && upt == 2) return (const void*)fwd_rec_simt_kernel<T, LSTM, 32, 2, INFER>;
+  if (U == 16 && upt == 2) return (const void*)fwd_rec_simt_kernel<T, LSTM, 16, 2, INFER>;
+  if constexpr (LSTM) {
+    if (U == 32 && upt == 1) return (const void*)fwd_rec_simt_kernel<T, LSTM, 32, 1, INFER>;
+    if (U == 16 && upt == 1) return (const void*)fwd_rec_simt_kernel<T, LSTM, 16, 1, INFER>;
+  }
+  return nullptr;
+}
+
 // The forward recurrence, both directions: design 0 = simt (R = 1024 UPT / U
 // rows a tile, UPT 1 or 2), 1 = tc (bf16, R = TC_FWD_ROWS); dtype 0 = f32,
-// 1 = bf16. Clusters of H / U CTAs.
-template <bool LSTM>
+// 1 = bf16. Clusters of H / U CTAs. INFER (simt only): no residuals, h_n to
+// rp.hn.
+template <bool LSTM, bool INFER = false>
 static int fwd_rec_run(int design, int dtype, const FwdRecParams& rp, int U, int R,
                        cudaStream_t s) {
   constexpr int NG = LSTM ? 4 : 3;
@@ -729,29 +754,18 @@ static int fwd_rec_run(int design, int dtype, const FwdRecParams& rp, int U, int
   const void* k = nullptr;
   size_t smem = 0;
   if (design == 1) {
-    if (dtype != 1 || R != TC_FWD_ROWS) return (int)cudaErrorInvalidValue;
+    if (INFER || dtype != 1 || R != TC_FWD_ROWS) return (int)cudaErrorInvalidValue;
     smem = (size_t)(NG * U + 2 * TC_FWD_ROWS) * (rp.H + 8) * sizeof(bf16);
-    if (U == 64) k = (const void*)fwd_rec_tc_kernel<LSTM, 64>;
-    if (U == 32) k = (const void*)fwd_rec_tc_kernel<LSTM, 32>;
+    if constexpr (!INFER) {
+      if (U == 64) k = (const void*)fwd_rec_tc_kernel<LSTM, 64>;
+      if (U == 32) k = (const void*)fwd_rec_tc_kernel<LSTM, 32>;
+    }
   } else {
     if (design != 0 || (R * U != 1024 && R * U != 2048)) return (int)cudaErrorInvalidValue;
     const int upt = R * U / 1024;
     smem = ((size_t)rp.H * NG * U + (size_t)2 * rp.H * R) * 4;
-    if (dtype == 0) {
-      if (U == 32 && upt == 2) k = (const void*)fwd_rec_simt_kernel<float, LSTM, 32, 2>;
-      if (U == 16 && upt == 2) k = (const void*)fwd_rec_simt_kernel<float, LSTM, 16, 2>;
-      if constexpr (LSTM) {
-        if (U == 32 && upt == 1) k = (const void*)fwd_rec_simt_kernel<float, LSTM, 32, 1>;
-        if (U == 16 && upt == 1) k = (const void*)fwd_rec_simt_kernel<float, LSTM, 16, 1>;
-      }
-    } else if (dtype == 1) {
-      if (U == 32 && upt == 2) k = (const void*)fwd_rec_simt_kernel<bf16, LSTM, 32, 2>;
-      if (U == 16 && upt == 2) k = (const void*)fwd_rec_simt_kernel<bf16, LSTM, 16, 2>;
-      if constexpr (LSTM) {
-        if (U == 32 && upt == 1) k = (const void*)fwd_rec_simt_kernel<bf16, LSTM, 32, 1>;
-        if (U == 16 && upt == 1) k = (const void*)fwd_rec_simt_kernel<bf16, LSTM, 16, 1>;
-      }
-    }
+    if (dtype == 0) k = fwd_simt_kernel<float, LSTM, INFER>(U, upt);
+    if (dtype == 1) k = fwd_simt_kernel<bf16, LSTM, INFER>(U, upt);
   }
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   return launch_cluster(k, &q, cn, tiles, smem, s);

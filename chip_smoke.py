@@ -14,15 +14,22 @@ does not print its last line:
      and 16384 rows, fp32 and bf16) against its plain PyTorch version on the
      card, timed with CUDA events beside the plain version, cuDNN's nn.GRU /
      nn.LSTM and the card's bound, with the design that the wrapper's shape
-     rule picked (fp32: ops/csrc/bigru_stack.cu; bf16: the tensor-core
-     design ops/csrc/birnn_tc.cu, also timed phase by phase and rerun for
-     bit-equal outputs) and its CUDA launches per call; kernel K3
+     rule picked (fp32: simt, K4's projection kernel in
+     ops/csrc/bigru_train.cu and the inference cluster recurrence of
+     ops/csrc/birnn_simt.cu; bf16: the tensor-core design
+     ops/csrc/birnn_tc.cu), its CUDA launches per call (two a layer), a rerun
+     for bit-equal outputs and each phase's time (projections, recurrence,
+     the recurrence on 1 and 15 row tiles); kernel K3
      (transencoder2s: 6 layers, d_model 256, 4 heads, FF 512, L=21; fp32:
      ops/csrc/transenc_encoder.cu, bf16: ops/csrc/transenc_tc.cu) at
      2B = 1024 and 16384 samples, fp32 and bf16, beside its plain version,
      nn.TransformerEncoder + mean and the bound;
-     kernel K2 (bigru_layer_launch in bigru_stack.cu), one layer of each cell
-     at C = 11 and 512, 1024 rows, beside a one-layer cuDNN nn.GRU / nn.LSTM;
+     kernel K2 (one layer of K1's design: simt in fp32, tc in bf16), one
+     layer of each cell at C = 11 and 512, 1024 rows, beside a one-layer
+     cuDNN nn.GRU / nn.LSTM, with its phases; and the l2 design
+     (ops/csrc/bigru_stack.cu, the shapes the other two refuse; no model's
+     path runs it), K1's stack and K2's layer called directly, against the
+     plain version;
   4. training kernels: K4 and K5 (ops/csrc/bigru_train.cu, GRU) and K6
      (ops/csrc/bilstm_train.cu, LSTM), both on ops/csrc/rnn_train_rec.cuh
      and ops/csrc/rnn_train_gemm.cuh, at the train paths' shapes (one layer,
@@ -40,8 +47,8 @@ does not print its last line:
   6. call_mods end to end, once per model: the port's CLI ``call_mods --mode
      align --device cuda [--model_type attbilstm2s|transencoder2s]`` on a
      simulated aligned BAM, in fp32 and bf16, with K1's (K3's) launch count
-     read around the runs; then each RNN model once more in fp32 with
-     ``--rnn_backend pallas_layer``, through K2 and not K1;
+     read around the runs; then each RNN model once more in fp32 and bf16
+     with ``--rnn_backend pallas_layer``, through K2 and not K1;
   7. train end to end, once per model: the port's CLI ``train --device cuda``
      at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
      synthetic features TSV, with the training kernels' and K1's launch
@@ -58,8 +65,8 @@ checkout.
 
     python3 chip_smoke.py --ab PARENT_TREE
 
-times K1 (both cells) and K3 at the kernel phase's shapes, and K4, K5 and K6
-(forward and backward) at the train-kernel phase's, in four turns in one
+times K1 and K2 (both cells) and K3 at the kernel phase's shapes, and K4,
+K5 and K6 (forward and backward) at the train-kernel phase's, in four turns in one
 process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
@@ -85,6 +92,8 @@ ROWS = (1024, 16384)  # 2B for batch 512 (the CLI default) and batch 8192
 REPS = 11
 AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the simt design of K1 and K2 projects with K4's kernel
+SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu"
 # K3's pooled output: fp32 1e-4 (six layers of products summed in another
 # order than cuBLAS's); bf16 2e-2, since an f32 sum in another order can
 # round a product operand to the neighbouring bf16 value and six layers
@@ -150,8 +159,8 @@ def phase_build():
         so, log = nvcc.build(src)
         return so, log, time.time() - t0
 
-    srcs = (bigru.SRC, bigru.TC_SRC, bigru_vjp.SRC, bilstm_vjp.SRC, transenc.SRC,
-            transenc.TC_SRC)
+    srcs = (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru_vjp.SRC, bilstm_vjp.SRC,
+            transenc.SRC, transenc.TC_SRC)
     t0 = time.time()
     with ThreadPoolExecutor(len(srcs)) as ex:
         built = list(ex.map(build, srcs))
@@ -215,36 +224,54 @@ def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
     return mod
 
 
-def _tc_phases_ms(torch, ly, x, cell):
-    """Device time of each phase of K1's tensor-core design on the stack's
+def _phase_fns(plan, ly, cell, Lx, layer=False):
+    """One layer's two phases in K1's tc or simt design: (projection(x2d,
+    xg=None), recurrence(xg, rows, out=None), rows of a recurrence tile);
+    ``layer`` counts the launches as K2's."""
+    from ccsmeth_tpu_torch.ops import bigru
+
+    wih, bih, whh, bhh = ly
+    if plan["design"] == "tc":
+        def proj(x2, xg=None):
+            return bigru.tc_projection(x2, wih, bih, bhh, cell, xg, layer)
+
+        def rec(xg, rows, out=None):
+            return bigru.tc_recurrence(xg, whh, bhh, Lx, rows, plan["U"], cell, out,
+                                       None, layer)
+        return proj, rec, bigru.TC_ROWS
+
+    def proj(x2, xg=None):
+        return bigru.simt_projection(x2, wih, bih, bhh, cell, xg, layer)
+
+    def rec(xg, rows, out=None):
+        return bigru.simt_recurrence(xg, whh, bhh, Lx, rows, plan, cell, out, None, layer)
+    return proj, rec, plan["rows"]
+
+
+def _k1_phases_ms(torch, ly, x, cell, plan):
+    """Device time of each phase of K1's tc or simt design on the stack's
     inputs: the projection of layer 0 (C = 11) and of a later layer
     (C = 2H), and one layer's recurrence, also on 1 and 15 row tiles a
     direction; medians of CUDA-event timings."""
-    from ccsmeth_tpu_torch.ops import bigru
-
     Lx, N, _C = x.shape
-    U = bigru.k1_plan(H, cell)["U"]
-    wih, bih, whh, bhh = ly[0]
-    xg = bigru.tc_projection(x.view(Lx * N, -1), wih, bih, bhh, cell)
-    out, _hn = bigru.tc_recurrence(xg, whh, bhh, Lx, N, U, cell)
-    wih1, bih1, _whh1, bhh1 = ly[1]
+    proj, rec, rows_tile = _phase_fns(plan, ly[0], cell, Lx)
+    proj1 = _phase_fns(plan, ly[1], cell, Lx)[0]
+    x0 = x.view(Lx * N, -1)
+    xg = proj(x0)
+    out, _hn = rec(xg, N)
     x1 = out.view(Lx * N, -1)
     # 1 row tile (a cluster a direction): the serial chain's latency alone;
-    # 15 (30 clusters), against the 16 of 1024 rows (32): where the time
-    # doubles, the card no longer holds every cluster at once
+    # 15 (30 clusters): where the time doubles against one tile, the card no
+    # longer holds every cluster at once
     by_tiles = {}
     for tiles in (1, 15):
-        rows = tiles * bigru.TC_ROWS
+        rows = tiles * rows_tile
         xg_t = torch.randn((2, Lx * rows, xg.shape[2]), device="cuda")
-        by_tiles[str(tiles)] = time_ms(lambda: bigru.tc_recurrence(
-            xg_t, whh, bhh, Lx, rows, U, cell), torch)
-    return {"recurrence_by_row_tiles": by_tiles,
-            "projection_c11": time_ms(lambda: bigru.tc_projection(
-                x.view(Lx * N, -1), wih, bih, bhh, cell, xg), torch),
-            "projection_c512": time_ms(lambda: bigru.tc_projection(
-                x1, wih1, bih1, bhh1, cell, xg), torch),
-            "recurrence": time_ms(lambda: bigru.tc_recurrence(
-                xg, whh, bhh, Lx, N, U, cell), torch)}
+        by_tiles[str(tiles)] = time_ms(lambda: rec(xg_t, rows), torch)
+    return {"rows_a_tile": rows_tile, "recurrence_by_row_tiles": by_tiles,
+            "projection_c11": time_ms(lambda: proj(x0, xg), torch),
+            "projection_c512": time_ms(lambda: proj1(x1, xg), torch),
+            "recurrence": time_ms(lambda: rec(xg, N, out), torch)}
 
 
 def phase_kernels(torch, smi, cell):
@@ -267,9 +294,8 @@ def phase_kernels(torch, smi, cell):
             out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
             torch.cuda.synchronize()
             assert bigru.design_calls[plan["design"]] == before[plan["design"]] + 2
-            # tc: a projection and a recurrence a layer; simt: one launch
-            assert cuda_per_call == (2 * NL if plan["design"] == "tc" else 1), \
-                (plan, cuda_per_call)
+            # tc and simt: a projection and a recurrence a layer
+            assert cuda_per_call == 2 * NL, (plan, cuda_per_call)
             rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
             assert rerun_equal, (cell, rows, dname, "rerun differs")
             ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
@@ -287,8 +313,7 @@ def phase_kernels(torch, smi, cell):
                 plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell),
                                    torch)
                 library_ms = time_ms(lambda: lib(x), torch)
-                phases = (_tc_phases_ms(torch, ly, x, cell)
-                          if plan["design"] == "tc" else None)
+                phases = _k1_phases_ms(torch, ly, x, cell, plan)
             flops = bigru.stack_flops(L, rows, C, H, NL, cell)
             nbytes = (x.numel() * x.element_size()
                       + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
@@ -307,9 +332,8 @@ def phase_kernels(torch, smi, cell):
                    "library_weights_warning": lib.weights_warning,
                    "library_flatten_error": lib.flatten_error,
                    "gflop": flops / 1e9,
-                   "tflops_achieved": flops / kernel_ms / 1e9, "card": smi}
-            if phases is not None:
-                res["tc_phases_ms"] = phases
+                   "tflops_achieved": flops / kernel_ms / 1e9, "phases_ms": phases,
+                   "card": smi}
             emit(res)
             cells.append(res)
             del lib, out, hn, out2, hn2, ref_out, ref_hn
@@ -419,7 +443,10 @@ def phase_k2_kernels(torch, smi, cell):
     """K2, one bidirectional layer of the cell, at the call_mods path's
     shapes (1024 rows; C = 11 for layer 0, 2H for layers 1 and 2) against
     its plain version, timed beside it, cuDNN's one-layer bidirectional
-    nn.GRU / nn.LSTM (inference) and the bound. Tolerances as K1's."""
+    nn.GRU / nn.LSTM (inference) and the bound, with the design ``k1_plan``
+    picked (simt in fp32, tc in bf16), its CUDA launches a call (K2's own
+    count; K1's stays), a rerun for bit-equal outputs and each phase's time.
+    Tolerances as K1's."""
     import numpy as np
 
     from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
@@ -433,10 +460,20 @@ def phase_k2_kernels(torch, smi, cell):
         x_np = rng.randn(L, rows, cin).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
+            plan = bigru.k1_plan(H, cell, dt)
             ly = layer_weights(ld, dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
+            k1_before = (bigru.launches, bigru.cuda_launches)
+            before = dict(bigru.layer_design_calls)
+            bigru.layer_cuda_launches = 0
             out = bigru.bigru_layer_tm(ly, x, dt, cell)
+            cuda_per_call = bigru.layer_cuda_launches
+            again = bigru.bigru_layer_tm(ly, x, dt, cell)
             torch.cuda.synchronize()
+            assert cuda_per_call == 2, (cell, cin, dname, cuda_per_call)
+            assert bigru.layer_design_calls[plan["design"]] == before[plan["design"]] + 2
+            assert (bigru.launches, bigru.cuda_launches) == k1_before  # nothing of K1's
+            assert torch.equal(out, again), (cell, cin, dname, "rerun differs")
             ref = bigru.bigru_layer_tm_plain(ly, x, dt, cell)
             assert out.shape == (L, rows, 2 * H) and bool(torch.isfinite(out.float()).all())
             err = (out.float() - ref.float()).abs().max().item()
@@ -447,17 +484,66 @@ def phase_k2_kernels(torch, smi, cell):
                 plain_ms = time_ms(lambda: bigru.bigru_layer_tm_plain(ly, x, dt, cell),
                                    torch)
                 library_ms = time_ms(lambda: lib(x), torch)
+                phases = _k2_phases_ms(torch, ly, x, cell, plan)
             bms, bby = _bound(bigru.stack_flops(L, rows, cin, H, 1, cell),
                               _nbytes(x, out, *ly), dname)
             res = {"phase": "kernel", "name": "bigru_layer", "cell": cell,
-                   "rows": rows, "C": cin, "dtype": dname, "max_abs_err": err,
-                   "tol": TOL[dname], "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": bms, "bound_by": bby,
+                   "rows": rows, "C": cin, "dtype": dname, "design": plan["design"],
+                   "cuda_launches_per_call": cuda_per_call, "rerun_bit_equal": True,
+                   "max_abs_err": err, "tol": TOL[dname], "kernel_ms": kernel_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
+                   "bound_by": bby, "phases_ms": phases,
                    "library_weights_warning": lib.weights_warning, "card": smi}
             emit(res)
             cells.append(res)
-            del lib, out, ref
+            del lib, out, again, ref
     return cells
+
+
+def _k2_phases_ms(torch, ly, x, cell, plan):
+    """K2's two phases on its inputs: the projection and the recurrence
+    (CUDA-event medians)."""
+    Lx, N, _C = x.shape
+    proj, rec, _rows = _phase_fns(plan, ly, cell, Lx, layer=True)
+    x2 = x.view(Lx * N, -1)
+    xg = proj(x2)
+    return {"projection": time_ms(lambda: proj(x2, xg), torch),
+            "recurrence": time_ms(lambda: rec(xg, N), torch)}
+
+
+def phase_l2_kernels(torch, smi, cell):
+    """The l2 design (ops/csrc/bigru_stack.cu), which the shape rule keeps
+    for the shapes that tc and simt refuse and which no model's path runs
+    since fp32 K1 and K2 moved to the simt design: K1's whole-stack launch
+    and K2's one-layer launch (C = 2H) called directly at the kernel phase's
+    shapes (1024 rows), fp32 and bf16, against the plain version, timed."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.ops import bigru
+
+    rows = ROWS[0]
+    x_np = np.random.RandomState(SEED + rows).randn(L, rows, C).astype(np.float32)
+    for dname in ("float32", "bfloat16"):
+        dt = getattr(torch, dname)
+        _np_layers, ly = _layers(torch, dt, "cuda", cell)
+        x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
+        out, hn = bigru._stack_l2(ly, x, dt, cell, H)
+        x1 = out  # a layer input of width 2H
+        out1 = bigru._layer_l2(ly[1], x1, dt, cell, H)
+        torch.cuda.synchronize()
+        ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+        ref1 = bigru.bigru_layer_tm_plain(ly[1], x1, dt, cell)
+        errs = {"stack_out": (out.float() - ref_out.float()).abs().max().item(),
+                "stack_hn": (hn - ref_hn).abs().max().item(),
+                "layer_out": (out1.float() - ref1.float()).abs().max().item()}
+        assert max(errs.values()) <= TOL[dname], (cell, dname, errs)
+        with torch.inference_mode():
+            stack_ms = time_ms(lambda: bigru._stack_l2(ly, x, dt, cell, H), torch)
+            layer_ms = time_ms(lambda: bigru._layer_l2(ly[1], x1, dt, cell, H), torch)
+        res = {"phase": "kernel", "name": "bigru_stack_l2", "cell": cell, "rows": rows,
+               "dtype": dname, "design": "l2", "max_abs_err": errs, "tol": TOL[dname],
+               "stack_ms": stack_ms, "layer_c512_ms": layer_ms, "card": smi}
+        emit(res)
 
 
 def _bwd_cuda_launches(rows, cin, dt, cell):
@@ -740,26 +826,29 @@ def _zero_counts():
     from ccsmeth_tpu_torch.ops import bigru, transenc
 
     bigru.launches = bigru.plain_calls = 0
-    bigru.layer_launches = bigru.layer_plain_calls = 0
+    bigru.layer_launches = bigru.layer_plain_calls = bigru.layer_cuda_launches = 0
     transenc.launches = transenc.plain_calls = 0
     for mod in (bigru, transenc):
         mod.cuda_launches = 0
-        for k in mod.design_calls:
-            mod.design_calls[k] = 0
+    for calls in (bigru.design_calls, bigru.layer_design_calls, transenc.design_calls):
+        for k in calls:
+            calls[k] = 0
 
 
 def _cuda_launches():
-    """K1's and K3's CUDA launches since the last _zero_counts."""
+    """K1's, K2's and K3's CUDA launches since the last _zero_counts."""
     from ccsmeth_tpu_torch.ops import bigru, transenc
 
-    return {"k1": bigru.cuda_launches, "k3": transenc.cuda_launches}
+    return {"k1": bigru.cuda_launches, "k2": bigru.layer_cuda_launches,
+            "k3": transenc.cuda_launches}
 
 
 def _design_counts():
-    """K1's and K3's calls by design since the last _zero_counts."""
+    """K1's, K2's and K3's calls by design since the last _zero_counts."""
     from ccsmeth_tpu_torch.ops import bigru, transenc
 
-    return {"k1": dict(bigru.design_calls), "k3": dict(transenc.design_calls)}
+    return {"k1": dict(bigru.design_calls), "k2": dict(bigru.layer_design_calls),
+            "k3": dict(transenc.design_calls)}
 
 
 def _all_counts():
@@ -832,8 +921,8 @@ def phase_e2e(torch, smi, model_type):
         # the shape rule: bf16 through the tensor-core design, fp32 the f32 one
         design = "tc" if prec == "bf16" else "simt"
         assert designs[design] == n, (prec, designs)
-        # K1-tc: a projection and a recurrence a layer; otherwise one launch
-        per_call = 2 * NL if (name == "k1" and design == "tc") else 1
+        # K1 (tc and simt): a projection and a recurrence a layer; K3 one launch
+        per_call = 2 * NL if name == "k1" else 1
         assert cuda[name] == per_call * n and sum(cuda.values()) == cuda[name], cuda
         n_tagged = sum(1 for mm, ml in tags[prec].values() if ml is not None)
         assert n_tagged >= 0.9 * len(tags[prec]), (prec, n_tagged)
@@ -857,25 +946,40 @@ def phase_e2e(torch, smi, model_type):
 
 
 def phase_e2e_layer(torch, smi, model_type, k1_tags):
-    """call_mods --rnn_backend pallas_layer in fp32: K2 launches once a layer
-    and batch, K1 never, no plain version runs; K2 is K1's arithmetic a layer
-    at a time, so the ML bytes equal the K1 run's."""
-    _zero_counts()
-    run, tags = _call_mods(model_type, "fp32", "pallas_layer",
-                           ["--rnn_backend", "pallas_layer"])
-    torch.cuda.synchronize()
-    counts = _all_counts()
-    assert run["batches"] > 0 and counts["k2"] == NL * run["batches"], (counts, run)
-    assert sum(counts.values()) == counts["k2"], counts
-    assert sum(_cuda_launches().values()) == 0, _cuda_launches()  # no K1, no K3
-    n_sites, equal, _within2 = _ml_shares(k1_tags, tags)
-    run.update(phase="e2e", model=model_type, precision="fp32",
-               rnn_backend="pallas_layer", launches=counts,
-               sites_per_s=run["sites"] / run["seconds"],
-               ml_equal_to_k1_run=equal, sites_compared=n_sites, card=smi)
-    emit(run)
-    assert equal >= 0.999, equal
-    return run
+    """call_mods --rnn_backend pallas_layer in fp32 and bf16: K2 launches once
+    a layer and batch (its design's two CUDA launches each: simt in fp32, tc
+    in bf16), K1 and K3 never, no plain version runs. In fp32 K2 runs K1's
+    launches a layer at a time, so the ML bytes equal the K1 run's; in bf16
+    K2's h_n is rebuilt from the bf16 outputs where K1's is the f32 state,
+    so the bytes stay within 2 of the K1 bf16 run's on >= 99.9% of sites."""
+    runs = {}
+    for prec in ("fp32", "bf16"):
+        _zero_counts()
+        run, tags = _call_mods(model_type, prec, "pallas_layer",
+                               ["--rnn_backend", "pallas_layer"])
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        cuda = _cuda_launches()
+        designs = _design_counts()["k2"]
+        design = "tc" if prec == "bf16" else "simt"
+        n = NL * run["batches"]
+        assert run["batches"] > 0 and counts["k2"] == n, (counts, run)
+        assert sum(counts.values()) == counts["k2"], counts
+        assert designs == dict({d: 0 for d in designs}, **{design: n}), designs
+        assert cuda == {"k1": 0, "k2": 2 * n, "k3": 0}, cuda  # no K1, no K3
+        n_sites, equal, within2 = _ml_shares(k1_tags[prec], tags)
+        run.update(phase="e2e", model=model_type, precision=prec,
+                   rnn_backend="pallas_layer", launches=counts, designs=designs,
+                   cuda_launches=cuda, sites_per_s=run["sites"] / run["seconds"],
+                   ml_equal_to_k1_run=equal, ml_within_2_of_k1_run=within2,
+                   sites_compared=n_sites, card=smi)
+        emit(run)
+        if prec == "fp32":
+            assert equal >= 0.999, equal
+        else:
+            assert within2 >= 0.999, within2
+        runs[prec] = run
+    return runs
 
 
 def _write_feature_tsv(path, n, seed, seq_len=21):
@@ -1093,7 +1197,7 @@ def phase_profile(torch, smi, cell, steps=5):
 
 
 def _time_tree(tree):
-    """One turn of ``--ab``: K1 (both cells) and K3 of the checkout at
+    """One turn of ``--ab``: K1 and K2 (both cells) and K3 of the checkout at
     ``tree`` at the kernel phase's shapes and inputs, and K4, K5 and K6
     (forward and backward) at the train-kernel phase's (1024 rows, C = 11
     and 512), fp32 and bf16, through the tree's own wrappers; medians of
@@ -1122,6 +1226,17 @@ def _time_tree(tree):
                     x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
                     res["ms"]["k1 {} {} {}".format(cell, rows, dname)] = time_ms(
                         lambda: bigru.birnn_stack(ly, x, dt, cell), torch, AB_REPS)
+            # K2 at the K2 phase's cells: one layer, 1024 rows, C = 11 and 2H
+            for cin in (C, 2 * H):
+                rng = np.random.RandomState(SEED + cin)
+                ld = init_rnn_params(rng, cin, H, 1, cell)[0]
+                x_np = rng.randn(L, ROWS[0], cin).astype(np.float32)
+                for dname in ("float32", "bfloat16"):
+                    dt = getattr(torch, dname)
+                    lyr = layer_weights(ld, dt, "cuda")
+                    x = torch.from_numpy(x_np).to("cuda", dt)
+                    res["ms"]["k2 {} C={} {}".format(cell, cin, dname)] = time_ms(
+                        lambda: bigru.bigru_layer_tm(lyr, x, dt, cell), torch, AB_REPS)
         cfg = TransEncConfig()
         params = randomize_affine(init_transenc(SEED, cfg), SEED)
         for rows in ROWS:
@@ -1210,12 +1325,14 @@ def main():
     k1_cells = {cell: phase_kernels(torch, smi, cell) for cell in MODELS}
     k3_cells = phase_k3_kernels(torch, smi)
     k2_cells = {cell: phase_k2_kernels(torch, smi, cell) for cell in MODELS}
+    for cell in MODELS:
+        phase_l2_kernels(torch, smi, cell)
     t_cells = {cell: phase_train_kernels(torch, smi, cell) for cell in MODELS}
     for model_type in list(MODELS.values()) + [TRANSENC]:
         phase_model(torch, model_type)
     e2e = {cell: phase_e2e(torch, smi, MODELS[cell]) for cell in MODELS}
     e2e_k3 = phase_e2e(torch, smi, TRANSENC)
-    e2e_k2 = {cell: phase_e2e_layer(torch, smi, MODELS[cell], e2e[cell]["tags"]["fp32"])
+    e2e_k2 = {cell: phase_e2e_layer(torch, smi, MODELS[cell], e2e[cell]["tags"])
               for cell in MODELS}
     train_runs = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell])
                   for cell in MODELS}
@@ -1225,7 +1342,7 @@ def main():
     kernels = []
     for cell, kname, line in (("gru", "bigru_stack", 198),
                               ("lstm", "bigru_stack_lstm", 238)):
-        for design, src, dname in (("simt", "bigru_stack.cu", "float32"),
+        for design, src, dname in (("simt", "birnn_simt.cu", "float32"),
                                    ("tc", "birnn_tc.cu", "bfloat16")):
             cells = [c for c in k1_cells[cell] if c["design"] == design]
             mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == dname)
@@ -1240,7 +1357,7 @@ def main():
                                    for c in cells),
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-                "library_ms": mc["library_ms"],
+                "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
                 "cell": "{} rows={} {}".format(MODELS[cell], ROWS[0], dname),
                 "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
                                              "library_ms", "bound_ms", "bound_by",
@@ -1248,6 +1365,7 @@ def main():
                           for c in cells]}
             if design == "simt":  # the train path validates in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
+                entry["projection_source"] = SIMT_PROJECTION
             kernels.append(entry)
     for cell, kname, src, key, line in (
             ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
@@ -1299,22 +1417,29 @@ def main():
                                          "max_abs_err")} for c in cells]})
     for cell, kname, line in (("gru", "bigru_layer", 87),
                               ("lstm", "bigru_layer_lstm", 36)):
-        cells = k2_cells[cell]
-        # the main cell: layers 1 and 2 of the stack (C = 2H), fp32
-        mc = next(c for c in cells if c["C"] == 2 * H and c["dtype"] == "float32")
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu",
-            "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
-            "launches": e2e_k2[cell]["launches"]["k2"],
-            "max_abs_err": max(c["max_abs_err"] for c in cells),
-            "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
-            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-            "library_ms": mc["library_ms"],
-            "cell": "{} rows={} C={} float32".format(MODELS[cell], mc["rows"], mc["C"]),
-            "cells": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by",
-                                         "max_abs_err")} for c in cells]})
+        for design, src, prec in (("simt", "birnn_simt.cu", "fp32"),
+                                  ("tc", "birnn_tc.cu", "bf16")):
+            cells = [c for c in k2_cells[cell] if c["design"] == design]
+            # the main cell: layers 1 and 2 of the stack (C = 2H)
+            mc = next(c for c in cells if c["C"] == 2 * H)
+            kernels.append({
+                "name": kname + ("_tc" if design == "tc" else ""), "route": "cuda",
+                "design": design, "cuda_launches_per_call": mc["cuda_launches_per_call"],
+                "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
+                "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
+                "launches": e2e_k2[cell][prec]["launches"]["k2"],
+                "cuda_launches": e2e_k2[cell][prec]["cuda_launches"]["k2"],
+                "max_abs_err": max(c["max_abs_err"] for c in cells),
+                "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
+                "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+                "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+                "projection_source": (SIMT_PROJECTION if design == "simt"
+                                      else "ccsmeth_tpu_torch/ops/csrc/" + src),
+                "cell": "{} rows={} C={} {}".format(MODELS[cell], mc["rows"], mc["C"],
+                                                    mc["dtype"]),
+                "cells": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms", "plain_ms",
+                                             "library_ms", "bound_ms", "bound_by",
+                                             "max_abs_err", "phases_ms")} for c in cells]})
     emit({"kernels": kernels})
     log("chip_smoke: {:.1f} s on {}".format(time.time() - t_start, smi))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from ccsmeth_tpu.ops.bigru_pallas import bigru_layer_pallas, birnn_apply_pallas
+from ccsmeth_tpu.ops.bigru_pallas import (bigru_layer_pallas, birnn_apply_pallas,
+                                         birnn_apply_pallas_stacked)
 from ccsmeth_tpu_torch.models import (AttRNN, AttRNNConfig, attrnn_state_dict_from_params,
                                       init_attrnn)
 from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
@@ -61,6 +62,45 @@ def test_bf16_h_n_is_rebuilt_from_the_stored_outputs(cell):
     _wo, want_hn = birnn_apply_pallas(layers, jnp.asarray(x), jnp.bfloat16,
                                       interpret=True, cell=cell)
     assert np.abs(hn.numpy() - np.asarray(want_hn)).max() <= 1e-2
+
+
+# fp32: the same products and gate math in another order of f32 sums; bf16:
+# both sides round the same values to bf16, and an f32 sum taken in another
+# order moves a rounding by one bf16 ulp (2^-8 on [0.5, 1)), so 8e-3 allows
+# two such ulps (as tests/test_torch_bigru.py)
+PARITY_TOL = {"float32": dict(atol=3e-5, rtol=1e-5), "bfloat16": dict(atol=8e-3, rtol=0)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("entry", ["layers", "stack"])
+def test_entries_match_jax_at_ragged_rows(entry, cell, dtype):
+    """K2's ``birnn_layers`` against JAX ``birnn_apply_pallas`` and K1's
+    ``birnn_stack`` against ``birnn_apply_pallas_stacked``, both Pallas
+    kernels in interpret mode, at 13 rows (a ragged last tile of 8) on CPU
+    tensors: out and h_n (K2's rebuilt from the outputs on both sides). The
+    stack runs its direction-batched chain, which the JAX package's own test
+    holds bit-equal to the default one (``test_pallas_bigru.py:92-97``) and
+    which interprets in a tenth of the time."""
+    layers, x = _inputs(cell, seed=11, H=16, NL=2, N=13)
+    dt = getattr(torch, dtype)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    ly = [layer_weights(ld, dt) for ld in layers]
+    x_tm = torch.from_numpy(x).transpose(0, 1).to(dt).contiguous()
+    if entry == "layers":
+        out, hn = bigru.birnn_layers(ly, x_tm, dt, cell)
+        want_out, want_hn = birnn_apply_pallas(layers, jnp.asarray(x), jdt, b_tile=8,
+                                               interpret=True, cell=cell)
+    else:
+        out, hn = bigru.birnn_stack(ly, x_tm, dt, cell)
+        want_out, want_hn = birnn_apply_pallas_stacked(layers, jnp.asarray(x), jdt,
+                                                       b_tile=8, interpret=True,
+                                                       cell=cell, dir_batched=True)
+    assert out.shape == (21, 13, 32) and hn.shape == (4, 13, 16)
+    np.testing.assert_allclose(out.transpose(0, 1).float().numpy(),
+                               np.asarray(want_out, np.float32), **PARITY_TOL[dtype])
+    np.testing.assert_allclose(hn.numpy(), np.asarray(want_hn, np.float32),
+                               **PARITY_TOL[dtype])
 
 
 def test_bigru_layer_matches_bigru_layer_pallas():

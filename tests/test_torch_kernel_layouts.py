@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from ccsmeth_tpu_torch.models.rnn import birnn_tm, init_rnn_params, layer_weights, n_gates
-from ccsmeth_tpu_torch.ops import bigru, transenc
+from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, transenc
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
 
 HIDDEN = (16, 64, 256)
@@ -163,12 +163,13 @@ def test_k1_plan_takes_the_model_shapes(hidden, cell):
                                              (128, "gru", 64, 2), (48, "lstm", 16, 3)])
 def test_k1_plan_splits_the_units(hidden, cell, U, cn):
     """U is the largest of 64, 32, 16 that divides H; CN = H / U CTAs a
-    cluster, which must be 1, 2, 4 or 8."""
+    cluster, which must be 1, 2, 4 or 8. H = 48 is refused by the simt
+    design too (U = 32 does not divide it), so it takes l2."""
     plan = bigru.k1_plan(hidden, cell)
     if cn in (1, 2, 4, 8):
         assert (plan["design"], plan["U"], plan["CN"]) == ("tc", U, cn)
     else:
-        assert plan["design"] == "simt" and plan["why"] == "a cluster of {} CTAs".format(cn)
+        assert plan["design"] == "l2" and plan["why"] == "a cluster of {} CTAs".format(cn)
 
 
 @pytest.mark.parametrize("hidden,layers,cell,dtype,why", [
@@ -180,9 +181,31 @@ def test_k1_plan_splits_the_units(hidden, cell, U, cn):
     (80, 9, "gru", torch.bfloat16, "cluster of 5"),
 ])
 def test_k1_plan_sends_other_shapes_to_the_f32_kernel(hidden, layers, cell, dtype, why):
-    """``layers``: the f32 kernel takes up to 8; the rule does not read it."""
+    """fp32 takes the simt design; the bf16 shapes here are refused by tc and
+    by simt (H = 20, 48, 80: neither 16 nor a multiple of 32; 512: a cluster
+    of 16) and take l2. ``layers``: l2 takes up to 8; the rule does not read
+    it."""
     plan = bigru.k1_plan(hidden, cell, dtype)
-    assert plan["design"] == "simt" and why in plan["why"]
+    want = "simt" if dtype == torch.float32 else "l2"
+    assert plan["design"] == want and why in plan["why"]
+    if want == "l2":
+        assert plan["why_not_simt"].startswith("simt: ")
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_k1_plan_simt_is_the_training_forwards_geometry(hidden, cell):
+    """fp32 K1 and K2 run the training forward's simt recurrence, so the
+    rule gives k45_plan's U, clusters and forward tile: U = min(H, 32), H / U
+    CTAs, 1024 UPT / U rows (UPT = 1 for the LSTM at H = 256)."""
+    plan = bigru.k1_plan(hidden, cell, torch.float32)
+    k45 = bigru_vjp.k45_plan(hidden, torch.float32, cell)
+    assert plan["design"] == k45["design"] == "simt"
+    assert (plan["U"], plan["CN"], plan["rows"], plan["smem"]) == (
+        k45["U"], k45["CN"], k45["rows_fwd"], k45["smem_fwd"])
+    assert plan["U"] == min(hidden, 32) and plan["U"] * plan["CN"] == hidden
+    upt = 1 if (cell, hidden) == ("lstm", 256) else 2
+    assert plan["rows"] == 1024 * upt // plan["U"] and plan["smem"] <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("seq_len,d,ff,nhead", [(21, 256, 512, 4), (21, 64, 128, 4),
@@ -226,6 +249,29 @@ def test_cpu_stack_launches_nothing(cell, dtype):
     assert _counts() == before and bigru.plain_calls == plain + 1
     ref_out, ref_hn = birnn_tm(layers, x, None, dt, cell)
     assert torch.equal(out, ref_out) and torch.equal(hn, ref_hn)
+
+
+def _layer_counts():
+    return (bigru.launches, bigru.cuda_launches, dict(bigru.design_calls),
+            bigru.layer_launches, bigru.layer_cuda_launches,
+            dict(bigru.layer_design_calls))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_cpu_layers_launch_nothing(cell, dtype):
+    """On a CPU tensor K2 runs its plain version once a layer: it counts no
+    K2 call, CUDA launch or design call, and nothing of K1's."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(9)
+    layers = [layer_weights(ld, dt) for ld in init_rnn_params(rng, 11, 16, 2, cell)]
+    x = torch.from_numpy(rng.randn(5, 3, 11).astype(np.float32)).to(dt)
+    before, plain, k1_plain = _layer_counts(), bigru.layer_plain_calls, bigru.plain_calls
+    out, hn = bigru.birnn_layers(layers, x, dt, cell)
+    assert _layer_counts() == before
+    assert (bigru.layer_plain_calls, bigru.plain_calls) == (plain + 2, k1_plain)
+    ref_out, _ref_hn = birnn_tm(layers, x, None, dt, cell)
+    assert torch.equal(out, ref_out)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,7 +1,12 @@
-"""Kernel K1 against its plain PyTorch version on the card: the f32 kernel
-(ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu) and the bf16 tensor-core design
-(csrc/birnn_tc.cu), the latter also phase by phase, with bit-equal reruns and
-the shape rule's choice. Needs a CUDA device and skips without one.
+"""Kernels K1 and K2 against their plain PyTorch versions on the card, in
+the three designs of the shape rule ``k1_plan``: simt (fp32; K4's projection
+and the inference instantiation of the training forward's cluster recurrence,
+csrc/birnn_simt.cu), tc (bf16 on the tensor cores, csrc/birnn_tc.cu, also
+phase by phase) and l2 (the first f32 kernel, csrc/bigru_stack.cu, for the
+shapes neither takes); with bit-equal reruns, K1 = a chain of the training
+forwards in fp32, and each call's CUDA launches (K1 = K2 and K2 in its
+other designs: tests/test_torch_transenc_kernels_cuda.py). Needs a CUDA
+device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -14,7 +19,7 @@ import torch
 
 from ccsmeth_tpu_torch.models.rnn import (gru_cell, init_rnn_params, layer_weights,
                                           lstm_cell, n_gates)
-from ccsmeth_tpu_torch.ops import bigru
+from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp
 
 # tolerances of chip_smoke.py: fp32 1e-5 (measured 2.7e-7 at full width);
 # bf16 1e-2, one bf16 ulp on [0.25, 0.5) plus margin, since an f32 sum taken
@@ -162,21 +167,118 @@ def test_tc_recurrence_matches_the_plain_cell(cell, hidden, rows):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_shape_rule_picks_the_design(cell):
     """The model's shape (H = 256, 1024 rows) takes the tensor-core design in
-    bf16 and the f32 kernel in fp32; a bf16 H that the rule refuses (20)
-    takes the f32 kernel and still matches the plain version. A tc call is
-    two CUDA launches a layer (projection, recurrence), a simt call one."""
+    bf16 and the simt design in fp32; a bf16 H that tc and simt refuse (20)
+    takes the l2 kernel and still matches the plain version. A tc or simt
+    call is two CUDA launches a layer (projection, recurrence), an l2 call
+    one."""
     _need_card()
     for hidden, dt, design in ((256, torch.bfloat16, "tc"), (256, torch.float32, "simt"),
-                               (20, torch.bfloat16, "simt")):
+                               (20, torch.bfloat16, "l2")):
         assert bigru.k1_plan(hidden, cell, dt)["design"] == design
         ly, x = _stack(1024 if hidden == 256 else 37, hidden, cell, dt)
         before, cuda_before = dict(bigru.design_calls), bigru.cuda_launches
         out, _hn = bigru.birnn_stack(ly, x, dt, cell)
         torch.cuda.synchronize()
         assert bigru.design_calls[design] == before[design] + 1
-        assert bigru.cuda_launches - cuda_before == (2 * len(ly) if design == "tc" else 1)
-        other = "simt" if design == "tc" else "tc"
-        assert bigru.design_calls[other] == before[other]
+        assert bigru.cuda_launches - cuda_before == (1 if design == "l2" else 2 * len(ly))
+        for other in set(before) - {design}:
+            assert bigru.design_calls[other] == before[other]
         if hidden == 20:
             ref, _ = bigru.birnn_stack_plain(ly, x, dt, cell)
             assert (out.float() - ref.float()).abs().max().item() <= TOL["bfloat16"]
+
+
+def _k2_counts():
+    return (bigru.launches, bigru.cuda_launches, dict(bigru.design_calls),
+            bigru.layer_launches, bigru.layer_cuda_launches,
+            dict(bigru.layer_design_calls), bigru.layer_plain_calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 256])
+@pytest.mark.parametrize("rows", RAGGED)
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_simt_design_matches_plain(cell, rows, hidden, layers):
+    """K1 in fp32 (the simt design) against the plain version at ragged row
+    counts, clusters of 1, 2 and 8 CTAs and 2- and 1-unit threads (the LSTM
+    at H = 256): two CUDA launches a layer, and bit-equal on a rerun."""
+    _need_card()
+    dt = torch.float32
+    assert bigru.k1_plan(hidden, cell, dt)["design"] == "simt"
+    ly, x = _stack(rows, hidden, cell, dt, layers)
+    before, cuda_before = bigru.design_calls["simt"], bigru.cuda_launches
+    out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    assert bigru.cuda_launches - cuda_before == 2 * layers
+    out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
+    torch.cuda.synchronize()
+    assert bigru.design_calls["simt"] == before + 2
+    assert torch.equal(out, out2) and torch.equal(hn, hn2)
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert out.shape == (21, rows, 2 * hidden) and hn.shape == (2 * layers, rows, hidden)
+    assert (out - ref_out).abs().max().item() <= TOL["float32"]
+    assert (hn - ref_hn).abs().max().item() <= TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,rows", [(16, 13), (64, 1000), (256, 1029)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_simt_out_is_a_chain_of_training_forwards(cell, hidden, rows):
+    """In fp32 K1 runs the training forward's projection and recurrence
+    without its residual stores: its out is bit-equal to K4's (GRU) or
+    K6's (LSTM) forward applied layer by layer, and its h_n to those
+    outputs' last step of each direction."""
+    _need_card()
+    dt = torch.float32
+    ly, x = _stack(rows, hidden, cell, dt)
+    out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    fwd = (bigru_vjp.bigru_layer_train_fwd if cell == "gru"
+           else bilstm_vjp.bilstm_layer_train_fwd)
+    inp, h_ns = x, []
+    for wih, bih, whh, bhh in ly:
+        inp = fwd(inp, wih, bih, whh, bhh, dt)[0]
+        h_ns += [inp[-1, :, :hidden], inp[0, :, hidden:]]
+    torch.cuda.synchronize()
+    assert torch.equal(out, inp)
+    assert torch.equal(hn, torch.stack(h_ns))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_h20_takes_l2(dtype, cell):
+    """H = 20, which tc and simt refuse, runs K2 on the l2 kernel (one CUDA
+    launch) and matches the plain version."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    assert bigru.k1_plan(20, cell, dt)["design"] == "l2"
+    rng = np.random.RandomState(20)
+    layer = layer_weights(init_rnn_params(rng, 11, 20, 1, cell)[0], dt, "cuda")
+    x = torch.from_numpy(rng.randn(21, 37, 11).astype(np.float32)).to("cuda", dt)
+    before = _k2_counts()
+    out = bigru.bigru_layer_tm(layer, x, dt, cell)
+    torch.cuda.synchronize()
+    after = _k2_counts()
+    assert (after[3] - before[3], after[4] - before[4]) == (1, 1)
+    assert after[5]["l2"] - before[5]["l2"] == 1 and after[:3] == before[:3]
+    ref = bigru.bigru_layer_tm_plain(layer, x, dt, cell)
+    assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,rows", [(16, 13), (256, 1029)])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_simt_design_in_bf16_matches_plain(cell, hidden, rows):
+    """The simt design's bf16 instantiation, which the rule gives the bf16
+    shapes that tc refuses and simt takes (none of H = 16 .. 256 today), run
+    by hand with the simt geometry against the plain version."""
+    _need_card()
+    dt = torch.bfloat16
+    plan = bigru.k1_plan(hidden, cell, torch.float32)
+    ly, x = _stack(rows, hidden, cell, dt)
+    out, hn = bigru._stack_layers(ly, x, dt, cell, hidden, plan)
+    torch.cuda.synchronize()
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert out.dtype == dt
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL["bfloat16"]
+    assert (hn - ref_hn).abs().max().item() <= TOL["bfloat16"]

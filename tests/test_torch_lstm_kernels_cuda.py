@@ -11,6 +11,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
 (tests/conftest.py imports JAX).
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -302,3 +304,44 @@ def test_lstm_kernels_reject_what_they_cannot_take():
         bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, torch.bfloat16)
     with pytest.raises(ValueError):  # LSTM weights given to the GRU cell
         bigru.birnn_stack([(wih, bih, whh, bhh)], x, torch.float32, "gru")
+
+
+# sha256 of K6's forward (out, c, gates) and backward (five gradients) on
+# ``_case(rows, hidden, cin, dtype)``, taken on an H100 from the kernels as
+# they were before the simt forward recurrence of csrc/rnn_train_rec.cuh took
+# its inference switch (K1's and K2's simt design): the switch leaves every
+# bit of K6 as it was.
+K6_DIGESTS = {
+    (13, 16, 11, 'float32'): "27a5333ee06e32a6d8eae62be3969d3185ddf3f1279ab080a424b9d0d158f059",
+    (13, 16, 11, 'bfloat16'): "35a56af56f78ee6ea72a52a31b5b0063ceea004c0de06eec2759d62ee0538748",
+    (65, 32, 11, 'float32'): "daa9a63bbf73acd22573854597cf331459178de08b8ee46aa34930447055f6d5",
+    (65, 32, 11, 'bfloat16'): "833e69ab225ed454a6aa42ee1e55fcceb8a853182e03a59bb569d83609da1fa5",
+    (300, 64, 128, 'float32'): "6d8593209e7fa43be1040e7e788f76dae8b73f955f74149b91a61f32b55eb96a",
+    (300, 64, 128, 'bfloat16'): "b55bf5e09ea4d6a38cec629b0a2f74d8eb32b100609474306838354ca69a6613",
+    (1000, 256, 512, 'float32'): "a47aa601557fb0f5ae267f720e73331c69226840b16a4e4e1d72c58e619ee5bc",
+    (1000, 256, 512, 'bfloat16'): "0d6119ede16b996464209ee16e5e9007c5c2d98241b92d0792632db8131183ab",
+    (1024, 256, 11, 'float32'): "8642d22c68a0ac3647a3e3016743a776c0d6ee37328cdea8a14a71543e904d4c",
+    (1024, 256, 11, 'bfloat16'): "7a55a851fe90b202265ce333c41a260dd16339d32611ab99eb3b0ebba573b212",
+}
+
+
+def k6_digest(rows, hidden, cin, dtype):
+    """sha256 over the bytes of K6's forward and backward outputs on one
+    case."""
+    dt = getattr(torch, dtype)
+    x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
+    res = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    grads = bilstm_vjp.bilstm_layer_bwd(dout, x, wih, whh, *res, dt)
+    h = hashlib.sha256()
+    for t in tuple(res) + tuple(grads):
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K6_DIGESTS))
+def test_k6_outputs_bit_equal_to_before_the_inference_switch(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rows, hidden, cin, dtype = case
+    assert k6_digest(rows, hidden, cin, dtype) == K6_DIGESTS[case]

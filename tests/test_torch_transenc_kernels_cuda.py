@@ -1,9 +1,9 @@
 """Kernels K3 (the transencoder2s encoder + mean: the f32 kernel
 ccsmeth_tpu_torch/ops/csrc/transenc_encoder.cu and the bf16 tensor-core
-design csrc/transenc_tc.cu) and K2 (bigru_layer_launch in
-ccsmeth_tpu_torch/ops/csrc/bigru_stack.cu, one bidirectional GRU or LSTM
-layer) against their plain PyTorch versions on the card. Needs a CUDA device
-and skips without one.
+design csrc/transenc_tc.cu) and K2 (one bidirectional GRU or LSTM layer in
+K1's design: ccsmeth_tpu_torch/ops/csrc/birnn_simt.cu with K4's projection
+in fp32, csrc/birnn_tc.cu in bf16) against their plain PyTorch versions on
+the card. Needs a CUDA device and skips without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_transenc_kernels_cuda.py
@@ -123,39 +123,66 @@ def test_encoder_kernel_rejects_what_it_cannot_take():
                                                 dtype=torch.bfloat16))
 
 
+def _k2_counts():
+    return (bigru.launches, bigru.cuda_launches, dict(bigru.design_calls),
+            bigru.layer_launches, bigru.layer_cuda_launches,
+            dict(bigru.layer_design_calls), bigru.layer_plain_calls)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("rows,cin,hidden", [(1024, 11, 256), (1024, 512, 256),
-                                             (13, 11, 64)])
+                                             (13, 11, 64), (1, 512, 256),
+                                             (1029, 11, 256)])
 def test_layer_kernel_matches_plain(dtype, cell, rows, cin, hidden):
     """One layer at the call_mods path's shapes (layer 0: C = 11, layers 1
-    and 2: C = 2H) and a ragged small tile."""
+    and 2: C = 2H) and ragged row counts, in the design the shape rule picks
+    (simt in fp32, tc in bf16): two CUDA launches, counted as K2's and not
+    K1's, bit-equal on a rerun. Through ``birnn_layers`` h_n is the stored
+    output at each direction's last step, widened."""
     _need_card()
     dt = getattr(torch, dtype)
+    design = bigru.k1_plan(hidden, cell, dt)["design"]
+    assert design == ("simt" if dtype == "float32" else "tc")
     rng = np.random.RandomState(rows + cin)
     ly = layer_weights(init_rnn_params(rng, cin, hidden, 1, cell)[0], dt, "cuda")
     x = torch.from_numpy(rng.randn(21, rows, cin).astype(np.float32)).to("cuda", dt)
-    before = bigru.layer_launches, bigru.launches
+    before = _k2_counts()
     out = bigru.bigru_layer_tm(ly, x, dt, cell)
+    after = _k2_counts()
+    assert after[:3] == before[:3]  # nothing of K1's
+    assert (after[3] - before[3], after[4] - before[4]) == (1, 2)
+    assert after[5][design] - before[5][design] == 1 and after[6] == before[6]
+    again, hn = bigru.birnn_layers([ly], x, dt, cell)
     torch.cuda.synchronize()
-    assert (bigru.layer_launches, bigru.launches) == (before[0] + 1, before[1])
+    assert torch.equal(out, again)
+    assert torch.equal(hn[0], out[-1, :, :hidden].float())
+    assert torch.equal(hn[1], out[0, :, hidden:].float())
     ref = bigru.bigru_layer_tm_plain(ly, x, dt, cell)
     assert out.dtype == dt and out.shape == (21, rows, 2 * hidden)
     assert (out.float() - ref.float()).abs().max().item() <= K2_TOL[dtype]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hidden,rows", [(32, 13), (64, 1029), (256, 300)])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-def test_layers_equal_the_stack_kernel_in_fp32(cell):
-    """K2 runs K1's device code one layer at a time, so in fp32 the stack
-    through K2 equals K1's output and h_n bit for bit."""
+def test_layers_equal_the_stack_kernel_in_fp32(cell, hidden, rows):
+    """K2 runs K1's launches one layer at a time, so in fp32 the stack
+    through K2 equals K1's output and h_n (K2's rebuilt from the outputs,
+    which hold the f32 state) bit for bit; K2 counts its own calls and CUDA
+    launches, K1's stay."""
     _need_card()
-    rng = np.random.RandomState(7)
+    rng = np.random.RandomState(7 + hidden)
     ly = [layer_weights(ld, torch.float32, "cuda")
-          for ld in init_rnn_params(rng, 11, 256, 3, cell)]
-    x = torch.from_numpy(rng.randn(21, 300, 11).astype(np.float32)).cuda()
+          for ld in init_rnn_params(rng, 11, hidden, 3, cell)]
+    x = torch.from_numpy(rng.randn(21, rows, 11).astype(np.float32)).cuda()
+    before = _k2_counts()
     out, hn = bigru.birnn_layers(ly, x, torch.float32, cell)
+    after = _k2_counts()
+    assert after[:3] == before[:3]
+    assert (after[3] - before[3], after[4] - before[4]) == (3, 6)
+    assert after[5]["simt"] - before[5]["simt"] == 3
     out1, hn1 = bigru.birnn_stack(ly, x, torch.float32, cell)
     torch.cuda.synchronize()
     assert torch.equal(out, out1) and torch.equal(hn, hn1)
