@@ -1,7 +1,9 @@
-// Kernel K3: the whole transencoder2s encoder plus the mean over positions,
-// for one tile of samples per block, in ONE launch: NL post-LayerNorm
-// layers (multi-head self-attention over each sample's own L positions, then
-// a ReLU feed-forward), then mean over L. Inference only, no dropout.
+// Kernel K3, design l2 (the first f32 kernel, kept for the shapes that the
+// simt and tc designs refuse): the whole transencoder2s encoder plus the
+// mean over positions, for one tile of samples per block, in ONE launch: NL
+// post-LayerNorm layers (multi-head self-attention over each sample's own L
+// positions, then a ReLU feed-forward), then mean over L. Inference only,
+// no dropout.
 //
 // Replaces: ccsmeth_tpu/ops/transenc_pallas.py::_make_encoder_kernel (:144;
 //   the default body :261-327), launched there by _encoder_call (:335)
@@ -28,9 +30,10 @@
 //   cores, no tensor cores. The weights (12.6 MB in fp32 for six layers,
 //   6.3 MB in bf16) stay resident in the 50 MB L2 and are streamed from
 //   there; each block reads every weight once per tile of S samples, so L2
-//   traffic is 12.6 MB per tile. It serves fp32 (exact f32 arithmetic, no
-//   TF32) and the bf16 shapes that ops/transenc.py's k3_plan refuses; every
-//   other bf16 call runs transenc_tc.cu, the tensor-core design.
+//   traffic is 12.6 MB per tile. It serves the shapes that ops/transenc.py's
+//   k3_plan sends to neither transenc_simt.cu (fp32, 64 rows a CTA, the
+//   weights through a shared ring) nor transenc_tc.cu (bf16 on the tensor
+//   cores), in fp32 (exact f32 arithmetic, no TF32) or bf16.
 //
 // Design:
 //   - one block of 256 threads (8 warps) owns S samples, M = S*L rows,

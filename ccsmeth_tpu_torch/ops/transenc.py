@@ -21,17 +21,25 @@ the operand type as the kernel does. ``launches`` and ``plain_calls`` count
 the two; ``cuda_launches`` counts the CUDA launches (one a call), where each
 is made. The kernel is compiled with ``nvcc`` at first use (``nvcc.py``).
 
-K3 has two designs, and ``k3_plan`` is the shape rule that picks one for a
-CUDA call (``design_calls`` counts the calls each design took):
+K3 has three designs, and ``k3_plan`` is the shape rule that picks one for
+a CUDA call (``design_calls`` counts the calls each design took):
 
-- ``tc`` (``csrc/transenc_tc.cu``), bf16 on the tensor cores: 64 rows a CTA
-  (S = 64 // L samples), each product's weight streamed from its row-major
-  copy through a ring of 32 x 128 tiles, 128-column chunk after chunk, each
-  from k = 0 to K. It takes bf16 with L <= 32, D and FF multiples of 32,
-  D / nhead a multiple of 8, and shared memory within 227 KB;
-- ``simt`` (``csrc/transenc_encoder.cu``), the f32-FMA kernel: fp32 always
-  (no TF32), and every bf16 shape that ``tc`` does not take. Its own limits
-  (L <= 32, D and FF multiples of 4) raise.
+- ``simt`` (``csrc/transenc_simt.cu``), fp32 on the CUDA cores (exact f32
+  FMAs, no TF32): 64 rows a CTA (S = 64 // L samples), every product's
+  weight streamed through one cp.async ring of 16-row slabs that the CTA's
+  8 warps share, 8 x TN outputs a thread; one head's q | k | v at a time,
+  the feed-forward in 192-column chunks of its hidden layer. It takes fp32
+  with L <= 32, D a multiple of 16 up to 256, a head width that is a
+  multiple of 4 up to 64, FF a multiple of 16;
+- ``tc`` (``csrc/transenc_tc.cu``), bf16 on the tensor cores: 64 rows a CTA,
+  each product's weight streamed from its row-major copy through a ring of
+  32 x 128 tiles, 128-column chunk after chunk, each from k = 0 to K. It
+  takes bf16 with L <= 32, D and FF multiples of 32, D / nhead a multiple
+  of 8, and shared memory within 227 KB;
+- ``l2`` (``csrc/transenc_encoder.cu``), the first f32-FMA kernel (42 rows
+  a CTA at L = 21, each warp reading the weights from L2): every shape that
+  the other two refuse, in fp32 or bf16 (x and the weights in the operand
+  type). Its own limits (L <= 32, D and FF multiples of 4) raise.
 """
 
 from __future__ import annotations
@@ -45,29 +53,37 @@ import torch.nn.functional as F
 from . import nvcc
 from .kernel_args import DTYPE_CODE, SMEM_LIMIT
 
-SRC = "transenc_encoder.cu"
+SRC = "transenc_encoder.cu"  # K3's l2 design
 TC_SRC = "transenc_tc.cu"  # K3's bf16 tensor-core design
+SIMT_SRC = "transenc_simt.cu"  # K3's fp32 design
 # the kernel's argument order
 NAMES = ("wqkv", "wo", "w1", "w2", "bqkv", "bo", "b1", "b2",
          "ln1s", "ln1b", "ln2s", "ln2b")
 WARPS = 8  # ENC_WARPS in csrc/transenc_encoder.cu
 LMAX = 32  # ENC_LMAX
 TC_ROWS, TC_BK, TC_BN, TC_STAGES = 64, 32, 128, 3  # TE_* in csrc/transenc_tc.cu
+# TS_* in csrc/transenc_simt.cu: threads and rows a CTA, the rows' k-major
+# stride, ring slab k rows, ring stages, widest slab, FF hidden columns a
+# chunk, the largest D and head width
+SIMT_THREADS, SIMT_ROWS, SIMT_LD = 256, 64, 68
+SIMT_BK, SIMT_STAGES, SIMT_WMAX = 16, 2, 256
+SIMT_FC, SIMT_DMAX, SIMT_HDMAX = 192, 256, 64
 
 launches = 0  # kernel launches since the caller last set it to 0
 cuda_launches = 0  # K3's CUDA launches, counted at each launch
 plain_calls = 0  # plain-version runs (CPU tensors, or encoder_pooled_plain)
-design_calls = {"tc": 0, "simt": 0}  # encoder_pooled's CUDA calls by design
+design_calls = {"simt": 0, "tc": 0, "l2": 0}  # encoder_pooled's CUDA calls by design
 
 _lib = None
 _tc_lib = None
+_simt_lib = None
 _lock = threading.Lock()
 
 
 def build(src: str = SRC) -> str:
-    """Compile ``csrc/<src>`` (``SRC`` or ``TC_SRC``) if its library is
-    missing; returns the library path. Raises with nvcc's output when the
-    build fails."""
+    """Compile ``csrc/<src>`` (``SRC``, ``TC_SRC`` or ``SIMT_SRC``) if its
+    library is missing; returns the library path. Raises with nvcc's output
+    when the build fails."""
     return nvcc.build(src)[0]
 
 
@@ -81,6 +97,18 @@ def _load_tc():
             fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             _tc_lib = lib
     return _tc_lib
+
+
+def _load_simt():
+    global _simt_lib
+    with _lock:
+        if _simt_lib is None:
+            lib = ctypes.CDLL(build(SIMT_SRC))
+            fn = lib.transenc_simt_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            _simt_lib = lib
+    return _simt_lib
 
 
 def _load():
@@ -202,15 +230,47 @@ def tile_shape(L: int, D: int, FF: int) -> tuple[int, int, int]:
                      "FF={})".format(L, D, FF))
 
 
+def simt_smem(L: int, D: int, FF: int, nhead: int) -> int:
+    """Shared memory a CTA of the simt design takes, in bytes: x and the
+    context (D columns each), one head's q | k | v or a chunk of the hidden
+    layer (max(3 HD, SIMT_FC) columns), all k-major with stride SIMT_LD; the
+    ring; LayerNorm's partial sums (2 x 256). ``transenc_simt_smem`` in the
+    source."""
+    hb = max(3 * (D // nhead), SIMT_FC)
+    return ((2 * D + hb) * SIMT_LD + SIMT_STAGES * SIMT_BK * SIMT_WMAX
+            + 2 * SIMT_THREADS) * 4
+
+
+def _why_not_simt(L, D, FF, nhead):
+    """Why the simt design does not take an fp32 shape, or None."""
+    if L > LMAX:
+        return "L > {}".format(LMAX)
+    if D % SIMT_BK or D > SIMT_DMAX or FF % SIMT_BK:
+        return "D or FF not a multiple of {}, or D > {}".format(SIMT_BK, SIMT_DMAX)
+    hd = D // nhead if nhead >= 1 and D % nhead == 0 else 0
+    if hd < 4 or hd % 4 or hd > SIMT_HDMAX:
+        return "head width {} not a multiple of 4 up to {}".format(hd, SIMT_HDMAX)
+    smem = simt_smem(L, D, FF, nhead)
+    if smem > SMEM_LIMIT:
+        return "{} bytes of shared memory a CTA".format(smem)
+    return None
+
+
 def k3_plan(L: int, D: int, FF: int, nhead: int, compute_dtype=torch.bfloat16) -> dict:
     """The shape rule that picks K3's design for a CUDA call (module
     docstring). Returns {"design": "tc", "S" (samples a CTA), "smem" (bytes
-    a CTA)} or {"design": "simt", "why"}."""
+    a CTA)}, {"design": "simt", "S", "smem", "why"} or {"design": "l2",
+    "why"}; "why" says why not tc (and, for l2 in fp32, why not simt)."""
     smem = (TC_ROWS * (D + 8) * 6 + TC_ROWS * (max(3 * D, FF) + 8) * 2
             + TC_STAGES * TC_BK * (TC_BN + 8) * 2)
     if compute_dtype != torch.bfloat16:
         why = "fp32 keeps exact f32 arithmetic"
-    elif L > LMAX:
+        no_simt = _why_not_simt(L, D, FF, nhead)
+        if no_simt is None:
+            return {"design": "simt", "S": SIMT_ROWS // L,
+                    "smem": simt_smem(L, D, FF, nhead), "why": why}
+        return {"design": "l2", "why": "{}; simt: {}".format(why, no_simt)}
+    if L > LMAX:
         why = "L > {}".format(LMAX)
     elif D % 32 or FF % 32:
         why = "D or FF not a multiple of 32"
@@ -220,34 +280,26 @@ def k3_plan(L: int, D: int, FF: int, nhead: int, compute_dtype=torch.bfloat16) -
         why = "{} bytes of shared memory a CTA".format(smem)
     else:
         return {"design": "tc", "S": TC_ROWS // L, "smem": smem}
-    return {"design": "simt", "why": why}
+    return {"design": "l2", "why": why}
 
 
-def encoder_pooled(stacked, x: torch.Tensor, compute_dtype=torch.float32,
-                   nhead: int = 4) -> torch.Tensor:
-    """The encoder stack and the mean over positions: kernel K3 on CUDA, the
-    plain version on CPU. See the module docstring for shapes and for
-    ``k3_plan``, which picks the design. No fallback: a CUDA input that the
-    chosen design cannot take, or a failed build or launch, raises."""
+def _launch(design, plan, stacked, x, compute_dtype, nhead, dims):
+    """One CUDA launch of K3 in ``design`` (x and the weights checked by
+    ``_check``); counts it. Raises when the launch fails."""
     global launches, cuda_launches
-    NL, L, D, FF = _check(stacked, x, compute_dtype, nhead)
-    if x.device.type == "cpu":
-        return encoder_pooled_plain(stacked, x, compute_dtype, nhead)
-    if x.device.type != "cuda":
-        raise ValueError("encoder_pooled runs on cuda or cpu, not {}".format(
-            x.device.type))
+    NL, L, D, FF = dims
     if x.data_ptr() % 16 or any(stacked[n].data_ptr() % 16 for n in NAMES):
         raise ValueError("kernel operands must be 16-byte aligned")
-    plan = k3_plan(L, D, FF, nhead, compute_dtype)
     N = x.shape[0]
     out = torch.empty((N, D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [stacked[n].data_ptr() for n in NAMES]
-    if plan["design"] == "tc":
-        lib = _load_tc()
+    if design in ("tc", "simt"):
+        lib = _load_tc() if design == "tc" else _load_simt()
+        fn = lib.transenc_tc_launch if design == "tc" else lib.transenc_simt_launch
         with torch.cuda.device(x.device):
-            rc = lib.transenc_tc_launch(x.data_ptr(), out.data_ptr(), *ptrs,
-                                        N, L, D, nhead, FF, NL, plan["S"], stream)
+            rc = fn(x.data_ptr(), out.data_ptr(), *ptrs, N, L, D, nhead, FF, NL,
+                    plan["S"], stream)
     else:
         if L > LMAX or D % 4 != 0 or FF % 4 != 0:
             raise ValueError("kernel takes L <= 32 and D, FF multiples of 4 "
@@ -259,13 +311,40 @@ def encoder_pooled(stacked, x: torch.Tensor, compute_dtype=torch.float32,
                 DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(), *ptrs,
                 N, L, D, nhead, FF, NL, S, R, ld, stream)
     if rc != 0:
-        raise RuntimeError("transenc_{} launch failed: cudaError {}".format(
-            plan["design"], rc))
-    # either design is one CUDA launch
+        raise RuntimeError("transenc_{} launch failed: cudaError {}".format(design, rc))
+    # every design is one CUDA launch
     cuda_launches += 1
     launches += 1
-    design_calls[plan["design"]] += 1
+    design_calls[design] += 1
     return out
+
+
+def _encoder_l2(stacked, x: torch.Tensor, compute_dtype=torch.float32,
+                nhead: int = 4) -> torch.Tensor:
+    """The l2 design on a CUDA input, whatever ``k3_plan`` would pick: the
+    kept first kernel, called directly to hold it against the plain
+    version."""
+    dims = _check(stacked, x, compute_dtype, nhead)
+    if x.device.type != "cuda":
+        raise ValueError("the l2 design runs on cuda, not {}".format(x.device.type))
+    return _launch("l2", None, stacked, x, compute_dtype, nhead, dims)
+
+
+def encoder_pooled(stacked, x: torch.Tensor, compute_dtype=torch.float32,
+                   nhead: int = 4) -> torch.Tensor:
+    """The encoder stack and the mean over positions: kernel K3 on CUDA, the
+    plain version on CPU. See the module docstring for shapes and for
+    ``k3_plan``, which picks the design. No fallback: a CUDA input that the
+    chosen design cannot take, or a failed build or launch, raises."""
+    dims = _check(stacked, x, compute_dtype, nhead)
+    if x.device.type == "cpu":
+        return encoder_pooled_plain(stacked, x, compute_dtype, nhead)
+    if x.device.type != "cuda":
+        raise ValueError("encoder_pooled runs on cuda or cpu, not {}".format(
+            x.device.type))
+    _NL, L, D, FF = dims
+    plan = k3_plan(L, D, FF, nhead, compute_dtype)
+    return _launch(plan["design"], plan, stacked, x, compute_dtype, nhead, dims)
 
 
 def encoder_flops(N: int, L: int, D: int, FF: int, NL: int) -> int:

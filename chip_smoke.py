@@ -21,9 +21,13 @@ does not print its last line:
      for bit-equal outputs and each phase's time (projections, recurrence,
      the recurrence on 1 and 15 row tiles); kernel K3
      (transencoder2s: 6 layers, d_model 256, 4 heads, FF 512, L=21; fp32:
-     ops/csrc/transenc_encoder.cu, bf16: ops/csrc/transenc_tc.cu) at
-     2B = 1024 and 16384 samples, fp32 and bf16, beside its plain version,
-     nn.TransformerEncoder + mean and the bound;
+     the simt design ops/csrc/transenc_simt.cu, bf16: the tensor-core design
+     ops/csrc/transenc_tc.cu) at 2B = 1024 and 16384 samples, fp32 and
+     bf16, beside its plain version, nn.TransformerEncoder + mean and the
+     bound, with one CTA alone and one full wave timed at 1024 samples; and
+     K3's l2 design (ops/csrc/transenc_encoder.cu, the first f32 kernel,
+     the shapes the other two refuse; no model's path runs it) called
+     directly, against the plain version;
      kernel K2 (one layer of K1's design: simt in fp32, tc in bf16), one
      layer of each cell at C = 11 and 512, 1024 rows, beside a one-layer
      cuDNN nn.GRU / nn.LSTM, with its phases; and the l2 design
@@ -99,6 +103,12 @@ SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu"
 # round a product operand to the neighbouring bf16 value and six layers
 # carry that on
 K3_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# K3 simt's phase probe: its build's macro and the phases it counts
+# (TS_PROFILE in ops/csrc/transenc_simt.cu)
+K3_PROBE_DEFINES = ("TS_PROFILE",)
+K3_PHASES = ("load_x", "qkv", "attention", "out_proj", "ln1", "ff1", "ff2", "ln2",
+             "mean")
+K3_TILES = (8, 6, 4)  # product tiles (TN) whose calls the probe times
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -154,13 +164,15 @@ def phase_build():
 
     from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp, nvcc, transenc
 
-    def build(src):
+    def build(src_defines):
         t0 = time.time()
-        so, log = nvcc.build(src)
+        so, log = nvcc.build(*src_defines)
         return so, log, time.time() - t0
 
-    srcs = (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru_vjp.SRC, bilstm_vjp.SRC,
-            transenc.SRC, transenc.TC_SRC)
+    srcs = [(src, ()) for src in (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru_vjp.SRC,
+                                  bilstm_vjp.SRC, transenc.SRC, transenc.TC_SRC,
+                                  transenc.SIMT_SRC)]
+    srcs.append((transenc.SIMT_SRC, K3_PROBE_DEFINES))  # K3 simt's phase probe
     t0 = time.time()
     with ThreadPoolExecutor(len(srcs)) as ex:
         built = list(ex.map(build, srcs))
@@ -367,12 +379,69 @@ def _torch_encoder(torch, params, dt):
     return enc.to("cuda", dt).eval()
 
 
-def phase_k3_kernels(torch, smi):
-    """K3 at the call_mods path's shapes (transencoder2s at full width,
-    2B = 1024 and 16384 samples) against its plain version, timed beside it,
-    nn.TransformerEncoder + mean and the bound. The input is random normal,
-    the scale of the embedded, positioned encoder input; the biases and
-    LayerNorm parameters are random too, so each of K3's operands counts."""
+def _k3_waves(torch, fn, x, S):
+    """One CTA (S samples), and one CTA on every SM: a CTA's time alone and
+    in a full wave. About equal: the CTA's own chain sets the pace; a wave
+    much slower: what the CTAs share (L2) does."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"samples_a_cta": S, "sms": n_sm,
+            "one_cta_ms": time_ms(lambda: fn(x[:S]), torch),
+            "one_wave_ms": time_ms(lambda: fn(x[:S * n_sm]), torch)}
+
+
+def _k3_simt_phases(torch, st, x, nhead, S):
+    """The probe build of K3's simt design (-DTS_PROFILE, never the
+    wrapper's library): the cycles thread 0 of CTA 0 spends in each phase,
+    on one CTA alone and on a full wave (a warm-up launch first), with each
+    phase's share, and for each product tile the cycles a call spends in
+    its prologue (until its first weight slab is in), its slab loop and its
+    epilogue. Its launches are not the wrapper's and count nowhere."""
+    import ctypes
+
+    from ccsmeth_tpu_torch.ops import nvcc, transenc
+
+    lib = ctypes.CDLL(nvcc.build(transenc.SIMT_SRC, K3_PROBE_DEFINES)[0])
+    lib.transenc_simt_launch.restype = ctypes.c_int
+    lib.transenc_simt_launch.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                                         + [ctypes.c_void_p])
+    lib.transenc_simt_profile.restype = ctypes.c_int
+    lib.transenc_simt_profile.argtypes = [ctypes.c_void_p]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _N, Lx, D = x.shape
+    NLx, FF = st["w1"].shape[0], st["w1"].shape[2]
+    ptrs = [st[k].data_ptr() for k in transenc.NAMES]
+    res = {}
+    for name, n in (("one_cta", S), ("one_wave", S * n_sm)):
+        out = torch.empty((n, D), device="cuda")
+        counts = (ctypes.c_ulonglong * (len(K3_PHASES) + 4 * len(K3_TILES)))()
+        for _ in range(2):  # the first launch warms up; its counts are dropped
+            assert lib.transenc_simt_profile(counts) == 0
+            rc = lib.transenc_simt_launch(x.data_ptr(), out.data_ptr(), *ptrs, n, Lx, D,
+                                          nhead, FF, NLx, S,
+                                          torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, rc
+            torch.cuda.synchronize()
+        assert lib.transenc_simt_profile(counts) == 0
+        phases, calls = counts[:len(K3_PHASES)], counts[len(K3_PHASES):]
+        total = sum(phases)
+        per_call = {}
+        for i, tn in enumerate(K3_TILES):
+            pro, loop, epi, n = calls[4 * i:4 * i + 4]
+            if n:
+                per_call["TN={}".format(tn)] = {
+                    "calls": n, "prologue_cycles": pro / n, "loop_cycles": loop / n,
+                    "epilogue_cycles": epi / n}
+        res[name] = {"cycles": total,
+                     "shares": {k: c / total for k, c in zip(K3_PHASES, phases)},
+                     "product_calls": per_call}
+    return res
+
+
+def _k3_inputs(torch, rows, dname):
+    """K3's cell: transencoder2s's seeded weights (random biases and
+    LayerNorm parameters, so each of K3's operands counts) stacked in the
+    operand type, and a random normal input, the scale of the embedded,
+    positioned encoder input."""
     import numpy as np
 
     from ccsmeth_tpu_torch.models import TransEncConfig, init_transenc
@@ -380,16 +449,28 @@ def phase_k3_kernels(torch, smi):
     from ccsmeth_tpu_torch.ops import transenc
 
     cfg = TransEncConfig()
+    dt = getattr(torch, dname)
     params = randomize_affine(init_transenc(SEED, cfg), SEED)
-    D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
+    st = transenc.stack_layers(params["layers"], dt, "cuda")
+    x_np = np.random.RandomState(SEED + rows).randn(rows, L, cfg.d_model).astype(np.float32)
+    return cfg, params, st, torch.from_numpy(x_np).to("cuda", dt)
+
+
+def phase_k3_kernels(torch, smi):
+    """K3 at the call_mods path's shapes (transencoder2s at full width,
+    2B = 1024 and 16384 samples) in the design ``k3_plan`` picks (fp32:
+    simt, bf16: tc) against its plain version, timed beside it,
+    nn.TransformerEncoder + mean and the bound; at 1024 samples also one CTA
+    alone and one full wave."""
+    from ccsmeth_tpu_torch.ops import transenc
+
     cells = []
     for rows in ROWS:
-        x_np = np.random.RandomState(SEED + rows).randn(rows, L, D).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
+            cfg, params, st, x = _k3_inputs(torch, rows, dname)
+            D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
             plan = transenc.k3_plan(L, D, FF, NH, dt)
-            st = transenc.stack_layers(params["layers"], dt, "cuda")
-            x = torch.from_numpy(x_np).to("cuda", dt)
             before = dict(transenc.design_calls)
             transenc.cuda_launches = 0
             got = transenc.encoder_pooled(st, x, dt, NH)
@@ -397,6 +478,7 @@ def phase_k3_kernels(torch, smi):
             again = transenc.encoder_pooled(st, x, dt, NH)
             torch.cuda.synchronize()
             assert transenc.design_calls[plan["design"]] == before[plan["design"]] + 2
+            assert plan["design"] == ("simt" if dname == "float32" else "tc"), plan
             assert cuda_per_call == 1, cuda_per_call
             assert torch.equal(got, again), (rows, dname, "rerun differs")
             ref = transenc.encoder_pooled_plain(st, x, dt, NH)
@@ -411,15 +493,11 @@ def phase_k3_kernels(torch, smi):
                     lambda: transenc.encoder_pooled_plain(st, x, dt, NH), torch)
                 library_ms = time_ms(lambda: lib(x).float().mean(1), torch)
                 waves = None
-                if plan["design"] == "tc" and rows == ROWS[0]:
-                    # one CTA, and one CTA on every SM: a CTA's time alone and
-                    # in a full wave
-                    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-                    waves = {"one_cta_ms": time_ms(lambda: transenc.encoder_pooled(
-                                 st, x[:plan["S"]], dt, NH), torch),
-                             "one_wave_ms": time_ms(lambda: transenc.encoder_pooled(
-                                 st, x[:plan["S"] * n_sm], dt, NH), torch),
-                             "sms": n_sm}
+                if rows == ROWS[0]:
+                    waves = _k3_waves(torch, lambda xs: transenc.encoder_pooled(
+                        st, xs, dt, NH), x, plan["S"])
+                    if plan["design"] == "simt":
+                        waves["phases"] = _k3_simt_phases(torch, st, x, NH, plan["S"])
             flops = transenc.encoder_flops(rows, L, D, FF, NLT)
             bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
             res = {"phase": "kernel", "name": "transenc_encoder", "rows": rows,
@@ -432,10 +510,60 @@ def phase_k3_kernels(torch, smi):
                    "gflop": flops / 1e9, "tflops_achieved": flops / kernel_ms / 1e9,
                    "card": smi}
             if waves is not None:
-                res["tc_waves"] = waves
+                res["waves"] = waves
             emit(res)
             cells.append(res)
             del lib, got, again, ref
+    return cells
+
+
+def phase_k3_l2(torch, smi, k3_cells):
+    """K3's l2 design (ops/csrc/transenc_encoder.cu, the first f32 kernel),
+    which the shape rule keeps for the shapes that simt and tc refuse and
+    which no model's path runs since fp32 moved to the simt design: called
+    directly at the kernel phase's fp32 cells (and bf16 at 1024 samples),
+    against the plain version, timed, with the one-CTA and one-wave probe at
+    1024 samples. nn.TransformerEncoder's time is the kernel phase's on the
+    same inputs."""
+    from ccsmeth_tpu_torch.ops import transenc
+
+    cells = []
+    for rows, dname in ((ROWS[0], "float32"), (ROWS[1], "float32"),
+                        (ROWS[0], "bfloat16")):
+        dt = getattr(torch, dname)
+        cfg, _params, st, x = _k3_inputs(torch, rows, dname)
+        D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
+        before = transenc.design_calls["l2"]
+        got = transenc._encoder_l2(st, x, dt, NH)
+        again = transenc._encoder_l2(st, x, dt, NH)
+        torch.cuda.synchronize()
+        assert transenc.design_calls["l2"] == before + 2
+        assert torch.equal(got, again), (rows, dname, "l2 rerun differs")
+        ref = transenc.encoder_pooled_plain(st, x, dt, NH)
+        assert got.shape == (rows, D) and bool(torch.isfinite(got).all())
+        err = (got - ref).abs().max().item()
+        assert err <= K3_TOL[dname], ("l2", rows, dname, err)
+        with torch.inference_mode():
+            kernel_ms = time_ms(lambda: transenc._encoder_l2(st, x, dt, NH), torch)
+            plain_ms = time_ms(lambda: transenc.encoder_pooled_plain(st, x, dt, NH),
+                               torch)
+            waves = None
+            if rows == ROWS[0] and dname == "float32":
+                waves = _k3_waves(torch, lambda xs: transenc._encoder_l2(st, xs, dt, NH),
+                                  x, transenc.tile_shape(L, D, FF)[0])
+        flops = transenc.encoder_flops(rows, L, D, FF, NLT)
+        bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
+        mc = next(c for c in k3_cells if c["rows"] == rows and c["dtype"] == dname)
+        res = {"phase": "kernel", "name": "transenc_encoder_l2", "rows": rows,
+               "dtype": dname, "design": "l2", "rerun_bit_equal": True,
+               "max_abs_err": err, "tol": K3_TOL[dname], "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": mc["library_ms"], "bound_ms": bms,
+               "bound_by": bby, "tflops_achieved": flops / kernel_ms / 1e9,
+               "card": smi}
+        if waves is not None:
+            res["waves"] = waves
+        emit(res)
+        cells.append(res)
     return cells
 
 
@@ -937,12 +1065,13 @@ def phase_e2e(torch, smi, model_type):
           "fp32_vs_bf16_ml_within_2": within2, "sites": n_sites})
     if model_type != TRANSENC:
         assert within2 >= 0.999, within2
+    designs = list(runs["fp32"]["designs"])  # every design of the kernel
     return {"launches": total_launches, "runs": runs, "tags": tags,
             "launches_by_design": {d: sum(r["designs"][d] for r in runs.values())
-                                   for d in ("tc", "simt")},
-            "cuda_launches_by_design": {
-                ("tc" if p == "bf16" else "simt"): r["cuda_launches"][name]
-                for p, r in runs.items()}}
+                                   for d in designs},
+            "cuda_launches_by_design": {d: sum(r["cuda_launches"][name] for r in
+                                               runs.values() if r["designs"][d])
+                                        for d in designs}}
 
 
 def phase_e2e_layer(torch, smi, model_type, k1_tags):
@@ -1324,6 +1453,7 @@ def main():
     phase_build()
     k1_cells = {cell: phase_kernels(torch, smi, cell) for cell in MODELS}
     k3_cells = phase_k3_kernels(torch, smi)
+    k3_l2 = phase_k3_l2(torch, smi, k3_cells)
     k2_cells = {cell: phase_k2_kernels(torch, smi, cell) for cell in MODELS}
     for cell in MODELS:
         phase_l2_kernels(torch, smi, cell)
@@ -1395,14 +1525,17 @@ def main():
                                              "kernel_ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by", "max_abs_err_max",
                                              "phases_ms")} for c in cells]})
-    for design, src, dname in (("simt", "transenc_encoder.cu", "float32"),
-                               ("tc", "transenc_tc.cu", "bfloat16")):
-        cells = [c for c in k3_cells if c["design"] == design]
+    # K3: simt (fp32) and tc (bf16) on the main path; l2, which no model's
+    # path takes (0 launches there), called directly
+    for design, src, dname in (("simt", "transenc_simt.cu", "float32"),
+                               ("tc", "transenc_tc.cu", "bfloat16"),
+                               ("l2", "transenc_encoder.cu", "float32")):
+        cells = [c for c in k3_cells + k3_l2
+                 if c["design"] == design and c["dtype"] == dname]
         mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == dname)
         kernels.append({
-            "name": "transenc_encoder" + ("_tc" if design == "tc" else ""),
-            "route": "cuda", "design": design,
-            "cuda_launches_per_call": mc["cuda_launches_per_call"],
+            "name": "transenc_encoder" + ("" if design == "simt" else "_" + design),
+            "route": "cuda", "design": design, "cuda_launches_per_call": 1,
             "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
             "replaces": "ccsmeth_tpu/ops/transenc_pallas.py:144",
             "launches": e2e_k3["launches_by_design"][design],
@@ -1410,7 +1543,7 @@ def main():
             "max_abs_err": max(c["max_abs_err"] for c in cells),
             "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
             "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
-            "library_ms": mc["library_ms"],
+            "library_ms": mc["library_ms"], "waves": mc.get("waves"),
             "cell": "{} rows={} {}".format(TRANSENC, ROWS[0], dname),
             "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",

@@ -1,6 +1,7 @@
-"""Kernels K3 (the transencoder2s encoder + mean: the f32 kernel
-ccsmeth_tpu_torch/ops/csrc/transenc_encoder.cu and the bf16 tensor-core
-design csrc/transenc_tc.cu) and K2 (one bidirectional GRU or LSTM layer in
+"""Kernels K3 (the transencoder2s encoder + mean: the fp32 design
+ccsmeth_tpu_torch/ops/csrc/transenc_simt.cu, the bf16 tensor-core design
+csrc/transenc_tc.cu and the first f32 kernel csrc/transenc_encoder.cu, kept
+as the l2 design for the shapes the other two refuse) and K2 (one bidirectional GRU or LSTM layer in
 K1's design: ccsmeth_tpu_torch/ops/csrc/birnn_simt.cu with K4's projection
 in fp32, csrc/birnn_tc.cu in bf16) against their plain PyTorch versions on
 the card. Needs a CUDA device and skips without one.
@@ -89,26 +90,66 @@ def test_encoder_tc_design_matches_plain(n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 37, 1024, 1029])
+def test_encoder_simt_design_matches_plain(n):
+    """The fp32 design at full width and ragged N (3 samples a CTA: the
+    last tile holds 1, 2, 3, 1, 1 and 0 padded samples of 3), one CUDA
+    launch a call, bit-equal on a rerun."""
+    _need_card()
+    dt = torch.float32
+    cfg, st, x = _encoder_case(n, dt, seed=3)
+    assert transenc.k3_plan(21, cfg.d_model, cfg.dim_ff, cfg.nhead, dt)["design"] == "simt"
+    before, cuda_before = transenc.design_calls["simt"], transenc.cuda_launches
+    got = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+    again = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+    torch.cuda.synchronize()
+    assert transenc.design_calls["simt"] == before + 2
+    assert transenc.cuda_launches == cuda_before + 2
+    assert torch.equal(got, again)
+    ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
+    assert got.shape == (n, cfg.d_model) and bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= K3_TOL["float32"]
+
+
+@pytest.mark.cuda
 def test_encoder_shape_rule_picks_the_design():
     """transencoder2s's shape takes the tensor-core design in bf16 and the
-    f32 kernel in fp32; a bf16 D that the rule refuses (D = 36, not a
-    multiple of 32) takes the f32 kernel and still matches the plain
-    version."""
+    simt design in fp32; a D that both refuse (D = 36: not a multiple of 32
+    for tc, nor of 8 for simt) takes the l2 kernel in bf16 and fp32, and
+    each still matches the plain version."""
     _need_card()
     for d, ff, dt, design in ((256, 512, torch.bfloat16, "tc"),
                               (256, 512, torch.float32, "simt"),
-                              (36, 64, torch.bfloat16, "simt")):
+                              (36, 64, torch.bfloat16, "l2"),
+                              (36, 64, torch.float32, "l2")):
         cfg, st, x = _encoder_case(64, dt, layers=2, d=d, ff=ff)
         assert transenc.k3_plan(21, d, ff, cfg.nhead, dt)["design"] == design
         before, cuda_before = dict(transenc.design_calls), transenc.cuda_launches
         got = transenc.encoder_pooled(st, x, dt, cfg.nhead)
         torch.cuda.synchronize()
-        other = "simt" if design == "tc" else "tc"
-        assert transenc.design_calls[design] == before[design] + 1
         assert transenc.cuda_launches == cuda_before + 1
-        assert transenc.design_calls[other] == before[other]
+        for key in before:
+            assert transenc.design_calls[key] == before[key] + (key == design), key
         ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
         assert (got - ref).abs().max().item() <= K3_TOL[str(dt).split(".")[1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 1024])
+def test_encoder_l2_design_called_directly_matches_plain(n):
+    """The kept first f32 kernel at transencoder2s's fp32 shape, which the
+    rule now sends to simt: called directly, it still matches the plain
+    version and reruns bit-equal."""
+    _need_card()
+    dt = torch.float32
+    cfg, st, x = _encoder_case(n, dt, seed=5)
+    before = transenc.design_calls["l2"]
+    got = transenc._encoder_l2(st, x, dt, cfg.nhead)
+    again = transenc._encoder_l2(st, x, dt, cfg.nhead)
+    torch.cuda.synchronize()
+    assert transenc.design_calls["l2"] == before + 2 and torch.equal(got, again)
+    ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
+    assert (got - ref).abs().max().item() <= K3_TOL["float32"]
 
 
 @pytest.mark.cuda
