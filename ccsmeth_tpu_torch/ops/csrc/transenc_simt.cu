@@ -49,9 +49,9 @@
 //     time, 4 threads a row: each a quarter of every score's dimensions,
 //     the softmax in registers, a quarter of the context's columns;
 //   - LayerNorm: 4 threads a row, partial sums through shared memory.
-//   What sets the pace (the TS_PROFILE probe, PERF.md): one CTA alone takes
-//   as long as a full wave, so the CTA's own work does, not the L2 that
-//   132 CTAs share; the products take ~87% of it, their slab loops at about
+//   What sets the pace (PERF.md, section 5): one CTA alone takes as long
+//   as a full wave, so the CTA's own work does, not the L2 that 132 CTAs
+//   share; the products take ~87% of it, their slab loops at about
 //   two thirds of the FMA rate, each call ~2k cycles waiting for its first
 //   slab; attention ~8%, LayerNorm ~4%.
 //
@@ -83,29 +83,6 @@
 #define TS_DMAX 256   // D <= TS_DMAX
 #define TS_HDMAX 64   // HD <= TS_HDMAX
 
-#ifdef TS_PROFILE
-// Built with -DTS_PROFILE (a probe, never the wrapper's library): the cycles
-// thread 0 of CTA 0 spends in each phase, summed over layers and launches:
-// 0 loading x, 1 the q | k | v products, 2 attention, 3 the output
-// projection, 4 LayerNorm 1, 5 FF1, 6 FF2, 7 LayerNorm 2, 8 the mean; then
-// for each product tile (TN = 8, 6, 4) the cycles of its calls' prologues
-// (until the first slab is in), slab loops and epilogues, and its calls.
-#define TS_PHASES 9
-#define TS_COUNTS (TS_PHASES + 3 * 4)
-__device__ unsigned long long ts_prof[TS_COUNTS];
-#define TS_MARK(i)                                       \
-  do {                                                   \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {           \
-      const long long t_now = clock64();                 \
-      ts_prof[i] += (unsigned long long)(t_now - t_last); \
-      t_last = t_now;                                    \
-    }                                                    \
-  } while (0)
-#else
-#define TS_MARK(i) \
-  do {             \
-  } while (0)
-#endif
 
 struct EncSimtParams {
   const float* x;     // (N, L, D)
@@ -169,10 +146,6 @@ __device__ __forceinline__ void ring_gemm(const float* A, int K, const float* W,
   const int ty = lane >> 2;                // row group, 0..7
   const int tx = warp * 4 + (lane & 3);    // column group, 0..31
   const int nk = K / TS_BK;
-#ifdef TS_PROFILE
-  const long long t_entry = clock64();
-  long long t_first = t_entry;
-#endif
 
   // this thread's 16-byte copies of a slab: the same (row, column) in
   // every slab, so their offsets in W are computed once
@@ -217,9 +190,6 @@ __device__ __forceinline__ void ring_gemm(const float* A, int K, const float* W,
   for (int it = 0; it < nk; ++it) {
     cp_async_wait<TS_STAGES - 2>();
     __syncthreads();
-#ifdef TS_PROFILE
-    if (it == 0) t_first = clock64();
-#endif
     const int nt = it + TS_STAGES - 1;
     if (nt < nk) load(nt % TS_STAGES, nt);
     cp_async_commit();
@@ -252,9 +222,6 @@ __device__ __forceinline__ void ring_gemm(const float* A, int K, const float* W,
         for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
     }
   }
-#ifdef TS_PROFILE
-  const long long t_loop = clock64();
-#endif
   cp_async_wait<0>();
 #pragma unroll
   for (int g = 0; g < NG; ++g)
@@ -270,15 +237,6 @@ __device__ __forceinline__ void ring_gemm(const float* A, int K, const float* W,
       }
     }
   __syncthreads();
-#ifdef TS_PROFILE
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long* t = ts_prof + TS_PHASES + 4 * (TN == 8 ? 0 : TN == 6 ? 1 : 2);
-    t[0] += (unsigned long long)(t_first - t_entry);
-    t[1] += (unsigned long long)(t_loop - t_first);
-    t[2] += (unsigned long long)(clock64() - t_loop);
-    t[3] += 1;
-  }
-#endif
 }
 
 // One head of per-sample attention over hb = [q | k | v] (k-major, HD
@@ -394,9 +352,6 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
   float* red = ring + TS_STAGES * TS_BK * TS_WMAX;  // [2][TS_THREADS]
   const int n0 = blockIdx.x * S;                   // this tile's first sample
   const int rows = min(S * L, (p.N - n0) * L);     // real rows of this tile
-#ifdef TS_PROFILE
-  long long t_last = clock64();
-#endif
 
   const float* x = p.x + (size_t)n0 * L * D;
   for (int i = threadIdx.x; i < TS_ROWS * D / 4; i += TS_THREADS) {
@@ -413,7 +368,6 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
   // which may be a column no product wrote yet): keep them all finite
   for (int i = threadIdx.x; i < (D + HB) * TS_LD; i += TS_THREADS) ctx[i] = 0.0f;
   __syncthreads();
-  TS_MARK(0);
 
   const float scale = 1.0f / sqrtf((float)HD);
   for (int l = 0; l < p.NL; ++l) {
@@ -432,7 +386,6 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
                    [&](int c, int r0, float4 v) {
                      *reinterpret_cast<float4*>(hb + (size_t)c * TS_LD + r0) = v;
                    });
-      TS_MARK(1);
       if (L <= 8) {
         attention_head<8>(hb, ctx, h, HD, L, S, scale);
       } else if (L <= 16) {
@@ -442,16 +395,13 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
       } else {
         attention_head<32>(hb, ctx, h, HD, L, S, scale);
       }
-      TS_MARK(2);
     }
     ring_gemm<8>(ctx, D, wo, D, Cols{0, D, 0}, D, bo, ring, [&](int c, int r0, float4 v) {
       float4* px = reinterpret_cast<float4*>(xs + (size_t)c * TS_LD + r0);
       *px = add4(*px, v);
     });
-    TS_MARK(3);
     layer_norm(xs, D, p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D, red, nullptr,
                nullptr);
-    TS_MARK(4);
     for (int c0 = 0; c0 < FF; c0 += TS_FC) {
       const int P = FF - c0 < TS_FC ? FF - c0 : TS_FC;
       const auto relu_to_hb = [&](int c, int r0, float4 v) {
@@ -463,16 +413,13 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
         ring_gemm<6>(xs, D, w1, FF, Cols{c0, P, 0}, P, b1, ring, relu_to_hb);
       else
         ring_gemm<4>(xs, D, w1, FF, Cols{c0, P, 0}, P, b1, ring, relu_to_hb);
-      TS_MARK(5);
       ring_gemm<8>(hb, P, w2 + (size_t)c0 * D, D, Cols{0, D, 0}, D, nullptr, ring,
                    [&](int c, int r0, float4 v) {
                      float4* pc = reinterpret_cast<float4*>(ctx + (size_t)c * TS_LD + r0);
                      *pc = c0 == 0 ? v : add4(*pc, v);
                    });
-      TS_MARK(6);
     }
     layer_norm(xs, D, p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D, red, ctx, b2);
-    TS_MARK(7);
   }
 
   // mean over each real sample's L rows
@@ -484,7 +431,6 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
     for (int t = 0; t < L; ++t) sum += col[t];
     p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;
   }
-  TS_MARK(8);
 }
 
 extern "C" {
@@ -541,15 +487,5 @@ int transenc_simt_launch(const void* x, void* out, const void* wqkv,
   transenc_simt_kernel<<<grid, TS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
-
-#ifdef TS_PROFILE
-// ts_prof into out (TS_COUNTS unsigned 64-bit counts), then zeroed.
-int transenc_simt_profile(void* out) {
-  cudaError_t e = cudaMemcpyFromSymbol(out, ts_prof, sizeof(ts_prof));
-  if (e != cudaSuccess) return (int)e;
-  const unsigned long long zero[TS_COUNTS] = {};
-  return (int)cudaMemcpyToSymbol(ts_prof, zero, sizeof(ts_prof));
-}
-#endif
 
 }  // extern "C"

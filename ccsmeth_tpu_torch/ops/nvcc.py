@@ -28,34 +28,29 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def library_path(src: str, defines=()) -> str:
+def library_path(src: str) -> str:
     """Build output path of ``csrc/<src>``, keyed by its content, the headers'
-    and the flags (``-D`` of each of ``defines`` among them)."""
+    and the flags."""
     h = hashlib.sha256()
     for path in [os.path.join(CSRC, src)] + sorted(
             glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS + _macros(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(src)[0]
     return os.path.join(BUILD_DIR, "lib{}_{}.so".format(stem, h.hexdigest()[:16]))
 
 
-def _macros(defines):
-    return ["-D" + d for d in defines]
-
-
-def build(src: str, defines=()) -> tuple[str, str]:
-    """Compile ``csrc/<src>`` (with ``-D`` of each of ``defines``, a probe's
-    build) if its library is missing. Returns (library path, nvcc's
-    -Xptxas -v report, empty when the library was already there). Raises
-    with nvcc's output when the build fails."""
-    so = library_path(src, defines)
+def build(src: str) -> tuple[str, str]:
+    """Compile ``csrc/<src>`` if its library is missing. Returns (library
+    path, nvcc's -Xptxas -v report, empty when the library was already
+    there). Raises with nvcc's output when the build fails."""
+    so = library_path(src)
     if os.path.exists(so):
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "{}.{}.tmp".format(so, os.getpid())
-    cmd = [_nvcc()] + NVCC_FLAGS + _macros(defines) + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp, os.path.join(CSRC, src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("nvcc failed ({}):\n{}\n{}".format(

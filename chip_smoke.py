@@ -103,12 +103,6 @@ SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu"
 # round a product operand to the neighbouring bf16 value and six layers
 # carry that on
 K3_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# K3 simt's phase probe: its build's macro and the phases it counts
-# (TS_PROFILE in ops/csrc/transenc_simt.cu)
-K3_PROBE_DEFINES = ("TS_PROFILE",)
-K3_PHASES = ("load_x", "qkv", "attention", "out_proj", "ln1", "ff1", "ff2", "ln2",
-             "mean")
-K3_TILES = (8, 6, 4)  # product tiles (TN) whose calls the probe times
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 CUDA
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -164,15 +158,13 @@ def phase_build():
 
     from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, bilstm_vjp, nvcc, transenc
 
-    def build(src_defines):
+    def build(src):
         t0 = time.time()
-        so, log = nvcc.build(*src_defines)
+        so, log = nvcc.build(src)
         return so, log, time.time() - t0
 
-    srcs = [(src, ()) for src in (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru_vjp.SRC,
-                                  bilstm_vjp.SRC, transenc.SRC, transenc.TC_SRC,
-                                  transenc.SIMT_SRC)]
-    srcs.append((transenc.SIMT_SRC, K3_PROBE_DEFINES))  # K3 simt's phase probe
+    srcs = (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru_vjp.SRC, bilstm_vjp.SRC,
+            transenc.SRC, transenc.TC_SRC, transenc.SIMT_SRC)
     t0 = time.time()
     with ThreadPoolExecutor(len(srcs)) as ex:
         built = list(ex.map(build, srcs))
@@ -389,54 +381,6 @@ def _k3_waves(torch, fn, x, S):
             "one_wave_ms": time_ms(lambda: fn(x[:S * n_sm]), torch)}
 
 
-def _k3_simt_phases(torch, st, x, nhead, S):
-    """The probe build of K3's simt design (-DTS_PROFILE, never the
-    wrapper's library): the cycles thread 0 of CTA 0 spends in each phase,
-    on one CTA alone and on a full wave (a warm-up launch first), with each
-    phase's share, and for each product tile the cycles a call spends in
-    its prologue (until its first weight slab is in), its slab loop and its
-    epilogue. Its launches are not the wrapper's and count nowhere."""
-    import ctypes
-
-    from ccsmeth_tpu_torch.ops import nvcc, transenc
-
-    lib = ctypes.CDLL(nvcc.build(transenc.SIMT_SRC, K3_PROBE_DEFINES)[0])
-    lib.transenc_simt_launch.restype = ctypes.c_int
-    lib.transenc_simt_launch.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                                         + [ctypes.c_void_p])
-    lib.transenc_simt_profile.restype = ctypes.c_int
-    lib.transenc_simt_profile.argtypes = [ctypes.c_void_p]
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    _N, Lx, D = x.shape
-    NLx, FF = st["w1"].shape[0], st["w1"].shape[2]
-    ptrs = [st[k].data_ptr() for k in transenc.NAMES]
-    res = {}
-    for name, n in (("one_cta", S), ("one_wave", S * n_sm)):
-        out = torch.empty((n, D), device="cuda")
-        counts = (ctypes.c_ulonglong * (len(K3_PHASES) + 4 * len(K3_TILES)))()
-        for _ in range(2):  # the first launch warms up; its counts are dropped
-            assert lib.transenc_simt_profile(counts) == 0
-            rc = lib.transenc_simt_launch(x.data_ptr(), out.data_ptr(), *ptrs, n, Lx, D,
-                                          nhead, FF, NLx, S,
-                                          torch.cuda.current_stream().cuda_stream)
-            assert rc == 0, rc
-            torch.cuda.synchronize()
-        assert lib.transenc_simt_profile(counts) == 0
-        phases, calls = counts[:len(K3_PHASES)], counts[len(K3_PHASES):]
-        total = sum(phases)
-        per_call = {}
-        for i, tn in enumerate(K3_TILES):
-            pro, loop, epi, n = calls[4 * i:4 * i + 4]
-            if n:
-                per_call["TN={}".format(tn)] = {
-                    "calls": n, "prologue_cycles": pro / n, "loop_cycles": loop / n,
-                    "epilogue_cycles": epi / n}
-        res[name] = {"cycles": total,
-                     "shares": {k: c / total for k, c in zip(K3_PHASES, phases)},
-                     "product_calls": per_call}
-    return res
-
-
 def _k3_inputs(torch, rows, dname):
     """K3's cell: transencoder2s's seeded weights (random biases and
     LayerNorm parameters, so each of K3's operands counts) stacked in the
@@ -496,8 +440,6 @@ def phase_k3_kernels(torch, smi):
                 if rows == ROWS[0]:
                     waves = _k3_waves(torch, lambda xs: transenc.encoder_pooled(
                         st, xs, dt, NH), x, plan["S"])
-                    if plan["design"] == "simt":
-                        waves["phases"] = _k3_simt_phases(torch, st, x, NH, plan["S"])
             flops = transenc.encoder_flops(rows, L, D, FF, NLT)
             bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
             res = {"phase": "kernel", "name": "transenc_encoder", "rows": rows,
@@ -534,10 +476,13 @@ def phase_k3_l2(torch, smi, k3_cells):
         cfg, _params, st, x = _k3_inputs(torch, rows, dname)
         D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
         before = transenc.design_calls["l2"]
+        transenc.cuda_launches = 0
         got = transenc._encoder_l2(st, x, dt, NH)
+        cuda_per_call = transenc.cuda_launches
         again = transenc._encoder_l2(st, x, dt, NH)
         torch.cuda.synchronize()
         assert transenc.design_calls["l2"] == before + 2
+        assert cuda_per_call == 1, ("l2", rows, dname, cuda_per_call)
         assert torch.equal(got, again), (rows, dname, "l2 rerun differs")
         ref = transenc.encoder_pooled_plain(st, x, dt, NH)
         assert got.shape == (rows, D) and bool(torch.isfinite(got).all())
@@ -555,7 +500,8 @@ def phase_k3_l2(torch, smi, k3_cells):
         bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
         mc = next(c for c in k3_cells if c["rows"] == rows and c["dtype"] == dname)
         res = {"phase": "kernel", "name": "transenc_encoder_l2", "rows": rows,
-               "dtype": dname, "design": "l2", "rerun_bit_equal": True,
+               "dtype": dname, "design": "l2", "cuda_launches_per_call": cuda_per_call,
+               "rerun_bit_equal": True,
                "max_abs_err": err, "tol": K3_TOL[dname], "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": mc["library_ms"], "bound_ms": bms,
                "bound_by": bby, "tflops_achieved": flops / kernel_ms / 1e9,
@@ -1535,7 +1481,8 @@ def main():
         mc = next(c for c in cells if c["rows"] == ROWS[0] and c["dtype"] == dname)
         kernels.append({
             "name": "transenc_encoder" + ("" if design == "simt" else "_" + design),
-            "route": "cuda", "design": design, "cuda_launches_per_call": 1,
+            "route": "cuda", "design": design,
+            "cuda_launches_per_call": mc["cuda_launches_per_call"],
             "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
             "replaces": "ccsmeth_tpu/ops/transenc_pallas.py:144",
             "launches": e2e_k3["launches_by_design"][design],
