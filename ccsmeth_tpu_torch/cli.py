@@ -1,11 +1,20 @@
-"""ccsmeth-tpu-torch CLI: the ``call_mods`` and ``train`` subcommands of
-``ccsmeth_tpu/cli.py`` (flags mirror ``cli.py:324-391`` and ``:238-294``) plus
-``--device``.
+"""ccsmeth-tpu-torch CLI: the ``call_mods``, ``call_freqt``, ``call_freqb``,
+``extract`` and ``train`` subcommands of ``ccsmeth_tpu/cli.py`` (flags mirror
+``cli.py:324-391``, ``:410-492`` and ``:238-294``) plus ``--device`` where a
+model runs.
 
 Usage:
     python -m ccsmeth_tpu_torch.cli call_mods -i reads.bam -o out -m model.npz \\
         --mode align --ref ref.fa [--device cuda|cpu] [--precision fp32|bf16] \\
         [--model_type attbilstm2s|transencoder2s] [--rnn_backend pallas_layer]
+    python -m ccsmeth_tpu_torch.cli extract -i reads.bam -o features.tsv \\
+        --mode align --ref ref.fa
+    python -m ccsmeth_tpu_torch.cli call_mods -i features.tsv -o out \\
+        -m model.npz [--device cuda|cpu]
+    python -m ccsmeth_tpu_torch.cli call_freqb -i out.modbam.bam --ref ref.fa \\
+        -o freq [--call_mode aggregate -m aggr.npz --device cuda|cpu]
+    python -m ccsmeth_tpu_torch.cli call_freqt -i out.per_readsite.tsv \\
+        -o freq.txt
     python -m ccsmeth_tpu_torch.cli train --train_file train.tsv \\
         --valid_file valid.tsv --model_dir models [--device cuda|cpu] \\
         [--precision fp32|bf16]
@@ -20,7 +29,7 @@ from ._version import __version__
 from .utils.process import display_args, str2bool
 
 
-def _add_extraction_args(p):
+def _add_extraction_args(p, call_mods=False):
     g = p.add_argument_group("EXTRACTION")
     g.add_argument("--mode", type=str, default="denovo", choices=["denovo", "align"],
                    help="denovo: without reference position info; align: with. "
@@ -29,6 +38,8 @@ def _add_extraction_args(p):
                    help="file contains holeids to be extracted, default None")
     g.add_argument("--holeids_ne", type=str, default=None,
                    help="file contains holeids not to be extracted, default None")
+    if not call_mods:
+        g.add_argument("--seq_len", type=int, default=21, help="len of kmer. default 21")
     g.add_argument("--motifs", type=str, default="CG",
                    help="motif seq to be extracted, default CG; comma-separated, IUPAC ok")
     g.add_argument("--mod_loc", type=int, default=0,
@@ -42,6 +53,11 @@ def _add_extraction_args(p):
                    help="do not use CodecV1 to decode ipd/pw")
     g.add_argument("--holes_batch", type=int, default=50,
                    help="number of reads per batch, default 50")
+    if not call_mods:
+        g.add_argument("--is_sn", type=str, default="no",
+                       help="if extracting signal-to-noise features, yes or no, default no")
+        g.add_argument("--is_map", type=str, default="no",
+                       help="if extracting mapping features, yes or no, default no")
     ga = p.add_argument_group("EXTRACTION ALIGN_MODE")
     ga.add_argument("--ref", type=str, default=None,
                     help="path to genome reference (fasta), required in align mode")
@@ -85,7 +101,7 @@ def _add_model_args(p, train=False):
 
 
 def main_call_mods(args):
-    from .pipeline.call_mods import CallModsConfig, call_mods_bam
+    from .pipeline.call_mods import CallModsConfig, call_mods_bam, call_mods_txt
 
     display_args(args)
     cfg = CallModsConfig(
@@ -108,11 +124,55 @@ def main_call_mods(args):
         profile_dir=args.profile_dir, h0_mode=args.h0_mode, tseed=args.tseed,
         num_processes=args.num_processes, process_id=args.process_id,
         device=args.device)
-    if not (args.input.endswith(".bam") or args.input.endswith(".sam")):
-        raise NotImplementedError("features TSV input not yet ported")
-    if args.seq_len % 2 == 0:
-        raise ValueError("--seq_len must be odd")
-    call_mods_bam(cfg, args.input, args.output)
+    if args.input.endswith(".bam") or args.input.endswith(".sam"):
+        if args.seq_len % 2 == 0:
+            raise ValueError("--seq_len must be odd")
+        call_mods_bam(cfg, args.input, args.output)
+    else:
+        call_mods_txt(cfg, args.input, args.output)
+
+
+def main_extract(args):
+    from .pipeline.extract import extract_hifireads_features
+
+    display_args(args)
+    extract_hifireads_features(args)
+
+
+def main_call_freqt(args):
+    from .pipeline.call_freq_txt import FreqTxtConfig, call_mods_frequency_to_file
+
+    display_args(args)
+    call_mods_frequency_to_file(FreqTxtConfig(
+        input_path=args.input_path, result_file=args.result_file,
+        file_uid=args.file_uid, contigs=args.contigs, threads=args.threads,
+        bed=args.bed, sort=args.sort, prob_cf=args.prob_cf,
+        rm_1strand=args.rm_1strand, gzip=args.gzip,
+        refsites_only=args.refsites_only, motifs=args.motifs, mod_loc=args.mod_loc,
+        ref=args.ref))
+
+
+def main_call_freqb(args):
+    from .pipeline.call_freq_bam import (FreqBamConfig,
+                                         call_mods_frequency_from_bamfile)
+
+    display_args(args)
+    call_mods_frequency_from_bamfile(FreqBamConfig(
+        input_bam=args.input_bam, ref=args.ref, output=args.output,
+        contigs=args.contigs, chunk_len=args.chunk_len, modtype=args.modtype,
+        call_mode=args.call_mode, prob_cf=args.prob_cf, no_amb_cov=args.no_amb_cov,
+        hap_tag=args.hap_tag, mapq=args.mapq, identity=args.identity,
+        no_supplementary=args.no_supplementary, motifs=args.motifs,
+        mod_loc=args.mod_loc, no_comb=args.no_comb,
+        refsites_only=args.refsites_only, refsites_all=args.refsites_all,
+        no_hap=args.no_hap, base_clip=args.base_clip, aggre_model=args.aggre_model,
+        model_type=args.model_type, seq_len=args.seq_len, class_num=args.class_num,
+        layer_rnn=args.layer_rnn, hid_rnn=args.hid_rnn, bin_size=args.bin_size,
+        cov_cf=args.cov_cf, only_close=args.only_close, discrete=args.discrete,
+        tseed=args.tseed, bed=args.bed, sort=args.sort, gzip=args.gzip,
+        threads=args.threads, num_processes=args.num_processes,
+        process_id=args.process_id, dist_coordinator=args.dist_coordinator,
+        device=args.device))
 
 
 def main_train(args):
@@ -210,10 +270,10 @@ def get_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("call_mods", help="call modifications")
     gi = p.add_argument_group("INPUT")
     gi.add_argument("--input", "-i", type=str, required=True,
-                    help="input file: bam/sam")
+                    help="input file: bam/sam, or features.tsv from extract")
     go = p.add_argument_group("OUTPUT")
     go.add_argument("--output", "-o", type=str, required=True,
-                    help="output prefix ([out].modbam.bam)")
+                    help="output prefix ([out].per_readsite.tsv / [out].modbam.bam)")
     go.add_argument("--gzip", action="store_true", default=False)
     go.add_argument("--keep_pulse", action="store_true", default=False)
     go.add_argument("--no_sort", action="store_true", default=False)
@@ -259,12 +319,96 @@ def get_parser() -> argparse.ArgumentParser:
     gs.add_argument("--num_processes", type=int, default=1,
                     help="share-nothing scale-out (not yet ported beyond 1)")
     gs.add_argument("--process_id", type=int, default=0)
-    _add_extraction_args(p)
+    _add_extraction_args(p, call_mods=True)
     p.add_argument("--threads", "-p", type=int, default=10)
     p.add_argument("--threads_call", type=int, default=3,
                    help="[compat] advisory only")
     p.add_argument("--tseed", type=int, default=1234)
     p.set_defaults(func=main_call_mods)
+
+    p = sub.add_parser("call_freqt", help="call frequency of modifications from "
+                                          "per_readsite text files")
+    p.add_argument("--input_path", "-i", action="append", type=str, required=True)
+    p.add_argument("--file_uid", type=str, default=None)
+    p.add_argument("--result_file", "-o", type=str, required=True)
+    p.add_argument("--contigs", type=str, default=None)
+    p.add_argument("--threads", type=int, default=1)
+    p.add_argument("--bed", action="store_true", default=False)
+    p.add_argument("--sort", action="store_true", default=False)
+    p.add_argument("--prob_cf", type=float, default=0.0)
+    p.add_argument("--rm_1strand", action="store_true", default=False)
+    p.add_argument("--gzip", action="store_true", default=False)
+    p.add_argument("--refsites_only", action="store_true", default=False)
+    p.add_argument("--motifs", type=str, default="CG")
+    p.add_argument("--mod_loc", type=int, default=0)
+    p.add_argument("--ref", type=str, default=None)
+    p.set_defaults(func=main_call_freqt)
+
+    p = sub.add_parser("call_freqb", help="call frequency of modifications from "
+                                          "modbam files")
+    p.add_argument("--threads", type=int, default=5)
+    p.add_argument("--input_bam", "-i", type=str, required=True)
+    p.add_argument("--ref", type=str, required=True)
+    p.add_argument("--contigs", type=str, default=None)
+    p.add_argument("--chunk_len", type=int, default=500000)
+    p.add_argument("--output", "-o", type=str, required=True)
+    p.add_argument("--bed", action="store_true", default=False)
+    p.add_argument("--sort", action="store_true", default=False)
+    p.add_argument("--gzip", action="store_true", default=False)
+    p.add_argument("--modtype", type=str, default="5mC", choices=["5mC"])
+    p.add_argument("--call_mode", type=str, default="count",
+                   choices=["count", "aggregate"])
+    p.add_argument("--prob_cf", type=float, default=0.0)
+    p.add_argument("--no_amb_cov", action="store_true", default=False)
+    p.add_argument("--hap_tag", type=str, default="HP")
+    p.add_argument("--mapq", type=int, default=1)
+    p.add_argument("--identity", type=float, default=0.0)
+    p.add_argument("--no_supplementary", action="store_true", default=False)
+    p.add_argument("--motifs", type=str, default="CG")
+    p.add_argument("--mod_loc", type=int, default=0)
+    p.add_argument("--no_comb", action="store_true", default=False)
+    p.add_argument("--refsites_only", action="store_true", default=False)
+    p.add_argument("--refsites_all", action="store_true", default=False)
+    p.add_argument("--no_hap", action="store_true", default=False)
+    p.add_argument("--base_clip", type=int, default=0)
+    p.add_argument("--aggre_model", "-m", type=str, default=None)
+    p.add_argument("--model_type", type=str, default="attbigru",
+                   choices=["attbilstm", "attbigru"])
+    p.add_argument("--seq_len", type=int, default=11)
+    p.add_argument("--class_num", type=int, default=1)
+    p.add_argument("--layer_rnn", type=int, default=1)
+    p.add_argument("--hid_rnn", type=int, default=32)
+    p.add_argument("--bin_size", type=int, default=20)
+    p.add_argument("--cov_cf", type=int, default=4)
+    p.add_argument("--only_close", action="store_true", default=False)
+    p.add_argument("--discrete", action="store_true", default=False)
+    p.add_argument("--tseed", type=int, default=1234)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="where the aggregate model runs: cuda[:i] (default; "
+                        "its BiRNN through the hand-written kernel) or cpu "
+                        "(the plain PyTorch version); cuda without a GPU "
+                        "raises. Count mode runs on the host only")
+    gp = p.add_argument_group("SCALE-OUT")
+    gp.add_argument("--num_processes", type=int, default=1,
+                    help="share-nothing scale-out: each process owns a slice "
+                         "of the genome chunk list; run one call_freqb per "
+                         "process with a distinct -o, then concatenate")
+    gp.add_argument("--process_id", type=int, default=0,
+                    help="this process's rank in [0, num_processes)")
+    gp.add_argument("--dist_coordinator", type=str, default=None,
+                    help="collective merge across processes (not yet ported; "
+                         "raises)")
+    p.set_defaults(func=main_call_freqb)
+
+    p = sub.add_parser("extract", help="extract features from hifi reads")
+    p.add_argument("--input", "-i", type=str, required=True,
+                   help="input file in bam/sam format")
+    p.add_argument("--output", "-o", type=str, default=None,
+                   help="output features file; default input_prefix.features.tsv")
+    p.add_argument("--gzip", action="store_true", default=False)
+    _add_extraction_args(p)
+    p.add_argument("--threads", type=int, default=5)
+    p.set_defaults(func=main_extract)
 
     p = sub.add_parser("train", help="train a model")
     _add_train_args(p)

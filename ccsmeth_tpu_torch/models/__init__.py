@@ -1,7 +1,8 @@
 from .config import AggrConfig, AttRNNConfig, TransEncConfig
-from .attrnn import AttRNN, init_attrnn
+from .attrnn import AggrAttRNN, AttRNN, init_aggr_attrnn, init_attrnn
 from .transenc import TransEnc, init_transenc
-from .convert import (attrnn_params_from_state_dict, attrnn_state_dict_from_params,
+from .convert import (aggr_params_from_state_dict, aggr_state_dict_from_params,
+                      attrnn_params_from_state_dict, attrnn_state_dict_from_params,
                       torch_ckpt_to_params, transenc_params_from_state_dict,
                       transenc_state_dict_from_params)
 
@@ -9,10 +10,14 @@ __all__ = [
     "AggrConfig",
     "AttRNNConfig",
     "TransEncConfig",
+    "AggrAttRNN",
     "AttRNN",
     "TransEnc",
+    "init_aggr_attrnn",
     "init_attrnn",
     "init_transenc",
+    "aggr_params_from_state_dict",
+    "aggr_state_dict_from_params",
     "attrnn_params_from_state_dict",
     "attrnn_state_dict_from_params",
     "torch_ckpt_to_params",

@@ -21,7 +21,9 @@ reference state_dict keys (``embed``, ``rnn.weight_ih_l{k}[_reverse]`` ...,
 
 Also here, as in the JAX package: ``SrcEmbed``, the conv stack that
 transencoder2s (``models/transenc.py``) embeds its input with
-(``attrnn.py:65-115``).
+(``attrnn.py:65-115``), and ``AggrAttRNN``, call_freqb's aggregate model
+(``attrnn.py:356-390``): a small BiRNN over the per-site histograms of a
+window of sites, attention and a linear regression head.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from torch import nn
 from ..ops import bigru, bigru_vjp
 from ..utils.constants import NEMBED_BASE, N_VOCAB
 from .attention import Attention, init_attention
-from .config import AttRNNConfig
+from .config import AggrConfig, AttRNNConfig
 from .rnn import BiRNN, init_rnn_params
 
 
@@ -237,3 +239,49 @@ class AttRNN(nn.Module):
             out = bigru_vjp.dropout(out, cfg.dropout_rate, generator)
         logits = self.fc1(out)
         return logits, torch.softmax(logits, dim=1)
+
+
+def init_aggr_attrnn(seed, cfg: AggrConfig) -> dict:
+    """numpy params pytree of the aggregate model with the same draws as
+    ``ccsmeth_tpu``'s init_aggr_attrnn (``attrnn.py:356-365``), in its
+    order: the BiRNN over binsize + 1 channels, the attention, fc1.
+    ``seed`` may be an int or an rng-like object."""
+    rng = seed if hasattr(seed, "uniform") else np.random.RandomState(seed)
+    H = cfg.hidden_size
+    return {
+        "rnn": init_rnn_params(rng, cfg.binsize + 1, H, cfg.num_layers, cfg.rnn_cell),
+        "att": init_attention(rng, H * 2, H * 2, H),
+        "fc1": _lin_init(rng, H * 2, cfg.num_classes),
+    }
+
+
+class AggrAttRNN(nn.Module):
+    """call_freqb's aggregate model (``apply_aggr_attrnn``,
+    ``attrnn.py:368-390``): offsets (B, L) and histograms (B, L, binsize)
+    -> the raw regression output (B, num_classes), no softmax. The offsets
+    are the last input channel; h0 (and c0) are zero; the BiRNN runs
+    through ``rnn_fn``, ``ops.bigru.birnn_stack`` by default (kernel K1 on
+    a CUDA tensor, its plain version on a CPU tensor). State_dict names are
+    the reference's (``rnn.*``, ``_att3.*``, ``fc1``)."""
+
+    def __init__(self, cfg: AggrConfig):
+        super().__init__()
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.rnn = BiRNN(cfg.binsize + 1, H, cfg.num_layers, cfg.rnn_cell)
+        self._att3 = Attention(2 * H, 2 * H, H)
+        self.fc1 = nn.Linear(2 * H, cfg.num_classes)
+
+    def forward(self, offsets: torch.Tensor, histos: torch.Tensor, rnn_fn=None):
+        cfg = self.cfg
+        H = cfg.hidden_size
+        B = offsets.shape[0]
+        x = torch.cat([histos.float(), offsets.reshape(B, cfg.seq_len, 1).float()],
+                      dim=2)
+        rnn_fn = bigru.birnn_stack if rnn_fn is None else rnn_fn
+        out_tm, h_n = rnn_fn(self.rnn.stacked(), x.transpose(0, 1).contiguous(),
+                             torch.float32, cfg.rnn_cell)
+        last = h_n.reshape(cfg.num_layers, 2, B, H)[-1]  # (2, B, H)
+        query = last.transpose(0, 1).reshape(B, 1, 2 * H)
+        ctx, _ = self._att3(query, out_tm.transpose(0, 1))
+        return self.fc1(ctx)

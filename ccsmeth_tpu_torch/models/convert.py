@@ -6,7 +6,9 @@
 carries it back, so a model trained here is saved with ``params_io`` in the
 JAX package's own ``.ckpt.npz`` format. ``transenc_state_dict_from_params``
 and ``transenc_params_from_state_dict`` do the same for ``TransEnc``
-(transencoder2s). ``torch_ckpt_to_params`` is the counterpart of
+(transencoder2s), and ``aggr_state_dict_from_params`` and
+``aggr_params_from_state_dict`` for ``AggrAttRNN`` (call_freqb's aggregate
+model). ``torch_ckpt_to_params`` is the counterpart of
 ``ccsmeth_tpu/models/convert.py``'s: reference ``.ckpt`` -> params pytree.
 
 Layout notes (``ccsmeth_tpu/models/convert.py:8-13``): nn.Linear stores
@@ -24,7 +26,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .config import AttRNNConfig, TransEncConfig
+from .config import AggrConfig, AttRNNConfig, TransEncConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -36,6 +38,15 @@ def attrnn_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tenso
     """params pytree (numpy) -> AttRNN state_dict (float32 CPU tensors)."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     sd["embed.weight"] = _t(params["embed"])
+    sd.update(aggr_state_dict_from_params(params))
+    return sd
+
+
+def aggr_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Aggregate-model params pytree (numpy: ``init_aggr_attrnn`` output or a
+    loaded ``.npz``) -> AggrAttRNN state_dict (float32 CPU tensors); also the
+    rnn, attention and fc1 entries of AttRNN's."""
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for k, ld in enumerate(params["rnn"]):
         for d, suf in (("fwd", ""), ("bwd", "_reverse")):
             sd["rnn.weight_ih_l{}{}".format(k, suf)] = _t(ld[d]["w_ih"])
@@ -52,12 +63,25 @@ def attrnn_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tenso
 def attrnn_params_from_state_dict(sd) -> dict:
     """AttRNN state_dict (tensors on any device, or numpy) -> params pytree
     (numpy float32): the inverse of ``attrnn_state_dict_from_params``."""
-    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
-                        np.float32) for k, v in sd.items()}
+    sd = _numpy_sd(sd)
+    return {"embed": sd["embed.weight"], **aggr_params_from_state_dict(sd)}
+
+
+def aggr_params_from_state_dict(sd) -> dict:
+    """AggrAttRNN (or reference aggregate-model) state_dict (tensors on any
+    device, or numpy) -> params pytree (numpy float32): the inverse of
+    ``aggr_state_dict_from_params``, with ``_aggr_from_sd``'s mapping
+    (``ccsmeth_tpu/models/convert.py:111-117``)."""
+    sd = _numpy_sd(sd)
     num_layers = sum(1 for k in sd if k.startswith("rnn.weight_ih_l")
                      and not k.endswith("_reverse"))
-    return {"embed": sd["embed.weight"], "rnn": _rnn_layers(sd, "rnn", num_layers),
-            "att": _attention(sd), "fc1": _lin(sd, "fc1")}
+    return {"rnn": _rnn_layers(sd, "rnn", num_layers), "att": _attention(sd),
+            "fc1": _lin(sd, "fc1")}
+
+
+def _numpy_sd(sd) -> dict:
+    return {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
+                          np.float32) for k, v in sd.items()}
 
 
 # state_dict keys stored (out, in) here and input-major in the params pytree
@@ -163,8 +187,7 @@ def transenc_params_from_state_dict(sd, cfg: TransEncConfig) -> dict:
     -> params pytree (numpy float32): the inverse of
     ``transenc_state_dict_from_params``, with ``_transenc_from_sd``'s
     mapping."""
-    sd = {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v,
-                        np.float32) for k, v in sd.items()}
+    sd = _numpy_sd(sd)
     d = cfg.d_model
     params: dict = {
         "seq_embed": sd["seq_embed.weight"],
@@ -221,7 +244,10 @@ def _src_embed(sd, prefix, block_plus):
 
 def torch_ckpt_to_params(path: str, cfg) -> dict:
     """Reference .ckpt -> params pytree: the scalar-kinetics attrnn families
-    (AttRNNConfig) and transencoder2s (TransEncConfig)."""
+    (AttRNNConfig), transencoder2s (TransEncConfig) and the aggregate model
+    (AggrConfig)."""
+    if isinstance(cfg, AggrConfig):
+        return aggr_params_from_state_dict(load_torch_state_dict(path))
     if isinstance(cfg, TransEncConfig):
         return transenc_params_from_state_dict(load_torch_state_dict(path), cfg)
     if not isinstance(cfg, AttRNNConfig) or cfg.embedded_kinetics:

@@ -1,14 +1,20 @@
-"""call_mods: BAM/SAM -> modbam with MM/ML tags, on one GPU.
+"""call_mods: BAM/SAM -> modbam with MM/ML tags, or a features TSV ->
+per_readsite TSV, on one GPU.
 
-Counterpart of ``ccsmeth_tpu/pipeline/call_mods.py`` (``call_mods_bam :378``).
-The same threaded pipeline around one device step:
+Counterpart of ``ccsmeth_tpu/pipeline/call_mods.py`` (``call_mods_bam :378``,
+``call_mods_txt :736``). The BAM path is the same threaded pipeline around one
+device step:
 
   reader+extractor thread(s)  ->  bounded queue of padded FeatureBatches
   main thread                 ->  predict step (parallel/predict.py) on the card
   writer thread               ->  MM/ML tagging + BAM encode
 
-Not ported yet: features-TSV input (``call_mods_txt``), ``--h0_mode randn``,
-``--num_processes > 1`` and ``--profile_dir``; each raises.
+The TSV path parses rows in groups of batch_size * max(4, dispatch_fuse),
+dispatches their padded batches through the same predict step and writes one
+row a site.
+
+Not ported yet: ``--h0_mode randn``, ``--num_processes > 1`` and
+``--profile_dir``; each raises.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ import torch
 
 from .._version import __version__
 from ..bamio import BamReader, BamWriter, sort_bam
-from ..features import ExtractConfig, batch_from_reads, extract_read_features
+from ..features import (ExtractConfig, FeatureBatch, batch_from_reads,
+                        extract_read_features)
 from ..models import (AttRNN, AttRNNConfig, TransEnc, TransEncConfig,
                       attrnn_state_dict_from_params, init_attrnn, init_transenc,
                       transenc_state_dict_from_params)
@@ -35,6 +42,7 @@ from ..models.convert import torch_ckpt_to_params
 from ..models.params_io import _flatten, load_params
 from ..parallel.predict import make_predict_fn
 from ..utils.codecs import get_motif_seqs
+from ..utils.constants import BASE2CODE_DNA, CODE2BASE_DNA
 from ..utils.fasta import DNAReference
 from ..utils.logging import mylogger
 from ..utils.observe import ThroughputMeter
@@ -43,7 +51,8 @@ from .modbam import add_mm_ml_to_record
 LOGGER = mylogger(__name__)
 
 # counts of the last call_mods_bam run (reads, sites, dispatched batches,
-# seconds), for callers that drive it through the CLI
+# seconds) or call_mods_txt run (sites, batches, seconds), for callers that
+# drive it through the CLI
 LAST_RUN: dict = {}
 
 
@@ -552,3 +561,165 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
         " %.1fs", stats.reads_in, stats.reads_failed, stats.sites,
         stats.reads_written, stats.reads_tagged, time.time() - t_start)
     return out_modbam
+
+
+# ---------------------------------------------------------------------------------------
+# TSV path (features.tsv -> per_readsite.tsv; parity with
+# ccsmeth/_call_modifications_txt.py:121-265,337-357)
+# ---------------------------------------------------------------------------------------
+
+
+def _parse_tsv_batch(rows: list[list[str]], seq_len: int, holeids_e, holeids_ne):
+    """Parse TSV rows into a FeatureBatch + sampleinfo, center-truncating kmers to
+    seq_len (reference lines 159-196; ``ccsmeth_tpu/pipeline/call_mods.py:
+    669-733``)."""
+    if not rows:
+        return None, []
+    oriklen = len(rows[0][5])
+    if oriklen == seq_len:
+        lc, rc = 0, oriklen
+    elif oriklen > seq_len:
+        lc = (oriklen - seq_len) // 2
+        rc = oriklen - lc
+    else:
+        return None, []
+    sampleinfo = []
+    cols = {k: [] for k in (
+        "kmer", "kpass", "ipd_means", "pw_means", "sns", "maps",
+        "kmer2", "kpass2", "ipd_means2", "pw_means2", "sns2", "maps2",
+        "ipd_stds", "pw_stds", "ipd_stds2", "pw_stds2", "labels")}
+
+    def vec(txt, n):
+        if txt == ".":
+            return np.zeros(n, np.float32)
+        return np.asarray([float(x) for x in txt.split(",")][lc:rc], dtype=np.float32)
+
+    for w in rows:
+        if holeids_e is not None and w[3] not in holeids_e:
+            continue
+        if holeids_ne is not None and w[3] in holeids_ne:
+            continue
+        sampleinfo.append(w[0:5])
+        n = seq_len
+        cols["kmer"].append(np.asarray([BASE2CODE_DNA[c] for c in w[5][lc:rc]], np.float32))
+        cols["kpass"].append(np.full(n, float(int(w[6])), np.float32))
+        cols["ipd_means"].append(vec(w[7], n))
+        cols["ipd_stds"].append(vec(w[8], n))
+        cols["pw_means"].append(vec(w[9], n))
+        cols["pw_stds"].append(vec(w[10], n))
+        sn = w[11]
+        cols["sns"].append(np.zeros(4, np.float32) if sn == "." else
+                           np.asarray([float(x) for x in sn.split(",")], np.float32))
+        cols["maps"].append(vec(w[12], n))
+        cols["kmer2"].append(np.asarray([BASE2CODE_DNA[c] for c in w[13][lc:rc]], np.float32))
+        cols["kpass2"].append(np.full(n, float(int(w[14])), np.float32))
+        cols["ipd_means2"].append(vec(w[15], n))
+        cols["ipd_stds2"].append(vec(w[16], n))
+        cols["pw_means2"].append(vec(w[17], n))
+        cols["pw_stds2"].append(vec(w[18], n))
+        sn2 = w[19]
+        cols["sns2"].append(np.zeros(4, np.float32) if sn2 == "." else
+                            np.asarray([float(x) for x in sn2.split(",")], np.float32))
+        cols["maps2"].append(vec(w[20], n))
+        cols["labels"].append(int(w[21]))
+    if not sampleinfo:
+        return None, []
+    N = len(sampleinfo)
+    batch = FeatureBatch(
+        read_idx=np.zeros(N, np.int32), locs=np.zeros(N, np.int64),
+        chrom_pos=np.zeros(N, np.int64),
+        **{k: np.stack(v).astype(np.float32) if k != "labels" else np.asarray(v, np.int32)
+           for k, v in cols.items()},
+        n_valid=N, seq_len=seq_len,
+    )
+    return batch, sampleinfo
+
+
+def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> str:
+    """features TSV(.gz) -> [prefix].per_readsite.tsv(.gz).
+
+    Output row parity with _call_modifications_txt.py:253-265: sampleinfo(5 cols),
+    "fpass,rpass", prob_0, prob_1, called_label, center 5-mer.
+    """
+    t_start = time.time()
+    out_path = output_prefix + ".per_readsite.tsv"
+    _check_unported(cfg)
+    device = resolve_device(cfg.device)
+    model_cfg = cfg.model_config()
+    params = load_model_params(cfg.model_file, model_cfg)
+    model = build_model(params, model_cfg, device, cfg.rnn_backend)
+    # TSV input was extracted elsewhere with an unknown normalization, so
+    # 'auto' resolves to no quantization here; explicit --transfer_quant int8
+    # is honored (the caller knows their features are standardized)
+    tq = "none" if cfg.transfer_quant == "auto" else cfg.transfer_quant
+    predict = make_predict_fn(
+        model, model_cfg, device,
+        compute_dtype=torch.bfloat16 if cfg.precision == "bf16" else torch.float32,
+        kinetics_quant=tq)
+    fuser = _FusedDispatcher(predict, cfg.dispatch_fuse)
+    pad_n = cfg.batch_size
+    holeids_e = _get_holes(cfg.holeids_e) if cfg.holeids_e else None
+    holeids_ne = _get_holes(cfg.holeids_ne) if cfg.holeids_ne else None
+
+    from ..bamio import create_text_gz, open_text_auto
+
+    opener = ((lambda p, _m="rt": open_text_auto(p))
+              if input_path.endswith(".gz") else open)
+    if cfg.gzip_out:
+        out_path += ".gz"
+        wf = create_text_gz(out_path)
+    else:
+        wf = open(out_path, "w")
+    n_sites = 0
+    rows: list[list[str]] = []
+    with opener(input_path, "rt") as rf:
+        for line in rf:
+            w = line.rstrip("\n").split("\t")
+            if len(w) < 22:
+                continue
+            rows.append(w)
+            if len(rows) >= cfg.batch_size * max(4, cfg.dispatch_fuse):
+                n_sites += _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e,
+                                             holeids_ne, wf)
+                rows = []
+        if rows:
+            n_sites += _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e,
+                                         holeids_ne, wf)
+    wf.close()
+    predict.close()
+    LAST_RUN.clear()
+    LAST_RUN.update(sites=n_sites, batches=predict.n_batches,
+                    seconds=time.time() - t_start)
+    return out_path
+
+
+def _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e, holeids_ne, wf) -> int:
+    """Predict and write one group of TSV rows; returns the rows written."""
+    batch, sampleinfo = _parse_tsv_batch(rows, cfg.seq_len, holeids_e, holeids_ne)
+    if batch is None:
+        return 0
+    # dispatch every sub-batch up front (k-batch groups; copies overlap device
+    # compute), then collect in row order
+    dispatched = []
+    for s in range(0, len(batch), pad_n):
+        sub = batch.slice(s, min(s + pad_n, len(batch))).pad_to(pad_n)
+        dispatched.append((s, sub, fuser.dispatch(sub.compact_feats())))
+    for s, sub, tok in dispatched:
+        probs = fuser.collect(tok)[: sub.n_valid]
+        predicted = np.argmax(probs, axis=1)
+        for j in range(sub.n_valid):
+            i = s + j
+            p0 = float(probs[j, 0])
+            p1 = float(probs[j, 1])
+            prob_0_norm = round(p0 / (p0 + p1), 6)
+            prob_1_norm = round(1 - prob_0_norm, 6)
+            kmer = "".join(CODE2BASE_DNA[int(c)] for c in sub.kmer[j])
+            center = len(kmer) // 2
+            ks = max(center - 2, 0)
+            ke = min(center + 3, len(kmer))
+            wf.write("\t".join(
+                sampleinfo[i]
+                + ["{},{}".format(int(sub.kpass[j, 0]), int(sub.kpass2[j, 0])),
+                   str(prob_0_norm), str(prob_1_norm), str(int(predicted[j])),
+                   kmer[ks:ke]]) + "\n")
+    return len(batch)

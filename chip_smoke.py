@@ -44,6 +44,10 @@ does not print its last line:
      bound, with the design that ``k45_plan`` picked, the CUDA launches a
      call (asserted) and each phase's time, each recurrence also on one row
      tile;
+     kernel K1 at call_freqb's aggregate shape (NL 1, H 32, L 11, C 21,
+     1,024 rows, fp32: simt with U = 32, one CTA a cluster), both cells,
+     against its plain version, a rerun, cuDNN's nn.GRU / nn.LSTM(21, 32,
+     bidirectional=True) and the bound;
   5. model: full-width attbigru2s, attbilstm2s and transencoder2s with
      numpy-seeded weights, probs through K1 (K3) against probs through the
      plain version; transencoder2s once more with cuDNN's TF32 allowed, which
@@ -53,6 +57,15 @@ does not print its last line:
      simulated aligned BAM, in fp32 and bf16, with K1's (K3's) launch count
      read around the runs; then each RNN model once more in fp32 and bf16
      with ``--rnn_backend pallas_layer``, through K2 and not K1;
+     call_freqb: call_mods on a ~33x simulated modbam (1,000 reads x 2 kb on
+     60 kb), HP tags, count mode, then ``call_freqb --call_mode aggregate
+     --device cuda`` with a seeded full-width aggregate model of each cell,
+     its K1 launches read around the run, against the same run with
+     ``--device cpu`` (raw outputs to 1e-5, rows within the aggregate
+     allowance); the text path: ``extract`` on the call_mods input,
+     ``call_mods`` on that features TSV (attbigru2s through K1,
+     transencoder2s through K3) against ``--device cpu`` on its first rows,
+     then ``call_freqt``;
   7. train end to end, once per model: the port's CLI ``train --device cuda``
      at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
      synthetic features TSV, with the training kernels' and K1's launch
@@ -113,6 +126,16 @@ E2E_READS, E2E_READ_LEN, E2E_REF_LEN = 330, 2000, 300_000
 TRAIN_ROWS, VALID_ROWS, STEP_INTERVAL = 16384, 4096, 8
 TRAIN_EPOCHS = {"gru": 3, "lstm": 3}
 BF16_TRAIN_ROWS = 2048
+# call_freqb input: HiFi's usual ~30x coverage, 1,000 reads x 2 kb on a 60 kb
+# contig (~33x); the aggregate model at its full width (ccsmeth_tpu/cli.py:
+# 457-464 defaults): a 1-layer x 32 BiRNN over 11-site windows of 20
+# histogram bins + the offset, batches of 1,024 windows
+FREQ_READS, FREQ_READ_LEN, FREQ_REF_LEN = 1000, 2000, 60_000
+AGGR_CELLS = {"gru": "attbigru", "lstm": "attbilstm"}
+AGGR_H, AGGR_L, AGGR_C, AGGR_ROWS = 32, 11, 21, 1024
+# the text path: the card runs the whole features TSV of the e2e input, the
+# CPU its first rows (full-width models in plain PyTorch on the host are slow)
+TEXT_CPU_ROWS = 2048
 
 
 def log(msg):
@@ -188,7 +211,7 @@ def _layers(torch, dtype, device, cell):
     return layers_np, [layer_weights(ld, dtype, device) for ld in layers_np]
 
 
-def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
+def _cudnn(torch, cell, cin, n_layers, layers_np, dt, hidden=H):
     """cuDNN's bidirectional nn.GRU / nn.LSTM with the port's weights: the
     yardstick, never used by the port. Built on the card in its dtype, the
     weights copied in, then flattened into cuDNN's one weight buffer. In
@@ -200,7 +223,7 @@ def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
     import warnings
 
     cls = torch.nn.GRU if cell == "gru" else torch.nn.LSTM
-    mod = cls(cin, H, n_layers, bidirectional=True, device="cuda", dtype=dt)
+    mod = cls(cin, hidden, n_layers, bidirectional=True, device="cuda", dtype=dt)
     with torch.no_grad():
         for k, ld in enumerate(layers_np):
             for d, suf in (("fwd", ""), ("bwd", "_reverse")):
@@ -216,7 +239,7 @@ def _cudnn(torch, cell, cin, n_layers, layers_np, dt):
         try:  # the yardstick only: a refusal is reported, the timing still runs
             with torch.no_grad():
                 torch._cudnn_rnn_flatten_weight(
-                    mod._flat_weights, 4, cin, cudnn_rnn.get_cudnn_mode(mod.mode), H,
+                    mod._flat_weights, 4, cin, cudnn_rnn.get_cudnn_mode(mod.mode), hidden,
                     0, n_layers, False, True)
         except RuntimeError as e:
             mod.flatten_error = str(e).splitlines()[0][:200]
@@ -1057,6 +1080,329 @@ def phase_e2e_layer(torch, smi, model_type, k1_tags):
     return runs
 
 
+def phase_k1_aggr(torch, smi):
+    """K1 at call_freqb's aggregate shape (NL 1, H 32, L 11, C 21, 1,024
+    rows, fp32; the simt design with U = 32, one CTA a cluster), both cells,
+    against its plain version, with a bit-equal rerun, beside a one-layer
+    cuDNN nn.GRU / nn.LSTM(21, 32, bidirectional=True) and the bound."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+    from ccsmeth_tpu_torch.ops import bigru
+
+    f32 = torch.float32
+    cells = {}
+    for cell in MODELS:
+        rng = np.random.RandomState(SEED + AGGR_C)
+        layers_np = init_rnn_params(rng, AGGR_C, AGGR_H, 1, cell)
+        ly = [layer_weights(ld, f32, "cuda") for ld in layers_np]
+        # the model's input: normalized histogram bins in [0, 1] and the
+        # offset (a distance in bases) as the last channel
+        x_np = rng.rand(AGGR_L, AGGR_ROWS, AGGR_C).astype(np.float32)
+        x_np[..., -1] = rng.randint(0, 400, (AGGR_L, AGGR_ROWS))
+        x = torch.from_numpy(x_np).cuda()
+        plan = bigru.k1_plan(AGGR_H, cell, f32)
+        assert (plan["design"], plan["U"], plan["CN"]) == ("simt", 32, 1), plan
+        before = bigru.cuda_launches
+        out, hn = bigru.birnn_stack(ly, x, f32, cell)
+        per_call = bigru.cuda_launches - before
+        out2, hn2 = bigru.birnn_stack(ly, x, f32, cell)
+        torch.cuda.synchronize()
+        assert per_call == 2, per_call
+        rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
+        assert rerun_equal, (cell, "rerun differs")
+        ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, f32, cell)
+        assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(hn).all())
+        err = max((out - ref_out).abs().max().item(), (hn - ref_hn).abs().max().item())
+        assert err <= TOL["float32"], (cell, err)
+        lib = _cudnn(torch, cell, AGGR_C, 1, layers_np, f32, AGGR_H).eval()
+        proj, rec, _rows = _phase_fns(plan, ly[0], cell, AGGR_L)
+        x2 = x.view(AGGR_L * AGGR_ROWS, AGGR_C)
+        xg = proj(x2)
+        with torch.inference_mode():
+            kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, f32, cell), torch)
+            plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, f32, cell), torch)
+            library_ms = time_ms(lambda: lib(x), torch)
+            phases = {"projection": time_ms(lambda: proj(x2, xg), torch),
+                      "recurrence": time_ms(lambda: rec(xg, AGGR_ROWS), torch)}
+        flops = bigru.stack_flops(AGGR_L, AGGR_ROWS, AGGR_C, AGGR_H, 1, cell)
+        bound_ms, bound_by = _bound(flops, _nbytes(x, *ly[0], out, hn), "float32")
+        res = {"phase": "kernel", "name": "bigru_stack aggregate", "cell": cell,
+               "rows": AGGR_ROWS, "L": AGGR_L, "C": AGGR_C, "H": AGGR_H, "layers": 1,
+               "dtype": "float32", "design": plan["design"], "U": plan["U"],
+               "CN": plan["CN"], "cuda_launches_per_call": per_call,
+               "max_abs_err": err, "tol": TOL["float32"], "rerun_bit_equal": rerun_equal,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+               "phases_ms": phases, "card": smi}
+        emit(res)
+        cells[cell] = res
+    return cells
+
+
+def _freq_input():
+    from ccsmeth_tpu_torch.utils.simulate import make_synth_bam, write_fasta
+
+    d = os.path.join(WORK, "freq")
+    os.makedirs(d, exist_ok=True)
+    bam, fasta = os.path.join(d, "reads.bam"), os.path.join(d, "ref.fa")
+    if not (os.path.exists(bam) and os.path.exists(fasta)):
+        t0 = time.time()
+        refseq, _ = make_synth_bam(bam, n_reads=FREQ_READS, read_len=FREQ_READ_LEN,
+                                   ref_len=FREQ_REF_LEN, seed=SEED + 1)
+        write_fasta(fasta, {"chrS": refseq})
+        log("freq input: {} reads x {} bp on {} bp ({:.1f}x), simulated in {:.1f} s"
+            .format(FREQ_READS, FREQ_READ_LEN, FREQ_REF_LEN,
+                    FREQ_READS * FREQ_READ_LEN / FREQ_REF_LEN, time.time() - t0))
+    return bam, fasta
+
+
+def _hp_tagged(src, dst):
+    """HP tags drawn as tests/make_goldens.py:108-117 draws them."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.bamio import BamReader, BamWriter
+
+    rd = BamReader(src)
+    recs = list(rd)
+    rng = np.random.RandomState(1)
+    for rec in recs:
+        hap = int(rng.randint(0, 3))
+        if hap:
+            rec.set_tag("HP", "i", hap)
+    with BamWriter(dst, rd.header) as w:
+        for rec in recs:
+            w.write(rec)
+
+
+def _freq_rows(prefix, mode):
+    """{group: lines} of a call_freqb run's freq.txt outputs."""
+    out = {}
+    for tag in ("all", "hp1", "hp2"):
+        path = "{}.{}.{}.freq.txt".format(prefix, mode, tag)
+        with open(path) as f:
+            out[tag] = f.read().splitlines()
+    return out
+
+
+def phase_freq(torch, smi):
+    """call_freqb on a realistic-coverage modbam through the CLI: call_mods
+    (attbigru2s, fp32) on the freq input, HP tags, count mode (host only,
+    no kernel launches), then aggregate mode for each cell with a
+    numpy-seeded full-width AggrAttRNN on the card and again with --device
+    cpu. The counts are set to 0 just before each run and read just after:
+    on the card K1 launches once a batch (2 CUDA launches, simt) and no plain
+    version runs. Gates: the model's raw outputs on the same windows to
+    1e-5, and the rows of the three outputs equal except at most max(1,
+    rows // 200), the JAX package's own allowance."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.models import AggrConfig, init_aggr_attrnn
+    from ccsmeth_tpu_torch.models.params_io import save_params
+    from ccsmeth_tpu_torch.pipeline import call_freq_bam, call_mods
+
+    t_phase = time.time()
+    bam, fasta = _freq_input()
+    d = os.path.join(WORK, "freq")
+    _zero_counts()
+    cli.main(["call_mods", "-i", bam, "-o", os.path.join(d, "mods"), "-m",
+              os.path.join(WORK, MODELS["gru"] + "_full.ckpt.npz"), "--mode", "align",
+              "--ref", fasta, "--device", "cuda"])
+    torch.cuda.synchronize()
+    mods_run, counts = dict(call_mods.LAST_RUN), _all_counts()
+    assert counts["k1"] == mods_run["batches"] > 0 == counts["k1_plain"], counts
+    tagged = os.path.join(d, "mods.hp.bam")
+    _hp_tagged(os.path.join(d, "mods.modbam.bam"), tagged)
+    base = ["call_freqb", "-i", tagged, "--ref", fasta]
+
+    _zero_counts()
+    cli.main(base + ["-o", os.path.join(d, "count")])
+    count_run = dict(call_freq_bam.LAST_RUN)
+    assert sum(_all_counts().values()) == 0  # count mode is host code
+    count_rows = _freq_rows(os.path.join(d, "count"), "count")
+    assert count_run["sites"] == len(count_rows["all"]) > 0
+    res = {"phase": "freq", "input": {"reads": FREQ_READS, "read_len": FREQ_READ_LEN,
+                                      "ref_len": FREQ_REF_LEN,
+                                      "coverage": FREQ_READS * FREQ_READ_LEN / FREQ_REF_LEN},
+           "call_mods_sites": mods_run["sites"],
+           "call_mods_sites_per_s": mods_run["sites"] / mods_run["seconds"],
+           "count": {"sites": count_run["sites"], "seconds": count_run["seconds"],
+                     "sites_per_s": count_run["sites"] / count_run["seconds"]},
+           "card": smi}
+
+    recorded = []  # (offsets, histos, raw) of every model call of a run
+    raw = call_freq_bam.AggrPredictor.raw
+
+    def recording_raw(self, offsets, histos):
+        out = raw(self, offsets, histos)
+        recorded.append((offsets.copy(), histos.copy(), out.copy()))
+        return out
+
+    call_freq_bam.AggrPredictor.raw = recording_raw
+    try:
+        for cell, model_type in AGGR_CELLS.items():
+            npz = os.path.join(d, model_type + "_aggr.npz")
+            save_params(npz, init_aggr_attrnn(SEED, AggrConfig(model_type=model_type)))
+            runs, rows, by_dev = {}, {}, {}
+            for dev in ("cuda", "cpu"):
+                prefix = os.path.join(d, "{}_{}".format(model_type, dev))
+                del recorded[:]
+                _zero_counts()
+                cli.main(base + ["-o", prefix, "--call_mode", "aggregate", "-m", npz,
+                                 "--model_type", model_type, "--device", dev])
+                torch.cuda.synchronize()
+                by_dev[dev] = list(recorded)
+                run = dict(call_freq_bam.LAST_RUN, launches=_all_counts(),
+                           cuda_launches=_cuda_launches()["k1"],
+                           designs=_design_counts()["k1"])
+                n = run["batches"]
+                assert n > 0 and run["rows"] == AGGR_ROWS * n, run
+                if dev == "cuda":
+                    assert run["launches"]["k1"] == n, run
+                    assert sum(run["launches"].values()) == n, run  # no plain run
+                    assert run["cuda_launches"] == 2 * n, run
+                    assert run["designs"]["simt"] == n == sum(run["designs"].values())
+                else:
+                    assert run["launches"]["k1_plain"] == n, run
+                    assert run["launches"]["k1"] == 0 == run["cuda_launches"], run
+                run["sites_per_s"] = run["sites"] / run["seconds"]
+                runs[dev] = run
+                rows[dev] = _freq_rows(prefix, "aggregate")
+            assert len(by_dev["cuda"]) == len(by_dev["cpu"]) > 0
+            raw_err = 0.0
+            for (oa, ha, ra), (ob, hb, rb) in zip(by_dev["cuda"], by_dev["cpu"]):
+                assert np.array_equal(oa, ob) and np.array_equal(ha, hb)
+                raw_err = max(raw_err, float(np.abs(ra - rb).max()))
+            assert raw_err <= 1e-5, (model_type, raw_err)
+            n_rows = sum(len(v) for v in rows["cpu"].values())
+            n_diff = 0
+            for tag in rows["cpu"]:
+                a, b = rows["cuda"][tag], rows["cpu"][tag]
+                assert len(a) == len(b) > 0, tag
+                n_diff += sum(x != y for x, y in zip(a, b))
+            assert n_diff <= max(1, n_rows // 200), (model_type, n_diff, n_rows)
+            res[model_type] = {
+                "sites": runs["cuda"]["sites"], "rows_written": n_rows,
+                "rows_through_model": runs["cuda"]["rows"],
+                "windows": sum(r[2].size for r in by_dev["cuda"]),
+                "k1_calls": runs["cuda"]["launches"]["k1"],
+                "cuda_launches": runs["cuda"]["cuda_launches"],
+                "cuda_launches_per_call": runs["cuda"]["cuda_launches"]
+                / runs["cuda"]["launches"]["k1"],
+                "design": "simt", "designs": runs["cuda"]["designs"],
+                "sites_per_s": runs["cuda"]["sites_per_s"],
+                "sites_per_s_cpu": runs["cpu"]["sites_per_s"],
+                "seconds": runs["cuda"]["seconds"], "raw_max_abs_err": raw_err,
+                "rows_differing_from_cpu": n_diff, "allowed": max(1, n_rows // 200)}
+    finally:
+        call_freq_bam.AggrPredictor.raw = raw
+    res["wall_s"] = time.time() - t_phase
+    emit(res)
+    return res
+
+
+def _per_readsite(path):
+    with open(path) as f:
+        return [ln.split("\t") for ln in f.read().splitlines()]
+
+
+def _ml_share_text(rows, tags):
+    """Share of per_readsite rows whose floor(p1 * 256) equals the BAM path's
+    ML byte of the same site: per read, the rows in read-position order
+    against the ML bytes in tag order (reads whose site counts differ are
+    counted apart)."""
+    import numpy as np
+
+    by_read = {}
+    for w in rows:
+        by_read.setdefault(w[3], []).append((int(w[4]), float(w[7])))
+    n = n_equal = skipped = 0
+    for q, sites in by_read.items():
+        ml = tags.get(q, (None, None))[1]
+        if ml is None or ml.size != len(sites):
+            skipped += 1
+            continue
+        p1 = np.asarray([p for _loc, p in sorted(sites)])
+        n += ml.size
+        n_equal += int((np.clip(np.floor(p1 * 256.0), 0, 255) == ml).sum())
+    return {"sites": n, "ml_equal_share": n_equal / n if n else None,
+            "reads_skipped": skipped}
+
+
+def phase_text(torch, smi, k1_tags):
+    """The text path through the CLI: extract on the e2e BAM gives a
+    features TSV; call_mods on it with attbigru2s (fp32, K1) and
+    transencoder2s (fp32, K3) on the card, counts set to 0 just before each
+    run and read just after; the same models with --device cpu on the
+    TSV's first TEXT_CPU_ROWS rows; then call_freqt on the card's output.
+    Gate: the printed probabilities of those rows to 1e-5, every other field
+    equal. Reported, not gated: how often floor(p1 * 256) equals the BAM
+    path's ML byte of the same site (attbigru2s fp32 e2e run)."""
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.pipeline import call_mods
+
+    t_phase = time.time()
+    bam, fasta = _e2e_input()
+    d = os.path.join(WORK, "text")
+    os.makedirs(d, exist_ok=True)
+    feats = os.path.join(d, "features.tsv")
+    t0 = time.time()
+    cli.main(["extract", "-i", bam, "-o", feats, "--mode", "align", "--ref", fasta])
+    extract_s = time.time() - t0
+    head = os.path.join(d, "features_head.tsv")
+    with open(feats) as f, open(head, "w") as h:
+        lines = f.readlines()
+        h.writelines(lines[:TEXT_CPU_ROWS])
+    res = {"phase": "text", "extract": {"sites": len(lines), "seconds": extract_s,
+                                        "sites_per_s": len(lines) / extract_s},
+           "cpu_rows": TEXT_CPU_ROWS, "card": smi}
+    for model_type in (MODELS["gru"], TRANSENC):
+        name = "k3" if model_type == TRANSENC else "k1"
+        ckpt = os.path.join(WORK, model_type + "_full.ckpt.npz")
+        args = ["call_mods", "-m", ckpt, "--model_type", model_type]
+        _zero_counts()
+        cli.main(args + ["-i", feats, "-o", os.path.join(d, model_type),
+                         "--device", "cuda"])
+        torch.cuda.synchronize()
+        run, counts = dict(call_mods.LAST_RUN), _all_counts()
+        cuda, designs = _cuda_launches(), _design_counts()[name]
+        n = run["batches"]
+        assert run["sites"] == len(lines) and n > 0 and counts[name] == n, (run, counts)
+        assert sum(counts.values()) == n, counts  # no other kernel, no plain run
+        assert designs["simt"] == n, designs
+        assert cuda[name] == (2 * NL if name == "k1" else 1) * n, cuda
+        cli.main(args + ["-i", head, "-o", os.path.join(d, model_type + "_cpu"),
+                         "--device", "cpu"])
+        card = _per_readsite(os.path.join(d, model_type + ".per_readsite.tsv"))
+        cpu = _per_readsite(os.path.join(d, model_type + "_cpu.per_readsite.tsv"))
+        assert len(card) == len(lines) and len(cpu) == TEXT_CPU_ROWS
+        err = 0.0
+        for a, b in zip(card, cpu):
+            assert a[:6] + a[8:] == b[:6] + b[8:], (a, b)
+            err = max(err, abs(float(a[6]) - float(b[6])), abs(float(a[7]) - float(b[7])))
+        assert err <= 1e-5, (model_type, err)
+        t0 = time.time()
+        freq = os.path.join(d, model_type + ".freq.txt")
+        cli.main(["call_freqt", "-i", os.path.join(d, model_type + ".per_readsite.tsv"),
+                  "-o", freq])
+        freqt_s = time.time() - t0
+        with open(freq) as f:
+            n_freq = len(f.read().splitlines())
+        assert n_freq > 0
+        line = {"sites": run["sites"], "batches": n, "launches": counts[name],
+                "cuda_launches": cuda[name], "designs": designs,
+                "sites_per_s": run["sites"] / run["seconds"],
+                "max_abs_err_vs_cpu": err,
+                "call_freqt": {"sites": n_freq, "seconds": freqt_s}}
+        if model_type == MODELS["gru"]:
+            line["vs_bam_path"] = _ml_share_text(card, k1_tags)
+        res[model_type] = line
+    res["wall_s"] = time.time() - t_phase
+    emit(res)
+    return res
+
+
 def _write_feature_tsv(path, n, seed, seq_len=21):
     """Separable synthetic features: label-1 rows get an ipd shift at the
     center (the writer of tests/test_training.py:18-39)."""
@@ -1400,6 +1746,7 @@ def main():
     k1_cells = {cell: phase_kernels(torch, smi, cell) for cell in MODELS}
     k3_cells = phase_k3_kernels(torch, smi)
     k3_l2 = phase_k3_l2(torch, smi, k3_cells)
+    k1_aggr = phase_k1_aggr(torch, smi)
     k2_cells = {cell: phase_k2_kernels(torch, smi, cell) for cell in MODELS}
     for cell in MODELS:
         phase_l2_kernels(torch, smi, cell)
@@ -1408,6 +1755,8 @@ def main():
         phase_model(torch, model_type)
     e2e = {cell: phase_e2e(torch, smi, MODELS[cell]) for cell in MODELS}
     e2e_k3 = phase_e2e(torch, smi, TRANSENC)
+    freq = phase_freq(torch, smi)
+    text = phase_text(torch, smi, e2e["gru"]["tags"]["fp32"])
     e2e_k2 = {cell: phase_e2e_layer(torch, smi, MODELS[cell], e2e[cell]["tags"])
               for cell in MODELS}
     train_runs = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell])
@@ -1442,7 +1791,24 @@ def main():
             if design == "simt":  # the train path validates in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
                 entry["projection_source"] = SIMT_PROJECTION
+                if cell == "gru":
+                    entry["launches_text_path"] = text[MODELS[cell]]["launches"]
             kernels.append(entry)
+        # the same kernel at call_freqb's aggregate shape
+        mc, run = k1_aggr[cell], freq[AGGR_CELLS[cell]]
+        kernels.append({
+            "name": kname + "_aggr", "route": "cuda", "design": mc["design"],
+            "cuda_launches_per_call": mc["cuda_launches_per_call"],
+            "source": "ccsmeth_tpu_torch/ops/csrc/birnn_simt.cu",
+            "projection_source": SIMT_PROJECTION,
+            "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
+            "launches": run["k1_calls"], "cuda_launches": run["cuda_launches"],
+            "max_abs_err": mc["max_abs_err"], "ms": mc["kernel_ms"],
+            "plain_ms": mc["plain_ms"], "bound_ms": mc["bound_ms"],
+            "bound_by": mc["bound_by"], "library_ms": mc["library_ms"],
+            "phases_ms": mc["phases_ms"],
+            "cell": "call_freqb aggregate {} 1x{} rows={} L={} C={} float32".format(
+                AGGR_CELLS[cell], AGGR_H, AGGR_ROWS, AGGR_L, AGGR_C)})
     for cell, kname, src, key, line in (
             ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
             ("gru", "bigru_train_bwd", "bigru_train.cu", "bwd", 63),
@@ -1491,6 +1857,7 @@ def main():
             "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
             "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
             "library_ms": mc["library_ms"], "waves": mc.get("waves"),
+            "launches_text_path": text[TRANSENC]["launches"] if design == "simt" else 0,
             "cell": "{} rows={} {}".format(TRANSENC, ROWS[0], dname),
             "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",

@@ -121,11 +121,18 @@ def test_unsupported_requests_raise(tmp_path, bad):
 
 
 def test_cli_rejects_features_tsv(tmp_path):
+    """A features TSV now runs call_mods_txt (tests/test_torch_text_path.py
+    holds its output); the CLI rejects it, as it rejects a BAM, only when
+    the checkpoint does not match the model flags."""
     from ccsmeth_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="features TSV input not yet ported"):
-        main(["call_mods", "-i", os.path.join(GOLD, "features.tsv"),
-              "-o", str(tmp_path / "o"), "-m", CKPT, "--device", "cpu"])
+    args = ["call_mods", "-i", os.path.join(GOLD, "features.tsv"),
+            "-o", str(tmp_path / "o"), "-m", CKPT, "--device", "cpu"]
+    with pytest.raises(ValueError, match="does not match the model flags"):
+        main(args)
+    main(args + ["--layer_rnn", "2", "--hid_rnn", "64", "--batch_size", "64"])
+    with open(str(tmp_path / "o.per_readsite.tsv")) as f:
+        assert len(f.read().splitlines()) == 729
 
 
 def test_attbilstm2s_call_mods_matches_jax(tmp_path, monkeypatch):

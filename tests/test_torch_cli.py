@@ -34,6 +34,25 @@ def test_train_parser_has_every_jax_option_plus_device():
             args.batch_size, args.optim_type) == ("cuda", 0.5, 3, 256, 512, "Adam")
 
 
+def _actions(parser, command):
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction)).choices[command]
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices, a.required)
+            for a in sub._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("command", ["call_freqb", "call_freqt", "extract"])
+def test_new_subcommands_match_the_jax_parser(command):
+    """Flags, defaults, choices and required flags of the JAX package's
+    subcommand; --device is the only addition (call_freqb, where a model
+    runs)."""
+    want = _actions(jax_cli.get_parser(), command)
+    got = _actions(cli.get_parser(), command)
+    if command == "call_freqb":
+        assert got.pop("device") == (("--device",), "cuda", None, False)
+    assert got == want
+
+
 def _files(tmp_path):
     tr, va = str(tmp_path / "tr.tsv"), str(tmp_path / "va.tsv")
     _write_feature_tsv(tr, n=96, seed=1)
