@@ -6,7 +6,9 @@ model runs.
 Usage:
     python -m ccsmeth_tpu_torch.cli call_mods -i reads.bam -o out -m model.npz \\
         --mode align --ref ref.fa [--device cuda|cpu] [--precision fp32|bf16] \\
-        [--model_type attbilstm2s|transencoder2s] [--rnn_backend pallas_layer]
+        [--model_type attbilstm2s|attbigru2s2|attbilstm2s2|transencoder2s] \\
+        [--rnn_backend pallas_layer] [--h0_mode randn] \\
+        [--num_processes N --process_id k] [--profile_dir DIR]
     python -m ccsmeth_tpu_torch.cli extract -i reads.bam -o features.tsv \\
         --mode align --ref ref.fa
     python -m ccsmeth_tpu_torch.cli call_mods -i features.tsv -o out \\
@@ -17,7 +19,7 @@ Usage:
         -o freq.txt
     python -m ccsmeth_tpu_torch.cli train --train_file train.tsv \\
         --valid_file valid.tsv --model_dir models [--device cuda|cpu] \\
-        [--precision fp32|bf16]
+        [--precision fp32|bf16] [--model_type attbilstm2s|attbigru2s2|attbilstm2s2]
 """
 
 from __future__ import annotations
@@ -77,8 +79,8 @@ def _add_model_args(p, train=False):
     g.add_argument("--model_type", type=str, default="attbigru2s",
                    choices=["attbilstm2s", "attbigru2s", "transencoder2s",
                             "attbilstm2s2", "attbigru2s2"],
-                   help="model type, default attbigru2s (ported: attbigru2s, "
-                        "attbilstm2s; transencoder2s for call_mods only)")
+                   help="model type, default attbigru2s (transencoder2s for "
+                        "call_mods only)")
     g.add_argument("--seq_len", type=int, default=21, help="len of kmer, default 21")
     g.add_argument("--is_npass", type=str, default="yes",
                    help="if using num_pass features, yes or no, default yes")
@@ -311,14 +313,22 @@ def get_parser() -> argparse.ArgumentParser:
                     help="u8 fetches floor(p*256) ML bytes from the device. "
                          "auto = u8 on bf16, exact probs on fp32")
     gc.add_argument("--profile_dir", type=str, default=None,
-                    help="device trace output (not yet ported; raises)")
+                    help="write a torch.profiler trace (host, and the card on "
+                         "cuda) of the dispatch loop here, as a Chrome trace")
     gc.add_argument("--h0_mode", type=str, default="zeros",
                     choices=["zeros", "randn"],
-                    help="RNN initial state: zeros (randn is not yet ported; raises)")
+                    help="RNN initial state: zeros (deterministic default) or "
+                         "randn (replays the reference's per-forward randn h0 "
+                         "draws seeded by --tseed; requires --rnn_backend xla "
+                         "and one process; the BiRNN then runs in plain "
+                         "PyTorch, f32)")
     gs = p.add_argument_group("SCALE-OUT")
     gs.add_argument("--num_processes", type=int, default=1,
-                    help="share-nothing scale-out (not yet ported beyond 1)")
-    gs.add_argument("--process_id", type=int, default=0)
+                    help="share-nothing scale-out: total processes splitting the "
+                         "read stream by stable qname hash; run one call_mods "
+                         "per process with a distinct -o, then merge the outputs")
+    gs.add_argument("--process_id", type=int, default=0,
+                    help="this process's rank in [0, num_processes)")
     _add_extraction_args(p, call_mods=True)
     p.add_argument("--threads", "-p", type=int, default=10)
     p.add_argument("--threads_call", type=int, default=3,

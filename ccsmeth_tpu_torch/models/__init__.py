@@ -1,5 +1,6 @@
 from .config import AggrConfig, AttRNNConfig, TransEncConfig
-from .attrnn import AggrAttRNN, AttRNN, init_aggr_attrnn, init_attrnn
+from .attrnn import (AggrAttRNN, AttRNN, SrcEmbed, init_aggr_attrnn, init_attrnn,
+                     rnn_input_size, take_rows)
 from .transenc import TransEnc, init_transenc
 from .convert import (aggr_params_from_state_dict, aggr_state_dict_from_params,
                       attrnn_params_from_state_dict, attrnn_state_dict_from_params,
@@ -12,10 +13,13 @@ __all__ = [
     "TransEncConfig",
     "AggrAttRNN",
     "AttRNN",
+    "SrcEmbed",
     "TransEnc",
     "init_aggr_attrnn",
     "init_attrnn",
     "init_transenc",
+    "rnn_input_size",
+    "take_rows",
     "aggr_params_from_state_dict",
     "aggr_state_dict_from_params",
     "attrnn_params_from_state_dict",

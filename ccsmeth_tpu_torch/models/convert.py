@@ -1,6 +1,7 @@
 """Weights across the two packages and from reference checkpoints.
 
-``attrnn_state_dict_from_params`` turns a ``ccsmeth_tpu`` params pytree
+``attrnn_state_dict_from_params`` turns a ``ccsmeth_tpu`` params pytree of a
+two-strand attrnn family (scalar or embedded kinetics)
 (numpy leaves: ``init_attrnn`` output or ``params_io.load_params`` of a native
 ``.npz``) into ``AttRNN``'s state_dict, and ``attrnn_params_from_state_dict``
 carries it back, so a model trained here is saved with ``params_io`` in the
@@ -34,18 +35,43 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
 
 
+_TABLES = ("seq_embed", "ipd_embed", "pw_embed", "npass_embed", "map_embed")
+# the SrcEmbed conv stacks of the embedded families and their block_plus
+_SRC_EMBEDS = (("ipd_std_embed", 1), ("pw_std_embed", 1), ("sn_embed", 0))
+
+
 def attrnn_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tensor]":
-    """params pytree (numpy) -> AttRNN state_dict (float32 CPU tensors)."""
+    """params pytree (numpy) -> AttRNN state_dict (float32 CPU tensors,
+    BatchNorm's num_batches_tracked 0): the scalar-kinetics families'
+    ``embed`` and ``fc1``, or the embedded families' tables, ``SrcEmbed``
+    stacks and ``classifier``."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    sd["embed.weight"] = _t(params["embed"])
-    sd.update(aggr_state_dict_from_params(params))
+    if "embed" in params:
+        sd["embed.weight"] = _t(params["embed"])
+    for name in _TABLES:
+        if name in params:
+            sd[name + ".weight"] = _t(params[name])
+    for name, _plus in _SRC_EMBEDS:
+        if name in params:
+            _src_embed_sd(params[name], name, sd)
+    sd.update(_rnn_att_sd(params))
+    if "fc1" in params:
+        _lin_sd(sd, "fc1", params["fc1"])
+    else:
+        _classifier_sd(params, sd)
     return sd
 
 
 def aggr_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tensor]":
     """Aggregate-model params pytree (numpy: ``init_aggr_attrnn`` output or a
-    loaded ``.npz``) -> AggrAttRNN state_dict (float32 CPU tensors); also the
-    rnn, attention and fc1 entries of AttRNN's."""
+    loaded ``.npz``) -> AggrAttRNN state_dict (float32 CPU tensors)."""
+    sd = _rnn_att_sd(params)
+    _lin_sd(sd, "fc1", params["fc1"])
+    return sd
+
+
+def _rnn_att_sd(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """The rnn and attention entries of AttRNN's and AggrAttRNN's state_dict."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for k, ld in enumerate(params["rnn"]):
         for d, suf in (("fwd", ""), ("bwd", "_reverse")):
@@ -55,16 +81,47 @@ def aggr_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Tensor]
             sd["rnn.bias_hh_l{}{}".format(k, suf)] = _t(ld[d]["b_hh"])
     for name in ("Wa", "Ua", "va"):
         sd["_att3.{}.weight".format(name)] = _t(np.asarray(params["att"][name]).T)
-    sd["fc1.weight"] = _t(np.asarray(params["fc1"]["w"]).T)
-    sd["fc1.bias"] = _t(params["fc1"]["b"])
     return sd
 
 
+def _lin_sd(sd, prefix: str, lin: dict) -> None:
+    """An input-major {'w', 'b'} -> nn.Linear's ``prefix.weight`` (out, in)
+    and ``prefix.bias``."""
+    sd[prefix + ".weight"] = _t(np.asarray(lin["w"]).T)
+    sd[prefix + ".bias"] = _t(lin["b"])
+
+
+def _classifier_sd(params: dict, sd) -> None:
+    """The two-layer classifier (Linear, ReLU, Dropout, Linear): keys
+    ``classifier.0`` and ``classifier.3``."""
+    for lin, idx in zip(params["classifier"], (0, 3)):
+        _lin_sd(sd, "classifier.{}".format(idx), lin)
+
+
 def attrnn_params_from_state_dict(sd) -> dict:
-    """AttRNN state_dict (tensors on any device, or numpy) -> params pytree
-    (numpy float32): the inverse of ``attrnn_state_dict_from_params``."""
+    """AttRNN (or reference ModelAttRNN / ModelAttRNN2) state_dict (tensors
+    on any device, or numpy) -> params pytree (numpy float32): the inverse
+    of ``attrnn_state_dict_from_params``, with ``_attrnn_from_sd``'s mapping
+    (``ccsmeth_tpu/models/convert.py:87-107``)."""
     sd = _numpy_sd(sd)
-    return {"embed": sd["embed.weight"], **aggr_params_from_state_dict(sd)}
+    num_layers = sum(1 for k in sd if k.startswith("rnn.weight_ih_l")
+                     and not k.endswith("_reverse"))
+    params: dict = {}
+    if "embed.weight" in sd:
+        params["embed"] = sd["embed.weight"]
+    for name in _TABLES:
+        if name + ".weight" in sd:
+            params[name] = sd[name + ".weight"]
+    for name, plus in _SRC_EMBEDS:
+        if name + ".conv_embed.0.weight" in sd:
+            params[name] = _src_embed(sd, name, plus)
+    if "fc1.weight" in sd:
+        params["fc1"] = _lin(sd, "fc1")
+    else:
+        params["classifier"] = [_lin(sd, "classifier.0"), _lin(sd, "classifier.3")]
+    params["rnn"] = _rnn_layers(sd, "rnn", num_layers)
+    params["att"] = _attention(sd)
+    return params
 
 
 def aggr_params_from_state_dict(sd) -> dict:
@@ -86,7 +143,7 @@ def _numpy_sd(sd) -> dict:
 
 # state_dict keys stored (out, in) here and input-major in the params pytree
 _TRANSPOSED = ("fc1.weight", "_att3.Wa.weight", "_att3.Ua.weight",
-               "_att3.va.weight")
+               "_att3.va.weight", "classifier.0.weight", "classifier.3.weight")
 
 
 def gc_dims(names) -> list:
@@ -145,7 +202,10 @@ def _src_embed_sd(p: dict, prefix: str, sd) -> None:
     ce = prefix + ".conv_embed"
     block(ce + ".0", ce + ".1", p["conv1"], p["bn1"])
     block(ce + ".4", ce + ".5", p["conv2"], p["bn2"])
-    for i, blk in enumerate(p["plus"]):
+    # a .npz keeps no key for an empty list: sn_embed's block_plus 0 loads
+    # without "plus" (params_io's format; the JAX package's apply_src_embed
+    # raises a KeyError on such a load)
+    for i, blk in enumerate(p.get("plus", [])):
         bp = "{}.conv_embed_plus.{}.conv_embed".format(prefix, i)
         block(bp + ".0", bp + ".1", blk["conv"], blk["bn"])
 
@@ -176,9 +236,7 @@ def transenc_state_dict_from_params(params: dict) -> "OrderedDict[str, torch.Ten
         for mod, key in (("norm1", "ln1"), ("norm2", "ln2")):
             sd[p + mod + ".weight"] = _t(lp[key]["scale"])
             sd[p + mod + ".bias"] = _t(lp[key]["bias"])
-    for i, idx in enumerate((0, 3)):
-        sd["classifier.{}.weight".format(idx)] = _t(np.asarray(params["classifier"][i]["w"]).T)
-        sd["classifier.{}.bias".format(idx)] = _t(params["classifier"][i]["b"])
+    _classifier_sd(params, sd)
     return sd
 
 
@@ -243,17 +301,35 @@ def _src_embed(sd, prefix, block_plus):
 
 
 def torch_ckpt_to_params(path: str, cfg) -> dict:
-    """Reference .ckpt -> params pytree: the scalar-kinetics attrnn families
+    """Reference .ckpt -> params pytree: the two-strand attrnn families
     (AttRNNConfig), transencoder2s (TransEncConfig) and the aggregate model
     (AggrConfig)."""
     if isinstance(cfg, AggrConfig):
         return aggr_params_from_state_dict(load_torch_state_dict(path))
     if isinstance(cfg, TransEncConfig):
         return transenc_params_from_state_dict(load_torch_state_dict(path), cfg)
-    if not isinstance(cfg, AttRNNConfig) or cfg.embedded_kinetics:
+    if not isinstance(cfg, AttRNNConfig) or not cfg.two_strand:
         raise NotImplementedError(
-            "only the scalar-kinetics attrnn families and transencoder2s are ported")
+            "only the two-strand attrnn families, transencoder2s and the "
+            "aggregate model are ported")
     sd = load_torch_state_dict(path)
-    return {"embed": sd["embed.weight"], "fc1": _lin(sd, "fc1"),
-            "rnn": _rnn_layers(sd, "rnn", cfg.num_layers),
-            "att": _attention(sd)}
+    params: dict = {}
+    if cfg.embedded_kinetics:
+        for name in ("seq_embed", "ipd_embed", "pw_embed"):
+            params[name] = sd[name + ".weight"]
+        if cfg.is_stds:
+            params["ipd_std_embed"] = _src_embed(sd, "ipd_std_embed", 1)
+            params["pw_std_embed"] = _src_embed(sd, "pw_std_embed", 1)
+        if cfg.is_npass:
+            params["npass_embed"] = sd["npass_embed.weight"]
+        if cfg.is_sn:
+            params["sn_embed"] = _src_embed(sd, "sn_embed", 0)
+        if cfg.is_map:
+            params["map_embed"] = sd["map_embed.weight"]
+        params["classifier"] = [_lin(sd, "classifier.0"), _lin(sd, "classifier.3")]
+    else:
+        params["embed"] = sd["embed.weight"]
+        params["fc1"] = _lin(sd, "fc1")
+    params["rnn"] = _rnn_layers(sd, "rnn", cfg.num_layers)
+    params["att"] = _attention(sd)
+    return params

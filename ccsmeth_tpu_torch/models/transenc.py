@@ -13,7 +13,7 @@ Counterpart of ``ccsmeth_tpu/models/transenc.py`` (``apply_transenc :178``):
     Linear and softmax (``:210-216``).
 
 The kinetics lookups reproduce ``jnp.take`` on ``astype(int32)`` of the
-feature floats (``:151-153``) exactly, as ``take_rows`` says: call_mods feeds
+feature floats (``:151-153``) exactly, as ``attrnn.take_rows`` says: call_mods feeds
 z-score-normalised means, often small and negative.
 
 Attribute names are the reference state_dict keys that the JAX package's
@@ -39,7 +39,8 @@ from ..ops import transenc
 from ..utils.constants import (MAX_KINETICS, MAX_MAP, MAX_PASSES, NEMBED_BASE,
                                NEMBED_KINETICS, NEMBED_KINETICS_STD, NEMBED_MAP,
                                NEMBED_PASSES, NEMBED_SN, N_VOCAB)
-from .attrnn import SrcEmbed, _lin_init, init_src_embed
+from .attrnn import (SrcEmbed, _lin_init, add_kinetics_embeds, init_src_embed,
+                     kinetics_embedded, kinetics_width)
 from .config import TransEncConfig
 
 
@@ -128,19 +129,6 @@ def randomize_affine(params: dict, seed: int) -> dict:
     return out
 
 
-def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``jnp.take(table, idx.astype(int32), axis=0)`` on float indices:
-    truncate toward zero, add the table length to indices in [-n, 0), and
-    give a NaN row for an index outside [-n, n). (``nn.Embedding`` would
-    raise on the CPU and assert on the card instead.)"""
-    n = table.shape[0]
-    i = idx.to(torch.int64)
-    i = torch.where(i < 0, i + n, i)
-    inside = (i >= 0) & (i < n)
-    rows = table[i.clamp(0, n - 1)]
-    return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan")))
-
-
 class _PosEncoder(nn.Module):
     def __init__(self, seq_len: int, d_model: int):
         super().__init__()
@@ -200,24 +188,8 @@ class TransEnc(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        nembed_all = NEMBED_BASE + 2 * NEMBED_KINETICS
-        self.seq_embed = nn.Embedding(N_VOCAB, NEMBED_BASE)
-        self.ipd_embed = nn.Embedding(MAX_KINETICS + 1, NEMBED_KINETICS)
-        self.pw_embed = nn.Embedding(MAX_KINETICS + 1, NEMBED_KINETICS)
-        if cfg.is_npass:
-            self.npass_embed = nn.Embedding(MAX_PASSES + 1, NEMBED_PASSES)
-            nembed_all += NEMBED_PASSES
-        if cfg.is_stds:
-            self.ipd_std_embed = SrcEmbed(1, NEMBED_KINETICS_STD, 1)
-            self.pw_std_embed = SrcEmbed(1, NEMBED_KINETICS_STD, 1)
-            nembed_all += 2 * NEMBED_KINETICS_STD
-        if cfg.is_sn:
-            self.sn_embed = SrcEmbed(4, NEMBED_SN, 0)
-            nembed_all += NEMBED_SN
-        if cfg.is_map:
-            self.map_embed = nn.Embedding(MAX_MAP, NEMBED_MAP)
-            nembed_all += NEMBED_MAP
-        self.trans_input = SrcEmbed(nembed_all, d, 1)
+        add_kinetics_embeds(self, cfg)
+        self.trans_input = SrcEmbed(kinetics_width(cfg), d, 1)
         self.pos_encoder = _PosEncoder(cfg.seq_len, d)
         self.transformer_encoder = _Encoder(cfg)
         self.classifier = nn.Sequential(nn.Linear(2 * d, 2 * d), nn.ReLU(),
@@ -242,24 +214,7 @@ class TransEnc(nn.Module):
     def strand_input(self, feats: dict, suffix: str) -> torch.Tensor:
         """One strand's embedded and positioned encoder input (B, L, d_model)
         f32 (``transenc.py:141-175``, inference)."""
-        cfg = self.cfg
-        L = cfg.seq_len
-        parts = [take_rows(self.seq_embed.weight, feats["kmer" + suffix]),
-                 take_rows(self.ipd_embed.weight, feats["ipd_means" + suffix]),
-                 take_rows(self.pw_embed.weight, feats["pw_means" + suffix])]
-        if cfg.is_npass:
-            kp = torch.clamp(feats["kpass" + suffix], 1, MAX_PASSES)
-            parts.append(take_rows(self.npass_embed.weight, kp))
-        if cfg.is_stds:
-            for key, mod in (("ipd_stds", self.ipd_std_embed),
-                             ("pw_stds", self.pw_std_embed)):
-                parts.append(mod(feats[key + suffix].reshape(-1, L, 1).float()))
-        if cfg.is_sn:
-            sns = feats["sns" + suffix].float()
-            parts.append(self.sn_embed(sns[:, None, :].expand(sns.shape[0], L, 4)))
-        if cfg.is_map:
-            parts.append(take_rows(self.map_embed.weight, feats["maps" + suffix]))
-        x = self.trans_input(torch.cat(parts, dim=2))
+        x = self.trans_input(kinetics_embedded(self, self.cfg, feats, suffix))
         return x + self.pos_encoder.pos_embed.weight[None]
 
     def forward(self, feats: dict, compute_dtype=torch.float32, encoder_fn=None):

@@ -13,8 +13,14 @@ The TSV path parses rows in groups of batch_size * max(4, dispatch_fuse),
 dispatches their padded batches through the same predict step and writes one
 row a site.
 
-Not ported yet: ``--h0_mode randn``, ``--num_processes > 1`` and
-``--profile_dir``; each raises.
+On both inputs, as in the JAX package: ``--num_processes N --process_id k``
+keeps the reads that ``parallel/distributed.py::owns_read`` gives process k
+(by read name; a TSV row's column 4), so the N outputs together are the
+single run's; ``--h0_mode randn`` replays the reference's per-forward
+``torch.randn`` initial states (``_make_h0_stream``), which the model runs
+through the plain BiRNN, since K1 and K2 are zero-h0; ``--profile_dir``
+writes a ``torch.profiler`` trace of the dispatch loop
+(``utils/observe.py::device_trace``).
 """
 
 from __future__ import annotations
@@ -40,12 +46,13 @@ from ..models import (AttRNN, AttRNNConfig, TransEnc, TransEncConfig,
 from ..models.attrnn import PORTED
 from ..models.convert import torch_ckpt_to_params
 from ..models.params_io import _flatten, load_params
+from ..parallel.distributed import owns_read
 from ..parallel.predict import make_predict_fn
 from ..utils.codecs import get_motif_seqs
 from ..utils.constants import BASE2CODE_DNA, CODE2BASE_DNA
 from ..utils.fasta import DNAReference
 from ..utils.logging import mylogger
-from ..utils.observe import ThroughputMeter
+from ..utils.observe import ThroughputMeter, device_trace
 from .modbam import add_mm_ml_to_record
 
 LOGGER = mylogger(__name__)
@@ -147,8 +154,8 @@ class CallModsConfig:
             )
         if self.model_type not in PORTED:
             raise NotImplementedError(
-                "--model_type {} is not yet ported ({}, transencoder2s only)".format(
-                    self.model_type, ", ".join(PORTED)))
+                "--model_type {} is not yet ported ({} and transencoder2s only)"
+                .format(self.model_type, ", ".join(PORTED)))
         return AttRNNConfig(
             seq_len=self.seq_len, num_layers=self.layer_rnn,
             num_classes=self.class_num, dropout_rate=0.0,
@@ -234,18 +241,75 @@ def _get_holes(path: str) -> set:
     return holes
 
 
-def _check_unported(cfg: CallModsConfig) -> None:
-    if cfg.h0_mode != "zeros":
-        raise ValueError("--h0_mode randn is not yet ported: kernels K1 and "
-                         "K2 and their plain versions are zero-h0 only")
-    if cfg.num_processes > 1:
-        raise NotImplementedError("--num_processes > 1 is not yet ported")
-    if cfg.profile_dir:
-        raise NotImplementedError("--profile_dir is not yet ported")
+def _check_options(cfg: CallModsConfig) -> None:
     if cfg.rnn_backend not in ("xla", "pallas", "pallas_layer"):
         raise ValueError("--rnn_backend must be xla, pallas or pallas_layer")
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError("--precision must be fp32 or bf16")
+
+
+def _make_h0_stream(model_cfg, tseed: int):
+    """Replay the reference's per-forward randn initial states
+    (``ccsmeth_tpu/pipeline/call_mods.py:247-280``): a generator seeded once
+    with ``tseed`` (the stream of the global one after
+    ``torch.manual_seed(tseed)``, call_modifications.py:479), then for every
+    model forward, in the reference's order (models.py:77-87, 126-131):
+    strand-1 h0 [then c0 for the LSTM], strand-2 h0 [then c0]. Each draw
+    has the UNPADDED row count (the reference's batch); rows padded to the
+    dispatch width get zero states.
+
+    Returns draw(n_valid, pad_n) -> dict of (num_layers*2, pad_n, H) float32
+    arrays keyed h0/h0_2[/c0/c0_2], AttRNN's ``h0s``."""
+    gen = torch.Generator().manual_seed(tseed)
+    nl2 = model_cfg.num_layers * 2
+    H = model_cfg.hidden_size
+    lstm = model_cfg.rnn_cell == "lstm"
+
+    def draw(n_valid: int, pad_n: int) -> dict:
+        def one():
+            t = torch.randn(nl2, n_valid, H, generator=gen).numpy().astype(np.float32)
+            if pad_n != n_valid:
+                t = np.pad(t, ((0, 0), (0, pad_n - n_valid), (0, 0)))
+            return t
+
+        out = {"h0": one()}
+        if lstm:
+            out["c0"] = one()
+        out["h0_2"] = one()
+        if lstm:
+            out["c0_2"] = one()
+        return out
+
+    return draw
+
+
+def _h0_stream_for(cfg: CallModsConfig, model_cfg):
+    """Validate + build the randn-h0 replay stream, or None for zero-h0
+    (``ccsmeth_tpu/pipeline/call_mods.py:283-299``)."""
+    if cfg.h0_mode != "randn":
+        return None
+    if isinstance(model_cfg, TransEncConfig):
+        raise ValueError("--h0_mode randn applies to RNN models only "
+                         "(the transformer has no recurrent initial state)")
+    if cfg.rnn_backend != "xla":
+        raise ValueError("--h0_mode randn requires --rnn_backend xla "
+                         "(the fused pallas kernels are zero-h0 only)")
+    if cfg.num_processes > 1:
+        raise ValueError(
+            "--h0_mode randn requires a single process: sharded runs consume "
+            "the per-forward torch.randn stream against a different batch "
+            "sequence than the reference's, so the replay would reproduce "
+            "nothing")
+    return _make_h0_stream(model_cfg, cfg.tseed)
+
+
+def _shard_for(cfg: CallModsConfig):
+    """(process_id, num_processes) of a share-nothing run, or None."""
+    if cfg.num_processes <= 1:
+        return None
+    if not 0 <= cfg.process_id < cfg.num_processes:
+        raise ValueError("--process_id must be in [0, num_processes)")
+    return cfg.process_id, cfg.num_processes
 
 
 class _FusedDispatcher:
@@ -307,7 +371,7 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     if cfg.transfer_quant == "int8" and cfg.norm not in ("zscore", "mad"):
         raise ValueError("--transfer_quant int8 requires a standardized "
                          "normalization (--norm zscore or mad)")
-    _check_unported(cfg)
+    _check_options(cfg)
     device = resolve_device(cfg.device)
     model_cfg = cfg.model_config()
     params = load_model_params(cfg.model_file, model_cfg)
@@ -318,6 +382,7 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
         transfer_dtype=cfg.precision,
         kinetics_quant=cfg.resolved_transfer_quant(),
         fetch_mode=cfg.resolved_fetch_mode())
+    h0_draw = _h0_stream_for(cfg, model_cfg)
     pad_n = cfg.batch_size
 
     dnacontigs = None
@@ -330,6 +395,9 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     holeids_ne = _get_holes(cfg.holeids_ne) if cfg.holeids_ne else None
     ecfg = cfg.extract_config()
 
+    shard = _shard_for(cfg)
+    if shard is not None:
+        LOGGER.info("read sharding: process %d/%d", *shard)
     reader = BamReader(input_path)
     refnames = [r[0] for r in reader.header.references]
     out_header = reader.header.add_pg("ccsmeth_tpu_torch", "ccsmeth_tpu_torch",
@@ -380,6 +448,8 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
 
             holebatch = []
             for rec in reader:
+                if shard is not None and not owns_read(rec.qname, *shard):
+                    continue
                 holebatch.append(rec)
                 if len(holebatch) >= cfg.holes_batch:
                     item = (holebatch, pool.submit(mp_extract.extract_holebatch,
@@ -427,6 +497,8 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
 
     rm_pulse = not cfg.keep_pulse
     meter = ThroughputMeter("call_mods")
+    trace_ctx = device_trace(cfg.profile_dir, device)
+    trace_ctx.__enter__()
     # batches are dispatched ahead of result collection: tagging/writing of a
     # previous holebatch overlaps the copies and compute of the next
     pending: deque = deque()
@@ -495,7 +567,10 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
             meter.add("sites", len(batch))
             for s in range(0, len(batch), pad_n):
                 sub = batch.slice(s, min(s + pad_n, len(batch))).pad_to(pad_n)
-                subs.append((fuser.dispatch(sub.compact_feats()), sub))
+                cf = sub.compact_feats()
+                if h0_draw is not None:
+                    cf.update(h0_draw(sub.n_valid, pad_n))
+                subs.append((fuser.dispatch(cf), sub))
         pending.append((holebatch, idx_map, subs))
         # finalize only slots whose sub-batches have all been dispatched; the
         # hard cap bounds host memory when holebatches are tiny relative to k
@@ -510,6 +585,7 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     while pending:
         finalize(pending.popleft())
 
+    trace_ctx.__exit__(None, None, None)
     meter.log()
     if err:
         # unblock a producer stuck on a full queue, then surface the error
@@ -643,7 +719,7 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     """
     t_start = time.time()
     out_path = output_prefix + ".per_readsite.tsv"
-    _check_unported(cfg)
+    _check_options(cfg)
     device = resolve_device(cfg.device)
     model_cfg = cfg.model_config()
     params = load_model_params(cfg.model_file, model_cfg)
@@ -657,9 +733,11 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
         compute_dtype=torch.bfloat16 if cfg.precision == "bf16" else torch.float32,
         kinetics_quant=tq)
     fuser = _FusedDispatcher(predict, cfg.dispatch_fuse)
+    h0_draw = _h0_stream_for(cfg, model_cfg)
     pad_n = cfg.batch_size
     holeids_e = _get_holes(cfg.holeids_e) if cfg.holeids_e else None
     holeids_ne = _get_holes(cfg.holeids_ne) if cfg.holeids_ne else None
+    shard = _shard_for(cfg)
 
     from ..bamio import create_text_gz, open_text_auto
 
@@ -672,19 +750,21 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
         wf = open(out_path, "w")
     n_sites = 0
     rows: list[list[str]] = []
-    with opener(input_path, "rt") as rf:
+    with opener(input_path, "rt") as rf, device_trace(cfg.profile_dir, device):
         for line in rf:
             w = line.rstrip("\n").split("\t")
             if len(w) < 22:
                 continue
+            if shard is not None and not owns_read(w[3], *shard):
+                continue
             rows.append(w)
             if len(rows) >= cfg.batch_size * max(4, cfg.dispatch_fuse):
                 n_sites += _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e,
-                                             holeids_ne, wf)
+                                             holeids_ne, wf, h0_draw)
                 rows = []
         if rows:
             n_sites += _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e,
-                                         holeids_ne, wf)
+                                         holeids_ne, wf, h0_draw)
     wf.close()
     predict.close()
     LAST_RUN.clear()
@@ -693,17 +773,21 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     return out_path
 
 
-def _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e, holeids_ne, wf) -> int:
+def _predict_tsv_rows(rows, cfg, fuser, pad_n, holeids_e, holeids_ne, wf,
+                      h0_draw=None) -> int:
     """Predict and write one group of TSV rows; returns the rows written."""
     batch, sampleinfo = _parse_tsv_batch(rows, cfg.seq_len, holeids_e, holeids_ne)
     if batch is None:
         return 0
     # dispatch every sub-batch up front (k-batch groups; copies overlap device
-    # compute), then collect in row order
+    # compute; h0 draws stay in stream order), then collect in row order
     dispatched = []
     for s in range(0, len(batch), pad_n):
         sub = batch.slice(s, min(s + pad_n, len(batch))).pad_to(pad_n)
-        dispatched.append((s, sub, fuser.dispatch(sub.compact_feats())))
+        cf = sub.compact_feats()
+        if h0_draw is not None:
+            cf.update(h0_draw(sub.n_valid, pad_n))
+        dispatched.append((s, sub, fuser.dispatch(cf)))
     for s, sub, tok in dispatched:
         probs = fuser.collect(tok)[: sub.n_valid]
         predicted = np.argmax(probs, axis=1)

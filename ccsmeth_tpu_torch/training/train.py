@@ -1,11 +1,15 @@
 """Training loop on one GPU (or the CPU, when asked).
 
 Counterpart of ``ccsmeth_tpu/training/train.py`` for one device: no mesh, no
-``shard_map`` and no collectives. The model is ``AttRNN`` (attbigru2s or
-attbilstm2s); its BiRNN trains through kernels K4/K5 (``ops/bigru_vjp.py``,
-GRU) or K6 (``ops/bilstm_vjp.py``, LSTM) on CUDA and through their plain
-versions on the CPU, and validation runs the inference forward, kernel K1, in
-f32 as the JAX package's eval step does.
+``shard_map`` and no collectives. The model is ``AttRNN`` (attbigru2s,
+attbilstm2s, or the embedded-kinetics attbigru2s2 and attbilstm2s2); its
+BiRNN trains through kernels K4/K5 (``ops/bigru_vjp.py``, GRU) or K6
+(``ops/bilstm_vjp.py``, LSTM) on CUDA and through their plain versions on the
+CPU, and validation runs the inference forward, kernel K1, in f32 as the JAX
+package's eval step does. The embedded families' ``SrcEmbed`` BatchNorms
+train on each batch's statistics (pad rows included, as in the JAX package)
+and keep their running stats as loaded: those are buffers, which no
+optimizer touches, as JAX's optimizers leave leaves with zero gradient.
 
 Loop semantics as the JAX package's (and the reference's train.py): weighted
 CE [1, pos_weight] normalized by the weight sum, grad-clip 0.5, validation

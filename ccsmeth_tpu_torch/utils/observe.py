@@ -1,11 +1,16 @@
-"""Observability: per-stage throughput counters.
+"""Observability: per-stage throughput counters and a profiler trace.
 
-Copy of ThroughputMeter from ``ccsmeth_tpu/utils/observe.py``; the device trace
-(``--profile_dir``) is not ported yet.
+``ThroughputMeter`` is a copy of ``ccsmeth_tpu/utils/observe.py``'s;
+``device_trace`` is the counterpart of its ``jax.profiler`` trace
+(``observe.py:47-60``): a ``torch.profiler`` trace of the host and, on a
+CUDA device, of the card, written as a Chrome trace (chrome://tracing or
+Perfetto) into the directory.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 from .logging import mylogger
@@ -39,3 +44,28 @@ class ThroughputMeter:
         parts = ["{}={} ({:.1f}/s)".format(k, v, v / dt if dt > 0 else 0.0)
                  for k, v in sorted(self.counts.items())]
         LOGGER.info("[%s] %s, elapsed %.1fs", self.name, ", ".join(parts), dt)
+
+
+@contextlib.contextmanager
+def device_trace(trace_dir: str | None, device=None):
+    """torch.profiler trace context: CPU activity, plus CUDA when ``device``
+    is a CUDA device; on exit the trace is written to
+    ``trace_dir/trace_<pid>_<time ns>.json``, one file a trace, as
+    jax.profiler writes one timestamped run a trace. A no-op when trace_dir
+    is None."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace_{}_{}.json".format(os.getpid(), time.time_ns()))
+    LOGGER.info("torch profiler trace -> %s", trace_dir)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(path)
+    LOGGER.info("torch profiler trace saved to %s", path)

@@ -52,6 +52,13 @@ does not print its last line:
      numpy-seeded weights, probs through K1 (K3) against probs through the
      plain version; transencoder2s once more with cuDNN's TF32 allowed, which
      must change nothing;
+     model2s2: the embedded-kinetics families attbigru2s2 and attbilstm2s2,
+     whose BiRNN input is C = 28 (52 with stds, sn and map): K1 at C = 28
+     (fp32 and bf16) and 52 (fp32), K2's layer 0 at the same widths, and
+     K4/K5 or K6 on layer 0 at C = 28 (fp32 and bf16), 1024 rows, each
+     against its plain version beside cuDNN and the bound; then the seeded
+     full-width model through K1, and through K2 under pallas_layer, against
+     the plain version (probs to 1e-5 in fp32, 1e-2 in bf16);
   6. call_mods end to end, once per model: the port's CLI ``call_mods --mode
      align --device cuda [--model_type attbilstm2s|transencoder2s]`` on a
      simulated aligned BAM, in fp32 and bf16, with K1's (K3's) launch count
@@ -66,11 +73,21 @@ does not print its last line:
      ``call_mods`` on that features TSV (attbigru2s through K1,
      transencoder2s through K3) against ``--device cpu`` on its first rows,
      then ``call_freqt``;
+     e2e2s2: ``call_mods --model_type attbigru2s2|attbilstm2s2`` in fp32
+     and bf16 through K1, then under ``--rnn_backend pallas_layer`` through
+     K2, the fp32 ML bytes against ``--device cpu``'s on the reads of the
+     first 2,048 sites;
+     flags (attbigru2s fp32): ``--h0_mode randn`` through the plain BiRNN
+     once a batch and K1 never, its ML bytes against ``--device cpu``'s
+     with the same --tseed; ``--num_processes 2`` as two runs whose records
+     together equal the single run's; ``--profile_dir``, whose trace names
+     K1's kernels;
   7. train end to end, once per model: the port's CLI ``train --device cuda``
      at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
      synthetic features TSV, with the training kernels' and K1's launch
      counts, the training kernels' calls by design and CUDA launches read
      around the run (fp32: simt only), then a few bf16 steps (tc only);
+     the same for attbigru2s2 and attbilstm2s2 (layer 0 at C = 28);
   8. profile: torch.profiler over a few full-width training steps of each
      model: the step's host and device ms, the device's idle share and the
      device time per kernel;
@@ -136,6 +153,13 @@ AGGR_H, AGGR_L, AGGR_C, AGGR_ROWS = 32, 11, 21, 1024
 # the text path: the card runs the whole features TSV of the e2e input, the
 # CPU its first rows (full-width models in plain PyTorch on the host are slow)
 TEXT_CPU_ROWS = 2048
+# the embedded-kinetics families: their BiRNN input is C = 28 at the
+# defaults (8 + 2 x 8 + 4) and 52 with stds, sn and map (+ 16 + 4 + 4)
+MODELS2S2 = {"gru": "attbigru2s2", "lstm": "attbilstm2s2"}
+C2S2, C2S2_WIDE = 28, 52
+WIDE = {"is_stds": True, "is_sn": True, "is_map": True}
+# --device cpu runs the e2e input's reads of its first HEAD_SITES sites
+HEAD_SITES = 2048
 
 
 def log(msg):
@@ -201,13 +225,13 @@ def phase_build():
     return secs
 
 
-def _layers(torch, dtype, device, cell):
+def _layers(torch, dtype, device, cell, cin=C):
     import numpy as np
 
     from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 
     rng = np.random.RandomState(SEED)
-    layers_np = init_rnn_params(rng, C, H, NL, cell)
+    layers_np = init_rnn_params(rng, cin, H, NL, cell)
     return layers_np, [layer_weights(ld, dtype, device) for ld in layers_np]
 
 
@@ -277,7 +301,7 @@ def _phase_fns(plan, ly, cell, Lx, layer=False):
 
 def _k1_phases_ms(torch, ly, x, cell, plan):
     """Device time of each phase of K1's tc or simt design on the stack's
-    inputs: the projection of layer 0 (C = 11) and of a later layer
+    inputs: the projection of layer 0 (C = 11, or the cell's C) and of a later layer
     (C = 2H), and one layer's recurrence, also on 1 and 15 row tiles a
     direction; medians of CUDA-event timings."""
     Lx, N, _C = x.shape
@@ -296,7 +320,7 @@ def _k1_phases_ms(torch, ly, x, cell, plan):
         xg_t = torch.randn((2, Lx * rows, xg.shape[2]), device="cuda")
         by_tiles[str(tiles)] = time_ms(lambda: rec(xg_t, rows), torch)
     return {"rows_a_tile": rows_tile, "recurrence_by_row_tiles": by_tiles,
-            "projection_c11": time_ms(lambda: proj(x0, xg), torch),
+            "projection_c{}".format(x.shape[2]): time_ms(lambda: proj(x0, xg), torch),
             "projection_c512": time_ms(lambda: proj1(x1, xg), torch),
             "recurrence": time_ms(lambda: rec(xg, N, out), torch)}
 
@@ -304,67 +328,74 @@ def _k1_phases_ms(torch, ly, x, cell, plan):
 def phase_kernels(torch, smi, cell):
     import numpy as np
 
-    from ccsmeth_tpu_torch.ops import bigru
-
     cells = []
     for rows in ROWS:
         x_np = np.random.RandomState(SEED + rows).randn(L, rows, C).astype(np.float32)
         for dname in ("float32", "bfloat16"):
-            dt = getattr(torch, dname)
-            plan = bigru.k1_plan(H, cell, dt)
-            layers_np, ly = _layers(torch, dt, "cuda", cell)
-            x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
-            before = dict(bigru.design_calls)
-            bigru.cuda_launches = 0
-            out, hn = bigru.birnn_stack(ly, x, dt, cell)
-            cuda_per_call = bigru.cuda_launches
-            out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
-            torch.cuda.synchronize()
-            assert bigru.design_calls[plan["design"]] == before[plan["design"]] + 2
-            # tc and simt: a projection and a recurrence a layer
-            assert cuda_per_call == 2 * NL, (plan, cuda_per_call)
-            rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
-            assert rerun_equal, (cell, rows, dname, "rerun differs")
-            ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
-            assert out.shape == (L, rows, 2 * H) and hn.shape == (2 * NL, rows, H)
-            assert bool(torch.isfinite(out.float()).all())
-            assert bool(torch.isfinite(hn).all())
-            err_out = (out.float() - ref_out.float()).abs().max().item()
-            err_hn = (hn - ref_hn).abs().max().item()
-            assert max(err_out, err_hn) <= TOL[dname], (cell, rows, dname, err_out,
-                                                        err_hn)
-
-            lib = _cudnn(torch, cell, C, NL, layers_np, dt)
-            with torch.inference_mode():
-                kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, dt, cell), torch)
-                plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell),
-                                   torch)
-                library_ms = time_ms(lambda: lib(x), torch)
-                phases = _k1_phases_ms(torch, ly, x, cell, plan)
-            flops = bigru.stack_flops(L, rows, C, H, NL, cell)
-            nbytes = (x.numel() * x.element_size()
-                      + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
-                      + out.numel() * out.element_size() + hn.numel() * 4)
-            t_ops = flops / PEAK_FLOPS[dname] * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            res = {"phase": "kernel", "name": "bigru_stack", "cell": cell,
-                   "rows": rows, "dtype": dname, "design": plan["design"],
-                   "cuda_launches_per_call": cuda_per_call,
-                   "max_abs_err_out": err_out,
-                   "max_abs_err_hn": err_hn, "tol": TOL[dname],
-                   "rerun_bit_equal": rerun_equal,
-                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
-                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                   "library_weights_warning": lib.weights_warning,
-                   "library_flatten_error": lib.flatten_error,
-                   "gflop": flops / 1e9,
-                   "tflops_achieved": flops / kernel_ms / 1e9, "phases_ms": phases,
-                   "card": smi}
-            emit(res)
-            cells.append(res)
-            del lib, out, hn, out2, hn2, ref_out, ref_hn
+            cells.append(_k1_cell(torch, smi, cell, x_np, dname))
     return cells
+
+
+def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
+    """K1 (the cell's whole 3 x 256 stack) on the input x_np (L, rows, C):
+    the design ``k1_plan`` picks, its CUDA launches a call, a bit-equal
+    rerun, the error against the plain version (``TOL``), and the kernel's,
+    the plain version's and cuDNN's times beside the bound, with each
+    phase's time when ``phases``."""
+    from ccsmeth_tpu_torch.ops import bigru
+
+    rows, cin = x_np.shape[1], x_np.shape[2]
+    dt = getattr(torch, dname)
+    plan = bigru.k1_plan(H, cell, dt)
+    layers_np, ly = _layers(torch, dt, "cuda", cell, cin)
+    x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
+    before = dict(bigru.design_calls)
+    bigru.cuda_launches = 0
+    out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    cuda_per_call = bigru.cuda_launches
+    out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
+    torch.cuda.synchronize()
+    assert bigru.design_calls[plan["design"]] == before[plan["design"]] + 2
+    # tc and simt: a projection and a recurrence a layer
+    assert cuda_per_call == 2 * NL, (plan, cuda_per_call)
+    rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
+    assert rerun_equal, (cell, rows, cin, dname, "rerun differs")
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert out.shape == (L, rows, 2 * H) and hn.shape == (2 * NL, rows, H)
+    assert bool(torch.isfinite(out.float()).all())
+    assert bool(torch.isfinite(hn).all())
+    err_out = (out.float() - ref_out.float()).abs().max().item()
+    err_hn = (hn - ref_hn).abs().max().item()
+    assert max(err_out, err_hn) <= TOL[dname], (cell, rows, cin, dname, err_out, err_hn)
+
+    lib = _cudnn(torch, cell, cin, NL, layers_np, dt)
+    with torch.inference_mode():
+        kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, dt, cell), torch)
+        plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell), torch)
+        library_ms = time_ms(lambda: lib(x), torch)
+        phase_ms = _k1_phases_ms(torch, ly, x, cell, plan) if phases else None
+    flops = bigru.stack_flops(L, rows, cin, H, NL, cell)
+    nbytes = (x.numel() * x.element_size()
+              + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
+              + out.numel() * out.element_size() + hn.numel() * 4)
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    res = {"phase": "kernel", "name": "bigru_stack", "cell": cell,
+           "rows": rows, "C": cin, "dtype": dname, "design": plan["design"],
+           "cuda_launches_per_call": cuda_per_call,
+           "max_abs_err_out": err_out,
+           "max_abs_err_hn": err_hn, "tol": TOL[dname],
+           "rerun_bit_equal": rerun_equal,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "library_weights_warning": lib.weights_warning,
+           "library_flatten_error": lib.flatten_error,
+           "gflop": flops / 1e9,
+           "tflops_achieved": flops / kernel_ms / 1e9, "phases_ms": phase_ms,
+           "card": smi}
+    emit(res)
+    return res
 
 
 def _bound(flops, nbytes, dname):
@@ -536,9 +567,10 @@ def phase_k3_l2(torch, smi, k3_cells):
     return cells
 
 
-def phase_k2_kernels(torch, smi, cell):
+def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bfloat16")):
     """K2, one bidirectional layer of the cell, at the call_mods path's
-    shapes (1024 rows; C = 11 for layer 0, 2H for layers 1 and 2) against
+    shapes (1024 rows; C = 11 for layer 0, 2H for layers 1 and 2; or the
+    ``cins`` given) against
     its plain version, timed beside it, cuDNN's one-layer bidirectional
     nn.GRU / nn.LSTM (inference) and the bound, with the design ``k1_plan``
     picked (simt in fp32, tc in bf16), its CUDA launches a call (K2's own
@@ -551,11 +583,11 @@ def phase_k2_kernels(torch, smi, cell):
 
     rows = ROWS[0]
     cells = []
-    for cin in (C, 2 * H):
+    for cin in cins:
         rng = np.random.RandomState(SEED + cin)
         ld = init_rnn_params(rng, cin, H, 1, cell)[0]
         x_np = rng.randn(L, rows, cin).astype(np.float32)
-        for dname in ("float32", "bfloat16"):
+        for dname in dtypes:
             dt = getattr(torch, dname)
             plan = bigru.k1_plan(H, cell, dt)
             ly = layer_weights(ld, dt, "cuda")
@@ -705,8 +737,9 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
             {k: time_ms(f, torch) for k, f in bwd.items()})
 
 
-def phase_train_kernels(torch, smi, cell):
-    """One layer's training kernels at the train path's shapes against their
+def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
+    """One layer's training kernels at the train path's shapes (C = 11 and
+    2H, or the ``cins`` given) against their
     plain versions: K4/K5 (cell 'gru') or K6's forward and backward
     ('lstm'). Tolerances: fp32 outputs, residuals and dx 1e-5; dW and db
     1e-5 * max|ref| + 1e-5, since they sum L * 2B = 21,504 rows in another
@@ -733,7 +766,7 @@ def phase_train_kernels(torch, smi, cell):
         res_names, kname = ("out", "c", "gates"), "bilstm_train"
     rows = ROWS[0]
     cells = []
-    for cin in (C, 2 * H):
+    for cin in cins:
         rng = np.random.RandomState(SEED + cin)
         ld = init_rnn_params(rng, cin, H, 1, cell)[0]
         x_np = rng.randn(L, rows, cin).astype(np.float32)
@@ -819,7 +852,9 @@ def phase_train_kernels(torch, smi, cell):
     return cells
 
 
-def _model_feats(B, seed):
+def _model_feats(B, seed, optional=False):
+    """Seeded feats of both strands: kmer, kpass and z-scored kinetics
+    means; with ``optional`` also the stds, sn and map channels."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -829,6 +864,11 @@ def _model_feats(B, seed):
         feats["kpass" + s] = rng.randint(3, 25, (B, 1)).repeat(L, 1).astype(np.float32)
         feats["ipd_means" + s] = rng.randn(B, L).astype(np.float32)
         feats["pw_means" + s] = rng.randn(B, L).astype(np.float32)
+    for s in ("", "2") if optional else ():
+        feats["ipd_stds" + s] = rng.rand(B, L).astype(np.float32)
+        feats["pw_stds" + s] = rng.rand(B, L).astype(np.float32)
+        feats["sns" + s] = (rng.rand(B, 4) * 10).astype(np.float32)
+        feats["maps" + s] = rng.randint(0, 8, (B, L)).astype(np.float32)
     return feats
 
 
@@ -890,6 +930,62 @@ def phase_model(torch, model_type):
     return res
 
 
+def phase_model2s2(torch, smi, cell):
+    """The embedded-kinetics family of the cell (attbigru2s2 or
+    attbilstm2s2) at full width: K1 on its BiRNN's input widths, C = 28
+    (fp32 and bf16) and 52 (fp32, stds, sn and map on), 1024 rows; K2's
+    layer 0 at the same widths; K4/K5 or K6 on layer 0 at C = 28 (fp32 and
+    bf16): each against its plain version, timed beside it, cuDNN and the
+    bound (``_k1_cell``, ``phase_k2_kernels``, ``phase_train_kernels``).
+    Then the seeded model (batch 512, 1024 rows) through K1, and through K2
+    under pallas_layer, against the same model through the plain version:
+    probs within 1e-5 in fp32 and 1e-2 in bf16."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models import AttRNNConfig, init_attrnn
+    from ccsmeth_tpu_torch.models.attrnn import rnn_input_size
+    from ccsmeth_tpu_torch.ops import bigru
+    from ccsmeth_tpu_torch.pipeline.call_mods import build_model
+
+    model_type = MODELS2S2[cell]
+    res = {"k1": [], "k2": [], "train": [], "model": []}
+    for cin, dnames in ((C2S2, ("float32", "bfloat16")), (C2S2_WIDE, ("float32",))):
+        x_np = np.random.RandomState(SEED + cin).randn(L, ROWS[0], cin).astype(np.float32)
+        for dname in dnames:
+            res["k1"].append(_k1_cell(torch, smi, cell, x_np, dname, phases=cin == C2S2))
+        res["k2"] += phase_k2_kernels(torch, smi, cell, (cin,), dnames)
+    res["train"] = phase_train_kernels(torch, smi, cell, (C2S2,))
+    feats = {k: torch.from_numpy(v).cuda()
+             for k, v in _model_feats(512, SEED, optional=True).items()}
+    for flags, dnames in (({}, ("float32", "bfloat16")), (WIDE, ("float32",))):
+        cfg = AttRNNConfig(model_type=model_type, **flags)
+        params = init_attrnn(SEED, cfg)
+        for backend in ("xla", "pallas_layer"):
+            model = build_model(params, cfg, "cuda", backend)
+            for dname in dnames:
+                dt = getattr(torch, dname)
+                _zero_counts()
+                with torch.inference_mode():
+                    _l, p_k = model(feats, compute_dtype=dt)
+                    torch.cuda.synchronize()
+                    counts = _all_counts()
+                    _l, p_p = model(feats, compute_dtype=dt, rnn_fn=bigru.birnn_stack_plain)
+                torch.cuda.synchronize()
+                want = {"k1": 1} if backend == "xla" else {"k2": NL}
+                assert {k: v for k, v in counts.items() if v} == want, counts
+                assert bool(torch.isfinite(p_k).all())
+                err = (p_k - p_p).abs().max().item()
+                tol = 1e-5 if dname == "float32" else 1e-2
+                assert err <= tol, (model_type, flags, backend, dname, err)
+                line = {"phase": "model2s2", "model": model_type + " full width",
+                        "C": rnn_input_size(cfg), "rnn_backend": backend, "batch": 512,
+                        "dtype": dname, "max_abs_err_probs": err, "tol": tol,
+                        "launches": counts}
+                emit(line)
+                res["model"].append(line)
+    return res
+
+
 def _read_tags(path):
     import numpy as np
 
@@ -920,8 +1016,10 @@ def _e2e_input():
 
 
 def _zero_counts():
+    from ccsmeth_tpu_torch.models import attrnn
     from ccsmeth_tpu_torch.ops import bigru, transenc
 
+    attrnn.h0_plain_calls = 0
     bigru.launches = bigru.plain_calls = 0
     bigru.layer_launches = bigru.layer_plain_calls = bigru.layer_cuda_launches = 0
     transenc.launches = transenc.plain_calls = 0
@@ -949,24 +1047,108 @@ def _design_counts():
 
 
 def _all_counts():
+    """Every inference path's calls since the last _zero_counts: K1, K2 and
+    K3 and their plain versions, and the plain BiRNN with explicit initial
+    states (``--h0_mode randn``)."""
+    from ccsmeth_tpu_torch.models import attrnn
     from ccsmeth_tpu_torch.ops import bigru, transenc
 
     return {"k1": bigru.launches, "k1_plain": bigru.plain_calls,
             "k2": bigru.layer_launches, "k2_plain": bigru.layer_plain_calls,
-            "k3": transenc.launches, "k3_plain": transenc.plain_calls}
+            "k3": transenc.launches, "k3_plain": transenc.plain_calls,
+            "h0_plain": attrnn.h0_plain_calls}
 
 
-def _call_mods(model_type, prec, tag, extra=()):
+def _call_mods(model_type, prec, tag, extra=(), bam=None, device="cuda"):
+    """The CLI's call_mods of the model's seeded checkpoint on the e2e input
+    (or ``bam``): (LAST_RUN, tags by read)."""
     from ccsmeth_tpu_torch import cli
     from ccsmeth_tpu_torch.pipeline import call_mods
 
-    bam, fasta = _e2e_input()
+    e2e_bam, fasta = _e2e_input()
     ckpt = os.path.join(WORK, model_type + "_full.ckpt.npz")
     prefix = os.path.join(WORK, "mods_{}_{}_{}".format(model_type, prec, tag))
-    cli.main(["call_mods", "-i", bam, "-o", prefix, "-m", ckpt,
+    cli.main(["call_mods", "-i", bam or e2e_bam, "-o", prefix, "-m", ckpt,
               "--model_type", model_type, "--mode", "align", "--ref", fasta,
-              "--device", "cuda", "--precision", prec] + list(extra))
+              "--device", device, "--precision", prec] + list(extra))
     return dict(call_mods.LAST_RUN), _read_tags(prefix + ".modbam.bam")
+
+
+class _RecordedProbs:
+    """Within the block, call_mods' tagger also records each read's
+    6-decimal probs in ML order: ``self.probs[qname]``."""
+
+    def __enter__(self):
+        from ccsmeth_tpu_torch.pipeline import call_mods
+
+        self.tag = call_mods.add_mm_ml_to_record
+        self.probs = {}
+
+        def recording(rec, locs_probs, rm_pulse=True):
+            self.probs[rec.qname] = [p for _loc, p in sorted(locs_probs)]
+            return self.tag(rec, locs_probs, rm_pulse)
+
+        call_mods.add_mm_ml_to_record = recording
+        return self
+
+    def __exit__(self, *exc):
+        from ccsmeth_tpu_torch.pipeline import call_mods
+
+        call_mods.add_mm_ml_to_record = self.tag
+
+
+def _head_bam(tags, n_sites=HEAD_SITES):
+    """The e2e input's first reads, up to the one that brings the sites
+    (the ML bytes of ``tags``, a card run's) to ``n_sites``, as a BAM; and
+    the reads that lie wholly inside the first ``n_sites`` sites. A run on
+    it dispatches the same first n_sites // batch full batches as the whole
+    input's run (one holebatch of 50 reads holds ~9k sites)."""
+    from ccsmeth_tpu_torch.bamio import BamReader, BamWriter
+
+    bam, _fasta = _e2e_input()
+    out = os.path.join(WORK, "head_{}.bam".format(n_sites))
+    reader = BamReader(bam)
+    writer = BamWriter(out, reader.header)
+    total, inside = 0, []
+    for rec in reader:
+        writer.write(rec)
+        ml = tags[rec.qname][1]
+        n = 0 if ml is None else ml.size
+        if total + n <= n_sites:
+            inside.append(rec.qname)
+        total += n
+        if total >= n_sites:
+            break
+    writer.close()
+    reader.close()
+    assert total >= n_sites, total
+    return out, inside
+
+
+def _ml_vs_cpu(card_tags, cpu_tags, cpu_probs, qnames):
+    """Gate of the card's fp32 ML bytes against --device cpu's on
+    ``qnames``: MM strings equal, ML bytes equal but where one differs by 1
+    and the byte boundary between the two lies within 1e-6 of the CPU's
+    6-decimal prob (ROADMAP Queue 3, "ML byte rounding": floor(p * 256)
+    after rounding p to 6 decimals)."""
+    import numpy as np
+
+    n_sites = n_off = 0
+    for q in qnames:
+        (mm, a), (mm_c, b) = card_tags[q], cpu_tags[q]
+        assert mm == mm_c, q
+        assert (a is None) == (b is None), q
+        if a is None:
+            continue
+        n_sites += a.size
+        for i in np.flatnonzero(a != b):
+            edge = max(a[i], b[i]) / 256.0
+            assert abs(a[i] - b[i]) == 1 and abs(cpu_probs[q][i] - edge) <= 1e-6, \
+                (q, i, a[i], b[i], cpu_probs[q][i])
+            n_off += 1
+    assert n_sites >= 0.8 * HEAD_SITES, n_sites
+    return {"sites": n_sites, "reads": len(qnames), "ml_equal": 1.0 - n_off / n_sites,
+            "off_by_one_at_a_boundary": n_off}
 
 
 def _ml_shares(tags_a, tags_b):
@@ -990,12 +1172,13 @@ def phase_e2e(torch, smi, model_type):
     """call_mods in fp32 and bf16 through the CLI. Every kernel's counts are
     set to 0 just before each run and read just after: the model's kernel
     (K1, or K3 for transencoder2s) launches once a batch, nothing else
-    launches and no plain version runs. For the RNN models the bf16 ML bytes
-    stay within 2 of fp32's on >= 99.9% of sites. For transencoder2s that
-    share is reported and not gated: on the bf16 path the kinetics travel as
-    int8 before the truncating embedding lookup, so a value near an integer
-    can land on another row (the JAX package does the same); its numerics
-    are gated at the kernel and model phases."""
+    launches and no plain version runs. For attbigru2s and attbilstm2s the
+    bf16 ML bytes stay within 2 of fp32's on >= 99.9% of sites. For
+    transencoder2s and the 2s2 families that share is reported and not
+    gated: on the bf16 path the kinetics travel as int8 before the
+    truncating embedding lookup, so a value near an integer can land on
+    another row (the JAX package does the same); their numerics are gated at
+    the kernel and model phases."""
     from ccsmeth_tpu_torch.models.params_io import save_params
 
     _cfg, params = _config_params(model_type)
@@ -1032,7 +1215,7 @@ def phase_e2e(torch, smi, model_type):
     n_sites, equal, within2 = _ml_shares(tags["fp32"], tags["bf16"])
     emit({"phase": "e2e", "model": model_type, "fp32_vs_bf16_ml_equal": equal,
           "fp32_vs_bf16_ml_within_2": within2, "sites": n_sites})
-    if model_type != TRANSENC:
+    if model_type in MODELS.values():
         assert within2 >= 0.999, within2
     designs = list(runs["fp32"]["designs"])  # every design of the kernel
     return {"launches": total_launches, "runs": runs, "tags": tags,
@@ -1078,6 +1261,115 @@ def phase_e2e_layer(torch, smi, model_type, k1_tags):
             assert within2 >= 0.999, within2
         runs[prec] = run
     return runs
+
+
+def phase_e2e2s2(torch, smi, cell):
+    """call_mods of the cell's embedded-kinetics family (attbigru2s2 or
+    attbilstm2s2, seeded, full width) on the e2e input: fp32 and bf16
+    through K1 (``phase_e2e``: launches, designs and CUDA launches asserted
+    a batch; bf16 against fp32 reported), then fp32 and bf16 under
+    ``--rnn_backend pallas_layer`` through K2 (``phase_e2e_layer``), and the
+    fp32 run's ML bytes against ``--device cpu``'s on the reads of the first
+    HEAD_SITES sites (``_ml_vs_cpu``)."""
+    model_type = MODELS2S2[cell]
+    t0 = time.time()
+    e2e = phase_e2e(torch, smi, model_type)
+    layer = phase_e2e_layer(torch, smi, model_type, e2e["tags"])
+    head, inside = _head_bam(e2e["tags"]["fp32"])
+    with _RecordedProbs() as rec:
+        _zero_counts()
+        _run, cpu_tags = _call_mods(model_type, "fp32", "cpu", bam=head, device="cpu")
+    counts = _all_counts()
+    assert counts["k1"] == 0 and counts["k1_plain"] > 0, counts  # the CPU: plain only
+    vs_cpu = _ml_vs_cpu(e2e["tags"]["fp32"], cpu_tags, rec.probs, inside)
+    emit({"phase": "e2e2s2", "model": model_type, "fp32_vs_cpu": vs_cpu,
+          "wall_s": time.time() - t0, "card": smi})
+    return {"e2e": e2e, "layer": layer, "vs_cpu": vs_cpu}
+
+
+def phase_flags(torch, smi, single_tags):
+    """call_mods' flags on the e2e input, attbigru2s fp32, each run's counts
+    set to 0 just before it and read just after:
+    ``--h0_mode randn`` runs the plain BiRNN with the replayed initial
+    states once a batch and K1 never (its launches, CUDA launches and calls
+    by design stay 0), and its ML bytes equal ``--device cpu``'s with the
+    same --tseed on the reads of the first HEAD_SITES sites (the CPU run on
+    those reads dispatches the same first batches, so draws the same
+    states); ``--num_processes 2`` as two runs, each through K1 once a
+    batch, whose records together equal the single run's (``single_tags``,
+    the fp32 e2e run); ``--profile_dir``: one trace file, whose kernel
+    events name K1's two kernels (the simt design: K4's projection
+    ``gemm_simt_kernel`` and the recurrence ``fwd_rec_simt_kernel``)."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    model_type = MODELS["gru"]
+    res = {"phase": "flags", "model": model_type, "precision": "fp32", "card": smi}
+    randn = ["--h0_mode", "randn", "--tseed", "4321"]
+    _zero_counts()
+    run, tags = _call_mods(model_type, "fp32", "randn", randn)
+    torch.cuda.synchronize()
+    counts, cuda, designs = _all_counts(), _cuda_launches(), _design_counts()["k1"]
+    assert run["batches"] > 0 and counts["h0_plain"] == run["batches"], (counts, run)
+    assert sum(counts.values()) == counts["h0_plain"], counts  # no kernel, no other plain
+    assert sum(cuda.values()) == 0 and sum(designs.values()) == 0, (cuda, designs)
+    head, inside = _head_bam(tags)
+    with _RecordedProbs() as rec:
+        _run, cpu_tags = _call_mods(model_type, "fp32", "randn_cpu", randn, bam=head,
+                                    device="cpu")
+    moved = _ml_shares(tags, single_tags)[1]
+    res["randn"] = {"batches": run["batches"], "launches": counts, "cuda_launches": cuda,
+                    "designs": designs, "sites_per_s": run["sites"] / run["seconds"],
+                    "vs_cpu": _ml_vs_cpu(tags, cpu_tags, rec.probs, inside),
+                    "ml_equal_to_zero_h0_run": moved}
+    assert moved < 0.99, moved  # the states reached the model
+
+    merged, shards = {}, []
+    for pid in (0, 1):
+        _zero_counts()
+        run, tags = _call_mods(model_type, "fp32", "p{}".format(pid),
+                               ["--num_processes", "2", "--process_id", str(pid)])
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        assert run["batches"] > 0 and counts["k1"] == run["batches"], (counts, run)
+        assert sum(counts.values()) == counts["k1"], counts
+        assert 0 < len(tags) < len(single_tags) and not set(tags) & set(merged)
+        merged.update(tags)
+        shards.append({"reads": len(tags), "sites": run["sites"], "batches": run["batches"],
+                       "launches": counts["k1"], "sites_per_s": run["sites"] / run["seconds"]})
+    assert merged.keys() == single_tags.keys()
+    for q, (mm, ml) in single_tags.items():
+        mm2, ml2 = merged[q]
+        assert mm == mm2 and (ml is None) == (ml2 is None), q
+        assert ml is None or np.array_equal(ml, ml2), q
+    res["processes"] = {"shards": shards, "union_equals_single_run": True}
+
+    tdir = os.path.join(WORK, "trace")
+    shutil.rmtree(tdir, ignore_errors=True)
+    _zero_counts()
+    run, tags = _call_mods(model_type, "fp32", "profiled", ["--profile_dir", tdir])
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    assert counts["k1"] == run["batches"] > 0, counts
+    traces = glob.glob(os.path.join(tdir, "trace_*.json"))
+    assert len(traces) == 1, traces
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    k1 = {name: sum(n for k, n in kernels.items() if name in k)
+          for name in ("gemm_simt_kernel", "fwd_rec_simt_kernel")}
+    assert all(n > 0 for n in k1.values()), sorted(kernels)[:20]
+    assert _ml_shares(tags, single_tags)[1] == 1.0  # the trace changes no output
+    res["profile"] = {"trace_bytes": os.path.getsize(traces[0]), "events": len(events),
+                      "kernel_events": sum(kernels.values()), "k1_kernel_events": k1,
+                      "batches": run["batches"]}
+    emit(res)
+    return res
 
 
 def phase_k1_aggr(torch, smi):
@@ -1452,12 +1744,13 @@ def _train_input():
     return tr, va, tr16
 
 
-def phase_train(torch, smi, cell, epochs):
+def phase_train(torch, smi, cell, epochs, models=MODELS):
     """The train path at full width: the CLI at its defaults (3x256, batch
     512, dropout 0.5, Adam 1e-3, StepLR) for attbigru2s (cell 'gru': kernels
-    K4/K5) or attbilstm2s ('lstm': K6), K1 validating. The launch counts of
-    every training kernel and of K1 are set to 0 just before the run and
-    read just after it."""
+    K4/K5) or attbilstm2s ('lstm': K6), or with ``models=MODELS2S2`` their
+    embedded-kinetics siblings (layer 0 at C = 28), K1 validating. The
+    launch counts of every training kernel and of K1 are set to 0 just
+    before the run and read just after it."""
     import math
 
     import numpy as np
@@ -1468,7 +1761,9 @@ def phase_train(torch, smi, cell, epochs):
     from ccsmeth_tpu_torch.pipeline.call_mods import build_model, load_model_params
     from ccsmeth_tpu_torch.training.train import LAST_RUN
 
-    model_type = MODELS[cell]
+    from ccsmeth_tpu_torch.models.attrnn import rnn_input_size
+
+    model_type = models[cell]
     mine, other = ((bigru_vjp, bilstm_vjp) if cell == "gru"
                    else (bilstm_vjp, bigru_vjp))
     tr, va, tr16 = _train_input()
@@ -1500,8 +1795,9 @@ def phase_train(torch, smi, cell, epochs):
     # only, each call's CUDA launches counted where they are made, and
     # launches nothing of the other cell's
     designs, k45_cuda = dict(mine.design_calls), mine.cuda_launches
+    cin0 = rnn_input_size(AttRNNConfig(model_type=model_type))
     per_step = sum(2 + _bwd_cuda_launches(2 * 512, cin, torch.float32, cell)
-                   for cin in (C, 2 * H, 2 * H))
+                   for cin in (cin0, 2 * H, 2 * H))
     assert designs == {"tc": 0, "simt": counts["fwd"] + counts["bwd"]}, designs
     assert k45_cuda == per_step * steps, (k45_cuda, per_step, steps)
     assert other.cuda_launches == sum(other.design_calls.values()) == 0
@@ -1514,10 +1810,16 @@ def phase_train(torch, smi, cell, epochs):
     with torch.inference_mode():
         _l, probs = model(feats)
     assert probs.shape == (512, 2) and bool(torch.isfinite(probs).all())
+    # and into the port's call_mods model: fp32 probs through K1 equal the
+    # plain version's
+    with torch.inference_mode():
+        _l, plain = model(feats, rnn_fn=bigru.birnn_stack_plain)
+    assert (probs - plain).abs().max().item() <= 1e-5
 
     per_epoch = steps / epochs
     steady = float(np.mean(run["epoch_wall_s"][1:]))
     res = {"phase": "train", "precision": "fp32", "model": model_type + " 3x256",
+           "C": cin0,
            "batch": 512, "steps": steps, "epochs": epochs,
            "validations": n_valid, "launches": counts, "k45_designs": designs,
            "k45_cuda_launches": k45_cuda,
@@ -1753,16 +2055,23 @@ def main():
     t_cells = {cell: phase_train_kernels(torch, smi, cell) for cell in MODELS}
     for model_type in list(MODELS.values()) + [TRANSENC]:
         phase_model(torch, model_type)
+    m2s2 = {cell: phase_model2s2(torch, smi, cell) for cell in MODELS}
     e2e = {cell: phase_e2e(torch, smi, MODELS[cell]) for cell in MODELS}
     e2e_k3 = phase_e2e(torch, smi, TRANSENC)
     freq = phase_freq(torch, smi)
     text = phase_text(torch, smi, e2e["gru"]["tags"]["fp32"])
     e2e_k2 = {cell: phase_e2e_layer(torch, smi, MODELS[cell], e2e[cell]["tags"])
               for cell in MODELS}
+    e2e2s2 = {cell: phase_e2e2s2(torch, smi, cell) for cell in MODELS}
+    flags = phase_flags(torch, smi, e2e["gru"]["tags"]["fp32"])
     train_runs = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell])
                   for cell in MODELS}
+    train2s2 = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell], MODELS2S2)
+                for cell in MODELS}
     for cell in MODELS:
         phase_profile(torch, smi, cell)
+    k1_keys = ("rows", "C", "dtype", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+               "bound_by", "max_abs_err_out", "max_abs_err_hn")
 
     kernels = []
     for cell, kname, line in (("gru", "bigru_stack", 198),
@@ -1788,11 +2097,21 @@ def main():
                                              "library_ms", "bound_ms", "bound_by",
                                              "max_abs_err_out", "max_abs_err_hn")}
                           for c in cells]}
-            if design == "simt":  # the train path validates in fp32
+            # the 2s2 family's cells (C = 28, and 52 in fp32) and paths
+            entry["cells_2s2"] = [{k: c[k] for k in k1_keys} for c in m2s2[cell]["k1"]
+                                  if c["design"] == design]
+            entry["launches_2s2"] = e2e2s2[cell]["e2e"]["launches_by_design"][design]
+            entry["cuda_launches_2s2"] = \
+                e2e2s2[cell]["e2e"]["cuda_launches_by_design"][design]
+            if design == "simt":  # the train paths validate in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
+                entry["launches_train_path_2s2"] = train2s2[cell]["launches"]["k1"]
                 entry["projection_source"] = SIMT_PROJECTION
                 if cell == "gru":
                     entry["launches_text_path"] = text[MODELS[cell]]["launches"]
+                    entry["launches_flags"] = (
+                        sum(sh["launches"] for sh in flags["processes"]["shards"])
+                        + flags["profile"]["batches"])
             kernels.append(entry)
         # the same kernel at call_freqb's aggregate shape
         mc, run = k1_aggr[cell], freq[AGGR_CELLS[cell]]
@@ -1836,7 +2155,14 @@ def main():
                 "cells": [{k: c[k] for k in ("rows", "C", "dtype", "cuda_launches_per_call",
                                              "kernel_ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by", "max_abs_err_max",
-                                             "phases_ms")} for c in cells]})
+                                             "phases_ms")} for c in cells],
+                "cells_2s2": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms",
+                                                 "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err_max")}
+                              for c in m2s2[cell]["train"]
+                              if c["name"] == kname and c["design"] == design],
+                "launches_2s2": (train2s2[cell]["launches"][key] if design == "simt"
+                                 else train2s2[cell]["bf16_launches"][key])})
     # K3: simt (fp32) and tc (bf16) on the main path; l2, which no model's
     # path takes (0 launches there), called directly
     for design, src, dname in (("simt", "transenc_simt.cu", "float32"),
@@ -1886,7 +2212,13 @@ def main():
                                                     mc["dtype"]),
                 "cells": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms", "plain_ms",
                                              "library_ms", "bound_ms", "bound_by",
-                                             "max_abs_err", "phases_ms")} for c in cells]})
+                                             "max_abs_err", "phases_ms")} for c in cells],
+                "cells_2s2": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms",
+                                                 "plain_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "max_abs_err")}
+                              for c in m2s2[cell]["k2"] if c["design"] == design],
+                "launches_2s2": e2e2s2[cell]["layer"][prec]["launches"]["k2"],
+                "cuda_launches_2s2": e2e2s2[cell]["layer"][prec]["cuda_launches"]["k2"]})
     emit({"kernels": kernels})
     log("chip_smoke: {:.1f} s on {}".format(time.time() - t_start, smi))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,6 +17,8 @@ from ccsmeth_tpu_torch.models import (AggrAttRNN, AggrConfig,
 from ccsmeth_tpu_torch.models.params_io import _flatten
 from ccsmeth_tpu_torch.ops import bigru
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 CELLS = {"gru": "attbigru", "lstm": "attbilstm"}
 
 

@@ -17,6 +17,8 @@ from ccsmeth_tpu_torch.models.attention import attention, init_attention
 from ccsmeth_tpu_torch.models.params_io import _flatten
 from ccsmeth_tpu_torch.ops import bigru
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 CFG = dict(num_layers=2, hidden_size=32, dropout_rate=0)
 
 
@@ -133,7 +135,7 @@ def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         AttRNN(AttRNNConfig(model_type="attbilstm1s"))
     with pytest.raises(NotImplementedError):
-        init_attrnn(0, AttRNNConfig(model_type="attbigru2s2"))
+        init_attrnn(0, AttRNNConfig(model_type="attbigru1s"))
 
 
 LSTM = dict(CFG, model_type="attbilstm2s")

@@ -17,6 +17,8 @@ from ccsmeth_tpu.ops.bigru_pallas import birnn_apply_pallas_stacked
 from ccsmeth_tpu_torch.models import rnn as port_rnn
 from ccsmeth_tpu_torch.ops import bigru
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 B, L, C, H, NL = 13, 21, 11, 16, 3  # odd B: the ragged last tile
 
 

@@ -19,6 +19,8 @@ from ccsmeth_tpu_torch.pipeline.call_mods import LAST_RUN, CallModsConfig, call_
 from tests.test_torch_attrnn import _feats
 from tests.test_torch_call_mods import BAM, CKPT, REF, _compare_with_golden, _dump
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 
 def _inputs(cell, seed=9, H=32, NL=2, N=10, C=11):
     rng = np.random.RandomState(seed)

@@ -16,6 +16,8 @@ from ccsmeth_tpu.ops.bigru_pallas_vjp import birnn_apply_pallas_trainable
 from ccsmeth_tpu_torch.models.rnn import birnn_tm, layer_weights
 from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 
 def _weights(out):
     return jnp.cos(jnp.arange(out.size).reshape(out.shape) * 0.01)

@@ -12,6 +12,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from ccsmeth_tpu.pipeline import call_freq_bam as jax_cfb
 from ccsmeth_tpu_torch.bamio import BamReader, BamWriter, build_index, sort_bam
@@ -21,6 +22,8 @@ from ccsmeth_tpu_torch.models.params_io import save_params
 from ccsmeth_tpu_torch.ops import bigru
 from ccsmeth_tpu_torch.pipeline import call_freq_bam as cfb
 from ccsmeth_tpu_torch.pipeline.call_mods import CallModsConfig, call_mods_bam
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "goldens")

@@ -7,9 +7,12 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from ccsmeth_tpu.pipeline import call_freq_txt as jax_cft
 from ccsmeth_tpu_torch.pipeline import call_freq_txt as cft
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "goldens")

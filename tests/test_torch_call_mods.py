@@ -12,9 +12,12 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from ccsmeth_tpu_torch.bamio import BamReader
 from ccsmeth_tpu_torch.pipeline.call_mods import CallModsConfig, call_mods_bam
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "goldens")
@@ -89,8 +92,6 @@ def test_sorted_output_is_indexed(tmp_path):
                                  "shape_mismatch", "attbigru2s2",
                                  "gru_ckpt_as_lstm", "lstm_1s"])
 def test_unsupported_requests_raise(tmp_path, bad):
-    import torch
-
     kw = dict(model_file=CKPT, mode="align", ref=REF, layer_rnn=2, hid_rnn=64,
               device="cpu")
     if bad == "cuda_without_gpu":
@@ -98,12 +99,14 @@ def test_unsupported_requests_raise(tmp_path, bad):
             pytest.skip("a CUDA device is present")
         kw["device"] = "cuda"
         err = RuntimeError
-    elif bad == "randn_h0":
+    elif bad == "randn_h0":  # randn replays through the plain BiRNN only
         kw["h0_mode"] = "randn"
+        kw["rnn_backend"] = "pallas"
         err = ValueError
-    elif bad == "processes":
+    elif bad == "processes":  # a process_id outside [0, num_processes)
         kw["num_processes"] = 2
-        err = NotImplementedError
+        kw["process_id"] = 2
+        err = ValueError
     elif bad == "shape_mismatch":
         kw["hid_rnn"] = 256
         err = ValueError
@@ -113,9 +116,10 @@ def test_unsupported_requests_raise(tmp_path, bad):
     elif bad == "lstm_1s":
         kw["model_type"] = "attbilstm1s"
         err = NotImplementedError
-    else:  # the embedded-kinetics family is not ported
+    else:  # a checkpoint without the stds embeds of --is_stds yes
         kw["model_type"] = "attbigru2s2"
-        err = NotImplementedError
+        kw["is_stds"] = True
+        err = ValueError
     with pytest.raises(err):
         call_mods_bam(CallModsConfig(**kw), BAM, str(tmp_path / "x"))
 

@@ -1,4 +1,5 @@
-"""The port's ``train`` subcommand: flag parity with the JAX package's CLI,
+"""The port's ``train`` subcommand: flag parity with the JAX package's CLI
+(and of ``call_mods``, ``call_freqb``, ``call_freqt`` and ``extract``),
 a CPU run through ``python -m ccsmeth_tpu_torch.cli`` that writes a
 checkpoint, and no fallback from ``--device cuda`` without a GPU."""
 
@@ -14,6 +15,8 @@ import torch
 from ccsmeth_tpu import cli as jax_cli
 from ccsmeth_tpu_torch import cli
 from tests.test_training import _write_feature_tsv
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,6 +53,20 @@ def test_new_subcommands_match_the_jax_parser(command):
     got = _actions(cli.get_parser(), command)
     if command == "call_freqb":
         assert got.pop("device") == (("--device",), "cuda", None, False)
+    assert got == want
+
+
+def test_call_mods_matches_the_jax_parser():
+    """call_mods: every flag, default, choice and required flag of the JAX
+    package's parser, but the port's two documented additions: --device and
+    --rnn_backend pallas_layer (K2, one launch a layer), which the JAX CLI
+    does not offer."""
+    want = _actions(jax_cli.get_parser(), "call_mods")
+    got = _actions(cli.get_parser(), "call_mods")
+    assert got.pop("device") == (("--device",), "cuda", None, False)
+    flags, default, choices, required = got.pop("rnn_backend")
+    assert choices == want.pop("rnn_backend")[2] + ["pallas_layer"]
+    assert (flags, default, required) == (("--rnn_backend",), "xla", False)
     assert got == want
 
 

@@ -7,6 +7,9 @@ import subprocess
 import sys
 
 import pytest
+import torch
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ccsmeth_tpu_torch")
@@ -91,3 +94,26 @@ def test_module_imports_first_in_a_fresh_interpreter(module):
         [sys.executable, "-c", probe],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_every_cpu_test_file_caps_torch_threads():
+    """Tier-1 runs the suite in several xdist workers on one machine, each
+    with torch's default of one intra-op thread a core: every port test file
+    that runs torch on the CPU (all but the card's *_cuda.py) sets
+    ``torch.set_num_threads(1)`` at module level, where collection runs it."""
+    import ast
+    import glob
+
+    missing = []
+    for path in sorted(glob.glob(os.path.join(REPO, "tests", "test_torch_*.py"))):
+        if path.endswith("_cuda.py"):
+            continue
+        with open(path) as fh:
+            tree = ast.parse(fh.read())
+        capped = any(
+            isinstance(node, ast.Expr) and isinstance(node.value, ast.Call)
+            and ast.unparse(node.value) == "torch.set_num_threads(1)"
+            for node in tree.body)
+        if not capped:
+            missing.append(os.path.basename(path))
+    assert not missing, missing

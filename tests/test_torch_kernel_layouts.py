@@ -14,6 +14,8 @@ from ccsmeth_tpu_torch.models.rnn import birnn_tm, init_rnn_params, layer_weight
 from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, transenc
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 HIDDEN = (16, 64, 256)
 
 

@@ -17,6 +17,8 @@ from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 
 @pytest.mark.parametrize("hidden", [16, 32, 64, 256])
 def test_lstm_plan_takes_fp32_on_simt(hidden):

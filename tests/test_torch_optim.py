@@ -18,6 +18,8 @@ from ccsmeth_tpu_torch.models import AttRNN, AttRNNConfig, attrnn_state_dict_fro
 from ccsmeth_tpu_torch.models.convert import attrnn_params_from_state_dict, gc_dims
 from ccsmeth_tpu_torch.training import LrSchedule, build_optimizer
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 KINDS = ["Adam", "RMSprop", "SGD", "Ranger", "LookaheadAdam"]
 CFG = dict(num_layers=1, hidden_size=16, dropout_rate=0)
 

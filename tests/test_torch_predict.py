@@ -17,6 +17,8 @@ from ccsmeth_tpu_torch.parallel.predict import bf16_bits_np, make_predict_fn
 from ccsmeth_tpu_torch.utils import wirefmt as pwf
 from tests.synth import example_feats
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 CFG = dict(num_layers=2, hidden_size=32, dropout_rate=0.0)
 BF16_ULP = 2.0 ** -8  # one bf16 ulp on [0.5, 1): the bf16 probs fetch
 

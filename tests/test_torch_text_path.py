@@ -13,12 +13,15 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from ccsmeth_tpu.pipeline.call_mods import CallModsConfig as JaxCallModsConfig
 from ccsmeth_tpu.pipeline.call_mods import call_mods_txt as jax_call_mods_txt
 from ccsmeth_tpu_torch.ops import bigru
 from ccsmeth_tpu_torch.pipeline import call_mods
 from ccsmeth_tpu_torch.pipeline.call_mods import CallModsConfig, call_mods_txt
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(REPO, "tests", "goldens")
@@ -137,10 +140,14 @@ def test_call_mods_tsv_matches_the_jax_package(tmp_path, case):
         assert {ln.split("\t")[9][2:4] for ln in _read_text(got).splitlines()} == {"CG"}
 
 
-@pytest.mark.parametrize("kw", [dict(h0_mode="randn"), dict(num_processes=2),
-                                dict(profile_dir="trace")])
+@pytest.mark.parametrize("kw", [dict(h0_mode="randn", rnn_backend="pallas"),
+                                dict(num_processes=2, process_id=5),
+                                dict(h0_mode="randn", num_processes=2)])
 def test_call_mods_tsv_unported_options_raise(tmp_path, kw):
-    with pytest.raises((ValueError, NotImplementedError)):
+    """Requests that the JAX package refuses too: randn h0 through a zero-h0
+    kernel backend, a process_id outside [0, num_processes), randn h0 on a
+    sharded run."""
+    with pytest.raises(ValueError):
         call_mods_txt(CallModsConfig(**GOLDEN_KW, device="cpu", **kw), FEATS,
                       str(tmp_path / "x"))
 

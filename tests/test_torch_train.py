@@ -30,6 +30,8 @@ from ccsmeth_tpu_torch.training.train import (_fuse_schedule, make_eval_step,
                                               make_train_step, weighted_ce)
 from tests.test_training import _write_feature_tsv
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 CFG = dict(num_layers=2, hidden_size=16, dropout_rate=0)
 
 

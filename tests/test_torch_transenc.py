@@ -18,13 +18,15 @@ from ccsmeth_tpu_torch.models import (TransEnc, TransEncConfig, init_transenc,
                                       torch_ckpt_to_params,
                                       transenc_params_from_state_dict,
                                       transenc_state_dict_from_params)
-from ccsmeth_tpu_torch.models.attrnn import SrcEmbed, init_src_embed
+from ccsmeth_tpu_torch.models.attrnn import SrcEmbed, init_src_embed, take_rows
 from ccsmeth_tpu_torch.models.convert import _src_embed_sd
 from ccsmeth_tpu_torch.models.params_io import _flatten
-from ccsmeth_tpu_torch.models.transenc import randomize_affine, take_rows
+from ccsmeth_tpu_torch.models.transenc import randomize_affine
 from ccsmeth_tpu_torch.ops import transenc
 from tests.synth import example_feats
 from tests.test_torch_call_mods import BAM, REF
+
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
 SMALL = dict(num_layers=2, d_model=64, nhead=4, dim_ff=128, dropout_rate=0.0)
 ALL_OPTIONS = dict(SMALL, is_stds=True, is_sn=True, is_map=True)

@@ -24,6 +24,8 @@ from ccsmeth_tpu_torch.models.transenc import randomize_affine
 from ccsmeth_tpu_torch.ops import transenc
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
 
+torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
+
 SMALL = dict(num_layers=2, d_model=64, nhead=4, dim_ff=128, dropout_rate=0.0)
 
 
