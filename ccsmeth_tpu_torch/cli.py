@@ -1,7 +1,8 @@
-"""ccsmeth-tpu-torch CLI: the ``call_mods``, ``call_freqt``, ``call_freqb``,
-``extract`` and ``train`` subcommands of ``ccsmeth_tpu/cli.py`` (flags mirror
-``cli.py:324-391``, ``:410-492`` and ``:238-294``) plus ``--device`` where a
-model runs.
+"""ccsmeth-tpu-torch CLI: the eight subcommands of ``ccsmeth_tpu/cli.py``,
+``call_hifi``, ``call_mods``, ``align_hifi``, ``call_freqt``, ``call_freqb``,
+``extract``, ``train`` and ``trainm`` (flags mirror ``cli.py:309-323``,
+``:324-391``, ``:394-408``, ``:410-492``, ``:238-294`` and ``:500-520``) plus
+``--device`` where a model runs.
 
 Usage:
     python -m ccsmeth_tpu_torch.cli call_mods -i reads.bam -o out -m model.npz \\
@@ -19,7 +20,12 @@ Usage:
         -o freq.txt
     python -m ccsmeth_tpu_torch.cli train --train_file train.tsv \\
         --valid_file valid.tsv --model_dir models [--device cuda|cpu] \\
-        [--precision fp32|bf16] [--model_type attbilstm2s|attbigru2s2|attbilstm2s2]
+        [--precision fp32|bf16] [--train_transfer fp32|bf16|packed] \\
+        [--model_type attbilstm2s|attbigru2s2|attbilstm2s2|transencoder2s]
+    python -m ccsmeth_tpu_torch.cli trainm ... [--model_type attbigru1s|attbilstm1s]
+    python -m ccsmeth_tpu_torch.cli call_hifi -i subreads.bam [-o hifi.bam]
+    python -m ccsmeth_tpu_torch.cli align_hifi -i hifi.bam --ref ref.fa \\
+        [--minimap2 | --bwa]
 """
 
 from __future__ import annotations
@@ -74,13 +80,18 @@ def _add_extraction_args(p, call_mods=False):
                    help=argparse.SUPPRESS)
 
 
-def _add_model_args(p, train=False):
+# the --model_type choices of call_mods and train; trainm adds the
+# single-strand families (ccsmeth_tpu/cli.py:509-515)
+MODEL_TYPES = ("attbilstm2s", "attbigru2s", "transencoder2s", "attbilstm2s2",
+               "attbigru2s2")
+MODEL_TYPES_TRAINM = MODEL_TYPES + ("attbigru1s", "attbilstm1s")
+
+
+def _add_model_args(p, train=False, model_types=MODEL_TYPES):
     g = p.add_argument_group("MODEL_HYPER")
     g.add_argument("--model_type", type=str, default="attbigru2s",
-                   choices=["attbilstm2s", "attbigru2s", "transencoder2s",
-                            "attbilstm2s2", "attbigru2s2"],
-                   help="model type, default attbigru2s (transencoder2s for "
-                        "call_mods only)")
+                   choices=list(model_types),
+                   help="model type, default attbigru2s")
     g.add_argument("--seq_len", type=int, default=21, help="len of kmer, default 21")
     g.add_argument("--is_npass", type=str, default="yes",
                    help="if using num_pass features, yes or no, default yes")
@@ -177,7 +188,32 @@ def main_call_freqb(args):
         device=args.device))
 
 
+def main_call_hifi(args):
+    from .wrappers.call_hifi import CallHifiConfig, ccs_call_hifi_reads
+
+    display_args(args)
+    ccs_call_hifi_reads(CallHifiConfig(
+        subreads=args.subreads, output=args.output, path_to_ccs=args.path_to_ccs,
+        threads=args.threads, min_passes=args.min_passes, by_strand=args.by_strand,
+        hd_finder=args.hd_finder, log_level=args.log_level,
+        path_to_samtools=args.path_to_samtools))
+
+
+def main_align_hifi(args):
+    from .wrappers.align_hifi import AlignHifiConfig, align_hifi_reads_to_genome
+
+    display_args(args)
+    align_hifi_reads_to_genome(AlignHifiConfig(
+        hifireads=args.hifireads, ref=args.ref, output=args.output,
+        path_to_pbmm2=args.path_to_pbmm2, minimap2=args.minimap2,
+        path_to_minimap2=args.path_to_minimap2, bestn=args.bestn, bwa=args.bwa,
+        path_to_bwa=args.path_to_bwa, path_to_samtools=args.path_to_samtools,
+        threads=args.threads))
+
+
 def main_train(args):
+    """``train`` and ``trainm``: one process trains every family;
+    ``trainm --num_processes N`` (N > 1) or ``--dist_coordinator`` raises."""
     from .training import TrainConfig, train
 
     display_args(args)
@@ -199,16 +235,19 @@ def main_train(args):
         train_transfer=args.train_transfer,
         save_opt_state=args.save_opt_state, resume_from=args.resume_from,
         rnn_backend=args.rnn_backend, precision=args.precision,
-        tseed=args.tseed, device=args.device))
+        tseed=args.tseed, device=args.device,
+        dist_coordinator=getattr(args, "dist_coordinator", None),
+        num_processes=getattr(args, "num_processes", 1),
+        process_id=getattr(args, "process_id", 0)))
 
 
-def _add_train_args(p):
+def _add_train_args(p, model_types=MODEL_TYPES):
     gi = p.add_argument_group("INPUT")
     gi.add_argument("--train_file", type=str, required=True)
     gi.add_argument("--valid_file", type=str, required=True)
     go = p.add_argument_group("OUTPUT")
     go.add_argument("--model_dir", type=str, required=True)
-    _add_model_args(p, train=True)
+    _add_model_args(p, train=True, model_types=model_types)
     g = p.add_argument_group("TRAINING")
     g.add_argument("--optim_type", type=str, default="Adam",
                    choices=["Adam", "RMSprop", "SGD", "Ranger", "LookaheadAdam"])
@@ -242,11 +281,15 @@ def _add_train_args(p):
                         "through their plain PyTorch versions")
     g.add_argument("--precision", type=str, default="fp32",
                    choices=["fp32", "bf16"],
-                   help="operand type of the BiRNN (f32 accumulation), default fp32")
+                   help="operand type of the BiRNN's or the encoder's "
+                        "products (f32 accumulation), default fp32")
     g.add_argument("--train_transfer", type=str, default="fp32",
                    choices=["fp32", "bf16", "packed"],
-                   help="wire format of the train batch: fp32 (bf16 and "
-                        "packed are not yet ported; they raise)")
+                   help="wire format of the train batch: fp32 (exact), bf16 "
+                        "columns (features round to ~3 decimal digits; "
+                        "labels/mask exact) or packed quantized byte rows "
+                        "(kmer/npass/labels/mask exact, kinetics round to "
+                        "1/16), unpacked on the device")
     g.add_argument("--use_compile", type=str, default="no",
                    help="[IGNORED] reference-CLI compatibility")
     g.add_argument("--save_opt_state", action="store_true", default=False,
@@ -268,6 +311,21 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("-v", "--version", action="version",
                         version="ccsmeth-tpu-torch {}".format(__version__))
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("call_hifi", help="generate hifi reads with kinetics from "
+                                         "subreads.bam using CCS")
+    p.add_argument("--subreads", "-i", type=str, required=True,
+                   help="path to subreads.bam file as input")
+    p.add_argument("--output", "-o", type=str, default=None,
+                   help="output file path, bam/sam; default input_prefix.hifi.bam")
+    p.add_argument("--path_to_ccs", type=str, default=None)
+    p.add_argument("--threads", "-t", type=int, default=None)
+    p.add_argument("--min-passes", dest="min_passes", type=int, default=None)
+    p.add_argument("--by-strand", dest="by_strand", action="store_true", default=False)
+    p.add_argument("--hd-finder", dest="hd_finder", action="store_true", default=False)
+    p.add_argument("--log-level", dest="log_level", type=str, default="WARN")
+    p.add_argument("--path_to_samtools", type=str, default=None)
+    p.set_defaults(func=main_call_hifi)
 
     p = sub.add_parser("call_mods", help="call modifications")
     gi = p.add_argument_group("INPUT")
@@ -335,6 +393,21 @@ def get_parser() -> argparse.ArgumentParser:
                    help="[compat] advisory only")
     p.add_argument("--tseed", type=int, default=1234)
     p.set_defaults(func=main_call_mods)
+
+    p = sub.add_parser("align_hifi", help="align hifi reads to genome")
+    p.add_argument("--hifireads", "-i", type=str, required=True)
+    p.add_argument("--ref", type=str, required=True)
+    p.add_argument("--output", "-o", type=str, default=None)
+    p.add_argument("--header", action="store_true", default=False)
+    p.add_argument("--path_to_pbmm2", type=str, default=None)
+    p.add_argument("--minimap2", action="store_true", default=False)
+    p.add_argument("--path_to_minimap2", type=str, default=None)
+    p.add_argument("--bestn", "-n", type=int, default=3)
+    p.add_argument("--bwa", action="store_true", default=False)
+    p.add_argument("--path_to_bwa", type=str, default=None)
+    p.add_argument("--path_to_samtools", type=str, default=None)
+    p.add_argument("--threads", "-t", type=int, default=5)
+    p.set_defaults(func=main_align_hifi)
 
     p = sub.add_parser("call_freqt", help="call frequency of modifications from "
                                           "per_readsite text files")
@@ -422,6 +495,24 @@ def get_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("train", help="train a model")
     _add_train_args(p)
+    p.set_defaults(func=main_train)
+
+    p = sub.add_parser("trainm", help="train a model, also the single-strand "
+                                      "families (one process; more are not "
+                                      "yet ported)")
+    _add_train_args(p, MODEL_TYPES_TRAINM)
+    g = p.add_argument_group("DISTRIBUTED")
+    g.add_argument("--dist_coordinator", type=str, default=None,
+                   help="coordinator address host:port of a multi-process "
+                        "run (not yet ported; raises)")
+    g.add_argument("--num_processes", type=int, default=1,
+                   help="total processes; more than 1 is not yet ported and "
+                        "raises")
+    g.add_argument("--process_id", type=int, default=0,
+                   help="this process's rank")
+    g.add_argument("--epoch_sync", action="store_true", default=False,
+                   help="[compat] one process holds the only copy of the "
+                        "params; no-op")
     p.set_defaults(func=main_train)
     return parser
 

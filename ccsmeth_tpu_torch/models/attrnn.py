@@ -1,6 +1,8 @@
-"""The two-strand attrnn families as a torch nn.Module: attbigru2s (the
-default call_mods model) and attbilstm2s (scalar kinetics), attbigru2s2 and
-attbilstm2s2 (embedded kinetics).
+"""The attrnn families as a torch nn.Module: attbigru2s (the default
+call_mods model) and attbilstm2s (scalar kinetics), attbigru2s2 and
+attbilstm2s2 (embedded kinetics), and the single-strand attbigru1s and
+attbilstm1s, which only ``train``/``trainm`` take (the JAX ``call_mods`` CLI
+does not offer them).
 
 Counterpart of ``ccsmeth_tpu/models/attrnn.py`` (``apply_attrnn :224``), GRU
 or LSTM cell:
@@ -20,7 +22,10 @@ or LSTM cell:
   - the attention query is the last layer's [fwd; bwd] h_n
     (``attrnn.py:217-221``);
   - attention per strand, then ``fc1`` (``*2s``) or the two-layer
-    ``classifier`` (``*2s2``), and softmax (``attrnn.py:302-323``).
+    ``classifier`` (``*2s2``), and softmax (``attrnn.py:302-323``);
+  - ``*1s`` (``apply_attrnn_ss``, ``attrnn.py:326-348``): one strand of B
+    rows through the same BiRNN and attention, dropout on the context when
+    training, and ``fc1`` over 2H.
 
 h0 (and the LSTM's c0) is zero, the engine's deterministic default. Attribute
 names reproduce the reference state_dict keys (``embed``, ``seq_embed``,
@@ -59,7 +64,10 @@ from .rnn import BiRNN, birnn_tm, init_rnn_params
 h0_plain_calls = 0
 
 
-PORTED = ("attbigru2s", "attbilstm2s", "attbigru2s2", "attbilstm2s2")
+# the two-strand families, the ones call_mods runs (the JAX call_mods CLI
+# offers no *1s); train and trainm also take the single-strand ones
+PORTED_2S = ("attbigru2s", "attbilstm2s", "attbigru2s2", "attbilstm2s2")
+PORTED = PORTED_2S + ("attbigru1s", "attbilstm1s")
 
 
 def init_src_embed(rng, input_dim: int, d_model: int, block_plus: int = 1) -> dict:
@@ -148,18 +156,56 @@ class SrcEmbed(nn.Module):
         return x
 
 
+# rows of the one-hot block that ``EmbedRows``' backward multiplies at a time
+EMBED_GRAD_CHUNK = 1 << 15
+
+
+class EmbedRows(torch.autograd.Function):
+    """``F.embedding(idx, table)`` whose table gradient is summed in a fixed
+    order. The lookup is the same gather; the backward is one-hot(idx)^T @
+    grad, a product over chunks of EMBED_GRAD_CHUNK positions added in turn.
+    ``F.embedding``'s own backward on the card sums a row's contributions in
+    an order that changes from run to run (a full-width attbigru2s step on
+    an H100 gave kmer-table gradients ~3e-10 apart in two runs, every other
+    leaf bit-equal), and ``torch.use_deterministic_algorithms`` does not
+    catch it; a product's sums run in one order on the card as on the CPU."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return F.embedding(idx, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1]).float()
+        flat = idx.reshape(-1)
+        ids = torch.arange(ctx.rows, device=g.device)
+        out = torch.zeros((ctx.rows, g.shape[1]), dtype=torch.float32, device=g.device)
+        for s in range(0, flat.numel(), EMBED_GRAD_CHUNK):
+            onehot = (flat[s:s + EMBED_GRAD_CHUNK, None] == ids).float()
+            out += onehot.T @ g[s:s + EMBED_GRAD_CHUNK]
+        return out, None
+
+
+def embed_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for int64 indices in [0, rows), with ``EmbedRows``'
+    fixed-order backward."""
+    return EmbedRows.apply(table, idx)
+
+
 def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, idx.astype(int32), axis=0)`` on float indices:
     truncate toward zero, add the table length to indices in [-n, 0), and
     give a NaN row for an index outside [-n, n). (``nn.Embedding`` would
     raise on the CPU and assert on the card instead.) The lookup is
-    ``F.embedding`` on the clamped indices, whose backward sums each table
-    row's gradient in a fixed order on the card; the NaN rows get none."""
+    ``embed_rows`` on the clamped indices; the NaN rows get no gradient."""
     n = table.shape[0]
     i = idx.to(torch.int64)
     i = torch.where(i < 0, i + n, i)
     inside = (i >= 0) & (i < n)
-    rows = F.embedding(i.clamp(0, n - 1), table)
+    rows = embed_rows(table, i.clamp(0, n - 1))
     return torch.where(inside[..., None], rows, torch.full_like(rows, float("nan")))
 
 
@@ -231,8 +277,8 @@ def kinetics_embedded(mod: nn.Module, cfg, feats: dict, suffix: str,
 
 def init_attrnn(seed, cfg: AttRNNConfig) -> dict:
     """numpy params pytree with the same draws, in the same order, as
-    ``ccsmeth_tpu``'s init_attrnn (``attrnn.py:131-171``) for the same seed,
-    for the two-strand families. ``seed`` may be an int or an rng-like
+    ``ccsmeth_tpu``'s init_attrnn (``attrnn.py:131-171``) for the same seed
+    (the single-strand families' ``fc1`` over 2H). ``seed`` may be an int or an rng-like
     object (a shape-only probe for checkpoint shape checks)."""
     if cfg.model_type not in PORTED:
         raise NotImplementedError(
@@ -279,7 +325,7 @@ def rnn_input_size(cfg: AttRNNConfig) -> int:
 
 
 class AttRNN(nn.Module):
-    """The two-strand families' forward: feats dict of tensors -> (logits,
+    """The attrnn families' forward: feats dict of tensors -> (logits,
     probs)."""
 
     def __init__(self, cfg: AttRNNConfig, rnn_backend: str = "xla"):
@@ -306,7 +352,7 @@ class AttRNN(nn.Module):
                 nn.Linear(4 * H, 4 * H), nn.ReLU(), nn.Dropout(cfg.dropout_rate),
                 nn.Linear(4 * H, cfg.num_classes))
         else:
-            self.fc1 = nn.Linear(4 * H, cfg.num_classes)
+            self.fc1 = nn.Linear((4 if cfg.two_strand else 2) * H, cfg.num_classes)
 
     def strand_input(self, feats: dict, suffix: str, train: bool = False) -> torch.Tensor:
         """One strand's (B, L, C) RNN input (``attrnn.py:174-214``): the
@@ -319,7 +365,7 @@ class AttRNN(nn.Module):
         def chan(key):
             return feats[key + suffix].reshape(-1, L, 1).float()
 
-        parts = [self.embed(feats["kmer" + suffix].long()),
+        parts = [embed_rows(self.embed.weight, feats["kmer" + suffix].long()),
                  chan("ipd_means"), chan("pw_means")]
         if cfg.is_npass:
             parts.append(chan("kpass"))
@@ -336,7 +382,8 @@ class AttRNN(nn.Module):
                 generator=None, rnn_fn=None, h0s=None):
         """feats: kmer, kpass, ipd_means, pw_means (and stds/sns/maps when the
         config enables them), each also with suffix '2' for the reverse
-        strand, as (B, L) tensors (sns (B, 4)). The BiRNN runs with operands
+        strand in the two-strand families, as (B, L) tensors (sns (B, 4));
+        ``h0s`` of a single-strand family has no '_2' keys. The BiRNN runs with operands
         in compute_dtype; attention and head run in f32.
 
         train=False (inference) runs the BiRNN through ``rnn_fn``:
@@ -358,8 +405,12 @@ class AttRNN(nn.Module):
         cfg = self.cfg
         H = cfg.hidden_size
         B = feats["kmer"].shape[0]
-        both = torch.cat([self.strand_input(feats, "", train),
-                          self.strand_input(feats, "2", train)], dim=0)  # (2B, L, C)
+        if cfg.two_strand:
+            both = torch.cat([self.strand_input(feats, "", train),
+                              self.strand_input(feats, "2", train)], dim=0)  # (2B, L, C)
+        else:
+            both = self.strand_input(feats, "", train)  # (B, L, C)
+        N = both.shape[0]
         if train:
             outs, h_n = bigru_vjp.birnn_apply_trainable(
                 self.rnn.stacked(), both, compute_dtype, cfg.dropout_rate,
@@ -368,6 +419,8 @@ class AttRNN(nn.Module):
             def states(key):
                 if key not in h0s:
                     return None
+                if not cfg.two_strand:
+                    return h0s[key].float()
                 return torch.cat([h0s[key], h0s[key + "_2"]], dim=1).float()
 
             h0_plain_calls += 1
@@ -383,10 +436,11 @@ class AttRNN(nn.Module):
             out_tm, h_n = rnn_fn(self.rnn.stacked(compute_dtype), x_tm,
                                  compute_dtype, cfg.rnn_cell)
             outs = out_tm.transpose(0, 1).float()  # (2B, L, 2H)
-        last = h_n.reshape(cfg.num_layers, 2, 2 * B, H)[-1]  # (2, 2B, H)
-        query = last.transpose(0, 1).reshape(2 * B, 1, 2 * H)
-        ctx, _ = self._att3(query, outs)  # (2B, 2H)
-        out = torch.cat([ctx[:B], ctx[B:]], dim=1)  # (B, 4H)
+        last = h_n.reshape(cfg.num_layers, 2, N, H)[-1]  # (2, N, H)
+        query = last.transpose(0, 1).reshape(N, 1, 2 * H)
+        ctx, _ = self._att3(query, outs)  # (N, 2H)
+        # both strands' contexts side by side (B, 4H), or the one strand's
+        out = torch.cat([ctx[:B], ctx[B:]], dim=1) if cfg.two_strand else ctx
         if cfg.embedded_kinetics:
             out = torch.relu(self.classifier[0](out))
             if train:
@@ -419,8 +473,12 @@ class AggrAttRNN(nn.Module):
     -> the raw regression output (B, num_classes), no softmax. The offsets
     are the last input channel; h0 (and c0) are zero; the BiRNN runs
     through ``rnn_fn``, ``ops.bigru.birnn_stack`` by default (kernel K1 on
-    a CUDA tensor, its plain version on a CPU tensor). State_dict names are
-    the reference's (``rnn.*``, ``_att3.*``, ``fc1``)."""
+    a CUDA tensor, its plain version on a CPU tensor). ``train=True`` runs
+    it through ``ops.bigru_vjp.birnn_apply_trainable`` (K4/K5 or K6) with
+    no dropout between layers, as the JAX package's ``birnn_apply`` there,
+    and drops the context at cfg.dropout_rate with masks from ``generator``
+    (``attrnn.py:387-389``). State_dict names are the reference's
+    (``rnn.*``, ``_att3.*``, ``fc1``)."""
 
     def __init__(self, cfg: AggrConfig):
         super().__init__()
@@ -430,16 +488,24 @@ class AggrAttRNN(nn.Module):
         self._att3 = Attention(2 * H, 2 * H, H)
         self.fc1 = nn.Linear(2 * H, cfg.num_classes)
 
-    def forward(self, offsets: torch.Tensor, histos: torch.Tensor, rnn_fn=None):
+    def forward(self, offsets: torch.Tensor, histos: torch.Tensor, rnn_fn=None,
+                train: bool = False, generator=None):
         cfg = self.cfg
         H = cfg.hidden_size
         B = offsets.shape[0]
         x = torch.cat([histos.float(), offsets.reshape(B, cfg.seq_len, 1).float()],
                       dim=2)
-        rnn_fn = bigru.birnn_stack if rnn_fn is None else rnn_fn
-        out_tm, h_n = rnn_fn(self.rnn.stacked(), x.transpose(0, 1).contiguous(),
-                             torch.float32, cfg.rnn_cell)
+        if train:
+            outs, h_n = bigru_vjp.birnn_apply_trainable(
+                self.rnn.stacked(), x, torch.float32, 0.0, None, cfg.rnn_cell)
+        else:
+            rnn_fn = bigru.birnn_stack if rnn_fn is None else rnn_fn
+            out_tm, h_n = rnn_fn(self.rnn.stacked(), x.transpose(0, 1).contiguous(),
+                                 torch.float32, cfg.rnn_cell)
+            outs = out_tm.transpose(0, 1)
         last = h_n.reshape(cfg.num_layers, 2, B, H)[-1]  # (2, B, H)
         query = last.transpose(0, 1).reshape(B, 1, 2 * H)
-        ctx, _ = self._att3(query, out_tm.transpose(0, 1))
+        ctx, _ = self._att3(query, outs)
+        if train:
+            ctx = bigru_vjp.dropout(ctx, cfg.dropout_rate, generator)
         return self.fc1(ctx)

@@ -1,7 +1,8 @@
 """Weights across the two packages and from reference checkpoints.
 
-``attrnn_state_dict_from_params`` turns a ``ccsmeth_tpu`` params pytree of a
-two-strand attrnn family (scalar or embedded kinetics)
+``attrnn_state_dict_from_params`` turns a ``ccsmeth_tpu`` params pytree of an
+attrnn family (two-strand with scalar or embedded kinetics, or
+single-strand)
 (numpy leaves: ``init_attrnn`` output or ``params_io.load_params`` of a native
 ``.npz``) into ``AttRNN``'s state_dict, and ``attrnn_params_from_state_dict``
 carries it back, so a model trained here is saved with ``params_io`` in the
@@ -144,14 +145,33 @@ def _numpy_sd(sd) -> dict:
 # state_dict keys stored (out, in) here and input-major in the params pytree
 _TRANSPOSED = ("fc1.weight", "_att3.Wa.weight", "_att3.Ua.weight",
                "_att3.va.weight", "classifier.0.weight", "classifier.3.weight")
+# transencoder2s: the encoder layers' Linear weights, transposed as well
+_TRANSPOSED_SUFFIXES = (".self_attn.out_proj.weight", ".linear1.weight",
+                        ".linear2.weight")
+
+
+def _centralize_qkv(g: torch.Tensor) -> torch.Tensor:
+    """The attention's in_proj (3d, d) is the pytree's input-major wq, wk
+    and wv, each centralized over its outputs: the mean over each third's
+    rows."""
+    q = g.reshape(3, g.shape[0] // 3, g.shape[1])
+    return (q - q.mean(dim=1, keepdim=True)).reshape(g.shape)
 
 
 def gc_dims(names) -> list:
     """Per state_dict key, the dims Ranger's gradient centralization averages
     over so that it equals the JAX package's on the params pytree (every dim
     but the first of the pytree leaf): (0,) for the Linear weights, which the
-    pytree keeps transposed, None (the default) for the rest."""
-    return [(0,) if n in _TRANSPOSED else None for n in names]
+    pytree keeps transposed, ``_centralize_qkv`` for transencoder2s's in_proj,
+    None (the default) for the rest."""
+    def spec(n):
+        if n in _TRANSPOSED or n.endswith(_TRANSPOSED_SUFFIXES):
+            return (0,)
+        if n.endswith(".self_attn.in_proj_weight"):
+            return _centralize_qkv
+        return None
+
+    return [spec(n) for n in names]
 
 
 def load_torch_state_dict(path: str) -> "OrderedDict[str, np.ndarray]":
@@ -301,17 +321,16 @@ def _src_embed(sd, prefix, block_plus):
 
 
 def torch_ckpt_to_params(path: str, cfg) -> dict:
-    """Reference .ckpt -> params pytree: the two-strand attrnn families
-    (AttRNNConfig), transencoder2s (TransEncConfig) and the aggregate model
-    (AggrConfig)."""
+    """Reference .ckpt -> params pytree: the attrnn families (AttRNNConfig;
+    ModelAttRNN, ModelAttRNN2 and ModelAttRNNss, whose ``embed``, ``rnn``,
+    ``_att3`` and ``fc1`` over 2H read as the two-strand scalar family's),
+    transencoder2s (TransEncConfig) and the aggregate model (AggrConfig)."""
     if isinstance(cfg, AggrConfig):
         return aggr_params_from_state_dict(load_torch_state_dict(path))
     if isinstance(cfg, TransEncConfig):
         return transenc_params_from_state_dict(load_torch_state_dict(path), cfg)
-    if not isinstance(cfg, AttRNNConfig) or not cfg.two_strand:
-        raise NotImplementedError(
-            "only the two-strand attrnn families, transencoder2s and the "
-            "aggregate model are ported")
+    if not isinstance(cfg, AttRNNConfig):
+        raise TypeError("cfg must be an AttRNNConfig, TransEncConfig or AggrConfig")
     sd = load_torch_state_dict(path)
     params: dict = {}
     if cfg.embedded_kinetics:

@@ -1,4 +1,4 @@
-"""transencoder2s as a torch nn.Module (inference).
+"""transencoder2s as a torch nn.Module.
 
 Counterpart of ``ccsmeth_tpu/models/transenc.py`` (``apply_transenc :178``):
   - per strand, the kmer, IPD and PW embeddings (and npass, stds, sn, map
@@ -23,7 +23,14 @@ Attribute names are the reference state_dict keys that the JAX package's
 {in_proj_weight, in_proj_bias, out_proj}``, ``linear1``, ``linear2``,
 ``norm1``, ``norm2``, ``classifier.0`` and ``classifier.3``. The encoder
 modules only hold parameters: the forward never runs them as torch layers.
-Training is not ported (``train --model_type transencoder2s`` raises).
+
+Training (``forward(..., train=True)``) runs ``_Encoder.forward_train``, the
+counterpart of ``_encoder`` (``:110-127``), in PyTorch ops with autograd, as
+the JAX package trains it through plain XLA (K3 and the TPU kernel are for
+inference only): the ``SrcEmbed``s on each strand's batch statistics, and
+dropout after the position embedding, the attention, the FF ReLU, ``lin2``
+and the classifier's hidden layer (``:113-122,172,214``). Under bf16 every
+product takes bf16 operands and sums in f32, as ``_dot`` (``:90-93``).
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops import transenc
+from ..ops import bigru_vjp, transenc
 from ..utils.constants import (MAX_KINETICS, MAX_MAP, MAX_PASSES, NEMBED_BASE,
                                NEMBED_KINETICS, NEMBED_KINETICS_STD, NEMBED_MAP,
                                NEMBED_PASSES, NEMBED_SN, N_VOCAB)
@@ -180,6 +188,47 @@ class _Encoder(nn.Module):
                 "ln2": {"scale": ly.norm2.weight, "bias": ly.norm2.bias}})
         return transenc.stack_layers(layers, compute_dtype)
 
+    def forward_train(self, x: torch.Tensor, nhead: int, dropout_rate: float,
+                      generator=None, compute_dtype=torch.float32) -> torch.Tensor:
+        """The post-LN encoder in training mode (``_encoder``, JAX
+        ``transenc.py:110-127``): x (N, L, d) f32 -> (N, L, d) f32, dropout
+        at ``dropout_rate`` after the attention, the FF ReLU and ``lin2``,
+        masks from ``generator`` (none: no dropout)."""
+        N, L, d = x.shape
+        hd = d // nhead
+
+        def heads(t):
+            return t.reshape(N, L, nhead, hd).transpose(1, 2)  # (N, h, L, hd)
+
+        for ly in self.layers:
+            at = ly.self_attn
+            w, b = at.in_proj_weight, at.in_proj_bias
+            q = heads(_dot(x, w[:d].T, compute_dtype) + b[:d])
+            k = heads(_dot(x, w[d:2 * d].T, compute_dtype) + b[d:2 * d])
+            v = heads(_dot(x, w[2 * d:].T, compute_dtype) + b[2 * d:])
+            scores = _dot(q, k.transpose(-1, -2), compute_dtype) / math.sqrt(hd)
+            ctx = _dot(torch.softmax(scores, dim=-1), v, compute_dtype)
+            ctx = ctx.transpose(1, 2).reshape(N, L, d)
+            a = _dot(ctx, at.out_proj.weight.T, compute_dtype) + at.out_proj.bias
+            a = bigru_vjp.dropout(a, dropout_rate, generator)
+            x = F.layer_norm(x + a, (d,), ly.norm1.weight, ly.norm1.bias, 1e-5)
+            h = torch.relu(_dot(x, ly.linear1.weight.T, compute_dtype) + ly.linear1.bias)
+            h = bigru_vjp.dropout(h, dropout_rate, generator)
+            h = _dot(h, ly.linear2.weight.T, compute_dtype) + ly.linear2.bias
+            h = bigru_vjp.dropout(h, dropout_rate, generator)
+            x = F.layer_norm(x + h, (d,), ly.norm2.weight, ly.norm2.bias, 1e-5)
+        return x
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``a @ b`` with operands in compute_dtype and the sums in f32 (JAX
+    ``_dot``'s ``preferred_element_type=float32``): bf16 operands are
+    rounded and multiplied as f32, so the product is exact and only the sum
+    rounds; f32 is a plain f32 product."""
+    if compute_dtype == torch.float32:
+        return a @ b
+    return a.to(compute_dtype).float() @ b.to(compute_dtype).float()
+
 
 class TransEnc(nn.Module):
     """transencoder2s forward: feats dict of tensors -> (logits, probs)."""
@@ -211,26 +260,40 @@ class TransEnc(nn.Module):
             self._stack_key = key
         return self._stack
 
-    def strand_input(self, feats: dict, suffix: str) -> torch.Tensor:
+    def strand_input(self, feats: dict, suffix: str, train: bool = False) -> torch.Tensor:
         """One strand's embedded and positioned encoder input (B, L, d_model)
-        f32 (``transenc.py:141-175``, inference)."""
-        x = self.trans_input(kinetics_embedded(self, self.cfg, feats, suffix))
+        f32 (``transenc.py:141-175``); ``train`` takes the ``SrcEmbed``
+        BatchNorms' statistics from this strand's batch."""
+        x = self.trans_input(kinetics_embedded(self, self.cfg, feats, suffix, train),
+                             train)
         return x + self.pos_encoder.pos_embed.weight[None]
 
-    def forward(self, feats: dict, compute_dtype=torch.float32, encoder_fn=None):
+    def forward(self, feats: dict, compute_dtype=torch.float32, encoder_fn=None,
+                train: bool = False, generator=None):
         """feats: kmer, kpass, ipd_means, pw_means (and stds/sns/maps when the
         config enables them), each also with suffix '2' for the reverse
         strand, as (B, L) tensors (sns (B, 4)). The encoder runs through
         ``encoder_fn`` (default ``ops.transenc.encoder_pooled``: K3 on CUDA,
         the plain version on the CPU) with operands in compute_dtype; the
-        embeddings and the head run in f32."""
+        embeddings and the head run in f32. ``train=True`` runs the training
+        forward instead (module docstring), dropout masks from
+        ``generator``."""
         cfg = self.cfg
         B = feats["kmer"].shape[0]
-        x = torch.cat([self.strand_input(feats, ""),
-                       self.strand_input(feats, "2")], dim=0)  # (2B, L, d)
-        x = x.to(compute_dtype).contiguous()
-        encoder_fn = transenc.encoder_pooled if encoder_fn is None else encoder_fn
-        pooled = encoder_fn(self.stacked(compute_dtype), x, compute_dtype, cfg.nhead)
+        x = torch.cat([self.strand_input(feats, "", train),
+                       self.strand_input(feats, "2", train)], dim=0)  # (2B, L, d)
+        if train:
+            x = bigru_vjp.dropout(x, cfg.dropout_rate, generator)
+            enc = self.transformer_encoder.forward_train(
+                x, cfg.nhead, cfg.dropout_rate, generator, compute_dtype)
+            pooled = enc.mean(dim=1)  # (2B, d) (models.py:601,615)
+        else:
+            x = x.to(compute_dtype).contiguous()
+            encoder_fn = transenc.encoder_pooled if encoder_fn is None else encoder_fn
+            pooled = encoder_fn(self.stacked(compute_dtype), x, compute_dtype, cfg.nhead)
         out = torch.cat([pooled[:B], pooled[B:]], dim=1)  # (B, 2d)
-        logits = self.classifier[3](torch.relu(self.classifier[0](out)))
+        out = torch.relu(self.classifier[0](out))
+        if train:
+            out = bigru_vjp.dropout(out, cfg.dropout_rate, generator)
+        logits = self.classifier[3](out)
         return logits, torch.softmax(logits, dim=1)

@@ -43,7 +43,7 @@ from ..features import (ExtractConfig, FeatureBatch, batch_from_reads,
 from ..models import (AttRNN, AttRNNConfig, TransEnc, TransEncConfig,
                       attrnn_state_dict_from_params, init_attrnn, init_transenc,
                       transenc_state_dict_from_params)
-from ..models.attrnn import PORTED
+from ..models.attrnn import PORTED, PORTED_2S
 from ..models.convert import torch_ckpt_to_params
 from ..models.params_io import _flatten, load_params
 from ..parallel.distributed import owns_read
@@ -152,10 +152,15 @@ class CallModsConfig:
                 nhead=self.nhead, dim_ff=self.dim_ff, is_npass=self.is_npass,
                 is_sn=self.is_sn, is_map=self.is_map, is_stds=self.is_stds,
             )
+        if self.model_type in PORTED and self.model_type not in PORTED_2S:
+            raise ValueError(
+                "--model_type {} is trained by train/trainm only: call_mods "
+                "runs {} and transencoder2s, as ccsmeth_tpu's does".format(
+                    self.model_type, ", ".join(PORTED_2S)))
         if self.model_type not in PORTED:
             raise NotImplementedError(
                 "--model_type {} is not yet ported ({} and transencoder2s only)"
-                .format(self.model_type, ", ".join(PORTED)))
+                .format(self.model_type, ", ".join(PORTED_2S)))
         return AttRNNConfig(
             seq_len=self.seq_len, num_layers=self.layer_rnn,
             num_classes=self.class_num, dropout_rate=0.0,

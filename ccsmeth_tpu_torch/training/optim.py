@@ -51,12 +51,16 @@ def clip_by_global_norm(grads, max_norm: float):
 
 def centralize(grads, gc_dims=None):
     """Ranger's gradient centralization: subtract the mean over ``gc_dims``
-    (by default every dim but the first) from each leaf with >= 2 dims."""
+    (by default every dim but the first) from each leaf with >= 2 dims; a
+    callable ``gc_dims[i]`` centralizes leaf i itself (a leaf that the JAX
+    package keeps as several)."""
     out = []
     for i, g in enumerate(grads):
-        if g.dim() > 1:
-            dims = (gc_dims[i] if gc_dims is not None and gc_dims[i] is not None
-                    else tuple(range(1, g.dim())))
+        spec = gc_dims[i] if gc_dims is not None else None
+        if callable(spec):
+            g = spec(g)
+        elif g.dim() > 1:
+            dims = spec if spec is not None else tuple(range(1, g.dim()))
             g = g - g.mean(dim=dims, keepdim=True)
         out.append(g)
     return out

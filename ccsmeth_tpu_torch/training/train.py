@@ -2,14 +2,28 @@
 
 Counterpart of ``ccsmeth_tpu/training/train.py`` for one device: no mesh, no
 ``shard_map`` and no collectives. The model is ``AttRNN`` (attbigru2s,
-attbilstm2s, or the embedded-kinetics attbigru2s2 and attbilstm2s2); its
-BiRNN trains through kernels K4/K5 (``ops/bigru_vjp.py``, GRU) or K6
-(``ops/bilstm_vjp.py``, LSTM) on CUDA and through their plain versions on the
-CPU, and validation runs the inference forward, kernel K1, in f32 as the JAX
-package's eval step does. The embedded families' ``SrcEmbed`` BatchNorms
-train on each batch's statistics (pad rows included, as in the JAX package)
-and keep their running stats as loaded: those are buffers, which no
-optimizer touches, as JAX's optimizers leave leaves with zero gradient.
+attbilstm2s, the embedded-kinetics attbigru2s2 and attbilstm2s2, or the
+single-strand attbigru1s and attbilstm1s, whose rows are one strand) or
+``TransEnc`` (transencoder2s). The BiRNN trains through kernels K4/K5
+(``ops/bigru_vjp.py``, GRU) or K6 (``ops/bilstm_vjp.py``, LSTM) on CUDA and
+through their plain versions on the CPU; the transformer encoder trains in
+PyTorch ops with autograd, as the JAX package trains it through XLA.
+Validation runs the inference forward, kernel K1 (K3 for transencoder2s), in
+f32 as the JAX package's eval step does. The ``SrcEmbed`` BatchNorms train on
+each batch's statistics (pad rows included, as in the JAX package) and keep
+their running stats as loaded: those are buffers, which no optimizer
+touches, as JAX's optimizers leave leaves with zero gradient.
+
+The train batch crosses to the device in one of three wire formats
+(``--train_transfer``, ``train.py:159-282`` of the JAX package): fp32
+columns, the same columns in bf16, or ``packed`` quantized byte rows
+(kmer 4-bit, npass u16, kinetics int8 round(x*16), the sn channel's raw
+bf16 bytes, maps u8) unpacked on the device by ``utils/wirefmt.py``, the
+channels the config drops restored as zeros. Validation batches are fp32.
+
+Two runs with the same seeds give the same bits on the card: the BiRNN's
+kernels sum in a fixed order with no atomics, and so do the embedding
+lookups' backwards (``models/attrnn.py::EmbedRows``).
 
 Loop semantics as the JAX package's (and the reference's train.py): weighted
 CE [1, pos_weight] normalized by the weight sum, grad-clip 0.5, validation
@@ -36,13 +50,17 @@ import time
 import numpy as np
 import torch
 
-from ..models import (AttRNN, AttRNNConfig, attrnn_params_from_state_dict,
-                      attrnn_state_dict_from_params, init_attrnn)
+from ..models import (AttRNN, AttRNNConfig, TransEnc, TransEncConfig,
+                      attrnn_params_from_state_dict, attrnn_state_dict_from_params,
+                      init_attrnn, init_transenc, transenc_params_from_state_dict,
+                      transenc_state_dict_from_params)
 from ..models.attrnn import PORTED
 from ..models.convert import gc_dims, torch_ckpt_to_params
 from ..models.params_io import load_params, save_params
 from ..pipeline.call_mods import resolve_device
 from ..utils.logging import mylogger
+from ..utils.wirefmt import (dequant_i8, pack_kmer4_np, pack_u16_np, quant_i8_np,
+                             unpack_kmer4, unpack_u16)
 from .data import FeatureDataset, StreamingFeatureDataset
 from .optim import LrSchedule, build_optimizer
 
@@ -95,14 +113,21 @@ class TrainConfig:
     step_fuse: int = 8
     dl_offsets: bool = False  # out-of-core streaming loader
     rnn_backend: str = "xla"  # flag parity: every value trains through K4/K5/K6
-    precision: str = "fp32"  # fp32 | bf16 (BiRNN operand type)
-    train_transfer: str = "fp32"  # only fp32 is ported
-    dist_coordinator: str | None = None  # trainm: not ported
+    precision: str = "fp32"  # fp32 | bf16 (operand type of the products)
+    train_transfer: str = "fp32"  # fp32 | bf16 | packed: the train batch's wire
+    dist_coordinator: str | None = None  # trainm across processes: not ported
     num_processes: int = 1
     process_id: int = 0
     device: str = "cuda"
 
-    def model_config(self) -> AttRNNConfig:
+    def model_config(self):
+        if self.model_type == "transencoder2s":
+            return TransEncConfig(
+                seq_len=self.seq_len, num_layers=self.layer_trans,
+                num_classes=self.class_num, dropout_rate=self.dropout_rate,
+                d_model=self.d_model, nhead=self.nhead, dim_ff=self.dim_ff,
+                is_npass=self.is_npass, is_sn=self.is_sn, is_map=self.is_map,
+                is_stds=self.is_stds)
         return AttRNNConfig(
             seq_len=self.seq_len, num_layers=self.layer_rnn,
             num_classes=self.class_num, dropout_rate=self.dropout_rate,
@@ -111,20 +136,27 @@ class TrainConfig:
 
 
 def _check_unported(cfg: TrainConfig) -> None:
-    if cfg.model_type not in PORTED:
-        raise NotImplementedError(
-            "--model_type {} is not yet ported for training ({} only)".format(
-                cfg.model_type, ", ".join(PORTED)))
-    if cfg.train_transfer != "fp32":
-        raise NotImplementedError(
-            "--train_transfer {} is not yet ported (fp32 only)".format(
-                cfg.train_transfer))
     if cfg.num_processes > 1 or cfg.dist_coordinator:
         raise NotImplementedError(
-            "multi-process training (trainm, --num_processes > 1, "
-            "--dist_coordinator) is not yet ported")
+            "multi-process training (trainm --num_processes > 1, "
+            "--dist_coordinator) is not yet ported: it is the next slice of "
+            "the port; one process trains every family")
+    if cfg.model_type not in PORTED + ("transencoder2s",):
+        raise ValueError("--model_type {} is not a model ({}, transencoder2s)".format(
+            cfg.model_type, ", ".join(PORTED)))
+    if cfg.train_transfer not in ("fp32", "bf16", "packed"):
+        raise ValueError("--train_transfer must be fp32, bf16 or packed")
     if cfg.precision not in ("fp32", "bf16"):
         raise ValueError("--precision must be fp32 or bf16")
+
+
+def model_io(model_cfg):
+    """(module class, state_dict from params, params from state_dict) of the
+    config's family: ``AttRNN`` or ``TransEnc``."""
+    if isinstance(model_cfg, TransEncConfig):
+        return (TransEnc, transenc_state_dict_from_params,
+                lambda sd: transenc_params_from_state_dict(sd, model_cfg))
+    return AttRNN, attrnn_state_dict_from_params, attrnn_params_from_state_dict
 
 
 def _init_params(cfg: TrainConfig, model_cfg) -> dict:
@@ -133,6 +165,8 @@ def _init_params(cfg: TrainConfig, model_cfg) -> dict:
         if cfg.init_model.endswith(".npz"):
             return load_params(cfg.init_model)
         return torch_ckpt_to_params(cfg.init_model, model_cfg)
+    if isinstance(model_cfg, TransEncConfig):
+        return init_transenc(cfg.tseed, model_cfg)
     return init_attrnn(cfg.tseed, model_cfg)
 
 
@@ -147,7 +181,10 @@ def _batch_layout(model_cfg) -> list[tuple[str, int]]:
     return [(k, 4 if k.startswith("sns") else L) for k in keys]
 
 
-def _pack_cols(fields, feats: dict, labels, mask) -> np.ndarray:
+def _pack_cols(fields, feats: dict, labels, mask, wire: str = "fp32") -> np.ndarray:
+    """One batch as (B, n_cols) columns: float32, or with ``wire`` 'bf16'
+    the same columns rounded to bf16 (to nearest even, as ml_dtypes and the
+    JAX package round them), held as their int16 bit patterns."""
     B = np.asarray(labels).shape[0]
     cols = []
     for k, n in fields:
@@ -157,16 +194,100 @@ def _pack_cols(fields, feats: dict, labels, mask) -> np.ndarray:
         cols.append(v)
     cols.append(np.asarray(labels, np.float32).reshape(B, 1))
     cols.append(np.asarray(mask, np.float32).reshape(B, 1))
-    return np.ascontiguousarray(np.concatenate(cols, axis=1))
+    flat = np.ascontiguousarray(np.concatenate(cols, axis=1))
+    if wire == "bf16":
+        return torch.from_numpy(flat).to(torch.bfloat16).view(torch.int16).numpy()
+    return flat
 
 
 def _unpack_cols(flat: torch.Tensor, fields):
+    """Columns -> (feats, labels, mask); bf16 wire columns (int16 bits)
+    widen to f32 on the device."""
+    if flat.dtype == torch.int16:
+        flat = flat.view(torch.bfloat16)
+    flat = flat.float()
     feats, o = {}, 0
     for k, n in fields:
         feats[k] = flat[:, o:o + n]
         o += n
     labels = flat[:, o].long()
     mask = flat[:, o + 1]
+    return feats, labels, mask
+
+
+def _q_fields(model_cfg) -> list[tuple[str, str, int]]:
+    """(key, kind, nbytes) wire layout of one quantized training row
+    (``train.py:204-219`` of the JAX package). Kinds: kmer4 = two 4-bit base
+    codes a byte; u16s = one uint16 scalar broadcast to (B, L) on the
+    device; i8q = int8 round(x*16); bf16 = raw bfloat16 bytes; u8frac =
+    uint8 round(x*255) for [0,1] fractions (the maps column)."""
+    L = model_cfg.seq_len
+    per = [("kmer", "kmer4", (L + 1) // 2), ("kpass", "u16s", 2),
+           ("ipd_means", "i8q", L), ("pw_means", "i8q", L)]
+    if getattr(model_cfg, "is_stds", False):
+        per += [("ipd_stds", "i8q", L), ("pw_stds", "i8q", L)]
+    if getattr(model_cfg, "is_sn", False):
+        per += [("sns", "bf16", 8)]
+    if getattr(model_cfg, "is_map", False):
+        per += [("maps", "u8frac", L)]
+    strands = ("", "2") if getattr(model_cfg, "two_strand", True) else ("",)
+    return [(k + s, kind, nb) for s in strands for k, kind, nb in per]
+
+
+def _pack_rows_q(fields, feats: dict, labels, mask) -> np.ndarray:
+    """Host-side pack of one batch into (B, row_bytes) uint8 quantized rows
+    (+1 labels byte, +1 mask byte at the end), ``_pack_rows_q`` of the JAX
+    package byte for byte."""
+    B = np.asarray(labels).shape[0]
+    row = sum(nb for _k, _kind, nb in fields) + 2
+    buf = np.empty((B, row), np.uint8)
+    o = 0
+    for k, kind, nb in fields:
+        v = np.asarray(feats[k], np.float32)
+        if kind == "kmer4":
+            buf[:, o:o + nb] = pack_kmer4_np(v)
+        elif kind == "u16s":
+            buf[:, o:o + nb] = pack_u16_np(v.reshape(B, -1)[:, 0])
+        elif kind == "i8q":
+            buf[:, o:o + nb] = quant_i8_np(v).view(np.uint8)
+        elif kind == "bf16":
+            bits = torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16)
+            buf[:, o:o + nb] = bits.view(torch.uint8).numpy().reshape(B, -1)
+        else:  # u8frac
+            buf[:, o:o + nb] = np.clip(np.rint(v * 255.0), 0, 255).astype(np.uint8)
+        o += nb
+    buf[:, o] = np.asarray(labels).astype(np.uint8)
+    buf[:, o + 1] = np.asarray(mask).astype(np.uint8)
+    return buf
+
+
+def _unpack_rows_q(buf: torch.Tensor, fields, model_cfg):
+    """On-device unpack of quantized rows back to the full fp32 feats dict
+    (disabled channels restored as zeros), labels int64, mask fp32: the JAX
+    package's ``_unpack_rows_q`` (``train.py:252-282``) through the port's
+    ``utils/wirefmt.py`` unpackers. The sn channel's bytes are reinterpreted
+    as bf16, not converted."""
+    L = model_cfg.seq_len
+    B = buf.shape[0]
+    feats, o = {}, 0
+    for k, kind, nb in fields:
+        raw = buf[:, o:o + nb]
+        if kind == "kmer4":
+            feats[k] = unpack_kmer4(raw, L).float()
+        elif kind == "u16s":
+            feats[k] = unpack_u16(raw).float().expand(B, L)
+        elif kind == "i8q":
+            feats[k] = dequant_i8(raw.view(torch.int8))
+        elif kind == "bf16":
+            feats[k] = raw.contiguous().view(torch.bfloat16).float()
+        else:  # u8frac
+            feats[k] = raw.float() * (1.0 / 255.0)
+        o += nb
+    labels = buf[:, o].long()
+    mask = buf[:, o + 1].float()
+    for k, n in _batch_layout(model_cfg):  # zeros for wire-dropped channels
+        if k not in feats:
+            feats[k] = torch.zeros((B, n), dtype=torch.float32, device=buf.device)
     return feats, labels, mask
 
 
@@ -244,18 +365,22 @@ def weighted_ce(logits, labels, mask, class_weights) -> torch.Tensor:
     return (per * w).sum() / torch.clamp(w.sum(), min=1e-9)
 
 
-def make_train_step(model: AttRNN, optimizer, pos_weight: float,
-                    compute_dtype=torch.float32):
+def make_train_step(model, optimizer, pos_weight: float,
+                    compute_dtype=torch.float32, train_transfer: str = "fp32"):
     """(feats, labels, mask, generator) -> loss: the forward in training mode
     (dropout from ``generator``), the weighted CE, its gradients through
-    autograd (K5 or K6's backward for the BiRNN on CUDA), then clip and the optimizer, which
-    updates the model's parameters in place. ``optimizer.init`` must have
-    run on ``model.parameters()``. ``step.packed(flat, generator)`` takes one
-    packed (B, n_cols) batch, ``step.pack_batch`` makes one."""
+    autograd (K5 or K6's backward for the BiRNN on CUDA), then clip and the
+    optimizer, which updates the model's parameters in place.
+    ``optimizer.init`` must have run on ``model.parameters()``.
+    ``step.packed(flat, generator)`` takes one batch in the ``train_transfer``
+    wire (fp32 or bf16 columns, or ``packed`` byte rows), ``step.pack_batch``
+    makes one on the host and ``step.unpack`` turns one back into (feats,
+    labels, mask) on its device."""
     params = list(model.parameters())
     dev = params[0].device
     class_weights = torch.tensor([1.0, pos_weight], dtype=torch.float32, device=dev)
     fields = _batch_layout(model.cfg)
+    qfields = _q_fields(model.cfg) if train_transfer == "packed" else None
 
     def step(feats, labels, mask, generator=None):
         logits, _probs = model(feats, compute_dtype, train=True, generator=generator)
@@ -264,16 +389,26 @@ def make_train_step(model: AttRNN, optimizer, pos_weight: float,
         optimizer.step(params, grads)
         return loss.detach()
 
-    step.packed = lambda flat, generator=None: step(*_unpack_cols(flat, fields),
-                                                    generator)
-    step.pack_batch = lambda feats, labels, mask: _pack_cols(fields, feats,
-                                                             labels, mask)
+    def unpack(flat):
+        if qfields is not None:
+            return _unpack_rows_q(flat, qfields, model.cfg)
+        return _unpack_cols(flat, fields)
+
+    step.unpack = unpack
+    step.packed = lambda flat, generator=None: step(*unpack(flat), generator)
+    if qfields is not None:
+        step.pack_batch = lambda feats, labels, mask: _pack_rows_q(
+            qfields, feats, labels, mask)
+    else:
+        step.pack_batch = lambda feats, labels, mask: _pack_cols(
+            fields, feats, labels, mask, train_transfer)
     return step
 
 
-def make_eval_step(model: AttRNN, pos_weight: float):
+def make_eval_step(model, pos_weight: float):
     """(feats, labels, mask) -> (loss, pred, counts): the inference forward in
-    f32 (K1 on CUDA), counts = [n_valid, correct, tp, fp, fn] on the device.
+    f32 (K1, or K3 for transencoder2s, on CUDA), counts = [n_valid, correct,
+    tp, fp, fn] on the device.
     ``step.packed`` and ``step.pack_batch`` as for the train step."""
     dev = next(model.parameters()).device
     class_weights = torch.tensor([1.0, pos_weight], dtype=torch.float32, device=dev)
@@ -372,23 +507,26 @@ def train(cfg: TrainConfig) -> dict:
         model_dir += "/"
 
     LOGGER.info("reading data..")
+    single_strand = not getattr(model_cfg, "two_strand", True)
     if cfg.dl_offsets:
-        train_ds = StreamingFeatureDataset(cfg.train_file, cfg.seq_len)
-        valid_ds = StreamingFeatureDataset(cfg.valid_file, cfg.seq_len)
+        train_ds = StreamingFeatureDataset(cfg.train_file, cfg.seq_len, single_strand)
+        valid_ds = StreamingFeatureDataset(cfg.valid_file, cfg.seq_len, single_strand)
     else:
-        train_ds = FeatureDataset.from_tsv(cfg.train_file, cfg.seq_len)
-        valid_ds = FeatureDataset.from_tsv(cfg.valid_file, cfg.seq_len)
+        train_ds = FeatureDataset.from_tsv(cfg.train_file, cfg.seq_len, single_strand)
+        valid_ds = FeatureDataset.from_tsv(cfg.valid_file, cfg.seq_len, single_strand)
 
     if cfg.resume_from:
         cfg = dataclasses.replace(cfg, init_model=cfg.resume_from)
-    model = AttRNN(model_cfg)
-    model.load_state_dict(attrnn_state_dict_from_params(_init_params(cfg, model_cfg)))
+    module, to_state_dict, to_params = model_io(model_cfg)
+    model = module(model_cfg)
+    model.load_state_dict(to_state_dict(_init_params(cfg, model_cfg)))
     model.to(device)
     names = [n for n, _ in model.named_parameters()]
     optimizer = build_optimizer(cfg.optim_type, cfg.lr)
     optimizer.init(model.parameters(), gc_dims(names))
     compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
-    train_step = make_train_step(model, optimizer, cfg.pos_weight, compute_dtype)
+    train_step = make_train_step(model, optimizer, cfg.pos_weight, compute_dtype,
+                                 cfg.train_transfer)
     eval_step = make_eval_step(model, cfg.pos_weight)
     start_epoch = 0
     if cfg.resume_from:
@@ -469,7 +607,7 @@ def train(cfg: TrainConfig) -> dict:
         return vloss, acc, prec, rec
 
     def save_ckpt(path, epoch_num=None):
-        save_params(path, attrnn_params_from_state_dict(model.state_dict()))
+        save_params(path, to_params(model.state_dict()))
         if epoch_num is not None and cfg.save_opt_state:
             save_train_state(path.replace(".ckpt.npz", ".train_state.npz"),
                              optimizer, epoch_num, names)

@@ -48,6 +48,9 @@ does not print its last line:
      1,024 rows, fp32: simt with U = 32, one CTA a cluster), both cells,
      against its plain version, a rerun, cuDNN's nn.GRU / nn.LSTM(21, 32,
      bidirectional=True) and the bound;
+     the training kernels again at the single-strand families' shapes (512
+     rows, H 256, C = 11 and 512) and at the aggregate trainer's (NL 1, H
+     32, C 21, L 11, 512 rows), fp32 and bf16, as above;
   5. model: full-width attbigru2s, attbilstm2s and transencoder2s with
      numpy-seeded weights, probs through K1 (K3) against probs through the
      plain version; transencoder2s once more with cuDNN's TF32 allowed, which
@@ -88,6 +91,22 @@ does not print its last line:
      counts, the training kernels' calls by design and CUDA launches read
      around the run (fp32: simt only), then a few bf16 steps (tc only);
      the same for attbigru2s2 and attbilstm2s2 (layer 0 at C = 28);
+     determinism: two steps of attbigru2s in two fresh processes, every
+     gradient and parameter diffed leaf by leaf (bit-equal), then the train
+     path twice with the same seeds (equal losses, an equal sha256 of the
+     final parameters), and the repair's cost a step (the fixed-order
+     embedding backward against F.embedding's);
+     train1s: ``trainm`` of attbigru1s and attbilstm1s at the defaults on
+     single-strand rows (K4/K5 or K6 at 512 rows, K1 validating);
+     train_te: ``train`` of transencoder2s in fp32 and bf16 (the encoder in
+     PyTorch ops, K3 on validation only, TF32 off);
+     transfer: attbigru2s with ``--train_transfer bf16`` and ``packed``, a
+     batch unpacked on the card bit for bit the host's quantized values, the
+     first step's loss against the fp32 wire's, the bytes of a row;
+     aggr_train: the aggregate trainer's script for both cells (K4/K5, K6
+     at H = 32), its best checkpoint through ``call_freqb --call_mode
+     aggregate``; wrappers: ``call_hifi`` and ``align_hifi`` raise their
+     named errors;
   8. profile: torch.profiler over a few full-width training steps of each
      model: the step's host and device ms, the device's idle share and the
      device time per kernel;
@@ -104,6 +123,11 @@ K5 and K6 (forward and backward) at the train-kernel phase's, in four turns in o
 process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
+
+    python3 chip_smoke.py --only determinism,train1s,...
+
+runs the card, the build and the named phases of the one-card training paths
+(``main_only``), and prints no result line.
 """
 
 import json
@@ -141,7 +165,8 @@ PEAK_BYTES = 3.35e12
 E2E_READS, E2E_READ_LEN, E2E_REF_LEN = 330, 2000, 300_000
 # train input: separable synthetic features, 32 steps of batch 512 an epoch
 TRAIN_ROWS, VALID_ROWS, STEP_INTERVAL = 16384, 4096, 8
-TRAIN_EPOCHS = {"gru": 3, "lstm": 3}
+TRAIN_EPOCHS = {"gru": 2, "lstm": 2}
+TRAIN2S2_EPOCHS = {"gru": 3, "lstm": 3}
 BF16_TRAIN_ROWS = 2048
 # call_freqb input: HiFi's usual ~30x coverage, 1,000 reads x 2 kb on a 60 kb
 # contig (~33x); the aggregate model at its full width (ccsmeth_tpu/cli.py:
@@ -160,6 +185,16 @@ C2S2, C2S2_WIDE = 28, 52
 WIDE = {"is_stds": True, "is_sn": True, "is_map": True}
 # --device cpu runs the e2e input's reads of its first HEAD_SITES sites
 HEAD_SITES = 2048
+# trainm's single-strand families, on single-strand rows of the train input's
+# sizes; transencoder2s's training; the train batch's wires (attbigru2s);
+# the first step's loss of a bf16 or packed wire against the fp32 wire's
+MODELS1S = {"gru": "attbigru1s", "lstm": "attbilstm1s"}
+TRAIN1S_EPOCHS, TE_EPOCHS, TRANSFER_EPOCHS = 2, 2, 1
+# between the two wires' readings (8.9e-7 bf16, 1.8e-5 packed, PERF.md) and
+# the loss moves of a mis-scaled or dropped channel
+WIRE_TOL = 1e-4
+# the aggregate trainer: simulated windows, 32 steps of batch 512 an epoch
+AGGR_TRAIN_ROWS, AGGR_VALID_ROWS, AGGR_EPOCHS = 16384, 4096, 3
 
 
 def log(msg):
@@ -675,7 +710,7 @@ def phase_l2_kernels(torch, smi, cell):
         emit(res)
 
 
-def _bwd_cuda_launches(rows, cin, dt, cell):
+def _bwd_cuda_launches(rows, cin, dt, cell, hidden=H, seq_len=L):
     """K5's (cell 'gru') or K6's backward ('lstm') CUDA launches a call:
     recurrence, dx, weight gradients, and the sum of the row slices when
     there is more than one."""
@@ -684,9 +719,9 @@ def _bwd_cuda_launches(rows, cin, dt, cell):
     from ccsmeth_tpu_torch.ops import bigru_vjp
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = bigru_vjp.k45_plan(H, dt, cell)
-    return 3 + (bigru_vjp.k5_wgrad_slices(L * rows, cin, H, n_sm, plan["design"],
-                                          plan["gates"]) > 1)
+    plan = bigru_vjp.k45_plan(hidden, dt, cell)
+    return 3 + (bigru_vjp.k5_wgrad_slices(seq_len * rows, cin, hidden, n_sm,
+                                          plan["design"], plan["gates"]) > 1)
 
 
 def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
@@ -737,9 +772,11 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
             {k: time_ms(f, torch) for k, f in bwd.items()})
 
 
-def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
+def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=H,
+                        seq_len=L):
     """One layer's training kernels at the train path's shapes (C = 11 and
-    2H, or the ``cins`` given) against their
+    2H, or the ``cins`` given; 1024 rows, H 256 and L 21, or the ``rows``,
+    ``hidden`` and ``seq_len`` given) against their
     plain versions: K4/K5 (cell 'gru') or K6's forward and backward
     ('lstm'). Tolerances: fp32 outputs, residuals and dx 1e-5; dW and db
     1e-5 * max|ref| + 1e-5, since they sum L * 2B = 21,504 rows in another
@@ -764,20 +801,19 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
                              bilstm_vjp.bilstm_layer_train_fwd_plain)
         bwd, bwd_plain = bilstm_vjp.bilstm_layer_bwd, bilstm_vjp.bilstm_layer_bwd_plain
         res_names, kname = ("out", "c", "gates"), "bilstm_train"
-    rows = ROWS[0]
     cells = []
     for cin in cins:
         rng = np.random.RandomState(SEED + cin)
-        ld = init_rnn_params(rng, cin, H, 1, cell)[0]
-        x_np = rng.randn(L, rows, cin).astype(np.float32)
-        dout_np = rng.randn(L, rows, 2 * H).astype(np.float32)
+        ld = init_rnn_params(rng, cin, hidden, 1, cell)[0]
+        x_np = rng.randn(seq_len, rows, cin).astype(np.float32)
+        dout_np = rng.randn(seq_len, rows, 2 * hidden).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
             f32 = dt == torch.float32
             wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
             dout = torch.from_numpy(dout_np).to("cuda", dt)
-            design = bigru_vjp.k45_plan(H, dt, cell)["design"]
+            design = bigru_vjp.k45_plan(hidden, dt, cell)["design"]
             V.cuda_launches = 0
             res = fwd(x, wih, bih, whh, bhh, dt)
             fwd_cuda = V.cuda_launches
@@ -790,8 +826,8 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
             again = bwd(*args)
             torch.cuda.synchronize()
             # forward: projection, recurrence; backward: 3, + the slice sum
-            assert fwd_cuda == 2 and bwd_cuda == _bwd_cuda_launches(rows, cin, dt, cell), \
-                (cell, fwd_cuda, bwd_cuda)
+            assert fwd_cuda == 2 and bwd_cuda == _bwd_cuda_launches(
+                rows, cin, dt, cell, hidden, seq_len), (cell, fwd_cuda, bwd_cuda)
             ref = bwd_plain(*args)
             names = ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh")
             assert all(torch.equal(a, b) for a, b in zip(got, again)), \
@@ -810,7 +846,7 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
             assert not bad, (cell, cin, dname, bad)
 
             # cuDNN's one-layer bidirectional GRU / LSTM with the same weights
-            lib = _cudnn(torch, cell, cin, 1, [ld], dt)
+            lib = _cudnn(torch, cell, cin, 1, [ld], dt, hidden)
             lib.train()
             xg = x.detach().clone().requires_grad_(True)
             lib_fwd_ms = time_ms(lambda: lib(xg), torch)
@@ -823,11 +859,11 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
             pb_ms = time_ms(lambda: bwd_plain(*args), torch)
             phases = _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell)
             weights = (wih, bih, whh, bhh)
-            bf, byf = _bound(V.train_fwd_flops(L, rows, cin, H),
+            bf, byf = _bound(V.train_fwd_flops(seq_len, rows, cin, hidden),
                              _nbytes(x, *weights, *res), dname)
             # db_hh is a copy of db_ih for the LSTM: written once
             outs = got if cell == "gru" else got[:4]
-            bb, byb = _bound(V.train_bwd_flops(L, rows, cin, H),
+            bb, byb = _bound(V.train_bwd_flops(seq_len, rows, cin, hidden),
                              _nbytes(dout, x, wih, whh, *res, *outs), dname)
             for name, ms, pms, lms, bms, bby, keys, ncuda, ph in (
                     (kname + "_fwd", f_ms, pf_ms, lib_fwd_ms, bf, byf, res_names, fwd_cuda,
@@ -835,7 +871,8 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H)):
                     (kname + "_bwd", b_ms, pb_ms, lib_bwd_ms, bb, byb, names, bwd_cuda,
                      phases[1])):
                 c = {"phase": "train_kernel", "name": name, "rows": rows,
-                     "C": cin, "H": H, "L": L, "dtype": dname, "design": design,
+                     "C": cin, "H": hidden, "L": seq_len, "dtype": dname,
+                     "design": design,
                      "cuda_launches_per_call": ncuda,
                      "max_abs_err": {k: errs[k] for k in keys},
                      "tol": {k: tols[k] for k in keys},
@@ -1695,6 +1732,12 @@ def phase_text(torch, smi, k1_tags):
     return res
 
 
+def _csv6(values):
+    """Comma-joined values rounded to 6 decimals (the same numbers as
+    ``str(round(x, 6))``, formatted faster)."""
+    return ",".join(map("{:.6f}".format, values.tolist()))
+
+
 def _write_feature_tsv(path, n, seed, seq_len=21):
     """Separable synthetic features: label-1 rows get an ipd shift at the
     center (the writer of tests/test_training.py:18-39)."""
@@ -1713,10 +1756,9 @@ def _write_feature_tsv(path, n, seed, seq_len=21):
                 ipd[8:13] += 2.0
             row = [
                 "chr1", str(1000 + i), "+", "read/{}/ccs".format(i), str(50 + i),
-                kmer, "10", ",".join(str(round(x, 6)) for x in ipd), ".",
-                ",".join(str(round(x, 6)) for x in pw), ".", ".", ".",
-                kmer[::-1], "9", ",".join(str(round(x, 6)) for x in rng.randn(seq_len)),
-                ".", ",".join(str(round(x, 6)) for x in rng.randn(seq_len)), ".", ".",
+                kmer, "10", _csv6(ipd), ".", _csv6(pw), ".", ".", ".",
+                kmer[::-1], "9", _csv6(rng.randn(seq_len)),
+                ".", _csv6(rng.randn(seq_len)), ".", ".",
                 ".", str(label),
             ]
             f.write("\t".join(row) + "\n")
@@ -1855,6 +1897,16 @@ def phase_train(torch, smi, cell, epochs, models=MODELS):
     return res
 
 
+def _design_calls(launches, designs, key, design):
+    """A run's ``key`` calls ('fwd' or 'bwd') of its cell's training kernels
+    that took ``design``, from the run's own counters: ``launches`` holds its
+    fwd and bwd calls, ``designs`` the same calls by design. Every run's
+    calls take one design, so they are all of ``design``'s or none."""
+    total = launches["fwd"] + launches["bwd"]
+    assert designs[design] in (0, total), (launches, designs)
+    return launches[key] if designs[design] else 0
+
+
 def _zero_k45_designs():
     """The training kernels' (K4/K5 and K6) CUDA launches and calls by
     design, set to 0."""
@@ -1915,6 +1967,653 @@ def phase_profile(torch, smi, cell, steps=5):
         log("profile: torch.profiler recorded no device time")
     log("profile {}: {:.2f} ms a step on the host, {:.2f} ms on the device, idle "
         "share {}".format(MODELS[cell], wall_ms, device_ms, res["device_idle_share"]))
+    emit(res)
+    return res
+
+
+def _train_digest(out_path, model_type, precision):
+    """Child of the determinism phase, a process of its own: two full-width
+    training steps (batch 512, dropout 0.5, Adam) from seeded weights on
+    seeded batches. Writes, for each step, the loss, the gradient of every
+    hooked activation in the order the backward reached it, every parameter's
+    gradient and every parameter after the update, to ``out_path`` (npz)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from ccsmeth_tpu_torch.models import (AttRNN, AttRNNConfig,
+                                          attrnn_state_dict_from_params, init_attrnn)
+    from ccsmeth_tpu_torch.training import build_optimizer
+    from ccsmeth_tpu_torch.training.train import weighted_ce
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = AttRNNConfig(model_type=model_type)
+    model = AttRNN(cfg)
+    model.load_state_dict(attrnn_state_dict_from_params(init_attrnn(SEED, cfg)))
+    model.cuda()
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    opt = build_optimizer("Adam", 1e-3)
+    opt.init(params)
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    acts = []
+
+    def hook(name):
+        def fwd(_mod, inputs, output):
+            ts = [("out", output)] if torch.is_tensor(output) else []
+            ts += [("in{}".format(i), t) for i, t in enumerate(inputs)
+                   if torch.is_tensor(t)]
+            for tag, t in ts:
+                if t.requires_grad:
+                    t.register_hook(lambda g, key="{}.{}".format(name, tag):
+                                    acts.append((key, g.detach().float().cpu().numpy())))
+        return fwd
+
+    for name, mod in model.named_modules():
+        if name and not list(mod.children()):
+            mod.register_forward_hook(hook(name))
+    rec = {}
+    for s in range(2):
+        feats = {k: torch.from_numpy(v).cuda() for k, v in
+                 _model_feats(512, SEED + s).items()}
+        labels = torch.from_numpy(
+            np.random.RandomState(SEED + s).randint(0, 2, 512)).cuda()
+        mask = torch.ones(512, device="cuda")
+        acts.clear()
+        logits, _ = model(feats, dt, train=True, generator=gen)
+        loss = weighted_ce(logits, labels, mask,
+                           torch.tensor([1.0, 1.0], device="cuda"))
+        grads = torch.autograd.grad(loss, params)
+        rec["s{}/loss".format(s)] = np.float64(loss.item())
+        rec["s{}/logits".format(s)] = logits.detach().cpu().numpy()
+        for i, (k, g) in enumerate(acts):
+            rec["s{}/act{:02d}/{}".format(s, i, k)] = g
+        for n, g in zip(names, grads):
+            rec["s{}/grad/{}".format(s, n)] = g.cpu().numpy()
+        opt.step(params, grads)
+        for n, p in zip(names, params):
+            rec["s{}/param/{}".format(s, n)] = p.detach().cpu().numpy()
+    np.savez(out_path, **rec)
+
+
+def _digest_diff(a, b):
+    """Keys of two ``_train_digest`` files whose arrays differ, in the order
+    they were recorded within each step, with each key's max |a - b|."""
+    import numpy as np
+
+    diffs = []
+    for k in a.files:
+        x, y = a[k], b[k]
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            d = float(np.max(np.abs(x.astype(np.float64) - y.astype(np.float64))))
+            diffs.append((k, d))
+    return diffs
+
+
+def _digest_runs(tags):
+    """``_train_digest`` of attbigru2s fp32 in a fresh process for each tag,
+    the processes side by side on the card; {tag: npz}."""
+    import numpy as np
+
+    paths = {tag: os.path.join(WORK, "digest_{}.npz".format(tag)) for tag in tags}
+    procs = {tag: subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                    "--train-digest", path, MODELS["gru"], "fp32"],
+                                   stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                                   text=True)
+             for tag, path in paths.items()}
+    errs = {tag: p.communicate()[1] for tag, p in procs.items()}
+    for tag, p in procs.items():
+        assert p.returncode == 0, (tag, errs[tag][-3000:])
+    return {tag: np.load(path) for tag, path in paths.items()}
+
+
+# the embedding lookups of one training step (batch 512, both strands of
+# 512 x 21 positions each): (rows, width) of each table
+STEP_TABLES = {"attbigru2s": [(5, 8)],
+               "attbigru2s2": [(5, 8), (953, 8), (953, 8), (31, 4)]}
+
+
+def _lookup_ms(torch, rows, width, native):
+    """Device ms of one lookup's forward and backward at a step's shape
+    (512 x 21 indices): ``embed_rows`` (the fixed-order backward) or
+    ``F.embedding`` (``native``)."""
+    import torch.nn.functional as F
+
+    from ccsmeth_tpu_torch.models.attrnn import embed_rows
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    table = torch.randn(rows, width, device="cuda", requires_grad=True)
+    idx = torch.randint(0, rows, (512, L), device="cuda", generator=g)
+    up = torch.randn(512, L, width, device="cuda", generator=g)
+    lookup = (lambda: F.embedding(idx, table)) if native else (
+        lambda: embed_rows(table, idx))
+    return time_ms(lambda: torch.autograd.grad(lookup(), table, up), torch)
+
+
+def phase_determinism(torch, smi):
+    """Two identical training runs give the same bits on the card.
+    (1) Two steps of attbigru2s at full width (``_train_digest``) in two
+    fresh processes: every activation gradient, parameter gradient and
+    parameter after each step bit-equal. (2) The train path twice in this process:
+    ``train`` at its defaults for one epoch, the same seeds, equal losses
+    and an equal sha256 of the final parameters. (3) The repair's cost a
+    step: the device time of a step's embedding lookups (forward and
+    backward, both strands) with the fixed-order backward against
+    ``F.embedding``'s, attbigru2s and attbigru2s2."""
+    import hashlib
+    import importlib
+
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.training.train import LAST_RUN
+
+    t0 = time.time()
+    files = _digest_runs(("a", "b"))
+    differ = _digest_diff(files["a"], files["b"])
+    assert not differ, differ[:10]
+    tr, va, _tr16 = _train_input()
+    runs = []
+    train_mod = importlib.import_module("ccsmeth_tpu_torch.training.train")
+    for i in range(2):
+        models = []
+        make_eval = train_mod.make_eval_step
+
+        def capture(model, pos_weight):  # the trained model, read after the run
+            models.append(model)
+            return make_eval(model, pos_weight)
+
+        train_mod.make_eval_step = capture
+        try:
+            _train_cli(cli, MODELS["gru"], tr, va, os.path.join(WORK, "det{}".format(i)),
+                       "fp32", 1, STEP_INTERVAL)
+        finally:
+            train_mod.make_eval_step = make_eval
+        run = dict(LAST_RUN)
+        h = hashlib.sha256()
+        for k, v in models[0].state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        runs.append((run["train_losses"], run["valid_losses"], h.hexdigest()))
+    assert runs[0] == runs[1], runs
+    cost = {}
+    for model_type, tables in STEP_TABLES.items():
+        ms = {k: 2 * sum(_lookup_ms(torch, rows, width, k == "native")
+                         for rows, width in tables) for k in ("fixed", "native")}
+        cost[model_type] = dict(ms, repair_ms_per_step=ms["fixed"] - ms["native"])
+    res = {"phase": "determinism", "card": smi,
+           "digest": {"leaves": len(files["a"].files), "a_vs_b_differ": len(differ)},
+           "train_twice": {"steps": len(runs[0][0]) * STEP_INTERVAL,
+                           "train_losses": runs[0][0], "final_params_sha256": runs[0][2],
+                           "equal": True},
+           "repair_cost": cost, "wall_s": time.time() - t0}
+    emit(res)
+    return res
+
+
+def _write_ss_tsv(path, n, seed, seq_len=21):
+    """Separable single-strand features (14 columns, the FeaData3ss rows
+    trainm reads for the *1s families): label-1 rows get an ipd shift at
+    the centre, as ``_write_feature_tsv``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    with open(path, "w") as f:
+        for i in range(n):
+            label = i % 2
+            kmer = "".join(rng.choice(list("ACGT"), seq_len))
+            kmer = kmer[:10] + "CG" + kmer[12:]
+            ipd = rng.randn(seq_len)
+            if label:
+                ipd[8:13] += 2.0
+            f.write("\t".join([
+                "chr1", str(1000 + i), "+", "read/{}/ccs".format(i), str(50 + i), kmer,
+                "10", _csv6(ipd), ".", _csv6(rng.randn(seq_len)), ".", ".", ".",
+                str(label)]) + "\n")
+
+
+def _zero_train_counts():
+    """The training kernels' calls, plain runs, CUDA launches and designs,
+    K1's and K3's calls and plain runs, set to 0."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+    for V in (bigru_vjp, bilstm_vjp):
+        V.launches_fwd = V.launches_bwd = V.plain_calls = 0
+    _zero_k45_designs()
+    _zero_counts()
+
+
+def _train_counts(cell):
+    """(the cell's training kernels, the other cell's, K1's / K3's) calls
+    since ``_zero_train_counts``."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+    mine, other = ((bigru_vjp, bilstm_vjp) if cell == "gru"
+                   else (bilstm_vjp, bigru_vjp))
+    return ({"fwd": mine.launches_fwd, "bwd": mine.launches_bwd,
+             "plain": mine.plain_calls, "cuda_launches": mine.cuda_launches,
+             "designs": dict(mine.design_calls)},
+            other.launches_fwd + other.launches_bwd + other.plain_calls
+            + other.cuda_launches, _all_counts())
+
+
+def phase_train1s(torch, smi, cell, epochs):
+    """trainm for attbigru1s (cell 'gru': K4/K5) or attbilstm1s ('lstm':
+    K6) at the CLI defaults (3 x 256, batch 512, dropout 0.5, Adam) on
+    separable single-strand rows: one strand of 512 rows through each
+    kernel call, 3 calls of each a step, simt only, no plain run and
+    nothing of the other cell's; K1 on every validation batch."""
+    import math
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.models import AttRNNConfig
+    from ccsmeth_tpu_torch.models.attrnn import rnn_input_size
+    from ccsmeth_tpu_torch.training.train import LAST_RUN
+
+    model_type = MODELS1S[cell]
+    d = os.path.join(WORK, "train1s")
+    os.makedirs(d, exist_ok=True)
+    tr, va = os.path.join(d, "train.tsv"), os.path.join(d, "valid.tsv")
+    if not (os.path.exists(tr) and os.path.exists(va)):
+        _write_ss_tsv(tr, TRAIN_ROWS, SEED + 3)
+        _write_ss_tsv(va, VALID_ROWS, SEED + 4)
+    _zero_train_counts()
+    t0 = time.time()
+    cli.main(["trainm", "--train_file", tr, "--valid_file", va, "--model_dir",
+              os.path.join(d, model_type), "--model_type", model_type, "--device", "cuda",
+              "--max_epoch_num", str(epochs), "--min_epoch_num", str(epochs),
+              "--step_interval", str(STEP_INTERVAL), "--tseed", str(SEED % 10000)])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    run = dict(LAST_RUN)
+    mine, other, inf = _train_counts(cell)
+    steps, n_valid = run["steps"], len(run["valid_losses"])
+    assert steps == epochs * (TRAIN_ROWS // 512), steps
+    assert mine["fwd"] == mine["bwd"] == 3 * steps and mine["plain"] == 0 == other, \
+        (mine, other)
+    assert mine["designs"] == {"tc": 0, "simt": 6 * steps}, mine
+    cin0 = rnn_input_size(AttRNNConfig(model_type=model_type))
+    per_step = sum(2 + _bwd_cuda_launches(512, cin, torch.float32, cell)
+                   for cin in (cin0, 2 * H, 2 * H))
+    assert mine["cuda_launches"] == per_step * steps, (mine, per_step)
+    assert inf["k1"] == n_valid * math.ceil(VALID_ROWS / 512) > 0 == inf["k1_plain"], inf
+    assert np.all(np.isfinite(run["train_losses"] + run["valid_losses"])), run
+    assert run["best_accuracy"] >= 0.9, run["best_accuracy"]
+    steady = float(np.mean(run["epoch_wall_s"][1:]))
+    res = {"phase": "train1s", "model": model_type + " 3x256", "batch": 512,
+           "rows_per_kernel_call": 512, "steps": steps, "epochs": epochs,
+           "validations": n_valid, "launches": mine, "k1_launches": inf["k1"],
+           "best_accuracy": run["best_accuracy"], "train_losses": run["train_losses"],
+           "valid_losses": run["valid_losses"], "epoch_wall_s": run["epoch_wall_s"],
+           "wall_s": wall, "samples_per_s_steady": steps / epochs * 512 / steady,
+           "card": smi}
+    emit(res)
+    return res
+
+
+def phase_train_te(torch, smi, epochs):
+    """train --model_type transencoder2s at the defaults (6 layers, d_model
+    256, 4 heads, FF 512, batch 512, dropout 0.5, Adam) in fp32 and in bf16
+    on the separable set: the training forward in PyTorch ops (no kernel),
+    K3 on every validation batch and nowhere else, no K1 or training
+    kernel, TF32 off around and after the fp32 run. Gates: finite losses,
+    the last interval's train loss under half the first's, and the trained
+    model's accuracy on the validation set through the training forward
+    (the SrcEmbed BatchNorms on the batch's statistics, dropout off) >= 0.9.
+    The trainer's own validation normalises with the running statistics,
+    which training leaves as loaded in both packages (nothing written back,
+    as the JAX package's trainer), so its accuracy is reported, not gated
+    (ROADMAP.md Queue 3)."""
+    import math
+
+    import numpy as np
+
+    import importlib
+
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.ops import transenc
+    from ccsmeth_tpu_torch.training.data import FeatureDataset
+
+    train_mod = importlib.import_module("ccsmeth_tpu_torch.training.train")
+    tr, va, _tr16 = _train_input()
+    valid = FeatureDataset.from_tsv(va, 21)
+    out = {}
+    for prec in ("fp32", "bf16"):
+        models = []
+        make_eval = train_mod.make_eval_step
+
+        def capture(model, pos_weight):  # the trained model, read after the run
+            models.append(model)
+            return make_eval(model, pos_weight)
+
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        _zero_train_counts()
+        train_mod.make_eval_step = capture
+        t0 = time.time()
+        try:
+            _train_cli(cli, TRANSENC, tr, va, os.path.join(WORK, "te_" + prec), prec,
+                       epochs, STEP_INTERVAL)
+        finally:
+            train_mod.make_eval_step = make_eval
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        run = dict(train_mod.LAST_RUN)
+        counts = _all_counts()
+        n_valid = len(run["valid_losses"])
+        steps = run["steps"]
+        assert steps == epochs * (TRAIN_ROWS // 512), steps
+        assert counts["k3"] == n_valid * math.ceil(VALID_ROWS / 512) > 0, counts
+        assert counts["k3_plain"] == counts["k1"] == counts["k1_plain"] == 0, counts
+        assert transenc.design_calls["simt"] == counts["k3"], transenc.design_calls
+        mine, other, _inf = _train_counts("gru")
+        assert mine["fwd"] + mine["bwd"] + mine["plain"] + other == 0
+        tl = run["train_losses"]
+        assert np.all(np.isfinite(tl + run["valid_losses"])), run
+        assert tl[-1] < 0.5 * tl[0], tl
+        model = models[0]
+        correct = n = 0
+        with torch.no_grad():
+            for feats, labels, nv in valid.batches(512, False, np.random.RandomState(0)):
+                ft = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
+                _l, probs = model(ft, getattr(torch, {"fp32": "float32",
+                                                      "bf16": "bfloat16"}[prec]),
+                                  train=True, generator=None)
+                pred = probs.argmax(1).cpu().numpy()[:nv]
+                correct += int((pred == np.asarray(labels)[:nv]).sum())
+                n += nv
+        acc_batch_stats = correct / n
+        assert acc_batch_stats >= 0.9, acc_batch_stats
+        steady = float(np.mean(run["epoch_wall_s"][1:]))
+        out[prec] = {"phase": "train_te", "model": TRANSENC + " 6x256", "precision": prec,
+                     "batch": 512, "steps": steps, "epochs": epochs,
+                     "validations": n_valid, "k3_launches": counts["k3"],
+                     "k3_designs": dict(transenc.design_calls),
+                     "accuracy_batch_statistics": acc_batch_stats,
+                     "trainer_best_accuracy_running_statistics": run["best_accuracy"],
+                     "train_losses": tl, "valid_losses": run["valid_losses"],
+                     "epoch_wall_s": run["epoch_wall_s"], "wall_s": wall,
+                     "samples_per_s_steady": steps / epochs * 512 / steady, "card": smi}
+        emit(out[prec])
+    return out
+
+
+def _bf16_round_np(v):
+    """float32 -> the nearest bfloat16 (ties to even), widened back to
+    float32, by its bits (no NaN in the features)."""
+    import numpy as np
+
+    bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+    bits = (bits + (((bits >> 16) & 1) + 0x7FFF)) & 0xFFFF0000
+    return bits.view(np.float32)
+
+
+def _wire_host_values(model_cfg, feats, labels, mask, wire):
+    """What one batch's device unpack must give, bit for bit, computed on
+    the host in numpy from the fp32 batch: the features rounded to bf16
+    (``bf16``), or (``packed``) the base codes, npass rounded, the kinetics
+    as round(x * 16) / 16 clipped to int8, sn rounded to bf16, the map
+    fractions as round(x * 255) / 255, and zeros for the channels the wire
+    drops; labels and mask exact."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.training.train import _batch_layout, _q_fields
+
+    B = np.asarray(labels).shape[0]
+    out = {}
+    for k, n in _batch_layout(model_cfg):
+        v = np.asarray(feats[k], np.float32).reshape(B, n)
+        out[k] = _bf16_round_np(v) if wire == "bf16" else np.zeros_like(v)
+    if wire == "packed":
+        for k, kind, _nb in _q_fields(model_cfg):
+            v = np.asarray(feats[k], np.float32).reshape(B, -1)
+            # through the integer each byte holds (a rounded -0.0 widens to +0.0)
+            if kind == "kmer4":
+                q = v.astype(np.uint8).astype(np.float32)
+            elif kind == "u16s":
+                q = np.broadcast_to(np.clip(np.rint(v[:, :1]), 0, 65535).astype(np.int32)
+                                    .astype(np.float32), v.shape)
+            elif kind == "i8q":
+                q = (np.clip(np.rint(v * np.float32(16)), -128, 127).astype(np.int8)
+                     .astype(np.float32) * np.float32(1 / 16))
+            elif kind == "bf16":
+                q = _bf16_round_np(v)
+            else:  # u8frac
+                q = (np.clip(np.rint(v * np.float32(255)), 0, 255).astype(np.uint8)
+                     .astype(np.float32) * np.float32(1 / 255))
+            out[k] = np.ascontiguousarray(q, np.float32)
+    return out, np.asarray(labels, np.int64), np.asarray(mask, np.float32)
+
+
+def phase_transfer(torch, smi, epochs):
+    """attbigru2s with --train_transfer bf16 and packed: (1) one batch in
+    each wire unpacked on the card, bit for bit the host's quantized values
+    (``_wire_host_values``); (2) the first step's loss on that batch from
+    the same weights and seeds against the fp32 wire's, within WIRE_TOL;
+    (3) the CLI for ``epochs`` in each wire, K4/K5 3 calls a step on the
+    simt design, best accuracy >= 0.9; the bytes a row of each wire."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.models import (AttRNN, AttRNNConfig,
+                                          attrnn_state_dict_from_params, init_attrnn)
+    from ccsmeth_tpu_torch.training import build_optimizer
+    from ccsmeth_tpu_torch.training.data import FeatureDataset
+    from ccsmeth_tpu_torch.training.train import (LAST_RUN, _batch_layout, _q_fields,
+                                                  make_train_step)
+
+    tr, va, _tr16 = _train_input()
+    cfg = AttRNNConfig(model_type=MODELS["gru"])
+    ncol = sum(n for _k, n in _batch_layout(cfg)) + 2
+    row_bytes = {"fp32": 4 * ncol, "bf16": 2 * ncol,
+                 "packed": sum(nb for _k, _kind, nb in _q_fields(cfg)) + 2}
+    data = FeatureDataset.from_tsv(tr, 21)
+    feats, labels, nv = next(iter(data.batches(512, True, np.random.RandomState(SEED),
+                                               pad_to=512)))
+    mask = np.zeros(512, np.float32)
+    mask[:nv] = 1.0
+    first, unpacked = {}, {}
+    for wire in ("fp32", "bf16", "packed"):
+        model = AttRNN(cfg)
+        model.load_state_dict(attrnn_state_dict_from_params(init_attrnn(SEED, cfg)))
+        model.cuda()
+        opt = build_optimizer("Adam", 1e-3)
+        opt.init(model.parameters())
+        step = make_train_step(model, opt, 1.0, torch.float32, wire)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        flat = torch.from_numpy(step.pack_batch(feats, labels, mask)).cuda()
+        assert flat.element_size() * flat.shape[1] == row_bytes[wire], wire
+        if wire != "fp32":
+            got_f, got_l, got_m = step.unpack(flat)
+            want_f, want_l, want_m = _wire_host_values(cfg, feats, labels, mask, wire)
+            differ = sorted(k for k in want_f if got_f[k].shape != want_f[k].shape
+                            or got_f[k].cpu().numpy().tobytes() != want_f[k].tobytes())
+            assert not differ, (wire, differ)
+            assert np.array_equal(got_l.cpu().numpy(), want_l), wire
+            assert got_m.cpu().numpy().tobytes() == want_m.tobytes(), wire
+            unpacked[wire] = {"channels_bit_equal": sorted(want_f), "labels_mask_equal": True}
+        first[wire] = step.packed(flat, gen).item()
+    res = {"phase": "transfer", "model": MODELS["gru"] + " 3x256", "batch": 512,
+           "row_bytes": row_bytes, "unpacked_vs_host": unpacked,
+           "first_step_loss": first, "tol": WIRE_TOL, "card": smi}
+    for wire in ("bf16", "packed"):
+        assert abs(first[wire] - first["fp32"]) <= WIRE_TOL, first
+        _zero_train_counts()
+        t0 = time.time()
+        cli.main(["train", "--train_file", tr, "--valid_file", va, "--model_dir",
+                  os.path.join(WORK, "wire_" + wire), "--device", "cuda",
+                  "--train_transfer", wire, "--max_epoch_num", str(epochs),
+                  "--min_epoch_num", str(epochs), "--step_interval", str(STEP_INTERVAL),
+                  "--tseed", str(SEED % 10000)])
+        torch.cuda.synchronize()
+        run = dict(LAST_RUN)
+        mine, other, _inf = _train_counts("gru")
+        steps = run["steps"]
+        assert mine["fwd"] == mine["bwd"] == 3 * steps > 0 == mine["plain"] + other, mine
+        assert mine["designs"] == {"tc": 0, "simt": 6 * steps}, mine
+        per_step = sum(2 + _bwd_cuda_launches(2 * 512, cin, torch.float32, "gru")
+                       for cin in (C, 2 * H, 2 * H))
+        assert mine["cuda_launches"] == per_step * steps, (mine, per_step)
+        assert np.all(np.isfinite(run["train_losses"] + run["valid_losses"])), run
+        assert run["best_accuracy"] >= 0.9, (wire, run["best_accuracy"])
+        res[wire] = {"steps": steps, "launches": mine,
+                     "best_accuracy": run["best_accuracy"],
+                     "train_losses": run["train_losses"], "wall_s": time.time() - t0,
+                     "samples_per_s_epoch": [steps / epochs * 512 / w
+                                             for w in run["epoch_wall_s"]]}
+    emit(res)
+    return res
+
+
+def _write_aggre_tsv(path, n, seed):
+    """Aggregate training windows (``scripts/generate_aggre_train_data.py``'s
+    AggreFeaData rows: chrom, pos, strand, offsets, 11 histograms of 20
+    bins ;-joined, coverages, label), simulated: the window's sites lie
+    1-60 bp apart (offsets: the distance to the centre site, as the
+    generator takes them); the centre's methylation level p is the label,
+    each neighbour's level is p moved by N(0, 0.15) (CpG methylation is
+    correlated over short distances), and each site's histogram holds ~33
+    reads' probabilities drawn around its level (HiFi's usual coverage)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    Lw, nb = AGGR_L, AGGR_C - 1
+    centres = np.arange(nb) / (nb - 1)
+    with open(path, "w") as f:
+        for i in range(n):
+            pos = np.cumsum(rng.randint(1, 60, Lw))
+            offsets = np.abs(pos - pos[Lw // 2])
+            p = rng.rand()
+            levels = np.clip(p + rng.randn(Lw) * 0.15, 0, 1)
+            levels[Lw // 2] = p
+            hist = np.stack([rng.multinomial(rng.randint(20, 46), w / w.sum())
+                             for w in np.exp(-((centres[None] - levels[:, None]) ** 2)
+                                             / 0.02)]).astype(np.float64)
+            hist = hist / np.maximum(np.linalg.norm(hist, axis=1, keepdims=True), 1.0)
+            f.write("\t".join([
+                "chrS", str(1000 + 10 * i), "+", ",".join(str(int(o)) for o in offsets),
+                ";".join(_csv6(row) for row in hist),
+                ",".join(str(c) for c in rng.randint(4, 40, Lw)),
+                "{:.4f}".format(p)]) + "\n")
+
+
+def phase_aggr_train(torch, smi):
+    """The aggregate trainer (``python -m
+    ccsmeth_tpu_torch.scripts.train_aggregate_model --device cuda``) for
+    attbigru (K4/K5) and attbilstm (K6) at the full width (1 x 32 over 11
+    windows of 20 bins + the offset, batch 512) on simulated windows: the
+    training kernels at H = 32 on every step (simt), K1 on every validation
+    batch, no plain run; the RMSE falls below the first epoch's; the best
+    .ckpt.npz runs in ``call_freqb --call_mode aggregate --device cuda`` on
+    the freq phase's modbam, through K1."""
+    import math
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.pipeline import call_freq_bam
+    from ccsmeth_tpu_torch.scripts import train_aggregate_model
+    from ccsmeth_tpu_torch.training.aggregate import LAST_RUN
+
+    d = os.path.join(WORK, "aggr_train")
+    os.makedirs(d, exist_ok=True)
+    tr, va = os.path.join(d, "train.tsv"), os.path.join(d, "valid.tsv")
+    if not (os.path.exists(tr) and os.path.exists(va)):
+        _write_aggre_tsv(tr, AGGR_TRAIN_ROWS, SEED + 5)
+        _write_aggre_tsv(va, AGGR_VALID_ROWS, SEED + 6)
+    bam, fasta = _freq_input()
+    tagged = os.path.join(WORK, "freq", "mods.hp.bam")
+    if not os.path.exists(tagged):  # the freq phase did not run (--only)
+        from ccsmeth_tpu_torch.models.params_io import save_params
+
+        ckpt = os.path.join(WORK, MODELS["gru"] + "_full.ckpt.npz")
+        save_params(ckpt, _config_params(MODELS["gru"])[1])
+        cli.main(["call_mods", "-i", bam, "-o", os.path.join(WORK, "freq", "mods"), "-m",
+                  ckpt, "--mode", "align", "--ref", fasta, "--device", "cuda"])
+        _hp_tagged(os.path.join(WORK, "freq", "mods.modbam.bam"), tagged)
+    res = {"phase": "aggr_train", "rows": {"train": AGGR_TRAIN_ROWS,
+                                           "valid": AGGR_VALID_ROWS},
+           "shape": {"NL": 1, "H": AGGR_H, "C": AGGR_C, "L": AGGR_L, "batch": 512},
+           "card": smi}
+    for cell, model_type in AGGR_CELLS.items():
+        _zero_train_counts()
+        t0 = time.time()
+        assert train_aggregate_model.main([
+            "--train_file", tr, "--valid_file", va, "--model_dir",
+            os.path.join(d, model_type), "--model_type", model_type, "--device", "cuda",
+            "--max_epoch_num", str(AGGR_EPOCHS), "--min_epoch_num", str(AGGR_EPOCHS),
+            "--tseed", str(SEED % 10000)]) == 0
+        torch.cuda.synchronize()
+        run = dict(LAST_RUN)
+        mine, other, inf = _train_counts(cell)
+        steps = run["steps"]
+        epochs = len(run["rmses"])
+        assert steps == epochs * math.ceil(AGGR_TRAIN_ROWS / 512), run
+        assert mine["fwd"] == mine["bwd"] == steps > 0 == mine["plain"] + other, mine
+        assert mine["designs"] == {"tc": 0, "simt": 2 * steps}, mine
+        assert inf["k1"] == epochs * math.ceil(AGGR_VALID_ROWS / 512) > 0, inf
+        assert inf["k1_plain"] == 0, inf
+        assert min(run["rmses"][1:]) < run["rmses"][0], run["rmses"]
+        npz = run["ckpts"][-1]
+        _zero_counts()
+        prefix = os.path.join(d, model_type + "_freq")
+        cli.main(["call_freqb", "-i", tagged, "--ref", fasta, "-o", prefix,
+                  "--call_mode", "aggregate", "-m", npz, "--model_type", model_type,
+                  "--device", "cuda"])
+        freq = dict(call_freq_bam.LAST_RUN)
+        counts = _all_counts()
+        assert freq["batches"] > 0 and counts["k1"] == freq["batches"], (freq, counts)
+        assert len(_freq_rows(prefix, "aggregate")["all"]) > 0
+        res[model_type] = {"steps": steps, "epochs": epochs, "launches": mine,
+                           "k1_validation_launches": inf["k1"], "rmses": run["rmses"],
+                           "best_rmse": run["best_rmse"], "best_epoch": run["best_epoch"],
+                           "epoch_wall_s": run["epoch_wall_s"],
+                           "wall_s": time.time() - t0,
+                           "call_freqb_sites": freq["sites"],
+                           "call_freqb_k1_calls": counts["k1"]}
+    emit(res)
+    return res
+
+
+def phase_wrappers():
+    """call_hifi and align_hifi through the port's CLI raise their named
+    errors: a bad input's ValueError, a missing file's IOError, and a
+    missing binary's RuntimeError on a real input (the card's machine has
+    no pbccs or aligner, so nothing is run)."""
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.utils.simulate import make_synth_bam, write_fasta
+
+    d = os.path.join(WORK, "wrappers")
+    os.makedirs(d, exist_ok=True)
+    bam, fasta = os.path.join(d, "x.subreads.bam"), os.path.join(d, "ref.fa")
+    refseq, _ = make_synth_bam(bam, n_reads=2, read_len=200, ref_len=2000, seed=SEED)
+    write_fasta(fasta, {"chrS": refseq})
+    cases = [(["call_hifi", "-i", "x.fastq"], ValueError, "bam format"),
+             (["call_hifi", "-i", os.path.join(d, "nope.bam")], IOError, "does not exist"),
+             (["call_hifi", "-i", bam, "--path_to_ccs", os.path.join(d, "no_ccs")],
+              RuntimeError, "ccs failed"),
+             (["align_hifi", "-i", "x.txt", "--ref", fasta], ValueError, "bam/sam/fastq"),
+             (["align_hifi", "-i", bam, "--ref", os.path.join(d, "nope.fa")], IOError,
+              "does not exist"),
+             (["align_hifi", "-i", bam, "--ref", fasta, "--path_to_pbmm2",
+               os.path.join(d, "no_pbmm2")], RuntimeError, "alignment failed")]
+    seen = []
+    for argv, exc, text in cases:
+        try:
+            cli.main(argv)
+        except exc as e:
+            assert text in str(e), (argv, e)
+            seen.append([argv[0], type(e).__name__, str(e)])
+        else:
+            raise AssertionError("{} did not raise".format(argv))
+    res = {"phase": "wrappers", "raised": seen}
     emit(res)
     return res
 
@@ -2026,13 +2725,50 @@ def main_ab(parent):
           "parent": os.path.abspath(parent), "card": smi, "ms": summary})
 
 
+def main_only(names):
+    """``--only a,b,...``: the card, the build, then only the named phases of
+    the one-card training paths (train_kernels_small, determinism, train1s,
+    train_te, transfer, aggr_train, wrappers), for a short call after a
+    change to one of them; prints no kernels line and no ok line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: torch.cuda.is_available() is False")
+    sys.path.insert(0, REPO)
+    smi = phase_card(torch)[0]
+    phase_build()
+    phases = {
+        "train_kernels_small": lambda: [
+            phase_train_kernels(torch, smi, cell, rows=512) for cell in MODELS] + [
+            phase_train_kernels(torch, smi, cell, cins=(AGGR_C,), rows=512,
+                                hidden=AGGR_H, seq_len=AGGR_L) for cell in MODELS],
+        "determinism": lambda: phase_determinism(torch, smi),
+        "train1s": lambda: [phase_train1s(torch, smi, cell, TRAIN1S_EPOCHS)
+                            for cell in MODELS],
+        "train_te": lambda: phase_train_te(torch, smi, TE_EPOCHS),
+        "transfer": lambda: phase_transfer(torch, smi, TRANSFER_EPOCHS),
+        "aggr_train": lambda: phase_aggr_train(torch, smi),
+        "wrappers": phase_wrappers}
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        sys.exit("unknown phases {}; known: {}".format(unknown, sorted(phases)))
+    for name in names:
+        t0 = time.time()
+        phases[name]()
+        log("phase {}: {:.1f} s".format(name, time.time() - t0))
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--time-tree":
         return _time_tree(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         return main_ab(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--train-digest":
+        return _train_digest(*sys.argv[2:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--only":
+        return main_only(sys.argv[2].split(","))
     if len(sys.argv) != 1:
-        sys.exit("usage: chip_smoke.py [--ab PARENT_TREE]")
+        sys.exit("usage: chip_smoke.py [--ab PARENT_TREE | --only PHASE,...]")
     if not os.path.isdir(os.path.join(REPO, "ccsmeth_tpu_torch")):
         sys.exit("chip_smoke.py: the ccsmeth_tpu_torch package is not beside "
                  "this script; run it from a checkout of the repository")
@@ -2043,8 +2779,16 @@ def main():
                  "smoke test needs a CUDA device")
     sys.path.insert(0, REPO)
     t_start = time.time()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name):  # the wall seconds since the last lap, under ``name``
+        now = time.time()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     smi, name = phase_card(torch)
     phase_build()
+    lap("card_build")
     k1_cells = {cell: phase_kernels(torch, smi, cell) for cell in MODELS}
     k3_cells = phase_k3_kernels(torch, smi)
     k3_l2 = phase_k3_l2(torch, smi, k3_cells)
@@ -2052,24 +2796,51 @@ def main():
     k2_cells = {cell: phase_k2_kernels(torch, smi, cell) for cell in MODELS}
     for cell in MODELS:
         phase_l2_kernels(torch, smi, cell)
+    lap("kernels_k1_k2_k3")
     t_cells = {cell: phase_train_kernels(torch, smi, cell) for cell in MODELS}
+    # the training kernels at the 1s families' shapes (one strand of batch
+    # 512) and at the aggregate trainer's (NL 1, H 32, C 21, L 11)
+    t1s_cells = {cell: phase_train_kernels(torch, smi, cell, rows=512) for cell in MODELS}
+    taggr_cells = {cell: phase_train_kernels(torch, smi, cell, cins=(AGGR_C,), rows=512,
+                                             hidden=AGGR_H, seq_len=AGGR_L)
+                   for cell in MODELS}
+    lap("train_kernels")
     for model_type in list(MODELS.values()) + [TRANSENC]:
         phase_model(torch, model_type)
     m2s2 = {cell: phase_model2s2(torch, smi, cell) for cell in MODELS}
+    lap("model")
     e2e = {cell: phase_e2e(torch, smi, MODELS[cell]) for cell in MODELS}
     e2e_k3 = phase_e2e(torch, smi, TRANSENC)
+    lap("e2e")
     freq = phase_freq(torch, smi)
+    lap("freq")
     text = phase_text(torch, smi, e2e["gru"]["tags"]["fp32"])
+    lap("text")
     e2e_k2 = {cell: phase_e2e_layer(torch, smi, MODELS[cell], e2e[cell]["tags"])
               for cell in MODELS}
     e2e2s2 = {cell: phase_e2e2s2(torch, smi, cell) for cell in MODELS}
     flags = phase_flags(torch, smi, e2e["gru"]["tags"]["fp32"])
+    lap("e2e_layer_2s2_flags")
     train_runs = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell])
                   for cell in MODELS}
-    train2s2 = {cell: phase_train(torch, smi, cell, TRAIN_EPOCHS[cell], MODELS2S2)
+    train2s2 = {cell: phase_train(torch, smi, cell, TRAIN2S2_EPOCHS[cell], MODELS2S2)
                 for cell in MODELS}
+    lap("train")
+    phase_determinism(torch, smi)
+    lap("determinism")
+    train1s = {cell: phase_train1s(torch, smi, cell, TRAIN1S_EPOCHS) for cell in MODELS}
+    lap("train1s")
+    train_te = phase_train_te(torch, smi, TE_EPOCHS)
+    lap("train_te")
+    transfer = phase_transfer(torch, smi, TRANSFER_EPOCHS)
+    lap("transfer")
+    aggr_train = phase_aggr_train(torch, smi)
+    lap("aggr_train")
+    phase_wrappers()
     for cell in MODELS:
         phase_profile(torch, smi, cell)
+    lap("wrappers_profile")
+    emit({"phase": "walls", "s": laps, "total_s": time.time() - t_start})
     k1_keys = ("rows", "C", "dtype", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                "bound_by", "max_abs_err_out", "max_abs_err_hn")
 
@@ -2106,6 +2877,7 @@ def main():
             if design == "simt":  # the train paths validate in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
                 entry["launches_train_path_2s2"] = train2s2[cell]["launches"]["k1"]
+                entry["launches_train_path_1s"] = train1s[cell]["k1_launches"]
                 entry["projection_source"] = SIMT_PROJECTION
                 if cell == "gru":
                     entry["launches_text_path"] = text[MODELS[cell]]["launches"]
@@ -2122,22 +2894,33 @@ def main():
             "projection_source": SIMT_PROJECTION,
             "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
             "launches": run["k1_calls"], "cuda_launches": run["cuda_launches"],
+            "launches_aggr_train": (
+                aggr_train[AGGR_CELLS[cell]]["k1_validation_launches"]
+                + aggr_train[AGGR_CELLS[cell]]["call_freqb_k1_calls"]),
             "max_abs_err": mc["max_abs_err"], "ms": mc["kernel_ms"],
             "plain_ms": mc["plain_ms"], "bound_ms": mc["bound_ms"],
             "bound_by": mc["bound_by"], "library_ms": mc["library_ms"],
             "phases_ms": mc["phases_ms"],
             "cell": "call_freqb aggregate {} 1x{} rows={} L={} C={} float32".format(
                 AGGR_CELLS[cell], AGGR_H, AGGR_ROWS, AGGR_L, AGGR_C)})
+    def calls(runs, key, design):
+        # each (launches, designs) pair is one run's own counters
+        return sum(_design_calls(la, de, key, design) for la, de in runs)
+
+    def both(r):  # a train phase's fp32 run and its bf16 steps
+        return [(r["launches"], r["k45_designs"]),
+                (r["bf16_launches"], r["bf16_launches"]["k45_designs"])]
+
+    def own(la):  # a run's counters from _train_counts
+        return la, la["designs"]
+
     for cell, kname, src, key, line in (
             ("gru", "bigru_train_fwd", "bigru_train.cu", "fwd", 31),
             ("gru", "bigru_train_bwd", "bigru_train.cu", "bwd", 63),
             ("lstm", "bilstm_train_fwd", "bilstm_train.cu", "fwd", 122),
             ("lstm", "bilstm_train_bwd", "bilstm_train.cu", "bwd", 167)):
         mine = [c for c in t_cells[cell] if c["name"] == kname]
-        run = train_runs[cell]
-        # simt: the fp32 train run; tc: its bf16 steps
-        for design, dname, launches in (("simt", "float32", run["launches"][key]),
-                                        ("tc", "bfloat16", run["bf16_launches"][key])):
+        for design, dname in (("simt", "float32"), ("tc", "bfloat16")):
             cells = [c for c in mine if c["design"] == design]
             # the main cell: layers 1 and 2 of the stack (C = 2H)
             mc = next(c for c in cells if c["C"] == 2 * H and c["dtype"] == dname)
@@ -2146,7 +2929,7 @@ def main():
                 "design": design, "cuda_launches_per_call": mc["cuda_launches_per_call"],
                 "source": "ccsmeth_tpu_torch/ops/csrc/" + src,
                 "replaces": "ccsmeth_tpu/ops/bigru_pallas_vjp.py:{}".format(line),
-                "launches": launches,
+                "launches": calls(both(train_runs[cell]), key, design),
                 "max_abs_err": max(c["max_abs_err_max"] for c in cells),
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
@@ -2161,8 +2944,24 @@ def main():
                                                  "bound_by", "max_abs_err_max")}
                               for c in m2s2[cell]["train"]
                               if c["name"] == kname and c["design"] == design],
-                "launches_2s2": (train2s2[cell]["launches"][key] if design == "simt"
-                                 else train2s2[cell]["bf16_launches"][key])})
+                "launches_2s2": calls(both(train2s2[cell]), key, design),
+                "cells_1s": [{k: c[k] for k in ("rows", "C", "dtype", "kernel_ms",
+                                                "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by", "max_abs_err_max")}
+                             for c in t1s_cells[cell]
+                             if c["name"] == kname and c["design"] == design],
+                "launches_1s": calls([own(train1s[cell]["launches"])], key, design),
+                "cells_aggr": [{k: c[k] for k in ("rows", "C", "H", "L", "dtype",
+                                                  "kernel_ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by",
+                                                  "max_abs_err_max")}
+                               for c in taggr_cells[cell]
+                               if c["name"] == kname and c["design"] == design],
+                "launches_aggr": calls([own(aggr_train[AGGR_CELLS[cell]]["launches"])],
+                                       key, design),
+                "launches_transfer": (calls([own(transfer[w]["launches"])
+                                             for w in ("bf16", "packed")], key, design)
+                                      if cell == "gru" else 0)})
     # K3: simt (fp32) and tc (bf16) on the main path; l2, which no model's
     # path takes (0 launches there), called directly
     for design, src, dname in (("simt", "transenc_simt.cu", "float32"),
@@ -2184,6 +2983,8 @@ def main():
             "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
             "library_ms": mc["library_ms"], "waves": mc.get("waves"),
             "launches_text_path": text[TRANSENC]["launches"] if design == "simt" else 0,
+            "launches_train_te": (sum(r["k3_launches"] for r in train_te.values())
+                                  if design == "simt" else 0),
             "cell": "{} rows={} {}".format(TRANSENC, ROWS[0], dname),
             "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by",

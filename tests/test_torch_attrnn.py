@@ -132,10 +132,12 @@ def test_bf16_forward_near_fp32():
 
 
 def test_unported_families_raise():
+    """Every family of the JAX package is ported (the single-strand ones
+    since they train under trainm); a model_type of none still raises."""
     with pytest.raises(NotImplementedError):
-        AttRNN(AttRNNConfig(model_type="attbilstm1s"))
+        AttRNN(AttRNNConfig(model_type="attbilstm3s"))
     with pytest.raises(NotImplementedError):
-        init_attrnn(0, AttRNNConfig(model_type="attbigru1s"))
+        init_attrnn(0, AttRNNConfig(model_type="attbigru3s"))
 
 
 LSTM = dict(CFG, model_type="attbilstm2s")

@@ -316,14 +316,18 @@ def test_call_mods_tsv_matches_jax(model_type, tmp_path):
 
 
 def test_unported_and_mismatched_requests_raise(tmp_path):
-    """The attbi*1s families stay unported; a 2s2 checkpoint without its
-    stds embeds under --is_stds yes is a shape mismatch."""
+    """A model_type of no family raises; call_mods refuses the attbi*1s
+    families, which only train/trainm take, as the JAX CLI offers them to
+    call_mods not at all; a 2s2 checkpoint without its stds embeds under
+    --is_stds yes is a shape mismatch."""
     from ccsmeth_tpu_torch.pipeline.call_mods import CallModsConfig, call_mods_bam
 
     with pytest.raises(NotImplementedError):
-        AttRNN(AttRNNConfig(model_type="attbigru1s"))
+        AttRNN(AttRNNConfig(model_type="attbigru3s"))
     with pytest.raises(NotImplementedError):
-        init_attrnn(0, AttRNNConfig(model_type="attbilstm1s"))
+        init_attrnn(0, AttRNNConfig(model_type="attbilstm3s"))
+    with pytest.raises(ValueError, match="train/trainm only"):
+        CallModsConfig(model_file="m.npz", model_type="attbigru1s").model_config()
     ckpt = str(tmp_path / "m.ckpt.npz")
     save_params(ckpt, init_attrnn(1, AttRNNConfig(**_cfg_kw("attbigru2s2", "default"))))
     cfg = CallModsConfig(model_file=ckpt, model_type="attbigru2s2", mode="align",

@@ -113,9 +113,9 @@ def test_unsupported_requests_raise(tmp_path, bad):
     elif bad == "gru_ckpt_as_lstm":  # 3H-row tensors where the LSTM has 4H
         kw["model_type"] = "attbilstm2s"
         err = ValueError
-    elif bad == "lstm_1s":
+    elif bad == "lstm_1s":  # a single-strand family: train/trainm only
         kw["model_type"] = "attbilstm1s"
-        err = NotImplementedError
+        err = ValueError
     else:  # a checkpoint without the stds embeds of --is_stds yes
         kw["model_type"] = "attbigru2s2"
         kw["is_stds"] = True

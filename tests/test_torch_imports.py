@@ -66,7 +66,8 @@ COPIES = ["utils/constants", "utils/codecs", "utils/logging", "utils/fasta",
           "bamio/bai", "bamio/native", "features/extract", "features/batch",
           "features/mp_extract", "pipeline/modbam", "models/config",
           "models/params_io", "training/data", "bamio/tabix",
-          "pipeline/call_freq_txt", "pipeline/extract"]
+          "pipeline/call_freq_txt", "pipeline/extract", "wrappers/__init__",
+          "wrappers/call_hifi", "wrappers/align_hifi"]
 
 
 @pytest.mark.parametrize("module", COPIES)
@@ -82,7 +83,9 @@ def test_copied_module_equals_the_jax_package_module(module):
                                     "training.train", "cli", "ops.bilstm_vjp",
                                     "ops.kernel_args", "ops.transenc",
                                     "models.transenc", "pipeline.call_freq_bam",
-                                    "pipeline.call_mods"])
+                                    "pipeline.call_mods", "training.aggregate",
+                                    "scripts.train_aggregate_model",
+                                    "wrappers.call_hifi", "wrappers.align_hifi"])
 def test_module_imports_first_in_a_fresh_interpreter(module):
     """No import cycle: each entry module imports on its own, first, and
     brings in no jax."""

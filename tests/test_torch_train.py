@@ -233,8 +233,9 @@ def test_step_fuse_matches_single_step(tmp_path):
     assert list(_fuse_schedule(20, 7, 3)) == [3, 3, 1, 3, 3, 1, 3, 3]
 
 
-@pytest.mark.parametrize("kw", [dict(model_type="attbilstm1s"),
-                                dict(train_transfer="packed"),
+@pytest.mark.parametrize("kw", [dict(model_type="attbilstm1s", num_processes=2),
+                                dict(train_transfer="packed",
+                                     dist_coordinator="localhost:1234"),
                                 dict(num_processes=2),
                                 dict(dist_coordinator="localhost:1234")])
 def test_unported_options_raise(kw, tmp_path):
