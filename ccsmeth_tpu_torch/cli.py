@@ -15,14 +15,16 @@ Usage:
     python -m ccsmeth_tpu_torch.cli call_mods -i features.tsv -o out \\
         -m model.npz [--device cuda|cpu]
     python -m ccsmeth_tpu_torch.cli call_freqb -i out.modbam.bam --ref ref.fa \\
-        -o freq [--call_mode aggregate -m aggr.npz --device cuda|cpu]
+        -o freq [--call_mode aggregate -m aggr.npz --device cuda|cpu] \\
+        [--num_processes N --process_id k [--dist_coordinator host:port]]
     python -m ccsmeth_tpu_torch.cli call_freqt -i out.per_readsite.tsv \\
         -o freq.txt
     python -m ccsmeth_tpu_torch.cli train --train_file train.tsv \\
         --valid_file valid.tsv --model_dir models [--device cuda|cpu] \\
         [--precision fp32|bf16] [--train_transfer fp32|bf16|packed] \\
         [--model_type attbilstm2s|attbigru2s2|attbilstm2s2|transencoder2s]
-    python -m ccsmeth_tpu_torch.cli trainm ... [--model_type attbigru1s|attbilstm1s]
+    python -m ccsmeth_tpu_torch.cli trainm ... [--model_type attbigru1s|attbilstm1s] \\
+        [--num_processes N --process_id k --dist_coordinator host:port]
     python -m ccsmeth_tpu_torch.cli call_hifi -i subreads.bam [-o hifi.bam]
     python -m ccsmeth_tpu_torch.cli align_hifi -i hifi.bam --ref ref.fa \\
         [--minimap2 | --bwa]
@@ -212,8 +214,9 @@ def main_align_hifi(args):
 
 
 def main_train(args):
-    """``train`` and ``trainm``: one process trains every family;
-    ``trainm --num_processes N`` (N > 1) or ``--dist_coordinator`` raises."""
+    """``train`` and ``trainm``: one process, or with ``trainm
+    --num_processes N --process_id k --dist_coordinator host:port`` rank k
+    of N (one a card)."""
     from .training import TrainConfig, train
 
     display_args(args)
@@ -300,7 +303,9 @@ def _add_train_args(p, model_types=MODEL_TYPES):
                         "this package, exists)")
     g.add_argument("--tseed", type=int, default=1234)
     g.add_argument("--device", type=str, default="cuda",
-                   help="cuda[:i] (default) or cpu; cuda without a GPU raises")
+                   help="cuda[:i] (default) or cpu; cuda without a GPU raises. "
+                        "A rank of trainm --num_processes N takes cuda:i as "
+                        "given, or for cuda card process_id modulo the cards")
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -343,7 +348,9 @@ def get_parser() -> argparse.ArgumentParser:
     _add_model_args(p)
     gc.add_argument("--batch_size", "-b", type=int, default=512)
     gc.add_argument("--device", type=str, default="cuda",
-                    help="cuda[:i] (default) or cpu; cuda without a GPU raises")
+                    help="cuda (default: every visible card, one model "
+                         "replica a card, each batch split among them), "
+                         "cuda:i (that card) or cpu; cuda without a GPU raises")
     gc.add_argument("--rnn_backend", type=str, default="xla",
                     choices=["xla", "pallas", "pallas_layer"],
                     help="RNN models: pallas_layer runs the BiRNN one "
@@ -473,14 +480,19 @@ def get_parser() -> argparse.ArgumentParser:
                         "raises. Count mode runs on the host only")
     gp = p.add_argument_group("SCALE-OUT")
     gp.add_argument("--num_processes", type=int, default=1,
-                    help="share-nothing scale-out: each process owns a slice "
-                         "of the genome chunk list; run one call_freqb per "
-                         "process with a distinct -o, then concatenate")
+                    help="scale-out process count. Without --dist_coordinator: "
+                         "share-nothing, each process owns a slice of the "
+                         "genome chunk list; run one call_freqb per process "
+                         "with a distinct -o, then concatenate. With it: the "
+                         "collective merge")
     gp.add_argument("--process_id", type=int, default=0,
                     help="this process's rank in [0, num_processes)")
     gp.add_argument("--dist_coordinator", type=str, default=None,
-                    help="collective merge across processes (not yet ported; "
-                         "raises)")
+                    help="host:port of rank 0 for a torch.distributed group: "
+                         "the ranks split the reads by qname hash, all-reduce "
+                         "the per-site counts (and histograms) of each chunk, "
+                         "and rank 0 alone runs the aggregate model and "
+                         "writes the output")
     p.set_defaults(func=main_call_freqb)
 
     p = sub.add_parser("extract", help="extract features from hifi reads")
@@ -498,21 +510,21 @@ def get_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=main_train)
 
     p = sub.add_parser("trainm", help="train a model, also the single-strand "
-                                      "families (one process; more are not "
-                                      "yet ported)")
+                                      "families, in one process or one a card")
     _add_train_args(p, MODEL_TYPES_TRAINM)
     g = p.add_argument_group("DISTRIBUTED")
     g.add_argument("--dist_coordinator", type=str, default=None,
-                   help="coordinator address host:port of a multi-process "
-                        "run (not yet ported; raises)")
+                   help="host:port of rank 0 for torch.distributed (rank 0 "
+                        "serves it); needed with --num_processes > 1")
     g.add_argument("--num_processes", type=int, default=1,
-                   help="total processes; more than 1 is not yet ported and "
-                        "raises")
+                   help="total processes, one a card (ranks host-major; "
+                        "with --device cuda rank k takes card k modulo the "
+                        "host's cards); the global batch is batch_size x N")
     g.add_argument("--process_id", type=int, default=0,
-                   help="this process's rank")
+                   help="this process's rank in [0, num_processes)")
     g.add_argument("--epoch_sync", action="store_true", default=False,
-                   help="[compat] one process holds the only copy of the "
-                        "params; no-op")
+                   help="[compat] every rank applies the same summed "
+                        "gradients every step; no-op")
     p.set_defaults(func=main_train)
     return parser
 

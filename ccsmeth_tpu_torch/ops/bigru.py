@@ -101,7 +101,7 @@ def _load_simt():
             lib = ctypes.CDLL(build(SIMT_SRC))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.birnn_simt_rec_launch.restype = i
-            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p]
+            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p, i]
             _simt_lib = lib
     return _simt_lib
 
@@ -113,9 +113,9 @@ def _load_tc():
             lib = ctypes.CDLL(build(TC_SRC))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.birnn_tc_proj_launch.restype = i
-            lib.birnn_tc_proj_launch.argtypes = [i] + [p] * 5 + [i] * 3 + [p]
+            lib.birnn_tc_proj_launch.argtypes = [i] + [p] * 5 + [i] * 3 + [p, i]
             lib.birnn_tc_rec_launch.restype = i
-            lib.birnn_tc_rec_launch.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
+            lib.birnn_tc_rec_launch.argtypes = [i] + [p] * 5 + [i] * 4 + [p, i]
             _tc_lib = lib
     return _tc_lib
 
@@ -128,11 +128,11 @@ def _load():
             fn = lib.bigru_stack_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_int])
             fn = lib.bigru_layer_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
-                           + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_int])
             _lib = lib
     return _lib
 
@@ -241,7 +241,7 @@ def _stack_l2(layers, x, compute_dtype, cell, H):
             _CELL_CODE[cell], DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), hn.data_ptr(), ctypes.addressof(wih),
             ctypes.addressof(bih), ctypes.addressof(whh), ctypes.addressof(bhh),
-            NL, L, N, C0, H, r, ty, stream)
+            NL, L, N, C0, H, r, ty, stream, x.device.index)
     if rc != 0:
         raise RuntimeError("bigru_stack launch failed: cudaError {}".format(rc))
     cuda_launches += 1
@@ -278,7 +278,7 @@ def tc_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = _load_tc().birnn_tc_proj_launch(
             _CELL_CODE[cell], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), xg.data_ptr(), M, K, H, stream)
+            b_hh.data_ptr(), xg.data_ptr(), M, K, H, stream, x.device.index)
     _launched("birnn_tc projection", rc, layer)
     return xg
 
@@ -298,7 +298,7 @@ def tc_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     with torch.cuda.device(xg.device):
         rc = _load_tc().birnn_tc_rec_launch(
             _CELL_CODE[cell], xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            out.data_ptr(), hn.data_ptr(), L, N, H, U, stream)
+            out.data_ptr(), hn.data_ptr(), L, N, H, U, stream, xg.device.index)
     _launched("birnn_tc recurrence", rc, layer)
     return out, hn
 
@@ -318,7 +318,7 @@ def simt_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = bigru_vjp._load().k4_proj_launch(
             DTYPE_CODE[x.dtype], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
-            b_hh.data_ptr(), xg.data_ptr(), M, K, G // ng, ng, stream)
+            b_hh.data_ptr(), xg.data_ptr(), M, K, G // ng, ng, stream, x.device.index)
     _launched("k4_proj_launch", rc, layer)
     return xg
 
@@ -340,7 +340,7 @@ def simt_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         rc = _load_simt().birnn_simt_rec_launch(
             _CELL_CODE[cell], DTYPE_CODE[w_hh.dtype], xg.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), out.data_ptr(), hn.data_ptr(), L, N, H, plan["U"],
-            plan["rows"], stream)
+            plan["rows"], stream, xg.device.index)
     _launched("birnn_simt recurrence", rc, layer)
     return out, hn
 
@@ -443,7 +443,7 @@ def _layer_l2(layer, x, compute_dtype, cell, H):
         rc = lib.bigru_layer_launch(
             _CELL_CODE[cell], DTYPE_CODE[compute_dtype], x.data_ptr(),
             out.data_ptr(), wih.data_ptr(), bih.data_ptr(), whh.data_ptr(),
-            bhh.data_ptr(), L, N, C, H, r, ty, stream)
+            bhh.data_ptr(), L, N, C, H, r, ty, stream, x.device.index)
     _launched("bigru_layer launch", rc, True)
     return out
 

@@ -95,12 +95,12 @@ def _load():
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             for name, args in (
-                    ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p]),
-                    ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p]),
-                    ("k5_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p]),
-                    ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p]),
-                    ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 6 + [p]),
-                    ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p])):
+                    ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p, i]),
+                    ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
+                    ("k5_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p, i]),
+                    ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p, i]),
+                    ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 6 + [p, i]),
+                    ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p, i])):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = args
@@ -325,7 +325,7 @@ def _launch(fn, plan, ref, *args, lib=None):
     global cuda_launches
     stream = torch.cuda.current_stream(ref.device).cuda_stream
     with torch.cuda.device(ref.device):
-        rc = getattr(lib or _load(), fn)(*args, stream)
+        rc = getattr(lib or _load(), fn)(*args, stream, ref.device.index)
     if rc != 0:
         raise RuntimeError("{} failed: cudaError {}".format(fn, rc))
     if plan["cell"] == "lstm":

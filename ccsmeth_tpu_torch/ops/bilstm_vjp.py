@@ -79,8 +79,8 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p]),
-                               ("k6_bwd_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p])):
+            for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
+                               ("k6_bwd_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i])):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = args

@@ -62,6 +62,7 @@
 //   returns cudaGetLastError() after the launch.
 
 #include "rnn_common.cuh"
+#include "entry_device.cuh"
 
 #define BIGRU_MAX_LAYERS 8
 
@@ -260,7 +261,8 @@ int bigru_stack_launch(int cell, int dtype, const void* x, void* out,
                        const uint64_t* bih, const uint64_t* whh,
                        const uint64_t* bhh, int NL, int L, int N, int C0,
                        int H, int rows_per_thread, int block_rows_y,
-                       void* stream) {
+                       void* stream, int device) {
+  USE_DEVICE(device);
   if (NL < 1 || NL > BIGRU_MAX_LAYERS ||
       bad_shape(cell, L, N, C0, H, block_rows_y))
     return (int)cudaErrorInvalidValue;
@@ -297,7 +299,8 @@ int bigru_stack_launch(int cell, int dtype, const void* x, void* out,
 int bigru_layer_launch(int cell, int dtype, const void* x, void* out,
                        const void* wih, const void* bih, const void* whh,
                        const void* bhh, int L, int N, int C, int H,
-                       int rows_per_thread, int block_rows_y, void* stream) {
+                       int rows_per_thread, int block_rows_y, void* stream, int device) {
+  USE_DEVICE(device);
   if (bad_shape(cell, L, N, C, H, block_rows_y))
     return (int)cudaErrorInvalidValue;
   StackParams p;

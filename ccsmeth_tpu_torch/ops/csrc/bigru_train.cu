@@ -90,6 +90,7 @@
 //   point makes one CUDA launch and returns cudaGetLastError() after it.
 
 #include "rnn_train_rec.cuh"
+#include "entry_device.cuh"
 
 extern "C" {
 
@@ -103,7 +104,9 @@ extern "C" {
 // z columns, all of the LSTM's). (The tc design runs K1-tc's projection
 // kernel, birnn_tc.cu's birnn_tc_proj_launch, for this.)
 int k4_proj_launch(int dtype, const void* x, const void* wih, const void* bih,
-                   const void* bhh, void* xg, int M, int C, int H, int ng, void* stream) {
+                   const void* bhh, void* xg, int M, int C, int H, int ng, void* stream,
+                   int device) {
+  USE_DEVICE(device);
   if (M < 1 || C < 1 || H < 1 || (ng != 3 && ng != 4)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bi = static_cast<const float*>(bih);
@@ -118,7 +121,9 @@ int k4_proj_launch(int dtype, const void* x, const void* wih, const void* bih,
 // K4 (b): from xg (2, L N, 3H) f32 to out (L, N, 2H) and gates (2, L, N, 4H)
 // in the store type; R rows a tile, clusters of H / U CTAs.
 int k4_rec_launch(int design, int dtype, const void* xg, const void* whh, const void* bhh,
-                  void* out, void* gates, int L, int N, int H, int U, int R, void* stream) {
+                  void* out, void* gates, int L, int N, int H, int U, int R, void* stream,
+                  int device) {
+  USE_DEVICE(device);
   FwdRecParams rp;
   rp.xg = static_cast<const float*>(xg);
   rp.whh = whh;
@@ -137,7 +142,8 @@ int k4_rec_launch(int design, int dtype, const void* xg, const void* whh, const 
 // rows a tile (tc: 32; simt: 8192 / H), clusters of H / U CTAs.
 int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
                   const void* gates, const void* whh, void* dxg, void* dhg, int L, int N,
-                  int H, int U, int R, void* stream) {
+                  int H, int U, int R, void* stream, int device) {
+  USE_DEVICE(device);
   BwdRecParams kp;
   kp.dout = dout;
   kp.out = out;
@@ -156,7 +162,8 @@ int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
 
 // dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T.
 int k5_dx_launch(int design, int dtype, const void* dxg, const void* wih, void* dx, int M,
-                 int C, int H, int ng, void* stream) {
+                 int C, int H, int ng, void* stream, int device) {
+  USE_DEVICE(device);
   if (M < 1 || C < 1 || H < 1 || (ng != 3 && ng != 4) || (design == 1 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -172,7 +179,8 @@ int k5_dx_launch(int design, int dtype, const void* dxg, const void* wih, void* 
 // result). dhg == dxg (K6's da): one bias sum, no db_hh slot.
 int k5_wgrad_launch(int design, int dtype, const void* x, const void* out, const void* dxg,
                     const void* dhg, void* part, int L, int N, int C, int H, int ng, int S,
-                    void* stream) {
+                    void* stream, int device) {
+  USE_DEVICE(device);
   if (L < 1 || N < 1 || C < 1 || H < 1 || S < 1 || (ng != 3 && ng != 4) ||
       (long long)L * N >= (1LL << 31) || (design == 1 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -188,7 +196,9 @@ int k5_wgrad_launch(int design, int dtype, const void* x, const void* out, const
 
 // The weight gradients' slices: grads[i] = sum over the S partials of
 // element i, in slice order (T floats a slice).
-int k5_sum_launch(const void* part, void* grads, long long T, int S, void* stream) {
+int k5_sum_launch(const void* part, void* grads, long long T, int S, void* stream,
+                  int device) {
+  USE_DEVICE(device);
   if (T < 1 || S < 2) return (int)cudaErrorInvalidValue;
   const long long blocks = (T + GM_THREADS - 1) / GM_THREADS;
   gemm_sum_slices<<<(int)(blocks < 4096 ? blocks : 4096), GM_THREADS, 0,

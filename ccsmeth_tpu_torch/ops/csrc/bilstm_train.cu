@@ -70,6 +70,7 @@
 //   point makes one CUDA launch and returns cudaGetLastError() after it.
 
 #include "rnn_train_rec.cuh"
+#include "entry_device.cuh"
 
 extern "C" {
 
@@ -80,7 +81,9 @@ extern "C" {
 // K6 forward (b): from xg (2, L N, 4H) f32 and W_hh (2, H, 4H) to out
 // (L, N, 2H), c (2, L, N, H) and gates (2, L, N, 4H) in the store type.
 int k6_rec_launch(int design, int dtype, const void* xg, const void* whh, void* out,
-                  void* cseq, void* gates, int L, int N, int H, int U, int R, void* stream) {
+                  void* cseq, void* gates, int L, int N, int H, int U, int R, void* stream,
+                  int device) {
+  USE_DEVICE(device);
   FwdRecParams rp;
   rp.xg = static_cast<const float*>(xg);
   rp.whh = whh;
@@ -99,7 +102,8 @@ int k6_rec_launch(int design, int dtype, const void* xg, const void* whh, void* 
 // rows a tile (tc: 32; simt: 8192 / H or a divisor of it).
 int k6_bwd_rec_launch(int design, int dtype, const void* dout, const void* cseq,
                       const void* gates, const void* whh, void* da, int L, int N, int H,
-                      int U, int R, void* stream) {
+                      int U, int R, void* stream, int device) {
+  USE_DEVICE(device);
   BwdRecParams kp;
   kp.dout = dout;
   kp.out = nullptr;  // the LSTM reads c_prev, not h_prev

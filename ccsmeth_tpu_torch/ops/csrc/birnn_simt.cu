@@ -42,6 +42,7 @@
 //   makes one CUDA launch and returns cudaGetLastError() after it.
 
 #include "rnn_train_rec.cuh"
+#include "entry_device.cuh"
 
 extern "C" {
 
@@ -51,7 +52,8 @@ extern "C" {
 // cudaError_t value.
 int birnn_simt_rec_launch(int cell, int dtype, const void* xg, const void* whh,
                           const void* bhh, void* out, void* hn, int L, int N, int H, int U,
-                          int R, void* stream) {
+                          int R, void* stream, int device) {
+  USE_DEVICE(device);
   FwdRecParams rp;
   rp.xg = static_cast<const float*>(xg);
   rp.whh = whh;

@@ -67,6 +67,7 @@
 //   point returns cudaGetLastError() after its launch.
 
 #include "mma_tile.cuh"
+#include "entry_device.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -460,7 +461,8 @@ extern "C" {
 // Returns 0 or a cudaError_t value.
 int birnn_tc_proj_launch(int cell, const void* x, const void* wih,
                          const void* bih, const void* bhh, void* xg, int M,
-                         int K, int H, void* stream) {
+                         int K, int H, void* stream, int device) {
+  USE_DEVICE(device);
   if ((cell != 0 && cell != 1) || M < 1 || K < 1 || H < 16 || H % 16 != 0)
     return (int)cudaErrorInvalidValue;
   ProjParams pp;
@@ -483,7 +485,8 @@ int birnn_tc_proj_launch(int cell, const void* x, const void* wih,
 // a cudaError_t value.
 int birnn_tc_rec_launch(int cell, const void* xg, const void* whh,
                         const void* bhh, void* out, void* hn, int L, int N,
-                        int H, int U, void* stream) {
+                        int H, int U, void* stream, int device) {
+  USE_DEVICE(device);
   if ((cell != 0 && cell != 1) || L < 1 || N < 1 || H < 16 || H % 16 != 0 ||
       (U != 16 && U != 32 && U != 64) || H % U != 0)
     return (int)cudaErrorInvalidValue;

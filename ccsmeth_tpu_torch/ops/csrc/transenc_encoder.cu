@@ -69,6 +69,7 @@
 //   point returns cudaGetLastError() after the launch.
 
 #include "rnn_common.cuh"
+#include "entry_device.cuh"
 
 #define ENC_THREADS 256
 #define ENC_WARPS (ENC_THREADS / 32)
@@ -355,7 +356,8 @@ int transenc_encoder_launch(int dtype, const void* x, void* out,
                             const void* ln1b, const void* ln2s,
                             const void* ln2b, int N, int L, int D, int NH,
                             int FF, int NL, int S, int R, int ld,
-                            void* stream) {
+                            void* stream, int device) {
+  USE_DEVICE(device);
   if (N < 1 || L < 1 || L > ENC_LMAX || D < 4 || D % 4 != 0 || NH < 1 ||
       D % NH != 0 || FF < 4 || FF % 4 != 0 || NL < 1 || S < 1 ||
       S * L > ENC_WARPS * R || ld < ENC_WARPS * R || ld % 2 != 0 ||

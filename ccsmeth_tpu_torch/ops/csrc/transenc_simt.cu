@@ -71,6 +71,7 @@
 //   point returns cudaGetLastError() after the launch.
 
 #include "mma_tile.cuh"
+#include "entry_device.cuh"
 
 #define TS_THREADS 256
 #define TS_ROWS 64
@@ -454,7 +455,8 @@ int transenc_simt_launch(const void* x, void* out, const void* wqkv,
                          const void* bqkv, const void* bo, const void* b1,
                          const void* b2, const void* ln1s, const void* ln1b,
                          const void* ln2s, const void* ln2b, int N, int L, int D,
-                         int NH, int FF, int NL, int S, void* stream) {
+                         int NH, int FF, int NL, int S, void* stream, int device) {
+  USE_DEVICE(device);
   const size_t smem = transenc_simt_smem(L, D, NH, FF);
   if (smem == 0 || N < 1 || NL < 1 || S < 1 || S * L > TS_ROWS)
     return (int)cudaErrorInvalidValue;

@@ -54,6 +54,7 @@
 //   point returns cudaGetLastError() after the launch.
 
 #include "mma_tile.cuh"
+#include "entry_device.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -372,7 +373,8 @@ int transenc_tc_launch(const void* x, void* out, const void* wqkv,
                        const void* bqkv, const void* bo, const void* b1,
                        const void* b2, const void* ln1s, const void* ln1b,
                        const void* ln2s, const void* ln2b, int N, int L, int D,
-                       int NH, int FF, int NL, int S, void* stream) {
+                       int NH, int FF, int NL, int S, void* stream, int device) {
+  USE_DEVICE(device);
   if (N < 1 || L < 1 || L > TE_LMAX || S < 1 || S * L > TE_ROWS || D < 32 ||
       D % 32 != 0 || FF < 32 || FF % 32 != 0 || NH < 1 || D % NH != 0 ||
       (D / NH) % 8 != 0 || NL < 1)

@@ -94,7 +94,8 @@ def _load_tc():
             lib = ctypes.CDLL(build(TC_SRC))
             fn = lib.transenc_tc_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p, ctypes.c_int])
             _tc_lib = lib
     return _tc_lib
 
@@ -106,7 +107,8 @@ def _load_simt():
             lib = ctypes.CDLL(build(SIMT_SRC))
             fn = lib.transenc_simt_launch
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p, ctypes.c_int])
             _simt_lib = lib
     return _simt_lib
 
@@ -119,7 +121,7 @@ def _load():
             fn = lib.transenc_encoder_launch
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
-                           + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_int])
             _lib = lib
     return _lib
 
@@ -299,7 +301,7 @@ def _launch(design, plan, stacked, x, compute_dtype, nhead, dims):
         fn = lib.transenc_tc_launch if design == "tc" else lib.transenc_simt_launch
         with torch.cuda.device(x.device):
             rc = fn(x.data_ptr(), out.data_ptr(), *ptrs, N, L, D, nhead, FF, NL,
-                    plan["S"], stream)
+                    plan["S"], stream, x.device.index)
     else:
         if L > LMAX or D % 4 != 0 or FF % 4 != 0:
             raise ValueError("kernel takes L <= 32 and D, FF multiples of 4 "
@@ -309,7 +311,7 @@ def _launch(design, plan, stacked, x, compute_dtype, nhead, dims):
         with torch.cuda.device(x.device):
             rc = lib.transenc_encoder_launch(
                 DTYPE_CODE[compute_dtype], x.data_ptr(), out.data_ptr(), *ptrs,
-                N, L, D, nhead, FF, NL, S, R, ld, stream)
+                N, L, D, nhead, FF, NL, S, R, ld, stream, x.device.index)
     if rc != 0:
         raise RuntimeError("transenc_{} launch failed: cudaError {}".format(design, rc))
     # every design is one CUDA launch

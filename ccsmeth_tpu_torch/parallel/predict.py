@@ -1,6 +1,12 @@
-"""The predict step on one GPU: feats dict -> softmax probs or ML bytes.
+"""The predict step on the local cards: feats dict -> softmax probs or ML
+bytes.
 
-Counterpart of ``ccsmeth_tpu/parallel/mesh.py:150 make_predict_fn``.
+Counterpart of ``ccsmeth_tpu/parallel/mesh.py:150 make_predict_fn``. Where
+the JAX package shards each batch over a ``('data',)`` mesh of every local
+device, the port keeps one model replica a device of an explicit list: each
+padded batch is split into equal row slices, one a replica, each run on its
+device's current stream, and the results are gathered in row order. One
+device (one card, ``cuda:k``, or the CPU) is one replica and one slice.
 
 Host side (numpy, as ``mesh.py:255-339``): only the active feature channels
 are kept (``_compact``) and packed into one contiguous byte row per site
@@ -24,6 +30,9 @@ card computes. ``dispatch_many`` is k such dispatches in a row.
 
 from __future__ import annotations
 
+import contextlib
+import copy
+
 import numpy as np
 import torch
 
@@ -43,36 +52,47 @@ def bf16_bits_np(a) -> np.ndarray:
 
 
 class _Pending:
-    """One dispatched batch: the result tensor (pinned host memory on CUDA),
-    the event behind its copy, and the pinned input kept until collect."""
+    """One dispatched batch: each replica's result tensor (pinned host memory
+    on CUDA) with the event behind its copy, in row order, and the pinned
+    input kept until collect."""
 
-    def __init__(self, result: torch.Tensor, event, keep):
-        self.result = result
-        self.event = event
+    def __init__(self, parts, keep):
+        self.parts = parts  # [(result, event or None)]
         self.keep = keep
 
     def get(self) -> np.ndarray:
-        if self.event is not None:
-            self.event.synchronize()
-        r = self.result
-        if r.dtype == torch.bfloat16:
-            # bf16 fetches surface as float32 to callers
-            r = r.float()
-        return r.numpy()
+        out = []
+        for r, event in self.parts:
+            if event is not None:
+                event.synchronize()
+            if r.dtype == torch.bfloat16:
+                # bf16 fetches surface as float32 to callers
+                r = r.float()
+            out.append(r.numpy())
+        return out[0] if len(out) == 1 else np.concatenate(out)
 
 
 def make_predict_fn(model, cfg, device="cuda", compute_dtype=torch.float32,
                     transfer_dtype: str = "fp32", kinetics_quant: str = "none",
                     fetch_mode: str = "probs"):
-    """Build the predict step for ``model`` (already on ``device``).
+    """Build the predict step for ``model`` (already on ``device``, or on the
+    first of ``device`` when it is a list of devices): one replica a
+    device, the first ``model`` itself, the others its copies.
 
     transfer_dtype: 'fp32' or 'bf16' wire type of the kinetics when
     kinetics_quant is 'none'; kinetics_quant 'int8' ships them as int8
     (standardized norms only). fetch_mode: 'probs' or 'mlbyte'.
     The returned callable has ``dispatch``/``dispatch_async``/
     ``dispatch_many``/``dispatch_many_async``/``collect``/``close`` as the
-    JAX package's does; ``n_batches`` counts dispatched batches."""
-    device = torch.device(device)
+    JAX package's does; ``n_batches`` counts dispatched batches and
+    ``replicas`` is the number of devices."""
+    devices = ([device] if isinstance(device, (str, torch.device)) else list(device))
+    devices = [torch.device(d) for d in devices]
+    if not devices or len({d.type for d in devices}) != 1:
+        raise ValueError("make_predict_fn needs devices of one type, got {}"
+                         .format(devices))
+    replicas = [model] + [copy.deepcopy(model).to(d) for d in devices[1:]]
+    device = devices[0]
     L = cfg.seq_len
     need_stds = getattr(cfg, "is_stds", False)
     need_sn = getattr(cfg, "is_sn", False)
@@ -170,7 +190,7 @@ def make_predict_fn(model, cfg, device="cuda", compute_dtype=torch.float32,
     def _dequant(v: torch.Tensor) -> torch.Tensor:
         return dequant_i8(v) if quant else v.float()
 
-    def _predict_impl(compact: dict, h0s=None) -> torch.Tensor:
+    def _predict_impl(model, compact: dict, h0s=None) -> torch.Tensor:
         B = compact["kmer"].shape[0]
         feats = {}
         for s in ("", "2"):
@@ -202,19 +222,32 @@ def make_predict_fn(model, cfg, device="cuda", compute_dtype=torch.float32,
             src = torch.from_numpy(_pack(compact))
         states = {k: torch.from_numpy(np.ascontiguousarray(feats[k], np.float32))
                   for k in _H0_KEYS if k in feats}
-        with torch.inference_mode():
-            dev = src.to(device, non_blocking=pinned)
-            h0s = {k: v.to(device) for k, v in states.items()} or None
-            res = _fetch_cast(_predict_impl(_unpack(dev), h0s))
-            event = None
-            if pinned:
-                host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
-                host.copy_(res, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                res = host
+        parts = []
+        # equal row slices, one a replica (sizes differ by at most one row
+        # when B is not a multiple of the replicas)
+        bounds = np.linspace(0, B, len(replicas) + 1).round().astype(int)
+        for rep, dev, lo, hi in zip(replicas, devices, bounds[:-1], bounds[1:]):
+            parts.append(_run_slice(rep, dev, src[lo:hi],
+                                    {k: v[:, lo:hi].contiguous()
+                                     for k, v in states.items()}))
         predict.n_batches += 1
-        return _Pending(res, event, src)
+        return _Pending(parts, src)
+
+    def _run_slice(rep, dev, rows: torch.Tensor, states: dict):
+        """One replica's rows on its device's current stream: (result, the
+        event behind its copy to pinned host memory, or None on the CPU)."""
+        on_dev = torch.cuda.device(dev) if pinned else contextlib.nullcontext()
+        with torch.inference_mode(), on_dev:
+            x = rows.to(dev, non_blocking=pinned)
+            h0s = {k: v.to(dev) for k, v in states.items()} or None
+            res = _fetch_cast(_predict_impl(rep, _unpack(x), h0s))
+            if not pinned:
+                return res, None
+            host = torch.empty(res.shape, dtype=res.dtype, pin_memory=True)
+            host.copy_(res, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+        return host, event
 
     def dispatch_many(feats_list) -> list:
         """k batches, dispatched one after the other; collect stacks them."""
@@ -229,6 +262,7 @@ def make_predict_fn(model, cfg, device="cuda", compute_dtype=torch.float32,
         return collect(dispatch(feats))
 
     predict.n_batches = 0
+    predict.replicas = len(replicas)
     predict.dispatch = dispatch
     # packing is host work and launches are asynchronous already, so the
     # async forms are the plain ones

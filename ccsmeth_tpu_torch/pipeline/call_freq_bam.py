@@ -17,8 +17,12 @@ Aggregate mode runs the AggrAttRNN regressor in padded batches of 1024 rows on
 one device, its BiRNN through kernel K1 on the card (the reference reloads the
 torch model per region and runs CPU minibatches of 1024, lines 308-342).
 
-Not ported yet: the collective --dist_coordinator merge (it raises); the
-share-nothing --num_processes N --process_id k split is ported.
+With --dist_coordinator the ranks form a torch.distributed group
+(``parallel/distributed.py``; the host's ``gloo`` in count mode, which
+runs on the host, and the rule's backend on the ranks' cards in aggregate
+mode), split the reads by qname hash and all-reduce each active chunk's
+per-site tables (``_dist_emit_chunks``); rank 0 alone runs the model and
+writes.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..bamio import BamReader
 from ..models import (AggrAttRNN, AggrConfig, aggr_state_dict_from_params,
                       torch_ckpt_to_params)
 from ..models.params_io import load_params
+from ..parallel import distributed
 from ..utils.codecs import (
     aligned_pairs_from_cigar,
     complement_seq,
@@ -97,10 +102,15 @@ class FreqBamConfig:
     sort: bool = False
     gzip: bool = False
     threads: int = 5
-    # multi-process scale-out, share-nothing: each process owns a disjoint
-    # round-robin slice of the genome chunk list (parallel/distributed.py) and
-    # writes its own output prefix; concatenate shards afterwards. The
-    # collective --dist_coordinator merge is not ported yet (it raises)
+    # multi-process scale-out. Without --dist_coordinator: share-nothing — each
+    # process owns a disjoint round-robin slice of the genome chunk list
+    # (parallel/distributed.py) and writes its own output prefix; concatenate
+    # shards afterwards (scripts/combine_call_mods_freq_files.py). With
+    # --dist_coordinator: collective — processes form one torch.distributed
+    # group, split the READ stream by stable qname hash, all-reduce per-chunk
+    # per-site count/histogram tensors, and rank 0 writes the single merged
+    # output (replaces the reference's share-nothing freq workers,
+    # call_mods_freq_bam.py:597-677)
     num_processes: int = 1
     process_id: int = 0
     dist_coordinator: str | None = None
@@ -656,6 +666,91 @@ def _pop_chunk_tables(accs: dict, ref_name: str, ref_start: int, ref_end: int,
     return _combine_cg_tables(refposinfo, refposinfo_rev, combine)
 
 
+def _dist_emit_chunks(cfg: FreqBamConfig, accs: dict, sorted_acc: dict,
+                      ref_chunks: list, combine: bool,
+                      aggr: "AggrPredictor | None", emit_rows) -> None:
+    """Collective per-chunk frequency merge (--dist_coordinator mode).
+
+    Two all-reduces per active chunk (``psum_site_counts``), both with
+    rank-identical shapes:
+    1. a flat [max_span*2, 1] (position, strand) PRESENCE vector — its global
+       sum gives every rank the same ordered list of occupied sites (CpG sites
+       are a few % of positions, so shipping dense per-site STATS would be
+       ~25-50x the necessary bytes in aggregate mode);
+    2. a site-PACKED [n_sites_padded, 3 hap-groups * K] stats table (K = 3
+       counts [+ bin_size histogram bins in aggregate mode]), padded to
+       power-of-two buckets of at least 256 rows (O(log) distinct shapes, as
+       the JAX package's compiled psum has).
+    Rank 0 turns merged tables into bedMethyl rows. One up-front presence
+    all-reduce lets all ranks skip empty chunks consistently. Collective-order
+    safety: every rank iterates the same chunk list and issues the same
+    all-reduce sequence with the same shapes (site lists and pad buckets
+    derive from collective results, never from local data).
+    """
+    psum_site_counts = distributed.psum_site_counts
+    is_main = distributed.rank == 0
+    want_hist = cfg.call_mode == "aggregate"
+    K = 3 + (cfg.bin_size if want_hist else 0)
+    # +1: CG-straddle boundary fix can extend a chunk by one base;
+    # +1: combining can land a row at ref_start-1 (index 0)
+    max_span = cfg.chunk_len + 2
+
+    # presence from the accumulator index spans alone — building the per-chunk
+    # site tables here would hold every chunk's table (and, with CG combining,
+    # a second copy of the whole accumulator) in memory for the entire emit
+    # loop; only one chunk's table is ever needed at a time (built below)
+    presence = np.zeros((len(ref_chunks), 1), np.float32)
+    for i, (contig, s, e) in enumerate(ref_chunks):
+        if contig in sorted_acc:
+            fwd_pos, rev_pos = sorted_acc[contig]
+            fs, fe = np.searchsorted(fwd_pos, [s, e])
+            rs, re_ = np.searchsorted(rev_pos, [s, e])
+            presence[i, 0] = (fe - fs) + (re_ - rs)
+    active = psum_site_counts(presence)[:, 0] > 0
+
+    for i, (contig, s, e) in enumerate(ref_chunks):
+        if not active[i]:
+            continue
+        tables = _chunk_site_tables(accs, sorted_acc, contig, s, e, combine)
+        stats_by_strand = [
+            site_stats_from_modinfo(t, cfg, want_hist) if t else {}
+            for t in tables
+        ]
+        # all-reduce 1: global (position, strand) presence -> shared site list
+        pres = np.zeros((max_span * 2, 1), np.float32)
+        for strand_idx, stats in enumerate(stats_by_strand):
+            for pos in stats:
+                pres[(pos - s + 1) * 2 + strand_idx, 0] = 1.0
+        flat_sites = np.nonzero(psum_site_counts(pres)[:, 0] > 0)[0]
+        n_sites = len(flat_sites)
+        padded = max(256, 1 << (n_sites - 1).bit_length())
+        # all-reduce 2: packed per-site stats at the shared site order
+        local = np.zeros((padded, 3 * K), np.float32)
+        row_of = {int(f): r for r, f in enumerate(flat_sites)}
+        for strand_idx, stats in enumerate(stats_by_strand):
+            for pos, (counts, hist) in stats.items():
+                row = local[row_of[(pos - s + 1) * 2 + strand_idx]]
+                row = row.reshape(3, K)
+                row[:, :3] = counts
+                if want_hist:
+                    row[:, 3:] = hist
+        merged = psum_site_counts(local)
+        if not is_main:
+            continue
+        merged = merged[:n_sites].reshape(n_sites, 3, K)
+        for strand_idx, strand_char in ((0, "+"), (1, "-")):
+            site_stats = {}
+            for r in np.nonzero(flat_sites % 2 == strand_idx)[0]:
+                m = merged[r]
+                counts = np.rint(m[:, :3]).astype(np.int64)
+                hist = np.rint(m[:, 3:]).astype(np.int64) if want_hist else None
+                pos = int(s - 1 + flat_sites[r] // 2)
+                site_stats[pos] = (counts, hist)
+            if site_stats:
+                emit_rows(call_modfreq_from_stats(site_stats, cfg, aggr),
+                          contig, strand_char)
+
+
 def _write_one_line(beditem, wf, is_bed):
     ref_name, refpos, strand, cov, met, metprob = beditem
     if is_bed:
@@ -670,7 +765,21 @@ def _write_one_line(beditem, wf, is_bed):
 
 
 def call_mods_frequency_from_bamfile(cfg: FreqBamConfig) -> list[str]:
-    """Run call_freqb; returns the list of written output paths."""
+    """Run call_freqb; returns the list of written output paths (none on the
+    ranks other than 0 of a --dist_coordinator group, which this process
+    joins and leaves)."""
+    if cfg.dist_coordinator is not None and cfg.num_processes > 1:
+        distributed.init_multihost(
+            cfg.dist_coordinator, cfg.num_processes, cfg.process_id,
+            cfg.device if cfg.call_mode == "aggregate" else "cpu")
+        try:
+            return _call_mods_frequency(cfg)
+        finally:
+            distributed.teardown()
+    return _call_mods_frequency(cfg)
+
+
+def _call_mods_frequency(cfg: FreqBamConfig) -> list[str]:
     t0 = time.time()
     if not cfg.input_bam.endswith(".bam"):
         raise ValueError("--input_bam not a bam file!")
@@ -686,18 +795,30 @@ def call_mods_frequency_from_bamfile(cfg: FreqBamConfig) -> list[str]:
         LOGGER.info("[###] --refsites_only/--refsites_all: keeping only reference "
                     "%s sites", motifs_filter)
 
-    if cfg.dist_coordinator is not None:
-        raise NotImplementedError("--dist_coordinator (the collective count "
-                                  "merge) is not yet ported")
+    dist = cfg.dist_coordinator is not None and cfg.num_processes > 1
+    if cfg.dist_coordinator is not None and cfg.num_processes <= 1:
+        # silently falling back would make N ranks each run a FULL
+        # single-process scan onto the same output prefix
+        raise ValueError("--dist_coordinator requires --num_processes > 1 "
+                         "(got {})".format(cfg.num_processes))
     if cfg.num_processes > 1 and not 0 <= cfg.process_id < cfg.num_processes:
         raise ValueError("--process_id must be in [0, num_processes)")
+    is_main = distributed.rank == 0
     aggr = None
-    if cfg.call_mode == "aggregate":
-        aggr = AggrPredictor(cfg)
+    if cfg.call_mode == "aggregate" and (not dist or is_main):
+        # dist mode: only rank 0 computes rows, on its own card
+        aggr = AggrPredictor(dataclasses.replace(cfg, device=str(distributed.device))
+                             if dist else cfg)
     ref_chunks = get_reference_chunks(dnacontigs, cfg.contigs, cfg.chunk_len, cfg.motifs)
     owned_regions = None
     read_shard = None
-    if cfg.num_processes > 1:
+    if dist:
+        # collective mode: shard the READ stream; all ranks keep the full chunk
+        # list (they must issue the same all-reduce sequence)
+        read_shard = (cfg.process_id, cfg.num_processes)
+        LOGGER.info("dist process %d/%d: read-sharded scan + all-reduce merge",
+                    cfg.process_id, cfg.num_processes)
+    elif cfg.num_processes > 1:
         from ..parallel.distributed import partition_chunks
 
         ref_chunks = partition_chunks(ref_chunks, cfg.process_id, cfg.num_processes)
@@ -747,17 +868,20 @@ def call_mods_frequency_from_bamfile(cfg: FreqBamConfig) -> list[str]:
     # freed, so read-level memory is O(active window), not O(genome x coverage)
     # — the scalability equivalent of the reference's per-region BAI fetching.
     # Rows are assembled in ref_chunks order afterwards, so outputs are
-    # bit-identical to the full-scan path.
+    # bit-identical to the full-scan path. dist mode keeps the full scan (all
+    # ranks must issue one identical all-reduce sequence after the pass).
+    streaming = False
     sorted_hdr = False
-    hdr_reader = BamReader(cfg.input_bam)
-    # parse the @HD line's SO: field only — a @PG/@CO line mentioning
-    # "SO:coordinate" must not enable streaming on an unsorted file
-    for hline in hdr_reader.header.text.splitlines():
-        if hline.startswith("@HD"):
-            sorted_hdr = "SO:coordinate" in hline.split("\t")
-            break
-    hdr_reader.close()
-    streaming = sorted_hdr
+    if not dist:
+        hdr_reader = BamReader(cfg.input_bam)
+        # parse the @HD line's SO: field only — a @PG/@CO line mentioning
+        # "SO:coordinate" must not enable streaming on an unsorted file
+        for hline in hdr_reader.header.text.splitlines():
+            if hline.startswith("@HD"):
+                sorted_hdr = "SO:coordinate" in hline.split("\t")
+                break
+        hdr_reader.close()
+        streaming = sorted_hdr
     # BAI-scoped read access (reference behavior: fetch-per-region,
     # call_mods_freq_bam.py:600-614): when the run only touches a subset of
     # the genome — --contigs, or share-nothing chunk ownership — and the BAM
@@ -766,7 +890,7 @@ def call_mods_frequency_from_bamfile(cfg: FreqBamConfig) -> list[str]:
     # share-nothing ranks must not race to build the same .bai. Scope already
     # bounds memory, so this takes precedence over streaming.
     scoped_regions = None
-    if sorted_hdr and os.path.exists(cfg.input_bam + ".bai"):
+    if sorted_hdr and not dist and os.path.exists(cfg.input_bam + ".bai"):
         if owned_regions is not None:
             scope = {c: sp for c, sp in owned_regions.items() if sp}
         elif cfg.contigs:
@@ -840,15 +964,33 @@ def call_mods_frequency_from_bamfile(cfg: FreqBamConfig) -> list[str]:
             rev_pos = np.fromiter(acc.rev.keys(), np.int64, len(acc.rev))
             rev_pos.sort()
             sorted_acc[contig] = (fwd_pos, rev_pos)
-        for ref_name, ref_start, ref_end in ref_chunks:
-            refposinfo, refposinfo_rev = _chunk_site_tables(
-                accs, sorted_acc, ref_name, ref_start, ref_end, combine)
-            if refposinfo:
-                emit_rows(call_modfreq_of_one_region(refposinfo, cfg, aggr),
-                          ref_name, "+")
-            if refposinfo_rev:
-                emit_rows(call_modfreq_of_one_region(refposinfo_rev, cfg, aggr),
-                          ref_name, "-")
+        if dist:
+            _dist_emit_chunks(cfg, accs, sorted_acc, ref_chunks, combine, aggr,
+                              emit_rows)
+        else:
+            for ref_name, ref_start, ref_end in ref_chunks:
+                refposinfo, refposinfo_rev = _chunk_site_tables(
+                    accs, sorted_acc, ref_name, ref_start, ref_end, combine)
+                if refposinfo:
+                    emit_rows(call_modfreq_of_one_region(refposinfo, cfg, aggr),
+                              ref_name, "+")
+                if refposinfo_rev:
+                    emit_rows(call_modfreq_of_one_region(refposinfo_rev, cfg,
+                                                         aggr),
+                              ref_name, "-")
+
+    LAST_RUN.clear()
+    LAST_RUN.update(sites=len(bed_all), rows=aggr.rows if aggr else 0,
+                    batches=aggr.batches if aggr else 0,
+                    world=distributed.world, backend=distributed.backend,
+                    allreduce_calls=distributed.allreduce_calls,
+                    allreduce_bytes=distributed.allreduce_bytes,
+                    allreduce_seconds=distributed.allreduce_seconds)
+    if dist and not is_main:
+        LAST_RUN.update(seconds=time.time() - t0)
+        LOGGER.info("[main]call_freq_bam rank %d done (rank 0 writes) in %.1f "
+                    "seconds", cfg.process_id, time.time() - t0)
+        return []
     fext = "bed" if cfg.bed else "freq.txt"
     outputs = []
     for tag, items in (("all", bed_all), ("hp1", bed_hp1), ("hp2", bed_hp2)):
@@ -879,8 +1021,6 @@ def call_mods_frequency_from_bamfile(cfg: FreqBamConfig) -> list[str]:
             except Exception:  # noqa: BLE001
                 LOGGER.warning("failed tabix-indexing %s", path)
         outputs.append(path)
-    LAST_RUN.clear()
-    LAST_RUN.update(sites=len(bed_all), rows=aggr.rows if aggr else 0,
-                    batches=aggr.batches if aggr else 0, seconds=time.time() - t0)
+    LAST_RUN.update(seconds=time.time() - t0)
     LOGGER.info("[main]call_freq_bam costs %.1f seconds", time.time() - t0)
     return outputs

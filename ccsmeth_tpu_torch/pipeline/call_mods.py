@@ -1,5 +1,5 @@
 """call_mods: BAM/SAM -> modbam with MM/ML tags, or a features TSV ->
-per_readsite TSV, on one GPU.
+per_readsite TSV, on the local GPUs.
 
 Counterpart of ``ccsmeth_tpu/pipeline/call_mods.py`` (``call_mods_bam :378``,
 ``call_mods_txt :736``). The BAM path is the same threaded pipeline around one
@@ -20,7 +20,11 @@ single run's; ``--h0_mode randn`` replays the reference's per-forward
 ``torch.randn`` initial states (``_make_h0_stream``), which the model runs
 through the plain BiRNN, since K1 and K2 are zero-h0; ``--profile_dir``
 writes a ``torch.profiler`` trace of the dispatch loop
-(``utils/observe.py::device_trace``).
+(``utils/observe.py::device_trace``). ``--device cuda`` runs one model
+replica on every visible card, each batch split among them
+(``predict_devices``), with batches padded to a multiple of the replicas
+(``pad_rows``) as the JAX package pads them to its devices; ``cuda:k`` pins
+one card.
 """
 
 from __future__ import annotations
@@ -180,6 +184,23 @@ def resolve_device(name: str) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError("--device must be cuda[:i] or cpu, got {}".format(name))
     return dev
+
+
+def predict_devices(name: str) -> list[torch.device]:
+    """The devices of the predict step: every visible card for plain
+    ``cuda`` (one model replica a card, as the JAX package's ``data_mesh()``
+    spans every local device), the one card of ``cuda:k``, or the CPU."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def pad_rows(batch_size: int, n_dev: int) -> int:
+    """Rows of a padded batch: ``batch_size`` rounded down to a multiple of
+    the replicas, at least one row each (``ccsmeth_tpu/pipeline/
+    call_mods.py:396-397``)."""
+    return max(batch_size, n_dev) // n_dev * n_dev
 
 
 def load_model_params(model_file: str, model_cfg) -> dict:
@@ -377,18 +398,19 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
         raise ValueError("--transfer_quant int8 requires a standardized "
                          "normalization (--norm zscore or mad)")
     _check_options(cfg)
-    device = resolve_device(cfg.device)
+    devices = predict_devices(cfg.device)
+    device = devices[0]
     model_cfg = cfg.model_config()
     params = load_model_params(cfg.model_file, model_cfg)
     model = build_model(params, model_cfg, device, cfg.rnn_backend)
     predict = make_predict_fn(
-        model, model_cfg, device,
+        model, model_cfg, devices,
         compute_dtype=torch.bfloat16 if cfg.precision == "bf16" else torch.float32,
         transfer_dtype=cfg.precision,
         kinetics_quant=cfg.resolved_transfer_quant(),
         fetch_mode=cfg.resolved_fetch_mode())
     h0_draw = _h0_stream_for(cfg, model_cfg)
-    pad_n = cfg.batch_size
+    pad_n = pad_rows(cfg.batch_size, len(devices))
 
     dnacontigs = None
     if cfg.mode == "align":
@@ -636,6 +658,7 @@ def call_mods_bam(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     LAST_RUN.clear()
     LAST_RUN.update(reads=stats.reads_in, reads_tagged=stats.reads_tagged,
                     sites=stats.sites, batches=predict.n_batches,
+                    replicas=predict.replicas, pad_n=pad_n,
                     seconds=time.time() - t_start)
     LOGGER.info(
         "call_mods finished: %d reads in (%d failed), %d sites, %d written (%d tagged),"
@@ -725,7 +748,8 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     t_start = time.time()
     out_path = output_prefix + ".per_readsite.tsv"
     _check_options(cfg)
-    device = resolve_device(cfg.device)
+    devices = predict_devices(cfg.device)
+    device = devices[0]
     model_cfg = cfg.model_config()
     params = load_model_params(cfg.model_file, model_cfg)
     model = build_model(params, model_cfg, device, cfg.rnn_backend)
@@ -734,12 +758,12 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     # is honored (the caller knows their features are standardized)
     tq = "none" if cfg.transfer_quant == "auto" else cfg.transfer_quant
     predict = make_predict_fn(
-        model, model_cfg, device,
+        model, model_cfg, devices,
         compute_dtype=torch.bfloat16 if cfg.precision == "bf16" else torch.float32,
         kinetics_quant=tq)
     fuser = _FusedDispatcher(predict, cfg.dispatch_fuse)
     h0_draw = _h0_stream_for(cfg, model_cfg)
-    pad_n = cfg.batch_size
+    pad_n = pad_rows(cfg.batch_size, len(devices))
     holeids_e = _get_holes(cfg.holeids_e) if cfg.holeids_e else None
     holeids_ne = _get_holes(cfg.holeids_ne) if cfg.holeids_ne else None
     shard = _shard_for(cfg)
@@ -774,6 +798,7 @@ def call_mods_txt(cfg: CallModsConfig, input_path: str, output_prefix: str) -> s
     predict.close()
     LAST_RUN.clear()
     LAST_RUN.update(sites=n_sites, batches=predict.n_batches,
+                    replicas=predict.replicas, pad_n=pad_n,
                     seconds=time.time() - t_start)
     return out_path
 

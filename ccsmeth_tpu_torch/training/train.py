@@ -1,8 +1,7 @@
-"""Training loop on one GPU (or the CPU, when asked).
+"""Training loop on one GPU (or the CPU, when asked), or across ranks.
 
-Counterpart of ``ccsmeth_tpu/training/train.py`` for one device: no mesh, no
-``shard_map`` and no collectives. The model is ``AttRNN`` (attbigru2s,
-attbilstm2s, the embedded-kinetics attbigru2s2 and attbilstm2s2, or the
+Counterpart of ``ccsmeth_tpu/training/train.py``. The model is ``AttRNN``
+(attbigru2s, attbilstm2s, the embedded-kinetics attbigru2s2 and attbilstm2s2, or the
 single-strand attbigru1s and attbilstm1s, whose rows are one strand) or
 ``TransEnc`` (transencoder2s). The BiRNN trains through kernels K4/K5
 (``ops/bigru_vjp.py``, GRU) or K6 (``ops/bilstm_vjp.py``, LSTM) on CUDA and
@@ -37,11 +36,33 @@ package's ``.ckpt.npz`` params format, so either package loads the other's.
 a group of k batches into one pinned host array and one copy to the device,
 and the k steps then run one after another (the same numbers as k single
 steps, as in JAX).
+
+Across processes (``--num_processes N --dist_coordinator host:port``, one
+rank a card, ``parallel/distributed.py``) the loop keeps the JAX package's
+multi-process semantics (``train.py:623-633, 729-770`` there): every rank
+trains on ``batch_size`` rows of its shard of the loader (every N-th batch,
+tail dropped), so the global batch is ``batch_size * N`` and every rank runs
+``len(train) // (batch_size * N)`` steps an epoch. The loss is normalized by
+the global weight sum, all-reduced before the backward; the gradients, taken
+with ``torch.autograd.grad``, are flattened in the order of
+``model.parameters()`` and summed with the step's loss in one all-reduce,
+then clipped and applied, as JAX's ``psum`` of loss and grads. There is no
+``DistributedDataParallel``: its reducer hooks ``.backward()``, which this
+step does not call, and it averages where JAX sums. Rank 0's parameters and
+optimizer state are broadcast once at the start. The ``SrcEmbed``
+BatchNorms see each rank's local batch, as each device shard does under
+JAX's ``shard_map``. Each rank draws its dropout from its own generator,
+seeded from (tseed, rank); the draws differ from JAX's ``fold_in`` stream
+in any case. Validation sums each batch's [loss numerator, weight sum, n,
+correct, tp, fp, fn] over the ranks in one all-reduce a sweep, so every rank
+derives the same metrics and takes the same checkpoint and early-stop
+decisions; only rank 0 writes files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import re
 import threading
@@ -57,6 +78,7 @@ from ..models import (AttRNN, AttRNNConfig, TransEnc, TransEncConfig,
 from ..models.attrnn import PORTED
 from ..models.convert import gc_dims, torch_ckpt_to_params
 from ..models.params_io import load_params, save_params
+from ..parallel import distributed
 from ..pipeline.call_mods import resolve_device
 from ..utils.logging import mylogger
 from ..utils.wirefmt import (dequant_i8, pack_kmer4_np, pack_u16_np, quant_i8_np,
@@ -115,7 +137,7 @@ class TrainConfig:
     rnn_backend: str = "xla"  # flag parity: every value trains through K4/K5/K6
     precision: str = "fp32"  # fp32 | bf16 (operand type of the products)
     train_transfer: str = "fp32"  # fp32 | bf16 | packed: the train batch's wire
-    dist_coordinator: str | None = None  # trainm across processes: not ported
+    dist_coordinator: str | None = None  # host:port of rank 0 (trainm across processes)
     num_processes: int = 1
     process_id: int = 0
     device: str = "cuda"
@@ -135,12 +157,11 @@ class TrainConfig:
             is_map=self.is_map, is_stds=self.is_stds, model_type=self.model_type)
 
 
-def _check_unported(cfg: TrainConfig) -> None:
-    if cfg.num_processes > 1 or cfg.dist_coordinator:
-        raise NotImplementedError(
-            "multi-process training (trainm --num_processes > 1, "
-            "--dist_coordinator) is not yet ported: it is the next slice of "
-            "the port; one process trains every family")
+def _check_options(cfg: TrainConfig) -> None:
+    if (cfg.num_processes > 1) != bool(cfg.dist_coordinator):
+        raise ValueError("--num_processes > 1 and --dist_coordinator host:port go "
+                         "together (got {} processes, coordinator {})".format(
+                             cfg.num_processes, cfg.dist_coordinator))
     if cfg.model_type not in PORTED + ("transencoder2s",):
         raise ValueError("--model_type {} is not a model ({}, transencoder2s)".format(
             cfg.model_type, ", ".join(PORTED)))
@@ -357,12 +378,19 @@ def _to_device(flat: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def _ce_terms(logits, labels, mask, class_weights):
+    """(sum(w_i * l_i), sum(w_i)) of torch CrossEntropyLoss(weight=[1,
+    pos_weight]) over the valid rows, the padding mask folded into w."""
+    per = torch.logsumexp(logits, dim=1) - logits.gather(1, labels[:, None])[:, 0]
+    w = class_weights[labels] * mask
+    return (per * w).sum(), w.sum()
+
+
 def weighted_ce(logits, labels, mask, class_weights) -> torch.Tensor:
     """torch CrossEntropyLoss(weight=[1, pos_weight]) over the valid rows:
     sum(w_i * l_i) / sum(w_i), the padding mask folded into w."""
-    per = torch.logsumexp(logits, dim=1) - logits.gather(1, labels[:, None])[:, 0]
-    w = class_weights[labels] * mask
-    return (per * w).sum() / torch.clamp(w.sum(), min=1e-9)
+    num, den = _ce_terms(logits, labels, mask, class_weights)
+    return num / torch.clamp(den, min=1e-9)
 
 
 def make_train_step(model, optimizer, pos_weight: float,
@@ -375,7 +403,12 @@ def make_train_step(model, optimizer, pos_weight: float,
     ``step.packed(flat, generator)`` takes one batch in the ``train_transfer``
     wire (fp32 or bf16 columns, or ``packed`` byte rows), ``step.pack_batch``
     makes one on the host and ``step.unpack`` turns one back into (feats,
-    labels, mask) on its device."""
+    labels, mask) on its device.
+    In a group of ranks (``distributed.world > 1``) the batch is the rank's
+    shard of the global batch: the weight sum is all-reduced before the
+    backward, and the gradients and the loss are summed over the ranks in
+    one all-reduce before the optimizer clips and applies them, so the step
+    returns the global batch's loss."""
     params = list(model.parameters())
     dev = params[0].device
     class_weights = torch.tensor([1.0, pos_weight], dtype=torch.float32, device=dev)
@@ -384,8 +417,21 @@ def make_train_step(model, optimizer, pos_weight: float,
 
     def step(feats, labels, mask, generator=None):
         logits, _probs = model(feats, compute_dtype, train=True, generator=generator)
-        loss = weighted_ce(logits, labels, mask, class_weights)
-        grads = torch.autograd.grad(loss, params)
+        if distributed.world == 1:
+            loss = weighted_ce(logits, labels, mask, class_weights)
+            grads = torch.autograd.grad(loss, params)
+        else:
+            num, den = _ce_terms(logits, labels, mask, class_weights)
+            den = distributed.all_reduce_sum(den.detach().clone())
+            loss = num / torch.clamp(den, min=1e-9)
+            flat = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, params)]
+                             + [loss.detach().reshape(1)])
+            distributed.all_reduce_sum(flat)
+            grads, o = [], 0
+            for p in params:
+                grads.append(flat[o:o + p.numel()].view(p.shape))
+                o += p.numel()
+            loss = flat[o]
         optimizer.step(params, grads)
         return loss.detach()
 
@@ -408,16 +454,17 @@ def make_train_step(model, optimizer, pos_weight: float,
 def make_eval_step(model, pos_weight: float):
     """(feats, labels, mask) -> (loss, pred, counts): the inference forward in
     f32 (K1, or K3 for transencoder2s, on CUDA), counts = [n_valid, correct,
-    tp, fp, fn] on the device.
-    ``step.packed`` and ``step.pack_batch`` as for the train step."""
+    tp, fp, fn] on the device. ``step.pack_batch`` as for the train step;
+    ``step.sums(flat)`` gives one packed batch's [sum(w_i * l_i), sum(w_i),
+    n_valid, correct, tp, fp, fn], which sum over the ranks."""
     dev = next(model.parameters()).device
     class_weights = torch.tensor([1.0, pos_weight], dtype=torch.float32, device=dev)
     fields = _batch_layout(model.cfg)
 
     @torch.inference_mode()
-    def step(feats, labels, mask):
+    def _eval(feats, labels, mask):
         logits, probs = model(feats)
-        loss = weighted_ce(logits, labels, mask, class_weights)
+        num, den = _ce_terms(logits, labels, mask, class_weights)
         pred = torch.argmax(probs, dim=1)
         v = mask > 0
         pos_p = (pred == 1) & v
@@ -429,9 +476,17 @@ def make_eval_step(model, pos_weight: float):
             (pos_p & ~pos_l).sum().float(),
             ((pred == 0) & v & pos_l).sum().float(),
         ])
-        return loss, pred, counts
+        return num, den, pred, counts
 
-    step.packed = lambda flat: step(*_unpack_cols(flat, fields))
+    def step(feats, labels, mask):
+        num, den, pred, counts = _eval(feats, labels, mask)
+        return num / torch.clamp(den, min=1e-9), pred, counts
+
+    def sums(flat):
+        num, den, _pred, counts = _eval(*_unpack_cols(flat, fields))
+        return torch.cat([torch.stack([num, den]), counts])
+
+    step.sums = sums
     step.pack_batch = lambda feats, labels, mask: _pack_cols(fields, feats,
                                                              labels, mask)
     return step
@@ -490,18 +545,37 @@ def binary_metrics(labels: np.ndarray, preds: np.ndarray) -> tuple[float, float,
 
 def train(cfg: TrainConfig) -> dict:
     """Run training; returns {'best_accuracy', 'best_epoch', 'ckpts',
-    'epoch_wall_s', 'steps', 'train_losses', 'valid_losses'}."""
+    'epoch_wall_s', 'steps', 'train_losses', 'valid_losses', 'world',
+    'backend', 'allreduce_calls', 'allreduce_bytes', 'allreduce_seconds'}. With
+    ``num_processes > 1`` this process joins the group at
+    ``dist_coordinator`` as rank ``process_id`` on its card and leaves it at
+    the end."""
+    _check_options(cfg)
+    if cfg.num_processes > 1:
+        device = distributed.init_multihost(cfg.dist_coordinator, cfg.num_processes,
+                                            cfg.process_id, cfg.device)
+        LOGGER.info("rank %d/%d on %s, backend %s", cfg.process_id,
+                    cfg.num_processes, device, distributed.backend)
+        try:
+            return _train(cfg, device)
+        finally:
+            distributed.teardown()
+    return _train(cfg, resolve_device(cfg.device))
+
+
+def _train(cfg: TrainConfig, device: torch.device) -> dict:
     t0 = time.time()
-    _check_unported(cfg)
-    device = resolve_device(cfg.device)
+    n_proc = distributed.world
+    is_main = distributed.rank == 0
     model_cfg = cfg.model_config()
     model_dir = cfg.model_dir
     if model_dir != "/":
         model_dir = os.path.abspath(model_dir).rstrip("/")
         os.makedirs(model_dir, exist_ok=True)
-        # clear stale ckpts of this model_type (train.py:77-80)
+        # clear stale ckpts of this model_type (train.py:77-80); rank 0 alone
+        # writes there
         rx = re.compile(r"" + cfg.model_type + r"\..*b\d+_epoch\d+\.ckpt.*")
-        for mfile in os.listdir(model_dir):
+        for mfile in os.listdir(model_dir) if is_main else ():
             if rx.match(mfile):
                 os.remove(os.path.join(model_dir, mfile))
         model_dir += "/"
@@ -538,14 +612,38 @@ def train(cfg: TrainConfig) -> dict:
         else:
             LOGGER.info("no train_state next to %s: warm-start only",
                         cfg.resume_from)
+    if n_proc > 1:
+        # one start state on every rank: rank 0's parameters, buffers,
+        # optimizer state, step count and epoch
+        scalars = torch.tensor([optimizer.state["count"], start_epoch],
+                               dtype=torch.int64, device=device)
+        distributed.broadcast_(list(model.parameters()) + list(model.buffers())
+                               + [t for v in optimizer.state.values()
+                                  if isinstance(v, list) for t in v] + [scalars])
+        optimizer.state["count"], start_epoch = (int(v) for v in scalars.tolist())
     sched = LrSchedule(cfg.lr_scheduler, cfg.lr, cfg.lr_decay, cfg.lr_decay_step,
                        cfg.lr_patience, cfg.lr_mode_strategy)
     generator = torch.Generator(device=device)
-    generator.manual_seed(cfg.tseed)
+    generator.manual_seed(cfg.tseed if n_proc == 1 else int(
+        np.random.SeedSequence([cfg.tseed, distributed.rank]).generate_state(1)[0]))
     nprng = np.random.RandomState(cfg.tseed)
     pad_n = cfg.batch_size
-    total_step = -(-len(train_ds) // cfg.batch_size)
+    shard = (distributed.rank, n_proc) if n_proc > 1 else None
+    if n_proc > 1:
+        # every rank runs the same number of collective steps: the tail
+        # that does not fill a global batch is dropped
+        total_step = len(train_ds) // (cfg.batch_size * n_proc)
+        n_vbatch = len(valid_ds) // (cfg.batch_size * n_proc)
+    else:
+        total_step = -(-len(train_ds) // cfg.batch_size)
+        n_vbatch = None
     LOGGER.info("total_step: %d", total_step)
+
+    def loader(ds, shuffle):
+        batches = ds.batches(cfg.batch_size, shuffle, nprng, pad_to=pad_n,
+                             shard=shard, drop_remainder=n_proc > 1)
+        return batches if n_vbatch is None or shuffle else itertools.islice(
+            batches, n_vbatch)
 
     def pack(b, step_fn):
         feats, labels, n_valid = b
@@ -573,8 +671,7 @@ def train(cfg: TrainConfig) -> dict:
     def valid_batches():
         if not valid_staged:
             flats = ([] if cfg.dl_offsets else
-                     [pack(b, eval_step) for b in valid_ds.batches(
-                         cfg.batch_size, False, nprng, pad_to=pad_n)])
+                     [pack(b, eval_step) for b in loader(valid_ds, False)])
             if flats and sum(f.nbytes for f in flats) / 1e6 <= VALID_RESIDENT_MB:
                 valid_staged.append(_to_device(np.stack(flats), device))
             else:
@@ -582,8 +679,7 @@ def train(cfg: TrainConfig) -> dict:
         if valid_staged[0] is not None:
             yield from valid_staged[0]
             return
-        staged = _prefetch(valid_ds.batches(cfg.batch_size, False, nprng,
-                                            pad_to=pad_n),
+        staged = _prefetch(loader(valid_ds, False),
                            lambda b: _to_device(pack(b, eval_step), device))
         try:
             yield from staged
@@ -591,16 +687,16 @@ def train(cfg: TrainConfig) -> dict:
             staged.close()
 
     def run_valid():
-        losses, counts = [], []
-        for flat in valid_batches():
-            loss, _pred, c = eval_step.packed(flat)
-            losses.append(loss)
-            counts.append(c)
-        if not losses:
+        """Each batch's [sum(w_i * l_i), sum(w_i), n, correct, tp, fp, fn],
+        summed over the ranks in one all-reduce: a batch's loss is that of
+        the global batch, the sweep's its mean (in float64)."""
+        sums = [eval_step.sums(flat) for flat in valid_batches()]
+        if not sums:
             return 0.0, 0.0, 0.0, 0.0
-        # the validation loss is averaged in float64
-        vloss = float(torch.stack(losses).double().mean())
-        n, correct, tp, fp, fn = torch.stack(counts).double().sum(0).tolist()
+        sums = distributed.all_reduce_sum(torch.stack(sums))
+        losses = sums[:, 0] / torch.clamp(sums[:, 1], min=1e-9)
+        vloss = float(losses.double().mean())
+        n, correct, tp, fp, fn = sums[:, 2:].double().sum(0).tolist()
         acc = correct / n if n else 0.0
         prec = tp / (tp + fp) if (tp + fp) else 0.0
         rec = tp / (tp + fn) if (tp + fn) else 0.0
@@ -629,7 +725,7 @@ def train(cfg: TrainConfig) -> dict:
         start = time.time()
         i = 0  # steps completed this epoch
         staged_train = _prefetch(gen_groups(
-            train_ds.batches(cfg.batch_size, True, nprng, pad_to=pad_n),
+            loader(train_ds, True),
             _fuse_schedule(total_step, cfg.step_interval, max(1, cfg.step_fuse))),
             stage_group)
         try:
@@ -646,7 +742,7 @@ def train(cfg: TrainConfig) -> dict:
                     accs_per_epoch.append(v_acc)
                     if v_acc > curr_best_epoch:
                         curr_best_epoch = v_acc
-                        if curr_best_epoch > curr_best_accuracy - 0.0002:
+                        if curr_best_epoch > curr_best_accuracy - 0.0002 and is_main:
                             p = (model_dir + cfg.model_type
                                  + ".b{}_epoch{}.ckpt.npz".format(cfg.seq_len, epoch + 1))
                             save_ckpt(p, epoch + 1)
@@ -655,7 +751,8 @@ def train(cfg: TrainConfig) -> dict:
                             curr_best_accuracy = curr_best_epoch
                             curr_best_loc = epoch + 1
                             no_best_model = False
-                        if best_epoch_accs and curr_best_epoch > best_epoch_accs[-1]:
+                        if (best_epoch_accs and curr_best_epoch > best_epoch_accs[-1]
+                                and is_main):
                             save_ckpt(model_dir + cfg.model_type
                                       + ".betterthanlast.b{}_epoch{}.ckpt.npz".format(
                                           cfg.seq_len, epoch + 1))
@@ -680,7 +777,11 @@ def train(cfg: TrainConfig) -> dict:
                 time.time() - t0, curr_best_accuracy, curr_best_loc)
     result = {"best_accuracy": curr_best_accuracy, "best_epoch": curr_best_loc,
               "ckpts": ckpts, "epoch_wall_s": epoch_walls, "steps": n_steps,
-              "train_losses": train_losses, "valid_losses": valid_losses}
+              "train_losses": train_losses, "valid_losses": valid_losses,
+              "world": n_proc, "backend": distributed.backend,
+              "allreduce_calls": distributed.allreduce_calls,
+              "allreduce_bytes": distributed.allreduce_bytes,
+              "allreduce_seconds": distributed.allreduce_seconds}
     LAST_RUN.clear()
     LAST_RUN.update(result)
     return result

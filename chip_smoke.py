@@ -105,8 +105,15 @@ does not print its last line:
      first step's loss against the fp32 wire's, the bytes of a row;
      aggr_train: the aggregate trainer's script for both cells (K4/K5, K6
      at H = 32), its best checkpoint through ``call_freqb --call_mode
-     aggregate``; wrappers: ``call_hifi`` and ``align_hifi`` raise their
-     named errors;
+     aggregate``; dist: two ranks of this script (``--dist-rank``) sharing
+     the card over gloo, at full width: ``trainm`` one step at dropout 0
+     against one process at the global batch of 1,024 (every leaf), two
+     epochs at the defaults (best accuracy >= 0.9, the same validation lines
+     on both ranks, K4/K5 3 times a step on each, checkpoints on rank 0
+     only), ``call_freqb --dist_coordinator`` in count mode (byte-equal to
+     one process) and aggregate mode (K1 on rank 0, rows equal), with the
+     collectives' calls, bytes and ms; wrappers: ``call_hifi`` and
+     ``align_hifi`` raise their named errors;
   8. profile: torch.profiler over a few full-width training steps of each
      model: the step's host and device ms, the device's idle share and the
      device time per kernel;
@@ -127,7 +134,7 @@ Each turn prints one JSON line; the last line compares the medians.
     python3 chip_smoke.py --only determinism,train1s,...
 
 runs the card, the build and the named phases of the one-card training paths
-(``main_only``), and prints no result line.
+or ``dist`` (``main_only``), and prints no result line.
 """
 
 import json
@@ -195,6 +202,15 @@ TRAIN1S_EPOCHS, TE_EPOCHS, TRANSFER_EPOCHS = 2, 2, 1
 WIRE_TOL = 1e-4
 # the aggregate trainer: simulated windows, 32 steps of batch 512 an epoch
 AGGR_TRAIN_ROWS, AGGR_VALID_ROWS, AGGR_EPOCHS = 16384, 4096, 3
+# the dist phase: two ranks on the card, batch 512 a rank (the global batch
+# 1,024); the one-step comparison's leaf gate (2 x 512 rows summed against
+# 1,024 rows in one product: rounding, ~1e-7 of a gradient, times lr 0.1);
+# a rank that outlives DIST_TIMEOUT seconds fails the phase
+DIST_RANKS, DIST_BATCH, DIST_TOL, DIST_TIMEOUT = 2, 512, 1e-5, 600
+# best accuracy of the training at the defaults, in DIST_EPOCHS epochs of
+# 16 global steps (one epoch reached 0.841: half the updates of the train
+# phase's 32-step epoch)
+DIST_ACC, DIST_EPOCHS = 0.9, 2
 
 
 def log(msg):
@@ -1243,6 +1259,9 @@ def phase_e2e(torch, smi, model_type):
         assert cuda[name] == per_call * n and sum(cuda.values()) == cuda[name], cuda
         n_tagged = sum(1 for mm, ml in tags[prec].values() if ml is not None)
         assert n_tagged >= 0.9 * len(tags[prec]), (prec, n_tagged)
+        # one model replica a visible card, batches padded to a multiple
+        assert run["replicas"] == torch.cuda.device_count(), run
+        assert run["pad_n"] % run["replicas"] == 0, run
         run.update(phase="e2e", model=model_type, precision=prec, launches=counts,
                    designs=designs, cuda_launches=cuda, sites_per_s=run["sites"] / run["seconds"],
                    reads_with_mm_ml=n_tagged, card=smi)
@@ -2504,6 +2523,24 @@ def _write_aggre_tsv(path, n, seed):
                 "{:.4f}".format(p)]) + "\n")
 
 
+def _freq_modbam():
+    """(the freq phase's HP-tagged modbam, its reference), made here when
+    the freq phase did not run (--only)."""
+    from ccsmeth_tpu_torch import cli
+
+    bam, fasta = _freq_input()
+    tagged = os.path.join(WORK, "freq", "mods.hp.bam")
+    if not os.path.exists(tagged):
+        from ccsmeth_tpu_torch.models.params_io import save_params
+
+        ckpt = os.path.join(WORK, MODELS["gru"] + "_full.ckpt.npz")
+        save_params(ckpt, _config_params(MODELS["gru"])[1])
+        cli.main(["call_mods", "-i", bam, "-o", os.path.join(WORK, "freq", "mods"), "-m",
+                  ckpt, "--mode", "align", "--ref", fasta, "--device", "cuda"])
+        _hp_tagged(os.path.join(WORK, "freq", "mods.modbam.bam"), tagged)
+    return tagged, fasta
+
+
 def phase_aggr_train(torch, smi):
     """The aggregate trainer (``python -m
     ccsmeth_tpu_torch.scripts.train_aggregate_model --device cuda``) for
@@ -2528,16 +2565,7 @@ def phase_aggr_train(torch, smi):
     if not (os.path.exists(tr) and os.path.exists(va)):
         _write_aggre_tsv(tr, AGGR_TRAIN_ROWS, SEED + 5)
         _write_aggre_tsv(va, AGGR_VALID_ROWS, SEED + 6)
-    bam, fasta = _freq_input()
-    tagged = os.path.join(WORK, "freq", "mods.hp.bam")
-    if not os.path.exists(tagged):  # the freq phase did not run (--only)
-        from ccsmeth_tpu_torch.models.params_io import save_params
-
-        ckpt = os.path.join(WORK, MODELS["gru"] + "_full.ckpt.npz")
-        save_params(ckpt, _config_params(MODELS["gru"])[1])
-        cli.main(["call_mods", "-i", bam, "-o", os.path.join(WORK, "freq", "mods"), "-m",
-                  ckpt, "--mode", "align", "--ref", fasta, "--device", "cuda"])
-        _hp_tagged(os.path.join(WORK, "freq", "mods.modbam.bam"), tagged)
+    tagged, fasta = _freq_modbam()
     res = {"phase": "aggr_train", "rows": {"train": AGGR_TRAIN_ROWS,
                                            "valid": AGGR_VALID_ROWS},
            "shape": {"NL": 1, "H": AGGR_H, "C": AGGR_C, "L": AGGR_L, "batch": 512},
@@ -2578,6 +2606,286 @@ def phase_aggr_train(torch, smi):
                            "wall_s": time.time() - t0,
                            "call_freqb_sites": freq["sites"],
                            "call_freqb_k1_calls": counts["k1"]}
+    emit(res)
+    return res
+
+
+def _dist_runs(d, tr1, va1, tr, va, tagged, fasta, npz):
+    """The dist phase's four runs of one rank, or of one process when
+    ``rank`` is None: (name, argv, output to read) with the rank's own
+    model dir or output prefix."""
+    seed = str(SEED % 10000)
+
+    def runs(rank, batch):
+        tag = "one" if rank is None else "rank{}".format(rank)
+        own = os.path.join(d, tag)
+        return [
+            # one step at dropout 0, SGD: Adam's first update is lr g / (|g| +
+            # 1e-8), which turns a gradient's last-bit rounding near 0 into
+            # a move of up to 2 lr; SGD's is lr g
+            ("step", ["trainm", "--train_file", tr1, "--valid_file", va1,
+                      "--model_type", MODELS["gru"], "--device", "cuda",
+                      "--batch_size", str(batch), "--dropout_rate", "0",
+                      "--optim_type", "SGD", "--lr", "0.1", "--max_epoch_num", "1",
+                      "--min_epoch_num", "1", "--tseed", seed,
+                      "--model_dir", os.path.join(own, "step")]),
+            # DIST_EPOCHS epochs at the CLI's defaults (dropout 0.5, Adam 1e-3)
+            ("epoch", ["trainm", "--train_file", tr, "--valid_file", va,
+                       "--model_type", MODELS["gru"], "--device", "cuda",
+                       "--batch_size", str(batch), "--max_epoch_num", str(DIST_EPOCHS),
+                       "--min_epoch_num", str(DIST_EPOCHS), "--tseed", seed,
+                       "--model_dir", os.path.join(own, "epoch")]),
+            ("count", ["call_freqb", "-i", tagged, "--ref", fasta,
+                       "-o", os.path.join(own, "freq", "count")]),
+            ("aggregate", ["call_freqb", "-i", tagged, "--ref", fasta,
+                           "--call_mode", "aggregate", "-m", npz, "--device", "cuda",
+                           "-o", os.path.join(own, "freq", "aggregate")])]
+
+    return runs
+
+
+def _dist_run_one(torch, name, argv):
+    """One CLI run with every kernel's counts set to 0 just before it and
+    read just after: (its LAST_RUN, wall s, K4/K5 counts, K1's)."""
+    from ccsmeth_tpu_torch import cli
+    from ccsmeth_tpu_torch.pipeline import call_freq_bam
+    from ccsmeth_tpu_torch.training.train import LAST_RUN
+
+    _zero_train_counts()
+    t0 = time.time()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    last = LAST_RUN if name in ("step", "epoch") else call_freq_bam.LAST_RUN
+    mine, other, inf = _train_counts("gru")
+    return {"run": dict(last), "wall_s": wall, "k45": mine, "other_cell": other,
+            "inference": inf}
+
+
+def _dist_rank(rank, d, ports):
+    """``--dist-rank K DIR PORT...``: rank K of the dist phase's group, each
+    of its runs through the CLI with --dist_coordinator 127.0.0.1:PORT, its
+    results written to DIR/rankK.json."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "spec.json")) as f:
+        spec = json.load(f)
+    runs = _dist_runs(**spec)(rank, DIST_BATCH)
+    out = {}
+    for (name, argv), port in zip(runs, ports):
+        out[name] = _dist_run_one(torch, name, argv + [
+            "--num_processes", str(DIST_RANKS), "--process_id", str(rank),
+            "--dist_coordinator", "127.0.0.1:{}".format(port)])
+    with open(os.path.join(d, "rank{}.json".format(rank)), "w") as f:
+        json.dump(out, f)
+
+
+def _valid_lines(path):
+    """A rank's validation log lines without their wall times."""
+    import re
+
+    with open(path) as f:
+        return [re.sub(r"; Time: .*", "", ln[ln.index("Epoch ["):])
+                for ln in f if "ValidLoss" in ln]
+
+
+def phase_dist(torch, smi):
+    """Two ranks sharing the card (``gloo``, by the backend rule), each a
+    process of this script (``--dist-rank``), at full width (attbigru2s 3 x
+    256, C 11, L 21), batch 512 a rank, against one process at the global
+    batch of 1,024: ``trainm`` one step at dropout 0 (every leaf of the
+    checkpoint within DIST_TOL), then DIST_EPOCHS epochs at the CLI's
+    defaults on the train phase's separable set (best accuracy >= 0.9, the same
+    validation lines on both ranks, K4 and K5 3 times a step on each rank,
+    checkpoints on rank 0 only); ``call_freqb --dist_coordinator`` on the
+    freq phase's modbam in count mode (rank 0's files byte-equal to one
+    process's, rank 1 writes nothing) and in aggregate mode through K1 on
+    rank 0 (rows equal to one process's on the card). On one card the two
+    ranks share the SMs, so the rates measure the collective path's
+    overhead, not scaling. Also the multi-card predict's replicas."""
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models import (AggrConfig, AttRNNConfig, init_aggr_attrnn,
+                                          init_attrnn)
+    from ccsmeth_tpu_torch.models.params_io import _flatten, load_params, save_params
+    from ccsmeth_tpu_torch.parallel import distributed
+    from ccsmeth_tpu_torch.pipeline import call_mods
+
+    t_phase = time.time()
+    d = os.path.join(WORK, "dist")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    tr, va, _ = _train_input()
+    tr1, va1 = os.path.join(d, "train_1024.tsv"), os.path.join(d, "valid_1024.tsv")
+    for src, dst in ((tr, tr1), (va, va1)):  # one global batch each
+        with open(src) as f, open(dst, "w") as g:
+            for _i, line in zip(range(DIST_RANKS * DIST_BATCH), f):
+                g.write(line)
+    tagged, fasta = _freq_modbam()
+    npz = os.path.join(d, "attbigru_aggr.npz")
+    save_params(npz, init_aggr_attrnn(SEED, AggrConfig(model_type="attbigru")))
+    spec = dict(d=d, tr1=tr1, va1=va1, tr=tr, va=va, tagged=tagged, fasta=fasta, npz=npz)
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    runs = _dist_runs(**spec)
+    for tag in ("one", "rank0", "rank1"):
+        os.makedirs(os.path.join(d, tag, "freq"))
+
+    # one process at the global batch, first, alone on the card
+    one = {name: _dist_run_one(torch, name, argv)
+           for name, argv in runs(None, DIST_RANKS * DIST_BATCH)}
+
+    ports = []
+    for _ in range(4):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        ports.append(s.getsockname()[1])
+        s.close()
+    procs, logs = [], []
+    for rank in range(DIST_RANKS):
+        logs.append(os.path.join(d, "rank{}.log".format(rank)))
+        with open(logs[-1], "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-rank", str(rank), d]
+                + [str(p) for p in ports], stdout=log_f, stderr=subprocess.STDOUT))
+    t_ranks = time.time()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DIST_TIMEOUT - (time.time() - t_ranks)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        raise AssertionError("a dist rank outlived {} s".format(DIST_TIMEOUT))
+    ranks_wall = time.time() - t_ranks
+    for rank, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(path) as f:
+                raise AssertionError("dist rank {} failed ({}):\n{}".format(
+                    rank, p.returncode, f.read()[-4000:]))
+    ranks = []
+    for rank in range(DIST_RANKS):
+        with open(os.path.join(d, "rank{}.json".format(rank))) as f:
+            ranks.append(json.load(f))
+    backend = distributed.backend_for("cuda", DIST_RANKS, torch.cuda.device_count())
+    for r in ranks:
+        for name, got in r.items():
+            assert got["run"]["world"] == DIST_RANKS, (name, got["run"])
+            want = backend if name not in ("count",) else "gloo"  # count: the host
+            assert got["run"]["backend"] == want, (name, got["run"]["backend"])
+
+    # one step: every leaf of rank 0's checkpoint against one process's
+    a = dict(_flatten(load_params(ranks[0]["step"]["run"]["ckpts"][-1])))
+    b = dict(_flatten(load_params(one["step"]["run"]["ckpts"][-1])))
+    assert a.keys() == b.keys() and a
+    leaf_err = {k: float(np.abs(a[k] - b[k]).max()) for k in sorted(a)}
+    step_err = max(leaf_err.values())
+    assert step_err <= DIST_TOL, sorted(leaf_err.items(), key=lambda kv: -kv[1])[:5]
+    init = dict(_flatten(init_attrnn(SEED % 10000, AttRNNConfig(dropout_rate=0.0))))
+    moved = max(float(np.abs(b[k] - init[k]).max()) for k in b)
+    loss_err = abs(ranks[0]["step"]["run"]["train_losses"][0]
+                   - one["step"]["run"]["train_losses"][0])
+    assert loss_err <= DIST_TOL, loss_err
+
+    # one epoch at the defaults
+    ep = [r["epoch"] for r in ranks]
+    steps = ep[0]["run"]["steps"]
+    per_epoch = TRAIN_ROWS // (DIST_RANKS * DIST_BATCH)
+    assert steps == DIST_EPOCHS * per_epoch == one["epoch"]["run"]["steps"], steps
+    for r in ep:
+        assert r["run"]["steps"] == steps
+        assert r["k45"]["fwd"] == r["k45"]["bwd"] == 3 * steps, r["k45"]
+        assert r["k45"]["plain"] == 0 == r["other_cell"], r
+        assert r["k45"]["designs"] == {"tc": 0, "simt": 6 * steps}, r["k45"]
+        assert r["inference"]["k1"] > 0 == r["inference"]["k1_plain"], r["inference"]
+        assert r["run"]["best_accuracy"] >= DIST_ACC, r["run"]["best_accuracy"]
+    assert ep[0]["run"]["valid_losses"] == ep[1]["run"]["valid_losses"]
+    lines = [_valid_lines(path) for path in logs]
+    assert lines[0] and lines[0] == lines[1], lines
+    for name in ("step", "epoch"):  # rank 0 alone writes
+        assert ranks[0][name]["run"]["ckpts"] and ranks[1][name]["run"]["ckpts"] == []
+        assert os.listdir(os.path.join(d, "rank1", name)) == []
+    n_valid = len(ep[0]["run"]["valid_losses"])
+    ar = ep[0]["run"]
+    assert ar["allreduce_calls"] == 2 * steps + n_valid, ar
+    # a step: the weight sum, then the gradients with the loss; a sweep: 7
+    # sums a validation batch of the rank
+    n_vb = VALID_ROWS // (DIST_RANKS * DIST_BATCH)
+    step_bytes = (ar["allreduce_bytes"] - n_valid * n_vb * 7 * 4) // steps
+    n_params = sum(v.size for k, v in a.items() if not k.endswith(("mean", "var")))
+    assert step_bytes == 4 + 4 * (n_params + 1), (step_bytes, n_params)
+    samples = per_epoch * DIST_RANKS * DIST_BATCH  # an epoch's
+
+    # call_freqb: rank 0's files against one process's, rank 1 writes nothing
+    freq = {}
+    for mode in ("count", "aggregate"):
+        got = [r[mode] for r in ranks]
+        assert os.listdir(os.path.join(d, "rank1", "freq")) == []
+        for tag in ("all", "hp1", "hp2"):
+            mine = os.path.join(d, "rank0", "freq", "{}.{}.{}.freq.txt".format(mode, mode, tag))
+            ref = os.path.join(d, "one", "freq", "{}.{}.{}.freq.txt".format(mode, mode, tag))
+            with open(mine, "rb") as f, open(ref, "rb") as g:
+                assert f.read() == g.read(), (mode, tag)
+        assert got[0]["run"]["sites"] == one[mode]["run"]["sites"] > 0
+        assert got[1]["run"]["sites"] == 0
+        assert got[0]["run"]["allreduce_calls"] == got[1]["run"]["allreduce_calls"] >= 3
+        if mode == "aggregate":  # rank 0 alone runs the model, through K1
+            n = got[0]["run"]["batches"]
+            assert got[0]["inference"]["k1"] == n == one[mode]["run"]["batches"] > 0
+            assert got[0]["inference"]["k1_plain"] == 0
+            assert got[1]["inference"]["k1"] == got[1]["run"]["batches"] == 0
+        else:
+            assert sum(g["inference"]["k1"] for g in got) == 0
+        freq[mode] = {
+            "sites": got[0]["run"]["sites"],
+            "sites_per_s_2_ranks": got[0]["run"]["sites"] / got[0]["run"]["seconds"],
+            "sites_per_s_1_process": one[mode]["run"]["sites"] / one[mode]["run"]["seconds"],
+            "seconds_2_ranks": [g["run"]["seconds"] for g in got],
+            "seconds_1_process": one[mode]["run"]["seconds"],
+            "allreduce_calls": got[0]["run"]["allreduce_calls"],
+            "allreduce_bytes": got[0]["run"]["allreduce_bytes"],
+            "allreduce_s": got[0]["run"]["allreduce_seconds"],
+            "k1_calls_rank0": got[0]["inference"]["k1"]}
+    replicas = len(call_mods.predict_devices("cuda"))
+    assert replicas == torch.cuda.device_count()
+    res = {"phase": "dist", "ranks": DIST_RANKS, "backend": backend,
+           "batch_per_rank": DIST_BATCH, "model": MODELS["gru"] + " 3x256",
+           "step": {"max_abs_leaf_err": step_err, "gate": DIST_TOL,
+                    "max_param_move": moved, "loss_err": loss_err,
+                    "leaf_err": leaf_err},
+           "epoch": {"steps": steps, "epochs": DIST_EPOCHS,
+                     "best_accuracy": [r["run"]["best_accuracy"]
+                                                        for r in ep],
+                     "best_accuracy_1_process": one["epoch"]["run"]["best_accuracy"],
+                     "validations": n_valid,
+                     "k4_k5_per_rank": [[r["k45"]["fwd"], r["k45"]["bwd"]] for r in ep],
+                     "k1_per_rank": [r["inference"]["k1"] for r in ep],
+                     # the last epoch's: the first includes the first calls
+                     "samples_per_s_2_ranks": samples / ar["epoch_wall_s"][-1],
+                     "samples_per_s_1_process": samples
+                     / one["epoch"]["run"]["epoch_wall_s"][-1],
+                     "allreduce_calls": ar["allreduce_calls"],
+                     "allreduce_bytes": ar["allreduce_bytes"],
+                     "allreduce_bytes_per_step": step_bytes,
+                     "gradient_values": n_params,
+                     "allreduce_ms_per_step": 1e3 * ar["allreduce_seconds"] / steps,
+                     "epoch_wall_s_2_ranks": [r["run"]["epoch_wall_s"] for r in ep],
+                     "epoch_wall_s_1_process": one["epoch"]["run"]["epoch_wall_s"]},
+           "freq": freq, "predict_replicas": replicas,
+           "ranks_wall_s": ranks_wall, "wall_s": time.time() - t_phase, "card": smi}
+    res["launches"] = {
+        "k4": sum(r[n]["k45"]["fwd"] for r in ranks for n in ("step", "epoch")),
+        "k5": sum(r[n]["k45"]["bwd"] for r in ranks for n in ("step", "epoch")),
+        "k1_validation": sum(r[n]["inference"]["k1"] for r in ranks
+                             for n in ("step", "epoch")),
+        "k1_aggregate": ranks[0]["aggregate"]["inference"]["k1"]}
     emit(res)
     return res
 
@@ -2728,8 +3036,9 @@ def main_ab(parent):
 def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
     the one-card training paths (train_kernels_small, determinism, train1s,
-    train_te, transfer, aggr_train, wrappers), for a short call after a
-    change to one of them; prints no kernels line and no ok line."""
+    train_te, transfer, aggr_train, wrappers) or the multi-process one
+    (dist), for a short call after a change to one of them; prints no
+    kernels line and no ok line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2748,6 +3057,7 @@ def main_only(names):
         "train_te": lambda: phase_train_te(torch, smi, TE_EPOCHS),
         "transfer": lambda: phase_transfer(torch, smi, TRANSFER_EPOCHS),
         "aggr_train": lambda: phase_aggr_train(torch, smi),
+        "dist": lambda: phase_dist(torch, smi),
         "wrappers": phase_wrappers}
     unknown = [n for n in names if n not in phases]
     if unknown:
@@ -2767,6 +3077,8 @@ def main():
         return _train_digest(*sys.argv[2:])
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
         return main_only(sys.argv[2].split(","))
+    if len(sys.argv) == 8 and sys.argv[1] == "--dist-rank":
+        return _dist_rank(int(sys.argv[2]), sys.argv[3], [int(p) for p in sys.argv[4:]])
     if len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--ab PARENT_TREE | --only PHASE,...]")
     if not os.path.isdir(os.path.join(REPO, "ccsmeth_tpu_torch")):
@@ -2836,6 +3148,8 @@ def main():
     lap("transfer")
     aggr_train = phase_aggr_train(torch, smi)
     lap("aggr_train")
+    dist = phase_dist(torch, smi)
+    lap("dist")
     phase_wrappers()
     for cell in MODELS:
         phase_profile(torch, smi, cell)
@@ -2876,6 +3190,8 @@ def main():
                 e2e2s2[cell]["e2e"]["cuda_launches_by_design"][design]
             if design == "simt":  # the train paths validate in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
+                if cell == "gru":  # both ranks' validations
+                    entry["launches_dist"] = dist["launches"]["k1_validation"]
                 entry["launches_train_path_2s2"] = train2s2[cell]["launches"]["k1"]
                 entry["launches_train_path_1s"] = train1s[cell]["k1_launches"]
                 entry["projection_source"] = SIMT_PROJECTION
@@ -2897,6 +3213,7 @@ def main():
             "launches_aggr_train": (
                 aggr_train[AGGR_CELLS[cell]]["k1_validation_launches"]
                 + aggr_train[AGGR_CELLS[cell]]["call_freqb_k1_calls"]),
+            "launches_dist": dist["launches"]["k1_aggregate"] if cell == "gru" else 0,
             "max_abs_err": mc["max_abs_err"], "ms": mc["kernel_ms"],
             "plain_ms": mc["plain_ms"], "bound_ms": mc["bound_ms"],
             "bound_by": mc["bound_by"], "library_ms": mc["library_ms"],
@@ -2961,7 +3278,9 @@ def main():
                                        key, design),
                 "launches_transfer": (calls([own(transfer[w]["launches"])
                                              for w in ("bf16", "packed")], key, design)
-                                      if cell == "gru" else 0)})
+                                      if cell == "gru" else 0),
+                "launches_dist": (dist["launches"]["k4" if key == "fwd" else "k5"]
+                                  if (cell, design) == ("gru", "simt") else 0)})
     # K3: simt (fp32) and tc (bf16) on the main path; l2, which no model's
     # path takes (0 launches there), called directly
     for design, src, dname in (("simt", "transenc_simt.cu", "float32"),

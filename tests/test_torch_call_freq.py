@@ -164,8 +164,10 @@ def test_two_processes_rebuild_the_single_run(modbam, tmp_path, indexed):
 def test_dist_coordinator_and_cuda_without_gpu_raise(modbam, tmp_path, monkeypatch):
     import torch
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        _run(cfb, modbam.bam, str(tmp_path / "d"), num_processes=2,
+    # a coordinator for one process is refused (the collective merge itself
+    # runs in tests/test_torch_call_freq_dist.py)
+    with pytest.raises(ValueError, match="requires --num_processes > 1"):
+        _run(cfb, modbam.bam, str(tmp_path / "d"), num_processes=1,
              dist_coordinator="localhost:1")
     npz = str(tmp_path / "aggr.npz")
     save_params(npz, init_aggr_attrnn(1, AggrConfig()))

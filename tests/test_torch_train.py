@@ -239,7 +239,10 @@ def test_step_fuse_matches_single_step(tmp_path):
                                 dict(num_processes=2),
                                 dict(dist_coordinator="localhost:1234")])
 def test_unported_options_raise(kw, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """More than one process needs a coordinator, and a coordinator more
+    than one process (trainm across processes is ported; a half-given
+    layout is refused)."""
+    with pytest.raises(ValueError, match="--dist_coordinator host:port go together"):
         train(TrainConfig(train_file="x", valid_file="y", device="cpu",
                           model_dir=str(tmp_path), **kw))
 

@@ -265,7 +265,9 @@ def test_call_mods_refuses_the_single_strand_families():
 @pytest.mark.parametrize("extra", [["--num_processes", "2"],
                                    ["--dist_coordinator", "localhost:1234"]])
 def test_trainm_refuses_more_than_one_process(extra, tmp_path):
-    with pytest.raises(NotImplementedError, match="next slice"):
+    """--num_processes 2 without a coordinator, or a coordinator for one
+    process, is refused (the multi-process run needs both)."""
+    with pytest.raises(ValueError, match="--dist_coordinator host:port go together"):
         cli.main(["trainm", "--train_file", "x", "--valid_file", "y", "--model_dir",
                   str(tmp_path), "--model_type", "attbigru1s", "--device", "cpu"]
                  + extra)
