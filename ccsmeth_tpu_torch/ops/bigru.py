@@ -42,12 +42,16 @@ the cell and the dtype (``design_calls`` counts K1's calls by design):
   (ub*NG + gate)*8 + i of CTA c holds column gate*H + c*U + 8*ub + i, so a
   thread's accumulators hold every gate of its units;
 - ``simt`` (``csrc/birnn_simt.cu``), exact f32 FMAs (no TF32): per layer
-  K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``) and the
-  inference instantiation of the training forward's cluster recurrence
-  (``rnn_train_rec.cuh``), with ``k45_plan``'s simt geometry (U = min(H, 32),
-  clusters of H / U CTAs, 1024 UPT / U rows a tile). It takes fp32 and the
-  bf16 shapes that ``tc`` refuses, at H = 16 or a multiple of 32 with
-  clusters of 1, 2, 4 or 8 CTAs (H = 16, 32, 64, 128, 256);
+  K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``) and a
+  cluster recurrence written for inference, whose CTAs pass h to each other
+  by bulk copies that complete on barriers in shared memory; its geometry
+  (U units a CTA, clusters of CN = H / U CTAs, R rows a tile, NB h buffers)
+  is ``SIMT_GEOMETRY`` at H = 256 and ``SIMT_SMALL`` below. It takes fp32
+  and the bf16 shapes that ``tc`` refuses, at H = 16 or a multiple of 32
+  with clusters of 1, 2, 4 or 8 CTAs of min(H, 32) units (H = 16, 32, 64,
+  128, 256); the bf16 ones run the inference instantiation of the training
+  forward's recurrence (``rnn_train_rec.cuh``) with ``k45_plan``'s simt
+  geometry;
 - ``l2`` (``csrc/bigru_stack.cu``), the first f32-FMA kernel: the whole stack
   in one launch (K2: ``bigru_layer_launch``, one layer), weights streamed
   from L2. It takes what neither of the others takes (H = 20, 48, 80, 512);
@@ -70,6 +74,10 @@ SRC = "bigru_stack.cu"  # the l2 design
 TC_SRC = "birnn_tc.cu"  # the bf16 tensor-core design
 SIMT_SRC = "birnn_simt.cu"  # the simt design's recurrence
 TC_ROWS = 64  # TC_ROWS in csrc/birnn_tc.cu: rows of a recurrence tile
+# the f32 recurrence's geometry (U, R, NB), instantiated in
+# csrc/birnn_simt.cu: at H = 256 per cell; below, by U = min(H, 32)
+SIMT_GEOMETRY = {"gru": (64, 32, 1), "lstm": (32, 96, 1)}
+SIMT_SMALL = {16: (16, 128, 2), 32: (32, 64, 2)}
 _CELL_CODE = {"gru": 0, "lstm": 1}
 
 launches = 0  # K1 calls (one per birnn_stack call) since the caller last set it to 0
@@ -101,7 +109,9 @@ def _load_simt():
             lib = ctypes.CDLL(build(SIMT_SRC))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.birnn_simt_rec_launch.restype = i
-            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p, i]
+            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 6 + [p, i]
+            lib.birnn_simt_rec_occupancy.restype = i
+            lib.birnn_simt_rec_occupancy.argtypes = [i] * 5 + [p, p, i]
             _simt_lib = lib
     return _simt_lib
 
@@ -186,13 +196,27 @@ def _shared_bytes(C0: int, H: int, bt: int, cell: str = "gru") -> int:
     return (h_arrays * H + max(C0, 2 * H)) * bt * 4
 
 
+def simt_geometry(H: int, cell: str, geometry=None) -> dict:
+    """The f32 recurrence's geometry for H (16, or a multiple of 32 with a
+    cluster of 1, 2, 4 or 8 CTAs of min(H, 32) units) and the cell, or the
+    (U, R, NB) given, as csrc/birnn_simt.cu launches it: {"U", "CN", "rows"
+    (R, a tile), "NB" (h buffers), "threads" (R / 4 x U / 2), "smem" ((H NG
+    U + NB H R) f32 and 32 bytes of barriers a CTA)}."""
+    if geometry is None:
+        geometry = SIMT_GEOMETRY[cell] if H == 256 else SIMT_SMALL[min(H, 32)]
+    U, R, NB = geometry
+    return {"U": U, "CN": H // U, "rows": R, "NB": NB, "threads": (R // 4) * (U // 2),
+            "smem": (H * n_gates(cell) * U + NB * H * R) * 4 + 32}
+
+
 def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
     """The shape rule that picks the design of a CUDA call of K1 or K2
     (module docstring); it depends on H, the cell and the dtype only.
     Returns {"design": "tc", "U", "CN", "smem" (bytes a CTA of the
     recurrence)}, {"design": "simt", "U", "CN", "rows" (a recurrence tile),
-    "smem", "why"} or {"design": "l2", "why", "why_not_simt"}; "why" says
-    why not tc."""
+    "smem", "why"} (fp32 also "NB", "threads": ``simt_geometry``) or
+    {"design": "l2", "why", "why_not_simt"}; "why" says why not tc. A bf16
+    simt plan holds the training forward's geometry."""
     ng = n_gates(cell)
     if compute_dtype != torch.bfloat16:
         why = "fp32 keeps exact f32 arithmetic"
@@ -211,8 +235,10 @@ def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
     simt = bigru_vjp.simt_plan(H, ng)
     if isinstance(simt, str):
         return {"design": "l2", "why": why, "why_not_simt": simt}
-    return {"design": "simt", "U": simt["U"], "CN": simt["CN"],
-            "rows": simt["rows_fwd"], "smem": simt["smem_fwd"], "why": why}
+    if compute_dtype == torch.bfloat16:
+        return {"design": "simt", "U": simt["U"], "CN": simt["CN"],
+                "rows": simt["rows_fwd"], "smem": simt["smem_fwd"], "why": why}
+    return dict(simt_geometry(H, cell), design="simt", why=why)
 
 
 def _stack_l2(layers, x, compute_dtype, cell, H):
@@ -329,8 +355,13 @@ def simt_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     """Phase (b) of the simt design, one layer, both directions, zero h0
     (and c0): xg (2, L*N, G) f32, w_hh (2, H, G) and out (L, N, 2H) in the
     operand type, b_hh (2, G) f32 -> out, hn (2, N, H) f32; the cluster
-    geometry (U, rows) of ``k1_plan``."""
+    geometry (U, rows, NB) of ``k1_plan``. bf16 operands run the
+    training forward's recurrence at its own geometry (``k45_plan``'s simt
+    U and forward rows), whatever ``plan`` holds."""
     H = w_hh.shape[1]
+    if w_hh.dtype == torch.bfloat16:
+        geo = bigru_vjp.simt_plan(H, n_gates(cell))
+        plan = {"U": geo["U"], "rows": geo["rows_fwd"], "NB": 0}
     if out is None:
         out = torch.empty((L, N, 2 * H), dtype=w_hh.dtype, device=xg.device)
     if hn is None:
@@ -340,9 +371,27 @@ def simt_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         rc = _load_simt().birnn_simt_rec_launch(
             _CELL_CODE[cell], DTYPE_CODE[w_hh.dtype], xg.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), out.data_ptr(), hn.data_ptr(), L, N, H, plan["U"],
-            plan["rows"], stream, xg.device.index)
+            plan["rows"], plan["NB"], stream, xg.device.index)
     _launched("birnn_simt recurrence", rc, layer)
     return out, hn
+
+
+def simt_occupancy(H: int, cell: str, plan: dict, device=None) -> int:
+    """Clusters of the f32 recurrence at ``plan``'s geometry that the card
+    holds at once (cudaOccupancyMaxActiveClusters for the kernel, block and
+    shared memory that ``simt_recurrence`` launches); launches nothing."""
+    device = torch.device(device or "cuda")
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _load_simt().birnn_simt_rec_occupancy(
+            _CELL_CODE[cell], H, plan["U"], plan["rows"], plan["NB"],
+            ctypes.addressof(clusters), ctypes.addressof(smem),
+            device.index if device.index is not None else torch.cuda.current_device())
+    if rc != 0:
+        raise RuntimeError("birnn_simt_rec_occupancy failed: cudaError {}".format(rc))
+    if smem.value != plan["smem"]:
+        raise RuntimeError("shared memory {} != the plan's {}".format(smem.value, plan["smem"]))
+    return clusters.value
 
 
 def _run_layer(plan, ly, x, cell, xg, out, hn, layer=False):

@@ -145,8 +145,9 @@ def _tc_plan(H: int, ng: int):
 
 def simt_plan(H: int, ng: int):
     """The simt design's geometry for H and NG gates, or the reason it
-    refuses H; K1's and K2's simt design (``bigru.k1_plan``) runs the same
-    forward recurrence with this geometry. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
+    refuses H; K1's and K2's simt design (``bigru.k1_plan``) takes the same
+    H, and runs this forward recurrence with this geometry on bf16
+    operands. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
     tile; UPT = 2, or 1 where that tile does not fit), a backward thread 4 rows
     x 8 units of the partial (8192 / H rows a tile, halved until it fits)."""
     U = min(H, 32)

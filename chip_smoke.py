@@ -16,7 +16,9 @@ does not print its last line:
      nn.LSTM and the card's bound, with the design that the wrapper's shape
      rule picked (fp32: simt, K4's projection kernel in
      ops/csrc/bigru_train.cu and the inference cluster recurrence of
-     ops/csrc/birnn_simt.cu; bf16: the tensor-core design
+     ops/csrc/birnn_simt.cu, with its geometry, the clusters the card holds
+     at once, the waves, the projection's TFLOP/s and the recurrence's step
+     on one tile and on one full wave; bf16: the tensor-core design
      ops/csrc/birnn_tc.cu), its CUDA launches per call (two a layer), a rerun
      for bit-equal outputs and each phase's time (projections, recurrence,
      the recurrence on 1 and 15 row tiles); kernel K3
@@ -133,8 +135,9 @@ Each turn prints one JSON line; the last line compares the medians.
 
     python3 chip_smoke.py --only determinism,train1s,...
 
-runs the card, the build and the named phases of the one-card training paths
-or ``dist`` (``main_only``), and prints no result line.
+runs the card, the build and the named phases of the one-card training paths,
+``dist`` or ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
+geometry) (``main_only``), and prints no result line.
 """
 
 import json
@@ -425,6 +428,8 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
         plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell), torch)
         library_ms = time_ms(lambda: lib(x), torch)
         phase_ms = _k1_phases_ms(torch, ly, x, cell, plan) if phases else None
+        simt = (_simt_report(torch, cell, plan, ly) if phases and plan["design"] == "simt"
+                and (rows, cin) == (ROWS[0], C) else None)
     flops = bigru.stack_flops(L, rows, cin, H, NL, cell)
     nbytes = (x.numel() * x.element_size()
               + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
@@ -444,7 +449,7 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
            "library_flatten_error": lib.flatten_error,
            "gflop": flops / 1e9,
            "tflops_achieved": flops / kernel_ms / 1e9, "phases_ms": phase_ms,
-           "card": smi}
+           "simt": simt, "card": smi}
     emit(res)
     return res
 
@@ -669,6 +674,7 @@ def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bflo
                               _nbytes(x, out, *ly), dname)
             res = {"phase": "kernel", "name": "bigru_layer", "cell": cell,
                    "rows": rows, "C": cin, "dtype": dname, "design": plan["design"],
+                   "simt": (_simt_geometry(cell, plan) if dname == "float32" else None),
                    "cuda_launches_per_call": cuda_per_call, "rerun_bit_equal": True,
                    "max_abs_err": err, "tol": TOL[dname], "kernel_ms": kernel_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
@@ -678,6 +684,111 @@ def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bflo
             cells.append(res)
             del lib, out, again, ref
     return cells
+
+
+def _chain_fwd(torch, ly, x, cell):
+    """A chain of the training forwards (K4 for the GRU, K6 for the LSTM),
+    layer by layer: (out, h_n), which K1's fp32 out and h_n equal bit for
+    bit."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+    fwd = (bigru_vjp.bigru_layer_train_fwd if cell == "gru"
+           else bilstm_vjp.bilstm_layer_train_fwd)
+    inp, h_ns = x, []
+    hid = ly[0][2].shape[1]
+    for wih, bih, whh, bhh in ly:
+        inp = fwd(inp, wih, bih, whh, bhh, torch.float32)[0]
+        h_ns += [inp[-1, :, :hid], inp[0, :, hid:]]
+    return inp, torch.stack(h_ns)
+
+
+def _simt_geometry(cell, plan):
+    """The fp32 simt design's geometry at H = 256 (``plan``): U, CN, R, NB,
+    threads and shared memory a CTA, the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters) and the waves of 2 ceil(rows / R)
+    clusters at 1,024 and 16,384 rows."""
+    import math
+
+    from ccsmeth_tpu_torch.ops import bigru
+
+    occ = bigru.simt_occupancy(H, cell, plan)
+    return {"U": plan["U"], "CN": plan["CN"], "R": plan["rows"], "NB": plan["NB"],
+            "threads": plan["threads"], "smem": plan["smem"], "resident_clusters": occ,
+            "waves": {str(rows): math.ceil(2 * math.ceil(rows / plan["rows"]) / occ)
+                      for rows in ROWS}}
+
+
+def _simt_report(torch, cell, plan, ly):
+    """``_simt_geometry`` and the recurrence's ms a layer at 1,024 and 16,384
+    rows, its step in us on one row tile and on one full wave, and the
+    projection's TFLOP/s at C = 11 and 2H (1,024 rows) beside torch.mm's;
+    CUDA events, medians."""
+    from ccsmeth_tpu_torch.models.rnn import n_gates
+
+    G = n_gates(cell) * H
+    R = plan["rows"]
+    res = dict(_simt_geometry(cell, plan), recurrence_ms={}, projection_tflops={})
+    occ = res["resident_clusters"]
+    proj, rec, _rows = _phase_fns(plan, ly[0], cell, L)
+    proj1 = _phase_fns(plan, ly[1], cell, L)[0]
+    for rows in ROWS:
+        xg = torch.randn((2, L * rows, G), device="cuda")
+        res["recurrence_ms"][str(rows)] = time_ms(lambda: rec(xg, rows), torch)
+    for name, tiles in (("one_tile", 1), ("one_wave", max(1, occ // 2))):
+        xg = torch.randn((2, L * tiles * R, G), device="cuda")
+        res["step_us_" + name] = time_ms(lambda: rec(xg, tiles * R), torch) * 1e3 / L
+    res["tiles_one_wave"] = max(1, occ // 2)
+    for cin, fn in ((C, proj), (2 * H, proj1)):
+        x2 = torch.randn((L * ROWS[0], cin), device="cuda")
+        xg = fn(x2)
+        ms = time_ms(lambda: fn(x2, xg), torch)
+        res["projection_tflops"]["C={}".format(cin)] = 2 * x2.shape[0] * cin * 2 * G / ms / 1e9
+    # the yardstick: cuBLAS's f32 product (TF32 off) of the same shape, both
+    # directions, without the bias
+    w = torch.randn((2, 2 * H, G), device="cuda")
+    ms = time_ms(lambda: (torch.mm(x2, w[0]), torch.mm(x2, w[1])), torch)
+    flops = 2 * x2.shape[0] * 2 * H * 2 * G
+    res["projection_tflops"]["torch_mm_C={}".format(2 * H)] = flops / ms / 1e9
+    return res
+
+
+# the fp32 recurrence's candidate geometries at H = 256 (U, R, NB), each
+# instantiated in csrc/birnn_simt.cu; the first of a cell is its
+# SIMT_GEOMETRY
+SIMT_SWEEP = {"gru": [(64, 32, 1), (32, 96, 1), (32, 64, 2)],
+              "lstm": [(32, 96, 1), (32, 64, 1)]}
+
+
+def phase_k1_simt_sweep(torch, smi):
+    """K1's fp32 simt design at every candidate geometry (``SIMT_SWEEP``),
+    the models' 3 x 256 stack at 1,024 and 16,384 rows: out and h_n against
+    a chain of the training forwards (bit-equal), ``_simt_report`` and K1's
+    time at both row counts."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.ops import bigru
+
+    dt = torch.float32
+    for cell, geoms in SIMT_SWEEP.items():
+        _np, ly = _layers(torch, dt, "cuda", cell)
+        xs = {rows: torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+            L, rows, C).astype(np.float32)).cuda() for rows in ROWS}
+        refs = {rows: _chain_fwd(torch, ly, x, cell) for rows, x in xs.items()}
+        for geometry in geoms:
+            plan = dict(bigru.simt_geometry(H, cell, geometry), design="simt")
+            equal = {}
+            for rows, x in xs.items():
+                out, hn = bigru._stack_layers(ly, x, dt, cell, H, plan)
+                torch.cuda.synchronize()
+                equal[str(rows)] = bool(torch.equal(out, refs[rows][0])
+                                        and torch.equal(hn, refs[rows][1]))
+            rep = _simt_report(torch, cell, plan, ly)
+            with torch.inference_mode():
+                k1_ms = {str(rows): time_ms(
+                    lambda: bigru._stack_layers(ly, x, dt, cell, H, plan), torch)
+                    for rows, x in xs.items()}
+            emit(dict(rep, phase="k1_simt_sweep", cell=cell, bit_equal_to_chain=equal,
+                      k1_ms=k1_ms, card=smi))
 
 
 def _k2_phases_ms(torch, ly, x, cell, plan):
@@ -1355,7 +1466,7 @@ def phase_flags(torch, smi, single_tags):
     batch, whose records together equal the single run's (``single_tags``,
     the fp32 e2e run); ``--profile_dir``: one trace file, whose kernel
     events name K1's two kernels (the simt design: K4's projection
-    ``gemm_simt_kernel`` and the recurrence ``fwd_rec_simt_kernel``)."""
+    ``gemm_simt_kernel`` and the recurrence ``birnn_rec_kernel``)."""
     import glob
     import shutil
 
@@ -1418,7 +1529,7 @@ def phase_flags(torch, smi, single_tags):
         if e.get("cat") == "kernel":
             kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     k1 = {name: sum(n for k, n in kernels.items() if name in k)
-          for name in ("gemm_simt_kernel", "fwd_rec_simt_kernel")}
+          for name in ("gemm_simt_kernel", "birnn_rec_kernel")}
     assert all(n > 0 for n in k1.values()), sorted(kernels)[:20]
     assert _ml_shares(tags, single_tags)[1] == 1.0  # the trace changes no output
     res["profile"] = {"trace_bytes": os.path.getsize(traces[0]), "events": len(events),
@@ -3036,9 +3147,9 @@ def main_ab(parent):
 def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
     the one-card training paths (train_kernels_small, determinism, train1s,
-    train_te, transfer, aggr_train, wrappers) or the multi-process one
-    (dist), for a short call after a change to one of them; prints no
-    kernels line and no ok line."""
+    train_te, transfer, aggr_train, wrappers), the multi-process one (dist)
+    or K1's fp32 geometry sweep (k1_simt_sweep), for a short call after a
+    change to one of them; prints no kernels line and no ok line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3057,6 +3168,7 @@ def main_only(names):
         "train_te": lambda: phase_train_te(torch, smi, TE_EPOCHS),
         "transfer": lambda: phase_transfer(torch, smi, TRANSFER_EPOCHS),
         "aggr_train": lambda: phase_aggr_train(torch, smi),
+        "k1_simt_sweep": lambda: phase_k1_simt_sweep(torch, smi),
         "dist": lambda: phase_dist(torch, smi),
         "wrappers": phase_wrappers}
     unknown = [n for n in names if n not in phases]
@@ -3177,6 +3289,7 @@ def main():
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+                "simt_geometry": mc["simt"],
                 "cell": "{} rows={} {}".format(MODELS[cell], ROWS[0], dname),
                 "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
                                              "library_ms", "bound_ms", "bound_by",
@@ -3326,6 +3439,7 @@ def main():
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+                "simt_geometry": mc["simt"],
                 "projection_source": (SIMT_PROJECTION if design == "simt"
                                       else "ccsmeth_tpu_torch/ops/csrc/" + src),
                 "cell": "{} rows={} C={} {}".format(MODELS[cell], mc["rows"], mc["C"],

@@ -5,12 +5,14 @@ recurrence in that layout, to models/rnn.py; the planners that pick each
 kernel's design; and the launch counters, which a CPU call leaves alone."""
 
 import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from ccsmeth_tpu_torch.models.rnn import birnn_tm, init_rnn_params, layer_weights, n_gates
+from ccsmeth_tpu_torch.models.rnn import (birnn_tm, gru_cell, init_rnn_params, layer_weights,
+                                          lstm_cell, n_gates)
 from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, transenc
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
 
@@ -194,20 +196,191 @@ def test_k1_plan_sends_other_shapes_to_the_f32_kernel(hidden, layers, cell, dtyp
         assert plan["why_not_simt"].startswith("simt: ")
 
 
+def _simt_source():
+    path = os.path.join(os.path.dirname(bigru.__file__), "csrc", bigru.SIMT_SRC)
+    with open(path) as f:
+        return " ".join(f.read().split())
+
+
+def simt_geometries(src):
+    """{cell: [(U, R, NB), ...]}: the f32 recurrence's instantiations in
+    csrc/birnn_simt.cu (its GRU_GEOMETRIES and LSTM_GEOMETRIES lists)."""
+    found = {"gru": [], "lstm": []}
+    for lstm, *geo in re.findall(r"X\((false|true), (\d+), (\d+), (\d+)\)", src):
+        found["lstm" if lstm == "true" else "gru"].append(tuple(int(v) for v in geo))
+    return found
+
+
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
-def test_k1_plan_simt_is_the_training_forwards_geometry(hidden, cell):
-    """fp32 K1 and K2 run the training forward's simt recurrence, so the
-    rule gives k45_plan's U, clusters and forward tile: U = min(H, 32), H / U
-    CTAs, 1024 UPT / U rows (UPT = 1 for the LSTM at H = 256)."""
+def test_k1_plan_simt_geometry_follows_the_kernel_source(hidden, cell):
+    """fp32 K1 and K2 run csrc/birnn_simt.cu's own recurrence: the rule's
+    geometry is one that the source instantiates for the cell (at H = 256
+    the first of its list), with the source's thread count, shared-memory
+    formula and layout constraints, within the 227 KB and on clusters of
+    1, 2, 4 or 8 CTAs."""
+    src = _simt_source()
     plan = bigru.k1_plan(hidden, cell, torch.float32)
-    k45 = bigru_vjp.k45_plan(hidden, torch.float32, cell)
-    assert plan["design"] == k45["design"] == "simt"
-    assert (plan["U"], plan["CN"], plan["rows"], plan["smem"]) == (
-        k45["U"], k45["CN"], k45["rows_fwd"], k45["smem_fwd"])
-    assert plan["U"] == min(hidden, 32) and plan["U"] * plan["CN"] == hidden
-    upt = 1 if (cell, hidden) == ("lstm", 256) else 2
-    assert plan["rows"] == 1024 * upt // plan["U"] and plan["smem"] <= SMEM_LIMIT
+    U, R, NB = plan["U"], plan["rows"], plan["NB"]
+    geos = simt_geometries(src)[cell]
+    assert plan["design"] == "simt" and (U, R, NB) in geos
+    if hidden == 256:
+        assert (U, R, NB) == geos[0] == bigru.SIMT_GEOMETRY[cell]
+    else:
+        assert U == min(hidden, 32)
+    assert U * plan["CN"] == hidden and plan["CN"] in (1, 2, 4, 8)
+    assert "if (cn != 1 && cn != 2 && cn != 4 && cn != 8) return nullptr;" in src
+    assert "__launch_bounds__((R / 4) * (U / 2), 1) birnn_rec_kernel" in src
+    assert plan["threads"] == (R // 4) * (U // 2) <= 1024
+    assert plan["threads"] % 128 == 0  # whole warps on each of the 4 schedulers
+    assert "static_assert(UG % 8 == 0 && R % 16 == 0 && (NB == 1 || NB == 2)" in src
+    assert (U // 2) % 8 == 0 and R % 16 == 0 and NB in (1, 2)
+    assert "return ((size_t)H * ng * U + (size_t)NB * H * R) * 4 + 32;" in src
+    assert plan["smem"] == (hidden * n_gates(cell) * U + NB * hidden * R) * 4 + 32
+    assert plan["smem"] <= SMEM_LIMIT
+    assert "(N + R - 1) / R" in src  # clusters a direction
+
+
+def simt_ownership(plan, cn):
+    """The kernel's thread -> work map (birnn_rec_kernel's index arithmetic):
+    for CTA rank c and thread t, the tile rows 4 rg + i (i < 4) and the
+    units u0 + 2 ug + e (e < 2) it owns, as arrays (CN, THREADS, 4) and
+    (CN, THREADS, 2)."""
+    U = plan["U"]
+    uw = U // 2 // 8
+    tid = np.arange(plan["threads"])
+    warp, lane = tid >> 5, tid & 31
+    ug = (warp % uw) * 8 + (lane & 7)
+    rg = (warp // uw) * 4 + (lane >> 3)
+    rows = np.broadcast_to(rg[None, :, None] * 4 + np.arange(4), (cn, len(tid), 4))
+    units = (np.arange(cn)[:, None, None] * U + (2 * ug)[None, :, None]
+             + np.arange(2)[None, None, :])
+    return rows, units
+
+
+def test_simt_ownership_model_follows_the_kernel_source():
+    """The model above is the kernel's: the thread's unit and row groups;
+    W_hh staged as [k][gate][u]; for k ascending from 0, h of its 4 rows and
+    W of its 2 units of each gate; and the exchange: unit e of its 4 rows
+    into its own buffer, the CTA's block [u0, u0 + U) x R copied whole to
+    the same place in every other CTA."""
+    src = _simt_source()
+    for line in ("const int ug = (warp % UW) * 8 + (lane & 7);",
+                 "const int rg = (warp / UW) * 4 + (lane >> 3);",
+                 "const int u0 = crank * U;",
+                 "const int unit = u0 + 2 * ug;",
+                 "const int row0 = (blockIdx.x / cn) * R;",
+                 "const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;",
+                 "const int row = row0 + rg * 4 + i;",
+                 "*reinterpret_cast<float4*>(ws + k * NG * U + gate * U + u4 * 4) = "
+                 "__ldg(reinterpret_cast<const float4*>(W + (size_t)k * G + gate * H + u0 + u4 * 4));",
+                 "for (int k = 0; k < H; ++k) {",
+                 "const float4 hv = *reinterpret_cast<const float4*>(hc + k * R + rg * 4);",
+                 "const float* wk = ws + k * NG * U + 2 * ug;",
+                 "const float2 w = *reinterpret_cast<const float2*>(wk + gate * U);",
+                 "acc[i][gate][0] = fmaf(h[i], w.x, acc[i][gate][0]); "
+                 "acc[i][gate][1] = fmaf(h[i], w.y, acc[i][gate][1]);",
+                 "*reinterpret_cast<float4*>(hx + (size_t)(unit + e) * R + rg * 4) = "
+                 "make_float4(hnew[0][e], hnew[1][e], hnew[2][e], hnew[3][e]);",
+                 "const uint32_t src = smem_u32(hx + (size_t)u0 * R);",
+                 "const uint32_t block_bytes = U * R * 4;",
+                 "for (uint32_t r = 1; r < cn; ++r) bulk_to_peer(src, block_bytes, bar, "
+                 "(crank + r) % cn);"):
+        assert line in src, line
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_simt_ownership_covers_every_output_once(hidden, cell):
+    """Across a cluster, the (row, unit) pairs that the threads own, each
+    with every gate, cover the tile's R rows by H units once; the units a
+    CTA owns are its own [c U, (c+1) U), whose h is the one contiguous block
+    [c U R, (c+1) U R) of its buffer that the CTA copies out; and together
+    the blocks fill every (unit, row) of each CTA's buffer once."""
+    plan = bigru.k1_plan(hidden, cell, torch.float32)
+    cn, U, R = plan["CN"], plan["U"], plan["rows"]
+    rows, units = simt_ownership(plan, cn)
+    count = np.zeros((R, hidden), dtype=np.int64)
+    r_idx = np.broadcast_to(rows[:, :, :, None], rows.shape + (2,))
+    u_idx = np.broadcast_to(units[:, :, None, :], r_idx.shape)
+    np.add.at(count, (r_idx.ravel(), u_idx.ravel()), 1)
+    assert (count == 1).all()
+    offsets = u_idx * R + r_idx  # unit u of row r at offset u R + r of the buffer
+    for c in range(cn):
+        assert units[c].min() == c * U and units[c].max() == (c + 1) * U - 1
+        assert sorted(offsets[c].ravel().tolist()) == list(range(c * U * R, (c + 1) * U * R))
+    assert sorted(offsets.ravel().tolist()) == list(range(hidden * R))
+
+
+def simt_model(layers, x, cell, plan):
+    """K1's fp32 simt design on the CPU, structured as the kernel: per layer
+    and direction, tiles of R rows; each CTA of the cluster keeps the tile's
+    h in its own buffer [k][row], filled by the exchange; a step's gate sums
+    of the tile come from that buffer, and each thread takes the (rows,
+    units, gates) it owns (``simt_ownership``), runs the cell on them, stores
+    its outputs and sends its new h to every CTA's buffer. The sums and the
+    gate math are the plain version's (``op(h) @ w_hh + b_hh``,
+    ``gru_cell`` / ``lstm_cell``), so the model differs from
+    ``birnn_stack_plain`` only where the ownership or the exchange does."""
+    L, N, _C = x.shape
+    H, ng = layers[0][2].shape[1], n_gates(cell)
+    cn, R = plan["CN"], plan["rows"]
+    rows, units = simt_ownership(plan, cn)
+    r_idx = np.broadcast_to(rows[:, :, :, None], rows.shape + (2,)).ravel()
+    u_idx = np.broadcast_to(units[:, :, None, :], rows.shape + (2,)).ravel()
+    inp, h_ns = x, []
+    for wih, bih, whh, bhh in layers:
+        flat = inp.float().reshape(L * N, -1)
+        outs = []
+        for d in (0, 1):
+            xg = (flat @ wih[d].float() + bih[d]).reshape(L, N, ng * H)
+            out = torch.zeros((L, N, H))
+            hlast = torch.zeros((N, H))
+            for row0 in range(0, N, R):
+                nr = min(R, N - row0)
+                hs = torch.zeros((cn, H, R))  # each CTA's h buffer, h0 = 0
+                state = torch.zeros((nr, H))  # the LSTM's c, owned like h
+                for s in range(L):
+                    t = s if d == 0 else L - 1 - s
+                    hnew = torch.zeros((R, H))
+                    cnew = torch.zeros((R, H))
+                    for c in range(cn):
+                        h_tile = hs[c].T[:nr].contiguous()
+                        hg = h_tile @ whh[d].float() + bhh[d]
+                        if cell == "gru":
+                            hc = gru_cell(xg[t, row0:row0 + nr], hg, h_tile)[0]
+                            cc = state
+                        else:
+                            hc, cc = lstm_cell(xg[t, row0:row0 + nr] + hg, state)[:2]
+                        # the threads of CTA c own units [c U, (c+1) U) of these rows
+                        own = (u_idx >= c * plan["U"]) & (u_idx < (c + 1) * plan["U"])
+                        own &= r_idx < nr
+                        hnew[r_idx[own], u_idx[own]] = hc[r_idx[own], u_idx[own]]
+                        cnew[r_idx[own], u_idx[own]] = cc[r_idx[own], u_idx[own]]
+                    state = cnew[:nr]
+                    out[t, row0:row0 + nr] = hnew[:nr]
+                    # the exchange: unit u of row r to offset u R + r of every buffer
+                    hs[:] = hnew.T
+                hlast[row0:row0 + nr] = out[L - 1 if d == 0 else 0, row0:row0 + nr]
+            h_ns.append(hlast)
+            outs.append(out)
+        inp = torch.cat(outs, dim=-1)
+    return inp, torch.stack(h_ns)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden,rows", [(16, 13), (32, 70), (64, 5)])
+def test_simt_model_is_bit_equal_to_the_plain_version(hidden, rows, cell):
+    """In fp32 on the CPU the model of the kernel's ownership and exchange,
+    over ragged row tiles and clusters of 1 and 2 CTAs, gives the plain
+    version's out and h_n bit for bit."""
+    rng = np.random.RandomState(hidden + rows)
+    layers = [layer_weights(ld) for ld in init_rnn_params(rng, 11, hidden, 2, cell)]
+    x = torch.from_numpy(rng.randn(7, rows, 11).astype(np.float32))
+    plan = bigru.k1_plan(hidden, cell, torch.float32)
+    out, hn = simt_model(layers, x, cell, plan)
+    ref_out, ref_hn = bigru.birnn_stack_plain(layers, x, torch.float32, cell)
+    assert torch.equal(out, ref_out) and torch.equal(hn, ref_hn)
 
 
 @pytest.mark.parametrize("seq_len,d,ff,nhead", [(21, 256, 512, 4), (21, 64, 128, 4),

@@ -1,17 +1,20 @@
 """Kernels K1 and K2 against their plain PyTorch versions on the card, in
 the three designs of the shape rule ``k1_plan``: simt (fp32; K4's projection
-and the inference instantiation of the training forward's cluster recurrence,
-csrc/birnn_simt.cu), tc (bf16 on the tensor cores, csrc/birnn_tc.cu, also
-phase by phase) and l2 (the first f32 kernel, csrc/bigru_stack.cu, for the
-shapes neither takes); with bit-equal reruns, K1 = a chain of the training
-forwards in fp32, and each call's CUDA launches (K1 = K2 and K2 in its
-other designs: tests/test_torch_transenc_kernels_cuda.py). Needs a CUDA
-device and skips without one.
+and csrc/birnn_simt.cu's inference cluster recurrence), tc (bf16 on the
+tensor cores, csrc/birnn_tc.cu, also phase by phase) and l2 (the first f32
+kernel, csrc/bigru_stack.cu, for the shapes neither takes); with bit-equal
+reruns, K1 = a chain of the training forwards in fp32, sha256 digests of
+K1's and K2's fp32 outputs taken before the simt recurrence was redesigned,
+and each call's CUDA launches (K1 = K2 and K2 in its other designs:
+tests/test_torch_transenc_kernels_cuda.py). Needs a CUDA device and skips
+without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 (tests/conftest.py imports JAX).
 """
+
+import hashlib
 
 import numpy as np
 import pytest
@@ -201,8 +204,9 @@ def _k2_counts():
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 def test_simt_design_matches_plain(cell, rows, hidden, layers):
     """K1 in fp32 (the simt design) against the plain version at ragged row
-    counts, clusters of 1, 2 and 8 CTAs and 2- and 1-unit threads (the LSTM
-    at H = 256): two CUDA launches a layer, and bit-equal on a rerun."""
+    counts, clusters of 1, 2, 4 (the GRU at H = 256) and 8 (the LSTM at H =
+    256) CTAs, with one h buffer and two: two CUDA launches a layer, and
+    bit-equal on a rerun."""
     _need_card()
     dt = torch.float32
     assert bigru.k1_plan(hidden, cell, dt)["design"] == "simt"
@@ -282,3 +286,169 @@ def test_simt_design_in_bf16_matches_plain(cell, hidden, rows):
     assert out.dtype == dt
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL["bfloat16"]
     assert (hn - ref_hn).abs().max().item() <= TOL["bfloat16"]
+
+
+# the cases of the digests below: cell, H, rows, layers, C
+K1_DIGEST_CASES = [(cell, hidden, rows, layers, cin) for cell in ("gru", "lstm")
+                   for hidden in (16, 32, 64, 256) for rows in RAGGED
+                   for layers in (1, 3) for cin in (11, 512)]
+
+# sha256 of ``k1_digest(*case)``, taken on an H100 from the kernels as they
+# were before the fp32 simt design got its own inference recurrence (the
+# training forward's recurrence after K4's projection, as K1 and K2 ran
+# them then): the redesign leaves every bit of K1's and K2's fp32 outputs
+# as it was.
+K1_DIGESTS = {
+    ('gru', 16, 1, 1, 11): "c0eb54cbf68dab041136a86199b6bdad4ecde53ca657cf2b6b5742461c1ffd9a",
+    ('gru', 16, 1, 1, 512): "a1d65971835c7e3a8339e7285b877f3091236fe9312b5ebefbb2d9369bbe64d0",
+    ('gru', 16, 1, 3, 11): "bec1588d6fd8b059793310281e4a9625eb1fcd1ba1a9058100e2ff20937e6bec",
+    ('gru', 16, 1, 3, 512): "1475d1a305b38914108cad939c0670855049cd2f4a2a2944c3ca124d456cbbb7",
+    ('gru', 16, 13, 1, 11): "5efeab1059851219ebb3f82d0c3f342fd0287f485e2761b2c6d560ee9e42695e",
+    ('gru', 16, 13, 1, 512): "33441ec7b91a244ffcd118fe9c9a770aa482898a2bace349e2e8eab97ff42e7a",
+    ('gru', 16, 13, 3, 11): "17606884de7f75a6b6f08edec84396d75e5160c5fcda85cee14775fce3c0373f",
+    ('gru', 16, 13, 3, 512): "f1f5b36c91792d6738691f4d9a971b56d295d158132a347d180f495df695b7ad",
+    ('gru', 16, 1000, 1, 11): "a6046fe51fdbd168fe9c2b11d792d33953aa2435abf3f3cfa3b3c1c038ed4f28",
+    ('gru', 16, 1000, 1, 512): "a7b0030607adb0d7ea1388f7604c19261187650bf7bcd2b953d3b394f3ff827a",
+    ('gru', 16, 1000, 3, 11): "bab1e6dc724c8a7e6437ddf351414b71a332956cca00624cdf5abb3302b16dcf",
+    ('gru', 16, 1000, 3, 512): "6bfe35c136446cd0dadce457a3f1bb2b61c78c95d368fdd35cceca325004a083",
+    ('gru', 16, 1029, 1, 11): "24ae12a0811dfb72fc47be69c719a3d45948111a72dfdce8ca3f474aaf95f85f",
+    ('gru', 16, 1029, 1, 512): "7fafa85d5316326a849ca4c280c8285b9269093f3e31db05b3e2ca3e24d91d9b",
+    ('gru', 16, 1029, 3, 11): "0122378f21837c649c31263134689bb6672719fbe415cb63bcc771968463fe3f",
+    ('gru', 16, 1029, 3, 512): "56308faa7643e1d1f6d55d5aff7ebdb6477f57daa6520920b8c8f0064877bcd9",
+    ('gru', 32, 1, 1, 11): "863a3af8e866434645963e36f7553edde840296b9251bd393a8abd1ca8d2d52d",
+    ('gru', 32, 1, 1, 512): "059624974050df358135f06505c604fe19e319529709e3ae96631d38c4657828",
+    ('gru', 32, 1, 3, 11): "98e6c9436fdab1f2cb4d744bd3938a8db90ba5745713fa5ec75de4b49145447f",
+    ('gru', 32, 1, 3, 512): "4a247d1372f195335de3db8908e38303fb714c33353f41f782e93ac1769dd3cd",
+    ('gru', 32, 13, 1, 11): "a11bdbbcb2fb0dfff8b111c736eb8bd952940c0407a5891fe489d499adfc84b2",
+    ('gru', 32, 13, 1, 512): "2e9920e92924a42aaf119a49c7c1ea5f2e6f7094aaa9bc75a3e079404cc5fe84",
+    ('gru', 32, 13, 3, 11): "05e39d294565f1954838e1d107a2a13475c7d2c7a9bd8ac06b79d6cefc0d5d84",
+    ('gru', 32, 13, 3, 512): "1908121fc96c88862190b988c0b482de435a07eebb166ba4e98c8948299de225",
+    ('gru', 32, 1000, 1, 11): "7033bec00de64239423d69f8c3fab33f63363002d69cca720fe1844056c1b6c6",
+    ('gru', 32, 1000, 1, 512): "55943600d9a60a479542cced1db0a693af464a2e05f359bbba831f74aa8a406c",
+    ('gru', 32, 1000, 3, 11): "e68a8b4286ec41378ef19ee6bea48f04c016305fae7f99fbc4eb329e4ecde433",
+    ('gru', 32, 1000, 3, 512): "81dcc556d0f75de54066cfcd3d6bd00b44dc8747ca86e2ae82689cfb66549b00",
+    ('gru', 32, 1029, 1, 11): "b95bcc554146f1122c6718663253009413ea7e99be9a9f878ea59d26b38f2482",
+    ('gru', 32, 1029, 1, 512): "53ef912caafbd4ae4c5a5bf0903081803e98545402a46d16ba30e8a4e1b5a9be",
+    ('gru', 32, 1029, 3, 11): "dd731d0b0eb458de60b7e5a3db839d96ab42c0488af192a268ba3d5d21b7cfad",
+    ('gru', 32, 1029, 3, 512): "29de0e00fd2893cc2158df99f921a6d7e9e9de8a99d06e149d73ea1b380489bd",
+    ('gru', 64, 1, 1, 11): "1f04ac9553086062f5b6c9de8b08842017eb0b3ee563ac4d1bc64ad0a8262da7",
+    ('gru', 64, 1, 1, 512): "4ab455be9db9be7aa5ca6b239852e37bd3da2398b178a8a3aec6982a7a6d6dd9",
+    ('gru', 64, 1, 3, 11): "dbe9c923c5791379ae1c9bdc53defca9972bbc48f4a4ed5e028cb894f183d60e",
+    ('gru', 64, 1, 3, 512): "da536cb8f0deb13f277ec7434019891ac65edf24bd3e50c1ce7c423373dbf981",
+    ('gru', 64, 13, 1, 11): "184eddfe31e6ea9e614d73dd13ad29c1fced6a1116e29564f6d5bd4530a41359",
+    ('gru', 64, 13, 1, 512): "19eff902484e55bf70ebae0ae09f515b20b0a4fd1ad7a0beb2678ab382eb2b87",
+    ('gru', 64, 13, 3, 11): "b488719c064c0caa264be21a750e3bd7f99c56776f78cfdfa212a4890c8745c3",
+    ('gru', 64, 13, 3, 512): "f658d9a6bcf8c7b0dfe25cbd84bddb09a2247e4c43c1d7db4993e372b60c444b",
+    ('gru', 64, 1000, 1, 11): "dd84b42185a066d502df4716984da917d8d4f1920ad580fc910a39e1d860ea2a",
+    ('gru', 64, 1000, 1, 512): "8fe9fe59caf958af6061cac69c5bc9f42cc0d8befa68be0f0b84ac1526f8aecd",
+    ('gru', 64, 1000, 3, 11): "edf994add3e709f53c67535cdff325eaff58a237afc0ef91592c5689d51f6c13",
+    ('gru', 64, 1000, 3, 512): "b8b4777b87d00043be72b0a00d0581ef1ccce24cbf3a85a642912464ff3502c4",
+    ('gru', 64, 1029, 1, 11): "f8a40b318eca701867e5d6484a117cfd7c96b760488097e2c8908d5fbd2869c7",
+    ('gru', 64, 1029, 1, 512): "3c760a5cd46dea91cc3a5bde36e2e30ed4b3c8bd3aaba755a70ba1838fa6f301",
+    ('gru', 64, 1029, 3, 11): "d3c1383a894243b175750f0de7f1fea61f2209db1ce77a9673e98f9d933b4a9c",
+    ('gru', 64, 1029, 3, 512): "0b38aa54f5bd84ecf3c6ab619ef2becdef5ac8ec36581428d090341c64d362b9",
+    ('gru', 256, 1, 1, 11): "49b574a8b37e76004113f29c854339b49508d3a6aad5800e3706f9bdb750ae62",
+    ('gru', 256, 1, 1, 512): "cbc762b2497638cb08a123c9012bce285a37861aa4f36e93ea17380d8a1b8228",
+    ('gru', 256, 1, 3, 11): "4f56bc13fd793929cff4676d0db2616c20e1cf35cfbc9e85cada17aff151a82d",
+    ('gru', 256, 1, 3, 512): "ff012c95534dc084df4f1b020e8c9ff85f8e5bb74de79ab9e184d37960479a43",
+    ('gru', 256, 13, 1, 11): "09ae4105845ca1f9ac16026840838f274cd451c6ff75b1586fb2cf2309fc2edc",
+    ('gru', 256, 13, 1, 512): "cf238e02a59bf4861126614720e21127364e16c5f0f45eb8a710d716c19e8740",
+    ('gru', 256, 13, 3, 11): "3e7c8b073f2a80b10a00a4633af4313e1223aa01553661b45055ebf7b99d6009",
+    ('gru', 256, 13, 3, 512): "d40390cbdda0d1f67a40c48e6bb5cb741c92763cd57e1cdaec33fb54c1caca8b",
+    ('gru', 256, 1000, 1, 11): "bfc9f6f9c06db4f2bf003e482c627f35703fe1df908af6f47f466ea5620cb4d9",
+    ('gru', 256, 1000, 1, 512): "580552feb9abc8dc74d862ce3a775c34b8dc770a2e669cecd871def5a3570e7c",
+    ('gru', 256, 1000, 3, 11): "f507454f91356b10ed96180b1cbcd00489b8d439b0d27dace836dee367fef5c2",
+    ('gru', 256, 1000, 3, 512): "eec00e68b49d7dfd100d362c0358d98a1c03b10116d5509cb6240f2b62df68b6",
+    ('gru', 256, 1029, 1, 11): "f65bacc8961370a71e3a0300cae96b3e0a301b3ecc6d2c19e30afb277788968a",
+    ('gru', 256, 1029, 1, 512): "2f8673f6d3c17f2f48208d40b7a0b7743dae66ce3201a8bed3fffd2bcb332afb",
+    ('gru', 256, 1029, 3, 11): "1039936b386604af7bf6dac7c1a58d16d64c745dc37afb61472665d8477722c2",
+    ('gru', 256, 1029, 3, 512): "39e16fc686f833a9df24b6388a1b535343c41f642f3e850daa50205ed49c2b78",
+    ('lstm', 16, 1, 1, 11): "4cc1c8a84d8614106931b9699fbee0578aa34529cf1d82be0a305c3f8fe886a7",
+    ('lstm', 16, 1, 1, 512): "d06c53e4e474cf43f23ad60abbf3a86f101de13bb50508c53aa385adff675211",
+    ('lstm', 16, 1, 3, 11): "319e5af568a722a3cf52d44a9cee5d8ae001498873a6b6934b6c335c62f32f26",
+    ('lstm', 16, 1, 3, 512): "008255073517b57b2ea7762f8b619229ad1eb3794c45e4e301b13342ab175744",
+    ('lstm', 16, 13, 1, 11): "e287cced418cc59fdea125a936b896b0d1443035e76d8b8a513451c2edcf41b0",
+    ('lstm', 16, 13, 1, 512): "b1fc2a4f849a5b320fe86abbc80364280ab9e581f8ff7bfcb399ccb0c6908ae7",
+    ('lstm', 16, 13, 3, 11): "2645badea74da877123150d247edf62ecf86701607b909185ce710d1bfa91cd3",
+    ('lstm', 16, 13, 3, 512): "6f57ab4e1b954456c36795c03db6d564342f55bebe3b9e934cf3c37659bf8e89",
+    ('lstm', 16, 1000, 1, 11): "8c9ac800d718885efde5b55a863e1b329e6ec911550828eb46871b50e2a2dc13",
+    ('lstm', 16, 1000, 1, 512): "625a0027937d2bc07008aa85ff3787e4e15ad38202a633c110e140fc30cfef75",
+    ('lstm', 16, 1000, 3, 11): "f71f61824a7479c442c0cd90e12e72d6e3b6407161d7f3a34a9d5f24e9123ec3",
+    ('lstm', 16, 1000, 3, 512): "480e2b603191d322b703737bc40af0ed9cfd5ccea6e609b531b3d710a3299bba",
+    ('lstm', 16, 1029, 1, 11): "b5275d2524cc4c4b3c51e303ccca969384e3cafa93f80d2b77ae3c82c6121ed6",
+    ('lstm', 16, 1029, 1, 512): "6144a9f26d4001123e5f8bf990dc40eddc6435fd366ffa0da8dea02e3ffc7384",
+    ('lstm', 16, 1029, 3, 11): "96db913dc8378916aa464c9e3f7776da1616686c8ce7cdcac4b8e970b24f6002",
+    ('lstm', 16, 1029, 3, 512): "350bf760c5a576a021317de50089f4b23fa643b6f147f7cf1f172be91a8cf629",
+    ('lstm', 32, 1, 1, 11): "24f05891cb7fb0772998ac252a85dd79abf06aaded2a503b88e7daa4756b6cb7",
+    ('lstm', 32, 1, 1, 512): "99f42c3652d8c7f1adf0c2936ecddf09c1767c54b999b6be8e2a4692cfbcf721",
+    ('lstm', 32, 1, 3, 11): "80b373b0a143192b5cb756ca469714f1d032cf3a3f6c237076828fd285047526",
+    ('lstm', 32, 1, 3, 512): "3238ef849423b12a0d54d135bfaa0e73ec8d3585328d97d490b0584e50fa1ed2",
+    ('lstm', 32, 13, 1, 11): "f68ffbd3d89563ea0972f43dfde9f123133c737d00f3bfb47520ecbbe4a8ffed",
+    ('lstm', 32, 13, 1, 512): "1166dd4e97f480f9f32e9ee6914d8b8369d1ad953accb4d8e69a4ed8a6b46db4",
+    ('lstm', 32, 13, 3, 11): "3754aa82e0a4dafe82226c11aabce1987c826ef8c2ba1668cca47eed1c5a486f",
+    ('lstm', 32, 13, 3, 512): "cfd1b720476124f29f8a2679147572a7bd6716fc876221d7690f7e7877a6e2e0",
+    ('lstm', 32, 1000, 1, 11): "ea8f473b39f57d81f148e0f95f54eff27ec366f357cef4dce878882a0ba2d31a",
+    ('lstm', 32, 1000, 1, 512): "1057a34acc08ff8d1975de4d3a473c4ea6b7c496007f2b4c3ab863df0330c476",
+    ('lstm', 32, 1000, 3, 11): "cf25ca7d7204c995b566776c66ec1cf8e2085c8b84d3d7eeae2ba2db867b3128",
+    ('lstm', 32, 1000, 3, 512): "02d0728c28f323016cf30cb086e8cc74bf5cdce5e72ec85a1e2aaec99ee47c51",
+    ('lstm', 32, 1029, 1, 11): "150accbe9ac770a022907057168c7381a45cf6124ff4e72393815961f126d5db",
+    ('lstm', 32, 1029, 1, 512): "319cc63b34acf134deed500fabaf9579c66c09f0b8a42a90f053f90cfdc86f19",
+    ('lstm', 32, 1029, 3, 11): "5f09e6f5ddf5eb46136fe06353fa90ca27045ad62d134bc751877f7eac51b2e8",
+    ('lstm', 32, 1029, 3, 512): "77e9c2c7290c31e606d8abcf6448ec13f3c61f22a5de60e9aabf876aaf35ddc4",
+    ('lstm', 64, 1, 1, 11): "ef855dbbd36928ff96b94b90c230018754cc19a58f8cac3b0d796492b4fedc35",
+    ('lstm', 64, 1, 1, 512): "76a3acdf789eb1cea76eb6f011c06074bf6df86158417d3ac5c8215297bbbcfd",
+    ('lstm', 64, 1, 3, 11): "0e1efee4ec624afd68d94d6308c3135c5389a81db43ceaa06eb6d73d4ae92e11",
+    ('lstm', 64, 1, 3, 512): "1d11b9c3baf6f8f6f5256742a14e60182fb4825de8a589b42ffed1a65d52bcd2",
+    ('lstm', 64, 13, 1, 11): "0335c1cad4e6258247cd844e39bc81148ae2ad354736e44d96da80b1cc4f7c32",
+    ('lstm', 64, 13, 1, 512): "bd9aec62c9bd122cf3f2164fd90cdc2dd76ca5c62dbaf763c76eeac2e7f952af",
+    ('lstm', 64, 13, 3, 11): "cd224dd9131133a4bc2bafa94198ba93775e21018911f45136d31f74591ae8a2",
+    ('lstm', 64, 13, 3, 512): "0c89e74a76bc1912150d77224a345fa42c2305c15efcd5ff5a8581fa17dbb2a9",
+    ('lstm', 64, 1000, 1, 11): "a8a066353b120b02316e1a76ecb9c44d6b3f9b38afb2649d3f5e7b815301cfb7",
+    ('lstm', 64, 1000, 1, 512): "d91ab4c1f2a8fce812ec7cbaee05764783be2f1ce6d9b59debf97f722f871c68",
+    ('lstm', 64, 1000, 3, 11): "6bab28fb6962c23d75953779984128eedb532575420b4a1565027a7ef4d2856e",
+    ('lstm', 64, 1000, 3, 512): "8d8dc7bd87acd518096e88e6bd6e5ed217b4d05cda72784ab62631c1c3f953d2",
+    ('lstm', 64, 1029, 1, 11): "b4a1ab6dd32a5b6ab672824d9886d314d0150b450ae43479532f797116fcea13",
+    ('lstm', 64, 1029, 1, 512): "18ce1283a9fea9126746e648d96adfa4b8b2e171abd26d5c30679abaf7d79ca7",
+    ('lstm', 64, 1029, 3, 11): "c9bb5f646a49eedbfca651152b73fbeb0e96e95fae17a9c0a270ed79d63bf7d4",
+    ('lstm', 64, 1029, 3, 512): "0c0c92dcf58e47dbbfd9a7025f424cbe3b0d5ee8ff30ddd0823efabbe20905ac",
+    ('lstm', 256, 1, 1, 11): "bf1a90fcb28f9447a1fc657a6972f5d8200dbb9a2591969b2279f2a8f736db2b",
+    ('lstm', 256, 1, 1, 512): "55b465e48e6ce15db6ed9108985e60d9ed1fc4c8c2cfa54e99206b521523705c",
+    ('lstm', 256, 1, 3, 11): "67f646e385366576c1168ccd31b41601ef05c1c52f2d712ab535dcb9aea850bf",
+    ('lstm', 256, 1, 3, 512): "b092788a2933ce5a024562730ea76393e94c608bdae53610d5dfe7f99fda0958",
+    ('lstm', 256, 13, 1, 11): "12759a9214ea5c94cfda2f9d8c64cd2ac6e323fd5222ac22b7232d5e43d1e2d1",
+    ('lstm', 256, 13, 1, 512): "af89f015a340404117de3d1bc56b1f32dbc3b0127649e8666906101a53a98bbd",
+    ('lstm', 256, 13, 3, 11): "e8690e60c3d643d200e83d2fd21b1349430b954d538b9a71077d15575f294928",
+    ('lstm', 256, 13, 3, 512): "245b2be07848f477f23952cae390c9f481ba42f6c0cdb1dc8ed09fa5a0404504",
+    ('lstm', 256, 1000, 1, 11): "cd84d90a437fc9670313be75962cf536b9ce8f8f7b7fd86a81d90f89a403bc34",
+    ('lstm', 256, 1000, 1, 512): "1ddac84be0afc7b2995f89a8136ebb695a5a2b98ae3399bb52abd8203bf79f25",
+    ('lstm', 256, 1000, 3, 11): "c499fb6345daa94a63933b266e230dbba9fe59b4e4971df9e6f31d370c5ed057",
+    ('lstm', 256, 1000, 3, 512): "7d8f800cc0118fe90498a0e9bc6d144bc6f14cf706a217247083367b01ab7a5e",
+    ('lstm', 256, 1029, 1, 11): "7b1e1c34b5cee880ce56efe4441e361d5d01bcf5806ffa0f9b36bddd1a38c46a",
+    ('lstm', 256, 1029, 1, 512): "3380b32842dc2f6541605d4027f5318e0a57ce762e637df27251390c4cb76b6c",
+    ('lstm', 256, 1029, 3, 11): "4a8e117f983d3ce67bbe43c90179b1b7a8c02aba2adf73bb1fb417cb4f44dccd",
+    ('lstm', 256, 1029, 3, 512): "3ed0538a5752bff001fbaa70265e9a654beb66726e801ad80578e73d8a1c94ec",
+}
+
+
+def k1_digest(cell, hidden, rows, layers, cin):
+    """sha256 over the bytes of K1's fp32 out and h_n and K2's fp32 out (the
+    layers one launch each) on one case."""
+    dt = torch.float32
+    rng = np.random.RandomState(1000 * hidden + 100 * layers + rows + cin)
+    ly = [layer_weights(ld, dt, "cuda")
+          for ld in init_rnn_params(rng, cin, hidden, layers, cell)]
+    x = torch.from_numpy(rng.randn(21, rows, cin).astype(np.float32)).to("cuda")
+    out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    out2 = bigru.birnn_layers(ly, x, dt, cell)[0]
+    h = hashlib.sha256()
+    for t in (out, hn, out2):
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K1_DIGEST_CASES)
+def test_k1_simt_outputs_bit_equal_to_before_the_redesign(case):
+    _need_card()
+    assert bigru.k1_plan(case[1], case[0], torch.float32)["design"] == "simt"
+    assert k1_digest(*case) == K1_DIGESTS[case]
