@@ -33,14 +33,20 @@ h_n is scratch there). ``bigru_layer`` is the batch-major one-layer GRU entry
 ``k1_plan`` is the shape rule of both: it picks one of three designs from H,
 the cell and the dtype (``design_calls`` counts K1's calls by design):
 
-- ``tc`` (``csrc/birnn_tc.cu``), bf16 on the tensor cores: per layer one
-  input-projection kernel and one recurrence kernel whose clusters of
-  CN = H / U CTAs keep W_hh in shared memory, U = the largest of 64, 32, 16
-  that divides H. It takes bf16 with H % 16 == 0, CN in {1, 2, 4, 8} and a
-  recurrence tile within the 227 KB of shared memory (H = 16, 64, 256, 128).
-  The recurrence kernel stages its own W_hh slice, gate-interleaved: row
-  (ub*NG + gate)*8 + i of CTA c holds column gate*H + c*U + 8*ub + i, so a
-  thread's accumulators hold every gate of its units;
+- ``tc`` (``csrc/birnn_tc.cu``), bf16 on Hopper's wgmma: per layer one
+  input-projection kernel (TMA + wgmma for Cin % 8 == 0, else the mma.sync
+  GEMM; counted by kernel in ``tc_projection_calls``) and one recurrence
+  kernel whose clusters of CN = H / U CTAs keep W_hh in shared memory and
+  run the step's product on wgmma, U = the largest of 64, 32, 16 that
+  divides H; the geometry (U, MR row blocks of 64 a CTA, WN warpgroups
+  across the units) is ``TC_GEOMETRY`` at H = 256 and ``TC_BY_U`` below.
+  It takes bf16 with H % 16 == 0, CN in {1, 2, 4, 8} and a CTA within the
+  227 KB of shared memory (H = 16, 32, 64, 128, 256). Layer 0 (Cin <= 64,
+  where its slice of W_ih fits beside W_hh: ``tc_fused_kx``) runs its
+  projection inside the recurrence kernel, one launch and no xg in device
+  memory. The recurrence kernel stages its own W_hh slice, gate-interleaved:
+  row (ub*NG + gate)*8 + i of CTA c holds column gate*H + c*U + 8*ub + i,
+  so a thread's accumulators hold every gate of its units;
 - ``simt`` (``csrc/birnn_simt.cu``), exact f32 FMAs (no TF32): per layer
   K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``) and a
   cluster recurrence written for inference, whose CTAs pass h to each other
@@ -57,7 +63,9 @@ the cell and the dtype (``design_calls`` counts K1's calls by design):
   from L2. It takes what neither of the others takes (H = 20, 48, 80, 512);
   its own limits (H % 4 == 0, H <= 1024, NL <= 8) raise.
 
-A tc or simt call of K1 is two CUDA launches a layer, an l2 call one."""
+A simt call of K1 is two CUDA launches a layer; a tc call is two a layer
+less one for a fused layer 0 (5 for the models' 3 layers at Cin = 11); an
+l2 call one."""
 
 from __future__ import annotations
 
@@ -73,7 +81,13 @@ from .kernel_args import DTYPE_CODE, SMEM_LIMIT, THREADS, tile_shape
 SRC = "bigru_stack.cu"  # the l2 design
 TC_SRC = "birnn_tc.cu"  # the bf16 tensor-core design
 SIMT_SRC = "birnn_simt.cu"  # the simt design's recurrence
-TC_ROWS = 64  # TC_ROWS in csrc/birnn_tc.cu: rows of a recurrence tile
+# the bf16 recurrence's geometry (U, MR, WN): U units a CTA, MR row blocks
+# of 64 (a tile of 64 MR rows), WN warpgroups across the units; instantiated
+# in csrc/birnn_tc.cu (TC_GEOMETRIES): at H = 256 per cell; otherwise by U,
+# the largest of 64, 32, 16 that divides H
+TC_GEOMETRY = {"gru": (64, 2, 2), "lstm": (64, 2, 2)}
+TC_BY_U = {16: (16, 2, 1), 32: (32, 2, 2), 64: (64, 2, 2)}
+TC_FUSED_KX = (16, 32, 64)  # k extents of a fused layer-0 projection
 # the f32 recurrence's geometry (U, R, NB), instantiated in
 # csrc/birnn_simt.cu: at H = 256 per cell; below, by U = min(H, 32)
 SIMT_GEOMETRY = {"gru": (64, 32, 1), "lstm": (32, 96, 1)}
@@ -88,6 +102,9 @@ layer_launches = 0  # K2 calls (one per layer)
 layer_cuda_launches = 0  # K2's CUDA launches, counted at each launch
 layer_plain_calls = 0  # K2 plain-version runs (one per layer)
 layer_design_calls = {"tc": 0, "simt": 0, "l2": 0}  # K2's CUDA calls by design
+# the tc design's projection launches (K1's and K2's) by kernel: TMA + wgmma,
+# or the mma.sync GEMM for Cin % 8 != 0
+tc_projection_calls = {"wgmma": 0, "mma": 0}
 
 _lib = None
 _tc_lib = None
@@ -124,8 +141,12 @@ def _load_tc():
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.birnn_tc_proj_launch.restype = i
             lib.birnn_tc_proj_launch.argtypes = [i] + [p] * 5 + [i] * 3 + [p, i]
+            lib.birnn_tc_gemm_launch.restype = i
+            lib.birnn_tc_gemm_launch.argtypes = [i] + [p] * 5 + [i] * 3 + [p, i]
             lib.birnn_tc_rec_launch.restype = i
-            lib.birnn_tc_rec_launch.argtypes = [i] + [p] * 5 + [i] * 4 + [p, i]
+            lib.birnn_tc_rec_launch.argtypes = [i] + [p] * 8 + [i] * 8 + [p, i]
+            lib.birnn_tc_rec_occupancy.restype = i
+            lib.birnn_tc_rec_occupancy.argtypes = [i] * 6 + [p, p, i]
             _tc_lib = lib
     return _tc_lib
 
@@ -209,29 +230,76 @@ def simt_geometry(H: int, cell: str, geometry=None) -> dict:
             "smem": (H * n_gates(cell) * U + NB * H * R) * 4 + 32}
 
 
+def tc_smem(H: int, cell: str, U: int, rows: int, kx: int = 0) -> int:
+    """Shared memory a CTA of the bf16 recurrence (csrc/birnn_tc.cu's
+    tc_rec_smem): W_hh's slice and h, each H / 64 K blocks (at least one) of
+    128-byte rows; with a fused projection (kx), W_ih's slice, the GRU's
+    n-gate W_ih and x_t, each in 1024-byte units; 16 bytes of barriers and
+    the f32 bias tables."""
+    ng = n_gates(cell)
+    kbh, nc = -(-H // 64), ng * U
+
+    def r1024(v):
+        return -(-v // 1024) * 1024
+
+    fused = 0
+    if kx:
+        fused = r1024(nc * 2 * kx) + (r1024(U * 2 * kx) if ng == 3 else 0) + r1024(rows * 2 * kx)
+    return kbh * nc * 128 + kbh * rows * 128 + fused + 16 + 4 * nc + 4 * U
+
+
+def tc_units(H: int) -> int:
+    """U of the bf16 design: the largest of 64, 32, 16 that divides H."""
+    return next(u for u in (64, 32, 16) if H % u == 0)
+
+
+def tc_geometry(H: int, cell: str, geometry=None) -> dict:
+    """The bf16 recurrence's geometry for H and the cell, or the (U, MR, WN)
+    given, as csrc/birnn_tc.cu launches it: {"U", "CN", "MR", "WN", "rows"
+    (64 MR, a tile), "threads" (128 MR WN), "smem" (unfused: ``tc_smem``)}."""
+    if geometry is None:
+        geometry = TC_GEOMETRY[cell] if H == 256 else TC_BY_U[tc_units(H)]
+    U, MR, WN = geometry
+    rows = 64 * MR
+    return {"U": U, "CN": H // U, "MR": MR, "WN": WN, "rows": rows,
+            "threads": 128 * MR * WN, "smem": tc_smem(H, cell, U, rows)}
+
+
+def tc_fused_kx(plan: dict, C: int, cell: str, H: int) -> int:
+    """The k extent (16, 32 or 64) with which a tc plan runs a layer of
+    input width C with its projection inside the recurrence kernel, or 0:
+    C <= 64, a fused instantiation of the geometry (not the GRU's U = 128)
+    and room in shared memory."""
+    kx = next((k for k in TC_FUSED_KX if C <= k), 0)
+    if not kx or plan["U"] > 64:
+        return 0
+    return kx if tc_smem(H, cell, plan["U"], plan["rows"], kx) <= SMEM_LIMIT else 0
+
+
 def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
     """The shape rule that picks the design of a CUDA call of K1 or K2
     (module docstring); it depends on H, the cell and the dtype only.
-    Returns {"design": "tc", "U", "CN", "smem" (bytes a CTA of the
-    recurrence)}, {"design": "simt", "U", "CN", "rows" (a recurrence tile),
-    "smem", "why"} (fp32 also "NB", "threads": ``simt_geometry``) or
-    {"design": "l2", "why", "why_not_simt"}; "why" says why not tc. A bf16
-    simt plan holds the training forward's geometry."""
+    Returns {"design": "tc", "U", "CN", "MR", "WN", "rows", "threads",
+    "smem" (bytes a CTA of the unfused recurrence): ``tc_geometry``},
+    {"design": "simt", "U", "CN", "rows" (a recurrence tile), "smem", "why"}
+    (fp32 also "NB", "threads": ``simt_geometry``) or {"design": "l2",
+    "why", "why_not_simt"}; "why" says why not tc. A bf16 simt plan holds
+    the training forward's geometry."""
     ng = n_gates(cell)
     if compute_dtype != torch.bfloat16:
         why = "fp32 keeps exact f32 arithmetic"
     elif H % 16 != 0:
         why = "H % 16 != 0"
     else:
-        U = next(u for u in (64, 32, 16) if H % u == 0)
-        cn = H // U
-        smem = (ng * U + 2 * TC_ROWS) * (H + 8) * 2
+        cn = H // tc_units(H)
         if cn not in (1, 2, 4, 8):
             why = "a cluster of {} CTAs".format(cn)
-        elif smem > SMEM_LIMIT:
-            why = "{} bytes of shared memory a CTA".format(smem)
         else:
-            return {"design": "tc", "U": U, "CN": cn, "smem": smem}
+            geo = tc_geometry(H, cell)
+            if geo["smem"] > SMEM_LIMIT:
+                why = "{} bytes of shared memory a CTA".format(geo["smem"])
+            else:
+                return dict(geo, design="tc")
     simt = bigru_vjp.simt_plan(H, ng)
     if isinstance(simt, str):
         return {"design": "l2", "why": why, "why_not_simt": simt}
@@ -293,40 +361,83 @@ def tc_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
                   layer: bool = False) -> torch.Tensor:
     """Phase (a) of the tc design, one layer: x (M, K) bf16, w_ih (2, K, G)
     bf16, biases (2, G) f32 -> xg (2, M, G) f32 = x w_ih[d] + b_ih[d] + the
-    b_hh[d] columns outside the reset product (GRU: r, z; LSTM: all). The
-    launch counts as K2's when ``layer``, else as K1's."""
+    b_hh[d] columns outside the reset product (GRU: r, z; LSTM: all). K % 8
+    == 0 runs the TMA + wgmma GEMM, other K the mma.sync one (TMA needs
+    16-byte row strides). The launch counts as K2's when ``layer``, else as
+    K1's."""
     M, K = x.shape
     G = w_ih.shape[2]
     H = G // n_gates(cell)
     if xg is None:
         xg = torch.empty((2, M, G), dtype=torch.float32, device=x.device)
+    kernel = "wgmma" if K % 8 == 0 else "mma"
+    entry = "birnn_tc_gemm_launch" if kernel == "wgmma" else "birnn_tc_proj_launch"
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        rc = _load_tc().birnn_tc_proj_launch(
+        rc = getattr(_load_tc(), entry)(
             _CELL_CODE[cell], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), xg.data_ptr(), M, K, H, stream, x.device.index)
-    _launched("birnn_tc projection", rc, layer)
+    _launched(entry, rc, layer)
+    tc_projection_calls[kernel] += 1
     return xg
 
 
-def tc_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
-                  L: int, N: int, U: int, cell: str = "gru", out=None, hn=None,
-                  layer: bool = False):
+def tc_recurrence(xg, w_hh: torch.Tensor, b_hh: torch.Tensor, L: int, N: int, plan: dict,
+                  cell: str = "gru", out=None, hn=None, layer: bool = False,
+                  fused=None):
     """Phase (b) of the tc design, one layer, both directions, zero h0 (and
     c0): xg (2, L*N, G) f32, w_hh (2, H, G) bf16, b_hh (2, G) f32 -> out
-    (L, N, 2H) bf16, hn (2, N, H) f32; U hidden units a CTA (``k1_plan``)."""
+    (L, N, 2H) bf16, hn (2, N, H) f32, at ``plan``'s geometry (U, MR, WN:
+    ``k1_plan`` or ``tc_geometry``). ``fused`` = (x (L, N, C), w_ih (2, C,
+    G), b_ih (2, G)) runs the layer's projection inside the kernel instead
+    (xg unread, may be None; C within ``tc_fused_kx``)."""
     H = w_hh.shape[1]
+    dev = w_hh.device
     if out is None:
-        out = torch.empty((L, N, 2 * H), dtype=torch.bfloat16, device=xg.device)
+        out = torch.empty((L, N, 2 * H), dtype=torch.bfloat16, device=dev)
     if hn is None:
-        hn = torch.empty((2, N, H), dtype=torch.float32, device=xg.device)
-    stream = torch.cuda.current_stream(xg.device).cuda_stream
-    with torch.cuda.device(xg.device):
+        hn = torch.empty((2, N, H), dtype=torch.float32, device=dev)
+    x = w_ih = b_ih = None
+    C = kx = 0
+    if fused is not None:
+        x, w_ih, b_ih = fused
+        C = x.shape[2]
+        kx = tc_fused_kx(plan, C, cell, H)
+        if not kx:
+            raise ValueError("the tc recurrence does not fuse a projection of width {} "
+                             "at U = {}, {} rows".format(C, plan["U"], plan["rows"]))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         rc = _load_tc().birnn_tc_rec_launch(
-            _CELL_CODE[cell], xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
-            out.data_ptr(), hn.data_ptr(), L, N, H, U, stream, xg.device.index)
+            _CELL_CODE[cell], ptr(xg), ptr(x), ptr(w_ih), ptr(b_ih), w_hh.data_ptr(),
+            b_hh.data_ptr(), out.data_ptr(), hn.data_ptr(), L, N, H, C, plan["U"],
+            plan["MR"], plan["WN"], kx, stream, dev.index)
     _launched("birnn_tc recurrence", rc, layer)
     return out, hn
+
+
+def tc_occupancy(H: int, cell: str, plan: dict, kx: int = 0, device=None) -> int:
+    """Clusters of the bf16 recurrence at ``plan``'s geometry (and a fused
+    projection of k extent ``kx``) that the card holds at once
+    (cudaOccupancyMaxActiveClusters for the kernel, block and shared memory
+    that ``tc_recurrence`` launches); launches nothing."""
+    device = torch.device(device or "cuda")
+    clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _load_tc().birnn_tc_rec_occupancy(
+            _CELL_CODE[cell], H, plan["U"], plan["MR"], plan["WN"], kx,
+            ctypes.addressof(clusters), ctypes.addressof(smem),
+            device.index if device.index is not None else torch.cuda.current_device())
+    if rc != 0:
+        raise RuntimeError("birnn_tc_rec_occupancy failed: cudaError {}".format(rc))
+    want = tc_smem(H, cell, plan["U"], plan["rows"], kx)
+    if smem.value != want:
+        raise RuntimeError("shared memory {} != the plan's {}".format(smem.value, want))
+    return clusters.value
 
 
 def simt_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
@@ -396,15 +507,27 @@ def simt_occupancy(H: int, cell: str, plan: dict, device=None) -> int:
 
 def _run_layer(plan, ly, x, cell, xg, out, hn, layer=False):
     """One layer in the tc or simt design: the projection of x (L, N, C)
-    into xg, then the recurrence into out and hn."""
+    into xg, then the recurrence into out and hn; a tc layer whose width
+    ``tc_fused_kx`` takes runs both in the recurrence kernel (xg unused)."""
     L, N, C = x.shape
     wih, bih, whh, bhh = ly
     if plan["design"] == "tc":
-        tc_projection(x.view(L * N, C), wih, bih, bhh, cell, xg, layer)
-        tc_recurrence(xg, whh, bhh, L, N, plan["U"], cell, out, hn, layer)
+        if tc_fused_kx(plan, C, cell, whh.shape[1]):
+            tc_recurrence(None, whh, bhh, L, N, plan, cell, out, hn, layer, (x, wih, bih))
+        else:
+            tc_projection(x.view(L * N, C), wih, bih, bhh, cell, xg, layer)
+            tc_recurrence(xg, whh, bhh, L, N, plan, cell, out, hn, layer)
     else:
         simt_projection(x.view(L * N, C), wih, bih, bhh, cell, xg, layer)
         simt_recurrence(xg, whh, bhh, L, N, plan, cell, out, hn, layer)
+
+
+def _xg_for(plan, widths, L, N, H, cell, device):
+    """The f32 projection buffer (2, L*N, G) that layers of input widths
+    ``widths`` need, or None when every one fuses its projection (tc)."""
+    if plan["design"] == "tc" and all(tc_fused_kx(plan, c, cell, H) for c in widths):
+        return None
+    return torch.empty((2, L * N, n_gates(cell) * H), dtype=torch.float32, device=device)
 
 
 def _stack_layers(layers, x, compute_dtype, cell, H, plan):
@@ -412,14 +535,13 @@ def _stack_layers(layers, x, compute_dtype, cell, H, plan):
     recurrence; one xg for all layers, the layers' outputs alternating
     between two buffers, the last is ``out``."""
     global launches
-    L, N, _C0 = x.shape
+    L, N, C0 = x.shape
     NL = len(layers)
     bufs = [torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
             for _ in range(min(NL, 2))]
     hn = torch.empty((2 * NL, N, H), dtype=torch.float32, device=x.device)
     # the input projection of one layer, both directions, in f32
-    xg = torch.empty((2, L * N, n_gates(cell) * H), dtype=torch.float32,
-                     device=x.device)
+    xg = _xg_for(plan, [C0] + [2 * H] * (NL - 1), L, N, H, cell, x.device)
     inp = x
     for li, ly in enumerate(layers):
         out = bufs[(NL - 1 - li) % 2]
@@ -503,8 +625,9 @@ def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
     CUDA, the plain version on CPU. layer: (w_ih (2, C, G), b_ih (2, G) f32,
     w_hh (2, H, G), b_hh (2, G) f32), weights in compute_dtype; x (L, N, C)
     contiguous in compute_dtype -> out (L, N, 2H) in compute_dtype, both
-    directions in time order. ``k1_plan`` picks the design, as for K1: tc and
-    simt are two CUDA launches, l2 one."""
+    directions in time order. ``k1_plan`` picks the design, as for K1: simt
+    is two CUDA launches, tc two or (a fused projection, C <= 64) one, l2
+    one."""
     global layer_launches
     H = _check([layer], x, compute_dtype, cell)
     if x.device.type == "cpu":
@@ -518,10 +641,9 @@ def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
     if plan["design"] == "l2":
         out = _layer_l2(layer, x, compute_dtype, cell, H)
     else:
-        L, N, _C = x.shape
+        L, N, C = x.shape
         out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=x.device)
-        xg = torch.empty((2, L * N, n_gates(cell) * H), dtype=torch.float32,
-                         device=x.device)
+        xg = _xg_for(plan, [C], L, N, H, cell, x.device)
         hn = torch.empty((2, N, H), dtype=torch.float32, device=x.device)  # scratch
         _run_layer(plan, layer, x, cell, xg, out, hn, layer=True)
     layer_launches += 1

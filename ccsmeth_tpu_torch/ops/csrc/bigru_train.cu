@@ -62,8 +62,8 @@
 //          bit-equal.
 //   Routes:
 //   - tc (bf16): the products on the tensor cores, mma.sync.m16n8k16 with
-//     f32 sums, fragments by ldmatrix (mma_tile.cuh). K4 (b) is K1-tc's
-//     cluster recurrence (birnn_tc.cu) plus the residual stores: 64 rows a
+//     f32 sums, fragments by ldmatrix (mma_tile.cuh). K4 (b) is an
+//     mma.sync cluster recurrence with the residual stores: 64 rows a
 //     tile, U = 64 (CN = 4 at H = 256), W_hh gate-interleaved so a thread's
 //     accumulators hold every gate of its units; 168,960 bytes a CTA. K5 (a):
 //     32 rows a tile, U = 64; W_hh staged [unit j][own gate column k] and

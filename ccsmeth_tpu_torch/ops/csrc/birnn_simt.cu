@@ -51,6 +51,7 @@
 //   it.
 
 #include "rnn_train_rec.cuh"
+#include "wgmma_tile.cuh"  // the mbarriers and bulk copies
 #include "entry_device.cuh"
 
 struct RecParams {
@@ -61,58 +62,6 @@ struct RecParams {
   float* hn;         // (2, N, H): each direction's last h
   int L, N, H;
 };
-
-// ---- mbarriers and bulk copies between the CTAs of a cluster
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// this thread's arrival, announcing `bytes` of bulk copies into the phase
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// an arrival on the barrier at the same offset in the cluster's CTA `rank`
-__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` to complete; a wait that never ends
-// (a broken protocol) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1u << 24)) __trap();
-  }
-}
-
-// `bytes` of this CTA's shared memory at `src` to the same offset in CTA
-// `rank`, completing on that CTA's barrier at offset `bar`
-__device__ __forceinline__ void bulk_to_peer(uint32_t src, uint32_t bytes, uint32_t bar,
-                                             uint32_t rank) {
-  uint32_t dst, rbar;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(src), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(rank));
-  asm volatile(
-      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(dst),
-      "r"(src), "r"(bytes), "r"(rbar)
-      : "memory");
-}
 
 // U units a CTA, R rows a tile, NB h buffers. Thread (rg, ug) owns rows 4 rg
 // .. 4 rg + 3 and units 2 ug, 2 ug + 1 (local) of every gate: 4 NG 2 sums,

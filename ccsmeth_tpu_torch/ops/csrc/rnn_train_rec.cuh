@@ -37,8 +37,8 @@
 //     Backward: a thread owns 4 rows x 8 units of the partial; R rows a tile,
 //     8192 / H or fewer where that does not fit (threads past R idle).
 //   tc (bf16): mma.sync.m16n8k16 with f32 sums, fragments by ldmatrix
-//     (mma_tile.cuh). Forward: K1-tc's recurrence (birnn_tc.cu) plus the
-//     residual stores, 64 rows a tile, W_hh gate-interleaved so a thread's
+//     (mma_tile.cuh). Forward: a cluster recurrence with the residual
+//     stores, 64 rows a tile, W_hh gate-interleaved so a thread's
 //     accumulators hold every gate of its units. Backward: 32 rows a tile,
 //     W_hh staged [unit j][own gate column k] and dg [row][k], both
 //     k-contiguous bf16, each warp one 16-row tile by H / 4 units.
@@ -292,8 +292,8 @@ __global__ void __launch_bounds__(REC_THREADS, 1) fwd_rec_simt_kernel(const FwdR
   }
 }
 
-// tc (bf16): K1-tc's recurrence (birnn_tc.cu::rnn_rec_kernel) with the
-// residual stores. U hidden units a CTA; 8 warps as WR (rows) x WU (unit
+// tc (bf16): the mma.sync cluster recurrence with the residual stores. U
+// hidden units a CTA; 8 warps as WR (rows) x WU (unit
 // blocks of 8), each warp MT row tiles of 16 by UT unit blocks, every gate.
 template <bool LSTM, int U>
 __global__ void __launch_bounds__(REC_THREADS, 1) fwd_rec_tc_kernel(const FwdRecParams p) {

@@ -19,9 +19,12 @@ does not print its last line:
      ops/csrc/birnn_simt.cu, with its geometry, the clusters the card holds
      at once, the waves, the projection's TFLOP/s and the recurrence's step
      on one tile and on one full wave; bf16: the tensor-core design
-     ops/csrc/birnn_tc.cu), its CUDA launches per call (two a layer), a rerun
-     for bit-equal outputs and each phase's time (projections, recurrence,
-     the recurrence on 1 and 15 row tiles); kernel K3
+     ops/csrc/birnn_tc.cu on wgmma, with its geometry, resident clusters,
+     waves, the fused layer 0, the TMA + wgmma projection's TFLOP/s beside
+     torch.mm's and the step on one tile and one wave), its CUDA launches
+     per call (two a layer, one for a tc layer 0 whose projection fuses), a
+     rerun for bit-equal outputs and each phase's time (projections,
+     recurrence, the recurrence on 1 and 15 row tiles); kernel K3
      (transencoder2s: 6 layers, d_model 256, 4 heads, FF 512, L=21; fp32:
      the simt design ops/csrc/transenc_simt.cu, bf16: the tensor-core design
      ops/csrc/transenc_tc.cu) at 2B = 1024 and 16384 samples, fp32 and
@@ -136,8 +139,11 @@ Each turn prints one JSON line; the last line compares the medians.
     python3 chip_smoke.py --only determinism,train1s,...
 
 runs the card, the build and the named phases of the one-card training paths,
-``dist`` or ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
-geometry) (``main_only``), and prints no result line.
+``dist``, ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
+geometry), ``k1_tc_sweep`` (K1's bf16 design at each candidate geometry
+of its recurrence) or ``k1_tc_probe`` (the bf16 recurrence's step split
+into its parts by clock marks in a copy of its source) (``main_only``),
+and prints no result line.
 """
 
 import json
@@ -162,6 +168,9 @@ AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the simt design of K1 and K2 projects with K4's kernel
 SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu"
+# the tc design's kernels and the header of its wgmma, TMA and mbarrier pieces
+TC_SOURCES = ("ccsmeth_tpu_torch/ops/csrc/birnn_tc.cu",
+              "ccsmeth_tpu_torch/ops/csrc/wgmma_tile.cuh")
 # K3's pooled output: fp32 1e-4 (six layers of products summed in another
 # order than cuBLAS's); bf16 2e-2, since an f32 sum in another order can
 # round a product operand to the neighbouring bf16 value and six layers
@@ -341,9 +350,8 @@ def _phase_fns(plan, ly, cell, Lx, layer=False):
             return bigru.tc_projection(x2, wih, bih, bhh, cell, xg, layer)
 
         def rec(xg, rows, out=None):
-            return bigru.tc_recurrence(xg, whh, bhh, Lx, rows, plan["U"], cell, out,
-                                       None, layer)
-        return proj, rec, bigru.TC_ROWS
+            return bigru.tc_recurrence(xg, whh, bhh, Lx, rows, plan, cell, out, None, layer)
+        return proj, rec, plan["rows"]
 
     def proj(x2, xg=None):
         return bigru.simt_projection(x2, wih, bih, bhh, cell, xg, layer)
@@ -353,10 +361,37 @@ def _phase_fns(plan, ly, cell, Lx, layer=False):
     return proj, rec, plan["rows"]
 
 
+def _fused_fn(plan, ly, cell, x, layer=False):
+    """The tc design's layer whose projection runs inside the recurrence
+    (``tc_fused_kx``), as a function of its output buffer, or None."""
+    from ccsmeth_tpu_torch.ops import bigru
+
+    wih, bih, whh, bhh = ly
+    Lx, N, C = x.shape
+    if plan["design"] != "tc" or not bigru.tc_fused_kx(plan, C, cell, whh.shape[1]):
+        return None
+    return lambda out=None: bigru.tc_recurrence(None, whh, bhh, Lx, N, plan, cell, out, None,
+                                                layer, (x, wih, bih))
+
+
+def _per_call(plan, cell, widths, hidden=H):
+    """CUDA launches of one K1 call over layers of input widths ``widths``
+    (or K2's over as many calls): l2 one; simt two a layer; tc two a layer,
+    one where the layer's projection is fused (``tc_fused_kx``)."""
+    from ccsmeth_tpu_torch.ops import bigru
+
+    if plan["design"] == "l2":
+        return 1
+    if plan["design"] == "simt":
+        return 2 * len(widths)
+    return sum(1 if bigru.tc_fused_kx(plan, c, cell, hidden) else 2 for c in widths)
+
+
 def _k1_phases_ms(torch, ly, x, cell, plan):
     """Device time of each phase of K1's tc or simt design on the stack's
-    inputs: the projection of layer 0 (C = 11, or the cell's C) and of a later layer
-    (C = 2H), and one layer's recurrence, also on 1 and 15 row tiles a
+    inputs: layer 0 (its projection at C = 11, or the cell's C, and in tc
+    the fused layer where it fuses), the projection of a later layer (C =
+    2H), and one layer's recurrence, also on 1 and 15 row tiles a
     direction; medians of CUDA-event timings."""
     Lx, N, _C = x.shape
     proj, rec, rows_tile = _phase_fns(plan, ly[0], cell, Lx)
@@ -373,10 +408,14 @@ def _k1_phases_ms(torch, ly, x, cell, plan):
         rows = tiles * rows_tile
         xg_t = torch.randn((2, Lx * rows, xg.shape[2]), device="cuda")
         by_tiles[str(tiles)] = time_ms(lambda: rec(xg_t, rows), torch)
-    return {"rows_a_tile": rows_tile, "recurrence_by_row_tiles": by_tiles,
-            "projection_c{}".format(x.shape[2]): time_ms(lambda: proj(x0, xg), torch),
-            "projection_c512": time_ms(lambda: proj1(x1, xg), torch),
-            "recurrence": time_ms(lambda: rec(xg, N, out), torch)}
+    res = {"rows_a_tile": rows_tile, "recurrence_by_row_tiles": by_tiles,
+           "projection_c{}".format(x.shape[2]): time_ms(lambda: proj(x0, xg), torch),
+           "projection_c512": time_ms(lambda: proj1(x1, xg), torch),
+           "recurrence": time_ms(lambda: rec(xg, N, out), torch)}
+    fused = _fused_fn(plan, ly[0], cell, x)
+    if fused is not None:
+        res["fused_layer0"] = time_ms(lambda: fused(out), torch)
+    return res
 
 
 def phase_kernels(torch, smi, cell):
@@ -410,8 +449,10 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
     out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
     torch.cuda.synchronize()
     assert bigru.design_calls[plan["design"]] == before[plan["design"]] + 2
-    # tc and simt: a projection and a recurrence a layer
-    assert cuda_per_call == 2 * NL, (plan, cuda_per_call)
+    # simt: a projection and a recurrence a layer; tc: layer 0 in one launch
+    # where its projection fuses
+    assert cuda_per_call == _per_call(plan, cell, [cin] + [2 * H] * (NL - 1)), (
+        plan, cuda_per_call)
     rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
     assert rerun_equal, (cell, rows, cin, dname, "rerun differs")
     ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
@@ -430,6 +471,8 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
         phase_ms = _k1_phases_ms(torch, ly, x, cell, plan) if phases else None
         simt = (_simt_report(torch, cell, plan, ly) if phases and plan["design"] == "simt"
                 and (rows, cin) == (ROWS[0], C) else None)
+        tc = (_tc_report(torch, cell, plan, ly, x) if phases and plan["design"] == "tc"
+              and (rows, cin) == (ROWS[0], C) else None)
     flops = bigru.stack_flops(L, rows, cin, H, NL, cell)
     nbytes = (x.numel() * x.element_size()
               + sum(t.numel() * t.element_size() for lyr in ly for t in lyr)
@@ -449,7 +492,7 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
            "library_flatten_error": lib.flatten_error,
            "gflop": flops / 1e9,
            "tflops_achieved": flops / kernel_ms / 1e9, "phases_ms": phase_ms,
-           "simt": simt, "card": smi}
+           "simt": simt, "tc": tc, "card": smi}
     emit(res)
     return res
 
@@ -655,7 +698,8 @@ def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bflo
             cuda_per_call = bigru.layer_cuda_launches
             again = bigru.bigru_layer_tm(ly, x, dt, cell)
             torch.cuda.synchronize()
-            assert cuda_per_call == 2, (cell, cin, dname, cuda_per_call)
+            assert cuda_per_call == _per_call(plan, cell, [cin]), (cell, cin, dname,
+                                                                   cuda_per_call)
             assert bigru.layer_design_calls[plan["design"]] == before[plan["design"]] + 2
             assert (bigru.launches, bigru.cuda_launches) == k1_before  # nothing of K1's
             assert torch.equal(out, again), (cell, cin, dname, "rerun differs")
@@ -791,15 +835,239 @@ def phase_k1_simt_sweep(torch, smi):
                       k1_ms=k1_ms, card=smi))
 
 
+def _tc_geometry(cell, plan, kx=0):
+    """The bf16 tc design's recurrence geometry at H = 256 (``plan``): U,
+    CN, MR, WN, rows a tile, threads and shared memory a CTA, the clusters
+    the card holds at once (cudaOccupancyMaxActiveClusters) and the waves of
+    2 ceil(rows / R) clusters at 1,024 and 16,384 rows."""
+    import math
+
+    from ccsmeth_tpu_torch.ops import bigru
+
+    occ = bigru.tc_occupancy(H, cell, plan, kx)
+    return {"U": plan["U"], "CN": plan["CN"], "MR": plan["MR"], "WN": plan["WN"],
+            "R": plan["rows"], "threads": plan["threads"],
+            "smem": bigru.tc_smem(H, cell, plan["U"], plan["rows"], kx), "kx": kx,
+            "resident_clusters": occ,
+            "waves": {str(rows): math.ceil(2 * math.ceil(rows / plan["rows"]) / occ)
+                      for rows in ROWS}}
+
+
+def _tc_report(torch, cell, plan, ly, x):
+    """``_tc_geometry`` (unfused, and with layer 0's fused projection) and
+    the recurrence's ms a layer at 1,024 and 16,384 rows, its step in us on
+    one row tile and on one full wave, the fused layer 0's ms at both row
+    counts, and the projection's TFLOP/s at C = 2H (TMA + wgmma) beside
+    torch.mm's on the same bf16 product; CUDA events, medians."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import n_gates
+    from ccsmeth_tpu_torch.ops import bigru
+
+    G = n_gates(cell) * H
+    R = plan["rows"]
+    kx = bigru.tc_fused_kx(plan, x.shape[2], cell, H)
+    res = dict(_tc_geometry(cell, plan), recurrence_ms={}, fused_layer0_ms={},
+               projection_tflops={})
+    if kx:
+        res["fused"] = _tc_geometry(cell, plan, kx)
+    occ = res["resident_clusters"]
+    proj1, rec, _rows = _phase_fns(plan, ly[1], cell, L)
+    for rows in ROWS:
+        xg = torch.randn((2, L * rows, G), device="cuda")
+        res["recurrence_ms"][str(rows)] = time_ms(lambda: rec(xg, rows), torch)
+        if kx:
+            xr = torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+                L, rows, x.shape[2]).astype(np.float32)).to("cuda", torch.bfloat16)
+            fused = _fused_fn(plan, ly[0], cell, xr)
+            res["fused_layer0_ms"][str(rows)] = time_ms(fused, torch)
+    for name, tiles in (("one_tile", 1), ("one_wave", max(1, occ // 2))):
+        xg = torch.randn((2, L * tiles * R, G), device="cuda")
+        res["step_us_" + name] = time_ms(lambda: rec(xg, tiles * R), torch) * 1e3 / L
+    res["tiles_one_wave"] = max(1, occ // 2)
+    for rows in ROWS:
+        x2 = torch.randn((L * rows, 2 * H), device="cuda").to(torch.bfloat16)
+        xg = proj1(x2)
+        flops = 2 * x2.shape[0] * 2 * H * 2 * G
+        ms = time_ms(lambda: proj1(x2, xg), torch)
+        # the yardstick: cuBLAS's bf16 product of the same shape, both
+        # directions in one, without the bias and with a bf16 output
+        w = torch.randn((2 * H, 2 * G), device="cuda").to(torch.bfloat16)
+        mm_ms = time_ms(lambda: torch.mm(x2, w), torch)
+        res["projection_tflops"][str(rows)] = {"ms": ms, "tflops": flops / ms / 1e9,
+                                              "torch_mm_ms": mm_ms,
+                                              "torch_mm_tflops": flops / mm_ms / 1e9}
+    return res
+
+
+# the bf16 recurrence's candidate geometries at H = 256 (U, MR, WN), each
+# instantiated in csrc/birnn_tc.cu; the first of a cell is its TC_GEOMETRY
+TC_SWEEP = {"gru": [(64, 2, 2), (64, 1, 2), (128, 1, 4)],
+            "lstm": [(64, 2, 2), (64, 1, 2)]}
+
+
+def phase_k1_tc_sweep(torch, smi):
+    """K1's bf16 tc design at every candidate geometry (``TC_SWEEP``), the
+    models' 3 x 256 stack at 1,024 and 16,384 rows: out and h_n against the
+    plain version (``TOL``), a bit-equal rerun, ``_tc_report`` and K1's time
+    at both row counts."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.ops import bigru
+
+    dt = torch.bfloat16
+    for cell, geoms in TC_SWEEP.items():
+        _np, ly = _layers(torch, dt, "cuda", cell)
+        xs = {rows: torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+            L, rows, C).astype(np.float32)).to("cuda", dt) for rows in ROWS}
+        refs = {rows: bigru.birnn_stack_plain(ly, x, dt, cell) for rows, x in xs.items()}
+        for geometry in geoms:
+            plan = dict(bigru.tc_geometry(H, cell, geometry), design="tc")
+            errs, equal = {}, {}
+            for rows, x in xs.items():
+                out, hn = bigru._stack_layers(ly, x, dt, cell, H, plan)
+                out2, hn2 = bigru._stack_layers(ly, x, dt, cell, H, plan)
+                torch.cuda.synchronize()
+                equal[str(rows)] = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
+                errs[str(rows)] = max((out.float() - refs[rows][0].float()).abs().max().item(),
+                                      (hn - refs[rows][1]).abs().max().item())
+                assert errs[str(rows)] <= TOL["bfloat16"] and equal[str(rows)], (
+                    cell, geometry, rows, errs, equal)
+            rep = _tc_report(torch, cell, plan, ly, xs[ROWS[0]])
+            with torch.inference_mode():
+                k1_ms = {str(rows): time_ms(
+                    lambda: bigru._stack_layers(ly, x, dt, cell, H, plan), torch)
+                    for rows, x in xs.items()}
+            emit(dict(rep, phase="k1_tc_sweep", cell=cell, max_abs_err=errs,
+                      rerun_bit_equal=equal, k1_ms=k1_ms, card=smi))
+
+
+# The probe of the bf16 recurrence's step: marks put into a copy of
+# csrc/birnn_tc.cu (never into the shipped kernel), each adding the clock64
+# cycles since the last mark to a per-part sum, for threads 0 and 128 of CTA
+# (0, 0). Parts: 0 the wait for the peers' blocks of h, 1 the products
+# (with the next step's xg into L2), 2 the barrier and the `empty` arrivals,
+# 3 the gate math and the stores, 4 issuing the next step's xg (or bias)
+# loads, 5 the new h into shared memory and the barrier, 6 the copies
+# (thread 0) and, with a fused projection, x_t's staging.
+TC_PROBE_MARKS = [
+    ('#include "entry_device.cuh"\n',
+     '#include "entry_device.cuh"\n__device__ unsigned long long g_prof[2][8];\n'
+     '#define PROF(k) if ((tid == 0 || tid == 128) && blockIdx.x == 0 && blockIdx.y == 0) '
+     '{ const unsigned long long now = clock64(); if (s > 0) g_prof[tid >> 7][k] += now - tprev; '
+     'tprev = now; }\n'),
+    ("  for (int s = 0; s < L; ++s) {\n    const int t = d == 0 ? s : L - 1 - s;\n",
+     "  unsigned long long tprev = clock64();\n"
+     "  for (int s = 0; s < L; ++s) {\n    const int t = d == 0 ? s : L - 1 - s;\n"),
+    ("    if (s > 0) mbar_wait(full_bar, (s - 1) & 1);\n    __syncwarp();\n",
+     "    if (s > 0) mbar_wait(full_bar, (s - 1) & 1);\n    __syncwarp();\n    PROF(0)\n"),
+    ("    wgmma_wait<0>();\n    fence_regs(acc);\n    fence_regs(xn);\n    if (!last) {",
+     "    wgmma_wait<0>();\n    fence_regs(acc);\n    fence_regs(xn);\n    PROF(1)\n    if (!last) {"),
+    ("      if (tid < (int)cn && tid != (int)crank) mbar_arrive_remote(empty_bar, tid);\n    }\n",
+     "      if (tid < (int)cn && tid != (int)crank) mbar_arrive_remote(empty_bar, tid);\n    }\n"
+     "    PROF(2)\n"),
+    ("    if (last) break;\n    const int tn = d == 0 ? s + 1 : L - 2 - s;\n    init_acc(tn);",
+     "    PROF(3)\n    if (last) break;\n    const int tn = d == 0 ? s + 1 : L - 2 - s;\n"
+     "    init_acc(tn);\n    PROF(4)"),
+    ("    fence_async_shared();  // visible to the copies and to wgmma\n    __syncthreads();\n",
+     "    fence_async_shared();  // visible to the copies and to wgmma\n    __syncthreads();\n"
+     "    PROF(5)\n"),
+    ("  if (tid == 0) asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: \"memory\");\n"
+     "  cluster_sync_all();",
+     "  if (tid == 0) asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: \"memory\");\n"
+     "  cluster_sync_all();\n  (void)tprev;"),
+    ("    if constexpr (FUSED) {\n      stage_x(tn);  // its loads fly while the blocks do\n"
+     "      fence_async_shared();\n      __syncthreads();\n    }\n",
+     "    if constexpr (FUSED) {\n      stage_x(tn);  // its loads fly while the blocks do\n"
+     "      fence_async_shared();\n      __syncthreads();\n    }\n    PROF(6)\n"),
+    ("}  // extern \"C\"\n",
+     "void tc_probe(unsigned long long* out, int reset) {\n"
+     "  unsigned long long z[16] = {0};\n"
+     "  if (reset) cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
+     "  else cudaMemcpyFromSymbol(out, g_prof, sizeof(z));\n}\n}  // extern \"C\"\n"),
+]
+
+
+def phase_k1_tc_probe(torch, smi):
+    """The bf16 recurrence's step split into its parts (``TC_PROBE_MARKS``)
+    at each candidate geometry of ``TC_SWEEP``, one row tile and 1,024 rows,
+    from xg and with layer 0's projection fused: us a step (at the card's
+    clock), beside the step's CUDA-event time."""
+    import ctypes
+    import subprocess as sp
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import n_gates
+    from ccsmeth_tpu_torch.ops import bigru, nvcc
+
+    src = open(os.path.join(nvcc.CSRC, bigru.TC_SRC)).read()
+    for old, new in TC_PROBE_MARKS:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "birnn_tc_probe.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    so = path[:-3] + ".so"
+    sp.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-I", nvcc.CSRC, "-o", so, path],
+           check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.birnn_tc_rec_launch.restype = i
+    lib.birnn_tc_rec_launch.argtypes = [i] + [p] * 8 + [i] * 8 + [p, i]
+    lib.tc_probe.argtypes = [p, i]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    shipped, bigru._tc_lib = bigru._tc_lib, lib
+    buf = (ctypes.c_ulonglong * 16)()
+    dt = torch.bfloat16
+    try:
+        for cell, geoms in TC_SWEEP.items():
+            _np, ly = _layers(torch, dt, "cuda", cell)
+            G = n_gates(cell) * H
+            for geometry in geoms:
+                plan = dict(bigru.tc_geometry(H, cell, geometry), design="tc")
+                for rows in (plan["rows"], ROWS[0]):
+                    x = torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+                        L, rows, C).astype(np.float32)).to("cuda", dt)
+                    xg = torch.randn((2, L * rows, G), device="cuda")
+                    runs = {"xg": lambda: bigru.tc_recurrence(xg, ly[1][2], ly[1][3], L, rows,
+                                                              plan, cell)}
+                    fused = _fused_fn(plan, ly[0], cell, x)
+                    if fused is not None:
+                        runs["fused"] = fused
+                    for name, fn in runs.items():
+                        fn()
+                        torch.cuda.synchronize()
+                        lib.tc_probe(None, 1)
+                        ms = time_ms(fn, torch)
+                        lib.tc_probe(ctypes.cast(buf, p), 0)
+                        steps = (REPS + 1) * (L - 1)  # the warm-up and the timed runs
+                        parts = [[buf[8 * w + k] / steps / mhz for k in range(7)]
+                                 for w in (0, 1)]
+                        emit({"phase": "k1_tc_probe", "cell": cell, "geometry": geometry,
+                              "rows": rows, "input": name, "step_us": ms * 1e3 / L,
+                              "parts_us_thread0": parts[0], "parts_us_thread128": parts[1],
+                              "clock_mhz": mhz, "card": smi})
+    finally:
+        bigru._tc_lib = shipped
+
+
 def _k2_phases_ms(torch, ly, x, cell, plan):
-    """K2's two phases on its inputs: the projection and the recurrence
-    (CUDA-event medians)."""
+    """K2's phases on its inputs: the projection and the recurrence, and in
+    tc the fused layer where its projection fuses (CUDA-event medians)."""
     Lx, N, _C = x.shape
     proj, rec, _rows = _phase_fns(plan, ly, cell, Lx, layer=True)
     x2 = x.view(Lx * N, -1)
     xg = proj(x2)
-    return {"projection": time_ms(lambda: proj(x2, xg), torch),
-            "recurrence": time_ms(lambda: rec(xg, N), torch)}
+    res = {"projection": time_ms(lambda: proj(x2, xg), torch),
+           "recurrence": time_ms(lambda: rec(xg, N), torch)}
+    fused = _fused_fn(plan, ly, cell, x, layer=True)
+    if fused is not None:
+        res["fused"] = time_ms(fused, torch)
+    return res
 
 
 def phase_l2_kernels(torch, smi, cell):
@@ -1189,9 +1457,34 @@ def _zero_counts():
     transenc.launches = transenc.plain_calls = 0
     for mod in (bigru, transenc):
         mod.cuda_launches = 0
-    for calls in (bigru.design_calls, bigru.layer_design_calls, transenc.design_calls):
+    for calls in (bigru.design_calls, bigru.layer_design_calls, transenc.design_calls,
+                  bigru.tc_projection_calls):
         for k in calls:
             calls[k] = 0
+
+
+def _rnn_launches(model_type, prec):
+    """(CUDA launches of one K1 call, of one batch's K2 calls, the tc
+    projections of one K1 call by kernel) for an RNN model at its full width
+    and the precision: the shape rule's design, and in tc the fused layer
+    0 (``_per_call``)."""
+    import torch
+
+    from ccsmeth_tpu_torch.models import AttRNNConfig
+    from ccsmeth_tpu_torch.models.attrnn import rnn_input_size
+    from ccsmeth_tpu_torch.ops import bigru
+
+    cfg = AttRNNConfig(model_type=model_type)
+    cell = "lstm" if "lstm" in model_type else "gru"
+    widths = [rnn_input_size(cfg)] + [2 * H] * (NL - 1)
+    plan = bigru.k1_plan(H, cell, torch.bfloat16 if prec == "bf16" else torch.float32)
+    proj = {"wgmma": 0, "mma": 0}
+    if plan["design"] == "tc":
+        for c in widths:
+            if not bigru.tc_fused_kx(plan, c, cell, H):
+                proj["wgmma" if c % 8 == 0 else "mma"] += 1
+    n = _per_call(plan, cell, widths)
+    return n, n, proj
 
 
 def _cuda_launches():
@@ -1344,6 +1637,7 @@ def phase_e2e(torch, smi, model_type):
     another row (the JAX package does the same); their numerics are gated at
     the kernel and model phases."""
     from ccsmeth_tpu_torch.models.params_io import save_params
+    from ccsmeth_tpu_torch.ops import bigru
 
     _cfg, params = _config_params(model_type)
     os.makedirs(WORK, exist_ok=True)
@@ -1365,16 +1659,21 @@ def phase_e2e(torch, smi, model_type):
         # the shape rule: bf16 through the tensor-core design, fp32 the f32 one
         design = "tc" if prec == "bf16" else "simt"
         assert designs[design] == n, (prec, designs)
-        # K1 (tc and simt): a projection and a recurrence a layer; K3 one launch
-        per_call = 2 * NL if name == "k1" else 1
+        # K1: simt a projection and a recurrence a layer, tc one launch less
+        # where layer 0 fuses its projection; K3 one launch
+        per_call, _k2, proj = (_rnn_launches(model_type, prec) if name == "k1"
+                               else (1, 0, {"wgmma": 0, "mma": 0}))
         assert cuda[name] == per_call * n and sum(cuda.values()) == cuda[name], cuda
+        tc_proj = dict(bigru.tc_projection_calls)
+        assert tc_proj == {k: v * n for k, v in proj.items()}, tc_proj
         n_tagged = sum(1 for mm, ml in tags[prec].values() if ml is not None)
         assert n_tagged >= 0.9 * len(tags[prec]), (prec, n_tagged)
         # one model replica a visible card, batches padded to a multiple
         assert run["replicas"] == torch.cuda.device_count(), run
         assert run["pad_n"] % run["replicas"] == 0, run
         run.update(phase="e2e", model=model_type, precision=prec, launches=counts,
-                   designs=designs, cuda_launches=cuda, sites_per_s=run["sites"] / run["seconds"],
+                   designs=designs, cuda_launches=cuda, tc_projections=tc_proj,
+                   sites_per_s=run["sites"] / run["seconds"],
                    reads_with_mm_ml=n_tagged, card=smi)
         emit(run)
         runs[prec] = run
@@ -1395,8 +1694,9 @@ def phase_e2e(torch, smi, model_type):
 
 def phase_e2e_layer(torch, smi, model_type, k1_tags):
     """call_mods --rnn_backend pallas_layer in fp32 and bf16: K2 launches once
-    a layer and batch (its design's two CUDA launches each: simt in fp32, tc
-    in bf16), K1 and K3 never, no plain version runs. In fp32 K2 runs K1's
+    a layer and batch (its design's CUDA launches: simt two in fp32, tc two
+    in bf16 and one for layer 0, whose projection fuses), K1 and K3 never, no
+    plain version runs. In fp32 K2 runs K1's
     launches a layer at a time, so the ML bytes equal the K1 run's; in bf16
     K2's h_n is rebuilt from the bf16 outputs where K1's is the f32 state,
     so the bytes stay within 2 of the K1 bf16 run's on >= 99.9% of sites."""
@@ -1414,7 +1714,8 @@ def phase_e2e_layer(torch, smi, model_type, k1_tags):
         assert run["batches"] > 0 and counts["k2"] == n, (counts, run)
         assert sum(counts.values()) == counts["k2"], counts
         assert designs == dict({d: 0 for d in designs}, **{design: n}), designs
-        assert cuda == {"k1": 0, "k2": 2 * n, "k3": 0}, cuda  # no K1, no K3
+        per_batch = _rnn_launches(model_type, prec)[1]  # K2's launches for the layers
+        assert cuda == {"k1": 0, "k2": per_batch * run["batches"], "k3": 0}, cuda
         n_sites, equal, within2 = _ml_shares(k1_tags[prec], tags)
         run.update(phase="e2e", model=model_type, precision=prec,
                    rnn_backend="pallas_layer", launches=counts, designs=designs,
@@ -3148,8 +3449,9 @@ def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
     the one-card training paths (train_kernels_small, determinism, train1s,
     train_te, transfer, aggr_train, wrappers), the multi-process one (dist)
-    or K1's fp32 geometry sweep (k1_simt_sweep), for a short call after a
-    change to one of them; prints no kernels line and no ok line."""
+    or K1's geometry sweeps and probe (k1_simt_sweep, k1_tc_sweep,
+    k1_tc_probe), for a short call after a change to one of them; prints no
+    kernels line and no ok line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3169,6 +3471,8 @@ def main_only(names):
         "transfer": lambda: phase_transfer(torch, smi, TRANSFER_EPOCHS),
         "aggr_train": lambda: phase_aggr_train(torch, smi),
         "k1_simt_sweep": lambda: phase_k1_simt_sweep(torch, smi),
+        "k1_tc_sweep": lambda: phase_k1_tc_sweep(torch, smi),
+        "k1_tc_probe": lambda: phase_k1_tc_probe(torch, smi),
         "dist": lambda: phase_dist(torch, smi),
         "wrappers": phase_wrappers}
     unknown = [n for n in names if n not in phases]
@@ -3289,7 +3593,7 @@ def main():
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
-                "simt_geometry": mc["simt"],
+                "simt_geometry": mc["simt"], "tc_geometry": mc["tc"],
                 "cell": "{} rows={} {}".format(MODELS[cell], ROWS[0], dname),
                 "cells": [{k: c[k] for k in ("rows", "dtype", "kernel_ms", "plain_ms",
                                              "library_ms", "bound_ms", "bound_by",
@@ -3301,6 +3605,9 @@ def main():
             entry["launches_2s2"] = e2e2s2[cell]["e2e"]["launches_by_design"][design]
             entry["cuda_launches_2s2"] = \
                 e2e2s2[cell]["e2e"]["cuda_launches_by_design"][design]
+            if design == "tc":  # its projections by kernel in the bf16 e2e run
+                entry["sources"] = list(TC_SOURCES)
+                entry["tc_projections"] = e2e[cell]["runs"]["bf16"]["tc_projections"]
             if design == "simt":  # the train paths validate in fp32
                 entry["launches_train_path"] = train_runs[cell]["launches"]["k1"]
                 if cell == "gru":  # both ranks' validations

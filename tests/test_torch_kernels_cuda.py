@@ -1,9 +1,10 @@
 """Kernels K1 and K2 against their plain PyTorch versions on the card, in
 the three designs of the shape rule ``k1_plan``: simt (fp32; K4's projection
-and csrc/birnn_simt.cu's inference cluster recurrence), tc (bf16 on the
-tensor cores, csrc/birnn_tc.cu, also phase by phase) and l2 (the first f32
-kernel, csrc/bigru_stack.cu, for the shapes neither takes); with bit-equal
-reruns, K1 = a chain of the training forwards in fp32, sha256 digests of
+and csrc/birnn_simt.cu's inference cluster recurrence), tc (bf16 on Hopper's
+wgmma, csrc/birnn_tc.cu: the TMA + wgmma projection, the recurrence with and
+without layer 0's fused projection, at every instantiated geometry, also
+phase by phase) and l2 (the first f32 kernel, csrc/bigru_stack.cu, for the
+shapes neither takes); with bit-equal reruns, K1 = a chain of the training forwards in fp32, sha256 digests of
 K1's and K2's fp32 outputs taken before the simt recurrence was redesigned,
 and each call's CUDA launches (K1 = K2 and K2 in its other designs:
 tests/test_torch_transenc_kernels_cuda.py). Needs a CUDA device and skips
@@ -81,45 +82,116 @@ def _stack(rows, hidden, cell, dt, layers=3, seed=0):
     return ly, x
 
 
+def _tc_launches(hidden, cell, widths):
+    """CUDA launches of a tc call over layers of these input widths (two a
+    layer, one where the projection fuses) and its projections by kernel."""
+    plan = bigru.k1_plan(hidden, cell)
+    fused = [bool(bigru.tc_fused_kx(plan, c, cell, hidden)) for c in widths]
+    proj = {"wgmma": sum(1 for c, f in zip(widths, fused) if not f and c % 8 == 0),
+            "mma": sum(1 for c, f in zip(widths, fused) if not f and c % 8)}
+    return sum(1 if f else 2 for f in fused), proj
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", [16, 64, 256])
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("rows", RAGGED)
-def test_tc_design_matches_plain(rows, hidden):
-    """The bf16 tensor-core design, GRU cell, three layers, against the plain
-    version; a rerun is bit-equal."""
+def test_tc_design_matches_plain(rows, hidden, cell, layers):
+    """The bf16 tensor-core design against the plain version, layer 0 (C =
+    11) with its projection fused; a rerun is bit-equal; one call's design,
+    CUDA launches and projections by kernel."""
     _need_card()
-    cell, dt = "gru", torch.bfloat16
-    ly, x = _stack(rows, hidden, cell, dt)
-    before = bigru.design_calls["tc"], bigru.launches
+    dt = torch.bfloat16
+    ly, x = _stack(rows, hidden, cell, dt, layers)
+    want, proj = _tc_launches(hidden, cell, [11] + [2 * hidden] * (layers - 1))
+    before = bigru.design_calls["tc"], bigru.launches, dict(bigru.tc_projection_calls)
+    bigru.cuda_launches = 0
     out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    assert bigru.cuda_launches == want
+    assert {k: bigru.tc_projection_calls[k] - before[2][k] for k in proj} == proj
     out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
     torch.cuda.synchronize()
     assert (bigru.design_calls["tc"], bigru.launches) == (before[0] + 2, before[1] + 2)
     assert torch.equal(out, out2) and torch.equal(hn, hn2)
     ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
     assert out.dtype == dt and out.shape == (21, rows, 2 * hidden)
-    assert hn.dtype == torch.float32 and hn.shape == (6, rows, hidden)
+    assert hn.dtype == torch.float32 and hn.shape == (2 * layers, rows, hidden)
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL["bfloat16"]
     assert (hn - ref_hn).abs().max().item() <= TOL["bfloat16"]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layers", [1, 3])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("hidden,cin,rows", [(16, 11, 13), (256, 11, 1029),
-                                             (256, 512, 1000), (64, 128, 1)])
+@pytest.mark.parametrize("hidden,rows", [(16, 13), (64, 1000), (256, 1029), (256, 1)])
+def test_tc_layers_match_plain(cell, hidden, rows, layers):
+    """K2 in the tc design, one layer a call (layer 0's projection fused: one
+    CUDA launch; the others two), against the plain version; a rerun is
+    bit-equal and K1 launches nothing."""
+    _need_card()
+    dt = torch.bfloat16
+    ly, x = _stack(rows, hidden, cell, dt, layers)
+    want = _tc_launches(hidden, cell, [11] + [2 * hidden] * (layers - 1))[0]
+    k1 = (bigru.launches, bigru.cuda_launches)
+    bigru.layer_cuda_launches = 0
+    out, hn = bigru.birnn_layers(ly, x, dt, cell)
+    assert bigru.layer_cuda_launches == want and (bigru.launches, bigru.cuda_launches) == k1
+    out2, _hn2 = bigru.birnn_layers(ly, x, dt, cell)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    ref_out, _ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,geometry", [("gru", (64, 2, 2)), ("gru", (64, 1, 2)),
+                                           ("gru", (128, 1, 4)), ("lstm", (64, 2, 2)),
+                                           ("lstm", (64, 1, 2))])
+@pytest.mark.parametrize("rows", RAGGED)
+def test_tc_geometries_match_plain(rows, cell, geometry):
+    """Every instantiated geometry of the bf16 recurrence at H = 256 (the
+    candidates of chip_smoke.py's k1_tc_sweep), the whole stack (layer 0
+    fused where the geometry fuses it, else the mma.sync projection at C =
+    11) against the plain version, bit-equal on a rerun."""
+    _need_card()
+    dt = torch.bfloat16
+    plan = dict(bigru.tc_geometry(256, cell, geometry), design="tc")
+    ly, x = _stack(rows, 256, cell, dt)
+    out, hn = bigru._stack_layers(ly, x, dt, cell, 256, plan)
+    out2, hn2 = bigru._stack_layers(ly, x, dt, cell, 256, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(hn, hn2)
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL["bfloat16"]
+    assert (hn - ref_hn).abs().max().item() <= TOL["bfloat16"]
+
+
+PROJ_CASES = ([(256, cin, rows) for cin in (11, 28, 52, 512)
+               for rows in (1, 13, 1000, 1029, 16384)]
+              + [(16, 11, 13), (64, 128, 1), (32, 21, 1000)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden,cin,rows", PROJ_CASES)
 def test_tc_projection_matches_the_product(cell, hidden, cin, rows):
     """Phase (a) against x W_ih + b in f32: bf16 products are exact in f32,
-    so only the order of the f32 sums differs."""
+    so only the order of the f32 sums differs. C % 8 == 0 runs the TMA +
+    wgmma GEMM, other widths the mma.sync one."""
     _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the reference's products
     rng = np.random.RandomState(hidden + cin)
     wih, bih, _whh, bhh = layer_weights(
         init_rnn_params(rng, cin, hidden, 1, cell)[0], torch.bfloat16, "cuda")
     x = torch.from_numpy(rng.randn(21 * rows, cin).astype(np.float32)).to(
         "cuda", torch.bfloat16)
-    before = bigru.cuda_launches
+    kernel = "wgmma" if cin % 8 == 0 else "mma"
+    before, calls = bigru.cuda_launches, bigru.tc_projection_calls[kernel]
     got = bigru.tc_projection(x, wih, bih, bhh, cell)
     torch.cuda.synchronize()
     assert bigru.cuda_launches == before + 1
+    assert bigru.tc_projection_calls[kernel] == calls + 1
     G = n_gates(cell) * hidden
     for d in (0, 1):
         fold = bhh[d].clone()
@@ -131,20 +203,37 @@ def test_tc_projection_matches_the_product(cell, hidden, cin, rows):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("hidden,rows", [(16, 13), (64, 1029), (256, 1000), (256, 1)])
-def test_tc_recurrence_matches_the_plain_cell(cell, hidden, rows):
-    """Phase (b) on given f32 gate inputs against models/rnn.py's cells, the
-    h operand rounded to bf16 as the kernel does; tolerance as the stack's."""
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("rows", RAGGED)
+def test_tc_recurrence_matches_the_plain_cell(rows, hidden, cell, fused):
+    """Phase (b) on given f32 gate inputs, or (``fused``) on x (L, N, 11)
+    with the projection inside the kernel, against models/rnn.py's cells
+    step by step, the h operand rounded to bf16 as the kernel does;
+    tolerance as the stack's."""
     _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.RandomState(hidden + rows)
-    _wih, _bih, whh, bhh = layer_weights(
+    wih, bih, whh, bhh = layer_weights(
         init_rnn_params(rng, 11, hidden, 1, cell)[0], torch.bfloat16, "cuda")
     G, L = n_gates(cell) * hidden, 21
-    xg = torch.from_numpy(rng.randn(2, L * rows, G).astype(np.float32)).cuda()
-    U = bigru.k1_plan(hidden, cell)["U"]
+    plan = bigru.k1_plan(hidden, cell)
     before = bigru.cuda_launches
-    out, hn = bigru.tc_recurrence(xg, whh, bhh, L, rows, U, cell)
+    if fused:
+        x = torch.from_numpy(rng.randn(L, rows, 11).astype(np.float32)).to(
+            "cuda", torch.bfloat16)
+        out, hn = bigru.tc_recurrence(None, whh, bhh, L, rows, plan, cell,
+                                      fused=(x, wih, bih))
+        xg = torch.empty((2, L * rows, G), device="cuda")
+        for d in (0, 1):
+            fold = bhh[d].clone()
+            if cell == "gru":
+                fold[2 * hidden:] = 0.0
+            xg[d] = x.view(L * rows, 11).float() @ wih[d].float() + bih[d] + fold
+    else:
+        xg = torch.from_numpy(rng.randn(2, L * rows, G).astype(np.float32)).cuda()
+        out, hn = bigru.tc_recurrence(xg, whh, bhh, L, rows, plan, cell)
     assert bigru.cuda_launches == before + 1
     torch.cuda.synchronize()
     for d in (0, 1):
@@ -171,9 +260,9 @@ def test_tc_recurrence_matches_the_plain_cell(cell, hidden, rows):
 def test_shape_rule_picks_the_design(cell):
     """The model's shape (H = 256, 1024 rows) takes the tensor-core design in
     bf16 and the simt design in fp32; a bf16 H that tc and simt refuse (20)
-    takes the l2 kernel and still matches the plain version. A tc or simt
-    call is two CUDA launches a layer (projection, recurrence), an l2 call
-    one."""
+    takes the l2 kernel and still matches the plain version. A simt call is
+    two CUDA launches a layer (projection, recurrence), a tc call one less
+    (layer 0's projection fused), an l2 call one."""
     _need_card()
     for hidden, dt, design in ((256, torch.bfloat16, "tc"), (256, torch.float32, "simt"),
                                (20, torch.bfloat16, "l2")):
@@ -183,7 +272,8 @@ def test_shape_rule_picks_the_design(cell):
         out, _hn = bigru.birnn_stack(ly, x, dt, cell)
         torch.cuda.synchronize()
         assert bigru.design_calls[design] == before[design] + 1
-        assert bigru.cuda_launches - cuda_before == (1 if design == "l2" else 2 * len(ly))
+        want = {"l2": 1, "simt": 2 * len(ly), "tc": 2 * len(ly) - 1}[design]
+        assert bigru.cuda_launches - cuda_before == want
         for other in set(before) - {design}:
             assert bigru.design_calls[other] == before[other]
         if hidden == 20:
