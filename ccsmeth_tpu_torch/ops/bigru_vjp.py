@@ -23,13 +23,19 @@ order, unlike the TPU kernel which stores the backward half reversed):
 Each kernel is a few CUDA launches, one a phase: K4 the input projection
 (``k4_projection``; in the tc design K1-tc's projection kernel of
 ``csrc/birnn_tc.cu``, the same function), then the recurrence
-(``k4_recurrence``); K5 the
-recurrence that carries dh (``k5_recurrence``), dx as one product
-(``k5_dx``), then the weight and bias gradients in fixed row slices and the
-in-order sum of the slices (``k5_weight_grads``). ``k45_plan`` is the shape
-rule that picks the design of a CUDA call, for this layer and for K6, the
-LSTM's (``bilstm_vjp``), whose kernels are these with four gates: the gate
-count NG (3 or 4) is the only input besides H and the dtype.
+(``k4_recurrence``); K5 the recurrence that carries dh (``k5_recurrence``),
+dx as one product (``k5_dx``), then the weight and bias gradients in fixed
+row slices and the in-order sum of the slices (``k5_weight_grads``;
+``bwd_cuda_launches`` counts a backward's launches). In the tc design the
+recurrence stores the gate gradients as bf16 copies and each row tile's
+partial bias sums, and dx and the weight gradients run on wgmma fed by TMA
+(``csrc/rnn_train_gemm.cuh::wgemm_kernel``; X's rows at C % 8 != 0, which
+TMA cannot address, by plain loads into the same image); ``gemm_calls``
+counts those products by kernel.
+``k45_plan`` is the shape rule that picks the design of a CUDA call, for this
+layer and for K6, the LSTM's (``bilstm_vjp``), whose kernels are these with
+four gates: the gate count NG (3 or 4) is the only input besides H and the
+dtype.
 
 - ``tc``: bf16 on the tensor cores, for H a multiple of 32 whose cluster of
   H / U CTAs (U = 64, or 32 where 64 does not divide H or does not fit) has
@@ -68,7 +74,10 @@ from .kernel_args import (DTYPE_CODE, SMEM_LIMIT, cuda_checks, device_of, dims,
 SRC = "bigru_train.cu"
 TC_ROWS_FWD = 64  # TC_FWD_ROWS in csrc/rnn_train_rec.cuh: rows of a tc forward tile
 TC_ROWS_BWD = 32  # TC_BWD_ROWS: rows of a tc backward tile
-GEMM_TILE = 128  # GM_BM = GM_BN in csrc/rnn_train_gemm.cuh
+GEMM_TILE = 128  # GM_BM = GM_BN = WG_BM in csrc/rnn_train_gemm.cuh
+# CTAs an SM of the weight-gradient kernel of either design:
+# gemm_simt_kernel's and wgemm_kernel's __launch_bounds__
+WGRAD_CTAS_PER_SM = 2
 GATES = {"gru": 3, "lstm": 4}  # NG, the gate count of each cell
 _DESIGN_CODE = {"simt": 0, "tc": 1}
 
@@ -77,6 +86,9 @@ launches_bwd = 0  # K5 calls
 plain_calls = 0  # runs of either plain version
 cuda_launches = 0  # K4's and K5's CUDA launches, counted at each launch
 design_calls = {"tc": 0, "simt": 0}  # K4 and K5 CUDA calls by design
+# the tc design's backward products (dx, dW_ih, dW_hh of K5 and K6, each one
+# job) by kernel: all on wgmma (csrc/rnn_train_gemm.cuh's wgemm_kernel)
+gemm_calls = {"wgmma": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -97,10 +109,11 @@ def _load():
             for name, args in (
                     ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p, i]),
                     ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
-                    ("k5_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p, i]),
+                    ("k5_rec_launch", [i, i] + [p] * 7 + [i] * 5 + [p, i]),
                     ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p, i]),
                     ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 6 + [p, i]),
-                    ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p, i])):
+                    ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p, p,
+                                       ctypes.c_longlong, i, p, i])):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = args
@@ -198,17 +211,16 @@ def k45_plan(H: int, compute_dtype=torch.float32, cell: str = "gru") -> dict:
     return dict(simt, why=why, cell=cell, gates=ng)
 
 
-def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, design: str,
-                    ng: int = 3) -> int:
+def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, ng: int = 3) -> int:
     """Row slices S of the weight-gradient launch (NG = ng gates, G = NG H
     columns): the S in 1 .. 32 (each slice at least 256 rows) with the least
     waves / S, the time of S x tiles 128 x 128 output tiles in waves of
-    (blocks an SM: simt 2, tc 1) x n_sms, each tile 1/S of the rows; the
-    least S on a tie (the fewest partials)."""
+    ``WGRAD_CTAS_PER_SM`` x n_sms blocks, each tile 1/S of the rows;
+    the least S on a tie (the fewest partials)."""
     t = GEMM_TILE
     G = ng * H
     tiles = 2 * -(-G // t) * (-(-C // t) + -(-H // t))
-    slots = (2 if design == "simt" else 1) * n_sms
+    slots = WGRAD_CTAS_PER_SM * n_sms
     best = min(range(1, max(1, min(32, rows // 256)) + 1),
                key=lambda S: (-(-S * tiles // slots) / S, S))
     return best
@@ -369,61 +381,105 @@ def k4_recurrence(xg, w_hh, b_hh, L, N, plan, compute_dtype):
     return out, gates
 
 
+def gate_grad_buffers(L, N, G, plan, device, two=True):
+    """The backward recurrence's outputs: the gate gradients (2, L*N, G),
+    one tensor or two (``two``: the GRU's dxg and dhg), f32 in simt and bf16
+    in tc, where the products read them through TMA; and in tc the row tiles'
+    bias-gradient partials (tiles, 1 or 2, 2, G) f32 (None in simt)."""
+    tc = plan["design"] == "tc"
+    dt = torch.bfloat16 if tc else torch.float32
+    grads = [torch.empty((2, L * N, G), dtype=dt, device=device) for _ in range(1 + two)]
+    part = (torch.empty((-(-N // plan["rows_bwd"]), 1 + two, 2, G), dtype=torch.float32,
+                        device=device) if tc else None)
+    return grads, part
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def k5_recurrence(dout, out, gates, w_hh, plan, compute_dtype):
     """K5 (a), one CUDA launch: the gate gradients dxg = [dr, dz, dn] and
-    dhg = [dr, dz, dn r], both (2, L*N, 3H) f32."""
+    dhg = [dr, dz, dn r], both (2, L*N, 3H) (f32 in simt, bf16 in tc), and in
+    tc the row tiles' partial sums of both for the bias gradients
+    (``gate_grad_buffers``). Returns (dxg, dhg, bias partials or None)."""
     L, N, H2 = out.shape
     H = H2 // 2
-    dxg = torch.empty((2, L * N, 3 * H), dtype=torch.float32, device=out.device)
-    dhg = torch.empty_like(dxg)
+    (dxg, dhg), part = gate_grad_buffers(L, N, 3 * H, plan, out.device)
     _launch("k5_rec_launch", plan, out, *_codes(plan, compute_dtype), dout.data_ptr(),
             out.data_ptr(), gates.data_ptr(), w_hh.data_ptr(), dxg.data_ptr(),
-            dhg.data_ptr(), L, N, H, plan["U"], plan["rows_bwd"])
-    return dxg, dhg
+            dhg.data_ptr(), _ptr(part), L, N, H, plan["U"], plan["rows_bwd"])
+    return dxg, dhg, part
 
 
 def k5_dx(dxg, w_ih, plan, compute_dtype):
     """dx, one CUDA launch (K5 (b), and K6's backward (b) on its da): dx
     (L*N, C) f32 = sum_d op(dxg[d]) w_ih[d]^T, reading w_ih in its own
-    layout."""
+    layout; simt on f32 dxg, tc on wgmma from the bf16 dxg."""
     M = dxg.shape[1]
     C, G = w_ih.shape[1:]
     ng = plan["gates"]
     dx = torch.empty((M, C), dtype=torch.float32, device=dxg.device)
     _launch("k5_dx_launch", plan, dxg, *_codes(plan, compute_dtype), dxg.data_ptr(),
             w_ih.data_ptr(), dx.data_ptr(), M, C, G // ng, ng)
+    if plan["design"] == "tc":
+        gemm_calls["wgmma"] += 1
     return dx
 
 
-def k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype):
+def k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype, bias_part=None):
     """The weight and bias gradients (K5 (c), and K6's backward (c), which
     passes its one gate gradient da as both dxg and dhg): dW_ih[d] = x^T
-    op(dxg[d]), dW_hh[d] = h_prev^T op(dhg[d]) and the column sums of dxg and
-    dhg (of da once, db_hh then the same tensor as db_ih), over S fixed row
-    slices (one CUDA launch), then the S partials added in slice order (a
-    second one when S > 1). Returns (dw_ih, db_ih, dw_hh, db_hh), f32."""
+    op(dxg[d]), dW_hh[d] = h_prev^T op(dhg[d]) over S fixed row slices, and
+    the bias gradients (of da once, db_hh then the same tensor as db_ih).
+    simt: one launch with the column sums of dxg and dhg beside the products,
+    then the S partials added in slice order (a second one when S > 1). tc
+    (dxg, dhg bf16): one wgmma launch for both products of both directions,
+    then one launch that adds the S partials in slice order and the
+    recurrence's ``bias_part`` in tile order. Returns (dw_ih, db_ih, dw_hh,
+    db_hh), f32."""
     L, N, C = x.shape
     H = out.shape[2] // 2
     G, ng = dxg.shape[2], plan["gates"]
     one = dhg is dxg
     dev = x.device
+    tc = plan["design"] == "tc"
+    if tc and bias_part is None:
+        raise ValueError("the tc design's weight gradients need the recurrence's bias partials")
     # [dW_ih | dW_hh | db_ih | db_hh (two gate gradients only)] in one buffer,
     # returned as views
     sizes = (2 * C * G, 2 * H * G, 2 * G) + (() if one else (2 * G,))
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     S = k5_wgrad_slices(L * N, C, H, torch.cuda.get_device_properties(
-        dev).multi_processor_count, plan["design"], ng)
-    part = (torch.empty(S * grads.numel(), dtype=torch.float32, device=dev)
-            if S > 1 else grads)
+        dev).multi_processor_count, ng)
+    # a slice holds every gradient in simt, the weights' in tc
+    per = sizes[0] + sizes[1] if tc else grads.numel()
+    part = torch.empty(S * per, dtype=torch.float32, device=dev) if S > 1 else grads
     _launch("k5_wgrad_launch", plan, x, *_codes(plan, compute_dtype), x.data_ptr(),
             out.data_ptr(), dxg.data_ptr(), dhg.data_ptr(), part.data_ptr(), L, N, C, H,
             ng, S)
-    if S > 1:
+    if tc:
+        gemm_calls["wgmma"] += 2  # dW_ih, dW_hh
+        _launch("k5_sum_launch", plan, x, part.data_ptr(), grads.data_ptr(), per, S,
+                bias_part.data_ptr(), grads[per:].data_ptr(), grads.numel() - per,
+                bias_part.shape[0])
+    elif S > 1:
         _launch("k5_sum_launch", plan, x, part.data_ptr(), grads.data_ptr(), grads.numel(),
-                S)
+                S, None, None, 0, 0)
     dw_ih, dw_hh, db_ih, *rest = grads.split(sizes)
     db_hh = rest[0] if rest else db_ih
     return dw_ih.view(2, C, G), db_ih.view(2, G), dw_hh.view(2, H, G), db_hh.view(2, G)
+
+
+def bwd_cuda_launches(plan, rows: int, C: int, n_sms: int) -> int:
+    """CUDA launches of one K5 or K6 backward call (``plan`` from
+    ``k45_plan``, ``rows`` = L*N): the recurrence, dx, the weight gradients
+    and the sum of slices and tiles; simt sums only when S > 1, tc always
+    (the bias partials)."""
+    if plan["design"] == "tc":
+        return 4
+    H = plan["U"] * plan["CN"]
+    return 3 + (k5_wgrad_slices(rows, C, H, n_sms, plan["gates"]) > 1)
 
 
 def bigru_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32):
@@ -443,7 +499,7 @@ def bigru_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32
 
 
 def bigru_layer_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype=torch.float32):
-    """K5 on CUDA (three or four launches: ``k5_recurrence``, ``k5_dx``,
+    """K5 on CUDA (``bwd_cuda_launches``: ``k5_recurrence``, ``k5_dx``,
     ``k5_weight_grads``), the plain version on CPU: (dx, dw_ih, db_ih, dw_hh,
     db_hh), all f32. Every sum has one owner and a fixed order, no atomics,
     so two runs on the same inputs give bit-equal results. The weights are
@@ -454,9 +510,9 @@ def bigru_layer_bwd(dout, x, w_ih, w_hh, out, gates, compute_dtype=torch.float32
         return bigru_layer_bwd_plain(dout, x, w_ih, w_hh, out, gates, compute_dtype)
     plan = k45_plan(H, compute_dtype)
     cuda_checks((dout, x, w_ih, w_hh, out, gates), H)
-    dxg, dhg = k5_recurrence(dout, out, gates, w_hh, plan, compute_dtype)
+    dxg, dhg, part = k5_recurrence(dout, out, gates, w_hh, plan, compute_dtype)
     dx = k5_dx(dxg, w_ih, plan, compute_dtype)
-    dw_ih, db_ih, dw_hh, db_hh = k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype)
+    dw_ih, db_ih, dw_hh, db_hh = k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype, part)
     launches_bwd += 1
     design_calls[plan["design"]] += 1
     return dx.view(L, N, C), dw_ih, db_ih, dw_hh, db_hh

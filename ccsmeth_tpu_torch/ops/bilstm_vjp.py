@@ -80,7 +80,7 @@ def _load():
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
-                               ("k6_bwd_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i])):
+                               ("k6_bwd_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p, i])):
                 fn = getattr(lib, name)
                 fn.restype = i
                 fn.argtypes = args
@@ -219,13 +219,16 @@ def k6_recurrence(xg, w_hh, L, N, plan, compute_dtype):
 
 def k6_bwd_recurrence(dout, c, gates, w_hh, plan, compute_dtype):
     """K6 backward (a), one CUDA launch: the gate gradients
-    da = [di, df, dg, do] (2, L*N, 4H) f32, carrying dh and dc."""
+    da = [di, df, dg, do] (2, L*N, 4H), carrying dh and dc (f32 in simt, bf16
+    in tc), and in tc the row tiles' partial sums of da for the bias gradient
+    (``bigru_vjp.gate_grad_buffers``). Returns (da, bias partials or None)."""
     _, L, N, H = c.shape
-    da = torch.empty((2, L * N, 4 * H), dtype=torch.float32, device=c.device)
+    (da,), part = bigru_vjp.gate_grad_buffers(L, N, 4 * H, plan, c.device, two=False)
     bigru_vjp._launch("k6_bwd_rec_launch", plan, c, *bigru_vjp._codes(plan, compute_dtype),
                       dout.data_ptr(), c.data_ptr(), gates.data_ptr(), w_hh.data_ptr(),
-                      da.data_ptr(), L, N, H, plan["U"], plan["rows_bwd"], lib=_load())
-    return da
+                      da.data_ptr(), bigru_vjp._ptr(part), L, N, H, plan["U"],
+                      plan["rows_bwd"], lib=_load())
+    return da, part
 
 
 def bilstm_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32):
@@ -247,8 +250,9 @@ def bilstm_layer_train_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float3
 
 def bilstm_layer_bwd(dout, x, w_ih, w_hh, out, c, gates,
                      compute_dtype=torch.float32):
-    """K6's backward on CUDA (three or four launches: ``k6_bwd_recurrence``,
-    then ``bigru_vjp.k5_dx`` and ``bigru_vjp.k5_weight_grads`` on its da), the
+    """K6's backward on CUDA (``bigru_vjp.bwd_cuda_launches``:
+    ``k6_bwd_recurrence``, then ``bigru_vjp.k5_dx`` and
+    ``bigru_vjp.k5_weight_grads`` on its da), the
     plain version on CPU: (dx, dw_ih, db_ih, dw_hh, db_hh), all f32, db_hh a
     copy of db_ih. Every sum has one owner and a fixed order, no atomics, so
     two runs on the same inputs give bit-equal results. The weights are read
@@ -260,9 +264,10 @@ def bilstm_layer_bwd(dout, x, w_ih, w_hh, out, c, gates,
                                       compute_dtype)
     plan = bigru_vjp.k45_plan(H, compute_dtype, "lstm")
     cuda_checks((dout, x, w_ih, w_hh, out, c, gates), H)
-    da = k6_bwd_recurrence(dout, c, gates, w_hh, plan, compute_dtype)
+    da, part = k6_bwd_recurrence(dout, c, gates, w_hh, plan, compute_dtype)
     dx = bigru_vjp.k5_dx(da, w_ih, plan, compute_dtype)
-    dw_ih, db, dw_hh, _ = bigru_vjp.k5_weight_grads(x, out, da, da, plan, compute_dtype)
+    dw_ih, db, dw_hh, _ = bigru_vjp.k5_weight_grads(x, out, da, da, plan, compute_dtype,
+                                                    part)
     launches_bwd += 1
     design_calls[plan["design"]] += 1
     return dx.view(L, N, C), dw_ih, db, dw_hh, db.clone()

@@ -43,7 +43,12 @@
 //          Per step: dt = dout + dh; the gate gradients dr, dz, dn from the
 //          residuals and h_prev (the stored output one step earlier in the
 //          direction's own time); dxg = [dr, dz, dn] and dhg = [dr, dz, dn r]
-//          to f32 scratch (the bias sums use them unrounded); then
+//          to device memory (simt: f32 scratch, whose column sums the
+//          weight-gradient launch takes; tc: bf16 copies, the operands TMA
+//          feeds to (b) and (c), and each CTA's row tile sums its f32 values
+//          for the bias gradients, in a fixed order, into partials that the
+//          sum launch of (c) adds in tile order: no f32 scratch and no
+//          column-sum pass, so a tc backward is 4 launches); then
 //          dh = dt z + op(dhg) W_hh^T. The contraction runs over 3H, three
 //          times h's width, so the operand is not broadcast: CTA c multiplies
 //          its own 3U gate columns by its W_hh rows into a partial dh for all
@@ -56,13 +61,18 @@
 //      (b) dx = [op(DXG_0) | op(DXG_1)] [W_ih,0^T ; W_ih,1^T], one product
 //          after the recurrence (k5_dx_launch);
 //      (c) dW_ih[d] = X^T op(DXG[d]), dW_hh[d] = H_prev^T op(DHG[d]) over
-//          the L N rows, in S fixed row slices, with the column sums of DXG
-//          and DHG (db_ih, db_hh) beside them; the slices are added in
-//          order (k5_wgrad_launch, k5_sum_launch). No atomics: reruns are
+//          the L N rows, in S fixed row slices (simt: with the column sums
+//          of DXG and DHG, db_ih and db_hh, beside them); the slices (and
+//          tc's bias partials, in tile order) are added in order
+//          (k5_wgrad_launch, k5_sum_launch). No atomics: reruns are
 //          bit-equal.
 //   Routes:
-//   - tc (bf16): the products on the tensor cores, mma.sync.m16n8k16 with
-//     f32 sums, fragments by ldmatrix (mma_tile.cuh). K4 (b) is an
+//   - tc (bf16): K5's products (b) and (c) on wgmma fed by TMA
+//     (rnn_train_gemm.cuh's wgemm_kernel, wgmma_tile.cuh's pieces: a
+//     three-stage ring, one producer warp, two consumer warpgroups, two
+//     CTAs an SM; X's rows at C % 8 != 0, which TMA cannot address, by the
+//     producer warp's plain loads). K4's projection is K1-tc's mma.sync
+//     kernel (its bits pinned). K4 (b) is an
 //     mma.sync cluster recurrence with the residual stores: 64 rows a
 //     tile, U = 64 (CN = 4 at H = 256), W_hh gate-interleaved so a thread's
 //     accumulators hold every gate of its units; 168,960 bytes a CTA. K5 (a):
@@ -81,9 +91,16 @@
 //
 // Numerics: gate math and every sum in f32. With bf16 operands, x, the
 //   weights, dout, out and the residuals are bf16 values (as on the TPU);
-//   the h operand and dxg and dhg are rounded to bf16 as product operands;
-//   dx, dW and db are f32. The tc recurrence's gate functions use __expf
+//   the h operand and dxg and dhg are rounded to bf16 (nearest even) as
+//   product operands, the bias sums take them unrounded; dx, dW and db are
+//   f32. The tc recurrence's gate functions use __expf
 //   (within ~1e-6, far inside a bf16 ulp), as K1-tc's.
+//
+// Bound of the tc backward's products at the main path's shapes (C = 512):
+//   dx 33.8 GFLOP, dW_ih 33.8, dW_hh 16.9 (K6: 45.1, 45.1, 22.5), 0.085 /
+//   0.114 ms at 989 TFLOP/s; their operands (the bf16 gate gradients, X,
+//   out, W_ih) are read from L2 or once from device memory, far below the
+//   operations' time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //   -Xcompiler -fPIC (ops/bigru_vjp.py builds it at first use). Each C entry
@@ -138,11 +155,13 @@ int k4_rec_launch(int design, int dtype, const void* xg, const void* whh, const 
   return fwd_rec_run<false>(design, dtype, rp, U, R, static_cast<cudaStream_t>(stream));
 }
 
-// K5 (a): dxg and dhg (2, L N, 3H) f32 from dout, out, gates and W_hh; R
-// rows a tile (tc: 32; simt: 8192 / H), clusters of H / U CTAs.
+// K5 (a): dxg and dhg (2, L N, 3H) from dout, out, gates and W_hh, f32
+// (simt) or bf16 (tc, with the row tiles' bias-gradient partials in bpart,
+// (tiles, 2, 2, 3H) f32); R rows a tile (tc: 32; simt: 8192 / H), clusters
+// of H / U CTAs.
 int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
-                  const void* gates, const void* whh, void* dxg, void* dhg, int L, int N,
-                  int H, int U, int R, void* stream, int device) {
+                  const void* gates, const void* whh, void* dxg, void* dhg, void* bpart,
+                  int L, int N, int H, int U, int R, void* stream, int device) {
   USE_DEVICE(device);
   BwdRecParams kp;
   kp.dout = dout;
@@ -150,8 +169,9 @@ int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
   kp.gates = gates;
   kp.cseq = nullptr;
   kp.whh = whh;
-  kp.dxg = static_cast<float*>(dxg);
-  kp.dhg = static_cast<float*>(dhg);
+  kp.dxg = dxg;
+  kp.dhg = dhg;
+  kp.bpart = static_cast<float*>(bpart);
   kp.L = L;
   kp.N = N;
   kp.H = H;
@@ -160,23 +180,31 @@ int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
   return bwd_rec_run<false>(design, dtype, kp, static_cast<cudaStream_t>(stream));
 }
 
-// dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T.
+// dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T: simt with dxg f32
+// (rnn_train_gemm.cuh's gemm_simt_kernel), tc with dxg bf16 (wgemm_kernel).
 int k5_dx_launch(int design, int dtype, const void* dxg, const void* wih, void* dx, int M,
                  int C, int H, int ng, void* stream, int device) {
   USE_DEVICE(device);
   if (M < 1 || C < 1 || H < 1 || (ng != 3 && ng != 4) || (design == 1 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(dxg);
   float* o = static_cast<float*>(dx);
-  if (dtype == 0) return rnn_dx<float>(design == 1, g, wih, o, M, C, ng * H, s);
-  if (dtype == 1) return rnn_dx<bf16>(design == 1, g, wih, o, M, C, ng * H, s);
+  if (design == 1) {
+    if (H % 8 != 0) return (int)cudaErrorInvalidValue;
+    return wg_dx(dxg, wih, o, M, C, ng * H, s);
+  }
+  const float* g = static_cast<const float*>(dxg);
+  if (dtype == 0) return rnn_dx<float>(g, wih, o, M, C, ng * H, s);
+  if (dtype == 1) return rnn_dx<bf16>(g, wih, o, M, C, ng * H, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The weight and bias gradients into part (S slices of [dW_ih (2, C, G) |
-// dW_hh (2, H, G) | db_ih (2, G) | db_hh (2, G)] f32; with S = 1, part is the
-// result). dhg == dxg (K6's da): one bias sum, no db_hh slot.
+// The weight gradients into part, over S fixed row slices (with S = 1, part
+// is the result). simt (dxg and dhg f32): S slices of [dW_ih (2, C, G) |
+// dW_hh (2, H, G) | db_ih (2, G) | db_hh (2, G)], the bias gradients the
+// column sums of dxg and dhg; dhg == dxg (K6's da): one bias sum, no db_hh
+// slot. tc (dxg and dhg the bf16 copies): S slices of [dW_ih | dW_hh] on
+// wgmma; the bias gradients come from the recurrence's partials.
 int k5_wgrad_launch(int design, int dtype, const void* x, const void* out, const void* dxg,
                     const void* dhg, void* part, int L, int N, int C, int H, int ng, int S,
                     void* stream, int device) {
@@ -185,25 +213,35 @@ int k5_wgrad_launch(int design, int dtype, const void* x, const void* out, const
       (long long)L * N >= (1LL << 31) || (design == 1 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* a = static_cast<const float*>(dxg);
-  const float* b = static_cast<const float*>(dhg);
   float* o = static_cast<float*>(part);
   const int G = ng * H;
-  if (dtype == 0) return rnn_wgrad<float>(design == 1, x, out, a, b, o, L, N, C, H, G, S, s);
-  if (dtype == 1) return rnn_wgrad<bf16>(design == 1, x, out, a, b, o, L, N, C, H, G, S, s);
+  if (design == 1) {
+    if (H % 8 != 0) return (int)cudaErrorInvalidValue;
+    return wg_wgrad(x, out, dxg, dhg, o, L, N, C, H, G, S, s);
+  }
+  const float* a = static_cast<const float*>(dxg);
+  const float* b = static_cast<const float*>(dhg);
+  if (dtype == 0) return rnn_wgrad<float>(x, out, a, b, o, L, N, C, H, G, S, s);
+  if (dtype == 1) return rnn_wgrad<bf16>(x, out, a, b, o, L, N, C, H, G, S, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The weight gradients' slices: grads[i] = sum over the S partials of
-// element i, in slice order (T floats a slice).
-int k5_sum_launch(const void* part, void* grads, long long T, int S, void* stream,
-                  int device) {
+// The slices and tiles: grads[i] = sum over the S partials of element i, in
+// slice order (T floats a slice; none when S == 1), and bgrads[j] = sum over
+// the NT tile partials bpart[t Tb + j], in tile order (the tc design's bias
+// gradients; Tb = 0 in simt).
+int k5_sum_launch(const void* part, void* grads, long long T, int S, const void* bpart,
+                  void* bgrads, long long Tb, int NT, void* stream, int device) {
   USE_DEVICE(device);
-  if (T < 1 || S < 2) return (int)cudaErrorInvalidValue;
-  const long long blocks = (T + GM_THREADS - 1) / GM_THREADS;
+  if (T < 1 || S < 1 || Tb < 0 || (Tb > 0 && (bpart == nullptr || NT < 1)) ||
+      (S < 2 && Tb == 0))
+    return (int)cudaErrorInvalidValue;
+  const long long n = (S > 1 ? T : 0) + Tb;
+  const long long blocks = (n + GM_THREADS - 1) / GM_THREADS;
   gemm_sum_slices<<<(int)(blocks < 4096 ? blocks : 4096), GM_THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(part),
-                                                         static_cast<float*>(grads), T, S);
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part), static_cast<float*>(grads), T, S,
+      static_cast<const float*>(bpart), static_cast<float*>(bgrads), Tb, NT);
   return (int)cudaGetLastError();
 }
 

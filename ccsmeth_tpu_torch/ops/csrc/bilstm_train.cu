@@ -38,7 +38,7 @@
 //         L steps, c stays f32 in the registers of its one owner, and the new
 //         h goes to every CTA of the cluster once a step. Per step: out, c and
 //         the gates in the store type.
-//   backward, three or four launches:
+//   backward, three or four launches (ops/bigru_vjp.py::bwd_cuda_launches):
 //     (a) the recurrence over reversed time (k6_bwd_rec_launch), carrying dh
 //         and dc: tc = tanh(c); dh_t = dout + dh; dc = dh_t o (1 - tc^2) + dc;
 //         da = [dc g i(1-i), dc c_prev f(1-f), dc i (1-g^2), dh_t tc o(1-o)];
@@ -46,13 +46,16 @@
 //         thread that owns its (row, unit) (in the slot where the GRU keeps
 //         dt z); dh is reduce-scattered across the cluster in rank order.
 //         c_prev is the stored c one step earlier in the direction's own time
-//         (zero at its first step). One gate-gradient matrix da (2, L N, 4H)
-//         f32, where the GRU has two;
+//         (zero at its first step). One gate-gradient matrix da (2, L N, 4H),
+//         where the GRU has two: f32 in simt, bf16 in tc (the products'
+//         operands), with the row tiles' partial sums of the f32 da for the
+//         bias gradient;
 //     (b) dx = sum_d op(da[d]) W_ih[d]^T, one product reading W_ih in its own
-//         layout (bigru_train.cu's k5_dx_launch, ng = 4);
+//         layout (bigru_train.cu's k5_dx_launch, ng = 4; tc on wgmma);
 //     (c) dW_ih[d] = X^T op(da[d]), dW_hh[d] = H_prev^T op(da[d]) and the
-//         column sum of da once (db_ih = db_hh), in fixed row slices added
-//         in order (k5_wgrad_launch with dhg = dxg, k5_sum_launch). No
+//         bias sum of da once (db_ih = db_hh), in fixed row slices added in
+//         order (k5_wgrad_launch with dhg = dxg, tc on wgmma; k5_sum_launch,
+//         which in tc also adds the bias partials in tile order). No
 //         atomics: reruns are bit-equal.
 //   Shared memory at H = 256: tc U = 64, clusters of 4: forward (4U + 2 x 64)
 //   x (H + 8) x 2 = 202,752 bytes, backward 225,792; simt U = 32, clusters of
@@ -62,8 +65,8 @@
 //
 // Numerics: gate math and every sum in f32. With bf16 operands, x, the
 //   weights, dout and the residuals (out, c, gates) are bf16 values (as on the
-//   TPU); da is rounded to bf16 as the operand of the products while the bias
-//   sum uses it unrounded; dx, dW and db are f32.
+//   TPU); da is rounded to bf16 (nearest even) as the operand of the
+//   products while the bias sum uses it unrounded; dx, dW and db are f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //   -Xcompiler -fPIC (ops/bilstm_vjp.py builds it at first use). Each C entry
@@ -98,11 +101,13 @@ int k6_rec_launch(int design, int dtype, const void* xg, const void* whh, void* 
   return fwd_rec_run<true>(design, dtype, rp, U, R, static_cast<cudaStream_t>(stream));
 }
 
-// K6 backward (a): da (2, L N, 4H) f32 from dout, c, gates and W_hh; R
-// rows a tile (tc: 32; simt: 8192 / H or a divisor of it).
+// K6 backward (a): da (2, L N, 4H) from dout, c, gates and W_hh, f32
+// (simt) or bf16 (tc, with the row tiles' bias-gradient partials in bpart,
+// (tiles, 1, 2, 4H) f32); R rows a tile (tc: 32; simt: 8192 / H or a
+// divisor of it).
 int k6_bwd_rec_launch(int design, int dtype, const void* dout, const void* cseq,
-                      const void* gates, const void* whh, void* da, int L, int N, int H,
-                      int U, int R, void* stream, int device) {
+                      const void* gates, const void* whh, void* da, void* bpart, int L, int N,
+                      int H, int U, int R, void* stream, int device) {
   USE_DEVICE(device);
   BwdRecParams kp;
   kp.dout = dout;
@@ -110,8 +115,9 @@ int k6_bwd_rec_launch(int design, int dtype, const void* dout, const void* cseq,
   kp.gates = gates;
   kp.cseq = cseq;
   kp.whh = whh;
-  kp.dxg = static_cast<float*>(da);
+  kp.dxg = da;
   kp.dhg = nullptr;
+  kp.bpart = static_cast<float*>(bpart);
   kp.L = L;
   kp.N = N;
   kp.H = H;

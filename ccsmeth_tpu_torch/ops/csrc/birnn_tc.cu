@@ -351,12 +351,6 @@ __device__ __forceinline__ void st_shared_v2(uint32_t addr, uint2 v) {
   asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y) : "memory");
 }
 
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
-
 // The B row of a CTA's gate-interleaved operand that holds column gate of
 // its unit u (0 <= u < U), NG gates: unit blocks ub of 8 rows each gate, in
 // pairs (ub = 2 q + b): row i of block 2 q + b is unit 16 q + 4 (i / 2) + 2 b
@@ -797,29 +791,6 @@ static void tc_rec_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, in
   cfg->numAttrs = 1;
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
-// query (the library does not link libcuda)
-static EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
-  }
-  return fn;
-}
-
 extern "C" {
 
 // Phase (a) of one layer: xg (2, M, G) f32 = x (M, K) W_ih[d] (K, G) + b_ih[d]
@@ -858,8 +829,6 @@ int birnn_tc_gemm_launch(int cell, const void* x, const void* wih, const void* b
   if ((cell != 0 && cell != 1) || M < 1 || K < 8 || K % 8 != 0 || H < 16 || H % 16 != 0 ||
       (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(wih)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
   const int G = (cell ? 4 : 3) * H;
   CUtensorMap tx, tw;
   const cuuint64_t xdims[2] = {(cuuint64_t)K, (cuuint64_t)M};
@@ -868,13 +837,10 @@ int birnn_tc_gemm_launch(int cell, const void* x, const void* wih, const void* b
   const cuuint64_t wdims[3] = {(cuuint64_t)G, (cuuint64_t)K, 2};
   const cuuint64_t wstrides[2] = {(cuuint64_t)G * 2, (cuuint64_t)K * G * 2};
   const cuuint32_t wbox[3] = {64, GM_BK, 1};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  if (encode(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), xdims, xstrides,
-             xbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(wih), wdims, wstrides,
-             wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  const CUresult ex = bf16_tensor_map(&tx, x, 2, xdims, xstrides, xbox);
+  if (ex != CUDA_SUCCESS) return ex == CUDA_ERROR_NOT_SUPPORTED ? (int)cudaErrorNotSupported
+                                                                 : (int)cudaErrorInvalidValue;
+  if (bf16_tensor_map(&tw, wih, 3, wdims, wstrides, wbox) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   GemmParams gp;
   gp.bih = static_cast<const float*>(bih);

@@ -4,29 +4,45 @@
 //   the input projection  xg[d] = X W_ih[d] + bias       (M = L N, K = C)
 //   the input gradient    dx = sum_d op(DXG[d]) W_ih[d]^T (M = L N, K = G)
 //   the weight gradients  dW[d] = A^T op(B[d])            (K = L N rows)
-// and the column sums of B beside the weight gradients (the bias gradients).
-// rnn_proj, rnn_dx and rnn_wgrad at the end describe each as jobs.
+// and, in the simt design, the column sums of B beside the weight gradients
+// (the bias gradients; the tc design's backward recurrence sums them).
+// rnn_proj, rnn_dx, rnn_wgrad, wg_dx and wg_wgrad at the end describe each
+// as jobs.
 //
-// One kernel template per route, both over the same job description:
-//   gemm_simt_kernel: exact f32 FMAs on the CUDA cores. Block tile 128 x 128,
-//     k tile 8, 8 x 8 outputs a thread, operand tiles in shared memory
-//     (double-buffered; the next tile is loaded into registers while the
-//     current one is multiplied). No TF32.
-//   gemm_tc_kernel: bf16 mma.sync.m16n8k16 with f32 accumulators. Block tile
-//     128 x 128, k tile 32, eight warps of 64 x 32; operands staged as bf16
-//     through registers (an f32 operand, the gate gradients, is rounded to
-//     bf16 there), fragments by ldmatrix (.trans where the operand's
-//     contiguous dimension is not k).
-// Operands are read in the layout the caller already holds (no transposed
-// copies): each side is "k-contiguous" (element (i, k) at p[i ld + k]) or not
-// (element (i, k) at p[(k + koff) ld + i]), a template argument. Elements with
-// k outside [klo, khi) read as 0: the weight gradient of W_hh reads h_prev
-// from the layer output one step back in the direction's own time.
+// Two kernels, by design:
+//   gemm_simt_kernel (the simt design, f32 or bf16 operands): exact f32 FMAs
+//     on the CUDA cores. Block tile 128 x 128, k tile 8, 8 x 8 outputs a
+//     thread, operand tiles in shared memory (double-buffered; the next tile
+//     is loaded into registers while the current one is multiplied). No
+//     TF32. It reads its operands in the layout the caller already holds (no
+//     transposed copies): each side is "k-contiguous" (element (i, k) at
+//     p[i ld + k]) or not (element (i, k) at p[(k + koff) ld + i]), a
+//     template argument. Elements with k outside [klo, khi) read as 0: the
+//     weight gradient of W_hh reads h_prev from the layer output one step
+//     back in the direction's own time.
+//   wgemm_kernel (the tc design's dx and weight gradients, bf16): Hopper's
+//     own path, as K1's projection (birnn_tc.cu::tc_gemm_kernel) runs it.
+//     TMA loads the operands' tiles into a three-stage ring on mbarriers (one
+//     producer warp); two consumer warpgroups run wgmma m64nBNk16 from shared
+//     memory into f32 accumulators; two CTAs an SM. The gate gradients reach
+//     it as bf16 copies that the backward recurrence stores (TMA cannot round
+//     f32 on the way). dx: A = DXG[d] (L N, G) and B = W_ih[d] (C, G) both
+//     K-major as stored, the two directions two k segments of one
+//     accumulator, BN = 16, 32, 64 or 128 columns by C. dW: A = X^T or
+//     H_prev^T and B = DXG[d] or DHG[d], all MN-major as stored (A through
+//     the instruction's trans-a flag); H_prev is the layer output read at
+//     the row coordinate k -+ N, and TMA fills the rows outside the tensor
+//     (the direction's first step) with zeros. X's rows at C % 8 != 0 (C =
+//     11, 21, 28, 52: not 16-byte multiples, which TMA needs) are written
+//     into the same swizzled image by the producer warp's plain loads.
+// The bound of the tc products at the main path's shapes is their
+// operations (bigru_train.cu's header): they read each operand once from
+// device memory or L2 and are far above the card's ridge.
 //
-// Determinism: every output element has one owner thread that sums its k in a
-// fixed order; a long contraction is cut into S fixed row slices whose
-// partials gemm_sum_slices adds in slice order. No atomics, so reruns are
-// bit-equal.
+// Determinism: every output element has one owner thread (a warpgroup's
+// accumulator in wgemm_kernel) that sums its k in a fixed order; a long
+// contraction is cut into S fixed row slices whose partials gemm_sum_slices
+// adds in slice order. No atomics, so reruns are bit-equal.
 
 #pragma once
 
@@ -34,12 +50,16 @@
 
 #include "mma_tile.cuh"
 #include "rnn_common.cuh"
+#include "wgmma_tile.cuh"
 
 #define GM_THREADS 256
 #define GM_BM 128
 #define GM_BN 128
 #define SG_BK 8   // k tile of the simt route
-#define TG_BK 32  // k tile of the tensor-core route
+// row granularity of the simt weight-gradient slices (the k tile of the
+// tensor-core route the slices were first cut for; kept, so the simt
+// slices and their bits stay as they were)
+#define SLICE_K 32
 
 // One operand of one product: base pointer, row stride (elements), a storage
 // row offset added to k (used where k is the row index) and the k range that
@@ -267,193 +287,230 @@ __global__ void __launch_bounds__(GM_THREADS, 2) gemm_simt_kernel(const GemmPara
   }
 }
 
-// ---------------------------------------------------------------- tensor cores
+// ---------------------------------------------------------------- wgmma
 
-#define TG_KS (TG_BK + 8)   // row stride (bf16) of a k-contiguous staged tile
-#define TG_IS (GM_BM + 8)   // row stride of a tile staged with i contiguous
+#define WG_BM 128       // rows of a tile: two consumer warpgroups of 64
+#define WG_BK 64        // k a stage: 64 bf16, one 128-byte swizzled row
+#define WG_STAGES 3
+#define WG_THREADS 288  // two consumer warpgroups and one producer warp
+#define WG_BOX 8192     // bytes of one box of 64 rows of 128 bytes
 
-template <typename TA, bool A_KC, typename TB, bool B_KC>
-__global__ void __launch_bounds__(GM_THREADS, 1) gemm_tc_kernel(const GemmParams p) {
-  typedef __nv_bfloat16 bf16;
-  constexpr int A_ELEMS = A_KC ? GM_BM * TG_KS : TG_BK * TG_IS;
-  constexpr int B_ELEMS = B_KC ? GM_BN * TG_KS : TG_BK * TG_IS;
-  __shared__ __align__(16) bf16 As[2][A_ELEMS];
-  __shared__ __align__(16) bf16 Bs[2][B_ELEMS];
-  const int ji = blockIdx.z / p.S, slice = blockIdx.z % p.S;
-  const GemmJob& jb = p.job[ji];
-  const int m0 = blockIdx.y * GM_BM, n0 = blockIdx.x * GM_BN;
-  if (m0 >= jb.M || n0 >= jb.N) return;
-  const int kb = slice * p.Ks, ke = min(p.K, kb + p.Ks);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const bool do_cs = !B_KC && jb.colsum != nullptr && blockIdx.y == 0;
+// One output of wgemm_kernel: rows [0, M) of c (row stride ldc, plus the
+// slice's offset). dW: A through map a_map (0 or 1) at (a_col + m, a_row +
+// k), or, a_map == 2, X's rows by plain loads (stage_rows_mn); B through map
+// b_map at (n, k, b_dir); dx: A at (k, m, d), B at (k, n, d) for both
+// directions d in turn.
+struct WgJob {
+  float* c;
+  int M, a_map, a_col, a_row, b_map, b_dir;
+};
 
-  // vector v = tid + 256 q of a tile: (outer i, k) offsets
-  auto vec_ik = [&](bool kc, int q, int& i, int& k) {
-    const int v = tid + q * GM_THREADS;
-    if (kc) {
-      i = v / (TG_BK / 4);
-      k = (v % (TG_BK / 4)) * 4;
-    } else {
-      i = (v % (GM_BM / 4)) * 4;
-      k = v / (GM_BM / 4);
-    }
-  };
+struct WgParams {
+  WgJob job[4];
+  int N;      // output columns
+  int K;      // dW: the L N rows; dx: G, one direction's k
+  int S, Ks;  // dW: S row slices of Ks rows (a multiple of WG_BK); dx: 1, G
+  long long ldc, slice_stride;
+  const __nv_bfloat16* x;  // a_map == 2: X (K rows of M = C bf16, C % 8 != 0)
+};
 
-  float acc[4][4][4];
+// Rows [k0, k0 + 64) of X (K rows of ld bf16, any ld) at columns [m0, m0 +
+// 128), written by the 32 lanes of a warp as the two MN-major boxes TMA
+// would write (row r of a box at 128 r bytes, the 128-byte swizzle; zero
+// outside X): for X whose rows are no multiple of 16 bytes, which TMA
+// cannot address. The caller fences them for the async proxy.
+__device__ __forceinline__ void stage_rows_mn(uint32_t a, const __nv_bfloat16* x, int ld,
+                                              int K, int k0, int m0, int lane) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  for (int r = lane; r < WG_BK; r += 32) {
+    const int k = k0 + r;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int c8 = 0; c8 < 8; ++c8) {
+        const int m = m0 + 64 * h + 8 * c8;
+        uint32_t w[4] = {0u, 0u, 0u, 0u};
+        if (k < K && m < ld) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.0f;
-  float cs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-
-  for (int seg = 0; seg < jb.nseg; ++seg) {
-    const GemmOp& A = jb.a[seg];
-    const GemmOp& B = jb.b[seg];
-    const int alo = max(kb, A.klo), ahi = min(ke, A.khi);
-    const int blo = max(kb, B.klo), bhi = min(ke, B.khi);
-    const bool cs_here = do_cs && seg == 0;
-    float ra[4][4], rb[4][4];
-    auto fetch = [&](int k0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int i, k;
-        vec_ik(A_KC, q, i, k);
-        gm_fetch<TA, A_KC>(A, m0 + i, k0 + k, alo, ahi, jb.M, ra[q]);
-        vec_ik(B_KC, q, i, k);
-        gm_fetch<TB, B_KC>(B, n0 + i, k0 + k, blo, bhi, jb.N, rb[q]);
-      }
-    };
-    auto stash = [&](int buf) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int i, k;
-        vec_ik(A_KC, q, i, k);
-        const uint2 av = make_uint2(pack_bf16x2(ra[q][0], ra[q][1]),
-                                    pack_bf16x2(ra[q][2], ra[q][3]));
-        *reinterpret_cast<uint2*>(As[buf] + (A_KC ? i * TG_KS + k : k * TG_IS + i)) = av;
-        vec_ik(B_KC, q, i, k);
-        if (cs_here) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) cs[e] += rb[q][e];
+          for (int e = 0; e < 8; ++e)
+            if (m + e < ld) w[e >> 1] |= (uint32_t)__ldg(xs + (size_t)k * ld + m + e) << (16 * (e & 1));
         }
-        const uint2 bv = make_uint2(pack_bf16x2(rb[q][0], rb[q][1]),
-                                    pack_bf16x2(rb[q][2], rb[q][3]));
-        *reinterpret_cast<uint2*>(Bs[buf] + (B_KC ? i * TG_KS + k : k * TG_IS + i)) = bv;
+        st_shared_v4(a + h * WG_BOX + r * 128 + ((c8 ^ (r & 7)) << 4),
+                     make_uint4(w[0], w[1], w[2], w[3]));
       }
-    };
-    fetch(kb);
-    stash(0);
-    __syncthreads();
-    int buf = 0;
-    for (int k0 = kb; k0 < ke; k0 += TG_BK) {
-      const bool more = k0 + TG_BK < ke;
-      if (more) fetch(k0 + TG_BK);
-      const bf16* as = As[buf];
-      const bf16* bs = Bs[buf];
-#pragma unroll
-      for (int kk = 0; kk < TG_BK; kk += 16) {
-        uint32_t a[4][4], b[4][2];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int mr = wm * 64 + mt * 16;
-          if constexpr (A_KC)
-            ldmatrix_x4(a[mt], smem_u32(as + (mr + (lane & 15)) * TG_KS + kk + (lane >> 4) * 8));
-          else
-            ldmatrix_x4_trans(a[mt], smem_u32(as + (kk + (lane & 7) + ((lane >> 4) << 3)) * TG_IS +
-                                              mr + ((lane >> 3) & 1) * 8));
-        }
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int nc = wn * 32 + np * 16;
-          uint32_t r[4];
-          if constexpr (B_KC)
-            ldmatrix_x4(r, smem_u32(bs + (nc + (lane & 7) + ((lane >> 4) << 3)) * TG_KS + kk +
-                                    ((lane >> 3) & 1) * 8));
-          else
-            ldmatrix_x4_trans(r, smem_u32(bs + (kk + (lane & 15)) * TG_IS + nc + (lane >> 4) * 8));
-          b[2 * np][0] = r[0];
-          b[2 * np][1] = r[1];
-          b[2 * np + 1][0] = r[2];
-          b[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a[mt], b[j]);
-      }
-      if (more) stash(buf ^ 1);
-      __syncthreads();
-      buf ^= 1;
-    }
-  }
-
-  const size_t so = (size_t)slice * p.slice_stride;
-  const bool vec_c = jb.ldc % 2 == 0 && (uintptr_t)(jb.c + so) % 8 == 0;
-  const int g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + wn * 32 + j * 8 + 2 * t4;  // this thread's 2 columns
-    if (n >= jb.N) continue;
-    const float b0 = gm_bias(jb, n), b1 = n + 1 < jb.N ? gm_bias(jb, n + 1) : 0.0f;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + wm * 64 + mt * 16 + g + 8 * half;
-        if (m >= jb.M) continue;
-        float* cp = jb.c + so + (size_t)m * jb.ldc + n;
-        const float v0 = acc[mt][j][2 * half] + b0, v1 = acc[mt][j][2 * half + 1] + b1;
-        if (vec_c && n + 1 < jb.N) {
-          *reinterpret_cast<float2*>(cp) = make_float2(v0, v1);
-        } else {
-          cp[0] = v0;
-          if (n + 1 < jb.N) cp[1] = v1;
-        }
-      }
-  }
-  if (do_cs) {  // B vectors of a thread share their columns: (tid % 32) * 4 ..
-    float* cs_s = reinterpret_cast<float*>(&As[0][0]);  // 8 x 128 floats
-    const int col = (tid % 32) * 4, kr = tid / 32;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) cs_s[kr * GM_BN + col + e] = cs[e];
-    __syncthreads();
-    if (tid < GM_BN && n0 + tid < jb.N) {
-      float s = 0.0f;
-      for (int r = 0; r < GM_THREADS / 32; ++r) s += cs_s[r * GM_BN + tid];
-      jb.colsum[so + n0 + tid] = s;
     }
   }
 }
 
-// out[i] = sum over the S slice partials of element i, in slice order
+// One CTA: rows [m0, m0 + 128) by columns [n0, n0 + BN) of one job (and, for
+// dW, one row slice). Stage s of the ring holds A's tile (128 rows of 64 k:
+// dx one K-major box, dW two MN-major boxes of 64 m, one a warpgroup) and
+// B's (dx: BN rows of 64 k, K-major; dW: two MN-major boxes of 64 n);
+// `full[s]` completes when TMA has written them, `empty[s]` when both
+// consumer warpgroups have read them.
+template <bool MN, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+    wgemm_kernel(const __grid_constant__ CUtensorMap ta0, const __grid_constant__ CUtensorMap ta1,
+                 const __grid_constant__ CUtensorMap tb0, const __grid_constant__ CUtensorMap tb1,
+                 const WgParams p) {
+  constexpr uint32_t A_BYTES = WG_BM * WG_BK * 2, B_BYTES = BN * WG_BK * 2;
+  constexpr uint32_t STAGE = A_BYTES + B_BYTES;
+  static_assert(!MN || BN == 128, "dW tiles are two 64-column boxes of B");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t full = base + WG_STAGES * STAGE, empty = full + 8 * WG_STAGES;
+  const int ji = blockIdx.z / p.S, slice = blockIdx.z % p.S;
+  const WgJob& jb = p.job[ji];
+  const int m0 = blockIdx.y * WG_BM, n0 = blockIdx.x * BN;
+  if (m0 >= jb.M) return;  // block-uniform, before any barrier
+  // dW: this slice's rows; dx: each direction's G in turn
+  const int kb = MN ? slice * p.Ks : 0, ke = MN ? min(p.K, kb + p.Ks) : p.K;
+  const int kt_seg = ke > kb ? (ke - kb + WG_BK - 1) / WG_BK : 0;
+  const int ntiles = MN ? kt_seg : 2 * kt_seg;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if ((base & 1023) != 0) __trap();  // the swizzled tiles need 1024-byte alignment
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (wg == 2) {  // the producer warp: one thread keeps the ring full (the
+                  // whole warp where it stages X's rows itself)
+    const int lane = tid & 31;
+    const bool plain_a = MN && jb.a_map == 2;
+    if (plain_a || lane == 0) {
+      const CUtensorMap* am = jb.a_map == 1 ? &ta1 : &ta0;
+      const CUtensorMap* bm = jb.b_map ? &tb1 : &tb0;
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES) mbar_wait(empty + 8 * s, ((it / WG_STAGES) - 1) & 1);
+        const uint32_t a = base + s * STAGE, b = a + A_BYTES, bar = full + 8 * s;
+        if constexpr (MN) {
+          const int k0 = kb + it * WG_BK;
+          if (plain_a) {
+            // every lane's stores, then visible to wgmma (the async proxy)
+            // before lane 0's arrival completes the stage with B's bytes
+            stage_rows_mn(a, p.x, jb.M, p.K, k0, m0, lane);
+            fence_async_shared();
+            __syncwarp();
+            if (lane != 0) continue;
+            mbar_expect_tx(bar, B_BYTES);
+          } else {
+            mbar_expect_tx(bar, STAGE);
+            tma_load_2d(a, am, bar, jb.a_col + m0, jb.a_row + k0);
+            tma_load_2d(a + WG_BOX, am, bar, jb.a_col + m0 + 64, jb.a_row + k0);
+          }
+          tma_load_3d(b, bm, bar, n0, k0, jb.b_dir);
+          tma_load_3d(b + WG_BOX, bm, bar, n0 + 64, k0, jb.b_dir);
+        } else {
+          mbar_expect_tx(bar, STAGE);
+          const int d = it / kt_seg, k0 = (it % kt_seg) * WG_BK;
+          tma_load_3d(a, am, bar, k0, m0, d);
+          tma_load_3d(b, bm, bar, k0, n0, d);
+        }
+      }
+    }
+    return;
+  }
+  const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % WG_STAGES;
+    mbar_wait(full + 8 * s, (it / WG_STAGES) & 1);
+    __syncwarp();
+    // this warpgroup's 64 rows of A: the second 8 KB box (dW) or rows
+    // 64 .. 127 of the K-major box (dx), 8 KB in either case
+    const uint32_t a = base + s * STAGE + wg * WG_BOX, b = base + s * STAGE + A_BYTES;
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WG_BK / 16; ++kk) {
+      if constexpr (MN)
+        Wgmma<BN>::template mma<1, 1>(acc, mnmajor_desc(a + 2048 * kk, WG_BOX, 1024),
+                                      mnmajor_desc(b + 2048 * kk, WG_BOX, 1024), (it | kk) != 0);
+      else
+        Wgmma<BN>::template mma<0, 0>(acc, kmajor_desc(a + 32 * kk, 128),
+                                      kmajor_desc(b + 32 * kk, 128), (it | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous k tile's products are done: free its stage
+    fence_regs(acc);
+    if (it > 0 && (tid & 127) == 0) mbar_arrive(empty + 8 * ((it - 1) % WG_STAGES));
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  float* c = jb.c + (size_t)slice * p.slice_stride;
+  const bool vec = p.ldc % 2 == 0;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * t4;  // this thread's 2 columns
+    if (n >= p.N) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int m = m0 + wg * 64 + warp * 16 + g + 8 * hh;
+      if (m >= jb.M) continue;
+      float* cp = c + (size_t)m * p.ldc + n;
+      const float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+      if (vec && n + 1 < p.N) {
+        *reinterpret_cast<float2*>(cp) = make_float2(v0, v1);
+      } else {
+        cp[0] = v0;
+        if (n + 1 < p.N) cp[1] = v1;
+      }
+    }
+  }
+}
+
+// out[i] = sum over the S slice partials part[s T + i], in slice order (i <
+// T; nothing when S == 1); then bout[j] = sum over the NT tile partials
+// bpart[t Tb + j], in tile order (j < Tb: the tc design's bias gradients,
+// none in simt)
 __global__ void __launch_bounds__(GM_THREADS)
-    gemm_sum_slices(const float* part, float* out, long long T, int S) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < T;
+    gemm_sum_slices(const float* part, float* out, long long T, int S, const float* bpart,
+                    float* bout, long long Tb, int NT) {
+  const long long nw = S > 1 ? T : 0;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < nw + Tb;
        i += (long long)gridDim.x * blockDim.x) {
     float s = 0.0f;
-    for (int sl = 0; sl < S; ++sl) s += part[(size_t)sl * T + i];
-    out[i] = s;
+    if (i < nw) {
+      for (int sl = 0; sl < S; ++sl) s += part[(size_t)sl * T + i];
+      out[i] = s;
+    } else {
+      const long long j = i - nw;
+      for (int t = 0; t < NT; ++t) s += bpart[(size_t)t * Tb + j];
+      bout[j] = s;
+    }
   }
 }
 
-// One launch over the jobs of p (tc: the bf16 route; else simt with operand
-// type TR). Grid: (N tiles, M tiles, jobs x S).
+// One launch of gemm_simt_kernel over the jobs of p, operand type TR.
+// Grid: (N tiles, M tiles, jobs x S).
 template <typename TA, bool A_KC, typename TB, bool B_KC, typename TR>
-static int gemm_run(bool tc, const GemmParams& p, int njobs, int Mmax, int Nmax,
-                    cudaStream_t s) {
+static int gemm_run(const GemmParams& p, int njobs, int Mmax, int Nmax, cudaStream_t s) {
   const dim3 grid((Nmax + GM_BN - 1) / GM_BN, (Mmax + GM_BM - 1) / GM_BM, njobs * p.S);
-  if constexpr (std::is_same<TR, __nv_bfloat16>::value) {
-    if (tc) {
-      gemm_tc_kernel<TA, A_KC, TB, B_KC><<<grid, GM_THREADS, 0, s>>>(p);
-      return (int)cudaGetLastError();
-    }
-  }
-  if (tc) return (int)cudaErrorInvalidValue;  // the tc route takes bf16 only
   gemm_simt_kernel<TA, A_KC, TB, B_KC, TR><<<grid, GM_THREADS, 0, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+// One launch of wgemm_kernel<MN, BN> over maps (A0, A1, B0, B1).
+template <bool MN, int BN>
+static int wgemm_run(const CUtensorMap (&maps)[4], const WgParams& p, dim3 grid,
+                     cudaStream_t s) {
+  const size_t smem = (size_t)WG_STAGES * (WG_BM + BN) * WG_BK * 2 + 16 * WG_STAGES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      wgemm_kernel<MN, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  wgemm_kernel<MN, BN><<<grid, WG_THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return (int)cudaGetLastError();
+}
+
+static int map_error(CUresult r) {
+  return r == CUDA_ERROR_NOT_SUPPORTED ? (int)cudaErrorNotSupported : (int)cudaErrorInvalidValue;
 }
 
 // a GemmOp over p with the given stride, row offset and k range; vec when a
@@ -469,6 +526,11 @@ static GemmOp gemm_op(const void* p, long long ld, long long koff, int klo, int 
   o.vec = (ld % 4 == 0) && (koff % 4 == 0) &&
           ((uintptr_t)p % (4 * sizeof(TV)) == 0);
   return o;
+}
+
+// Rows of a weight-gradient slice: L N / S rounded up to a multiple of kt
+static int slice_rows(int LN, int S, int kt) {
+  return (int)((((long long)LN + S - 1) / S + kt - 1) / kt * kt);
 }
 
 // The input projection of both directions: xg[d] (M, G) f32 = x (M, C)
@@ -496,13 +558,13 @@ static int rnn_proj(const void* x, const void* wih, const float* bih, const floa
   gp.S = 1;
   gp.Ks = C;
   gp.slice_stride = 0;
-  return gemm_run<T, true, T, false, T>(false, gp, 2, M, G, s);
+  return gemm_run<T, true, T, false, T>(gp, 2, M, G, s);
 }
 
-// The input gradient: dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T, W_ih
-// read in its own (C, G) layout.
+// The input gradient, simt: dx (M, C) f32 = sum_d op(dxg[d]) (M, G)
+// W_ih[d]^T, dxg f32, W_ih read in its own (C, G) layout.
 template <typename T>
-static int rnn_dx(bool tc, const float* dxg, const void* wih, float* dx, int M, int C, int G,
+static int rnn_dx(const float* dxg, const void* wih, float* dx, int M, int C, int G,
                   cudaStream_t s) {
   GemmParams gp = {};
   GemmJob& jb = gp.job[0];
@@ -523,19 +585,18 @@ static int rnn_dx(bool tc, const float* dxg, const void* wih, float* dx, int M, 
   gp.S = 1;
   gp.Ks = G;
   gp.slice_stride = 0;
-  return gemm_run<float, true, T, true, T>(tc, gp, 1, M, C, s);
+  return gemm_run<float, true, T, true, T>(gp, 1, M, C, s);
 }
 
-// The weight and bias gradients over the L N rows in S fixed row slices, into
-// part (S slices of [dW_ih (2, C, G) | dW_hh (2, H, G) | db_ih (2, G) |
-// db_hh (2, G)] f32): dW_ih[d] = X^T op(dxg[d]), dW_hh[d] = H_prev^T
+// The weight and bias gradients, simt, over the L N rows in S fixed row
+// slices, into part (S slices of [dW_ih (2, C, G) | dW_hh (2, H, G) | db_ih
+// (2, G) | db_hh (2, G)] f32): dW_ih[d] = X^T op(dxg[d]), dW_hh[d] = H_prev^T
 // op(dhg[d]), H_prev the layer output one step back in the direction's own
 // time, and the column sums of dxg and dhg. dhg == dxg (the LSTM's one gate
 // gradient da): its column sum is taken once and db_hh is left out.
 template <typename T>
-static int rnn_wgrad(bool tc, const void* x, const void* out, const float* dxg,
-                     const float* dhg, float* part, int L, int N, int C, int H, int G, int S,
-                     cudaStream_t s) {
+static int rnn_wgrad(const void* x, const void* out, const float* dxg, const float* dhg,
+                     float* part, int L, int N, int C, int H, int G, int S, cudaStream_t s) {
   const int LN = L * N;
   const bool one = dhg == dxg;
   const long long o_whh = 2LL * C * G, o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
@@ -568,7 +629,84 @@ static int rnn_wgrad(bool tc, const void* x, const void* out, const float* dxg,
   }
   gp.K = LN;
   gp.S = S;
-  gp.Ks = (int)((((long long)LN + S - 1) / S + TG_BK - 1) / TG_BK * TG_BK);
+  gp.Ks = slice_rows(LN, S, SLICE_K);
   gp.slice_stride = one ? o_bhh : o_bhh + 2LL * G;
-  return gemm_run<T, false, float, false, T>(tc, gp, 4, C > H ? C : H, G, s);
+  return gemm_run<T, false, float, false, T>(gp, 4, C > H ? C : H, G, s);
+}
+
+// The input gradient, tc, on wgmma: dx (M, C) f32 = sum_d dxg[d] (M, G)
+// W_ih[d]^T, dxg the bf16 copy (2, M, G) and W_ih (2, C, G) bf16, both read
+// K-major as stored; BN the least of 16, 32, 64 and 128 columns that holds C
+// (128 above).
+static int wg_dx(const void* dxg, const void* wih, float* dx, int M, int C, int G,
+                 cudaStream_t s) {
+  const int BN = C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128;
+  CUtensorMap maps[4];
+  const cuuint64_t gdims[3] = {(cuuint64_t)G, (cuuint64_t)M, 2};
+  const cuuint64_t gstrides[2] = {(cuuint64_t)G * 2, (cuuint64_t)M * G * 2};
+  const cuuint32_t gbox[3] = {WG_BK, WG_BM, 1};
+  const cuuint64_t wdims[3] = {(cuuint64_t)G, (cuuint64_t)C, 2};
+  const cuuint64_t wstrides[2] = {(cuuint64_t)G * 2, (cuuint64_t)C * G * 2};
+  const cuuint32_t wbox[3] = {WG_BK, (cuuint32_t)BN, 1};
+  CUresult r = bf16_tensor_map(&maps[0], dxg, 3, gdims, gstrides, gbox);
+  if (r == CUDA_SUCCESS) r = bf16_tensor_map(&maps[2], wih, 3, wdims, wstrides, wbox);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  maps[1] = maps[0];
+  maps[3] = maps[2];
+  WgParams p = {};
+  p.job[0] = WgJob{dx, M, 0, 0, 0, 0, 0};
+  p.N = C;
+  p.K = G;
+  p.S = 1;
+  p.Ks = G;
+  p.ldc = C;
+  p.slice_stride = 0;
+  const dim3 grid((C + BN - 1) / BN, (M + WG_BM - 1) / WG_BM, 1);
+  if (BN == 16) return wgemm_run<false, 16>(maps, p, grid, s);
+  if (BN == 32) return wgemm_run<false, 32>(maps, p, grid, s);
+  if (BN == 64) return wgemm_run<false, 64>(maps, p, grid, s);
+  return wgemm_run<false, 128>(maps, p, grid, s);
+}
+
+// The weight gradients, tc, on wgmma, over the L N rows in S fixed row
+// slices, into part (S slices of [dW_ih (2, C, G) | dW_hh (2, H, G)] f32):
+// dW_ih[d] = X^T dxg[d], X through TMA where its rows are 16-byte multiples
+// (C % 8 == 0), else by the producer warp's plain loads (stage_rows_mn);
+// dW_hh[d] = H_prev^T dhg[d], H_prev read from out (L N, 2H) at columns d H
+// .. and rows k - N (d = 0) or k + N (d = 1), zeros outside. dxg and dhg
+// are the bf16 copies (2, L N, G), the same tensor for the LSTM's da.
+static int wg_wgrad(const void* x, const void* out, const void* dxg, const void* dhg,
+                    float* part, int L, int N, int C, int H, int G, int S, cudaStream_t s) {
+  const int LN = L * N;
+  const bool x_tma = C % 8 == 0;
+  CUtensorMap maps[4];
+  const cuuint32_t abox[2] = {64, WG_BK};
+  const cuuint64_t odims[2] = {(cuuint64_t)2 * H, (cuuint64_t)LN};
+  const cuuint64_t ostrides[1] = {(cuuint64_t)4 * H};
+  const cuuint64_t xdims[2] = {(cuuint64_t)C, (cuuint64_t)LN};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)C * 2};
+  const cuuint64_t gdims[3] = {(cuuint64_t)G, (cuuint64_t)LN, 2};
+  const cuuint64_t gstrides[2] = {(cuuint64_t)G * 2, (cuuint64_t)LN * G * 2};
+  const cuuint32_t gbox[3] = {64, WG_BK, 1};
+  CUresult r = bf16_tensor_map(&maps[1], out, 2, odims, ostrides, abox);
+  if (r == CUDA_SUCCESS && x_tma) r = bf16_tensor_map(&maps[0], x, 2, xdims, xstrides, abox);
+  if (r == CUDA_SUCCESS) r = bf16_tensor_map(&maps[2], dxg, 3, gdims, gstrides, gbox);
+  if (r == CUDA_SUCCESS) r = bf16_tensor_map(&maps[3], dhg, 3, gdims, gstrides, gbox);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  if (!x_tma) maps[0] = maps[1];  // unread: X comes by plain loads
+  WgParams p = {};
+  for (int d = 0; d < 2; ++d) {
+    p.job[d] = WgJob{part + (size_t)d * C * G, C, x_tma ? 0 : 2, 0, 0, 0, d};
+    p.job[2 + d] =
+        WgJob{part + 2LL * C * G + (size_t)d * H * G, H, 1, d * H, d == 0 ? -N : N, 1, d};
+  }
+  p.N = G;
+  p.K = LN;
+  p.S = S;
+  p.Ks = slice_rows(LN, S, WG_BK);
+  p.ldc = G;
+  p.slice_stride = 2LL * C * G + 2LL * H * G;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  const dim3 grid((G + 127) / 128, ((C > H ? C : H) + WG_BM - 1) / WG_BM, 4 * S);
+  return wgemm_run<true, 128>(maps, p, grid, s);
 }

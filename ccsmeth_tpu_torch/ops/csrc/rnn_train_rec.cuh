@@ -19,9 +19,14 @@
 //     one cluster barrier a step).
 //   backward (bwd_rec_kernel): both directions at once over reversed time,
 //     carrying dh (and the LSTM's dc). Per step the gate gradients of a
-//     (row, unit) from the residuals go to f32 scratch (the bias sums use them
-//     unrounded) and, rounded to the operand type, to shared memory as the
-//     operand of dh = op(dg) W_hh^T. That contraction runs over NG H, so CTA
+//     (row, unit) from the residuals go to device memory for the products
+//     (simt: f32 scratch, whose column sums the simt products take beside
+//     the weight gradients; tc: bf16 copies, rounded to nearest even, that
+//     TMA feeds to wgmma, while each thread sums its f32 values for the bias
+//     gradients over its rows and steps in order, and the CTA writes its
+//     tile's partial sums, added in tile order by gemm_sum_slices) and,
+//     rounded to the operand type, to shared memory as the operand of
+//     dh = op(dg) W_hh^T. That contraction runs over NG H, so CTA
 //     c multiplies its own NG U gate columns by its W_hh rows into a partial
 //     dh for all H units and sends each CTA the U columns it owns; the owner
 //     adds the CN partials in rank order (a reduce-scatter, deterministic).
@@ -472,8 +477,15 @@ struct BwdRecParams {
   const void* gates;  // (2, L, N, 4H) T
   const void* cseq;   // (2, L, N, H) T: the LSTM's cell state (GRU: unused)
   const void* whh;    // (2, H, G) T
-  float* dxg;         // (2, L N, G) f32: GRU [dr, dz, dn]; LSTM da = [di, df, dg, do]
-  float* dhg;         // (2, L N, G) f32: GRU [dr, dz, dn r]; LSTM: unused
+  // the gate gradients (2, L N, G), f32 (simt) or bf16 (tc: the products'
+  // operands, rounded to nearest even): GRU dxg = [dr, dz, dn] and dhg =
+  // [dr, dz, dn r]; LSTM da = [di, df, dg, do] in dxg, dhg unused
+  void* dxg;
+  void* dhg;
+  // tc: the bias gradients' partial sums of each row tile, (tiles, NB, 2, G)
+  // f32, NB = 2 (GRU: dxg's, then dhg's) or 1 (LSTM: da's), from the
+  // unrounded f32 values
+  float* bpart;
   int L, N, H, U, R;  // U units a CTA, R rows a tile
 };
 
@@ -516,8 +528,16 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
   const T* out = static_cast<const T*>(p.out);
   const T* gates = static_cast<const T*>(p.gates);
   const T* cseq = static_cast<const T*>(p.cseq);
-  float* dxg = p.dxg + (size_t)d * L * N * G;
-  float* dhg = LSTM ? nullptr : p.dhg + (size_t)d * L * N * G;
+  typedef typename std::conditional<TC, bf16, float>::type GT;  // the gate gradients' type
+  GT* dxg = static_cast<GT*>(p.dxg) + (size_t)d * L * N * G;
+  GT* dhg = LSTM ? nullptr : static_cast<GT*>(p.dhg) + (size_t)d * L * N * G;
+  // tc: this thread's share of the bias gradients: its unit u = tid % U
+  // (REC_THREADS % U == 0), its rows, every step in order; dxg's NG columns,
+  // then the GRU's dhg's
+  constexpr int NS = LSTM ? 4 : 6;
+  float csum[NS];
+#pragma unroll
+  for (int k = 0; k < NS; ++k) csum[k] = 0.0f;
   const int DS = TC ? UG + 8 : UG + 1;  // row stride of the gate-gradient operand
 
   // stage this CTA's W_hh rows: W_hh[j][gate H + u0 + u] for its own gate
@@ -617,10 +637,17 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
         if (row < N) {
           const size_t o = ((size_t)t * N + row) * G + unit;
 #pragma unroll
-          for (int k = 0; k < NG; ++k) dxg[o + k * H] = dx4[k];
+          for (int k = 0; k < NG; ++k) st1(dxg + o + k * H, dx4[k]);
           if constexpr (!LSTM) {
 #pragma unroll
-            for (int k = 0; k < NG; ++k) dhg[o + k * H] = dh4[k];
+            for (int k = 0; k < NG; ++k) st1(dhg + o + k * H, dh4[k]);
+          }
+          if constexpr (TC) {
+#pragma unroll
+            for (int k = 0; k < NG; ++k) {
+              csum[k] += dx4[k];
+              if constexpr (!LSTM) csum[NG + k] += dh4[k];
+            }
           }
         }
         if constexpr (TC) {
@@ -723,6 +750,24 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
     cluster_arrive_release();
     cluster_wait_acquire();
   }
+  if constexpr (TC) {
+    // the tile's bias-gradient partials: the REC_THREADS / U threads of a
+    // unit add theirs in thread order through shared memory (recv, the dh
+    // partials' slots: the last step sends nothing, and every peer's stores
+    // into them completed before the last step's cluster barrier)
+    float* red = recv;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < NS; ++k) red[k * REC_THREADS + tid] = csum[k];
+    __syncthreads();
+    const int tile = blockIdx.x / cn;
+    for (int i = tid; i < NS * U; i += REC_THREADS) {
+      const int k = i / U, u = i % U;
+      float sum = 0.0f;
+      for (int j = 0; j < REC_THREADS / U; ++j) sum += red[k * REC_THREADS + j * U + u];
+      p.bpart[(((size_t)tile * (NS / NG) + k / NG) * 2 + d) * G + (k % NG) * H + u0 + u] = sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- launch
@@ -779,7 +824,8 @@ static int bwd_rec_run(int design, int dtype, const BwdRecParams& kp, cudaStream
   const int H = kp.H, U = kp.U, R = kp.R;
   if (kp.L < 1 || kp.N < 1 || R < 4 || !cluster_ok(H, U)) return (int)cudaErrorInvalidValue;
   const bool tc = design == 1;
-  if (tc ? (dtype != 1 || R != TC_BWD_ROWS || H % 32 != 0)
+  if (tc ? (dtype != 1 || R != TC_BWD_ROWS || H % 32 != 0 || REC_THREADS % U != 0 ||
+            kp.bpart == nullptr)
          : (design != 0 || H % 8 != 0 || R % 4 != 0 || 8192 % H != 0 || (8192 / H) % R != 0 ||
             (H / 8 > 8 && (H / 8) % 8 != 0)))
     return (int)cudaErrorInvalidValue;

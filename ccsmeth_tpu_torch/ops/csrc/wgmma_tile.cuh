@@ -1,7 +1,7 @@
 // Hopper's own tensor-core path, shared by the bf16 kernels that run on it
-// (birnn_tc.cu: K1's and K2's recurrence and projection) and the mbarrier
-// and bulk-copy primitives of the cluster recurrences (birnn_tc.cu,
-// birnn_simt.cu).
+// (birnn_tc.cu: K1's and K2's recurrence and projection; rnn_train_gemm.cuh:
+// the backward products of K5 and K6) and the mbarrier and bulk-copy
+// primitives of the cluster recurrences (birnn_tc.cu, birnn_simt.cu).
 //
 // wgmma (warpgroup matrix multiply): the 128 threads of a warpgroup issue
 // wgmma.mma_async.m64nNk16 together: D (64 x N, f32, in registers) += A (64 x
@@ -128,10 +128,60 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
 
+// a 16-byte store to shared memory at `addr`
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // generic-proxy writes to shared memory before this point are visible to
 // the async proxy (wgmma operands, bulk copies) after a barrier
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- tensor maps (host)
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query (the libraries do not link libcuda)
+static inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
+  }
+  return fn;
+}
+
+// The TMA map of a bf16 tensor of `rank` (2 or 3) dimensions, innermost
+// first: dims in elements, the outer dimensions' strides in bytes (multiples
+// of 16, as the base address), boxes of `box` elements written under the
+// 128-byte swizzle; a box's elements outside the tensor (negative
+// coordinates too) arrive as zeros. CUDA_ERROR_NOT_SUPPORTED when libcuda's
+// encoder is missing.
+static inline CUresult bf16_tensor_map(CUtensorMap* map, const void* p, int rank,
+                                       const cuuint64_t* dims, const cuuint64_t* strides,
+                                       const cuuint32_t* box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(p),
+                dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 // ---- wgmma
@@ -179,44 +229,46 @@ __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, uint32_t lbo, ui
 }
 
 // d (64 x N) += A B: wgmma.mma_async.m64nNk16, bf16 operands, f32 sums;
-// scale_d = 0 starts from zero; TB = 1: B is MN-major
+// scale_d = 0 starts from zero; TB = 1: B is MN-major; TA = 1: A is
+// MN-major (A^T stored K x 64, M contiguous, one 64-column atom, read by the
+// same descriptor form as B's)
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<16> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[8], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        "}, %8, %9, p, 1, 1, %12, %11;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<32> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[16], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
         "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
         " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<48> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[24], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -224,17 +276,17 @@ struct Wgmma<48> {
         " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, %24, %25, p, 1, 1, 0, %27;\n}\n"
+        "}, %24, %25, p, 1, 1, %28, %27;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<64> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -242,18 +294,18 @@ struct Wgmma<64> {
         " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<96> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[48], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -262,20 +314,20 @@ struct Wgmma<96> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, %48, %49, p, 1, 1, 0, %51;\n}\n"
+        "}, %48, %49, p, 1, 1, %52, %51;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
           "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<128> {
-  template <int TB>
+  template <int TB, int TA = 0>
   __device__ __forceinline__ static void mma(float (&d)[64], uint64_t a, uint64_t b,
                                              int scale_d) {
     asm volatile(
@@ -285,7 +337,7 @@ struct Wgmma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -294,6 +346,6 @@ struct Wgmma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 };

@@ -162,9 +162,7 @@ class CallModsConfig:
                 "runs {} and transencoder2s, as ccsmeth_tpu's does".format(
                     self.model_type, ", ".join(PORTED_2S)))
         if self.model_type not in PORTED:
-            raise NotImplementedError(
-                "--model_type {} is not yet ported ({} and transencoder2s only)"
-                .format(self.model_type, ", ".join(PORTED_2S)))
+            raise ValueError("--model_type not right!")  # as ccsmeth_tpu's
         return AttRNNConfig(
             seq_len=self.seq_len, num_layers=self.layer_rnn,
             num_classes=self.class_num, dropout_rate=0.0,

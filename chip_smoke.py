@@ -1106,40 +1106,75 @@ def phase_l2_kernels(torch, smi, cell):
 
 
 def _bwd_cuda_launches(rows, cin, dt, cell, hidden=H, seq_len=L):
-    """K5's (cell 'gru') or K6's backward ('lstm') CUDA launches a call:
-    recurrence, dx, weight gradients, and the sum of the row slices when
-    there is more than one."""
+    """K5's (cell 'gru') or K6's backward ('lstm') CUDA launches a call
+    (``bigru_vjp.bwd_cuda_launches``): recurrence, dx, weight gradients, and
+    the sum of the row slices (simt: when there is more than one) and of the
+    tc bias partials."""
     import torch
 
     from ccsmeth_tpu_torch.ops import bigru_vjp
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     plan = bigru_vjp.k45_plan(hidden, dt, cell)
-    return 3 + (bigru_vjp.k5_wgrad_slices(seq_len * rows, cin, hidden, n_sm,
-                                          plan["design"], plan["gates"]) > 1)
+    return bigru_vjp.bwd_cuda_launches(plan, seq_len * rows, cin, n_sm)
+
+
+def _wgrad_split(torch, x, out, dxg, dhg, part, plan, dt):
+    """The weight-gradient phase's launches one by one, each a callable:
+    the products and the sum of the slices (and of tc's bias partials), as
+    ``bigru_vjp.k5_weight_grads`` makes them, on buffers of its sizes."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+
+    Lx, N, cin = x.shape
+    Hh, G, ng = out.shape[2] // 2, dxg.shape[2], plan["gates"]
+    tc, one = plan["design"] == "tc", dhg is dxg
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    S = V.k5_wgrad_slices(Lx * N, cin, Hh, n_sm, ng)
+    total = 2 * G * (cin + Hh + 1 + (not one))
+    per = 2 * G * (cin + Hh) if tc else total
+    grads = torch.empty(total, device="cuda")
+    buf = torch.empty(S * per, device="cuda") if S > 1 else grads
+    codes = V._codes(plan, dt)
+    fns = {"wgrad": lambda: V._launch(
+        "k5_wgrad_launch", plan, x, *codes, x.data_ptr(), out.data_ptr(), dxg.data_ptr(),
+        dhg.data_ptr(), buf.data_ptr(), Lx, N, cin, Hh, ng, S)}
+    if tc:
+        fns["sum"] = lambda: V._launch(
+            "k5_sum_launch", plan, x, buf.data_ptr(), grads.data_ptr(), per, S,
+            part.data_ptr(), grads[per:].data_ptr(), total - per, part.shape[0])
+    elif S > 1:
+        fns["sum"] = lambda: V._launch("k5_sum_launch", plan, x, buf.data_ptr(),
+                                       grads.data_ptr(), total, S, None, None, 0, 0)
+    return fns
 
 
 def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
     """Device time of each phase of the training kernels on one layer's
     inputs: the forward's projection and recurrence, the backward's
-    recurrence, dx and weight gradients (with the slice sum); and each
-    recurrence on one row tile a direction (one cluster each), its serial
-    chain alone, against which the full recurrence's time counts the waves of
-    clusters; medians of CUDA-event timings. Returns (forward phases,
-    backward phases), named k4_* / k5_* (cell 'gru') or k6_* ('lstm')."""
+    recurrence (which also stores the gate gradients for the products: f32,
+    or bf16 with the bias partials in tc), dx and weight gradients (with the
+    sums), the weight gradients' launches one by one (``_wgrad_split``); and
+    each recurrence on one row tile a direction (one cluster each), its
+    serial chain alone, against which the full recurrence's time counts the
+    waves of clusters; medians of CUDA-event timings. The backward's
+    products' TFLOP/s beside torch.mm's on the same products in the same
+    operand type (a yardstick only). Returns (forward phases, backward
+    phases, products), named k4_* / k5_* (cell 'gru') or k6_* ('lstm')."""
     from ccsmeth_tpu_torch.ops import bigru_vjp as V
     from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
 
-    Lx, N, _C = x.shape
-    plan = V.k45_plan(whh.shape[1], dt, cell)
+    Lx, N, cin = x.shape
+    Hh = whh.shape[1]
+    plan = V.k45_plan(Hh, dt, cell)
     r4, r5 = plan["rows_fwd"], plan["rows_bwd"]
     xg = V.k4_projection(x, wih, bih, bhh, plan, dt)
     xg4 = torch.randn((2, Lx * r4, xg.shape[2]), device="cuda")
     xg5 = torch.randn((2, Lx * r5, xg.shape[2]), device="cuda")
     dout5 = torch.randn((Lx, r5, dout.shape[2]), device="cuda").to(dt)
     if cell == "gru":
+        k = "k5"
         out, gates = V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)
-        dxg, dhg = V.k5_recurrence(dout, out, gates, whh, plan, dt)
+        dxg, dhg, part = V.k5_recurrence(dout, out, gates, whh, plan, dt)
         out5, gates5 = V.k4_recurrence(xg5, whh, bhh, Lx, r5, plan, dt)
         fwd = {"k4_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
                "k4_recurrence_one_tile": lambda: V.k4_recurrence(xg4, whh, bhh, Lx, r4,
@@ -1147,12 +1182,12 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
                "k4_recurrence": lambda: V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)}
         bwd = {"k5_recurrence_one_tile": lambda: V.k5_recurrence(dout5, out5, gates5, whh,
                                                                  plan, dt),
-               "k5_recurrence": lambda: V.k5_recurrence(dout, out, gates, whh, plan, dt),
-               "k5_dx": lambda: V.k5_dx(dxg, wih, plan, dt),
-               "k5_weight_grads": lambda: V.k5_weight_grads(x, out, dxg, dhg, plan, dt)}
+               "k5_recurrence": lambda: V.k5_recurrence(dout, out, gates, whh, plan, dt)}
     else:
+        k = "k6"
         out, c, gates = V6.k6_recurrence(xg, whh, Lx, N, plan, dt)
-        da = V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+        dxg, part = V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+        dhg = dxg
         _o5, c5, gates5 = V6.k6_recurrence(xg5, whh, Lx, r5, plan, dt)
         fwd = {"k6_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
                "k6_recurrence_one_tile": lambda: V6.k6_recurrence(xg4, whh, Lx, r4, plan, dt),
@@ -1160,11 +1195,34 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
         bwd = {"k6_bwd_recurrence_one_tile": lambda: V6.k6_bwd_recurrence(
                    dout5, c5, gates5, whh, plan, dt),
                "k6_bwd_recurrence": lambda: V6.k6_bwd_recurrence(dout, c, gates, whh,
-                                                                 plan, dt),
-               "k6_dx": lambda: V.k5_dx(da, wih, plan, dt),
-               "k6_weight_grads": lambda: V.k5_weight_grads(x, out, da, da, plan, dt)}
-    return ({k: time_ms(f, torch) for k, f in fwd.items()},
-            {k: time_ms(f, torch) for k, f in bwd.items()})
+                                                                 plan, dt)}
+    bwd[k + "_dx"] = lambda: V.k5_dx(dxg, wih, plan, dt)
+    bwd[k + "_weight_grads"] = lambda: V.k5_weight_grads(x, out, dxg, dhg, plan, dt, part)
+    for name, fn in _wgrad_split(torch, x, out, dxg, dhg, part, plan, dt).items():
+        bwd["{}_{}".format(k, name)] = fn
+    fwd_ms = {n: time_ms(f, torch) for n, f in fwd.items()}
+    bwd_ms = {n: time_ms(f, torch) for n, f in bwd.items()}
+    # the products' rates, and torch.mm's on the same operands
+    LN, G = Lx * N, dxg.shape[2]
+    h_prev = out.reshape(LN, 2 * Hh)
+    a_dx = torch.cat([dxg[0], dxg[1]], dim=1).to(dt)
+    b_dx = torch.cat([wih[0].t(), wih[1].t()], dim=0).contiguous()
+    xs = x.reshape(LN, cin)
+    g_ih = [dxg[d].to(dt) for d in (0, 1)]
+    g_hh = [dhg[d].to(dt) for d in (0, 1)]
+    mm_dx = time_ms(lambda: torch.mm(a_dx, b_dx), torch)
+    mm_wgrad = time_ms(lambda: [torch.mm(xs.t(), g_ih[d]) for d in (0, 1)]
+                       + [torch.mm(h_prev[:, d * Hh:(d + 1) * Hh].t(), g_hh[d])
+                          for d in (0, 1)], torch)
+    flops_dx = 2 * LN * cin * 2 * G
+    flops_wgrad = 2 * LN * 2 * G * (cin + Hh)
+    wgrad_ms = bwd_ms[k + "_wgrad"]
+    products = {"dx_tflops": flops_dx / bwd_ms[k + "_dx"] / 1e9,
+                "dx_torch_mm_tflops": flops_dx / mm_dx / 1e9,
+                "wgrad_tflops": flops_wgrad / wgrad_ms / 1e9,
+                "wgrad_torch_mm_tflops": flops_wgrad / mm_wgrad / 1e9,
+                "torch_mm_dtype": str(dt).split(".")[-1]}
+    return fwd_ms, bwd_ms, products
 
 
 def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=H,
@@ -1216,13 +1274,17 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=
             # both backward versions get the same residuals
             args = (dout, x, wih, whh) + tuple(ref_res) + (dt,)
             V.cuda_launches = 0
+            gemm0 = dict(bigru_vjp.gemm_calls)
             got = bwd(*args)
             bwd_cuda = V.cuda_launches
+            gemm_per_call = {k: bigru_vjp.gemm_calls[k] - gemm0[k] for k in gemm0}
             again = bwd(*args)
             torch.cuda.synchronize()
             # forward: projection, recurrence; backward: 3, + the slice sum
             assert fwd_cuda == 2 and bwd_cuda == _bwd_cuda_launches(
                 rows, cin, dt, cell, hidden, seq_len), (cell, fwd_cuda, bwd_cuda)
+            # tc: dx, dW_ih and dW_hh on wgmma; simt counts none
+            assert gemm_per_call == {"wgmma": 3 * (design == "tc")}, gemm_per_call
             ref = bwd_plain(*args)
             names = ("dx", "dw_ih", "db_ih", "dw_hh", "db_hh")
             assert all(torch.equal(a, b) for a, b in zip(got, again)), \
@@ -1278,6 +1340,8 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=
                      "phases_ms": ph}
                 if name.endswith("_bwd"):
                     c["bit_equal_rerun"] = True
+                    c["products"] = phases[2]
+                    c["gemm_calls_per_call"] = gemm_per_call
                 emit(c)
                 cells.append(c)
             del lib, xg, y, got, again, ref, res, ref_res
@@ -2318,8 +2382,15 @@ def phase_train(torch, smi, cell, epochs, models=MODELS):
     assert mine.plain_calls == 0
     designs16 = dict(mine.design_calls)
     assert designs16 == {"tc": sum(n16), "simt": 0}, designs16
+    # each backward layer's three products (dx, dW_ih, dW_hh) on wgmma;
+    # every CUDA launch counted
+    cins = (cin0, 2 * H, 2 * H)
+    gemm16 = dict(bigru_vjp.gemm_calls)
+    assert gemm16 == {"wgmma": 3 * n16[1]}, gemm16
+    per_step16 = sum(2 + _bwd_cuda_launches(2 * 512, c, torch.bfloat16, cell) for c in cins)
+    assert mine.cuda_launches == per_step16 * run16["steps"], (mine.cuda_launches, per_step16)
     res["bf16_launches"] = {"fwd": n16[0], "bwd": n16[1], "k45_designs": designs16,
-                            "k45_cuda_launches": mine.cuda_launches}
+                            "k45_cuda_launches": mine.cuda_launches, "gemm_calls": gemm16}
     emit({"phase": "train", "precision": "bf16", "model": model_type + " 3x256",
           "steps": run16["steps"], "launches": res["bf16_launches"],
           "train_losses": run16["train_losses"],
@@ -2339,14 +2410,16 @@ def _design_calls(launches, designs, key, design):
 
 
 def _zero_k45_designs():
-    """The training kernels' (K4/K5 and K6) CUDA launches and calls by
-    design, set to 0."""
+    """The training kernels' (K4/K5 and K6) CUDA launches, calls by design
+    and tc backward products by kernel, set to 0."""
     from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 
     for V in (bigru_vjp, bilstm_vjp):
         V.cuda_launches = 0
         for k in V.design_calls:
             V.design_calls[k] = 0
+    for k in bigru_vjp.gemm_calls:
+        bigru_vjp.gemm_calls[k] = 0
 
 
 def phase_profile(torch, smi, cell, steps=5):
@@ -3447,11 +3520,11 @@ def main_ab(parent):
 
 def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
-    the one-card training paths (train_kernels_small, determinism, train1s,
-    train_te, transfer, aggr_train, wrappers), the multi-process one (dist)
-    or K1's geometry sweeps and probe (k1_simt_sweep, k1_tc_sweep,
-    k1_tc_probe), for a short call after a change to one of them; prints no
-    kernels line and no ok line."""
+    the one-card training paths (train_kernels, train_kernels_small,
+    determinism, train1s, train_te, transfer, aggr_train, wrappers), the
+    multi-process one (dist) or K1's geometry sweeps and probe
+    (k1_simt_sweep, k1_tc_sweep, k1_tc_probe), for a short call after a
+    change to one of them; prints no kernels line and no ok line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3460,6 +3533,7 @@ def main_only(names):
     smi = phase_card(torch)[0]
     phase_build()
     phases = {
+        "train_kernels": lambda: [phase_train_kernels(torch, smi, cell) for cell in MODELS],
         "train_kernels_small": lambda: [
             phase_train_kernels(torch, smi, cell, rows=512) for cell in MODELS] + [
             phase_train_kernels(torch, smi, cell, cins=(AGGR_C,), rows=512,
@@ -3701,6 +3775,12 @@ def main():
                                       if cell == "gru" else 0),
                 "launches_dist": (dist["launches"]["k4" if key == "fwd" else "k5"]
                                   if (cell, design) == ("gru", "simt") else 0)})
+            if key == "bwd":
+                # the backward products: their rates beside torch.mm's, and in
+                # tc the bf16 steps' products by kernel
+                kernels[-1]["products"] = mc["products"]
+                if design == "tc":
+                    kernels[-1]["gemm_calls"] = train_runs[cell]["bf16_launches"]["gemm_calls"]
     # K3: simt (fp32) and tc (bf16) on the main path; l2, which no model's
     # path takes (0 launches there), called directly
     for design, src, dname in (("simt", "transenc_simt.cu", "float32"),

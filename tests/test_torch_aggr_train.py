@@ -201,5 +201,5 @@ def test_training_kernels_take_the_aggregate_shape(cell):
         plan = bigru_vjp.k45_plan(32, dtype, cell)
         assert (plan["design"], plan["U"], plan["CN"]) == (design, 32, 1)
         assert max(plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_LIMIT
-        S = bigru_vjp.k5_wgrad_slices(L * 512, NB + 1, 32, 132, design, plan["gates"])
+        S = bigru_vjp.k5_wgrad_slices(L * 512, NB + 1, 32, 132, plan["gates"])
         assert 1 <= S <= L * 512 // 256

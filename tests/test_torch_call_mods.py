@@ -124,6 +124,20 @@ def test_unsupported_requests_raise(tmp_path, bad):
         call_mods_bam(CallModsConfig(**kw), BAM, str(tmp_path / "x"))
 
 
+@pytest.mark.parametrize("model_type", ["attbigru3s", "bilstm"])
+def test_unknown_model_type_raises_as_the_jax_package(model_type):
+    """A --model_type outside every family: both packages' CallModsConfig
+    raise ValueError with the same message."""
+    from ccsmeth_tpu.pipeline.call_mods import CallModsConfig as JaxCallModsConfig
+
+    raised = []
+    for cfg in (CallModsConfig(model_type=model_type), JaxCallModsConfig(model_type=model_type)):
+        with pytest.raises(Exception) as err:
+            cfg.model_config()
+        raised.append((type(err.value), str(err.value)))
+    assert raised[0] == raised[1] == (ValueError, "--model_type not right!")
+
+
 def test_cli_rejects_features_tsv(tmp_path):
     """A features TSV now runs call_mods_txt (tests/test_torch_text_path.py
     holds its output); the CLI rejects it, as it rejects a BAM, only when

@@ -119,19 +119,18 @@ def _fwd_matches_plain(x, wih, bih, whh, bhh, dt):
 
 def _bwd_matches_plain(dout, x, wih, whh, residuals, dt):
     """K6's backward against its plain version on the same residuals, with
-    its CUDA launches (recurrence, dx, weight gradients, and the slice sum
-    when S > 1) and a bit-equal rerun."""
+    its CUDA launches (recurrence, dx, weight gradients, and the sums:
+    ``bigru_vjp.bwd_cuda_launches``) and a bit-equal rerun."""
     dname = str(dt).split(".")[-1]
     L, N, C = x.shape
     H = whh.shape[1]
     plan = bigru_vjp.k45_plan(H, dt, "lstm")
-    S = bigru_vjp.k5_wgrad_slices(L * N, C, H, torch.cuda.get_device_properties(
-        0).multi_processor_count, plan["design"], 4)
     args = (dout, x, wih, whh) + tuple(residuals) + (dt,)
     before = bilstm_vjp.launches_bwd
     bilstm_vjp.cuda_launches = 0
     got = bilstm_vjp.bilstm_layer_bwd(*args)
-    assert bilstm_vjp.cuda_launches == 3 + (S > 1)
+    assert bilstm_vjp.cuda_launches == bigru_vjp.bwd_cuda_launches(
+        plan, L * N, C, torch.cuda.get_device_properties(0).multi_processor_count)
     again = bilstm_vjp.bilstm_layer_bwd(*args)
     torch.cuda.synchronize()
     assert bilstm_vjp.launches_bwd == before + 2
@@ -196,8 +195,11 @@ def test_k6_designs_at_ragged_rows(rows, hidden, dtype, design):
 def test_each_k6_phase_matches_matmul(dtype, rows, hidden, cin):
     """Each product of K6 alone, against torch.matmul in f32 on the same
     operands rounded to the operand type: the projection (all of b_hh
-    folded), dx, dW_ih, dW_hh and the bias sum of the unrounded da; and the
-    backward recurrence's da against the plain step's gate gradients."""
+    folded), dx, dW_ih, dW_hh and the bias sum of the unrounded da (simt's
+    f32 da, tc's row-tile partials of it); and the backward recurrence's da
+    against the plain step's gate gradients (tc stores da as bf16: against
+    the reference rounded to bf16, where one bf16 ulp apart means the two
+    f32 values lie on both sides of a rounding boundary)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,7 +221,8 @@ def test_each_k6_phase_matches_matmul(dtype, rows, hidden, cin):
         assert _err(xg[d], ref) <= sum_tol(xs, op(wih[d])), ("xg", d)
 
     out, c, gates = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
-    da = bilstm_vjp.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+    da, part = bilstm_vjp.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+    assert da.dtype == (torch.bfloat16 if plan["design"] == "tc" else torch.float32)
     # the plain step's da at the direction's last step, where dh = dc = 0
     for d, t in ((0, L - 1), (1, 0)):
         g = gates[d, t].float()
@@ -230,13 +233,21 @@ def test_each_k6_phase_matches_matmul(dtype, rows, hidden, cin):
         cp = c[d, t - 1].float() if d == 0 else c[d, t + 1].float()
         ref = torch.cat([dcv * gg * i * (1.0 - i), dcv * cp * f * (1.0 - f),
                          dcv * i * (1.0 - gg * gg), dh_t * tc * o * (1.0 - o)], dim=1)
-        assert _err(da[d].view(L, N, 4 * H)[t], ref) <= 1e-5, ("da", d)
+        got = da[d].view(L, N, 4 * H)[t].float()
+        if da.dtype == torch.float32:
+            assert _err(got, ref) <= 1e-5, ("da", d)
+        else:
+            want = ref.to(torch.bfloat16).float()
+            # one bf16 ulp of each value: 2^-7 of its power of two
+            ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+            diff = (got - want).abs()
+            assert bool(((diff <= 1e-5) | (diff <= ulp)).all()), ("da", d)
 
     dx = bigru_vjp.k5_dx(da, wih, plan, dt)
     a = torch.cat([op(da[0]), op(da[1])], dim=1)
     b = torch.cat([op(wih[0]).T, op(wih[1]).T], dim=0)
     assert _err(dx, a @ b) <= sum_tol(a, b), "dx"
-    dw_ih, db_ih, dw_hh, db_hh = bigru_vjp.k5_weight_grads(x, out, da, da, plan, dt)
+    dw_ih, db_ih, dw_hh, db_hh = bigru_vjp.k5_weight_grads(x, out, da, da, plan, dt, part)
     assert db_hh.data_ptr() == db_ih.data_ptr()  # one gate gradient: one column sum
     o = out.float()
     for d in (0, 1):
@@ -249,8 +260,70 @@ def test_each_k6_phase_matches_matmul(dtype, rows, hidden, cin):
         assert _err(dw_ih[d], xs.T @ op(da[d])) <= sum_tol(xs.T, op(da[d])), ("dw_ih", d)
         assert _err(dw_hh[d], h_prev.T @ op(da[d])) <= sum_tol(h_prev.T, op(da[d])), \
             ("dw_hh", d)
-        ones = torch.ones((1, L * N), device="cuda")
-        assert _err(db_ih[d], da[d].sum(0)) <= sum_tol(ones, da[d]), ("db", d)
+        if part is None:
+            ones = torch.ones((1, L * N), device="cuda")
+            assert _err(db_ih[d], da[d].sum(0)) <= sum_tol(ones, da[d]), ("db", d)
+        else:
+            ones = torch.ones((1, part.shape[0]), device="cuda")
+            assert _err(db_ih[d], part[:, 0, d].sum(0)) <= sum_tol(ones, part[:, 0, d]), \
+                ("db", d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [11, 28, 512])
+@pytest.mark.parametrize("rows,hidden", [(13, 32), (1000, 256), (1029, 256)])
+def test_k6_tc_products_match_matmul_and_count_by_kernel(rows, hidden, cin):
+    """K6's tc products alone, on a seeded bf16 da (both operands of the
+    LSTM's products): dx, dW_ih and dW_hh on wgmma at every width
+    (``bigru_vjp.gemm_calls``; X's rows by plain loads at C % 8 != 0); each
+    against torch.matmul in f32 on the same bf16 operands, the bias gradient
+    (once: db_hh is db_ih) against the sum of the tile partials, and
+    bit-equal on a rerun, at ragged rows (13, 1000, 1029)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = torch.bfloat16
+    x, wih, _, _, _, _ = _case(rows, hidden, cin, dt)
+    plan = bigru_vjp.k45_plan(hidden, dt, "lstm")
+    assert plan["design"] == "tc"
+    L, N, H, G = 21, rows, hidden, 4 * hidden
+    rng = np.random.RandomState(rows + cin + hidden)
+
+    def seeded(shape, dtype=dt):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+
+    def sum_tol(a, b):
+        return 1e-5 * (a.abs() @ b.abs()).max().item() + 1e-6
+
+    da = seeded((2, L * N, G))
+    out = seeded((L, N, 2 * H))
+    part = seeded((-(-N // plan["rows_bwd"]), 1, 2, G), torch.float32)
+    calls = dict(bigru_vjp.gemm_calls)
+    dx = bigru_vjp.k5_dx(da, wih, plan, dt)
+    grads = bigru_vjp.k5_weight_grads(x, out, da, da, plan, dt, part)
+    assert bigru_vjp.gemm_calls == {"wgmma": calls["wgmma"] + 3}
+    dx2 = bigru_vjp.k5_dx(da, wih, plan, dt)
+    grads2 = bigru_vjp.k5_weight_grads(x, out, da, da, plan, dt, part)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    a = torch.cat([da[0].float(), da[1].float()], dim=1)
+    b = torch.cat([wih[0].float().T, wih[1].float().T], dim=0)
+    assert dx.shape == (L * N, cin) and _err(dx, a @ b) <= sum_tol(a, b), "dx"
+    dw_ih, db_ih, dw_hh, db_hh = grads
+    assert db_hh.data_ptr() == db_ih.data_ptr()
+    xs, o = x.float().reshape(L * N, cin), out.float()
+    ones = torch.ones((1, part.shape[0]), device="cuda")
+    for d in (0, 1):
+        h_prev = torch.zeros((L, N, H), device="cuda")
+        if d == 0:
+            h_prev[1:] = o[:-1, :, :H]
+        else:
+            h_prev[:-1] = o[1:, :, H:]
+        h_prev = h_prev.reshape(L * N, H)
+        g = da[d].float()
+        assert _err(dw_ih[d], xs.T @ g) <= sum_tol(xs.T, g), ("dw_ih", d)
+        assert _err(dw_hh[d], h_prev.T @ g) <= sum_tol(h_prev.T, g), ("dw_hh", d)
+        assert _err(db_ih[d], part[:, 0, d].sum(0)) <= sum_tol(ones, part[:, 0, d]), ("db", d)
 
 
 @pytest.mark.cuda
@@ -306,36 +379,52 @@ def test_lstm_kernels_reject_what_they_cannot_take():
         bigru.birnn_stack([(wih, bih, whh, bhh)], x, torch.float32, "gru")
 
 
-# sha256 of K6's forward (out, c, gates) and backward (five gradients) on
-# ``_case(rows, hidden, cin, dtype)``, taken on an H100 from the kernels as
-# they were before the simt forward recurrence of csrc/rnn_train_rec.cuh took
-# its inference switch (K1's and K2's simt design): the switch leaves every
-# bit of K6 as it was.
+# sha256 of K6's forward (out, c, gates) and, apart, of its backward (five
+# gradients) on ``_case(rows, hidden, cin, dtype)``, taken on an H100. The
+# forward parts, and the backward parts of the simt design (fp32, and bf16 at
+# H = 16), are the kernels' bits from before the tc backward's products moved
+# to wgmma (taken on the parent tree); they pin the forward and the simt
+# backward, which that move leaves as they were. The tc backward parts (bf16,
+# H >= 32) were retaken on the wgmma products after they matched the plain
+# version within the bf16 tolerances.
 K6_DIGESTS = {
-    (13, 16, 11, 'float32'): "27a5333ee06e32a6d8eae62be3969d3185ddf3f1279ab080a424b9d0d158f059",
-    (13, 16, 11, 'bfloat16'): "35a56af56f78ee6ea72a52a31b5b0063ceea004c0de06eec2759d62ee0538748",
-    (65, 32, 11, 'float32'): "daa9a63bbf73acd22573854597cf331459178de08b8ee46aa34930447055f6d5",
-    (65, 32, 11, 'bfloat16'): "833e69ab225ed454a6aa42ee1e55fcceb8a853182e03a59bb569d83609da1fa5",
-    (300, 64, 128, 'float32'): "6d8593209e7fa43be1040e7e788f76dae8b73f955f74149b91a61f32b55eb96a",
-    (300, 64, 128, 'bfloat16'): "b55bf5e09ea4d6a38cec629b0a2f74d8eb32b100609474306838354ca69a6613",
-    (1000, 256, 512, 'float32'): "a47aa601557fb0f5ae267f720e73331c69226840b16a4e4e1d72c58e619ee5bc",
-    (1000, 256, 512, 'bfloat16'): "0d6119ede16b996464209ee16e5e9007c5c2d98241b92d0792632db8131183ab",
-    (1024, 256, 11, 'float32'): "8642d22c68a0ac3647a3e3016743a776c0d6ee37328cdea8a14a71543e904d4c",
-    (1024, 256, 11, 'bfloat16'): "7a55a851fe90b202265ce333c41a260dd16339d32611ab99eb3b0ebba573b212",
+    (13, 16, 11, 'bfloat16'): ("9df2d8a6bad4ce195479a504ba69ba8db7d4e280b4ef1801a38e62ea638645f3",
+                                "8c6081b9161e55c09a114c63d8e2d3399df0c7a77aeba1a01f7e3322d5598459"),
+    (13, 16, 11, 'float32'): ("9f8043cf5378c22c38a16d9cd590ae6fb5a8db82239b5d7f845c43ac3459cddc",
+                               "67f093464ab19e9bec8b01620a5417a747b20b60bea21cacad3c80a0905be72b"),
+    (65, 32, 11, 'bfloat16'): ("5f94b96b9e09d210b915da2bc8313417d04e018ab26dfeb0e1e51c44ccc8ec6c",
+                                "cd73ee9bec7aaeee11aa8d179d8259ee5019191954df816ef48888b6aeb9a210"),
+    (65, 32, 11, 'float32'): ("f017d1b15be0533c254992fb22b82525071c8fa4317e18b0ba6f92dfbace1fa1",
+                               "72dad1b664133a37c1517cf9bb8806ce3a207799848df1a7114e518cfe504b58"),
+    (300, 64, 128, 'bfloat16'): ("d63db2849c4875a8d189fd8b5a6683eedc5fe625ee94a25ea43262c7b320d87a",
+                                  "2724a64b8fc0a5600ab75b12c2673e3560871d22740f6ef812b0ce0331d258aa"),
+    (300, 64, 128, 'float32'): ("56f53826469abcf35823f706c3191ea8f427ea14035cdb09083df6d0c790dc04",
+                                 "c6e639f68aee0fb5eda3d0d1ea89589fc725c097fdef19ca1423aa28e52453ec"),
+    (1000, 256, 512, 'bfloat16'): ("7c2a4afb5752cb900c5b37ac2c0bcc9c91d29743a8b20dfa8d0a3103ecbd9eb6",
+                                    "8c8fbb6614f254b333a0ec059cc55d140bcabb1255ca2ca5b15e034ec2f6f857"),
+    (1000, 256, 512, 'float32'): ("f744aff1022f857872dc4d33e1da5cb1593ee8f4f984a3c6989b5d56c99f79d0",
+                                   "2c222736afc7af0321b51d3af30567d8dab25293066975306cca58d0f7123aef"),
+    (1024, 256, 11, 'bfloat16'): ("7e646ab33bd58824c015e491bdb34a66305fdfb4ef24172d879bdb816df6f463",
+                                   "3675e752b46c18940bb16fc4ec5059331ced1e6e711b31872233b07bc2b97720"),
+    (1024, 256, 11, 'float32'): ("870aba40ebe54b1710e5cb90ab20b9cb911397ad999d9820b6a8cfd44977731d",
+                                  "aaac39aa548762df7f8362f8a578bb1d31740767c7e7fc07fbef1ca79de98365"),
 }
 
 
-def k6_digest(rows, hidden, cin, dtype):
-    """sha256 over the bytes of K6's forward and backward outputs on one
-    case."""
+def k6_digests(rows, hidden, cin, dtype):
+    """sha256 over the bytes of K6's forward outputs and, apart, over its
+    backward's on one case: (forward, backward)."""
     dt = getattr(torch, dtype)
     x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
     res = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
     grads = bilstm_vjp.bilstm_layer_bwd(dout, x, wih, whh, *res, dt)
-    h = hashlib.sha256()
-    for t in tuple(res) + tuple(grads):
-        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
+    parts = []
+    for ts in (tuple(res), tuple(grads)):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        parts.append(h.hexdigest())
+    return tuple(parts)
 
 
 @pytest.mark.cuda
@@ -344,4 +433,4 @@ def test_k6_outputs_bit_equal_to_before_the_inference_switch(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rows, hidden, cin, dtype = case
-    assert k6_digest(rows, hidden, cin, dtype) == K6_DIGESTS[case]
+    assert k6_digests(rows, hidden, cin, dtype) == K6_DIGESTS[case]

@@ -16,6 +16,8 @@ import torch
 from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
+from tests.test_torch_train_layouts import (check_wgmma_products, sum_tol, tile_bias_sums,
+                                            wgrad_residency)
 
 torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
@@ -236,18 +238,21 @@ def test_k6_staging_model_follows_the_kernel_source():
     assert "fwd_rec_run<true>(" in k6 and "bwd_rec_run<true>(" in k6
 
 
-@pytest.mark.parametrize("cin,design,slices", [(512, "simt", 11), (11, "simt", 11),
-                                               (512, "tc", 11), (11, "tc", 11)])
-def test_k6_wgrad_slices_at_four_gates(cin, design, slices):
+@pytest.mark.parametrize("cin,kernel,slices", [
+    (512, "gemm_simt_kernel", 11), (11, "gemm_simt_kernel", 11),
+    (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 11)])
+def test_k6_wgrad_slices_at_four_gates(cin, kernel, slices):
     """1024 rows, H = 256, 132 SMs, G = 4H = 1024 columns: 2 x 8 x (C/128 + 2)
     tiles of 128 x 128 (96 at C = 512, 48 at C = 11); the slices that fill
-    whole waves of blocks (simt 2 an SM, tc 1), the fewest on a tie: 11 x 96
-    tiles = 4 simt waves of 264 blocks."""
-    S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132, design, 4)
+    whole waves of blocks (2 an SM for either design's kernel, simt
+    gemm_simt_kernel and tc wgemm_kernel), the fewest on a tie: 11 x 96
+    tiles = 4 waves of 264 blocks."""
+    assert wgrad_residency(kernel) == 2
+    S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132, 4)
     tiles = 2 * 8 * (-(-cin // 128) + 2)
-    slots = (2 if design == "simt" else 1) * 132
+    slots = 2 * 132
     assert S == slices and (S * tiles) % slots == 0
-    assert bigru_vjp.k5_wgrad_slices(21 * 13, 11, 16, 132, "simt", 4) == 1
+    assert bigru_vjp.k5_wgrad_slices(21 * 13, 11, 16, 132, 4) == 1
 
 
 def _counts():
@@ -270,3 +275,65 @@ def test_cpu_k6_launches_nothing(dtype):
     grads = bilstm_vjp.bilstm_layer_bwd(dout, x, wih, whh, out, c, gates, dt)
     assert _counts() == before and bilstm_vjp.plain_calls == plain + 2
     assert len(grads) == 5 and all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def lstm_gate_grads(dout, x, w_hh, out, c, gates, compute_dtype):
+    """The f32 gate gradient da (2, L N, 4H) of ``bilstm_layer_bwd_plain``'s
+    loop, in its order: what the tc recurrence rounds to bf16 for the
+    products (both operands of the LSTM's) and sums unrounded for the
+    bias."""
+    from ccsmeth_tpu_torch.ops.kernel_args import op
+
+    L, N, _ = x.shape
+    H = w_hh.shape[1]
+    da_all = torch.empty((2, L, N, 4 * H))
+    for d in (0, 1):
+        g = gates[d].float()
+        ig, fg, gg, og = (g[..., k * H:(k + 1) * H] for k in range(4))
+        cd = c[d].float()
+        c_prev = torch.zeros_like(cd)
+        if d == 0:
+            c_prev[1:] = cd[:-1]
+        else:
+            c_prev[:-1] = cd[1:]
+        w_hhT = op(w_hh[d], compute_dtype).T
+        dh = torch.zeros((N, H))
+        dc = torch.zeros((N, H))
+        for s in range(L):
+            t = L - 1 - s if d == 0 else s
+            tc = torch.tanh(cd[t])
+            dt = dout[t, :, d * H:(d + 1) * H].float() + dh
+            dc = dt * og[t] * (1.0 - tc * tc) + dc
+            da = torch.cat([dc * gg[t] * ig[t] * (1.0 - ig[t]),
+                            dc * c_prev[t] * fg[t] * (1.0 - fg[t]),
+                            dc * ig[t] * (1.0 - gg[t] * gg[t]),
+                            dt * tc * og[t] * (1.0 - og[t])], dim=1)
+            dc = dc * fg[t]
+            dh = op(da, compute_dtype) @ w_hhT
+            da_all[d, t] = da
+    return da_all.reshape(2, L * N, 4 * H)
+
+
+@pytest.mark.parametrize("cin", [11, 28, 512])
+@pytest.mark.parametrize("hidden", [32, 256])
+def test_k6_wgmma_operand_images_give_the_plain_gradients(hidden, cin):
+    """K6's tc products from the images TMA writes of the bf16 da (both
+    operands), W_ih, X and the shifted h_prev, read as wgmma's descriptors
+    address them, tile by tile as wgemm_kernel runs them (two row slices, a
+    ragged last k tile), against ``bilstm_layer_bwd_plain`` at bf16; the bias
+    gradient (db_ih = db_hh) from the recurrence's row-tile partials."""
+    dt = torch.bfloat16
+    L, N = 4, 40
+    rng = np.random.RandomState(hidden + cin)
+    wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, cin, hidden, 1, "lstm")[0], dt)
+    x = torch.from_numpy(rng.randn(L, N, cin).astype(np.float32)).to(dt)
+    dout = torch.from_numpy(rng.randn(L, N, 2 * hidden).astype(np.float32)).to(dt)
+    out, c, gates = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    ref = bilstm_vjp.bilstm_layer_bwd_plain(dout, x, wih, whh, out, c, gates, dt)
+    da = lstm_gate_grads(dout, x, whh, out, c, gates, dt)
+    da16 = da.to(dt).float()
+    check_wgmma_products(x, out, wih, da16, da16, ref)
+    got = tile_bias_sums(da, N)
+    ones = torch.ones(1, L * N)
+    for d in (0, 1):
+        assert (got[d] - ref[2][d]).abs().max().item() <= sum_tol(ones, da[d]), ("db", d)

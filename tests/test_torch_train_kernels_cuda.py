@@ -100,10 +100,11 @@ def test_k5_matches_plain_and_is_deterministic(dtype, rows, hidden, cin):
     before = bigru_vjp.launches_bwd
     bigru_vjp.cuda_launches = 0
     got = bigru_vjp.bigru_layer_bwd(dout, x, wih, whh, out, gates, dt)
-    slices = bigru_vjp.k5_wgrad_slices(21 * rows, cin, hidden, torch.cuda.get_device_properties(
-        0).multi_processor_count, _design(hidden, dt))
-    # recurrence, dx, weight gradients, and the slice sum when S > 1
-    assert bigru_vjp.cuda_launches == 3 + (slices > 1)
+    # recurrence, dx, weight gradients (tc: dW_ih apart at C % 8 != 0), and
+    # the sum of slices (simt: when S > 1) and of the tc bias partials
+    assert bigru_vjp.cuda_launches == bigru_vjp.bwd_cuda_launches(
+        bigru_vjp.k45_plan(hidden, dt), 21 * rows, cin,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     again = bigru_vjp.bigru_layer_bwd(dout, x, wih, whh, out, gates, dt)
     torch.cuda.synchronize()
     assert bigru_vjp.launches_bwd == before + 2
@@ -123,7 +124,8 @@ def test_k5_matches_plain_and_is_deterministic(dtype, rows, hidden, cin):
 def test_each_phase_product_matches_matmul(dtype, rows, hidden, cin):
     """Each product of K4 and K5 alone, against torch.matmul in f32 on the
     same operands rounded to the operand type: the input projection, dx,
-    dW_ih, dW_hh and the bias sums (of the unrounded gate gradients)."""
+    dW_ih, dW_hh and the bias sums (of the unrounded gate gradients: simt's
+    f32 dxg and dhg, tc's row-tile partials of them)."""
     _need_card()
     dt = getattr(torch, dtype)
     x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
@@ -142,13 +144,14 @@ def test_each_phase_product_matches_matmul(dtype, rows, hidden, cin):
         assert _err(xg[d], ref) <= _sum_tol(xs, op(wih[d])), ("xg", d)
 
     out, gates = bigru_vjp.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt)
-    dxg, dhg = bigru_vjp.k5_recurrence(dout, out, gates, whh, plan, dt)
+    dxg, dhg, part = bigru_vjp.k5_recurrence(dout, out, gates, whh, plan, dt)
+    assert dxg.dtype == (torch.bfloat16 if plan["design"] == "tc" else torch.float32)
     dx = bigru_vjp.k5_dx(dxg, wih, plan, dt)
     a = torch.cat([op(dxg[0]), op(dxg[1])], dim=1)
     b = torch.cat([op(wih[0]).T, op(wih[1]).T], dim=0)
     assert _err(dx, a @ b) <= _sum_tol(a, b), "dx"
 
-    dw_ih, db_ih, dw_hh, db_hh = bigru_vjp.k5_weight_grads(x, out, dxg, dhg, plan, dt)
+    dw_ih, db_ih, dw_hh, db_hh = bigru_vjp.k5_weight_grads(x, out, dxg, dhg, plan, dt, part)
     o = out.float().reshape(L, N, 2 * H)
     for d in (0, 1):
         h_prev = torch.zeros((L, N, H), device="cuda")
@@ -160,9 +163,84 @@ def test_each_phase_product_matches_matmul(dtype, rows, hidden, cin):
         assert _err(dw_ih[d], xs.T @ op(dxg[d])) <= _sum_tol(xs.T, op(dxg[d])), ("dw_ih", d)
         assert _err(dw_hh[d], h_prev.T @ op(dhg[d])) <= _sum_tol(h_prev.T, op(dhg[d])), \
             ("dw_hh", d)
-        ones = torch.ones((1, L * N), device="cuda")
-        assert _err(db_ih[d], dxg[d].sum(0)) <= _sum_tol(ones, dxg[d]), ("db_ih", d)
-        assert _err(db_hh[d], dhg[d].sum(0)) <= _sum_tol(ones, dhg[d]), ("db_hh", d)
+        if part is None:
+            ones = torch.ones((1, L * N), device="cuda")
+            assert _err(db_ih[d], dxg[d].sum(0)) <= _sum_tol(ones, dxg[d]), ("db_ih", d)
+            assert _err(db_hh[d], dhg[d].sum(0)) <= _sum_tol(ones, dhg[d]), ("db_hh", d)
+        else:
+            ones = torch.ones((1, part.shape[0]), device="cuda")
+            for k, db in enumerate((db_ih, db_hh)):
+                assert _err(db[d], part[:, k, d].sum(0)) <= _sum_tol(ones, part[:, k, d]), \
+                    ("db", k, d)
+
+
+def products_ref(x, out, dxg, dhg, wih):
+    """dx, dW_ih and dW_hh in f32 (torch.matmul) on the operands as the tc
+    products see them (x, out, W_ih and the gate gradients bf16; h_prev the
+    output one step back in each direction's own time, zero at its first
+    step), with the tolerance of each (``_sum_tol``)."""
+    L, N, C = x.shape
+    H = out.shape[2] // 2
+    xs = x.float().reshape(L * N, C)
+    o = out.float()
+    a = torch.cat([dxg[0].float(), dxg[1].float()], dim=1)
+    b = torch.cat([wih[0].float().T, wih[1].float().T], dim=0)
+    ref = {"dx": (a @ b, _sum_tol(a, b)), "dw_ih": [], "dw_hh": []}
+    for d in (0, 1):
+        h_prev = torch.zeros((L, N, H), device=x.device)
+        if d == 0:
+            h_prev[1:] = o[:-1, :, :H]
+        else:
+            h_prev[:-1] = o[1:, :, H:]
+        h_prev = h_prev.reshape(L * N, H)
+        ref["dw_ih"].append((xs.T @ dxg[d].float(), _sum_tol(xs.T, dxg[d].float())))
+        ref["dw_hh"].append((h_prev.T @ dhg[d].float(), _sum_tol(h_prev.T, dhg[d].float())))
+    return ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [11, 28, 512])
+@pytest.mark.parametrize("rows,hidden", [(13, 32), (1000, 256), (1029, 256)])
+def test_tc_products_match_matmul_and_count_by_kernel(rows, hidden, cin):
+    """The tc design's products alone, on seeded bf16 gate gradients: dx,
+    dW_ih and dW_hh on wgmma at every width (``gemm_calls``; X's rows by
+    plain loads at C % 8 != 0, by TMA elsewhere); each against torch.matmul
+    in f32 on the same bf16 operands, the bias gradients against the sum of
+    the tile partials, and bit-equal on a rerun. Ragged rows: 13, 1000 and
+    1029 are no multiple of the 128-row tiles or the 64-row k tiles."""
+    _need_card()
+    dt = torch.bfloat16
+    x, wih, _, _, _, _ = _case(rows, hidden, cin, dt)
+    plan = bigru_vjp.k45_plan(hidden, dt)
+    assert plan["design"] == "tc"
+    L, N, H, G = 21, rows, hidden, 3 * hidden
+    rng = np.random.RandomState(rows + cin + hidden)
+
+    def seeded(shape, dtype=dt):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+
+    dxg, dhg = seeded((2, L * N, G)), seeded((2, L * N, G))
+    out = seeded((L, N, 2 * H))
+    part = seeded((-(-N // plan["rows_bwd"]), 2, 2, G), torch.float32)
+    calls = dict(bigru_vjp.gemm_calls)
+    dx = bigru_vjp.k5_dx(dxg, wih, plan, dt)
+    grads = bigru_vjp.k5_weight_grads(x, out, dxg, dhg, plan, dt, part)
+    assert bigru_vjp.gemm_calls == {"wgmma": calls["wgmma"] + 3}
+    dx2 = bigru_vjp.k5_dx(dxg, wih, plan, dt)
+    grads2 = bigru_vjp.k5_weight_grads(x, out, dxg, dhg, plan, dt, part)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    ref = products_ref(x, out, dxg, dhg, wih)
+    assert dx.shape == (L * N, cin) and _err(dx, ref["dx"][0]) <= ref["dx"][1], "dx"
+    dw_ih, db_ih, dw_hh, db_hh = grads
+    ones = torch.ones((1, part.shape[0]), device="cuda")
+    for d in (0, 1):
+        for name, got in (("dw_ih", dw_ih[d]), ("dw_hh", dw_hh[d])):
+            want, tol = ref[name][d]
+            assert _err(got, want) <= tol, (name, d, _err(got, want), tol)
+        for k, db in enumerate((db_ih, db_hh)):
+            assert _err(db[d], part[:, k, d].sum(0)) <= _sum_tol(ones, part[:, k, d]), \
+                ("db", k, d)
 
 
 @pytest.mark.cuda
@@ -212,33 +290,47 @@ def test_refused_shape_raises_before_any_launch(hidden, dtype):
     assert bigru_vjp.cuda_launches == 0 and bigru_vjp.plain_calls == plain
 
 
-# sha256 of K4's (out, gates) and K5's five gradients on ``_case(rows, hidden,
-# cin, dtype)``, taken on an H100 from the kernels as they were before their
-# recurrences moved into csrc/rnn_train_rec.cuh (shared with K6) and their
-# products' C entries took the gate count: the shared code leaves every bit
-# of K4/K5 as it was.
+# sha256 of K4's (out, gates) and, apart, of K5's five gradients on
+# ``_case(rows, hidden, cin, dtype)``, taken on an H100. The forward parts,
+# and the backward parts of the simt design (fp32, and bf16 at H = 16), are
+# the kernels' bits from before K5's tc products moved to wgmma (taken on the
+# parent tree); they pin K4 and the simt backward, which that move leaves as
+# they were. The tc backward parts (bf16, H >= 32) were retaken on the wgmma
+# products after they matched the plain version within the bf16 tolerances.
 K45_DIGESTS = {
-    (13, 16, 11, 'float32'): "180a2f9d85fd59e51466e1924c1f34a18188ac457c784cf830977ffda6335ee0",
-    (13, 16, 11, 'bfloat16'): "aa304aa465c0673d0a4496c1dfb4b85f1dae68df6b69911cb3c9ec05f4f573dc",
-    (65, 32, 11, 'float32'): "6ea874c7d79a49de2facf74b13c7895b49b4232efb8106c3ed4a073b14745f12",
-    (65, 32, 11, 'bfloat16'): "969ffcf793456c2a2ad6cd3d4c0097ea4eb36a4d9ecd9c3ce8a4c40069246e42",
-    (300, 64, 128, 'float32'): "5271ce3992aba15f518391cf9e6a26858500a6581d940442db4df068426029fb",
-    (300, 64, 128, 'bfloat16'): "380e7ca4d780af05fc3304c4c310d005b4c28bce32f53ce606921571ecded659",
-    (1000, 256, 512, 'float32'): "b31c6d3daf4f61a62214a6a029451b4b520a6cbd082dcce60f5f1e5fdcfa6443",
-    (1000, 256, 512, 'bfloat16'): "a47f76118f4ff22dac321670626e6a784425e8e81e004c5300181a567296927d",
+    (13, 16, 11, 'bfloat16'): ("b3fe1244f26d6a388116e1c5512d57ef0ea50bc672da415eeda829f36306b7f5",
+                                "8e980db092aa7a183e246eec83bb7e7e1ad520d3895b58a16e559af4bb4fb6b3"),
+    (13, 16, 11, 'float32'): ("08897ee9f403dd58ce2ecec61f2a0857c8adce74f7bb8960ad4c6cbe63a288f5",
+                               "ca9d97368b5df4c9732e7864f6a4c50bf7d7cff5405f110fda55333da4aa5e75"),
+    (65, 32, 11, 'bfloat16'): ("ee1f65d4d511666204e521d404ce11288cad648832c87d6ac98639998f108328",
+                                "bf0c29b306a1fea2ef5d276131926e292f209360c2542930d7464bb9ec68d102"),
+    (65, 32, 11, 'float32'): ("95630944f57f7360ad4c307032296cc17fdbcc224e7e1f8f902ce2cfbb969c7d",
+                               "feb0bb04a4c661f0d548cf6ae99aee74fe4e50489b71a4ecf3150b07c38dbd1a"),
+    (300, 64, 128, 'bfloat16'): ("d62eb4ac8ac9ce3d1003a74d19725dc08ab5676661a8d5d9dc6162f5c7de0129",
+                                  "86402702b88bff310238f1226f7010bdd3881ba7c7aa5c12a49285edba0e7e18"),
+    (300, 64, 128, 'float32'): ("35e05a0eb8340b6fbda8eb3d8553b6c3321e7d021a10cd15199f9d46e1d89dff",
+                                 "b3432170d6b2a361f734d661fab13aa4bb45b3a20f717d2ad29195279a725a07"),
+    (1000, 256, 512, 'bfloat16'): ("ef1067dc45fdf68e06269388c30cf00a826465e26ca6a3627c9b62e2abc38876",
+                                    "63c21868bfbafe52ed8b531b0c217f2a874afdec1bfb0a7342a322402e712ab3"),
+    (1000, 256, 512, 'float32'): ("43d0e41237b6a0bccda9944ed7aaa034c88bad40cbe0a1ed1754beddcea7fdef",
+                                   "2fa9c11e2543966fec5d982e787ab4f753e5387246e55c509ac2a77020fa08ff"),
 }
 
 
-def k45_digest(rows, hidden, cin, dtype):
-    """sha256 over the bytes of K4's and K5's outputs on one case."""
+def k45_digests(rows, hidden, cin, dtype):
+    """sha256 over the bytes of K4's outputs and, apart, over K5's on one
+    case: (forward, backward)."""
     dt = getattr(torch, dtype)
     x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
     out, gates = bigru_vjp.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt)
     grads = bigru_vjp.bigru_layer_bwd(dout, x, wih, whh, out, gates, dt)
-    h = hashlib.sha256()
-    for t in (out, gates) + tuple(grads):
-        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
-    return h.hexdigest()
+    parts = []
+    for ts in ((out, gates), tuple(grads)):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        parts.append(h.hexdigest())
+    return tuple(parts)
 
 
 @pytest.mark.cuda
@@ -246,5 +338,5 @@ def k45_digest(rows, hidden, cin, dtype):
 def test_k45_outputs_bit_equal_to_before_the_shared_header(case):
     _need_card()
     rows, hidden, cin, dtype = case
-    assert k45_digest(rows, hidden, cin, dtype) == K45_DIGESTS[case]
+    assert k45_digests(rows, hidden, cin, dtype) == K45_DIGESTS[case]
 

@@ -232,19 +232,323 @@ def test_cpu_train_kernels_launch_nothing(dtype):
     assert len(grads) == 5 and all(bool(torch.isfinite(g).all()) for g in grads)
 
 
-@pytest.mark.parametrize("cin,design,slices", [(512, "simt", 11), (11, "simt", 22),
-                                               (512, "tc", 11), (11, "tc", 11)])
-def test_k5_wgrad_slices_fill_whole_waves(cin, design, slices):
+def wgrad_residency(kernel):
+    """CTAs an SM of a weight-gradient kernel: its __launch_bounds__ in
+    csrc/rnn_train_gemm.cuh."""
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_gemm.cuh")
+    with open(path) as f:
+        src = " ".join(f.read().split())
+    threads = {"gemm_simt_kernel": "GM_THREADS", "wgemm_kernel": "WG_THREADS"}[kernel]
+    bounds = "__launch_bounds__({}, ".format(threads)
+    i = src.index(kernel + "(")
+    j = src.rindex(bounds, 0, i)
+    return int(src[j + len(bounds):src.index(")", j)])
+
+
+@pytest.mark.parametrize("cin,kernel,slices", [
+    (512, "gemm_simt_kernel", 11), (11, "gemm_simt_kernel", 22),
+    (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 22)])
+def test_k5_wgrad_slices_fill_whole_waves(cin, kernel, slices):
     """1024 rows, H = 256, 132 SMs: the slices whose tiles fill the last wave
-    of blocks (simt 2 an SM, tc 1); e.g. 11 x 72 tiles = 3 full waves of 264
-    simt blocks, where 4 slices (288 blocks) would leave a second wave of 24."""
-    S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132, design)
+    of blocks, 2 an SM for the weight-gradient kernel of either design (simt:
+    gemm_simt_kernel; tc: wgemm_kernel); e.g. 11 x 72 tiles = 3 full waves
+    of 264 blocks, where 4 slices (288 blocks) would leave a second wave of
+    24."""
+    assert wgrad_residency(kernel) == bigru_vjp.WGRAD_CTAS_PER_SM == 2
+    S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132)
     assert S == slices
     tiles = 2 * 6 * (-(-cin // 128) + 2)
-    slots = (2 if design == "simt" else 1) * 132
+    slots = 2 * 132
     assert (S * tiles) % slots == 0
 
 
 def test_k5_wgrad_slices_keep_256_rows_a_slice():
-    assert bigru_vjp.k5_wgrad_slices(21 * 13, 11, 16, 132, "simt") == 1
-    assert bigru_vjp.k5_wgrad_slices(21 * 65, 11, 32, 132, "tc") <= 21 * 65 // 256
+    assert bigru_vjp.k5_wgrad_slices(21 * 13, 11, 16, 132) == 1
+    assert bigru_vjp.k5_wgrad_slices(21 * 65, 11, 32, 132) <= 21 * 65 // 256
+
+
+# ---- the tc design's backward products on wgmma (csrc/rnn_train_gemm.cuh's
+# wgemm_kernel): the operand images TMA writes under the 128-byte swizzle,
+# read back as the wgmma descriptors address them
+
+WG_BM, WG_BK, WG_BOX = 128, 64, 8192  # WG_BM, WG_BK, WG_BOX in the source
+
+
+def swizzle128(addr):
+    """The 128-byte swizzle (TMA's writes, wgmma's reads) of a byte address
+    from a 1024-byte-aligned base: bits [7, 10) XOR into bits [4, 7)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def tma_box(t, c0, c1, rows):
+    """The box of 64 columns by ``rows`` rows of the 2-D tensor t at column
+    c0, row c1 (signed), as TMA writes it: flat slots (one a bf16) of rows of
+    128 bytes under the swizzle, elements outside t zero."""
+    R, W = t.shape
+    j, i = torch.arange(rows).view(-1, 1), torch.arange(64).view(1, -1)
+    r, c = c1 + j, c0 + i
+    inside = (r >= 0) & (r < R) & (c >= 0) & (c < W)
+    vals = torch.where(inside, t[r.clamp(0, R - 1), c.clamp(0, W - 1)], torch.zeros(()))
+    img = torch.zeros(rows * 64)
+    img[swizzle128(j * 128 + 2 * i) // 2] = vals
+    return img
+
+
+def kmajor_read(img, start, rows, k):
+    """(rows, k) elements of a K-major operand of 128-byte rows (8-row atoms
+    of 1,024 bytes, SBO 1,024): (r, k) at start + (r // 8) 1024 + (r % 8) 128
+    + 2 k, each k16 step 32 bytes further."""
+    r, kk = torch.arange(rows).view(-1, 1), torch.arange(k).view(1, -1)
+    return img[swizzle128(start + (r // 8) * 1024 + (r % 8) * 128 + 2 * kk) // 2]
+
+
+def mnmajor_read(img, start, mn, k):
+    """(mn, k) elements of an MN-major operand (A through trans-a, B through
+    trans-b): (m, k) at start + (m // 64) LBO + (k // 8) SBO + (k % 8) 128 +
+    2 (m % 64), LBO = one 64 x 64 box (8,192 bytes), SBO = 8 k rows (1,024),
+    each k16 step 2,048 bytes further."""
+    m, kk = torch.arange(mn).view(-1, 1), torch.arange(k).view(1, -1)
+    addr = start + (m // 64) * WG_BOX + (kk // 8) * 1024 + (kk % 8) * 128 + 2 * (m % 64)
+    return img[swizzle128(addr) // 2]
+
+
+def wgemm_dx(g16, wih):
+    """wgemm_kernel<false, BN>'s dx (M, C) = sum_d g16[d] (M, G) wih[d]^T,
+    tile by tile: a CTA's 128 rows (two warpgroups of 64) by BN columns, k
+    tiles of 64 of each direction in turn, both operands K-major boxes."""
+    _, M, G = g16.shape
+    C = wih.shape[1]
+    BN = 16 if C <= 16 else 32 if C <= 32 else 64 if C <= 64 else 128
+    dx = torch.zeros((-(-M // WG_BM)) * WG_BM, (-(-C // BN)) * BN)
+    for m0 in range(0, M, WG_BM):
+        for n0 in range(0, C, BN):
+            acc = torch.zeros(WG_BM, BN)
+            for d in (0, 1):
+                for k0 in range(0, G, WG_BK):
+                    a = tma_box(g16[d], k0, m0, WG_BM)
+                    b = tma_box(wih[d], k0, n0, BN)
+                    bk = torch.cat([kmajor_read(b, 32 * kk, BN, 16) for kk in range(4)], 1)
+                    for wg in (0, 1):
+                        ak = torch.cat([kmajor_read(a, wg * WG_BOX + 32 * kk, 64, 16)
+                                        for kk in range(4)], 1)
+                        acc[64 * wg:64 * wg + 64] += ak @ bk.T
+            dx[m0:m0 + WG_BM, n0:n0 + BN] = acc
+    return dx[:M, :C]
+
+
+def wgemm_dw(a_t, a_col, a_row, g16, M, S):
+    """wgemm_kernel<true, 128>'s dW (M, G) = A^T g16 over the rows k of
+    g16 (LN, G) in S slices (Ks rows each, a multiple of 64), summed in
+    slice order: A (m, k) = a_t[a_row + k, a_col + m] (zero outside a_t),
+    both operands MN-major, two 64-column boxes each. Returns (dW, the A
+    images of each slice's first k tile)."""
+    LN, G = g16.shape
+    Ks = -(-(-(-LN // S)) // WG_BK) * WG_BK
+    parts, firsts = [], []
+    for sl in range(S):
+        kb, ke = sl * Ks, min(LN, sl * Ks + Ks)
+        part = torch.zeros((-(-M // WG_BM)) * WG_BM, (-(-G // 128)) * 128)
+        for m0 in range(0, M, WG_BM):
+            for n0 in range(0, G, 128):
+                for k0 in range(kb, ke, WG_BK):
+                    a = torch.cat([tma_box(a_t, a_col + m0 + 64 * h, a_row + k0, WG_BK)
+                                   for h in (0, 1)])
+                    b = torch.cat([tma_box(g16, n0 + 64 * h, k0, WG_BK) for h in (0, 1)])
+                    if (m0, n0, k0) == (0, 0, kb):
+                        firsts.append(a)
+                    bk = torch.cat([mnmajor_read(b, 2048 * kk, 128, 16) for kk in range(4)], 1)
+                    for wg in (0, 1):
+                        ak = torch.cat([mnmajor_read(a, wg * WG_BOX + 2048 * kk, 64, 16)
+                                        for kk in range(4)], 1)
+                        part[m0 + 64 * wg:m0 + 64 * wg + 64, n0:n0 + 128] += ak @ bk.T
+        parts.append(part[:M, :G])
+    dw = torch.zeros(M, G)
+    for part in parts:
+        dw += part
+    return dw, firsts
+
+
+def x_route(C):
+    """How wgemm_kernel's producer brings X's rows for dW_ih: TMA where they
+    are 16-byte multiples (C % 8 == 0), else plain loads into the same
+    swizzled image (``stage_rows_mn``)."""
+    return "tma" if C % 8 == 0 else "plain"
+
+
+def stage_rows_mn(x, k0, m0):
+    """csrc/rnn_train_gemm.cuh's stage_rows_mn: rows [k0, k0 + 64) of X (K,
+    C) at columns [m0, m0 + 128), chunk c8 (8 columns) of row r of box h at
+    h WG_BOX + 128 r + 16 (c8 ^ (r % 8)), zero outside X."""
+    K, C = x.shape
+    img = torch.zeros(2 * WG_BOX // 2)
+    for r in range(WG_BK):
+        for h in (0, 1):
+            for c8 in range(8):
+                m = m0 + 64 * h + 8 * c8
+                for e in range(8):
+                    if k0 + r < K and m + e < C:
+                        img[(h * WG_BOX + 128 * r + 16 * (c8 ^ (r & 7)) + 2 * e) // 2] = \
+                            x[k0 + r, m + e]
+    return img
+
+
+def gru_gate_grads(dout, x, w_hh, out, gates, compute_dtype):
+    """The f32 gate gradients dxg and dhg (2, L N, 3H) of
+    ``bigru_layer_bwd_plain``'s loop, in its order: what the tc recurrence
+    rounds to bf16 for the products and sums unrounded for the biases."""
+    from ccsmeth_tpu_torch.ops.kernel_args import op
+
+    L, N, _ = x.shape
+    H = w_hh.shape[1]
+    gx, gh = torch.empty((2, L, N, 3 * H)), torch.empty((2, L, N, 3 * H))
+    for d in (0, 1):
+        g = gates[d].float()
+        r, z, n, hgn = (g[..., k * H:(k + 1) * H] for k in range(4))
+        o = out[..., d * H:(d + 1) * H].float()
+        h_prev = torch.zeros_like(o)
+        if d == 0:
+            h_prev[1:] = o[:-1]
+        else:
+            h_prev[:-1] = o[1:]
+        w_hhT = op(w_hh[d], compute_dtype).T
+        dh = torch.zeros((N, H))
+        for s in range(L):
+            t = L - 1 - s if d == 0 else s
+            dt = dout[t, :, d * H:(d + 1) * H].float() + dh
+            dz = dt * (h_prev[t] - n[t]) * z[t] * (1.0 - z[t])
+            dn = dt * (1.0 - z[t]) * (1.0 - n[t] * n[t])
+            dr = dn * hgn[t] * r[t] * (1.0 - r[t])
+            gx[d, t] = torch.cat([dr, dz, dn], dim=1)
+            gh[d, t] = torch.cat([dr, dz, dn * r[t]], dim=1)
+            dh = dt * z[t] + op(gh[d, t], compute_dtype) @ w_hhT
+    return gx.reshape(2, L * N, 3 * H), gh.reshape(2, L * N, 3 * H)
+
+
+def sum_tol(a, b):
+    """An f32 sum of the same products in another order: 1e-5 of the largest
+    sum of their magnitudes."""
+    return 1e-5 * (a.abs() @ b.abs()).max().item() + 1e-6
+
+
+def tile_bias_sums(g, N, rows=32):
+    """The tc recurrence's bias gradients: each row tile's (``rows`` rows of
+    N, every step) partial column sums of the f32 gate gradient g (2, L N,
+    G), then the partials added in tile order (gemm_sum_slices)."""
+    L = g.shape[1] // N
+    gt = g.view(2, L, N, -1)
+    db = torch.zeros(2, g.shape[2])
+    for r0 in range(0, N, rows):
+        db += gt[:, :, r0:r0 + rows].sum(dim=(1, 2))
+    return db
+
+
+def check_wgmma_products(x, out, wih, gx16, gh16, ref, S=2):
+    """dx, dW_ih and dW_hh from the operand images (``wgemm_dx``,
+    ``wgemm_dw``; X's image, where TMA cannot write it, as
+    ``stage_rows_mn`` writes it, equal to the box TMA would write)
+    against the plain backward's ``ref`` (dx, dw_ih, _, dw_hh, _) within
+    ``sum_tol``; h_prev's images read zeros before each direction's first
+    step (d 0: rows k - N < 0; d 1: rows k + N >= L N)."""
+    L, N, C = x.shape
+    H = out.shape[2] // 2
+    LN = L * N
+    xs, o2 = x.float().reshape(LN, C), out.float().reshape(LN, 2 * H)
+    a = torch.cat([gx16[0], gx16[1]], dim=1)
+    b = torch.cat([wih[0].float().T, wih[1].float().T], dim=0)
+    dx = wgemm_dx(gx16, wih.float())
+    assert (dx - ref[0].reshape(LN, C)).abs().max().item() <= sum_tol(a, b), "dx"
+    for d in (0, 1):
+        dw_ih, x_imgs = wgemm_dw(xs, 0, 0, gx16[d], C, S)
+        if x_route(C) == "plain":
+            Ks = -(-(-(-LN // S)) // WG_BK) * WG_BK
+            for sl, img in enumerate(x_imgs):
+                assert torch.equal(stage_rows_mn(xs, sl * Ks, 0), img), ("x image", sl)
+        assert (dw_ih - ref[1][d]).abs().max().item() <= sum_tol(xs.T, gx16[d]), ("dw_ih", d)
+        shift = -N if d == 0 else N
+        dw_hh, firsts = wgemm_dw(o2, d * H, shift, gh16[d], H, S)
+        h_prev = torch.zeros(LN, H)
+        if d == 0:
+            h_prev[N:] = o2[:-N, :H]
+        else:
+            h_prev[:-N] = o2[N:, H:]
+        assert (dw_hh - ref[3][d]).abs().max().item() <= sum_tol(h_prev.T, gh16[d]), \
+            ("dw_hh", d)
+        # the first k tile of each slice, as wgmma reads it: (m, k) = out's
+        # row kb + k + shift, column d H + m, zero where the row falls
+        # outside out (h_prev there, where k < L N)
+        Ks = -(-(-(-LN // S)) // WG_BK) * WG_BK
+        mh = min(H, 64)
+        for sl, img in enumerate(firsts):
+            rows = torch.arange(sl * Ks, sl * Ks + WG_BK) + shift
+            ok = (rows >= 0) & (rows < LN)
+            want = torch.zeros(WG_BK, mh)
+            want[ok] = o2[rows[ok], d * H:d * H + mh]
+            assert torch.equal(mnmajor_read(img, 0, mh, WG_BK), want.T), ("h_prev", d, sl)
+            k = torch.arange(sl * Ks, sl * Ks + WG_BK)
+            inside = k < LN
+            assert torch.equal(want[inside], h_prev[k[inside], :mh]), ("h_prev", d, sl)
+        # the direction's first step reads zeros: d 0 the first N rows of
+        # the first tile (d 1's, rows past L N, are the zeros of ``want``)
+        if d == 0:
+            first = mnmajor_read(firsts[0], 0, mh, WG_BK)
+            assert bool(first[:, N:].abs().sum() > 0)
+            assert torch.equal(first[:, :N], torch.zeros(mh, min(N, WG_BK)))
+
+
+@pytest.mark.parametrize("cin", [11, 28, 512])
+@pytest.mark.parametrize("hidden", [32, 256])
+def test_wgmma_operand_images_give_the_plain_gradients(hidden, cin):
+    """K5's tc products from the images TMA writes of the bf16 gate
+    gradients, W_ih, X and the shifted h_prev, read as wgmma's descriptors
+    address them, tile by tile as wgemm_kernel runs them (two row slices, a
+    ragged last k tile), against ``bigru_layer_bwd_plain`` at bf16; the bias
+    gradients from the recurrence's row-tile partials in tile order."""
+    dt = torch.bfloat16
+    L, N = 4, 40
+    rng = np.random.RandomState(hidden + cin)
+    wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, cin, hidden, 1)[0], dt)
+    x = torch.from_numpy(rng.randn(L, N, cin).astype(np.float32)).to(dt)
+    dout = torch.from_numpy(rng.randn(L, N, 2 * hidden).astype(np.float32)).to(dt)
+    out, gates = bigru_vjp.bigru_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    ref = bigru_vjp.bigru_layer_bwd_plain(dout, x, wih, whh, out, gates, dt)
+    gx, gh = gru_gate_grads(dout, x, whh, out, gates, dt)
+    check_wgmma_products(x, out, wih, gx.to(dt).float(), gh.to(dt).float(), ref)
+    ones = torch.ones(1, L * N)
+    for k, (g, db) in enumerate(((gx, ref[2]), (gh, ref[4]))):
+        got = tile_bias_sums(g, N)
+        for d in (0, 1):
+            assert (got[d] - db[d]).abs().max().item() <= sum_tol(ones, g[d]), ("db", k, d)
+
+
+def test_wgmma_model_follows_the_kernel_source():
+    """The model above is wgemm_kernel's: its tile constants, two CTAs an SM
+    (``wgrad_residency``), the descriptors (K-major 128-byte
+    rows, k16 steps of 32 bytes; MN-major with LBO one box, SBO 8 k rows,
+    k16 steps of 2,048 bytes, trans-a and trans-b), the boxes' coordinates
+    (h_prev at row k -+ N of out, columns d H ..), BN by C, and X's rows by
+    TMA only where C % 8 == 0, else by the plain loads modelled by
+    ``stage_rows_mn``."""
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_gemm.cuh")
+    with open(path) as f:
+        src = " ".join(f.read().split())
+    for line in ("#define WG_BM {}".format(WG_BM), "#define WG_BK {}".format(WG_BK),
+                 "#define WG_BOX {}".format(WG_BOX),
+                 "mnmajor_desc(a + 2048 * kk, WG_BOX, 1024), mnmajor_desc(b + 2048 * kk, WG_BOX, "
+                 "1024)",
+                 "Wgmma<BN>::template mma<1, 1>", "Wgmma<BN>::template mma<0, 0>",
+                 "kmajor_desc(a + 32 * kk, 128), kmajor_desc(b + 32 * kk, 128)",
+                 "base + s * STAGE + wg * WG_BOX",
+                 "tma_load_2d(a + WG_BOX, am, bar, jb.a_col + m0 + 64, jb.a_row + k0);",
+                 "tma_load_3d(b + WG_BOX, bm, bar, n0 + 64, k0, jb.b_dir);",
+                 "tma_load_3d(a, am, bar, k0, m0, d);", "tma_load_3d(b, bm, bar, k0, n0, d);",
+                 "WgJob{part + 2LL * C * G + (size_t)d * H * G, H, 1, d * H, d == 0 ? -N : N, 1, d}",
+                 "const int BN = C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128;",
+                 "p.Ks = slice_rows(LN, S, WG_BK);"):
+        assert line in src, line
+    for line in ("const bool x_tma = C % 8 == 0;",
+                 "p.job[d] = WgJob{part + (size_t)d * C * G, C, x_tma ? 0 : 2, 0, 0, 0, d};",
+                 "st_shared_v4(a + h * WG_BOX + r * 128 + ((c8 ^ (r & 7)) << 4),",
+                 "stage_rows_mn(a, p.x, jb.M, p.K, k0, m0, lane);"):
+        assert line in src, line
+    assert [x_route(c) for c in (11, 21, 28, 52, 64, 512)] == \
+        ["plain", "plain", "plain", "plain", "tma", "tma"]

@@ -109,12 +109,10 @@ def test_training_kernels_match_plain(cell, shape, dtype):
         assert _err(a, r) <= _tol(r, dt, name), (name, _err(a, r))
     # both backward versions on the plain version's residuals
     args = (dout, x, wih, whh) + tuple(ref_res) + (dt,)
-    S = bigru_vjp.k5_wgrad_slices(seq_len * rows, cin, hidden,
-                                  torch.cuda.get_device_properties(0).multi_processor_count,
-                                  plan["design"], plan["gates"])
     mod.cuda_launches = 0
     got = bwd(*args)
-    assert mod.cuda_launches == 3 + (S > 1)
+    assert mod.cuda_launches == bigru_vjp.bwd_cuda_launches(
+        plan, seq_len * rows, cin, torch.cuda.get_device_properties(0).multi_processor_count)
     again = bwd(*args)
     torch.cuda.synchronize()
     assert mod.plain_calls == plain0 + 1  # the plain forward above only
