@@ -1,79 +1,113 @@
 // Kernel K3, bf16: the whole transencoder2s encoder plus the mean over
-// positions on Hopper's tensor cores, one tile of S samples (S L <= 64 rows)
-// per CTA, in ONE launch. The math is transenc_encoder.cu's, which keeps the
-// fp32 path; ops/transenc.py's k3_plan is the shape rule that picks this
-// file or that one.
+// positions on Hopper's own tensor-core path (wgmma fed by TMA), one tile of
+// S samples (S L <= 64 rows) a CTA, in ONE launch. fp32 runs
+// transenc_simt.cu, and the shapes neither takes run transenc_encoder.cu;
+// ops/transenc.py's k3_plan is the shape rule among the three.
 //
 // Replaces: ccsmeth_tpu/ops/transenc_pallas.py::_make_encoder_kernel (:144),
 //   launched by _encoder_call (:335) through encoder_pooled_pallas (:393),
 //   as transenc_encoder.cu does.
 //
 // Bound on an H100 SXM: 134.8 MFLOP of products per sample at D = 256,
-//   NH = 4, FF = 512, L = 21, NL = 6: compute-bound, 0.14 ms for 1024
-//   samples at 989 TFLOP/s bf16. What sets this design's pace instead: the
-//   mma.sync issue rate from shared memory (ldmatrix feeds every product),
-//   and the weights: each CTA streams all six layers' 6.3 MB of bf16
-//   weights from L2 once for its 63 rows, 34 GB of L2 reads at 16,384
-//   samples.
+//   NH = 4, FF = 512, L = 21, NL = 6: compute-bound, 0.14 ms for 1,024
+//   samples at 989 TFLOP/s bf16. A CTA's six layers are 403 MFLOP of
+//   wgmma, 54 us at one SM's share of that peak. What stands in the way:
+//   the weights, 6.3 MB of bf16 that every tile of 64 rows needs in full,
+//   layer after layer (one 16 KB tile of 64 x 128 every 256 tensor-core
+//   cycles at the SM's rate); the chain of products, attention, LayerNorm
+//   and epilogues inside a layer, which no other tile of the CTA overlaps;
+//   the waves of one CTA an SM. Measured on an H100 (chip_smoke.py --only
+//   k3_tc_probe), the products themselves set the pace, at about 44% of the
+//   SM's tensor rate with one wgmma group in flight a warpgroup, then the
+//   ring's waits at product starts and the serial chain.
 //
-// What the design does about that, against the f32 kernel (2 samples, 42
-//   rows a block, f32 FMAs, each warp reading W from L2 itself):
-//   - the four products of a layer (q|k|v D -> 3D, out D -> D, FF D -> FF ->
-//     D) run on the tensor cores: mma.sync.m16n8k16 bf16 -> f32, A and B by
-//     ldmatrix from shared memory;
-//   - 64 rows a CTA (3 samples, 63 rows at L = 21), so each weight byte read
-//     serves 63 rows, not 42;
-//   - weights come through one ring per CTA that all 8 warps share: 32 x 128
-//     tiles of W, three stages deep, filled by cp.async; the tiles of a
-//     product stream without a break between its 128-column chunks;
-//   - shared memory (226,816 bytes at the default shape): x f32 [64][D+8]
-//     (the residual stream), x bf16 [64][D+8] (the product operand, rounded
-//     once where LayerNorm writes it), q|k|v bf16 [64][3D+8] (the attention
-//     context over q's columns, then the FF hidden layer), the ring;
-//   - attention stays on the CUDA cores (~2% of the FLOPs): one thread per
-//     (sample, head, query) holds its L <= 32 scores, reads bf16 q, k, v
-//     16 bytes at a time and writes its context over its own q row;
-//   - each 32-row k tile's fragments (both k steps) are loaded before its
-//     16 mma, so the loads overlap.
-//   A cluster of 2 CTAs with TMA multicast of each weight tile would halve
-//   the L2 traffic; that is for a later change.
+// What the design does about that:
+//   - warp specialisation: one producer thread streams the weight tiles of
+//     all 4 NL products, in the order the consumers use them, with TMA into
+//     one ring of TE_STAGES slots on mbarriers (`full`: TMA's bytes landed;
+//     `empty`: every consumer of the slot released it). It runs ahead
+//     across products and layers, so the next product's tiles arrive while
+//     attention, LayerNorm and the epilogues run; the ring never drains
+//     inside the kernel. A warpgroup releases a slot as soon as the
+//     products that read it are done, so it holds one slot at a time;
+//   - two consumer warpgroups run wgmma.m64nDWk16 (DW = D / 2): A (the x,
+//     context or hidden operand, 64 rows) from shared memory, K-major under
+//     the 128-byte swizzle, which the consumers write themselves; B the
+//     weight tile as TMA stores it (64 k rows of 64-column boxes, MN-major,
+//     128-byte swizzle, read with trans-b). Warpgroup w owns output columns
+//     [w DW, w DW + DW) of the D-wide products (out, FF2) and chunks 2 j + w
+//     of the wide ones (q|k|v: 6 chunks, FF1: 2 FF / D); the ring carries
+//     their tiles interleaved, warpgroup 0's then 1's, k tile after k tile.
+//     Each chunk's bias pairs load while its products run; its bf16
+//     values go to shared memory by stmatrix, four 8 x 8 tiles a store;
+//   - the f32 residual stream lives in the consumers' registers in the
+//     wgmma accumulator layout (warpgroup w: columns [w DW, w DW + DW) of
+//     all 64 rows, DW / 2 registers a thread), so shared memory holds only
+//     the bf16 operands and the ring: 65,536 bytes of ring (TE_STAGES = 4
+//     slots of 64 x 128 tiles) at D = 256. The out and FF2 epilogues add
+//     bias and residual in registers; LayerNorm sums each row within a quad
+//     by shuffles, then across the two warpgroups through a 2 x 64 array in
+//     a fixed order (mean first, then the centred squares), and writes the
+//     next product's bf16 operand;
+//   - one CTA a tile, each reading every weight tile from L2 itself (6.3 MB
+//     a tile of rows). Clusters of 2 sharing each tile by TMA multicast
+//     halve those reads, but on an H100 they timed within 1% of one CTA a
+//     tile, each at its best ring depth (PERF.md): L2 is not what sets the
+//     pace, so the design keeps the single CTA;
+//   - attention on the tensor cores too (~2% of the FLOPs, but 45% of a
+//     layer's time on an H100 when it ran on the CUDA cores, one thread a
+//     (sample, head, query)): each warpgroup takes every second
+//     head of width 64, the scores of the tile's 64 rows by its 64 key rows
+//     in one m64n64 wgmma chain, masked to each row's sample; softmax in
+//     registers, one reciprocal a row; the probabilities through the x
+//     operand's block of the head into P V;
+//   - waves: S = 3 samples (63 of 64 rows) a CTA at L = 21. 1,024 samples
+//     are 342 CTAs against 132 resident (132 SMs, one 193 KB CTA each):
+//     2.59 waves. Fewer samples a CTA fill the last wave better (S = 2: 512
+//     CTAs, 3.88 waves) but take 4 waves of the same weight stream instead
+//     of 3.
 //
 // Rounding, as the plain version and the f32 kernel's bf16 path: x, the
 //   weights, q, k, v, the attention probabilities, the context and the
-//   hidden layer are bf16 values, products sum in f32; softmax, LayerNorm
-//   (biased variance, eps 1e-5), residuals and the mean stay f32.
+//   hidden layer are bf16 values, products sum in f32 (inside a wgmma in the
+//   instruction's own order); softmax (each probability its exponential,
+//   by the SFU's ex2 (__expf, a few ulp of f32, far below the bf16 rounding
+//   that follows), times the reciprocal of the row's sum),
+//   LayerNorm (biased variance, eps 1e-5), residuals and the mean stay f32.
+//   Every sum has one owner and a fixed order, no atomics: reruns are
+//   bit-equal, and every ring depth gives the same bits.
 //
-// Shapes: S L <= 64, L <= 32, D and FF multiples of 32, D / NH a multiple
-//   of 8, shared
-//   memory within 227 KB (transenc.py's k3_plan checks it before the launch).
+// Shapes: D 128 or 256 (DW = 64 or 128), FF a multiple of D, heads of
+//   width 64 (D = 64 NH), L <= 32, S L <= 64, shared memory
+//   (transenc_tc_smem) within 227 KB. transenc.py's k3_plan checks them
+//   before the launch and the C entry refuses anything else.
 //   Padded rows and the samples past N of the ragged last tile start at
-//   zero, stay within their own rows, and are not stored.
+//   zero, stay within their own rows (a padded row's context is 0), and
+//   are not stored.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //   -Xcompiler -fPIC (ops/transenc.py builds it at first use). The C entry
 //   point returns cudaGetLastError() after the launch.
 
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 #include "entry_device.cuh"
 
 typedef __nv_bfloat16 bf16;
 
-#define TE_THREADS 256
-#define TE_WARPS (TE_THREADS / 32)
-#define TE_ROWS 64
+#define TE_ROWS 64        // rows a CTA: one wgmma tile of M
 #define TE_LMAX 32
-#define TE_BN 128
-#define TE_BK 32
-#define TE_STAGES 3
-#define TE_WS (TE_BN + 8)  // ring row stride, in bf16
+#define TE_BK 64          // k rows of a ring tile
+#define TE_BOX 8192       // a 64-row block of 128-byte rows, bytes
+#define TE_CONSUMERS 256  // two consumer warpgroups
+#define TE_THREADS 288    // and one producer warp
+// ring slots; chip_smoke.py's k3_tc_sweep builds copies with -DTE_STAGES=n
+#ifndef TE_STAGES
+#define TE_STAGES 4
+#endif
 
 struct EncTcParams {
   const bf16* x;      // (N, L, D)
   float* out;         // (N, D)
-  const bf16* wqkv;   // (NL, D, 3D), columns q | k | v
-  const bf16* wo;     // (NL, D, D)
-  const bf16* w1;     // (NL, D, FF)
-  const bf16* w2;     // (NL, FF, D)
   const float* bqkv;  // (NL, 3D)
   const float* bo;    // (NL, D)
   const float* b1;    // (NL, FF)
@@ -85,307 +119,445 @@ struct EncTcParams {
   int N, L, D, NH, FF, NL, S;
 };
 
-// out (64 x Nout) = A (64 x K, bf16 in shared memory, row stride lda) times
-// W (K x Nout, bf16 in device memory, row-major), K % 32 == 0; handed to
-// epi(row, col, v[col], v[col + 1]) a column pair at a time, one 128-column
-// chunk after another. 2 x 4 warps, each a 32 x 32 tile of the chunk. The
-// epilogue must not write A. Ends with the ring drained and a block barrier.
-template <class Epi>
-__device__ __forceinline__ void tc_gemm(const bf16* A, int lda, int K,
-                                        const bf16* W, int Nout, bf16* ring,
-                                        Epi epi) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int ktiles = K / TE_BK;
-  const int total = ((Nout + TE_BN - 1) / TE_BN) * ktiles;
-
-  auto load = [&](int stage, int it) {
-    const int n0 = (it / ktiles) * TE_BN, k0 = (it % ktiles) * TE_BK;
-    bf16* rs = ring + stage * TE_BK * TE_WS;
-    for (int i = tid; i < TE_BK * TE_BN / 8; i += TE_THREADS) {
-      const int r = i / (TE_BN / 8), c = (i % (TE_BN / 8)) * 8;
-      const bool ok = n0 + c < Nout;
-      const bf16* src = ok ? W + (size_t)(k0 + r) * Nout + n0 + c : W;
-      cp_async_16(smem_u32(rs + r * TE_WS + c), src, ok);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int s = 0; s < TE_STAGES - 1; ++s) {
-    if (s < total) load(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < total; ++it) {
-    const int kt = it % ktiles;
-    if (kt == 0) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[mt][j][q] = 0.0f;
-    }
-    cp_async_wait<TE_STAGES - 2>();
-    __syncthreads();
-    const int nt = it + TE_STAGES - 1;
-    if (nt < total) load(nt % TE_STAGES, nt);
-    cp_async_commit();
-    const bf16* rs = ring + (it % TE_STAGES) * TE_BK * TE_WS;
-    // every fragment of the tile first, then its 16 mma: the loads of both
-    // k steps are in flight together
-    uint32_t a[2][2][4], b[2][4][2];
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const int kk = 16 * ks;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[ks][mt], smem_u32(A + (wm * 32 + mt * 16 + (lane & 15)) * lda +
-                                        kt * TE_BK + kk + (lane >> 4) * 8));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, smem_u32(rs + (kk + (lane & 15)) * TE_WS + wn * 32 +
-                                      np * 16 + (lane >> 4) * 8));
-        b[ks][2 * np][0] = r[0];
-        b[ks][2 * np][1] = r[1];
-        b[ks][2 * np + 1][0] = r[2];
-        b[ks][2 * np + 1][1] = r[3];
-      }
-    }
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a[ks][mt], b[ks][j]);
-    if (kt == ktiles - 1) {
-      const int n0 = (it / ktiles) * TE_BN;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + wn * 32 + j * 8 + 2 * t4;
-          if (col >= Nout) continue;
-#pragma unroll
-          for (int half = 0; half < 2; ++half)
-            epi(wm * 32 + mt * 16 + g + 8 * half, col, acc[mt][j][2 * half],
-                acc[mt][j][2 * half + 1]);
-        }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
+// Shared memory a CTA, bytes: the ring (TE_STAGES tiles of 64 k rows x D /
+// 2 columns), the x operand (64 x D bf16), q|k|v or the hidden layer (64 x
+// max(3D, FF) bf16), LayerNorm's row sums (2 passes x 2 warpgroups x 64 f32)
+// and the 2 TE_STAGES mbarriers
+static inline size_t transenc_tc_smem(int D, int FF) {
+  const int qw = 3 * D > FF ? 3 * D : FF;
+  return (size_t)TE_STAGES * TE_BK * D + (size_t)TE_ROWS * (D + qw) * 2 + 4 * TE_ROWS * 4 +
+         16 * TE_STAGES;
 }
 
-__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = unpack_bf16x2(w[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
+// byte offset of (row r, column c) in a 64-row bf16 operand held as blocks
+// of 64 columns, each 64 rows of 128 bytes under the 128-byte swizzle: the
+// K-major image a wgmma descriptor reads (wgmma_tile.cuh's kmajor_off)
+__device__ __forceinline__ uint32_t sw_off(int r, int c) {
+  return (uint32_t)((c >> 6) * TE_BOX + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+                    (c & 7) * 2);
 }
 
-// Per-sample multi-head attention over qb = [q | k | v] (bf16 rows): one
-// thread per (sample, head, query row); its context row goes over its own q
-// row, which no other thread reads. q, k and v are read 8 values (16 bytes)
-// at a time; HD % 8 == 0.
-__device__ __forceinline__ void attention_tc(bf16* qb, int qs, int D, int HD,
-                                             int NH, int L, int S, float scale) {
-  const int items = S * NH * L;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int i = it % L;
-    const int sh = it / L;
-    const int h = sh % NH, s = sh / NH;
-    bf16* q = qb + (size_t)(s * L + i) * qs + h * HD;
-    const bf16* kk = qb + (size_t)(s * L) * qs + D + h * HD;
-    const bf16* vv = qb + (size_t)(s * L) * qs + 2 * D + h * HD;
-    float p[TE_LMAX];
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TE_CONSUMERS) : "memory");
+}
+
+// the packed bf16 pairs pk[2 jj + hh] of a warpgroup's wgmma fragments (rows
+// 16 warp + lane / 4 + 8 hh, columns col + 8 jj + 2 (lane % 4), + 1) into
+// the swizzled image at `img`, four 8 x 8 matrices a stmatrix: the bytes
+// that a 4-byte store of each pair at sw_off would write
+template <int NG>
+__device__ __forceinline__ void store_pairs(uint32_t img, int col, const uint32_t (&pk)[2 * NG]) {
+  const int lane = threadIdx.x & 31, q = lane >> 3;
+  const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane & 7) + 8 * (q & 1);
 #pragma unroll
-    for (int j = 0; j < TE_LMAX; ++j) p[j] = 0.0f;
-    for (int dc = 0; dc < HD; dc += 8) {
-      float qf[8];
-      unpack8(*reinterpret_cast<const uint4*>(q + dc), qf);
+  for (int jj = 0; jj < NG; jj += 2)
+    asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                     img + sw_off(row, col + 8 * (jj + (q >> 1)))),
+                 "r"(pk[2 * jj]), "r"(pk[2 * jj + 1]), "r"(pk[2 * jj + 2]), "r"(pk[2 * jj + 3])
+                 : "memory");
+}
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// Per-sample multi-head attention on the tensor cores, a head of width 64
+// one 64-column block of q, k and v: warpgroup wg takes heads wg, wg + 2, ..
+// For each, the scores Q_h K_h^T of all 64 rows by all 64 key rows
+// (wgmma.m64n64k16: A the q block, B the k block, both K-major), masked to
+// each row's own sample and scaled; softmax in registers (a row's 16 values
+// a thread, then the quad's by xor shuffles); the bf16 probabilities into
+// the x operand's block h (x is consumed); the context P V_h (A those
+// probabilities, B the v block as stored: MN-major, key rows along k),
+// rounded to bf16 over them. Rows past S L get probabilities 0.
+__device__ __forceinline__ void attention(uint32_t base, uint32_t qb, uint32_t xb, int D, int NH,
+                                          int L, int S, float scale, int wg, int r0, int t4) {
+  // this thread's rows' keys: [lo, hi), those of the row's own sample
+  // (none past S L)
+  int lo[2], hi[2];
 #pragma unroll
-      for (int j = 0; j < TE_LMAX; ++j)
-        if (j < L) {
-          float kf[8];
-          unpack8(*reinterpret_cast<const uint4*>(kk + (size_t)j * qs + dc), kf);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int s = (r0 + 8 * hh) / L;
+    lo[hh] = s < S ? s * L : 0;
+    hi[hh] = s < S ? s * L + L : 0;
+  }
+  for (int h = wg; h < NH; h += 2) {
+    const uint32_t qa = base + qb + h * TE_BOX, ka = base + qb + (D / 64 + h) * TE_BOX;
+    const uint32_t va = base + qb + (2 * D / 64 + h) * TE_BOX, pa = base + xb + h * TE_BOX;
+    float sc[32];
+    wgmma_fence();
 #pragma unroll
-          for (int e = 0; e < 8; ++e) p[j] = fmaf(qf[e], kf[e], p[j]);
-        }
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<64>::mma<0>(sc, kmajor_desc(qa + 32 * kk, 128), kmajor_desc(ka + 32 * kk, 128),
+                        kk != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      sc[i] = c >= lo[hh] && c < hi[hh] ? sc[i] * scale : -INFINITY;
+      m[hh] = fmaxf(m[hh], sc[i]);
     }
-    float m = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < TE_LMAX; ++j)
-      if (j < L) {
-        p[j] *= scale;
-        m = fmaxf(m, p[j]);
-      }
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < TE_LMAX; ++j)
-      if (j < L) {
-        p[j] = expf(p[j] - m);
-        sum += p[j];
-      }
-#pragma unroll
-    for (int j = 0; j < TE_LMAX; ++j)
-      if (j < L) p[j] = __bfloat162float(__float2bfloat16_rn(p[j] / sum));
-    for (int ec = 0; ec < HD; ec += 8) {
-      float c[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) c[e] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TE_LMAX; ++j)
-        if (j < L) {
-          float vf[8];
-          unpack8(*reinterpret_cast<const uint4*>(vv + (size_t)j * qs + ec), vf);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) c[e] = fmaf(p[j], vf[e], c[e]);
-        }
-      uint4 o;
-      o.x = pack_bf16x2(c[0], c[1]);
-      o.y = pack_bf16x2(c[2], c[3]);
-      o.z = pack_bf16x2(c[4], c[5]);
-      o.w = pack_bf16x2(c[6], c[7]);
-      *reinterpret_cast<uint4*>(q + ec) = o;
+    for (int hh = 0; hh < 2; ++hh) {
+      m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+      m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
     }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i >> 1) & 1;
+      sc[i] = sc[i] == -INFINITY ? 0.0f : __expf(sc[i] - m[hh]);
+      sum[hh] += sc[i];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    }
+    float inv[2];  // one reciprocal a row (0 for a row without keys)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) inv[hh] = sum[hh] > 0.0f ? 1.0f / sum[hh] : 0.0f;
+    uint32_t pk[16];
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pk[2 * jj + hh] =
+            pack_bf16x2(sc[4 * jj + 2 * hh] * inv[hh], sc[4 * jj + 2 * hh + 1] * inv[hh]);
+    store_pairs<8>(base + xb, 64 * h, pk);
+    fence_async_shared();  // visible to wgmma
+    warpgroup_sync(wg);
+    float cx[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<64>::mma<1>(cx, kmajor_desc(pa + 32 * kk, 128), mnmajor_desc(va + 2048 * kk, TE_BOX, 1024),
+                        kk != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(cx);
+    warpgroup_sync(wg);  // every warp's reads of the probabilities are done
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        pk[2 * jj + hh] = pack_bf16x2(cx[4 * jj + 2 * hh], cx[4 * jj + 2 * hh + 1]);
+    store_pairs<8>(base + xb, 64 * h, pk);
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// In-place LayerNorm of the 64 rows of xf (f32), one warp per row; writes
-// the bf16 copy xb, the next product's operand, beside it
-__device__ __forceinline__ void layer_norm_tc(float* xf, bf16* xb, int xs, int D,
-                                              const float* gm, const float* bt) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < TE_ROWS; r += TE_WARPS) {
-    float* row = xf + (size_t)r * xs;
-    float s = 0.0f;
-    for (int c = lane; c < D; c += 32) s += row[c];
-    const float mu = warp_sum(s) / (float)D;
-    float v = 0.0f;
-    for (int c = lane; c < D; c += 32) {
-      const float d = row[c] - mu;
-      v = fmaf(d, d, v);
-    }
-    const float rs = 1.0f / sqrtf(warp_sum(v) / (float)D + 1e-5f);
-    for (int c = lane; c < D; c += 32) {
-      const float y = (row[c] - mu) * rs * gm[c] + bt[c];
-      row[c] = y;
-      xb[(size_t)r * xs + c] = __float2bfloat16_rn(y);
-    }
-  }
-}
-
+template <int DW>
 __global__ void __launch_bounds__(TE_THREADS, 1)
-    transenc_tc_kernel(const EncTcParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int D = p.D, L = p.L, FF = p.FF, NH = p.NH;
-  const int HD = D / NH;
-  const int xs = D + 8;                             // x row stride
-  const int qs = (3 * D > FF ? 3 * D : FF) + 8;     // q|k|v row stride
-  float* xf = reinterpret_cast<float*>(smem_raw);   // [64][xs] f32
-  bf16* xb = reinterpret_cast<bf16*>(xf + TE_ROWS * xs);  // [64][xs]
-  bf16* qb = xb + TE_ROWS * xs;                     // [64][qs]
-  bf16* ring = qb + TE_ROWS * qs;                   // [stage][BK][WS]
-  const int n0 = blockIdx.x * p.S;                  // this tile's first sample
-  const int rows = min(p.S * L, (p.N - n0) * L);    // real rows of this tile
+    transenc_tc_kernel(const __grid_constant__ CUtensorMap mqkv,
+                       const __grid_constant__ CUtensorMap mo,
+                       const __grid_constant__ CUtensorMap m1,
+                       const __grid_constant__ CUtensorMap m2, const EncTcParams p) {
+  constexpr int STAGES = TE_STAGES;
+  constexpr uint32_t SLOT = TE_BK * DW * 2;  // one ring tile, bytes
+  constexpr int NR = DW / 2;                 // accumulator registers a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const int D = p.D, L = p.L, FF = p.FF, NL = p.NL;
+  const int QW = 3 * D > FF ? 3 * D : FF;
+  // offsets from the base: the ring, the x operand, q|k|v (or the hidden
+  // layer), LayerNorm's sums, the barriers
+  const uint32_t XB = STAGES * SLOT, QB = XB + TE_ROWS * D * 2, RED = QB + TE_ROWS * QW * 2;
+  const uint32_t base = smem_u32(smem_raw);
+  float* red = reinterpret_cast<float*>(smem_raw + RED);  // [pass][warpgroup][row]
+  const uint32_t full = base + RED + 4 * TE_ROWS * 4, empty = full + 8 * STAGES;
+  const int tid = threadIdx.x;
+  if ((base & 1023) != 0) __trap();  // the swizzled images need 1024-byte alignment
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
+  if (tid >= TE_CONSUMERS) {  // the producer warp: one thread keeps the ring full
+    if (tid == TE_CONSUMERS) {
+      int g = 0;  // tiles issued, in the consumers' order
+      for (int l = 0; l < NL; ++l)
+        for (int q = 0; q < 4; ++q) {  // q|k|v, out, FF1, FF2
+          const CUtensorMap* map = q == 0 ? &mqkv : q == 1 ? &mo : q == 2 ? &m1 : &m2;
+          const int K = q == 3 ? FF : D;                      // the weight's k rows
+          const int nch = q == 0 ? 3 : q == 2 ? FF / D : 1;  // chunks a warpgroup
+          for (int j = 0; j < nch; ++j)
+            for (int k0 = 0; k0 < K; k0 += TE_BK)
+              for (int w = 0; w < 2; ++w, ++g) {
+                const int s = g % STAGES;
+                if (g >= STAGES) mbar_wait(empty + 8 * s, ((g / STAGES) - 1) & 1);
+                mbar_expect_tx(full + 8 * s, SLOT);
+#pragma unroll
+                for (int h = 0; h < DW / 64; ++h)
+                  tma_load_2d(base + s * SLOT + h * TE_BOX, map, full + 8 * s,
+                              (2 * j + w) * DW + 64 * h, l * K + k0);
+              }
+        }
+    }
+    return;
+  }
+
+  unsigned char* sm = smem_raw;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31, t4 = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);  // this thread's rows: r0, r0 + 8
+  const int c0 = wg * DW + 2 * t4;         // its columns: c0 + 8 jj, + 1
+  const int n0 = blockIdx.x * p.S;         // this tile's first sample
+  const int rows = min(p.S * L, (p.N - n0) * L);  // its real rows
+
+  // x into the operand image, and this thread's share of the residual
   const bf16* x = p.x + (size_t)n0 * L * D;
-  for (int i = threadIdx.x; i < TE_ROWS * D / 8; i += TE_THREADS) {
+  for (int i = tid; i < TE_ROWS * D / 8; i += TE_CONSUMERS) {
     const int r = i / (D / 8), c = (i % (D / 8)) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows) v = __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * D + c));
-    *reinterpret_cast<uint4*>(xb + r * xs + c) = v;
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = unpack_bf16x2(w[j]);
-      xf[r * xs + c + 2 * j] = f.x;
-      xf[r * xs + c + 2 * j + 1] = f.y;
-    }
+    *reinterpret_cast<uint4*>(sm + XB + sw_off(r, c)) = v;
   }
-  __syncthreads();
+  fence_async_shared();  // visible to wgmma
+  consumer_sync();
+  float res[NR];
+#pragma unroll
+  for (int jj = 0; jj < DW / 8; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 f = unpack_bf16x2(
+          *reinterpret_cast<const uint32_t*>(sm + XB + sw_off(r0 + 8 * hh, c0 + 8 * jj)));
+      res[4 * jj + 2 * hh] = f.x;
+      res[4 * jj + 2 * hh + 1] = f.y;
+    }
 
-  const float scale = 1.0f / sqrtf((float)HD);
-  for (int l = 0; l < p.NL; ++l) {
-    const bf16* wqkv = p.wqkv + (size_t)l * D * 3 * D;
-    const bf16* wo = p.wo + (size_t)l * D * D;
-    const bf16* w1 = p.w1 + (size_t)l * D * FF;
-    const bf16* w2 = p.w2 + (size_t)l * FF * D;
+  // this warpgroup's tiles are every second one of the ring's order
+  int g = wg;
+  auto release = [&](int s) {
+    if ((tid & 127) == 0) mbar_arrive(empty + 8 * s);
+  };
+  // out (64 x DW chunk j of this warpgroup, columns (2 j + wg) DW ..) = A
+  // (64 x 64 ktiles, K-major image at `a`) times the ring's next ktiles
+  // tiles, for nch chunks, each handed to epi(j, acc, bias) with this
+  // thread's bias pairs, loaded while the chunk's products run
+  auto product = [&](uint32_t a, int ktiles, int nch, const float* bias, auto&& epi) {
+    float acc[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc[i] = 0.0f;
+    for (int j = 0; j < nch; ++j) {
+      float2 bv[DW / 8];
+#pragma unroll
+      for (int jj = 0; jj < DW / 8; ++jj) bv[jj] = ld_nc_f2(bias + (2 * j + wg) * DW + 2 * t4 + 8 * jj);
+      for (int kt = 0; kt < ktiles; ++kt, g += 2) {
+        const int s = g % STAGES;
+        mbar_wait(full + 8 * s, (g / STAGES) & 1);
+        __syncwarp();
+        const uint32_t ak = a + kt * TE_BOX, b = base + s * SLOT;
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TE_BK / 16; ++kk)
+          Wgmma<DW>::template mma<1>(acc, kmajor_desc(ak + 32 * kk, 128),
+                                     mnmajor_desc(b + 2048 * kk, TE_BOX, 1024), (kt | kk) != 0);
+        wgmma_commit();
+        // the slot goes back as soon as its products are done: a warpgroup
+        // holds one slot, the other warpgroup's products fill the gap
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(s);
+      }
+      epi(j, acc, bv);
+    }
+  };
+  // the bf16 values (acc + bias, relu'd or not) of chunk j into the image at
+  // `dst`, columns (2 j + wg) DW ..
+  auto store_chunk = [&](uint32_t dst, bool relu, int j, float (&acc)[NR], float2 (&bv)[DW / 8]) {
+    uint32_t pk[DW / 4];
+#pragma unroll
+    for (int jj = 0; jj < DW / 8; ++jj) {
+      const float2 b = bv[jj];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v0 = acc[4 * jj + 2 * hh] + b.x, v1 = acc[4 * jj + 2 * hh + 1] + b.y;
+        if (relu) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        pk[2 * jj + hh] = pack_bf16x2(v0, v1);
+      }
+    }
+    store_pairs<DW / 8>(base + dst, (2 * j + wg) * DW, pk);
+  };
+  // residual += acc + bias, in registers
+  auto add_residual = [&](float (&acc)[NR], float2 (&bv)[DW / 8]) {
+#pragma unroll
+    for (int jj = 0; jj < DW / 8; ++jj) {
+      const float2 b = bv[jj];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        res[4 * jj + 2 * hh] += acc[4 * jj + 2 * hh] + b.x;
+        res[4 * jj + 2 * hh + 1] += acc[4 * jj + 2 * hh + 1] + b.y;
+      }
+    }
+  };
+  // LayerNorm of the residual's rows in place; writes the bf16 operand of
+  // the next product. A row's sum: this thread's 2 DW / 8 values in column
+  // order, the quad's four by xor shuffles (every lane the same bits), then
+  // warpgroup 0's plus warpgroup 1's
+  auto row_sums = [&](float (&v)[2], int pass) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      v[hh] += __shfl_xor_sync(0xffffffffu, v[hh], 1);
+      v[hh] += __shfl_xor_sync(0xffffffffu, v[hh], 2);
+      if (t4 == 0) red[(2 * pass + wg) * TE_ROWS + r0 + 8 * hh] = v[hh];
+    }
+    consumer_sync();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      v[hh] = red[2 * pass * TE_ROWS + r0 + 8 * hh] + red[(2 * pass + 1) * TE_ROWS + r0 + 8 * hh];
+  };
+  auto layer_norm = [&](const float* gm, const float* bt) {
+    float2 sv[DW / 8], tv[DW / 8];  // scale and bias, loaded while the rows sum
+#pragma unroll
+    for (int jj = 0; jj < DW / 8; ++jj) {
+      sv[jj] = ld_nc_f2(gm + c0 + 8 * jj);
+      tv[jj] = ld_nc_f2(bt + c0 + 8 * jj);
+    }
+    float mu[2] = {0.0f, 0.0f}, var[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int jj = 0; jj < DW / 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) mu[hh] += res[4 * jj + 2 * hh] + res[4 * jj + 2 * hh + 1];
+    row_sums(mu, 0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) mu[hh] /= (float)D;
+#pragma unroll
+    for (int jj = 0; jj < DW / 8; ++jj)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = res[4 * jj + 2 * hh + e] - mu[hh];
+          var[hh] = fmaf(d, d, var[hh]);
+        }
+    row_sums(var, 1);
+    float rs[2];
+    uint32_t pk[DW / 4];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) rs[hh] = 1.0f / sqrtf(var[hh] / (float)D + 1e-5f);
+#pragma unroll
+    for (int jj = 0; jj < DW / 8; ++jj) {
+      const float2 s = sv[jj], b = tv[jj];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float y0 = (res[4 * jj + 2 * hh] - mu[hh]) * rs[hh] * s.x + b.x;
+        const float y1 = (res[4 * jj + 2 * hh + 1] - mu[hh]) * rs[hh] * s.y + b.y;
+        res[4 * jj + 2 * hh] = y0;
+        res[4 * jj + 2 * hh + 1] = y1;
+        pk[2 * jj + hh] = pack_bf16x2(y0, y1);
+      }
+    }
+    store_pairs<DW / 8>(base + XB, wg * DW, pk);
+  };
+
+  const float scale = 0.125f;  // 1 / sqrt(64)
+  for (int l = 0; l < NL; ++l) {
     const float* bqkv = p.bqkv + (size_t)l * 3 * D;
     const float* bo = p.bo + (size_t)l * D;
     const float* b1 = p.b1 + (size_t)l * FF;
     const float* b2 = p.b2 + (size_t)l * D;
-
-    tc_gemm(xb, xs, D, wqkv, 3 * D, ring, [&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<uint32_t*>(qb + r * qs + c) =
-          pack_bf16x2(v0 + bqkv[c], v1 + bqkv[c + 1]);
+    product(base + XB, D / TE_BK, 3, bqkv, [&](int j, float (&acc)[NR], float2 (&bv)[DW / 8]) {
+      store_chunk(QB, false, j, acc, bv);
     });
-    attention_tc(qb, qs, D, HD, NH, L, p.S, scale);
-    __syncthreads();
-    tc_gemm(qb, qs, D, wo, D, ring, [&](int r, int c, float v0, float v1) {
-      float2* px = reinterpret_cast<float2*>(xf + r * xs + c);
-      const float2 o = *px;
-      *px = make_float2(o.x + (v0 + bo[c]), o.y + (v1 + bo[c + 1]));
+    fence_async_shared();
+    consumer_sync();  // q|k|v complete
+    attention(base, QB, XB, D, p.NH, L, p.S, scale, wg, r0, t4);
+    fence_async_shared();
+    consumer_sync();  // the context complete
+    product(base + XB, D / TE_BK, 1, bo,
+            [&](int, float (&acc)[NR], float2 (&bv)[DW / 8]) { add_residual(acc, bv); });
+    layer_norm(p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D);
+    fence_async_shared();
+    consumer_sync();  // LayerNorm 1's operand complete
+    product(base + XB, D / TE_BK, FF / D, b1, [&](int j, float (&acc)[NR], float2 (&bv)[DW / 8]) {
+      store_chunk(QB, true, j, acc, bv);
     });
-    layer_norm_tc(xf, xb, xs, D, p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D);
-    __syncthreads();
-    tc_gemm(xb, xs, D, w1, FF, ring, [&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<uint32_t*>(qb + r * qs + c) =
-          pack_bf16x2(fmaxf(v0 + b1[c], 0.0f), fmaxf(v1 + b1[c + 1], 0.0f));
-    });
-    tc_gemm(qb, qs, FF, w2, D, ring, [&](int r, int c, float v0, float v1) {
-      float2* px = reinterpret_cast<float2*>(xf + r * xs + c);
-      const float2 o = *px;
-      *px = make_float2(o.x + (v0 + b2[c]), o.y + (v1 + b2[c + 1]));
-    });
-    layer_norm_tc(xf, xb, xs, D, p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D);
-    __syncthreads();
+    fence_async_shared();
+    consumer_sync();  // the hidden layer complete
+    product(base + QB, FF / TE_BK, 1, b2,
+            [&](int, float (&acc)[NR], float2 (&bv)[DW / 8]) { add_residual(acc, bv); });
+    layer_norm(p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D);
+    fence_async_shared();
+    consumer_sync();  // LayerNorm 2's operand complete
   }
 
-  // mean over each real sample's L rows
-  for (int i = threadIdx.x; i < p.S * D; i += TE_THREADS) {
+  // the residual as f32 rows (stride D + 8) over q|k|v's place, then the
+  // mean over each real sample's L rows, t ascending
+  float* xf = reinterpret_cast<float*>(sm + QB);
+#pragma unroll
+  for (int jj = 0; jj < DW / 8; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(xf + (r0 + 8 * hh) * (D + 8) + c0 + 8 * jj) =
+          make_float2(res[4 * jj + 2 * hh], res[4 * jj + 2 * hh + 1]);
+  consumer_sync();
+  for (int i = tid; i < p.S * D; i += TE_CONSUMERS) {
     const int s = i / D, c = i - s * D;
     if (n0 + s >= p.N) continue;
     float sum = 0.0f;
-    for (int t = 0; t < L; ++t) sum += xf[(s * L + t) * xs + c];
+    for (int t = 0; t < L; ++t) sum += xf[(s * L + t) * (D + 8) + c];
     p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;
   }
 }
 
+// the kernel of width D (128 or 256) with its shared memory raised to what
+// (D, FF) takes, or null when that is more than a CTA may have
+static const void* tc_setup(int D, int FF, cudaError_t* e) {
+  const void* k = D == 256 ? (const void*)transenc_tc_kernel<128>
+                           : (const void*)transenc_tc_kernel<64>;
+  const size_t smem = transenc_tc_smem(D, FF);
+  if (smem > 232448) return nullptr;
+  *e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return k;
+}
+
+// the TMA map of a stacked weight, (rows, cols) bf16 row-major: boxes of 64
+// columns by TE_BK k rows under the 128-byte swizzle
+static CUresult weight_map(CUtensorMap* m, const void* w, int rows, int cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, TE_BK};
+  return bf16_tensor_map(m, w, 2, dims, strides, box);
+}
+
 extern "C" {
 
-// All of x and the weights bf16; biases, LayerNorm parameters and out f32.
-// S samples per CTA (S * L <= 64). Returns 0 or a cudaError_t value.
-int transenc_tc_launch(const void* x, void* out, const void* wqkv,
-                       const void* wo, const void* w1, const void* w2,
-                       const void* bqkv, const void* bo, const void* b1,
-                       const void* b2, const void* ln1s, const void* ln1b,
-                       const void* ln2s, const void* ln2b, int N, int L, int D,
-                       int NH, int FF, int NL, int S, void* stream, int device) {
+// All of x and the weights bf16 (16-byte aligned); biases, LayerNorm
+// parameters and out f32. S samples per CTA (S * L <= 64). Returns 0 or a
+// cudaError_t value.
+int transenc_tc_launch(const void* x, void* out, const void* wqkv, const void* wo,
+                       const void* w1, const void* w2, const void* bqkv, const void* bo,
+                       const void* b1, const void* b2, const void* ln1s, const void* ln1b,
+                       const void* ln2s, const void* ln2b, int N, int L, int D, int NH, int FF,
+                       int NL, int S, void* stream, int device) {
   USE_DEVICE(device);
-  if (N < 1 || L < 1 || L > TE_LMAX || S < 1 || S * L > TE_ROWS || D < 32 ||
-      D % 32 != 0 || FF < 32 || FF % 32 != 0 || NH < 1 || D % NH != 0 ||
-      (D / NH) % 8 != 0 || NL < 1)
+  if (N < 1 || L < 1 || L > TE_LMAX || S < 1 || S * L > TE_ROWS || (D != 128 && D != 256) ||
+      FF < D || FF % D != 0 || NH < 1 || D != 64 * NH || NL < 1 ||
+      (reinterpret_cast<uintptr_t>(wqkv) | reinterpret_cast<uintptr_t>(wo) |
+       reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  const void* k = tc_setup(D, FF, &e);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap maps[4];
+  CUresult r = weight_map(&maps[0], wqkv, NL * D, 3 * D);
+  if (r == CUDA_SUCCESS) r = weight_map(&maps[1], wo, NL * D, D);
+  if (r == CUDA_SUCCESS) r = weight_map(&maps[2], w1, NL * D, FF);
+  if (r == CUDA_SUCCESS) r = weight_map(&maps[3], w2, NL * FF, D);
+  if (r != CUDA_SUCCESS)
+    return r == CUDA_ERROR_NOT_SUPPORTED ? (int)cudaErrorNotSupported : (int)cudaErrorInvalidValue;
   EncTcParams p;
   p.x = static_cast<const bf16*>(x);
   p.out = static_cast<float*>(out);
-  p.wqkv = static_cast<const bf16*>(wqkv);
-  p.wo = static_cast<const bf16*>(wo);
-  p.w1 = static_cast<const bf16*>(w1);
-  p.w2 = static_cast<const bf16*>(w2);
   p.bqkv = static_cast<const float*>(bqkv);
   p.bo = static_cast<const float*>(bo);
   p.b1 = static_cast<const float*>(b1);
@@ -401,16 +573,27 @@ int transenc_tc_launch(const void* x, void* out, const void* wqkv,
   p.FF = FF;
   p.NL = NL;
   p.S = S;
-  const int qw = 3 * D > FF ? 3 * D : FF;
-  const size_t smem = (size_t)TE_ROWS * (D + 8) * (sizeof(float) + sizeof(bf16)) +
-                      (size_t)TE_ROWS * (qw + 8) * sizeof(bf16) +
-                      (size_t)TE_STAGES * TE_BK * TE_WS * sizeof(bf16);
-  cudaError_t e = cudaFuncSetAttribute(
-      transenc_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  void* args[5] = {&maps[0], &maps[1], &maps[2], &maps[3], &p};
+  e = cudaLaunchKernel(k, dim3((N + S - 1) / S), dim3(TE_THREADS), args,
+                       transenc_tc_smem(D, FF), static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
-  const int grid = (N + S - 1) / S;
-  transenc_tc_kernel<<<grid, TE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
+}
+
+// How many CTAs of the kernel at (D, FF) an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *ctas, and its
+// shared memory a CTA into *smem_bytes. Launches nothing. Returns 0 or a
+// cudaError_t value.
+int transenc_tc_occupancy(int D, int FF, int* ctas, int* smem_bytes, int device) {
+  USE_DEVICE(device);
+  if (D != 128 && D != 256) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaSuccess;
+  const void* k = tc_setup(D, FF, &e);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  if (e != cudaSuccess) return (int)e;
+  *smem_bytes = (int)transenc_tc_smem(D, FF);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, k, TE_THREADS,
+                                                            transenc_tc_smem(D, FF));
 }
 
 }  // extern "C"

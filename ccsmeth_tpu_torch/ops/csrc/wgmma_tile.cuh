@@ -1,7 +1,8 @@
 // Hopper's own tensor-core path, shared by the bf16 kernels that run on it
 // (birnn_tc.cu: K1's and K2's recurrence and projection; rnn_train_gemm.cuh:
-// the backward products of K5 and K6) and the mbarrier and bulk-copy
-// primitives of the cluster recurrences (birnn_tc.cu, birnn_simt.cu).
+// the backward products of K5 and K6; transenc_tc.cu: K3's encoder) and the
+// mbarrier and bulk-copy primitives of the cluster recurrences (birnn_tc.cu,
+// birnn_simt.cu).
 //
 // wgmma (warpgroup matrix multiply): the 128 threads of a warpgroup issue
 // wgmma.mma_async.m64nNk16 together: D (64 x N, f32, in registers) += A (64 x

@@ -2,8 +2,10 @@
 
 Counterpart of ``ccsmeth_tpu/ops/transenc_pallas.py`` (``_make_encoder_kernel
 :144``, launched by ``_encoder_call :335``, entry ``encoder_pooled_pallas
-:393``). The kernel source is ``csrc/transenc_encoder.cu``; its header says
-what bounds it on an H100 and what the design does about that.
+:393``). The kernel sources are ``csrc/transenc_simt.cu``,
+``csrc/transenc_tc.cu`` and ``csrc/transenc_encoder.cu``, one a design
+(below); each header says what bounds it on an H100 and what its design does
+about that.
 
 ``encoder_pooled(stacked, x, compute_dtype, nhead)`` takes the weight layout
 of the JAX package's ``_stack_layer_params`` (``transenc_pallas.py:74-92``):
@@ -31,11 +33,17 @@ a CUDA call (``design_calls`` counts the calls each design took):
   the feed-forward in 192-column chunks of its hidden layer. It takes fp32
   with L <= 32, D a multiple of 16 up to 256, a head width that is a
   multiple of 4 up to 64, FF a multiple of 16;
-- ``tc`` (``csrc/transenc_tc.cu``), bf16 on the tensor cores: 64 rows a CTA,
-  each product's weight streamed from its row-major copy through a ring of
-  32 x 128 tiles, 128-column chunk after chunk, each from k = 0 to K. It
-  takes bf16 with L <= 32, D and FF multiples of 32, D / nhead a multiple
-  of 8, and shared memory within 227 KB;
+- ``tc`` (``csrc/transenc_tc.cu``), bf16 on Hopper's wgmma fed by TMA: 64
+  rows a CTA (S = 64 // L samples), one producer warp streaming every
+  product's weight tiles (64 k rows x D / 2 columns, as stored) through one
+  ring of ``TC_STAGES`` slots on mbarriers, in the consumers' order, across
+  products and layers; two consumer warpgroups, each owning D / 2 columns
+  of the f32 residual in its wgmma accumulator registers; attention on
+  wgmma too, a head one 64-column block. It
+  takes bf16 with L <= 32, D = 128 or 256 (a warpgroup's residual is one
+  wgmma tile of D / 2 columns), FF a multiple of D (the hidden layer's
+  chunks split evenly between the warpgroups), heads of width 64, and
+  ``tc_smem`` within 227 KB;
 - ``l2`` (``csrc/transenc_encoder.cu``), the first f32-FMA kernel (42 rows
   a CTA at L = 21, each warp reading the weights from L2): every shape that
   the other two refuse, in fp32 or bf16 (x and the weights in the operand
@@ -61,7 +69,9 @@ NAMES = ("wqkv", "wo", "w1", "w2", "bqkv", "bo", "b1", "b2",
          "ln1s", "ln1b", "ln2s", "ln2b")
 WARPS = 8  # ENC_WARPS in csrc/transenc_encoder.cu
 LMAX = 32  # ENC_LMAX
-TC_ROWS, TC_BK, TC_BN, TC_STAGES = 64, 32, 128, 3  # TE_* in csrc/transenc_tc.cu
+# TE_* in csrc/transenc_tc.cu: rows a CTA, k rows a ring tile, threads (two
+# consumer warpgroups and a producer warp), ring slots
+TC_ROWS, TC_BK, TC_THREADS, TC_STAGES = 64, 64, 288, 4
 # TS_* in csrc/transenc_simt.cu: threads and rows a CTA, the rows' k-major
 # stride, ring slab k rows, ring stages, widest slab, FF hidden columns a
 # chunk, the largest D and head width
@@ -87,16 +97,25 @@ def build(src: str = SRC) -> str:
     return nvcc.build(src)[0]
 
 
+def bind_tc(path: str):
+    """The library at ``path``, a build of ``csrc/transenc_tc.cu``, with its
+    entries' argument types set."""
+    lib = ctypes.CDLL(path)
+    fn = lib.transenc_tc_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_int])
+    occ = lib.transenc_tc_occupancy
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int]
+    return lib
+
+
 def _load_tc():
     global _tc_lib
     with _lock:
         if _tc_lib is None:
-            lib = ctypes.CDLL(build(TC_SRC))
-            fn = lib.transenc_tc_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p, ctypes.c_int])
-            _tc_lib = lib
+            _tc_lib = bind_tc(build(TC_SRC))
     return _tc_lib
 
 
@@ -258,13 +277,38 @@ def _why_not_simt(L, D, FF, nhead):
     return None
 
 
+def tc_smem(D: int, FF: int) -> int:
+    """Shared memory a CTA of the tc design takes, in bytes: the ring
+    (TC_STAGES tiles of TC_BK k rows x D / 2 bf16 columns), the x operand
+    (64 x D bf16), q | k | v or the hidden layer (64 x max(3D, FF) bf16),
+    LayerNorm's row sums (2 x 2 x 64 f32) and the 2 TC_STAGES mbarriers.
+    ``transenc_tc_smem`` in the source."""
+    return (TC_STAGES * TC_BK * D + TC_ROWS * (D + max(3 * D, FF)) * 2 + 4 * TC_ROWS * 4
+            + 16 * TC_STAGES)
+
+
+def _why_not_tc(L, D, FF, nhead):
+    """Why the tc design does not take a bf16 shape, or None."""
+    if L > LMAX:
+        return "L > {}".format(LMAX)
+    if D not in (128, 256):
+        return "D {} is not 128 or 256 (D / 2 columns a warpgroup: one wgmma tile " \
+               "of 64 or 128)".format(D)
+    if FF % D:
+        return "FF {} not a multiple of D".format(FF)
+    if nhead < 1 or D != 64 * nhead:
+        return "head width {} is not 64".format(D / nhead if nhead >= 1 else None)
+    smem = tc_smem(D, FF)
+    if smem > SMEM_LIMIT:
+        return "{} bytes of shared memory a CTA".format(smem)
+    return None
+
+
 def k3_plan(L: int, D: int, FF: int, nhead: int, compute_dtype=torch.bfloat16) -> dict:
     """The shape rule that picks K3's design for a CUDA call (module
     docstring). Returns {"design": "tc", "S" (samples a CTA), "smem" (bytes
     a CTA)}, {"design": "simt", "S", "smem", "why"} or {"design": "l2",
     "why"}; "why" says why not tc (and, for l2 in fp32, why not simt)."""
-    smem = (TC_ROWS * (D + 8) * 6 + TC_ROWS * (max(3 * D, FF) + 8) * 2
-            + TC_STAGES * TC_BK * (TC_BN + 8) * 2)
     if compute_dtype != torch.bfloat16:
         why = "fp32 keeps exact f32 arithmetic"
         no_simt = _why_not_simt(L, D, FF, nhead)
@@ -272,17 +316,22 @@ def k3_plan(L: int, D: int, FF: int, nhead: int, compute_dtype=torch.bfloat16) -
             return {"design": "simt", "S": SIMT_ROWS // L,
                     "smem": simt_smem(L, D, FF, nhead), "why": why}
         return {"design": "l2", "why": "{}; simt: {}".format(why, no_simt)}
-    if L > LMAX:
-        why = "L > {}".format(LMAX)
-    elif D % 32 or FF % 32:
-        why = "D or FF not a multiple of 32"
-    elif nhead < 1 or D % nhead or (D // nhead) % 8:
-        why = "head width not a multiple of 8"
-    elif smem > SMEM_LIMIT:
-        why = "{} bytes of shared memory a CTA".format(smem)
-    else:
-        return {"design": "tc", "S": TC_ROWS // L, "smem": smem}
+    why = _why_not_tc(L, D, FF, nhead)
+    if why is None:
+        return {"design": "tc", "S": TC_ROWS // L, "smem": tc_smem(D, FF)}
     return {"design": "l2", "why": why}
+
+
+def tc_occupancy(D: int, FF: int, device: int = 0) -> int:
+    """CTAs of the tc design at (D, FF) that an SM holds at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds the kernel,
+    launches nothing."""
+    lib = _load_tc()
+    n, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.transenc_tc_occupancy(D, FF, ctypes.byref(n), ctypes.byref(smem), device)
+    if rc != 0:
+        raise RuntimeError("transenc_tc_occupancy failed: cudaError {}".format(rc))
+    return n.value
 
 
 def _launch(design, plan, stacked, x, compute_dtype, nhead, dims):
@@ -296,12 +345,16 @@ def _launch(design, plan, stacked, x, compute_dtype, nhead, dims):
     out = torch.empty((N, D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [stacked[n].data_ptr() for n in NAMES]
-    if design in ("tc", "simt"):
-        lib = _load_tc() if design == "tc" else _load_simt()
-        fn = lib.transenc_tc_launch if design == "tc" else lib.transenc_simt_launch
+    if design == "tc":
         with torch.cuda.device(x.device):
-            rc = fn(x.data_ptr(), out.data_ptr(), *ptrs, N, L, D, nhead, FF, NL,
-                    plan["S"], stream, x.device.index)
+            rc = _load_tc().transenc_tc_launch(
+                x.data_ptr(), out.data_ptr(), *ptrs, N, L, D, nhead, FF, NL, plan["S"],
+                stream, x.device.index)
+    elif design == "simt":
+        with torch.cuda.device(x.device):
+            rc = _load_simt().transenc_simt_launch(
+                x.data_ptr(), out.data_ptr(), *ptrs, N, L, D, nhead, FF, NL, plan["S"],
+                stream, x.device.index)
     else:
         if L > LMAX or D % 4 != 0 or FF % 4 != 0:
             raise ValueError("kernel takes L <= 32 and D, FF multiples of 4 "

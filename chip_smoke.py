@@ -26,10 +26,11 @@ does not print its last line:
      rerun for bit-equal outputs and each phase's time (projections,
      recurrence, the recurrence on 1 and 15 row tiles); kernel K3
      (transencoder2s: 6 layers, d_model 256, 4 heads, FF 512, L=21; fp32:
-     the simt design ops/csrc/transenc_simt.cu, bf16: the tensor-core design
-     ops/csrc/transenc_tc.cu) at 2B = 1024 and 16384 samples, fp32 and
-     bf16, beside its plain version, nn.TransformerEncoder + mean and the
-     bound, with one CTA alone and one full wave timed at 1024 samples; and
+     the simt design ops/csrc/transenc_simt.cu, bf16: the design on wgmma
+     fed by TMA, ops/csrc/transenc_tc.cu) at 2B = 1024 and 16384 samples,
+     fp32 and bf16, beside its plain version, nn.TransformerEncoder + mean
+     and the bound, with one CTA alone and one full wave timed at 1024
+     samples (tc: its ring stages and resident CTAs an SM); and
      K3's l2 design (ops/csrc/transenc_encoder.cu, the first f32 kernel,
      the shapes the other two refuse; no model's path runs it) called
      directly, against the plain version;
@@ -130,7 +131,8 @@ checkout.
 
     python3 chip_smoke.py --ab PARENT_TREE
 
-times K1 and K2 (both cells) and K3 at the kernel phase's shapes, and K4,
+times K1 and K2 (both cells) and K3 at the kernel phase's shapes (and K3's
+l2 design at 1024 fp32 samples), and K4,
 K5 and K6 (forward and backward) at the train-kernel phase's, in four turns in one
 process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
@@ -141,9 +143,12 @@ Each turn prints one JSON line; the last line compares the medians.
 runs the card, the build and the named phases of the one-card training paths,
 ``dist``, ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
 geometry), ``k1_tc_sweep`` (K1's bf16 design at each candidate geometry
-of its recurrence) or ``k1_tc_probe`` (the bf16 recurrence's step split
-into its parts by clock marks in a copy of its source) (``main_only``),
-and prints no result line.
+of its recurrence), ``k1_tc_probe`` (the bf16 recurrence's step split
+into its parts by clock marks in a copy of its source), ``k3_kernels``
+(the K3 kernel phase), ``k3_tc_sweep`` (K3's bf16 design at each ring depth,
+built in copies of its source) or ``k3_tc_probe`` (a layer of
+K3's bf16 design split into its parts by clock marks in a copy of its
+source) (``main_only``), and prints no result line.
 """
 
 import json
@@ -593,6 +598,9 @@ def phase_k3_kernels(torch, smi):
                 if rows == ROWS[0]:
                     waves = _k3_waves(torch, lambda xs: transenc.encoder_pooled(
                         st, xs, dt, NH), x, plan["S"])
+                    if plan["design"] == "tc":
+                        waves.update(stages=transenc.TC_STAGES,
+                                     ctas_an_sm=transenc.tc_occupancy(D, FF))
             flops = transenc.encoder_flops(rows, L, D, FF, NLT)
             bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
             res = {"phase": "kernel", "name": "transenc_encoder", "rows": rows,
@@ -610,6 +618,193 @@ def phase_k3_kernels(torch, smi):
             cells.append(res)
             del lib, got, again, ref
     return cells
+
+
+K3_TC_SWEEP_STAGES = (3, 4, 5, 6)  # ring depths the sweep builds
+K3_TC_SWEEP_ROUNDS = 12  # timed rounds of every variant, in turns
+
+
+def _build_tc_copy(path, defines=()):
+    """A build of the K3 tc source at ``path`` (csrc/transenc_tc.cu or a
+    copy of it) with ``defines`` into WORK, bound by ``transenc.bind_tc``;
+    returns (library, nvcc's -Xptxas -v report)."""
+    import subprocess as sp
+
+    from ccsmeth_tpu_torch.ops import nvcc, transenc
+
+    os.makedirs(WORK, exist_ok=True)
+    tag = "".join("_" + d.replace("=", "") for d in defines)
+    so = os.path.join(WORK, os.path.basename(path)[:-3] + tag + ".so")
+    proc = sp.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-D" + d for d in defines]
+                  + ["-I", nvcc.CSRC, "-o", so, path], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return transenc.bind_tc(so), proc.stdout + proc.stderr
+
+
+def phase_k3_tc_sweep(torch, smi):
+    """K3's bf16 tc design at each ring depth of ``K3_TC_SWEEP_STAGES``
+    (builds of csrc/transenc_tc.cu with -DTE_STAGES=n in WORK) at
+    transencoder2s's width, 1,024 and 16,384 samples: each depth's pooled
+    output against the plain version (``K3_TOL``), bit-equal to the other
+    depths' and to its rerun; then ``K3_TC_SWEEP_ROUNDS`` rounds of timings,
+    the depths in turn (forward, then reverse order), so that each pair is
+    compared round by round under one clock; nn.TransformerEncoder + mean
+    on the same inputs beside them."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsmeth_tpu_torch.ops import nvcc, transenc
+
+    src = os.path.join(nvcc.CSRC, transenc.TC_SRC)
+    with ThreadPoolExecutor(len(K3_TC_SWEEP_STAGES)) as pool:
+        libs = list(pool.map(lambda n: _build_tc_copy(src, ["TE_STAGES={}".format(n)])[0],
+                             K3_TC_SWEEP_STAGES))
+    dt = torch.bfloat16
+    shipped = transenc._tc_lib
+    try:
+        for rows in ROWS:
+            cfg, params, st, x = _k3_inputs(torch, rows, "bfloat16")
+            D, FF, NH = cfg.d_model, cfg.dim_ff, cfg.nhead
+            ref = transenc.encoder_pooled_plain(st, x, dt, NH)
+            lib = _torch_encoder(torch, params, dt)
+            variants, first = [], None
+            for stages, so in zip(K3_TC_SWEEP_STAGES, libs):
+                def fn(so=so):
+                    transenc._tc_lib = so
+                    return transenc.encoder_pooled(st, x, dt, NH)
+
+                got, again = fn(), fn()
+                torch.cuda.synchronize()
+                first = got if first is None else first
+                err = (got - ref).abs().max().item()
+                equal = bool(torch.equal(got, again)) and bool(torch.equal(got, first))
+                assert err <= K3_TOL["bfloat16"] and equal, (rows, stages, err, equal)
+                ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+                assert so.transenc_tc_occupancy(D, FF, ctypes.byref(ctas), ctypes.byref(smem),
+                                                0) == 0
+                variants.append(({"stages": stages, "smem": smem.value,
+                                  "ctas_an_sm": ctas.value, "max_abs_err": err,
+                                  "bit_equal": equal, "ms_by_round": []}, fn))
+            lib_ms = []
+            with torch.inference_mode():
+                for r in range(K3_TC_SWEEP_ROUNDS):
+                    for res, fn in (variants if r % 2 == 0 else variants[::-1]):
+                        res["ms_by_round"].append(time_ms(fn, torch))
+                    lib_ms.append(time_ms(lambda: lib(x).float().mean(1), torch))
+            del lib
+            for res, _fn in variants:
+                res["median_ms"] = statistics.median(res["ms_by_round"])
+            emit({"phase": "k3_tc_sweep", "rows": rows, "rounds": K3_TC_SWEEP_ROUNDS,
+                  "default_stages": transenc.TC_STAGES,
+                  "variants": [res for res, _fn in variants],
+                  "library_ms": statistics.median(lib_ms), "card": smi})
+    finally:
+        transenc._tc_lib = shipped
+
+
+# The probe of the bf16 tc design's layer: marks put into a copy of
+# csrc/transenc_tc.cu (never into the shipped kernel), each adding the
+# clock64 cycles since the last mark to a per-part sum, for consumer threads
+# 0 and 128 (one of each warpgroup) of CTA 0. Parts: 0 the waits on the
+# ring's `full` barriers, 1 the products (wgmma issue and waits, the slots'
+# release), 2 the epilogues, 3 attention, 4 the two LayerNorms (their
+# exchange barriers inside), 5 the fences and barriers between the phases,
+# 6 x's load before the first layer, 7 the mean after the last.
+K3_TC_PROBE_PARTS = ("ring_waits", "products", "epilogues", "attention", "layer_norm",
+                     "barriers", "x_load", "mean")
+K3_TC_PROBE_MARKS = [
+    ('#include "entry_device.cuh"\n',
+     '#include "entry_device.cuh"\n__device__ unsigned long long g_prof[2][8];\n'
+     '#define PROF(k) if ((tid == 0 || tid == 128) && blockIdx.x == 0) '
+     '{ const unsigned long long now = clock64(); g_prof[tid >> 7][k] += now - tprev; '
+     'tprev = now; }\n'),
+    ("  const int rows = min(p.S * L, (p.N - n0) * L);  // its real rows\n",
+     "  const int rows = min(p.S * L, (p.N - n0) * L);  // its real rows\n"
+     "  unsigned long long tprev = clock64();\n"),
+    ("        mbar_wait(full + 8 * s, (g / STAGES) & 1);\n",
+     "        PROF(1)\n        mbar_wait(full + 8 * s, (g / STAGES) & 1);\n        PROF(0)\n"),
+    ("      epi(j, acc, bv);\n", "      PROF(1)\n      epi(j, acc, bv);\n      PROF(2)\n"),
+    ("  for (int l = 0; l < NL; ++l) {\n", "  PROF(6)\n  for (int l = 0; l < NL; ++l) {\n"),
+    ("    consumer_sync();  // q|k|v complete\n",
+     "    consumer_sync();  // q|k|v complete\n    PROF(5)\n"),
+    ("    attention(base, QB, XB, D, p.NH, L, p.S, scale, wg, r0, t4);\n",
+     "    attention(base, QB, XB, D, p.NH, L, p.S, scale, wg, r0, t4);\n    PROF(3)\n"),
+    ("    consumer_sync();  // the context complete\n",
+     "    consumer_sync();  // the context complete\n    PROF(5)\n"),
+    ("    layer_norm(p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D);\n",
+     "    layer_norm(p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D);\n    PROF(4)\n"),
+    ("    consumer_sync();  // LayerNorm 1's operand complete\n",
+     "    consumer_sync();  // LayerNorm 1's operand complete\n    PROF(5)\n"),
+    ("    consumer_sync();  // the hidden layer complete\n",
+     "    consumer_sync();  // the hidden layer complete\n    PROF(5)\n"),
+    ("    layer_norm(p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D);\n",
+     "    layer_norm(p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D);\n    PROF(4)\n"),
+    ("    consumer_sync();  // LayerNorm 2's operand complete\n",
+     "    consumer_sync();  // LayerNorm 2's operand complete\n    PROF(5)\n"),
+    ("    p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;\n  }\n}\n",
+     "    p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;\n  }\n  PROF(7)\n}\n"),
+    ("}  // extern \"C\"\n",
+     "void tc_probe(unsigned long long* out, int reset) {\n"
+     "  unsigned long long z[16] = {0};\n"
+     "  if (reset) cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
+     "  else cudaMemcpyFromSymbol(out, g_prof, sizeof(z));\n}\n}  // extern \"C\"\n"),
+]
+
+
+def phase_k3_tc_probe(torch, smi):
+    """K3's bf16 tc design split into a layer's parts (``K3_TC_PROBE_MARKS``)
+    on one tile of samples alone, one full wave and 1,024 samples: us a
+    layer for each part (x's load and the mean: us a call), at the card's
+    clock, beside the call's CUDA-event time."""
+    import ctypes
+
+    from ccsmeth_tpu_torch.ops import nvcc, transenc
+
+    src = open(os.path.join(nvcc.CSRC, transenc.TC_SRC)).read()
+    for old, new in K3_TC_PROBE_MARKS:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "transenc_tc_probe.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    lib, _ = _build_tc_copy(path)
+    p = ctypes.c_void_p
+    lib.tc_probe.argtypes = [p, ctypes.c_int]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shipped, transenc._tc_lib = transenc._tc_lib, lib
+    buf = (ctypes.c_ulonglong * 16)()
+    dt = torch.bfloat16
+    try:
+        cfg, _params, st, x = _k3_inputs(torch, ROWS[0], "bfloat16")
+        D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
+        S = transenc.k3_plan(L, D, FF, NH)["S"]
+        for rows in (S, S * n_sm, ROWS[0]):
+            xs = x[:rows]
+
+            def fn():
+                return transenc.encoder_pooled(st, xs, dt, NH)
+
+            fn()
+            torch.cuda.synchronize()
+            lib.tc_probe(None, 1)
+            ms = time_ms(fn, torch)
+            lib.tc_probe(ctypes.cast(buf, p), 0)
+            runs = REPS + 1  # the warm-up and the timed runs
+            parts = {}
+            for w in (0, 1):
+                per = [buf[8 * w + k] / runs / mhz for k in range(8)]
+                parts["thread{}".format(128 * w)] = {
+                    name: (v if name in ("x_load", "mean") else v / NLT)
+                    for name, v in zip(K3_TC_PROBE_PARTS, per)}
+            emit({"phase": "k3_tc_probe", "rows": rows, "stages": transenc.TC_STAGES,
+                  "kernel_ms": ms, "layer_us_by_part": parts, "clock_mhz": mhz,
+                  "card": smi})
+    finally:
+        transenc._tc_lib = shipped
 
 
 def phase_k3_l2(torch, smi, k3_cells):
@@ -3462,6 +3657,9 @@ def _time_tree(tree):
                 x = torch.from_numpy(x_np.astype(np.float32)).to("cuda", dt)
                 res["ms"]["k3 {} {}".format(rows, dname)] = time_ms(
                     lambda: transenc.encoder_pooled(st, x, dt, cfg.nhead), torch, AB_REPS)
+                if (rows, dname) == (ROWS[0], "float32"):  # K3's l2 design, a control
+                    res["ms"]["k3_l2 {} {}".format(rows, dname)] = time_ms(
+                        lambda: transenc._encoder_l2(st, x, dt, cfg.nhead), torch, AB_REPS)
         # the training kernels at the train-kernel phase's cells: K6 and
         # K4/K5 (the control), forward and backward
         from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
@@ -3522,9 +3720,11 @@ def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
     the one-card training paths (train_kernels, train_kernels_small,
     determinism, train1s, train_te, transfer, aggr_train, wrappers), the
-    multi-process one (dist) or K1's geometry sweeps and probe
-    (k1_simt_sweep, k1_tc_sweep, k1_tc_probe), for a short call after a
-    change to one of them; prints no kernels line and no ok line."""
+    multi-process one (dist), K1's geometry sweeps and probe
+    (k1_simt_sweep, k1_tc_sweep, k1_tc_probe) or K3's kernel phase, its
+    bf16 design's sweep and probe (k3_kernels, k3_tc_sweep, k3_tc_probe),
+    for a short call after a change to one of them; prints no kernels line
+    and no ok line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3547,6 +3747,9 @@ def main_only(names):
         "k1_simt_sweep": lambda: phase_k1_simt_sweep(torch, smi),
         "k1_tc_sweep": lambda: phase_k1_tc_sweep(torch, smi),
         "k1_tc_probe": lambda: phase_k1_tc_probe(torch, smi),
+        "k3_kernels": lambda: phase_k3_kernels(torch, smi),
+        "k3_tc_sweep": lambda: phase_k3_tc_sweep(torch, smi),
+        "k3_tc_probe": lambda: phase_k3_tc_probe(torch, smi),
         "dist": lambda: phase_dist(torch, smi),
         "wrappers": phase_wrappers}
     unknown = [n for n in names if n not in phases]

@@ -647,8 +647,8 @@ def test_simt_model_is_bit_equal_to_the_plain_version(hidden, rows, cell):
     assert torch.equal(out, ref_out) and torch.equal(hn, ref_hn)
 
 
-@pytest.mark.parametrize("seq_len,d,ff,nhead", [(21, 256, 512, 4), (21, 64, 128, 4),
-                                               (32, 256, 512, 8), (1, 32, 32, 2)])
+@pytest.mark.parametrize("seq_len,d,ff,nhead", [(21, 256, 512, 4), (21, 128, 256, 2),
+                                               (32, 256, 512, 4), (1, 128, 128, 2)])
 def test_k3_plan_takes_the_model_shapes(seq_len, d, ff, nhead):
     plan = transenc.k3_plan(seq_len, d, ff, nhead)
     assert plan["design"] == "tc", plan
@@ -659,10 +659,10 @@ def test_k3_plan_takes_the_model_shapes(seq_len, d, ff, nhead):
 @pytest.mark.parametrize("seq_len,d,ff,nhead,dtype,why", [
     (21, 256, 512, 4, torch.float32, "fp32"),
     (33, 256, 512, 4, torch.bfloat16, "L >"),
-    (21, 48, 128, 4, torch.bfloat16, "multiple of 32"),
-    (21, 96, 128, 32, torch.bfloat16, "head width"),
-    (21, 64, 128, 16, torch.bfloat16, "head width"),
-    (21, 512, 1024, 8, torch.bfloat16, "shared memory"),
+    (21, 48, 128, 4, torch.bfloat16, "not 128 or 256"),
+    (21, 256, 512, 8, torch.bfloat16, "head width"),
+    (21, 128, 256, 4, torch.bfloat16, "head width"),
+    (21, 256, 1536, 4, torch.bfloat16, "shared memory"),
 ])
 def test_k3_plan_sends_other_shapes_to_the_f32_kernel(seq_len, d, ff, nhead, dtype, why):
     """fp32 takes the simt design (f32 FMAs, tests/test_torch_transenc_layouts.py

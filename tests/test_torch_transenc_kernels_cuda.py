@@ -1,5 +1,5 @@
 """Kernels K3 (the transencoder2s encoder + mean: the fp32 design
-ccsmeth_tpu_torch/ops/csrc/transenc_simt.cu, the bf16 tensor-core design
+ccsmeth_tpu_torch/ops/csrc/transenc_simt.cu, the bf16 design on wgmma and TMA
 csrc/transenc_tc.cu and the first f32 kernel csrc/transenc_encoder.cu, kept
 as the l2 design for the shapes the other two refuse) and K2 (one bidirectional GRU or LSTM layer in
 K1's design: ccsmeth_tpu_torch/ops/csrc/birnn_simt.cu with K4's projection
@@ -86,6 +86,109 @@ def test_encoder_tc_design_matches_plain(n):
     assert torch.equal(got, again)
     ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
     assert got.shape == (n, cfg.d_model) and bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= K3_TOL["bfloat16"]
+
+
+def _tc_call(st, x, cfg):
+    """One encoder_pooled call in bf16 that must take the tc design: its
+    output and the CUDA launches and tc calls it counted."""
+    before, cuda_before = transenc.design_calls["tc"], transenc.cuda_launches
+    got = transenc.encoder_pooled(st, x, torch.bfloat16, cfg.nhead)
+    return got, transenc.cuda_launches - cuda_before, transenc.design_calls["tc"] - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4, 395, 396, 397])
+def test_encoder_tc_ragged_last_tile_and_full_waves(n):
+    """CTAs of 3 samples: n = 2, 4 and 395 leave the last tile part-filled,
+    n = 3 is one full tile, n = 396 fills one wave of 132 CTAs and n = 397
+    starts a second with one sample; one CUDA launch a call, bit-equal on a
+    rerun, within K3's bf16 tolerance of the plain version."""
+    _need_card()
+    dt = torch.bfloat16
+    cfg, st, x = _encoder_case(n, dt, seed=9)
+    plan = transenc.k3_plan(21, cfg.d_model, cfg.dim_ff, cfg.nhead, dt)
+    assert (plan["design"], plan["S"]) == ("tc", 3)
+    got, cuda, calls = _tc_call(st, x, cfg)
+    again, cuda2, _ = _tc_call(st, x, cfg)
+    torch.cuda.synchronize()
+    assert (cuda, cuda2, calls) == (1, 1, 1)
+    assert torch.equal(got, again)
+    ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
+    assert got.shape == (n, cfg.d_model) and bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= K3_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ff", [256, 128])
+def test_encoder_tc_design_at_a_narrower_width(ff):
+    """D = 128, 2 heads of 64, FF 256 or 128: a warpgroup's residual is one
+    m64n64 tile and a ring tile one box; one launch a call, bit-equal
+    reruns."""
+    _need_card()
+    dt = torch.bfloat16
+    nhead = 2
+    cfg = TransEncConfig(num_layers=3, d_model=128, dim_ff=ff, nhead=nhead)
+    params = randomize_affine(init_transenc(ff, cfg), ff)
+    st = transenc.stack_layers(params["layers"], dt, "cuda")
+    x = torch.from_numpy(np.random.RandomState(ff).randn(301, 21, 128)
+                         .astype(np.float32)).to("cuda", dt)
+    assert transenc.k3_plan(21, 128, ff, nhead, dt)["design"] == "tc"
+    got, cuda, calls = _tc_call(st, x, cfg)
+    again, _, _ = _tc_call(st, x, cfg)
+    torch.cuda.synchronize()
+    assert (cuda, calls) == (1, 1) and torch.equal(got, again)
+    ref = transenc.encoder_pooled_plain(st, x, dt, nhead)
+    assert (got - ref).abs().max().item() <= K3_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [2, 3, 6])
+def test_encoder_tc_ring_depths_give_the_same_bits(stages, tmp_path):
+    """A build of the source with another ring depth (-DTE_STAGES) gives the
+    shipped build's output bit for bit at D = 256: the ring changes when a
+    tile arrives, not what is summed or in which order."""
+    import subprocess
+
+    from ccsmeth_tpu_torch.ops import nvcc
+
+    _need_card()
+    dt = torch.bfloat16
+    cfg, st, x = _encoder_case(200, dt, seed=4)
+    want = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+    so = str(tmp_path / "transenc_tc_{}.so".format(stages))
+    subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-DTE_STAGES={}".format(stages),
+                    "-I", nvcc.CSRC, "-o", so, "{}/{}".format(nvcc.CSRC, transenc.TC_SRC)],
+                   check=True, capture_output=True)
+    shipped, transenc._tc_lib = transenc._load_tc(), transenc.bind_tc(so)
+    try:
+        got = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+        torch.cuda.synchronize()
+    finally:
+        transenc._tc_lib = shipped
+    assert torch.equal(got, want), stages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ff,nhead", [(64, 128, 4), (256, 640, 4), (128, 256, 4)])
+def test_encoder_bf16_shapes_tc_refuses_take_l2(d, ff, nhead):
+    """bf16 shapes the tc design refuses (D = 64; FF not a multiple of D;
+    heads of width 32) take the l2 kernel: one CUDA launch, counted as
+    l2's, within K3's bf16 tolerance of the plain version."""
+    _need_card()
+    dt = torch.bfloat16
+    cfg = TransEncConfig(num_layers=2, d_model=d, dim_ff=ff, nhead=nhead)
+    params = randomize_affine(init_transenc(d + ff, cfg), d + ff)
+    st = transenc.stack_layers(params["layers"], dt, "cuda")
+    x = torch.from_numpy(np.random.RandomState(d).randn(50, 21, d)
+                         .astype(np.float32)).to("cuda", dt)
+    assert transenc.k3_plan(21, d, ff, nhead, dt)["design"] == "l2"
+    before, cuda_before = transenc.design_calls["l2"], transenc.cuda_launches
+    got = transenc.encoder_pooled(st, x, dt, cfg.nhead)
+    torch.cuda.synchronize()
+    assert transenc.design_calls["l2"] == before + 1
+    assert transenc.cuda_launches == cuda_before + 1
+    ref = transenc.encoder_pooled_plain(st, x, dt, cfg.nhead)
     assert (got - ref).abs().max().item() <= K3_TOL["bfloat16"]
 
 

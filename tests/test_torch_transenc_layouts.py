@@ -189,3 +189,630 @@ def test_simt_order_chunks_the_feed_forward(ff, reference):
         jcfg = JaxTransEncConfig(**dict(SMALL, dim_ff=ff))
         want = jnp.mean(_encoder(params, jcfg, jnp.asarray(x), None, False), axis=1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+# ---- the bf16 tc design (csrc/transenc_tc.cu) on the CPU: k3_plan's rule,
+# the constants held to the source, the operand images that the consumers'
+# stores and the TMA boxes write and the wgmma descriptors read, the
+# residual's register layout, LayerNorm's fixed-order row sums, the
+# producer's tile walk and the ring's protocol, and a model of the whole
+# design's order of work held to the plain version and the JAX package
+
+TC_BOX = 8192  # TE_BOX: a 64-row block of 128-byte rows
+
+
+def _tc_source():
+    path = os.path.join(os.path.dirname(transenc.__file__), "csrc", transenc.TC_SRC)
+    with open(path) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("seq_len,d,ff,nhead,smem", [
+    (21, 256, 512, 4, 197_696), (21, 128, 256, 2, 99_392), (32, 256, 512, 4, 197_696),
+    (1, 128, 128, 2, 99_392), (21, 256, 768, 4, 197_696), (21, 256, 1024, 4, 230_464)])
+def test_k3_plan_takes_bf16_shapes_to_the_tc_design(seq_len, d, ff, nhead, smem):
+    """bf16 with D = 128 or 256, FF a multiple of D, heads of width 64: the
+    tc design, 64 // L samples a CTA, and the shared memory of tc_smem with
+    the ring's 4 slots."""
+    plan = transenc.k3_plan(seq_len, d, ff, nhead, torch.bfloat16)
+    assert plan == {"design": "tc", "S": 64 // seq_len, "smem": smem}
+    assert smem == transenc.tc_smem(d, ff) <= SMEM_LIMIT
+    assert transenc.TC_STAGES == 4
+
+
+@pytest.mark.parametrize("seq_len,d,ff,nhead,why", [
+    (33, 256, 512, 4, "L > 32"),
+    (21, 64, 128, 4, "D 64 is not 128 or 256"),
+    (21, 384, 768, 4, "D 384 is not 128 or 256"),
+    (21, 256, 640, 4, "FF 640 not a multiple of D"),
+    (21, 128, 192, 4, "FF 192 not a multiple of D"),
+    (21, 256, 512, 8, "head width 32.0 is not 64"),
+    (21, 128, 256, 4, "head width 32.0 is not 64"),
+    (21, 256, 1536, 4, "296000 bytes of shared memory"),
+])
+def test_k3_plan_sends_bf16_shapes_tc_refuses_to_l2(seq_len, d, ff, nhead, why):
+    """A bf16 shape the tc design does not take goes to l2 with the reason
+    (the first refusal in the rule's order); nothing raises."""
+    plan = transenc.k3_plan(seq_len, d, ff, nhead, torch.bfloat16)
+    assert plan["design"] == "l2" and why in plan["why"], plan
+
+
+def test_tc_constants_follow_the_kernel_source():
+    """The wrapper's copy of the design (rows, ring tile k rows, the block,
+    threads, L's limit, the ring's default depth) is the source's, and
+    tc_smem is the source's transenc_tc_smem."""
+    src = _tc_source()
+    defines = dict(re.findall(r"^#define (TE_\w+) (\d+)", src, re.M))
+    want = {"TE_ROWS": transenc.TC_ROWS, "TE_BK": transenc.TC_BK, "TE_BOX": TC_BOX,
+            "TE_CONSUMERS": 256, "TE_THREADS": transenc.TC_THREADS,
+            "TE_LMAX": transenc.LMAX, "TE_STAGES": transenc.TC_STAGES}
+    assert {k: int(defines[k]) for k in want} == want
+    assert "#ifndef TE_STAGES\n#define TE_STAGES" in src
+    flat = " ".join(src.split())
+    for line in ("return (size_t)TE_STAGES * TE_BK * D + (size_t)TE_ROWS * (D + qw) * 2 + "
+                 "4 * TE_ROWS * 4 + 16 * TE_STAGES;",
+                 "const int qw = 3 * D > FF ? 3 * D : FF;",
+                 "(D != 128 && D != 256) || FF < D || FF % D != 0 || NH < 1 || D != 64 * NH",
+                 "const float scale = 0.125f;",
+                 "S * L > TE_ROWS", "L > TE_LMAX"):
+        assert line in flat, line
+    assert transenc.tc_smem(256, 512) == 4 * 64 * 256 + 64 * (256 + 768) * 2 + 1024 + 64
+
+
+def test_probe_marks_each_apply_once_to_the_kernel_source():
+    """chip_smoke.py's k3_tc_probe builds a copy of the source with clock64
+    marks put in by text replacement: each mark's anchor is in the shipped
+    source exactly once, and the kernel's parts are all marked."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_marks", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = _tc_source()
+    for old, _new in smoke.K3_TC_PROBE_MARKS:
+        assert src.count(old) == 1, old
+    marked = "".join(new for _old, new in smoke.K3_TC_PROBE_MARKS)
+    assert all("PROF({})".format(k) in marked for k in range(len(smoke.K3_TC_PROBE_PARTS)))
+
+
+def swizzle128(addr):
+    """The 128-byte swizzle (TMA's writes, wgmma's reads) of a byte address
+    from a 1024-byte-aligned base: bits [7, 10) XOR into bits [4, 7)."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def sw_off(r, c):
+    """transenc_tc.cu's sw_off: the byte offset of (row r, column c) in a
+    64-row operand image of 64-column blocks of 128-byte rows, the 16-byte
+    chunks of a row XOR-swizzled by the row."""
+    return (c >> 6) * TC_BOX + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2
+
+
+def operand_image(a):
+    """The consumers' stores of a (64, W) operand (x, the context, q|k|v,
+    the hidden layer) into its image, as flat bf16 slots."""
+    R, W = a.shape
+    r, c = torch.arange(R).view(-1, 1), torch.arange(W).view(1, -1)
+    img = torch.zeros(R * W)
+    img[sw_off(r, c) // 2] = a
+    return img
+
+
+def image_read(img, rows, cols):
+    """An image read back at the addresses sw_off gives, the epilogues' and
+    attention's stores."""
+    r, c = torch.as_tensor(rows).view(-1, 1), torch.as_tensor(cols).view(1, -1)
+    return img[sw_off(r, c) // 2]
+
+
+def kmajor_read(img, start, rows, k):
+    """(rows, k) elements of a K-major A of 128-byte rows as its descriptor
+    addresses them (8-row atoms of 1,024 bytes): (r, k) at start + (r // 8)
+    1024 + (r % 8) 128 + 2 k, under the swizzle of the address."""
+    r, kk = torch.arange(rows).view(-1, 1), torch.arange(k).view(1, -1)
+    return img[swizzle128(start + (r // 8) * 1024 + (r % 8) * 128 + 2 * kk) // 2]
+
+
+def tma_tile(w2d, krow, n0, dw):
+    """The ring slot's image of the weight tile at k rows [krow, krow + 64)
+    and columns [n0, n0 + dw) of a stacked weight (rows, cols), as the TMA
+    loads write it: box h (64 columns by 64 k rows of 128 bytes) at h
+    TC_BOX, every address under the swizzle."""
+    img = torch.zeros(64 * dw)
+    j, i = torch.arange(64).view(-1, 1), torch.arange(64).view(1, -1)
+    for h in range(dw // 64):
+        addr = h * TC_BOX + j * 128 + 2 * i
+        img[swizzle128(addr) // 2] = w2d[krow + j, n0 + 64 * h + i]
+    return img
+
+
+def mnmajor_read(img, start, n, k):
+    """(n, k) elements of an MN-major B as its descriptor addresses them
+    (trans-b): (n, k) at start + (n // 64) LBO + (k // 8) SBO + (k % 8) 128 +
+    2 (n % 64), LBO = one box (TC_BOX), SBO = 8 k rows (1,024); each k16
+    step 2,048 bytes further."""
+    nn, kk = torch.arange(n).view(-1, 1), torch.arange(k).view(1, -1)
+    addr = start + (nn // 64) * TC_BOX + (kk // 8) * 1024 + (kk % 8) * 128 + 2 * (nn % 64)
+    return img[swizzle128(addr) // 2]
+
+
+def tile_a(img, kt):
+    """k tile kt (64 columns) of a K-major image, as its 4 k16 steps read it."""
+    return torch.cat([kmajor_read(img, kt * TC_BOX + 32 * kk, 64, 16) for kk in range(4)], 1)
+
+
+def tile_b(img, dw):
+    """The ring tile (dw, 64) as its 4 k16 steps read it, B^T."""
+    return torch.cat([mnmajor_read(img, 2048 * kk, dw, 16) for kk in range(4)], 1)
+
+
+@pytest.mark.parametrize("width", [128, 256, 768])
+def test_operand_images_are_what_wgmma_and_attention_read(width):
+    """Every element of a (64, width) operand lands in its own slot, and
+    the K-major descriptor's k tiles and sw_off's reads give it back."""
+    a = torch.arange(64 * width, dtype=torch.float32).view(64, width)
+    img = operand_image(a)
+    assert torch.equal(img.sort().values, a.flatten())
+    for kt in range(width // 64):
+        assert torch.equal(tile_a(img, kt), a[:, 64 * kt:64 * kt + 64])
+    assert torch.equal(image_read(img, range(64), range(width)), a)
+
+
+@pytest.mark.parametrize("krow,col", [(0, 0), (64, 1), (448, -1), (192, 2)])
+@pytest.mark.parametrize("dw", [64, 128])
+def test_weight_tiles_are_what_wgmma_reads(dw, krow, col):
+    """A tile of the stacked weight at (k row, column) as the TMA loads
+    write it, read by the MN-major descriptor, is W[krow: krow + 64, n0: n0
+    + dw]: the first tile, the next k tile and chunk, the last chunk of the
+    last k rows, a middle one."""
+    w = torch.arange(512 * 768, dtype=torch.float32).view(512, 768)
+    n0 = col * dw if col >= 0 else 768 - dw
+    img = tma_tile(w, krow, n0, dw)
+    assert torch.equal(img.sort().values, w[krow:krow + 64, n0:n0 + dw].flatten().sort().values)
+    assert torch.equal(tile_b(img, dw), w[krow:krow + 64, n0:n0 + dw].T)
+
+
+def stmatrix_bytes(warp, col, ng):
+    """store_pairs<ng> of warp ``warp`` (transenc_tc.cu) as stmatrix.x4
+    writes: lane i gives the address of row i % 8 of matrix i // 8 (rows 16
+    warp + i % 8 + 8 ((i // 8) % 2), columns col + 8 (jj + i // 16)); lane
+    L's register m, the pair pk[2 jj + m], lands at row L // 4 of matrix m,
+    4 (L % 4) bytes in. Returns {(lane, pair index): byte offset}."""
+    out = {}
+    for jj in range(0, ng, 2):
+        rowaddr = {}
+        for i in range(32):
+            q = i >> 3
+            rowaddr[(q, i & 7)] = sw_off(16 * warp + (i & 7) + 8 * (q & 1), col + 8 * (jj + (q >> 1)))
+        for lane in range(32):
+            for m in range(4):
+                out[(lane, 2 * jj + m)] = rowaddr[(m, lane >> 2)] + 4 * (lane & 3)
+    return out
+
+
+@pytest.mark.parametrize("ng,col", [(8, 64), (16, 128), (8, 0)])
+def test_stmatrix_stores_put_each_pair_where_sw_off_does(ng, col):
+    """Each packed pair pk[2 jj + hh] of lane L (the fragment's row 16 warp
+    + L // 4 + 8 hh, columns col + 8 jj + 2 (L % 4), + 1) lands where a
+    4-byte store at sw_off would put it, for every warp of a warpgroup."""
+    for warp in range(4):
+        got = stmatrix_bytes(warp, col, ng)
+        for lane in range(32):
+            for jj in range(ng):
+                for hh in (0, 1):
+                    want = sw_off(16 * warp + (lane >> 2) + 8 * hh, col + 8 * jj + 2 * (lane & 3))
+                    assert got[(lane, 2 * jj + hh)] == want, (warp, lane, jj, hh)
+
+
+def reg_layout(dw):
+    """The residual's registers: (rows, cols), each (2, 128, dw // 2), of
+    warpgroup wg, thread t, register i: the wgmma accumulator's row 16 (t //
+    32) + (t % 32) // 4 + 8 ((i // 2) % 2) and column wg dw + 8 (i // 4) + 2
+    (t % 4) + i % 2."""
+    wg = torch.arange(2).view(2, 1, 1)
+    t = torch.arange(128).view(1, 128, 1)
+    i = torch.arange(dw // 2).view(1, 1, -1)
+    rows = 16 * (t // 32) + (t % 32) // 4 + 8 * ((i // 2) % 2) + 0 * wg
+    cols = wg * dw + 8 * (i // 4) + 2 * (t % 4) + i % 2
+    return rows, cols
+
+
+@pytest.mark.parametrize("dw", [64, 128])
+def test_residual_registers_cover_the_tile_once(dw):
+    """The two warpgroups' registers hold every (row, column) of the 64 x D
+    residual exactly once, warpgroup w the columns [w dw, w dw + dw): the
+    out and FF2 products' own output columns."""
+    rows, cols = reg_layout(dw)
+    flat = (rows * 2 * dw + cols).flatten()
+    assert torch.equal(flat.sort().values, torch.arange(64 * 2 * dw))
+    for w in (0, 1):
+        assert int(cols[w].min()) == w * dw and int(cols[w].max()) == w * dw + dw - 1
+
+
+def ln_fixed_order(regs, rows, cols, gm, bt, D):
+    """transenc_tc.cu's layer_norm on the registers (2, 128, NR) f32: each
+    thread's sum of its two rows' values (register pairs in column order),
+    the quad's by xor shuffles 1 then 2, warpgroup 0's plus 1's; the same
+    for the centred squares (the kernel fuses each multiply-add); returns
+    the normalised registers and the per-thread row sums of the first pass
+    (2, 128, 2), which every lane of a quad holds bit for bit."""
+    nr = regs.shape[2]
+
+    def thread_sums(vals, pairs):
+        s = torch.zeros(2, 128, 2)
+        for jj in range(nr // 4):
+            for hh in (0, 1):
+                a, b = vals[..., 4 * jj + 2 * hh], vals[..., 4 * jj + 2 * hh + 1]
+                s[..., hh] = s[..., hh] + (a + b) if pairs else s[..., hh] + a + b
+        return s
+
+    def quad_then_warpgroups(s):
+        lane = torch.arange(128)
+        s = s + s[:, lane ^ 1]
+        s = s + s[:, lane ^ 2]
+        r = rows[:, :, 0:4:2]  # each thread's rows r0, r0 + 8 (registers 0 and 2)
+        red = torch.zeros(2, 64)
+        for w in (0, 1):
+            red[w, r[w, :, 0]] = s[w, :, 0]
+            red[w, r[w, :, 1]] = s[w, :, 1]
+        return s, (red[0] + red[1])[r]
+
+    s0, tot = quad_then_warpgroups(thread_sums(regs, True))
+    mu = tot / D
+    hh = (torch.arange(nr) // 2) % 2
+    d = regs - mu[..., hh]
+    _, var = quad_then_warpgroups(thread_sums(d * d, False))
+    rs = 1.0 / torch.sqrt(var / D + 1e-5)
+    return (regs - mu[..., hh]) * rs[..., hh] * gm[cols] + bt[cols], s0
+
+
+@pytest.mark.parametrize("dw", [64, 128])
+def test_layer_norm_sums_rows_in_a_fixed_order(dw):
+    """LayerNorm on the registers: every lane of a quad holds the same bits
+    of its rows' sums, and the result is F.layer_norm's within 2e-6 (f32
+    sums in another order); rows stay their own (a zero row gives beta)."""
+    D = 2 * dw
+    rng = np.random.RandomState(dw)
+    x = torch.from_numpy(rng.randn(64, D).astype(np.float32) * 3 + 1)
+    x[63] = 0.0
+    gm = torch.from_numpy(rng.randn(D).astype(np.float32))
+    bt = torch.from_numpy(rng.randn(D).astype(np.float32))
+    rows, cols = reg_layout(dw)
+    y, s0 = ln_fixed_order(x[rows, cols], rows, cols, gm, bt, D)
+    quad = s0.view(2, 32, 4, 2)
+    assert torch.equal(quad, quad[:, :, :1].expand_as(quad))
+    got = torch.zeros(64, D)
+    got[rows, cols] = y
+    want = F.layer_norm(x, (D,), gm, bt, 1e-5)
+    assert (got - want).abs().max().item() <= 2e-6 * max(1.0, want.abs().max().item())
+    assert torch.equal(got[63], bt)
+
+
+def tile_walk(NL, D, FF):
+    """The producer's walk over the weight tiles (transenc_tc.cu): per layer
+    the products q|k|v, out, FF1, FF2 (q 0..3), each warpgroup's chunks j,
+    the k tiles k0, the warpgroups w innermost: (layer, q, w, j, k0, the
+    tile's first column (2 j + w) D / 2, its row in the stacked weight)."""
+    walk = []
+    for l in range(NL):
+        for q in range(4):
+            K = FF if q == 3 else D
+            nch = 3 if q == 0 else FF // D if q == 2 else 1
+            for j in range(nch):
+                for k0 in range(0, K, 64):
+                    for w in (0, 1):
+                        walk.append((l, q, w, j, k0, (2 * j + w) * (D // 2), l * K + k0))
+    return walk
+
+
+def consumer_order(NL, D, FF, w):
+    """Warpgroup w's tiles in the order its products take them: per layer
+    product(x, D / 64, 3), product(x, D / 64, 1), product(x, D / 64, FF /
+    D), product(hidden, FF / 64, 1), each chunk's k tiles in turn."""
+    order = []
+    for l in range(NL):
+        for q, (ktiles, nch) in enumerate(((D // 64, 3), (D // 64, 1), (D // 64, FF // D),
+                                           (FF // 64, 1))):
+            order += [(l, q, w, j, 64 * kt) for j in range(nch) for kt in range(ktiles)]
+    return order
+
+
+@pytest.mark.parametrize("D,FF", [(256, 512), (128, 256), (256, 1024), (128, 128)])
+def test_tile_walk_is_each_warpgroups_product_order(D, FF):
+    """Warpgroup w takes every second tile of the walk, starting at w, in
+    its products' order; each product's tiles cover its weight once, the
+    D-wide products' tiles at warpgroup w's residual columns."""
+    NL = 2
+    walk = tile_walk(NL, D, FF)
+    assert len(walk) == NL * (3 * D * D + D * D + 2 * D * FF) // (64 * D // 2)
+    for w in (0, 1):
+        assert [t[:5] for t in walk[w::2]] == consumer_order(NL, D, FF, w)
+    widths = {0: 3 * D, 1: D, 2: FF, 3: D}
+    for l in range(NL):
+        for q, width in widths.items():
+            K = FF if q == 3 else D
+            cover = torch.zeros(K, width, dtype=torch.int64)
+            for (_l, _q, w, _j, k0, n0, krow) in (t for t in walk if t[:2] == (l, q)):
+                assert krow == l * K + k0
+                cover[k0:k0 + 64, n0:n0 + D // 2] += 1
+                if q in (1, 3):
+                    assert n0 == w * D // 2
+            assert bool((cover == 1).all()), (l, q)
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4, 5, 6])
+def test_ring_protocol_runs_to_the_end(stages):
+    """A simulation of the ring on mbarriers, steps taken in random order:
+    the producer issues tile g into slot g % stages once the consumers
+    released tile g - stages (`empty`); tile g lands once issued (`full`); a
+    warpgroup takes its next tile when it has landed and, at a product after
+    one that ends in a barrier, when the other warpgroup is done with that
+    product. It never deadlocks, and each tile is issued and taken once."""
+    NL, D, FF = 2, 128, 256
+    walk = tile_walk(NL, D, FF)
+    n = len(walk)
+    rng = np.random.RandomState(stages)
+    issued = 0        # tiles the producer issued
+    taken = [0, 0]    # tiles each warpgroup took (own count)
+    released = set()  # tiles the consumers released
+
+    def product_of(k):
+        return walk[k][:2]
+
+    while any(taken[w] < n // 2 for w in (0, 1)):
+        moves = []
+        if issued < n and (issued - stages < 0 or issued - stages in released):
+            moves.append(("issue", 0))
+        for w in (0, 1):
+            i = taken[w]
+            if i >= n // 2 or issued <= 2 * i + w:
+                continue  # done, or not landed
+            # products after q|k|v (attention), LN1, FF1 and LN2 start
+            # behind a barrier of both warpgroups
+            g = 2 * i + w
+            ok = True
+            if i > 0 and product_of(2 * (i - 1) + w) != product_of(g):
+                other = taken[1 - w]
+                ok = other >= n // 2 or product_of(2 * other + (1 - w)) >= product_of(g)
+            if ok:
+                moves.append(("take", w))
+        assert moves, (issued, taken)
+        kind, w = moves[rng.randint(len(moves))]
+        if kind == "issue":
+            issued += 1
+        else:
+            released.add(2 * taken[w] + w)
+            taken[w] += 1
+    assert issued == n and released == set(range(n))
+
+
+def attention_wgmma(qimg, ximg, D, nhead, L, S, op):
+    """transenc_tc.cu's attention (heads of width 64): per head h, the
+    scores of all 64 rows by all 64 key rows from the q and k blocks (both
+    K-major descriptors), masked to each row's own sample (rows past S L:
+    every key), the bf16 probabilities written into x's block h and read
+    back as the next product's K-major A, V the v block through the
+    MN-major descriptor; the context over the probabilities."""
+    r = torch.arange(64).view(-1, 1)
+    c = torch.arange(64).view(1, -1)
+    own = (r // L < S) & (c // L == r // L)
+    for h in range(nhead):
+        q = tile_a(qimg, h)
+        k = tile_a(qimg, D // 64 + h)
+        sc = torch.where(own, (q @ k.T) * (1.0 / 8.0), torch.tensor(-float("inf")))
+        p = torch.where(own.any(1, keepdim=True), torch.softmax(sc, dim=-1), torch.zeros(()))
+        ximg[sw_off(r, 64 * h + c) // 2] = op(p)
+        v = torch.cat([mnmajor_read(qimg, (2 * D // 64 + h) * TC_BOX + 2048 * kk, 64, 16)
+                       for kk in range(4)], 1)
+        ximg[sw_off(r, 64 * h + c) // 2] = op(tile_a(ximg, h) @ v.T)
+
+
+def tc_model(st, x, nhead, cd):
+    """transenc_tc.cu's order of work in plain PyTorch: CTAs of 64 rows (S =
+    64 // L samples, the last tile ragged), the products from
+    the operand images and the ring tiles of the producer's walk as the
+    descriptors read them, warpgroup w's chunks 2 j + w, the residual in
+    the registers' layout, LayerNorm in its fixed order, attention from the
+    q|k|v image on the tensor cores (``attention_wgmma``), the mean over
+    each real sample's rows with t ascending. cd: the operand type (float32
+    keeps every value unrounded)."""
+    N, L, D = x.shape
+    NL, FF = st["w1"].shape[0], st["w1"].shape[2]
+    dw = D // 2
+    assert D == 64 * nhead
+    S = 64 // L
+    ctas = -(-N // S)
+
+    def op(t):
+        return t.to(cd).float()
+
+    w2d = {0: st["wqkv"].float().reshape(NL * D, 3 * D), 1: st["wo"].float().reshape(NL * D, D),
+           2: st["w1"].float().reshape(NL * D, FF), 3: st["w2"].float().reshape(NL * FF, D)}
+    walk = tile_walk(NL, D, FF)
+    ring = [tile_b(tma_tile(w2d[t[1]], t[6], t[5], dw), dw) for t in walk]
+    rows, cols = reg_layout(dw)
+    xr = x.float().reshape(N * L, D)
+    out = torch.zeros(N, D)
+    for cta in range(ctas):
+        n0 = cta * S
+        nrows = min(S * L, (N - n0) * L)
+        xa = torch.zeros(64, D)
+        xa[:nrows] = xr[n0 * L:n0 * L + nrows]
+        ximg = operand_image(xa)
+        regs = xa[rows, cols]
+        g = [0, 1]
+
+        def product(img, q, ktiles, nch, epi):
+            for w in (0, 1):
+                for j in range(nch):
+                    acc = torch.zeros(64, dw)
+                    for kt in range(ktiles):
+                        assert walk[g[w]][1:5] == (q, w, j, 64 * kt)
+                        acc += tile_a(img, kt) @ ring[g[w]].T
+                        g[w] += 2
+                    epi(w, j, acc)
+
+        def store(img, bias, relu):
+            def epi(w, j, acc):
+                c = torch.arange((2 * j + w) * dw, (2 * j + w + 1) * dw)
+                v = acc + bias[c]
+                v = torch.relu(v) if relu else v
+                img[sw_off(torch.arange(64).view(-1, 1), c.view(1, -1)) // 2] = op(v)
+            return epi
+
+        def add_residual(bias):
+            def epi(w, _j, acc):
+                regs[w] += (acc + bias[w * dw:(w + 1) * dw])[rows[w], cols[w] - w * dw]
+            return epi
+
+        def layer_norm(gm, bt):
+            nonlocal regs
+            regs, _ = ln_fixed_order(regs, rows, cols, gm, bt, D)
+            y = torch.zeros(64, D)
+            y[rows, cols] = regs
+            ximg[:] = operand_image(op(y))
+
+        for li in range(NL):
+            qimg = torch.zeros(64 * max(3 * D, FF))
+            product(ximg, 0, D // 64, 3, store(qimg, st["bqkv"][li], False))
+            attention_wgmma(qimg, ximg, D, nhead, L, S, op)
+            product(ximg, 1, D // 64, 1, add_residual(st["bo"][li]))
+            layer_norm(st["ln1s"][li], st["ln1b"][li])
+            hid = torch.zeros(64 * max(3 * D, FF))
+            product(ximg, 2, D // 64, FF // D, store(hid, st["b1"][li], True))
+            product(hid, 3, FF // 64, 1, add_residual(st["b2"][li]))
+            layer_norm(st["ln2s"][li], st["ln2b"][li])
+        assert g == [len(walk), len(walk) + 1]
+        res = torch.zeros(64, D)
+        res[rows, cols] = regs
+        for s in range(S):
+            if n0 + s < N:
+                acc = torch.zeros(D)
+                for t in range(L):
+                    acc = acc + res[s * L + t]
+                out[n0 + s] = acc / L
+    return out
+
+
+TC_SMALL = dict(num_layers=2, d_model=128, nhead=2, dim_ff=256, dropout_rate=0.0)
+
+
+def _tc_case(n, seed, dtype=torch.float32):
+    cfg = TransEncConfig(**TC_SMALL)
+    params = randomize_affine(init_transenc(seed, cfg), seed)
+    x = np.random.RandomState(seed + n).randn(n, 21, 128).astype(np.float32) * 0.4
+    return params, transenc.stack_layers(params["layers"], dtype), x
+
+
+@pytest.mark.parametrize("reference", ["plain", "pallas", "xla"])
+@pytest.mark.parametrize("n", [1, 6, 7])
+def test_tc_model_matches_the_references(n, reference):
+    """The tc design's order of work in f32 (no rounding: the arithmetic of
+    the images, the walk and the register layout alone) at D = 128, FF =
+    256, 2 heads: one sample (a tile of 3 with 2 padded), 6 samples (two
+    full tiles) and 7 (tiles of 3, 3 and 1). Tolerance as
+    test_simt_order_matches_the_references."""
+    params, st, x = _tc_case(n, 11)
+    assert transenc.k3_plan(21, 128, 256, 2)["design"] == "tc"
+    got = tc_model(st, torch.from_numpy(x), 2, torch.float32)
+    assert got.shape == (n, 128) and bool(torch.isfinite(got).all())
+    if reference == "plain":
+        want = transenc.encoder_pooled_plain(st, torch.from_numpy(x), torch.float32, 2).numpy()
+    else:
+        cfg = JaxTransEncConfig(**TC_SMALL)
+        if reference == "pallas":
+            want = encoder_pooled_pallas(params, cfg, jnp.asarray(x), interpret=True)
+        else:
+            want = jnp.mean(_encoder(params, cfg, jnp.asarray(x), None, False), axis=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("reference", ["plain", "xla"])
+@pytest.mark.parametrize("n", [2, 7])
+def test_tc_model_at_the_model_width_matches_the_references(n, reference):
+    """D = 256, 4 heads of 64, FF 512 (transencoder2s's widths, 1 layer):
+    two 64-column boxes a ring tile, two heads a warpgroup. Tolerance as
+    above."""
+    kw = dict(num_layers=1, d_model=256, nhead=4, dim_ff=512, dropout_rate=0.0)
+    cfg = TransEncConfig(**kw)
+    params = randomize_affine(init_transenc(17, cfg), 17)
+    st = transenc.stack_layers(params["layers"])
+    x = np.random.RandomState(n).randn(n, 21, 256).astype(np.float32) * 0.4
+    got = tc_model(st, torch.from_numpy(x), 4, torch.float32)
+    if reference == "plain":
+        want = transenc.encoder_pooled_plain(st, torch.from_numpy(x), torch.float32, 4).numpy()
+    else:
+        want = jnp.mean(_encoder(params, JaxTransEncConfig(**kw), jnp.asarray(x), None, False),
+                        axis=1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [4, 9])
+def test_tc_model_in_bf16_matches_the_plain_version(n):
+    """The model with the kernel's rounding points (bf16 x, weights, q|k|v,
+    probabilities, context, hidden layer) against encoder_pooled_plain in
+    bf16 within K3's bf16 tolerance, 2e-2: an f32 sum in another order can
+    round a product operand to the neighbouring bf16 value."""
+    _params, st, x = _tc_case(n, 13, torch.bfloat16)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tc_model(st, xb, 2, torch.bfloat16)
+    want = transenc.encoder_pooled_plain(st, xb, torch.bfloat16, 2)
+    assert (got - want).abs().max().item() <= 2e-2
+
+
+def test_tc_model_follows_the_kernel_source():
+    """The model above is the kernel's: the image and swizzle arithmetic,
+    the descriptors (K-major A 32 bytes a k16 step, MN-major B with LBO one
+    box and SBO 8 k rows, trans-b), the producer's walk and its boxes (64
+    columns by TE_BK k rows), the warpgroups' chunk
+    columns, the residual epilogues, the products' calls in a layer,
+    LayerNorm's order and the mean."""
+    flat = " ".join(_tc_source().split())
+    for line in (
+            "return (uint32_t)((c >> 6) * TE_BOX + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) "
+            "+ (c & 7) * 2);",
+            "Wgmma<DW>::template mma<1>(acc, kmajor_desc(ak + 32 * kk, 128), "
+            "mnmajor_desc(b + 2048 * kk, TE_BOX, 1024), (kt | kk) != 0);",
+            "const uint32_t ak = a + kt * TE_BOX, b = base + s * SLOT;",
+            "const int K = q == 3 ? FF : D;",
+            "const int nch = q == 0 ? 3 : q == 2 ? FF / D : 1;",
+            "for (int j = 0; j < nch; ++j) for (int k0 = 0; k0 < K; k0 += TE_BK) "
+            "for (int w = 0; w < 2; ++w, ++g) {",
+            "tma_load_2d(base + s * SLOT + h * TE_BOX, map, full + 8 * s, (2 * j + w) * DW + 64 * h, "
+            "l * K + k0);",
+            "const cuuint32_t box[2] = {64, TE_BK};",
+            "int g = wg;", "for (int kt = 0; kt < ktiles; ++kt, g += 2) {",
+            "const int c0 = wg * DW + 2 * t4;",
+            "const int r0 = 16 * warp + (lane >> 2);",
+            "res[4 * jj + 2 * hh] += acc[4 * jj + 2 * hh] + b.x;",
+            "product(base + XB, D / TE_BK, 3, bqkv, [&](int j, float (&acc)[NR], "
+            "float2 (&bv)[DW / 8]) { store_chunk(QB, false, j, acc, bv); });",
+            "product(base + XB, D / TE_BK, 1, bo, [&](int, float (&acc)[NR], float2 (&bv)[DW / 8]) "
+            "{ add_residual(acc, bv); });",
+            "product(base + XB, D / TE_BK, FF / D, b1, [&](int j, float (&acc)[NR], "
+            "float2 (&bv)[DW / 8]) { store_chunk(QB, true, j, acc, bv); });",
+            "product(base + QB, FF / TE_BK, 1, b2, [&](int, float (&acc)[NR], float2 (&bv)[DW / 8]) "
+            "{ add_residual(acc, bv); });",
+            "bv[jj] = ld_nc_f2(bias + (2 * j + wg) * DW + 2 * t4 + 8 * jj);",
+            "mu[hh] += res[4 * jj + 2 * hh] + res[4 * jj + 2 * hh + 1];",
+            "v[hh] += __shfl_xor_sync(0xffffffffu, v[hh], 1); "
+            "v[hh] += __shfl_xor_sync(0xffffffffu, v[hh], 2);",
+            "v[hh] = red[2 * pass * TE_ROWS + r0 + 8 * hh] + red[(2 * pass + 1) * TE_ROWS + r0 + 8 * hh];",
+            "var[hh] = fmaf(d, d, var[hh]);",
+            "rs[hh] = 1.0f / sqrtf(var[hh] / (float)D + 1e-5f);",
+            "sc[i] = c >= lo[hh] && c < hi[hh] ? sc[i] * scale : -INFINITY;",
+            "inv[hh] = sum[hh] > 0.0f ? 1.0f / sum[hh] : 0.0f;",
+            "Wgmma<64>::mma<0>(sc, kmajor_desc(qa + 32 * kk, 128), kmajor_desc(ka + 32 * kk, 128), "
+            "kk != 0);",
+            "Wgmma<64>::mma<1>(cx, kmajor_desc(pa + 32 * kk, 128), mnmajor_desc(va + 2048 * kk, "
+            "TE_BOX, 1024), kk != 0);",
+            "for (int t = 0; t < L; ++t) sum += xf[(s * L + t) * (D + 8) + c];",
+            "mbar_init(empty + 8 * s, 1);", "if ((tid & 127) == 0) mbar_arrive(empty + 8 * s);",
+            "const int row = 16 * ((threadIdx.x >> 5) & 3) + (lane & 7) + 8 * (q & 1);",
+            "img + sw_off(row, col + 8 * (jj + (q >> 1)))), \"r\"(pk[2 * jj]), \"r\"(pk[2 * jj + 1]), "
+            "\"r\"(pk[2 * jj + 2]), \"r\"(pk[2 * jj + 3])",
+            "store_pairs<DW / 8>(base + dst, (2 * j + wg) * DW, pk);",
+            "store_pairs<DW / 8>(base + XB, wg * DW, pk);", "store_pairs<8>(base + xb, 64 * h, pk);"):
+        assert line in flat, line
