@@ -43,8 +43,14 @@ dtype.
 - ``simt``: exact f32 FMAs (no TF32), fp32 always and the bf16 shapes ``tc``
   refuses: U = min(H, 32) units a CTA, clusters of 1, 2, 4 or 8 CTAs
   (H = 16, 32, 64, 128, 256); the forward tile holds 2 units a thread, or 1
-  where that does not fit (the LSTM at H = 256), the backward tile 8192 / H
-  rows, halved until it fits.
+  where that does not fit (the LSTM at H = 256). The backward recurrence is
+  a dataflow with no cluster barrier in the time loop, over two row halves
+  of its tile in turn, so that one half's partials travel while the other
+  half computes: a thread owns 8 units by RT rows of the partial (72 rows a
+  tile at H = 256, where 15 tiles a direction fill two waves of 15
+  clusters; ``simt_bwd_geometry``), stores each half's into the owners'
+  buffers by st.async, whose bytes complete on the owners' mbarriers, and
+  issues the next gate math's residual loads during the product.
 
 What neither takes raises ``ValueError`` with the reason; nothing falls back
 to the plain version. The products of both layers (the projection, dx and the
@@ -79,6 +85,13 @@ GEMM_TILE = 128  # GM_BM = GM_BN = WG_BM in csrc/rnn_train_gemm.cuh
 # gemm_simt_kernel's and wgemm_kernel's __launch_bounds__
 WGRAD_CTAS_PER_SM = 2
 GATES = {"gru": 3, "lstm": 4}  # NG, the gate count of each cell
+# The simt backward recurrence's rows a thread at H = 256 (K56_RT256 in
+# csrc/rnn_train_rec.cuh; R = 8 RT rows a tile): the least R whose tiles
+# fill the fewest waves at the train path's 1,024 rows, with 15 clusters of 8
+# CTAs resident at one CTA an SM (cudaOccupancyMaxActiveClusters on the
+# H100, ``bwd_rec_occupancy``): 15 tiles a direction, 30 clusters, 2 waves
+# (64 rows would take 3)
+SIMT_BWD_RT256 = 9
 _DESIGN_CODE = {"simt": 0, "tc": 1}
 
 launches_fwd = 0  # K4 calls since the caller last set it to 0
@@ -100,38 +113,95 @@ def build() -> str:
     return nvcc.build(SRC)[0]
 
 
+def bind(path: str):
+    """The library at ``path`` (a build of ``csrc/bigru_train.cu``, or of a
+    copy of it) with its C entries' argument types set."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (
+            ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p, i]),
+            ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
+            ("k5_rec_launch", [i, i] + [p] * 7 + [i] * 5 + [p, i]),
+            ("k5_rec_occupancy", [i] * 4 + [p] * 3 + [i]),
+            ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p, i]),
+            ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 6 + [p, i]),
+            ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p, p,
+                               ctypes.c_longlong, i, p, i])):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = args
+    return lib
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for name, args in (
-                    ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p, i]),
-                    ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
-                    ("k5_rec_launch", [i, i] + [p] * 7 + [i] * 5 + [p, i]),
-                    ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p, i]),
-                    ("k5_wgrad_launch", [i, i] + [p] * 5 + [i] * 6 + [p, i]),
-                    ("k5_sum_launch", [p, p, ctypes.c_longlong, i, p, p,
-                                       ctypes.c_longlong, i, p, i])):
-                fn = getattr(lib, name)
-                fn.restype = i
-                fn.argtypes = args
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 
 def k5_smem(design: str, H: int, U: int, R: int, ng: int = 3) -> int:
     """Shared memory of a backward recurrence CTA (``bwd_smem`` in
-    ``csrc/rnn_train_rec.cuh``), NG = ng gates: the partials 2 x CN x R x U
-    f32, dh R x U f32 (the LSTM keeps dc there), the W_hh slice (simt NG U x H
-    f32; tc H x (NG U + 8) bf16) and the step's gate-gradient operand (simt
-    R x (NG U + 1) f32; tc R x (NG U + 8) bf16)."""
+    ``csrc/rnn_train_rec.cuh``), NG = ng gates. simt: the W_hh slice NG U x H
+    f32, the partials received (CN x R x U f32), the gate-gradient operand of
+    one row half (R0 x (NG U + 4) f32; R0 = the first half's rows) and four
+    mbarriers. tc: the partials 2 x CN x R x U f32, dh R x U f32 (the LSTM
+    keeps dc there), the W_hh slice H x (NG U + 8) bf16 and the operand
+    R x (NG U + 8) bf16."""
     cn, ug = H // U, ng * U
-    tc = design == "tc"
-    w = H * (ug + 8) * 2 if tc else ug * H * 4
-    dg = R * (ug + 8) * 2 if tc else R * (ug + 1) * 4
-    return 2 * cn * R * U * 4 + R * U * 4 + w + dg
+    if design != "tc":
+        g = simt_bwd_geometry(H)
+        rt = R // g["NR"]
+        r0 = g["NR"] * ((rt + 1) // 2 if rt > 1 else rt)
+        return ug * H * 4 + cn * R * U * 4 + r0 * (ug + 4) * 4 + 32
+    return 2 * cn * R * U * 4 + R * U * 4 + H * (ug + 8) * 2 + R * (ug + 8) * 2
+
+
+def simt_bwd_geometry(H: int) -> dict:
+    """The simt backward recurrence's thread layout at H (16, 32, 64, 128 or
+    256; ``SimtBwdGeom`` in ``csrc/rnn_train_rec.cuh``): 256 threads, 8 warps
+    as NJW along the units by NRW along the rows; a warp's lanes JL unit
+    groups by 32 / JL row groups; a thread owns the partial of RT rows by 8
+    units, R = NR RT rows a tile. The tile runs as NH row halves (2 where
+    RT > 1), RT0 of a thread's rows and R0 = NR RT0 rows in the first; a
+    thread does the gate math of at most QM quads (4 units of a row) of a
+    half."""
+    U = min(H, 32)
+    jg = H // 8
+    jl = min(jg, 8)
+    njw = jg // jl
+    nrw = 8 // njw
+    nr = nrw * (32 // jl)
+    rt = SIMT_BWD_RT256 if H == 256 else H // U
+    nh = 2 if rt > 1 else 1
+    rt0 = (rt + 1) // 2 if nh == 2 else rt
+    rmax = nr * max(rt0, rt - rt0)
+    return {"U": U, "CN": H // U, "JL": jl, "NJW": njw, "NRW": nrw, "NR": nr, "RT": rt,
+            "R": nr * rt, "NH": nh, "RT0": rt0, "R0": nr * rt0, "QM": -(-rmax * U // 4 // 256)}
+
+
+def bwd_rec_waves(R: int, rows: int, clusters: int) -> int:
+    """Waves of the backward recurrence: its clusters (one a row tile of R
+    rows and direction) over the clusters the card holds at once."""
+    return -(-2 * -(-rows // R) // clusters)
+
+
+def bwd_rec_occupancy(plan: dict, compute_dtype, device: int = 0) -> dict:
+    """The backward recurrence of ``plan`` (either design) on compute_dtype
+    operands as the bound library launches it: {"clusters": how many the
+    card holds at once (cudaOccupancyMaxActiveClusters), "smem": its shared
+    memory a CTA, "rows": its rows a tile}. Launches nothing."""
+    H = plan["U"] * plan["CN"]
+    lib, fn = ((_load(), "k5_rec_occupancy") if plan["cell"] == "gru"
+               else (bilstm_vjp._load(), "k6_bwd_rec_occupancy"))
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(*_codes(plan, compute_dtype), H, plan["U"],
+                              *map(ctypes.byref, out), device)
+    if rc != 0:
+        raise RuntimeError("{} failed: cudaError {}".format(fn, rc))
+    return dict(zip(("clusters", "smem", "rows"), (v.value for v in out)))
 
 
 def _tc_plan(H: int, ng: int):
@@ -161,8 +231,9 @@ def simt_plan(H: int, ng: int):
     refuses H; K1's and K2's simt design (``bigru.k1_plan``) takes the same
     H, and runs this forward recurrence with this geometry on bf16
     operands. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
-    tile; UPT = 2, or 1 where that tile does not fit), a backward thread 4 rows
-    x 8 units of the partial (8192 / H rows a tile, halved until it fits)."""
+    tile; UPT = 2, or 1 where that tile does not fit); the backward's tile is
+    ``simt_bwd_geometry(H)``'s (72 rows at H = 256, where a thread owns 9
+    rows x 8 units of the partial; 64 or 128 below)."""
     U = min(H, 32)
     if U % 16 != 0 or H % U != 0:
         return "simt: H must be 16 or a multiple of 32 (H={})".format(H)
@@ -174,9 +245,7 @@ def simt_plan(H: int, ng: int):
         return (H * ng * U + 2 * H * rows) * 4
 
     rows_fwd = 2048 // U if smem_fwd(2048 // U) <= SMEM_LIMIT else 1024 // U
-    rows_bwd = 8192 // H
-    while rows_bwd > 4 and k5_smem("simt", H, U, rows_bwd, ng) > SMEM_LIMIT:
-        rows_bwd //= 2
+    rows_bwd = simt_bwd_geometry(H)["R"]
     smem = (smem_fwd(rows_fwd), k5_smem("simt", H, U, rows_bwd, ng))
     if max(smem) > SMEM_LIMIT:
         return "simt: {} bytes of shared memory a CTA".format(max(smem))

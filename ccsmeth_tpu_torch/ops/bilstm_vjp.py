@@ -73,18 +73,25 @@ def build() -> str:
     return nvcc.build(SRC)[0]
 
 
+def bind(path: str):
+    """The library at ``path`` (a build of ``csrc/bilstm_train.cu``, or of a
+    copy of it) with its C entries' argument types set."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
+                       ("k6_bwd_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p, i]),
+                       ("k6_bwd_rec_occupancy", [i] * 4 + [p] * 3 + [i])):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = args
+    return lib
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
-                               ("k6_bwd_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p, i])):
-                fn = getattr(lib, name)
-                fn.restype = i
-                fn.argtypes = args
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 

@@ -83,9 +83,11 @@
 //     tanhf): U = 32, clusters of 8 at H = 256. K4 (b): 64 rows a tile, a
 //     thread 4 rows x 2 units x 3 gates; W_hh slice [k][gate][u] f32
 //     (96 KB) and h double-buffered [k][row] f32 (2 x 64 KB): 229,376
-//     bytes a CTA. K5 (a): R = 8192 / H rows a tile (32 at H = 256), a
-//     thread 4 rows x 8 units of the partial; W_hh slice [k][j] f32 (96 KB),
-//     partials 2 x R x H f32 (64 KB), dhg [row][3U + 1] f32: 180,352 bytes.
+//     bytes a CTA. K5 (a): rnn_train_rec.cuh's simt backward, 72 rows a
+//     tile in two row halves, a thread 9 rows x 8 units of the partial;
+//     W_hh slice [k][j] f32 (96 KB), the partials received (72 KB) and a
+//     half's dhg operand (16 KB): 188,064 bytes, with no cluster barrier in
+//     the time loop.
 //   Rows >= N (the ragged last tile) read zeros, store nothing and add
 //   nothing to dW.
 //
@@ -157,8 +159,8 @@ int k4_rec_launch(int design, int dtype, const void* xg, const void* whh, const 
 
 // K5 (a): dxg and dhg (2, L N, 3H) from dout, out, gates and W_hh, f32
 // (simt) or bf16 (tc, with the row tiles' bias-gradient partials in bpart,
-// (tiles, 2, 2, 3H) f32); R rows a tile (tc: 32; simt: 8192 / H), clusters
-// of H / U CTAs.
+// (tiles, 2, 2, 3H) f32); R rows a tile (tc: 32; simt: bwd_simt_rows(H)),
+// clusters of H / U CTAs.
 int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
                   const void* gates, const void* whh, void* dxg, void* dhg, void* bpart,
                   int L, int N, int H, int U, int R, void* stream, int device) {
@@ -178,6 +180,16 @@ int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
   kp.U = U;
   kp.R = R;
   return bwd_rec_run<false>(design, dtype, kp, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of K5 (a)'s recurrence at design (0 = simt, 1 = tc),
+// dtype (0 = float32, 1 = bfloat16), H and U the card holds at once, into
+// *clusters, its shared memory a CTA into *smem_bytes and its rows a tile
+// into *rows. Launches nothing. Returns 0 or a cudaError_t value.
+int k5_rec_occupancy(int design, int dtype, int H, int U, int* clusters, int* smem_bytes,
+                     int* rows, int device) {
+  USE_DEVICE(device);
+  return bwd_rec_occupancy<false>(design, dtype, H, U, clusters, smem_bytes, rows);
 }
 
 // dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T: simt with dxg f32

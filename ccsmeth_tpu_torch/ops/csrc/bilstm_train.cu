@@ -43,8 +43,9 @@
 //         and dc: tc = tanh(c); dh_t = dout + dh; dc = dh_t o (1 - tc^2) + dc;
 //         da = [dc g i(1-i), dc c_prev f(1-f), dc i (1-g^2), dh_t tc o(1-o)];
 //         dc = dc f; dh = op(da) W_hh^T. dc is elementwise and stays with the
-//         thread that owns its (row, unit) (in the slot where the GRU keeps
-//         dt z); dh is reduce-scattered across the cluster in rank order.
+//         thread that owns its (row, unit) (simt: in its registers, where
+//         the GRU keeps dt z; tc: in shared memory); dh is reduce-scattered
+//         across the cluster in rank order.
 //         c_prev is the stored c one step earlier in the direction's own time
 //         (zero at its first step). One gate-gradient matrix da (2, L N, 4H),
 //         where the GRU has two: f32 in simt, bf16 in tc (the products'
@@ -61,7 +62,10 @@
 //   x (H + 8) x 2 = 202,752 bytes, backward 225,792; simt U = 32, clusters of
 //   8: forward 32 rows a tile, a thread 4 rows x 1 unit x 4 gates (a 64-row
 //   tile of 2 units would need 262,144 bytes), W_hh slice 131,072 + h
-//   2 x 32 KB = 196,608 bytes; backward 32 rows, 217,216 bytes.
+//   2 x 32 KB = 196,608 bytes; backward 72 rows a tile in two row halves,
+//   W_hh slice 131,072 + the partials received 73,728 + a half's operand
+//   21,120 + the barriers = 225,952 bytes (rnn_train_rec.cuh's simt
+//   backward).
 //
 // Numerics: gate math and every sum in f32. With bf16 operands, x, the
 //   weights, dout and the residuals (out, c, gates) are bf16 values (as on the
@@ -103,8 +107,7 @@ int k6_rec_launch(int design, int dtype, const void* xg, const void* whh, void* 
 
 // K6 backward (a): da (2, L N, 4H) from dout, c, gates and W_hh, f32
 // (simt) or bf16 (tc, with the row tiles' bias-gradient partials in bpart,
-// (tiles, 1, 2, 4H) f32); R rows a tile (tc: 32; simt: 8192 / H or a
-// divisor of it).
+// (tiles, 1, 2, 4H) f32); R rows a tile (tc: 32; simt: bwd_simt_rows(H)).
 int k6_bwd_rec_launch(int design, int dtype, const void* dout, const void* cseq,
                       const void* gates, const void* whh, void* da, void* bpart, int L, int N,
                       int H, int U, int R, void* stream, int device) {
@@ -124,6 +127,16 @@ int k6_bwd_rec_launch(int design, int dtype, const void* dout, const void* cseq,
   kp.U = U;
   kp.R = R;
   return bwd_rec_run<true>(design, dtype, kp, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of K6 backward (a)'s recurrence at design (0 = simt, 1 = tc),
+// dtype (0 = float32, 1 = bfloat16), H and U the card holds at once, into
+// *clusters, its shared memory a CTA into *smem_bytes and its rows a tile
+// into *rows. Launches nothing. Returns 0 or a cudaError_t value.
+int k6_bwd_rec_occupancy(int design, int dtype, int H, int U, int* clusters, int* smem_bytes,
+                         int* rows, int device) {
+  USE_DEVICE(device);
+  return bwd_rec_occupancy<true>(design, dtype, H, U, clusters, smem_bytes, rows);
 }
 
 }  // extern "C"

@@ -17,21 +17,21 @@
 //     n, hg_n; LSTM i, f, g, o and c) and sends its new h, rounded to the
 //     operand type, to every CTA of the cluster (distributed shared memory,
 //     one cluster barrier a step).
-//   backward (bwd_rec_kernel): both directions at once over reversed time,
-//     carrying dh (and the LSTM's dc). Per step the gate gradients of a
-//     (row, unit) from the residuals go to device memory for the products
-//     (simt: f32 scratch, whose column sums the simt products take beside
-//     the weight gradients; tc: bf16 copies, rounded to nearest even, that
-//     TMA feeds to wgmma, while each thread sums its f32 values for the bias
-//     gradients over its rows and steps in order, and the CTA writes its
-//     tile's partial sums, added in tile order by gemm_sum_slices) and,
-//     rounded to the operand type, to shared memory as the operand of
-//     dh = op(dg) W_hh^T. That contraction runs over NG H, so CTA
-//     c multiplies its own NG U gate columns by its W_hh rows into a partial
-//     dh for all H units and sends each CTA the U columns it owns; the owner
-//     adds the CN partials in rank order (a reduce-scatter, deterministic).
-//     The GRU keeps dt z (its carry term) in the dh slot; the LSTM's dh has no
-//     carry term, and the slot holds dc, which never leaves its owner.
+//   backward (bwd_rec_simt_kernel, bwd_rec_tc_kernel): both directions at
+//     once over reversed time, carrying dh (and the LSTM's dc). Per step the
+//     gate gradients of a (row, unit) from the residuals go to device memory
+//     for the products (simt: f32 scratch, whose column sums the simt
+//     products take beside the weight gradients; tc: bf16 copies, rounded to
+//     nearest even, that TMA feeds to wgmma, while each thread sums its f32
+//     values for the bias gradients over its rows and steps in order, and the
+//     CTA writes its tile's partial sums, added in tile order by
+//     gemm_sum_slices) and, rounded to the operand type, to shared memory as
+//     the operand of dh = op(dg) W_hh^T. That contraction runs over NG H, so
+//     CTA c multiplies its own NG U gate columns by its W_hh rows into a
+//     partial dh for all H units and sends each CTA the U columns it owns;
+//     the owner adds the CN partials in rank order (a reduce-scatter,
+//     deterministic). The GRU's carry term is dt z; the LSTM's dh has none,
+//     and it carries dc, which never leaves its owner.
 //   Rows >= N (the ragged last tile) read zeros and store nothing.
 //
 // Routes (ops/bigru_vjp.py::k45_plan picks one per call, for either cell):
@@ -39,14 +39,39 @@
 //     thread owns 4 rows x UPT units of every gate, R = 1024 UPT / U rows a
 //     tile (UPT = 2 where the tile fits in shared memory, else 1: the LSTM at
 //     H = 256); W_hh slice [k][gate][u] f32, h double-buffered [k][row] f32.
-//     Backward: a thread owns 4 rows x 8 units of the partial; R rows a tile,
-//     8192 / H or fewer where that does not fit (threads past R idle).
+//     Backward (bwd_rec_simt_kernel): a dataflow with no cluster barrier in
+//     the time loop (the protocol above the kernel), over the two row
+//     halves of its tile in turn, so that one half's partials travel while
+//     the other half computes. Geometry (SimtBwdGeom): 256 threads; a
+//     thread owns the partial of RT rows x 8 units and the gate math of up
+//     to QM quads (4 units of a row) of each half, keeping their carries
+//     and the next gate math's residuals in registers (16-byte loads issued
+//     between the product's k ranges, landing while it runs). At H = 256 (clusters
+//     of 8, U = 32) R = 72 rows a tile, halves of 40 and 32: 15 tiles a
+//     direction at the train path's 1,024 rows, 30 clusters, two full waves
+//     of the 15 clusters of 8 that the H100 holds at one CTA an SM
+//     (cudaOccupancyMaxActiveClusters; 64 rows would take 3 waves, the
+//     parent's 32 took 4.6, and the LSTM's CTA of 80 rows does not fit).
+//     Shared memory: the W_hh slice [NG U][H] f32 (131,072 bytes for the
+//     LSTM, 98,304 for the GRU), the partials received [half][CN][rows][U]
+//     f32 (73,728) and one half's operand [40][NG U + 4] f32 (21,120 /
+//     16,000): 225,952 / 188,064 bytes a CTA. The product reads the operand
+//     as 16-byte rows of 4 k and W_hh as 16-byte runs of 4 units, a warp's
+//     lanes 8 unit groups x 4 rows (conflict-free); each partial is one
+//     fmaf chain over k ascending from 0.0f; the partials reach their
+//     owners by 16-byte st.async stores whose bytes complete on the owner's
+//     mbarrier (R H x 7/8 x 4 bytes out of each CTA a step). What bounds
+//     it: the product, 2 NG U H FLOPs a row and step for a CTA's 128 FMA
+//     lanes, then the chain of L steps, each with its gate math, barriers
+//     and waits.
 //   tc (bf16): mma.sync.m16n8k16 with f32 sums, fragments by ldmatrix
 //     (mma_tile.cuh). Forward: a cluster recurrence with the residual
 //     stores, 64 rows a tile, W_hh gate-interleaved so a thread's
-//     accumulators hold every gate of its units. Backward: 32 rows a tile,
-//     W_hh staged [unit j][own gate column k] and dg [row][k], both
-//     k-contiguous bf16, each warp one 16-row tile by H / 4 units.
+//     accumulators hold every gate of its units. Backward
+//     (bwd_rec_tc_kernel): 32 rows a tile, W_hh staged [unit j][own gate
+//     column k] and dg [row][k], both k-contiguous bf16, each warp one
+//     16-row tile by H / 4 units, the partials double-buffered and sent by
+//     8-byte remote stores, one cluster barrier a step.
 //
 // Numerics: gate math and every sum in f32. With bf16 operands the weights,
 //   dout and the residuals are bf16 values (as on the TPU); the h operand and
@@ -489,11 +514,57 @@ struct BwdRecParams {
   int L, N, H, U, R;  // U units a CTA, R rows a tile
 };
 
-// Shared memory of a backward recurrence CTA, in bytes, with the offsets of
-// its parts: the partials [2][CN][R][U] f32, dh_s [R][U] f32 (GRU: dt z;
-// LSTM: dc), the W_hh slice (simt [NG U][H] f32; tc [H][NG U + 8] bf16) and
-// the step's gate-gradient operand (simt [R][NG U + 1] f32; tc
-// [R][NG U + 8] bf16).
+// The simt backward's geometry at hidden width H: U = min(H, 32) units a
+// CTA, clusters of CN = H / U; 256 threads, 8 warps as NJW along the units
+// by NRW along the rows, a warp's lanes JL unit groups by 32 / JL row
+// groups; a thread owns the partial of RT rows (row group rg, rg + NR, ...)
+// by 8 units (4 jg .. +3 and H / 2 + 4 jg .. +3), R = NR RT rows a tile.
+// The tile runs as NH = 2 row halves where a thread has more than one row
+// (RT0 = ceil(RT / 2) of its rows in the first, R0 = NR RT0 rows), else as
+// one. RT = CN below H = 256, where K56_RT256 sets it (a copy of this source
+// may define it: chip_smoke.py's k56_bwd_simt_sweep).
+#ifndef K56_RT256
+#define K56_RT256 9
+#endif
+
+__host__ __device__ constexpr int simt_bwd_nr(int H) {
+  return (8 / ((H / 8) / (H / 8 < 8 ? H / 8 : 8))) * (32 / (H / 8 < 8 ? H / 8 : 8));
+}
+
+template <int H>
+struct SimtBwdGeom {
+  static constexpr int U = H < 32 ? H : 32;
+  static constexpr int CN = H / U;
+  static constexpr int JG = H / 8;            // unit groups of 4 + 4 units
+  static constexpr int JL = JG < 8 ? JG : 8;  // unit groups along a warp's lanes
+  static constexpr int NJW = JG / JL;         // warps along the units
+  static constexpr int NRW = 8 / NJW;         // warps along the rows
+  static constexpr int NR = NRW * (32 / JL);  // row groups
+  static constexpr int RT = H == 256 ? K56_RT256 : CN;
+  static constexpr int R = NR * RT;
+  static constexpr int NH = RT > 1 ? 2 : 1;             // row halves
+  static constexpr int RT0 = NH == 2 ? (RT + 1) / 2 : RT;  // a thread's rows in the first
+};
+
+// The rows of a simt backward tile at H (0 where the design has no
+// instantiation).
+static int bwd_simt_rows(int H) {
+  switch (H) {
+    case 16: return SimtBwdGeom<16>::R;
+    case 32: return SimtBwdGeom<32>::R;
+    case 64: return SimtBwdGeom<64>::R;
+    case 128: return SimtBwdGeom<128>::R;
+    case 256: return SimtBwdGeom<256>::R;
+    default: return 0;
+  }
+}
+
+// Shared memory of a backward recurrence CTA, in bytes. simt: the W_hh
+// slice [NG U][H] f32; the partials received, [half][CN][rows of the
+// half][U] f32; the operand of the half being multiplied, [R0][NG U + 4]
+// f32; the `full` and `empty` barriers of each half. tc: the partials
+// [2][CN][R][U] f32, dh_s [R][U] f32 (GRU: dt z; LSTM: dc), the W_hh slice
+// [H][NG U + 8] bf16 and the operand [R][NG U + 8] bf16.
 struct BwdSmem {
   size_t recv, dh, w, dg, total;
 };
@@ -501,26 +572,105 @@ struct BwdSmem {
 __host__ __device__ inline BwdSmem bwd_smem(bool tc, int NG, int H, int U, int R) {
   const int cn = H / U, UG = NG * U;
   BwdSmem m;
+  if (!tc) {
+    const int nr = simt_bwd_nr(H), rt = R / nr, rt0 = rt > 1 ? (rt + 1) / 2 : rt;
+    m.w = 0;
+    m.recv = m.w + (size_t)UG * H * 4;
+    m.dg = m.recv + (size_t)cn * R * U * 4;
+    m.dh = m.dg + (size_t)nr * rt0 * (UG + 4) * 4;  // the barriers
+    m.total = m.dh + 32;
+    return m;
+  }
   m.recv = 0;
   m.dh = m.recv + (size_t)2 * cn * R * U * 4;
   m.w = m.dh + (size_t)R * U * 4;
-  m.dg = m.w + (tc ? (size_t)H * (UG + 8) * 2 : (size_t)UG * H * 4);
-  m.total = m.dg + (tc ? (size_t)R * (UG + 8) * 2 : (size_t)R * (UG + 1) * 4);
+  m.dg = m.w + (size_t)H * (UG + 8) * 2;
+  m.total = m.dg + (size_t)R * (UG + 8) * 2;
   return m;
 }
 
-// NT: the tc route's n8 tiles a warp (H / 32); unused by simt
-template <typename T, bool TC, int NT, bool LSTM>
-__global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecParams p) {
+// element e of a float4
+__device__ __forceinline__ float f4_at(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// four residuals of consecutive units from device memory into registers
+// (read-only path, 16 bytes for f32, 8 for bf16); the loads of a half are
+// issued during the other half's product and land while it runs
+__device__ __forceinline__ float4 ld_res4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_res4(const bf16* p) {
+  uint32_t a, b;
+  asm volatile("ld.global.nc.v2.b32 {%0, %1}, [%2];\n" : "=r"(a), "=r"(b) : "l"(p));
+  return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
+                     __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
+}
+
+// simt (exact f32 FMAs): the dataflow backward recurrence. A step of CTA c
+// runs each row half h of its tile in turn (rows [h R0, ...)):
+//   1. thread 0 waits on the half's `full` barrier for the peers' partials of
+//      the last step and arms its next phase with the bytes to come; a CTA
+//      barrier passes that on;
+//   2. the gate math of the half's quads (4 consecutive units of a row:
+//      quad g = tid + 256 j, row g / (U / 4)): dh = the carry (GRU: dt z;
+//      LSTM: none) + the CN partials in rank order, the gate gradients to
+//      device memory, the carry (GRU: dt z; LSTM: dc f) in registers; the
+//      operand op(dg), [row][own gate column k], into the operand buffer
+//      that the halves share; past a barrier it tells every peer on the
+//      peer's `empty` barrier of the half that its slot is free again;
+//   3. the product of the half's rows by its W_hh slice, a partial dh for
+//      all H units: each partial one fmaf chain over k ascending from
+//      0.0f; between its k ranges each thread issues the loads of the
+//      residuals that the next gate math reads (the other half's, or the
+//      next step's), which land while the product runs;
+//   4. thread 0 waits on the half's `empty` barrier for every peer to have
+//      read the last step's partials from its slot, a CTA barrier passes
+//      that on, and each thread stores its partial into each owner's slot
+//      [c][row][u] of the half: st.async into a peer, whose 16 bytes
+//      complete on the peer's `full` barrier, a plain store into its own.
+// A half's stores fly while the other half computes, no thread waits on its
+// stores, and no cluster barrier sits in the time loop. `full` of a half
+// completes once a step (phase s: the peers' bytes of step s, waited for at
+// step s + 1; its own partials reach the gate math through the CTA's
+// barriers); `empty` once a step from step 1 (phase s - 1: every peer has
+// read step s - 1's partials, waited for before step s's stores). Neither
+// runs a phase ahead: a peer stores step s + 1's partials only after its
+// wait on `empty` phase s, which needs this CTA's signal of step s + 1,
+// made after its own wait on `full` phase s; and it signals `empty` for
+// step s + 1 only after its wait on `full` phase s, which needs this CTA's
+// stores of step s, made after its own wait on `empty` phase s - 1.
+template <typename T, bool LSTM, int H>
+__global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_simt_kernel(const BwdRecParams p) {
+  using Gm = SimtBwdGeom<H>;
   constexpr int NG = LSTM ? 4 : 3;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int H = p.H, G = NG * H, L = p.L, N = p.N, U = p.U, R = p.R, UG = NG * U;
-  const BwdSmem m = bwd_smem(TC, NG, H, U, R);
-  float* recv = reinterpret_cast<float*>(smem_raw + m.recv);
-  float* dh_s = reinterpret_cast<float*>(smem_raw + m.dh);
-  const uint32_t crank = cluster_ctarank(), cn = cluster_nctarank();
+  constexpr int U = Gm::U, CN = Gm::CN, UG = NG * U, DS = UG + 4, G = NG * H;
+  constexpr int R = Gm::R, RT = Gm::RT, NR = Gm::NR, JL = Gm::JL, NJW = Gm::NJW;
+  constexpr int NH = Gm::NH, RT0 = Gm::RT0, R0 = NR * RT0;
+  constexpr int UQ = U / 4;  // quads a row
+  constexpr int QM = ((R0 > R - R0 || NH == 1 ? R0 : R - R0) * UQ + REC_THREADS - 1) /
+                     REC_THREADS;  // quads of a half a thread, at most
+  constexpr int NV = LSTM ? 7 : 6;  // residuals a unit
+  constexpr int KG = UG / 4;        // 4-deep k groups of the product
+  static_assert(Gm::NJW * Gm::NRW == REC_THREADS / 32 && UG % 4 == 0 && KG >= QM &&
+                    (CN == 1 || H / 2 % U == 0),
+                "thread layout");
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                // [UG][H]: W_hh[j][gate H + u0 + u] at k = gate U + u
+  float* recv = ws + UG * H;       // [half][CN][rows of the half][U]: the partials
+  float* opb = recv + CN * R * U;  // [R0][DS]: the operand of the half
+  const BwdSmem m = bwd_smem(false, NG, H, U, R);
+  const uint32_t bar0 = smem_u32(smem) + (uint32_t)m.dh;
+  const uint32_t full_bar[2] = {bar0, bar0 + 8}, empty_bar[2] = {bar0 + 16, bar0 + 24};
+  const int L = p.L, N = p.N;
+  const uint32_t crank = cluster_ctarank();
   const int d = blockIdx.y;
-  const int row0 = (blockIdx.x / cn) * R;
+  const int row0 = (blockIdx.x / CN) * R;
   const int u0 = crank * U;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const T* W = static_cast<const T*>(p.whh) + (size_t)d * H * G;
@@ -528,38 +678,294 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
   const T* out = static_cast<const T*>(p.out);
   const T* gates = static_cast<const T*>(p.gates);
   const T* cseq = static_cast<const T*>(p.cseq);
-  typedef typename std::conditional<TC, bf16, float>::type GT;  // the gate gradients' type
-  GT* dxg = static_cast<GT*>(p.dxg) + (size_t)d * L * N * G;
-  GT* dhg = LSTM ? nullptr : static_cast<GT*>(p.dhg) + (size_t)d * L * N * G;
-  // tc: this thread's share of the bias gradients: its unit u = tid % U
+  float* dxg = static_cast<float*>(p.dxg) + (size_t)d * L * N * G;
+  float* dhg = LSTM ? nullptr : static_cast<float*>(p.dhg) + (size_t)d * L * N * G;
+
+  // stage this CTA's W_hh rows: W_hh[j][gate H + u0 + u] for its own gate
+  // columns k = gate U + u, [k][j]
+  for (int i = tid; i < H * (UG / 4); i += REC_THREADS) {
+    const int j = i % H, k4 = (i / H) * 4;
+    const int gate = k4 / U, u = k4 % U;
+    float v[4];
+    Op<T>::load4(W + (size_t)j * G + gate * H + u0 + u, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ws[(k4 + e) * H + j] = v[e];
+  }
+  if (tid == 0 && CN > 1) {
+    for (int h = 0; h < NH; ++h) {
+      mbar_init(full_bar[h], 1);
+      mbar_init(empty_bar[h], CN - 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // phase 0: the peers' partials of step 0
+    for (int h = 0; h < NH; ++h)
+      if (L > 1) mbar_expect_tx(full_bar[h], (CN - 1) * (h ? R - R0 : R0) * U * 4);
+  }
+
+  // the product's tile: rows rg + i NR, units jo[0] .. +3 and jo[1] .. +3
+  const int jg = (warp % NJW) * JL + lane % JL;
+  const int rg = (warp / NJW) * (32 / JL) + lane / JL;
+  const int jo[2] = {4 * jg, H / 2 + 4 * jg};
+
+  // the residuals of the half that the next gate math reads, by quad: GRU
+  // r, z, n, hg_n, dout, h_prev; LSTM i, f, g, o, dout, c, c_prev; zeros
+  // past N and before the direction's first step
+  float4 v[QM][NV];
+  auto load_quad = [&](int s, int h, int j) {
+    const int g = tid + REC_THREADS * j;
+    const int t = d == 0 ? L - 1 - s : s;
+    const bool has_prev = d == 0 ? t > 0 : t < L - 1;
+    const int tp = d == 0 ? t - 1 : t + 1;
+    const int row = row0 + h * R0 + g / UQ, unit = u0 + 4 * (g % UQ);
+    const float4 z4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int e = 0; e < NV; ++e) v[j][e] = z4;
+    if (g < (h ? R - R0 : R0) * UQ && row < N) {
+      const T* gt = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
+      v[j][0] = ld_res4(gt);
+      v[j][1] = ld_res4(gt + H);
+      v[j][2] = ld_res4(gt + 2 * H);
+      v[j][3] = ld_res4(gt + 3 * H);
+      v[j][4] = ld_res4(dout + ((size_t)t * N + row) * 2 * H + d * H + unit);
+      if constexpr (LSTM) {
+        v[j][5] = ld_res4(cseq + (((size_t)d * L + t) * N + row) * H + unit);
+        if (has_prev) v[j][6] = ld_res4(cseq + (((size_t)d * L + tp) * N + row) * H + unit);
+      } else {
+        if (has_prev) v[j][5] = ld_res4(out + ((size_t)tp * N + row) * 2 * H + d * H + unit);
+      }
+    }
+  };
+
+  float carry[NH][QM][4];  // GRU: dt z; LSTM: dc f; of the last step, f32
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int j = 0; j < QM; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) carry[h][j][e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < QM; ++j) load_quad(0, 0, j);
+  cluster_sync_all();  // every CTA of the cluster has staged W and set up its barriers
+
+  for (int s = 0; s < L; ++s) {
+    // direction-local time runs backwards: L-1 .. 0
+    const int t = d == 0 ? L - 1 - s : s;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int rh = (h ? RT - RT0 : RT0) * NR;  // the half's rows
+      const int ni = h ? RT - RT0 : RT0;         // and a thread's of them
+      float* rcv = recv + h * CN * R0 * U;       // its partials
+      // the residuals that the gate math after this half's reads
+      const int hn = h + 1 < NH ? h + 1 : 0, sn = h + 1 < NH ? s : s + 1;
+      // 1) every partial of the half's last step is here
+      if (s > 0) {
+        if (CN > 1 && tid == 0) {
+          mbar_wait(full_bar[h], (s - 1) & 1);
+          if (s + 1 < L) mbar_expect_tx(full_bar[h], (CN - 1) * rh * U * 4);
+        }
+        __syncthreads();
+      }
+
+      // 2) the gate gradients of the half's quads
+      float og4[QM][NG][4];  // the operand of each quad's own gate columns
+#pragma unroll
+      for (int j = 0; j < QM; ++j) {
+        const int g = tid + REC_THREADS * j;
+        if (g >= rh * UQ) break;
+        const int rl = g / UQ, u = 4 * (g % UQ), row = row0 + h * R0 + rl;
+        float4 part[CN];  // the partials of ranks 0 .. CN-1
+        if (s > 0) {
+#pragma unroll
+          for (int c = 0; c < CN; ++c)
+            part[c] = *reinterpret_cast<const float4*>(rcv + (c * rh + rl) * U + u);
+        }
+        float dx4[4][4], dh4[4][4];  // [gate][unit]: the columns of dxg and the operand
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float dh = 0.0f;
+          if (s > 0) {
+            if constexpr (!LSTM) dh = carry[h][j][e];
+#pragma unroll
+            for (int c = 0; c < CN; ++c) dh += f4_at(part[c], e);
+          }
+          const float dt = f4_at(v[j][4], e) + dh;
+          if constexpr (LSTM) {
+            const float ig = f4_at(v[j][0], e), fg = f4_at(v[j][1], e);
+            const float gg = f4_at(v[j][2], e), og = f4_at(v[j][3], e);
+            const float tc = tanhf(f4_at(v[j][5], e));
+            const float dc = dt * og * (1.0f - tc * tc) + carry[h][j][e];
+            dx4[0][e] = dc * gg * ig * (1.0f - ig);
+            dx4[1][e] = dc * f4_at(v[j][6], e) * fg * (1.0f - fg);
+            dx4[2][e] = dc * ig * (1.0f - gg * gg);
+            dx4[3][e] = dt * tc * og * (1.0f - og);
+            carry[h][j][e] = __fmul_rn(dc, fg);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) dh4[k][e] = dx4[k][e];
+          } else {
+            const float rg_ = f4_at(v[j][0], e), zg = f4_at(v[j][1], e);
+            const float ng = f4_at(v[j][2], e), hgn = f4_at(v[j][3], e);
+            const float dz = dt * (f4_at(v[j][5], e) - ng) * zg * (1.0f - zg);
+            const float dn = dt * (1.0f - zg) * (1.0f - ng * ng);
+            const float dr = dn * hgn * rg_ * (1.0f - rg_);
+            dx4[0][e] = dh4[0][e] = dr;
+            dx4[1][e] = dh4[1][e] = dz;
+            dx4[2][e] = dn;
+            dh4[2][e] = dn * rg_;
+            carry[h][j][e] = __fmul_rn(dt, zg);
+          }
+        }
+        if (row < N) {
+          const size_t o = ((size_t)t * N + row) * G + u0 + u;
+#pragma unroll
+          for (int k = 0; k < NG; ++k)
+            *reinterpret_cast<float4*>(dxg + o + k * H) =
+                make_float4(dx4[k][0], dx4[k][1], dx4[k][2], dx4[k][3]);
+          if constexpr (!LSTM) {
+#pragma unroll
+            for (int k = 0; k < NG; ++k)
+              *reinterpret_cast<float4*>(dhg + o + k * H) =
+                  make_float4(dh4[k][0], dh4[k][1], dh4[k][2], dh4[k][3]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < NG; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) og4[j][k][e] = Op<T>::operand(dh4[k][e]);
+      }
+      if (s + 1 == L) {  // dh of the direction's first step is not needed
+        if (h + 1 < NH) {
+#pragma unroll
+          for (int j = 0; j < QM; ++j) load_quad(s, hn, j);
+        }
+        continue;
+      }
+      // the other half's product has read the operand buffer (past step
+      // 0, the barrier after the wait above says so)
+      if (s == 0 && h > 0) __syncthreads();
+#pragma unroll
+      for (int j = 0; j < QM; ++j) {
+        const int g = tid + REC_THREADS * j;
+        if (g >= rh * UQ) break;
+#pragma unroll
+        for (int k = 0; k < NG; ++k)
+          *reinterpret_cast<float4*>(opb + (g / UQ) * DS + k * U + 4 * (g % UQ)) =
+              make_float4(og4[j][k][0], og4[j][k][1], og4[j][k][2], og4[j][k][3]);
+      }
+      __syncthreads();  // the operand is complete and the half's partials are read
+      if (CN > 1 && s > 0 && tid < CN && tid != (int)crank) mbar_arrive_remote(empty_bar[h], tid);
+
+      // 3) the half's partial dh of this CTA's gate columns, for all H
+      // units; the residuals of the next gate math, one quad before each of
+      // QM k ranges
+      float acc[RT0][8];
+#pragma unroll
+      for (int i = 0; i < RT0; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < QM; ++j) {
+        load_quad(sn, hn, j);
+#pragma unroll 4
+        for (int kg = j * KG / QM; kg < (j + 1) * KG / QM; ++kg) {
+          const int k = 4 * kg;
+          float4 w[4][2];
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              w[kk][e] = *reinterpret_cast<const float4*>(ws + (k + kk) * H + jo[e]);
+#pragma unroll
+          for (int i = 0; i < RT0; ++i) {
+            if (i >= ni) break;
+            const float4 av = *reinterpret_cast<const float4*>(opb + (rg + i * NR) * DS + k);
+            const float a[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                acc[i][4 * e + 0] = fmaf(a[kk], w[kk][e].x, acc[i][4 * e + 0]);
+                acc[i][4 * e + 1] = fmaf(a[kk], w[kk][e].y, acc[i][4 * e + 1]);
+                acc[i][4 * e + 2] = fmaf(a[kk], w[kk][e].z, acc[i][4 * e + 2]);
+                acc[i][4 * e + 3] = fmaf(a[kk], w[kk][e].w, acc[i][4 * e + 3]);
+              }
+          }
+        }
+      }
+
+      // 4) every peer has read the half's last partials from its slot of
+      // this CTA: the half's partials to the CTA that owns each unit, slot
+      // [crank][row][u]
+      if (CN > 1 && s > 0) {
+        if (tid == 0) mbar_wait(empty_bar[h], (s - 1) & 1);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t own = (uint32_t)(jo[e] / U);
+        const int ju = jo[e] % U;
+#pragma unroll
+        for (int i = 0; i < RT0; ++i) {
+          if (i >= ni) break;
+          const uint32_t la = smem_u32(rcv + (crank * rh + rg + i * NR) * U + ju);
+          const uint4 val = make_uint4(__float_as_uint(acc[i][4 * e]),
+                                       __float_as_uint(acc[i][4 * e + 1]),
+                                       __float_as_uint(acc[i][4 * e + 2]),
+                                       __float_as_uint(acc[i][4 * e + 3]));
+          if (own == crank)
+            st_shared_v4(la, val);
+          else
+            st_async_v4(la, full_bar[h], own, val);
+        }
+      }
+    }
+  }
+  cluster_sync_all();  // no CTA leaves while a peer may still reach its shared memory
+}
+
+// tc (bf16): the mma.sync backward recurrence. Per step the gate gradients
+// of a (row, unit) pair from the residuals go to device memory as bf16
+// copies, each thread sums its f32 values for the bias gradients, and the
+// rounded values form the operand [row][own gate column k] of the partial
+// dh; each warp one 16-row tile by H / 4 units; the partials reach their
+// owners by 8-byte remote stores, one cluster barrier a step. NT: n8 tiles
+// a warp (H / 32).
+template <int NT, bool LSTM>
+__global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_tc_kernel(const BwdRecParams p) {
+  constexpr int NG = LSTM ? 4 : 3;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = p.H, G = NG * H, L = p.L, N = p.N, U = p.U, R = p.R, UG = NG * U;
+  const BwdSmem m = bwd_smem(true, NG, H, U, R);
+  float* recv = reinterpret_cast<float*>(smem_raw + m.recv);
+  float* dh_s = reinterpret_cast<float*>(smem_raw + m.dh);
+  const uint32_t crank = cluster_ctarank(), cn = cluster_nctarank();
+  const int d = blockIdx.y;
+  const int row0 = (blockIdx.x / cn) * R;
+  const int u0 = crank * U;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* W = static_cast<const bf16*>(p.whh) + (size_t)d * H * G;
+  const bf16* dout = static_cast<const bf16*>(p.dout);
+  const bf16* out = static_cast<const bf16*>(p.out);
+  const bf16* gates = static_cast<const bf16*>(p.gates);
+  const bf16* cseq = static_cast<const bf16*>(p.cseq);
+  bf16* dxg = static_cast<bf16*>(p.dxg) + (size_t)d * L * N * G;
+  bf16* dhg = LSTM ? nullptr : static_cast<bf16*>(p.dhg) + (size_t)d * L * N * G;
+  // this thread's share of the bias gradients: its unit u = tid % U
   // (REC_THREADS % U == 0), its rows, every step in order; dxg's NG columns,
   // then the GRU's dhg's
   constexpr int NS = LSTM ? 4 : 6;
   float csum[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) csum[k] = 0.0f;
-  const int DS = TC ? UG + 8 : UG + 1;  // row stride of the gate-gradient operand
+  const int DS = UG + 8;  // row stride of the gate-gradient operand
 
   // stage this CTA's W_hh rows: W_hh[j][gate H + u0 + u] for its own gate
   // columns k = gate U + u
-  if constexpr (TC) {
-    bf16* wb = reinterpret_cast<bf16*>(smem_raw + m.w);  // [H][DS]
-    for (int i = tid; i < H * (UG / 8); i += REC_THREADS) {
-      const int j = i / (UG / 8), k8 = (i % (UG / 8)) * 8;
-      const int gate = k8 / U, u = k8 % U;
-      *reinterpret_cast<uint4*>(wb + j * DS + k8) = __ldg(reinterpret_cast<const uint4*>(
-          W + (size_t)j * G + gate * H + u0 + u));
-    }
-  } else {
-    float* ws = reinterpret_cast<float*>(smem_raw + m.w);  // [NG U][H]
-    for (int i = tid; i < H * (UG / 4); i += REC_THREADS) {
-      const int j = i % H, k4 = (i / H) * 4;
-      const int gate = k4 / U, u = k4 % U;
-      float v[4];
-      Op<T>::load4(W + (size_t)j * G + gate * H + u0 + u, v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ws[(k4 + e) * H + j] = v[e];
-    }
+  bf16* wb = reinterpret_cast<bf16*>(smem_raw + m.w);  // [H][DS]
+  for (int i = tid; i < H * (UG / 8); i += REC_THREADS) {
+    const int j = i / (UG / 8), k8 = (i % (UG / 8)) * 8;
+    const int gate = k8 / U, u = k8 % U;
+    *reinterpret_cast<uint4*>(wb + j * DS + k8) = __ldg(reinterpret_cast<const uint4*>(
+        W + (size_t)j * G + gate * H + u0 + u));
   }
   cluster_sync_all();  // every CTA of the cluster is running and has staged W
 
@@ -584,19 +990,19 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
         for (int e = 0; e < NV; ++e) v[b][e] = 0.0f;
         if (q < R * U && row < N) {
           const int unit = u0 + q % U;
-          const T* gt = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
-          v[b][0] = Op<T>::to_f(gt[0]);
-          v[b][1] = Op<T>::to_f(gt[H]);
-          v[b][2] = Op<T>::to_f(gt[2 * H]);
-          v[b][3] = Op<T>::to_f(gt[3 * H]);
-          v[b][4] = Op<T>::to_f(dout[((size_t)t * N + row) * 2 * H + d * H + unit]);
+          const bf16* gt = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
+          v[b][0] = Op<bf16>::to_f(gt[0]);
+          v[b][1] = Op<bf16>::to_f(gt[H]);
+          v[b][2] = Op<bf16>::to_f(gt[2 * H]);
+          v[b][3] = Op<bf16>::to_f(gt[3 * H]);
+          v[b][4] = Op<bf16>::to_f(dout[((size_t)t * N + row) * 2 * H + d * H + unit]);
           if constexpr (LSTM) {
-            v[b][5] = Op<T>::to_f(cseq[(((size_t)d * L + t) * N + row) * H + unit]);
+            v[b][5] = Op<bf16>::to_f(cseq[(((size_t)d * L + t) * N + row) * H + unit]);
             if (has_prev)
-              v[b][6] = Op<T>::to_f(cseq[(((size_t)d * L + tp) * N + row) * H + unit]);
+              v[b][6] = Op<bf16>::to_f(cseq[(((size_t)d * L + tp) * N + row) * H + unit]);
           } else {
             if (has_prev)
-              v[b][5] = Op<T>::to_f(out[((size_t)tp * N + row) * 2 * H + d * H + unit]);
+              v[b][5] = Op<bf16>::to_f(out[((size_t)tp * N + row) * 2 * H + d * H + unit]);
           }
         }
       }
@@ -642,23 +1048,15 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
 #pragma unroll
             for (int k = 0; k < NG; ++k) st1(dhg + o + k * H, dh4[k]);
           }
-          if constexpr (TC) {
 #pragma unroll
-            for (int k = 0; k < NG; ++k) {
-              csum[k] += dx4[k];
-              if constexpr (!LSTM) csum[NG + k] += dh4[k];
-            }
+          for (int k = 0; k < NG; ++k) {
+            csum[k] += dx4[k];
+            if constexpr (!LSTM) csum[NG + k] += dh4[k];
           }
         }
-        if constexpr (TC) {
-          bf16* dg = reinterpret_cast<bf16*>(smem_raw + m.dg) + r * DS + u;
+        bf16* dg = reinterpret_cast<bf16*>(smem_raw + m.dg) + r * DS + u;
 #pragma unroll
-          for (int k = 0; k < NG; ++k) dg[k * U] = __float2bfloat16_rn(dh4[k]);
-        } else {
-          float* dg = reinterpret_cast<float*>(smem_raw + m.dg) + r * DS + u;
-#pragma unroll
-          for (int k = 0; k < NG; ++k) dg[k * U] = Op<T>::operand(dh4[k]);
-        }
+        for (int k = 0; k < NG; ++k) dg[k * U] = __float2bfloat16_rn(dh4[k]);
       }
     }
     if (s + 1 == L) break;  // dh of the direction's first step is not needed
@@ -667,106 +1065,61 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_kernel(const BwdRecPar
     // 2) the partial dh over this CTA's gate columns, for all H units, sent
     // to the CTA that owns each unit: slot [step parity][this rank][row][u]
     float* snd = recv + (size_t)(s & 1) * cn * R * U + (size_t)crank * R * U;
-    if constexpr (TC) {
-      const bf16* wb = reinterpret_cast<const bf16*>(smem_raw + m.w);
-      const bf16* dg = reinterpret_cast<const bf16*>(smem_raw + m.dg);
-      const int mt = warp & 1, nc = (warp >> 1) * (H / 4);
-      const int g = lane >> 2, t4 = lane & 3;
-      float acc[NT][4];
+    const bf16* dg = reinterpret_cast<const bf16*>(smem_raw + m.dg);
+    const int mt = warp & 1, nc = (warp >> 1) * (H / 4);
+    const int g = lane >> 2, t4 = lane & 3;
+    float acc[NT][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-      for (int k0 = 0; k0 < UG; k0 += 16) {
-        uint32_t a[4];
-        ldmatrix_x4(a, smem_u32(dg + (mt * 16 + (lane & 15)) * DS + k0 + (lane >> 4) * 8));
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+    for (int k0 = 0; k0 < UG; k0 += 16) {
+      uint32_t a[4];
+      ldmatrix_x4(a, smem_u32(dg + (mt * 16 + (lane & 15)) * DS + k0 + (lane >> 4) * 8));
 #pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t r4[4];
-          ldmatrix_x4(r4, smem_u32(wb + (nc + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS +
-                                   k0 + ((lane >> 3) & 1) * 8));
-          const uint32_t b0[2] = {r4[0], r4[1]}, b1[2] = {r4[2], r4[3]};
-          mma_bf16(acc[2 * np], a, b0);
-          mma_bf16(acc[2 * np + 1], a, b1);
-        }
-        if constexpr (NT % 2 == 1) {
-          uint32_t b[2];
-          ldmatrix_x2(b, smem_u32(wb + (nc + (NT - 1) * 8 + (lane & 7)) * DS + k0 +
-                                  ((lane >> 3) & 1) * 8));
-          mma_bf16(acc[NT - 1], a, b);
-        }
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r4[4];
+        ldmatrix_x4(r4, smem_u32(wb + (nc + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * DS +
+                                 k0 + ((lane >> 3) & 1) * 8));
+        const uint32_t b0[2] = {r4[0], r4[1]}, b1[2] = {r4[2], r4[3]};
+        mma_bf16(acc[2 * np], a, b0);
+        mma_bf16(acc[2 * np + 1], a, b1);
       }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = nc + nt * 8 + 2 * t4;
-        const uint32_t dst = (uint32_t)(j / U);
-        const int ju = j % U;
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-          st_cluster_v2(smem_u32(snd + (mt * 16 + g + 8 * half) * U + ju), dst,
-                        acc[nt][2 * half], acc[nt][2 * half + 1]);
+      if constexpr (NT % 2 == 1) {
+        uint32_t b[2];
+        ldmatrix_x2(b, smem_u32(wb + (nc + (NT - 1) * 8 + (lane & 7)) * DS + k0 +
+                                ((lane >> 3) & 1) * 8));
+        mma_bf16(acc[NT - 1], a, b);
       }
-    } else {
-      const float* ws = reinterpret_cast<const float*>(smem_raw + m.w);
-      const float* dg = reinterpret_cast<const float*>(smem_raw + m.dg);
-      // lanes: jl along 8-unit groups, 32 / jl along 4-row groups; the
-      // threads past R / 4 row groups (a tile cut to fit) idle here
-      const int JG = H / 8, jl = JG < 8 ? JG : 8, JB = JG / jl;
-      const int jg = (warp % JB) * jl + lane % jl;
-      const int rg = (warp / JB) * (32 / jl) + lane / jl;
-      if (rg * 4 < R) {
-        float acc[4][8];
+    }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < NT; ++nt) {
+      const int j = nc + nt * 8 + 2 * t4;
+      const uint32_t dst = (uint32_t)(j / U);
+      const int ju = j % U;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-#pragma unroll 4
-        for (int k = 0; k < UG; ++k) {
-          float a[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = dg[(rg * 4 + i) * DS + k];
-          const float4 w0 = *reinterpret_cast<const float4*>(ws + k * H + jg * 8);
-          const float4 w1 = *reinterpret_cast<const float4*>(ws + k * H + jg * 8 + 4);
-          const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-        }
-        const uint32_t dst = (uint32_t)(jg * 8 / U);
-        const int ju = jg * 8 % U;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t la = smem_u32(snd + (rg * 4 + i) * U + ju);
-          st_cluster_v4(la, dst,
-                        make_uint4(__float_as_uint(acc[i][0]), __float_as_uint(acc[i][1]),
-                                   __float_as_uint(acc[i][2]), __float_as_uint(acc[i][3])));
-          st_cluster_v4(la + 16, dst,
-                        make_uint4(__float_as_uint(acc[i][4]), __float_as_uint(acc[i][5]),
-                                   __float_as_uint(acc[i][6]), __float_as_uint(acc[i][7])));
-        }
-      }
+      for (int half = 0; half < 2; ++half)
+        st_cluster_v2(smem_u32(snd + (mt * 16 + g + 8 * half) * U + ju), dst,
+                      acc[nt][2 * half], acc[nt][2 * half + 1]);
     }
     cluster_arrive_release();
     cluster_wait_acquire();
   }
-  if constexpr (TC) {
-    // the tile's bias-gradient partials: the REC_THREADS / U threads of a
-    // unit add theirs in thread order through shared memory (recv, the dh
-    // partials' slots: the last step sends nothing, and every peer's stores
-    // into them completed before the last step's cluster barrier)
-    float* red = recv;
-    __syncthreads();
+  // the tile's bias-gradient partials: the REC_THREADS / U threads of a
+  // unit add theirs in thread order through shared memory (recv, the dh
+  // partials' slots: the last step sends nothing, and every peer's stores
+  // into them completed before the last step's cluster barrier)
+  float* red = recv;
+  __syncthreads();
 #pragma unroll
-    for (int k = 0; k < NS; ++k) red[k * REC_THREADS + tid] = csum[k];
-    __syncthreads();
-    const int tile = blockIdx.x / cn;
-    for (int i = tid; i < NS * U; i += REC_THREADS) {
-      const int k = i / U, u = i % U;
-      float sum = 0.0f;
-      for (int j = 0; j < REC_THREADS / U; ++j) sum += red[k * REC_THREADS + j * U + u];
-      p.bpart[(((size_t)tile * (NS / NG) + k / NG) * 2 + d) * G + (k % NG) * H + u0 + u] = sum;
-    }
+  for (int k = 0; k < NS; ++k) red[k * REC_THREADS + tid] = csum[k];
+  __syncthreads();
+  const int tile = blockIdx.x / cn;
+  for (int i = tid; i < NS * U; i += REC_THREADS) {
+    const int k = i / U, u = i % U;
+    float sum = 0.0f;
+    for (int j = 0; j < REC_THREADS / U; ++j) sum += red[k * REC_THREADS + j * U + u];
+    p.bpart[(((size_t)tile * (NS / NG) + k / NG) * 2 + d) * G + (k % NG) * H + u0 + u] = sum;
   }
 }
 
@@ -816,34 +1169,86 @@ static int fwd_rec_run(int design, int dtype, const FwdRecParams& rp, int U, int
   return launch_cluster(k, &q, cn, tiles, smem, s);
 }
 
-// The backward recurrence, both directions: R rows a tile (tc: TC_BWD_ROWS;
-// simt: 8192 / H or a divisor of it, a multiple of 4), clusters of H / U CTAs.
+// The simt backward kernel of the cell at H for the operand type: f32 at
+// every H the design takes, bf16 at H = 16 (the one shape tc refuses).
+template <bool LSTM>
+static const void* bwd_simt_kernel(int H, int dtype) {
+  if (dtype == 1) return H == 16 ? (const void*)bwd_rec_simt_kernel<bf16, LSTM, 16> : nullptr;
+  if (dtype != 0) return nullptr;
+  switch (H) {
+    case 16: return (const void*)bwd_rec_simt_kernel<float, LSTM, 16>;
+    case 32: return (const void*)bwd_rec_simt_kernel<float, LSTM, 32>;
+    case 64: return (const void*)bwd_rec_simt_kernel<float, LSTM, 64>;
+    case 128: return (const void*)bwd_rec_simt_kernel<float, LSTM, 128>;
+    case 256: return (const void*)bwd_rec_simt_kernel<float, LSTM, 256>;
+    default: return nullptr;
+  }
+}
+
+// The backward recurrence kernel of the cell for design 0 = simt (U =
+// min(H, 32), bwd_simt_rows(H) rows a tile) or 1 = tc (bf16, TC_BWD_ROWS),
+// with its rows a tile in *R; nullptr where the design does not take H, U
+// and the operand type.
+template <bool LSTM>
+static const void* bwd_rec_kernel_of(int design, int dtype, int H, int U, int* R) {
+  if (!cluster_ok(H, U)) return nullptr;
+  if (design == 1) {
+    if (dtype != 1 || H % 32 != 0 || REC_THREADS % U != 0) return nullptr;
+    *R = TC_BWD_ROWS;
+    switch (H / 32) {
+      case 1: return (const void*)bwd_rec_tc_kernel<1, LSTM>;
+      case 2: return (const void*)bwd_rec_tc_kernel<2, LSTM>;
+      case 4: return (const void*)bwd_rec_tc_kernel<4, LSTM>;
+      case 8: return (const void*)bwd_rec_tc_kernel<8, LSTM>;
+      default: return nullptr;
+    }
+  }
+  if (design != 0 || U != (H < 32 ? H : 32)) return nullptr;
+  *R = bwd_simt_rows(H);
+  return bwd_simt_kernel<LSTM>(H, dtype);
+}
+
+// The backward recurrence, both directions, in clusters of H / U CTAs of
+// the kernel bwd_rec_kernel_of picks; kp.R must be its rows a tile.
 template <bool LSTM>
 static int bwd_rec_run(int design, int dtype, const BwdRecParams& kp, cudaStream_t s) {
   constexpr int NG = LSTM ? 4 : 3;
-  const int H = kp.H, U = kp.U, R = kp.R;
-  if (kp.L < 1 || kp.N < 1 || R < 4 || !cluster_ok(H, U)) return (int)cudaErrorInvalidValue;
-  const bool tc = design == 1;
-  if (tc ? (dtype != 1 || R != TC_BWD_ROWS || H % 32 != 0 || REC_THREADS % U != 0 ||
-            kp.bpart == nullptr)
-         : (design != 0 || H % 8 != 0 || R % 4 != 0 || 8192 % H != 0 || (8192 / H) % R != 0 ||
-            (H / 8 > 8 && (H / 8) % 8 != 0)))
+  int R = 0;
+  const void* k = bwd_rec_kernel_of<LSTM>(design, dtype, kp.H, kp.U, &R);
+  if (k == nullptr || kp.L < 1 || kp.N < 1 || kp.R != R ||
+      (design == 1 && kp.bpart == nullptr))
     return (int)cudaErrorInvalidValue;
   BwdRecParams q = kp;
-  const size_t smem = bwd_smem(tc, NG, H, U, R).total;
-  const int cn = H / U, tiles = (kp.N + R - 1) / R;
-  const void* k = nullptr;
-  if (tc) {
-    const int nt = H / 32;
-    if (nt == 1) k = (const void*)bwd_rec_kernel<bf16, true, 1, LSTM>;
-    if (nt == 2) k = (const void*)bwd_rec_kernel<bf16, true, 2, LSTM>;
-    if (nt == 4) k = (const void*)bwd_rec_kernel<bf16, true, 4, LSTM>;
-    if (nt == 8) k = (const void*)bwd_rec_kernel<bf16, true, 8, LSTM>;
-  } else if (dtype == 0) {
-    k = (const void*)bwd_rec_kernel<float, false, 0, LSTM>;
-  } else if (dtype == 1) {
-    k = (const void*)bwd_rec_kernel<bf16, false, 0, LSTM>;
-  }
+  return launch_cluster(k, &q, kp.H / kp.U, (kp.N + R - 1) / R,
+                        bwd_smem(design == 1, NG, kp.H, kp.U, R).total, s);
+}
+
+// How many clusters of the backward recurrence that bwd_rec_run launches at
+// design, dtype, H and U the card holds at once (cudaOccupancyMaxActiveClusters
+// for its kernel, block and shared memory), its shared memory a CTA and its
+// rows a tile. Launches nothing.
+template <bool LSTM>
+static int bwd_rec_occupancy(int design, int dtype, int H, int U, int* clusters,
+                             int* smem_bytes, int* rows) {
+  int R = 0;
+  const void* k = bwd_rec_kernel_of<LSTM>(design, dtype, H, U, &R);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_cluster(k, &q, cn, tiles, smem, s);
+  const size_t smem = bwd_smem(design == 1, LSTM ? 4 : 3, H, U, R).total;
+  cudaError_t e =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H / U, 2, 1);
+  cfg.blockDim = dim3(REC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = H / U;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  *smem_bytes = (int)smem;
+  *rows = R;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
 }

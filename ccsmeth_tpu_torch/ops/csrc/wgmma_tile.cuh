@@ -1,8 +1,8 @@
 // Hopper's own tensor-core path, shared by the bf16 kernels that run on it
 // (birnn_tc.cu: K1's and K2's recurrence and projection; rnn_train_gemm.cuh:
 // the backward products of K5 and K6; transenc_tc.cu: K3's encoder) and the
-// mbarrier and bulk-copy primitives of the cluster recurrences (birnn_tc.cu,
-// birnn_simt.cu).
+// mbarrier, bulk-copy and st.async primitives of the cluster recurrences
+// (birnn_tc.cu, birnn_simt.cu, rnn_train_rec.cuh's simt backward).
 //
 // wgmma (warpgroup matrix multiply): the 128 threads of a warpgroup issue
 // wgmma.mma_async.m64nNk16 together: D (64 x N, f32, in registers) += A (64 x
@@ -89,6 +89,22 @@ __device__ __forceinline__ void bulk_to_peer(uint32_t src, uint32_t bytes, uint3
       "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
       "[%3];\n" ::"r"(dst),
       "r"(src), "r"(bytes), "r"(rbar)
+      : "memory");
+}
+
+// a 16-byte store to the shared memory of the cluster's CTA `rank`, at the
+// offset of `local_addr` there, whose 16 bytes complete on that CTA's
+// barrier at the offset of `bar` (st.async: no fence; the barrier's phase
+// counts the bytes, as a bulk copy's)
+__device__ __forceinline__ void st_async_v4(uint32_t local_addr, uint32_t bar, uint32_t rank,
+                                            uint4 v) {
+  uint32_t dst, rbar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(dst) : "r"(local_addr), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rbar) : "r"(bar), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(rbar)
       : "memory");
 }
 

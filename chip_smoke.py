@@ -133,15 +133,27 @@ checkout.
 
 times K1 and K2 (both cells) and K3 at the kernel phase's shapes (and K3's
 l2 design at 1024 fp32 samples), and K4,
-K5 and K6 (forward and backward) at the train-kernel phase's, in four turns in one
+K5 and K6 (forward and backward) at the train-kernel phase's (C = 11 and
+512, and the 2s2 family's 28 in fp32), in four turns in one
 process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
 
+    python3 chip_smoke.py --ab-step PARENT_TREE
+
+times, in 10 pairs of turns (one process a turn, the parent first in every
+other pair), the profile phase's fp32 training step of attbigru2s and
+attbilstm2s (host and device ms) and K6's bf16 backward at C = 11 phase by
+phase; the last line gives each key's median and quartiles per tree.
+
     python3 chip_smoke.py --only determinism,train1s,...
 
-runs the card, the build and the named phases of the one-card training paths,
-``dist``, ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
+runs the card, the build and the named phases of the one-card training paths
+(``train_kernels_2s2``: the train-kernel phase at C = 28 and K2's LSTM
+there; ``profile``), ``dist``, ``k56_bwd_simt_sweep`` (K5's and K6's fp32
+backward at each candidate tile of the simt recurrence, built in copies of
+their sources), ``k56_bwd_simt_probe`` (that recurrence's step split into
+its parts by clock marks in a copy of its header), ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
 geometry), ``k1_tc_sweep`` (K1's bf16 design at each candidate geometry
 of its recurrence), ``k1_tc_probe`` (the bf16 recurrence's step split
 into its parts by clock marks in a copy of its source), ``k3_kernels``
@@ -1343,7 +1355,7 @@ def _wgrad_split(torch, x, out, dxg, dhg, part, plan, dt):
     return fns
 
 
-def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
+def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
     """Device time of each phase of the training kernels on one layer's
     inputs: the forward's projection and recurrence, the backward's
     recurrence (which also stores the gate gradients for the products: f32,
@@ -1351,7 +1363,9 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
     sums), the weight gradients' launches one by one (``_wgrad_split``); and
     each recurrence on one row tile a direction (one cluster each), its
     serial chain alone, against which the full recurrence's time counts the
-    waves of clusters; medians of CUDA-event timings. The backward's
+    waves of clusters, and the backward's on one full wave (half the
+    ``clusters`` the card holds at once, ``bigru_vjp.bwd_rec_occupancy``,
+    in tiles a direction); medians of CUDA-event timings. The backward's
     products' TFLOP/s beside torch.mm's on the same products in the same
     operand type (a yardstick only). Returns (forward phases, backward
     phases, products), named k4_* / k5_* (cell 'gru') or k6_* ('lstm')."""
@@ -1362,20 +1376,28 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
     Hh = whh.shape[1]
     plan = V.k45_plan(Hh, dt, cell)
     r4, r5 = plan["rows_fwd"], plan["rows_bwd"]
+    # one full wave of the backward recurrence: as many row tiles a
+    # direction as half the clusters the card holds at once
+    rw = r5 * max(1, clusters // 2)
     xg = V.k4_projection(x, wih, bih, bhh, plan, dt)
     xg4 = torch.randn((2, Lx * r4, xg.shape[2]), device="cuda")
     xg5 = torch.randn((2, Lx * r5, xg.shape[2]), device="cuda")
     dout5 = torch.randn((Lx, r5, dout.shape[2]), device="cuda").to(dt)
+    xgw = torch.randn((2, Lx * rw, xg.shape[2]), device="cuda")
+    doutw = torch.randn((Lx, rw, dout.shape[2]), device="cuda").to(dt)
     if cell == "gru":
         k = "k5"
         out, gates = V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)
         dxg, dhg, part = V.k5_recurrence(dout, out, gates, whh, plan, dt)
         out5, gates5 = V.k4_recurrence(xg5, whh, bhh, Lx, r5, plan, dt)
+        outw, gatesw = V.k4_recurrence(xgw, whh, bhh, Lx, rw, plan, dt)
         fwd = {"k4_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
                "k4_recurrence_one_tile": lambda: V.k4_recurrence(xg4, whh, bhh, Lx, r4,
                                                                  plan, dt),
                "k4_recurrence": lambda: V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)}
         bwd = {"k5_recurrence_one_tile": lambda: V.k5_recurrence(dout5, out5, gates5, whh,
+                                                                 plan, dt),
+               "k5_recurrence_one_wave": lambda: V.k5_recurrence(doutw, outw, gatesw, whh,
                                                                  plan, dt),
                "k5_recurrence": lambda: V.k5_recurrence(dout, out, gates, whh, plan, dt)}
     else:
@@ -1384,11 +1406,14 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
         dxg, part = V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
         dhg = dxg
         _o5, c5, gates5 = V6.k6_recurrence(xg5, whh, Lx, r5, plan, dt)
+        _ow, cw, gatesw = V6.k6_recurrence(xgw, whh, Lx, rw, plan, dt)
         fwd = {"k6_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
                "k6_recurrence_one_tile": lambda: V6.k6_recurrence(xg4, whh, Lx, r4, plan, dt),
                "k6_recurrence": lambda: V6.k6_recurrence(xg, whh, Lx, N, plan, dt)}
         bwd = {"k6_bwd_recurrence_one_tile": lambda: V6.k6_bwd_recurrence(
                    dout5, c5, gates5, whh, plan, dt),
+               "k6_bwd_recurrence_one_wave": lambda: V6.k6_bwd_recurrence(
+                   doutw, cw, gatesw, whh, plan, dt),
                "k6_bwd_recurrence": lambda: V6.k6_bwd_recurrence(dout, c, gates, whh,
                                                                  plan, dt)}
     bwd[k + "_dx"] = lambda: V.k5_dx(dxg, wih, plan, dt)
@@ -1418,6 +1443,342 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell):
                 "wgrad_torch_mm_tflops": flops_wgrad / mm_wgrad / 1e9,
                 "torch_mm_dtype": str(dt).split(".")[-1]}
     return fwd_ms, bwd_ms, products
+
+
+# The simt backward recurrence's candidate rows a thread at H = 256
+# (K56_RT256; R = 8 RT rows a tile: 56, 64 and 72, the tiles whose LSTM CTA
+# fits in shared memory): builds of csrc/bigru_train.cu and
+# csrc/bilstm_train.cu with -DK56_RT256=n in WORK, timed in alternating rounds
+K56_SWEEP_RT = (7, 8, 9)
+K56_SWEEP_ROUNDS = 6
+
+
+def _build_k56(src, defines=(), path=None, tag=""):
+    """A build of csrc/<src> (or of the copy at ``path``) with ``defines`` into
+    WORK; returns (library, nvcc's -Xptxas -v report)."""
+    import subprocess as sp
+
+    from ccsmeth_tpu_torch.ops import nvcc
+
+    os.makedirs(WORK, exist_ok=True)
+    path = path or os.path.join(nvcc.CSRC, src)
+    so = os.path.join(WORK, src[:-3] + tag + "".join("_" + d.replace("=", "")
+                                                      for d in defines) + ".so")
+    proc = sp.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-D" + d for d in defines]
+                  + ["-I", nvcc.CSRC, "-o", so, path], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return so, proc.stdout + proc.stderr
+
+
+class _K56Libs:
+    """Within the block, K4/K5's and K6's wrappers run the given builds."""
+
+    def __init__(self, gru_lib, lstm_lib):
+        self.libs = (gru_lib, lstm_lib)
+
+    def __enter__(self):
+        from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+        self.saved = (bigru_vjp._lib, bilstm_vjp._lib)
+        bigru_vjp._lib, bilstm_vjp._lib = self.libs
+
+    def __exit__(self, *exc):
+        from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+        bigru_vjp._lib, bilstm_vjp._lib = self.saved
+
+
+def _k56_plan(cell):
+    """The fp32 plan of the bound build's simt backward at H (the package's
+    plan with the build's rows a tile and shared memory, as
+    ``bigru_vjp.bwd_rec_occupancy`` reads them) and its resident clusters."""
+    import torch
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp
+
+    plan = bigru_vjp.k45_plan(H, torch.float32, cell)
+    occ = bigru_vjp.bwd_rec_occupancy(plan, torch.float32)
+    return dict(plan, rows_bwd=occ["rows"], smem_bwd=occ["smem"]), occ["clusters"]
+
+
+def _k56_bwd(cell, plan, dout, x, wih, whh, *rest):
+    """K5's or K6's fp32 backward at ``plan``, launch for launch as
+    ``bigru_layer_bwd`` / ``bilstm_layer_bwd`` make it: (dx, dw_ih, db_ih,
+    dw_hh, db_hh)."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
+
+    dt = rest[-1]
+    if cell == "gru":
+        out, gates = rest[:2]
+        dxg, dhg, part = V.k5_recurrence(dout, out, gates, whh, plan, dt)
+    else:
+        out, c, gates = rest[:3]
+        dxg, part = V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+        dhg = dxg
+    dx = V.k5_dx(dxg, wih, plan, dt)
+    grads = V.k5_weight_grads(x, out, dxg, dhg, plan, dt, part)
+    return (dx.view(x.shape[0], x.shape[1], -1),) + tuple(grads)
+
+
+def _k56_inputs(torch, cell, cin, rows=ROWS[0]):
+    """One layer's fp32 backward arguments (dout, x, the weights, the plain
+    forward's residuals, the dtype) at the train-kernel phase's seeds."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+    rng = np.random.RandomState(SEED + cin)
+    ld = init_rnn_params(rng, cin, H, 1, cell)[0]
+    x = torch.from_numpy(rng.randn(L, rows, cin).astype(np.float32)).cuda()
+    dout = torch.from_numpy(rng.randn(L, rows, 2 * H).astype(np.float32)).cuda()
+    wih, bih, whh, bhh = layer_weights(ld, torch.float32, "cuda")
+    fwd = (bigru_vjp.bigru_layer_train_fwd_plain if cell == "gru"
+           else bilstm_vjp.bilstm_layer_train_fwd_plain)
+    res = fwd(x, wih, bih, whh, bhh, torch.float32)
+    return (dout, x, wih, whh) + tuple(res) + (torch.float32,)
+
+
+def phase_k56_bwd_simt_sweep(torch, smi):
+    """K5's and K6's fp32 backward at each candidate geometry of the simt
+    recurrence (``K56_SWEEP_RT``: R = 8 RT rows a tile at H = 256, in two
+    row halves), 1,024 rows, C = 11 and 512:
+    each build's gradients bit-equal to the other builds' (the bits do not
+    depend on the tile) and its rerun's, against the plain version; its
+    resident clusters and waves; then ``K56_SWEEP_ROUNDS`` rounds, the
+    builds in turn (forward, then reverse order), each timing the whole
+    backward at both widths and the recurrence on one tile, one full wave
+    and 1,024 rows; cuDNN's backward beside them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+    jobs = [(src, rt) for rt in K56_SWEEP_RT for src in (bigru_vjp.SRC, bilstm_vjp.SRC)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda j: _build_k56(j[0], ["K56_RT256={}".format(j[1])])[0],
+                              jobs))
+    libs = {rt: (bigru_vjp.bind(built[2 * i]), bilstm_vjp.bind(built[2 * i + 1]))
+            for i, rt in enumerate(K56_SWEEP_RT)}
+    for cell in MODELS:
+        bwd_plain = (bigru_vjp.bigru_layer_bwd_plain if cell == "gru"
+                     else bilstm_vjp.bilstm_layer_bwd_plain)
+        inputs = {cin: _k56_inputs(torch, cell, cin) for cin in (C, 2 * H)}
+        refs = {cin: bwd_plain(*args) for cin, args in inputs.items()}
+        variants, first = [], {}
+        for rt in K56_SWEEP_RT:
+            with _K56Libs(*libs[rt]):
+                plan, clusters = _k56_plan(cell)
+                R = plan["rows_bwd"]
+                assert R == 8 * rt, (cell, rt, R)
+                errs = {}
+                for cin, args in inputs.items():
+                    got, again = _k56_bwd(cell, plan, *args), _k56_bwd(cell, plan, *args)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b) for a, b in zip(got, again)), (cell, rt, cin)
+                    if cin in first:
+                        assert all(torch.equal(a, b) for a, b in zip(got, first[cin])), \
+                            (cell, rt, cin, "bits differ from the first build's")
+                    first.setdefault(cin, got)
+                    # the train-kernel phase's tolerances: dx 1e-5, the
+                    # sums over L N rows 1e-5 * max|ref| + 1e-5
+                    errs[cin] = {}
+                    for nm, a, r in zip(("dx", "dw_ih", "db_ih", "dw_hh", "db_hh"), got,
+                                        refs[cin]):
+                        errs[cin][nm] = (a - r).abs().max().item()
+                        tol = 1e-5 if nm == "dx" else 1e-5 * r.abs().max().item() + 1e-5
+                        assert errs[cin][nm] <= tol, (cell, rt, cin, nm, errs[cin][nm], tol)
+            fns = _k56_recurrence_fns(torch, cell, plan, clusters)
+            for cin, args in inputs.items():
+                fns["bwd C={}".format(cin)] = lambda args=args, plan=plan: _k56_bwd(
+                    cell, plan, *args)
+            variants.append(({"RT": rt, "R": R, "smem": plan["smem_bwd"],
+                              "resident_clusters": clusters,
+                              "waves_1024": bigru_vjp.bwd_rec_waves(R, ROWS[0], clusters),
+                              "max_abs_err": errs, "bit_equal": True,
+                              "ms_by_round": {k: [] for k in fns}}, fns))
+        lib_ms = {cin: [] for cin in inputs}
+        cudnn = {}
+        for cin, args in inputs.items():
+            cudnn[cin] = _cudnn_bwd_fn(torch, cell, cin)
+        for r in range(K56_SWEEP_ROUNDS):
+            for (res, fns), rt in (zip(variants, K56_SWEEP_RT) if r % 2 == 0 else
+                                   zip(variants[::-1], K56_SWEEP_RT[::-1])):
+                with _K56Libs(*libs[rt]):
+                    for k, fn in fns.items():
+                        res["ms_by_round"][k].append(time_ms(fn, torch))
+            for cin in inputs:
+                lib_ms[cin].append(time_ms(cudnn[cin], torch))
+        for res, _fns in variants:
+            res["median_ms"] = {k: statistics.median(v) for k, v in res["ms_by_round"].items()}
+        emit({"phase": "k56_bwd_simt_sweep", "cell": cell, "rows": ROWS[0],
+              "rounds": K56_SWEEP_ROUNDS,
+              "shipped_R": bigru_vjp.k45_plan(H, torch.float32, cell)["rows_bwd"],
+              "variants": [res for res, _fns in variants],
+              "cudnn_bwd_ms": {cin: statistics.median(v) for cin, v in lib_ms.items()},
+              "card": smi})
+
+
+def _k56_recurrence_fns(torch, cell, plan, clusters):
+    """The simt backward recurrence of ``plan`` alone (H = 256, fp32, seeded
+    residuals), on one row tile, one full wave (half the resident clusters'
+    tiles a direction) and 1,024 rows: callables by name."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
+
+    R = plan["rows_bwd"]
+    G = V.GATES[cell] * H
+    fns = {}
+    for name, rows in (("rec one tile", R), ("rec one wave", R * max(1, clusters // 2)),
+                       ("rec 1024", ROWS[0])):
+        g = torch.Generator(device="cuda").manual_seed(SEED + rows)
+        dout = torch.randn((L, rows, 2 * H), device="cuda", generator=g)
+        gates = torch.rand((2, L, rows, 4 * H), device="cuda", generator=g)
+        if cell == "gru":
+            out = torch.randn((L, rows, 2 * H), device="cuda", generator=g)
+            whh = torch.randn((2, H, G), device="cuda", generator=g) * 0.05
+            fns[name] = (lambda dout=dout, out=out, gates=gates, whh=whh:
+                         V.k5_recurrence(dout, out, gates, whh, plan, torch.float32))
+        else:
+            c = torch.randn((2, L, rows, H), device="cuda", generator=g)
+            whh = torch.randn((2, H, G), device="cuda", generator=g) * 0.05
+            fns[name] = (lambda dout=dout, c=c, gates=gates, whh=whh:
+                         V6.k6_bwd_recurrence(dout, c, gates, whh, plan, torch.float32))
+    return fns
+
+
+def _cudnn_bwd_fn(torch, cell, cin):
+    """cuDNN's one-layer bidirectional nn.GRU / nn.LSTM backward (fp32, TF32
+    off) at the train-kernel phase's weights and shapes: a callable, the
+    yardstick of ``phase_train_kernels``."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params
+
+    rng = np.random.RandomState(SEED + cin)
+    ld = init_rnn_params(rng, cin, H, 1, cell)[0]
+    x_np = rng.randn(L, ROWS[0], cin).astype(np.float32)
+    dout = torch.from_numpy(rng.randn(L, ROWS[0], 2 * H).astype(np.float32)).cuda()
+    lib = _cudnn(torch, cell, cin, 1, [ld], torch.float32)
+    lib.train()
+    xg = torch.from_numpy(x_np).cuda().requires_grad_(True)
+    y = lib(xg)[0]
+    return lambda: torch.autograd.grad(y, [xg] + list(lib.parameters()), dout,
+                                       retain_graph=True)
+
+
+# The probe of the simt backward recurrence's step: marks put into a copy of
+# csrc/rnn_train_rec.cuh (never into the shipped header), each adding the
+# clock64 cycles since the last mark to a per-part sum, for threads 0 and 128
+# of CTA (0, 0), both row halves of a step added. Parts: 0 the wait on a
+# half's `full` barrier for the peers' partials (thread 0) and the barrier
+# after it, 1 the residuals still in flight (a sum that reads every
+# prefetched register of the half), 2 the gate math and its stores, 3 the
+# operand's stores, the barrier and the `empty` arrivals, 4 the product
+# (with the next gate math's residual loads issued in it), 5 the wait on
+# `empty` (thread 0) and the barrier after it, 6 issuing the partials'
+# stores (st.async into the peers).
+K56_PROBE_PARTS = ["full wait", "residuals", "gate math", "operand", "product",
+                   "empty wait", "send"]
+K56_PROBE_MARKS = [
+    ('#include "rnn_train_gemm.cuh"\n',
+     '#include "rnn_train_gemm.cuh"\n__device__ unsigned long long g_k56_prof[2][8];\n'
+     '#define K56_PROF(k) if ((tid == 0 || tid == 128) && blockIdx.x == 0 && '
+     'blockIdx.y == 0) { const unsigned long long now = clock64(); if (s > 0) '
+     'g_k56_prof[tid >> 7][k] += now - tprev; tprev = now; }\n'),
+    ("  for (int s = 0; s < L; ++s) {\n    // direction-local time runs backwards: L-1 .. 0\n"
+     "    const int t = d == 0 ? L - 1 - s : s;\n#pragma unroll\n"
+     "    for (int h = 0; h < NH; ++h) {\n",
+     "  unsigned long long tprev = clock64();\n"
+     "  for (int s = 0; s < L; ++s) {\n    // direction-local time runs backwards: L-1 .. 0\n"
+     "    const int t = d == 0 ? L - 1 - s : s;\n#pragma unroll\n"
+     "    for (int h = 0; h < NH; ++h) {\n"),
+    ("          if (s + 1 < L) mbar_expect_tx(full_bar[h], (CN - 1) * rh * U * 4);\n"
+     "        }\n        __syncthreads();\n      }\n",
+     "          if (s + 1 < L) mbar_expect_tx(full_bar[h], (CN - 1) * rh * U * 4);\n"
+     "        }\n        __syncthreads();\n      }\n      K56_PROF(0)\n"
+     "      { float sink = 0.0f;\n#pragma unroll\n        for (int j = 0; j < QM; ++j)\n"
+     "#pragma unroll\n          for (int e = 0; e < NV; ++e) sink += v[j][e].x + v[j][e].w;\n"
+     "        asm volatile(\"\" ::\"f\"(sink)); }\n      K56_PROF(1)\n"),
+    ("      if (s + 1 == L) {  // dh of the direction's first step is not needed\n",
+     "      K56_PROF(2)\n"
+     "      if (s + 1 == L) {  // dh of the direction's first step is not needed\n"),
+    ("mbar_arrive_remote(empty_bar[h], tid);\n\n      // 3) the half's partial dh",
+     "mbar_arrive_remote(empty_bar[h], tid);\n      K56_PROF(3)\n\n"
+     "      // 3) the half's partial dh"),
+    ("      // 4) every peer has read the half's last partials",
+     "      K56_PROF(4)\n      // 4) every peer has read the half's last partials"),
+    ("        if (tid == 0) mbar_wait(empty_bar[h], (s - 1) & 1);\n        __syncthreads();\n"
+     "      }\n",
+     "        if (tid == 0) mbar_wait(empty_bar[h], (s - 1) & 1);\n        __syncthreads();\n"
+     "      }\n      K56_PROF(5)\n"),
+    ("            st_async_v4(la, full_bar[h], own, val);\n        }\n      }\n    }\n  }\n",
+     "            st_async_v4(la, full_bar[h], own, val);\n        }\n      }\n"
+     "      K56_PROF(6)\n    }\n  }\n"),
+]
+K56_PROBE_ENTRY = """
+extern "C" void k56_probe(unsigned long long* out, int reset) {
+  unsigned long long z[16] = {0};
+  if (reset) cudaMemcpyToSymbol(g_k56_prof, z, sizeof(z));
+  else cudaMemcpyFromSymbol(out, g_k56_prof, sizeof(z));
+}
+"""
+
+
+def phase_k56_bwd_simt_probe(torch, smi):
+    """The simt backward recurrence's step split into its parts
+    (``K56_PROBE_MARKS``), both cells, fp32, H = 256, on one row tile and on
+    1,024 rows: us a step (at the card's clock) for threads 0 and 128 of
+    CTA (0, 0), beside the step's CUDA-event time."""
+    import ctypes
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp, nvcc
+
+    d = os.path.join(WORK, "k56_probe")
+    os.makedirs(d, exist_ok=True)
+    hdr = open(os.path.join(nvcc.CSRC, "rnn_train_rec.cuh")).read()
+    for old, new in K56_PROBE_MARKS:
+        assert hdr.count(old) == 1, old
+        hdr = hdr.replace(old, new)
+    with open(os.path.join(d, "rnn_train_rec.cuh"), "w") as f:
+        f.write(hdr)
+    paths = []
+    for src in (bigru_vjp.SRC, bilstm_vjp.SRC):
+        shutil.copy(os.path.join(nvcc.CSRC, src), os.path.join(d, src))
+        with open(os.path.join(d, src), "a") as f:
+            f.write(K56_PROBE_ENTRY)
+        paths.append(os.path.join(d, src))
+    with ThreadPoolExecutor(2) as pool:
+        sos = list(pool.map(lambda pth: _build_k56(os.path.basename(pth), path=pth,
+                                                   tag="_probe")[0], paths))
+    gru, lstm = bigru_vjp.bind(sos[0]), bilstm_vjp.bind(sos[1])
+    for lib in (gru, lstm):
+        lib.k56_probe.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    buf = (ctypes.c_ulonglong * 16)()
+    with _K56Libs(gru, lstm):
+        for cell, lib in (("gru", gru), ("lstm", lstm)):
+            plan, clusters = _k56_plan(cell)
+            fns = _k56_recurrence_fns(torch, cell, plan, clusters)
+            for name in ("rec one tile", "rec 1024"):
+                fn = fns[name]
+                fn()
+                torch.cuda.synchronize()
+                lib.k56_probe(None, 1)
+                ms = time_ms(fn, torch)
+                lib.k56_probe(ctypes.cast(buf, ctypes.c_void_p), 0)
+                steps = (REPS + 1) * (L - 1)  # the warm-up and the timed runs
+                parts = [[buf[8 * w + k] / steps / mhz for k in range(len(K56_PROBE_PARTS))]
+                         for w in (0, 1)]
+                emit({"phase": "k56_bwd_simt_probe", "cell": cell, "input": name,
+                      "rows_a_tile": plan["rows_bwd"], "step_us": ms * 1e3 / L,
+                      "parts": K56_PROBE_PARTS,
+                      "parts_us_thread0": parts[0], "parts_us_thread128": parts[1],
+                      "clock_mhz": mhz, "card": smi})
 
 
 def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=H,
@@ -1509,7 +1870,14 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=
             b_ms = time_ms(lambda: bwd(*args), torch)
             pf_ms = time_ms(lambda: fwd_plain(x, wih, bih, whh, bhh, dt), torch)
             pb_ms = time_ms(lambda: bwd_plain(*args), torch)
-            phases = _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell)
+            # the backward recurrence's tile, residency and waves, as the
+            # library launches it (either design)
+            plan = bigru_vjp.k45_plan(hidden, dt, cell)
+            occ = bigru_vjp.bwd_rec_occupancy(plan, dt)
+            assert (occ["rows"], occ["smem"]) == (plan["rows_bwd"], plan["smem_bwd"]), occ
+            occ["waves"] = bigru_vjp.bwd_rec_waves(occ["rows"], rows, occ["clusters"])
+            phases = _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell,
+                                      occ["clusters"])
             weights = (wih, bih, whh, bhh)
             bf, byf = _bound(V.train_fwd_flops(seq_len, rows, cin, hidden),
                              _nbytes(x, *weights, *res), dname)
@@ -1534,6 +1902,7 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=
                      "library_weights_warning": lib.weights_warning, "card": smi,
                      "phases_ms": ph}
                 if name.endswith("_bwd"):
+                    c["bwd_recurrence"] = occ
                     c["bit_equal_rerun"] = True
                     c["products"] = phases[2]
                     c["gemm_calls_per_call"] = gemm_per_call
@@ -3670,12 +4039,12 @@ def _time_tree(tree):
                           bilstm_vjp.bilstm_layer_bwd)}
         rows = ROWS[0]
         for cell, (kf, kb, fwd, bwd) in train.items():
-            for cin in (C, 2 * H):
+            for cin in (C, C2S2, 2 * H):  # the 2s2 family's layer 0 in fp32
                 rng = np.random.RandomState(SEED + cin)
                 ld = init_rnn_params(rng, cin, H, 1, cell)[0]
                 x_np = rng.randn(L, rows, cin).astype(np.float32)
                 dout_np = rng.randn(L, rows, 2 * H).astype(np.float32)
-                for dname in ("float32", "bfloat16"):
+                for dname in ("float32", "bfloat16") if cin != C2S2 else ("float32",):
                     dt = getattr(torch, dname)
                     wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
                     x = torch.from_numpy(x_np).to("cuda", dt)
@@ -3716,10 +4085,94 @@ def main_ab(parent):
           "parent": os.path.abspath(parent), "card": smi, "ms": summary})
 
 
+# --ab-step: pairs of turns (parent, change; then change, parent)
+AB_STEP_PAIRS = 10
+
+
+def _step_tree(tree):
+    """One turn of ``--ab-step``: through the package of the checkout at
+    ``tree``, the profile phase's full-width fp32 training step of each
+    model (host ms and device ms a step) and K6's bf16 backward at the
+    train-kernel phase's C = 11 (1024 rows) whole and phase by phase: the
+    recurrence, dx, the weight gradients with their sum, and their two
+    launches apart (``_wgrad_split``); medians of CUDA-event timings, one
+    JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"phase": "ab_step_turn", "tree": os.path.abspath(tree),
+           "package": os.path.dirname(os.path.dirname(V.__file__)), "ms": {}}
+    for cell in MODELS:
+        prof = phase_profile(torch, "", cell)
+        res["ms"]["{} step host".format(MODELS[cell])] = prof["step_ms_host"]
+        res["ms"]["{} step device".format(MODELS[cell])] = prof["device_ms_per_step"]
+    dt = torch.bfloat16
+    rng = np.random.RandomState(SEED + C)  # the --ab turn's inputs
+    ld = init_rnn_params(rng, C, H, 1, "lstm")[0]
+    x_np = rng.randn(L, ROWS[0], C).astype(np.float32)
+    dout_np = rng.randn(L, ROWS[0], 2 * H).astype(np.float32)
+    wih, bih, whh, bhh = layer_weights(ld, dt, "cuda")
+    x = torch.from_numpy(x_np).to("cuda", dt)
+    dout = torch.from_numpy(dout_np).to("cuda", dt)
+    out, c, gates = V6.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    plan = V.k45_plan(H, dt, "lstm")
+    da, part = V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt)
+    fns = {"bwd": lambda: V6.bilstm_layer_bwd(dout, x, wih, whh, out, c, gates, dt),
+           "recurrence": lambda: V6.k6_bwd_recurrence(dout, c, gates, whh, plan, dt),
+           "dx": lambda: V.k5_dx(da, wih, plan, dt),
+           "weight_grads": lambda: V.k5_weight_grads(x, out, da, da, plan, dt, part)}
+    fns.update(_wgrad_split(torch, x, out, da, da, part, plan, dt))
+    for name, fn in fns.items():
+        res["ms"]["k6b C={} bfloat16 {}".format(C, name)] = time_ms(fn, torch, AB_REPS)
+    emit(res)
+
+
+def main_ab_step(parent):
+    """``AB_STEP_PAIRS`` pairs of ``_step_tree`` turns, one process a turn,
+    the parent first in even pairs and the change first in odd ones; the
+    last line holds each key's median and quartiles per tree and the ratio
+    of the medians."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke.py: torch.cuda.is_available() is False")
+    smi = phase_card(torch)[0]
+    turns = {"parent": [], "change": []}
+    for i in range(AB_STEP_PAIRS):
+        for who in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
+            tree = parent if who == "parent" else REPO
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--step-tree", tree], capture_output=True, text=True)
+            if proc.returncode != 0:
+                sys.exit("turn on {} failed:\n{}".format(tree, proc.stderr[-4000:]))
+            line = json.loads(proc.stdout.strip().splitlines()[-1])
+            log(json.dumps(line))
+            turns[who].append(line["ms"])
+    summary = {}
+    for key in turns["parent"][0]:
+        summary[key] = {}
+        for who, ts in turns.items():
+            q1, med, q3 = statistics.quantiles([t[key] for t in ts], n=4)
+            summary[key][who] = {"q1": q1, "median": med, "q3": q3}
+        summary[key]["change_over_parent"] = (summary[key]["change"]["median"]
+                                              / summary[key]["parent"]["median"])
+    emit({"phase": "ab_step", "pairs": AB_STEP_PAIRS, "parent": os.path.abspath(parent),
+          "card": smi, "ms": summary})
+
+
 def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
     the one-card training paths (train_kernels, train_kernels_small,
-    determinism, train1s, train_te, transfer, aggr_train, wrappers), the
+    train_kernels_2s2, determinism, train1s, train_te, transfer, aggr_train,
+    wrappers, profile), the simt backward's sweep and probe
+    (k56_bwd_simt_sweep, k56_bwd_simt_probe), the
     multi-process one (dist), K1's geometry sweeps and probe
     (k1_simt_sweep, k1_tc_sweep, k1_tc_probe) or K3's kernel phase, its
     bf16 design's sweep and probe (k3_kernels, k3_tc_sweep, k3_tc_probe),
@@ -3734,6 +4187,12 @@ def main_only(names):
     phase_build()
     phases = {
         "train_kernels": lambda: [phase_train_kernels(torch, smi, cell) for cell in MODELS],
+        "k56_bwd_simt_sweep": lambda: phase_k56_bwd_simt_sweep(torch, smi),
+        "k56_bwd_simt_probe": lambda: phase_k56_bwd_simt_probe(torch, smi),
+        "profile": lambda: [phase_profile(torch, smi, cell) for cell in MODELS],
+        "train_kernels_2s2": lambda: [
+            phase_train_kernels(torch, smi, cell, (C2S2,)) for cell in MODELS] + [
+            phase_k2_kernels(torch, smi, "lstm", (C2S2,), ("float32",))],
         "train_kernels_small": lambda: [
             phase_train_kernels(torch, smi, cell, rows=512) for cell in MODELS] + [
             phase_train_kernels(torch, smi, cell, cins=(AGGR_C,), rows=512,
@@ -3766,6 +4225,10 @@ def main():
         return _time_tree(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         return main_ab(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--step-tree":
+        return _step_tree(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-step":
+        return main_ab_step(sys.argv[2])
     if len(sys.argv) == 5 and sys.argv[1] == "--train-digest":
         return _train_digest(*sys.argv[2:])
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
@@ -3773,7 +4236,8 @@ def main():
     if len(sys.argv) == 8 and sys.argv[1] == "--dist-rank":
         return _dist_rank(int(sys.argv[2]), sys.argv[3], [int(p) for p in sys.argv[4:]])
     if len(sys.argv) != 1:
-        sys.exit("usage: chip_smoke.py [--ab PARENT_TREE | --only PHASE,...]")
+        sys.exit("usage: chip_smoke.py [--ab PARENT_TREE | --ab-step PARENT_TREE | "
+                 "--only PHASE,...]")
     if not os.path.isdir(os.path.join(REPO, "ccsmeth_tpu_torch")):
         sys.exit("chip_smoke.py: the ccsmeth_tpu_torch package is not beside "
                  "this script; run it from a checkout of the repository")
@@ -3948,6 +4412,7 @@ def main():
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+                "bwd_recurrence": mc.get("bwd_recurrence"),
                 "cell": "{} rows={} C={} {}".format(MODELS[cell], mc["rows"], mc["C"], dname),
                 "cells": [{k: c[k] for k in ("rows", "C", "dtype", "cuda_launches_per_call",
                                              "kernel_ms", "plain_ms", "library_ms",

@@ -189,6 +189,51 @@ def test_k6_designs_at_ragged_rows(rows, hidden, dtype, design):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["R-1", "R+1", "part-filled last wave"])
+def test_k6_simt_backward_at_the_tile_edges(edge):
+    """The simt backward at H = 256 on row counts at its tile's edges (72
+    rows): one row short of a tile, one row past it (a second tile of one
+    row), and two tiles a direction past a full wave (half the clusters the
+    card holds at once, cudaOccupancyMaxActiveClusters) and 5 rows: a
+    part-filled last wave ending in a ragged tile. Against the plain
+    version, bit-equal on a rerun, with its CUDA launches; the library's
+    tile rows and shared memory are the planner's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = bigru_vjp.k45_plan(256, torch.float32, "lstm")
+    R = plan["rows_bwd"]
+    occ = bigru_vjp.bwd_rec_occupancy(plan, torch.float32)
+    assert (occ["rows"], occ["smem"]) == (R, plan["smem_bwd"])
+    clusters = occ["clusters"]
+    rows = {"R-1": R - 1, "R+1": R + 1,
+            "part-filled last wave": R * (clusters // 2 + 2) + 5}[edge]
+    x, wih, bih, whh, bhh, dout = _case(rows, 256, 11, torch.float32)
+    residuals = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, torch.float32)
+    _bwd_matches_plain(dout, x, wih, whh, residuals, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,dtype", [(16, "float32"), (16, "bfloat16"), (32, "float32"),
+                                          (64, "float32"), (128, "float32"),
+                                          (256, "float32")])
+def test_k6_simt_backward_at_every_width(hidden, dtype):
+    """Every H the simt design takes (clusters of 1, 2, 4 and 8; bf16 at
+    H = 16, which tc refuses) at its tile's rows + 3 (a ragged second tile),
+    C = 28: the simt design, against the plain version, bit-equal on a
+    rerun, with its CUDA launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    plan = bigru_vjp.k45_plan(hidden, dt, "lstm")
+    assert plan["design"] == "simt"
+    x, wih, bih, whh, bhh, dout = _case(plan["rows_bwd"] + 3, hidden, 28, dt)
+    residuals = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    before = bilstm_vjp.design_calls["simt"]
+    _bwd_matches_plain(dout, x, wih, whh, residuals, dt)
+    assert bilstm_vjp.design_calls["simt"] == before + 2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,hidden,cin", [(65, 32, 11), (1000, 256, 512),
                                              (1024, 256, 11)])

@@ -1,11 +1,14 @@
 """K6's shape rule and its backward's staged layout, on the CPU (no card): the
 planner ``k45_plan(H, dtype, "lstm")``, the one rule of K4/K5 and K6, for the
 LSTM's four gates; a model of the K6 backward recurrence's W_hh staging, its
-reduce-scatter of dh across the cluster and its dc kept by one owner
-(csrc/rnn_train_rec.cuh stages W_hh in shared memory itself), held to the
-kernel source and, through a plain backward in that layout, to
-``bilstm_layer_bwd_plain``; the weight-gradient slices at G = 4H; and the
-launch counters, which a CPU call leaves alone."""
+reduce-scatter of dh across the cluster (simt: through the operand images
+and the owners' buffers of tests/test_torch_train_layouts.py's
+``simt_bwd_step``) and its dc kept by one owner (csrc/rnn_train_rec.cuh
+stages W_hh in shared memory itself), held to the kernel source and,
+through a plain backward in that layout, to ``bilstm_layer_bwd_plain`` and
+the JAX package's ``fused_bilstm_layer_tm`` (interpret mode); the
+weight-gradient slices at G = 4H; and the launch counters, which a CPU call
+leaves alone."""
 
 import os
 
@@ -16,8 +19,8 @@ import torch
 from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
-from tests.test_torch_train_layouts import (check_wgmma_products, sum_tol, tile_bias_sums,
-                                            wgrad_residency)
+from tests.test_torch_train_layouts import (check_wgmma_products, simt_bwd_step, sum_tol,
+                                            tile_bias_sums, wgrad_residency)
 
 torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
@@ -29,11 +32,13 @@ def test_lstm_plan_takes_fp32_on_simt(hidden):
     assert (plan["cell"], plan["gates"]) == ("lstm", 4)
     U, cn = plan["U"], plan["CN"]
     assert U == min(hidden, 32) and U * cn == hidden and cn in (1, 2, 4, 8)
-    # a forward thread owns 4 rows x 2 or 1 units, a backward thread 4 rows
-    # x 8 units of the partial (R rows a tile, at most 8192 / H)
+    # a forward thread owns 4 rows x 2 or 1 units, a backward thread the
+    # partial of RT rows x 8 units (R = NR RT rows a tile, the GRU's)
     upt = plan["rows_fwd"] * U // 1024
     assert upt in (1, 2) and (plan["rows_fwd"] // 4) * (U // upt) == 256
-    assert plan["rows_bwd"] % 4 == 0 and (8192 // hidden) % plan["rows_bwd"] == 0
+    g = bigru_vjp.simt_bwd_geometry(hidden)
+    assert plan["rows_bwd"] == g["R"] == g["NR"] * g["RT"]
+    assert plan["rows_bwd"] == bigru_vjp.k45_plan(hidden, torch.float32)["rows_bwd"]
     assert max(plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_LIMIT
 
 
@@ -52,28 +57,40 @@ def test_lstm_plan_at_the_model_width():
     """H = 256, the reckoning of csrc/bilstm_train.cu's header: tc CTAs of
     202,752 (forward) and 65,536 + 8,192 + 135,168 + 16,896 = 225,792
     (backward) bytes in clusters of 4; simt of 196,608 (32-row forward tiles
-    of 1 unit a thread: 2 units would need 262,144) and 217,216 in clusters
-    of 8. The GRU's plan at the same width is unchanged."""
+    of 1 unit a thread: 2 units would need 262,144) and 131,072 + 73,728 +
+    21,120 + 32 = 225,952 (72-row backward tiles: the W_hh slice, the 8 x 72
+    x 32 f32 partials received, the 40 x 132 operand of a row half, four
+    barriers) in clusters of 8. The GRU's plan at the same width: 229,376
+    and 188,064."""
     tc = bigru_vjp.k45_plan(256, torch.bfloat16, "lstm")
     simt = bigru_vjp.k45_plan(256, torch.float32, "lstm")
     assert (tc["U"], tc["CN"], tc["smem_fwd"], tc["smem_bwd"]) == (64, 4, 202752, 225792)
     assert tc["smem_bwd"] == 65536 + 8192 + 135168 + 16896 <= SMEM_LIMIT
     assert (simt["U"], simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == \
-        (32, 8, 196608, 217216)
-    assert (simt["rows_fwd"], simt["rows_bwd"]) == (32, 32)
+        (32, 8, 196608, 225952)
+    assert simt["smem_bwd"] == 131072 + 8 * 72 * 32 * 4 + 40 * 132 * 4 + 32
+    assert (simt["rows_fwd"], simt["rows_bwd"]) == (32, 72)
     assert (256 * 4 * 32 + 2 * 256 * 64) * 4 == 262144 > SMEM_LIMIT
     gru = bigru_vjp.k45_plan(256, torch.float32)
-    assert (gru["rows_fwd"], gru["smem_fwd"], gru["smem_bwd"]) == (64, 229376, 180352)
+    assert (gru["rows_fwd"], gru["smem_fwd"], gru["smem_bwd"]) == (64, 229376, 188064)
 
 
 def test_lstm_plan_cuts_the_simt_backward_tile_to_fit():
-    """H = 16 and 32: the backward's 8192 / H rows would need 235,520 and
-    246,784 bytes with four gates, so the tile halves; the GRU's fits."""
-    for hidden, rows, full in ((16, 256, 235520), (32, 128, 246784)):
+    """The simt backward's tile fits with four gates at every H it takes, so
+    nothing is cut: at H = 16 and 32 (a cluster of one) the 128- and 64-row
+    tiles take 47,136 and 58,400 bytes, where the old design's 8192 / H rows
+    with double-buffered partials (235,520 and 246,784 bytes) had to halve.
+    The GRU's tiles have the same rows."""
+    for hidden, rows, smem in ((16, 128, 47136), (32, 64, 58400), (64, 64, 66080),
+                               (128, 64, 115232), (256, 72, 225952)):
         plan = bigru_vjp.k45_plan(hidden, torch.float32, "lstm")
-        assert plan["rows_bwd"] == rows
-        assert bigru_vjp.k5_smem("simt", hidden, min(hidden, 32), 8192 // hidden, 4) == full
-        assert bigru_vjp.k45_plan(hidden, torch.float32)["rows_bwd"] == 8192 // hidden
+        assert (plan["rows_bwd"], plan["smem_bwd"]) == (rows, smem) and smem <= SMEM_LIMIT
+        assert bigru_vjp.k45_plan(hidden, torch.float32)["rows_bwd"] == rows
+    for hidden, U, old in ((16, 16, 235520), (32, 32, 246784)):
+        R = 8192 // hidden
+        cn, ug = hidden // U, 4 * U
+        assert 2 * cn * R * U * 4 + R * U * 4 + ug * hidden * 4 + R * (ug + 1) * 4 == old
+        assert old > SMEM_LIMIT
 
 
 @pytest.mark.parametrize("hidden,dtype,reasons", [
@@ -177,9 +194,12 @@ def _k6_staged(dout, x, w_ih, w_hh, out, c, gates, compute_dtype, U, design):
             dc = dcv * fg[t]
             da_all[t] = da
             dh = torch.zeros((N, H))
+            if design == "simt":  # the operand images, buffers and owners' sums
+                dh = simt_bwd_step(op(da), staged, dh, H)
+                continue
             for r in range(cn):  # rank order
                 a = op(da[:, own_columns(H, U, r)])
-                dh = dh + (a @ staged[r] if design == "simt" else a @ staged[r].T)
+                dh = dh + a @ staged[r].T
         da_all = da_all.reshape(L * N, 4 * H)
         dx += op(da_all) @ op(w_ih[d]).T
         grads.append((xs.T @ op(da_all), da_all.sum(0),
@@ -214,8 +234,9 @@ def test_k6_staging_model_follows_the_kernel_source():
     goes to shared row k = gate*U + u (simt, [k][j]) or to row j, column k
     (tc, [j][k]) over the NG U = 4U columns of a CTA, u0 = rank * U; dh is the
     sum of the partials of ranks 0 .. CN-1 in order, with no carry term for
-    the LSTM; dc stays in the dh slot of the thread that owns the (row,
-    unit) and is read back there at the next step."""
+    the LSTM; dc stays with the thread that owns the (row, unit) (simt: in
+    its registers, the product dc f rounded once; tc: in the dh slot) and
+    is read back there at the next step."""
     path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
     with open(path) as f:
         src = " ".join(f.read().split())
@@ -230,12 +251,52 @@ def test_k6_staging_model_follows_the_kernel_source():
                  "for (uint32_t c = 0; c < cn; ++c) dh += rcv[(size_t)c * R * U + q];",
                  "const float dc = dt * og * (1.0f - tc * tc) + (s > 0 ? dh_s[q] : 0.0f);",
                  "dh_s[q] = dc * fg;",
+                 "for (int c = 0; c < CN; ++c) dh += f4_at(part[c], e);",
+                 "const float dc = dt * og * (1.0f - tc * tc) + carry[h][j][e];",
+                 "carry[h][j][e] = __fmul_rn(dc, fg);",
                  "const int u0 = crank * U;"):
         assert line in src, line
     # the K6 entries run the LSTM's instantiations of those templates
     with open(os.path.join(os.path.dirname(path), bilstm_vjp.SRC)) as f:
         k6 = " ".join(f.read().split())
     assert "fwd_rec_run<true>(" in k6 and "bwd_rec_run<true>(" in k6
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+def test_k6_simt_staged_backward_equals_the_jax_layer(hidden):
+    """The simt model (``_k6_staged``) against the JAX package's
+    ``fused_bilstm_layer_tm`` (through ``birnn_apply_pallas_trainable``,
+    cell 'lstm', one layer, b_tile 8, interpret mode) on the same numpy
+    weights, inputs and cotangent: tests/test_torch_bilstm_vjp.py's gate,
+    atol 2e-4 / rtol 1e-3 (f32 sums in other orders)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ccsmeth_tpu.ops.bigru_pallas_vjp import birnn_apply_pallas_trainable
+
+    rng = np.random.RandomState(hidden + 9)
+    layers = init_rnn_params(rng, 11, hidden, 1, "lstm")
+    x = rng.randn(5, 6, 11).astype(np.float32)  # (N, L, C)
+    cot = rng.randn(5, 6, 2 * hidden).astype(np.float32)
+
+    def loss(x_, ls):
+        out, _ = birnn_apply_pallas_trainable(ls, x_, b_tile=8, interpret=True, cell="lstm")
+        return jnp.sum(out * cot)
+
+    gx, gl = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), layers)
+    wih, bih, whh, bhh = layer_weights(layers[0])
+    xt = torch.from_numpy(x).transpose(0, 1).contiguous()
+    dout = torch.from_numpy(cot).transpose(0, 1).contiguous()
+    out, c, gates = bilstm_vjp.bilstm_layer_train_fwd_plain(xt, wih, bih, whh, bhh)
+    dx, dw_ih, db_ih, dw_hh, db_hh = _k6_staged(dout, xt, wih, whh, out, c, gates,
+                                                torch.float32, min(hidden, 32), "simt")
+    np.testing.assert_allclose(dx.transpose(0, 1).numpy(), np.asarray(gx), atol=2e-4, rtol=1e-3)
+    for d, name in enumerate(("fwd", "bwd")):
+        want = gl[0][name]
+        for got, key, tr in ((dw_ih[d], "w_ih", True), (dw_hh[d], "w_hh", True),
+                             (db_ih[d], "b_ih", False), (db_hh[d], "b_hh", False)):
+            np.testing.assert_allclose((got.T if tr else got).numpy(), np.asarray(want[key]),
+                                       atol=2e-4, rtol=1e-3, err_msg=key)
 
 
 @pytest.mark.parametrize("cin,kernel,slices", [

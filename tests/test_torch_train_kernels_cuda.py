@@ -89,13 +89,10 @@ def test_k4_matches_plain(dtype, rows, hidden, cin):
     assert _err(gates, ref_gates) <= tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("rows,hidden,cin", SHAPES)
-def test_k5_matches_plain_and_is_deterministic(dtype, rows, hidden, cin):
-    _need_card()
-    dt = getattr(torch, dtype)
-    x, wih, bih, whh, bhh, dout = _case(rows, hidden, cin, dt)
+def _k5_matches_plain(x, wih, bih, whh, bhh, dout, dt):
+    """K5 on the plain forward's residuals against its plain version, with its
+    CUDA launches and a bit-equal rerun."""
+    L, rows, cin = x.shape
     out, gates = bigru_vjp.bigru_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
     before = bigru_vjp.launches_bwd
     bigru_vjp.cuda_launches = 0
@@ -103,7 +100,7 @@ def test_k5_matches_plain_and_is_deterministic(dtype, rows, hidden, cin):
     # recurrence, dx, weight gradients (tc: dW_ih apart at C % 8 != 0), and
     # the sum of slices (simt: when S > 1) and of the tc bias partials
     assert bigru_vjp.cuda_launches == bigru_vjp.bwd_cuda_launches(
-        bigru_vjp.k45_plan(hidden, dt), 21 * rows, cin,
+        bigru_vjp.k45_plan(whh.shape[1], dt), L * rows, cin,
         torch.cuda.get_device_properties(0).multi_processor_count)
     again = bigru_vjp.bigru_layer_bwd(dout, x, wih, whh, out, gates, dt)
     torch.cuda.synchronize()
@@ -115,6 +112,54 @@ def test_k5_matches_plain_and_is_deterministic(dtype, rows, hidden, cin):
         assert torch.equal(a, b), name  # no atomics: bit-equal on a rerun
         tol = 1e-5 if (name == "dx" and dt == torch.float32) else _grad_tol(r, dt)
         assert _err(a, r) <= tol, (name, _err(a, r), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,hidden,cin", SHAPES)
+def test_k5_matches_plain_and_is_deterministic(dtype, rows, hidden, cin):
+    _need_card()
+    dt = getattr(torch, dtype)
+    _k5_matches_plain(*_case(rows, hidden, cin, dt), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["R-1", "R+1", "part-filled last wave"])
+def test_k5_simt_backward_at_the_tile_edges(edge):
+    """The simt backward at H = 256 on row counts at its tile's edges (72
+    rows): one row short of a tile, one row past it (a second tile of one
+    row), and two tiles a direction past a full wave (half the clusters the
+    card holds at once, cudaOccupancyMaxActiveClusters) and 5 rows: a
+    part-filled last wave ending in a ragged tile. Against the plain
+    version, bit-equal on a rerun, with its CUDA launches; the library's
+    tile rows and shared memory are the planner's."""
+    _need_card()
+    plan = bigru_vjp.k45_plan(256, torch.float32)
+    R = plan["rows_bwd"]
+    occ = bigru_vjp.bwd_rec_occupancy(plan, torch.float32)
+    assert (occ["rows"], occ["smem"]) == (R, plan["smem_bwd"])
+    clusters = occ["clusters"]
+    rows = {"R-1": R - 1, "R+1": R + 1,
+            "part-filled last wave": R * (clusters // 2 + 2) + 5}[edge]
+    _k5_matches_plain(*_case(rows, 256, 11, torch.float32), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,dtype", [(16, "float32"), (16, "bfloat16"), (32, "float32"),
+                                          (64, "float32"), (128, "float32"),
+                                          (256, "float32")])
+def test_k5_simt_backward_at_every_width(hidden, dtype):
+    """Every H the simt design takes (clusters of 1, 2, 4 and 8; bf16 at
+    H = 16, which tc refuses) at its tile's rows + 3 (a ragged second tile),
+    C = 28: the simt design, against the plain version, bit-equal on a
+    rerun, with its CUDA launches."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    plan = bigru_vjp.k45_plan(hidden, dt)
+    assert plan["design"] == "simt"
+    before = bigru_vjp.design_calls["simt"]
+    _k5_matches_plain(*_case(plan["rows_bwd"] + 3, hidden, 28, dt), dt)
+    assert bigru_vjp.design_calls["simt"] == before + 2
 
 
 @pytest.mark.cuda

@@ -1,9 +1,11 @@
 """K4 and K5's shape rule and K5's staged layout, on the CPU (no card): the
 planner ``k45_plan`` that picks each call's design; a model of the K5
 recurrence's W_hh staging and reduce-scatter (csrc/rnn_train_rec.cuh, the
-recurrences of csrc/bigru_train.cu, stages W_hh in shared memory itself),
-held to the kernel source and, through a plain
-backward in that layout, to ``bigru_layer_bwd_plain``; and the launch
+recurrences of csrc/bigru_train.cu, stages W_hh in shared memory itself):
+for the simt design its thread maps, operand image, partials' buffer slots
+and rank-order sums, held to the kernel source and, through a plain
+backward in that layout, to ``bigru_layer_bwd_plain`` and the JAX
+package's ``fused_bigru_layer_tm`` (interpret mode); and the launch
 counters, which a CPU call leaves alone."""
 
 import os
@@ -25,9 +27,13 @@ def test_k45_plan_takes_fp32_on_simt(hidden):
     assert plan["design"] == "simt" and "fp32" in plan["why"]
     U, cn = plan["U"], plan["CN"]
     assert U == min(hidden, 32) and U * cn == hidden and cn in (1, 2, 4, 8)
-    # a K4 thread owns 4 rows x 2 units, a K5 thread 4 rows x 8 units
+    # a K4 thread owns 4 rows x 2 units; a K5 thread the partial of RT rows
+    # x 8 units (256 threads: NR row groups x H / 8 unit groups) and the
+    # gate math of at most QM quads of 4 units of a row half
     assert (plan["rows_fwd"] // 4) * (U // 2) == 256
-    assert (plan["rows_bwd"] // 4) * (hidden // 8) == 256
+    g = bigru_vjp.simt_bwd_geometry(hidden)
+    assert plan["rows_bwd"] == g["R"] == g["NR"] * g["RT"]
+    assert g["NR"] * (hidden // 8) == 256 and g["QM"] * 256 * 4 >= g["R0"] * U
     assert max(plan["smem_fwd"], plan["smem_bwd"]) <= SMEM_LIMIT
 
 
@@ -44,18 +50,22 @@ def test_k45_plan_takes_bf16_on_tc(hidden, U, cn):
 
 def test_k45_plan_at_the_model_width():
     """H = 256, the header's arithmetic: tc CTAs of 168,960 (K4) and 188,928
-    (K5) bytes in clusters of 4; simt of 229,376 and 180,352 in clusters of 8."""
+    (K5) bytes in clusters of 4; simt of 229,376 and 98,304 + 73,728 +
+    16,000 + 32 = 188,064 (the W_hh slice, the 8 x 72 x 32 f32 partials
+    received, the 40 x 100 operand of a row half, four barriers) in clusters
+    of 8."""
     tc = bigru_vjp.k45_plan(256, torch.bfloat16)
     simt = bigru_vjp.k45_plan(256, torch.float32)
     assert (tc["CN"], tc["smem_fwd"], tc["smem_bwd"]) == (4, 168960, 188928)
-    assert (simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == (8, 229376, 180352)
-    assert (simt["rows_fwd"], simt["rows_bwd"]) == (64, 32)
+    assert (simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == (8, 229376, 188064)
+    assert simt["smem_bwd"] == 96 * 256 * 4 + 8 * 72 * 32 * 4 + 40 * 100 * 4 + 32
+    assert (simt["rows_fwd"], simt["rows_bwd"]) == (64, 72)
 
 
 def test_k45_plan_sends_bf16_h16_to_simt():
     plan = bigru_vjp.k45_plan(16, torch.bfloat16)
     assert plan["design"] == "simt" and plan["why"] == "tc: H % 32 != 0"
-    assert (plan["U"], plan["CN"], plan["rows_fwd"], plan["rows_bwd"]) == (16, 1, 128, 512)
+    assert (plan["U"], plan["CN"], plan["rows_fwd"], plan["rows_bwd"]) == (16, 1, 128, 128)
 
 
 @pytest.mark.parametrize("hidden,dtype,reasons", [
@@ -74,10 +84,10 @@ def test_k45_plan_names_why_it_refuses(hidden, dtype, reasons):
         assert r in msg, (r, msg)
 
 
-def own_columns(H, U, c):
-    """The W_hh columns of CTA c in K5's recurrence, in staged order: k =
-    gate*U + u holds column gate*H + c*U + u."""
-    gate = torch.arange(3).view(-1, 1)
+def own_columns(H, U, c, ng=3):
+    """The W_hh columns of CTA c in K5's recurrence (ng = 4: K6's), in staged
+    order: k = gate*U + u holds column gate*H + c*U + u."""
+    gate = torch.arange(ng).view(-1, 1)
     u = torch.arange(U).view(1, -1)
     return (gate * H + c * U + u).reshape(-1)
 
@@ -117,12 +127,110 @@ def test_k5_staging_round_trip(hidden, design):
     assert torch.equal(unstage_k5(staged, U, design), whh)
 
 
+def simt_bwd_maps(H):
+    """The simt backward recurrence's thread maps at H, as
+    csrc/rnn_train_rec.cuh::bwd_rec_simt_kernel computes them from tid: the
+    gate math's quads of each row half (quad g = tid + 256 j of the half,
+    while g < its rows x U / 4: local row g / (U / 4), units 4 (g % (U / 4))
+    .. +3; ``quads[h]`` holds (tid, local row, first unit) of each) and the
+    product's tile (rows rg + i NR, units 4 jg .. +3 and H / 2 + 4 jg .. +3,
+    with jg and rg from the warp's and the lane's place)."""
+    g = bigru_vjp.simt_bwd_geometry(H)
+    U, R, R0, NR, RT, JL, NJW = (g[k] for k in ("U", "R", "R0", "NR", "RT", "JL", "NJW"))
+    uq = U // 4
+    tid = np.arange(256)
+    warp, lane = tid // 32, tid % 32
+    jg = (warp % NJW) * JL + lane % JL
+    rg = (warp // NJW) * (32 // JL) + lane // JL
+    quads = []
+    for h in range(g["NH"]):
+        rh = R0 if h == 0 else R - R0
+        q = np.arange(-(-rh * uq // 256) * 256)
+        q = q[q < rh * uq]
+        quads.append(np.stack([q % 256, q // uq, 4 * (q % uq)], axis=1))
+    return dict(g, quads=quads,
+                tile_rows=rg[:, None] + np.arange(RT)[None, :] * NR,
+                tile_units=np.concatenate([4 * jg[:, None] + np.arange(4),
+                                           H // 2 + 4 * jg[:, None] + np.arange(4)], axis=1))
+
+
+def simt_bwd_partials(op_tile, staged, H):
+    """One step of the simt backward's exchange on one row tile, moving the
+    data as the kernel does, one row half after the other. op_tile (R, NG
+    H): op(dg) of the tile's rows, column gate H + unit; staged (CN, NG U,
+    H): each CTA's W_hh slice [k][j]. For half h (rows [h R0, h R0 + rh)),
+    CTA c's gate-math threads write the operand image [R0][NG U + 4] (local
+    row, own column k = gate U + u); each product thread reads its rows of
+    the half from it and its 8 columns of the slice into a partial, and
+    stores each 4-unit half of it into the CTA that owns those units, slot
+    [c][local row][u] of the half's buffer. Returns, for each half, the
+    owners' buffers (owner, slot c, rh, U; NaN where nothing was stored) and
+    the operand images (CN, R0, NG U + 4)."""
+    m = simt_bwd_maps(H)
+    U, CN, R, R0, RT0 = m["U"], m["CN"], m["R"], m["R0"], m["RT0"]
+    ug = staged.shape[1]
+    tunits = torch.as_tensor(m["tile_units"])
+    halves = []
+    for h in range(m["NH"]):
+        lo, rh = h * R0, R0 if h == 0 else R - R0
+        rows = torch.as_tensor(m["quads"][h][:, 1])[:, None]  # the half's local rows
+        units = torch.as_tensor(m["quads"][h][:, 2])[:, None] + torch.arange(4)
+        i = slice(0, RT0) if h == 0 else slice(RT0, None)
+        trows = torch.as_tensor(m["tile_rows"][:, i]) - lo
+        imgs = torch.zeros((CN, R0, ug + 4))
+        bufs = torch.full((CN, CN, rh, U), float("nan"))
+        for c in range(CN):
+            for k in range(ug // U):  # the gate math: quad (row, u .. u + 3) -> k U + u ..
+                imgs[c][rows, k * U + units] = op_tile[rows + lo, k * H + c * U + units]
+            part = torch.einsum("trk,ktj->trj", imgs[c][trows][:, :, :ug],
+                                staged[c][:, tunits])
+            for e2 in range(2):
+                own, ju = tunits[:, 4 * e2] // U, tunits[:, 4 * e2] % U
+                for e in range(4):
+                    bufs[own[:, None], c, trows, (ju + e)[:, None]] = part[:, :, 4 * e2 + e]
+        halves.append((bufs, imgs))
+    return halves
+
+
+def simt_bwd_dh(bufs, carry):
+    """The owners' sums of one step for one row half: dh[r, b U + u] = carry
+    + the partials of slots 0 .. CN-1 of owner b's buffer, added in rank
+    order (carry: the GRU's dt z; zeros for the LSTM, whose kernel starts its
+    sum from 0)."""
+    CN, _, _, U = bufs.shape
+    dh = carry.clone()
+    for b in range(CN):
+        for c in range(CN):
+            dh[:, b * U:(b + 1) * U] = dh[:, b * U:(b + 1) * U] + bufs[b, c]
+    return dh
+
+
+def simt_bwd_step(op_dg, staged, carry, H):
+    """dh (N, H) of one step of the simt design for all N rows: row tiles of
+    R rows (the last padded with zero rows), each through
+    ``simt_bwd_partials`` and, half by half, ``simt_bwd_dh``."""
+    m = bigru_vjp.simt_bwd_geometry(H)
+    R, R0 = m["R"], m["R0"]
+    N = op_dg.shape[0]
+    dh = torch.empty((N, H))
+    for r0 in range(0, N, R):
+        n = min(R, N - r0)
+        op_tile, c_tile = torch.zeros((R, op_dg.shape[1])), torch.zeros((R, H))
+        op_tile[:n], c_tile[:n] = op_dg[r0:r0 + n], carry[r0:r0 + n]
+        tile = torch.cat([simt_bwd_dh(bufs, c_tile[h * R0:h * R0 + bufs.shape[2]])
+                          for h, (bufs, _imgs) in
+                          enumerate(simt_bwd_partials(op_tile, staged, H))])
+        dh[r0:r0 + n] = tile[:n]
+    return dh
+
+
 def _k5_staged(dout, x, w_ih, w_hh, out, gates, compute_dtype, U, design):
     """K5's arithmetic in plain PyTorch, in the kernel's layout: per step, each
     CTA c of the cluster multiplies its own 3U columns of op(dhg) by its
     staged W_hh slice into a partial dh for all H units; the owner of units
-    [c'U, (c'+1)U) adds dt z and the CN partials in rank order. dx and the
-    weight gradients as single products after the recurrence."""
+    [c'U, (c'+1)U) adds dt z and the CN partials in rank order (simt: through
+    the operand images and buffers of ``simt_bwd_step``). dx and the weight
+    gradients as single products after the recurrence."""
     L, N, C = x.shape
     H = w_hh.shape[1]
     cn = H // U
@@ -156,9 +264,12 @@ def _k5_staged(dout, x, w_ih, w_hh, out, gates, compute_dtype, U, design):
             dhg = torch.cat([dr, dz, dn * r[t]], dim=1)
             dhg_all[t] = dhg
             dh = dt * z[t]
+            if design == "simt":
+                dh = simt_bwd_step(op(dhg), staged, dh, H)
+                continue
             for c in range(cn):
                 a = op(dhg[:, own_columns(H, U, c)])
-                dh = dh + (a @ staged[c] if design == "simt" else a @ staged[c].T)
+                dh = dh + a @ staged[c].T
         dxg_all = dxg_all.reshape(L * N, 3 * H)
         dhg_all = dhg_all.reshape(L * N, 3 * H)
         dx += op(dxg_all) @ op(w_ih[d]).T
@@ -207,8 +318,189 @@ def test_staging_model_follows_the_kernel_source():
                  "*reinterpret_cast<uint4*>(wb + j * DS + k8) = __ldg(reinterpret_cast<const "
                  "uint4*>( W + (size_t)j * G + gate * H + u0 + u));",
                  "for (uint32_t c = 0; c < cn; ++c) dh += rcv[(size_t)c * R * U + q];",
+                 "for (int c = 0; c < CN; ++c) dh += f4_at(part[c], e);",
                  "const int u0 = crank * U;"):
         assert line in src, line
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_simt_bwd_maps_cover_each_pair_and_partial_once(hidden):
+    """The simt backward's 256 threads: each row half's gate-math quads
+    cover its rows x U (row, unit) pairs once, at most QM quads a thread;
+    the product's tiles cover the R x H partial once, a thread's first RT0
+    rows in the first half and the rest in the second; each 4-unit half of
+    a tile lies in one owner's U units, so a peer's threads store every
+    (row, unit) of an owner's slot of a half once: the bytes that owner's
+    `full` barrier expects of each peer, rows x U x 4."""
+    m = simt_bwd_maps(hidden)
+    U, CN, R, R0, RT0 = m["U"], m["CN"], m["R"], m["R0"], m["RT0"]
+    assert m["NH"] == (2 if m["RT"] > 1 else 1) and (m["NH"] == 2 or R0 == R)
+    qm = 0
+    for h, quads in enumerate(m["quads"]):
+        rh = R0 if h == 0 else R - R0
+        cover = np.zeros((rh, U), int)
+        np.add.at(cover, (quads[:, 1:2], quads[:, 2:3] + np.arange(4)), 1)
+        assert (cover == 1).all()
+        qm = max(qm, np.bincount(quads[:, 0], minlength=256).max())
+    assert qm == m["QM"] <= 2
+    tiles = np.zeros((R, hidden), int)
+    np.add.at(tiles, (m["tile_rows"][:, :, None], m["tile_units"][:, None, :]), 1)
+    assert (tiles == 1).all()
+    assert (m["tile_rows"][:, :RT0] < R0).all() and (m["tile_rows"][:, RT0:] >= R0).all()
+    owners = m["tile_units"] // U
+    assert (owners[:, :4] == owners[:, :1]).all() and (owners[:, 4:] == owners[:, 4:5]).all()
+    for h in range(m["NH"]):
+        rows = m["tile_rows"][:, :RT0] if h == 0 else m["tile_rows"][:, RT0:]
+        for b in range(CN):  # one peer's stores into owner b's slot of the half
+            got = np.zeros((R, U), int)
+            for e2 in range(2):
+                mine = owners[:, 4 * e2] == b
+                np.add.at(got, (rows[mine][:, :, None],
+                                (m["tile_units"][mine][:, None, 4 * e2:4 * e2 + 4] % U)), 1)
+            want = np.zeros((R, U), int)
+            want[(R0 * h):(R0 * h + rows.shape[1] * m["NR"])] = 1
+            assert (got == want).all()
+    assert m["tile_units"].min() % 4 == 0 and (m["tile_units"] % 4 == np.arange(8) % 4).all()
+
+
+@pytest.mark.parametrize("ng", [3, 4])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_simt_bwd_buffers_give_the_rank_order_sum(hidden, ng):
+    """One step of the exchange on integer-valued operands and weights, where
+    every order of the sums is exact: for each row half, each CTA's operand
+    image holds its own gate columns k = gate U + u at the half's local row
+    (zero padding), every slot of every owner's buffer is written (no NaN
+    left), and the owners' rank-order sums are dh = carry + op(dg) W_hh^T
+    exactly."""
+    rng = np.random.RandomState(hidden + ng)
+    m = simt_bwd_maps(hidden)
+    U, CN, R, R0 = m["U"], m["CN"], m["R"], m["R0"]
+    w = torch.from_numpy(rng.randint(-3, 4, (hidden, ng * hidden)).astype(np.float32))
+    op_tile = torch.from_numpy(rng.randint(-3, 4, (R, ng * hidden)).astype(np.float32))
+    carry = torch.from_numpy(rng.randint(-3, 4, (R, hidden)).astype(np.float32))
+    staged = torch.stack([w[:, own_columns(hidden, U, c, ng)].T for c in range(CN)])
+    halves = simt_bwd_partials(op_tile, staged, hidden)
+    assert len(halves) == m["NH"]
+    for h, (bufs, imgs) in enumerate(halves):
+        lo, rh = h * R0, bufs.shape[2]
+        assert not torch.isnan(bufs).any()
+        for c in range(CN):
+            assert torch.equal(imgs[c][:rh, :ng * U],
+                               op_tile[lo:lo + rh, own_columns(hidden, U, c, ng)])
+            assert not imgs[c][:, ng * U:].any()
+        want = carry[lo:lo + rh] + op_tile[lo:lo + rh] @ w.T
+        assert torch.equal(simt_bwd_dh(bufs, carry[lo:lo + rh]), want)
+
+
+def test_simt_bwd_rows_follow_the_occupancy_rule():
+    """R at H = 256 is the least multiple of 8 (the thread layout's 8 row
+    groups) whose 1,024-row tiles fill the fewest waves of 15 resident
+    clusters of 8 and whose CTA fits in shared memory, for both cells: 72
+    rows, 15 tiles a direction, 2 waves (64 rows take 3; the LSTM's CTA of
+    80 rows would need 234,144 bytes); the source's K56_RT256 is the
+    planner's."""
+    rows, clusters = 1024, 15  # the train path's rows; resident clusters on the H100
+
+    def waves(R):
+        return bigru_vjp.bwd_rec_waves(R, rows, clusters)
+
+    fits = [R for R in range(8, 257, 8)
+            if max(bigru_vjp.k5_smem("simt", 256, 32, R, ng) for ng in (3, 4)) <= SMEM_LIMIT]
+    best = min(fits, key=lambda R: (waves(R), R))
+    assert best == 72 == bigru_vjp.simt_bwd_geometry(256)["R"]
+    assert (waves(72), waves(64)) == (2, 3)
+    assert bigru_vjp.k5_smem("simt", 256, 32, 80, 4) == 234144 > SMEM_LIMIT
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
+    with open(path) as f:
+        assert "#define K56_RT256 {}\n".format(bigru_vjp.SIMT_BWD_RT256) in f.read()
+
+
+def test_simt_bwd_model_follows_the_kernel_source():
+    """The maps and the exchange of ``simt_bwd_maps`` / ``simt_bwd_partials``
+    are the kernel's: its geometry and row halves, the pairs' and tiles'
+    indices, the operand image [local row][k U + u] of row stride NG U + 4
+    that the halves share, the owner and slot of each 4-unit half of a
+    partial in the half's buffer, the arrivals each owner counts, and the
+    shared memory's parts."""
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
+    with open(path) as f:
+        src = " ".join(f.read().split())
+    for line in ("static constexpr int U = H < 32 ? H : 32;",
+                 "static constexpr int JG = H / 8;",
+                 "static constexpr int JL = JG < 8 ? JG : 8;",
+                 "static constexpr int NJW = JG / JL;",
+                 "static constexpr int NRW = 8 / NJW;",
+                 "static constexpr int NR = NRW * (32 / JL);",
+                 "static constexpr int RT = H == 256 ? K56_RT256 : CN;",
+                 "static constexpr int R = NR * RT;",
+                 "static constexpr int NH = RT > 1 ? 2 : 1;",
+                 "static constexpr int RT0 = NH == 2 ? (RT + 1) / 2 : RT;",
+                 "constexpr int U = Gm::U, CN = Gm::CN, UG = NG * U, DS = UG + 4, G = NG * H;",
+                 "constexpr int NH = Gm::NH, RT0 = Gm::RT0, R0 = NR * RT0;",
+                 "constexpr int UQ = U / 4;",
+                 "const int g = tid + REC_THREADS * j;",
+                 "const int row = row0 + h * R0 + g / UQ, unit = u0 + 4 * (g % UQ);",
+                 "const int rl = g / UQ, u = 4 * (g % UQ), row = row0 + h * R0 + rl;",
+                 "const int jg = (warp % NJW) * JL + lane % JL;",
+                 "const int rg = (warp / NJW) * (32 / JL) + lane / JL;",
+                 "const int jo[2] = {4 * jg, H / 2 + 4 * jg};",
+                 "const int ni = h ? RT - RT0 : RT0;",
+                 "float* rcv = recv + h * CN * R0 * U;",
+                 "part[c] = *reinterpret_cast<const float4*>(rcv + (c * rh + rl) * U + u);",
+                 "for (int c = 0; c < CN; ++c) dh += f4_at(part[c], e);",
+                 "*reinterpret_cast<float4*>(opb + (g / UQ) * DS + k * U + 4 * (g % UQ)) =",
+                 "const int hn = h + 1 < NH ? h + 1 : 0, sn = h + 1 < NH ? s : s + 1;",
+                 "w[kk][e] = *reinterpret_cast<const float4*>(ws + (k + kk) * H + jo[e]);",
+                 "const float4 av = *reinterpret_cast<const float4*>(opb + (rg + i * NR) * DS + k);",
+                 "acc[i][4 * e + 0] = fmaf(a[kk], w[kk][e].x, acc[i][4 * e + 0]);",
+                 "const uint32_t own = (uint32_t)(jo[e] / U);",
+                 "const int ju = jo[e] % U;",
+                 "const uint32_t la = smem_u32(rcv + (crank * rh + rg + i * NR) * U + ju);",
+                 "mbar_init(full_bar[h], 1);",
+                 "if (s + 1 < L) mbar_expect_tx(full_bar[h], (CN - 1) * rh * U * 4);",
+                 "st_async_v4(la, full_bar[h], own, val);",
+                 "if constexpr (!LSTM) dh = carry[h][j][e];",
+                 "carry[h][j][e] = __fmul_rn(dt, zg);",
+                 "m.dg = m.recv + (size_t)cn * R * U * 4;",
+                 "m.dh = m.dg + (size_t)nr * rt0 * (UG + 4) * 4;"):
+        assert line in src, line
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+def test_simt_staged_backward_equals_the_jax_layer(hidden):
+    """The simt model (``_k5_staged``) against the JAX package's
+    ``fused_bigru_layer_tm`` (through ``birnn_apply_pallas_trainable``, one
+    layer, b_tile 8, interpret mode) on the same numpy weights, inputs and
+    cotangent: tests/test_torch_bigru_vjp.py's gate, atol 2e-4 / rtol 1e-3
+    (f32 sums in other orders, the JAX kernel's bwd half in reversed time)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ccsmeth_tpu.ops.bigru_pallas_vjp import birnn_apply_pallas_trainable
+
+    rng = np.random.RandomState(hidden + 7)
+    layers = init_rnn_params(rng, 11, hidden, 1)
+    x = rng.randn(5, 6, 11).astype(np.float32)  # (N, L, C)
+    cot = rng.randn(5, 6, 2 * hidden).astype(np.float32)
+
+    def loss(x_, ls):
+        out, _ = birnn_apply_pallas_trainable(ls, x_, b_tile=8, interpret=True)
+        return jnp.sum(out * cot)
+
+    gx, gl = jax.grad(loss, argnums=(0, 1))(jnp.asarray(x), layers)
+    wih, bih, whh, bhh = layer_weights(layers[0])
+    xt = torch.from_numpy(x).transpose(0, 1).contiguous()
+    dout = torch.from_numpy(cot).transpose(0, 1).contiguous()
+    out, gates = bigru_vjp.bigru_layer_train_fwd_plain(xt, wih, bih, whh, bhh)
+    dx, dw_ih, db_ih, dw_hh, db_hh = _k5_staged(dout, xt, wih, whh, out, gates,
+                                                torch.float32, min(hidden, 32), "simt")
+    np.testing.assert_allclose(dx.transpose(0, 1).numpy(), np.asarray(gx), atol=2e-4, rtol=1e-3)
+    for d, name in enumerate(("fwd", "bwd")):
+        want = gl[0][name]
+        for got, key, tr in ((dw_ih[d], "w_ih", True), (dw_hh[d], "w_hh", True),
+                             (db_ih[d], "b_ih", False), (db_hh[d], "b_hh", False)):
+            np.testing.assert_allclose((got.T if tr else got).numpy(), np.asarray(want[key]),
+                                       atol=2e-4, rtol=1e-3, err_msg=key)
 
 
 def _counts():
