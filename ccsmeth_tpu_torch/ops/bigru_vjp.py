@@ -42,15 +42,19 @@ dtype.
   1, 2, 4 or 8 CTAs and fits in shared memory (H = 32, 64, 128, 256);
 - ``simt``: exact f32 FMAs (no TF32), fp32 always and the bf16 shapes ``tc``
   refuses: U = min(H, 32) units a CTA, clusters of 1, 2, 4 or 8 CTAs
-  (H = 16, 32, 64, 128, 256); the forward tile holds 2 units a thread, or 1
-  where that does not fit (the LSTM at H = 256). The backward recurrence is
-  a dataflow with no cluster barrier in the time loop, over two row halves
-  of its tile in turn, so that one half's partials travel while the other
-  half computes: a thread owns 8 units by RT rows of the partial (72 rows a
-  tile at H = 256, where 15 tiles a direction fill two waves of 15
-  clusters; ``simt_bwd_geometry``), stores each half's into the owners'
-  buffers by st.async, whose bytes complete on the owners' mbarriers, and
-  issues the next gate math's residual loads during the product.
+  (H = 16, 32, 64, 128, 256). Both recurrences are dataflows with no
+  cluster barrier in the time loop, over two row halves of their tile, so
+  that one half's data travels while the other half computes, on 72-row
+  tiles at H = 256, where 15 tiles a direction fill two waves of
+  15 clusters. The forward (``simt_fwd_geometry``): a thread owns one unit,
+  its gates and RT rows, in two warp groups that take turns at the product
+  (each half of the tile's rows), so that one group's gate math, stores and
+  exchange run while the other multiplies; each group's new h goes to its
+  peers as one bulk copy completing on their mbarriers. The backward
+  (``simt_bwd_geometry``): a thread owns 8 units by RT rows of the partial,
+  stores each half's into the owners' buffers by st.async, whose bytes
+  complete on the owners' mbarriers, and issues the next gate math's
+  residual loads during the product.
 
 What neither takes raises ``ValueError`` with the reason; nothing falls back
 to the plain version. The products of both layers (the projection, dx and the
@@ -92,6 +96,12 @@ GATES = {"gru": 3, "lstm": 4}  # NG, the gate count of each cell
 # H100, ``bwd_rec_occupancy``): 15 tiles a direction, 30 clusters, 2 waves
 # (64 rows would take 3)
 SIMT_BWD_RT256 = 9
+# The simt forward recurrence's rows a thread at H = 256 (K46_FWD_RT256 in
+# csrc/rnn_train_rec.cuh; R = 8 RT rows a tile): by the same rule, for both
+# cells, 72 rows (64 would take 3 waves at 1,024 rows; no tile that fits
+# has few enough tiles for 1 wave), and one more row a thread (80) where
+# that saves a wave (``simt_fwd_rows``: 512 rows in one)
+SIMT_FWD_RT256 = 9
 _DESIGN_CODE = {"simt": 0, "tc": 1}
 
 launches_fwd = 0  # K4 calls since the caller last set it to 0
@@ -105,6 +115,9 @@ gemm_calls = {"wgmma": 0}
 
 _lib = None
 _lock = threading.Lock()
+# cell -> clusters of the simt forward at H = 256 (fp32) that the card held
+# at once when the cell's library was loaded (``resident_fwd_clusters``)
+fwd_clusters = {}
 
 
 def build() -> str:
@@ -121,6 +134,7 @@ def bind(path: str):
     for name, args in (
             ("k4_proj_launch", [i] + [p] * 5 + [i] * 4 + [p, i]),
             ("k4_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
+            ("k4_rec_occupancy", [i] * 4 + [p] * 3 + [i]),
             ("k5_rec_launch", [i, i] + [p] * 7 + [i] * 5 + [p, i]),
             ("k5_rec_occupancy", [i] * 4 + [p] * 3 + [i]),
             ("k5_dx_launch", [i, i] + [p] * 3 + [i] * 4 + [p, i]),
@@ -135,9 +149,12 @@ def bind(path: str):
 
 def _load():
     global _lib
-    with _lock:
-        if _lib is None:
-            _lib = bind(build())
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                lib = bind(build())
+                fwd_clusters["gru"] = resident_fwd_clusters(lib, "gru")
+                _lib = lib
     return _lib
 
 
@@ -181,9 +198,49 @@ def simt_bwd_geometry(H: int) -> dict:
             "R": nr * rt, "NH": nh, "RT0": rt0, "R0": nr * rt0, "QM": -(-rmax * U // 4 // 256)}
 
 
-def bwd_rec_waves(R: int, rows: int, clusters: int) -> int:
-    """Waves of the backward recurrence: its clusters (one a row tile of R
-    rows and direction) over the clusters the card holds at once."""
+def simt_fwd_geometry(H: int, rt: int = 0) -> dict:
+    """The simt forward recurrence's thread layout at H (16, 32, 64, 128 or
+    256; ``SimtFwdGeom`` in ``csrc/rnn_train_rec.cuh``) and RT rows a thread
+    (``rt``, or the default tile's: 8, ``SIMT_FWD_RT256`` at H = 256): U =
+    min(H, 32) units a CTA; 256 threads in NGR = 2 warp groups of 4 warps,
+    a warp's lanes the U units by SW = 32 / U row slots, NQ = 4 SW slots a
+    group; a thread owns one unit, its gates and RT rows, a group RG = NQ RT
+    rows, R = NGR RG rows a tile."""
+    U = min(H, 32)
+    sw = 32 // U
+    ngr = 2
+    nq = 8 // ngr * sw
+    rt = rt or (SIMT_FWD_RT256 if H == 256 else 8)
+    return {"U": U, "CN": H // U, "SW": sw, "NGR": ngr, "NQ": nq, "RT": rt, "RG": nq * rt,
+            "R": ngr * nq * rt}
+
+
+def k4_smem(design: str, H: int, U: int, R: int, ng: int = 3) -> int:
+    """Shared memory of a forward recurrence CTA (``fwd_smem`` in
+    ``csrc/rnn_train_rec.cuh``), NG = ng gates. simt: the W_hh slice H x NG
+    x U f32, h H x R f32 and four mbarriers. tc: the W_hh slice NG U x
+    (H + 8) and h 2 x R x (H + 8), bf16."""
+    if design == "tc":
+        return (ng * U + 2 * R) * (H + 8) * 2
+    return H * ng * U * 4 + H * R * 4 + 32
+
+
+def simt_fwd_rows(plan: dict, rows: int, clusters: int) -> int:
+    """The rows a tile of the forward for a call of ``rows`` rows, its
+    clusters ``clusters`` resident at once: of the plan's tiles
+    (``tiles_fwd``: in simt at H = 256 the default and the tile of one more
+    row a thread, the kernel's two instantiations there; else one) the one
+    that takes the least time, waves x rows a tile (the smaller on a tie):
+    72 at the train path's 1,024 rows (2 waves of 15 clusters; 80 rows
+    would take the same 2), 80 at 512 (1 wave; 72 would take 2, the second
+    holding one cluster)."""
+    return min(plan["tiles_fwd"], key=lambda r: (rec_waves(r, rows, clusters) * r, r))
+
+
+def rec_waves(R: int, rows: int, clusters: int) -> int:
+    """Waves of a recurrence (forward or backward): its clusters (one a row
+    tile of R rows and direction) over the clusters the card holds at
+    once."""
     return -(-2 * -(-rows // R) // clusters)
 
 
@@ -192,9 +249,38 @@ def bwd_rec_occupancy(plan: dict, compute_dtype, device: int = 0) -> dict:
     operands as the bound library launches it: {"clusters": how many the
     card holds at once (cudaOccupancyMaxActiveClusters), "smem": its shared
     memory a CTA, "rows": its rows a tile}. Launches nothing."""
+    return _occupancy(plan, compute_dtype, device, ("k5_rec_occupancy",
+                                                    "k6_bwd_rec_occupancy"))
+
+
+def fwd_rec_occupancy(plan: dict, compute_dtype, device: int = 0) -> dict:
+    """The forward recurrence of ``plan`` at its default tile, as
+    ``bwd_rec_occupancy`` reads the backward's: {"clusters", "smem",
+    "rows"}. Launches nothing."""
+    return _occupancy(plan, compute_dtype, device, ("k4_rec_occupancy",
+                                                    "k6_rec_occupancy"))
+
+
+def resident_fwd_clusters(lib, cell: str) -> int:
+    """How many clusters of the simt forward of ``cell`` at H = 256 in fp32
+    (the one plan with two tiles) the current card holds at once, through
+    ``lib``, the cell's library: read once, when the library is loaded, for
+    ``fwd_rows`` (the tile it picks changes the time, never the bits)."""
+    fn = "k4_rec_occupancy" if cell == "gru" else "k6_rec_occupancy"
+    return _occupancy_in(lib, fn, k45_plan(256, torch.float32, cell), torch.float32,
+                         torch.cuda.current_device())["clusters"]
+
+
+def _occupancy(plan, compute_dtype, device, fns):
+    """The C entry ``fns[0]`` (the GRU's, in ``csrc/bigru_train.cu``) or
+    ``fns[1]`` (the LSTM's, ``csrc/bilstm_train.cu``) for ``plan``."""
+    lib, fn = ((_load(), fns[0]) if plan["cell"] == "gru"
+               else (bilstm_vjp._load(), fns[1]))
+    return _occupancy_in(lib, fn, plan, compute_dtype, device)
+
+
+def _occupancy_in(lib, fn, plan, compute_dtype, device):
     H = plan["U"] * plan["CN"]
-    lib, fn = ((_load(), "k5_rec_occupancy") if plan["cell"] == "gru"
-               else (bilstm_vjp._load(), "k6_bwd_rec_occupancy"))
     out = [ctypes.c_int(0) for _ in range(3)]
     with torch.cuda.device(device):
         rc = getattr(lib, fn)(*_codes(plan, compute_dtype), H, plan["U"],
@@ -214,7 +300,7 @@ def _tc_plan(H: int, ng: int):
         if H % U != 0:
             continue
         cn = H // U
-        smem_fwd = (ng * U + 2 * TC_ROWS_FWD) * (H + 8) * 2
+        smem_fwd = k4_smem("tc", H, U, TC_ROWS_FWD, ng)
         smem_bwd = k5_smem("tc", H, U, TC_ROWS_BWD, ng)
         if cn not in (1, 2, 4, 8):
             why = why or "tc: a cluster of {} CTAs".format(cn)
@@ -222,7 +308,8 @@ def _tc_plan(H: int, ng: int):
             why = why or "tc: {} bytes of shared memory a CTA".format(max(smem_fwd, smem_bwd))
         else:
             return {"design": "tc", "U": U, "CN": cn, "rows_fwd": TC_ROWS_FWD,
-                    "rows_bwd": TC_ROWS_BWD, "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
+                    "tiles_fwd": (TC_ROWS_FWD,), "rows_bwd": TC_ROWS_BWD,
+                    "smem_fwd": smem_fwd, "smem_bwd": smem_bwd}
     return why
 
 
@@ -230,27 +317,25 @@ def simt_plan(H: int, ng: int):
     """The simt design's geometry for H and NG gates, or the reason it
     refuses H; K1's and K2's simt design (``bigru.k1_plan``) takes the same
     H, and runs this forward recurrence with this geometry on bf16
-    operands. A forward thread owns 4 rows x UPT units (1024 UPT / U rows a
-    tile; UPT = 2, or 1 where that tile does not fit); the backward's tile is
-    ``simt_bwd_geometry(H)``'s (72 rows at H = 256, where a thread owns 9
-    rows x 8 units of the partial; 64 or 128 below)."""
+    operands. The forward's tile is ``simt_fwd_geometry(H)``'s, the
+    backward's ``simt_bwd_geometry(H)``'s: 72 rows each at H = 256 (a
+    forward thread owns 9 rows x 1 unit x NG gates, a backward thread 9 rows
+    x 8 units of the partial); 64 or 128 below."""
     U = min(H, 32)
     if U % 16 != 0 or H % U != 0:
         return "simt: H must be 16 or a multiple of 32 (H={})".format(H)
     cn = H // U
     if cn not in (1, 2, 4, 8):
         return "simt: a cluster of {} CTAs".format(cn)
-
-    def smem_fwd(rows):
-        return (H * ng * U + 2 * H * rows) * 4
-
-    rows_fwd = 2048 // U if smem_fwd(2048 // U) <= SMEM_LIMIT else 1024 // U
+    rows_fwd = simt_fwd_geometry(H)["R"]
     rows_bwd = simt_bwd_geometry(H)["R"]
-    smem = (smem_fwd(rows_fwd), k5_smem("simt", H, U, rows_bwd, ng))
+    smem = (k4_smem("simt", H, U, rows_fwd, ng), k5_smem("simt", H, U, rows_bwd, ng))
     if max(smem) > SMEM_LIMIT:
         return "simt: {} bytes of shared memory a CTA".format(max(smem))
+    tiles_fwd = (rows_fwd, rows_fwd + 8) if H == 256 else (rows_fwd,)
     return {"design": "simt", "U": U, "CN": cn, "rows_fwd": rows_fwd,
-            "rows_bwd": rows_bwd, "smem_fwd": smem[0], "smem_bwd": smem[1]}
+            "tiles_fwd": tiles_fwd, "rows_bwd": rows_bwd, "smem_fwd": smem[0],
+            "smem_bwd": smem[1]}
 
 
 def k45_plan(H: int, compute_dtype=torch.float32, cell: str = "gru") -> dict:
@@ -438,15 +523,26 @@ def k4_projection(x, w_ih, b_ih, b_hh, plan, compute_dtype):
     return xg
 
 
+def fwd_rows(plan, N) -> int:
+    """The forward recurrence's rows a tile for a call of N rows: the plan's
+    one tile, or of its two (simt at H = 256) the one ``simt_fwd_rows``
+    picks with the cell's ``fwd_clusters``."""
+    tiles = plan["tiles_fwd"]
+    if len(tiles) == 1:
+        return tiles[0]
+    (_load if plan["cell"] == "gru" else bilstm_vjp._load)()
+    return simt_fwd_rows(plan, N, fwd_clusters[plan["cell"]])
+
+
 def k4_recurrence(xg, w_hh, b_hh, L, N, plan, compute_dtype):
     """K4 (b), one CUDA launch: both directions from xg to out (L, N, 2H) and
-    gates (2, L, N, 4H) in the store type."""
+    gates (2, L, N, 4H) in the store type, ``fwd_rows``' rows a tile."""
     H = w_hh.shape[1]
     out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=xg.device)
     gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=xg.device)
     _launch("k4_rec_launch", plan, xg, *_codes(plan, compute_dtype), xg.data_ptr(),
             w_hh.data_ptr(), b_hh.data_ptr(), out.data_ptr(), gates.data_ptr(), L, N, H,
-            plan["U"], plan["rows_fwd"])
+            plan["U"], fwd_rows(plan, N))
     return out, gates
 
 

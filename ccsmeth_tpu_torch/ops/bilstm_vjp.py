@@ -80,6 +80,7 @@ def bind(path: str):
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("k6_rec_launch", [i, i] + [p] * 5 + [i] * 5 + [p, i]),
                        ("k6_bwd_rec_launch", [i, i] + [p] * 6 + [i] * 5 + [p, i]),
+                       ("k6_rec_occupancy", [i] * 4 + [p] * 3 + [i]),
                        ("k6_bwd_rec_occupancy", [i] * 4 + [p] * 3 + [i])):
         fn = getattr(lib, name)
         fn.restype = i
@@ -89,9 +90,12 @@ def bind(path: str):
 
 def _load():
     global _lib
-    with _lock:
-        if _lib is None:
-            _lib = bind(build())
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                lib = bind(build())
+                bigru_vjp.fwd_clusters["lstm"] = bigru_vjp.resident_fwd_clusters(lib, "lstm")
+                _lib = lib
     return _lib
 
 
@@ -212,7 +216,7 @@ def bilstm_layer_bwd_plain(dout, x, w_ih, w_hh, out, c, gates,
 def k6_recurrence(xg, w_hh, L, N, plan, compute_dtype):
     """K6 forward (b), one CUDA launch: both directions from the projection
     xg (2, L*N, 4H) f32 to out (L, N, 2H), c (2, L, N, H) and gates
-    (2, L, N, 4H) in the store type."""
+    (2, L, N, 4H) in the store type, ``bigru_vjp.fwd_rows``' rows a tile."""
     H = w_hh.shape[1]
     dev = xg.device
     out = torch.empty((L, N, 2 * H), dtype=compute_dtype, device=dev)
@@ -220,7 +224,8 @@ def k6_recurrence(xg, w_hh, L, N, plan, compute_dtype):
     gates = torch.empty((2, L, N, 4 * H), dtype=compute_dtype, device=dev)
     bigru_vjp._launch("k6_rec_launch", plan, xg, *bigru_vjp._codes(plan, compute_dtype),
                       xg.data_ptr(), w_hh.data_ptr(), out.data_ptr(), c.data_ptr(),
-                      gates.data_ptr(), L, N, H, plan["U"], plan["rows_fwd"], lib=_load())
+                      gates.data_ptr(), L, N, H, plan["U"],
+                      bigru_vjp.fwd_rows(plan, N), lib=_load())
     return out, c, gates
 
 

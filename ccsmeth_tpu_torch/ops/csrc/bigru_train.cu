@@ -38,7 +38,9 @@
 //          W_hh in shared memory for all L steps. Per step it writes out and
 //          the residuals r, z, n, hg_n = h W_hn + b_hn from the registers
 //          that hold them, and sends its new h to every CTA of the cluster
-//          (distributed shared memory, one cluster barrier a step).
+//          (distributed shared memory: simt by bulk copies completing on the
+//          receivers' mbarriers, no cluster barrier in the time loop; tc by
+//          remote stores, one cluster barrier a step).
 //   K5 (a) the recurrence that carries only dh, both directions at once.
 //          Per step: dt = dout + dh; the gate gradients dr, dz, dn from the
 //          residuals and h_prev (the stored output one step earlier in the
@@ -80,10 +82,12 @@
 //     dhg [row][k], both k-contiguous bf16, each warp one 16-row tile by
 //     H/4 units; 188,928 bytes a CTA at H = 256.
 //   - simt (exact f32 FMAs on the CUDA cores, no TF32, accurate expf and
-//     tanhf): U = 32, clusters of 8 at H = 256. K4 (b): 64 rows a tile, a
-//     thread 4 rows x 2 units x 3 gates; W_hh slice [k][gate][u] f32
-//     (96 KB) and h double-buffered [k][row] f32 (2 x 64 KB): 229,376
-//     bytes a CTA. K5 (a): rnn_train_rec.cuh's simt backward, 72 rows a
+//     tanhf): U = 32, clusters of 8 at H = 256. K4 (b): rnn_train_rec.cuh's
+//     simt forward, 72 rows a tile in two warp groups that take turns at
+//     the product (15 tiles a direction at 1,024 rows: two full waves), a
+//     thread 9 rows x 1 unit x 3 gates; W_hh slice [k][gate][u] f32 (96 KB)
+//     and h [k][row] f32 (72 KB): 172,064 bytes a CTA, with no cluster
+//     barrier in the time loop. K5 (a): rnn_train_rec.cuh's simt backward, 72 rows a
 //     tile in two row halves, a thread 9 rows x 8 units of the partial;
 //     W_hh slice [k][j] f32 (96 KB), the partials received (72 KB) and a
 //     half's dhg operand (16 KB): 188,064 bytes, with no cluster barrier in
@@ -138,7 +142,8 @@ int k4_proj_launch(int dtype, const void* x, const void* wih, const void* bih,
 }
 
 // K4 (b): from xg (2, L N, 3H) f32 to out (L, N, 2H) and gates (2, L, N, 4H)
-// in the store type; R rows a tile, clusters of H / U CTAs.
+// in the store type; R rows a tile (tc: 64; simt: fwd_simt_rows(H), or at
+// H = 256 one more row a thread), clusters of H / U CTAs.
 int k4_rec_launch(int design, int dtype, const void* xg, const void* whh, const void* bhh,
                   void* out, void* gates, int L, int N, int H, int U, int R, void* stream,
                   int device) {
@@ -180,6 +185,16 @@ int k5_rec_launch(int design, int dtype, const void* dout, const void* out,
   kp.U = U;
   kp.R = R;
   return bwd_rec_run<false>(design, dtype, kp, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of K4 (b)'s recurrence at design (0 = simt, 1 = tc),
+// dtype (0 = float32, 1 = bfloat16), H and U the card holds at once, into
+// *clusters, its shared memory a CTA into *smem_bytes and its rows a tile
+// into *rows. Launches nothing. Returns 0 or a cudaError_t value.
+int k4_rec_occupancy(int design, int dtype, int H, int U, int* clusters, int* smem_bytes,
+                     int* rows, int device) {
+  USE_DEVICE(device);
+  return fwd_rec_occupancy<false>(design, dtype, H, U, clusters, smem_bytes, rows);
 }
 
 // How many clusters of K5 (a)'s recurrence at design (0 = simt, 1 = tc),

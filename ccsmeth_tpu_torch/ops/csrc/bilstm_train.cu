@@ -36,8 +36,9 @@
 //         direction), both directions at once; CTA c keeps its 4U columns of
 //         W_hh (the i, f, g, o of its own U units) in shared memory for all
 //         L steps, c stays f32 in the registers of its one owner, and the new
-//         h goes to every CTA of the cluster once a step. Per step: out, c and
-//         the gates in the store type.
+//         h goes to every CTA of the cluster once a step (simt: by bulk
+//         copies onto the receivers' mbarriers, no cluster barrier in the
+//         time loop). Per step: out, c and the gates in the store type.
 //   backward, three or four launches (ops/bigru_vjp.py::bwd_cuda_launches):
 //     (a) the recurrence over reversed time (k6_bwd_rec_launch), carrying dh
 //         and dc: tc = tanh(c); dh_t = dout + dh; dc = dh_t o (1 - tc^2) + dc;
@@ -60,9 +61,10 @@
 //         atomics: reruns are bit-equal.
 //   Shared memory at H = 256: tc U = 64, clusters of 4: forward (4U + 2 x 64)
 //   x (H + 8) x 2 = 202,752 bytes, backward 225,792; simt U = 32, clusters of
-//   8: forward 32 rows a tile, a thread 4 rows x 1 unit x 4 gates (a 64-row
-//   tile of 2 units would need 262,144 bytes), W_hh slice 131,072 + h
-//   2 x 32 KB = 196,608 bytes; backward 72 rows a tile in two row halves,
+//   8: forward 72 rows a tile in two warp groups that take turns at the
+//   product (the GRU's: two full waves at 1,024 rows), a thread 9 rows x 1
+//   unit x 4 gates, W_hh slice 131,072 + h 73,728 + the barriers = 204,832
+//   bytes; backward 72 rows a tile in two row halves,
 //   W_hh slice 131,072 + the partials received 73,728 + a half's operand
 //   21,120 + the barriers = 225,952 bytes (rnn_train_rec.cuh's simt
 //   backward).
@@ -83,7 +85,8 @@ extern "C" {
 
 // design: 0 = simt, 1 = tc (bf16 only); dtype: 0 = float32, 1 = bfloat16
 // (operands and stored outputs). Clusters of H / U CTAs, R rows a tile (tc:
-// 64; simt: 1024 UPT / U). Returns 0 or a cudaError_t value.
+// 64; simt: fwd_simt_rows(H), or at H = 256 one more row a thread). Returns
+// 0 or a cudaError_t value.
 
 // K6 forward (b): from xg (2, L N, 4H) f32 and W_hh (2, H, 4H) to out
 // (L, N, 2H), c (2, L, N, H) and gates (2, L, N, 4H) in the store type.
@@ -103,6 +106,16 @@ int k6_rec_launch(int design, int dtype, const void* xg, const void* whh, void* 
   rp.N = N;
   rp.H = H;
   return fwd_rec_run<true>(design, dtype, rp, U, R, static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of K6 forward (b)'s recurrence at design (0 = simt,
+// 1 = tc), dtype (0 = float32, 1 = bfloat16), H and U the card holds at
+// once, into *clusters, its shared memory a CTA into *smem_bytes and its rows
+// a tile into *rows. Launches nothing. Returns 0 or a cudaError_t value.
+int k6_rec_occupancy(int design, int dtype, int H, int U, int* clusters, int* smem_bytes,
+                     int* rows, int device) {
+  USE_DEVICE(device);
+  return fwd_rec_occupancy<true>(design, dtype, H, U, clusters, smem_bytes, rows);
 }
 
 // K6 backward (a): da (2, L N, 4H) from dout, c, gates and W_hh, f32

@@ -28,8 +28,9 @@
 //   launched by _fused_layer_call :143) in fp32. bf16 runs birnn_tc.cu (the
 //   tensor-core design of the same two phases); the bf16 shapes that it
 //   refuses and simt takes run (b) as rnn_train_rec.cuh's simt forward
-//   instantiated with INFER (the recurrence of this file before the fp32
-//   one below); bigru_stack.cu keeps the shapes that neither design takes.
+//   instantiated with INFER (the training forward's dataflow recurrence,
+//   its geometry ops/bigru_vjp.py::simt_plan's); bigru_stack.cu keeps the
+//   shapes that neither design takes.
 //
 // Bound on an H100 SXM: one layer at the models' shapes (H = 256, L = 21,
 //   1024 rows) does 2 L N 2 (Cin + H) G FLOPs, 50.7 GFLOP (GRU, Cin = 512);
@@ -303,7 +304,7 @@ extern "C" {
 // (2, N, H) f32. cell: 0 = GRU, 1 = LSTM; dtype 0 = float32: this file's
 // recurrence with U units a CTA (clusters of H / U), R rows a tile, NB h
 // buffers; dtype 1 = bfloat16: rnn_train_rec.cuh's simt forward with INFER,
-// U units a CTA and R = 1024 UPT / U rows (NB unread). Returns 0 or a
+// U units a CTA and its fwd_simt_rows(H) rows R (NB unread). Returns 0 or a
 // cudaError_t value.
 int birnn_simt_rec_launch(int cell, int dtype, const void* xg, const void* whh,
                           const void* bhh, void* out, void* hn, int L, int N, int H, int U,

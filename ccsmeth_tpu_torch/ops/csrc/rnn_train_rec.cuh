@@ -15,8 +15,9 @@
 //     LSTM's c) stays f32 in the registers of the one thread that owns the
 //     (row, unit). Per step each CTA writes out and the residuals (GRU r, z,
 //     n, hg_n; LSTM i, f, g, o and c) and sends its new h, rounded to the
-//     operand type, to every CTA of the cluster (distributed shared memory,
-//     one cluster barrier a step).
+//     operand type, to every CTA of the cluster (distributed shared memory:
+//     simt by bulk copies onto the receivers' mbarriers, tc by remote
+//     stores and one cluster barrier a step).
 //   backward (bwd_rec_simt_kernel, bwd_rec_tc_kernel): both directions at
 //     once over reversed time, carrying dh (and the LSTM's dc). Per step the
 //     gate gradients of a (row, unit) from the residuals go to device memory
@@ -35,10 +36,31 @@
 //   Rows >= N (the ragged last tile) read zeros and store nothing.
 //
 // Routes (ops/bigru_vjp.py::k45_plan picks one per call, for either cell):
-//   simt: exact f32 FMAs (no TF32), accurate expf and tanhf. Forward: a
-//     thread owns 4 rows x UPT units of every gate, R = 1024 UPT / U rows a
-//     tile (UPT = 2 where the tile fits in shared memory, else 1: the LSTM at
-//     H = 256); W_hh slice [k][gate][u] f32, h double-buffered [k][row] f32.
+//   simt: exact f32 FMAs (no TF32), accurate expf and tanhf. Forward
+//     (fwd_rec_simt_kernel): a dataflow with no cluster barrier in the time
+//     loop (the protocol above the kernel). Geometry (SimtFwdGeom): 256
+//     threads in two warp groups, each half of the tile's rows; a thread
+//     owns one unit, its NG gates and RT rows (a warp's lanes the CTA's 32
+//     units, so a gate's W_hh is one 4-byte load a k and each quad of rows'
+//     h one 16-byte load, the same address for the warp). The groups take
+//     turns at the product, so that one group's gate math, stores and
+//     exchange run while the other multiplies. At H = 256 (clusters of 8,
+//     U = 32) R = 72 rows a tile, 36 a group, for both cells: 15 tiles a
+//     direction at the train path's 1,024 rows, 30 clusters, two full waves
+//     of the 15 clusters of 8 that the H100 holds at one CTA an SM
+//     (cudaOccupancyMaxActiveClusters; 64 rows would take 3 waves), and
+//     80 rows where that saves a wave (512 rows in one; the caller picks,
+//     ops/bigru_vjp.py::simt_fwd_rows). Shared memory: the W_hh slice
+//     [k][gate][u] f32 (131,072 bytes for the LSTM, 98,304 for the GRU),
+//     h [k][row] of each group f32 (73,728) and four barriers: 204,832 /
+//     172,064 bytes a CTA. What bounds it: shared memory's rate, one
+//     128-byte wavefront a clock an SM, a 16-byte load of a warp four of
+//     them: a thread's NG + RT operand words a k against NG RT FMAs
+//     (36 / 13 for the LSTM, 69% of the FMA rate at best), then the chain
+//     of L steps, each with its gate math, stores, barriers and waits.
+//     Each (row, unit, gate) is one fmaf chain over k ascending from 0.0f
+//     and the gate math is the one written below, so the outputs do not
+//     depend on the geometry.
 //     Backward (bwd_rec_simt_kernel): a dataflow with no cluster barrier in
 //     the time loop (the protocol above the kernel), over the two row
 //     halves of its tile in turn, so that one half's partials travel while
@@ -97,13 +119,6 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void st2(bf16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
-}
-template <int UPT, typename T>
-__device__ __forceinline__ void st_units(T* p, const float (&v)[UPT]) {
-  if constexpr (UPT == 2)
-    st2(p, v[0], v[1]);
-  else
-    st1(p, v[0]);
 }
 
 // an 8-byte store to the same shared-memory offset in the cluster's CTA rank
@@ -166,159 +181,253 @@ struct FwdRecParams {
   int L, N, H;
 };
 
-// simt: U units a CTA, R = 1024 UPT / U rows a tile; thread (rg, ug) owns
-// rows 4 rg .. 4 rg + 3 and units UPT ug .. UPT ug + UPT - 1 (local) of
-// every gate. INFER (K1's and K2's simt design, birnn_simt.cu) keeps no
-// residuals (gates, cseq unused) and writes the f32 h of the direction's last
-// step to hn; the arithmetic and the out stores are the training forward's.
-template <typename T, bool LSTM, int U, int UPT, bool INFER = false>
+// The simt forward's geometry at hidden width H and RT rows a thread: U =
+// min(H, 32) units a CTA, clusters of CN = H / U; 256 threads in NGR = 2
+// warp groups of 4 warps, a warp's lanes the U units by SW = 32 / U row
+// slots (NQ = 4 SW slots a group). A thread owns one unit, its NG gates
+// and RT rows; a group owns RG = NQ RT rows of the tile, R = NGR RG. RT = 8
+// below H = 256 (64 rows, 128 at H = 16); at H = 256 it is K46_FWD_RT256
+// (72 rows, the train path's 1,024 rows in two waves) or one more (80: 512
+// rows in one wave), whichever the caller passes
+// (ops/bigru_vjp.py::simt_fwd_rows; a copy of this source may define
+// K46_FWD_RT256: chip_smoke.py's k46_fwd_simt_sweep).
+#ifndef K46_FWD_RT256
+#define K46_FWD_RT256 9
+#endif
+
+template <int H, int RT_>
+struct SimtFwdGeom {
+  static constexpr int U = H < 32 ? H : 32;
+  static constexpr int CN = H / U;
+  static constexpr int SW = 32 / U;             // row slots a warp
+  static constexpr int NGR = 2;                 // warp groups
+  static constexpr int NQ = 8 / NGR * SW;       // row slots of a group
+  static constexpr int RT = RT_;
+  static constexpr int RG = NQ * RT, R = NGR * RG;
+};
+
+// Row i (0 .. rt - 1) of the thread in row slot q, local to its group's rows
+// (nq slots of rt rows): the first 4 floor(rt / 4) in quads of consecutive
+// rows (quad j: rows 4 (j nq + q) ..), so that a 16-byte load of h reads a
+// quad, then one row a slot (rows 4 floor(rt / 4) nq + j nq + q)
+__host__ __device__ constexpr int fwd_row(int rt, int nq, int q, int i) {
+  return i < rt / 4 * 4 ? (i / 4 * nq + q) * 4 + i % 4 : rt / 4 * 4 * nq + (i - rt / 4 * 4) * nq + q;
+}
+
+// a CTA barrier of the `n` threads that name barrier `id` (bar.sync: wait)
+// or an arrival on it (bar.arrive: no wait)
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// simt (exact f32 FMAs): the dataflow forward recurrence. CTA c keeps W_hh's
+// columns of its units, [k][gate][u], and h of its tile's rows, [k][row]
+// for each warp group; each group runs its rows through the steps on its
+// own (its barriers: named barrier 1 + g of its threads, and its `full` and
+// `empty` mbarriers), a step:
+//   1. every thread waits on the group's `full` barrier for the peers'
+//      blocks of h(s);
+//   2. the groups take turns at the product (named barriers 3 and 4:
+//      group 0's product of step s, then group 1's, then group 0's of
+//      step s + 1), so that one group's gate math, stores and exchange run
+//      while the other multiplies; the product: each (row, unit, gate) one
+//      fmaf chain over k ascending from 0.0f, a k a 4-byte load of W a gate
+//      (the warp's units, consecutive words), a 16-byte load of h a quad of
+//      rows and a 4-byte load a row past them (the same address for the
+//      lanes of a row slot);
+//   3. the group's first thread arms `full` with the bytes of h(s + 1) to
+//      come, a group barrier says every thread has read h(s), and the group
+//      tells every peer's group so on the peer's `empty` barrier;
+//   4. the gate math of the group's rows, the out and residual stores
+//      (fire-and-forget, in the store type), the loads of the next
+//      projection (landing while the other group multiplies), and the new
+//      h, rounded to the operand type, into this CTA's block of the group,
+//      [k = its units][rows], contiguous;
+//   5. past a group barrier, the first thread waits on `empty` for every
+//      peer to have read h(s) and copies the block to each peer
+//      (cp.async.bulk, completing on the peer's `full` barrier).
+// One h buffer a group: a block of step s + 1 lands only after its receiver
+// has read the step's h (its `empty` arrival), and a CTA overwrites its own
+// block only after its copies of the last step have read it
+// (cp.async.bulk.wait_group.read). `full` completes once a step (phase s:
+// the peers' blocks of h(s + 1), waited for at step s + 1), `empty` once a
+// step (phase s: every peer has read h(s)); neither runs a phase ahead (a
+// peer's blocks of h(s + 2) need this CTA's `empty` arrival of step s + 1,
+// made after its wait on `full` phase s; its arrival of step s + 1 needs
+// this CTA's blocks of h(s + 1), sent after its wait on `empty` phase s).
+// No cluster barrier sits in the time loop. INFER (K1's and K2's simt design
+// for the bf16 shapes its tc design refuses, birnn_simt.cu) keeps no
+// residuals (gates, cseq unused) and writes the f32 h of the direction's
+// last step to hn; the arithmetic and the out stores are the training
+// forward's.
+template <typename T, bool LSTM, int H, int RT_, bool INFER = false>
 __global__ void __launch_bounds__(REC_THREADS, 1) fwd_rec_simt_kernel(const FwdRecParams p) {
-  constexpr int NG = LSTM ? 4 : 3;
-  constexpr int R = 1024 * UPT / U;
-  constexpr int UW = U / (8 * UPT);  // warps along the units, 8 lanes each
-  static_assert(U % (8 * UPT) == 0 && (R / 4) * (U / UPT) == REC_THREADS, "thread layout");
+  using Gm = SimtFwdGeom<H, RT_>;
+  constexpr int NG = LSTM ? 4 : 3, G = NG * H;
+  constexpr int U = Gm::U, CN = Gm::CN, SW = Gm::SW, NGR = Gm::NGR, NQ = Gm::NQ;
+  constexpr int RT = Gm::RT, RG = Gm::RG, R = Gm::R;
+  constexpr int GT = REC_THREADS / NGR;  // threads a group
+  static_assert(NGR == 2 && U * SW == 32 && NQ * NGR * U == REC_THREADS, "thread layout");
   extern __shared__ __align__(16) float smem[];
-  const int H = p.H, G = NG * H, L = p.L, N = p.N;
-  float* ws = smem;                          // [H][NG U]: W_hh[k][gate H + u0 + u]
-  float* hs = smem + (size_t)H * NG * U;     // [2][H][R]: the h operand
-  const uint32_t crank = cluster_ctarank(), cn = cluster_nctarank();
+  float* ws = smem;             // [H][NG][U]: W_hh[k][gate H + u0 + u]
+  float* hs = ws + H * NG * U;  // [NGR][H][RG]: h of each group's rows
+  const uint32_t crank = cluster_ctarank();
   const int d = blockIdx.y;
-  const int row0 = (blockIdx.x / cn) * R;
-  const int u0 = crank * U;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ug = (warp % UW) * 8 + (lane & 7);
-  const int rg = (warp / UW) * 4 + (lane >> 3);
+  const int g = warp / (8 / NGR), wg = warp % (8 / NGR);  // group, warp in it
+  const int gtid = tid % GT;                              // thread in the group
+  const int u = lane % U;                                 // this thread's unit (local)
+  const int q = wg * SW + lane / U;                       // and row slot
+  const int u0 = crank * U, unit = u0 + u;
+  const int L = p.L, N = p.N;
+  const int row0 = (blockIdx.x / CN) * R + g * RG;        // the group's first row
+  float* hb = hs + g * H * RG;                            // its h, [k][row]
+  const uint32_t bar0 = smem_u32(hs + H * R);
+  const uint32_t full_bar = bar0 + 8 * g, empty_bar = bar0 + 16 + 8 * g;
   const T* W = static_cast<const T*>(p.whh) + (size_t)d * H * G;
   T* out = static_cast<T*>(p.out);
   T* gates = static_cast<T*>(p.gates);
   T* cseq = static_cast<T*>(p.cseq);
 
-  for (int i = tid; i < H * NG * (U / 4); i += REC_THREADS) {
-    const int u4 = i % (U / 4), gate = (i / (U / 4)) % NG, k = i / (NG * (U / 4));
-    float v[4];
-    Op<T>::load4(W + (size_t)k * G + gate * H + u0 + u4 * 4, v);
-    *reinterpret_cast<float4*>(ws + k * NG * U + gate * U + u4 * 4) =
-        make_float4(v[0], v[1], v[2], v[3]);
+  for (int i = tid; i < H * NG * U; i += REC_THREADS) {
+    const int k = i / (NG * U), gate = i / U % NG, uu = i % U;
+    ws[i] = Op<T>::to_f(W[(size_t)k * G + gate * H + u0 + uu]);
   }
-  for (int i = tid; i < H * R; i += REC_THREADS) hs[i] = 0.0f;  // h0 = 0
+  for (int i = tid; i < H * R / 4; i += REC_THREADS)
+    reinterpret_cast<float4*>(hs)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // h0 = 0
+  if (CN > 1 && tid == 0) {
+    for (int b = 0; b < NGR; ++b) {
+      mbar_init(bar0 + 8 * b, 1);            // full
+      mbar_init(bar0 + 16 + 8 * b, CN - 1);  // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
-  float bhn[UPT];
+  const float bhn = LSTM ? 0.0f : p.bhh[(size_t)d * G + 2 * H + unit];
+  float st[RT];      // GRU: h; LSTM: c; f32, of the thread's rows
+  float xc[RT][NG];  // the projection of their next step
 #pragma unroll
-  for (int e = 0; e < UPT; ++e)
-    bhn[e] = LSTM ? 0.0f : p.bhh[(size_t)d * G + 2 * H + u0 + UPT * ug + e];
-  float st[4][UPT];  // GRU: h; LSTM: c; f32, of rows i, units e
-  float xc[4][NG][UPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < UPT; ++e) st[i][e] = 0.0f;
+  for (int i = 0; i < RT; ++i) st[i] = 0.0f;
 
+  // the projection of step t for the thread's rows (zeros past N)
   auto load_x = [&](int t) {
-    const float* xt = p.xg + ((size_t)d * L + t) * N * G;
+    const float* xt = p.xg + ((size_t)d * L + t) * N * G + unit;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + rg * 4 + i;
+    for (int i = 0; i < RT; ++i) {
+      const int row = row0 + fwd_row(RT, NQ, q, i);
 #pragma unroll
-      for (int gate = 0; gate < NG; ++gate) {
-        const float* src = xt + (size_t)row * G + gate * H + u0 + UPT * ug;
-        if constexpr (UPT == 2) {
-          const float2 v = row < N ? ld_nc_f2(src) : make_float2(0.0f, 0.0f);
-          xc[i][gate][0] = v.x;
-          xc[i][gate][1] = v.y;
-        } else {
-          xc[i][gate][0] = row < N ? gm_ld1(src) : 0.0f;
-        }
-      }
+      for (int gate = 0; gate < NG; ++gate)
+        xc[i][gate] = row < N ? gm_ld1(xt + (size_t)row * G + gate * H) : 0.0f;
     }
   };
-
   load_x(d == 0 ? 0 : L - 1);
-  cluster_sync_all();  // every CTA of the cluster has staged W and zeroed h
+  cluster_sync_all();  // every CTA has staged W, zeroed h and set up its barriers
 
   for (int s = 0; s < L; ++s) {
     const int t = d == 0 ? s : L - 1 - s;
-    const float* hc = hs + (size_t)(s & 1) * H * R;
-    float* hx = hs + (size_t)((s + 1) & 1) * H * R;
-    float acc[4][NG][UPT];
+    const bool more = s + 1 < L;  // a next step reads the new h
+    // 1) every block of the group's h(s) is here
+    if (CN > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);
+    // 2) the product of the group's rows by this CTA's W_hh columns, in turn
+    if (g == 1 || s > 0) named_sync(3 + g, REC_THREADS);
+    float acc[RT][NG];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int gate = 0; gate < NG; ++gate)
-#pragma unroll
-        for (int e = 0; e < UPT; ++e) acc[i][gate][e] = 0.0f;
+      for (int gate = 0; gate < NG; ++gate) acc[i][gate] = 0.0f;
 #pragma unroll 4
     for (int k = 0; k < H; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(hc + k * R + rg * 4);
-      const float h[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float* wk = ws + k * NG * U + UPT * ug;
+      float w[NG];
 #pragma unroll
-      for (int gate = 0; gate < NG; ++gate) {
-        float w[UPT];
-        if constexpr (UPT == 2) {
-          const float2 w2 = *reinterpret_cast<const float2*>(wk + gate * U);
-          w[0] = w2.x;
-          w[1] = w2.y;
-        } else {
-          w[0] = wk[gate * U];
-        }
+      for (int gate = 0; gate < NG; ++gate) w[gate] = ws[(k * NG + gate) * U + u];
+      const float* hk = hb + k * RG;
+      float hv[RT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < UPT; ++e) acc[i][gate][e] = fmaf(h[i], w[e], acc[i][gate][e]);
+      for (int j = 0; j < RT / 4; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(hk + (j * NQ + q) * 4);
+        hv[4 * j] = v.x;
+        hv[4 * j + 1] = v.y;
+        hv[4 * j + 2] = v.z;
+        hv[4 * j + 3] = v.w;
       }
+#pragma unroll
+      for (int i = RT / 4 * 4; i < RT; ++i) hv[i] = hk[fwd_row(RT, NQ, q, i)];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int gate = 0; gate < NG; ++gate) acc[i][gate] = fmaf(hv[i], w[gate], acc[i][gate]);
     }
-    float hnew[4][UPT];
+    if (g == 0 || more) named_arrive(4 - g, REC_THREADS);  // the other group's turn
+    // 3) every thread of the group has read its h(s): the peers may send h(s + 1)
+    if (CN > 1 && gtid == 0) {
+      // this group's copies of its last block have read it
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      if (more) mbar_expect_tx(full_bar, (CN - 1) * U * RG * 4);
+    }
+    named_sync(1 + g, GT);  // the group's barrier
+    if (CN > 1 && more && gtid < CN && gtid != (int)crank) mbar_arrive_remote(empty_bar, gtid);
+    // 4) the gate math, the stores, the next projection and the new h
+    float hnew[RT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + rg * 4 + i;
-      float a[4][UPT];  // the four residuals of each unit
-#pragma unroll
-      for (int e = 0; e < UPT; ++e) {
-        if constexpr (LSTM) {
-          a[0][e] = sigmoid_f(xc[i][0][e] + acc[i][0][e]);
-          a[1][e] = sigmoid_f(xc[i][1][e] + acc[i][1][e]);
-          a[2][e] = tanhf(xc[i][2][e] + acc[i][2][e]);
-          a[3][e] = sigmoid_f(xc[i][3][e] + acc[i][3][e]);
-          // c' = f c + i g, the fused form written out: nvcc may fuse either
-          // product, and did so differently in the INFER instantiation
-          st[i][e] = fmaf(a[1][e], st[i][e], a[0][e] * a[2][e]);
-          hnew[i][e] = a[3][e] * tanhf(st[i][e]);               // h' = o tanh(c')
-        } else {
-          a[0][e] = sigmoid_f(xc[i][0][e] + acc[i][0][e]);  // r
-          a[1][e] = sigmoid_f(xc[i][1][e] + acc[i][1][e]);  // z
-          a[3][e] = acc[i][2][e] + bhn[e];                  // hg_n
-          a[2][e] = tanhf(xc[i][2][e] + a[0][e] * a[3][e]);  // n
-          st[i][e] = (1.0f - a[1][e]) * a[2][e] + a[1][e] * st[i][e];
-          hnew[i][e] = st[i][e];
-        }
+    for (int i = 0; i < RT; ++i) {
+      const int row = row0 + fwd_row(RT, NQ, q, i);
+      float a[4];  // the four residuals
+      float& sv = st[i];
+      if constexpr (LSTM) {
+        a[0] = sigmoid_f(xc[i][0] + acc[i][0]);
+        a[1] = sigmoid_f(xc[i][1] + acc[i][1]);
+        a[2] = tanhf(xc[i][2] + acc[i][2]);
+        a[3] = sigmoid_f(xc[i][3] + acc[i][3]);
+        // c' = f c + i g, the fused form written out: nvcc may fuse either
+        // product, and did so differently in the INFER instantiation
+        sv = fmaf(a[1], sv, a[0] * a[2]);
+        hnew[i] = a[3] * tanhf(sv);  // h' = o tanh(c')
+      } else {
+        a[0] = sigmoid_f(xc[i][0] + acc[i][0]);  // r
+        a[1] = sigmoid_f(xc[i][1] + acc[i][1]);  // z
+        a[3] = acc[i][2] + bhn;                  // hg_n
+        a[2] = tanhf(xc[i][2] + a[0] * a[3]);    // n
+        sv = (1.0f - a[1]) * a[2] + a[1] * sv;
+        hnew[i] = sv;
       }
       if (row < N) {
-        const int unit = u0 + UPT * ug;
-        st_units<UPT>(out + ((size_t)t * N + row) * 2 * H + d * H + unit, hnew[i]);
+        st1(out + ((size_t)t * N + row) * 2 * H + d * H + unit, hnew[i]);
         if constexpr (INFER) {
-          if (s == L - 1) st_units<UPT>(p.hn + ((size_t)d * N + row) * H + unit, hnew[i]);
+          if (!more) p.hn[((size_t)d * N + row) * H + unit] = hnew[i];
         } else {
-          T* g = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
+          T* gp = gates + (((size_t)d * L + t) * N + row) * 4 * H + unit;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) st_units<UPT>(g + q * H, a[q]);
-          if constexpr (LSTM)
-            st_units<UPT>(cseq + (((size_t)d * L + t) * N + row) * H + unit, st[i]);
+          for (int r = 0; r < 4; ++r) st1(gp + r * H, a[r]);
+          if constexpr (LSTM) st1(cseq + (((size_t)d * L + t) * N + row) * H + unit, sv);
         }
       }
     }
-    // the new h (rounded to the operand type) to every CTA's next buffer
+    if (!more) break;
+    load_x(d == 0 ? s + 1 : L - 2 - s);
+    float* blk = hb + unit * RG;  // this unit's row of the block
 #pragma unroll
-    for (int e = 0; e < UPT; ++e) {
-      const uint4 v = make_uint4(__float_as_uint(Op<T>::operand(hnew[0][e])),
-                                 __float_as_uint(Op<T>::operand(hnew[1][e])),
-                                 __float_as_uint(Op<T>::operand(hnew[2][e])),
-                                 __float_as_uint(Op<T>::operand(hnew[3][e])));
-      const uint32_t la = smem_u32(hx + (size_t)(u0 + UPT * ug + e) * R + rg * 4);
-      for (uint32_t r = 0; r < cn; ++r) st_cluster_v4(la, r, v);
+    for (int j = 0; j < RT / 4; ++j)
+      *reinterpret_cast<float4*>(blk + (j * NQ + q) * 4) =
+          make_float4(Op<T>::operand(hnew[4 * j]), Op<T>::operand(hnew[4 * j + 1]),
+                      Op<T>::operand(hnew[4 * j + 2]), Op<T>::operand(hnew[4 * j + 3]));
+#pragma unroll
+    for (int i = RT / 4 * 4; i < RT; ++i) blk[fwd_row(RT, NQ, q, i)] = Op<T>::operand(hnew[i]);
+    if constexpr (CN > 1) fence_async_shared();
+    named_sync(1 + g, GT);  // the block is whole
+    if (CN > 1 && gtid == 0) {
+      // 5) the block to every peer once each has read h(s)
+      mbar_wait(empty_bar, s & 1);
+      const uint32_t src = smem_u32(hb + u0 * RG);
+      for (uint32_t r = 1; r < CN; ++r) bulk_to_peer(src, U * RG * 4, full_bar, (crank + r) % CN);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
-    cluster_arrive_release();
-    if (s + 1 < L) load_x(d == 0 ? s + 1 : L - 2 - s);
-    cluster_wait_acquire();
+  }
+  if constexpr (CN > 1) {
+    if (gtid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    cluster_sync_all();  // no CTA leaves while a peer may still reach its shared memory
   }
 }
 
@@ -1125,48 +1234,123 @@ __global__ void __launch_bounds__(REC_THREADS, 1) bwd_rec_tc_kernel(const BwdRec
 
 // ---------------------------------------------------------------- launch
 
-// The simt forward kernel for U units a CTA and UPT units a thread (1 only
-// for the LSTM, whose 64-row tile of 2 units does not fit at H = 256).
-template <typename T, bool LSTM, bool INFER>
-static const void* fwd_simt_kernel(int U, int upt) {
-  if (U == 32 && upt == 2) return (const void*)fwd_rec_simt_kernel<T, LSTM, 32, 2, INFER>;
-  if (U == 16 && upt == 2) return (const void*)fwd_rec_simt_kernel<T, LSTM, 16, 2, INFER>;
-  if constexpr (LSTM) {
-    if (U == 32 && upt == 1) return (const void*)fwd_rec_simt_kernel<T, LSTM, 32, 1, INFER>;
-    if (U == 16 && upt == 1) return (const void*)fwd_rec_simt_kernel<T, LSTM, 16, 1, INFER>;
+// The rows of the simt forward's default tile at H (0 where the design has
+// no instantiation).
+static int fwd_simt_rows(int H) {
+  switch (H) {
+    case 16: return SimtFwdGeom<16, 8>::R;
+    case 32: return SimtFwdGeom<32, 8>::R;
+    case 64: return SimtFwdGeom<64, 8>::R;
+    case 128: return SimtFwdGeom<128, 8>::R;
+    case 256: return SimtFwdGeom<256, K46_FWD_RT256>::R;
+    default: return 0;
   }
-  return nullptr;
 }
 
-// The forward recurrence, both directions: design 0 = simt (R = 1024 UPT / U
-// rows a tile, UPT 1 or 2), 1 = tc (bf16, R = TC_FWD_ROWS); dtype 0 = f32,
-// 1 = bf16. Clusters of H / U CTAs. INFER (simt only): no residuals, h_n to
-// rp.hn.
+// Shared memory of a forward recurrence CTA, in bytes. simt: the W_hh slice
+// [H][NG][U] f32, h of the tile's rows [H][R] f32 and the `full` and `empty`
+// barriers of each pass; tc: the W_hh slice [NG U][H + 8] and h
+// [2][TC_FWD_ROWS][H + 8], bf16.
+static size_t fwd_smem(bool tc, int NG, int H, int U, int R) {
+  if (tc) return (size_t)(NG * U + 2 * TC_FWD_ROWS) * (H + 8) * sizeof(bf16);
+  return (size_t)H * NG * U * 4 + (size_t)H * R * 4 + 32;
+}
+
+// The simt forward kernel at H and R rows a tile: the default tile at every
+// H, and at H = 256 (training only) also the tile of one more row a thread
+template <typename T, bool LSTM, bool INFER>
+static const void* fwd_simt_at(int H, int R) {
+  if constexpr (!INFER) {
+    if (H == 256 && R == SimtFwdGeom<256, K46_FWD_RT256 + 1>::R)
+      return (const void*)fwd_rec_simt_kernel<T, LSTM, 256, K46_FWD_RT256 + 1>;
+  }
+  if (R != fwd_simt_rows(H)) return nullptr;
+  switch (H) {
+    case 16: return (const void*)fwd_rec_simt_kernel<T, LSTM, 16, 8, INFER>;
+    case 32: return (const void*)fwd_rec_simt_kernel<T, LSTM, 32, 8, INFER>;
+    case 64: return (const void*)fwd_rec_simt_kernel<T, LSTM, 64, 8, INFER>;
+    case 128: return (const void*)fwd_rec_simt_kernel<T, LSTM, 128, 8, INFER>;
+    case 256: return (const void*)fwd_rec_simt_kernel<T, LSTM, 256, K46_FWD_RT256, INFER>;
+    default: return nullptr;
+  }
+}
+
+// The forward recurrence kernel of the cell for design 0 = simt (U =
+// min(H, 32), R = fwd_simt_rows(H), or at H = 256 the tile of one more row
+// a thread; f32 at every H the design takes and bf16 at H = 16, the one
+// shape tc refuses; INFER: bf16 at every H, the default tile) or 1 = tc
+// (bf16, R = TC_FWD_ROWS, not INFER); nullptr where the design does not
+// take H, U, R and the operand type.
+template <bool LSTM, bool INFER>
+static const void* fwd_rec_kernel_of(int design, int dtype, int H, int U, int R) {
+  if (!cluster_ok(H, U)) return nullptr;
+  if (design == 1) {
+    if constexpr (!INFER) {
+      if (dtype == 1 && R == TC_FWD_ROWS && U == 64)
+        return (const void*)fwd_rec_tc_kernel<LSTM, 64>;
+      if (dtype == 1 && R == TC_FWD_ROWS && U == 32)
+        return (const void*)fwd_rec_tc_kernel<LSTM, 32>;
+    }
+    return nullptr;
+  }
+  if (design != 0 || U != (H < 32 ? H : 32)) return nullptr;
+  if constexpr (INFER) {
+    return dtype == 1 ? fwd_simt_at<bf16, LSTM, true>(H, R) : nullptr;
+  } else {
+    if (dtype == 1)
+      return H == 16 && R == fwd_simt_rows(16)
+                 ? (const void*)fwd_rec_simt_kernel<bf16, LSTM, 16, 8> : nullptr;
+    return dtype == 0 ? fwd_simt_at<float, LSTM, false>(H, R) : nullptr;
+  }
+}
+
+// The forward recurrence, both directions, in clusters of H / U CTAs of the
+// kernel fwd_rec_kernel_of picks for R rows a tile. dtype 0 = f32, 1 = bf16.
+// INFER (simt only): no residuals, h_n to rp.hn.
 template <bool LSTM, bool INFER = false>
 static int fwd_rec_run(int design, int dtype, const FwdRecParams& rp, int U, int R,
                        cudaStream_t s) {
-  constexpr int NG = LSTM ? 4 : 3;
-  if (rp.L < 1 || rp.N < 1 || !cluster_ok(rp.H, U)) return (int)cudaErrorInvalidValue;
+  const void* k = fwd_rec_kernel_of<LSTM, INFER>(design, dtype, rp.H, U, R);
+  if (k == nullptr || rp.L < 1 || rp.N < 1) return (int)cudaErrorInvalidValue;
   FwdRecParams q = rp;
-  const int cn = rp.H / U, tiles = (rp.N + R - 1) / R;
-  const void* k = nullptr;
-  size_t smem = 0;
-  if (design == 1) {
-    if (INFER || dtype != 1 || R != TC_FWD_ROWS) return (int)cudaErrorInvalidValue;
-    smem = (size_t)(NG * U + 2 * TC_FWD_ROWS) * (rp.H + 8) * sizeof(bf16);
-    if constexpr (!INFER) {
-      if (U == 64) k = (const void*)fwd_rec_tc_kernel<LSTM, 64>;
-      if (U == 32) k = (const void*)fwd_rec_tc_kernel<LSTM, 32>;
-    }
-  } else {
-    if (design != 0 || (R * U != 1024 && R * U != 2048)) return (int)cudaErrorInvalidValue;
-    const int upt = R * U / 1024;
-    smem = ((size_t)rp.H * NG * U + (size_t)2 * rp.H * R) * 4;
-    if (dtype == 0) k = fwd_simt_kernel<float, LSTM, INFER>(U, upt);
-    if (dtype == 1) k = fwd_simt_kernel<bf16, LSTM, INFER>(U, upt);
-  }
+  return launch_cluster(k, &q, rp.H / U, (rp.N + R - 1) / R,
+                        fwd_smem(design == 1, LSTM ? 4 : 3, rp.H, U, R), s);
+}
+
+// How many clusters of CN CTAs of `kernel` with `smem` bytes of dynamic
+// shared memory a CTA the card holds at once (cudaOccupancyMaxActiveClusters).
+static int cluster_occupancy(const void* kernel, int cn, size_t smem, int* clusters) {
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cn, 2, 1);
+  cfg.blockDim = dim3(REC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cn;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// How many clusters of the forward recurrence that fwd_rec_run launches at
+// design, dtype, H and U with its default tile (simt: fwd_simt_rows(H); tc:
+// TC_FWD_ROWS) the card holds at once, its shared memory a CTA and its rows
+// a tile. Launches nothing.
+template <bool LSTM>
+static int fwd_rec_occupancy(int design, int dtype, int H, int U, int* clusters,
+                             int* smem_bytes, int* rows) {
+  const int R = design == 1 ? TC_FWD_ROWS : fwd_simt_rows(H);
+  const void* k = fwd_rec_kernel_of<LSTM, false>(design, dtype, H, U, R);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_cluster(k, &q, cn, tiles, smem, s);
+  const size_t smem = fwd_smem(design == 1, LSTM ? 4 : 3, H, U, R);
+  *smem_bytes = (int)smem;
+  *rows = R;
+  return cluster_occupancy(k, H / U, smem, clusters);
 }
 
 // The simt backward kernel of the cell at H for the operand type: f32 at
@@ -1224,9 +1408,8 @@ static int bwd_rec_run(int design, int dtype, const BwdRecParams& kp, cudaStream
 }
 
 // How many clusters of the backward recurrence that bwd_rec_run launches at
-// design, dtype, H and U the card holds at once (cudaOccupancyMaxActiveClusters
-// for its kernel, block and shared memory), its shared memory a CTA and its
-// rows a tile. Launches nothing.
+// design, dtype, H and U the card holds at once, its shared memory a CTA and
+// its rows a tile. Launches nothing.
 template <bool LSTM>
 static int bwd_rec_occupancy(int design, int dtype, int H, int U, int* clusters,
                              int* smem_bytes, int* rows) {
@@ -1234,21 +1417,7 @@ static int bwd_rec_occupancy(int design, int dtype, int H, int U, int* clusters,
   const void* k = bwd_rec_kernel_of<LSTM>(design, dtype, H, U, &R);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem(design == 1, LSTM ? 4 : 3, H, U, R).total;
-  cudaError_t e =
-      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(H / U, 2, 1);
-  cfg.blockDim = dim3(REC_THREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = H / U;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
   *smem_bytes = (int)smem;
   *rows = R;
-  return (int)cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
+  return cluster_occupancy(k, H / U, smem, clusters);
 }

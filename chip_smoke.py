@@ -134,7 +134,8 @@ checkout.
 times K1 and K2 (both cells) and K3 at the kernel phase's shapes (and K3's
 l2 design at 1024 fp32 samples), and K4,
 K5 and K6 (forward and backward) at the train-kernel phase's (C = 11 and
-512, and the 2s2 family's 28 in fp32), in four turns in one
+512, and the 2s2 family's 28 in fp32; K4's and K6's fp32 forwards also at
+512 rows and the aggregate trainer's shape), in four turns in one
 process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
@@ -146,6 +147,13 @@ other pair), the profile phase's fp32 training step of attbigru2s and
 attbilstm2s (host and device ms) and K6's bf16 backward at C = 11 phase by
 phase; the last line gives each key's median and quartiles per tree.
 
+    python3 chip_smoke.py --ab-fwd PARENT_TREE [TREE ...]
+
+times K4's and K6's fp32 forward at 512 rows (C = 11, 28, 512) and at the
+aggregate trainer's shape (there also the recurrence alone) in 10 rounds of
+turns as ``--ab-step`` runs them, over the parent, any other checkouts
+given and this one.
+
     python3 chip_smoke.py --only determinism,train1s,...
 
 runs the card, the build and the named phases of the one-card training paths
@@ -153,7 +161,9 @@ runs the card, the build and the named phases of the one-card training paths
 there; ``profile``), ``dist``, ``k56_bwd_simt_sweep`` (K5's and K6's fp32
 backward at each candidate tile of the simt recurrence, built in copies of
 their sources), ``k56_bwd_simt_probe`` (that recurrence's step split into
-its parts by clock marks in a copy of its header), ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
+its parts by clock marks in a copy of its header), ``k46_fwd_simt_sweep`` and
+``k46_fwd_simt_probe`` (the same for K4's and K6's fp32 forward: its rows a
+tile and warp groups; its step's parts), ``k1_simt_sweep`` (K1's fp32 recurrence at each candidate
 geometry), ``k1_tc_sweep`` (K1's bf16 design at each candidate geometry
 of its recurrence), ``k1_tc_probe`` (the bf16 recurrence's step split
 into its parts by clock marks in a copy of its source), ``k3_kernels``
@@ -1363,9 +1373,10 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
     sums), the weight gradients' launches one by one (``_wgrad_split``); and
     each recurrence on one row tile a direction (one cluster each), its
     serial chain alone, against which the full recurrence's time counts the
-    waves of clusters, and the backward's on one full wave (half the
-    ``clusters`` the card holds at once, ``bigru_vjp.bwd_rec_occupancy``,
-    in tiles a direction); medians of CUDA-event timings. The backward's
+    waves of clusters, and on one full wave (half the clusters the card
+    holds at once, ``clusters`` = {"fwd": n, "bwd": n} from
+    ``bigru_vjp.fwd_rec_occupancy`` / ``bwd_rec_occupancy``, in tiles a
+    direction); medians of CUDA-event timings. The backward's
     products' TFLOP/s beside torch.mm's on the same products in the same
     operand type (a yardstick only). Returns (forward phases, backward
     phases, products), named k4_* / k5_* (cell 'gru') or k6_* ('lstm')."""
@@ -1375,12 +1386,17 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
     Lx, N, cin = x.shape
     Hh = whh.shape[1]
     plan = V.k45_plan(Hh, dt, cell)
-    r4, r5 = plan["rows_fwd"], plan["rows_bwd"]
-    # one full wave of the backward recurrence: as many row tiles a
-    # direction as half the clusters the card holds at once
-    rw = r5 * max(1, clusters // 2)
+    # the forward's tile at these rows (``fwd_rows``), the backward's; the
+    # forward's one tile and one wave run at that tile (a plan pinned to it)
+    r4, r5 = V.fwd_rows(plan, N), plan["rows_bwd"]
+    pin4 = dict(plan, tiles_fwd=(r4,))
+    # one full wave of each recurrence: as many row tiles a direction as
+    # half the clusters the card holds at once
+    rw = r5 * max(1, clusters["bwd"] // 2)
+    rw4 = r4 * max(1, clusters["fwd"] // 2)
     xg = V.k4_projection(x, wih, bih, bhh, plan, dt)
     xg4 = torch.randn((2, Lx * r4, xg.shape[2]), device="cuda")
+    xgw4 = torch.randn((2, Lx * rw4, xg.shape[2]), device="cuda")
     xg5 = torch.randn((2, Lx * r5, xg.shape[2]), device="cuda")
     dout5 = torch.randn((Lx, r5, dout.shape[2]), device="cuda").to(dt)
     xgw = torch.randn((2, Lx * rw, xg.shape[2]), device="cuda")
@@ -1393,7 +1409,9 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
         outw, gatesw = V.k4_recurrence(xgw, whh, bhh, Lx, rw, plan, dt)
         fwd = {"k4_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
                "k4_recurrence_one_tile": lambda: V.k4_recurrence(xg4, whh, bhh, Lx, r4,
-                                                                 plan, dt),
+                                                                 pin4, dt),
+               "k4_recurrence_one_wave": lambda: V.k4_recurrence(xgw4, whh, bhh, Lx, rw4,
+                                                                 pin4, dt),
                "k4_recurrence": lambda: V.k4_recurrence(xg, whh, bhh, Lx, N, plan, dt)}
         bwd = {"k5_recurrence_one_tile": lambda: V.k5_recurrence(dout5, out5, gates5, whh,
                                                                  plan, dt),
@@ -1408,7 +1426,10 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
         _o5, c5, gates5 = V6.k6_recurrence(xg5, whh, Lx, r5, plan, dt)
         _ow, cw, gatesw = V6.k6_recurrence(xgw, whh, Lx, rw, plan, dt)
         fwd = {"k6_projection": lambda: V.k4_projection(x, wih, bih, bhh, plan, dt),
-               "k6_recurrence_one_tile": lambda: V6.k6_recurrence(xg4, whh, Lx, r4, plan, dt),
+               "k6_recurrence_one_tile": lambda: V6.k6_recurrence(xg4, whh, Lx, r4, pin4,
+                                                                  dt),
+               "k6_recurrence_one_wave": lambda: V6.k6_recurrence(xgw4, whh, Lx, rw4, pin4,
+                                                                  dt),
                "k6_recurrence": lambda: V6.k6_recurrence(xg, whh, Lx, N, plan, dt)}
         bwd = {"k6_bwd_recurrence_one_tile": lambda: V6.k6_bwd_recurrence(
                    dout5, c5, gates5, whh, plan, dt),
@@ -1479,7 +1500,8 @@ class _K56Libs:
     def __enter__(self):
         from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 
-        self.saved = (bigru_vjp._lib, bilstm_vjp._lib)
+        # the package's own builds load first, reading ``fwd_clusters``
+        self.saved = (bigru_vjp._load(), bilstm_vjp._load())
         bigru_vjp._lib, bilstm_vjp._lib = self.libs
 
     def __exit__(self, *exc):
@@ -1594,7 +1616,7 @@ def phase_k56_bwd_simt_sweep(torch, smi):
                     cell, plan, *args)
             variants.append(({"RT": rt, "R": R, "smem": plan["smem_bwd"],
                               "resident_clusters": clusters,
-                              "waves_1024": bigru_vjp.bwd_rec_waves(R, ROWS[0], clusters),
+                              "waves_1024": bigru_vjp.rec_waves(R, ROWS[0], clusters),
                               "max_abs_err": errs, "bit_equal": True,
                               "ms_by_round": {k: [] for k in fns}}, fns))
         lib_ms = {cin: [] for cin in inputs}
@@ -1781,6 +1803,280 @@ def phase_k56_bwd_simt_probe(torch, smi):
                       "clock_mhz": mhz, "card": smi})
 
 
+# The simt forward recurrence's candidate tiles at H = 256: rows a thread
+# (K46_FWD_RT256; R = 8 RT rows a tile: 72, 64 and 80, each a CTA that
+# fits in shared memory): builds of csrc/bigru_train.cu and
+# csrc/bilstm_train.cu with -DK46_FWD_RT256=n in WORK, timed in
+# alternating rounds
+K46_SWEEP = (9, 8, 10)
+K46_SWEEP_ROUNDS = 6
+
+
+def _k46_plan(cell):
+    """The fp32 plan of the bound build's simt forward at H, pinned to the
+    build's default tile (the package's plan with the build's rows a tile
+    and shared memory, as ``bigru_vjp.fwd_rec_occupancy`` reads them, and
+    no other tile), and its resident clusters."""
+    import torch
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp
+
+    plan = bigru_vjp.k45_plan(H, torch.float32, cell)
+    occ = bigru_vjp.fwd_rec_occupancy(plan, torch.float32)
+    return dict(plan, rows_fwd=occ["rows"], tiles_fwd=(occ["rows"],),
+                smem_fwd=occ["smem"]), occ["clusters"]
+
+
+def _k46_fwd(cell, plan, x, wih, bih, whh, bhh):
+    """K4's or K6's fp32 forward at ``plan``'s tile, launch for launch as
+    ``bigru_layer_train_fwd`` / ``bilstm_layer_train_fwd`` make it: (out,
+    gates) or (out, c, gates)."""
+    import torch
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
+
+    f32 = torch.float32
+    xg = V.k4_projection(x, wih, bih, bhh, plan, f32)
+    if cell == "gru":
+        return V.k4_recurrence(xg, whh, bhh, x.shape[0], x.shape[1], plan, f32)
+    return V6.k6_recurrence(xg, whh, x.shape[0], x.shape[1], plan, f32)
+
+
+def _k46_inputs(torch, cell, cin, rows=ROWS[0]):
+    """One layer's fp32 forward arguments (x and the weights) at the
+    train-kernel phase's seeds."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+
+    rng = np.random.RandomState(SEED + cin)
+    ld = init_rnn_params(rng, cin, H, 1, cell)[0]
+    x = torch.from_numpy(rng.randn(L, rows, cin).astype(np.float32)).cuda()
+    return (x,) + tuple(layer_weights(ld, torch.float32, "cuda"))
+
+
+def _k46_recurrence_fns(torch, cell, plan, clusters):
+    """The simt forward recurrence of ``plan`` alone (H = 256, fp32, a
+    seeded projection and W_hh), on one row tile, one full wave (half the
+    resident clusters' tiles a direction) and 1,024 rows: callables by
+    name."""
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
+
+    R = plan["rows_fwd"]
+    G = V.GATES[cell] * H
+    fns = {}
+    for name, rows in (("rec one tile", R), ("rec one wave", R * max(1, clusters // 2)),
+                       ("rec 1024", ROWS[0])):
+        g = torch.Generator(device="cuda").manual_seed(SEED + rows)
+        xg = torch.randn((2, L * rows, G), device="cuda", generator=g)
+        whh = torch.randn((2, H, G), device="cuda", generator=g) * 0.05
+        bhh = torch.randn((2, G), device="cuda", generator=g)
+        if cell == "gru":
+            fns[name] = (lambda xg=xg, whh=whh, bhh=bhh, rows=rows:
+                         V.k4_recurrence(xg, whh, bhh, L, rows, plan, torch.float32))
+        else:
+            fns[name] = (lambda xg=xg, whh=whh, rows=rows:
+                         V6.k6_recurrence(xg, whh, L, rows, plan, torch.float32))
+    return fns
+
+
+def _cudnn_fwd_fn(torch, cell, cin):
+    """cuDNN's one-layer bidirectional nn.GRU / nn.LSTM forward in train
+    mode (fp32, TF32 off) at the train-kernel phase's weights and shapes: a
+    callable, the yardstick of ``phase_train_kernels``."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params
+
+    rng = np.random.RandomState(SEED + cin)
+    ld = init_rnn_params(rng, cin, H, 1, cell)[0]
+    x = torch.from_numpy(rng.randn(L, ROWS[0], cin).astype(np.float32)).cuda()
+    lib = _cudnn(torch, cell, cin, 1, [ld], torch.float32)
+    lib.train()
+    xg = x.requires_grad_(True)
+    return lambda: lib(xg)
+
+
+def phase_k46_fwd_simt_sweep(torch, smi):
+    """K4's and K6's fp32 forward at each candidate tile of the simt
+    forward recurrence (``K46_SWEEP``: R = 8 RT rows at H = 256), 1,024
+    rows, C = 11 and 512: each build's outputs and residuals bit-equal to the other builds' (the bits do not depend on the
+    tile) and its rerun's, against the plain version (1e-5); its resident
+    clusters and waves; then ``K46_SWEEP_ROUNDS`` rounds, the builds in turn
+    (forward, then reverse order), each timing the whole forward at both
+    widths and the recurrence on one tile, one full wave and 1,024 rows;
+    cuDNN's forward beside them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
+
+    jobs = [(src, v) for v in K46_SWEEP for src in (bigru_vjp.SRC, bilstm_vjp.SRC)]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda j: _build_k56(j[0], ["K46_FWD_RT256={}".format(j[1])])[0],
+                              jobs))
+    libs = {v: (bigru_vjp.bind(built[2 * i]), bilstm_vjp.bind(built[2 * i + 1]))
+            for i, v in enumerate(K46_SWEEP)}
+    for cell in MODELS:
+        fwd_plain = (bigru_vjp.bigru_layer_train_fwd_plain if cell == "gru"
+                     else bilstm_vjp.bilstm_layer_train_fwd_plain)
+        inputs = {cin: _k46_inputs(torch, cell, cin) for cin in (C, 2 * H)}
+        refs = {cin: fwd_plain(*args, torch.float32) for cin, args in inputs.items()}
+        variants, first = [], {}
+        for rt in K46_SWEEP:
+            with _K56Libs(*libs[rt]):
+                plan, clusters = _k46_plan(cell)
+                R = plan["rows_fwd"]
+                assert R == 8 * rt, (cell, rt, R)
+                errs = {}
+                for cin, args in inputs.items():
+                    got, again = _k46_fwd(cell, plan, *args), _k46_fwd(cell, plan, *args)
+                    torch.cuda.synchronize()
+                    assert all(torch.equal(a, b) for a, b in zip(got, again)), (cell, rt, cin)
+                    if cin in first:
+                        assert all(torch.equal(a, b) for a, b in zip(got, first[cin])), \
+                            (cell, rt, cin, "bits differ from the first build's")
+                    first.setdefault(cin, got)
+                    errs[cin] = max((a - r).abs().max().item() for a, r in zip(got, refs[cin]))
+                    assert errs[cin] <= 1e-5, (cell, rt, cin, errs[cin])
+            fns = _k46_recurrence_fns(torch, cell, plan, clusters)
+            for cin, args in inputs.items():
+                fns["fwd C={}".format(cin)] = lambda args=args, plan=plan: _k46_fwd(
+                    cell, plan, *args)
+            variants.append(({"RT": rt, "R": R, "smem": plan["smem_fwd"],
+                              "resident_clusters": clusters,
+                              "waves_1024": bigru_vjp.rec_waves(R, ROWS[0], clusters),
+                              "max_abs_err": errs, "bit_equal": True,
+                              "ms_by_round": {k: [] for k in fns}}, fns))
+        cudnn = {cin: _cudnn_fwd_fn(torch, cell, cin) for cin in inputs}
+        lib_ms = {cin: [] for cin in inputs}
+        for r in range(K46_SWEEP_ROUNDS):
+            for (res, fns), v in (zip(variants, K46_SWEEP) if r % 2 == 0 else
+                                  zip(variants[::-1], K46_SWEEP[::-1])):
+                with _K56Libs(*libs[v]):
+                    for k, fn in fns.items():
+                        res["ms_by_round"][k].append(time_ms(fn, torch))
+            for cin in inputs:
+                lib_ms[cin].append(time_ms(cudnn[cin], torch))
+        for res, _fns in variants:
+            res["median_ms"] = {k: statistics.median(v) for k, v in res["ms_by_round"].items()}
+        emit({"phase": "k46_fwd_simt_sweep", "cell": cell, "rows": ROWS[0],
+              "rounds": K46_SWEEP_ROUNDS,
+              "shipped_R": bigru_vjp.k45_plan(H, torch.float32, cell)["rows_fwd"],
+              "variants": [res for res, _fns in variants],
+              "cudnn_fwd_ms": {cin: statistics.median(v) for cin, v in lib_ms.items()},
+              "card": smi})
+
+
+# The probe of the simt forward recurrence's step: marks put into a copy of
+# csrc/rnn_train_rec.cuh (never into the shipped header), each adding the
+# clock64 cycles since the last mark to a per-part sum, for the first
+# threads of the two warp groups (threads 0 and 128) of CTA (0, 0). Parts:
+# 0 the wait on the group's `full` barrier for the peers' blocks, 1 the
+# wait for the group's turn at the product, 2 the product, 3 the group
+# barrier after it and the `empty` arrivals, 4 the projection loads still
+# in flight (a sum that reads every prefetched register), 5 the gate math
+# and its stores, 6 issuing the next projection's loads and writing the new
+# h into the CTA's block, 7 the group barrier after it, the wait on `empty`
+# and the bulk copies (the first thread).
+K46_PROBE_PARTS = ["full wait", "turn wait", "product", "read barrier", "projection loads",
+                   "gate math", "next loads and h block", "block barrier, empty wait, copies"]
+K46_PROBE_MARKS = [
+    ('#include "rnn_train_gemm.cuh"\n',
+     '#include "rnn_train_gemm.cuh"\n__device__ unsigned long long g_k46_prof[2][8];\n'
+     '#define K46_PROF(k) if ((tid == 0 || tid == 128) && blockIdx.x == 0 && '
+     'blockIdx.y == 0) { const unsigned long long now = clock64(); if (s > 0) '
+     'g_k46_prof[tid >> 7][k] += now - tprev; tprev = now; }\n'),
+    ("  for (int s = 0; s < L; ++s) {\n    const int t = d == 0 ? s : L - 1 - s;\n"
+     "    const bool more = s + 1 < L;  // a next step reads the new h\n",
+     "  unsigned long long tprev = clock64();\n"
+     "  for (int s = 0; s < L; ++s) {\n    const int t = d == 0 ? s : L - 1 - s;\n"
+     "    const bool more = s + 1 < L;  // a next step reads the new h\n"),
+    ("    if (CN > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);\n",
+     "    if (CN > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);\n    K46_PROF(0)\n"),
+    ("    if (g == 1 || s > 0) named_sync(3 + g, REC_THREADS);\n",
+     "    if (g == 1 || s > 0) named_sync(3 + g, REC_THREADS);\n    K46_PROF(1)\n"),
+    ("acc[i][gate] = fmaf(hv[i], w[gate], acc[i][gate]);\n    }\n",
+     "acc[i][gate] = fmaf(hv[i], w[gate], acc[i][gate]);\n    }\n    K46_PROF(2)\n"),
+    ("mbar_arrive_remote(empty_bar, gtid);\n    // 4) the gate math",
+     "mbar_arrive_remote(empty_bar, gtid);\n    K46_PROF(3)\n"
+     "    { float sink = 0.0f;\n#pragma unroll\n      for (int i = 0; i < RT; ++i)\n"
+     "#pragma unroll\n        for (int gate = 0; gate < NG; ++gate) sink += xc[i][gate];\n"
+     "      asm volatile(\"\" ::\"f\"(sink)); }\n    K46_PROF(4)\n"
+     "    // 4) the gate math"),
+    ("    if (!more) break;\n", "    K46_PROF(5)\n    if (!more) break;\n"),
+    ("    if constexpr (CN > 1) fence_async_shared();\n",
+     "    K46_PROF(6)\n    if constexpr (CN > 1) fence_async_shared();\n"),
+    ("      asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: \"memory\");\n    }\n  }\n",
+     "      asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: \"memory\");\n    }\n"
+     "    K46_PROF(7)\n  }\n"),
+]
+K46_PROBE_ENTRY = """
+extern "C" void k46_probe(unsigned long long* out, int reset) {
+  unsigned long long z[16] = {0};
+  if (reset) cudaMemcpyToSymbol(g_k46_prof, z, sizeof(z));
+  else cudaMemcpyFromSymbol(out, g_k46_prof, sizeof(z));
+}
+"""
+
+
+def phase_k46_fwd_simt_probe(torch, smi):
+    """The simt forward recurrence's step split into its parts
+    (``K46_PROBE_MARKS``), both cells, fp32, H = 256, on one row tile and on
+    1,024 rows: us a step (at the card's clock) for threads 0 and 128 of
+    CTA (0, 0), beside the step's CUDA-event time."""
+    import ctypes
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp, nvcc
+
+    d = os.path.join(WORK, "k46_probe")
+    os.makedirs(d, exist_ok=True)
+    hdr = open(os.path.join(nvcc.CSRC, "rnn_train_rec.cuh")).read()
+    for old, new in K46_PROBE_MARKS:
+        assert hdr.count(old) == 1, old
+        hdr = hdr.replace(old, new)
+    with open(os.path.join(d, "rnn_train_rec.cuh"), "w") as f:
+        f.write(hdr)
+    paths = []
+    for src in (bigru_vjp.SRC, bilstm_vjp.SRC):
+        shutil.copy(os.path.join(nvcc.CSRC, src), os.path.join(d, src))
+        with open(os.path.join(d, src), "a") as f:
+            f.write(K46_PROBE_ENTRY)
+        paths.append(os.path.join(d, src))
+    with ThreadPoolExecutor(2) as pool:
+        sos = list(pool.map(lambda pth: _build_k56(os.path.basename(pth), path=pth,
+                                                   tag="_probe46")[0], paths))
+    gru, lstm = bigru_vjp.bind(sos[0]), bilstm_vjp.bind(sos[1])
+    for lib in (gru, lstm):
+        lib.k46_probe.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    buf = (ctypes.c_ulonglong * 16)()
+    with _K56Libs(gru, lstm):
+        for cell, lib in (("gru", gru), ("lstm", lstm)):
+            plan, clusters = _k46_plan(cell)
+            fns = _k46_recurrence_fns(torch, cell, plan, clusters)
+            for name in ("rec one tile", "rec 1024"):
+                fn = fns[name]
+                fn()
+                torch.cuda.synchronize()
+                lib.k46_probe(None, 1)
+                ms = time_ms(fn, torch)
+                lib.k46_probe(ctypes.cast(buf, ctypes.c_void_p), 0)
+                steps = (REPS + 1) * (L - 1)  # the warm-up and the timed runs
+                parts = [[buf[8 * w + k] / steps / mhz for k in range(len(K46_PROBE_PARTS))]
+                         for w in (0, 1)]
+                emit({"phase": "k46_fwd_simt_probe", "cell": cell, "input": name,
+                      "rows_a_tile": plan["rows_fwd"], "step_us": ms * 1e3 / L,
+                      "parts": K46_PROBE_PARTS,
+                      "parts_us_thread0": parts[0], "parts_us_thread128": parts[1],
+                      "clock_mhz": mhz, "card": smi})
+
+
 def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=H,
                         seq_len=L):
     """One layer's training kernels at the train path's shapes (C = 11 and
@@ -1870,14 +2166,23 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=
             b_ms = time_ms(lambda: bwd(*args), torch)
             pf_ms = time_ms(lambda: fwd_plain(x, wih, bih, whh, bhh, dt), torch)
             pb_ms = time_ms(lambda: bwd_plain(*args), torch)
-            # the backward recurrence's tile, residency and waves, as the
-            # library launches it (either design)
+            # each recurrence's tile, residency and waves, as the library
+            # launches it (either design)
             plan = bigru_vjp.k45_plan(hidden, dt, cell)
-            occ = bigru_vjp.bwd_rec_occupancy(plan, dt)
-            assert (occ["rows"], occ["smem"]) == (plan["rows_bwd"], plan["smem_bwd"]), occ
-            occ["waves"] = bigru_vjp.bwd_rec_waves(occ["rows"], rows, occ["clusters"])
+            occ = {}
+            for key, fn in (("fwd", bigru_vjp.fwd_rec_occupancy),
+                            ("bwd", bigru_vjp.bwd_rec_occupancy)):
+                occ[key] = fn(plan, dt)
+                assert (occ[key]["rows"], occ[key]["smem"]) == (
+                    plan["rows_" + key], plan["smem_" + key]), (key, occ[key])
+                occ[key]["waves"] = bigru_vjp.rec_waves(occ[key]["rows"], rows,
+                                                        occ[key]["clusters"])
+            # the forward's tile at these rows, and its waves
+            occ["fwd"]["rows_here"] = bigru_vjp.fwd_rows(plan, rows)
+            occ["fwd"]["waves_here"] = bigru_vjp.rec_waves(occ["fwd"]["rows_here"], rows,
+                                                           occ["fwd"]["clusters"])
             phases = _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell,
-                                      occ["clusters"])
+                                      {k: o["clusters"] for k, o in occ.items()})
             weights = (wih, bih, whh, bhh)
             bf, byf = _bound(V.train_fwd_flops(seq_len, rows, cin, hidden),
                              _nbytes(x, *weights, *res), dname)
@@ -1901,8 +2206,10 @@ def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=
                      "bound_ms": bms, "bound_by": bby,
                      "library_weights_warning": lib.weights_warning, "card": smi,
                      "phases_ms": ph}
+                if name.endswith("_fwd"):
+                    c["fwd_recurrence"] = occ["fwd"]
                 if name.endswith("_bwd"):
-                    c["bwd_recurrence"] = occ
+                    c["bwd_recurrence"] = occ["bwd"]
                     c["bit_equal_rerun"] = True
                     c["products"] = phases[2]
                     c["gemm_calls_per_call"] = gemm_per_call
@@ -3979,8 +4286,10 @@ def _time_tree(tree):
     """One turn of ``--ab``: K1 and K2 (both cells) and K3 of the checkout at
     ``tree`` at the kernel phase's shapes and inputs, and K4, K5 and K6
     (forward and backward) at the train-kernel phase's (1024 rows, C = 11
-    and 512), fp32 and bf16, through the tree's own wrappers; medians of
-    CUDA-event timings, one JSON line."""
+    and 512, and 28 in fp32), fp32 and bf16, and K4's and K6's fp32
+    forwards at 512 rows (C = 11, 28, 512) and at the aggregate trainer's
+    shape, through the tree's own wrappers; medians of CUDA-event timings,
+    one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -4055,6 +4364,18 @@ def _time_tree(tree):
                         lambda: fwd(x, wih, bih, whh, bhh, dt), torch, AB_REPS)
                     res["ms"]["{} C={} {}".format(kb, cin, dname)] = time_ms(
                         lambda: bwd(*args), torch, AB_REPS)
+            # the fp32 forwards at the 1s families' 512 rows (C = 11, 28,
+            # 512) and at the aggregate trainer's shape (H 32, C 21, L 11)
+            for cin, hidden, seq_len, tag in ((C, H, L, "rows=512 C={}".format(C)),
+                                              (C2S2, H, L, "rows=512 C={}".format(C2S2)),
+                                              (2 * H, H, L, "rows=512 C={}".format(2 * H)),
+                                              (AGGR_C, AGGR_H, AGGR_L, "aggr")):
+                rng = np.random.RandomState(SEED + cin)
+                ld = init_rnn_params(rng, cin, hidden, 1, cell)[0]
+                x = torch.from_numpy(rng.randn(seq_len, 512, cin).astype(np.float32)).cuda()
+                wih, bih, whh, bhh = layer_weights(ld, torch.float32, "cuda")
+                res["ms"]["{} {} float32".format(kf, tag)] = time_ms(
+                    lambda: fwd(x, wih, bih, whh, bhh, torch.float32), torch, AB_REPS)
     emit(res)
 
 
@@ -4085,7 +4406,8 @@ def main_ab(parent):
           "parent": os.path.abspath(parent), "card": smi, "ms": summary})
 
 
-# --ab-step: pairs of turns (parent, change; then change, parent)
+# --ab-step and --ab-fwd: rounds of turns, one process a turn, each round
+# every tree once, the order reversed every other round
 AB_STEP_PAIRS = 10
 
 
@@ -4134,37 +4456,87 @@ def _step_tree(tree):
     emit(res)
 
 
-def main_ab_step(parent):
-    """``AB_STEP_PAIRS`` pairs of ``_step_tree`` turns, one process a turn,
-    the parent first in even pairs and the change first in odd ones; the
-    last line holds each key's median and quartiles per tree and the ratio
-    of the medians."""
+def _fwd_tree(tree):
+    """One turn of ``--ab-fwd``: through the package of the checkout at
+    ``tree``, K4's and K6's fp32 forward as a caller runs it (two launches)
+    at the 1s families' 512 rows (C = 11, 28, 512; H 256, L 21) and at the
+    aggregate trainer's shape (H 32, C 21, L 11, 512 rows, a cluster of one
+    CTA), and at that shape the recurrence alone, 10 launches back to back
+    a timing (the device's time, not the host's), ms a launch; medians of
+    CUDA-event timings, one JSON line."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+    from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
+
+    f32 = torch.float32
+    res = {"phase": "ab_fwd_turn", "tree": os.path.abspath(tree),
+           "package": os.path.dirname(os.path.dirname(V.__file__)), "ms": {}}
+    cells = {"gru": ("k4", V.bigru_layer_train_fwd),
+             "lstm": ("k6f", V6.bilstm_layer_train_fwd)}
+    with torch.inference_mode():
+        for cell, (kf, fwd) in cells.items():
+            for cin, hidden, seq_len, tag in ((C, H, L, "rows=512 C={}".format(C)),
+                                              (C2S2, H, L, "rows=512 C={}".format(C2S2)),
+                                              (2 * H, H, L, "rows=512 C={}".format(2 * H)),
+                                              (AGGR_C, AGGR_H, AGGR_L, "aggr")):
+                rng = np.random.RandomState(SEED + cin)  # the --ab turn's inputs
+                ld = init_rnn_params(rng, cin, hidden, 1, cell)[0]
+                x = torch.from_numpy(rng.randn(seq_len, 512, cin).astype(np.float32)).cuda()
+                wih, bih, whh, bhh = layer_weights(ld, f32, "cuda")
+                res["ms"]["{} {} float32".format(kf, tag)] = time_ms(
+                    lambda: fwd(x, wih, bih, whh, bhh, f32), torch, AB_REPS)
+            # the recurrence at the last shape's inputs: the aggregate's
+            plan = V.k45_plan(hidden, f32, cell)
+            xg = V.k4_projection(x, wih, bih, bhh, plan, f32)
+            if cell == "gru":
+                def rec():
+                    return V.k4_recurrence(xg, whh, bhh, seq_len, 512, plan, f32)
+            else:
+                def rec():
+                    return V6.k6_recurrence(xg, whh, seq_len, 512, plan, f32)
+            res["ms"]["{} aggr float32 recurrence".format(kf)] = time_ms(
+                lambda: [rec() for _ in range(10)], torch, AB_REPS) / 10
+    emit(res)
+
+
+def _ab_rounds(flag, phase, parent, others=()):
+    """``AB_STEP_PAIRS`` rounds of turns (``flag`` TREE, one process a turn)
+    over the parent, the ``others`` (checkouts named by their directory)
+    and this checkout ("change"), in that order in even rounds and reversed
+    in odd ones; the last line holds each key's median and quartiles per
+    tree and each tree's median over the parent's."""
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False")
     smi = phase_card(torch)[0]
-    turns = {"parent": [], "change": []}
+    trees = ([("parent", parent)] + [(os.path.basename(os.path.normpath(t)), t) for t in others]
+             + [("change", REPO)])
+    turns = {name: [] for name, _tree in trees}
     for i in range(AB_STEP_PAIRS):
-        for who in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
-            tree = parent if who == "parent" else REPO
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--step-tree", tree], capture_output=True, text=True)
+        for name, tree in trees if i % 2 == 0 else trees[::-1]:
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag, tree],
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
                 sys.exit("turn on {} failed:\n{}".format(tree, proc.stderr[-4000:]))
             line = json.loads(proc.stdout.strip().splitlines()[-1])
             log(json.dumps(line))
-            turns[who].append(line["ms"])
+            turns[name].append(line["ms"])
     summary = {}
     for key in turns["parent"][0]:
         summary[key] = {}
-        for who, ts in turns.items():
+        for name, ts in turns.items():
             q1, med, q3 = statistics.quantiles([t[key] for t in ts], n=4)
-            summary[key][who] = {"q1": q1, "median": med, "q3": q3}
-        summary[key]["change_over_parent"] = (summary[key]["change"]["median"]
-                                              / summary[key]["parent"]["median"])
-    emit({"phase": "ab_step", "pairs": AB_STEP_PAIRS, "parent": os.path.abspath(parent),
-          "card": smi, "ms": summary})
+            summary[key][name] = {"q1": q1, "median": med, "q3": q3}
+        for name in list(turns)[1:]:
+            summary[key][name + "_over_parent"] = (summary[key][name]["median"]
+                                                   / summary[key]["parent"]["median"])
+    emit({"phase": phase, "rounds": AB_STEP_PAIRS, "parent": os.path.abspath(parent),
+          "others": [os.path.abspath(t) for t in others], "card": smi, "ms": summary})
 
 
 def main_only(names):
@@ -4189,6 +4561,8 @@ def main_only(names):
         "train_kernels": lambda: [phase_train_kernels(torch, smi, cell) for cell in MODELS],
         "k56_bwd_simt_sweep": lambda: phase_k56_bwd_simt_sweep(torch, smi),
         "k56_bwd_simt_probe": lambda: phase_k56_bwd_simt_probe(torch, smi),
+        "k46_fwd_simt_sweep": lambda: phase_k46_fwd_simt_sweep(torch, smi),
+        "k46_fwd_simt_probe": lambda: phase_k46_fwd_simt_probe(torch, smi),
         "profile": lambda: [phase_profile(torch, smi, cell) for cell in MODELS],
         "train_kernels_2s2": lambda: [
             phase_train_kernels(torch, smi, cell, (C2S2,)) for cell in MODELS] + [
@@ -4228,7 +4602,11 @@ def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--step-tree":
         return _step_tree(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-step":
-        return main_ab_step(sys.argv[2])
+        return _ab_rounds("--step-tree", "ab_step", sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--fwd-tree":
+        return _fwd_tree(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--ab-fwd":
+        return _ab_rounds("--fwd-tree", "ab_fwd", sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 5 and sys.argv[1] == "--train-digest":
         return _train_digest(*sys.argv[2:])
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
@@ -4237,7 +4615,7 @@ def main():
         return _dist_rank(int(sys.argv[2]), sys.argv[3], [int(p) for p in sys.argv[4:]])
     if len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--ab PARENT_TREE | --ab-step PARENT_TREE | "
-                 "--only PHASE,...]")
+                 "--ab-fwd PARENT_TREE [TREE ...] | --only PHASE,...]")
     if not os.path.isdir(os.path.join(REPO, "ccsmeth_tpu_torch")):
         sys.exit("chip_smoke.py: the ccsmeth_tpu_torch package is not beside "
                  "this script; run it from a checkout of the repository")
@@ -4412,6 +4790,7 @@ def main():
                 "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
                 "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+                "fwd_recurrence": mc.get("fwd_recurrence"),
                 "bwd_recurrence": mc.get("bwd_recurrence"),
                 "cell": "{} rows={} C={} {}".format(MODELS[cell], mc["rows"], mc["C"], dname),
                 "cells": [{k: c[k] for k in ("rows", "C", "dtype", "cuda_launches_per_call",

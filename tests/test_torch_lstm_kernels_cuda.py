@@ -188,6 +188,64 @@ def test_k6_designs_at_ragged_rows(rows, hidden, dtype, design):
     assert bilstm_vjp.design_calls[want] == before + 3
 
 
+def _fwd_reruns_bit_equal(x, wih, bih, whh, bhh, dt):
+    """K6's forward against its plain version (``_fwd_matches_plain``) and
+    against a rerun, bit for bit."""
+    _fwd_matches_plain(x, wih, bih, whh, bhh, dt)
+    got = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    again = bilstm_vjp.bilstm_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "c", "gates"), got, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["R-1", "R+1", "512", "1000", "1029", "part-filled last wave"])
+def test_k6_simt_forward_at_the_tile_edges(edge):
+    """The simt forward at H = 256 on row counts at its tile's edges (72
+    rows, the GRU's): one row short of a tile, one row past it, the 1s
+    families' 512 rows (on the 80-row tile, one wave), the train path's
+    ragged 1,000 and 1,029 rows, and two tiles a direction past a
+    full wave (half the clusters the card holds at once) and 5 rows.
+    Against the plain version, bit-equal on a rerun, in two CUDA launches;
+    the library's tile rows and shared memory are the planner's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = bigru_vjp.k45_plan(256, torch.float32, "lstm")
+    R = plan["rows_fwd"]
+    occ = bigru_vjp.fwd_rec_occupancy(plan, torch.float32)
+    assert (occ["rows"], occ["smem"]) == (R, plan["smem_fwd"])
+    rows = {"R-1": R - 1, "R+1": R + 1, "1000": 1000, "1029": 1029,
+            "part-filled last wave": R * (occ["clusters"] // 2 + 2) + 5, "512": 512}[edge]
+    # the tile of the call: the plan's, or one more row a thread where that
+    # saves a wave (the 1s families' 512 rows: 80), by the clusters read
+    # when the library was loaded
+    tile = bigru_vjp.fwd_rows(plan, rows)
+    assert bigru_vjp.fwd_clusters["lstm"] == occ["clusters"]
+    assert tile == bigru_vjp.simt_fwd_rows(plan, rows, occ["clusters"]) in (R, R + 8)
+    _fwd_reruns_bit_equal(*_case(rows, 256, 11, torch.float32)[:5], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,dtype", [(16, "float32"), (16, "bfloat16"), (32, "float32"),
+                                          (64, "float32"), (128, "float32"),
+                                          (256, "float32")])
+def test_k6_simt_forward_at_every_width(hidden, dtype):
+    """Every H the simt design takes (clusters of 1, 2, 4 and 8; bf16 at
+    H = 16, which tc refuses) at its forward tile's rows + 3 (a ragged
+    second tile), C = 28: the simt design, against the plain version,
+    bit-equal on a rerun, in two CUDA launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dt = getattr(torch, dtype)
+    plan = bigru_vjp.k45_plan(hidden, dt, "lstm")
+    assert plan["design"] == "simt"
+    assert bigru_vjp.fwd_rec_occupancy(plan, dt)["rows"] == plan["rows_fwd"]
+    before = bilstm_vjp.design_calls["simt"]
+    _fwd_reruns_bit_equal(*_case(plan["rows_fwd"] + 3, hidden, 28, dt)[:5], dt)
+    assert bilstm_vjp.design_calls["simt"] == before + 3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("edge", ["R-1", "R+1", "part-filled last wave"])
 def test_k6_simt_backward_at_the_tile_edges(edge):

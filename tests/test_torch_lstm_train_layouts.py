@@ -19,8 +19,9 @@ import torch
 from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
-from tests.test_torch_train_layouts import (check_wgmma_products, simt_bwd_step, sum_tol,
-                                            tile_bias_sums, wgrad_residency)
+from tests.test_torch_train_layouts import (check_wgmma_products, simt_bwd_step, simt_fwd_layer,
+                                            simt_fwd_maps, stage_fwd, sum_tol, tile_bias_sums,
+                                            wgrad_residency)
 
 torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers at once
 
@@ -32,10 +33,13 @@ def test_lstm_plan_takes_fp32_on_simt(hidden):
     assert (plan["cell"], plan["gates"]) == ("lstm", 4)
     U, cn = plan["U"], plan["CN"]
     assert U == min(hidden, 32) and U * cn == hidden and cn in (1, 2, 4, 8)
-    # a forward thread owns 4 rows x 2 or 1 units, a backward thread the
-    # partial of RT rows x 8 units (R = NR RT rows a tile, the GRU's)
-    upt = plan["rows_fwd"] * U // 1024
-    assert upt in (1, 2) and (plan["rows_fwd"] // 4) * (U // upt) == 256
+    # a forward thread owns one unit's 4 gates of RT rows (R = NGR NQ RT rows
+    # a tile), a backward thread the partial of RT rows x 8 units (R = NR RT
+    # rows a tile); both tiles are the GRU's
+    f = bigru_vjp.simt_fwd_geometry(hidden)
+    assert plan["rows_fwd"] == f["R"] == f["NGR"] * f["NQ"] * f["RT"]
+    assert f["NGR"] * f["NQ"] * U == 256
+    assert plan["rows_fwd"] == bigru_vjp.k45_plan(hidden, torch.float32)["rows_fwd"]
     g = bigru_vjp.simt_bwd_geometry(hidden)
     assert plan["rows_bwd"] == g["R"] == g["NR"] * g["RT"]
     assert plan["rows_bwd"] == bigru_vjp.k45_plan(hidden, torch.float32)["rows_bwd"]
@@ -56,23 +60,26 @@ def test_lstm_plan_takes_bf16_on_tc(hidden, U, cn):
 def test_lstm_plan_at_the_model_width():
     """H = 256, the reckoning of csrc/bilstm_train.cu's header: tc CTAs of
     202,752 (forward) and 65,536 + 8,192 + 135,168 + 16,896 = 225,792
-    (backward) bytes in clusters of 4; simt of 196,608 (32-row forward tiles
-    of 1 unit a thread: 2 units would need 262,144) and 131,072 + 73,728 +
-    21,120 + 32 = 225,952 (72-row backward tiles: the W_hh slice, the 8 x 72
-    x 32 f32 partials received, the 40 x 132 operand of a row half, four
-    barriers) in clusters of 8. The GRU's plan at the same width: 229,376
-    and 188,064."""
+    (backward) bytes in clusters of 4; simt of 131,072 + 73,728 + 32 =
+    204,832 (72-row forward tiles: the W_hh slice, h of the tile's rows,
+    four barriers; a 64-row tile of the double-buffered [k][row] h would
+    need 262,144) and 131,072 + 73,728
+    + 21,120 + 32 = 225,952 (72-row backward tiles: the W_hh slice, the 8 x
+    72 x 32 f32 partials received, the 40 x 132 operand of a row half, four
+    barriers) in clusters of 8. The GRU's plan at the same width: 98,304 +
+    73,728 + 32 = 172,064 and 188,064."""
     tc = bigru_vjp.k45_plan(256, torch.bfloat16, "lstm")
     simt = bigru_vjp.k45_plan(256, torch.float32, "lstm")
     assert (tc["U"], tc["CN"], tc["smem_fwd"], tc["smem_bwd"]) == (64, 4, 202752, 225792)
     assert tc["smem_bwd"] == 65536 + 8192 + 135168 + 16896 <= SMEM_LIMIT
     assert (simt["U"], simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == \
-        (32, 8, 196608, 225952)
+        (32, 8, 204832, 225952)
+    assert simt["smem_fwd"] == 131072 + 256 * 72 * 4 + 32 <= SMEM_LIMIT
     assert simt["smem_bwd"] == 131072 + 8 * 72 * 32 * 4 + 40 * 132 * 4 + 32
-    assert (simt["rows_fwd"], simt["rows_bwd"]) == (32, 72)
+    assert (simt["rows_fwd"], simt["rows_bwd"]) == (72, 72)
     assert (256 * 4 * 32 + 2 * 256 * 64) * 4 == 262144 > SMEM_LIMIT
     gru = bigru_vjp.k45_plan(256, torch.float32)
-    assert (gru["rows_fwd"], gru["smem_fwd"], gru["smem_bwd"]) == (64, 229376, 188064)
+    assert (gru["rows_fwd"], gru["smem_fwd"], gru["smem_bwd"]) == (72, 172064, 188064)
 
 
 def test_lstm_plan_cuts_the_simt_backward_tile_to_fit():
@@ -398,3 +405,72 @@ def test_k6_wgmma_operand_images_give_the_plain_gradients(hidden, cin):
     ones = torch.ones(1, L * N)
     for d in (0, 1):
         assert (got[d] - ref[2][d]).abs().max().item() <= sum_tol(ones, da[d]), ("db", d)
+
+
+# ---- K6's simt forward: the GRU's recurrence (tests/test_torch_train_layouts.py's
+# model of csrc/rnn_train_rec.cuh::fwd_rec_simt_kernel) with four gates
+
+@pytest.mark.parametrize("hidden", [16, 256])
+def test_k6_fwd_staging_holds_each_units_four_gates(hidden):
+    """The simt forward's W_hh image of each CTA, [c][k][gate][u], holds the
+    i, f, g, o columns of its units, the GRU's image its r, z, n; the LSTM's
+    tile and map are the GRU's, its shared memory the GRU's and one more
+    gate's slice (H x U f32)."""
+    whh = torch.from_numpy(np.random.RandomState(hidden).randn(hidden, 4 * hidden)
+                           .astype(np.float32))
+    plan = bigru_vjp.k45_plan(hidden, torch.float32, "lstm")
+    U = plan["U"]
+    img = stage_fwd(whh, U, 4)
+    assert img.shape == (hidden // U, hidden, 4, U)
+    for c in range(hidden // U):
+        for gate in range(4):
+            assert torch.equal(img[c, :, gate], whh[:, gate * hidden + c * U:
+                                                     gate * hidden + (c + 1) * U])
+    gwhh = whh[:, :3 * hidden].contiguous()
+    assert torch.equal(stage_fwd(gwhh, U, 3), img[:, :, :3])
+    gplan = bigru_vjp.k45_plan(hidden, torch.float32)
+    assert plan["rows_fwd"] == gplan["rows_fwd"] == simt_fwd_maps(hidden)["R"]
+    assert plan["smem_fwd"] == gplan["smem_fwd"] + hidden * U * 4
+
+
+@pytest.mark.parametrize("hidden,rows,dtype", [(16, 131, "float32"), (16, 131, "bfloat16"),
+                                               (64, 70, "float32"), (256, 75, "float32")])
+def test_k6_simt_fwd_model_equals_plain(hidden, rows, dtype):
+    """The forward in the kernel's layout (``simt_fwd_layer`` with four
+    gates) against ``bilstm_layer_train_fwd_plain`` at a ragged last tile:
+    out, c and the gates to 1e-5 in fp32 (the same products summed in
+    another order) and 1e-2 in bf16 (one bf16 ulp where an f32 sum in
+    another order rounds the other way), times max|ref| where that exceeds
+    1, as the cell state may."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(hidden + rows)
+    wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, 11, hidden, 1, "lstm")[0], dt)
+    x = torch.from_numpy(rng.randn(3, rows, 11).astype(np.float32)).to(dt)
+    got = simt_fwd_layer(x, wih, bih, whh, bhh, dt, "lstm")
+    ref = bilstm_vjp.bilstm_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    for name, a, r in zip(("out", "c", "gates"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        tol = (1e-5 if dt == torch.float32 else 1e-2) * max(1.0, r.float().abs().max().item())
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+def test_k6_simt_fwd_model_equals_the_jax_layer(hidden):
+    """The model against the JAX package's ``fused_bilstm_layer_tm`` forward
+    (``birnn_apply_pallas_trainable(cell="lstm")``, one layer, b_tile 8,
+    interpret mode) on the same numpy weights and inputs:
+    tests/test_torch_bilstm_vjp.py's forward gate, atol 3e-5 / rtol 1e-5."""
+    import jax.numpy as jnp
+
+    from ccsmeth_tpu.ops.bigru_pallas_vjp import birnn_apply_pallas_trainable
+
+    rng = np.random.RandomState(hidden + 13)
+    layers = init_rnn_params(rng, 11, hidden, 1, "lstm")
+    x = rng.randn(5, 6, 11).astype(np.float32)  # (N, L, C)
+    out_j, _ = birnn_apply_pallas_trainable(layers, jnp.asarray(x), b_tile=8, interpret=True,
+                                            cell="lstm")
+    wih, bih, whh, bhh = layer_weights(layers[0])
+    out, _c, _gates = simt_fwd_layer(torch.from_numpy(x).transpose(0, 1).contiguous(), wih,
+                                     bih, whh, bhh, cell="lstm")
+    np.testing.assert_allclose(out.transpose(0, 1).numpy(), np.asarray(out_j),
+                               atol=3e-5, rtol=1e-5)

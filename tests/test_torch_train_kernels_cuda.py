@@ -89,6 +89,70 @@ def test_k4_matches_plain(dtype, rows, hidden, cin):
     assert _err(gates, ref_gates) <= tol
 
 
+def _k4_fwd_matches_plain(x, wih, bih, whh, bhh, dt):
+    """K4 against its plain version, with its two CUDA launches (projection,
+    recurrence) and a bit-equal rerun."""
+    bigru_vjp.cuda_launches = 0
+    got = bigru_vjp.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    assert bigru_vjp.cuda_launches == 2
+    again = bigru_vjp.bigru_layer_train_fwd(x, wih, bih, whh, bhh, dt)
+    torch.cuda.synchronize()
+    ref = bigru_vjp.bigru_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    for name, a, b, r in zip(("out", "gates"), got, again, ref):
+        assert a.dtype == dt and a.shape == r.shape, name
+        assert torch.equal(a, b), name
+        assert _err(a, r) <= tol, (name, _err(a, r), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["R-1", "R+1", "512", "1000", "1029", "part-filled last wave"])
+def test_k4_simt_forward_at_the_tile_edges(edge):
+    """The simt forward at H = 256 on row counts at its tile's edges (72
+    rows): one row short of a tile, one row past it (a second tile of one
+    row), the 1s families' 512 rows (on the 80-row tile, one wave), the
+    train path's ragged 1,000 and 1,029 rows, and two tiles a
+    direction past a full wave (half the clusters the card holds at once,
+    cudaOccupancyMaxActiveClusters) and 5 rows: a part-filled last wave
+    ending in a ragged tile. Against the plain version, bit-equal on a
+    rerun, in two CUDA launches; the library's tile rows and shared memory
+    are the planner's."""
+    _need_card()
+    plan = bigru_vjp.k45_plan(256, torch.float32)
+    R = plan["rows_fwd"]
+    occ = bigru_vjp.fwd_rec_occupancy(plan, torch.float32)
+    assert (occ["rows"], occ["smem"]) == (R, plan["smem_fwd"])
+    rows = {"R-1": R - 1, "R+1": R + 1, "1000": 1000, "1029": 1029,
+            "part-filled last wave": R * (occ["clusters"] // 2 + 2) + 5, "512": 512}[edge]
+    # the tile of the call: the plan's, or one more row a thread where that
+    # saves a wave (the 1s families' 512 rows: 80), by the clusters read
+    # when the library was loaded
+    tile = bigru_vjp.fwd_rows(plan, rows)
+    assert bigru_vjp.fwd_clusters["gru"] == occ["clusters"]
+    assert tile == bigru_vjp.simt_fwd_rows(plan, rows, occ["clusters"]) in (R, R + 8)
+    _k4_fwd_matches_plain(*_case(rows, 256, 11, torch.float32)[:5], torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,dtype", [(16, "float32"), (16, "bfloat16"), (32, "float32"),
+                                          (64, "float32"), (128, "float32"),
+                                          (256, "float32")])
+def test_k4_simt_forward_at_every_width(hidden, dtype):
+    """Every H the simt design takes (clusters of 1, 2, 4 and 8; bf16 at
+    H = 16, which tc refuses) at its forward tile's rows + 3 (a ragged
+    second tile), C = 28: the simt design, against the plain version,
+    bit-equal on a rerun, in two CUDA launches."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    plan = bigru_vjp.k45_plan(hidden, dt)
+    assert plan["design"] == "simt"
+    assert (bigru_vjp.fwd_rec_occupancy(plan, dt)["rows"], plan["rows_fwd"]) == (
+        bigru_vjp.simt_fwd_geometry(hidden)["R"],) * 2
+    before = bigru_vjp.design_calls["simt"]
+    _k4_fwd_matches_plain(*_case(plan["rows_fwd"] + 3, hidden, 28, dt)[:5], dt)
+    assert bigru_vjp.design_calls["simt"] == before + 2
+
+
 def _k5_matches_plain(x, wih, bih, whh, bhh, dout, dt):
     """K5 on the plain forward's residuals against its plain version, with its
     CUDA launches and a bit-equal rerun."""

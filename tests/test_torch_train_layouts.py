@@ -27,10 +27,13 @@ def test_k45_plan_takes_fp32_on_simt(hidden):
     assert plan["design"] == "simt" and "fp32" in plan["why"]
     U, cn = plan["U"], plan["CN"]
     assert U == min(hidden, 32) and U * cn == hidden and cn in (1, 2, 4, 8)
-    # a K4 thread owns 4 rows x 2 units; a K5 thread the partial of RT rows
-    # x 8 units (256 threads: NR row groups x H / 8 unit groups) and the
-    # gate math of at most QM quads of 4 units of a row half
-    assert (plan["rows_fwd"] // 4) * (U // 2) == 256
+    # a K4 thread owns one unit's 3 gates of RT rows (256 threads: NGR warp
+    # groups of U units by NQ row slots); a K5 thread the partial of RT rows x 8 units (256
+    # threads: NR row groups x H / 8 unit groups) and the gate math of at
+    # most QM quads of 4 units of a row half
+    f = bigru_vjp.simt_fwd_geometry(hidden)
+    assert plan["rows_fwd"] == f["R"] == f["NGR"] * f["NQ"] * f["RT"]
+    assert f["NGR"] * f["NQ"] * U == 256
     g = bigru_vjp.simt_bwd_geometry(hidden)
     assert plan["rows_bwd"] == g["R"] == g["NR"] * g["RT"]
     assert g["NR"] * (hidden // 8) == 256 and g["QM"] * 256 * 4 >= g["R0"] * U
@@ -50,16 +53,18 @@ def test_k45_plan_takes_bf16_on_tc(hidden, U, cn):
 
 def test_k45_plan_at_the_model_width():
     """H = 256, the header's arithmetic: tc CTAs of 168,960 (K4) and 188,928
-    (K5) bytes in clusters of 4; simt of 229,376 and 98,304 + 73,728 +
-    16,000 + 32 = 188,064 (the W_hh slice, the 8 x 72 x 32 f32 partials
-    received, the 40 x 100 operand of a row half, four barriers) in clusters
-    of 8."""
+    (K5) bytes in clusters of 4; simt of 98,304 + 73,728 + 32 = 172,064 (the
+    W_hh slice [k][gate][u], h of the 72 rows, four barriers) and 98,304 +
+    73,728 + 16,000 + 32 = 188,064 (the W_hh slice, the 8 x 72 x 32 f32
+    partials received, the 40 x 100 operand of a row half, four barriers)
+    in clusters of 8."""
     tc = bigru_vjp.k45_plan(256, torch.bfloat16)
     simt = bigru_vjp.k45_plan(256, torch.float32)
     assert (tc["CN"], tc["smem_fwd"], tc["smem_bwd"]) == (4, 168960, 188928)
-    assert (simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == (8, 229376, 188064)
+    assert (simt["CN"], simt["smem_fwd"], simt["smem_bwd"]) == (8, 172064, 188064)
+    assert simt["smem_fwd"] == 256 * 3 * 32 * 4 + 256 * 72 * 4 + 32
     assert simt["smem_bwd"] == 96 * 256 * 4 + 8 * 72 * 32 * 4 + 40 * 100 * 4 + 32
-    assert (simt["rows_fwd"], simt["rows_bwd"]) == (64, 72)
+    assert (simt["rows_fwd"], simt["rows_bwd"]) == (72, 72)
 
 
 def test_k45_plan_sends_bf16_h16_to_simt():
@@ -402,7 +407,7 @@ def test_simt_bwd_rows_follow_the_occupancy_rule():
     rows, clusters = 1024, 15  # the train path's rows; resident clusters on the H100
 
     def waves(R):
-        return bigru_vjp.bwd_rec_waves(R, rows, clusters)
+        return bigru_vjp.rec_waves(R, rows, clusters)
 
     fits = [R for R in range(8, 257, 8)
             if max(bigru_vjp.k5_smem("simt", 256, 32, R, ng) for ng in (3, 4)) <= SMEM_LIMIT]
@@ -844,3 +849,539 @@ def test_wgmma_model_follows_the_kernel_source():
         assert line in src, line
     assert [x_route(c) for c in (11, 21, 28, 52, 64, 512)] == \
         ["plain", "plain", "plain", "plain", "tma", "tma"]
+
+
+# ---- the simt forward recurrence (csrc/rnn_train_rec.cuh::fwd_rec_simt_kernel):
+# its thread map, its h blocks and their exchange, the `full` / `empty`
+# protocol with the warp groups' turns, and a plain forward in its layout
+
+def fwd_row(rt, nq, q, i):
+    """``fwd_row`` of the source: row i of the thread in row slot q, local to
+    its group's rows (nq slots of rt rows): quads of consecutive rows first
+    (quad j: rows 4 (j nq + q) ..), then one row a slot."""
+    qa = rt // 4 * 4
+    return (i // 4 * nq + q) * 4 + i % 4 if i < qa else qa * nq + (i - qa) * nq + q
+
+
+def simt_fwd_maps(H, rt=0):
+    """The simt forward's thread map at H and RT rows a thread (``rt``, or
+    the default tile's), as fwd_rec_simt_kernel computes it from tid: each
+    thread's warp group (``group``), unit (local, ``unit``), row slot in its
+    group (``slot``) and rows local to its group's (``rows``, (256, RT));
+    the group's rows of the tile start at group RG."""
+    g = bigru_vjp.simt_fwd_geometry(H, rt)
+    tid = np.arange(256)
+    warp, lane = tid // 32, tid % 32
+    wpg = 8 // g["NGR"]  # warps a group
+    unit = lane % g["U"]
+    slot = (warp % wpg) * g["SW"] + lane // g["U"]
+    rows = np.array([[fwd_row(g["RT"], g["NQ"], q, i) for i in range(g["RT"])] for q in slot])
+    return dict(g, group=warp // wpg, unit=unit, slot=slot, rows=rows)
+
+
+def stage_fwd(whh, U, ng):
+    """One direction's W_hh (H, NG H) -> each CTA's shared-memory image of the
+    simt forward, (CN, H, NG, U): [c][k][gate][u] = W_hh[k, gate H + c U +
+    u], flat index (k NG + gate) U + u."""
+    H = whh.shape[0]
+    return torch.stack([whh.view(H, ng, H // U, U)[:, :, c] for c in range(H // U)])
+
+
+@pytest.mark.parametrize("hidden,rt", [(16, 0), (32, 0), (64, 0), (128, 0), (256, 0), (256, 10)])
+def test_simt_fwd_maps_cover_each_pair_once(hidden, rt):
+    """The forward's 256 threads, in NGR warp groups, cover each group's RG
+    rows x U (row, unit) pairs once, one unit's NG gates a thread; a warp's
+    lanes hold the U units (a gate's 4-byte W loads U consecutive words of
+    the [k][gate][u] slice) by SW row slots, whose 16-byte h loads are SW
+    consecutive aligned quads of a k row, and whose one-row loads SW
+    consecutive floats: no bank conflict. The groups' rows fill the tile,
+    at the default tile and at H = 256's other (80 rows)."""
+    m = simt_fwd_maps(hidden, rt)
+    U, NQ, RG = m["U"], m["NQ"], m["RG"]
+    assert m["R"] == m["NGR"] * RG and U * m["SW"] == 32 and m["NGR"] * NQ * U == 256
+    for grp in range(m["NGR"]):
+        mine = m["group"] == grp
+        cover = np.zeros((RG, U), int)
+        np.add.at(cover, (m["rows"][mine], m["unit"][mine][:, None]), 1)
+        assert (cover == 1).all()
+    for w in range(8):
+        lanes = slice(32 * w, 32 * w + 32)
+        units, slots, rows = m["unit"][lanes], m["slot"][lanes], m["rows"][lanes]
+        assert len(set(m["group"][lanes])) == 1
+        assert sorted(set(units)) == list(range(U))
+        assert sorted(set(slots)) == list(range(slots.min(), slots.min() + m["SW"]))
+        for j in range(m["RT"] // 4):  # 16-byte loads: aligned quads, one a slot
+            quads = rows[:, 4 * j]
+            assert (quads % 4 == 0).all()
+            assert (rows[:, 4 * j:4 * j + 4] - quads[:, None] == np.arange(4)).all()
+            assert quads.max() - quads.min() == 4 * (m["SW"] - 1)
+        for i in range(m["RT"] // 4 * 4, m["RT"]):  # one row a slot: consecutive floats
+            assert rows[:, i].max() - rows[:, i].min() == m["SW"] - 1
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_simt_fwd_blocks_are_contiguous_and_counted(hidden):
+    """CTA c's new h of a group is one contiguous block of the group's
+    [k][row] image, k = c U .. (c + 1) U - 1: flat [c U RG, (c + 1) U RG), a
+    multiple of 16 bytes (a bulk copy's unit) at a 16-byte aligned offset;
+    every thread's stores of its unit's rows land in its CTA's block, and a
+    receiver's `full` barrier expects (CN - 1) U RG 4 bytes a phase, the
+    blocks of its peers."""
+    m = simt_fwd_maps(hidden)
+    U, CN, RG = m["U"], m["CN"], m["RG"]
+    assert (U * RG * 4) % 16 == 0 and (hidden * RG * 4) % 16 == 0
+    for grp in range(m["NGR"]):
+        mine = m["group"] == grp
+        for c in range(CN):
+            flat = (c * U + m["unit"][mine][:, None]) * RG + m["rows"][mine]
+            assert flat.min() == c * U * RG and flat.max() == (c + 1) * U * RG - 1
+            assert len(np.unique(flat)) == flat.size == U * RG
+    assert (CN - 1) * U * RG * 4 == sum(U * RG * 4 for c in range(1, CN))
+
+
+class _Bar:
+    """An mbarrier: ``count`` arrivals a phase, the pending arrivals and
+    tx-count of the current phase, and the phases completed (``done``)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.done = count, count, 0, 0
+
+    def arrive(self, tx=0):
+        self.tx += tx
+        self.pending -= 1
+        self._complete()
+
+    def complete_tx(self, n):
+        self.tx -= n
+        self._complete()
+
+    def _complete(self):
+        if self.pending == 0 and self.tx == 0:
+            self.done += 1
+            self.pending = self.count
+
+    def passed(self, phase):
+        """Whether a wait on the parity of ``phase`` returns; a parity wait
+        is exact only while the barrier is at that phase or one past it."""
+        assert phase <= self.done <= phase + 1, ("a phase ahead or behind", phase, self.done)
+        return self.done == phase + 1
+
+
+class _Named:
+    """A named CTA barrier (bar.sync / bar.arrive) of the given agents: a
+    generation completes when each has arrived once; an agent that arrives
+    again before that would count toward the wrong turn."""
+
+    def __init__(self, agents):
+        self.agents, self.arrived, self.done = set(agents), set(), 0
+
+    def arrive(self, who):
+        assert who in self.agents and who not in self.arrived, ("arrived twice", who)
+        self.arrived.add(who)
+        gen = self.done
+        if self.arrived == self.agents:
+            self.done, self.arrived = self.done + 1, set()
+        return gen
+
+
+class _Cta:
+    """One CTA of the model: each group's h image as block tags (the step
+    whose h a block holds; its own block in two parts, its first thread's
+    and the others'), its barriers, the steps its agents have read, and its
+    first threads' bulk-copy groups."""
+
+    def __init__(self, rank, CN, NGR):
+        self.rank = rank
+        self.blocks = [[0] * CN for _ in range(NGR)]
+        self.own = [[0, 0] for _ in range(NGR)]
+        self.full = [_Bar(1) for _ in range(NGR)]
+        self.empty = [_Bar(CN - 1) for _ in range(NGR)]
+        self.read = [[-1, -1] for _ in range(NGR)]
+        self.groups = [[] for _ in range(NGR)]
+        agents = [(g, w) for g in range(NGR) for w in (0, 1)]
+        # the groups' own barriers, and the turns: group 0's product waits on
+        # 3 (group 1's arrival), group 1's on 4 (group 0's)
+        self.named = {1 + g: _Named([(g, 0), (g, 1)]) for g in range(NGR)}
+        self.named.update({3: _Named(agents), 4: _Named(agents)})
+
+
+def simt_fwd_protocol(CN, L, seed):
+    """The forward's exchange on one cluster, as the kernel runs it, under a
+    random interleaving: each of the two warp groups of each CTA is two
+    agents (its first thread and the rest, meeting at the group's barriers),
+    a step: all wait on the group's `full` (step > 0); the group's turn
+    (named barrier 3 + g, which the other group's product passes on; group
+    0's first product needs none); the product reads every block of the
+    group's image, each of which must hold h(s); the turn passed on (group
+    0 always, group 1 while steps remain); the first thread waits until its
+    copies have read their source and arms `full` with the bytes to come; a
+    group barrier; thread t < CN of the group (not the CTA's rank) arrives
+    on peer t's `empty`; both agents write their part of the own block
+    (h(s + 1)); a group barrier; the first thread waits on `empty` and
+    issues the copies to the peers as one group. A copy reads its source
+    some time later (which must still hold the step it was issued for) and
+    lands some time after that (the receiver must have read the step
+    before: the one-buffer hazard), completing its bytes on the receiver's
+    `full`. Every wait checks that its barrier is at the phase waited for
+    or one past, and every turn that it is not taken twice. Returns the
+    CTAs and the order in which the products ran, or fails on a hazard or a
+    deadlock."""
+    rng = np.random.RandomState(seed)
+    NGR = 2
+    ctas = [_Cta(r, CN, NGR) for r in range(CN)]
+    copies, products = [], []
+
+    def agent(c, g, who):
+        cta = ctas[c]
+        me = (g, who)
+        for s in range(L):
+            more = s + 1 < L
+            if CN > 1 and s > 0:
+                yield ("wait", cta.full[g], s - 1)
+            if g == 1 or s > 0:
+                yield ("named", cta.named[3 + g], cta.named[3 + g].arrive(me))
+            assert all(tag == s for tag in cta.blocks[g][:c] + cta.blocks[g][c + 1:])
+            assert cta.own[g] == [s, s], (c, g, s, cta.own[g])
+            cta.read[g][who] = s
+            if who == 0:
+                products.append((c, s, g))
+            if g == 0 or more:
+                cta.named[4 - g].arrive(me)
+            if who == 0 and CN > 1:
+                yield ("wait_read", cta, g)
+                if more:
+                    cta.full[g].arrive(tx=CN - 1)
+            yield ("named", cta.named[1 + g], cta.named[1 + g].arrive(me))
+            if CN > 1 and more:
+                for p in ([0] if who == 0 else range(1, CN)):
+                    if p != c:
+                        ctas[p].empty[g].arrive()
+            if not more:
+                break
+            cta.own[g][who] = s + 1
+            yield ("named", cta.named[1 + g], cta.named[1 + g].arrive(me))
+            if CN > 1 and who == 0:
+                yield ("wait", cta.empty[g], s)
+                group = [{"src": c, "dst": (c + r) % CN, "g": g, "tag": s + 1,
+                          "state": "issued"} for r in range(1, CN)]
+                cta.groups[g].append(group)
+                copies.extend(group)
+        if who == 0 and CN > 1:
+            yield ("wait_read", cta, g)
+
+    agents = {(c, g, w): agent(c, g, w) for c in range(CN) for g in range(NGR) for w in (0, 1)}
+    at = {k: next(a, None) for k, a in agents.items()}
+
+    def runnable(k):
+        op = at[k]
+        if op is None:
+            return False
+        if op[0] == "wait":
+            return op[1].passed(op[2])
+        if op[0] == "named":
+            return op[1].done > op[2]
+        return all(cp["state"] != "issued" for grp in op[1].groups[op[2]] for cp in grp)
+
+    while True:
+        moves = [("agent", k) for k in agents if runnable(k)]
+        moves += [("copy", cp) for cp in copies if cp["state"] != "landed"]
+        if not moves:
+            break
+        kind, obj = moves[rng.randint(len(moves))]
+        if kind == "agent":
+            at[obj] = next(agents[obj], None)
+        elif obj["state"] == "issued":  # the copy reads its source block
+            assert ctas[obj["src"]].own[obj["g"]] == [obj["tag"]] * 2, obj
+            obj["state"] = "read"
+        else:  # and lands in the receiver's image
+            dst = ctas[obj["dst"]]
+            assert min(dst.read[obj["g"]]) >= obj["tag"] - 1, ("landed on unread h", obj)
+            dst.blocks[obj["g"]][obj["src"]] = obj["tag"]
+            dst.full[obj["g"]].complete_tx(1)
+            obj["state"] = "landed"
+    assert all(op is None for op in at.values()), "deadlock"
+    return ctas, products
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("cn,steps", [(1, 3), (2, 1), (2, 2), (2, 5), (4, 3), (8, 2), (8, 4)])
+def test_simt_fwd_exchange_protocol(cn, steps, seed):
+    """The forward's `full` / `empty` protocol and the two warp groups'
+    turns on one cluster under random interleavings
+    (``simt_fwd_protocol``): no deadlock, no block read before
+    it holds the step's h, no copy that reads a block overwritten or lands
+    on h not yet read, no barrier a phase ahead of its waiter, no turn taken
+    twice; each CTA's products run in turn (group 0's step s, group 1's,
+    group 0's step s + 1, ...); at the end each `full` and `empty` has
+    completed one phase a step but the last."""
+    ctas, products = simt_fwd_protocol(cn, steps, seed)
+    for c, cta in enumerate(ctas):
+        for g in range(2):
+            if cn > 1:
+                assert cta.full[g].done == cta.empty[g].done == steps - 1
+            assert cta.read[g] == [steps - 1, steps - 1]
+        mine = [(s, g) for cc, s, g in products if cc == c]
+        assert mine == [(s, g) for s in range(steps) for g in range(2)]
+
+
+def simt_fwd_layer(x, w_ih, b_ih, w_hh, b_hh, compute_dtype=torch.float32, cell="gru", rt=0):
+    """The simt forward in the kernel's layout, in plain PyTorch: the
+    projection (b_hh folded in but the GRU's b_hn), then per direction, row
+    tile (the last padded with zero rows) and step, each warp group in turn
+    (its rows of the tile): each CTA c's threads of the group read their
+    rows from the group's [k][row] image of h(s) in c and their unit's gates
+    of c's staged W_hh slice (``stage_fwd``) into the product (one sum over
+    k a (row, unit, gate)); the gate math; out and the residuals stored by
+    (row, unit); the new h, rounded to the operand type, into c's block of
+    the image, and the block, flat, into every peer's image at the same
+    place; RT rows a thread (``rt``, or the default tile's). Returns (out,
+    gates) for the GRU, (out, c, gates) for the LSTM, in the store type."""
+    from ccsmeth_tpu_torch.ops.kernel_args import op as to_op
+
+    L, N, C = x.shape
+    H = w_hh.shape[1]
+    ng = 3 if cell == "gru" else 4
+    m = simt_fwd_maps(H, rt)
+    U, CN, R, RG = m["U"], m["CN"], m["R"], m["RG"]
+    dt = compute_dtype
+
+    def op(t):
+        return t.to(dt).float()
+
+    tiles = -(-N // R)
+    out = torch.zeros((L, tiles * R, 2 * H))
+    gates = torch.zeros((2, L, tiles * R, 4 * H))
+    cseq = torch.zeros((2, L, tiles * R, H))
+    for d in (0, 1):
+        fold = b_hh[d].clone()
+        if cell == "gru":
+            fold[2 * H:] = 0.0
+        xg = (x.reshape(L * N, C).float() @ to_op(w_ih[d], dt) + b_ih[d] + fold).view(L, N, -1)
+        xg = torch.cat([xg, xg.new_zeros((L, tiles * R - N, ng * H))], dim=1)
+        ws = stage_fwd(to_op(w_hh[d], dt), U, ng)
+        for r0 in range(0, tiles * R, R):
+            imgs = [[torch.zeros(H * RG) for _ in range(CN)] for _ in range(m["NGR"])]
+            state = torch.zeros((R, H))
+            for s in range(L):
+                t = s if d == 0 else L - 1 - s
+                for grp in range(m["NGR"]):
+                    mine = torch.as_tensor(m["group"] == grp)
+                    rows = torch.as_tensor(m["rows"])[mine]                   # (GT, RT)
+                    unit = torch.as_tensor(m["unit"])[mine]
+                    blocks = []
+                    for c in range(CN):
+                        hv = imgs[grp][c].view(H, RG)[:, rows]                # (H, GT, RT)
+                        w = ws[c][:, :, unit]                                 # (H, NG, GT)
+                        acc = torch.einsum("kti,kgt->tig", hv, w)
+                        grow = grp * RG + rows                                # tile rows
+                        gu = c * U + unit[:, None].expand_as(rows)            # units
+                        xv = torch.stack([xg[t, r0 + grow, gate * H + gu] for gate in range(ng)],
+                                         dim=-1)
+                        sv = state[grow, gu]
+                        if cell == "gru":
+                            r = torch.sigmoid(xv[..., 0] + acc[..., 0])
+                            z = torch.sigmoid(xv[..., 1] + acc[..., 1])
+                            hgn = acc[..., 2] + b_hh[d][2 * H + gu]
+                            n = torch.tanh(xv[..., 2] + r * hgn)
+                            sv = (1.0 - z) * n + z * sv
+                            hnew, res = sv, (r, z, n, hgn)
+                        else:
+                            i_, f_, o_ = (torch.sigmoid(xv[..., k] + acc[..., k]) for k in (0, 1, 3))
+                            g_ = torch.tanh(xv[..., 2] + acc[..., 2])
+                            sv = f_ * sv + i_ * g_
+                            hnew, res = o_ * torch.tanh(sv), (i_, f_, g_, o_)
+                            cseq[d, t, r0 + grow, gu] = sv
+                        state[grow, gu] = sv
+                        out[t, r0 + grow, d * H + gu] = hnew
+                        for k, v in enumerate(res):
+                            gates[d, t, r0 + grow, k * H + gu] = v
+                        blk = imgs[grp][c].clone().view(H, RG)
+                        blk[c * U + unit[:, None], rows] = op(hnew)
+                        blocks.append(blk.view(-1)[c * U * RG:(c + 1) * U * RG])
+                    for c in range(CN):  # the blocks' bulk copies (and the own one)
+                        for b in range(CN):
+                            imgs[grp][c][b * U * RG:(b + 1) * U * RG] = blocks[b]
+    res = (out[:, :N].to(dt), gates[:, :, :N].to(dt))
+    return res if cell == "gru" else (res[0], cseq[:, :, :N].to(dt), res[1])
+
+
+@pytest.mark.parametrize("hidden,rows,dtype,rt", [(16, 131, "float32", 0),
+                                                  (16, 131, "bfloat16", 0),
+                                                  (64, 70, "float32", 0), (256, 75, "float32", 0),
+                                                  (256, 83, "float32", 10)])
+def test_simt_fwd_model_equals_plain(hidden, rows, dtype, rt):
+    """The forward in the kernel's layout (``simt_fwd_layer``: tiles, warp
+    groups, thread map, blocks and their exchange; at H = 256 also the
+    80-row tile) against ``bigru_layer_train_fwd_plain`` at a ragged last
+    tile: fp32 to 1e-5 (the same products summed in another order); bf16 to
+    1e-2 (a stored value one bf16 ulp apart where an f32 sum in another
+    order rounds the other way)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(hidden + rows)
+    wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, 11, hidden, 1)[0], dt)
+    x = torch.from_numpy(rng.randn(3, rows, 11).astype(np.float32)).to(dt)
+    got = simt_fwd_layer(x, wih, bih, whh, bhh, dt, rt=rt)
+    ref = bigru_vjp.bigru_layer_train_fwd_plain(x, wih, bih, whh, bhh, dt)
+    tol = 1e-5 if dt == torch.float32 else 1e-2
+    for name, a, r in zip(("out", "gates"), got, ref):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert (a.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("hidden", [16, 64])
+def test_simt_fwd_model_equals_the_jax_layer(hidden):
+    """The model (``simt_fwd_layer``) against the JAX package's
+    ``fused_bigru_layer_tm`` forward (``birnn_apply_pallas_trainable``, one
+    layer, b_tile 8, interpret mode) on the same numpy weights and inputs:
+    tests/test_torch_bigru_vjp.py's forward gate, atol 3e-5 / rtol 1e-5."""
+    import jax.numpy as jnp
+
+    from ccsmeth_tpu.ops.bigru_pallas_vjp import birnn_apply_pallas_trainable
+
+    rng = np.random.RandomState(hidden + 11)
+    layers = init_rnn_params(rng, 11, hidden, 1)
+    x = rng.randn(5, 6, 11).astype(np.float32)  # (N, L, C)
+    out_j, _ = birnn_apply_pallas_trainable(layers, jnp.asarray(x), b_tile=8, interpret=True)
+    wih, bih, whh, bhh = layer_weights(layers[0])
+    out, _gates = simt_fwd_layer(torch.from_numpy(x).transpose(0, 1).contiguous(), wih, bih,
+                                 whh, bhh)
+    np.testing.assert_allclose(out.transpose(0, 1).numpy(), np.asarray(out_j),
+                               atol=3e-5, rtol=1e-5)
+
+
+def test_simt_fwd_rows_follow_the_occupancy_rule():
+    """R at H = 256 is the least multiple of 8 (the 8 row slots) whose
+    1,024-row tiles fill the fewest waves of 15 resident clusters of 8 and
+    whose CTA fits in shared memory, for both cells: 72 rows, 15 tiles a
+    direction, 2 waves (64 rows take 3; no tile that fits the LSTM's CTA, 96
+    rows at most, reaches one wave); the source's K46_FWD_RT256 is the
+    planner's, and the rows below H = 256 stay the parent's (64; 128 at
+    H = 16)."""
+    rows, clusters = 1024, 15
+
+    def waves(R):
+        return bigru_vjp.rec_waves(R, rows, clusters)
+
+    fits = [R for R in range(8, 257, 8)
+            if max(bigru_vjp.k4_smem("simt", 256, 32, R, ng) for ng in (3, 4)) <= SMEM_LIMIT]
+    best = min(fits, key=lambda R: (waves(R), R))
+    assert best == 72 == bigru_vjp.simt_fwd_geometry(256)["R"]
+    assert (waves(72), waves(64), max(fits), waves(max(fits))) == (2, 3, 96, 2)
+    for hidden, R in ((16, 128), (32, 64), (64, 64), (128, 64)):
+        assert bigru_vjp.simt_fwd_geometry(hidden)["R"] == R
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
+    with open(path) as f:
+        src = f.read()
+    assert "#define K46_FWD_RT256 {}\n".format(bigru_vjp.SIMT_FWD_RT256) in src
+
+
+@pytest.mark.parametrize("rows,tile", [(1024, 72), (1000, 72), (1029, 72), (512, 80),
+                                       (504, 72), (505, 80), (560, 80), (561, 72), (100, 72),
+                                       (16384, 72)])
+def test_simt_fwd_tile_follows_the_rows(rows, tile):
+    """The simt forward's tile for a call (``simt_fwd_rows``, 15 clusters of
+    8 resident): at H = 256 the planner's 72 rows, or the 80 of one more row
+    a thread where that takes less time, waves x rows a tile: the train
+    path's 1,024 rows keep 72 (2 waves either way), the 1s families' 512 take
+    80 (1 wave; 72 would take 2); the CTA of 80 rows fits for both cells;
+    every other H, design and the tc plans keep the plan's one tile, as
+    does a plan pinned to one (``fwd_rows`` without the card)."""
+    for cell in ("gru", "lstm"):
+        plan = bigru_vjp.k45_plan(256, torch.float32, cell)
+        assert plan["tiles_fwd"] == (72, 80)
+        assert bigru_vjp.simt_fwd_rows(plan, rows, 15) == tile
+        assert bigru_vjp.k4_smem("simt", 256, 32, 80, plan["gates"]) <= SMEM_LIMIT
+        for R in plan["tiles_fwd"]:
+            assert bigru_vjp.fwd_rows(dict(plan, tiles_fwd=(R,)), rows) == R
+        for hidden, dt in ((64, torch.float32), (16, torch.bfloat16), (256, torch.bfloat16)):
+            other = bigru_vjp.k45_plan(hidden, dt, cell)
+            assert other["tiles_fwd"] == (other["rows_fwd"],)
+            assert bigru_vjp.simt_fwd_rows(other, rows, 15) == other["rows_fwd"]
+            assert bigru_vjp.fwd_rows(other, rows) == other["rows_fwd"]
+    waves = [bigru_vjp.rec_waves(r, rows, 15) * r for r in (72, 80)]
+    assert tile == (72, 80)[waves[1] < waves[0]]
+
+
+def test_simt_fwd_model_follows_the_kernel_source():
+    """The maps, staging, blocks and protocol of the model above are the
+    kernel's: its geometry and warp groups, ``fwd_row``, the thread's group,
+    unit and row slot, the [k][gate][u] slice, the product's loads, each
+    (row, unit, gate) one fmaf chain over k ascending, the gate math, the own block and its
+    copies, the groups' turns, the barriers' counts, arms, arrivals and
+    waits, and the shared memory's parts."""
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_rec.cuh")
+    with open(path) as f:
+        src = " ".join(f.read().split())
+    for line in ("static constexpr int U = H < 32 ? H : 32;",
+                 "static constexpr int SW = 32 / U;",
+                 "static constexpr int NGR = 2;",
+                 "static constexpr int NQ = 8 / NGR * SW;",
+                 "static constexpr int RT = RT_;",
+                 "case 256: return SimtFwdGeom<256, K46_FWD_RT256>::R;",
+                 "if (H == 256 && R == SimtFwdGeom<256, K46_FWD_RT256 + 1>::R) return (const void*)"
+                 "fwd_rec_simt_kernel<T, LSTM, 256, K46_FWD_RT256 + 1>;",
+                 "static constexpr int RG = NQ * RT, R = NGR * RG;",
+                 "return i < rt / 4 * 4 ? (i / 4 * nq + q) * 4 + i % 4 : rt / 4 * 4 * nq + "
+                 "(i - rt / 4 * 4) * nq + q;",
+                 "const int g = warp / (8 / NGR), wg = warp % (8 / NGR);",
+                 "const int gtid = tid % GT;",
+                 "const int u = lane % U;",
+                 "const int q = wg * SW + lane / U;",
+                 "const int row0 = (blockIdx.x / CN) * R + g * RG;",
+                 "float* hb = hs + g * H * RG;",
+                 "const int k = i / (NG * U), gate = i / U % NG, uu = i % U;",
+                 "ws[i] = Op<T>::to_f(W[(size_t)k * G + gate * H + u0 + uu]);",
+                 "w[gate] = ws[(k * NG + gate) * U + u];",
+                 "const float* hk = hb + k * RG;",
+                 "*reinterpret_cast<const float4*>(hk + (j * NQ + q) * 4);",
+                 "for (int i = RT / 4 * 4; i < RT; ++i) hv[i] = hk[fwd_row(RT, NQ, q, i)];",
+                 "for (int k = 0; k < H; ++k) {",
+                 "acc[i][gate] = fmaf(hv[i], w[gate], acc[i][gate]);",
+                 "const int row = row0 + fwd_row(RT, NQ, q, i);",
+                 "sv = fmaf(a[1], sv, a[0] * a[2]);",
+                 "hnew[i] = a[3] * tanhf(sv);",
+                 "a[2] = tanhf(xc[i][2] + a[0] * a[3]);",
+                 "sv = (1.0f - a[1]) * a[2] + a[1] * sv;",
+                 "float* blk = hb + unit * RG;",
+                 "*reinterpret_cast<float4*>(blk + (j * NQ + q) * 4) =",
+                 "blk[fwd_row(RT, NQ, q, i)] = Op<T>::operand(hnew[i]);",
+                 "mbar_init(bar0 + 8 * b, 1);",
+                 "mbar_init(bar0 + 16 + 8 * b, CN - 1);",
+                 "const uint32_t full_bar = bar0 + 8 * g, empty_bar = bar0 + 16 + 8 * g;",
+                 "if (CN > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);",
+                 "if (g == 1 || s > 0) named_sync(3 + g, REC_THREADS);",
+                 "if (g == 0 || more) named_arrive(4 - g, REC_THREADS);",
+                 "named_sync(1 + g, GT);",
+                 "asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: \"memory\");",
+                 "if (more) mbar_expect_tx(full_bar, (CN - 1) * U * RG * 4);",
+                 "if (CN > 1 && more && gtid < CN && gtid != (int)crank) "
+                 "mbar_arrive_remote(empty_bar, gtid);",
+                 "mbar_wait(empty_bar, s & 1);",
+                 "const uint32_t src = smem_u32(hb + u0 * RG);",
+                 "bulk_to_peer(src, U * RG * 4, full_bar, (crank + r) % CN);",
+                 "return (size_t)H * NG * U * 4 + (size_t)H * R * 4 + 32;"):
+        assert line in src, line
+
+
+@pytest.mark.parametrize("marks,parts", [("K46_PROBE_MARKS", "K46_PROBE_PARTS"),
+                                         ("K56_PROBE_MARKS", "K56_PROBE_PARTS")])
+def test_recurrence_probe_marks_each_apply_once(marks, parts):
+    """chip_smoke.py's k46_fwd_simt_probe and k56_bwd_simt_probe build a copy
+    of csrc/rnn_train_rec.cuh with clock64 marks put in by text
+    replacement: each mark's anchor is in the shipped header exactly once,
+    and every part of the step is marked."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_marks", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with open(os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc",
+                           "rnn_train_rec.cuh")) as f:
+        src = f.read()
+    for old, _new in getattr(smoke, marks):
+        assert src.count(old) == 1, old
+    marked = "".join(new for _old, new in getattr(smoke, marks))
+    tag = marks[:3]
+    assert all("{}_PROF({})".format(tag, k) in marked for k in range(len(getattr(smoke, parts))))
