@@ -48,11 +48,15 @@ the cell and the dtype (``design_calls`` counts K1's calls by design):
   row (ub*NG + gate)*8 + i of CTA c holds column gate*H + c*U + 8*ub + i,
   so a thread's accumulators hold every gate of its units;
 - ``simt`` (``csrc/birnn_simt.cu``), exact f32 FMAs (no TF32): per layer
-  K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``) and a
-  cluster recurrence written for inference, whose CTAs pass h to each other
+  K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``: the f32
+  GEMM ``proj_f32_kernel`` of ``rnn_train_gemm.cuh``, 8 x 16 outputs a
+  thread) and a cluster recurrence written for inference: four product
+  warps, each thread RT rows by 2 units of every gate, and four warps that
+  share the gate math with them, whose CTAs pass h to each other
   by bulk copies that complete on barriers in shared memory; its geometry
-  (U units a CTA, clusters of CN = H / U CTAs, R rows a tile, NB h buffers)
-  is ``SIMT_GEOMETRY`` at H = 256 and ``SIMT_SMALL`` below. It takes fp32
+  (U units a CTA, clusters of CN = H / U CTAs, R rows a tile: 72 at H =
+  256, two full waves at 1,024 rows) is ``SIMT_GEOMETRY`` at H = 256 and
+  ``SIMT_SMALL`` below. It takes fp32
   and the bf16 shapes that ``tc`` refuses, at H = 16 or a multiple of 32
   with clusters of 1, 2, 4 or 8 CTAs of min(H, 32) units (H = 16, 32, 64,
   128, 256); the bf16 ones run the inference instantiation of the training
@@ -88,10 +92,12 @@ SIMT_SRC = "birnn_simt.cu"  # the simt design's recurrence
 TC_GEOMETRY = {"gru": (64, 2, 2), "lstm": (64, 2, 2)}
 TC_BY_U = {16: (16, 2, 1), 32: (32, 2, 2), 64: (64, 2, 2)}
 TC_FUSED_KX = (16, 32, 64)  # k extents of a fused layer-0 projection
-# the f32 recurrence's geometry (U, R, NB), instantiated in
-# csrc/birnn_simt.cu: at H = 256 per cell; below, by U = min(H, 32)
-SIMT_GEOMETRY = {"gru": (64, 32, 1), "lstm": (32, 96, 1)}
-SIMT_SMALL = {16: (16, 128, 2), 32: (32, 64, 2)}
+# the f32 recurrence's geometry (U, R): U units a CTA, R rows a tile,
+# instantiated in csrc/birnn_simt.cu (GRU_GEOMETRIES, LSTM_GEOMETRIES): at
+# H = 256 per cell; below, by U = min(H, 32)
+SIMT_GEOMETRY = {"gru": (32, 72), "lstm": (32, 72)}
+SIMT_SMALL = {16: (16, 64), 32: (32, 32)}
+SIMT_PRODUCT_THREADS = 128  # the f32 recurrence's product threads; a CTA has twice as many
 _CELL_CODE = {"gru": 0, "lstm": 1}
 
 launches = 0  # K1 calls (one per birnn_stack call) since the caller last set it to 0
@@ -126,9 +132,9 @@ def _load_simt():
             lib = ctypes.CDLL(build(SIMT_SRC))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.birnn_simt_rec_launch.restype = i
-            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 6 + [p, i]
+            lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p, i]
             lib.birnn_simt_rec_occupancy.restype = i
-            lib.birnn_simt_rec_occupancy.argtypes = [i] * 5 + [p, p, i]
+            lib.birnn_simt_rec_occupancy.argtypes = [i] * 4 + [p, p, i]
             _simt_lib = lib
     return _simt_lib
 
@@ -220,14 +226,18 @@ def _shared_bytes(C0: int, H: int, bt: int, cell: str = "gru") -> int:
 def simt_geometry(H: int, cell: str, geometry=None) -> dict:
     """The f32 recurrence's geometry for H (16, or a multiple of 32 with a
     cluster of 1, 2, 4 or 8 CTAs of min(H, 32) units) and the cell, or the
-    (U, R, NB) given, as csrc/birnn_simt.cu launches it: {"U", "CN", "rows"
-    (R, a tile), "NB" (h buffers), "threads" (R / 4 x U / 2), "smem" ((H NG
-    U + NB H R) f32 and 32 bytes of barriers a CTA)}."""
+    (U, R) given, as csrc/birnn_simt.cu launches it: {"U", "CN", "rows" (R,
+    a tile), "threads" (256: 128 product threads, U / 2 unit pairs by 256 /
+    U row slots, and 128 gate threads), "rows_a_thread" (RT = R U / 256),
+    "smem" ((H NG U + H R + RT NG 128) f32 and 32 bytes of barriers a
+    CTA)}."""
     if geometry is None:
         geometry = SIMT_GEOMETRY[cell] if H == 256 else SIMT_SMALL[min(H, 32)]
-    U, R, NB = geometry
-    return {"U": U, "CN": H // U, "rows": R, "NB": NB, "threads": (R // 4) * (U // 2),
-            "smem": (H * n_gates(cell) * U + NB * H * R) * 4 + 32}
+    U, R = geometry
+    ng, rt = n_gates(cell), R * U // (2 * SIMT_PRODUCT_THREADS)
+    return {"U": U, "CN": H // U, "rows": R, "threads": 2 * SIMT_PRODUCT_THREADS,
+            "rows_a_thread": rt,
+            "smem": (H * ng * U + H * R + rt * ng * SIMT_PRODUCT_THREADS) * 4 + 32}
 
 
 def tc_smem(H: int, cell: str, U: int, rows: int, kx: int = 0) -> int:
@@ -282,7 +292,7 @@ def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
     Returns {"design": "tc", "U", "CN", "MR", "WN", "rows", "threads",
     "smem" (bytes a CTA of the unfused recurrence): ``tc_geometry``},
     {"design": "simt", "U", "CN", "rows" (a recurrence tile), "smem", "why"}
-    (fp32 also "NB", "threads": ``simt_geometry``) or {"design": "l2",
+    (fp32 also "threads", "rows_a_thread": ``simt_geometry``) or {"design": "l2",
     "why", "why_not_simt"}; "why" says why not tc. A bf16 simt plan holds
     the training forward's geometry."""
     ng = n_gates(cell)
@@ -466,13 +476,13 @@ def simt_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
     """Phase (b) of the simt design, one layer, both directions, zero h0
     (and c0): xg (2, L*N, G) f32, w_hh (2, H, G) and out (L, N, 2H) in the
     operand type, b_hh (2, G) f32 -> out, hn (2, N, H) f32; the cluster
-    geometry (U, rows, NB) of ``k1_plan``. bf16 operands run the
-    training forward's recurrence at its own geometry (``k45_plan``'s simt
-    U and forward rows), whatever ``plan`` holds."""
+    geometry (U, rows) of ``k1_plan``. bf16 operands run the training
+    forward's recurrence at its own geometry (``k45_plan``'s simt U and
+    forward rows), whatever ``plan`` holds."""
     H = w_hh.shape[1]
     if w_hh.dtype == torch.bfloat16:
         geo = bigru_vjp.simt_plan(H, n_gates(cell))
-        plan = {"U": geo["U"], "rows": geo["rows_fwd"], "NB": 0}
+        plan = {"U": geo["U"], "rows": geo["rows_fwd"]}
     if out is None:
         out = torch.empty((L, N, 2 * H), dtype=w_hh.dtype, device=xg.device)
     if hn is None:
@@ -482,7 +492,7 @@ def simt_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
         rc = _load_simt().birnn_simt_rec_launch(
             _CELL_CODE[cell], DTYPE_CODE[w_hh.dtype], xg.data_ptr(), w_hh.data_ptr(),
             b_hh.data_ptr(), out.data_ptr(), hn.data_ptr(), L, N, H, plan["U"],
-            plan["rows"], plan["NB"], stream, xg.device.index)
+            plan["rows"], stream, xg.device.index)
     _launched("birnn_simt recurrence", rc, layer)
     return out, hn
 
@@ -495,7 +505,7 @@ def simt_occupancy(H: int, cell: str, plan: dict, device=None) -> int:
     clusters, smem = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         rc = _load_simt().birnn_simt_rec_occupancy(
-            _CELL_CODE[cell], H, plan["U"], plan["rows"], plan["NB"],
+            _CELL_CODE[cell], H, plan["U"], plan["rows"],
             ctypes.addressof(clusters), ctypes.addressof(smem),
             device.index if device.index is not None else torch.cuda.current_device())
     if rc != 0:

@@ -3,24 +3,29 @@
 // order on the caller's stream, layer after layer for K1, once for K2:
 //   (a) the input projection of all L steps, both directions: xg (2, L N,
 //       G) f32 = X (L N, Cin) W_ih[d] + b_ih[d] + the b_hh[d] columns outside
-//       the GRU's reset product (all of the LSTM's). This is bigru_train.cu's
-//       k4_proj_launch as it stands (rnn_train_gemm.cuh's exact-f32 GEMM);
+//       the GRU's reset product (all of the LSTM's): bigru_train.cu's
+//       k4_proj_launch, which runs rnn_train_gemm.cuh's proj_f32_kernel
+//       (128 x 128 tiles, 8 x 16 outputs a thread, a cp.async ring of k
+//       tiles of 16);
 //   (b) the recurrence (birnn_rec_kernel, birnn_simt_rec_launch), both
 //       directions at once from xg. A cluster of CN = H / U CTAs runs one
 //       (tile of R rows, direction); CTA c keeps the NG U columns of W_hh of
-//       its units [c U, (c+1) U) in shared memory for all L steps, [k][gate]
-//       [u], and h of the tile's R rows, [k][row], in NB buffers. A thread
-//       owns 4 rows x 2 units of every gate and keeps their state f32 in
-//       registers. A step: the product of the tile's h by the W slice, the
-//       gate math, then the CTA's new h (its U units, one contiguous block
+//       its units [c U, (c+1) U) in shared memory for all L steps and h of
+//       the tile's R rows, [k][row], in one buffer. Four product warps: a
+//       thread sums RT rows x 2 units of every gate (an SGEMM-like
+//       micro-tile, 9 x 6 for the GRU, 9 x 8 for the LSTM), its operands
+//       loaded a few k ahead; four gate warps: each takes one unit's sums of
+//       a micro-tile through shared memory, so eight warps run the gate
+//       math, each cell's state f32 in its thread's registers. A step: the
+//       product of the tile's h by the W slice, the gate math, then the
+//       CTA's new h (its U units, one contiguous block
 //       of the buffer) goes to every other CTA of the cluster by bulk
 //       copies (cp.async.bulk) that complete on the receiver's mbarrier:
-//       a dataflow with no cluster barrier in the time loop (NB = 1 adds a
-//       per-step `empty` handshake before the copies). The next step's xg is
-//       loaded while the copies fly. No residuals: each direction's last f32
-//       h goes to h_n. ops/bigru.py::k1_plan picks (U, R, NB);
-//       birnn_simt_rec_occupancy reports how many clusters of a geometry the
-//       card holds at once.
+//       a dataflow with no cluster barrier in the time loop, with an `empty`
+//       handshake before the copies. The next step's xg is loaded while the
+//       copies fly. No residuals: each direction's last f32 h goes to h_n.
+//       ops/bigru.py::k1_plan picks (U, R); birnn_simt_rec_occupancy
+//       reports how many clusters of a geometry the card holds at once.
 //
 // Replaces: ccsmeth_tpu/ops/bigru_pallas.py::_make_stack_kernel (K1: GRU
 //   :232, LSTM :238-245, launched by _fused_stack_call :373) in fp32, layer by
@@ -36,9 +41,21 @@
 //   1024 rows) does 2 L N 2 (Cin + H) G FLOPs, 50.7 GFLOP (GRU, Cin = 512);
 //   at the 67 TFLOP/s fp32 CUDA-core peak that is 0.76 ms, far above the
 //   bytes' time, so the layer is compute-bound. Beside the FLOPs the
-//   recurrence's pace is set by its serial chain of L steps a direction, each
-//   a product of a row tile by W_hh from shared memory, an exchange across
-//   the cluster and its barriers, and by the clusters that fit at once.
+//   recurrence's pace is set by its serial chain of L steps a direction, and
+//   within a step by shared memory's operand rate: a warp's load of one word
+//   a lane takes one of the SM's 128-byte wavefronts a clock (a 16-byte load
+//   four, even when the lanes share the address), against four warps'
+//   FFMAs a clock. A thread's micro-tile of RT rows by 2 NG columns costs
+//   RT + 2 NG words a k for 2 NG RT FMAs: 15 for 54 (GRU) and 17 for 72
+//   (LSTM), where a 4 x 6 tile costs 10 for 24 and the training forward's
+//   (rnn_train_rec.cuh) 9 x 4 costs 13 for 36. At H = 256 (clusters
+//   of 8, U = 32) R = 72: 15 tiles a direction at 1,024 rows, 30 clusters,
+//   two full waves of the 15 clusters of 8 that the H100 holds at one CTA
+//   an SM (the one CTA's shared memory: W_hh's slice, h and the gate warps'
+//   sums, 185,888 bytes for the GRU, 223,264 for the LSTM). On the card
+//   (chip_smoke.py's K1 fp32 cells) a step runs at ~0.4 of the FMA rate:
+//   beside the product (5 loads and 54 / 72 FFMAs a k, one warp a
+//   scheduler) the gate math and the exchange's waits take their time.
 //
 // Numerics: exact f32 FMAs, no TF32, accurate expf and tanhf. Every
 //   recurrent sum is taken by one thread over k ascending from 0.0f, and the
@@ -64,87 +81,141 @@ struct RecParams {
   int L, N, H;
 };
 
-// U units a CTA, R rows a tile, NB h buffers. Thread (rg, ug) owns rows 4 rg
-// .. 4 rg + 3 and units 2 ug, 2 ug + 1 (local) of every gate: 4 NG 2 sums,
-// for each k one 16-byte load of h and NG 8-byte loads of W ([k][gate][u] in
-// shared memory), so the 8 lanes of a warp that share rg read 64
-// neighbouring bytes of a W row, and the 4 groups of lanes one 16-byte piece
-// of h each.
+#define K1_PW 128                 // the product's threads: a warp on each of the SM's schedulers
+#define K1_THREADS (2 * K1_PW)    // and as many gate-math threads
+
+// U units a CTA, RT rows a thread. The 128 product threads are UP = U / 2
+// unit pairs by SL = 128 / UP row slots; product thread t owns the pair up =
+// t % UP (units u0 + 2 up, u0 + 2 up + 1, every gate: a micro-tile of RT
+// rows by 2 NG gate columns) and the RT rows of slot q = t / UP,
+// fwd_row(RT, SL, q, i) (quads of consecutive rows, then one row a slot), a
+// tile of R = SL RT rows. The gate math of unit u0 + 2 up + 1 of those rows
+// runs in gate thread 128 + t, which takes their sums from shared memory
+// (`pre`, [i][gate][t]) and keeps their state; product thread t runs unit u0
+// + 2 up's. So the gate math runs in eight warps, two on each scheduler,
+// half the cells a thread.
+//
+// Shared memory, per k: W_hh's NG U columns of the CTA's units as [up]
+// [gate 0, 1][e] (16 bytes a pair) then [up][gate 2 (, 3)][e] (8 or 16);
+// h as [k][row]. A k of the product costs a thread one 16-byte W load (and
+// an 8- or 16-byte one), RT / 4 16-byte h loads and RT % 4 4-byte ones: NG
+// 2 + RT words for 2 NG RT FMAs (GRU 15 for 54, LSTM 17 for 72). The lanes
+// of a unit pair read neighbouring 16-byte pieces of W, the lanes of a row
+// slot one address of h.
 //
 // The exchange is a dataflow, with no cluster barrier in the time loop.
 // CTA c writes its units' new h, [c U, (c+1) U) x R rows, one contiguous
-// block of its own h buffer, and one thread copies that block to the same
-// place in each other CTA of the cluster (cp.async.bulk, completing on the
+// block of its h buffer, and one thread copies that block to the same place
+// in each other CTA of the cluster (cp.async.bulk, completing on the
 // receiver's `full` barrier, which its thread 0 armed with the bytes to
-// come). A CTA starts a step when its `full` barrier says every block has
-// arrived. With two buffers (NB = 2), each with its own `full` barrier, a
-// block for step s + 1 never lands on h that a CTA still reads (its sender
-// had to have every block of step s, the receiver's included, which the
-// receiver sends only after its own product of step s - 1), and the blocks
-// of step s + 2 count on a barrier whose phase for step s the receiver has
-// passed (their senders needed its block of step s + 1). With one (NB = 1)
-// each CTA tells every other, on that CTA's `empty` barrier, when it has
-// read h for the step, and a sender waits for all of them before it copies.
-template <bool LSTM, int U, int R, int NB>
-__global__ void __launch_bounds__((R / 4) * (U / 2), 1) birnn_rec_kernel(const RecParams p) {
+// come). One h buffer: each CTA tells every other, on that CTA's `empty`
+// barrier, when it has read h for the step, and a sender waits for all of
+// them before it copies; a CTA overwrites its own block only after its
+// copies of the last step have read it (cp.async.bulk.wait_group.read).
+// `full` completes once a step (phase s: the peers' blocks of h(s + 1)),
+// `empty` once a step (phase s: every peer has read h(s)); neither runs a
+// phase ahead (a peer's blocks of h(s + 2) need this CTA's `empty` arrival
+// of step s + 1, made after its wait on `full` phase s).
+template <int U, int RT>
+struct RecGeom {
+  static constexpr int UP = U / 2, SL = K1_PW / UP, R = SL * RT;
+};
+
+template <bool LSTM, int U, int RT>
+__global__ void __launch_bounds__(K1_THREADS, 1) birnn_rec_kernel(const RecParams p) {
   constexpr int NG = LSTM ? 4 : 3;
-  constexpr int UG = U / 2;   // unit groups
-  constexpr int UW = UG / 8;  // warps along the units, 8 lanes each
-  constexpr int THREADS = (R / 4) * UG;
-  static_assert(UG % 8 == 0 && R % 16 == 0 && (NB == 1 || NB == 2), "thread layout");
+  constexpr int UP = RecGeom<U, RT>::UP, SL = RecGeom<U, RT>::SL, R = RecGeom<U, RT>::R;
+  constexpr int NGU = NG * U, WB = 4 * UP;  // floats a k; where gate 2's block starts
+  constexpr int NQ = RT / 4;                // quads of rows a thread
+  // k's of operands in flight ahead of the FMAs: the four warps' loads queue
+  // at shared memory, so one k ahead leaves the GRU's late; the LSTM's
+  // larger tile has the registers for one
+  constexpr int AHEAD = LSTM ? 1 : 3;
+  static_assert(UP * SL == K1_PW && U % 16 == 0, "thread layout");
+  // the product's loads of the AHEAD k's past H stay inside shared memory
+  static_assert(RT * NG * K1_PW >= AHEAD * R, "room past h");
   extern __shared__ __align__(16) float smem[];
   const int H = p.H, G = NG * H, L = p.L, N = p.N;
-  float* ws = smem;                       // [H][NG][U]: W_hh[k][gate H + u0 + u]
-  float* hs = smem + (size_t)H * NG * U;  // [NB][H][R]: the h operand
-  // full[b]: the blocks of h for buffer b have arrived; empty: (NB = 1) every
-  // other CTA has read h
-  uint64_t* bars = reinterpret_cast<uint64_t*>(hs + (size_t)NB * H * R);
-  const uint32_t full_bar = smem_u32(bars), empty_bar = smem_u32(bars + 2);
+  float* ws = smem;                    // [H][NG U]: W_hh of the CTA's units
+  float* hs = smem + (size_t)H * NGU;  // [H][R]: the h operand
+  float* pre = hs + (size_t)H * R;     // [RT][NG][K1_PW]: sums for the gate threads
+  const uint32_t full_bar = smem_u32(pre + RT * NG * K1_PW);
+  const uint32_t empty_bar = full_bar + 8;
   const uint32_t crank = cluster_ctarank(), cn = cluster_nctarank();
   const int d = blockIdx.y;
   const int row0 = (blockIdx.x / cn) * R;
   const int u0 = crank * U;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int ug = (warp % UW) * 8 + (lane & 7);
-  const int rg = (warp / UW) * 4 + (lane >> 3);
-  const int unit = u0 + 2 * ug;  // this thread's first unit (global)
-  const uint32_t block_bytes = U * R * 4;  // one CTA's units of h
+  const int tid = threadIdx.x;
+  const bool prod = tid < K1_PW;  // a product thread (else a gate thread)
+  const int pt = tid % K1_PW;     // the micro-tile this thread works on
+  const int up = pt % UP, q = pt / UP;
+  const int unit = u0 + 2 * up + (prod ? 0 : 1);  // the unit of its gate math (global)
+  const uint32_t block_bytes = U * R * 4;          // one CTA's units of h
 
   const float* W = p.whh + (size_t)d * H * G;
-  for (int i = tid; i < H * NG * (U / 4); i += THREADS) {
-    const int u4 = i % (U / 4), gate = (i / (U / 4)) % NG, k = i / (NG * (U / 4));
-    *reinterpret_cast<float4*>(ws + k * NG * U + gate * U + u4 * 4) =
-        __ldg(reinterpret_cast<const float4*>(W + (size_t)k * G + gate * H + u0 + u4 * 4));
+  for (int i = tid; i < H * NG * UP; i += K1_THREADS) {
+    const int pu = i % UP, gate = (i / UP) % NG, k = i / (NG * UP);
+    const int o = k * NGU + (gate < 2 ? pu * 4 + gate * 2 : WB + pu * (NG - 2) * 2 + (gate - 2) * 2);
+    *reinterpret_cast<float2*>(ws + o) =
+        __ldg(reinterpret_cast<const float2*>(W + (size_t)k * G + gate * H + u0 + 2 * pu));
   }
-  for (int i = tid; i < H * R / 4; i += THREADS)
+  for (int i = tid; i < H * R / 4; i += K1_THREADS)
     reinterpret_cast<float4*>(hs)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // h0 = 0
   if (tid == 0) {
-    for (int b = 0; b < NB; ++b) mbar_init(full_bar + 8 * b, 1);
+    mbar_init(full_bar, 1);
     mbar_init(empty_bar, cn > 1 ? cn - 1 : 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
 
-  float bhn[2];
+  const float bhn = LSTM ? 0.0f : p.bhh[(size_t)d * G + 2 * H + unit];
+  float st[RT];      // GRU: h; LSTM: c; f32, of the thread's cells
+  float xc[RT][NG];  // the projection of their next step
 #pragma unroll
-  for (int e = 0; e < 2; ++e) bhn[e] = LSTM ? 0.0f : p.bhh[(size_t)d * G + 2 * H + unit + e];
-  float st[4][2];  // GRU: h; LSTM: c; f32, of rows i, units e
-  float xc[4][NG][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) st[i][0] = st[i][1] = 0.0f;
+  for (int i = 0; i < RT; ++i) st[i] = 0.0f;
 
   auto load_x = [&](int t) {
-    const float* xt = p.xg + ((size_t)d * L + t) * N * G;
+    const float* xt = p.xg + ((size_t)d * L + t) * N * G + unit;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + rg * 4 + i;
+    for (int i = 0; i < RT; ++i) {
+      const int row = row0 + fwd_row(RT, SL, q, i);
 #pragma unroll
-      for (int gate = 0; gate < NG; ++gate) {
-        const float2 v = row < N ? ld_nc_f2(xt + (size_t)row * G + gate * H + unit)
-                                 : make_float2(0.0f, 0.0f);
-        xc[i][gate][0] = v.x;
-        xc[i][gate][1] = v.y;
-      }
+      for (int gate = 0; gate < NG; ++gate)
+        xc[i][gate] = row < N ? gm_ld1(xt + (size_t)row * G + gate * H) : 0.0f;
     }
+  };
+  // the operands of k: w[gate][e] of the pair's units, h of the rows (wp, hp:
+  // this thread's first words of k's W and h rows)
+  const float* wp = ws + 4 * up;
+  const float* hp = hs + 4 * q;
+  auto load_k = [&](int k, float (&w)[NG][2], float (&h)[RT]) {
+    const float* wk = wp + k * NGU;
+    const float4 w01 = *reinterpret_cast<const float4*>(wk);
+    w[0][0] = w01.x;
+    w[0][1] = w01.y;
+    w[1][0] = w01.z;
+    w[1][1] = w01.w;
+    if constexpr (LSTM) {
+      const float4 w23 = *reinterpret_cast<const float4*>(wk + WB);
+      w[2][0] = w23.x;
+      w[2][1] = w23.y;
+      w[3][0] = w23.z;
+      w[3][1] = w23.w;
+    } else {
+      const float2 w2 = *reinterpret_cast<const float2*>(wk + WB - 2 * up);
+      w[2][0] = w2.x;
+      w[2][1] = w2.y;
+    }
+    const float* hk = hp + k * R;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(hk + j * SL * 4);
+      h[4 * j] = v.x;
+      h[4 * j + 1] = v.y;
+      h[4 * j + 2] = v.z;
+      h[4 * j + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = NQ * 4; i < RT; ++i) h[i] = hk[fwd_row(RT, SL, q, i) - 4 * q];
   };
 
   load_x(d == 0 ? 0 : L - 1);
@@ -153,141 +224,163 @@ __global__ void __launch_bounds__((R / 4) * (U / 2), 1) birnn_rec_kernel(const R
   for (int s = 0; s < L; ++s) {
     const int t = d == 0 ? s : L - 1 - s;
     const bool last = s == L - 1;
-    const float* hc = hs + (size_t)(NB == 2 ? (s & 1) : 0) * H * R;
-    float* hx = hs + (size_t)(NB == 2 ? ((s + 1) & 1) : 0) * H * R;
-    // every block of h(s) is here: buffer s % NB's phase (s - 1) / NB
-    if (s > 0) mbar_wait(full_bar + 8 * (s % NB), ((s - 1) / NB) & 1);
-    float acc[4][NG][2];
+    float sum[RT][NG];  // the recurrent sums of this thread's cells
+    if (prod) {
+      // every block of h(s) is here: `full` phase s - 1
+      if (cn > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);
+      // the product: each (row, unit, gate) one fmaf chain over k ascending
+      // from 0.0f; the operands of k + AHEAD load while k's FMAs run, a ring
+      // of NS register sets
+      float acc[RT][NG][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int gate = 0; gate < NG; ++gate) acc[i][gate][0] = acc[i][gate][1] = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      const float4 hv = *reinterpret_cast<const float4*>(hc + k * R + rg * 4);
-      const float h[4] = {hv.x, hv.y, hv.z, hv.w};
-      const float* wk = ws + k * NG * U + 2 * ug;
+        for (int gate = 0; gate < NG; ++gate) acc[i][gate][0] = acc[i][gate][1] = 0.0f;
+      constexpr int NS = AHEAD + 1;
+      static_assert(16 % NS == 0, "the ring's sets divide every H (16 or a multiple of 32)");
+      float wr[NS][NG][2], hr[NS][RT];
 #pragma unroll
-      for (int gate = 0; gate < NG; ++gate) {
-        const float2 w = *reinterpret_cast<const float2*>(wk + gate * U);
+      for (int j = 0; j < AHEAD; ++j) load_k(j, wr[j], hr[j]);
+      for (int k0 = 0; k0 < H; k0 += NS) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][gate][0] = fmaf(h[i], w.x, acc[i][gate][0]);
-          acc[i][gate][1] = fmaf(h[i], w.y, acc[i][gate][1]);
+        for (int j = 0; j < NS; ++j) {
+          // past H the loads read the next region (h, `pre`): unused
+          load_k(k0 + j + AHEAD, wr[(j + AHEAD) % NS], hr[(j + AHEAD) % NS]);
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+#pragma unroll
+            for (int gate = 0; gate < NG; ++gate) {
+              acc[i][gate][0] = fmaf(hr[j][i], wr[j][gate][0], acc[i][gate][0]);
+              acc[i][gate][1] = fmaf(hr[j][i], wr[j][gate][1], acc[i][gate][1]);
+            }
         }
       }
-    }
-    if (!last) {
-      // this CTA has read h(s), and its copies out of the other buffer are done
-      if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      __syncthreads();
-      if (NB == 1 && tid < (int)cn && tid != (int)crank) mbar_arrive_remote(empty_bar, tid);
-    }
-    float hnew[4][2];
+      // the second unit's sums to its gate thread
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + rg * 4 + i;
-      float a[4][2];  // the cell's activations of each unit
+      for (int i = 0; i < RT; ++i)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if constexpr (LSTM) {
-          a[0][e] = sigmoid_f(xc[i][0][e] + acc[i][0][e]);
-          a[1][e] = sigmoid_f(xc[i][1][e] + acc[i][1][e]);
-          a[2][e] = tanhf(xc[i][2][e] + acc[i][2][e]);
-          a[3][e] = sigmoid_f(xc[i][3][e] + acc[i][3][e]);
-          st[i][e] = fmaf(a[1][e], st[i][e], a[0][e] * a[2][e]);  // c' = f c + i g
-          hnew[i][e] = a[3][e] * tanhf(st[i][e]);                // h' = o tanh(c')
-        } else {
-          a[0][e] = sigmoid_f(xc[i][0][e] + acc[i][0][e]);  // r
-          a[1][e] = sigmoid_f(xc[i][1][e] + acc[i][1][e]);  // z
-          a[3][e] = acc[i][2][e] + bhn[e];                  // hg_n
-          a[2][e] = tanhf(xc[i][2][e] + a[0][e] * a[3][e]);  // n
-          st[i][e] = (1.0f - a[1][e]) * a[2][e] + a[1][e] * st[i][e];
-          hnew[i][e] = st[i][e];
+        for (int gate = 0; gate < NG; ++gate) {
+          pre[(i * NG + gate) * K1_PW + pt] = acc[i][gate][1];
+          sum[i][gate] = acc[i][gate][0];
         }
+    }
+    if (!last && cn > 1 && tid == 0) {
+      // this CTA's copies of its last block have read it; the blocks of
+      // h(s + 1) to come
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_expect_tx(full_bar, (cn - 1) * block_bytes);
+    }
+    __syncthreads();  // every thread has read h(s) (the peers may send h(s + 1)); `pre` is whole
+    if (!last && cn > 1 && tid < (int)cn && tid != (int)crank) mbar_arrive_remote(empty_bar, tid);
+    if (!prod) {
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int gate = 0; gate < NG; ++gate) sum[i][gate] = pre[(i * NG + gate) * K1_PW + pt];
+    }
+    float hnew[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int row = row0 + fwd_row(RT, SL, q, i);
+      float a[4];  // the cell's activations
+      if constexpr (LSTM) {
+        a[0] = sigmoid_f(xc[i][0] + sum[i][0]);
+        a[1] = sigmoid_f(xc[i][1] + sum[i][1]);
+        a[2] = tanhf(xc[i][2] + sum[i][2]);
+        a[3] = sigmoid_f(xc[i][3] + sum[i][3]);
+        st[i] = fmaf(a[1], st[i], a[0] * a[2]);  // c' = f c + i g
+        hnew[i] = a[3] * tanhf(st[i]);           // h' = o tanh(c')
+      } else {
+        a[0] = sigmoid_f(xc[i][0] + sum[i][0]);  // r
+        a[1] = sigmoid_f(xc[i][1] + sum[i][1]);  // z
+        a[3] = sum[i][2] + bhn;                  // hg_n
+        a[2] = tanhf(xc[i][2] + a[0] * a[3]);    // n
+        st[i] = (1.0f - a[1]) * a[2] + a[1] * st[i];
+        hnew[i] = st[i];
       }
       if (row < N) {
-        float* o = p.out + ((size_t)t * N + row) * 2 * H + d * H + unit;
-        *reinterpret_cast<float2*>(o) = make_float2(hnew[i][0], hnew[i][1]);
-        if (last)
-          *reinterpret_cast<float2*>(p.hn + ((size_t)d * N + row) * H + unit) =
-              make_float2(hnew[i][0], hnew[i][1]);
+        p.out[((size_t)t * N + row) * 2 * H + d * H + unit] = hnew[i];
+        if (last) p.hn[((size_t)d * N + row) * H + unit] = hnew[i];
       }
     }
     if (last) break;
     load_x(d == 0 ? s + 1 : L - 2 - s);
-    // the new h of this CTA's units into its own buffer, [unit][row]
+    // the new h of this thread's unit into the CTA's block, [unit][row]
+    float* hu = hs + (size_t)unit * R;
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-      *reinterpret_cast<float4*>(hx + (size_t)(unit + e) * R + rg * 4) =
-          make_float4(hnew[0][e], hnew[1][e], hnew[2][e], hnew[3][e]);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to the copies
-    __syncthreads();
-    if (tid == 0) {
-      // the blocks of h(s + 1) to come (into buffer (s + 1) % NB)
-      const uint32_t bar = full_bar + 8 * ((s + 1) % NB);
-      mbar_expect_tx(bar, (cn - 1) * block_bytes);
-      if (NB == 1 && cn > 1) mbar_wait(empty_bar, s & 1);  // every other CTA has read h(s)
-      const uint32_t src = smem_u32(hx + (size_t)u0 * R);
-      for (uint32_t r = 1; r < cn; ++r) bulk_to_peer(src, block_bytes, bar, (crank + r) % cn);
+    for (int j = 0; j < NQ; ++j)
+      *reinterpret_cast<float4*>(hu + (j * SL + q) * 4) =
+          make_float4(hnew[4 * j], hnew[4 * j + 1], hnew[4 * j + 2], hnew[4 * j + 3]);
+#pragma unroll
+    for (int i = NQ * 4; i < RT; ++i) hu[fwd_row(RT, SL, q, i)] = hnew[i];
+    if (cn > 1) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the copies
+    __syncthreads();  // the block is whole
+    if (cn > 1 && tid == 0) {
+      mbar_wait(empty_bar, s & 1);  // every other CTA has read h(s)
+      const uint32_t src = smem_u32(hs + (size_t)u0 * R);
+      for (uint32_t r = 1; r < cn; ++r) bulk_to_peer(src, block_bytes, full_bar, (crank + r) % cn);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
   }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  if (cn > 1 && tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   cluster_sync_all();  // no CTA leaves while another may still reach its shared memory
 }
 
-// The geometries instantiated, (U, R, NB) for each cell. H = 256 takes the
-// first of its cell (ops/bigru.py::SIMT_GEOMETRY); H = 16 takes (16, 128,
-// 2) and H = 32 .. 128 (32, 64, 2).
+// The geometries instantiated, (U, RT) for each cell: H = 256 takes (32, 9)
+// (ops/bigru.py::SIMT_GEOMETRY: R = 72, 15 tiles a direction at 1,024 rows,
+// two full waves of the 15 clusters of 8 the card holds), H = 32 .. 128
+// (32, 4): R = 32, twice the CTAs of 72 rows at the aggregate model's short
+// chain (H 32, L 11), H = 16 (16, 4): R = 64. The last of a cell is a
+// candidate of chip_smoke.py's SIMT_SWEEP (GRU 80 rows, LSTM 64: its 80 do
+// not fit beside the LSTM's W_hh slice).
 #define GRU_GEOMETRIES(X) \
-  X(false, 64, 32, 1)     \
-  X(false, 32, 96, 1)     \
-  X(false, 32, 64, 2)     \
-  X(false, 16, 128, 2)
+  X(false, 32, 9)         \
+  X(false, 32, 4)         \
+  X(false, 16, 4)         \
+  X(false, 32, 10)
 #define LSTM_GEOMETRIES(X) \
-  X(true, 32, 96, 1)       \
-  X(true, 32, 64, 1)       \
-  X(true, 32, 64, 2)       \
-  X(true, 16, 128, 2)
+  X(true, 32, 9)           \
+  X(true, 32, 4)           \
+  X(true, 16, 4)           \
+  X(true, 32, 8)
 
-static const void* rec_kernel(int cell, int U, int R, int NB) {
-#define REC_PICK(LS, U_, R_, NB_)                                 \
-  if (cell == (LS ? 1 : 0) && U == U_ && R == R_ && NB == NB_) \
-    return (const void*)birnn_rec_kernel<LS, U_, R_, NB_>;
+static const void* rec_kernel(int cell, int U, int R) {
+#define REC_PICK(LS, U_, RT_)                                            \
+  if (cell == (LS ? 1 : 0) && U == U_ && R == RecGeom<U_, RT_>::R) \
+    return (const void*)birnn_rec_kernel<LS, U_, RT_>;
   GRU_GEOMETRIES(REC_PICK)
   LSTM_GEOMETRIES(REC_PICK)
 #undef REC_PICK
   return nullptr;
 }
 
-// W_hh's slice, NB h buffers and the three barriers (and a spare)
-static size_t rec_smem(int ng, int H, int U, int R, int NB) {
-  return ((size_t)H * ng * U + (size_t)NB * H * R) * 4 + 32;
+// W_hh's slice, the h buffer, the gate threads' sums and the two barriers
+// (and a spare)
+static size_t rec_smem(int ng, int H, int U, int R) {
+  const int rt = R * (U / 2) / K1_PW;
+  return ((size_t)H * ng * U + (size_t)H * R + (size_t)rt * ng * K1_PW) * 4 + 32;
 }
 
-// The kernel, its launch shape and shared memory for one geometry, with the
-// shared-memory and cluster-size attributes set; nullptr if not instantiated
-// or not valid for H.
-static const void* rec_setup(int cell, int H, int U, int R, int NB, size_t* smem, int* threads,
-                             cudaError_t* err) {
+// The kernel and its shared memory for one geometry, with the
+// shared-memory attribute set; nullptr if not instantiated or not valid
+// for H (U = min(H, 32), a cluster of 1, 2, 4 or 8 CTAs).
+static const void* rec_setup(int cell, int H, int U, int R, size_t* smem, cudaError_t* err) {
   *err = cudaSuccess;
-  if ((cell != 0 && cell != 1) || U < 16 || H % U != 0 || H % 2 != 0) return nullptr;
+  if ((cell != 0 && cell != 1) || U != (H < 32 ? H : 32) || H % U != 0) return nullptr;
   const int cn = H / U;
   if (cn != 1 && cn != 2 && cn != 4 && cn != 8) return nullptr;
-  const void* k = rec_kernel(cell, U, R, NB);
+  const void* k = rec_kernel(cell, U, R);
   if (k == nullptr) return nullptr;
-  *smem = rec_smem(cell == 0 ? 3 : 4, H, U, R, NB);
-  *threads = (R / 4) * (U / 2);
+  *smem = rec_smem(cell == 0 ? 3 : 4, H, U, R);
   *err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   return k;
 }
 
 static void rec_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int cn, int tiles,
-                       int threads, size_t smem, cudaStream_t s) {
+                       size_t smem, cudaStream_t s) {
   *cfg = {};
   cfg->gridDim = dim3(cn * tiles, 2, 1);
-  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->blockDim = dim3(K1_THREADS, 1, 1);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = s;
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -302,13 +395,12 @@ extern "C" {
 
 // (b): from xg (2, L N, G) f32 to out (L, N, 2H) in the operand type and hn
 // (2, N, H) f32. cell: 0 = GRU, 1 = LSTM; dtype 0 = float32: this file's
-// recurrence with U units a CTA (clusters of H / U), R rows a tile, NB h
-// buffers; dtype 1 = bfloat16: rnn_train_rec.cuh's simt forward with INFER,
-// U units a CTA and its fwd_simt_rows(H) rows R (NB unread). Returns 0 or a
-// cudaError_t value.
+// recurrence with U units a CTA (clusters of H / U) and R rows a tile;
+// dtype 1 = bfloat16: rnn_train_rec.cuh's simt forward with INFER, U units
+// a CTA and its fwd_simt_rows(H) rows R. Returns 0 or a cudaError_t value.
 int birnn_simt_rec_launch(int cell, int dtype, const void* xg, const void* whh,
                           const void* bhh, void* out, void* hn, int L, int N, int H, int U,
-                          int R, int NB, void* stream, int device) {
+                          int R, void* stream, int device) {
   USE_DEVICE(device);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L < 1 || N < 1) return (int)cudaErrorInvalidValue;
@@ -330,9 +422,8 @@ int birnn_simt_rec_launch(int cell, int dtype, const void* xg, const void* whh,
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   size_t smem = 0;
-  int threads = 0;
   cudaError_t e;
-  const void* k = rec_setup(cell, H, U, R, NB, &smem, &threads, &e);
+  const void* k = rec_setup(cell, H, U, R, &smem, &e);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   RecParams q;
@@ -346,30 +437,29 @@ int birnn_simt_rec_launch(int cell, int dtype, const void* xg, const void* whh,
   q.H = H;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  rec_config(&cfg, attr, H / U, (N + R - 1) / R, threads, smem, s);
+  rec_config(&cfg, attr, H / U, (N + R - 1) / R, smem, s);
   void* args[1] = {&q};
   e = cudaLaunchKernelExC(&cfg, k, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// How many clusters of the f32 recurrence at (cell, H, U, R, NB) the
-// card holds at once (cudaOccupancyMaxActiveClusters for the kernel, block
-// and shared memory that birnn_simt_rec_launch launches), into *clusters,
-// and its shared memory a CTA into *smem_bytes. Launches nothing. Returns 0
-// or a cudaError_t value.
-int birnn_simt_rec_occupancy(int cell, int H, int U, int R, int NB, int* clusters,
-                             int* smem_bytes, int device) {
+// How many clusters of the f32 recurrence at (cell, H, U, R) the card holds
+// at once (cudaOccupancyMaxActiveClusters for the kernel, block and shared
+// memory that birnn_simt_rec_launch launches), into *clusters, and its
+// shared memory a CTA into *smem_bytes. Launches nothing. Returns 0 or a
+// cudaError_t value.
+int birnn_simt_rec_occupancy(int cell, int H, int U, int R, int* clusters, int* smem_bytes,
+                             int device) {
   USE_DEVICE(device);
   size_t smem = 0;
-  int threads = 0;
   cudaError_t e;
-  const void* k = rec_setup(cell, H, U, R, NB, &smem, &threads, &e);
+  const void* k = rec_setup(cell, H, U, R, &smem, &e);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  rec_config(&cfg, attr, H / U, 1, threads, smem, nullptr);
+  rec_config(&cfg, attr, H / U, 1, smem, nullptr);
   *smem_bytes = (int)smem;
   return (int)cudaOccupancyMaxActiveClusters(clusters, k, &cfg);
 }

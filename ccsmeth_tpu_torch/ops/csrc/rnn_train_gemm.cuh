@@ -9,8 +9,23 @@
 // rnn_proj, rnn_dx, rnn_wgrad, wg_dx and wg_wgrad at the end describe each
 // as jobs.
 //
-// Two kernels, by design:
-//   gemm_simt_kernel (the simt design, f32 or bf16 operands): exact f32 FMAs
+// Three kernels, by design:
+//   proj_f32_kernel (the simt design's input projection on f32 operands:
+//     K1's, K2's and the K4/K6 fp32 forwards' xg): exact f32 FMAs on the
+//     CUDA cores, a CTA of 128 threads a 128 x 128 tile, 8 x 16 outputs a
+//     thread, two CTAs an SM, the operands through a 4-deep cp.async ring of
+//     k tiles of 16 (X's rows as they are stored, [m][k]; W_ih [k][n]), each
+//     thread's next k of W_ih loaded while this one's FMAs run. What bounds
+//     it at the models' shapes (L N = 21,504 rows, C = 512, G = 768 or 1024
+//     a direction) is the FMA rate: 2 L N C 2 G FLOPs against 67 TFLOP/s,
+//     0.50 / 0.67 ms, far above the bytes' time; a thread's k costs it 24
+//     operand words for 128 FMAs (the simt kernel's 8 x 8 tile: 16 for 64),
+//     inside the rate that shared memory's 32 words a clock an SM feed. At
+//     C = 11 the bytes bound it (xg, 132 MB for the GRU: 0.039 ms at 3.35
+//     TB/s). Each output is the simt kernel's chain (below) with the bias
+//     folded the same way, so xg keeps every bit.
+//   gemm_simt_kernel (the simt design, f32 or bf16 operands; the f32
+//     projection runs proj_f32_kernel, the bf16 one this): exact f32 FMAs
 //     on the CUDA cores. Block tile 128 x 128, k tile 8, 8 x 8 outputs a
 //     thread, operand tiles in shared memory (double-buffered; the next tile
 //     is loaded into registers while the current one is multiplied). No
@@ -40,7 +55,9 @@
 // device memory or L2 and are far above the card's ridge.
 //
 // Determinism: every output element has one owner thread (a warpgroup's
-// accumulator in wgemm_kernel) that sums its k in a fixed order; a long
+// accumulator in wgemm_kernel) that sums its k in a fixed order (in both
+// simt kernels one fmaf chain over k ascending from 0.0f: the zeros they
+// pad k with add nothing, so their tile sizes do not move a bit); a long
 // contraction is cut into S fixed row slices whose partials gemm_sum_slices
 // adds in slice order. No atomics, so reruns are bit-equal.
 
@@ -283,6 +300,217 @@ __global__ void __launch_bounds__(GM_THREADS, 2) gemm_simt_kernel(const GemmPara
       float s = 0.0f;
       for (int r = 0; r < SG_BK; ++r) s += cs_s[r * GM_BN + tid];
       jb.colsum[so + n0 + tid] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------- f32 projection
+
+// proj_f32_kernel: the input projection of both directions in exact f32
+// (the simt design's xg, f32 operands), a tile of FP_BM rows by FP_BN
+// columns a CTA, FP_THREADS threads of 8 rows x 16 columns each. X's rows
+// (k contiguous, [m][k] in shared memory, 4 floats of padding a row) and
+// W_ih's (n contiguous, [k][n]) reach shared memory by cp.async, a
+// FP_STAGES-deep ring of FP_BK-wide k tiles (16-byte copies; 4-byte ones
+// for X's rows where C % 4 != 0), zeros outside the operands. A k of the
+// product costs a thread 8 + 16 operand words for 128 FMAs (the simt
+// kernel's 8 x 8: 16 for 64): shared memory's 32 words a clock an SM feed
+// the 128 FMA lanes with room to spare. A tile of 128 columns (128
+// threads, two CTAs an SM, each at most 255 registers) beat one of 256
+// (256 threads, one CTA) and 3 or 5-6 stages on the card.
+#define FP_BM 128
+#define FP_BN 128
+#define FP_TX (FP_BN / 16)         // threads along the columns, 16 columns each
+#define FP_THREADS (FP_TX * 16)    // and 16 along the rows, 8 rows each
+#define FP_MINB (256 / FP_THREADS)  // CTAs an SM
+#define FP_BK 16
+#define FP_STAGES 4
+#define FP_AST (FP_BK + 4)  // X's row stride in shared memory, floats
+
+struct F32ProjParams {
+  const float* x;      // (M, K)
+  const float* w;      // (2, K, G)
+  const float* bias0;  // (2, G): b_ih
+  const float* bias1;  // (2, G): b_hh, its first nfold columns folded
+  float* xg;           // (2, M, G)
+  int M, K, G, nfold;
+};
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
+static size_t f32_proj_smem() {
+  return (size_t)FP_STAGES * (FP_BM * FP_AST + FP_BK * FP_BN) * 4;
+}
+
+// Each output element is one thread's fmaf chain over k ascending from 0.0f
+// (the zeros past C add nothing), then + (b_ih + b_hh) as gemm_simt_kernel
+// folds it: the same bits. XV: 16-byte copies of X's rows (C % 4 == 0, x
+// 16-byte aligned), else its elements one by one; WV: 16-byte copies of
+// W_ih's rows and 16-byte stores of xg (G % 4 == 0, w and xg 16-byte
+// aligned: every simt shape), else one by one.
+template <bool XV, bool WV>
+__global__ void __launch_bounds__(FP_THREADS, FP_MINB) proj_f32_kernel(const F32ProjParams p) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                                // [STAGES][BM][AST]
+  float* Bs = smem + FP_STAGES * FP_BM * FP_AST;   // [STAGES][BK][BN]
+  const int d = blockIdx.z;
+  const int m0 = blockIdx.y * FP_BM, n0 = blockIdx.x * FP_BN;
+  const int M = p.M, K = p.K, G = p.G;
+  const float* W = p.w + (size_t)d * K * G;
+  const int tid = threadIdx.x, tx = tid % FP_TX, ty = tid / FP_TX;
+  const int KT = (K + FP_BK - 1) / FP_BK;
+  const uint32_t as0 = smem_u32(As), bs0 = smem_u32(Bs);
+
+  // this thread's pieces of a stage: X's (row, 4 k) chunks and W's (k, 4 n)
+  constexpr int ACH = FP_BM * (FP_BK / 4) / FP_THREADS, BCH = FP_BK * (FP_BN / 4) / FP_THREADS;
+  static_assert(ACH * FP_THREADS == FP_BM * (FP_BK / 4) && BCH * FP_THREADS == FP_BK * (FP_BN / 4),
+                "whole chunks a thread");
+  const float* a_src[ACH];
+  uint32_t a_dst[ACH];
+  int a_k[ACH];
+  bool a_row[ACH];
+#pragma unroll
+  for (int j = 0; j < ACH; ++j) {
+    const int c = tid + j * FP_THREADS, r = c / (FP_BK / 4), kq = (c % (FP_BK / 4)) * 4;
+    a_row[j] = m0 + r < M;
+    a_k[j] = kq;
+    a_src[j] = p.x + (size_t)(a_row[j] ? m0 + r : 0) * K + kq;
+    a_dst[j] = (r * FP_AST + kq) * 4;
+  }
+  const float* b_src[BCH];
+  uint32_t b_dst[BCH];
+  int b_k[BCH];
+  bool b_col[BCH];
+#pragma unroll
+  for (int j = 0; j < BCH; ++j) {
+    const int c = tid + j * FP_THREADS, kk = c / (FP_BN / 4), nq = (c % (FP_BN / 4)) * 4;
+    b_col[j] = n0 + nq < G;
+    b_k[j] = kk;
+    b_src[j] = W + (size_t)kk * G + (b_col[j] ? n0 + nq : 0);
+    b_dst[j] = (kk * FP_BN + nq) * 4;
+  }
+
+  auto load_stage = [&](int slot, int kt) {
+    const int k0 = kt * FP_BK;
+    const uint32_t as = as0 + slot * FP_BM * FP_AST * 4, bs = bs0 + slot * FP_BK * FP_BN * 4;
+    if constexpr (XV) {
+#pragma unroll
+      for (int j = 0; j < ACH; ++j) {
+        const bool ok = a_row[j] && k0 + a_k[j] < K;
+        cp_async_16(as + a_dst[j], ok ? a_src[j] + k0 : p.x, ok);
+      }
+    } else {
+      for (int c = tid; c < FP_BM * FP_BK; c += FP_THREADS) {
+        const int r = c / FP_BK, kk = c % FP_BK;
+        const bool ok = m0 + r < M && k0 + kk < K;
+        cp_async_4(as + (r * FP_AST + kk) * 4, ok ? p.x + (size_t)(m0 + r) * K + k0 + kk : p.x,
+                   ok);
+      }
+    }
+    if constexpr (WV) {
+#pragma unroll
+      for (int j = 0; j < BCH; ++j) {
+        const bool ok = b_col[j] && k0 + b_k[j] < K;
+        cp_async_16(bs + b_dst[j], ok ? b_src[j] + (size_t)k0 * G : W, ok);
+      }
+    } else {
+      for (int c = tid; c < FP_BK * FP_BN; c += FP_THREADS) {
+        const int kk = c / FP_BN, nn = c % FP_BN;
+        const bool ok = k0 + kk < K && n0 + nn < G;
+        cp_async_4(bs + (kk * FP_BN + nn) * 4, ok ? W + (size_t)(k0 + kk) * G + n0 + nn : W, ok);
+      }
+    }
+  };
+
+  float acc[8][16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < FP_STAGES - 1; ++st) {
+    if (st < KT) load_stage(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<FP_STAGES - 2>();
+    __syncthreads();  // tile kt is here; every thread is done with tile kt - 1's slot
+    if (kt + FP_STAGES - 1 < KT) load_stage((kt + FP_STAGES - 1) % FP_STAGES, kt + FP_STAGES - 1);
+    cp_async_commit();
+    const float* as = As + (kt % FP_STAGES) * FP_BM * FP_AST;
+    const float* bs = Bs + (kt % FP_STAGES) * FP_BK * FP_BN;
+    // b of k + 1 loads while k's FMAs run
+    float bb[2][16];
+    auto load_b = [&](int k, float (&b)[16]) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + k * FP_BN + c * (FP_BN / 4) + tx * 4);
+        b[4 * c] = v.x;
+        b[4 * c + 1] = v.y;
+        b[4 * c + 2] = v.z;
+        b[4 * c + 3] = v.w;
+      }
+    };
+    load_b(0, bb[0]);
+    // a[i][kk]: rows ty 4 + i and 64 + ty 4 + i (i < 4, i >= 4), k kq + kk
+    auto load_a = [&](int kq, float (&a)[8][4]) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
+        const float4 v = *reinterpret_cast<const float4*>(as + r * FP_AST + kq);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
+    };
+#pragma unroll
+    for (int kq = 0; kq < FP_BK; kq += 4) {
+      float a[8][4];
+      load_a(kq, a);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kq + kk + 1 < FP_BK) load_b(kq + kk + 1, bb[(kq + kk + 1) & 1]);
+        const float* b = bb[(kq + kk) & 1];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* C = p.xg + (size_t)d * M * G;
+  const float* b0 = p.bias0 + (size_t)d * G;
+  const float* b1 = p.bias1 + (size_t)d * G;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int n = n0 + c * (FP_BN / 4) + tx * 4;  // this thread's 4 columns
+    if (n >= G) continue;
+    float bias[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      bias[e] = n + e < G ? b0[n + e] + (n + e < p.nfold ? b1[n + e] : 0.0f) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+      if (m >= M) continue;
+      const float* v = &acc[i][4 * c];
+      float* cp = C + (size_t)m * G + n;
+      if constexpr (WV) {
+        *reinterpret_cast<float4*>(cp) =
+            make_float4(v[0] + bias[0], v[1] + bias[1], v[2] + bias[2], v[3] + bias[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n + e < G) cp[e] = v[e] + bias[e];
+      }
     }
   }
 }
@@ -533,12 +761,43 @@ static int slice_rows(int LN, int S, int kt) {
   return (int)((((long long)LN + S - 1) / S + kt - 1) / kt * kt);
 }
 
+// One launch of proj_f32_kernel over both directions.
+static int proj_f32_run(const float* x, const float* wih, const float* bih, const float* bhh,
+                        float* xg, int M, int C, int G, int nfold, cudaStream_t s) {
+  F32ProjParams pp;
+  pp.x = x;
+  pp.w = wih;
+  pp.bias0 = bih;
+  pp.bias1 = bhh;
+  pp.xg = xg;
+  pp.M = M;
+  pp.K = C;
+  pp.G = G;
+  pp.nfold = nfold;
+  const bool xv = C % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool wv = G % 4 == 0 && (uintptr_t)wih % 16 == 0 && (uintptr_t)xg % 16 == 0;
+  const void* k = xv && wv ? (const void*)proj_f32_kernel<true, true>
+                  : wv     ? (const void*)proj_f32_kernel<false, true>
+                           : (const void*)proj_f32_kernel<false, false>;
+  const size_t smem = f32_proj_smem();
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((G + FP_BN - 1) / FP_BN, (M + FP_BM - 1) / FP_BM, 2);
+  void* args[1] = {&pp};
+  e = cudaLaunchKernel(k, grid, dim3(FP_THREADS), args, smem, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // The input projection of both directions: xg[d] (M, G) f32 = x (M, C)
 // W_ih[d] (C, G) + b_ih[d] + the first nfold columns of b_hh[d] (the GRU
 // keeps b_hn, its last H, inside the reset product; the LSTM folds all G).
 template <typename T>
 static int rnn_proj(const void* x, const void* wih, const float* bih, const float* bhh,
                     float* xg, int M, int C, int G, int nfold, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return proj_f32_run(static_cast<const float*>(x), static_cast<const float*>(wih), bih, bhh,
+                        xg, M, C, G, nfold, s);
   GemmParams gp = {};
   for (int d = 0; d < 2; ++d) {
     GemmJob& jb = gp.job[d];

@@ -5,7 +5,11 @@
 // only differences; the layout of W_hh in shared memory, the exchange across
 // the cluster and the thread layouts are the same code. birnn_simt.cu
 // instantiates the simt forward once more for inference (INFER: K1's and
-// K2's simt design): no residuals, each direction's last h to h_n.
+// K2's simt design on the bf16 shapes their tc design refuses): no
+// residuals, each direction's last h to h_n. K1's and K2's f32 recurrence
+// is birnn_simt.cu's own (four warps of RT x 2 NG micro-tiles, the gate
+// math written as here); the simt forward's products take their xg from
+// rnn_train_gemm.cuh's proj_f32_kernel.
 //
 //   forward (fwd_rec_simt_kernel, fwd_rec_tc_kernel): both directions at
 //     once from the projection xg (2, L N, G) f32. A cluster of CN = H / U

@@ -14,11 +14,13 @@ does not print its last line:
      and 16384 rows, fp32 and bf16) against its plain PyTorch version on the
      card, timed with CUDA events beside the plain version, cuDNN's nn.GRU /
      nn.LSTM and the card's bound, with the design that the wrapper's shape
-     rule picked (fp32: simt, K4's projection kernel in
-     ops/csrc/bigru_train.cu and the inference cluster recurrence of
-     ops/csrc/birnn_simt.cu, with its geometry, the clusters the card holds
-     at once, the waves, the projection's TFLOP/s and the recurrence's step
-     on one tile and on one full wave; bf16: the tensor-core design
+     rule picked (fp32: simt, K4's projection kernel (proj_f32_kernel of
+     ops/csrc/rnn_train_gemm.cuh through ops/csrc/bigru_train.cu) and the
+     inference cluster recurrence of ops/csrc/birnn_simt.cu, with its
+     geometry, the clusters the card holds at once, the waves, the
+     projection's TFLOP/s beside torch.mm's at both row counts, the
+     recurrence's step on one tile, on one full wave and on a wave of each
+     row count, and the product's FMA rate; bf16: the tensor-core design
      ops/csrc/birnn_tc.cu on wgmma, with its geometry, resident clusters,
      waves, the fused layer 0, the TMA + wgmma projection's TFLOP/s beside
      torch.mm's and the step on one tile and one wave), its CUDA launches
@@ -132,7 +134,8 @@ checkout.
     python3 chip_smoke.py --ab PARENT_TREE
 
 times K1 and K2 (both cells) and K3 at the kernel phase's shapes (and K3's
-l2 design at 1024 fp32 samples), and K4,
+l2 design at 1024 fp32 samples; K1 fp32 also at call_freqb's aggregate
+shape, K2 fp32 also at the 2s2 family's C = 28 and 52), and K4,
 K5 and K6 (forward and backward) at the train-kernel phase's (C = 11 and
 512, and the 2s2 family's 28 in fp32; K4's and K6's fp32 forwards also at
 512 rows and the aggregate trainer's shape), in four turns in one
@@ -193,8 +196,9 @@ ROWS = (1024, 16384)  # 2B for batch 512 (the CLI default) and batch 8192
 REPS = 11
 AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# the simt design of K1 and K2 projects with K4's kernel
-SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/bigru_train.cu"
+# the simt design of K1 and K2 projects with K4's kernel (proj_f32_kernel,
+# launched through bigru_train.cu's k4_proj_launch)
+SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/rnn_train_gemm.cuh"
 # the tc design's kernels and the header of its wgmma, TMA and mbarrier pieces
 TC_SOURCES = ("ccsmeth_tpu_torch/ops/csrc/birnn_tc.cu",
               "ccsmeth_tpu_torch/ops/csrc/wgmma_tile.cuh")
@@ -964,60 +968,93 @@ def _chain_fwd(torch, ly, x, cell):
 
 
 def _simt_geometry(cell, plan):
-    """The fp32 simt design's geometry at H = 256 (``plan``): U, CN, R, NB,
-    threads and shared memory a CTA, the clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters) and the waves of 2 ceil(rows / R)
-    clusters at 1,024 and 16,384 rows."""
+    """The fp32 simt design's geometry at H = 256 (``plan``): U, CN, R, rows
+    a thread, threads and shared memory a CTA, the clusters the card holds
+    at once (cudaOccupancyMaxActiveClusters) and the waves of 2 ceil(rows /
+    R) clusters at 1,024 and 16,384 rows."""
     import math
 
     from ccsmeth_tpu_torch.ops import bigru
 
     occ = bigru.simt_occupancy(H, cell, plan)
-    return {"U": plan["U"], "CN": plan["CN"], "R": plan["rows"], "NB": plan["NB"],
-            "threads": plan["threads"], "smem": plan["smem"], "resident_clusters": occ,
+    return {"U": plan["U"], "CN": plan["CN"], "R": plan["rows"],
+            "rows_a_thread": plan["rows_a_thread"], "threads": plan["threads"],
+            "smem": plan["smem"], "resident_clusters": occ,
             "waves": {str(rows): math.ceil(2 * math.ceil(rows / plan["rows"]) / occ)
                       for rows in ROWS}}
 
 
+def _sm_clock_mhz_while(fn, torch, launches):
+    """The SM clock (MHz) that nvidia-smi reads while ``launches`` calls of
+    fn, queued on the card at once, run."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return float(out.strip().splitlines()[0])
+
+
 def _simt_report(torch, cell, plan, ly):
-    """``_simt_geometry`` and the recurrence's ms a layer at 1,024 and 16,384
-    rows, its step in us on one row tile and on one full wave, and the
-    projection's TFLOP/s at C = 11 and 2H (1,024 rows) beside torch.mm's;
-    CUDA events, medians."""
+    """``_simt_geometry``; at 1,024 and 16,384 rows the recurrence's ms a
+    layer and its step a wave (ms / (waves L)); its step in us on one row
+    tile and on one full wave, and the product's FMA rate there, as FMAs a
+    clock an SM over 128 (the 128 FMA lanes): the tile's R U NG H FMAs a
+    CTA a step over the step's time (gate math and exchange included) at
+    the SM clock that nvidia-smi reads during a run of the full wave; and
+    the projection's TFLOP/s at C = 11 and 2H beside torch.mm's at 2H (TF32
+    off, both directions, no bias) at both row counts; CUDA events,
+    medians."""
     from ccsmeth_tpu_torch.models.rnn import n_gates
 
     G = n_gates(cell) * H
     R = plan["rows"]
-    res = dict(_simt_geometry(cell, plan), recurrence_ms={}, projection_tflops={})
+    res = dict(_simt_geometry(cell, plan), recurrence_ms={}, step_us_a_wave={},
+               projection_tflops={})
     occ = res["resident_clusters"]
     proj, rec, _rows = _phase_fns(plan, ly[0], cell, L)
     proj1 = _phase_fns(plan, ly[1], cell, L)[0]
     for rows in ROWS:
         xg = torch.randn((2, L * rows, G), device="cuda")
-        res["recurrence_ms"][str(rows)] = time_ms(lambda: rec(xg, rows), torch)
+        ms = time_ms(lambda: rec(xg, rows), torch)
+        res["recurrence_ms"][str(rows)] = ms
+        res["step_us_a_wave"][str(rows)] = ms * 1e3 / (res["waves"][str(rows)] * L)
+    fmas = R * plan["U"] * n_gates(cell) * H  # a CTA's product a step
     for name, tiles in (("one_tile", 1), ("one_wave", max(1, occ // 2))):
         xg = torch.randn((2, L * tiles * R, G), device="cuda")
         res["step_us_" + name] = time_ms(lambda: rec(xg, tiles * R), torch) * 1e3 / L
+        if name == "one_wave":
+            res["sm_clock_mhz"] = _sm_clock_mhz_while(lambda: rec(xg, tiles * R), torch, 1500)
+    for name in ("one_tile", "one_wave"):
+        res["fma_rate_" + name] = (fmas / (res["step_us_" + name] * res["sm_clock_mhz"])
+                                   / 128)
     res["tiles_one_wave"] = max(1, occ // 2)
-    for cin, fn in ((C, proj), (2 * H, proj1)):
-        x2 = torch.randn((L * ROWS[0], cin), device="cuda")
-        xg = fn(x2)
-        ms = time_ms(lambda: fn(x2, xg), torch)
-        res["projection_tflops"]["C={}".format(cin)] = 2 * x2.shape[0] * cin * 2 * G / ms / 1e9
-    # the yardstick: cuBLAS's f32 product (TF32 off) of the same shape, both
-    # directions, without the bias
-    w = torch.randn((2, 2 * H, G), device="cuda")
-    ms = time_ms(lambda: (torch.mm(x2, w[0]), torch.mm(x2, w[1])), torch)
-    flops = 2 * x2.shape[0] * 2 * H * 2 * G
-    res["projection_tflops"]["torch_mm_C={}".format(2 * H)] = flops / ms / 1e9
+    for rows in ROWS:
+        for cin, fn in ((C, proj), (2 * H, proj1)):
+            x2 = torch.randn((L * rows, cin), device="cuda")
+            xg = fn(x2)
+            ms = time_ms(lambda: fn(x2, xg), torch)
+            res["projection_tflops"]["C={} rows={}".format(cin, rows)] = (
+                2 * x2.shape[0] * cin * 2 * G / ms / 1e9)
+        # the yardstick: cuBLAS's f32 product (TF32 off) of the same shape,
+        # both directions, without the bias
+        w = torch.randn((2, 2 * H, G), device="cuda")
+        ms = time_ms(lambda: (torch.mm(x2, w[0]), torch.mm(x2, w[1])), torch)
+        flops = 2 * x2.shape[0] * 2 * H * 2 * G
+        res["projection_tflops"]["torch_mm_C={} rows={}".format(2 * H, rows)] = flops / ms / 1e9
+        del xg, x2, w
     return res
 
 
-# the fp32 recurrence's candidate geometries at H = 256 (U, R, NB), each
+# the fp32 recurrence's candidate geometries at H = 256 (U, R), each
 # instantiated in csrc/birnn_simt.cu; the first of a cell is its
-# SIMT_GEOMETRY
-SIMT_SWEEP = {"gru": [(64, 32, 1), (32, 96, 1), (32, 64, 2)],
-              "lstm": [(32, 96, 1), (32, 64, 1)]}
+# SIMT_GEOMETRY: 9 rows a thread (72 a tile, 2 waves at 1,024 rows); the
+# GRU's 10 (80: 2 waves at 1,024, 28 at 16,384 rows against 31), the
+# LSTM's 8 (64: 3 waves at 1,024; its CTA of 80 rows does not fit)
+SIMT_SWEEP = {"gru": [(32, 72), (32, 80)],
+              "lstm": [(32, 72), (32, 64)]}
 
 
 def phase_k1_simt_sweep(torch, smi):
@@ -2702,7 +2739,7 @@ def phase_flags(torch, smi, single_tags):
     batch, whose records together equal the single run's (``single_tags``,
     the fp32 e2e run); ``--profile_dir``: one trace file, whose kernel
     events name K1's two kernels (the simt design: K4's projection
-    ``gemm_simt_kernel`` and the recurrence ``birnn_rec_kernel``)."""
+    ``proj_f32_kernel`` and the recurrence ``birnn_rec_kernel``)."""
     import glob
     import shutil
 
@@ -2765,7 +2802,7 @@ def phase_flags(torch, smi, single_tags):
         if e.get("cat") == "kernel":
             kernels[e["name"]] = kernels.get(e["name"], 0) + 1
     k1 = {name: sum(n for k, n in kernels.items() if name in k)
-          for name in ("gemm_simt_kernel", "birnn_rec_kernel")}
+          for name in ("proj_f32_kernel", "birnn_rec_kernel")}
     assert all(n > 0 for n in k1.values()), sorted(kernels)[:20]
     assert _ml_shares(tags, single_tags)[1] == 1.0  # the trace changes no output
     res["profile"] = {"trace_bytes": os.path.getsize(traces[0]), "events": len(events),
@@ -4314,12 +4351,21 @@ def _time_tree(tree):
                     x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
                     res["ms"]["k1 {} {} {}".format(cell, rows, dname)] = time_ms(
                         lambda: bigru.birnn_stack(ly, x, dt, cell), torch, AB_REPS)
+            # K1 fp32 at call_freqb's aggregate shape (NL 1, H 32, L 11, C 21)
+            x = torch.from_numpy(np.random.RandomState(SEED).randn(
+                AGGR_L, ROWS[0], AGGR_C).astype(np.float32)).cuda()
+            ly = [layer_weights(ld, torch.float32, "cuda") for ld in
+                  init_rnn_params(np.random.RandomState(SEED), AGGR_C, AGGR_H, 1, cell)]
+            res["ms"]["k1 {} aggr float32".format(cell)] = time_ms(
+                lambda: bigru.birnn_stack(ly, x, torch.float32, cell), torch, AB_REPS)
             # K2 at the K2 phase's cells: one layer, 1024 rows, C = 11 and 2H
-            for cin in (C, 2 * H):
+            # (and the 2s2 family's layer 0, C = 28 and 52, in fp32)
+            for cin in (C, C2S2, C2S2_WIDE, 2 * H):
                 rng = np.random.RandomState(SEED + cin)
                 ld = init_rnn_params(rng, cin, H, 1, cell)[0]
                 x_np = rng.randn(L, ROWS[0], cin).astype(np.float32)
-                for dname in ("float32", "bfloat16"):
+                for dname in (("float32", "bfloat16") if cin in (C, 2 * H)
+                              else ("float32",)):
                     dt = getattr(torch, dname)
                     lyr = layer_weights(ld, dt, "cuda")
                     x = torch.from_numpy(x_np).to("cuda", dt)
@@ -4545,7 +4591,9 @@ def main_only(names):
     train_kernels_2s2, determinism, train1s, train_te, transfer, aggr_train,
     wrappers, profile), the simt backward's sweep and probe
     (k56_bwd_simt_sweep, k56_bwd_simt_probe), the
-    multi-process one (dist), K1's geometry sweeps and probe
+    multi-process one (dist), K1's and K2's kernel phases (k1_kernels: K1
+    at 1,024 and 16,384 rows, K2 at C = 11, 2H and, fp32, the 2s2 family's
+    28 and 52, K1 at the aggregate shape), K1's geometry sweeps and probe
     (k1_simt_sweep, k1_tc_sweep, k1_tc_probe) or K3's kernel phase, its
     bf16 design's sweep and probe (k3_kernels, k3_tc_sweep, k3_tc_probe),
     for a short call after a change to one of them; prints no kernels line
@@ -4577,6 +4625,11 @@ def main_only(names):
         "train_te": lambda: phase_train_te(torch, smi, TE_EPOCHS),
         "transfer": lambda: phase_transfer(torch, smi, TRANSFER_EPOCHS),
         "aggr_train": lambda: phase_aggr_train(torch, smi),
+        "k1_kernels": lambda: ([phase_kernels(torch, smi, cell) for cell in MODELS]
+                               + [phase_k2_kernels(torch, smi, cell) for cell in MODELS]
+                               + [phase_k2_kernels(torch, smi, cell, (C2S2, C2S2_WIDE),
+                                                   ("float32",)) for cell in MODELS]
+                               + [phase_k1_aggr(torch, smi)]),
         "k1_simt_sweep": lambda: phase_k1_simt_sweep(torch, smi),
         "k1_tc_sweep": lambda: phase_k1_tc_sweep(torch, smi),
         "k1_tc_probe": lambda: phase_k1_tc_probe(torch, smi),

@@ -466,12 +466,19 @@ def _simt_source():
         return " ".join(f.read().split())
 
 
+def _csrc(name):
+    path = os.path.join(os.path.dirname(bigru.__file__), "csrc", name)
+    with open(path) as f:
+        return " ".join(f.read().split())
+
+
 def simt_geometries(src):
-    """{cell: [(U, R, NB), ...]}: the f32 recurrence's instantiations in
-    csrc/birnn_simt.cu (its GRU_GEOMETRIES and LSTM_GEOMETRIES lists)."""
+    """{cell: [(U, R), ...]}: the f32 recurrence's instantiations in
+    csrc/birnn_simt.cu (its GRU_GEOMETRIES and LSTM_GEOMETRIES lists of (U,
+    RT): R = SL RT rows a tile, SL = 128 / (U / 2) row slots)."""
     found = {"gru": [], "lstm": []}
-    for lstm, *geo in re.findall(r"X\((false|true), (\d+), (\d+), (\d+)\)", src):
-        found["lstm" if lstm == "true" else "gru"].append(tuple(int(v) for v in geo))
+    for lstm, U, RT in re.findall(r"X\((false|true), (\d+), (\d+)\)", src):
+        found["lstm" if lstm == "true" else "gru"].append((int(U), 256 // int(U) * int(RT)))
     return found
 
 
@@ -480,77 +487,164 @@ def simt_geometries(src):
 def test_k1_plan_simt_geometry_follows_the_kernel_source(hidden, cell):
     """fp32 K1 and K2 run csrc/birnn_simt.cu's own recurrence: the rule's
     geometry is one that the source instantiates for the cell (at H = 256
-    the first of its list), with the source's thread count, shared-memory
-    formula and layout constraints, within the 227 KB and on clusters of
-    1, 2, 4 or 8 CTAs."""
+    the first of its list), with the source's thread count (four product
+    warps: U / 2 unit pairs by 256 / U row slots; four gate warps),
+    shared-memory formula and layout constraints, within the 227 KB and on
+    clusters of 1, 2, 4 or 8 CTAs."""
     src = _simt_source()
     plan = bigru.k1_plan(hidden, cell, torch.float32)
-    U, R, NB = plan["U"], plan["rows"], plan["NB"]
+    U, R = plan["U"], plan["rows"]
     geos = simt_geometries(src)[cell]
-    assert plan["design"] == "simt" and (U, R, NB) in geos
+    assert plan["design"] == "simt" and (U, R) in geos
     if hidden == 256:
-        assert (U, R, NB) == geos[0] == bigru.SIMT_GEOMETRY[cell]
+        assert (U, R) == geos[0] == bigru.SIMT_GEOMETRY[cell]
     else:
         assert U == min(hidden, 32)
     assert U * plan["CN"] == hidden and plan["CN"] in (1, 2, 4, 8)
     assert "if (cn != 1 && cn != 2 && cn != 4 && cn != 8) return nullptr;" in src
-    assert "__launch_bounds__((R / 4) * (U / 2), 1) birnn_rec_kernel" in src
-    assert plan["threads"] == (R // 4) * (U // 2) <= 1024
-    assert plan["threads"] % 128 == 0  # whole warps on each of the 4 schedulers
-    assert "static_assert(UG % 8 == 0 && R % 16 == 0 && (NB == 1 || NB == 2)" in src
-    assert (U // 2) % 8 == 0 and R % 16 == 0 and NB in (1, 2)
-    assert "return ((size_t)H * ng * U + (size_t)NB * H * R) * 4 + 32;" in src
-    assert plan["smem"] == (hidden * n_gates(cell) * U + NB * hidden * R) * 4 + 32
+    assert "#define K1_PW 128" in src and "#define K1_THREADS (2 * K1_PW)" in src
+    assert "__launch_bounds__(K1_THREADS, 1) birnn_rec_kernel" in src
+    assert "static constexpr int UP = U / 2, SL = K1_PW / UP, R = SL * RT;" in src
+    assert plan["threads"] == 2 * 128 and (U // 2) * (256 // U) == 128  # a warp on each scheduler
+    rt = plan["rows_a_thread"]
+    assert rt * (256 // U) == R
+    assert "static_assert(UP * SL == K1_PW && U % 16 == 0" in src
+    assert U % 16 == 0
+    assert "const int rt = R * (U / 2) / K1_PW;" in src
+    assert "return ((size_t)H * ng * U + (size_t)H * R + (size_t)rt * ng * K1_PW) * 4 + 32;" in src
+    ng = n_gates(cell)
+    assert plan["smem"] == (hidden * ng * U + hidden * R + rt * ng * 128) * 4 + 32
     assert plan["smem"] <= SMEM_LIMIT
     assert "(N + R - 1) / R" in src  # clusters a direction
 
 
-def simt_ownership(plan, cn):
-    """The kernel's thread -> work map (birnn_rec_kernel's index arithmetic):
-    for CTA rank c and thread t, the tile rows 4 rg + i (i < 4) and the
-    units u0 + 2 ug + e (e < 2) it owns, as arrays (CN, THREADS, 4) and
-    (CN, THREADS, 2)."""
-    U = plan["U"]
-    uw = U // 2 // 8
-    tid = np.arange(plan["threads"])
-    warp, lane = tid >> 5, tid & 31
-    ug = (warp % uw) * 8 + (lane & 7)
-    rg = (warp // uw) * 4 + (lane >> 3)
-    rows = np.broadcast_to(rg[None, :, None] * 4 + np.arange(4), (cn, len(tid), 4))
-    units = (np.arange(cn)[:, None, None] * U + (2 * ug)[None, :, None]
+def k1_row(rt, nq, q, i):
+    """csrc/rnn_train_rec.cuh's fwd_row: row i (of rt) of the thread in row
+    slot q of nq, within the tile: quads of consecutive rows first (quad j:
+    rows 4 (j nq + q) ..), then one row a slot."""
+    quads = rt // 4 * 4
+    return np.where(i < quads, (i // 4 * nq + q) * 4 + i % 4, quads * nq + (i - quads) * nq + q)
+
+
+def simt_product_tiles(plan, cn):
+    """The kernel's product micro-tiles (birnn_rec_kernel's index
+    arithmetic): for CTA rank c and product thread t (unit pair up = t % UP,
+    row slot q = t / UP), the tile rows k1_row(RT, SL, q, i) (i < RT) and
+    the units u0 + 2 up + e (e < 2) whose sums of every gate it takes, as
+    arrays (CN, 128, RT) and (CN, 128, 2)."""
+    U, R = plan["U"], plan["rows"]
+    UP, SL = U // 2, 256 // U
+    RT = R // SL
+    tid = np.arange(128)
+    up, q = tid % UP, tid // UP
+    rows = k1_row(RT, SL, q[:, None], np.arange(RT)[None, :])
+    rows = np.broadcast_to(rows[None], (cn, len(tid), RT))
+    units = (np.arange(cn)[:, None, None] * U + (2 * up)[None, :, None]
              + np.arange(2)[None, None, :])
     return rows, units
 
 
+def simt_ownership(plan, cn):
+    """The kernel's thread -> gate-math map: thread t < 128 runs the cells of
+    unit u0 + 2 up of its micro-tile's rows, thread 128 + t those of unit u0
+    + 2 up + 1 (their sums from shared memory); each keeps its cells'
+    state, stores their out and writes their new h. Arrays (CN, 256, RT)
+    of rows and (CN, 256, 1) of units."""
+    rows, units = simt_product_tiles(plan, cn)
+    rows = np.concatenate([rows, rows], axis=1)
+    units = np.concatenate([units[:, :, :1], units[:, :, 1:]], axis=1)
+    assert rows.shape[1] == plan["threads"]
+    return rows, units
+
+
 def test_simt_ownership_model_follows_the_kernel_source():
-    """The model above is the kernel's: the thread's unit and row groups;
-    W_hh staged as [k][gate][u]; for k ascending from 0, h of its 4 rows and
-    W of its 2 units of each gate; and the exchange: unit e of its 4 rows
-    into its own buffer, the CTA's block [u0, u0 + U) x R copied whole to
-    the same place in every other CTA."""
+    """The models above are the kernel's: the product thread's unit pair
+    and row slot, the gate thread's unit; W_hh staged as [k][up][gate 0,
+    1][e] then [k][up][gate 2 (, 3)][e]; for k ascending from 0, h of its
+    rows and W of its 2 units of each gate; the second unit's sums through
+    `pre`; and the exchange: the cells' new h into the CTA's block, the
+    block [u0, u0 + U) x R copied whole to the same place in every other
+    CTA."""
     src = _simt_source()
-    for line in ("const int ug = (warp % UW) * 8 + (lane & 7);",
-                 "const int rg = (warp / UW) * 4 + (lane >> 3);",
+    for line in ("const bool prod = tid < K1_PW;",
+                 "const int pt = tid % K1_PW;",
+                 "const int up = pt % UP, q = pt / UP;",
+                 "const int unit = u0 + 2 * up + (prod ? 0 : 1);",
                  "const int u0 = crank * U;",
-                 "const int unit = u0 + 2 * ug;",
                  "const int row0 = (blockIdx.x / cn) * R;",
-                 "const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;",
-                 "const int row = row0 + rg * 4 + i;",
-                 "*reinterpret_cast<float4*>(ws + k * NG * U + gate * U + u4 * 4) = "
-                 "__ldg(reinterpret_cast<const float4*>(W + (size_t)k * G + gate * H + u0 + u4 * 4));",
-                 "for (int k = 0; k < H; ++k) {",
-                 "const float4 hv = *reinterpret_cast<const float4*>(hc + k * R + rg * 4);",
-                 "const float* wk = ws + k * NG * U + 2 * ug;",
-                 "const float2 w = *reinterpret_cast<const float2*>(wk + gate * U);",
-                 "acc[i][gate][0] = fmaf(h[i], w.x, acc[i][gate][0]); "
-                 "acc[i][gate][1] = fmaf(h[i], w.y, acc[i][gate][1]);",
-                 "*reinterpret_cast<float4*>(hx + (size_t)(unit + e) * R + rg * 4) = "
-                 "make_float4(hnew[0][e], hnew[1][e], hnew[2][e], hnew[3][e]);",
-                 "const uint32_t src = smem_u32(hx + (size_t)u0 * R);",
+                 "const int row = row0 + fwd_row(RT, SL, q, i);",
+                 "const int pu = i % UP, gate = (i / UP) % NG, k = i / (NG * UP);",
+                 "const int o = k * NGU + (gate < 2 ? pu * 4 + gate * 2 : "
+                 "WB + pu * (NG - 2) * 2 + (gate - 2) * 2);",
+                 "__ldg(reinterpret_cast<const float2*>(W + (size_t)k * G + gate * H + u0 + 2 * pu));",
+                 "const float* wp = ws + 4 * up;",
+                 "const float* hp = hs + 4 * q;",
+                 "const float* wk = wp + k * NGU;",
+                 "const float4 w01 = *reinterpret_cast<const float4*>(wk);",
+                 "const float4 w23 = *reinterpret_cast<const float4*>(wk + WB);",
+                 "const float2 w2 = *reinterpret_cast<const float2*>(wk + WB - 2 * up);",
+                 "const float* hk = hp + k * R;",
+                 "const float4 v = *reinterpret_cast<const float4*>(hk + j * SL * 4);",
+                 "for (int i = NQ * 4; i < RT; ++i) h[i] = hk[fwd_row(RT, SL, q, i) - 4 * q];",
+                 "acc[i][gate][0] = fmaf(hr[j][i], wr[j][gate][0], acc[i][gate][0]); "
+                 "acc[i][gate][1] = fmaf(hr[j][i], wr[j][gate][1], acc[i][gate][1]);",
+                 "pre[(i * NG + gate) * K1_PW + pt] = acc[i][gate][1]; "
+                 "sum[i][gate] = acc[i][gate][0];",
+                 "for (int gate = 0; gate < NG; ++gate) sum[i][gate] = pre[(i * NG + gate) * K1_PW + pt];",
+                 "p.out[((size_t)t * N + row) * 2 * H + d * H + unit] = hnew[i];",
+                 "float* hu = hs + (size_t)unit * R;",
+                 "*reinterpret_cast<float4*>(hu + (j * SL + q) * 4) =",
+                 "for (int i = NQ * 4; i < RT; ++i) hu[fwd_row(RT, SL, q, i)] = hnew[i];",
+                 "const uint32_t src = smem_u32(hs + (size_t)u0 * R);",
                  "const uint32_t block_bytes = U * R * 4;",
-                 "for (uint32_t r = 1; r < cn; ++r) bulk_to_peer(src, block_bytes, bar, "
+                 "for (uint32_t r = 1; r < cn; ++r) bulk_to_peer(src, block_bytes, full_bar, "
                  "(crank + r) % cn);"):
         assert line in src, line
+    assert ("return i < rt / 4 * 4 ? (i / 4 * nq + q) * 4 + i % 4 : rt / 4 * 4 * nq + "
+            "(i - rt / 4 * 4) * nq + q;") in _csrc("rnn_train_rec.cuh")
+
+
+def product_ring(H, ahead):
+    """The product's k loop as the kernel runs it: sets j < AHEAD loaded
+    with k = j first; then for k0 = 0, NS, ..., and j < NS, set (j + AHEAD)
+    % NS loaded with k0 + j + AHEAD and the FMAs of set j. Returns the k
+    each FMA step read and the largest k loaded."""
+    ns = ahead + 1
+    sets = {}
+    for j in range(ahead):
+        sets[j] = j
+    read, loaded = [], ahead - 1
+    for k0 in range(0, H, ns):
+        for j in range(ns):
+            sets[(j + ahead) % ns] = k0 + j + ahead
+            loaded = max(loaded, k0 + j + ahead)
+            read.append(sets[j])
+    return read, loaded
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_simt_product_ring_sums_k_in_order(hidden, cell):
+    """The ring of AHEAD + 1 register sets feeds the FMAs k = 0, 1, ..., H -
+    1 in order (each (row, unit, gate) one chain over k ascending), and its
+    loads past H (at most AHEAD k's) stay inside the CTA's shared memory:
+    W's rows run into h, h's into the gate threads' `pre`, which holds more
+    than AHEAD rows of h."""
+    src = _simt_source()
+    assert "constexpr int AHEAD = LSTM ? 1 : 3;" in src
+    for line in ("for (int j = 0; j < AHEAD; ++j) load_k(j, wr[j], hr[j]);",
+                 "for (int k0 = 0; k0 < H; k0 += NS) {",
+                 "load_k(k0 + j + AHEAD, wr[(j + AHEAD) % NS], hr[(j + AHEAD) % NS]);",
+                 "static_assert(16 % NS == 0,",
+                 "static_assert(RT * NG * K1_PW >= AHEAD * R, \"room past h\");"):
+        assert line in src, line
+    ahead = 1 if cell == "lstm" else 3
+    assert hidden % (ahead + 1) == 0
+    read, loaded = product_ring(hidden, ahead)
+    assert read == list(range(hidden))
+    plan = bigru.k1_plan(hidden, cell, torch.float32)
+    assert loaded - hidden + 1 <= ahead
+    assert plan["rows_a_thread"] * n_gates(cell) * 128 >= ahead * plan["rows"]
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
@@ -563,9 +657,17 @@ def test_simt_ownership_covers_every_output_once(hidden, cell):
     the blocks fill every (unit, row) of each CTA's buffer once."""
     plan = bigru.k1_plan(hidden, cell, torch.float32)
     cn, U, R = plan["CN"], plan["U"], plan["rows"]
-    rows, units = simt_ownership(plan, cn)
+    # the product's micro-tiles: every (row, unit) once, with every gate
+    rows, units = simt_product_tiles(plan, cn)
     count = np.zeros((R, hidden), dtype=np.int64)
     r_idx = np.broadcast_to(rows[:, :, :, None], rows.shape + (2,))
+    u_idx = np.broadcast_to(units[:, :, None, :], r_idx.shape)
+    np.add.at(count, (r_idx.ravel(), u_idx.ravel()), 1)
+    assert (count == 1).all()
+    # the gate math and the h writes: every (row, unit) once
+    rows, units = simt_ownership(plan, cn)
+    count = np.zeros((R, hidden), dtype=np.int64)
+    r_idx = np.broadcast_to(rows[:, :, :, None], rows.shape + (1,))
     u_idx = np.broadcast_to(units[:, :, None, :], r_idx.shape)
     np.add.at(count, (r_idx.ravel(), u_idx.ravel()), 1)
     assert (count == 1).all()
@@ -574,6 +676,53 @@ def test_simt_ownership_covers_every_output_once(hidden, cell):
         assert units[c].min() == c * U and units[c].max() == (c + 1) * U - 1
         assert sorted(offsets[c].ravel().tolist()) == list(range(c * U * R, (c + 1) * U * R))
     assert sorted(offsets.ravel().tolist()) == list(range(hidden * R))
+
+
+def staged_w_offset(k, pu, gate, e, U, ng):
+    """Where csrc/birnn_simt.cu stages W_hh[k][gate H + u0 + 2 pu + e] of a
+    CTA's slice: per k NG U floats, gates 0 and 1 of unit pair pu at 4 pu +
+    2 gate + e, gates 2 (and 3) after the 4 (U / 2) floats of those, at 2
+    (NG - 2) pu + 2 (gate - 2) + e."""
+    wb = 4 * (U // 2)
+    return k * ng * U + np.where(gate < 2, pu * 4 + gate * 2 + e,
+                                 wb + pu * (ng - 2) * 2 + (gate - 2) * 2 + e)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+@pytest.mark.parametrize("hidden", [16, 32, 64, 128, 256])
+def test_simt_w_staging_is_read_back_as_staged(hidden, cell):
+    """The staged slice fills [H][NG U] once, and the product's loads (one
+    16-byte piece of gates 0 and 1 at 4 up, one 8- or 16-byte piece of the
+    rest at WB + 2 (NG - 2) up) read back W_hh[k][gate H + u0 + 2 up + e] for
+    every k, gate and unit: the lanes of a warp's 16 (or 8) unit pairs read
+    neighbouring pieces."""
+    plan = bigru.k1_plan(hidden, cell, torch.float32)
+    U, ng = plan["U"], n_gates(cell)
+    k, pu, gate, e = np.meshgrid(np.arange(hidden), np.arange(U // 2), np.arange(ng),
+                                 np.arange(2), indexing="ij")
+    off = staged_w_offset(k, pu, gate, e, U, ng)
+    assert sorted(off.ravel().tolist()) == list(range(hidden * ng * U))
+    wb = 4 * (U // 2)
+    read = np.where(gate < 2, k * ng * U + 4 * pu + 2 * gate + e,
+                    k * ng * U + wb + 2 * (ng - 2) * pu + 2 * (gate - 2) + e)
+    assert (read == off).all()
+    piece = 4 if ng == 4 else 2  # floats of the second load a thread
+    assert (np.diff(read[0, :, 2, 0]) == piece).all()
+    assert (np.diff(read[0, :, 0, 0]) == 4).all()
+
+
+def test_simt_waves_at_the_main_path_rows():
+    """At H = 256 each CTA holds more than half the SM's shared memory (one
+    CTA an SM), 72 rows a tile in clusters of 8: at 1,024 rows 15 tiles a
+    direction, 30 clusters, two full waves of the 15 clusters of 8 that the
+    H100 holds at once (cudaOccupancyMaxActiveClusters, chip_smoke.py's
+    K1 fp32 cell); at 16,384 rows 31 waves, the last 40% full."""
+    for cell in ("gru", "lstm"):
+        plan = bigru.k1_plan(256, cell, torch.float32)
+        assert plan["smem"] > SMEM_LIMIT // 2 and plan["CN"] == 8
+        clusters = {rows: 2 * -(-rows // plan["rows"]) for rows in (1024, 16384)}
+        assert clusters == {1024: 30, 16384: 456}
+        assert {rows: -(-n // 15) for rows, n in clusters.items()} == {1024: 2, 16384: 31}
 
 
 def simt_model(layers, x, cell, plan):
@@ -590,8 +739,9 @@ def simt_model(layers, x, cell, plan):
     H, ng = layers[0][2].shape[1], n_gates(cell)
     cn, R = plan["CN"], plan["rows"]
     rows, units = simt_ownership(plan, cn)
-    r_idx = np.broadcast_to(rows[:, :, :, None], rows.shape + (2,)).ravel()
-    u_idx = np.broadcast_to(units[:, :, None, :], rows.shape + (2,)).ravel()
+    ne = units.shape[-1]
+    r_idx = np.broadcast_to(rows[:, :, :, None], rows.shape + (ne,)).ravel()
+    u_idx = np.broadcast_to(units[:, :, None, :], rows.shape + (ne,)).ravel()
     inp, h_ns = x, []
     for wih, bih, whh, bhh in layers:
         flat = inp.float().reshape(L * N, -1)
@@ -645,6 +795,347 @@ def test_simt_model_is_bit_equal_to_the_plain_version(hidden, rows, cell):
     out, hn = simt_model(layers, x, cell, plan)
     ref_out, ref_hn = bigru.birnn_stack_plain(layers, x, torch.float32, cell)
     assert torch.equal(out, ref_out) and torch.equal(hn, ref_hn)
+
+
+class _Bar:
+    """An mbarrier: ``count`` arrivals a phase, the pending arrivals and
+    tx-count of the current phase, and the phases completed (``done``)."""
+
+    def __init__(self, count):
+        self.count, self.pending, self.tx, self.done = count, count, 0, 0
+
+    def arrive(self, tx=0):
+        self.tx += tx
+        self.pending -= 1
+        self._complete()
+
+    def complete_tx(self, n):
+        self.tx -= n
+        self._complete()
+
+    def _complete(self):
+        if self.pending == 0 and self.tx == 0:
+            self.done += 1
+            self.pending = self.count
+
+    def passed(self, phase):
+        """Whether a wait on the parity of ``phase`` returns; a parity wait
+        is exact only while the barrier is at that phase or one past it."""
+        assert phase <= self.done <= phase + 1, ("a phase ahead or behind", phase, self.done)
+        return self.done == phase + 1
+
+
+def k1_rec_protocol(CN, L, seed):
+    """birnn_rec_kernel's exchange on one cluster under a random
+    interleaving. Each CTA is two agents, its thread 0 and the rest,
+    meeting at its __syncthreads; a step: both wait on `full` (step > 0);
+    the product reads every block of the CTA's h buffer, each of which must
+    hold h(s); then, unless it is the last step, thread 0 waits until its
+    copies have read their source and arms `full` with the bytes to come, a
+    __syncthreads, and threads t < CN (not the CTA's rank; t = 0 is thread
+    0's) arrive on peer t's `empty`; both agents write their part of the own
+    block (h(s + 1)); a __syncthreads; thread 0 waits on `empty` and issues
+    the copies to the peers as one group. A copy reads its source some time
+    later (which must still hold the step it was issued for) and lands some
+    time after that (the receiver must have read the step before: the
+    one-buffer hazard), completing its bytes on the receiver's `full`. Every
+    wait checks that its barrier is at the phase waited for or one past.
+    Returns each CTA's state and the order of the products, or fails on a
+    hazard or a deadlock."""
+    rng = np.random.RandomState(seed)
+    ctas = [{"blocks": [0] * CN, "own": [0, 0], "full": _Bar(1), "empty": _Bar(max(CN - 1, 1)),
+             "read": [-1, -1], "groups": [], "sync": [0, 0]} for _ in range(CN)]
+    copies, products = [], []
+
+    def sync(c, who):  # the CTA's __syncthreads: a generation both agents reach
+        cta = ctas[c]
+        cta["sync"][who] += 1
+        return ("sync", c, cta["sync"][who])
+
+    def agent(c, who):
+        cta = ctas[c]
+        for s in range(L):
+            more = s + 1 < L
+            if CN > 1 and s > 0:
+                yield ("wait", cta["full"], s - 1)
+            assert all(tag == s for i, tag in enumerate(cta["blocks"]) if i != c), (c, s)
+            assert cta["own"] == [s, s], (c, s, cta["own"])
+            cta["read"][who] = s
+            if who == 0:
+                products.append((c, s))
+            if more:
+                if who == 0 and CN > 1:
+                    yield ("wait_read", cta)
+                    cta["full"].arrive(tx=CN - 1)
+                yield sync(c, who)
+                if CN > 1:
+                    for t in ([0] if who == 0 else range(1, CN)):
+                        if t != c:
+                            ctas[t]["empty"].arrive()
+            if not more:
+                break
+            cta["own"][who] = s + 1
+            yield sync(c, who)
+            if CN > 1 and who == 0:
+                yield ("wait", cta["empty"], s)
+                group = [{"src": c, "dst": (c + r) % CN, "tag": s + 1, "state": "issued"}
+                         for r in range(1, CN)]
+                cta["groups"].append(group)
+                copies.extend(group)
+        if who == 0 and CN > 1:
+            yield ("wait_read", cta)
+
+    agents = {(c, w): agent(c, w) for c in range(CN) for w in (0, 1)}
+    at = {k: next(a, None) for k, a in agents.items()}
+
+    def runnable(k):
+        op = at[k]
+        if op is None:
+            return False
+        if op[0] == "wait":
+            return op[1].passed(op[2])
+        if op[0] == "sync":
+            return min(ctas[op[1]]["sync"]) >= op[2]
+        return all(cp["state"] != "issued" for grp in op[1]["groups"] for cp in grp)
+
+    while True:
+        moves = [("agent", k) for k in agents if runnable(k)]
+        moves += [("copy", cp) for cp in copies if cp["state"] != "landed"]
+        if not moves:
+            break
+        kind, obj = moves[rng.randint(len(moves))]
+        if kind == "agent":
+            at[obj] = next(agents[obj], None)
+        elif obj["state"] == "issued":  # the copy reads its source block
+            assert ctas[obj["src"]]["own"] == [obj["tag"]] * 2, obj
+            obj["state"] = "read"
+        else:  # and lands in the receiver's buffer
+            dst = ctas[obj["dst"]]
+            assert min(dst["read"]) >= obj["tag"] - 1, ("landed on unread h", obj)
+            dst["blocks"][obj["src"]] = obj["tag"]
+            dst["full"].complete_tx(1)
+            obj["state"] = "landed"
+    assert all(op is None for op in at.values()), "deadlock"
+    return ctas, products
+
+
+@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("cn,steps", [(1, 3), (2, 1), (2, 2), (2, 5), (4, 3), (8, 2), (8, 4)])
+def test_simt_exchange_protocol(cn, steps, seed):
+    """The f32 recurrence's `full` / `empty` protocol on one cluster under
+    random interleavings (``k1_rec_protocol``): no deadlock, no block read
+    before it holds the step's h, no copy that reads a block overwritten or
+    lands on h not yet read, no barrier a phase ahead of its waiter; each
+    CTA's products run in step order, and at the end each `full` and
+    `empty` has completed one phase a step but the last."""
+    ctas, products = k1_rec_protocol(cn, steps, seed)
+    for c, cta in enumerate(ctas):
+        if cn > 1:
+            assert cta["full"].done == cta["empty"].done == steps - 1
+        assert cta["read"] == [steps - 1, steps - 1]
+        assert [s for cc, s in products if cc == c] == list(range(steps))
+
+
+def test_simt_exchange_protocol_follows_the_kernel_source():
+    """The model's order of the exchange is the kernel's: `full` waited
+    for phase s - 1, armed after the copies have read, `empty` arrivals
+    after the barrier that ends the product, the copies after the wait on
+    `empty` phase s."""
+    src = _simt_source()
+    order = ["if (cn > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);",
+             "asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: \"memory\"); "
+             "mbar_expect_tx(full_bar, (cn - 1) * block_bytes);",
+             "__syncthreads(); // every thread has read h(s)",
+             "if (!last && cn > 1 && tid < (int)cn && tid != (int)crank) "
+             "mbar_arrive_remote(empty_bar, tid);",
+             "__syncthreads(); // the block is whole",
+             "mbar_wait(empty_bar, s & 1);",
+             "bulk_to_peer(src, block_bytes, full_bar, (crank + r) % cn);"]
+    at = [src.index(line) for line in order]
+    assert at == sorted(at)
+    assert "mbar_init(empty_bar, cn > 1 ? cn - 1 : 1);" in src and "mbar_init(full_bar, 1);" in src
+
+
+def fmaf32(a, b, c):
+    """fmaf on float32 arrays: a b + c rounded once to float32. The product
+    of two float32 values is exact in float64; TwoSum gives the float64 sum
+    s and its exact error e; s rounds to float32 as the exact sum does
+    except where s is a float32 midpoint, where the sign of e decides."""
+    a, b, c = (np.asarray(v, np.float32).astype(np.float64) for v in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    rd = r.astype(np.float64)
+    lo = np.where(s > rd, r, np.nextafter(r, np.float32(-np.inf)))
+    hi = np.where(s > rd, np.nextafter(r, np.float32(np.inf)), r)
+    tie = s == (lo.astype(np.float64) + hi.astype(np.float64)) / 2
+    return np.where(tie & (e > 0), hi, np.where(tie & (e < 0), lo, r)).astype(np.float32)
+
+
+def proj_chain(x, w, b0, b1, nfold, bk):
+    """One direction of the f32 projection as a kernel computes it: each
+    element one fmaf chain over k ascending from 0.0f in k tiles of bk (the
+    zeros past C included), then + (b_ih + the folded b_hh)."""
+    M, K = x.shape
+    G = w.shape[1]
+    acc = np.zeros((M, G), np.float32)
+    for k in range(-(-K // bk) * bk):
+        a = x[:, k] if k < K else np.zeros(M, np.float32)
+        b = w[k] if k < K else np.zeros(G, np.float32)
+        acc = fmaf32(a[:, None], b[None, :], acc)
+    n = np.arange(G)
+    bias = (b0 + np.where(n < nfold, b1, np.float32(0.0))).astype(np.float32)
+    return (acc + bias).astype(np.float32)
+
+
+def f32_proj_owners(M, G):
+    """proj_f32_kernel's tile -> element map: CTA (bx, by) of each direction
+    d, thread (tx, ty) = (t % 8, t / 8) of 128, accumulator (i, j) holds
+    xg[d][m][n], m = 128 by + (4 ty + i, i < 4; 64 + 4 ty + i - 4), n = 128
+    bx + 32 (j / 4) + 4 tx + j % 4. Returns the count of owners of each
+    element of (2, M, G) within the matrix."""
+    count = np.zeros((2, M, G), np.int64)
+    t = np.arange(128)
+    tx, ty = t % 8, t // 8
+    i, j = np.arange(8), np.arange(16)
+    rows = np.where(i < 4, 4 * ty[:, None] + i, 64 + 4 * ty[:, None] + i - 4)  # (128, 8)
+    cols = 32 * (j // 4) + 4 * tx[:, None] + j % 4                           # (128, 16)
+    for d in range(2):
+        for by in range(-(-M // 128)):
+            for bx in range(-(-G // 128)):
+                m = np.broadcast_to((128 * by + rows)[:, :, None], (128, 8, 16))
+                n = np.broadcast_to((128 * bx + cols)[:, None, :], (128, 8, 16))
+                ok = (m < M) & (n < G)
+                np.add.at(count[d], (m[ok], n[ok]), 1)
+    return count
+
+
+@pytest.mark.parametrize("M,G", [(1, 48), (13, 64), (200, 96), (1029, 768), (300, 1024)])
+def test_f32_projection_owns_every_element_once(M, G):
+    """Every element of xg (2, M, G) has exactly one owning thread (one
+    accumulator of one CTA), at ragged rows and widths below a tile."""
+    assert (f32_proj_owners(M, G) == 1).all()
+
+
+def test_f32_projection_model_follows_the_kernel_source():
+    """The ownership and the order of the sums above are the kernel's: the
+    thread's rows and columns, k tiles ascending (kt), 4-k quads ascending
+    (kq) and k within a quad ascending (kk), each fmaf onto the one
+    accumulator from 0.0f, and the bias added once after the chain as
+    gemm_simt_kernel adds it."""
+    src = _csrc("rnn_train_gemm.cuh")
+    for line in ("#define FP_BM 128", "#define FP_BN 128", "#define FP_BK 16",
+                 "#define FP_TX (FP_BN / 16)", "#define FP_THREADS (FP_TX * 16)",
+                 "const int tid = threadIdx.x, tx = tid % FP_TX, ty = tid / FP_TX;",
+                 "const int m0 = blockIdx.y * FP_BM, n0 = blockIdx.x * FP_BN;",
+                 "const int r = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;",
+                 "const float4 v = *reinterpret_cast<const float4*>(bs + k * FP_BN + c * (FP_BN / 4) "
+                 "+ tx * 4);",
+                 "for (int kt = 0; kt < KT; ++kt) {",
+                 "for (int kq = 0; kq < FP_BK; kq += 4) {",
+                 "for (int kk = 0; kk < 4; ++kk) {",
+                 "const float* b = bb[(kq + kk) & 1];",
+                 "for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);",
+                 "acc[i][j] = 0.0f;",
+                 "bias[e] = n + e < G ? b0[n + e] + (n + e < p.nfold ? b1[n + e] : 0.0f) : 0.0f;",
+                 "const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);",
+                 "const int n = n0 + c * (FP_BN / 4) + tx * 4;",
+                 "make_float4(v[0] + bias[0], v[1] + bias[1], v[2] + bias[2], v[3] + bias[3]);",
+                 # the simt kernel's bias, which the new one keeps
+                 "return jb.bias0[n] + (n < jb.nfold ? jb.bias1[n] : 0.0f);",
+                 # every f32 projection runs it
+                 "if constexpr (std::is_same<T, float>::value) return proj_f32_run("):
+        assert line in src, line
+
+
+@pytest.mark.parametrize("cin", [11, 21, 28, 52, 64])
+def test_f32_projection_chain_equals_the_simt_gemm_chain(cin):
+    """The new projection's sums (k tiles of 16, zeros past C) and
+    gemm_simt_kernel's (k tiles of 8) are the same fmaf chain over k
+    ascending from 0.0f, so xg keeps every bit at the models' widths (C =
+    11, 21, 28, 52) and a width of whole tiles; both within a few float32
+    ulps of the exact sums."""
+    rng = np.random.RandomState(cin)
+    M, G = 37, 96
+    x = rng.randn(M, cin).astype(np.float32)
+    w = (0.3 * rng.randn(cin, G)).astype(np.float32)
+    b0, b1 = rng.randn(2, G).astype(np.float32)
+    new = proj_chain(x, w, b0, b1, 64, 16)
+    old = proj_chain(x, w, b0, b1, 64, 8)
+    assert np.array_equal(new.view(np.uint32), old.view(np.uint32))
+    exact = (x.astype(np.float64) @ w.astype(np.float64) + b0
+             + np.where(np.arange(G) < 64, b1, 0.0))
+    scale = np.abs(x).astype(np.float64) @ np.abs(w).astype(np.float64) + 2
+    assert (np.abs(new - exact) <= 4 * np.finfo(np.float32).eps * scale).all()
+
+
+def test_fmaf32_rounds_once():
+    """The model's fmaf rounds a b + c once: against exact rational sums on
+    random values and on ties that a double rounding would break."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(3)
+    a, b, c = (rng.randn(3, 300) * 10.0 ** rng.randint(-3, 4, (3, 300))).astype(np.float32)
+    got = fmaf32(a, b, c)
+    for ai, bi, ci, gi in zip(a, b, c, got):
+        exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
+        lo = np.float32(float(exact))
+        cands = [np.nextafter(lo, np.float32(-np.inf)), lo, np.nextafter(lo, np.float32(np.inf))]
+        best = min(cands, key=lambda v: (abs(Fraction(float(v)) - exact),
+                                         int(np.asarray(v).view(np.uint32)) & 1))
+        assert gi == best, (ai, bi, ci, gi, best)
+    # a b = +-(2^-24 - 2^-54): the float64 sum lands on a float32 midpoint
+    # that the exact sum misses by 2^-54, below (rounds to the odd neighbour
+    # below, where ties-to-even would go up) and above (to the odd one above)
+    a = np.float32((1 + 2.0 ** -15) * 2.0 ** -12)
+    b = np.float32((1 - 2.0 ** -15) * 2.0 ** -12)
+    assert fmaf32(a, b, np.float32(1 + 2.0 ** -23)) == np.float32(1 + 2.0 ** -23)
+    assert fmaf32(-a, b, np.float32(1 + 2.0 ** -22 + 2.0 ** -23)) == \
+        np.float32(1 + 2.0 ** -22 + 2.0 ** -23)
+
+
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_f32_projection_model_matches_the_plain_version(cell):
+    """K1's fp32 stack with each layer's xg from the projection model (one
+    owner each, its chain, b_hh folded where the kernel folds it) and the
+    plain recurrence on it agrees with ``birnn_stack_plain`` within the
+    card's fp32 tolerance (1e-5): the fold changes only the order of the
+    bias additions."""
+    rng = np.random.RandomState(11)
+    H, N, L = 16, 5, 4
+    layers = [layer_weights(ld) for ld in init_rnn_params(rng, 11, H, 2, cell)]
+    x = torch.from_numpy(rng.randn(L, N, 11).astype(np.float32))
+    ng = n_gates(cell)
+    nfold = 2 * H if cell == "gru" else ng * H
+    inp, h_ns = x, []
+    for wih, bih, whh, bhh in layers:
+        flat = inp.reshape(L * N, -1).numpy()
+        outs = []
+        for d in (0, 1):
+            xg = torch.from_numpy(proj_chain(flat, wih[d].numpy(), bih[d].numpy(),
+                                             bhh[d].numpy(), nfold, 16)).view(L, N, -1)
+            # the recurrence adds only what the projection did not fold
+            b_rest = bhh[d].clone()
+            b_rest[:nfold] = 0.0
+            h = torch.zeros((N, H))
+            c = torch.zeros((N, H))
+            ys = [None] * L
+            for s in range(L):
+                t = s if d == 0 else L - 1 - s
+                hg = h @ whh[d] + b_rest
+                if cell == "gru":
+                    h = gru_cell(xg[t], hg, h)[0]
+                else:
+                    h, c = lstm_cell(xg[t] + hg, c)[:2]
+                ys[t] = h
+            h_ns.append(h)
+            outs.append(torch.stack(ys))
+        inp = torch.cat(outs, dim=-1)
+    ref_out, ref_hn = bigru.birnn_stack_plain(layers, x, torch.float32, cell)
+    assert (inp - ref_out).abs().max().item() <= 1e-5
+    assert (torch.stack(h_ns) - ref_hn).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("seq_len,d,ff,nhead", [(21, 256, 512, 4), (21, 128, 256, 2),

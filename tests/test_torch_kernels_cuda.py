@@ -542,3 +542,24 @@ def test_k1_simt_outputs_bit_equal_to_before_the_redesign(case):
     _need_card()
     assert bigru.k1_plan(case[1], case[0], torch.float32)["design"] == "simt"
     assert k1_digest(*case) == K1_DIGESTS[case]
+
+
+# sha256 of ``k1_digest(*case)`` at 4,096 rows, 3 layers of H = 256 (57
+# tiles of 72 rows a direction, several waves of clusters), taken on an
+# H100 from the kernels as they were before the fp32 recurrence's
+# four-warp redesign and the projection's proj_f32_kernel: the redesign
+# leaves every bit as it was there too.
+K1_WAVE_DIGESTS = {
+    ('gru', 256, 4096, 3, 11): "d7c6ba3e3614f46bb85c10db0ee328de3ef8ae197f4e7a8e993e422dc335acf8",
+    ('gru', 256, 4096, 3, 512): "42120e35d40737b37a94dfadb0294be5d394a6ada55e63510f6a7a4eb790e0a0",
+    ('lstm', 256, 4096, 3, 11): "db8785ab6887bdd2a965d33c186ad19fd4d7d4ce12d0d8218b574e32486e3d36",
+    ('lstm', 256, 4096, 3, 512): "44186a5c447957edfcd7a45e136d0b1f60720889827a045db6d9a683a09d1991",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_WAVE_DIGESTS))
+def test_k1_simt_outputs_bit_equal_at_several_waves(case):
+    _need_card()
+    assert bigru.k1_plan(case[1], case[0], torch.float32)["design"] == "simt"
+    assert k1_digest(*case) == K1_WAVE_DIGESTS[case]
