@@ -31,7 +31,9 @@ recurrence stores the gate gradients as bf16 copies and each row tile's
 partial bias sums, and dx and the weight gradients run on wgmma fed by TMA
 (``csrc/rnn_train_gemm.cuh::wgemm_kernel``; X's rows at C % 8 != 0, which
 TMA cannot address, by plain loads into the same image); ``gemm_calls``
-counts those products by kernel.
+counts those products by kernel. In the simt design on f32, dx and the
+weight and bias gradients run ``gemm_f32_kernel`` (exact f32 FMAs, 128 x
+128 tiles, dx's by ``simt_dx_tile``), the projection ``proj_f32_kernel``.
 ``k45_plan`` is the shape rule that picks the design of a CUDA call, for this
 layer and for K6, the LSTM's (``bilstm_vjp``), whose kernels are these with
 four gates: the gate count NG (3 or 4) is the only input besides H and the
@@ -84,9 +86,10 @@ from .kernel_args import (DTYPE_CODE, SMEM_LIMIT, cuda_checks, device_of, dims,
 SRC = "bigru_train.cu"
 TC_ROWS_FWD = 64  # TC_FWD_ROWS in csrc/rnn_train_rec.cuh: rows of a tc forward tile
 TC_ROWS_BWD = 32  # TC_BWD_ROWS: rows of a tc backward tile
-GEMM_TILE = 128  # GM_BM = GM_BN = WG_BM in csrc/rnn_train_gemm.cuh
-# CTAs an SM of the weight-gradient kernel of either design:
-# gemm_simt_kernel's and wgemm_kernel's __launch_bounds__
+GEMM_TILE = 128  # GF_BM = GM_BM = GM_BN = WG_BM in csrc/rnn_train_gemm.cuh
+# CTAs an SM of the product kernels of either design: gemm_f32_kernel's
+# (simt on f32), gemm_simt_kernel's (simt on bf16) and wgemm_kernel's (tc)
+# __launch_bounds__
 WGRAD_CTAS_PER_SM = 2
 GATES = {"gru": 3, "lstm": 4}  # NG, the gate count of each cell
 # The simt backward recurrence's rows a thread at H = 256 (K56_RT256 in
@@ -378,6 +381,21 @@ def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, ng: int = 3) -> int:
     best = min(range(1, max(1, min(32, rows // 256)) + 1),
                key=lambda S: (-(-S * tiles // slots) / S, S))
     return best
+
+
+def simt_dx_tile(rows: int, C: int, n_sms: int) -> tuple:
+    """The fp32 dx product's tile (rows, columns) in
+    ``csrc/rnn_train_gemm.cuh``'s gemm_f32_kernel (``dx_rows``,
+    ``dx_cols``): the least of 16, 32, 64 and 128 columns that holds C, and
+    8 or 7 rows a thread (128 or 112 rows), whichever takes the fewer
+    wave-times (waves of ``WGRAD_CTAS_PER_SM`` x n_sms tiles, times the
+    tile's rows), 8 on a tie."""
+    bn = next(b for b in (16, 32, 64, 128) if C <= b or b == 128)
+    slots = WGRAD_CTAS_PER_SM * n_sms
+
+    def cost(rm):
+        return -(-(-(-C // bn) * -(-rows // (16 * rm))) // slots) * rm
+    return (112 if cost(7) < cost(8) else 128), bn
 
 
 def _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype):

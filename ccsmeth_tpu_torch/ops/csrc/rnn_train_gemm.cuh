@@ -9,7 +9,7 @@
 // rnn_proj, rnn_dx, rnn_wgrad, wg_dx and wg_wgrad at the end describe each
 // as jobs.
 //
-// Three kernels, by design:
+// Four kernels, by design:
 //   proj_f32_kernel (the simt design's input projection on f32 operands:
 //     K1's, K2's and the K4/K6 fp32 forwards' xg): exact f32 FMAs on the
 //     CUDA cores, a CTA of 128 threads a 128 x 128 tile, 8 x 16 outputs a
@@ -24,17 +24,34 @@
 //     C = 11 the bytes bound it (xg, 132 MB for the GRU: 0.039 ms at 3.35
 //     TB/s). Each output is the simt kernel's chain (below) with the bias
 //     folded the same way, so xg keeps every bit.
-//   gemm_simt_kernel (the simt design, f32 or bf16 operands; the f32
-//     projection runs proj_f32_kernel, the bf16 one this): exact f32 FMAs
-//     on the CUDA cores. Block tile 128 x 128, k tile 8, 8 x 8 outputs a
-//     thread, operand tiles in shared memory (double-buffered; the next tile
-//     is loaded into registers while the current one is multiplied). No
-//     TF32. It reads its operands in the layout the caller already holds (no
-//     transposed copies): each side is "k-contiguous" (element (i, k) at
-//     p[i ld + k]) or not (element (i, k) at p[(k + koff) ld + i]), a
-//     template argument. Elements with k outside [klo, khi) read as 0: the
-//     weight gradient of W_hh reads h_prev from the layer output one step
-//     back in the direction's own time.
+//   gemm_f32_kernel (the simt design's dx and weight and bias gradients
+//     on f32 operands: the K5/K6 fp32 backward's products): exact f32 FMAs
+//     on the CUDA cores, no TF32. A CTA of 128 threads a 128 x 128 tile
+//     (dx: 112 or 128 rows by 16 .. 128 columns), 8 x 16 outputs a thread,
+//     two CTAs an SM; the operands in the layouts they are stored in (dx:
+//     both K-major; the weight gradients: both MN-major) through a 4-deep
+//     cp.async ring of k tiles of 16, each thread's copies set up once a
+//     segment; B's column sums (the bias gradients) beside the weight
+//     gradients in the first row tile's CTAs, by the residue of the row mod
+//     8 as gemm_simt_kernel takes them. What bounds it at the models'
+//     shapes (L N = 21,504 rows, C = 512, G = 768 or 1024 a direction) is
+//     the FMA rate: dx 2 L N C 2G FLOPs (33.8 / 45.1 GFLOP, 0.50 / 0.67 ms
+//     at 67 TFLOP/s), the weight gradients 2 L N 2G (C + H) (50.7 / 67.6
+//     GFLOP, 0.76 / 1.01 ms), each far above its bytes' time (dxg, 132 /
+//     176 MB, is read from device memory or L2: 0.04 / 0.05 ms at 3.35
+//     TB/s); at C = 11 dx is bound by dxg's bytes. Each output is the simt
+//     kernel's chain (below), so every bit stays.
+//   gemm_simt_kernel (the simt design on bf16 operands, the shapes tc
+//     refuses: H = 16; the f32 projection runs proj_f32_kernel and the f32
+//     backward gemm_f32_kernel): exact f32 FMAs on the CUDA cores. Block tile 128 x
+//     128, k tile 8, 8 x 8 outputs a thread, operand tiles in shared memory
+//     (double-buffered; the next tile is loaded into registers while the
+//     current one is multiplied). It reads its operands in the layout the
+//     caller already holds (no transposed copies): each side is
+//     "k-contiguous" (element (i, k) at p[i ld + k]) or not (element (i, k)
+//     at p[(k + koff) ld + i]), a template argument. Elements with k outside
+//     [klo, khi) read as 0: the weight gradient of W_hh reads h_prev from
+//     the layer output one step back in the direction's own time.
 //   wgemm_kernel (the tc design's dx and weight gradients, bf16): Hopper's
 //     own path, as K1's projection (birnn_tc.cu::tc_gemm_kernel) runs it.
 //     TMA loads the operands' tiles into a three-stage ring on mbarriers (one
@@ -55,14 +72,16 @@
 // device memory or L2 and are far above the card's ridge.
 //
 // Determinism: every output element has one owner thread (a warpgroup's
-// accumulator in wgemm_kernel) that sums its k in a fixed order (in both
-// simt kernels one fmaf chain over k ascending from 0.0f: the zeros they
-// pad k with add nothing, so their tile sizes do not move a bit); a long
+// accumulator in wgemm_kernel) that sums its k in a fixed order (in the
+// three simt kernels one fmaf chain over k ascending from 0.0f: the zeros
+// they pad k with add nothing, so their tile sizes do not move a bit); a
+// long
 // contraction is cut into S fixed row slices whose partials gemm_sum_slices
 // adds in slice order. No atomics, so reruns are bit-equal.
 
 #pragma once
 
+#include <atomic>
 #include <type_traits>
 
 #include "mma_tile.cuh"
@@ -515,6 +534,362 @@ __global__ void __launch_bounds__(FP_THREADS, FP_MINB) proj_f32_kernel(const F32
   }
 }
 
+// ---------------------------------------------------------------- exact f32 products
+
+// gemm_f32_kernel: the simt design's backward products on f32 operands, dx
+// and the weight gradients with the bias gradients beside them, in exact
+// f32 FMAs on the CUDA cores (proj_f32_kernel's recipe, for the operand
+// layouts the backward holds). A CTA of GF_THREADS threads, 16 thread rows
+// (ty) by 8 thread columns (tx), owns a tile of BM = 16 RM rows by BN = 8
+// TN columns, a thread RM rows by TN columns (RM = 8, TN = 16: 128 x 128;
+// two CTAs an SM). The operands reach shared memory by cp.async, a
+// GF_STAGES-deep ring of GF_BK-wide k tiles (16-byte copies where the
+// operand's rows allow, else 4-byte ones; zeros for k outside the
+// operand's range and for chunks past the matrix, whose accumulators are
+// never stored), each in the layout it is stored in:
+//   K-major (AK / BK: element (i, k) at p[i ld + k + koff]): an image
+//     [i][k] with a row stride of GF_KST floats, read 4 k of a row at once;
+//     a thread's rows are ty + 16 i (A) and its columns tx + 8 j (B), so
+//     the 8 rows of B that a quarter warp reads fall on distinct banks;
+//   MN-major (element (i, k) at p[(k + koff) ld + i]): an image [k][i],
+//     read 4 consecutive i at once; a thread's rows are 4 ty + i and 64 +
+//     4 ty + i - 4, its columns 32 (j / 4) + 4 tx + j % 4.
+// dx is both K-major (dxg[d]'s rows, W_ih[d] read as (c, g)), the two
+// directions two k segments of one accumulator, BN sized by C (16, 32, 64
+// or 128) and RM = 7 or 8 by the waves its tiles fill (dx_rows: at 1,024
+// rows and C = 512, 768 tiles of 112 rows are 2.91 waves of two CTAs an SM
+// where 672 of 128 would be 2.55, three wave-times either way); the weight
+// gradients are both MN-major (X or out's h_prev columns; dxg or dhg), 128
+// x 128, one row slice of the L N rows a grid z index. A k costs a thread
+// RM + TN operand words for RM TN FMAs (the simt kernel's 8 x 8: 16 for
+// 64). Warps whose rows all lie past M (a layer-0 dW_ih tile: M = C = 11)
+// issue no FMAs, leaving the SM's issue slots to the other CTA.
+#define GF_BM 128
+#define GF_THREADS 128  // 16 thread rows x 8 thread columns
+#define GF_BK 16
+#define GF_STAGES 4
+#define GF_KST (GF_BK + 4)  // row stride of a K-major image, floats
+
+// One operand's share of a stage for this thread, set up once a segment so
+// that a stage costs a pointer step and a compare or two a chunk (index
+// arithmetic in the stage loader costs the FMAs their issue slots). A stage
+// is the image of k [k0, k0 + GF_BK) by i [i0, i0 + W): K-major [i][k] of
+// row stride GF_KST, chunk j rows tid / 4 + 32 j at k (tid % 4) 4; MN-major
+// [k][i] of row stride W, chunk j rows k = tid / (W / 4) + j (128 / (W /
+// 4)) at i (tid % (W / 4)) 4. vec: 16-byte chunks (K-major: ld, koff, klo
+// and khi multiples of 4; MN-major: ld and n_outer multiples of 4; p
+// aligned), zero-filled for k outside [lo, hi) and for chunks past the
+// matrix; else 4-byte copies (gf_stage4).
+struct GfOp {
+  const float* base;  // the operand: a mapped address for the zero fills
+  const float* src;   // chunk 0's source in the next stage to load
+  int kstep, cstep;   // elements from one stage to the next, from chunk j to j + 1
+  int dst, kq;        // chunk 0's byte offset in the image, its k within the stage
+  int lo, hi;         // the k holding data, this slice's
+  unsigned in;        // bit j: chunk j lies inside the matrix
+  int vec;
+};
+
+template <bool KM, int W>
+struct GfShape {
+  static constexpr int CH = KM ? W * (GF_BK / 4) : GF_BK * (W / 4);  // chunks a stage
+  static constexpr int NJ = (CH + GF_THREADS - 1) / GF_THREADS;    // chunks a thread
+  static constexpr int KJ = KM ? 0 : GF_THREADS / (W / 4);         // k from chunk to chunk
+  static constexpr int DSTEP = KM ? 32 * GF_KST * 4 : KJ * W * 4;  // bytes, chunk to chunk
+};
+
+template <bool KM, int W>
+__device__ __forceinline__ GfOp gf_op(const GemmOp& o, int i0, int n_outer, int kb, int ke,
+                                      int tid) {
+  using S = GfShape<KM, W>;
+  GfOp g;
+  g.base = static_cast<const float*>(o.p);
+  g.lo = max(kb, o.klo);
+  g.hi = min(ke, o.khi);
+  g.vec = o.vec;
+  g.in = 0u;
+  if constexpr (KM) {
+    const int r = tid / 4, kq = (tid % 4) * 4;
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j)
+      if (tid + j * GF_THREADS < S::CH && i0 + r + 32 * j < n_outer) g.in |= 1u << j;
+    g.src = g.base + (long long)(i0 + r) * o.ld + o.koff + kb + kq;
+    g.kstep = GF_BK;
+    g.cstep = (int)(32 * o.ld);
+    g.dst = (r * GF_KST + kq) * 4;
+    g.kq = kq;
+  } else {
+    const int kk = tid / (W / 4), iq = (tid % (W / 4)) * 4;
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j)
+      if (tid + j * GF_THREADS < S::CH && i0 + iq < n_outer) g.in |= 1u << j;
+    g.src = g.base + (kb + kk + o.koff) * o.ld + i0 + iq;
+    g.kstep = (int)(GF_BK * o.ld);
+    g.cstep = (int)(S::KJ * o.ld);
+    g.dst = (kk * W + iq) * 4;
+    g.kq = kk;
+  }
+  return g;
+}
+
+// 4-byte copies of a stage where 16-byte ones do not fit the operand's rows
+// (X's rows at C % 4 != 0): rows below n_outer only, zeros for k outside
+// [lo, hi).
+template <bool KM, int W>
+__device__ __forceinline__ void gf_stage4(uint32_t img, const GemmOp& o, const GfOp& g, int i0,
+                                          int n_outer, int k0, int tid) {
+  const int rows = min(W, n_outer - i0);
+  for (int c = tid; c < GF_BK * rows; c += GF_THREADS) {
+    const int kk = KM ? c % GF_BK : c / rows, ii = KM ? c / GF_BK : c % rows, k = k0 + kk;
+    const bool ok = k >= g.lo && k < g.hi;
+    const float* src = KM ? g.base + (long long)(i0 + ii) * o.ld + k + o.koff
+                          : g.base + (k + o.koff) * o.ld + i0 + ii;
+    cp_async_4(img + (KM ? ii * GF_KST + kk : kk * W + ii) * 4, ok ? src : g.base, ok);
+  }
+}
+
+// This thread's copies of the stage at k0 into the image img; steps g to the
+// next stage. V: the operand is vec in every job of the launch (else each
+// job's flag decides).
+template <bool KM, int W, bool V>
+__device__ __forceinline__ void gf_stage(uint32_t img, const GemmOp& o, GfOp& g, int i0,
+                                         int n_outer, int k0, int tid) {
+  using S = GfShape<KM, W>;
+  if (V || g.vec) {
+#pragma unroll
+    for (int j = 0; j < S::NJ; ++j) {
+      if (S::CH % GF_THREADS != 0 && tid + j * GF_THREADS >= S::CH) break;
+      const int k = k0 + g.kq + j * S::KJ;
+      const bool ok = ((g.in >> j) & 1u) && k >= g.lo && k < g.hi;
+      cp_async_16(img + g.dst + j * S::DSTEP, ok ? g.src + j * g.cstep : g.base, ok);
+    }
+    g.src += g.kstep;
+  } else {
+    gf_stage4<KM, W>(img, o, g, i0, n_outer, k0, tid);
+  }
+}
+
+// Row i of thread row ty in its CTA's tile: ty + 16 i (i < RM) where A is
+// K-major, else 4 ty + i and 64 + 4 ty + i - 4 (i < 8).
+template <bool AK>
+__device__ __forceinline__ int gf_row(int ty, int i) {
+  if (AK) return ty + 16 * i;
+  return i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
+}
+
+template <bool AK, bool BK, int TN, int RM>
+static size_t gf_smem() {
+  return (size_t)GF_STAGES *
+         ((AK ? 16 * RM * GF_KST : GF_BK * GF_BM) + (BK ? 8 * TN * GF_KST : GF_BK * 8 * TN)) * 4;
+}
+
+// One k tile's FMAs: acc[i][j] += A(row i, k) B(k, column j) for k = 0 ..
+// GF_BK - 1 ascending, one fmaf each, in the images as and bs.
+template <bool AK, bool BK, int TN, int RM>
+__device__ __forceinline__ void gf_tile(const float* as, const float* bs, int tx, int ty,
+                                        float (&acc)[RM][TN]) {
+  constexpr int BN = 8 * TN;
+  if constexpr (AK && BK) {
+#pragma unroll
+    for (int kq = 0; kq < GF_BK; kq += 4) {
+      float a[RM][4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(as + gf_row<true>(ty, i) * GF_KST + kq);
+        a[i][0] = v.x;
+        a[i][1] = v.y;
+        a[i][2] = v.z;
+        a[i][3] = v.w;
+      }
+      float b[TN][4];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + (tx + 8 * j) * GF_KST + kq);
+        b[j][0] = v.x;
+        b[j][1] = v.y;
+        b[j][2] = v.z;
+        b[j][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);
+    }
+  } else {
+    static_assert(!AK && !BK && TN == 16 && RM == 8, "dx, or the weight gradients' 128 x 128");
+    // k + 1's operands load while k's FMAs run
+    float bb[2][16], aa[2][8];
+    auto load = [&](int k, float (&a)[8], float (&b)[16]) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + k * BN + q * 32 + tx * 4);
+        b[4 * q] = v.x;
+        b[4 * q + 1] = v.y;
+        b[4 * q + 2] = v.z;
+        b[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(as + k * GF_BM + 64 * h + ty * 4);
+        a[4 * h] = v.x;
+        a[4 * h + 1] = v.y;
+        a[4 * h + 2] = v.z;
+        a[4 * h + 3] = v.w;
+      }
+    };
+    load(0, aa[0], bb[0]);
+#pragma unroll
+    for (int k = 0; k < GF_BK; ++k) {
+      if (k + 1 < GF_BK) load(k + 1, aa[(k + 1) & 1], bb[(k + 1) & 1]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(aa[k & 1][i], bb[k & 1][j], acc[i][j]);
+    }
+  }
+}
+
+// c (+ the slice's offset) = sum over the job's segments of A_seg B_seg (+
+// bias), each element one thread's fmaf chain from 0.0f over the
+// segments' k ascending (the slice's rows for the weight gradients; the
+// zeros past an operand's range add nothing), then + the bias as gm_bias
+// gives it (0.0f without one), as gemm_simt_kernel adds it. With a colsum
+// (B MN-major), the CTAs of the first row tile also sum B's columns over
+// segment 0's rows as gemm_simt_kernel does: eight plain partials a column
+// from 0.0f, the rows whose index is r (mod 8) ascending in partial r, then
+// added for r = 0 .. 7 from 0.0f.
+template <bool AK, bool BK, int TN, int RM, bool AV>
+__global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(const GemmParams p) {
+  constexpr int BN = 8 * TN, BM = 16 * RM;
+  // the weight gradients sum B's columns; dx's two segments share their
+  // operands' layout, so the second is the first's pointers moved
+  constexpr bool CS = !AK && !BK, SEG2 = AK && BK;
+  constexpr int A_IMG = AK ? BM * GF_KST : GF_BK * BM;  // floats a stage
+  constexpr int B_IMG = BK ? BN * GF_KST : GF_BK * BN;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* Bs = smem + GF_STAGES * A_IMG;
+  const int ji = blockIdx.z / p.S, slice = blockIdx.z % p.S;
+  const GemmJob& jb = p.job[ji];
+  const int M = jb.M, N = jb.N;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  if (m0 >= M || n0 >= N) return;  // block-uniform, before any barrier
+  const int kb = slice * p.Ks, ke = min(p.K, kb + p.Ks);
+  const int KT = ke > kb ? (ke - kb + GF_BK - 1) / GF_BK : 0;  // k tiles a segment
+  const int NT = KT * jb.nseg;
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  // this warp's first row (4 ty or ty + 16 i) lies inside the matrix
+  const bool live = m0 + gf_row<AK>(tid / 32 * 4, 0) < M;
+  const bool do_cs = CS && jb.colsum != nullptr && blockIdx.y == 0;
+  const uint32_t as0 = smem_u32(As), bs0 = smem_u32(Bs);
+
+  // the next stage to load: its k tile in its segment
+  int lkt = 0;
+  GfOp ga = gf_op<AK, BM>(jb.a[0], m0, M, kb, ke, tid);
+  GfOp gb = gf_op<BK, BN>(jb.b[0], n0, N, kb, ke, tid);
+  // dx: from the end of segment 0 to the start of segment 1, in elements
+  long long a_jump = 0, b_jump = 0;
+  if constexpr (SEG2) {
+    a_jump = static_cast<const float*>(jb.a[1].p) - ga.base - (long long)KT * ga.kstep;
+    b_jump = static_cast<const float*>(jb.b[1].p) - gb.base - (long long)KT * gb.kstep;
+  }
+  auto load_stage = [&](int slot) {
+    if (SEG2 && lkt == KT) {  // dx: direction 1's segment
+      lkt = 0;
+      ga.src += a_jump;
+      gb.src += b_jump;
+    }
+    const int k0 = kb + lkt * GF_BK;
+    gf_stage<AK, BM, AV>(as0 + slot * A_IMG * 4, jb.a[0], ga, m0, M, k0, tid);
+    gf_stage<BK, BN, true>(bs0 + slot * B_IMG * 4, jb.b[0], gb, n0, N, k0, tid);
+    ++lkt;
+  };
+
+  float acc[RM][TN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float cs[CS ? 8 : 1];  // column tid's partials by row residue (do_cs)
+#pragma unroll
+  for (int r = 0; r < (CS ? 8 : 1); ++r) cs[r] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < GF_STAGES - 1; ++st) {
+    if (st < NT) load_stage(st);
+    cp_async_commit();
+  }
+  for (int t = 0; t < NT; ++t) {
+    cp_async_wait<GF_STAGES - 2>();
+    __syncthreads();  // tile t is here; every thread is done with tile t - 1's slot
+    if (t + GF_STAGES - 1 < NT) load_stage((t + GF_STAGES - 1) % GF_STAGES);
+    cp_async_commit();
+    const float* as = As + (t % GF_STAGES) * A_IMG;
+    const float* bs = Bs + (t % GF_STAGES) * B_IMG;
+    if constexpr (CS) {
+      if (do_cs) {  // rows kb + 16 t + kk, residue kk % 8
+#pragma unroll
+        for (int kk = 0; kk < GF_BK; ++kk) cs[kk % 8] += bs[kk * BN + tid];
+      }
+    }
+    if (live) gf_tile<AK, BK, TN, RM>(as, bs, tx, ty, acc);
+  }
+  cp_async_wait<0>();
+
+  const size_t so = (size_t)slice * p.slice_stride;
+  float* const c = jb.c + so;
+  if (live) {
+    if constexpr (BK) {
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tx + 8 * j;
+        if (n >= N) continue;
+        const float bias = gm_bias(jb, n);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const int m = m0 + gf_row<true>(ty, i);
+          if (m < M) c[(size_t)m * jb.ldc + n] = acc[i][j] + bias;
+        }
+      }
+    } else {
+      const bool vec_c = jb.ldc % 4 == 0 && (uintptr_t)c % 16 == 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = n0 + q * 32 + tx * 4;  // this thread's 4 columns
+        if (n >= N) continue;
+        float bias[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bias[e] = n + e < N ? gm_bias(jb, n + e) : 0.0f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int m = m0 + gf_row<AK>(ty, i);
+          if (m >= M) continue;
+          float* cp = c + (size_t)m * jb.ldc + n;
+          const float* v = &acc[i][4 * q];
+          if (vec_c && n + 3 < N) {
+            *reinterpret_cast<float4*>(cp) =
+                make_float4(v[0] + bias[0], v[1] + bias[1], v[2] + bias[2], v[3] + bias[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (n + e < N) cp[e] = v[e] + bias[e];
+          }
+        }
+      }
+    }
+  }
+  if constexpr (CS) {
+    if (do_cs && n0 + tid < N) {
+      float s = 0.0f;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) s += cs[r];
+      jb.colsum[so + n0 + tid] = s;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- wgmma
 
 #define WG_BM 128       // rows of a tile: two consumer warpgroups of 64
@@ -789,6 +1164,63 @@ static int proj_f32_run(const float* x, const float* wih, const float* bih, cons
   return (int)cudaGetLastError();
 }
 
+// One launch of gemm_f32_kernel<AK, BK, TN, RM, AV> over the jobs of p.
+// Grid: (N tiles, M tiles, jobs x S).
+template <bool AK, bool BK, int TN, int RM, bool AV>
+static int gf_launch(const GemmParams& p, int njobs, int Mmax, int Nmax, cudaStream_t s) {
+  const size_t smem = gf_smem<AK, BK, TN, RM>();
+  // the shared-memory limit, set once a device (bit d: set on device d): at
+  // the aggregate trainer's shapes the host's time is the call's
+  static std::atomic<unsigned long long> smem_set{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ULL << dev : 0ULL;
+  if ((smem_set.load() & bit) == 0) {
+    e = cudaFuncSetAttribute(gemm_f32_kernel<AK, BK, TN, RM, AV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set.fetch_or(bit);
+  }
+  const dim3 grid((Nmax + 8 * TN - 1) / (8 * TN), (Mmax + 16 * RM - 1) / (16 * RM),
+                  njobs * p.S);
+  gemm_f32_kernel<AK, BK, TN, RM, AV><<<grid, GF_THREADS, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The instantiation for the jobs' operands: AV where every job's A takes
+// 16-byte copies (B always does: dxg, dhg and W_ih have rows of 4 floats a
+// multiple, 16-byte aligned as the wrappers check).
+template <bool AK, bool BK, int TN, int RM = 8>
+static int gf_run(const GemmParams& p, int njobs, int Mmax, int Nmax, cudaStream_t s) {
+  bool av = true;
+  for (int j = 0; j < njobs; ++j) {
+    for (int g = 0; g < p.job[j].nseg; ++g) {
+      av = av && p.job[j].a[g].vec;
+      if (!p.job[j].b[g].vec) return (int)cudaErrorInvalidValue;
+    }
+  }
+  if constexpr (AK && BK) {  // dx (rnn_dx): two segments of one layout, 16-byte copies
+    if (!av) return (int)cudaErrorInvalidValue;
+    return gf_launch<AK, BK, TN, RM, true>(p, njobs, Mmax, Nmax, s);
+  } else {
+    return av ? gf_launch<AK, BK, TN, RM, true>(p, njobs, Mmax, Nmax, s)
+              : gf_launch<AK, BK, TN, RM, false>(p, njobs, Mmax, Nmax, s);
+  }
+}
+
+// An f32 operand of gemm_f32_kernel: element (i, k) at p[i ld + k + koff]
+// (kmajor) or p[(k + koff) ld + i], k in [klo, khi) holding data, i below
+// outer; vec where every 16-byte copy of 4 elements along the stored rows
+// is aligned and lies inside them.
+static GemmOp f32_op(const float* p, long long ld, long long koff, int klo, int khi, bool kmajor,
+                     int outer) {
+  GemmOp o = gemm_op<float>(p, ld, koff, klo, khi);
+  o.vec = ld % 4 == 0 && (uintptr_t)p % 16 == 0 &&
+          (kmajor ? koff % 4 == 0 && klo % 4 == 0 && khi % 4 == 0 : outer % 4 == 0);
+  return o;
+}
+
 // The input projection of both directions: xg[d] (M, G) f32 = x (M, C)
 // W_ih[d] (C, G) + b_ih[d] + the first nfold columns of b_hh[d] (the GRU
 // keeps b_hn, its last H, inside the reset product; the LSTM folds all G).
@@ -820,17 +1252,52 @@ static int rnn_proj(const void* x, const void* wih, const float* bih, const floa
   return gemm_run<T, true, T, false, T>(gp, 2, M, G, s);
 }
 
+// dx's column tile in gemm_f32_kernel: the least of 16, 32, 64 and 128
+// columns that holds C (128 above).
+static int dx_cols(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128; }
+
+// dx's rows a thread in gemm_f32_kernel, 8 or 7 (tiles of 128 or 112 rows):
+// the one whose tiles take the fewest wave-times, a wave-time being a
+// tile's rows and a wave two CTAs on each SM (8 on a tie). At 1,024 rows
+// and C = 512: 672 tiles of 128 rows are 2.55 waves, 3 x 8 = 24; 768 of
+// 112 are 2.91, 3 x 7 = 21.
+static int dx_rows(int M, int C) {
+  static std::atomic<int> sm_count[64];  // each device's SMs, once read
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev < 64) {
+    sms = sm_count[dev].load();
+    if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+                        cudaSuccess)
+      sm_count[dev].store(sms);
+    if (sms <= 0) sms = 132;
+  }
+  const long long slots = 2LL * sms, nt = (C + dx_cols(C) - 1) / dx_cols(C);
+  auto cost = [&](int rm) {
+    const long long tiles = nt * ((M + 16 * rm - 1) / (16 * rm));
+    return (tiles + slots - 1) / slots * rm;
+  };
+  return cost(7) < cost(8) ? 7 : 8;
+}
+
 // The input gradient, simt: dx (M, C) f32 = sum_d op(dxg[d]) (M, G)
 // W_ih[d]^T, dxg f32, W_ih read in its own (C, G) layout.
 template <typename T>
 static int rnn_dx(const float* dxg, const void* wih, float* dx, int M, int C, int G,
                   cudaStream_t s) {
+  constexpr bool f32 = std::is_same<T, float>::value;
   GemmParams gp = {};
   GemmJob& jb = gp.job[0];
   for (int d = 0; d < 2; ++d) {
-    jb.a[d] = gemm_op<float>(dxg + (size_t)d * M * G, G, 0, 0, G);
+    const float* a = dxg + (size_t)d * M * G;
     // W_ih[d] (C, G) read as (k, n) -> p[n G + k]: W_ih^T without a copy
-    jb.b[d] = gemm_op<T>(static_cast<const T*>(wih) + (size_t)d * C * G, G, 0, 0, G);
+    const T* w = static_cast<const T*>(wih) + (size_t)d * C * G;
+    if constexpr (f32) {
+      jb.a[d] = f32_op(a, G, 0, 0, G, true, M);
+      jb.b[d] = f32_op(w, G, 0, 0, G, true, C);
+    } else {
+      jb.a[d] = gemm_op<float>(a, G, 0, 0, G);
+      jb.b[d] = gemm_op<T>(w, G, 0, 0, G);
+    }
   }
   jb.nseg = 2;
   jb.M = M;
@@ -844,7 +1311,21 @@ static int rnn_dx(const float* dxg, const void* wih, float* dx, int M, int C, in
   gp.S = 1;
   gp.Ks = G;
   gp.slice_stride = 0;
-  return gemm_run<float, true, T, true, T>(gp, 1, M, C, s);
+  if constexpr (f32) {
+    const int BN = dx_cols(C);
+    if (dx_rows(M, C) == 8) {
+      if (BN == 16) return gf_run<true, true, 2, 8>(gp, 1, M, C, s);
+      if (BN == 32) return gf_run<true, true, 4, 8>(gp, 1, M, C, s);
+      if (BN == 64) return gf_run<true, true, 8, 8>(gp, 1, M, C, s);
+      return gf_run<true, true, 16, 8>(gp, 1, M, C, s);
+    }
+    if (BN == 16) return gf_run<true, true, 2, 7>(gp, 1, M, C, s);
+    if (BN == 32) return gf_run<true, true, 4, 7>(gp, 1, M, C, s);
+    if (BN == 64) return gf_run<true, true, 8, 7>(gp, 1, M, C, s);
+    return gf_run<true, true, 16, 7>(gp, 1, M, C, s);
+  } else {
+    return gemm_run<float, true, T, true, T>(gp, 1, M, C, s);
+  }
 }
 
 // The weight and bias gradients, simt, over the L N rows in S fixed row
@@ -859,11 +1340,20 @@ static int rnn_wgrad(const void* x, const void* out, const float* dxg, const flo
   const int LN = L * N;
   const bool one = dhg == dxg;
   const long long o_whh = 2LL * C * G, o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  // an MN-major operand: the f32 kernel's, or the simt kernel's
+  auto op = [&](const void* p, long long ld, long long koff, int klo, int khi, int outer,
+                bool gate) {
+    if constexpr (f32)
+      return f32_op(static_cast<const float*>(p), ld, koff, klo, khi, false, outer);
+    else
+      return gate ? gemm_op<float>(p, ld, koff, klo, khi) : gemm_op<T>(p, ld, koff, klo, khi);
+  };
   GemmParams gp = {};
   for (int d = 0; d < 2; ++d) {
     GemmJob& ih = gp.job[d];
-    ih.a[0] = gemm_op<T>(x, C, 0, 0, LN);  // X^T: (m = c, k = row) at x[k C + m]
-    ih.b[0] = gemm_op<float>(dxg + (size_t)d * LN * G, G, 0, 0, LN);
+    ih.a[0] = op(x, C, 0, 0, LN, C, false);  // X^T: (m = c, k = row) at x[k C + m]
+    ih.b[0] = op(dxg + (size_t)d * LN * G, G, 0, 0, LN, G, true);
     ih.nseg = 1;
     ih.M = C;
     ih.N = G;
@@ -874,9 +1364,9 @@ static int rnn_wgrad(const void* x, const void* out, const float* dxg, const flo
     ih.colsum = part + o_bih + d * G;
     GemmJob& hh = gp.job[2 + d];
     // h_prev of row k = t N + row: out[t - 1] (forward half) or out[t + 1]
-    hh.a[0] = gemm_op<T>(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N,
-                         d == 0 ? N : 0, d == 0 ? LN : LN - N);
-    hh.b[0] = gemm_op<float>(dhg + (size_t)d * LN * G, G, 0, 0, LN);
+    hh.a[0] = op(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N, d == 0 ? N : 0,
+                 d == 0 ? LN : LN - N, H, false);
+    hh.b[0] = op(dhg + (size_t)d * LN * G, G, 0, 0, LN, G, true);
     hh.nseg = 1;
     hh.M = H;
     hh.N = G;
@@ -890,7 +1380,10 @@ static int rnn_wgrad(const void* x, const void* out, const float* dxg, const flo
   gp.S = S;
   gp.Ks = slice_rows(LN, S, SLICE_K);
   gp.slice_stride = one ? o_bhh : o_bhh + 2LL * G;
-  return gemm_run<T, false, float, false, T>(gp, 4, C > H ? C : H, G, s);
+  if constexpr (f32)
+    return gf_run<false, false, 16>(gp, 4, C > H ? C : H, G, s);
+  else
+    return gemm_run<T, false, float, false, T>(gp, 4, C > H ? C : H, G, s);
 }
 
 // The input gradient, tc, on wgmma: dx (M, C) f32 = sum_d dxg[d] (M, G)

@@ -150,12 +150,12 @@ other pair), the profile phase's fp32 training step of attbigru2s and
 attbilstm2s (host and device ms) and K6's bf16 backward at C = 11 phase by
 phase; the last line gives each key's median and quartiles per tree.
 
-    python3 chip_smoke.py --ab-fwd PARENT_TREE [TREE ...]
+    python3 chip_smoke.py --ab-small PARENT_TREE [TREE ...]
 
-times K4's and K6's fp32 forward at 512 rows (C = 11, 28, 512) and at the
-aggregate trainer's shape (there also the recurrence alone) in 10 rounds of
-turns as ``--ab-step`` runs them, over the parent, any other checkouts
-given and this one.
+times K4's to K6's fp32 forward and backward at 512 rows (C = 11, 28, 512)
+and at the aggregate trainer's shape (there also the forward recurrence
+alone) in 10 rounds of turns as ``--ab-step`` runs them, over the parent,
+any other checkouts given and this one.
 
     python3 chip_smoke.py --only determinism,train1s,...
 
@@ -1414,8 +1414,9 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
     holds at once, ``clusters`` = {"fwd": n, "bwd": n} from
     ``bigru_vjp.fwd_rec_occupancy`` / ``bwd_rec_occupancy``, in tiles a
     direction); medians of CUDA-event timings. The backward's
-    products' TFLOP/s beside torch.mm's on the same products in the same
-    operand type (a yardstick only). Returns (forward phases, backward
+    products' kernel, TFLOP/s beside torch.mm's on the same products in
+    the same operand type with both TF32 switches off (a yardstick only),
+    tiles and waves. Returns (forward phases, backward
     phases, products), named k4_* / k5_* (cell 'gru') or k6_* ('lstm')."""
     from ccsmeth_tpu_torch.ops import bigru_vjp as V
     from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
@@ -1495,11 +1496,31 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
     flops_dx = 2 * LN * cin * 2 * G
     flops_wgrad = 2 * LN * 2 * G * (cin + Hh)
     wgrad_ms = bwd_ms[k + "_wgrad"]
-    products = {"dx_tflops": flops_dx / bwd_ms[k + "_dx"] / 1e9,
+    # each product's tiles in waves of two CTAs an SM (every product
+    # kernel's residency): dx's tile by C (16 .. 128 columns; the bf16 simt
+    # kernel always 128) and, in gemm_f32_kernel, 128 or 112 rows by the
+    # waves (``simt_dx_tile``), the weight gradients' 128 x 128 tiles of
+    # every slice
+    kernel = ("wgemm_kernel" if plan["design"] == "tc" else
+              "gemm_f32_kernel" if dt == torch.float32 else "gemm_simt_kernel")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bm, bn = (V.simt_dx_tile(LN, cin, n_sm) if kernel == "gemm_f32_kernel" else
+              (128, 128 if kernel == "gemm_simt_kernel" else
+               next(b for b in (16, 32, 64, 128) if cin <= b or b == 128)))
+    S = V.k5_wgrad_slices(LN, cin, Hh, n_sm, plan["gates"])
+    dx_tiles = -(-cin // bn) * -(-LN // bm)
+    wg_tiles = S * 2 * -(-G // 128) * (-(-cin // 128) + -(-Hh // 128))
+    slots = V.WGRAD_CTAS_PER_SM * n_sm
+    products = {"kernel": kernel,
+                "dx_tflops": flops_dx / bwd_ms[k + "_dx"] / 1e9,
                 "dx_torch_mm_tflops": flops_dx / mm_dx / 1e9,
+                "dx_tile": [bm, bn], "dx_tiles": dx_tiles, "dx_waves": dx_tiles / slots,
                 "wgrad_tflops": flops_wgrad / wgrad_ms / 1e9,
                 "wgrad_torch_mm_tflops": flops_wgrad / mm_wgrad / 1e9,
-                "torch_mm_dtype": str(dt).split(".")[-1]}
+                "wgrad_slices": S, "wgrad_tiles": wg_tiles, "wgrad_waves": wg_tiles / slots,
+                "torch_mm_dtype": str(dt).split(".")[-1],
+                "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32]}
     return fwd_ms, bwd_ms, products
 
 
@@ -3330,13 +3351,16 @@ def _zero_k45_designs():
         bigru_vjp.gemm_calls[k] = 0
 
 
-def phase_profile(torch, smi, cell, steps=5):
+def phase_profile(torch, smi, cell, steps=5, check_kernels=True):
     """Where a full-width training step's time goes: torch.profiler over
     ``steps`` steps (attbigru2s or attbilstm2s 3x256, batch 512, fp32,
     dropout 0.5, Adam)
     after two warm-up steps; device time per kernel name, the device's busy
-    time against the host clock, and the step time. Launches here are not
-    the train path's and are read nowhere."""
+    time against the host clock, and the step time; the trace names the
+    backward's exact-f32 product kernel (``gemm_f32_kernel``) and
+    ``gemm_simt_kernel`` for none (``check_kernels``: off in
+    ``--ab-step``'s turns, whose parent tree has other kernels). Launches
+    here are not the train path's and are read nowhere."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -3369,10 +3393,18 @@ def phase_profile(torch, smi, cell, steps=5):
             rows.append((dev_us / steps / 1e3, e.count / steps, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    # the fp32 step's backward products (K5/K6's dx and weight gradients, 2
+    # a layer) run gemm_f32_kernel, none gemm_simt_kernel (the counts a step
+    # are the trace's, which may miss an event of the window)
+    products = {name: sum(n for _ms, n, k in rows if name in k)
+                for name in ("gemm_f32_kernel", "gemm_simt_kernel")}
+    assert not (check_kernels and rows) or (
+        products["gemm_f32_kernel"] > 0 and products["gemm_simt_kernel"] == 0), products
     res = {"phase": "profile",
            "what": "train step, {} 3x256, batch 512, fp32".format(MODELS[cell]),
            "steps": steps, "step_ms_host": wall_ms, "device_ms_per_step": device_ms,
            "device_idle_share": (1.0 - device_ms / wall_ms) if device_ms else None,
+           "product_kernels_per_step": products,
            "top": [{"kernel": k[:90], "ms_per_step": ms, "calls_per_step": n}
                    for ms, n, k in rows[:12]], "card": smi}
     if not rows:
@@ -4323,9 +4355,9 @@ def _time_tree(tree):
     """One turn of ``--ab``: K1 and K2 (both cells) and K3 of the checkout at
     ``tree`` at the kernel phase's shapes and inputs, and K4, K5 and K6
     (forward and backward) at the train-kernel phase's (1024 rows, C = 11
-    and 512, and 28 in fp32), fp32 and bf16, and K4's and K6's fp32
-    forwards at 512 rows (C = 11, 28, 512) and at the aggregate trainer's
-    shape, through the tree's own wrappers; medians of CUDA-event timings,
+    and 512, and 28 in fp32), fp32 and bf16, and K4's to K6's fp32
+    forwards and backwards at 512 rows (C = 11, 28, 512) and at the
+    aggregate trainer's shape, through the tree's own wrappers; medians of CUDA-event timings,
     one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
@@ -4410,8 +4442,9 @@ def _time_tree(tree):
                         lambda: fwd(x, wih, bih, whh, bhh, dt), torch, AB_REPS)
                     res["ms"]["{} C={} {}".format(kb, cin, dname)] = time_ms(
                         lambda: bwd(*args), torch, AB_REPS)
-            # the fp32 forwards at the 1s families' 512 rows (C = 11, 28,
-            # 512) and at the aggregate trainer's shape (H 32, C 21, L 11)
+            # the fp32 forwards and backwards at the 1s families' 512 rows
+            # (C = 11, 28, 512) and at the aggregate trainer's shape (H 32,
+            # C 21, L 11)
             for cin, hidden, seq_len, tag in ((C, H, L, "rows=512 C={}".format(C)),
                                               (C2S2, H, L, "rows=512 C={}".format(C2S2)),
                                               (2 * H, H, L, "rows=512 C={}".format(2 * H)),
@@ -4419,9 +4452,15 @@ def _time_tree(tree):
                 rng = np.random.RandomState(SEED + cin)
                 ld = init_rnn_params(rng, cin, hidden, 1, cell)[0]
                 x = torch.from_numpy(rng.randn(seq_len, 512, cin).astype(np.float32)).cuda()
+                dout = torch.from_numpy(rng.randn(seq_len, 512, 2 * hidden).astype(
+                    np.float32)).cuda()
                 wih, bih, whh, bhh = layer_weights(ld, torch.float32, "cuda")
                 res["ms"]["{} {} float32".format(kf, tag)] = time_ms(
                     lambda: fwd(x, wih, bih, whh, bhh, torch.float32), torch, AB_REPS)
+                args = (dout, x, wih, whh) + tuple(fwd(x, wih, bih, whh, bhh, torch.float32)) \
+                    + (torch.float32,)
+                res["ms"]["{} {} float32".format(kb, tag)] = time_ms(
+                    lambda: bwd(*args), torch, AB_REPS)
     emit(res)
 
 
@@ -4452,7 +4491,7 @@ def main_ab(parent):
           "parent": os.path.abspath(parent), "card": smi, "ms": summary})
 
 
-# --ab-step and --ab-fwd: rounds of turns, one process a turn, each round
+# --ab-step and --ab-small: rounds of turns, one process a turn, each round
 # every tree once, the order reversed every other round
 AB_STEP_PAIRS = 10
 
@@ -4478,7 +4517,7 @@ def _step_tree(tree):
     res = {"phase": "ab_step_turn", "tree": os.path.abspath(tree),
            "package": os.path.dirname(os.path.dirname(V.__file__)), "ms": {}}
     for cell in MODELS:
-        prof = phase_profile(torch, "", cell)
+        prof = phase_profile(torch, "", cell, check_kernels=False)
         res["ms"]["{} step host".format(MODELS[cell])] = prof["step_ms_host"]
         res["ms"]["{} step device".format(MODELS[cell])] = prof["device_ms_per_step"]
     dt = torch.bfloat16
@@ -4502,14 +4541,14 @@ def _step_tree(tree):
     emit(res)
 
 
-def _fwd_tree(tree):
-    """One turn of ``--ab-fwd``: through the package of the checkout at
-    ``tree``, K4's and K6's fp32 forward as a caller runs it (two launches)
-    at the 1s families' 512 rows (C = 11, 28, 512; H 256, L 21) and at the
-    aggregate trainer's shape (H 32, C 21, L 11, 512 rows, a cluster of one
-    CTA), and at that shape the recurrence alone, 10 launches back to back
-    a timing (the device's time, not the host's), ms a launch; medians of
-    CUDA-event timings, one JSON line."""
+def _small_tree(tree):
+    """One turn of ``--ab-small``: through the package of the checkout at
+    ``tree``, K4's and K6's fp32 forward and K5's and K6's fp32 backward as
+    a caller runs them at the 1s families' 512 rows (C = 11, 28, 512; H 256,
+    L 21) and at the aggregate trainer's shape (H 32, C 21, L 11, 512 rows,
+    a cluster of one CTA), and at that shape the forward recurrence alone,
+    10 launches back to back a timing (the device's time, not the host's),
+    ms a launch; medians of CUDA-event timings, one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -4519,12 +4558,12 @@ def _fwd_tree(tree):
     from ccsmeth_tpu_torch.ops import bilstm_vjp as V6
 
     f32 = torch.float32
-    res = {"phase": "ab_fwd_turn", "tree": os.path.abspath(tree),
+    res = {"phase": "ab_small_turn", "tree": os.path.abspath(tree),
            "package": os.path.dirname(os.path.dirname(V.__file__)), "ms": {}}
-    cells = {"gru": ("k4", V.bigru_layer_train_fwd),
-             "lstm": ("k6f", V6.bilstm_layer_train_fwd)}
+    cells = {"gru": ("k4", "k5", V.bigru_layer_train_fwd, V.bigru_layer_bwd),
+             "lstm": ("k6f", "k6b", V6.bilstm_layer_train_fwd, V6.bilstm_layer_bwd)}
     with torch.inference_mode():
-        for cell, (kf, fwd) in cells.items():
+        for cell, (kf, kb, fwd, bwd) in cells.items():
             for cin, hidden, seq_len, tag in ((C, H, L, "rows=512 C={}".format(C)),
                                               (C2S2, H, L, "rows=512 C={}".format(C2S2)),
                                               (2 * H, H, L, "rows=512 C={}".format(2 * H)),
@@ -4532,9 +4571,14 @@ def _fwd_tree(tree):
                 rng = np.random.RandomState(SEED + cin)  # the --ab turn's inputs
                 ld = init_rnn_params(rng, cin, hidden, 1, cell)[0]
                 x = torch.from_numpy(rng.randn(seq_len, 512, cin).astype(np.float32)).cuda()
+                dout = torch.from_numpy(rng.randn(seq_len, 512, 2 * hidden).astype(
+                    np.float32)).cuda()
                 wih, bih, whh, bhh = layer_weights(ld, f32, "cuda")
                 res["ms"]["{} {} float32".format(kf, tag)] = time_ms(
                     lambda: fwd(x, wih, bih, whh, bhh, f32), torch, AB_REPS)
+                args = (dout, x, wih, whh) + tuple(fwd(x, wih, bih, whh, bhh, f32)) + (f32,)
+                res["ms"]["{} {} float32".format(kb, tag)] = time_ms(
+                    lambda: bwd(*args), torch, AB_REPS)
             # the recurrence at the last shape's inputs: the aggregate's
             plan = V.k45_plan(hidden, f32, cell)
             xg = V.k4_projection(x, wih, bih, bhh, plan, f32)
@@ -4656,10 +4700,10 @@ def main():
         return _step_tree(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--ab-step":
         return _ab_rounds("--step-tree", "ab_step", sys.argv[2])
-    if len(sys.argv) == 3 and sys.argv[1] == "--fwd-tree":
-        return _fwd_tree(sys.argv[2])
-    if len(sys.argv) >= 3 and sys.argv[1] == "--ab-fwd":
-        return _ab_rounds("--fwd-tree", "ab_fwd", sys.argv[2], sys.argv[3:])
+    if len(sys.argv) == 3 and sys.argv[1] == "--small-tree":
+        return _small_tree(sys.argv[2])
+    if len(sys.argv) >= 3 and sys.argv[1] == "--ab-small":
+        return _ab_rounds("--small-tree", "ab_small", sys.argv[2], sys.argv[3:])
     if len(sys.argv) == 5 and sys.argv[1] == "--train-digest":
         return _train_digest(*sys.argv[2:])
     if len(sys.argv) == 3 and sys.argv[1] == "--only":
@@ -4668,7 +4712,7 @@ def main():
         return _dist_rank(int(sys.argv[2]), sys.argv[3], [int(p) for p in sys.argv[4:]])
     if len(sys.argv) != 1:
         sys.exit("usage: chip_smoke.py [--ab PARENT_TREE | --ab-step PARENT_TREE | "
-                 "--ab-fwd PARENT_TREE [TREE ...] | --only PHASE,...]")
+                 "--ab-small PARENT_TREE [TREE ...] | --only PHASE,...]")
     if not os.path.isdir(os.path.join(REPO, "ccsmeth_tpu_torch")):
         sys.exit("chip_smoke.py: the ccsmeth_tpu_torch package is not beside "
                  "this script; run it from a checkout of the repository")
@@ -4845,6 +4889,9 @@ def main():
                 "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
                 "fwd_recurrence": mc.get("fwd_recurrence"),
                 "bwd_recurrence": mc.get("bwd_recurrence"),
+                # the backward's dx and weight-gradient products: their
+                # kernel, TFLOP/s beside torch.mm's, tiles and waves
+                "products": mc.get("products"),
                 "cell": "{} rows={} C={} {}".format(MODELS[cell], mc["rows"], mc["C"], dname),
                 "cells": [{k: c[k] for k in ("rows", "C", "dtype", "cuda_launches_per_call",
                                              "kernel_ms", "plain_ms", "library_ms",

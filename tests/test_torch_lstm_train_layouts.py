@@ -19,7 +19,8 @@ import torch
 from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
 from ccsmeth_tpu_torch.ops import bigru_vjp, bilstm_vjp
 from ccsmeth_tpu_torch.ops.kernel_args import SMEM_LIMIT
-from tests.test_torch_train_layouts import (check_wgmma_products, simt_bwd_step, simt_fwd_layer,
+from tests.test_torch_train_layouts import (check_f32_products, check_wgmma_products, gf_dx_tn,
+                                            gf_owners, simt_bwd_step, simt_fwd_layer,
                                             simt_fwd_maps, stage_fwd, sum_tol, tile_bias_sums,
                                             wgrad_residency)
 
@@ -308,12 +309,13 @@ def test_k6_simt_staged_backward_equals_the_jax_layer(hidden):
 
 @pytest.mark.parametrize("cin,kernel,slices", [
     (512, "gemm_simt_kernel", 11), (11, "gemm_simt_kernel", 11),
-    (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 11)])
+    (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 11),
+    (512, "gemm_f32_kernel", 11), (11, "gemm_f32_kernel", 11)])
 def test_k6_wgrad_slices_at_four_gates(cin, kernel, slices):
     """1024 rows, H = 256, 132 SMs, G = 4H = 1024 columns: 2 x 8 x (C/128 + 2)
     tiles of 128 x 128 (96 at C = 512, 48 at C = 11); the slices that fill
     whole waves of blocks (2 an SM for either design's kernel, simt
-    gemm_simt_kernel and tc wgemm_kernel), the fewest on a tie: 11 x 96
+    gemm_f32_kernel on f32 and gemm_simt_kernel on bf16, tc wgemm_kernel), the fewest on a tie: 11 x 96
     tiles = 4 waves of 264 blocks."""
     assert wgrad_residency(kernel) == 2
     S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132, 4)
@@ -321,6 +323,25 @@ def test_k6_wgrad_slices_at_four_gates(cin, kernel, slices):
     slots = 2 * 132
     assert S == slices and (S * tiles) % slots == 0
     assert bigru_vjp.k5_wgrad_slices(21 * 13, 11, 16, 132, 4) == 1
+
+
+@pytest.mark.parametrize("C,H", [(11, 256), (21, 32), (28, 256), (52, 128), (512, 256)])
+def test_f32_lstm_products_own_every_element_once(C, H):
+    """K6's products at four gates, G = 4H columns: dx (L N, C) with its
+    column tile by C, and the weight-gradient jobs dW_ih (C, G) and dW_hh
+    (H, G); every element one owner (gemm_f32_kernel's thread map)."""
+    assert (gf_owners(21 * 13, C, True, True, gf_dx_tn(C)) == 1).all()
+    for M in (C, H):
+        assert (gf_owners(M, 4 * H, False, False, 16) == 1).all()
+
+
+@pytest.mark.parametrize("L,N,C,H,S", [(5, 7, 11, 16, 3), (4, 13, 21, 32, 2), (3, 40, 28, 16, 4)])
+def test_f32_lstm_products_sum_as_the_simt_gemm(L, N, C, H, S):
+    """K6's products on its one gate gradient da (passed as both dxg and
+    dhg): one column sum a slice, no db_hh slot; the new kernel's chains and
+    residue partials equal gemm_simt_kernel's bit for bit, at slice edges
+    (an empty last slice), h_prev's shifted rows and layer-0 widths."""
+    check_f32_products(L, N, C, H, S, 4, L * N + C + 1)
 
 
 def _counts():

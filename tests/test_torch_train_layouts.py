@@ -535,7 +535,8 @@ def wgrad_residency(kernel):
     path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_gemm.cuh")
     with open(path) as f:
         src = " ".join(f.read().split())
-    threads = {"gemm_simt_kernel": "GM_THREADS", "wgemm_kernel": "WG_THREADS"}[kernel]
+    threads = {"gemm_simt_kernel": "GM_THREADS", "wgemm_kernel": "WG_THREADS",
+               "gemm_f32_kernel": "GF_THREADS"}[kernel]
     bounds = "__launch_bounds__({}, ".format(threads)
     i = src.index(kernel + "(")
     j = src.rindex(bounds, 0, i)
@@ -544,11 +545,12 @@ def wgrad_residency(kernel):
 
 @pytest.mark.parametrize("cin,kernel,slices", [
     (512, "gemm_simt_kernel", 11), (11, "gemm_simt_kernel", 22),
-    (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 22)])
+    (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 22),
+    (512, "gemm_f32_kernel", 11), (11, "gemm_f32_kernel", 22)])
 def test_k5_wgrad_slices_fill_whole_waves(cin, kernel, slices):
     """1024 rows, H = 256, 132 SMs: the slices whose tiles fill the last wave
     of blocks, 2 an SM for the weight-gradient kernel of either design (simt:
-    gemm_simt_kernel; tc: wgemm_kernel); e.g. 11 x 72 tiles = 3 full waves
+    gemm_f32_kernel on f32, gemm_simt_kernel on bf16; tc: wgemm_kernel); e.g. 11 x 72 tiles = 3 full waves
     of 264 blocks, where 4 slices (288 blocks) would leave a second wave of
     24."""
     assert wgrad_residency(kernel) == bigru_vjp.WGRAD_CTAS_PER_SM == 2
@@ -1385,3 +1387,253 @@ def test_recurrence_probe_marks_each_apply_once(marks, parts):
     marked = "".join(new for _old, new in getattr(smoke, marks))
     tag = marks[:3]
     assert all("{}_PROF({})".format(tag, k) in marked for k in range(len(getattr(smoke, parts))))
+
+
+# ---- the simt design's fp32 products (csrc/rnn_train_gemm.cuh's
+# gemm_f32_kernel): which thread owns each element of the dx and weight-
+# gradient jobs, and the order of each sum against gemm_simt_kernel's
+
+def gf_thread_map(ak, bk, tn, rm=8):
+    """gemm_f32_kernel's thread map: thread t of 128, (tx, ty) = (t % 8,
+    t / 8), owns rows (rm,) and columns (tn,) of its CTA's 16 rm x 8 tn
+    tile: rows ty + 16 i where A is K-major (ak), else 4 ty + i and 64 + 4
+    ty + i - 4 (rm = 8); columns tx + 8 j where B is K-major (bk), else 32 (j
+    / 4) + 4 tx + j % 4. Returns (rows (128, rm), columns (128, tn), each
+    thread's warp)."""
+    t = np.arange(128)
+    tx, ty = t % 8, t // 8
+    i, j = np.arange(rm), np.arange(tn)
+    rows = (ty[:, None] + 16 * i if ak else
+            np.where(i < 4, 4 * ty[:, None] + i, 64 + 4 * ty[:, None] + i - 4))
+    cols = tx[:, None] + 8 * j if bk else 32 * (j // 4) + 4 * tx[:, None] + j % 4
+    return rows, cols, t // 32
+
+
+def gf_dx_tn(C):
+    """dx's columns a thread: the least tile of 16, 32, 64 or 128 columns
+    that holds C, 8 threads across it."""
+    return 2 if C <= 16 else 4 if C <= 32 else 8 if C <= 64 else 16
+
+
+def gf_owners(M, N, ak, bk, tn, rm=8):
+    """How many threads own each element of one (M, N) job, over every CTA
+    (bx, by) of the grid, counting only the warps that issue FMAs (a warp
+    whose first row, 4 or 16 rows a warp in, lies at or past M issues
+    none)."""
+    rows, cols, warp = gf_thread_map(ak, bk, tn, rm)
+    live_first = (4 if ak else 16) * warp
+    count = np.zeros((M, N), np.int64)
+    bm = 16 * rm
+    for by in range(-(-M // bm)):
+        for bx in range(-(-N // (8 * tn))):
+            live = bm * by + live_first < M
+            m = np.broadcast_to((bm * by + rows)[live][:, :, None], (live.sum(), rm, tn))
+            n = np.broadcast_to((8 * tn * bx + cols)[live][:, None, :], (live.sum(), rm, tn))
+            ok = (m < M) & (n < N)
+            np.add.at(count, (m[ok], n[ok]), 1)
+    return count
+
+
+@pytest.mark.parametrize("rm", [7, 8])
+@pytest.mark.parametrize("M,C", [(21 * 13, 11), (300, 21), (300, 28), (1029, 52), (1029, 512)])
+def test_f32_dx_owns_every_element_once(M, C, rm):
+    """dx (M, C): both operands K-major, the column tile sized by C, 112 or
+    128 rows; every element one owner at ragged rows and every layer-0
+    width."""
+    assert (gf_owners(M, C, True, True, gf_dx_tn(C), rm) == 1).all()
+
+
+@pytest.mark.parametrize("rows,C,tile", [(21 * 1024, 512, (112, 128)), (21 * 1024, 11, (112, 16)),
+                                         (21 * 512, 512, (112, 128)), (21 * 1024, 28, (112, 32)),
+                                         (11 * 512, 21, (112, 32)), (128 * 264, 512, (128, 128))])
+def test_f32_dx_tile_takes_the_fewest_wave_times(rows, C, tile):
+    """dx's tile: at the train path's 1,024 rows and C = 512, 672 tiles of
+    128 rows would be 2.55 waves of 264 (three wave-times of 8 rows a
+    thread, 24) where 768 of 112 are 2.91 (3 x 7 = 21); where 128-row tiles
+    fill whole waves they stay."""
+    assert bigru_vjp.simt_dx_tile(rows, C, 132) == tile
+    assert tile[1] == 8 * gf_dx_tn(C)
+
+
+@pytest.mark.parametrize("C,H", [(11, 256), (21, 32), (28, 256), (52, 64), (512, 256), (11, 16)])
+def test_f32_weight_grads_own_every_element_once(C, H):
+    """Each weight-gradient job of one slice, dW_ih (C, 3H) and dW_hh (H, 3H):
+    both operands MN-major, 128 x 128 tiles; every element one owner (and
+    a layer-0 dW_ih tile, C = 11, issues FMAs in one warp of four)."""
+    G = 3 * H
+    for M in (C, H):
+        assert (gf_owners(M, G, False, False, 16) == 1).all()
+    rows, _c, warp = gf_thread_map(False, False, 16)
+    assert sorted(set(warp[(rows < 11).any(axis=1)])) == [0]
+
+
+def simt_chain(a, b, bk):
+    """One (M, N) output as a kernel's threads sum it: acc = fmaf(A[:, k],
+    B[k, :], acc) for k ascending from 0.0f over a, b (K, M) and (K, N)
+    already zero outside their data, in k tiles of bk (zeros past K)."""
+    from tests.test_torch_kernel_layouts import fmaf32
+
+    K, M = a.shape
+    N = b.shape[1]
+    acc = np.zeros((M, N), np.float32)
+    for k in range(-(-K // bk) * bk):
+        ak, bk_ = (a[k], b[k]) if k < K else (np.zeros(M, np.float32), np.zeros(N, np.float32))
+        acc = fmaf32(ak[:, None], bk_[None, :], acc)
+    return acc
+
+
+def simt_colsum(b, bk):
+    """B's column sums as the kernels take them over one slice's rows b (K,
+    N): gemm_simt_kernel (bk = 8) lets thread row r of a k tile of 8 add row
+    k0 + r into its partial; gemm_f32_kernel (bk = 16) adds row k0 + kk into
+    partial kk % 8; either way eight plain f32 partials from 0.0f, rows r
+    (mod 8) ascending, then added for r = 0 .. 7 from 0.0f."""
+    K, N = b.shape
+    cs = np.zeros((8, N), np.float32)
+    for k0 in range(0, -(-K // bk) * bk, bk):
+        for kk in range(bk):
+            row = b[k0 + kk] if k0 + kk < K else np.zeros(N, np.float32)
+            cs[kk % 8] = (cs[kk % 8] + row).astype(np.float32)
+    s = np.zeros(N, np.float32)
+    for r in range(8):
+        s = (s + cs[r]).astype(np.float32)
+    return s
+
+
+def wgrad_slices(x, out, dxg, dhg, L, N, S, bk):
+    """The weight-gradient launch's S slice partials, each as a kernel with
+    k tiles of bk sums it: slice s holds rows [s Ks, min(L N, (s + 1) Ks))
+    (Ks = slice_rows(L N, S, 32)); dW_ih[d] = X^T dxg[d], dW_hh[d] =
+    H_prev^T dhg[d], H_prev of direction 0 out's forward half at row k - N,
+    of direction 1 its backward half at k + N, zero outside [N, L N) and
+    [0, L N - N) (each direction's first step); db_ih[d], db_hh[d] the
+    column sums of dxg[d], dhg[d] (``simt_colsum``), db_hh none where dhg is
+    dxg. Returns a list of S dicts of (2, ...) float32 arrays."""
+    LN, C = x.shape
+    H = out.shape[1] // 2
+    Ks = -(-(-(-LN // S)) // 32) * 32
+    parts = []
+    for s in range(S):
+        kb, ke = s * Ks, min(LN, (s + 1) * Ks)
+        rows = np.arange(kb, max(kb, ke))
+        p = {k: [] for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
+        for d in range(2):
+            hp = np.zeros((len(rows), H), np.float32)
+            src = rows - N if d == 0 else rows + N
+            ok = (src >= 0) & (src < LN)
+            hp[ok] = out[src[ok], d * H:(d + 1) * H]
+            p["w_ih"].append(simt_chain(x[rows], dxg[d][rows], bk))
+            p["w_hh"].append(simt_chain(hp, dhg[d][rows], bk))
+            p["b_ih"].append(simt_colsum(dxg[d][rows], bk))
+            if dhg is not dxg:
+                p["b_hh"].append(simt_colsum(dhg[d][rows], bk))
+        parts.append({k: np.stack(v) for k, v in p.items() if v})
+    return parts
+
+
+def check_f32_products(L, N, C, H, S, ng, seed):
+    """The new kernel's sums (k tiles of 16) against gemm_simt_kernel's (k
+    tiles of 8), bit for bit, for dx (two direction segments in one chain)
+    and each weight- and bias-gradient slice partial; and their slice sums
+    against the exact products, where H_prev's shift and zero rows show."""
+    rng = np.random.RandomState(seed)
+    LN, G = L * N, ng * H
+    x = rng.randn(LN, C).astype(np.float32)
+    out = rng.randn(LN, 2 * H).astype(np.float32)
+    dxg = rng.randn(2, LN, G).astype(np.float32)
+    dhg = dxg if ng == 4 else rng.randn(2, LN, G).astype(np.float32)
+    wih = (0.3 * rng.randn(2, C, G)).astype(np.float32)
+    # dx: segment 0's k then segment 1's, one accumulator
+    a = np.concatenate([dxg[0].T, dxg[1].T])  # (2G, LN): A(m, k) read K-major
+    b = np.concatenate([wih[0].T, wih[1].T])  # (2G, C): W_ih[d] read as (c, g)
+    assert np.array_equal(simt_chain(a, b, 16).view(np.uint32), simt_chain(a, b, 8).view(np.uint32))
+    new, old = (wgrad_slices(x, out, dxg, dhg, L, N, S, bk) for bk in (16, 8))
+    for pn, po in zip(new, old):
+        assert pn.keys() == po.keys() == ({"w_ih", "w_hh", "b_ih"} | ({"b_hh"} if ng == 3 else set()))
+        for k in pn:
+            assert np.array_equal(pn[k].view(np.uint32), po[k].view(np.uint32)), k
+    total = {k: sum(p[k].astype(np.float64) for p in new) for k in new[0]}
+    t = np.arange(LN)
+    for d in range(2):
+        src = t - N if d == 0 else t + N
+        hp = np.where(((src >= 0) & (src < LN))[:, None],
+                      out[np.clip(src, 0, LN - 1), d * H:(d + 1) * H], 0.0)
+        want = {"w_ih": x.T.astype(np.float64) @ dxg[d], "w_hh": hp.T @ dhg[d],
+                "b_ih": dxg[d].sum(0, dtype=np.float64), "b_hh": dhg[d].sum(0, dtype=np.float64)}
+        for k in total:
+            np.testing.assert_allclose(total[k][d], want[k], rtol=1e-4, atol=1e-3, err_msg=k)
+
+
+@pytest.mark.parametrize("L,N,C,H,S", [(5, 7, 11, 16, 3), (4, 13, 21, 32, 2), (3, 40, 28, 16, 4),
+                                       (6, 9, 52, 16, 1)])
+def test_f32_products_sum_as_the_simt_gemm(L, N, C, H, S):
+    """GRU (dxg and dhg apart): slice edges inside and past the rows (L N =
+    35 in 3 slices of 32: the last one empty, all zeros), ragged k tiles,
+    h_prev's -N / +N rows with the first step's zeros, C = 11, 21, 28, 52."""
+    check_f32_products(L, N, C, H, S, 3, L * N + C)
+
+
+def test_f32_products_follow_the_kernel_source():
+    """The models above are the kernels': gemm_f32_kernel's thread map, k
+    tiles, FMA loops, slice rows, segments, column sums and epilogue, dx's
+    tile by C and by its waves, the backward's f32 products routed to it;
+    and gemm_simt_kernel's column sums, which the new kernel's equal."""
+    path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_gemm.cuh")
+    with open(path) as f:
+        src = " ".join(f.read().split())
+    for line in ("#define GF_BM 128", "#define GF_THREADS 128", "#define GF_BK 16",
+                 "#define GF_STAGES 4",
+                 "__global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(",
+                 "constexpr int BN = 8 * TN;",
+                 "const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;",
+                 "const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;",
+                 "constexpr int BN = 8 * TN, BM = 16 * RM;",
+                 "if (AK) return ty + 16 * i; return i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;",
+                 "const int ji = blockIdx.z / p.S, slice = blockIdx.z % p.S;",
+                 "const int kb = slice * p.Ks, ke = min(p.K, kb + p.Ks);",
+                 "if (SEG2 && lkt == KT) { // dx: direction 1's segment",
+                 "a_jump = static_cast<const float*>(jb.a[1].p) - ga.base - (long long)KT * ga.kstep;",
+                 "const int k0 = kb + lkt * GF_BK;",
+                 "g.lo = max(kb, o.klo); g.hi = min(ke, o.khi);",
+                 "const bool ok = ((g.in >> j) & 1u) && k >= g.lo && k < g.hi;",
+                 "g.src = g.base + (kb + kk + o.koff) * o.ld + i0 + iq;",
+                 "g.src = g.base + (long long)(i0 + r) * o.ld + o.koff + kb + kq;",
+                 "const bool live = m0 + gf_row<AK>(tid / 32 * 4, 0) < M;",
+                 "for (int t = 0; t < NT; ++t) {",
+                 "as + gf_row<true>(ty, i) * GF_KST + kq",
+                 "bs + (tx + 8 * j) * GF_KST + kq",
+                 "for (int kk = 0; kk < 4; ++kk) #pragma unroll for (int i = 0; i < RM; ++i) "
+                 "#pragma unroll for (int j = 0; j < TN; ++j) "
+                 "acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);",
+                 "bs + k * BN + q * 32 + tx * 4",
+                 "as + k * GF_BM + 64 * h + ty * 4",
+                 "for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(aa[k & 1][i], bb[k & 1][j], acc[i][j]);",
+                 "acc[i][j] = 0.0f;",
+                 "constexpr bool CS = !AK && !BK, SEG2 = AK && BK;",
+                 "const bool do_cs = CS && jb.colsum != nullptr && blockIdx.y == 0;",
+                 "for (int kk = 0; kk < GF_BK; ++kk) cs[kk % 8] += bs[kk * BN + tid];",
+                 "for (int r = 0; r < 8; ++r) s += cs[r];",
+                 "jb.colsum[so + n0 + tid] = s;",
+                 "const int n = n0 + tx + 8 * j;",
+                 "const int m = m0 + gf_row<true>(ty, i);",
+                 "if (m < M) c[(size_t)m * jb.ldc + n] = acc[i][j] + bias;",
+                 "const int m = m0 + gf_row<AK>(ty, i);",
+                 "const int n = n0 + q * 32 + tx * 4;",
+                 "static int dx_cols(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128; }",
+                 "const long long slots = 2LL * sms, nt = (C + dx_cols(C) - 1) / dx_cols(C);",
+                 "const long long tiles = nt * ((M + 16 * rm - 1) / (16 * rm)); "
+                 "return (tiles + slots - 1) / slots * rm;",
+                 "return cost(7) < cost(8) ? 7 : 8;",
+                 "if (BN == 16) return gf_run<true, true, 2, 8>(gp, 1, M, C, s);",
+                 "if (BN == 32) return gf_run<true, true, 4, 7>(gp, 1, M, C, s);",
+                 "if (BN == 64) return gf_run<true, true, 8, 7>(gp, 1, M, C, s);",
+                 "return gf_run<true, true, 16, 7>(gp, 1, M, C, s);",
+                 "if constexpr (f32) return gf_run<false, false, 16>(gp, 4, C > H ? C : H, G, s);",
+                 "gp.Ks = slice_rows(LN, S, SLICE_K);",
+                 "hh.a[0] = op(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N, "
+                 "d == 0 ? N : 0, d == 0 ? LN : LN - N, H, false);",
+                 # gemm_simt_kernel's column sums (the bf16 simt shapes keep it)
+                 "const int b_i = B_KC ? tid / 2 : (tid % 32) * 4, b_k = B_KC ? (tid % 2) * 4 : tid / 32;",
+                 "for (int e = 0; e < 4; ++e) cs[e] += rb[e];",
+                 "for (int r = 0; r < SG_BK; ++r) s += cs_s[r * GM_BN + tid];"):
+        assert line in src, line
