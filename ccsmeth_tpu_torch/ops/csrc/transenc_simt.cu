@@ -18,25 +18,34 @@
 //
 // Bound on an H100 SXM: 134.8 MFLOP of products per sample at D = 256,
 //   NH = 4, FF = 512, L = 21, NL = 6: compute-bound, 2.06 ms for 1024
-//   samples at 67 TFLOP/s (fp32 CUDA cores). What held the first f32 kernel
-//   (transenc_encoder.cu) at 17-18 TFLOP/s: 42 rows a CTA, one CTA of 8
-//   warps an SM (205 KB of shared memory), and every warp reading each
-//   weight from L1/L2 itself, 48 FMAs per two 16-byte global loads.
+//   samples at 67 TFLOP/s (fp32 CUDA cores). What held the cp.async design
+//   before this one at about half of the FMA rate inside a tile: every
+//   thread issued the weight copies of a 2-slab ring and waited at a block
+//   barrier every 16 k rows, each of the 66 products of a tile started on
+//   an empty ring (~2k cycles for its first slab), and the 192- and
+//   128-column products read their weights two floats at a time.
 //
 // What this design does about that:
-//   - 64 rows a CTA (S = 64 / L samples: 3 at L = 21, 63 real rows), so
-//     each weight byte serves 63 rows, not 42;
-//   - the weights come through one cp.async ring per CTA that all 8 warps
-//     share: TS_STAGES slabs of TS_BK k rows by up to 256 columns; the CTA
-//     reads each weight from L2 once per tile;
-//   - products are register-tiled outer products: a thread owns 8 rows x TN
-//     columns (TN = 8 for the 256-column products, 6 for a head's q | k | v
-//     and a 192-column chunk of the hidden layer, 4 for a last chunk of 128),
-//     per k two float4 of A (8 rows of a k-major operand) and TN floats of
-//     the ring slab from shared memory, 8 TN FMAs: shared memory delivers
-//     128 bytes a cycle to an SM, which is 1 float per FMA at 128 FMAs a
-//     cycle, so 8 x 8 is the smallest tile it keeps up with;
-//   - shared memory (226,304 bytes at the default shape), all f32 and
+//   - one producer thread (warp 8) streams every weight slab of the tile
+//     (TS_BK = 16 k rows by up to TS_WMAX columns) through a ring of
+//     TS_STAGES = 2 slots on mbarriers, one TMA box a slab (a head's q | k
+//     | v as one 3-d box of Wqkv's column groups), in the consumers' order
+//     across products, heads and layers: the 8 consumer warps issue no
+//     copy, wait only for the slab they need and release it by one arrival
+//     a warp, and the next product's first slabs land during an epilogue,
+//     an attention head or a LayerNorm. (Per slab each warp still pays the
+//     barrier's round trip: a build with no ring copy or wait at all runs
+//     4-6% faster, and 8-row slabs in 4 slots slower, chip_smoke.py's
+//     k3_simt_sweep, PERF.md section 5.)
+//   - products are register-tiled outer products: a consumer thread owns 8
+//     rows (4 ty .. 4 ty + 3 and 32 + 4 ty .. 32 + 4 ty + 3: each warp's
+//     A loads are 128 contiguous bytes) by TN columns (TN = 8 for the
+//     D-column products, 6 for a head's q | k | v and a 192-column chunk of
+//     the hidden layer, 4 for a last chunk of <= 128), each column group
+//     read as one float4 (or float2) a k. Nothing is carried in registers across products: 9 warps leave 168
+//     registers a thread (one SM sub-partition holds 3 of them). The slab
+//     loops are ~93% FFMA and run at ~0.75 of the FMA rate (k3_simt_probe);
+//   - shared memory (229,408 bytes at the default shape), all f32 and
 //     k-major ([column][row], row stride TS_LD = 68):
 //       xs  [D][68]  the residual stream;
 //       ctx [D][68]  the attention context, then the FF output's sum;
@@ -44,17 +53,24 @@
 //           h HD, D + h HD, 2D + h HD), then one TS_FC-column chunk of the
 //           FF hidden layer relu(x W1[:, c] + b1[c]), which the next
 //           product multiplies by W2[c, :] into ctx, chunk by chunk;
-//       the ring, and LayerNorm's partial sums (2 x 256);
+//       the ring (TS_STAGES x TS_BK x TS_WMAX), LayerNorm's partial sums
+//       (2 x 256) and parameters (3 x 256), and the ring's mbarriers;
+//   - consumers meet at named barriers only where a buffer changes hands
+//     (q | k | v or the hidden chunk complete, and their last readers
+//     done; the context complete; the residual complete for LayerNorm);
+//     the producer joins none;
 //   - attention stays on the CUDA cores (~2% of the FLOPs), one head at a
 //     time, 4 threads a row: each a quarter of every score's dimensions,
 //     the softmax in registers, a quarter of the context's columns;
-//   - LayerNorm: 4 threads a row, partial sums through shared memory.
-//   What sets the pace (PERF.md, section 5): one CTA alone takes as long
-//   as a full wave, so the CTA's own work does, not the L2 that 132 CTAs
-//   share; the products take ~87% of it, their slab loops at about
-//   two thirds of the FMA rate, each call ~2k cycles waiting for its first
-//   slab; attention ~8%, LayerNorm ~4%.
+//   - LayerNorm: 4 threads a row, partial sums through shared memory, its
+//     parameters copied to shared memory at its start.
 //
+// Bits: the arithmetic is the cp.async design's, value for value: each
+//   product element is one fmaf chain over k from 0 in order, its bias
+//   added after; the feed-forward sum (P0 + P1) + P2 over its chunks; x +
+//   (ctx Wo + bo) and x + (ctx + b2); LayerNorm's quarter sums combined r,
+//   r + 64, r + 128, r + 192; attention's quarter scores added by two xor
+//   shuffles, expf, the context over the keys in order; the mean in order.
 // Rows: padded rows and the samples past N of the ragged last tile start at
 //   zero, stay within their own rows (products are row by row, attention
 //   never mixes samples, LayerNorm is per row), and are not stored.
@@ -70,29 +86,28 @@
 //   -Xcompiler -fPIC (ops/transenc.py builds it at first use). The C entry
 //   point returns cudaGetLastError() after the launch.
 
-#include "mma_tile.cuh"
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "entry_device.cuh"
 
-#define TS_THREADS 256
+#define TS_CONSUMERS 256  // 8 consumer warps
+#define TS_THREADS 288    // and one producer warp
 #define TS_ROWS 64
 #define TS_LD 68      // k-major row stride of the 64-row operands, in floats
-#define TS_LMAX 32    // L <= TS_LMAX; the score rows' stride
+#define TS_LMAX 32    // L <= TS_LMAX
 #define TS_BK 16      // k rows of a ring slab
-#define TS_STAGES 2   // ring depth
-#define TS_WMAX 256   // widest slab (columns): 32 TN for TN = 8
+#define TS_STAGES 2   // ring slots
+#define TS_WMAX 256   // a slot's row width (columns): the widest product
 #define TS_FC 192     // FF hidden columns a chunk
 #define TS_DMAX 256   // D <= TS_DMAX
 #define TS_HDMAX 64   // HD <= TS_HDMAX
 
-
 struct EncSimtParams {
   const float* x;     // (N, L, D)
   float* out;         // (N, D)
-  const float* wqkv;  // (NL, D, 3D), columns q | k | v
-  const float* wo;    // (NL, D, D)
-  const float* w1;    // (NL, D, FF)
-  const float* w2;    // (NL, FF, D)
-  const float* bqkv;  // (NL, 3D)
+  const float* bqkv;  // (NL, 3D); the weights come through the tensor maps
   const float* bo;    // (NL, D)
   const float* b1;    // (NL, FF)
   const float* b2;    // (NL, D)
@@ -120,124 +135,198 @@ __device__ __forceinline__ float4 add4(float4 a, float b) {
   return make_float4(a.x + b, a.y + b, a.z + b, a.w + b);
 }
 
-// out (64 rows x P columns) = A (K x 64, k-major f32 in shared memory,
-// stride TS_LD) times W[k][cols(p)] (f32 in device memory, row stride ldw),
-// K % TS_BK == 0, P <= 32 TN, P % VW == 0, plus bias[cols(p)] when bias is
-// given. The slabs of W stream through the ring (columns >= P read as 0).
-// Each thread owns 8 rows, 8 ty .. 8 ty + 7, and TN columns in groups of VW
-// (4, or 2 when TN = 6): VW tx + 32 VW g + e (g < TN / VW, e < VW). Shared
-// memory delivers at most 128 bytes a cycle to an SM, so the thread tile
-// sets the pace: (8 + TN) loaded floats per 8 TN FMAs keeps up with the FMA
-// rate at TN = 8, at 86% at TN = 6 and 67% at TN = 4. Each thread reads its
-// columns' bias before the products, so the epilogue waits on no load;
-// every column p < P is handed to epi(p, row0, v) for row0 = 8 ty and
-// 8 ty + 4, v the results of rows row0 .. row0 + 3. Ends with the ring
-// drained and a block barrier.
-template <int TN, class Epi>
-__device__ __forceinline__ void ring_gemm(const float* A, int K, const float* W,
-                                          int ldw, Cols cols, int P,
-                                          const float* bias, float* ring, Epi epi) {
-  constexpr int VW = TN % 4 == 0 ? 4 : 2;  // B's vector width
-  constexpr int NG = TN / VW;              // B's vectors a thread
-  constexpr int WS = 32 * TN;              // slab row width
-  constexpr int CHUNKS = TS_BK * WS / 4;   // 16-byte copies a slab
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // a warp holds every row group and 4 column groups: its epilogue stores
-  // are whole 128-byte column runs
-  const int ty = lane >> 2;                // row group, 0..7
-  const int tx = warp * 4 + (lane & 3);    // column group, 0..31
-  const int nk = K / TS_BK;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // this thread's 16-byte copies of a slab: the same (row, column) in
-  // every slab, so their offsets in W are computed once
-  constexpr int PER = (CHUNKS + TS_THREADS - 1) / TS_THREADS;
-  int src_off[PER], dst_off[PER];
-  bool ok[PER];
-#pragma unroll
-  for (int c = 0; c < PER; ++c) {
-    const int i = tid + c * TS_THREADS;
-    const int r = i / (WS / 4), p = (i % (WS / 4)) * 4;
-    ok[c] = i < CHUNKS && p < P;
-    src_off[c] = ok[c] ? r * ldw + cols(p) : 0;
-    dst_off[c] = r * WS + p;
+// ---- the ring's mbarriers and TMA loads
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// the producer's arrival, announcing `bytes` of TMA loads into the phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cta.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// wait for the phase of parity `parity` to complete, the thread suspended
+// in try_wait (up to a 1 ms hint a try) rather than spinning; a wait that
+// never ends (a broken protocol) traps after ~2^34 cycles instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cta.shared::cta.b64 p, [%1], %2, 1000000;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
   }
-  auto load = [&](int stage, int it) {
-    float* rs = ring + stage * TS_BK * WS;
-    const float* w = W + (size_t)it * TS_BK * ldw;
-#pragma unroll
-    for (int c = 0; c < PER; ++c)
-      if (tid + c * TS_THREADS < CHUNKS)
-        cp_async_16(smem_u32(rs + dst_off[c]), w + src_off[c], ok[c]);
-  };
+}
 
-  float bv[TN];
-#pragma unroll
-  for (int g = 0; g < NG; ++g)
-#pragma unroll
-    for (int e = 0; e < VW; ++e) {
-      const int p = VW * tx + 32 * VW * g + e;
-      bv[VW * g + e] = bias != nullptr && p < P ? __ldg(bias + cols(p)) : 0.0f;
-    }
-  float acc[8][TN];
+// TMA loads of the box at the given coordinates of a 2-d or 3-d tensor map
+// into shared memory at `dst`, completing on barrier `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the consumer warps' barrier (named barrier 1; the producer never joins)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TS_CONSUMERS) : "memory");
+}
+
+// The ring as both sides walk it: slab g of the tile's sequence lies in
+// slot g % TS_STAGES, its use g / TS_STAGES of that slot.
+struct Ring {
+  float* slots;   // [TS_STAGES][TS_BK][TS_WMAX]
+  uint64_t* bar;  // full[TS_STAGES], then empty[TS_STAGES]
+  uint32_t g;     // slabs taken (consumers) or issued (producer) so far
+  __device__ __forceinline__ uint32_t full(int s) const { return smem_addr(bar + s); }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return smem_addr(bar + TS_STAGES + s);
+  }
+};
+
+// ---- the producer
+
+// The slabs of one product, one TMA box each: K weight rows from row `row`
+// of the map, TS_BK a slab (K % TS_BK == 0), the box at column `col` (and,
+// for the 3-d map of Wqkv, group 0: q | k | v), `bytes` a box. A box lands
+// as a dense [TS_BK][width] image at the slot's start.
+__device__ __forceinline__ void produce(Ring& ring, const CUtensorMap* map, bool three_d, int col,
+                                        int row, int K, uint32_t bytes) {
+  for (int k0 = 0; k0 < K; k0 += TS_BK, ++ring.g) {
+    const int s = ring.g % TS_STAGES, use = ring.g / TS_STAGES;
+    if (use > 0) mbar_wait(ring.empty(s), (use - 1) & 1);
+    mbar_expect_tx(ring.full(s), bytes);
+    const uint32_t dst = smem_addr(ring.slots + (size_t)s * TS_BK * TS_WMAX);
+    if (three_d)
+      tma_load_3d(dst, map, ring.full(s), col, 0, row + k0);
+    else
+      tma_load_2d(dst, map, ring.full(s), col, row + k0);
+  }
+}
+
+// ---- the consumers' products
+
+// A consumer thread's rows (r < 8) and columns (c < TN) of a product's
+// 64-row tile: warp w, lane = 4 ty + (lane % 4), tx = 4 w + lane % 4.
+__device__ __forceinline__ int row_of(int ty, int r) { return r < 4 ? 4 * ty + r : 28 + 4 * ty + r; }
+
+template <int TN>
+__device__ __forceinline__ int col_of(int tx, int c) {
+  return c < 4 ? 4 * tx + c : 128 + (TN == 6 ? 2 : 4) * tx + c - 4;
+}
+
+// acc = A (K x 64, k-major f32 in shared memory, stride TS_LD) times the
+// product's K weight rows as the ring delivers them, slab by slab (each a
+// [TS_BK][ws] image), each element one fmaf chain over k in order from 0
+// (acc zeroed here); each warp releases a slab with one arrival. Columns
+// past the product's P read the slot's other contents and are never stored.
+template <int TN>
+__device__ __forceinline__ void consume(Ring& ring, const float* A, int K, int ws,
+                                        float (&acc)[8][TN]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = lane >> 2, tx = warp * 4 + (lane & 3);
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int c = 0; c < TN; ++c) acc[r][c] = 0.0f;
-#pragma unroll
-  for (int s = 0; s < TS_STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int it = 0; it < nk; ++it) {
-    cp_async_wait<TS_STAGES - 2>();
-    __syncthreads();
-    const int nt = it + TS_STAGES - 1;
-    if (nt < nk) load(nt % TS_STAGES, nt);
-    cp_async_commit();
-    const float* rs = ring + (it % TS_STAGES) * TS_BK * WS + VW * tx;
-    const float* as = A + (size_t)it * TS_BK * TS_LD + 8 * ty;
+  const float* as = A + 4 * ty;
+  for (int k0 = 0; k0 < K; k0 += TS_BK, ++ring.g, as += TS_BK * TS_LD) {
+    const int s = ring.g % TS_STAGES;
+    mbar_wait(ring.full(s), (ring.g / TS_STAGES) & 1);
+    const float* slot = ring.slots + (size_t)s * TS_BK * TS_WMAX;
+    const float* b0p = slot + col_of<TN>(tx, 0);
+    const float* b1p = slot + col_of<TN>(tx, TN > 4 ? 4 : 0);
 #pragma unroll
     for (int kk = 0; kk < TS_BK; ++kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(as + kk * TS_LD);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * TS_LD + 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * TS_LD + 32);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       float b[TN];
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float* pb = rs + kk * WS + 32 * VW * g;
-        if constexpr (VW == 4) {
-          const float4 b4 = *reinterpret_cast<const float4*>(pb);
-          b[4 * g] = b4.x;
-          b[4 * g + 1] = b4.y;
-          b[4 * g + 2] = b4.z;
-          b[4 * g + 3] = b4.w;
-        } else {
-          const float2 b2 = *reinterpret_cast<const float2*>(pb);
-          b[2 * g] = b2.x;
-          b[2 * g + 1] = b2.y;
-        }
+      const float4 b0 = *reinterpret_cast<const float4*>(b0p + kk * ws);
+      b[0] = b0.x;
+      b[1] = b0.y;
+      b[2] = b0.z;
+      b[3] = b0.w;
+      if constexpr (TN == 8) {
+        const float4 b1 = *reinterpret_cast<const float4*>(b1p + kk * ws);
+        b[4] = b1.x;
+        b[5] = b1.y;
+        b[6] = b1.z;
+        b[7] = b1.w;
+      } else if constexpr (TN == 6) {
+        const float2 b1 = *reinterpret_cast<const float2*>(b1p + kk * ws);
+        b[4] = b1.x;
+        b[5] = b1.y;
       }
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
         for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty(s));
   }
-  cp_async_wait<0>();
+}
+
+// this thread's columns' bias, bias[cols(p)] (0 past P)
+template <int TN>
+__device__ __forceinline__ void load_bias(const float* bias, Cols cols, int P, float (&bv)[TN]) {
+  const int tx = (threadIdx.x >> 5) * 4 + (threadIdx.x & 3);
 #pragma unroll
-  for (int g = 0; g < NG; ++g)
+  for (int c = 0; c < TN; ++c) {
+    const int p = col_of<TN>(tx, c);
+    bv[c] = p < P ? __ldg(bias + cols(p)) : 0.0f;
+  }
+}
+
+// f(dst[p][rows], v) for this thread's columns p < P (k-major dst, stride
+// TS_LD), four rows a float4: v = acc + bv[c] when bias is given, else acc
+template <int TN, class F>
+__device__ __forceinline__ void epilogue(float* dst, int P, const float (&acc)[8][TN],
+                                         const float* bias, const float (&bv)[TN], F f) {
+  const int lane = threadIdx.x & 31;
+  const int ty = lane >> 2, tx = (threadIdx.x >> 5) * 4 + (lane & 3);
 #pragma unroll
-    for (int e = 0; e < VW; ++e) {
-      const int c = VW * g + e, p = VW * tx + 32 * VW * g + e;
-      if (p >= P) continue;
+  for (int c = 0; c < TN; ++c) {
+    const int p = col_of<TN>(tx, c);
+    if (p >= P) continue;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 v = make_float4(acc[4 * h][c], acc[4 * h + 1][c],
-                                     acc[4 * h + 2][c], acc[4 * h + 3][c]);
-        epi(p, 8 * ty + 4 * h, bias != nullptr ? add4(v, bv[c]) : v);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const float4 v = make_float4(acc[4 * h][c], acc[4 * h + 1][c], acc[4 * h + 2][c],
+                                   acc[4 * h + 3][c]);
+      f(reinterpret_cast<float4*>(dst + (size_t)p * TS_LD + row_of(ty, 4 * h)),
+        bias != nullptr ? add4(v, bv[c]) : v);
     }
-  __syncthreads();
+  }
 }
 
 // One head of per-sample attention over hb = [q | k | v] (k-major, HD
@@ -248,13 +337,12 @@ __device__ __forceinline__ void ring_gemm(const float* A, int K, const float* W,
 // of the context columns. LB (L rounded up to 8) is a compile-time count, so
 // the key loops are unrolled with unconditional loads that the compiler can
 // batch: keys L .. LB - 1 read rows past the sample (another sample's, the
-// zeroed pad rows 64 .. 67, or the next column's: all finite, all inside
-// shared memory), their scores are dropped and their probabilities are 0.
-// Rows past S L take the clamped path and store nothing.
+// zeroed pad rows 64 .. 67, the next column's or the ring's first: all
+// finite, all inside shared memory), their scores are dropped and their
+// probabilities are 0. Rows past S L take the clamped path and store nothing.
 template <int LB>
-__device__ __forceinline__ void attention_head(const float* hb, float* ctx,
-                                               int h, int HD, int L, int S,
-                                               float scale) {
+__device__ __forceinline__ void attention_head(const float* hb, float* ctx, int h, int HD,
+                                               int L, int S, float scale) {
   const int row = threadIdx.x >> 2, qd = threadIdx.x & 3;
   const bool active = row < S * L;
   const int r0 = active ? (row / L) * L : 0;  // the sample's first row
@@ -298,27 +386,47 @@ __device__ __forceinline__ void attention_head(const float* hb, float* ctx,
     for (int j = 0; j < LB; ++j) c = fmaf(p[j], vn[j], c);
     if (active) ctx[(size_t)(h * HD + qd + 4 * n) * TS_LD + row] = c;
   }
-  __syncthreads();
+}
+
+__device__ __forceinline__ void attention(const float* hb, float* ctx, int h, int HD, int L,
+                                          int S, float scale) {
+  if (L <= 8) {
+    attention_head<8>(hb, ctx, h, HD, L, S, scale);
+  } else if (L <= 16) {
+    attention_head<16>(hb, ctx, h, HD, L, S, scale);
+  } else if (L <= 24) {
+    attention_head<24>(hb, ctx, h, HD, L, S, scale);
+  } else {
+    attention_head<32>(hb, ctx, h, HD, L, S, scale);
+  }
 }
 
 // In-place LayerNorm of the 64 rows of xs (k-major), after xs += add + addb
 // when add is given: 4 threads a row (row tid % 64, the q-th quarter of the
 // columns, q = tid / 64, the same in a warp), partial sums through red
-// (2 x 256 floats).
-__device__ __forceinline__ void layer_norm(float* xs, int D, const float* g,
-                                           const float* b, float* red,
-                                           const float* add, const float* addb) {
+// (2 x 256 floats); the scale, bias and addb first copied to stage (3 x 256
+// floats) in one go, so that no loop waits on a global load. Ends at a
+// consumer barrier.
+__device__ __forceinline__ void layer_norm(float* xs, int D, const float* g, const float* b,
+                                           float* red, float* stage, const float* add,
+                                           const float* addb) {
+  for (int i = threadIdx.x; i < D; i += TS_CONSUMERS) {
+    stage[i] = __ldg(g + i);
+    stage[TS_DMAX + i] = __ldg(b + i);
+    if (add != nullptr) stage[2 * TS_DMAX + i] = __ldg(addb + i);
+  }
+  consumer_sync();
   const int r = threadIdx.x & (TS_ROWS - 1), q = threadIdx.x / TS_ROWS;
   const int c0 = q * (D / 4), c1 = c0 + D / 4;
   float s = 0.0f;
 #pragma unroll 8
   for (int c = c0; c < c1; ++c) {
     float* px = xs + (size_t)c * TS_LD + r;
-    if (add != nullptr) *px += add[(size_t)c * TS_LD + r] + __ldg(addb + c);
+    if (add != nullptr) *px += add[(size_t)c * TS_LD + r] + stage[2 * TS_DMAX + c];
     s += *px;
   }
   red[threadIdx.x] = s;
-  __syncthreads();
+  consumer_sync();
   const float mu = (red[r] + red[r + 64] + red[r + 128] + red[r + 192]) / (float)D;
   float v = 0.0f;
 #pragma unroll 8
@@ -326,31 +434,36 @@ __device__ __forceinline__ void layer_norm(float* xs, int D, const float* g,
     const float d = xs[(size_t)c * TS_LD + r] - mu;
     v = fmaf(d, d, v);
   }
-  red[TS_THREADS + threadIdx.x] = v;
-  __syncthreads();
-  const float var = (red[TS_THREADS + r] + red[TS_THREADS + r + 64] +
-                     red[TS_THREADS + r + 128] + red[TS_THREADS + r + 192]) /
+  red[TS_CONSUMERS + threadIdx.x] = v;
+  consumer_sync();
+  const float var = (red[TS_CONSUMERS + r] + red[TS_CONSUMERS + r + 64] +
+                     red[TS_CONSUMERS + r + 128] + red[TS_CONSUMERS + r + 192]) /
                     (float)D;
   const float rs = 1.0f / sqrtf(var + 1e-5f);
 #pragma unroll 8
   for (int c = c0; c < c1; ++c) {
     float* px = xs + (size_t)c * TS_LD + r;
-    *px = (*px - mu) * rs * __ldg(g + c) + __ldg(b + c);
+    *px = (*px - mu) * rs * stage[c] + stage[TS_DMAX + c];
   }
-  __syncthreads();
+  consumer_sync();
 }
 
 __global__ void __launch_bounds__(TS_THREADS, 1)
-    transenc_simt_kernel(const EncSimtParams p) {
-  extern __shared__ __align__(16) float smem[];
+    transenc_simt_kernel(const __grid_constant__ CUtensorMap mqkv,
+                         const __grid_constant__ CUtensorMap mo,
+                         const __grid_constant__ CUtensorMap m1,
+                         const __grid_constant__ CUtensorMap m2, const EncSimtParams p) {
+  extern __shared__ __align__(128) float smem[];
   const int D = p.D, L = p.L, FF = p.FF, NH = p.NH, S = p.S;
   const int HD = D / NH;
   const int HB = 3 * HD > TS_FC ? 3 * HD : TS_FC;
   float* xs = smem;                            // [D][TS_LD]
   float* ctx = xs + (size_t)D * TS_LD;         // [D][TS_LD]
   float* hb = ctx + (size_t)D * TS_LD;         // [HB][TS_LD]
-  float* ring = hb + (size_t)HB * TS_LD;       // [stage][TS_BK][<= TS_WMAX]
-  float* red = ring + TS_STAGES * TS_BK * TS_WMAX;  // [2][TS_THREADS]
+  float* slots = hb + (size_t)HB * TS_LD;      // [TS_STAGES][TS_BK][TS_WMAX]
+  float* red = slots + TS_STAGES * TS_BK * TS_WMAX;  // [2][TS_CONSUMERS]
+  float* stage = red + 2 * TS_CONSUMERS;             // [3][TS_DMAX]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stage + 3 * TS_DMAX);
   const int n0 = blockIdx.x * S;                   // this tile's first sample
   const int rows = min(S * L, (p.N - n0) * L);     // real rows of this tile
 
@@ -364,67 +477,108 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
     xs[(size_t)(c + 2) * TS_LD + r] = v.z;
     xs[(size_t)(c + 3) * TS_LD + r] = v.w;
   }
-  // rows past S L never get a context, and attention reads up to 3 rows
-  // past a column's 64 (its pad rows, or the next column's first rows,
-  // which may be a column no product wrote yet): keep them all finite
-  for (int i = threadIdx.x; i < (D + HB) * TS_LD; i += TS_THREADS) ctx[i] = 0.0f;
+  // rows past S L never get a context, and attention reads keys past a
+  // sample (pad positions, the next column's first, which may be a column
+  // no product wrote yet, or the ring's first): keep them all finite
+  for (int i = threadIdx.x; i < (D + HB) * TS_LD + TS_STAGES * TS_BK * TS_WMAX; i += TS_THREADS)
+    ctx[i] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TS_STAGES; ++s) {
+      mbar_init(smem_addr(bars + s), 1);                              // full: the producer
+      mbar_init(smem_addr(bars + TS_STAGES + s), TS_CONSUMERS / 32);  // empty: each warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the zeroed slots and the barriers before the producer's first copy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  Ring ring{slots, bars, 0u};
+
+  const int W1B = FF < TS_FC ? FF : TS_FC;  // W1's box: a chunk's columns
+  if (threadIdx.x >= TS_CONSUMERS) {
+    // the producer (one thread): every slab of the tile, in the consumers'
+    // order
+    if (threadIdx.x == TS_CONSUMERS) {
+      const uint32_t qkv_bytes = 3 * HD * TS_BK * sizeof(float);
+      const uint32_t d_bytes = D * TS_BK * sizeof(float);
+      const uint32_t w1_bytes = W1B * TS_BK * sizeof(float);
+      for (int l = 0; l < p.NL; ++l) {
+        for (int h = 0; h < NH; ++h) produce(ring, &mqkv, true, h * HD, l * D, D, qkv_bytes);
+        produce(ring, &mo, false, 0, l * D, D, d_bytes);
+        for (int c0 = 0; c0 < FF; c0 += TS_FC) {
+          const int P = FF - c0 < TS_FC ? FF - c0 : TS_FC;
+          produce(ring, &m1, false, c0, l * D, D, w1_bytes);
+          produce(ring, &m2, false, 0, l * FF + c0, P, d_bytes);
+        }
+      }
+    }
+    return;
+  }
 
   const float scale = 1.0f / sqrtf((float)HD);
+  const auto store = [](float4* pd, float4 v) { *pd = v; };
+  const auto relu = [](float4* pd, float4 v) {
+    *pd = make_float4(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f), fmaxf(v.z, 0.0f), fmaxf(v.w, 0.0f));
+  };
+  const auto add = [](float4* pd, float4 v) { *pd = add4(*pd, v); };
   for (int l = 0; l < p.NL; ++l) {
-    const float* wqkv = p.wqkv + (size_t)l * D * 3 * D;
-    const float* wo = p.wo + (size_t)l * D * D;
-    const float* w1 = p.w1 + (size_t)l * D * FF;
-    const float* w2 = p.w2 + (size_t)l * FF * D;
     const float* bqkv = p.bqkv + (size_t)l * 3 * D;
-    const float* bo = p.bo + (size_t)l * D;
     const float* b1 = p.b1 + (size_t)l * FF;
-    const float* b2 = p.b2 + (size_t)l * D;
 
     for (int h = 0; h < NH; ++h) {
       const Cols qkv_cols = {h * HD, HD, D};
-      ring_gemm<6>(xs, D, wqkv, 3 * D, qkv_cols, 3 * HD, bqkv, ring,
-                   [&](int c, int r0, float4 v) {
-                     *reinterpret_cast<float4*>(hb + (size_t)c * TS_LD + r0) = v;
-                   });
-      if (L <= 8) {
-        attention_head<8>(hb, ctx, h, HD, L, S, scale);
-      } else if (L <= 16) {
-        attention_head<16>(hb, ctx, h, HD, L, S, scale);
-      } else if (L <= 24) {
-        attention_head<24>(hb, ctx, h, HD, L, S, scale);
-      } else {
-        attention_head<32>(hb, ctx, h, HD, L, S, scale);
-      }
+      float bv[6], acc[8][6];
+      load_bias(bqkv, qkv_cols, 3 * HD, bv);
+      consume(ring, xs, D, 3 * HD, acc);
+      consumer_sync();  // the last head's attention done with hb
+      epilogue(hb, 3 * HD, acc, bqkv, bv, store);
+      consumer_sync();  // q | k | v complete
+      attention(hb, ctx, h, HD, L, S, scale);
     }
-    ring_gemm<8>(ctx, D, wo, D, Cols{0, D, 0}, D, bo, ring, [&](int c, int r0, float4 v) {
-      float4* px = reinterpret_cast<float4*>(xs + (size_t)c * TS_LD + r0);
-      *px = add4(*px, v);
-    });
-    layer_norm(xs, D, p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D, red, nullptr,
+    consumer_sync();  // the context complete
+    {
+      const float* bo = p.bo + (size_t)l * D;
+      float bv[8], acc[8][8];
+      load_bias(bo, Cols{0, D, 0}, D, bv);
+      consume(ring, ctx, D, D, acc);
+      epilogue(xs, D, acc, bo, bv, add);
+    }
+    consumer_sync();  // the residual complete
+    layer_norm(xs, D, p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D, red, stage, nullptr,
                nullptr);
+
+    // the feed-forward, TS_FC hidden columns at a time; each chunk's
+    // partial of the output added into ctx in chunk order
     for (int c0 = 0; c0 < FF; c0 += TS_FC) {
       const int P = FF - c0 < TS_FC ? FF - c0 : TS_FC;
-      const auto relu_to_hb = [&](int c, int r0, float4 v) {
-        *reinterpret_cast<float4*>(hb + (size_t)c * TS_LD + r0) =
-            make_float4(fmaxf(v.x, 0.0f), fmaxf(v.y, 0.0f), fmaxf(v.z, 0.0f),
-                        fmaxf(v.w, 0.0f));
-      };
-      if (P > 128)  // the narrower tile for a last chunk of <= 128 columns
-        ring_gemm<6>(xs, D, w1, FF, Cols{c0, P, 0}, P, b1, ring, relu_to_hb);
+      if (P > 128) {
+        float bv[6], acc[8][6];
+        load_bias(b1, Cols{c0, P, 0}, P, bv);
+        consume(ring, xs, D, W1B, acc);
+        consumer_sync();  // the last chunk's hidden columns read
+        epilogue(hb, P, acc, b1, bv, relu);
+      } else {  // the narrower tile for a last chunk of <= 128 columns
+        float bv[4], acc[8][4];
+        load_bias(b1, Cols{c0, P, 0}, P, bv);
+        consume(ring, xs, D, W1B, acc);
+        consumer_sync();
+        epilogue(hb, P, acc, b1, bv, relu);
+      }
+      consumer_sync();  // the hidden chunk complete
+      float none[8], acc[8][8];
+      consume(ring, hb, P, D, acc);
+      if (c0 == 0)
+        epilogue(ctx, D, acc, nullptr, none, store);
       else
-        ring_gemm<4>(xs, D, w1, FF, Cols{c0, P, 0}, P, b1, ring, relu_to_hb);
-      ring_gemm<8>(hb, P, w2 + (size_t)c0 * D, D, Cols{0, D, 0}, D, nullptr, ring,
-                   [&](int c, int r0, float4 v) {
-                     float4* pc = reinterpret_cast<float4*>(ctx + (size_t)c * TS_LD + r0);
-                     *pc = c0 == 0 ? v : add4(*pc, v);
-                   });
+        epilogue(ctx, D, acc, nullptr, none, add);
     }
-    layer_norm(xs, D, p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D, red, ctx, b2);
+    consumer_sync();  // the feed-forward's sum complete
+    layer_norm(xs, D, p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D, red, stage, ctx,
+               p.b2 + (size_t)l * D);
   }
 
   // mean over each real sample's L rows
-  for (int i = threadIdx.x; i < S * D; i += TS_THREADS) {
+  for (int i = threadIdx.x; i < S * D; i += TS_CONSUMERS) {
     const int s = i / D, c = i - s * D;
     if (n0 + s >= p.N) continue;
     const float* col = xs + (size_t)c * TS_LD + s * L;
@@ -432,6 +586,46 @@ __global__ void __launch_bounds__(TS_THREADS, 1)
     for (int t = 0; t < L; ++t) sum += col[t];
     p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;
   }
+}
+
+// ---- tensor maps (host)
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point
+// query (the library does not link libcuda)
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)f;
+  }
+  return fn;
+}
+
+// The TMA map of an f32 tensor of `rank` (2 or 3) dimensions, innermost
+// first: dims in elements, the outer dimensions' strides in bytes (multiples
+// of 16, as the base address); a box of `box` elements lands densely, no
+// swizzle; its elements outside the tensor arrive as zeros.
+// CUDA_ERROR_NOT_SUPPORTED when libcuda's encoder is missing.
+static CUresult f32_tensor_map(CUtensorMap* map, const void* p, int rank, const cuuint64_t* dims,
+                               const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank, const_cast<void*>(p), dims,
+                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 extern "C" {
@@ -444,12 +638,13 @@ size_t transenc_simt_smem(int L, int D, int NH, int FF) {
     return 0;
   const int HD = D / NH;
   const int HB = 3 * HD > TS_FC ? 3 * HD : TS_FC;
-  return ((size_t)(2 * D + HB) * TS_LD + TS_STAGES * TS_BK * TS_WMAX +
-          2 * TS_THREADS) * sizeof(float);
+  return ((size_t)(2 * D + HB) * TS_LD + TS_STAGES * TS_BK * TS_WMAX + 2 * TS_CONSUMERS +
+          3 * TS_DMAX) * sizeof(float) + 2 * TS_STAGES * sizeof(uint64_t);
 }
 
-// All of x, the weights, the biases, the LayerNorm parameters and out f32.
-// S samples per CTA (S * L <= 64). Returns 0 or a cudaError_t value.
+// All of x, the weights, the biases, the LayerNorm parameters and out f32
+// (the weights 16-byte aligned). S samples per CTA (S * L <= 64). Returns 0
+// or a cudaError_t value.
 int transenc_simt_launch(const void* x, void* out, const void* wqkv,
                          const void* wo, const void* w1, const void* w2,
                          const void* bqkv, const void* bo, const void* b1,
@@ -458,15 +653,33 @@ int transenc_simt_launch(const void* x, void* out, const void* wqkv,
                          int NH, int FF, int NL, int S, void* stream, int device) {
   USE_DEVICE(device);
   const size_t smem = transenc_simt_smem(L, D, NH, FF);
-  if (smem == 0 || N < 1 || NL < 1 || S < 1 || S * L > TS_ROWS)
+  if (smem == 0 || N < 1 || NL < 1 || S < 1 || S * L > TS_ROWS ||
+      (reinterpret_cast<uintptr_t>(wqkv) | reinterpret_cast<uintptr_t>(wo) |
+       reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2)) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  const int HD = D / NH;
+  const cuuint32_t W1B = FF < TS_FC ? FF : TS_FC;
+  CUtensorMap maps[4];
+  // Wqkv (NL D, 3, D): a head's q | k | v, TS_BK k rows, as one 3-d box
+  const cuuint64_t qdims[3] = {(cuuint64_t)D, 3, (cuuint64_t)NL * D};
+  const cuuint64_t qstrides[2] = {(cuuint64_t)D * 4, (cuuint64_t)D * 12};
+  const cuuint32_t qbox[3] = {(cuuint32_t)HD, 3, TS_BK};
+  CUresult r = f32_tensor_map(&maps[0], wqkv, 3, qdims, qstrides, qbox);
+  const cuuint64_t odims[2] = {(cuuint64_t)D, (cuuint64_t)NL * D};
+  const cuuint64_t ostrides[1] = {(cuuint64_t)D * 4};
+  const cuuint32_t obox[2] = {(cuuint32_t)D, TS_BK};
+  if (r == CUDA_SUCCESS) r = f32_tensor_map(&maps[1], wo, 2, odims, ostrides, obox);
+  const cuuint64_t dims1[2] = {(cuuint64_t)FF, (cuuint64_t)NL * D};
+  const cuuint64_t strides1[1] = {(cuuint64_t)FF * 4};
+  const cuuint32_t box1[2] = {W1B, TS_BK};
+  if (r == CUDA_SUCCESS) r = f32_tensor_map(&maps[2], w1, 2, dims1, strides1, box1);
+  const cuuint64_t dims2[2] = {(cuuint64_t)D, (cuuint64_t)NL * FF};
+  if (r == CUDA_SUCCESS) r = f32_tensor_map(&maps[3], w2, 2, dims2, ostrides, obox);
+  if (r != CUDA_SUCCESS)
+    return r == CUDA_ERROR_NOT_SUPPORTED ? (int)cudaErrorNotSupported : (int)cudaErrorInvalidValue;
   EncSimtParams p;
   p.x = static_cast<const float*>(x);
   p.out = static_cast<float*>(out);
-  p.wqkv = static_cast<const float*>(wqkv);
-  p.wo = static_cast<const float*>(wo);
-  p.w1 = static_cast<const float*>(w1);
-  p.w2 = static_cast<const float*>(w2);
   p.bqkv = static_cast<const float*>(bqkv);
   p.bo = static_cast<const float*>(bo);
   p.b1 = static_cast<const float*>(b1);
@@ -486,8 +699,30 @@ int transenc_simt_launch(const void* x, void* out, const void* wqkv,
       transenc_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int grid = (N + S - 1) / S;
-  transenc_simt_kernel<<<grid, TS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  transenc_simt_kernel<<<grid, TS_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers a thread into *regs and the CTAs an SM holds at
+// (L, D, NH, FF) into *ctas (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// with its shared memory a CTA into *smem_bytes. Launches nothing. Returns 0
+// or a cudaError_t value.
+int transenc_simt_occupancy(int L, int D, int NH, int FF, int* ctas, int* regs,
+                            int* smem_bytes, int device) {
+  USE_DEVICE(device);
+  const size_t smem = transenc_simt_smem(L, D, NH, FF);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      transenc_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaFuncAttributes a;
+  e = cudaFuncGetAttributes(&a, transenc_simt_kernel);
+  if (e != cudaSuccess) return (int)e;
+  *regs = a.numRegs;
+  *smem_bytes = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, transenc_simt_kernel,
+                                                            TS_THREADS, smem);
 }
 
 }  // extern "C"

@@ -27,12 +27,14 @@ K3 has three designs, and ``k3_plan`` is the shape rule that picks one for
 a CUDA call (``design_calls`` counts the calls each design took):
 
 - ``simt`` (``csrc/transenc_simt.cu``), fp32 on the CUDA cores (exact f32
-  FMAs, no TF32): 64 rows a CTA (S = 64 // L samples), every product's
-  weight streamed through one cp.async ring of 16-row slabs that the CTA's
-  8 warps share, 8 x TN outputs a thread; one head's q | k | v at a time,
-  the feed-forward in 192-column chunks of its hidden layer. It takes fp32
-  with L <= 32, D a multiple of 16 up to 256, a head width that is a
-  multiple of 4 up to 64, FF a multiple of 16;
+  FMAs, no TF32): 64 rows a CTA (S = 64 // L samples), 8 consumer warps
+  and one producer thread that streams every product's weight slabs
+  (``SIMT_BK`` k rows, one TMA box each) through a ring of ``SIMT_STAGES``
+  slots on mbarriers, in the consumers' order across products and layers;
+  8 x TN outputs a consumer thread, its weights read a float4 at a time;
+  one head's q | k | v at a time, the feed-forward in 192-column chunks of
+  its hidden layer. It takes fp32 with L <= 32, D a multiple of 16 up to
+  256, a head width that is a multiple of 4 up to 64, FF a multiple of 16;
 - ``tc`` (``csrc/transenc_tc.cu``), bf16 on Hopper's wgmma fed by TMA: 64
   rows a CTA (S = 64 // L samples), one producer warp streaming every
   product's weight tiles (64 k rows x D / 2 columns, as stored) through one
@@ -72,10 +74,11 @@ LMAX = 32  # ENC_LMAX
 # TE_* in csrc/transenc_tc.cu: rows a CTA, k rows a ring tile, threads (two
 # consumer warpgroups and a producer warp), ring slots
 TC_ROWS, TC_BK, TC_THREADS, TC_STAGES = 64, 64, 288, 4
-# TS_* in csrc/transenc_simt.cu: threads and rows a CTA, the rows' k-major
-# stride, ring slab k rows, ring stages, widest slab, FF hidden columns a
-# chunk, the largest D and head width
-SIMT_THREADS, SIMT_ROWS, SIMT_LD = 256, 64, 68
+# TS_* in csrc/transenc_simt.cu: threads (8 consumer warps and a producer
+# warp), consumer threads, rows a CTA, the rows' k-major stride, ring slab k
+# rows (D and FF are multiples of it), ring slots, a slot's row width, FF
+# hidden columns a chunk, the largest D and head width
+SIMT_THREADS, SIMT_CONSUMERS, SIMT_ROWS, SIMT_LD = 288, 256, 64, 68
 SIMT_BK, SIMT_STAGES, SIMT_WMAX = 16, 2, 256
 SIMT_FC, SIMT_DMAX, SIMT_HDMAX = 192, 256, 64
 
@@ -119,16 +122,25 @@ def _load_tc():
     return _tc_lib
 
 
+def bind_simt(path: str):
+    """The library at ``path``, a build of ``csrc/transenc_simt.cu``, with
+    its entries' argument types set."""
+    lib = ctypes.CDLL(path)
+    fn = lib.transenc_simt_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p, ctypes.c_int])
+    occ = lib.transenc_simt_occupancy
+    occ.restype = ctypes.c_int
+    occ.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_int]
+    return lib
+
+
 def _load_simt():
     global _simt_lib
     with _lock:
         if _simt_lib is None:
-            lib = ctypes.CDLL(build(SIMT_SRC))
-            fn = lib.transenc_simt_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p, ctypes.c_int])
-            _simt_lib = lib
+            _simt_lib = bind_simt(build(SIMT_SRC))
     return _simt_lib
 
 
@@ -253,13 +265,14 @@ def tile_shape(L: int, D: int, FF: int) -> tuple[int, int, int]:
 
 def simt_smem(L: int, D: int, FF: int, nhead: int) -> int:
     """Shared memory a CTA of the simt design takes, in bytes: x and the
-    context (D columns each), one head's q | k | v or a chunk of the hidden
-    layer (max(3 HD, SIMT_FC) columns), all k-major with stride SIMT_LD; the
-    ring; LayerNorm's partial sums (2 x 256). ``transenc_simt_smem`` in the
-    source."""
+    context (D columns each) and one head's q | k | v or a chunk of the
+    hidden layer (max(3 HD, SIMT_FC) columns), k-major with stride SIMT_LD;
+    the ring (SIMT_STAGES slots of SIMT_BK x SIMT_WMAX); LayerNorm's partial
+    sums (2 x SIMT_CONSUMERS) and parameters (3 x SIMT_DMAX); the ring's 2
+    SIMT_STAGES mbarriers. ``transenc_simt_smem`` in the source."""
     hb = max(3 * (D // nhead), SIMT_FC)
-    return ((2 * D + hb) * SIMT_LD + SIMT_STAGES * SIMT_BK * SIMT_WMAX
-            + 2 * SIMT_THREADS) * 4
+    return ((2 * D + hb) * SIMT_LD + SIMT_STAGES * SIMT_BK * SIMT_WMAX + 2 * SIMT_CONSUMERS
+            + 3 * SIMT_DMAX) * 4 + 16 * SIMT_STAGES
 
 
 def _why_not_simt(L, D, FF, nhead):
@@ -332,6 +345,19 @@ def tc_occupancy(D: int, FF: int, device: int = 0) -> int:
     if rc != 0:
         raise RuntimeError("transenc_tc_occupancy failed: cudaError {}".format(rc))
     return n.value
+
+
+def simt_occupancy(L: int, D: int, FF: int, nhead: int, device: int = 0) -> dict:
+    """The simt design at (L, D, FF, nhead): its registers a thread, the CTAs
+    an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+    its shared memory a CTA; builds the kernel, launches nothing."""
+    lib = _load_simt()
+    n, regs, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.transenc_simt_occupancy(L, D, nhead, FF, ctypes.byref(n), ctypes.byref(regs),
+                                     ctypes.byref(smem), device)
+    if rc != 0:
+        raise RuntimeError("transenc_simt_occupancy failed: cudaError {}".format(rc))
+    return {"ctas_an_sm": n.value, "registers": regs.value, "smem": smem.value}
 
 
 def _launch(design, plan, stacked, x, compute_dtype, nhead, dims):

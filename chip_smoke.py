@@ -171,9 +171,14 @@ geometry), ``k1_tc_sweep`` (K1's bf16 design at each candidate geometry
 of its recurrence), ``k1_tc_probe`` (the bf16 recurrence's step split
 into its parts by clock marks in a copy of its source), ``k3_kernels``
 (the K3 kernel phase), ``k3_tc_sweep`` (K3's bf16 design at each ring depth,
-built in copies of its source) or ``k3_tc_probe`` (a layer of
+built in copies of its source), ``k3_tc_probe`` (a layer of
 K3's bf16 design split into its parts by clock marks in a copy of its
-source) (``main_only``), and prints no result line.
+source), ``k3_simt_probe`` (the same for K3's fp32 simt design: a layer's
+ring waits, products, epilogues, attention, LayerNorm and barriers, and
+the producer's waits) or ``k3_simt_sweep`` (K3's fp32 design beside
+variants built in copies of its source: 8-row slabs in 4 slots, and no
+ring synchronization at all)
+(``main_only``), and prints no result line.
 """
 
 import json
@@ -565,6 +570,22 @@ def _k3_waves(torch, fn, x, S):
             "one_wave_ms": time_ms(lambda: fn(x[:S * n_sm]), torch)}
 
 
+def _k3_tiles(rows, S, n_sm):
+    """The grid of K3 at ``rows`` samples, S a CTA: CTAs (one tile each),
+    waves of n_sm (one CTA an SM), the wave-times the grid takes and the
+    share of the last wave's SMs that work."""
+    tiles = -(-rows // S)
+    waves = tiles / n_sm
+    return {"tiles": tiles, "waves": waves, "wave_times": -(-tiles // n_sm),
+            "last_wave_share": (tiles - (-(-tiles // n_sm) - 1) * n_sm) / n_sm}
+
+
+def _k3_product_flops(rows, D, FF, NL):
+    """The encoder's product FLOPs (q|k|v, the output projection, the
+    feed-forward pair; attention's scores and context left out)."""
+    return (2 * L * D * 3 * D + 2 * L * D * D + 2 * 2 * L * D * FF) * NL * rows
+
+
 def _k3_inputs(torch, rows, dname):
     """K3's cell: transencoder2s's seeded weights (random biases and
     LayerNorm parameters, so each of K3's operands counts) stacked in the
@@ -589,7 +610,9 @@ def phase_k3_kernels(torch, smi):
     2B = 1024 and 16384 samples) in the design ``k3_plan`` picks (fp32:
     simt, bf16: tc) against its plain version, timed beside it,
     nn.TransformerEncoder + mean and the bound; at 1024 samples also one CTA
-    alone and one full wave."""
+    alone and one full wave; at both, the grid's tiles, waves and the last
+    wave's working share (``_k3_tiles``), and for simt its registers, CTAs
+    an SM, ring and the products' TFLOP/s over the kernel's time."""
     from ccsmeth_tpu_torch.ops import transenc
 
     cells = []
@@ -628,6 +651,12 @@ def phase_k3_kernels(torch, smi):
                         waves.update(stages=transenc.TC_STAGES,
                                      ctas_an_sm=transenc.tc_occupancy(D, FF))
             flops = transenc.encoder_flops(rows, L, D, FF, NLT)
+            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+            grid = _k3_tiles(rows, plan["S"], n_sm)
+            if plan["design"] == "simt":
+                grid.update(transenc.simt_occupancy(L, D, FF, NH), stages=transenc.SIMT_STAGES,
+                            slab_rows=transenc.SIMT_BK,
+                            product_tflops=_k3_product_flops(rows, D, FF, NLT) / kernel_ms / 1e9)
             bms, bby = _bound(flops, _nbytes(x, got, *st.values()), dname)
             res = {"phase": "kernel", "name": "transenc_encoder", "rows": rows,
                    "dtype": dname, "design": plan["design"],
@@ -637,7 +666,7 @@ def phase_k3_kernels(torch, smi):
                    "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, "bound_ms": bms, "bound_by": bby,
                    "gflop": flops / 1e9, "tflops_achieved": flops / kernel_ms / 1e9,
-                   "card": smi}
+                   "grid": grid, "card": smi}
             if waves is not None:
                 res["waves"] = waves
             emit(res)
@@ -831,6 +860,239 @@ def phase_k3_tc_probe(torch, smi):
                   "card": smi})
     finally:
         transenc._tc_lib = shipped
+
+
+# Variants of K3's fp32 simt design for ``k3_simt_sweep``: text replacements
+# on a copy of csrc/transenc_simt.cu (never on the shipped kernel), each
+# (old, new, count) applied to ``count`` places. "shipped" is the source as
+# it is; "slabs_8_rows_4_slots" streams
+# 8-row slabs through 4 slots (the same bytes in flight, twice the barrier
+# waits); "no_copies_no_waits" issues no TMA load and no ring wait or
+# arrival at all: its output is wrong and unchecked, its time the bound
+# that the ring's synchronization leaves.
+K3_SIMT_SWEEP = {
+    "shipped": [],
+    "slabs_8_rows_4_slots": [
+        ("#define TS_BK 16      // k rows of a ring slab\n", "#define TS_BK 8\n", 1),
+        ("#define TS_STAGES 2   // ring slots\n", "#define TS_STAGES 4\n", 1)],
+    "no_copies_no_waits": [
+        ("    if (use > 0) mbar_wait(ring.empty(s), (use - 1) & 1);\n", "", 1),
+        ("    mbar_expect_tx(ring.full(s), bytes);\n", "", 1),
+        ("    if (three_d)\n      tma_load_3d(dst, map, ring.full(s), col, 0, row + k0);\n"
+         "    else\n      tma_load_2d(dst, map, ring.full(s), col, row + k0);\n", "", 1),
+        ("    mbar_wait(ring.full(s), (ring.g / TS_STAGES) & 1);\n", "", 1),
+        ("    if (lane == 0) mbar_arrive(ring.empty(s));\n", "", 1)],
+}
+K3_SIMT_SWEEP_ROUNDS = 6  # timed rounds of every variant, in turns
+
+
+def phase_k3_simt_sweep(torch, smi):
+    """K3's fp32 simt design and its ``K3_SIMT_SWEEP`` variants (builds of
+    copies of csrc/transenc_simt.cu in WORK, one nvcc each, all started
+    together) at transencoder2s's width, 1,024 and 16,384 samples: each
+    checked variant's output bit-equal to the shipped build's; then
+    ``K3_SIMT_SWEEP_ROUNDS`` rounds of timings, the variants in turn
+    (forward, then reverse order), medians beside nn.TransformerEncoder +
+    mean on the same inputs."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ccsmeth_tpu_torch.ops import nvcc, transenc
+
+    src = open(os.path.join(nvcc.CSRC, transenc.SIMT_SRC)).read()
+    os.makedirs(WORK, exist_ok=True)
+
+    def build(name):
+        text = src
+        for old, new, count in K3_SIMT_SWEEP[name]:
+            assert text.count(old) == count, (name, old)
+            text = text.replace(old, new)
+        path = os.path.join(WORK, "transenc_simt_{}.cu".format(name))
+        with open(path, "w") as f:
+            f.write(text)
+        so = path[:-3] + ".so"
+        proc = subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-I", nvcc.CSRC, "-o", so, path],
+                              capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        return transenc.bind_simt(so)
+
+    with ThreadPoolExecutor(len(K3_SIMT_SWEEP)) as pool:
+        libs = dict(zip(K3_SIMT_SWEEP, pool.map(build, K3_SIMT_SWEEP)))
+    dt = torch.float32
+    shipped = transenc._simt_lib
+    try:
+        for rows in ROWS:
+            cfg, params, st, x = _k3_inputs(torch, rows, "float32")
+            NH = cfg.nhead
+            lib = _torch_encoder(torch, params, dt)
+            variants, want = [], None
+            for name, so in libs.items():
+                def fn(so=so):
+                    transenc._simt_lib = so
+                    return transenc.encoder_pooled(st, x, dt, NH)
+
+                got = fn()
+                torch.cuda.synchronize()
+                want = got if want is None else want
+                checked = name != "no_copies_no_waits"
+                equal = bool(torch.equal(got, want))
+                assert equal or not checked, (rows, name)
+                variants.append(({"variant": name, "checked": checked, "bit_equal": equal,
+                                  "ms_by_round": []}, fn))
+            lib_ms = []
+            with torch.inference_mode():
+                for r in range(K3_SIMT_SWEEP_ROUNDS):
+                    for res, fn in (variants if r % 2 == 0 else variants[::-1]):
+                        res["ms_by_round"].append(time_ms(fn, torch))
+                    lib_ms.append(time_ms(lambda: lib(x).float().mean(1), torch))
+            del lib
+            for res, _fn in variants:
+                res["median_ms"] = statistics.median(res["ms_by_round"])
+            emit({"phase": "k3_simt_sweep", "rows": rows, "rounds": K3_SIMT_SWEEP_ROUNDS,
+                  "variants": [res for res, _fn in variants],
+                  "library_ms": statistics.median(lib_ms), "card": smi})
+    finally:
+        transenc._simt_lib = shipped
+
+
+# The probe of the fp32 simt design: marks put into a copy of
+# csrc/transenc_simt.cu (never into the shipped kernel), each adding the
+# clock64 cycles since the thread's last mark to a per-part sum in shared
+# memory (flushed to device memory once, at the thread's end), for
+# consumer threads 0 and 128 (warps 0 and 4) and the producer thread of CTA
+# 0. Consumers' parts: 0 the waits on the ring's `full` barriers, 1 the
+# products' slab loops (with the bias loads before them), 2 the epilogues
+# (q | k | v, the hidden chunk, the residual and the sum), 3 attention, 4
+# the two LayerNorms (their barriers inside), 5 the named barriers between
+# the phases, 6 x's load and the set-up before the first layer, 7 the mean
+# after the last. The producer's: 0 its waits on `empty`, 1 the rest.
+K3_SIMT_PROBE_PARTS = ("ring_waits", "products", "epilogues", "attention", "layer_norm",
+                       "barriers", "x_load", "mean")
+K3_SIMT_PROBE_MARKS = [
+    ('#include "entry_device.cuh"\n',
+     '#include "entry_device.cuh"\n__device__ unsigned long long g_prof[3][8];\n'
+     '__shared__ unsigned long long prof_acc[3][8], prof_prev[3];\n'
+     '__device__ __forceinline__ int prof_who() {\n'
+     '  const int t = threadIdx.x;\n'
+     '  return blockIdx.x != 0 ? -1 : t == 0 ? 0 : t == 128 ? 1 : t == 256 ? 2 : -1;\n}\n'
+     '__device__ __forceinline__ void prof_mark(int k) {\n'
+     '  const int w = prof_who();\n'
+     '  if (w < 0) return;\n'
+     '  const unsigned long long now = clock64();\n'
+     '  if (k >= 0) prof_acc[w][k] += now - prof_prev[w];\n'
+     '  else for (int i = 0; i < 8; ++i) prof_acc[w][i] = 0;\n'
+     '  prof_prev[w] = now;\n}\n'
+     '__device__ __forceinline__ void prof_flush() {\n'
+     '  const int w = prof_who();\n'
+     '  if (w >= 0) for (int i = 0; i < 8; ++i) g_prof[w][i] += prof_acc[w][i];\n}\n'
+     '#define PROF(k) prof_mark(k);\n'),
+    ("  extern __shared__ __align__(128) float smem[];\n",
+     "  extern __shared__ __align__(128) float smem[];\n  PROF(-1)\n"),
+    ("  __syncthreads();\n  Ring ring{slots, bars, 0u};\n",
+     "  __syncthreads();\n  PROF(6)\n  Ring ring{slots, bars, 0u};\n"),
+    ("    mbar_wait(ring.full(s), (ring.g / TS_STAGES) & 1);\n",
+     "    PROF(1)\n    mbar_wait(ring.full(s), (ring.g / TS_STAGES) & 1);\n    PROF(0)\n"),
+    ("    if (lane == 0) mbar_arrive(ring.empty(s));\n  }\n}\n",
+     "    if (lane == 0) mbar_arrive(ring.empty(s));\n  }\n  PROF(1)\n}\n"),
+    ("        bias != nullptr ? add4(v, bv[c]) : v);\n    }\n  }\n}\n",
+     "        bias != nullptr ? add4(v, bv[c]) : v);\n    }\n  }\n  PROF(2)\n}\n"),
+    ("    if (active) ctx[(size_t)(h * HD + qd + 4 * n) * TS_LD + row] = c;\n  }\n}\n",
+     "    if (active) ctx[(size_t)(h * HD + qd + 4 * n) * TS_LD + row] = c;\n  }\n  PROF(3)\n}\n"),
+    ("    *px = (*px - mu) * rs * stage[c] + stage[TS_DMAX + c];\n  }\n  consumer_sync();\n}\n",
+     "    *px = (*px - mu) * rs * stage[c] + stage[TS_DMAX + c];\n  }\n  consumer_sync();\n"
+     "  PROF(4)\n}\n"),
+    ("      consumer_sync();  // the last head's attention done with hb\n",
+     "      consumer_sync();  // the last head's attention done with hb\n      PROF(5)\n"),
+    ("      consumer_sync();  // q | k | v complete\n",
+     "      consumer_sync();  // q | k | v complete\n      PROF(5)\n"),
+    ("    consumer_sync();  // the context complete\n",
+     "    consumer_sync();  // the context complete\n    PROF(5)\n"),
+    ("    consumer_sync();  // the residual complete\n",
+     "    consumer_sync();  // the residual complete\n    PROF(5)\n"),
+    ("        consumer_sync();  // the last chunk's hidden columns read\n",
+     "        consumer_sync();  // the last chunk's hidden columns read\n        PROF(5)\n"),
+    ("        consumer_sync();\n        epilogue(hb, P, acc, b1, bv, relu);\n      }\n",
+     "        consumer_sync();\n        PROF(5)\n        epilogue(hb, P, acc, b1, bv, relu);\n"
+     "      }\n"),
+    ("      consumer_sync();  // the hidden chunk complete\n",
+     "      consumer_sync();  // the hidden chunk complete\n      PROF(5)\n"),
+    ("    consumer_sync();  // the feed-forward's sum complete\n",
+     "    consumer_sync();  // the feed-forward's sum complete\n    PROF(5)\n"),
+    ("    p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;\n  }\n}\n",
+     "    p.out[(size_t)(n0 + s) * D + c] = sum / (float)L;\n  }\n  PROF(7)\n  prof_flush();\n}\n"),
+    ("    if (use > 0) mbar_wait(ring.empty(s), (use - 1) & 1);\n",
+     "    PROF(1)\n    if (use > 0) mbar_wait(ring.empty(s), (use - 1) & 1);\n    PROF(0)\n"),
+    ("    return;\n  }\n", "    PROF(1)\n    prof_flush();\n    return;\n  }\n"),
+    ("}  // extern \"C\"\n",
+     "void simt_probe(unsigned long long* out, int reset) {\n"
+     "  unsigned long long z[24] = {0};\n"
+     "  if (reset) cudaMemcpyToSymbol(g_prof, z, sizeof(z));\n"
+     "  else cudaMemcpyFromSymbol(out, g_prof, sizeof(z));\n}\n}  // extern \"C\"\n"),
+]
+
+
+def phase_k3_simt_probe(torch, smi):
+    """K3's fp32 simt design split into its parts (``K3_SIMT_PROBE_MARKS``)
+    on one tile of samples alone, one full wave and 1,024 samples: k cycles
+    a layer for each part (x's load and the mean: a call) of warps 0 and 4
+    and of the producer, the products' FMA rate (the tile's FMAs over 128 a
+    clock, against the products' and the ring waits' cycles), beside the
+    call's CUDA-event time."""
+    import ctypes
+
+    from ccsmeth_tpu_torch.ops import nvcc, transenc
+
+    src = open(os.path.join(nvcc.CSRC, transenc.SIMT_SRC)).read()
+    for old, new in K3_SIMT_PROBE_MARKS:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "transenc_simt_probe.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    so = path[:-3] + ".so"
+    proc = subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-I", nvcc.CSRC, "-o", so, path],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = transenc.bind_simt(so)
+    p = ctypes.c_void_p
+    lib.simt_probe.argtypes = [p, ctypes.c_int]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    shipped, transenc._simt_lib = transenc._simt_lib, lib
+    buf = (ctypes.c_ulonglong * 24)()
+    dt = torch.float32
+    try:
+        cfg, _params, st, x = _k3_inputs(torch, ROWS[0], "float32")
+        D, FF, NH, NLT = cfg.d_model, cfg.dim_ff, cfg.nhead, cfg.num_layers
+        S = transenc.k3_plan(L, D, FF, NH, dt)["S"]
+        tile_fmas = _k3_product_flops(S, D, FF, NLT) / 2 * (transenc.SIMT_ROWS / (S * L))
+        for rows in (S, S * n_sm, ROWS[0]):
+            xs = x[:rows]
+
+            def fn():
+                return transenc.encoder_pooled(st, xs, dt, NH)
+
+            fn()
+            torch.cuda.synchronize()
+            lib.simt_probe(None, 1)
+            ms = time_ms(fn, torch)
+            lib.simt_probe(ctypes.cast(buf, p), 0)
+            runs = REPS + 1  # the warm-up and the timed runs
+            parts = {}
+            for w, name in ((0, "warp0"), (1, "warp4")):
+                per = [buf[8 * w + k] / runs for k in range(8)]
+                parts[name] = {part: (v if part in ("x_load", "mean") else v / NLT) / 1e3
+                               for part, v in zip(K3_SIMT_PROBE_PARTS, per)}
+                parts[name]["fma_rate_in_products"] = tile_fmas / 128 / (per[1])
+                parts[name]["fma_rate_in_products_and_waits"] = tile_fmas / 128 / (per[0] + per[1])
+                parts[name]["tile_kcycles"] = sum(per) / 1e3
+            parts["producer"] = {"empty_waits": buf[16] / runs / NLT / 1e3,
+                                 "issue": buf[17] / runs / NLT / 1e3}
+            emit({"phase": "k3_simt_probe", "rows": rows, "stages": transenc.SIMT_STAGES,
+                  "slab_rows": transenc.SIMT_BK, "kernel_ms": ms,
+                  "layer_kcycles_by_part": parts, "tile_fma_kcycles": tile_fmas / 128 / 1e3,
+                  "card": smi})
+    finally:
+        transenc._simt_lib = shipped
 
 
 def phase_k3_l2(torch, smi, k3_cells):
@@ -4680,6 +4942,8 @@ def main_only(names):
         "k3_kernels": lambda: phase_k3_kernels(torch, smi),
         "k3_tc_sweep": lambda: phase_k3_tc_sweep(torch, smi),
         "k3_tc_probe": lambda: phase_k3_tc_probe(torch, smi),
+        "k3_simt_probe": lambda: phase_k3_simt_probe(torch, smi),
+        "k3_simt_sweep": lambda: phase_k3_simt_sweep(torch, smi),
         "dist": lambda: phase_dist(torch, smi),
         "wrappers": phase_wrappers}
     unknown = [n for n in names if n not in phases]

@@ -332,3 +332,75 @@ def test_layers_equal_the_stack_kernel_in_fp32(cell, hidden, rows):
     out1, hn1 = bigru.birnn_stack(ly, x, torch.float32, cell)
     torch.cuda.synchronize()
     assert torch.equal(out, out1) and torch.equal(hn, hn1)
+
+
+# ---- K3's fp32 (simt) design held to sha256 digests of its outputs, taken
+# on an H100 from the tree before its redesign for Hopper: the new design
+# keeps every product's fmaf chain, the feed-forward's chunk sums, the
+# residual adds, LayerNorm's and attention's orders and the mean, so its
+# output is the old one bit for bit. Cases (n, layers, D, FF, heads, L):
+# full width at n = 1, 2, 3, 37, 1,024 and 1,029 (ragged last tiles), and
+# narrower shapes the simt design takes: FF 208 and 400 (hidden chunks of
+# 192 + 16 and 192 + 192 + 16), D 64, 128 and 48 (heads of 16, 16 and 12),
+# L 32, 11 and 1 (2, 5 and 64 samples a tile). The digests of a tree print
+# with
+#     python -c "import sys; sys.path[:0] = ['.', 'tests']; import test_torch_transenc_kernels_cuda as t; t.print_k3_digests()"
+# from that tree's root.
+K3_CASES = ([(n, 6, 256, 512, 4, 21) for n in (1, 2, 3, 37, 1024, 1029)]
+            + [(50, 2, 256, 208, 4, 21), (50, 2, 256, 400, 4, 21), (50, 2, 64, 128, 4, 21),
+               (61, 2, 128, 256, 8, 21), (29, 2, 48, 96, 4, 21), (40, 2, 256, 512, 4, 32),
+               (77, 2, 256, 512, 4, 11), (200, 1, 64, 64, 2, 1)])
+
+
+def k3_digest(case):
+    """sha256 of K3's fp32 output on one case (inputs from numpy seeds)."""
+    import hashlib
+
+    n, layers, d, ff, nhead, seq = case
+    seed = n + 3 * d + 5 * ff + 7 * nhead + 11 * seq + layers
+    cfg = TransEncConfig(num_layers=layers, d_model=d, dim_ff=ff, nhead=nhead)
+    params = randomize_affine(init_transenc(seed, cfg), seed)
+    st = transenc.stack_layers(params["layers"], torch.float32, "cuda")
+    x = torch.from_numpy(np.random.RandomState(seed).randn(n, seq, d)
+                         .astype(np.float32)).to("cuda")
+    out = transenc.encoder_pooled(st, x, torch.float32, nhead)
+    torch.cuda.synchronize()
+    return hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+
+
+def print_k3_digests():
+    """Each case's digest, as K3_DIGESTS holds them."""
+    for case in K3_CASES:
+        print("    {!r}: {!r},".format(case, k3_digest(case)), flush=True)
+
+
+# ``k3_digest(case)``, taken on "NVIDIA H100 80GB HBM3, 700.00 W" from the
+# tree before the redesign (the simt design's cp.async ring)
+K3_DIGESTS = {
+    (1, 6, 256, 512, 4, 21): 'b9ae215c694aa496956e3ba5066c0b43f82d700807a6ecf0d27d9061a5332748',
+    (2, 6, 256, 512, 4, 21): 'b67518d142d990d4643048e9412141d53577ef1648be68d1e3634a86b3f3a6a5',
+    (3, 6, 256, 512, 4, 21): 'bd211dae3d15f95bd0e667b4d1c314fd61fbfe64a16815e46b2d617962811def',
+    (37, 6, 256, 512, 4, 21): 'dc540f5b94b87b31f8939930f7c63c0bbb7f3c20d7bae828a199e109bf00e119',
+    (1024, 6, 256, 512, 4, 21): '36023cf196d9953e5ec72f85cf00f4cce910ed591c2ffe6a259926d395fde0b9',
+    (1029, 6, 256, 512, 4, 21): '6fc5bc558ffd6d93973fb641032907e7f96c8d071e24410805be2872f1bd23cc',
+    (50, 2, 256, 208, 4, 21): '235fc7933396e063933f893fa4c9a537abd97e68e5e57e7ad83170efb324e45c',
+    (50, 2, 256, 400, 4, 21): 'a8c2e7f4d6c674313dca95d3118667a911703868e1e0867ca6ad672305eb3f64',
+    (50, 2, 64, 128, 4, 21): '9914407c2445281a8c83aff9379a6c2fcf92367e041b4fdb44ba0fac8d9445f2',
+    (61, 2, 128, 256, 8, 21): 'df577b9cc67d9df33ddaf601f78309b36a52471eb31ac850d092f2c20f8f2d4d',
+    (29, 2, 48, 96, 4, 21): '12c8cf22f1049534dbd598268e77da6fc7de2bccd5955281e2605a89f9018669',
+    (40, 2, 256, 512, 4, 32): 'dc261bc04ff59f93039a738900a0666a61c6fc6ff3ea4295c50f3061f4418572',
+    (77, 2, 256, 512, 4, 11): 'c888480756245eabb017fd054a7b771a8c700ab22def9564e20cf0f5aa1205c0',
+    (200, 1, 64, 64, 2, 1): 'c71579698cf8e34d802814e43e86444ae622c4de48ad3215e5470b7434c4d7c2',
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+def test_encoder_simt_bit_equal_to_the_parent_digests(case):
+    """The fp32 design gives the old design's output bit for bit on every
+    case, and again on a rerun."""
+    _need_card()
+    n, layers, d, ff, nhead, seq = case
+    assert transenc.k3_plan(seq, d, ff, nhead, torch.float32)["design"] == "simt"
+    assert k3_digest(case) == K3_DIGESTS[case]
+    assert k3_digest(case) == K3_DIGESTS[case]

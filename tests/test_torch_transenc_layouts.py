@@ -29,49 +29,123 @@ torch.set_num_threads(1)  # one intra-op thread: the suite runs several workers 
 SMALL = dict(num_layers=2, d_model=64, nhead=4, dim_ff=128, dropout_rate=0.0)
 
 
+def fma_chain(acc, a, w):
+    """acc (R, P) plus a (R, K) times w (K, P) as the kernel sums it: one
+    chain a element, acc = fma(a[:, k], w[k, :], acc) for k = 0 .. K-1 in
+    order (each step in f64, rounded to f32: a model of the order, not of
+    fmaf's single rounding)."""
+    acc = acc.double()
+    for k in range(a.shape[1]):
+        acc = (acc + a[:, k:k + 1].double() * w[k:k + 1, :].double()).float().double()
+    return acc.float()
+
+
+def _tiles(x, S):
+    """x (N, L, D) -> (tiles * S * L, D): tiles of S samples, the last one
+    padded with zero samples."""
+    N, L, D = x.shape
+    tiles = -(-N // S)
+    xt = torch.zeros((tiles * S, L, D))
+    xt[:N] = x
+    return xt.reshape(tiles * S * L, D), tiles
+
+
+def _attention(qkv, tiles, S, L, HD):
+    """One head's softmax(q k^T / sqrt(HD)) v over each sample's rows, from
+    a (rows, 3 HD) block [q | k | v]."""
+    q, k, v = (qkv[:, i * HD:(i + 1) * HD].reshape(tiles * S, L, HD) for i in range(3))
+    p = torch.softmax((q @ k.transpose(1, 2)) * (1.0 / HD ** 0.5), dim=-1)
+    return (p @ v).reshape(tiles * S * L, HD)
+
+
+def _layer_norm(h, st, name, li):
+    D = h.shape[1]
+    return F.layer_norm(h, (D,), st[name + "s"][li], st[name + "b"][li], 1e-5)
+
+
 def simt_order(st, x, nhead):
     """transenc_simt.cu's arithmetic in plain PyTorch, f32, in its order of
     work: tiles of S = SIMT_ROWS // L samples (the last one padded with zero
-    samples, which are dropped); per layer and head h, q | k | v from Wqkv's
-    columns h HD, D + h HD, 2D + h HD, the head's context into ctx's columns
-    h HD ..; x = LN(x + (ctx Wo + bo)); the hidden layer in SIMT_FC-column
-    chunks relu(x W1[:, c] + b1[c]), each times W2[c, :] added to the sum
-    chunk after chunk; x = LN(x + (sum + b2)); then the mean over L."""
+    samples, which are dropped); every product a chain over k carried from
+    ring slab to ring slab, each slab's image built from the producer's
+    copies (``simt_walk``) in the walk's order; per layer and head h, q | k
+    | v (Wqkv's columns h HD, D + h HD, 2D + h HD) plus its bias, the
+    head's context into ctx's columns h HD ..; x = LN(x + (ctx Wo + bo));
+    the hidden layer in SIMT_FC-column chunks relu(x W1[:, c] + b1[c]),
+    each chunk's product by W2[c, :] (a chain from 0) added to the sum chunk
+    after chunk; x = LN(x + (sum + b2)); then the mean over L."""
     N, L, D = x.shape
     NL, FF = st["w1"].shape[0], st["w1"].shape[2]
     HD = D // nhead
     S = transenc.SIMT_ROWS // L
-    tiles = -(-N // S)
-    xt = torch.zeros((tiles * S, L, D))
-    xt[:N] = x
-    h = xt.reshape(tiles, S * L, D)
+    h, tiles = _tiles(x, S)
+    walk = iter(simt_walk(NL, D, nhead, FF))
+
+    def product(A, w, K):
+        acc = None
+        for k0 in range(0, K, transenc.SIMT_BK):
+            _l, _kind, _idx, k0w, kn, P, copies, _ws = next(walk)
+            assert k0w == k0
+            slot = torch.zeros((transenc.SIMT_BK, transenc.SIMT_WMAX))
+            for row, c, n, kk, sc in copies:
+                slot[kk, sc:sc + n] = w[row, c:c + n]
+            acc = torch.zeros((A.shape[0], P)) if acc is None else acc
+            acc = fma_chain(acc, A[:, k0:k0 + kn], slot[:kn, :P])
+        return acc
+
     for li in range(NL):
-        ctx = torch.empty_like(h)
+        ctx = torch.zeros((h.shape[0], D))
         for hh in range(nhead):
-            cols = torch.cat([torch.arange(hh * HD, (hh + 1) * HD) + i * D
-                              for i in range(3)])
-            qkv = h @ st["wqkv"][li][:, cols] + st["bqkv"][li][cols]
-            q, k, v = (qkv[..., i * HD:(i + 1) * HD].reshape(tiles, S, L, HD)
-                       for i in range(3))
-            p = torch.softmax((q @ k.transpose(2, 3)) * (1.0 / HD ** 0.5), dim=-1)
-            ctx[..., hh * HD:(hh + 1) * HD] = (p @ v).reshape(tiles, S * L, HD)
-        h = F.layer_norm(h + (ctx @ st["wo"][li] + st["bo"][li]), (D,),
-                         st["ln1s"][li], st["ln1b"][li], 1e-5)
+            cols = torch.cat([torch.arange(hh * HD, (hh + 1) * HD) + i * D for i in range(3)])
+            qkv = product(h, st["wqkv"][li], D) + st["bqkv"][li][cols]
+            ctx[:, hh * HD:(hh + 1) * HD] = _attention(qkv, tiles, S, L, HD)
+        h = _layer_norm(h + (product(ctx, st["wo"][li], D) + st["bo"][li]), st, "ln1", li)
         f = None
         for c0 in range(0, FF, transenc.SIMT_FC):
             c1 = min(FF, c0 + transenc.SIMT_FC)
-            hid = torch.relu(h @ st["w1"][li][:, c0:c1] + st["b1"][li][c0:c1])
-            part = hid @ st["w2"][li][c0:c1]
+            hid = torch.relu(product(h, st["w1"][li], D) + st["b1"][li][c0:c1])
+            part = product(hid, st["w2"][li], c1 - c0)
             f = part if f is None else f + part
-        h = F.layer_norm(h + (f + st["b2"][li]), (D,), st["ln2s"][li],
-                         st["ln2b"][li], 1e-5)
+        h = _layer_norm(h + (f + st["b2"][li]), st, "ln2", li)
+    assert next(walk, None) is None
+    return h.reshape(tiles * S, L, D)[:N].mean(dim=1)
+
+
+def simt_order_parent(st, x, nhead):
+    """The order of work of the design before (its cp.async ring), each
+    product one chain over its weight's rows and columns sliced from the
+    stacked weights directly: q | k | v of head h from Wqkv's column
+    slices, every head's context into a context buffer's columns h HD ..,
+    then one chain over its D columns by Wo; the feed-forward's chunk
+    partials added into the same buffer chunk after chunk."""
+    N, L, D = x.shape
+    NL, FF = st["w1"].shape[0], st["w1"].shape[2]
+    HD = D // nhead
+    S = transenc.SIMT_ROWS // L
+    h, tiles = _tiles(x, S)
+    for li in range(NL):
+        ctx = torch.zeros((h.shape[0], D))
+        for hh in range(nhead):
+            cols = torch.cat([torch.arange(hh * HD, (hh + 1) * HD) + i * D for i in range(3)])
+            qkv = fma_chain(torch.zeros((h.shape[0], 3 * HD)), h, st["wqkv"][li][:, cols])
+            ctx[:, hh * HD:(hh + 1) * HD] = _attention(qkv + st["bqkv"][li][cols], tiles, S, L,
+                                                       HD)
+        a = fma_chain(torch.zeros((h.shape[0], D)), ctx, st["wo"][li]) + st["bo"][li]
+        h = _layer_norm(h + a, st, "ln1", li)
+        for c0 in range(0, FF, transenc.SIMT_FC):
+            c1 = min(FF, c0 + transenc.SIMT_FC)
+            hid = fma_chain(torch.zeros((h.shape[0], c1 - c0)), h, st["w1"][li][:, c0:c1])
+            hid = torch.relu(hid + st["b1"][li][c0:c1])
+            part = fma_chain(torch.zeros((h.shape[0], D)), hid, st["w2"][li][c0:c1])
+            ctx = part if c0 == 0 else ctx + part
+        h = _layer_norm(h + (ctx + st["b2"][li]), st, "ln2", li)
     return h.reshape(tiles * S, L, D)[:N].mean(dim=1)
 
 
 @pytest.mark.parametrize("seq_len,d,ff,nhead", [(21, 256, 512, 4), (21, 64, 128, 4),
                                                (32, 256, 512, 8), (1, 32, 48, 2)])
 def test_k3_plan_takes_fp32_shapes_to_the_simt_design(seq_len, d, ff, nhead):
-    """fp32 at transencoder2s's shape (226,304 bytes a CTA, 3 samples) and at
+    """fp32 at transencoder2s's shape (229,408 bytes a CTA, 3 samples) and at
     smaller ones goes to the simt design: S = 64 // L samples a CTA, shared
     memory within the limit; it says why not tc."""
     plan = transenc.k3_plan(seq_len, d, ff, nhead, torch.float32)
@@ -80,7 +154,7 @@ def test_k3_plan_takes_fp32_shapes_to_the_simt_design(seq_len, d, ff, nhead):
     assert plan["smem"] == transenc.simt_smem(seq_len, d, ff, nhead) <= SMEM_LIMIT
     assert "fp32" in plan["why"]
     if (seq_len, d, ff, nhead) == (21, 256, 512, 4):
-        assert (plan["S"], plan["smem"]) == (3, 226_304)
+        assert (plan["S"], plan["smem"]) == (3, 229_408)
 
 
 @pytest.mark.parametrize("seq_len,d,ff,nhead,why", [
@@ -100,47 +174,63 @@ def test_k3_plan_sends_fp32_shapes_simt_refuses_to_l2(seq_len, d, ff, nhead, why
     assert "simt: " in plan["why"]
 
 
-def test_simt_constants_follow_the_kernel_source():
-    """The wrapper's copy of the tile (threads, rows, k-major stride, ring
-    slab rows, ring stages, widest slab, hidden chunk, the largest D, head
-    width and L) is the source's #defines, and simt_smem is the source's
-    transenc_simt_smem."""
+def _simt_source():
     path = os.path.join(os.path.dirname(transenc.__file__), "csrc", transenc.SIMT_SRC)
     with open(path) as f:
-        src = f.read()
+        return f.read()
+
+
+def test_simt_constants_follow_the_kernel_source():
+    """The wrapper's copy of the design (threads, consumer threads, rows,
+    the k-major stride, ring slab rows, ring slots, a slot's row width, hidden
+    chunk, the largest D, head width and L) is the source's #defines, and
+    simt_smem is the source's transenc_simt_smem."""
+    src = _simt_source()
     defines = dict(re.findall(r"^#define (TS_\w+) (\d+)", src, re.M))
-    want = {"TS_THREADS": transenc.SIMT_THREADS, "TS_ROWS": transenc.SIMT_ROWS,
-            "TS_LD": transenc.SIMT_LD, "TS_LMAX": transenc.LMAX,
+    want = {"TS_THREADS": transenc.SIMT_THREADS, "TS_CONSUMERS": transenc.SIMT_CONSUMERS,
+            "TS_ROWS": transenc.SIMT_ROWS, "TS_LD": transenc.SIMT_LD, "TS_LMAX": transenc.LMAX,
             "TS_BK": transenc.SIMT_BK, "TS_STAGES": transenc.SIMT_STAGES,
             "TS_WMAX": transenc.SIMT_WMAX, "TS_FC": transenc.SIMT_FC,
             "TS_DMAX": transenc.SIMT_DMAX, "TS_HDMAX": transenc.SIMT_HDMAX}
     assert {k: int(defines[k]) for k in want} == want
     flat = " ".join(src.split())
     for line in ("const int HB = 3 * HD > TS_FC ? 3 * HD : TS_FC;",
-                 "return ((size_t)(2 * D + HB) * TS_LD + TS_STAGES * TS_BK * TS_WMAX "
-                 "+ 2 * TS_THREADS) * sizeof(float);",
-                 "ring_gemm<6>(xs, D, wqkv, 3 * D, qkv_cols, 3 * HD, bqkv, ring,",
+                 "return ((size_t)(2 * D + HB) * TS_LD + TS_STAGES * TS_BK * TS_WMAX + "
+                 "2 * TS_CONSUMERS + 3 * TS_DMAX) * sizeof(float) + 2 * TS_STAGES * "
+                 "sizeof(uint64_t);",
                  "const Cols qkv_cols = {h * HD, HD, D};",
                  "for (int c0 = 0; c0 < FF; c0 += TS_FC) {",
-                 "*pc = c0 == 0 ? v : add4(*pc, v);"):
+                 "epilogue(ctx, D, acc, nullptr, none, store);",
+                 "epilogue(ctx, D, acc, nullptr, none, add);",
+                 "const auto add = [](float4* pd, float4 v) { *pd = add4(*pd, v); };",
+                 "layer_norm(xs, D, p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D, red, stage, "
+                 "ctx, p.b2 + (size_t)l * D);",
+                 "if (add != nullptr) *px += add[(size_t)c * TS_LD + r] + stage[2 * TS_DMAX + c];",
+                 "__launch_bounds__(TS_THREADS, 1)"):
         assert line in flat, line
-    # the widest slab holds the widest product's 32 TN columns (TN = 8)
+    # the widest product (32 column groups of TN = 8) fills a slot's row;
+    # the consumers are 8 warps, the producer one more
     assert transenc.SIMT_WMAX == 32 * 8 == transenc.SIMT_DMAX
+    assert transenc.SIMT_THREADS == transenc.SIMT_CONSUMERS + 32 == 9 * 32
+    assert transenc.SIMT_FC % transenc.SIMT_BK == 0
+    assert transenc.simt_smem(21, 256, 512, 4) == (704 * 68 + 2 * 16 * 256 + 512 + 768) * 4 + 32
 
 
 def test_simt_source_is_exact_f32_fmas():
     """The simt design's code (comments dropped) issues no tensor-core
-    instruction and calls no library: its products are fmaf, and it uses
-    mma_tile.cuh only for the cp.async ring."""
-    path = os.path.join(os.path.dirname(transenc.__file__), "csrc", transenc.SIMT_SRC)
-    with open(path) as f:
-        code = re.sub(r"//.*", "", f.read())
+    instruction, no TF32 and no bf16 conversion, and calls no library: its
+    products are fmaf chains, and its copies are the producer's TMA loads of
+    f32 boxes onto the ring's mbarriers."""
+    code = re.sub(r"//.*", "", _simt_source())
     for word in ("mma_bf16", "ldmatrix", "wgmma", "mma.sync", "tf32", "cublas",
-                 "cudnn", "__float2bfloat16"):
+                 "cudnn", "__float2bfloat16", "bfloat16", "__half", "cvt.rn"):
         assert word not in code.lower(), word
     assert "acc[r][c] = fmaf(a[r], b[c], acc[r][c]);" in code
-    assert {"cp_async_16", "cp_async_commit", "cp_async_wait"} <= set(
-        re.findall(r"\b(cp_async_\w+)", code))
+    for word in ("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes",
+                 "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes",
+                 "CU_TENSOR_MAP_DATA_TYPE_FLOAT32", "mbarrier.arrive.expect_tx",
+                 "mbarrier.try_wait.parity", "mbarrier.init"):
+        assert word in code, word
 
 
 def _case(n, seed):
@@ -189,6 +279,256 @@ def test_simt_order_chunks_the_feed_forward(ff, reference):
         jcfg = JaxTransEncConfig(**dict(SMALL, dim_ff=ff))
         want = jnp.mean(_encoder(params, jcfg, jnp.asarray(x), None, False), axis=1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,ff", [(1, 128), (3, 128), (50, 128), (5, 208), (5, 400)])
+def test_simt_order_keeps_the_parent_order(n, ff):
+    """The new order of work (every product's chain carried over the ring's
+    slabs of SIMT_BK k rows, each slab gathered by the producer's copies)
+    gives the old order's numbers bit for bit: the same chains, in the same
+    order, over the same weights."""
+    cfg = TransEncConfig(**dict(SMALL, dim_ff=ff))
+    params = randomize_affine(init_transenc(n + ff, cfg), n + ff)
+    x = torch.from_numpy(np.random.RandomState(n).randn(n, 21, 64).astype(np.float32) * 0.4)
+    st = transenc.stack_layers(params["layers"])
+    assert torch.equal(simt_order(st, x, 4), simt_order_parent(st, x, 4))
+
+
+# ---- the simt design's ring: the producer's walk over the weight slabs,
+# the consumers' order, their barriers and the ring's protocol, and the
+# consumer threads' tiles
+
+def simt_walk(NL, D, NH, FF):
+    """The producer's slabs of a tile (transenc_simt.cu's producer loop), in
+    order: (layer, product, index, k0, kn, P, copies, ws). Each slab is one
+    TMA box that lands as a dense [SIMT_BK][ws] image; a copy (weight row,
+    first column, columns, slot row, slot column) is one of its in-bounds
+    row segments (the rest of a box, past the weight's columns, arrives as
+    zeros). Per layer and head the q | k | v slabs (the 3-d box of Wqkv's
+    columns h HD, D + h HD, 2D + h HD: ws = 3 HD), then Wo's D rows (ws =
+    D); per hidden chunk c0, W1's columns (a box of min(FF, SIMT_FC)
+    columns) and W2's rows (ws = D)."""
+    HD, BK, FC = D // NH, transenc.SIMT_BK, transenc.SIMT_FC
+    w1b = min(FF, FC)
+    walk = []
+
+    def put(l, kind, idx, row0, K, base, seg, stride, P, ws):
+        for k0 in range(0, K, BK):
+            kn = min(BK, K - k0)
+            copies = [(row0 + k0 + kk, base + sg * stride, seg, kk, sg * seg)
+                      for kk in range(kn) for sg in range(P // seg)]
+            walk.append((l, kind, idx, k0, kn, P, copies, ws))
+
+    for l in range(NL):
+        for h in range(NH):
+            put(l, "qkv", h, 0, D, h * HD, HD, D, 3 * HD, 3 * HD)
+        put(l, "wo", 0, 0, D, 0, D, 0, D, D)
+        for c0 in range(0, FF, FC):
+            P = min(FC, FF - c0)
+            put(l, "w1", c0, 0, D, c0, P, 0, P, w1b)
+            put(l, "w2", c0, c0, P, 0, D, 0, D, D)
+    return walk
+
+
+def simt_program(NL, D, NH, FF):
+    """A consumer warp's program (the kernel's consumer loop): ("take",
+    product, index, k0) for each slab it consumes, ("sync",) for each named
+    barrier, in order."""
+    HD, BK, FC = D // NH, transenc.SIMT_BK, transenc.SIMT_FC
+    prog = []
+
+    def take(kind, idx, K):
+        prog.extend(("take", kind, idx, k0) for k0 in range(0, K, BK))
+
+    ln = [("sync",)] * 4  # layer_norm's four barriers
+    for _l in range(NL):
+        for h in range(NH):
+            take("qkv", h, D)
+            prog += [("sync",)] * 2  # hb free; q | k | v complete
+        prog += [("sync",)]  # the context complete
+        take("wo", 0, D)
+        prog += [("sync",)] + ln  # the residual complete; LayerNorm 1
+        for c0 in range(0, FF, FC):
+            take("w1", c0, D)
+            prog += [("sync",)] * 2  # hb free; the hidden chunk complete
+            take("w2", c0, min(FC, FF - c0))
+        prog += [("sync",)] + ln
+    return prog
+
+
+SIMT_SHAPES = [(2, 256, 4, 512), (2, 64, 4, 128), (1, 48, 4, 96), (1, 256, 8, 400),
+               (1, 16, 4, 16)]
+
+
+@pytest.mark.parametrize("NL,D,NH,FF", SIMT_SHAPES)
+def test_simt_walk_is_the_consumers_order_and_covers_each_weight(NL, D, NH, FF):
+    """The producer's slabs are the consumers' takes, one for one; each
+    layer's boxes copy every element of Wqkv, Wo, W1 and W2 exactly once,
+    into a slot's rows in the product's column order (q | k | v of the head,
+    or the chunk's columns), each row a multiple of 16 bytes; at transencoder2s's shape a tile is 320 slabs a layer."""
+    walk = simt_walk(NL, D, NH, FF)
+    takes = [t[1:] for t in simt_program(NL, D, NH, FF) if t[0] == "take"]
+    assert [w[1:4] for w in walk] == takes
+    HD = D // NH
+    shapes = {"qkv": (D, 3 * D), "wo": (D, D), "w1": (D, FF), "w2": (FF, D)}
+    for l in range(NL):
+        for kind, (rows, cols) in shapes.items():
+            cover = torch.zeros((rows, cols), dtype=torch.int64)
+            for (_l, _k, idx, k0, kn, P, copies, ws) in (w for w in walk if w[:2] == (l, kind)):
+                # a box fits a slot, its rows are 16-byte multiples, P <= ws
+                assert kn == transenc.SIMT_BK and P <= ws <= transenc.SIMT_WMAX
+                assert ws % 4 == 0
+                slot = []
+                for (row, c, n, kk, sc) in copies:
+                    assert n % 4 == 0 and c % 4 == 0 and sc % 4 == 0 and sc + n <= P
+                    cover[row, c:c + n] += 1
+                    slot.append((kk, sc, row, c))
+                # slot row kk, column sc + e holds the product's pass column
+                # sc + e: for q | k | v, column (sc // HD) D + h HD + e
+                for kk, sc, row, c in slot:
+                    if kind == "qkv":
+                        assert c == (sc // HD) * D + idx * HD and row == k0 + kk
+                    elif kind == "w1":
+                        assert c == idx + sc and row == k0 + kk
+                    else:
+                        assert c == 0 and row == (idx if kind == "w2" else 0) + k0 + kk
+            assert bool((cover == 1).all()), (l, kind)
+    if (NL, D, NH, FF) == (2, 256, 4, 512):
+        assert len(walk) == 2 * 160
+
+
+@pytest.mark.parametrize("stages", [1, 2, 6])
+@pytest.mark.parametrize("NL,D,NH,FF", SIMT_SHAPES[:3])
+def test_simt_ring_protocol_runs_to_the_end(NL, D, NH, FF, stages):
+    """A simulation of the ring on mbarriers and the consumers' named
+    barriers, steps taken in random order: the producer issues slab g once
+    all 8 consumer warps released slab g - stages (`empty`); a warp takes
+    its next slab once it was issued (`full`) and releases it; a warp passes
+    a barrier once all 8 reached it. It never deadlocks, at any ring depth,
+    and every slab is issued once and released by every warp."""
+    walk = simt_walk(NL, D, NH, FF)
+    prog = simt_program(NL, D, NH, FF)
+    n, warps = len(walk), 8
+    rng = np.random.RandomState(stages + D)
+    issued = 0
+    released = [0] * n
+    pc = [0] * warps        # each warp's next step
+    taken = [0] * warps     # slabs each warp took
+    synced = [0] * warps    # barriers each warp passed
+
+    def at_sync(w):
+        return pc[w] < len(prog) and prog[pc[w]][0] == "sync"
+
+    while any(p < len(prog) for p in pc):
+        moves = []
+        if issued < n and (issued < stages or released[issued - stages] == warps):
+            moves.append(("issue", None))
+        for w in range(warps):
+            if pc[w] >= len(prog):
+                continue
+            if prog[pc[w]][0] == "take":
+                if taken[w] < issued:
+                    moves.append(("take", w))
+            elif all(at_sync(v) and synced[v] == synced[w] or synced[v] > synced[w]
+                     for v in range(warps)):
+                moves.append(("sync", w))
+        assert moves, (issued, pc)
+        kind, w = moves[rng.randint(len(moves))]
+        if kind == "issue":
+            issued += 1
+        elif kind == "take":
+            assert prog[pc[w]][1:] == walk[taken[w]][1:4]
+            released[taken[w]] += 1
+            taken[w] += 1
+            pc[w] += 1
+        else:
+            synced[w] += 1
+            pc[w] += 1
+    assert issued == n and released == [warps] * n
+
+
+def test_simt_walk_follows_the_kernel_source():
+    """simt_walk and simt_program are the kernel's producer and consumer
+    loops: the products' calls, the barriers between them, the ring's
+    waits, releases and barrier counts."""
+    flat = " ".join(re.sub(r"//.*", "", _simt_source()).split())
+    for line in (
+            "for (int h = 0; h < NH; ++h) produce(ring, &mqkv, true, h * HD, l * D, D, qkv_bytes); "
+            "produce(ring, &mo, false, 0, l * D, D, d_bytes);",
+            "produce(ring, &m1, false, c0, l * D, D, w1_bytes);",
+            "produce(ring, &m2, false, 0, l * FF + c0, P, d_bytes);",
+            "const uint32_t qkv_bytes = 3 * HD * TS_BK * sizeof(float);",
+            "const uint32_t d_bytes = D * TS_BK * sizeof(float);",
+            "const uint32_t w1_bytes = W1B * TS_BK * sizeof(float);",
+            "const int W1B = FF < TS_FC ? FF : TS_FC;",
+            "for (int k0 = 0; k0 < K; k0 += TS_BK, ++ring.g) { const int s = ring.g % TS_STAGES, "
+            "use = ring.g / TS_STAGES;",
+            "if (use > 0) mbar_wait(ring.empty(s), (use - 1) & 1); mbar_expect_tx(ring.full(s), bytes);",
+            "tma_load_3d(dst, map, ring.full(s), col, 0, row + k0);",
+            "tma_load_2d(dst, map, ring.full(s), col, row + k0);",
+            "const cuuint64_t qdims[3] = {(cuuint64_t)D, 3, (cuuint64_t)NL * D};",
+            "const cuuint64_t qstrides[2] = {(cuuint64_t)D * 4, (cuuint64_t)D * 12};",
+            "const cuuint32_t qbox[3] = {(cuuint32_t)HD, 3, TS_BK};",
+            "const cuuint32_t obox[2] = {(cuuint32_t)D, TS_BK};",
+            "const cuuint32_t box1[2] = {W1B, TS_BK};",
+            "const cuuint64_t dims2[2] = {(cuuint64_t)D, (cuuint64_t)NL * FF};",
+            "mbar_wait(ring.full(s), (ring.g / TS_STAGES) & 1);",
+            "__syncwarp(); if (lane == 0) mbar_arrive(ring.empty(s));",
+            "mbar_init(smem_addr(bars + s), 1);",
+            "mbar_init(smem_addr(bars + TS_STAGES + s), TS_CONSUMERS / 32);",
+            "consume(ring, xs, D, 3 * HD, acc); consumer_sync(); "
+            "epilogue(hb, 3 * HD, acc, bqkv, bv, store); consumer_sync(); "
+            "attention(hb, ctx, h, HD, L, S, scale); } consumer_sync();",
+            "consume(ring, ctx, D, D, acc); epilogue(xs, D, acc, bo, bv, add); } "
+            "consumer_sync(); layer_norm(xs, D, p.ln1s + (size_t)l * D, p.ln1b + (size_t)l * D, "
+            "red, stage, nullptr, nullptr);",
+            "consume(ring, xs, D, W1B, acc); consumer_sync(); epilogue(hb, P, acc, b1, bv, relu);",
+            "consumer_sync(); float none[8], acc[8][8]; consume(ring, hb, P, D, acc);",
+            "} consumer_sync(); layer_norm(xs, D, p.ln2s + (size_t)l * D, p.ln2b + (size_t)l * D, "
+            "red, stage, ctx, p.b2 + (size_t)l * D);",
+            "if (active) ctx[(size_t)(h * HD + qd + 4 * n) * TS_LD + row] = c;"):
+        assert line in flat, line
+    # layer_norm's four barriers
+    ln = flat[flat.index("__device__ __forceinline__ void layer_norm("):]
+    ln = ln[:ln.index("__global__ void")]
+    assert ln.count("consumer_sync();") == 4
+
+
+def simt_tile(tn):
+    """The consumer threads' (row, column) pairs of a 64-row product tile:
+    thread t (warp w = t // 32, lane), ty = lane // 4, tx = 4 w + lane % 4,
+    rows 4 ty + r and 32 + 4 ty + r (r < 4), columns 4 tx + c (c < 4) and,
+    for TN = 8 / 6, 128 + 4 tx + c / 128 + 2 tx + c."""
+    out = {}
+    for t in range(transenc.SIMT_CONSUMERS):
+        w, lane = t // 32, t % 32
+        ty, tx = lane // 4, 4 * w + lane % 4
+        rows = [4 * ty + r for r in range(4)] + [32 + 4 * ty + r for r in range(4)]
+        cols = [4 * tx + c for c in range(4)]
+        if tn > 4:
+            cols += [128 + (2 if tn == 6 else 4) * tx + c for c in range(tn - 4)]
+        out[t] = (rows, cols)
+    return out
+
+
+@pytest.mark.parametrize("tn,width", [(8, 256), (6, 192), (4, 128)])
+def test_simt_thread_tiles_cover_each_product_once(tn, width):
+    """The 256 consumer threads' 8 x TN tiles cover the 64 x width product
+    exactly once; a warp's A reads (rows 4 ty .. + 3, then + 32) are 128
+    contiguous bytes and its weight reads one run of contiguous columns per
+    group."""
+    tiles = simt_tile(tn)
+    cover = torch.zeros((64, width), dtype=torch.int64)
+    for rows, cols in tiles.values():
+        for r in rows:
+            for c in cols:
+                cover[r, c] += 1
+    assert bool((cover == 1).all())
+    for w in range(8):
+        lanes = [tiles[32 * w + i] for i in range(32)]
+        assert sorted({rows[0] for rows, _ in lanes}) == list(range(0, 32, 4))
+        first = sorted({cols[0] for _, cols in lanes})
+        assert first == list(range(16 * w, 16 * w + 16, 4))
 
 
 # ---- the bf16 tc design (csrc/transenc_tc.cu) on the CPU: k3_plan's rule,
@@ -275,6 +615,47 @@ def test_probe_marks_each_apply_once_to_the_kernel_source():
         assert src.count(old) == 1, old
     marked = "".join(new for _old, new in smoke.K3_TC_PROBE_MARKS)
     assert all("PROF({})".format(k) in marked for k in range(len(smoke.K3_TC_PROBE_PARTS)))
+
+
+def test_simt_probe_marks_each_apply_once_to_the_kernel_source():
+    """chip_smoke.py's k3_simt_probe builds a copy of the simt source with
+    clock64 marks put in by text replacement: each mark's anchor is in the
+    shipped source exactly once, and every part is marked."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_simt_marks", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = _simt_source()
+    for old, _new in smoke.K3_SIMT_PROBE_MARKS:
+        assert src.count(old) == 1, old
+    marked = "".join(new for _old, new in smoke.K3_SIMT_PROBE_MARKS)
+    assert all("PROF({})".format(k) in marked
+               for k in range(len(smoke.K3_SIMT_PROBE_PARTS)))
+
+
+def test_simt_sweep_variants_apply_to_the_kernel_source():
+    """chip_smoke.py's k3_simt_sweep builds variants of the simt source by
+    text replacement: each replacement's anchor is in the shipped source as
+    many times as the variant says, the shipped variant changes nothing,
+    and the one variant left unchecked is the one without the ring's
+    copies and waits."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_simt_sweep", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    src = _simt_source()
+    assert smoke.K3_SIMT_SWEEP["shipped"] == []
+    for name, reps in smoke.K3_SIMT_SWEEP.items():
+        for old, _new, count in reps:
+            assert src.count(old) == count, (name, old)
+    flat = " ".join(open(path).read().split())
+    assert 'checked = name != "no_copies_no_waits"' in flat
 
 
 def swizzle128(addr):
