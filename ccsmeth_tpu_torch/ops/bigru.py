@@ -30,8 +30,9 @@ h_n is scratch there). ``bigru_layer`` is the batch-major one-layer GRU entry
 (one a layer), ``layer_cuda_launches``, ``layer_design_calls`` and
 ``layer_plain_calls``.
 
-``k1_plan`` is the shape rule of both: it picks one of three designs from H,
-the cell and the dtype (``design_calls`` counts K1's calls by design):
+``k1_plan`` is the shape rule of both: it picks one of four designs from H,
+the cell, the dtype and the row count (``design_calls`` counts K1's calls by
+design):
 
 - ``tc`` (``csrc/birnn_tc.cu``), bf16 on Hopper's wgmma: per layer one
   input-projection kernel (TMA + wgmma for Cin % 8 == 0, else the mma.sync
@@ -62,12 +63,17 @@ the cell and the dtype (``design_calls`` counts K1's calls by design):
   128, 256); the bf16 ones run the inference instantiation of the training
   forward's recurrence (``rnn_train_rec.cuh``) with ``k45_plan``'s simt
   geometry;
+- ``rows`` (``csrc/birnn_rows.cu``), fp32 at H = 256 from ``ROWS_CROSSOVER``
+  rows up (both cells): simt's projection, then a recurrence in which one
+  CTA owns a block of R rows (``ROWS_GEOMETRY``) with every unit and gate,
+  each step a local product streamed from W_hh in L2 through a TMA ring; no
+  cluster, so the grid runs in whole waves. Its bits are simt's;
 - ``l2`` (``csrc/bigru_stack.cu``), the first f32-FMA kernel: the whole stack
   in one launch (K2: ``bigru_layer_launch``, one layer), weights streamed
-  from L2. It takes what neither of the others takes (H = 20, 48, 80, 512);
+  from L2. It takes what none of the others takes (H = 20, 48, 80, 512);
   its own limits (H % 4 == 0, H <= 1024, NL <= 8) raise.
 
-A simt call of K1 is two CUDA launches a layer; a tc call is two a layer
+A simt or rows call of K1 is two CUDA launches a layer; a tc call is two a layer
 less one for a fused layer 0 (5 for the models' 3 layers at Cin = 11); an
 l2 call one."""
 
@@ -85,6 +91,7 @@ from .kernel_args import DTYPE_CODE, SMEM_LIMIT, THREADS, tile_shape
 SRC = "bigru_stack.cu"  # the l2 design
 TC_SRC = "birnn_tc.cu"  # the bf16 tensor-core design
 SIMT_SRC = "birnn_simt.cu"  # the simt design's recurrence
+ROWS_SRC = "birnn_rows.cu"  # the rows design's recurrence
 # the bf16 recurrence's geometry (U, MR, WN): U units a CTA, MR row blocks
 # of 64 (a tile of 64 MR rows), WN warpgroups across the units; instantiated
 # in csrc/birnn_tc.cu (TC_GEOMETRIES): at H = 256 per cell; otherwise by U,
@@ -98,16 +105,25 @@ TC_FUSED_KX = (16, 32, 64)  # k extents of a fused layer-0 projection
 SIMT_GEOMETRY = {"gru": (32, 72), "lstm": (32, 72)}
 SIMT_SMALL = {16: (16, 64), 32: (32, 32)}
 SIMT_PRODUCT_THREADS = 128  # the f32 recurrence's product threads; a CTA has twice as many
+# the rows design: fp32 at H = 256 from this many rows up (K1_ROWS_CROSSOVER
+# in csrc/birnn_rows.cu), measured on an H100 by chip_smoke.py's
+# k1_rows_sweep; its geometry (R rows a CTA, ring slots), instantiated in
+# csrc/birnn_rows.cu (ROWS_GEOMETRIES); a pass is ROWS_UNITS units, a ring
+# slab ROWS_KB k rows
+ROWS_CROSSOVER = 6144
+ROWS_GEOMETRY = {"gru": (128, 4), "lstm": (128, 3)}
+ROWS_UNITS = 64
+ROWS_KB = 32
 _CELL_CODE = {"gru": 0, "lstm": 1}
 
 launches = 0  # K1 calls (one per birnn_stack call) since the caller last set it to 0
 cuda_launches = 0  # K1's CUDA launches, counted at each launch
 plain_calls = 0  # plain-version runs (CPU tensors, or birnn_stack_plain)
-design_calls = {"tc": 0, "simt": 0, "l2": 0}  # birnn_stack's CUDA calls by design
+design_calls = {"tc": 0, "simt": 0, "rows": 0, "l2": 0}  # birnn_stack's CUDA calls by design
 layer_launches = 0  # K2 calls (one per layer)
 layer_cuda_launches = 0  # K2's CUDA launches, counted at each launch
 layer_plain_calls = 0  # K2 plain-version runs (one per layer)
-layer_design_calls = {"tc": 0, "simt": 0, "l2": 0}  # K2's CUDA calls by design
+layer_design_calls = {"tc": 0, "simt": 0, "rows": 0, "l2": 0}  # K2's CUDA calls by design
 # the tc design's projection launches (K1's and K2's) by kernel: TMA + wgmma,
 # or the mma.sync GEMM for Cin % 8 != 0
 tc_projection_calls = {"wgmma": 0, "mma": 0}
@@ -115,11 +131,12 @@ tc_projection_calls = {"wgmma": 0, "mma": 0}
 _lib = None
 _tc_lib = None
 _simt_lib = None
+_rows_lib = None
 _lock = threading.Lock()
 
 
 def build(src: str = SRC) -> str:
-    """Compile ``csrc/<src>`` (``SRC``, ``TC_SRC`` or ``SIMT_SRC``) if its
+    """Compile ``csrc/<src>`` (``SRC``, ``TC_SRC``, ``SIMT_SRC`` or ``ROWS_SRC``) if its
     library is missing; returns the library path. Raises with nvcc's output
     when the build fails."""
     return nvcc.build(src)[0]
@@ -137,6 +154,22 @@ def _load_simt():
             lib.birnn_simt_rec_occupancy.argtypes = [i] * 4 + [p, p, i]
             _simt_lib = lib
     return _simt_lib
+
+
+def _load_rows():
+    global _rows_lib
+    with _lock:
+        if _rows_lib is None:
+            lib = ctypes.CDLL(build(ROWS_SRC))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.birnn_rows_rec_launch.restype = i
+            lib.birnn_rows_rec_launch.argtypes = [i] + [p] * 5 + [i] * 5 + [p, i]
+            lib.birnn_rows_rec_occupancy.restype = i
+            lib.birnn_rows_rec_occupancy.argtypes = [i] * 4 + [p] * 3 + [i]
+            lib.birnn_rows_sigmoid_check.restype = i
+            lib.birnn_rows_sigmoid_check.argtypes = [p, p, i]
+            _rows_lib = lib
+    return _rows_lib
 
 
 def _load_tc():
@@ -240,6 +273,19 @@ def simt_geometry(H: int, cell: str, geometry=None) -> dict:
             "smem": (H * ng * U + H * R + rt * ng * SIMT_PRODUCT_THREADS) * 4 + 32}
 
 
+def rows_geometry(H: int, cell: str, geometry=None) -> dict:
+    """The rows design's geometry for H (a multiple of ``ROWS_UNITS``) and
+    the cell, or the (R, stages) given, as csrc/birnn_rows.cu launches it:
+    {"rows" (R, a CTA's block), "stages" (ring slots), "threads" (2 R, 8
+    rows x 4 units x every gate each), "passes" (H / ROWS_UNITS a step),
+    "smem" (the ring's slots of ROWS_KB x NG x ROWS_UNITS f32, h's H x R
+    f32, and a slot's barrier and count in 16 bytes)}."""
+    R, stages = geometry or ROWS_GEOMETRY[cell]
+    ng = n_gates(cell)
+    return {"rows": R, "stages": stages, "threads": 2 * R, "passes": H // ROWS_UNITS,
+            "smem": (stages * ROWS_KB * ng * ROWS_UNITS + H * R) * 4 + 16 * stages}
+
+
 def tc_smem(H: int, cell: str, U: int, rows: int, kx: int = 0) -> int:
     """Shared memory a CTA of the bf16 recurrence (csrc/birnn_tc.cu's
     tc_rec_smem): W_hh's slice and h, each H / 64 K blocks (at least one) of
@@ -286,15 +332,38 @@ def tc_fused_kx(plan: dict, C: int, cell: str, H: int) -> int:
     return kx if tc_smem(H, cell, plan["U"], plan["rows"], kx) <= SMEM_LIMIT else 0
 
 
-def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
+def _forced_plan(H: int, cell: str, compute_dtype, design: str) -> dict:
+    """``design`` ("simt" or "rows") on an fp32 shape it takes, or raise
+    naming the shape."""
+    if compute_dtype != torch.float32 or design not in ("simt", "rows"):
+        raise ValueError("design= forces simt or rows in float32, not {} in {}".format(
+            design, compute_dtype))
+    if design == "rows":
+        geo = rows_geometry(H, cell)
+        if H % ROWS_UNITS != 0 or geo["smem"] > SMEM_LIMIT:
+            raise ValueError("the rows design does not take H = {} ({})".format(H, cell))
+        return dict(geo, design="rows", why="design=rows")
+    if isinstance(bigru_vjp.simt_plan(H, n_gates(cell)), str):
+        raise ValueError("the simt design does not take H = {} ({})".format(H, cell))
+    return dict(simt_geometry(H, cell), design="simt", why="design=simt")
+
+
+def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16, rows=None,
+            design=None) -> dict:
     """The shape rule that picks the design of a CUDA call of K1 or K2
-    (module docstring); it depends on H, the cell and the dtype only.
-    Returns {"design": "tc", "U", "CN", "MR", "WN", "rows", "threads",
-    "smem" (bytes a CTA of the unfused recurrence): ``tc_geometry``},
-    {"design": "simt", "U", "CN", "rows" (a recurrence tile), "smem", "why"}
-    (fp32 also "threads", "rows_a_thread": ``simt_geometry``) or {"design": "l2",
-    "why", "why_not_simt"}; "why" says why not tc. A bf16 simt plan holds
-    the training forward's geometry."""
+    (module docstring) from H, the cell, the dtype and the row count (``rows``:
+    N of the call; None leaves the rows design out). ``design`` ("simt" or
+    "rows") forces that design on an fp32 shape it takes, and raises on
+    another. Returns {"design": "tc", "U", "CN", "MR", "WN", "rows",
+    "threads", "smem" (bytes a CTA of the unfused recurrence):
+    ``tc_geometry``}, {"design": "simt", "U", "CN", "rows" (a recurrence
+    tile), "smem", "why"} (fp32 also "threads", "rows_a_thread":
+    ``simt_geometry``), {"design": "rows", "rows" (a CTA's block), "stages",
+    "threads", "passes", "smem", "why"} (``rows_geometry``) or {"design":
+    "l2", "why", "why_not_simt"}; "why" says why not tc. A bf16 simt plan
+    holds the training forward's geometry."""
+    if design is not None:
+        return _forced_plan(H, cell, compute_dtype, design)
     ng = n_gates(cell)
     if compute_dtype != torch.bfloat16:
         why = "fp32 keeps exact f32 arithmetic"
@@ -316,6 +385,8 @@ def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16) -> dict:
     if compute_dtype == torch.bfloat16:
         return {"design": "simt", "U": simt["U"], "CN": simt["CN"],
                 "rows": simt["rows_fwd"], "smem": simt["smem_fwd"], "why": why}
+    if H == 256 and rows is not None and rows >= ROWS_CROSSOVER:
+        return dict(rows_geometry(H, cell), design="rows", why=why)
     return dict(simt_geometry(H, cell), design="simt", why=why)
 
 
@@ -515,8 +586,51 @@ def simt_occupancy(H: int, cell: str, plan: dict, device=None) -> int:
     return clusters.value
 
 
+def rows_recurrence(xg: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor,
+                    L: int, N: int, plan: dict, cell: str = "gru", out=None, hn=None,
+                    layer: bool = False):
+    """Phase (b) of the rows design, one layer, both directions, zero h0
+    (and c0): xg (2, L*N, G) f32, w_hh (2, H, G) f32, b_hh (2, G) f32 -> out
+    (L, N, 2H) f32, hn (2, N, H) f32 (the LSTM's c between steps); at the
+    geometry (rows, stages) of ``plan``. Raises, naming the shape, on a
+    failed build or launch."""
+    H = w_hh.shape[1]
+    if out is None:
+        out = torch.empty((L, N, 2 * H), dtype=torch.float32, device=xg.device)
+    if hn is None:
+        hn = torch.empty((2, N, H), dtype=torch.float32, device=xg.device)
+    stream = torch.cuda.current_stream(xg.device).cuda_stream
+    with torch.cuda.device(xg.device):
+        rc = _load_rows().birnn_rows_rec_launch(
+            _CELL_CODE[cell], xg.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(),
+            out.data_ptr(), hn.data_ptr(), L, N, H, plan["rows"], plan["stages"], stream,
+            xg.device.index)
+    _launched("birnn_rows recurrence ({}, H {}, {} rows, R {}, {} slots)".format(
+        cell, H, N, plan["rows"], plan["stages"]), rc, layer)
+    return out, hn
+
+
+def rows_occupancy(H: int, cell: str, plan: dict, device=None) -> dict:
+    """The rows recurrence at ``plan``'s geometry: {"ctas_an_sm"
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor for the kernel, block
+    and shared memory that ``rows_recurrence`` launches), "registers" (a
+    thread)}; launches nothing."""
+    device = torch.device(device or "cuda")
+    ctas, regs, smem = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = _load_rows().birnn_rows_rec_occupancy(
+            _CELL_CODE[cell], H, plan["rows"], plan["stages"], ctypes.addressof(ctas),
+            ctypes.addressof(regs), ctypes.addressof(smem),
+            device.index if device.index is not None else torch.cuda.current_device())
+    if rc != 0:
+        raise RuntimeError("birnn_rows_rec_occupancy failed: cudaError {}".format(rc))
+    if smem.value != plan["smem"]:
+        raise RuntimeError("shared memory {} != the plan's {}".format(smem.value, plan["smem"]))
+    return {"ctas_an_sm": ctas.value, "registers": regs.value}
+
+
 def _run_layer(plan, ly, x, cell, xg, out, hn, layer=False):
-    """One layer in the tc or simt design: the projection of x (L, N, C)
+    """One layer in the tc, simt or rows design: the projection of x (L, N, C)
     into xg, then the recurrence into out and hn; a tc layer whose width
     ``tc_fused_kx`` takes runs both in the recurrence kernel (xg unused)."""
     L, N, C = x.shape
@@ -529,7 +643,8 @@ def _run_layer(plan, ly, x, cell, xg, out, hn, layer=False):
             tc_recurrence(xg, whh, bhh, L, N, plan, cell, out, hn, layer)
     else:
         simt_projection(x.view(L * N, C), wih, bih, bhh, cell, xg, layer)
-        simt_recurrence(xg, whh, bhh, L, N, plan, cell, out, hn, layer)
+        rec = rows_recurrence if plan["design"] == "rows" else simt_recurrence
+        rec(xg, whh, bhh, L, N, plan, cell, out, hn, layer)
 
 
 def _xg_for(plan, widths, L, N, H, cell, device):
@@ -541,7 +656,7 @@ def _xg_for(plan, widths, L, N, H, cell, device):
 
 
 def _stack_layers(layers, x, compute_dtype, cell, H, plan):
-    """K1's tc and simt designs: per layer the projection, then the
+    """K1's tc, simt and rows designs: per layer the projection, then the
     recurrence; one xg for all layers, the layers' outputs alternating
     between two buffers, the last is ``out``."""
     global launches
@@ -569,13 +684,14 @@ def _ptr_arrays(layers):
 
 
 def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
-                cell: str = "gru"):
+                cell: str = "gru", design=None):
     """Whole-stack BiGRU or BiLSTM, zero h0 (and c0): kernel K1 on CUDA, the
     plain version on CPU.
 
     See the module docstring for shapes and for ``k1_plan``, which picks the
-    design. No fallback: a CUDA input that the chosen design cannot take, or
-    a failed build or launch, raises."""
+    design (``design`` forces simt or rows on an fp32 shape it takes). No
+    fallback: a CUDA input that the chosen design cannot take, or a failed
+    build or launch, raises."""
     H = _check(layers, x, compute_dtype, cell)
     if x.device.type == "cpu":
         return birnn_stack_plain(layers, x, compute_dtype, cell)
@@ -584,7 +700,7 @@ def birnn_stack(layers, x: torch.Tensor, compute_dtype=torch.float32,
             x.device.type))
     if any(t.data_ptr() % 16 for ly in layers for t in ly) or x.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
-    plan = k1_plan(H, cell, compute_dtype)
+    plan = k1_plan(H, cell, compute_dtype, x.shape[1], design)
     if plan["design"] == "l2":
         return _stack_l2(layers, x, compute_dtype, cell, H)
     return _stack_layers(layers, x, compute_dtype, cell, H, plan)
@@ -630,13 +746,14 @@ def _layer_l2(layer, x, compute_dtype, cell, H):
 
 
 def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
-                   cell: str = "gru") -> torch.Tensor:
+                   cell: str = "gru", design=None) -> torch.Tensor:
     """One bidirectional GRU or LSTM layer, zero h0 (and c0): kernel K2 on
     CUDA, the plain version on CPU. layer: (w_ih (2, C, G), b_ih (2, G) f32,
     w_hh (2, H, G), b_hh (2, G) f32), weights in compute_dtype; x (L, N, C)
     contiguous in compute_dtype -> out (L, N, 2H) in compute_dtype, both
-    directions in time order. ``k1_plan`` picks the design, as for K1: simt
-    is two CUDA launches, tc two or (a fused projection, C <= 64) one, l2
+    directions in time order. ``k1_plan`` picks the design from the rows
+    too, as for K1 (``design`` forces simt or rows in fp32): simt and rows
+    are two CUDA launches, tc two or (a fused projection, C <= 64) one, l2
     one."""
     global layer_launches
     H = _check([layer], x, compute_dtype, cell)
@@ -647,7 +764,7 @@ def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
             x.device.type))
     if any(t.data_ptr() % 16 for t in layer) or x.data_ptr() % 16:
         raise ValueError("kernel operands must be 16-byte aligned")
-    plan = k1_plan(H, cell, compute_dtype)
+    plan = k1_plan(H, cell, compute_dtype, x.shape[1], design)
     if plan["design"] == "l2":
         out = _layer_l2(layer, x, compute_dtype, cell, H)
     else:
@@ -662,13 +779,13 @@ def bigru_layer_tm(layer, x: torch.Tensor, compute_dtype=torch.float32,
 
 
 def birnn_layers(layers, x: torch.Tensor, compute_dtype=torch.float32,
-                 cell: str = "gru"):
+                 cell: str = "gru", design=None):
     """The stack one layer per launch (K2 on CUDA, its plain version on
     CPU): the contract of birnn_stack, out (L, N, 2H) in compute_dtype and
     h_n (2*NL, N, H) f32 rebuilt from the outputs."""
     h_ns = []
     for ly in layers:
-        x = bigru_layer_tm(ly, x, compute_dtype, cell)
+        x = bigru_layer_tm(ly, x, compute_dtype, cell, design)
         H = x.shape[2] // 2
         h_ns += [x[-1, :, :H].float(), x[0, :, H:].float()]
     return x, torch.stack(h_ns)

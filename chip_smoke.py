@@ -20,8 +20,12 @@ does not print its last line:
      geometry, the clusters the card holds at once, the waves, the
      projection's TFLOP/s beside torch.mm's at both row counts, the
      recurrence's step on one tile, on one full wave and on a wave of each
-     row count, and the product's FMA rate; bf16: the tensor-core design
-     ops/csrc/birnn_tc.cu on wgmma, with its geometry, resident clusters,
+     row count, and the product's FMA rate; from the crossover up, so at
+     16,384 rows, the rows design: the same projection and the row-owner
+     recurrence of ops/csrc/birnn_rows.cu, with its R, passes, ring slots,
+     registers, CTAs an SM, waves and TFLOP/s; each fp32 cell also in the
+     other fp32 design, forced, bit for bit the same; bf16: the tensor-core
+     design ops/csrc/birnn_tc.cu on wgmma, with its geometry, resident clusters,
      waves, the fused layer 0, the TMA + wgmma projection's TFLOP/s beside
      torch.mm's and the step on one tile and one wave), its CUDA launches
      per call (two a layer, one for a tc layer 0 whose projection fuses), a
@@ -37,7 +41,8 @@ does not print its last line:
      the shapes the other two refuse; no model's path runs it) called
      directly, against the plain version;
      kernel K2 (one layer of K1's design: simt in fp32, tc in bf16), one
-     layer of each cell at C = 11 and 512, 1024 rows, beside a one-layer
+     layer of each cell at C = 11 and 512, 1024 rows (and in fp32 at C =
+     512, 16,384 rows: the rows design, beside simt forced), beside a one-layer
      cuDNN nn.GRU / nn.LSTM, with its phases; and the l2 design
      (ops/csrc/bigru_stack.cu, the shapes the other two refuse; no model's
      path runs it), K1's stack and K2's layer called directly, against the
@@ -74,7 +79,10 @@ does not print its last line:
      align --device cuda [--model_type attbilstm2s|transencoder2s]`` on a
      simulated aligned BAM, in fp32 and bf16, with K1's (K3's) launch count
      read around the runs; then each RNN model once more in fp32 and bf16
-     with ``--rnn_backend pallas_layer``, through K2 and not K1;
+     with ``--rnn_backend pallas_layer``, through K2 and not K1; then
+     attbigru2s and attbilstm2s in fp32 at ``--batch_size 8192`` (16,384
+     rows a batch), through K1 and under pallas_layer through K2: the rows
+     design on every batch, ML bytes against the batch-512 run's;
      call_freqb: call_mods on a ~33x simulated modbam (1,000 reads x 2 kb on
      60 kb), HP tags, count mode, then ``call_freqb --call_mode aggregate
      --device cuda`` with a seeded full-width aggregate model of each cell,
@@ -92,7 +100,7 @@ does not print its last line:
      once a batch and K1 never, its ML bytes against ``--device cpu``'s
      with the same --tseed; ``--num_processes 2`` as two runs whose records
      together equal the single run's; ``--profile_dir``, whose trace names
-     K1's kernels;
+     K1's kernels (and, at ``--batch_size 8192``, the rows design's);
   7. train end to end, once per model: the port's CLI ``train --device cuda``
      at its defaults (3x256, batch 512, dropout 0.5, Adam) on a separable
      synthetic features TSV, with the training kernels' and K1's launch
@@ -135,7 +143,8 @@ checkout.
 
 times K1 and K2 (both cells) and K3 at the kernel phase's shapes (and K3's
 l2 design at 1024 fp32 samples; K1 fp32 also at call_freqb's aggregate
-shape, K2 fp32 also at the 2s2 family's C = 28 and 52), and K4,
+shape, K2 fp32 also at the 2s2 family's C = 28 and 52 and at 16,384 rows,
+C = 512), and K4,
 K5 and K6 (forward and backward) at the train-kernel phase's (C = 11 and
 512, and the 2s2 family's 28 in fp32; K4's and K6's fp32 forwards also at
 512 rows and the aggregate trainer's shape), in four turns in one
@@ -170,7 +179,9 @@ tile and warp groups; its step's parts), ``k1_simt_sweep`` (K1's fp32 recurrence
 geometry), ``k1_tc_sweep`` (K1's bf16 design at each candidate geometry
 of its recurrence), ``k1_tc_probe`` (the bf16 recurrence's step split
 into its parts by clock marks in a copy of its source), ``k3_kernels``
-(the K3 kernel phase), ``k3_tc_sweep`` (K3's bf16 design at each ring depth,
+(the K3 kernel phase), ``k1_rows_sweep`` (K1 fp32 in the simt design and
+the rows design at each candidate geometry, at 1,024 to 16,384 rows in
+alternating rounds: the crossover), ``k3_tc_sweep`` (K3's bf16 design at each ring depth,
 built in copies of its source), ``k3_tc_probe`` (a layer of
 K3's bf16 design split into its parts by clock marks in a copy of its
 source), ``k3_simt_probe`` (the same for K3's fp32 simt design: a layer's
@@ -198,6 +209,7 @@ NL, H, L, C = 3, 256, 21, 11
 MODELS = {"gru": "attbigru2s", "lstm": "attbilstm2s"}
 TRANSENC = "transencoder2s"  # 6 layers, d_model 256, 4 heads, FF 512
 ROWS = (1024, 16384)  # 2B for batch 512 (the CLI default) and batch 8192
+E2E_ROWS_BATCH = 8192  # call_mods --batch_size of the rows design's e2e runs
 REPS = 11
 AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -309,8 +321,8 @@ def phase_build():
         so, log = nvcc.build(src)
         return so, log, time.time() - t0
 
-    srcs = (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru_vjp.SRC, bilstm_vjp.SRC,
-            transenc.SRC, transenc.TC_SRC, transenc.SIMT_SRC)
+    srcs = (bigru.SRC, bigru.TC_SRC, bigru.SIMT_SRC, bigru.ROWS_SRC, bigru_vjp.SRC,
+            bilstm_vjp.SRC, transenc.SRC, transenc.TC_SRC, transenc.SIMT_SRC)
     t0 = time.time()
     with ThreadPoolExecutor(len(srcs)) as ex:
         built = list(ex.map(build, srcs))
@@ -375,7 +387,7 @@ def _cudnn(torch, cell, cin, n_layers, layers_np, dt, hidden=H):
 
 
 def _phase_fns(plan, ly, cell, Lx, layer=False):
-    """One layer's two phases in K1's tc or simt design: (projection(x2d,
+    """One layer's two phases in K1's tc, simt or rows design: (projection(x2d,
     xg=None), recurrence(xg, rows, out=None), rows of a recurrence tile);
     ``layer`` counts the launches as K2's."""
     from ccsmeth_tpu_torch.ops import bigru
@@ -392,8 +404,10 @@ def _phase_fns(plan, ly, cell, Lx, layer=False):
     def proj(x2, xg=None):
         return bigru.simt_projection(x2, wih, bih, bhh, cell, xg, layer)
 
+    recurrence = bigru.rows_recurrence if plan["design"] == "rows" else bigru.simt_recurrence
+
     def rec(xg, rows, out=None):
-        return bigru.simt_recurrence(xg, whh, bhh, Lx, rows, plan, cell, out, None, layer)
+        return recurrence(xg, whh, bhh, Lx, rows, plan, cell, out, None, layer)
     return proj, rec, plan["rows"]
 
 
@@ -412,13 +426,13 @@ def _fused_fn(plan, ly, cell, x, layer=False):
 
 def _per_call(plan, cell, widths, hidden=H):
     """CUDA launches of one K1 call over layers of input widths ``widths``
-    (or K2's over as many calls): l2 one; simt two a layer; tc two a layer,
-    one where the layer's projection is fused (``tc_fused_kx``)."""
+    (or K2's over as many calls): l2 one; simt and rows two a layer; tc two
+    a layer, one where the layer's projection is fused (``tc_fused_kx``)."""
     from ccsmeth_tpu_torch.ops import bigru
 
     if plan["design"] == "l2":
         return 1
-    if plan["design"] == "simt":
+    if plan["design"] in ("simt", "rows"):
         return 2 * len(widths)
     return sum(1 if bigru.tc_fused_kx(plan, c, cell, hidden) else 2 for c in widths)
 
@@ -455,6 +469,10 @@ def _k1_phases_ms(torch, ly, x, cell, plan):
 
 
 def phase_kernels(torch, smi, cell):
+    """K1 at both row counts in fp32 and bf16, each in the design
+    ``k1_plan`` picks; in fp32 also in the other fp32 design, forced (simt
+    at 16,384 rows, rows at 1,024), whose out and h_n must equal the
+    picked design's bit for bit."""
     import numpy as np
 
     cells = []
@@ -462,27 +480,66 @@ def phase_kernels(torch, smi, cell):
         x_np = np.random.RandomState(SEED + rows).randn(L, rows, C).astype(np.float32)
         for dname in ("float32", "bfloat16"):
             cells.append(_k1_cell(torch, smi, cell, x_np, dname))
+            if dname == "float32":
+                other = "simt" if cells[-1]["design"] == "rows" else "rows"
+                cells.append(_k1_cell(torch, smi, cell, x_np, dname, design=other,
+                                      same_as=cells[-1]["digest"]))
     return cells
 
 
-def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
+def _rows_report(torch, cell, plan, rows, rec_ms):
+    """The rows design's geometry at ``rows``: R, passes a step, ring
+    slots, threads, shared memory and registers a CTA, the CTAs an SM
+    holds, the grid's CTAs and waves; the recurrence's ms a layer, its
+    TFLOP/s and its step a wave (ms / (waves L))."""
+    import math
+
+    from ccsmeth_tpu_torch.models.rnn import n_gates
+    from ccsmeth_tpu_torch.ops import bigru
+
+    occ = bigru.rows_occupancy(H, cell, plan)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = 2 * math.ceil(rows / plan["rows"])
+    waves = math.ceil(ctas / (occ["ctas_an_sm"] * n_sm))
+    return {"R": plan["rows"], "passes": plan["passes"], "stages": plan["stages"],
+            "threads": plan["threads"], "smem": plan["smem"], "registers": occ["registers"],
+            "ctas_an_sm": occ["ctas_an_sm"], "ctas": ctas, "waves": waves,
+            "recurrence_ms": rec_ms,
+            "recurrence_tflops": 4 * L * rows * H * n_gates(cell) * H / rec_ms / 1e9,
+            "step_us_a_wave": rec_ms * 1e3 / (waves * L)}
+
+
+def _k1_digest(torch, *tensors):
+    """sha256 over the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _k1_cell(torch, smi, cell, x_np, dname, phases=True, design=None, same_as=None):
     """K1 (the cell's whole 3 x 256 stack) on the input x_np (L, rows, C):
-    the design ``k1_plan`` picks, its CUDA launches a call, a bit-equal
-    rerun, the error against the plain version (``TOL``), and the kernel's,
-    the plain version's and cuDNN's times beside the bound, with each
-    phase's time when ``phases``."""
+    the design ``k1_plan`` picks (or ``design``, forced), its CUDA launches
+    a call, a bit-equal rerun (and, given ``same_as``, the sha256 of out
+    and h_n equal to it), the error against the plain version (``TOL``),
+    and the kernel's, the plain version's and cuDNN's times beside the
+    bound, with each phase's time when ``phases`` (fp32: the recurrence's
+    TFLOP/s; the rows design: its geometry, ``_rows_report``)."""
+    from ccsmeth_tpu_torch.models.rnn import n_gates
     from ccsmeth_tpu_torch.ops import bigru
 
     rows, cin = x_np.shape[1], x_np.shape[2]
     dt = getattr(torch, dname)
-    plan = bigru.k1_plan(H, cell, dt)
+    plan = bigru.k1_plan(H, cell, dt, rows, design)
     layers_np, ly = _layers(torch, dt, "cuda", cell, cin)
     x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
     before = dict(bigru.design_calls)
     bigru.cuda_launches = 0
-    out, hn = bigru.birnn_stack(ly, x, dt, cell)
+    out, hn = bigru.birnn_stack(ly, x, dt, cell, design)
     cuda_per_call = bigru.cuda_launches
-    out2, hn2 = bigru.birnn_stack(ly, x, dt, cell)
+    out2, hn2 = bigru.birnn_stack(ly, x, dt, cell, design)
     torch.cuda.synchronize()
     assert bigru.design_calls[plan["design"]] == before[plan["design"]] + 2
     # simt: a projection and a recurrence a layer; tc: layer 0 in one launch
@@ -491,6 +548,9 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
         plan, cuda_per_call)
     rerun_equal = bool(torch.equal(out, out2) and torch.equal(hn, hn2))
     assert rerun_equal, (cell, rows, cin, dname, "rerun differs")
+    digest = _k1_digest(torch, out, hn)
+    assert same_as is None or digest == same_as, (cell, rows, cin, plan["design"],
+                                                   "bits differ from the other design's")
     ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
     assert out.shape == (L, rows, 2 * H) and hn.shape == (2 * NL, rows, H)
     assert bool(torch.isfinite(out.float()).all())
@@ -501,10 +561,14 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
 
     lib = _cudnn(torch, cell, cin, NL, layers_np, dt)
     with torch.inference_mode():
-        kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, dt, cell), torch)
+        kernel_ms = time_ms(lambda: bigru.birnn_stack(ly, x, dt, cell, design), torch)
         plain_ms = time_ms(lambda: bigru.birnn_stack_plain(ly, x, dt, cell), torch)
         library_ms = time_ms(lambda: lib(x), torch)
         phase_ms = _k1_phases_ms(torch, ly, x, cell, plan) if phases else None
+        rec_tflops = (4 * L * rows * H * n_gates(cell) * H / phase_ms["recurrence"] / 1e9
+                      if phases and dname == "float32" else None)
+        rows_rep = (_rows_report(torch, cell, plan, rows, phase_ms["recurrence"])
+                    if phases and plan["design"] == "rows" else None)
         simt = (_simt_report(torch, cell, plan, ly) if phases and plan["design"] == "simt"
                 and (rows, cin) == (ROWS[0], C) else None)
         tc = (_tc_report(torch, cell, plan, ly, x) if phases and plan["design"] == "tc"
@@ -517,6 +581,8 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     res = {"phase": "kernel", "name": "bigru_stack", "cell": cell,
            "rows": rows, "C": cin, "dtype": dname, "design": plan["design"],
+           "forced": design is not None, "digest": digest,
+           "bit_equal_to_the_other_design": None if same_as is None else True,
            "cuda_launches_per_call": cuda_per_call,
            "max_abs_err_out": err_out,
            "max_abs_err_hn": err_hn, "tol": TOL[dname],
@@ -528,7 +594,8 @@ def _k1_cell(torch, smi, cell, x_np, dname, phases=True):
            "library_flatten_error": lib.flatten_error,
            "gflop": flops / 1e9,
            "tflops_achieved": flops / kernel_ms / 1e9, "phases_ms": phase_ms,
-           "simt": simt, "tc": tc, "card": smi}
+           "recurrence_tflops": rec_tflops,
+           "simt": simt, "tc": tc, "rows_design": rows_rep, "card": smi}
     emit(res)
     return res
 
@@ -1149,21 +1216,23 @@ def phase_k3_l2(torch, smi, k3_cells):
     return cells
 
 
-def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bfloat16")):
+def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bfloat16"),
+                     rows=ROWS[0]):
     """K2, one bidirectional layer of the cell, at the call_mods path's
-    shapes (1024 rows; C = 11 for layer 0, 2H for layers 1 and 2; or the
-    ``cins`` given) against
+    shapes (1024 rows, or ``rows``; C = 11 for layer 0, 2H for layers 1 and
+    2; or the ``cins`` given) against
     its plain version, timed beside it, cuDNN's one-layer bidirectional
     nn.GRU / nn.LSTM (inference) and the bound, with the design ``k1_plan``
-    picked (simt in fp32, tc in bf16), its CUDA launches a call (K2's own
-    count; K1's stays), a rerun for bit-equal outputs and each phase's time.
-    Tolerances as K1's."""
+    picked (simt in fp32, rows from its crossover up, tc in bf16), its CUDA
+    launches a call (K2's own count; K1's stays), a rerun for bit-equal
+    outputs and each phase's time; in the rows design also the simt design
+    forced on the same input (bit-equal, its time beside). Tolerances as
+    K1's."""
     import numpy as np
 
     from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights
     from ccsmeth_tpu_torch.ops import bigru
 
-    rows = ROWS[0]
     cells = []
     for cin in cins:
         rng = np.random.RandomState(SEED + cin)
@@ -1171,7 +1240,7 @@ def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bflo
         x_np = rng.randn(L, rows, cin).astype(np.float32)
         for dname in dtypes:
             dt = getattr(torch, dname)
-            plan = bigru.k1_plan(H, cell, dt)
+            plan = bigru.k1_plan(H, cell, dt, rows)
             ly = layer_weights(ld, dt, "cuda")
             x = torch.from_numpy(x_np).to("cuda", dt)
             k1_before = (bigru.launches, bigru.cuda_launches)
@@ -1197,11 +1266,23 @@ def phase_k2_kernels(torch, smi, cell, cins=(C, 2 * H), dtypes=("float32", "bflo
                                    torch)
                 library_ms = time_ms(lambda: lib(x), torch)
                 phases = _k2_phases_ms(torch, ly, x, cell, plan)
+                simt_forced = None
+                if plan["design"] == "rows":
+                    forced = bigru.bigru_layer_tm(ly, x, dt, cell, "simt")
+                    torch.cuda.synchronize()
+                    assert torch.equal(forced, out), (cell, cin, rows, "rows != simt")
+                    simt_forced = {"bit_equal": True, "kernel_ms": time_ms(
+                        lambda: bigru.bigru_layer_tm(ly, x, dt, cell, "simt"), torch)}
+                    del forced
             bms, bby = _bound(bigru.stack_flops(L, rows, cin, H, 1, cell),
                               _nbytes(x, out, *ly), dname)
             res = {"phase": "kernel", "name": "bigru_layer", "cell": cell,
                    "rows": rows, "C": cin, "dtype": dname, "design": plan["design"],
-                   "simt": (_simt_geometry(cell, plan) if dname == "float32" else None),
+                   "simt": (_simt_geometry(cell, plan) if plan["design"] == "simt"
+                            and dname == "float32" else None),
+                   "rows_design": (_rows_report(torch, cell, plan, rows, phases["recurrence"])
+                                   if plan["design"] == "rows" else None),
+                   "simt_forced": simt_forced,
                    "cuda_launches_per_call": cuda_per_call, "rerun_bit_equal": True,
                    "max_abs_err": err, "tol": TOL[dname], "kernel_ms": kernel_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms,
@@ -1349,6 +1430,190 @@ def phase_k1_simt_sweep(torch, smi):
                     for rows, x in xs.items()}
             emit(dict(rep, phase="k1_simt_sweep", cell=cell, bit_equal_to_chain=equal,
                       k1_ms=k1_ms, card=smi))
+
+
+# the row counts of K1's fp32 design sweep (2B: batch 512 .. 8,192), and the
+# rows design's candidate geometries (R, ring slots), each instantiated in
+# csrc/birnn_rows.cu (ROWS_GEOMETRIES); the first of a cell is its
+# ROWS_GEOMETRY
+ROWS_SWEEP_ROWS = (1024, 2048, 3072, 4096, 5120, 6144, 8192, 16384)
+ROWS_SWEEP = {"gru": [(128, 4), (128, 3), (64, 2)],
+              "lstm": [(128, 3), (128, 2), (64, 2)]}
+ROWS_SWEEP_ROUNDS = 3
+
+
+def phase_k1_rows_sweep(torch, smi):
+    """K1 fp32 (the models' 3 x 256 stack, C = 11) at each row count of
+    ``ROWS_SWEEP_ROWS`` in the simt design and in the rows design at each
+    geometry of ``ROWS_SWEEP``, in ``ROWS_SWEEP_ROUNDS`` alternating rounds
+    (the order reversed every other round); every variant's out and h_n
+    equal simt's bit for bit. One line a cell: the medians, cuDNN's
+    ``nn.GRU`` / ``nn.LSTM`` and the bound at each row count, the rows
+    design's geometry (registers, CTAs an SM) and the crossover, the
+    smallest row count from which the rows design at ``ROWS_GEOMETRY`` is
+    faster than simt at every count swept, which ``ROWS_CROSSOVER`` holds."""
+    import numpy as np
+
+    from ccsmeth_tpu_torch.ops import bigru
+
+    dt = torch.float32
+    for cell in MODELS:
+        layers_np, ly = _layers(torch, dt, "cuda", cell)
+        lib = _cudnn(torch, cell, C, NL, layers_np, dt)
+        variants = {"simt": dict(bigru.simt_geometry(H, cell), design="simt")}
+        geos = {}
+        for geo in ROWS_SWEEP[cell]:
+            key = "rows R={} stages={}".format(*geo)
+            variants[key] = dict(bigru.rows_geometry(H, cell, geo), design="rows")
+            geos[key] = bigru.rows_occupancy(H, cell, variants[key])
+        shipped = "rows R={} stages={}".format(*bigru.ROWS_GEOMETRY[cell])
+        ms, equal, library, bound = {}, {}, {}, {}
+        for rows in ROWS_SWEEP_ROWS:
+            x = torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+                L, rows, C).astype(np.float32)).cuda()
+            with torch.inference_mode():
+                ref = bigru._stack_layers(ly, x, dt, cell, H, variants["simt"])
+                for key, plan in variants.items():
+                    out, hn = bigru._stack_layers(ly, x, dt, cell, H, plan)
+                    torch.cuda.synchronize()
+                    equal["{} {}".format(key, rows)] = bool(torch.equal(out, ref[0])
+                                                            and torch.equal(hn, ref[1]))
+                    del out, hn
+                del ref
+                got = {key: [] for key in variants}
+                for rnd in range(ROWS_SWEEP_ROUNDS):
+                    order = list(variants) if rnd % 2 == 0 else list(reversed(variants))
+                    for key in order:
+                        plan = variants[key]
+                        got[key].append(time_ms(
+                            lambda: bigru._stack_layers(ly, x, dt, cell, H, plan), torch, 7))
+                library[str(rows)] = time_ms(lambda: lib(x), torch)
+            ms[str(rows)] = {key: statistics.median(v) for key, v in got.items()}
+            bound[str(rows)] = _bound(bigru.stack_flops(L, rows, C, H, NL, cell),
+                                      _nbytes(x, *[t for lyr in ly for t in lyr])
+                                      + 4 * L * rows * 2 * H + 4 * 2 * NL * rows * H,
+                                      "float32")[0]
+            del x
+        faster = [int(r) for r, m in ms.items() if m[shipped] < m["simt"]]
+        crossover = next((r for r in ROWS_SWEEP_ROWS
+                          if all(q in faster for q in ROWS_SWEEP_ROWS if q >= r)), None)
+        emit({"phase": "k1_rows_sweep", "cell": cell, "ms": ms, "library_ms": library,
+              "bound_ms": bound, "geometries": geos,
+              "shipped": shipped, "bit_equal_to_simt": all(equal.values()),
+              "rounds": ROWS_SWEEP_ROUNDS,
+              "crossover_measured": crossover, "crossover_in_use": bigru.ROWS_CROSSOVER,
+              "card": smi})
+        assert all(equal.values()), equal
+
+
+# clock64 marks for a copy of csrc/birnn_rows.cu (never in the shipped
+# source): each warp of CTA 0 of each direction sums its cycles in six
+# parts (K1_ROWS_PROBE_PARTS): the slab waits on `full`, the products, the
+# epilogues (gate math, loads and stores), the step's end (the block
+# barriers and h's read-back from out), the refills (the box loads of the
+# last warp done with a slab) and a pass's start (the xc prefetch)
+K1_ROWS_PROBE_PARTS = ("full_wait", "product", "epilogue", "step_end", "refill", "pass_start")
+K1_ROWS_PROBE_MARKS = [
+    ("  const int tid = threadIdx.x;\n",
+     "  const int tid = threadIdx.x;\n  long long pr_t[6] = {0, 0, 0, 0, 0, 0};\n"
+     "  long long pr_m = clock64();\n"),
+    ("        mbar_wait(smem_u32(full + slot), (g / STAGES) & 1);\n",
+     "        { const long long pa = clock64(); pr_t[1] += pa - pr_m;\n"
+     "        mbar_wait(smem_u32(full + slot), (g / STAGES) & 1);\n"
+     "        pr_m = clock64(); pr_t[0] += pr_m - pa; }\n"),
+    ("            load_slab(g + STAGES);\n",
+     "            { const long long pi = clock64(); load_slab(g + STAGES); pr_t[4] += clock64() - pi; }\n"),
+    ("      // the gate math of the thread's cells, as birnn_simt.cu's\n",
+     "      { const long long pq = clock64(); pr_t[1] += pq - pr_m; pr_m = pq; }\n"),
+    ("        }\n      }\n    }\n    if (last) break;\n",
+     "        }\n      }\n      { const long long pe = clock64(); pr_t[2] += pe - pr_m; pr_m = pe; }\n"
+     "    }\n    if (last) break;\n"),
+    ("    __syncthreads();  // the buffer holds h(t)\n",
+     "    __syncthreads();  // the buffer holds h(t)\n"
+     "    { const long long pz = clock64(); pr_t[3] += pz - pr_m; pr_m = pz; }\n"),
+    ("      // the product: acc[i][gate][e]",
+     "      { const long long pf = clock64(); pr_t[5] += pf - pr_m; pr_m = pf; }\n"
+     "      // the product: acc[i][gate][e]"),
+    ("template <bool LSTM, int NRG, int STAGES>\n__global__",
+     "__device__ long long g_probe[2][16][6];\ntemplate <bool LSTM, int NRG, int STAGES>\n__global__"),
+    ("}\n\n// Every float32 bit pattern x",
+     "  if (lane == 0 && blockIdx.x == 0)\n"
+     "    for (int q = 0; q < 6; ++q) g_probe[blockIdx.y][w][q] = pr_t[q];\n}\n\n"
+     "extern \"C\" int rows_probe_read(long long* h) {\n"
+     "  return (int)cudaMemcpyFromSymbol(h, g_probe, sizeof(g_probe));\n}\n\n"
+     "// Every float32 bit pattern x"),
+]
+
+
+def phase_k1_rows_probe(torch, smi):
+    """K1's rows design split into its parts (``K1_ROWS_PROBE_MARKS``): one
+    layer's recurrence at 16,384 rows (C = 512's projection), both cells, at
+    ``ROWS_GEOMETRY``: k cycles a step of each part for each warp of CTA 0
+    of direction 0, and the products' FMA rate inside their slab loops (the
+    CTA's R H NG H FMAs a step over 128 a clock, against the products'
+    cycles a step), beside the recurrence's CUDA-event time and the
+    shipped build's; the probed build's out equal to the shipped one's."""
+    import ctypes
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights, n_gates
+    from ccsmeth_tpu_torch.ops import bigru, nvcc
+
+    src = open(os.path.join(nvcc.CSRC, bigru.ROWS_SRC)).read()
+    for old, new in K1_ROWS_PROBE_MARKS:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, "birnn_rows_probe.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    so = path[:-3] + ".so"
+    proc = subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-I", nvcc.CSRC, "-o", so, path],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.birnn_rows_rec_launch.restype = i
+    lib.birnn_rows_rec_launch.argtypes = [i] + [p] * 5 + [i] * 5 + [p, i]
+    lib.rows_probe_read.restype = i
+    rows, f32 = ROWS[1], torch.float32
+    for cell in MODELS:
+        G = n_gates(cell) * H
+        plan = bigru.k1_plan(H, cell, f32, rows)
+        rng = np.random.RandomState(SEED)
+        wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, 2 * H, H, 1, cell)[0], f32, "cuda")
+        x = torch.from_numpy(rng.randn(L * rows, 2 * H).astype(np.float32)).cuda()
+        xg = bigru.simt_projection(x, wih, bih, bhh, cell)
+        out = torch.empty((L, rows, 2 * H), device="cuda")
+        hn = torch.empty((2, rows, H), device="cuda")
+
+        def probed():
+            rc = lib.birnn_rows_rec_launch(
+                0 if cell == "gru" else 1, xg.data_ptr(), whh.data_ptr(), bhh.data_ptr(),
+                out.data_ptr(), hn.data_ptr(), L, rows, H, plan["rows"], plan["stages"],
+                torch.cuda.current_stream().cuda_stream, 0)
+            assert rc == 0, rc
+
+        ref = bigru.rows_recurrence(xg, whh, bhh, L, rows, plan, cell)[0]
+        probed()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        probed_ms = time_ms(probed, torch)
+        shipped_ms = time_ms(lambda: bigru.rows_recurrence(xg, whh, bhh, L, rows, plan, cell,
+                                                           ref), torch)
+        buf = (ctypes.c_longlong * (2 * 16 * 6))()
+        assert lib.rows_probe_read(buf) == 0
+        per = np.array(buf[:]).reshape(2, 16, 6)[0, :plan["threads"] // 32] / L
+        fmas = plan["rows"] * H * G  # a CTA's product a step
+        warps = [dict({k: float(v) / 1e3 for k, v in zip(K1_ROWS_PROBE_PARTS, row)},
+                      fma_rate_in_products=fmas / 128 / float(row[1]),
+                      step_kcycles=float(row.sum()) / 1e3) for row in per]
+        emit({"phase": "k1_rows_probe", "cell": cell, "rows": rows, "R": plan["rows"],
+              "stages": plan["stages"], "probed_ms": probed_ms, "shipped_ms": shipped_ms,
+              "step_kcycles_by_part_and_warp": warps,
+              "step_fma_kcycles_at_peak": fmas / 128 / 1e3, "card": smi})
+        del x, xg, out, hn, ref
 
 
 def _tc_geometry(cell, plan, kx=0):
@@ -2947,6 +3212,65 @@ def phase_e2e(torch, smi, model_type):
                                         for d in designs}}
 
 
+def _ml_diff(tags_a, tags_b):
+    """(sites, share of ML bytes equal, largest ML difference) of two runs'
+    tags; the MM strings must be equal."""
+    import numpy as np
+
+    n_sites = n_equal = most = 0
+    for q, (mm, ml) in tags_a.items():
+        mm_b, ml_b = tags_b[q]
+        assert mm == mm_b, q
+        if ml is None:
+            continue
+        n_sites += ml.size
+        n_equal += int((ml == ml_b).sum())
+        most = max(most, int(np.abs(ml - ml_b).max()))
+    return n_sites, n_equal / n_sites, most
+
+
+def phase_e2e_rows(torch, smi, model_type, tags512):
+    """call_mods --batch_size 8192 in fp32 (16,384 rows a batch: the rows
+    design of K1 and K2) through the CLI, once through K1 and once under
+    ``--rnn_backend pallas_layer`` through K2, every kernel's counts set to
+    0 just before each run and read just after: the rows design on every
+    batch (K1 one call a batch, K2 one a layer and batch, two CUDA launches
+    a layer), nothing else and no plain version. The K1 run's ML bytes equal
+    the batch-512 fp32 run's (``tags512``) on >= 99.9% of sites and lie
+    within 1 of them on all (the rest of the model's products see other
+    shapes); K2's equal K1's at the same batch on >= 99.9%."""
+    from ccsmeth_tpu_torch.ops import bigru
+
+    runs, tags = {}, {}
+    for name, extra in (("k1", []), ("k2", ["--rnn_backend", "pallas_layer"])):
+        _zero_counts()
+        run, tags[name] = _call_mods(model_type, "fp32", "b{}_{}".format(E2E_ROWS_BATCH, name),
+                                     ["--batch_size", str(E2E_ROWS_BATCH)] + extra)
+        torch.cuda.synchronize()
+        counts, cuda, designs = _all_counts(), _cuda_launches(), _design_counts()[name]
+        n = run["batches"] * (1 if name == "k1" else NL)
+        assert bigru.k1_plan(H, "gru", torch.float32, 2 * run["pad_n"])["design"] == "rows"
+        assert run["batches"] > 0 and counts[name] == n, (name, counts, run)
+        assert sum(counts.values()) == n, counts  # no other kernel, no plain run
+        assert designs == dict({d: 0 for d in designs}, rows=n), designs
+        assert cuda == dict({"k1": 0, "k2": 0, "k3": 0}, **{name: 2 * NL * run["batches"]}), cuda
+        base = tags512 if name == "k1" else tags["k1"]
+        n_sites, equal, most = _ml_diff(base, tags[name])
+        run.update(phase="e2e_rows", model=model_type, precision="fp32",
+                   batch_size=E2E_ROWS_BATCH, rnn_backend="pallas_layer" if name == "k2" else "xla",
+                   launches=counts, designs=designs, cuda_launches=cuda,
+                   sites_per_s=run["sites"] / run["seconds"], sites_compared=n_sites,
+                   ml_equal_to=("batch 512 fp32 run" if name == "k1"
+                                else "the K1 run at batch {}".format(E2E_ROWS_BATCH)),
+                   ml_equal=equal, ml_most_apart=most, card=smi)
+        emit(run)
+        assert equal >= 0.999, equal
+        if name == "k1":
+            assert most <= 1, most
+        runs[name] = run
+    return runs
+
+
 def phase_e2e_layer(torch, smi, model_type, k1_tags):
     """call_mods --rnn_backend pallas_layer in fp32 and bf16: K2 launches once
     a layer and batch (its design's CUDA launches: simt two in fp32, tc two
@@ -3022,7 +3346,9 @@ def phase_flags(torch, smi, single_tags):
     batch, whose records together equal the single run's (``single_tags``,
     the fp32 e2e run); ``--profile_dir``: one trace file, whose kernel
     events name K1's two kernels (the simt design: K4's projection
-    ``proj_f32_kernel`` and the recurrence ``birnn_rec_kernel``)."""
+    ``proj_f32_kernel`` and the recurrence ``birnn_rec_kernel``), and with
+    ``--batch_size 8192`` the rows design's (``proj_f32_kernel`` and
+    ``birnn_rows_kernel``)."""
     import glob
     import shutil
 
@@ -3069,28 +3395,36 @@ def phase_flags(torch, smi, single_tags):
         assert ml is None or np.array_equal(ml, ml2), q
     res["processes"] = {"shards": shards, "union_equals_single_run": True}
 
-    tdir = os.path.join(WORK, "trace")
-    shutil.rmtree(tdir, ignore_errors=True)
-    _zero_counts()
-    run, tags = _call_mods(model_type, "fp32", "profiled", ["--profile_dir", tdir])
-    torch.cuda.synchronize()
-    counts = _all_counts()
-    assert counts["k1"] == run["batches"] > 0, counts
-    traces = glob.glob(os.path.join(tdir, "trace_*.json"))
-    assert len(traces) == 1, traces
-    with open(traces[0]) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = {}
-    for e in events:
-        if e.get("cat") == "kernel":
-            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
-    k1 = {name: sum(n for k, n in kernels.items() if name in k)
-          for name in ("proj_f32_kernel", "birnn_rec_kernel")}
-    assert all(n > 0 for n in k1.values()), sorted(kernels)[:20]
-    assert _ml_shares(tags, single_tags)[1] == 1.0  # the trace changes no output
-    res["profile"] = {"trace_bytes": os.path.getsize(traces[0]), "events": len(events),
-                      "kernel_events": sum(kernels.values()), "k1_kernel_events": k1,
-                      "batches": run["batches"]}
+    # the trace names K1's two kernels of the design that runs: simt at the
+    # default batch, rows at batch 8,192 (and not the other recurrence)
+    for key, tag, extra, names, absent in (
+            ("profile", "profiled", [], ("proj_f32_kernel", "birnn_rec_kernel"),
+             "birnn_rows_kernel"),
+            ("profile_rows", "profiled_rows", ["--batch_size", str(E2E_ROWS_BATCH)],
+             ("proj_f32_kernel", "birnn_rows_kernel"), "birnn_rec_kernel")):
+        tdir = os.path.join(WORK, "trace_" + tag)
+        shutil.rmtree(tdir, ignore_errors=True)
+        _zero_counts()
+        run, tags = _call_mods(model_type, "fp32", tag, ["--profile_dir", tdir] + extra)
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        assert counts["k1"] == run["batches"] > 0, counts
+        traces = glob.glob(os.path.join(tdir, "trace_*.json"))
+        assert len(traces) == 1, traces
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+        k1 = {name: sum(n for k, n in kernels.items() if name in k) for name in names}
+        assert all(n > 0 for n in k1.values()), sorted(kernels)[:20]
+        assert not any(absent in k for k in kernels), sorted(kernels)[:20]
+        if not extra:
+            assert _ml_shares(tags, single_tags)[1] == 1.0  # the trace changes no output
+        res[key] = {"trace_bytes": os.path.getsize(traces[0]), "events": len(events),
+                    "kernel_events": sum(kernels.values()), "k1_kernel_events": k1,
+                    "batches": run["batches"]}
     emit(res)
     return res
 
@@ -4665,6 +4999,13 @@ def _time_tree(tree):
                     x = torch.from_numpy(x_np).to("cuda", dt)
                     res["ms"]["k2 {} C={} {}".format(cell, cin, dname)] = time_ms(
                         lambda: bigru.bigru_layer_tm(lyr, x, dt, cell), torch, AB_REPS)
+            # K2 fp32 at batch 8,192's rows, C = 2H
+            rng = np.random.RandomState(SEED + 2 * H)
+            lyr = layer_weights(init_rnn_params(rng, 2 * H, H, 1, cell)[0], torch.float32, "cuda")
+            x = torch.from_numpy(rng.randn(L, ROWS[1], 2 * H).astype(np.float32)).cuda()
+            res["ms"]["k2 {} C={} rows={} float32".format(cell, 2 * H, ROWS[1])] = time_ms(
+                lambda: bigru.bigru_layer_tm(lyr, x, torch.float32, cell), torch, AB_REPS)
+            del x
         cfg = TransEncConfig()
         params = randomize_affine(init_transenc(SEED, cfg), SEED)
         for rows in ROWS:
@@ -4933,10 +5274,14 @@ def main_only(names):
         "aggr_train": lambda: phase_aggr_train(torch, smi),
         "k1_kernels": lambda: ([phase_kernels(torch, smi, cell) for cell in MODELS]
                                + [phase_k2_kernels(torch, smi, cell) for cell in MODELS]
+                               + [phase_k2_kernels(torch, smi, cell, (2 * H,), ("float32",),
+                                                   ROWS[1]) for cell in MODELS]
                                + [phase_k2_kernels(torch, smi, cell, (C2S2, C2S2_WIDE),
                                                    ("float32",)) for cell in MODELS]
                                + [phase_k1_aggr(torch, smi)]),
         "k1_simt_sweep": lambda: phase_k1_simt_sweep(torch, smi),
+        "k1_rows_sweep": lambda: phase_k1_rows_sweep(torch, smi),
+        "k1_rows_probe": lambda: phase_k1_rows_probe(torch, smi),
         "k1_tc_sweep": lambda: phase_k1_tc_sweep(torch, smi),
         "k1_tc_probe": lambda: phase_k1_tc_probe(torch, smi),
         "k3_kernels": lambda: phase_k3_kernels(torch, smi),
@@ -5002,6 +5347,9 @@ def main():
     k3_l2 = phase_k3_l2(torch, smi, k3_cells)
     k1_aggr = phase_k1_aggr(torch, smi)
     k2_cells = {cell: phase_k2_kernels(torch, smi, cell) for cell in MODELS}
+    # K2 at batch 8,192's rows, where the rows design runs it
+    k2_rows = {cell: phase_k2_kernels(torch, smi, cell, (2 * H,), ("float32",), ROWS[1])[0]
+               for cell in MODELS}
     for cell in MODELS:
         phase_l2_kernels(torch, smi, cell)
     lap("kernels_k1_k2_k3")
@@ -5019,6 +5367,8 @@ def main():
     lap("model")
     e2e = {cell: phase_e2e(torch, smi, MODELS[cell]) for cell in MODELS}
     e2e_k3 = phase_e2e(torch, smi, TRANSENC)
+    e2e_rows = {cell: phase_e2e_rows(torch, smi, MODELS[cell], e2e[cell]["tags"]["fp32"])
+                for cell in MODELS}
     lap("e2e")
     freq = phase_freq(torch, smi)
     lap("freq")
@@ -5053,6 +5403,8 @@ def main():
     emit({"phase": "walls", "s": laps, "total_s": time.time() - t_start})
     k1_keys = ("rows", "C", "dtype", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                "bound_by", "max_abs_err_out", "max_abs_err_hn")
+
+    from ccsmeth_tpu_torch.ops import bigru
 
     kernels = []
     for cell, kname, line in (("gru", "bigru_stack", 198),
@@ -5101,6 +5453,29 @@ def main():
                         sum(sh["launches"] for sh in flags["processes"]["shards"])
                         + flags["profile"]["batches"])
             kernels.append(entry)
+        # the rows design: fp32 from its crossover up, its main path the
+        # batch-8,192 call_mods run
+        cells = [c for c in k1_cells[cell] if c["design"] == "rows"]
+        mc = next(c for c in cells if c["rows"] == ROWS[1] and not c["forced"])
+        kernels.append({
+            "name": kname + "_rows", "route": "cuda", "design": "rows",
+            "cuda_launches_per_call": mc["cuda_launches_per_call"],
+            "source": "ccsmeth_tpu_torch/ops/csrc/birnn_rows.cu",
+            "projection_source": SIMT_PROJECTION,
+            "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
+            "launches": e2e_rows[cell]["k1"]["launches"]["k1"],
+            "cuda_launches": e2e_rows[cell]["k1"]["cuda_launches"]["k1"],
+            "max_abs_err": max(max(c["max_abs_err_out"], c["max_abs_err_hn"]) for c in cells),
+            "ms": mc["kernel_ms"], "plain_ms": mc["plain_ms"],
+            "bound_ms": mc["bound_ms"], "bound_by": mc["bound_by"],
+            "library_ms": mc["library_ms"], "phases_ms": mc["phases_ms"],
+            "recurrence_tflops": mc["recurrence_tflops"], "rows_geometry": mc["rows_design"],
+            "crossover_rows": bigru.ROWS_CROSSOVER,
+            "simt_ms_same_input": next(c["kernel_ms"] for c in k1_cells[cell]
+                                       if c["design"] == "simt" and c["rows"] == ROWS[1]),
+            "cell": "{} rows={} float32".format(MODELS[cell], ROWS[1]),
+            "cells": [{k: c[k] for k in k1_keys + ("forced", "recurrence_tflops")}
+                      for c in cells]})
         # the same kernel at call_freqb's aggregate shape
         mc, run = k1_aggr[cell], freq[AGGR_CELLS[cell]]
         kernels.append({
@@ -5251,6 +5626,20 @@ def main():
                               for c in m2s2[cell]["k2"] if c["design"] == design],
                 "launches_2s2": e2e2s2[cell]["layer"][prec]["launches"]["k2"],
                 "cuda_launches_2s2": e2e2s2[cell]["layer"][prec]["cuda_launches"]["k2"]})
+        mc, run = k2_rows[cell], e2e_rows[cell]["k2"]
+        kernels.append({
+            "name": kname + "_rows", "route": "cuda", "design": "rows",
+            "cuda_launches_per_call": mc["cuda_launches_per_call"],
+            "source": "ccsmeth_tpu_torch/ops/csrc/birnn_rows.cu",
+            "projection_source": SIMT_PROJECTION,
+            "replaces": "ccsmeth_tpu/ops/bigru_pallas.py:{}".format(line),
+            "launches": run["launches"]["k2"], "cuda_launches": run["cuda_launches"]["k2"],
+            "max_abs_err": mc["max_abs_err"], "ms": mc["kernel_ms"],
+            "plain_ms": mc["plain_ms"], "bound_ms": mc["bound_ms"],
+            "bound_by": mc["bound_by"], "library_ms": mc["library_ms"],
+            "phases_ms": mc["phases_ms"], "rows_geometry": mc["rows_design"],
+            "simt_forced": mc["simt_forced"],
+            "cell": "{} rows={} C={} float32".format(MODELS[cell], mc["rows"], mc["C"])})
     emit({"kernels": kernels})
     log("chip_smoke: {:.1f} s on {}".format(time.time() - t_start, smi))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

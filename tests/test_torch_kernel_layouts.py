@@ -357,12 +357,15 @@ def parent_tc_shape(H, cell):
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
 @pytest.mark.parametrize("hidden", HIDDEN + (32, 128))
 def test_k1_plan_takes_the_model_shapes(hidden, cell):
-    """The rule reads H, the cell and the dtype; any row count takes the
-    design it picks (the recurrence grid covers ceil(N / rows) row tiles).
-    The geometry is TC_GEOMETRY's at H = 256 and TC_BY_U's below, with the
-    kernel's shared-memory formula, within the 227 KB."""
+    """In bf16 the rule reads H and the cell, not the row count: every row
+    count gets the same plan and takes the design it picks (the recurrence
+    grid covers ceil(N / rows) row tiles). The geometry is TC_GEOMETRY's at
+    H = 256 and TC_BY_U's below, with the kernel's shared-memory formula,
+    within the 227 KB."""
     plan = bigru.k1_plan(hidden, cell)
     assert plan["design"] == "tc", plan
+    for rows in (1, 1024, bigru.ROWS_CROSSOVER, 16384):
+        assert bigru.k1_plan(hidden, cell, torch.bfloat16, rows) == plan
     U, cn = plan["U"], plan["CN"]
     assert U in (16, 32, 64) and U * cn == hidden and cn in (1, 2, 4, 8)
     geo = bigru.TC_GEOMETRY[cell] if hidden == 256 else bigru.TC_BY_U[U]

@@ -520,16 +520,17 @@ K1_DIGESTS = {
 }
 
 
-def k1_digest(cell, hidden, rows, layers, cin):
+def k1_digest(cell, hidden, rows, layers, cin, design=None):
     """sha256 over the bytes of K1's fp32 out and h_n and K2's fp32 out (the
-    layers one launch each) on one case."""
+    layers one launch each) on one case, in the design ``k1_plan`` picks or
+    the one forced (``design``)."""
     dt = torch.float32
     rng = np.random.RandomState(1000 * hidden + 100 * layers + rows + cin)
     ly = [layer_weights(ld, dt, "cuda")
           for ld in init_rnn_params(rng, cin, hidden, layers, cell)]
     x = torch.from_numpy(rng.randn(21, rows, cin).astype(np.float32)).to("cuda")
-    out, hn = bigru.birnn_stack(ly, x, dt, cell)
-    out2 = bigru.birnn_layers(ly, x, dt, cell)[0]
+    out, hn = bigru.birnn_stack(ly, x, dt, cell, design)
+    out2 = bigru.birnn_layers(ly, x, dt, cell, design)[0]
     h = hashlib.sha256()
     for t in (out, hn, out2):
         h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
@@ -563,3 +564,132 @@ def test_k1_simt_outputs_bit_equal_at_several_waves(case):
     _need_card()
     assert bigru.k1_plan(case[1], case[0], torch.float32)["design"] == "simt"
     assert k1_digest(*case) == K1_WAVE_DIGESTS[case]
+
+
+# sha256 of ``k1_digest(*case)`` at many rows, taken on an H100 from the
+# kernels as they were before the rows design (the simt design ran these
+# shapes): GRU and LSTM, H 256, 3 layers at C = 11 and 512 and K2's one
+# layer at C = 512, at 16,384 rows (batch 8,192) and at 13 rows past the
+# crossover (a ragged last block). The rows design that k1_plan now picks
+# there leaves every bit as it was.
+K1_ROWS_DIGESTS = {
+    ('gru', 256, 16384, 3, 11): "b440e17c2a4b66c21a107a928c7401a6c239b3967f1531ae805ebc17e39f336f",
+    ('gru', 256, 16384, 3, 512): "5ab1ac36c1cf017a887987036366587c5c8d95ec6788b84c1b264306846082dd",
+    ('gru', 256, 16384, 1, 512): "f4d6516b7cc03c68ee17672b375b14b3cb66b4c273fe412f78f0fa2e92558bb0",
+    ('gru', 256, 6157, 3, 11): "f296f0fa6aa4af616f65b24419e7697705ff7a64ad3533445f683ba0d8c660bc",
+    ('gru', 256, 6157, 3, 512): "b71a0757627800930bce3300d0ea1bb4be4797a331992b25291ba3062c6232a0",
+    ('lstm', 256, 16384, 3, 11): "b3a0fd096c3c7a2ca85684c1f75dc24b1d01459946bcffa1a5202865899ed951",
+    ('lstm', 256, 16384, 3, 512): "1b49cf32cfbb27f6f2bdf3ed865ae05c330dae30e696d467edead0e08981e672",
+    ('lstm', 256, 16384, 1, 512): "c7ccc548bb63c109ce6064d7bdbad0422230d584333bc6d8b2d8dd054c24e193",
+    ('lstm', 256, 6157, 3, 11): "8b674afa86745b4a758db542c8404f24077ab70202e0fff192d2388b25738440",
+    ('lstm', 256, 6157, 3, 512): "473e425d43f791fe73d7f2a419f5036a6c15738e7092bc093207d7884495566d",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_ROWS_DIGESTS))
+def test_k1_rows_outputs_bit_equal_to_the_cluster_design(case):
+    _need_card()
+    assert case[2] >= bigru.ROWS_CROSSOVER
+    assert bigru.k1_plan(case[1], case[0], torch.float32, case[2])["design"] == "rows"
+    assert k1_digest(*case) == K1_ROWS_DIGESTS[case]
+
+
+# the earlier digests' cases that the rows design takes (H a multiple of 64)
+ROWS_FORCED_CASES = ([c for c in K1_DIGEST_CASES if c[1] % 64 == 0]
+                     + sorted(K1_WAVE_DIGESTS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROWS_FORCED_CASES)
+def test_k1_rows_design_keeps_the_earlier_digests(case):
+    """The rows design forced on every shape of the earlier digests that it
+    takes (H = 64 and 256, 1 to 4,096 rows, ragged blocks) gives their
+    bits: K1's out and h_n and K2's out."""
+    _need_card()
+    want = K1_DIGESTS[case] if case in K1_DIGESTS else K1_WAVE_DIGESTS[case]
+    assert k1_digest(*case, design="rows") == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+@pytest.mark.parametrize("rows", RAGGED + (6157,))
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_rows_design_matches_plain_and_simt(cell, rows, hidden, layers):
+    """K1 in the rows design, forced, at ragged row counts and one to four
+    passes a step: two CUDA launches a layer, counted under its design;
+    bit-equal on a rerun and to the simt design; within the fp32 tolerance
+    of the plain version."""
+    _need_card()
+    dt = torch.float32
+    ly, x = _stack(rows, hidden, cell, dt, layers)
+    before, cuda_before = dict(bigru.design_calls), bigru.cuda_launches
+    out, hn = bigru.birnn_stack(ly, x, dt, cell, "rows")
+    assert bigru.cuda_launches - cuda_before == 2 * layers
+    assert bigru.design_calls == dict(before, rows=before["rows"] + 1)
+    out2, hn2 = bigru.birnn_stack(ly, x, dt, cell, "rows")
+    simt_out, simt_hn = bigru.birnn_stack(ly, x, dt, cell, "simt")
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(hn, hn2)
+    assert torch.equal(out, simt_out) and torch.equal(hn, simt_hn)
+    ref_out, ref_hn = bigru.birnn_stack_plain(ly, x, dt, cell)
+    assert (out - ref_out).abs().max().item() <= TOL["float32"]
+    assert (hn - ref_hn).abs().max().item() <= TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["gru", "lstm"])
+def test_shape_rule_picks_rows_at_many_rows(cell):
+    """At 16,384 rows (batch 8,192) fp32 K1 and K2 take the rows design: K1
+    two CUDA launches a layer and one call under ``rows``, K2 (one layer a
+    call) two a call and one call a layer under ``rows``; bf16 keeps tc."""
+    _need_card()
+    dt = torch.float32
+    assert bigru.k1_plan(256, cell, torch.bfloat16, 16384)["design"] == "tc"
+    ly, x = _stack(16384, 256, cell, dt)
+    counts = _k2_counts()
+    bigru.birnn_stack(ly, x, dt, cell)
+    bigru.birnn_layers(ly, x, dt, cell)
+    torch.cuda.synchronize()
+    launches, cuda, designs, l_launches, l_cuda, l_designs, l_plain = _k2_counts()
+    assert (launches - counts[0], cuda - counts[1]) == (1, 6)
+    assert designs == dict(counts[2], rows=counts[2]["rows"] + 1)
+    assert (l_launches - counts[3], l_cuda - counts[4], l_plain - counts[6]) == (3, 6, 0)
+    assert l_designs == dict(counts[5], rows=counts[5]["rows"] + 3)
+
+
+@pytest.mark.cuda
+def test_rows_design_raises_on_what_it_cannot_take():
+    """A forced rows design on an H it does not take, and a geometry the
+    source does not instantiate, raise naming the shape; nothing launches
+    and nothing falls back to another design."""
+    _need_card()
+    dt = torch.float32
+    ly, x = _stack(37, 16, "gru", dt)
+    before = (bigru.cuda_launches, dict(bigru.design_calls), bigru.plain_calls)
+    with pytest.raises(ValueError, match="H = 16"):
+        bigru.birnn_stack(ly, x, dt, "gru", "rows")
+    ly, x = _stack(37, 256, "gru", dt, 1)
+    wih, bih, whh, bhh = ly[0]
+    xg = bigru.simt_projection(x.view(-1, 11), wih, bih, bhh, "gru")
+    launched = bigru.cuda_launches
+    plan = dict(bigru.rows_geometry(256, "gru", (96, 4)), design="rows")
+    with pytest.raises(RuntimeError, match="birnn_rows recurrence \\(gru, H 256, 37 rows, R 96"):
+        bigru.rows_recurrence(xg, whh, bhh, 21, 37, plan, "gru")
+    assert bigru.cuda_launches == launched
+    assert (before[1], before[2]) == (dict(bigru.design_calls), bigru.plain_calls)
+
+
+@pytest.mark.cuda
+def test_rows_sigmoid_is_sigmoid_f_on_every_float():
+    """The rows design's epilogue takes sigmoid_f's reciprocal on its
+    branch-free path (csrc/birnn_rows.cu's rcp_in_range) and the division
+    outside that path's range: on every float32 bit pattern x its result
+    has sigmoid_f's bits (NaN for NaN)."""
+    _need_card()
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    rc = bigru._load_rows().birnn_rows_sigmoid_check(
+        bad.data_ptr(), torch.cuda.current_stream().cuda_stream, bad.device.index)
+    torch.cuda.synchronize()
+    assert rc == 0 and int(bad.item()) == 0
