@@ -50,9 +50,11 @@ design):
   so a thread's accumulators hold every gate of its units;
 - ``simt`` (``csrc/birnn_simt.cu``), exact f32 FMAs (no TF32): per layer
   K4's simt projection (``bigru_train.cu``'s ``k4_proj_launch``: the f32
-  GEMM ``proj_f32_kernel`` of ``rnn_train_gemm.cuh``, 8 x 16 outputs a
-  thread) and a cluster recurrence written for inference: four product
-  warps, each thread RT rows by 2 units of every gate, and four warps that
+  GEMM ``f32_tma_kernel`` of ``rnn_train_gemm.cuh``, 8 x 16 outputs a
+  thread, operands by TMA into an mbarrier ring; counted in
+  ``bigru_vjp.f32_products``) and a cluster recurrence written for
+  inference: four product warps, each thread RT rows by 2 units of every
+  gate, and four warps that
   share the gate math with them, whose CTAs pass h to each other
   by bulk copies that complete on barriers in shared memory; its geometry
   (U units a CTA, clusters of CN = H / U CTAs, R rows a tile: 72 at H =
@@ -538,6 +540,8 @@ def simt_projection(x: torch.Tensor, w_ih: torch.Tensor, b_ih: torch.Tensor,
             DTYPE_CODE[x.dtype], x.data_ptr(), w_ih.data_ptr(), b_ih.data_ptr(),
             b_hh.data_ptr(), xg.data_ptr(), M, K, G // ng, ng, stream, x.device.index)
     _launched("k4_proj_launch", rc, layer)
+    if x.dtype == torch.float32:
+        bigru_vjp.f32_products["projection"] += 1
     return xg
 
 

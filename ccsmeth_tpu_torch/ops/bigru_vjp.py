@@ -31,9 +31,10 @@ recurrence stores the gate gradients as bf16 copies and each row tile's
 partial bias sums, and dx and the weight gradients run on wgmma fed by TMA
 (``csrc/rnn_train_gemm.cuh::wgemm_kernel``; X's rows at C % 8 != 0, which
 TMA cannot address, by plain loads into the same image); ``gemm_calls``
-counts those products by kernel. In the simt design on f32, dx and the
-weight and bias gradients run ``gemm_f32_kernel`` (exact f32 FMAs, 128 x
-128 tiles, dx's by ``simt_dx_tile``), the projection ``proj_f32_kernel``.
+counts those products by kernel. In the simt design on f32, the projection,
+dx and the weight and bias gradients run ``f32_tma_kernel`` (exact f32
+FMAs, 128 x 128 tiles, dx's by ``simt_dx_tile``; the operands by TMA into
+an mbarrier ring), counted by product in ``f32_products``.
 ``k45_plan`` is the shape rule that picks the design of a CUDA call, for this
 layer and for K6, the LSTM's (``bilstm_vjp``), whose kernels are these with
 four gates: the gate count NG (3 or 4) is the only input besides H and the
@@ -86,8 +87,8 @@ from .kernel_args import (DTYPE_CODE, SMEM_LIMIT, cuda_checks, device_of, dims,
 SRC = "bigru_train.cu"
 TC_ROWS_FWD = 64  # TC_FWD_ROWS in csrc/rnn_train_rec.cuh: rows of a tc forward tile
 TC_ROWS_BWD = 32  # TC_BWD_ROWS: rows of a tc backward tile
-GEMM_TILE = 128  # GF_BM = GM_BM = GM_BN = WG_BM in csrc/rnn_train_gemm.cuh
-# CTAs an SM of the product kernels of either design: gemm_f32_kernel's
+GEMM_TILE = 128  # FT_BM = GM_BM = GM_BN = WG_BM in csrc/rnn_train_gemm.cuh
+# CTAs an SM of the product kernels of either design: f32_tma_kernel's
 # (simt on f32), gemm_simt_kernel's (simt on bf16) and wgemm_kernel's (tc)
 # __launch_bounds__
 WGRAD_CTAS_PER_SM = 2
@@ -115,6 +116,10 @@ design_calls = {"tc": 0, "simt": 0}  # K4 and K5 CUDA calls by design
 # the tc design's backward products (dx, dW_ih, dW_hh of K5 and K6, each one
 # job) by kernel: all on wgmma (csrc/rnn_train_gemm.cuh's wgemm_kernel)
 gemm_calls = {"wgmma": 0}
+# the exact-f32 products' launches (csrc/rnn_train_gemm.cuh's f32_tma_kernel)
+# by product: the fp32 projections of K1, K2 and the simt forwards (also
+# ``bigru.simt_projection``'s), and the simt backward's dx and weight gradients
+f32_products = {"projection": 0, "dx": 0, "wgrad": 0}
 
 _lib = None
 _lock = threading.Lock()
@@ -383,19 +388,31 @@ def k5_wgrad_slices(rows: int, C: int, H: int, n_sms: int, ng: int = 3) -> int:
     return best
 
 
-def simt_dx_tile(rows: int, C: int, n_sms: int) -> tuple:
-    """The fp32 dx product's tile (rows, columns) in
-    ``csrc/rnn_train_gemm.cuh``'s gemm_f32_kernel (``dx_rows``,
-    ``dx_cols``): the least of 16, 32, 64 and 128 columns that holds C, and
-    8 or 7 rows a thread (128 or 112 rows), whichever takes the fewer
-    wave-times (waves of ``WGRAD_CTAS_PER_SM`` x n_sms tiles, times the
-    tile's rows), 8 on a tie."""
-    bn = next(b for b in (16, 32, 64, 128) if C <= b or b == 128)
+def f32_tile_rows(rows: int, col_tiles: int, n_sms: int) -> int:
+    """Rows of a tile of ``csrc/rnn_train_gemm.cuh``'s f32_tma_kernel where A
+    is K-major (the projection, dx; ``ft_rows``): 112 or 128, whichever
+    takes the fewer wave-times (waves of ``WGRAD_CTAS_PER_SM`` x n_sms
+    tiles, times the tile's rows) over ``col_tiles`` column tiles, 128 on a
+    tie."""
     slots = WGRAD_CTAS_PER_SM * n_sms
 
     def cost(rm):
-        return -(-(-(-C // bn) * -(-rows // (16 * rm))) // slots) * rm
-    return (112 if cost(7) < cost(8) else 128), bn
+        return -(-(col_tiles * -(-rows // (16 * rm))) // slots) * rm
+    return 112 if cost(7) < cost(8) else 128
+
+
+def simt_dx_tile(rows: int, C: int, n_sms: int) -> tuple:
+    """The fp32 dx product's tile (rows, columns) in f32_tma_kernel
+    (``dx_cols``, ``ft_rows``): the least of 16, 32, 64 and 128 columns
+    that holds C, and ``f32_tile_rows`` rows."""
+    bn = next(b for b in (16, 32, 64, 128) if C <= b or b == 128)
+    return f32_tile_rows(rows, -(-C // bn), n_sms), bn
+
+
+def simt_proj_tile(rows: int, G: int, n_sms: int) -> tuple:
+    """The fp32 projection's tile (rows, columns) in f32_tma_kernel: 128
+    columns of G a direction, both directions, and ``f32_tile_rows`` rows."""
+    return f32_tile_rows(rows, 2 * -(-G // GEMM_TILE), n_sms), GEMM_TILE
 
 
 def _check_fwd(x, w_ih, b_ih, w_hh, b_hh, compute_dtype):
@@ -538,6 +555,8 @@ def k4_projection(x, w_ih, b_ih, b_hh, plan, compute_dtype):
         _launch("birnn_tc_proj_launch", plan, x, int(ng == 4), *args, lib=bigru._load_tc())
     else:
         _launch("k4_proj_launch", plan, x, DTYPE_CODE[compute_dtype], *args, ng)
+        if compute_dtype == torch.float32:
+            f32_products["projection"] += 1
     return xg
 
 
@@ -607,6 +626,8 @@ def k5_dx(dxg, w_ih, plan, compute_dtype):
             w_ih.data_ptr(), dx.data_ptr(), M, C, G // ng, ng)
     if plan["design"] == "tc":
         gemm_calls["wgmma"] += 1
+    elif compute_dtype == torch.float32:
+        f32_products["dx"] += 1
     return dx
 
 
@@ -646,9 +667,12 @@ def k5_weight_grads(x, out, dxg, dhg, plan, compute_dtype, bias_part=None):
         _launch("k5_sum_launch", plan, x, part.data_ptr(), grads.data_ptr(), per, S,
                 bias_part.data_ptr(), grads[per:].data_ptr(), grads.numel() - per,
                 bias_part.shape[0])
-    elif S > 1:
-        _launch("k5_sum_launch", plan, x, part.data_ptr(), grads.data_ptr(), grads.numel(),
-                S, None, None, 0, 0)
+    else:
+        if compute_dtype == torch.float32:
+            f32_products["wgrad"] += 1
+        if S > 1:
+            _launch("k5_sum_launch", plan, x, part.data_ptr(), grads.data_ptr(),
+                    grads.numel(), S, None, None, 0, 0)
     dw_ih, dw_hh, db_ih, *rest = grads.split(sizes)
     db_hh = rest[0] if rest else db_ih
     return dw_ih.view(2, C, G), db_ih.view(2, G), dw_hh.view(2, H, G), db_hh.view(2, G)

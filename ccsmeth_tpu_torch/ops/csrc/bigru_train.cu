@@ -68,10 +68,10 @@
 //          tc's bias partials, in tile order) are added in order
 //          (k5_wgrad_launch, k5_sum_launch). No atomics: reruns are
 //          bit-equal.
-//      In simt on f32 (b) and (c) are rnn_train_gemm.cuh's gemm_f32_kernel:
+//      In simt on f32 (b) and (c) are rnn_train_gemm.cuh's f32_tma_kernel:
 //          128 x 128 tiles of 128 threads (dx: 112 or 128 rows, whichever
 //          fills its waves better, by 16 .. 128 columns by C), 8 x 16
-//          outputs a thread, a 4-deep cp.async ring, two CTAs an SM. Their
+//          outputs a thread, a TMA ring on mbarriers, two CTAs an SM. Their
 //          bound at C = 512 is the FMA rate: dx 33.8 GFLOP (K6: 45.1),
 //          0.50 (0.67) ms at 67 TFLOP/s; the weight gradients 50.7 (67.6)
 //          GFLOP, 0.76 (1.01) ms; at C = 11 dx is bound by dxg's bytes
@@ -100,8 +100,8 @@
 //     tile in two row halves, a thread 9 rows x 8 units of the partial;
 //     W_hh slice [k][j] f32 (96 KB), the partials received (72 KB) and a
 //     half's dhg operand (16 KB): 188,064 bytes, with no cluster barrier in
-//     the time loop. The products on f32 operands: K4 (a) proj_f32_kernel,
-//     K5 (b) and (c) gemm_f32_kernel; on bf16 (H = 16) gemm_simt_kernel.
+//     the time loop. The products on f32 operands: K4 (a), K5 (b) and (c)
+//     f32_tma_kernel; on bf16 (H = 16) gemm_simt_kernel.
 //   Rows >= N (the ragged last tile) read zeros, store nothing and add
 //   nothing to dW.
 //
@@ -218,7 +218,7 @@ int k5_rec_occupancy(int design, int dtype, int H, int U, int* clusters, int* sm
 }
 
 // dx (M, C) f32 = sum_d op(dxg[d]) (M, G) W_ih[d]^T: simt with dxg f32
-// (rnn_train_gemm.cuh's gemm_f32_kernel on f32 W_ih, gemm_simt_kernel on
+// (rnn_train_gemm.cuh's f32_tma_kernel on f32 W_ih, gemm_simt_kernel on
 // bf16), tc with dxg bf16 (wgemm_kernel).
 int k5_dx_launch(int design, int dtype, const void* dxg, const void* wih, void* dx, int M,
                  int C, int H, int ng, void* stream, int device) {

@@ -4,9 +4,9 @@
 //   (a) the input projection of all L steps, both directions: xg (2, L N,
 //       G) f32 = X (L N, Cin) W_ih[d] + b_ih[d] + the b_hh[d] columns outside
 //       the GRU's reset product (all of the LSTM's): bigru_train.cu's
-//       k4_proj_launch, which runs rnn_train_gemm.cuh's proj_f32_kernel
-//       (128 x 128 tiles, 8 x 16 outputs a thread, a cp.async ring of k
-//       tiles of 16);
+//       k4_proj_launch, which runs rnn_train_gemm.cuh's f32_tma_kernel
+//       (128 x 128 tiles, 8 x 16 outputs a thread, a TMA ring of k tiles
+//       on mbarriers);
 //   (b) the recurrence (birnn_rec_kernel, birnn_simt_rec_launch), both
 //       directions at once from xg. A cluster of CN = H / U CTAs runs one
 //       (tile of R rows, direction); CTA c keeps the NG U columns of W_hh of

@@ -9,42 +9,28 @@
 // rnn_proj, rnn_dx, rnn_wgrad, wg_dx and wg_wgrad at the end describe each
 // as jobs.
 //
-// Four kernels, by design:
-//   proj_f32_kernel (the simt design's input projection on f32 operands:
-//     K1's, K2's and the K4/K6 fp32 forwards' xg): exact f32 FMAs on the
-//     CUDA cores, a CTA of 128 threads a 128 x 128 tile, 8 x 16 outputs a
-//     thread, two CTAs an SM, the operands through a 4-deep cp.async ring of
-//     k tiles of 16 (X's rows as they are stored, [m][k]; W_ih [k][n]), each
-//     thread's next k of W_ih loaded while this one's FMAs run. What bounds
-//     it at the models' shapes (L N = 21,504 rows, C = 512, G = 768 or 1024
-//     a direction) is the FMA rate: 2 L N C 2 G FLOPs against 67 TFLOP/s,
-//     0.50 / 0.67 ms, far above the bytes' time; a thread's k costs it 24
-//     operand words for 128 FMAs (the simt kernel's 8 x 8 tile: 16 for 64),
-//     inside the rate that shared memory's 32 words a clock an SM feed. At
-//     C = 11 the bytes bound it (xg, 132 MB for the GRU: 0.039 ms at 3.35
-//     TB/s). Each output is the simt kernel's chain (below) with the bias
-//     folded the same way, so xg keeps every bit.
-//   gemm_f32_kernel (the simt design's dx and weight and bias gradients
-//     on f32 operands: the K5/K6 fp32 backward's products): exact f32 FMAs
-//     on the CUDA cores, no TF32. A CTA of 128 threads a 128 x 128 tile
-//     (dx: 112 or 128 rows by 16 .. 128 columns), 8 x 16 outputs a thread,
-//     two CTAs an SM; the operands in the layouts they are stored in (dx:
-//     both K-major; the weight gradients: both MN-major) through a 4-deep
-//     cp.async ring of k tiles of 16, each thread's copies set up once a
-//     segment; B's column sums (the bias gradients) beside the weight
-//     gradients in the first row tile's CTAs, by the residue of the row mod
-//     8 as gemm_simt_kernel takes them. What bounds it at the models'
-//     shapes (L N = 21,504 rows, C = 512, G = 768 or 1024 a direction) is
-//     the FMA rate: dx 2 L N C 2G FLOPs (33.8 / 45.1 GFLOP, 0.50 / 0.67 ms
-//     at 67 TFLOP/s), the weight gradients 2 L N 2G (C + H) (50.7 / 67.6
-//     GFLOP, 0.76 / 1.01 ms), each far above its bytes' time (dxg, 132 /
-//     176 MB, is read from device memory or L2: 0.04 / 0.05 ms at 3.35
-//     TB/s); at C = 11 dx is bound by dxg's bytes. Each output is the simt
-//     kernel's chain (below), so every bit stays.
+// Three kernels, by design:
+//   f32_tma_kernel (the simt design's products on f32 operands: K1's,
+//     K2's and the K4/K6 fp32 forwards' projection xg, the K5/K6 fp32
+//     backward's dx and weight and bias gradients): exact f32 FMAs on the
+//     CUDA cores, no TF32. A CTA of 128 threads a 128 x 128 tile (the
+//     projection and dx: 112 or 128 rows; dx by 16 .. 128 columns), 8 x 16
+//     (or 7 x 16) outputs a thread, two CTAs an SM; the operands by TMA
+//     into a ring of FT_STAGES = 3 slots of FT_KT = 32 k on mbarriers,
+//     refilled by the last warp done with a slot (no CTA barrier and no
+//     copy instructions in the k loop); K-major images under TMA's swizzle,
+//     MN-major ones dense; X's rows at C % 4 != 0 by the CTA's own 4-byte
+//     copies. What bounds it at the models' shapes (L N = 21,504
+//     rows, C = 512, G = 768 or 1,024 a direction) is the FMA rate: the
+//     projection and dx 2 L N C 2G FLOPs (33.8 / 45.1 GFLOP, 0.50 / 0.67
+//     ms at 67 TFLOP/s), the weight gradients 2 L N 2G (C + H) (50.7 /
+//     67.6 GFLOP, 0.76 / 1.01 ms), each far above its bytes' time; at C =
+//     11 the projection and dx are bound by xg's and dxg's bytes. Each
+//     output is the simt kernel's chain (below), so every bit stays.
 //   gemm_simt_kernel (the simt design on bf16 operands, the shapes tc
-//     refuses: H = 16; the f32 projection runs proj_f32_kernel and the f32
-//     backward gemm_f32_kernel): exact f32 FMAs on the CUDA cores. Block tile 128 x
-//     128, k tile 8, 8 x 8 outputs a thread, operand tiles in shared memory
+//     refuses: H = 16; f32 operands run f32_tma_kernel): exact f32 FMAs on
+//     the CUDA cores. Block tile 128 x 128, k tile 8, 8 x 8 outputs a
+//     thread, operand tiles in shared memory
 //     (double-buffered; the next tile is loaded into registers while the
 //     current one is multiplied). It reads its operands in the layout the
 //     caller already holds (no transposed copies): each side is
@@ -72,12 +58,11 @@
 // device memory or L2 and are far above the card's ridge.
 //
 // Determinism: every output element has one owner thread (a warpgroup's
-// accumulator in wgemm_kernel) that sums its k in a fixed order (in the
-// three simt kernels one fmaf chain over k ascending from 0.0f: the zeros
-// they pad k with add nothing, so their tile sizes do not move a bit); a
-// long
+// accumulator in wgemm_kernel) that sums its k in a fixed order (in the two
+// simt kernels one fmaf chain over k ascending from 0.0f: the zeros they
+// pad k with add nothing, so their tile sizes do not move a bit); a long
 // contraction is cut into S fixed row slices whose partials gemm_sum_slices
-// adds in slice order. No atomics, so reruns are bit-equal.
+// adds in slice order. No atomics on data, so reruns are bit-equal.
 
 #pragma once
 
@@ -323,402 +308,191 @@ __global__ void __launch_bounds__(GM_THREADS, 2) gemm_simt_kernel(const GemmPara
   }
 }
 
-// ---------------------------------------------------------------- f32 projection
-
-// proj_f32_kernel: the input projection of both directions in exact f32
-// (the simt design's xg, f32 operands), a tile of FP_BM rows by FP_BN
-// columns a CTA, FP_THREADS threads of 8 rows x 16 columns each. X's rows
-// (k contiguous, [m][k] in shared memory, 4 floats of padding a row) and
-// W_ih's (n contiguous, [k][n]) reach shared memory by cp.async, a
-// FP_STAGES-deep ring of FP_BK-wide k tiles (16-byte copies; 4-byte ones
-// for X's rows where C % 4 != 0), zeros outside the operands. A k of the
-// product costs a thread 8 + 16 operand words for 128 FMAs (the simt
-// kernel's 8 x 8: 16 for 64): shared memory's 32 words a clock an SM feed
-// the 128 FMA lanes with room to spare. A tile of 128 columns (128
-// threads, two CTAs an SM, each at most 255 registers) beat one of 256
-// (256 threads, one CTA) and 3 or 5-6 stages on the card.
-#define FP_BM 128
-#define FP_BN 128
-#define FP_TX (FP_BN / 16)         // threads along the columns, 16 columns each
-#define FP_THREADS (FP_TX * 16)    // and 16 along the rows, 8 rows each
-#define FP_MINB (256 / FP_THREADS)  // CTAs an SM
-#define FP_BK 16
-#define FP_STAGES 4
-#define FP_AST (FP_BK + 4)  // X's row stride in shared memory, floats
-
-struct F32ProjParams {
-  const float* x;      // (M, K)
-  const float* w;      // (2, K, G)
-  const float* bias0;  // (2, G): b_ih
-  const float* bias1;  // (2, G): b_hh, its first nfold columns folded
-  float* xg;           // (2, M, G)
-  int M, K, G, nfold;
-};
-
-__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
-               : "memory");
-}
-
-static size_t f32_proj_smem() {
-  return (size_t)FP_STAGES * (FP_BM * FP_AST + FP_BK * FP_BN) * 4;
-}
-
-// Each output element is one thread's fmaf chain over k ascending from 0.0f
-// (the zeros past C add nothing), then + (b_ih + b_hh) as gemm_simt_kernel
-// folds it: the same bits. XV: 16-byte copies of X's rows (C % 4 == 0, x
-// 16-byte aligned), else its elements one by one; WV: 16-byte copies of
-// W_ih's rows and 16-byte stores of xg (G % 4 == 0, w and xg 16-byte
-// aligned: every simt shape), else one by one.
-template <bool XV, bool WV>
-__global__ void __launch_bounds__(FP_THREADS, FP_MINB) proj_f32_kernel(const F32ProjParams p) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                                // [STAGES][BM][AST]
-  float* Bs = smem + FP_STAGES * FP_BM * FP_AST;   // [STAGES][BK][BN]
-  const int d = blockIdx.z;
-  const int m0 = blockIdx.y * FP_BM, n0 = blockIdx.x * FP_BN;
-  const int M = p.M, K = p.K, G = p.G;
-  const float* W = p.w + (size_t)d * K * G;
-  const int tid = threadIdx.x, tx = tid % FP_TX, ty = tid / FP_TX;
-  const int KT = (K + FP_BK - 1) / FP_BK;
-  const uint32_t as0 = smem_u32(As), bs0 = smem_u32(Bs);
-
-  // this thread's pieces of a stage: X's (row, 4 k) chunks and W's (k, 4 n)
-  constexpr int ACH = FP_BM * (FP_BK / 4) / FP_THREADS, BCH = FP_BK * (FP_BN / 4) / FP_THREADS;
-  static_assert(ACH * FP_THREADS == FP_BM * (FP_BK / 4) && BCH * FP_THREADS == FP_BK * (FP_BN / 4),
-                "whole chunks a thread");
-  const float* a_src[ACH];
-  uint32_t a_dst[ACH];
-  int a_k[ACH];
-  bool a_row[ACH];
-#pragma unroll
-  for (int j = 0; j < ACH; ++j) {
-    const int c = tid + j * FP_THREADS, r = c / (FP_BK / 4), kq = (c % (FP_BK / 4)) * 4;
-    a_row[j] = m0 + r < M;
-    a_k[j] = kq;
-    a_src[j] = p.x + (size_t)(a_row[j] ? m0 + r : 0) * K + kq;
-    a_dst[j] = (r * FP_AST + kq) * 4;
-  }
-  const float* b_src[BCH];
-  uint32_t b_dst[BCH];
-  int b_k[BCH];
-  bool b_col[BCH];
-#pragma unroll
-  for (int j = 0; j < BCH; ++j) {
-    const int c = tid + j * FP_THREADS, kk = c / (FP_BN / 4), nq = (c % (FP_BN / 4)) * 4;
-    b_col[j] = n0 + nq < G;
-    b_k[j] = kk;
-    b_src[j] = W + (size_t)kk * G + (b_col[j] ? n0 + nq : 0);
-    b_dst[j] = (kk * FP_BN + nq) * 4;
-  }
-
-  auto load_stage = [&](int slot, int kt) {
-    const int k0 = kt * FP_BK;
-    const uint32_t as = as0 + slot * FP_BM * FP_AST * 4, bs = bs0 + slot * FP_BK * FP_BN * 4;
-    if constexpr (XV) {
-#pragma unroll
-      for (int j = 0; j < ACH; ++j) {
-        const bool ok = a_row[j] && k0 + a_k[j] < K;
-        cp_async_16(as + a_dst[j], ok ? a_src[j] + k0 : p.x, ok);
-      }
-    } else {
-      for (int c = tid; c < FP_BM * FP_BK; c += FP_THREADS) {
-        const int r = c / FP_BK, kk = c % FP_BK;
-        const bool ok = m0 + r < M && k0 + kk < K;
-        cp_async_4(as + (r * FP_AST + kk) * 4, ok ? p.x + (size_t)(m0 + r) * K + k0 + kk : p.x,
-                   ok);
-      }
-    }
-    if constexpr (WV) {
-#pragma unroll
-      for (int j = 0; j < BCH; ++j) {
-        const bool ok = b_col[j] && k0 + b_k[j] < K;
-        cp_async_16(bs + b_dst[j], ok ? b_src[j] + (size_t)k0 * G : W, ok);
-      }
-    } else {
-      for (int c = tid; c < FP_BK * FP_BN; c += FP_THREADS) {
-        const int kk = c / FP_BN, nn = c % FP_BN;
-        const bool ok = k0 + kk < K && n0 + nn < G;
-        cp_async_4(bs + (kk * FP_BN + nn) * 4, ok ? W + (size_t)(k0 + kk) * G + n0 + nn : W, ok);
-      }
-    }
-  };
-
-  float acc[8][16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.0f;
-
-#pragma unroll
-  for (int st = 0; st < FP_STAGES - 1; ++st) {
-    if (st < KT) load_stage(st, st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<FP_STAGES - 2>();
-    __syncthreads();  // tile kt is here; every thread is done with tile kt - 1's slot
-    if (kt + FP_STAGES - 1 < KT) load_stage((kt + FP_STAGES - 1) % FP_STAGES, kt + FP_STAGES - 1);
-    cp_async_commit();
-    const float* as = As + (kt % FP_STAGES) * FP_BM * FP_AST;
-    const float* bs = Bs + (kt % FP_STAGES) * FP_BK * FP_BN;
-    // b of k + 1 loads while k's FMAs run
-    float bb[2][16];
-    auto load_b = [&](int k, float (&b)[16]) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4 v = *reinterpret_cast<const float4*>(bs + k * FP_BN + c * (FP_BN / 4) + tx * 4);
-        b[4 * c] = v.x;
-        b[4 * c + 1] = v.y;
-        b[4 * c + 2] = v.z;
-        b[4 * c + 3] = v.w;
-      }
-    };
-    load_b(0, bb[0]);
-    // a[i][kk]: rows ty 4 + i and 64 + ty 4 + i (i < 4, i >= 4), k kq + kk
-    auto load_a = [&](int kq, float (&a)[8][4]) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
-        const float4 v = *reinterpret_cast<const float4*>(as + r * FP_AST + kq);
-        a[i][0] = v.x;
-        a[i][1] = v.y;
-        a[i][2] = v.z;
-        a[i][3] = v.w;
-      }
-    };
-#pragma unroll
-    for (int kq = 0; kq < FP_BK; kq += 4) {
-      float a[8][4];
-      load_a(kq, a);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        if (kq + kk + 1 < FP_BK) load_b(kq + kk + 1, bb[(kq + kk + 1) & 1]);
-        const float* b = bb[(kq + kk) & 1];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-  float* C = p.xg + (size_t)d * M * G;
-  const float* b0 = p.bias0 + (size_t)d * G;
-  const float* b1 = p.bias1 + (size_t)d * G;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int n = n0 + c * (FP_BN / 4) + tx * 4;  // this thread's 4 columns
-    if (n >= G) continue;
-    float bias[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      bias[e] = n + e < G ? b0[n + e] + (n + e < p.nfold ? b1[n + e] : 0.0f) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-      if (m >= M) continue;
-      const float* v = &acc[i][4 * c];
-      float* cp = C + (size_t)m * G + n;
-      if constexpr (WV) {
-        *reinterpret_cast<float4*>(cp) =
-            make_float4(v[0] + bias[0], v[1] + bias[1], v[2] + bias[2], v[3] + bias[3]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (n + e < G) cp[e] = v[e] + bias[e];
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------- exact f32 products
 
-// gemm_f32_kernel: the simt design's backward products on f32 operands, dx
-// and the weight gradients with the bias gradients beside them, in exact
-// f32 FMAs on the CUDA cores (proj_f32_kernel's recipe, for the operand
-// layouts the backward holds). A CTA of GF_THREADS threads, 16 thread rows
-// (ty) by 8 thread columns (tx), owns a tile of BM = 16 RM rows by BN = 8
-// TN columns, a thread RM rows by TN columns (RM = 8, TN = 16: 128 x 128;
-// two CTAs an SM). The operands reach shared memory by cp.async, a
-// GF_STAGES-deep ring of GF_BK-wide k tiles (16-byte copies where the
-// operand's rows allow, else 4-byte ones; zeros for k outside the
-// operand's range and for chunks past the matrix, whose accumulators are
-// never stored), each in the layout it is stored in:
-//   K-major (AK / BK: element (i, k) at p[i ld + k + koff]): an image
-//     [i][k] with a row stride of GF_KST floats, read 4 k of a row at once;
-//     a thread's rows are ty + 16 i (A) and its columns tx + 8 j (B), so
-//     the 8 rows of B that a quarter warp reads fall on distinct banks;
-//   MN-major (element (i, k) at p[(k + koff) ld + i]): an image [k][i],
-//     read 4 consecutive i at once; a thread's rows are 4 ty + i and 64 +
-//     4 ty + i - 4, its columns 32 (j / 4) + 4 tx + j % 4.
-// dx is both K-major (dxg[d]'s rows, W_ih[d] read as (c, g)), the two
-// directions two k segments of one accumulator, BN sized by C (16, 32, 64
-// or 128) and RM = 7 or 8 by the waves its tiles fill (dx_rows: at 1,024
-// rows and C = 512, 768 tiles of 112 rows are 2.91 waves of two CTAs an SM
-// where 672 of 128 would be 2.55, three wave-times either way); the weight
-// gradients are both MN-major (X or out's h_prev columns; dxg or dhg), 128
-// x 128, one row slice of the L N rows a grid z index. A k costs a thread
-// RM + TN operand words for RM TN FMAs (the simt kernel's 8 x 8: 16 for
-// 64). Warps whose rows all lie past M (a layer-0 dW_ih tile: M = C = 11)
-// issue no FMAs, leaving the SM's issue slots to the other CTA.
-#define GF_BM 128
-#define GF_THREADS 128  // 16 thread rows x 8 thread columns
-#define GF_BK 16
-#define GF_STAGES 4
-#define GF_KST (GF_BK + 4)  // row stride of a K-major image, floats
+// f32_tma_kernel: the simt design's products on f32 operands, in exact f32
+// FMAs on the CUDA cores (no TF32): the input projection (A = X K-major, B =
+// W_ih[d] MN-major, one job a direction), dx (both K-major, the two
+// directions two k segments of one chain) and the weight gradients with
+// the bias gradients beside them (both MN-major, four jobs, S row slices).
+// A CTA of FT_THREADS threads, 16 thread rows (ty) by 8 thread columns
+// (tx), owns a tile of BM = 16 RM rows by BN = 8 TN columns, a thread RM
+// rows by TN columns (RM = 8, TN = 16: 128 x 128; two CTAs an SM).
+//
+// The operands reach shared memory by TMA, a ring of FT_STAGES slots of
+// FT_KT k each (A's box and B's box a slot), on one mbarrier a slot that
+// completes with the boxes' bytes. No CTA barrier in the k loop and no copy
+// addresses or predicates in the threads: thread 0 loads the first
+// FT_STAGES slots, and the last of the four warps done with a slot (a
+// shared count a slot, one atomic a warp) loads the CTA's next k tile into
+// it. TMA fills whatever lies outside the tensor with zeros: rows past M,
+// k past the operand, and h_prev's rows before a direction's first step
+// (its row coordinate k -+ N runs outside out; past L N, where the forward
+// half's shifted rows still lie inside out, B's rows are zeros, and a
+// finite a times 0 adds nothing). The images:
+//   K-major (element (i, k) at p[i ld + k]): [i][FT_KT], a row of 64 or 128
+//     bytes under TMA's 64- or 128-byte swizzle (16-byte chunk c of row r
+//     at chunk c ^ ft_swz(r)); a thread's rows are ty + 16 i (A) and its
+//     columns tx + 8 j (B), so a thread's swizzle is one value and the 8
+//     rows a quarter warp reads lie on distinct banks;
+//   MN-major (element (i, k) at p[k ld + i]): [k][128] dense, read 4
+//     consecutive i at once; a thread's rows 4 ty + i and 64 + 4 ty + i - 4,
+//     its columns 32 (j / 4) + 4 tx + j % 4.
+// X's rows at C % 4 != 0 (C = 11, 21: no 16-byte multiple, which TMA needs)
+// are written into the same image by the CTA's own 4-byte asynchronous
+// copies, one CTA barrier a k tile (a_plain: layer 0's projection and dW_ih only). The
+// geometry (chip_smoke.py's f32_gemm_sweep on an H100): slots of 32 k, 3 of
+// them (96 KB, two CTAs an SM), and a loop body of 8 k (FT_UNROLL chunks of
+// 4; 1,024 FFMA, 16 KB of code) beat slots of 16 k and tiles unrolled
+// whole (32 or 64 KB of code in the loop); a refill issued later than the
+// last release (by the next tile's middle, or by one loader warp that
+// polls) lost at every shape. The projection and dx take 112-row tiles
+// where those fill the waves better (ft_rows).
+//
+// What bounds it at the models' shapes (L N = 21,504 rows, C = 512, G = 768
+// or 1,024 a direction) is the FMA rate: the projection and dx 2 L N C 2G
+// FLOPs (33.8 / 45.1 GFLOP, 0.50 / 0.67 ms at 67 TFLOP/s), the weight
+// gradients 2 L N 2G (C + H) (50.7 / 67.6 GFLOP, 0.76 / 1.01 ms), far above
+// the bytes' time (xg or dxg, 132 / 176 MB: 0.04 / 0.05 ms at 3.35 TB/s); at
+// C = 11 the projection and dx are bound by xg's and dxg's bytes. A k
+// costs a thread RM + TN operand words for RM TN FMAs.
+//
+// Every bit stays: each output element is one thread's fmaf chain from
+// 0.0f over the segments' k ascending (the slice's rows for the weight
+// gradients; the zeros TMA pads with add nothing), then + the bias as
+// gm_bias gives it (0.0f without one), as gemm_simt_kernel adds it. With a
+// colsum (B MN-major), the CTAs of the first row tile also sum B's columns
+// over segment 0's rows as gemm_simt_kernel does: eight plain partials a
+// column from 0.0f, the rows whose index is r (mod 8) ascending in partial
+// r, then added for r = 0 .. 7 from 0.0f. Slices hold a multiple of
+// SLICE_K rows, so no k tile crosses a slice's end.
+#ifndef FT_KT
+#define FT_KT 32  // k a slot: 16 (64-byte K-major rows) or 32 (128-byte)
+#endif
+#ifndef FT_STAGES
+#define FT_STAGES 3
+#endif
+#ifndef FT_UNROLL
+#define FT_UNROLL 2  // 4-k chunks of a k tile in one pass of the loop body
+#endif
+#ifndef FT_ROWS
+#define FT_ROWS 0  // rows a thread of the projection and dx: 0 by the waves (ft_rows)
+#endif
+#define FT_THREADS 128  // 16 thread rows x 8 thread columns, four warps
+#define FT_BM 128
+static_assert(FT_KT == 16 || FT_KT == 32, "a K-major row is one swizzle span");
+static_assert(SLICE_K % FT_KT == 0, "k tiles end at slice ends");
 
-// One operand's share of a stage for this thread, set up once a segment so
-// that a stage costs a pointer step and a compare or two a chunk (index
-// arithmetic in the stage loader costs the FMAs their issue slots). A stage
-// is the image of k [k0, k0 + GF_BK) by i [i0, i0 + W): K-major [i][k] of
-// row stride GF_KST, chunk j rows tid / 4 + 32 j at k (tid % 4) 4; MN-major
-// [k][i] of row stride W, chunk j rows k = tid / (W / 4) + j (128 / (W /
-// 4)) at i (tid % (W / 4)) 4. vec: 16-byte chunks (K-major: ld, koff, klo
-// and khi multiples of 4; MN-major: ld and n_outer multiples of 4; p
-// aligned), zero-filled for k outside [lo, hi) and for chunks past the
-// matrix; else 4-byte copies (gf_stage4).
-struct GfOp {
-  const float* base;  // the operand: a mapped address for the zero fills
-  const float* src;   // chunk 0's source in the next stage to load
-  int kstep, cstep;   // elements from one stage to the next, from chunk j to j + 1
-  int dst, kq;        // chunk 0's byte offset in the image, its k within the stage
-  int lo, hi;         // the k holding data, this slice's
-  unsigned in;        // bit j: chunk j lies inside the matrix
-  int vec;
+// One operand of a job: its tensor map (0 or 1 of the launch's two for this
+// side), read at (k + koff, i + ioff, z) K-major or (i + ioff, k + koff, z)
+// MN-major, z = z0 in segment 0 and z1 in segment 1.
+struct FtOp {
+  int map, ioff, koff, z0, z1;
 };
 
-template <bool KM, int W>
-struct GfShape {
-  static constexpr int CH = KM ? W * (GF_BK / 4) : GF_BK * (W / 4);  // chunks a stage
-  static constexpr int NJ = (CH + GF_THREADS - 1) / GF_THREADS;    // chunks a thread
-  static constexpr int KJ = KM ? 0 : GF_THREADS / (W / 4);         // k from chunk to chunk
-  static constexpr int DSTEP = KM ? 32 * GF_KST * 4 : KJ * W * 4;  // bytes, chunk to chunk
+struct FtJob {
+  FtOp a, b;
+  int M, N;
+  int a_plain;  // A is X by the CTA's own copies (p.x, rows of p.ldx floats)
+  float* c;
+  long long ldc;
+  const float* bias0;  // c[m][n] += bias0[n] + (n < nfold ? bias1[n] : 0)
+  const float* bias1;
+  int nfold;
+  float* colsum;  // column sums of B (segment 0, unrounded), or null
 };
 
-template <bool KM, int W>
-__device__ __forceinline__ GfOp gf_op(const GemmOp& o, int i0, int n_outer, int kb, int ke,
-                                      int tid) {
-  using S = GfShape<KM, W>;
-  GfOp g;
-  g.base = static_cast<const float*>(o.p);
-  g.lo = max(kb, o.klo);
-  g.hi = min(ke, o.khi);
-  g.vec = o.vec;
-  g.in = 0u;
-  if constexpr (KM) {
-    const int r = tid / 4, kq = (tid % 4) * 4;
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j)
-      if (tid + j * GF_THREADS < S::CH && i0 + r + 32 * j < n_outer) g.in |= 1u << j;
-    g.src = g.base + (long long)(i0 + r) * o.ld + o.koff + kb + kq;
-    g.kstep = GF_BK;
-    g.cstep = (int)(32 * o.ld);
-    g.dst = (r * GF_KST + kq) * 4;
-    g.kq = kq;
-  } else {
-    const int kk = tid / (W / 4), iq = (tid % (W / 4)) * 4;
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j)
-      if (tid + j * GF_THREADS < S::CH && i0 + iq < n_outer) g.in |= 1u << j;
-    g.src = g.base + (kb + kk + o.koff) * o.ld + i0 + iq;
-    g.kstep = (int)(GF_BK * o.ld);
-    g.cstep = (int)(S::KJ * o.ld);
-    g.dst = (kk * W + iq) * 4;
-    g.kq = kk;
-  }
-  return g;
-}
+struct FtParams {
+  FtJob job[4];
+  int K, nseg;              // k a segment, segments
+  int S, Ks;                // S slices of Ks rows (a multiple of SLICE_K)
+  long long slice_stride;   // floats between two slices' outputs
+  const float* x;           // a_plain: X, element (i, k) at x[i ldx + k]
+  int ldx;                  // (K-major) or x[k ldx + i] (MN-major)
+};
 
-// 4-byte copies of a stage where 16-byte ones do not fit the operand's rows
-// (X's rows at C % 4 != 0): rows below n_outer only, zeros for k outside
-// [lo, hi).
-template <bool KM, int W>
-__device__ __forceinline__ void gf_stage4(uint32_t img, const GemmOp& o, const GfOp& g, int i0,
-                                          int n_outer, int k0, int tid) {
-  const int rows = min(W, n_outer - i0);
-  for (int c = tid; c < GF_BK * rows; c += GF_THREADS) {
-    const int kk = KM ? c % GF_BK : c / rows, ii = KM ? c / GF_BK : c % rows, k = k0 + kk;
-    const bool ok = k >= g.lo && k < g.hi;
-    const float* src = KM ? g.base + (long long)(i0 + ii) * o.ld + k + o.koff
-                          : g.base + (k + o.koff) * o.ld + i0 + ii;
-    cp_async_4(img + (KM ? ii * GF_KST + kk : kk * W + ii) * 4, ok ? src : g.base, ok);
-  }
-}
+// the 16-byte chunk that chunk c of K-major row r lands in: c ^ ft_swz(r)
+__host__ __device__ constexpr int ft_swz(int r) { return FT_KT == 16 ? (r >> 1) & 3 : r & 7; }
 
-// This thread's copies of the stage at k0 into the image img; steps g to the
-// next stage. V: the operand is vec in every job of the launch (else each
-// job's flag decides).
-template <bool KM, int W, bool V>
-__device__ __forceinline__ void gf_stage(uint32_t img, const GemmOp& o, GfOp& g, int i0,
-                                         int n_outer, int k0, int tid) {
-  using S = GfShape<KM, W>;
-  if (V || g.vec) {
-#pragma unroll
-    for (int j = 0; j < S::NJ; ++j) {
-      if (S::CH % GF_THREADS != 0 && tid + j * GF_THREADS >= S::CH) break;
-      const int k = k0 + g.kq + j * S::KJ;
-      const bool ok = ((g.in >> j) & 1u) && k >= g.lo && k < g.hi;
-      cp_async_16(img + g.dst + j * S::DSTEP, ok ? g.src + j * g.cstep : g.base, ok);
-    }
-    g.src += g.kstep;
-  } else {
-    gf_stage4<KM, W>(img, o, g, i0, n_outer, k0, tid);
-  }
-}
-
-// Row i of thread row ty in its CTA's tile: ty + 16 i (i < RM) where A is
-// K-major, else 4 ty + i and 64 + 4 ty + i - 4 (i < 8).
-template <bool AK>
-__device__ __forceinline__ int gf_row(int ty, int i) {
-  if (AK) return ty + 16 * i;
-  return i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
-}
-
-template <bool AK, bool BK, int TN, int RM>
-static size_t gf_smem() {
-  return (size_t)GF_STAGES *
-         ((AK ? 16 * RM * GF_KST : GF_BK * GF_BM) + (BK ? 8 * TN * GF_KST : GF_BK * 8 * TN)) * 4;
-}
+template <int RM, int TN>
+struct FtShape {
+  static constexpr int BM = 16 * RM, BN = 8 * TN;
+  static constexpr uint32_t A_BYTES = BM * FT_KT * 4, B_BYTES = BN * FT_KT * 4;
+  // each image 1024-byte aligned (the swizzle's span)
+  static constexpr uint32_t A_IMG = (A_BYTES + 1023) / 1024 * 1024;
+  static constexpr uint32_t B_IMG = (B_BYTES + 1023) / 1024 * 1024;
+  static constexpr uint32_t STAGE = A_IMG + B_IMG;
+  static constexpr size_t SMEM = (size_t)FT_STAGES * STAGE + 8 * FT_STAGES + 4 * FT_STAGES;
+};
 
 // One k tile's FMAs: acc[i][j] += A(row i, k) B(k, column j) for k = 0 ..
-// GF_BK - 1 ascending, one fmaf each, in the images as and bs.
-template <bool AK, bool BK, int TN, int RM>
-__device__ __forceinline__ void gf_tile(const float* as, const float* bs, int tx, int ty,
-                                        float (&acc)[RM][TN]) {
-  constexpr int BN = 8 * TN;
-  if constexpr (AK && BK) {
-#pragma unroll
-    for (int kq = 0; kq < GF_BK; kq += 4) {
+// 4 nc - 1 ascending, one fmaf each, from the images as and bs: its first nc
+// 4-k chunks, those that hold data (the k past them, TMA's zeros, would add
+// nothing). NC: nc where it is known (a whole slot, FT_KT / 4), else 0.
+template <bool AK, bool BK, int RM, int TN, int NC>
+__device__ __forceinline__ void ft_tile(const float* as, const float* bs, int tx, int ty,
+                                        float (&acc)[RM][TN], int nc_) {
+  constexpr int KT = FT_KT, BN = 8 * TN, UC = FT_UNROLL;
+  const int nc = NC ? NC : nc_;
+  if constexpr (AK) {
+    const int asw = ft_swz(ty);
+    const float* ar = as + ty * KT;  // row ty; row ty + 16 i is 16 i KT floats on
+#pragma unroll (UC)
+    for (int c = 0; c < nc; ++c) {
       float a[RM][4];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        const float4 v = *reinterpret_cast<const float4*>(as + gf_row<true>(ty, i) * GF_KST + kq);
+        const float4 v = *reinterpret_cast<const float4*>(ar + 16 * KT * i + ((c ^ asw) << 2));
         a[i][0] = v.x;
         a[i][1] = v.y;
         a[i][2] = v.z;
         a[i][3] = v.w;
       }
-      float b[TN][4];
+      if constexpr (BK) {  // dx: columns tx + 8 j, K-major
+        const int bsw = ft_swz(tx);
+        float b[TN][4];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(bs + (tx + 8 * j) * GF_KST + kq);
-        b[j][0] = v.x;
-        b[j][1] = v.y;
-        b[j][2] = v.z;
-        b[j][3] = v.w;
+        for (int j = 0; j < TN; ++j) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(bs + (tx + 8 * j) * KT + ((c ^ bsw) << 2));
+          b[j][0] = v.x;
+          b[j][1] = v.y;
+          b[j][2] = v.z;
+          b[j][3] = v.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);
+      } else {  // the projection: columns 32 (j / 4) + 4 tx + j % 4, MN-major
+        static_assert(TN == 16, "the projection's 128 columns");
+        // b of k + 1 loads while k's FMAs run
+        float bb[2][16];
+        auto load_b = [&](int k, float (&b)[16]) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(bs + k * BN + q * 32 + tx * 4);
+            b[4 * q] = v.x;
+            b[4 * q + 1] = v.y;
+            b[4 * q + 2] = v.z;
+            b[4 * q + 3] = v.w;
+          }
+        };
+        load_b(4 * c, bb[0]);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (kk < 3) load_b(4 * c + kk + 1, bb[(kk + 1) & 1]);
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], bb[kk & 1][j], acc[i][j]);
+        }
       }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);
     }
   } else {
-    static_assert(!AK && !BK && TN == 16 && RM == 8, "dx, or the weight gradients' 128 x 128");
+    static_assert(!BK && TN == 16 && RM == 8, "the weight gradients' 128 x 128");
     // k + 1's operands load while k's FMAs run
     float bb[2][16], aa[2][8];
     auto load = [&](int k, float (&a)[8], float (&b)[16]) {
@@ -732,7 +506,7 @@ __device__ __forceinline__ void gf_tile(const float* as, const float* bs, int tx
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float4 v = *reinterpret_cast<const float4*>(as + k * GF_BM + 64 * h + ty * 4);
+        const float4 v = *reinterpret_cast<const float4*>(as + k * FT_BM + 64 * h + ty * 4);
         a[4 * h] = v.x;
         a[4 * h + 1] = v.y;
         a[4 * h + 2] = v.z;
@@ -740,72 +514,148 @@ __device__ __forceinline__ void gf_tile(const float* as, const float* bs, int tx
       }
     };
     load(0, aa[0], bb[0]);
+#pragma unroll (UC)
+    for (int c = 0; c < nc; ++c) {
 #pragma unroll
-    for (int k = 0; k < GF_BK; ++k) {
-      if (k + 1 < GF_BK) load(k + 1, aa[(k + 1) & 1], bb[(k + 1) & 1]);
+      for (int kk = 0; kk < 4; ++kk) {
+        const int k = 4 * c + kk;
+        if (k + 1 < 4 * nc) load(k + 1, aa[(kk + 1) & 1], bb[(kk + 1) & 1]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(aa[k & 1][i], bb[k & 1][j], acc[i][j]);
+          for (int j = 0; j < 16; ++j)
+            acc[i][j] = fmaf(aa[kk & 1][i], bb[kk & 1][j], acc[i][j]);
+      }
     }
   }
 }
 
+// mbar_wait at the CTA's scope (the kernel runs no cluster): the phase of
+// parity `parity` of the barrier at `bar` completed; traps on a wait that
+// never ends
+__device__ __forceinline__ void ft_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin > (1u << 24)) __trap();
+  }
+}
+
+// the descriptor of the tensor map at `map` (a kernel parameter) into the
+// TMA unit's cache, ahead of the first box that reads it
+__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Row i of thread row ty in its CTA's tile: ty + 16 i (i < RM) where A is
+// K-major, else 4 ty + i and 64 + 4 ty + i - 4 (i < 8).
+template <bool AK>
+__device__ __forceinline__ int ft_row(int ty, int i) {
+  if (AK) return ty + 16 * i;
+  return i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
+}
+
+// Rows [k0, k0 + kw) by [i0, i0 + BM) of X (element (i, k) at x[i ld + k]
+// K-major, x[k ld + i] MN-major; zeros for i >= M or k >= ke) into the
+// image TMA would write, by the CTA's own 4-byte asynchronous copies (the
+// zeros by copies of no bytes), all in flight at once; kw: the k that
+// ft_tile reads, a multiple of 4. The caller's barrier follows.
+template <bool AK, int BM>
+__device__ __forceinline__ void ft_plain_a(float* img, const float* x, int ld, int i0, int M,
+                                           int k0, int ke, int kw, int tid) {
+  const uint32_t base = smem_u32(img);
+  const int n = BM * kw;
+  for (int e = tid; e < n; e += FT_THREADS) {
+    const int ii = AK ? e / kw : e % BM, kk = AK ? e % kw : e / BM;
+    const int i = i0 + ii, k = k0 + kk;
+    const bool ok = i < M && k < ke;
+    const int slot = AK ? ii * FT_KT + (((kk >> 2) ^ ft_swz(ii)) << 2) + (kk & 3) : kk * BM + ii;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(base + 4 * slot),
+                 "l"(ok ? x + (AK ? (size_t)i * ld + k : (size_t)k * ld + i) : x), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
 // c (+ the slice's offset) = sum over the job's segments of A_seg B_seg (+
-// bias), each element one thread's fmaf chain from 0.0f over the
-// segments' k ascending (the slice's rows for the weight gradients; the
-// zeros past an operand's range add nothing), then + the bias as gm_bias
-// gives it (0.0f without one), as gemm_simt_kernel adds it. With a colsum
-// (B MN-major), the CTAs of the first row tile also sum B's columns over
-// segment 0's rows as gemm_simt_kernel does: eight plain partials a column
-// from 0.0f, the rows whose index is r (mod 8) ascending in partial r, then
-// added for r = 0 .. 7 from 0.0f.
-template <bool AK, bool BK, int TN, int RM, bool AV>
-__global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(const GemmParams p) {
-  constexpr int BN = 8 * TN, BM = 16 * RM;
-  // the weight gradients sum B's columns; dx's two segments share their
-  // operands' layout, so the second is the first's pointers moved
-  constexpr bool CS = !AK && !BK, SEG2 = AK && BK;
-  constexpr int A_IMG = AK ? BM * GF_KST : GF_BK * BM;  // floats a stage
-  constexpr int B_IMG = BK ? BN * GF_KST : GF_BK * BN;
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;
-  float* Bs = smem + GF_STAGES * A_IMG;
+// bias); A through maps ta0 / ta1, B through tb0 / tb1. Grid: (N tiles, M
+// tiles, jobs x S). PART: a k tile may hold fewer than FT_KT k (the
+// projection at C % FT_KT != 0), and only its chunks that hold data run.
+template <bool AK, bool BK, int RM, int TN, bool AP, bool PART>
+__global__ void __launch_bounds__(FT_THREADS, 2)
+    f32_tma_kernel(const __grid_constant__ CUtensorMap ta0, const __grid_constant__ CUtensorMap ta1,
+                   const __grid_constant__ CUtensorMap tb0, const __grid_constant__ CUtensorMap tb1,
+                   const FtParams p) {
+  using SH = FtShape<RM, TN>;
+  constexpr int BM = SH::BM, BN = SH::BN, KT = FT_KT, ST = FT_STAGES;
+  // the weight gradients sum B's columns
+  constexpr bool CS = !AK && !BK;
+  static_assert(AK || BM == FT_BM, "an MN-major A image is 128 wide");
+  static_assert(BK || BN == FT_BM, "an MN-major B image is 128 wide");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t full = base + ST * SH::STAGE;  // a slot's boxes landed
+  int* done = reinterpret_cast<int*>(smem_raw + ST * SH::STAGE + 8 * ST);  // warps done, all uses
   const int ji = blockIdx.z / p.S, slice = blockIdx.z % p.S;
-  const GemmJob& jb = p.job[ji];
+  const FtJob& jb = p.job[ji];
   const int M = jb.M, N = jb.N;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   if (m0 >= M || n0 >= N) return;  // block-uniform, before any barrier
-  const int kb = slice * p.Ks, ke = min(p.K, kb + p.Ks);
-  const int KT = ke > kb ? (ke - kb + GF_BK - 1) / GF_BK : 0;  // k tiles a segment
-  const int NT = KT * jb.nseg;
-  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
-  // this warp's first row (4 ty or ty + 16 i) lies inside the matrix
-  const bool live = m0 + gf_row<AK>(tid / 32 * 4, 0) < M;
-  const bool do_cs = CS && jb.colsum != nullptr && blockIdx.y == 0;
-  const uint32_t as0 = smem_u32(As), bs0 = smem_u32(Bs);
-
-  // the next stage to load: its k tile in its segment
-  int lkt = 0;
-  GfOp ga = gf_op<AK, BM>(jb.a[0], m0, M, kb, ke, tid);
-  GfOp gb = gf_op<BK, BN>(jb.b[0], n0, N, kb, ke, tid);
-  // dx: from the end of segment 0 to the start of segment 1, in elements
-  long long a_jump = 0, b_jump = 0;
-  if constexpr (SEG2) {
-    a_jump = static_cast<const float*>(jb.a[1].p) - ga.base - (long long)KT * ga.kstep;
-    b_jump = static_cast<const float*>(jb.b[1].p) - gb.base - (long long)KT * gb.kstep;
+  const bool plain = AP && jb.a_plain;
+  if (threadIdx.x == 0) {  // the maps' descriptors ahead of the first boxes
+    if (!plain) prefetch_tmap(jb.a.map ? &ta1 : &ta0);
+    prefetch_tmap(jb.b.map ? &tb1 : &tb0);
   }
-  auto load_stage = [&](int slot) {
-    if (SEG2 && lkt == KT) {  // dx: direction 1's segment
-      lkt = 0;
-      ga.src += a_jump;
-      gb.src += b_jump;
+  if ((base & 1023) != 0) __trap();  // the swizzled images need 1024-byte alignment
+  const int kb = slice * p.Ks, ke = min(p.K, kb + p.Ks);
+  const int KTS = ke > kb ? (ke - kb + KT - 1) / KT : 0;  // k tiles a segment
+  const int NT = KTS * p.nseg;
+  const int tid = threadIdx.x, lane = tid & 31, tx = tid % 8, ty = tid / 8;
+  // this warp's first row (4 w or 16 w) lies inside the matrix
+  const bool live = m0 + ft_row<AK>(tid / 32 * 4, 0) < M;
+  const bool do_cs = CS && jb.colsum != nullptr && blockIdx.y == 0;
+
+  // k tile q of the CTA's walk (segment q / KTS) into slot q % ST
+  auto load = [&](int q) {
+    const int s = q % ST, seg = q / KTS, k0 = kb + (q % KTS) * KT;
+    const uint32_t a = base + s * SH::STAGE, b = a + SH::A_IMG, bar = full + 8 * s;
+    mbar_expect_tx(bar, (plain ? 0u : SH::A_BYTES) + SH::B_BYTES);
+    if (!plain) {
+      const FtOp& o = jb.a;
+      const int z = seg ? o.z1 : o.z0;
+      const CUtensorMap* mp = o.map ? &ta1 : &ta0;
+      if (AK)
+        tma_load_3d(a, mp, bar, k0 + o.koff, m0 + o.ioff, z);
+      else
+        tma_load_3d(a, mp, bar, m0 + o.ioff, k0 + o.koff, z);
     }
-    const int k0 = kb + lkt * GF_BK;
-    gf_stage<AK, BM, AV>(as0 + slot * A_IMG * 4, jb.a[0], ga, m0, M, k0, tid);
-    gf_stage<BK, BN, true>(bs0 + slot * B_IMG * 4, jb.b[0], gb, n0, N, k0, tid);
-    ++lkt;
+    const FtOp& o = jb.b;
+    const int z = seg ? o.z1 : o.z0;
+    const CUtensorMap* mp = o.map ? &tb1 : &tb0;
+    if (BK)
+      tma_load_3d(b, mp, bar, k0 + o.koff, n0 + o.ioff, z);
+    else
+      tma_load_3d(b, mp, bar, n0 + o.ioff, k0 + o.koff, z);
   };
+  // thread 0: the barriers, then the first FT_STAGES k tiles, in flight
+  // while the CTA meets at its one barrier
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);  // one arrival: the loader's, with the boxes' bytes
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int q = 0; q < ST && q < NT; ++q) load(q);
+  }
+  __syncthreads();
 
   float acc[RM][TN];
 #pragma unroll
@@ -816,40 +666,52 @@ __global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(const GemmParam
 #pragma unroll
   for (int r = 0; r < (CS ? 8 : 1); ++r) cs[r] = 0.0f;
 
-#pragma unroll
-  for (int st = 0; st < GF_STAGES - 1; ++st) {
-    if (st < NT) load_stage(st);
-    cp_async_commit();
-  }
-  for (int t = 0; t < NT; ++t) {
-    cp_async_wait<GF_STAGES - 2>();
-    __syncthreads();  // tile t is here; every thread is done with tile t - 1's slot
-    if (t + GF_STAGES - 1 < NT) load_stage((t + GF_STAGES - 1) % GF_STAGES);
-    cp_async_commit();
-    const float* as = As + (t % GF_STAGES) * A_IMG;
-    const float* bs = Bs + (t % GF_STAGES) * B_IMG;
+  for (int q = 0; q < NT; ++q) {
+    const int s = q % ST, k0 = kb + (q % KTS) * KT;
+    const int nc = PART ? min(KT / 4, (ke - k0 + 3) / 4) : KT / 4;  // 4-k chunks holding data
+    float* as = reinterpret_cast<float*>(smem_raw + s * SH::STAGE);
+    const float* bs = reinterpret_cast<const float*>(smem_raw + s * SH::STAGE + SH::A_IMG);
+    if (plain) {  // the slot's A image by the CTA's copies (its last reader
+                  // passed tile q - 1's barrier)
+      ft_plain_a<AK, BM>(as, p.x, p.ldx, m0, M, k0, ke, 4 * nc, tid);
+      __syncthreads();
+    }
+    ft_wait(full + 8 * s, (q / ST) & 1);
     if constexpr (CS) {
-      if (do_cs) {  // rows kb + 16 t + kk, residue kk % 8
+      if (do_cs) {  // rows kb + KT q + kk, residue kk % 8
 #pragma unroll
-        for (int kk = 0; kk < GF_BK; ++kk) cs[kk % 8] += bs[kk * BN + tid];
+        for (int kk = 0; kk < KT; ++kk) cs[kk % 8] += bs[kk * BN + tid];
       }
     }
-    if (live) gf_tile<AK, BK, TN, RM>(as, bs, tx, ty, acc);
+    if (live) ft_tile<AK, BK, RM, TN, PART ? 0 : KT / 4>(as, bs, tx, ty, acc, nc);
+    // the warp is done with the slot: the last of the four warps (the
+    // count's use q / ST complete) loads k tile q + ST into it
+    __syncwarp();
+    if (lane == 0) {
+      __threadfence_block();
+      if (atomicAdd(done + s, 1) == (q / ST + 1) * 4 - 1 && q + ST < NT) {
+        __threadfence_block();
+        load(q + ST);
+      }
+    }
   }
-  cp_async_wait<0>();
 
   const size_t so = (size_t)slice * p.slice_stride;
   float* const c = jb.c + so;
+  auto bias_of = [&](int n) {
+    if (jb.bias0 == nullptr) return 0.0f;
+    return jb.bias0[n] + (n < jb.nfold ? jb.bias1[n] : 0.0f);
+  };
   if (live) {
     if constexpr (BK) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int n = n0 + tx + 8 * j;
         if (n >= N) continue;
-        const float bias = gm_bias(jb, n);
+        const float bias = bias_of(n);
 #pragma unroll
         for (int i = 0; i < RM; ++i) {
-          const int m = m0 + gf_row<true>(ty, i);
+          const int m = m0 + ft_row<AK>(ty, i);
           if (m < M) c[(size_t)m * jb.ldc + n] = acc[i][j] + bias;
         }
       }
@@ -861,10 +723,10 @@ __global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(const GemmParam
         if (n >= N) continue;
         float bias[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) bias[e] = n + e < N ? gm_bias(jb, n + e) : 0.0f;
+        for (int e = 0; e < 4; ++e) bias[e] = n + e < N ? bias_of(n + e) : 0.0f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const int m = m0 + gf_row<AK>(ty, i);
+        for (int i = 0; i < RM; ++i) {
+          const int m = m0 + ft_row<AK>(ty, i);
           if (m >= M) continue;
           float* cp = c + (size_t)m * jb.ldc + n;
           const float* v = &acc[i][4 * q];
@@ -882,10 +744,10 @@ __global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(const GemmParam
   }
   if constexpr (CS) {
     if (do_cs && n0 + tid < N) {
-      float s = 0.0f;
+      float sum = 0.0f;
 #pragma unroll
-      for (int r = 0; r < 8; ++r) s += cs[r];
-      jb.colsum[so + n0 + tid] = s;
+      for (int r = 0; r < 8; ++r) sum += cs[r];
+      jb.colsum[so + n0 + tid] = sum;
     }
   }
 }
@@ -1136,39 +998,70 @@ static int slice_rows(int LN, int S, int kt) {
   return (int)((((long long)LN + S - 1) / S + kt - 1) / kt * kt);
 }
 
-// One launch of proj_f32_kernel over both directions.
-static int proj_f32_run(const float* x, const float* wih, const float* bih, const float* bhh,
-                        float* xg, int M, int C, int G, int nfold, cudaStream_t s) {
-  F32ProjParams pp;
-  pp.x = x;
-  pp.w = wih;
-  pp.bias0 = bih;
-  pp.bias1 = bhh;
-  pp.xg = xg;
-  pp.M = M;
-  pp.K = C;
-  pp.G = G;
-  pp.nfold = nfold;
-  const bool xv = C % 4 == 0 && (uintptr_t)x % 16 == 0;
-  const bool wv = G % 4 == 0 && (uintptr_t)wih % 16 == 0 && (uintptr_t)xg % 16 == 0;
-  const void* k = xv && wv ? (const void*)proj_f32_kernel<true, true>
-                  : wv     ? (const void*)proj_f32_kernel<false, true>
-                           : (const void*)proj_f32_kernel<false, false>;
-  const size_t smem = f32_proj_smem();
-  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((G + FP_BN - 1) / FP_BN, (M + FP_BM - 1) / FP_BM, 2);
-  void* args[1] = {&pp};
-  e = cudaLaunchKernel(k, grid, dim3(FP_THREADS), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+// The TMA map of a contiguous f32 tensor (d2, d1, d0), innermost first,
+// boxes of (b0, b1, 1) elements: a K-major box (rows of FT_KT floats) under
+// the swizzle of its row's span, an MN-major one dense; a box's elements
+// outside the tensor (negative coordinates too) arrive as zeros.
+// CUDA_ERROR_NOT_SUPPORTED when libcuda's encoder is missing.
+static CUresult ft_map(CUtensorMap* map, const void* p, cuuint64_t d0, cuuint64_t d1,
+                       cuuint64_t d2, cuuint32_t b0, cuuint32_t b1, bool kmajor) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return CUDA_ERROR_NOT_SUPPORTED;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 4, d0 * d1 * 4};
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = !kmajor       ? CU_TENSOR_MAP_SWIZZLE_NONE
+                                : FT_KT == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_128B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(p), dims, strides, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-// One launch of gemm_f32_kernel<AK, BK, TN, RM, AV> over the jobs of p.
-// Grid: (N tiles, M tiles, jobs x S).
-template <bool AK, bool BK, int TN, int RM, bool AV>
-static int gf_launch(const GemmParams& p, int njobs, int Mmax, int Nmax, cudaStream_t s) {
-  const size_t smem = gf_smem<AK, BK, TN, RM>();
+// an operand TMA can address: rows of a multiple of 4 floats, 16-byte aligned
+static bool ft_tma_ok(const void* p, long long row) {
+  return row % 4 == 0 && (uintptr_t)p % 16 == 0;
+}
+
+// dx's column tile in f32_tma_kernel: the least of 16, 32, 64 and 128
+// columns that holds C (128 above).
+static int dx_cols(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128; }
+
+// Rows a thread of a K-major-A launch of f32_tma_kernel (the projection,
+// dx), 8 or 7 (tiles of 128 or 112 rows), for M rows by col_tiles column
+// tiles (the directions' included): the one whose tiles take the fewest
+// wave-times, a wave-time being a tile's rows and a wave two CTAs on each
+// SM (8 on a tie; FT_ROWS, where set, forces one). At 1,024 rows: dx (C =
+// 512, 4 column tiles) 672 tiles of 128 rows are 2.55 waves, 3 x 8 = 24,
+// 768 of 112 are 2.91, 3 x 7 = 21; the LSTM's projection (16 column
+// tiles) 2,688 of 128 are 10.2 waves, 11 x 8 = 88, 3,072 of 112 are 11.6,
+// 12 x 7 = 84.
+static int ft_rows(long long M, long long col_tiles) {
+  if (FT_ROWS != 0) return FT_ROWS;
+  static std::atomic<int> sm_count[64];  // each device's SMs, once read
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess && dev < 64) {
+    sms = sm_count[dev].load();
+    if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+                        cudaSuccess)
+      sm_count[dev].store(sms);
+    if (sms <= 0) sms = 132;
+  }
+  const long long slots = 2LL * sms;
+  auto cost = [&](int rm) {
+    const long long tiles = col_tiles * ((M + 16 * rm - 1) / (16 * rm));
+    return (tiles + slots - 1) / slots * rm;
+  };
+  return cost(7) < cost(8) ? 7 : 8;
+}
+
+// One launch of f32_tma_kernel<AK, BK, RM, TN, AP, PART> over maps (A0, A1,
+// B0, B1).
+template <bool AK, bool BK, int RM, int TN, bool AP, bool PART = false>
+static int ft_launch(const CUtensorMap (&maps)[4], const FtParams& p, dim3 grid,
+                     cudaStream_t s) {
+  const size_t smem = FtShape<RM, TN>::SMEM;
   // the shared-memory limit, set once a device (bit d: set on device d): at
   // the aggregate trainer's shapes the host's time is the call's
   static std::atomic<unsigned long long> smem_set{0};
@@ -1177,48 +1070,56 @@ static int gf_launch(const GemmParams& p, int njobs, int Mmax, int Nmax, cudaStr
   if (e != cudaSuccess) return (int)e;
   const unsigned long long bit = dev < 64 ? 1ULL << dev : 0ULL;
   if ((smem_set.load() & bit) == 0) {
-    e = cudaFuncSetAttribute(gemm_f32_kernel<AK, BK, TN, RM, AV>,
+    e = cudaFuncSetAttribute(f32_tma_kernel<AK, BK, RM, TN, AP, PART>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     smem_set.fetch_or(bit);
   }
-  const dim3 grid((Nmax + 8 * TN - 1) / (8 * TN), (Mmax + 16 * RM - 1) / (16 * RM),
-                  njobs * p.S);
-  gemm_f32_kernel<AK, BK, TN, RM, AV><<<grid, GF_THREADS, smem, s>>>(p);
+  f32_tma_kernel<AK, BK, RM, TN, AP, PART>
+      <<<grid, FT_THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3], p);
   return (int)cudaGetLastError();
 }
 
-// The instantiation for the jobs' operands: AV where every job's A takes
-// 16-byte copies (B always does: dxg, dhg and W_ih have rows of 4 floats a
-// multiple, 16-byte aligned as the wrappers check).
-template <bool AK, bool BK, int TN, int RM = 8>
-static int gf_run(const GemmParams& p, int njobs, int Mmax, int Nmax, cudaStream_t s) {
-  bool av = true;
-  for (int j = 0; j < njobs; ++j) {
-    for (int g = 0; g < p.job[j].nseg; ++g) {
-      av = av && p.job[j].a[g].vec;
-      if (!p.job[j].b[g].vec) return (int)cudaErrorInvalidValue;
-    }
-  }
-  if constexpr (AK && BK) {  // dx (rnn_dx): two segments of one layout, 16-byte copies
-    if (!av) return (int)cudaErrorInvalidValue;
-    return gf_launch<AK, BK, TN, RM, true>(p, njobs, Mmax, Nmax, s);
-  } else {
-    return av ? gf_launch<AK, BK, TN, RM, true>(p, njobs, Mmax, Nmax, s)
-              : gf_launch<AK, BK, TN, RM, false>(p, njobs, Mmax, Nmax, s);
-  }
+// The projection's instantiation: X by TMA or by the CTA's copies (whose C %
+// 4 != 0 leaves a partial k tile), whole k tiles or a partial last one.
+template <int RM>
+static int proj_launch(const CUtensorMap (&maps)[4], const FtParams& p, dim3 grid,
+                       cudaStream_t s, bool x_tma, bool part) {
+  if (!x_tma) return ft_launch<true, false, RM, 16, true, true>(maps, p, grid, s);
+  return part ? ft_launch<true, false, RM, 16, false, true>(maps, p, grid, s)
+              : ft_launch<true, false, RM, 16, false, false>(maps, p, grid, s);
 }
 
-// An f32 operand of gemm_f32_kernel: element (i, k) at p[i ld + k + koff]
-// (kmajor) or p[(k + koff) ld + i], k in [klo, khi) holding data, i below
-// outer; vec where every 16-byte copy of 4 elements along the stored rows
-// is aligned and lies inside them.
-static GemmOp f32_op(const float* p, long long ld, long long koff, int klo, int khi, bool kmajor,
-                     int outer) {
-  GemmOp o = gemm_op<float>(p, ld, koff, klo, khi);
-  o.vec = ld % 4 == 0 && (uintptr_t)p % 16 == 0 &&
-          (kmajor ? koff % 4 == 0 && klo % 4 == 0 && khi % 4 == 0 : outer % 4 == 0);
-  return o;
+// The input projection on f32 operands, both directions in one launch: A =
+// X (M, C) K-major through TMA, or by the CTA's own copies where its rows
+// are no 16-byte multiple (C = 11, 21); B = W_ih[d] (C, G) MN-major; RM
+// rows a thread by the waves (ft_rows).
+static int proj_f32_run(const float* x, const float* wih, const float* bih, const float* bhh,
+                        float* xg, int M, int C, int G, int nfold, cudaStream_t s) {
+  if (!ft_tma_ok(wih, G)) return (int)cudaErrorInvalidValue;
+  const bool x_tma = ft_tma_ok(x, C);
+  const int RM = ft_rows(M, 2LL * ((G + FT_BM - 1) / FT_BM));
+  CUtensorMap maps[4];
+  CUresult r = ft_map(&maps[2], wih, G, C, 2, FT_BM, FT_KT, false);
+  if (r == CUDA_SUCCESS && x_tma) r = ft_map(&maps[0], x, C, M, 1, FT_KT, 16 * RM, true);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  if (!x_tma) maps[0] = maps[2];  // unread: X comes by the CTA's copies
+  maps[1] = maps[0];
+  maps[3] = maps[2];
+  FtParams p = {};
+  for (int d = 0; d < 2; ++d)
+    p.job[d] = FtJob{{0, 0, 0, 0, 0}, {0, 0, 0, d, d}, M, G, !x_tma, xg + (size_t)d * M * G, G,
+                     bih + d * G, bhh + d * G, nfold, nullptr};
+  p.K = C;
+  p.nseg = 1;
+  p.S = 1;
+  p.Ks = C;
+  p.slice_stride = 0;
+  p.x = x;
+  p.ldx = C;
+  const dim3 grid((G + FT_BM - 1) / FT_BM, (M + 16 * RM - 1) / (16 * RM), 2);
+  return RM == 7 ? proj_launch<7>(maps, p, grid, s, x_tma, C % FT_KT != 0)
+                 : proj_launch<8>(maps, p, grid, s, x_tma, C % FT_KT != 0);
 }
 
 // The input projection of both directions: xg[d] (M, G) f32 = x (M, C)
@@ -1230,53 +1131,62 @@ static int rnn_proj(const void* x, const void* wih, const float* bih, const floa
   if constexpr (std::is_same<T, float>::value)
     return proj_f32_run(static_cast<const float*>(x), static_cast<const float*>(wih), bih, bhh,
                         xg, M, C, G, nfold, s);
-  GemmParams gp = {};
-  for (int d = 0; d < 2; ++d) {
-    GemmJob& jb = gp.job[d];
-    jb.a[0] = gemm_op<T>(x, C, 0, 0, C);
-    jb.b[0] = gemm_op<T>(static_cast<const T*>(wih) + (size_t)d * C * G, G, 0, 0, C);
-    jb.nseg = 1;
-    jb.M = M;
-    jb.N = G;
-    jb.c = xg + (size_t)d * M * G;
-    jb.ldc = G;
-    jb.bias0 = bih + d * G;
-    jb.bias1 = bhh + d * G;
-    jb.nfold = nfold;
-    jb.colsum = nullptr;
+  else {
+    GemmParams gp = {};
+    for (int d = 0; d < 2; ++d) {
+      GemmJob& jb = gp.job[d];
+      jb.a[0] = gemm_op<T>(x, C, 0, 0, C);
+      jb.b[0] = gemm_op<T>(static_cast<const T*>(wih) + (size_t)d * C * G, G, 0, 0, C);
+      jb.nseg = 1;
+      jb.M = M;
+      jb.N = G;
+      jb.c = xg + (size_t)d * M * G;
+      jb.ldc = G;
+      jb.bias0 = bih + d * G;
+      jb.bias1 = bhh + d * G;
+      jb.nfold = nfold;
+      jb.colsum = nullptr;
+    }
+    gp.K = C;
+    gp.S = 1;
+    gp.Ks = C;
+    gp.slice_stride = 0;
+    return gemm_run<T, true, T, false, T>(gp, 2, M, G, s);
   }
-  gp.K = C;
-  gp.S = 1;
-  gp.Ks = C;
-  gp.slice_stride = 0;
-  return gemm_run<T, true, T, false, T>(gp, 2, M, G, s);
 }
 
-// dx's column tile in gemm_f32_kernel: the least of 16, 32, 64 and 128
-// columns that holds C (128 above).
-static int dx_cols(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128; }
-
-// dx's rows a thread in gemm_f32_kernel, 8 or 7 (tiles of 128 or 112 rows):
-// the one whose tiles take the fewest wave-times, a wave-time being a
-// tile's rows and a wave two CTAs on each SM (8 on a tie). At 1,024 rows
-// and C = 512: 672 tiles of 128 rows are 2.55 waves, 3 x 8 = 24; 768 of
-// 112 are 2.91, 3 x 7 = 21.
-static int dx_rows(int M, int C) {
-  static std::atomic<int> sm_count[64];  // each device's SMs, once read
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess && dev < 64) {
-    sms = sm_count[dev].load();
-    if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
-                        cudaSuccess)
-      sm_count[dev].store(sms);
-    if (sms <= 0) sms = 132;
+// dx on f32 operands: A = dxg[d] (M, G) and B = W_ih[d] (C, G), both K-major
+// through TMA, direction d segment d of one chain; BN columns by C
+// (dx_cols), RM rows a thread by the waves (ft_rows).
+static int dx_f32_run(const float* dxg, const float* wih, float* dx, int M, int C, int G,
+                      cudaStream_t s) {
+  if (!ft_tma_ok(dxg, G) || !ft_tma_ok(wih, G)) return (int)cudaErrorInvalidValue;
+  const int BN = dx_cols(C), RM = ft_rows(M, (C + BN - 1) / BN);
+  CUtensorMap maps[4];
+  CUresult r = ft_map(&maps[0], dxg, G, M, 2, FT_KT, 16 * RM, true);
+  if (r == CUDA_SUCCESS) r = ft_map(&maps[2], wih, G, C, 2, FT_KT, BN, true);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  maps[1] = maps[0];
+  maps[3] = maps[2];
+  FtParams p = {};
+  p.job[0] = FtJob{{0, 0, 0, 0, 1}, {0, 0, 0, 0, 1}, M, C, 0, dx, C, nullptr, nullptr, 0,
+                   nullptr};
+  p.K = G;
+  p.nseg = 2;
+  p.S = 1;
+  p.Ks = G;
+  p.slice_stride = 0;
+  const dim3 grid((C + BN - 1) / BN, (M + 16 * RM - 1) / (16 * RM), 1);
+  if (RM == 8) {
+    if (BN == 16) return ft_launch<true, true, 8, 2, false>(maps, p, grid, s);
+    if (BN == 32) return ft_launch<true, true, 8, 4, false>(maps, p, grid, s);
+    if (BN == 64) return ft_launch<true, true, 8, 8, false>(maps, p, grid, s);
+    return ft_launch<true, true, 8, 16, false>(maps, p, grid, s);
   }
-  const long long slots = 2LL * sms, nt = (C + dx_cols(C) - 1) / dx_cols(C);
-  auto cost = [&](int rm) {
-    const long long tiles = nt * ((M + 16 * rm - 1) / (16 * rm));
-    return (tiles + slots - 1) / slots * rm;
-  };
-  return cost(7) < cost(8) ? 7 : 8;
+  if (BN == 16) return ft_launch<true, true, 7, 2, false>(maps, p, grid, s);
+  if (BN == 32) return ft_launch<true, true, 7, 4, false>(maps, p, grid, s);
+  if (BN == 64) return ft_launch<true, true, 7, 8, false>(maps, p, grid, s);
+  return ft_launch<true, true, 7, 16, false>(maps, p, grid, s);
 }
 
 // The input gradient, simt: dx (M, C) f32 = sum_d op(dxg[d]) (M, G)
@@ -1284,48 +1194,71 @@ static int dx_rows(int M, int C) {
 template <typename T>
 static int rnn_dx(const float* dxg, const void* wih, float* dx, int M, int C, int G,
                   cudaStream_t s) {
-  constexpr bool f32 = std::is_same<T, float>::value;
-  GemmParams gp = {};
-  GemmJob& jb = gp.job[0];
-  for (int d = 0; d < 2; ++d) {
-    const float* a = dxg + (size_t)d * M * G;
-    // W_ih[d] (C, G) read as (k, n) -> p[n G + k]: W_ih^T without a copy
-    const T* w = static_cast<const T*>(wih) + (size_t)d * C * G;
-    if constexpr (f32) {
-      jb.a[d] = f32_op(a, G, 0, 0, G, true, M);
-      jb.b[d] = f32_op(w, G, 0, 0, G, true, C);
-    } else {
-      jb.a[d] = gemm_op<float>(a, G, 0, 0, G);
-      jb.b[d] = gemm_op<T>(w, G, 0, 0, G);
+  if constexpr (std::is_same<T, float>::value)
+    return dx_f32_run(dxg, static_cast<const float*>(wih), dx, M, C, G, s);
+  else {
+    GemmParams gp = {};
+    GemmJob& jb = gp.job[0];
+    for (int d = 0; d < 2; ++d) {
+      // W_ih[d] (C, G) read as (k, n) -> p[n G + k]: W_ih^T without a copy
+      jb.a[d] = gemm_op<float>(dxg + (size_t)d * M * G, G, 0, 0, G);
+      jb.b[d] = gemm_op<T>(static_cast<const T*>(wih) + (size_t)d * C * G, G, 0, 0, G);
     }
-  }
-  jb.nseg = 2;
-  jb.M = M;
-  jb.N = C;
-  jb.c = dx;
-  jb.ldc = C;
-  jb.bias0 = jb.bias1 = nullptr;
-  jb.nfold = 0;
-  jb.colsum = nullptr;
-  gp.K = G;
-  gp.S = 1;
-  gp.Ks = G;
-  gp.slice_stride = 0;
-  if constexpr (f32) {
-    const int BN = dx_cols(C);
-    if (dx_rows(M, C) == 8) {
-      if (BN == 16) return gf_run<true, true, 2, 8>(gp, 1, M, C, s);
-      if (BN == 32) return gf_run<true, true, 4, 8>(gp, 1, M, C, s);
-      if (BN == 64) return gf_run<true, true, 8, 8>(gp, 1, M, C, s);
-      return gf_run<true, true, 16, 8>(gp, 1, M, C, s);
-    }
-    if (BN == 16) return gf_run<true, true, 2, 7>(gp, 1, M, C, s);
-    if (BN == 32) return gf_run<true, true, 4, 7>(gp, 1, M, C, s);
-    if (BN == 64) return gf_run<true, true, 8, 7>(gp, 1, M, C, s);
-    return gf_run<true, true, 16, 7>(gp, 1, M, C, s);
-  } else {
+    jb.nseg = 2;
+    jb.M = M;
+    jb.N = C;
+    jb.c = dx;
+    jb.ldc = C;
+    jb.bias0 = jb.bias1 = nullptr;
+    jb.nfold = 0;
+    jb.colsum = nullptr;
+    gp.K = G;
+    gp.S = 1;
+    gp.Ks = G;
+    gp.slice_stride = 0;
     return gemm_run<float, true, T, true, T>(gp, 1, M, C, s);
   }
+}
+
+// The weight and bias gradients on f32 operands, one launch of four jobs
+// (dW_ih[d], dW_hh[d]) by S row slices, all MN-major through TMA: A = X
+// (rows of C; by the CTA's own copies where C % 4 != 0) or out's h_prev
+// columns (d H .., rows k - N (d = 0) or k + N (d = 1): TMA's zeros outside
+// out are the first step's), B = dxg[d] or dhg[d]; the column sums of dxg
+// and dhg beside them (dhg's none where it is dxg). part as rnn_wgrad's.
+static int wgrad_f32_run(const float* x, const float* out, const float* dxg, const float* dhg,
+                         float* part, int L, int N, int C, int H, int G, int S, cudaStream_t s) {
+  const int LN = L * N;
+  const bool one = dhg == dxg;
+  const long long o_whh = 2LL * C * G, o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
+  if (!ft_tma_ok(out, 2 * H) || !ft_tma_ok(dxg, G) || !ft_tma_ok(dhg, G))
+    return (int)cudaErrorInvalidValue;
+  const bool x_tma = ft_tma_ok(x, C);
+  CUtensorMap maps[4];
+  CUresult r = ft_map(&maps[1], out, 2 * H, LN, 1, FT_BM, FT_KT, false);
+  if (r == CUDA_SUCCESS && x_tma) r = ft_map(&maps[0], x, C, LN, 1, FT_BM, FT_KT, false);
+  if (r == CUDA_SUCCESS) r = ft_map(&maps[2], dxg, G, LN, 2, FT_BM, FT_KT, false);
+  if (r == CUDA_SUCCESS) r = ft_map(&maps[3], dhg, G, LN, 2, FT_BM, FT_KT, false);
+  if (r != CUDA_SUCCESS) return map_error(r);
+  if (!x_tma) maps[0] = maps[1];  // unread: X comes by the CTA's copies
+  FtParams p = {};
+  for (int d = 0; d < 2; ++d) {
+    p.job[d] = FtJob{{0, 0, 0, 0, 0}, {0, 0, 0, d, d}, C, G, !x_tma,
+                     part + (size_t)d * C * G, G, nullptr, nullptr, 0, part + o_bih + d * G};
+    p.job[2 + d] = FtJob{{1, d * H, d == 0 ? -N : N, 0, 0}, {1, 0, 0, d, d}, H, G, 0,
+                         part + o_whh + (size_t)d * H * G, G, nullptr, nullptr, 0,
+                         one ? nullptr : part + o_bhh + d * G};
+  }
+  p.K = LN;
+  p.nseg = 1;
+  p.S = S;
+  p.Ks = slice_rows(LN, S, SLICE_K);
+  p.slice_stride = one ? o_bhh : o_bhh + 2LL * G;
+  p.x = x;
+  p.ldx = C;
+  const dim3 grid((G + FT_BM - 1) / FT_BM, ((C > H ? C : H) + FT_BM - 1) / FT_BM, 4 * S);
+  return x_tma ? ft_launch<false, false, 8, 16, false>(maps, p, grid, s)
+               : ft_launch<false, false, 8, 16, true>(maps, p, grid, s);
 }
 
 // The weight and bias gradients, simt, over the L N rows in S fixed row
@@ -1337,53 +1270,46 @@ static int rnn_dx(const float* dxg, const void* wih, float* dx, int M, int C, in
 template <typename T>
 static int rnn_wgrad(const void* x, const void* out, const float* dxg, const float* dhg,
                      float* part, int L, int N, int C, int H, int G, int S, cudaStream_t s) {
-  const int LN = L * N;
-  const bool one = dhg == dxg;
-  const long long o_whh = 2LL * C * G, o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
-  constexpr bool f32 = std::is_same<T, float>::value;
-  // an MN-major operand: the f32 kernel's, or the simt kernel's
-  auto op = [&](const void* p, long long ld, long long koff, int klo, int khi, int outer,
-                bool gate) {
-    if constexpr (f32)
-      return f32_op(static_cast<const float*>(p), ld, koff, klo, khi, false, outer);
-    else
-      return gate ? gemm_op<float>(p, ld, koff, klo, khi) : gemm_op<T>(p, ld, koff, klo, khi);
-  };
-  GemmParams gp = {};
-  for (int d = 0; d < 2; ++d) {
-    GemmJob& ih = gp.job[d];
-    ih.a[0] = op(x, C, 0, 0, LN, C, false);  // X^T: (m = c, k = row) at x[k C + m]
-    ih.b[0] = op(dxg + (size_t)d * LN * G, G, 0, 0, LN, G, true);
-    ih.nseg = 1;
-    ih.M = C;
-    ih.N = G;
-    ih.c = part + (size_t)d * C * G;
-    ih.ldc = G;
-    ih.bias0 = ih.bias1 = nullptr;
-    ih.nfold = 0;
-    ih.colsum = part + o_bih + d * G;
-    GemmJob& hh = gp.job[2 + d];
-    // h_prev of row k = t N + row: out[t - 1] (forward half) or out[t + 1]
-    hh.a[0] = op(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N, d == 0 ? N : 0,
-                 d == 0 ? LN : LN - N, H, false);
-    hh.b[0] = op(dhg + (size_t)d * LN * G, G, 0, 0, LN, G, true);
-    hh.nseg = 1;
-    hh.M = H;
-    hh.N = G;
-    hh.c = part + o_whh + (size_t)d * H * G;
-    hh.ldc = G;
-    hh.bias0 = hh.bias1 = nullptr;
-    hh.nfold = 0;
-    hh.colsum = one ? nullptr : part + o_bhh + d * G;
-  }
-  gp.K = LN;
-  gp.S = S;
-  gp.Ks = slice_rows(LN, S, SLICE_K);
-  gp.slice_stride = one ? o_bhh : o_bhh + 2LL * G;
-  if constexpr (f32)
-    return gf_run<false, false, 16>(gp, 4, C > H ? C : H, G, s);
-  else
+  if constexpr (std::is_same<T, float>::value)
+    return wgrad_f32_run(static_cast<const float*>(x), static_cast<const float*>(out), dxg, dhg,
+                         part, L, N, C, H, G, S, s);
+  else {
+    const int LN = L * N;
+    const bool one = dhg == dxg;
+    const long long o_whh = 2LL * C * G, o_bih = o_whh + 2LL * H * G, o_bhh = o_bih + 2LL * G;
+    GemmParams gp = {};
+    for (int d = 0; d < 2; ++d) {
+      GemmJob& ih = gp.job[d];
+      ih.a[0] = gemm_op<T>(x, C, 0, 0, LN);  // X^T: (m = c, k = row) at x[k C + m]
+      ih.b[0] = gemm_op<float>(dxg + (size_t)d * LN * G, G, 0, 0, LN);
+      ih.nseg = 1;
+      ih.M = C;
+      ih.N = G;
+      ih.c = part + (size_t)d * C * G;
+      ih.ldc = G;
+      ih.bias0 = ih.bias1 = nullptr;
+      ih.nfold = 0;
+      ih.colsum = part + o_bih + d * G;
+      GemmJob& hh = gp.job[2 + d];
+      // h_prev of row k = t N + row: out[t - 1] (forward half) or out[t + 1]
+      hh.a[0] = gemm_op<T>(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N,
+                           d == 0 ? N : 0, d == 0 ? LN : LN - N);
+      hh.b[0] = gemm_op<float>(dhg + (size_t)d * LN * G, G, 0, 0, LN);
+      hh.nseg = 1;
+      hh.M = H;
+      hh.N = G;
+      hh.c = part + o_whh + (size_t)d * H * G;
+      hh.ldc = G;
+      hh.bias0 = hh.bias1 = nullptr;
+      hh.nfold = 0;
+      hh.colsum = one ? nullptr : part + o_bhh + d * G;
+    }
+    gp.K = LN;
+    gp.S = S;
+    gp.Ks = slice_rows(LN, S, SLICE_K);
+    gp.slice_stride = one ? o_bhh : o_bhh + 2LL * G;
     return gemm_run<T, false, float, false, T>(gp, 4, C > H ? C : H, G, s);
+  }
 }
 
 // The input gradient, tc, on wgmma: dx (M, C) f32 = sum_d dxg[d] (M, G)

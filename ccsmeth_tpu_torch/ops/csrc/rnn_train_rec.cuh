@@ -9,7 +9,7 @@
 // residuals, each direction's last h to h_n. K1's and K2's f32 recurrence
 // is birnn_simt.cu's own (four warps of RT x 2 NG micro-tiles, the gate
 // math written as here); the simt forward's products take their xg from
-// rnn_train_gemm.cuh's proj_f32_kernel.
+// rnn_train_gemm.cuh's f32_tma_kernel.
 //
 //   forward (fwd_rec_simt_kernel, fwd_rec_tc_kernel): both directions at
 //     once from the projection xg (2, L N, G) f32. A cluster of CN = H / U

@@ -14,7 +14,7 @@ does not print its last line:
      and 16384 rows, fp32 and bf16) against its plain PyTorch version on the
      card, timed with CUDA events beside the plain version, cuDNN's nn.GRU /
      nn.LSTM and the card's bound, with the design that the wrapper's shape
-     rule picked (fp32: simt, K4's projection kernel (proj_f32_kernel of
+     rule picked (fp32: simt, K4's projection kernel (f32_tma_kernel of
      ops/csrc/rnn_train_gemm.cuh through ops/csrc/bigru_train.cu) and the
      inference cluster recurrence of ops/csrc/birnn_simt.cu, with its
      geometry, the clusters the card holds at once, the waves, the
@@ -64,6 +64,11 @@ does not print its last line:
      the training kernels again at the single-strand families' shapes (512
      rows, H 256, C = 11 and 512) and at the aggregate trainer's (NL 1, H
      32, C 21, L 11, 512 rows), fp32 and bf16, as above;
+     f32_products: the exact-f32 product kernel (f32_tma_kernel of
+     ops/csrc/rnn_train_gemm.cuh) alone through its wrappers, one layer at
+     C = 512 of each cell: the projection at 1,024 and 16,384 rows, dx and
+     the weight gradients at 1,024, against their plain PyTorch products,
+     timed beside them, torch.mm and the bound;
   5. model: full-width attbigru2s, attbilstm2s and transencoder2s with
      numpy-seeded weights, probs through K1 (K3) against probs through the
      plain version; transencoder2s once more with cuDNN's TF32 allowed, which
@@ -147,8 +152,9 @@ shape, K2 fp32 also at the 2s2 family's C = 28 and 52 and at 16,384 rows,
 C = 512), and K4,
 K5 and K6 (forward and backward) at the train-kernel phase's (C = 11 and
 512, and the 2s2 family's 28 in fp32; K4's and K6's fp32 forwards also at
-512 rows and the aggregate trainer's shape), in four turns in one
-process each: the checkout at PARENT_TREE (another commit, unpacked
+512 rows and the aggregate trainer's shape), and the exact-f32 products
+alone (the projection at C = 512, 1,024 and 16,384 rows; dx and the
+weight gradients at 1,024 rows), in four turns in one process each: the checkout at PARENT_TREE (another commit, unpacked
 under a git-ignored directory), this checkout, this checkout, the parent.
 Each turn prints one JSON line; the last line compares the medians.
 
@@ -186,14 +192,22 @@ built in copies of its source), ``k3_tc_probe`` (a layer of
 K3's bf16 design split into its parts by clock marks in a copy of its
 source), ``k3_simt_probe`` (the same for K3's fp32 simt design: a layer's
 ring waits, products, epilogues, attention, LayerNorm and barriers, and
-the producer's waits) or ``k3_simt_sweep`` (K3's fp32 design beside
+the producer's waits), ``k3_simt_sweep`` (K3's fp32 design beside
 variants built in copies of its source: 8-row slabs in 4 slots, and no
-ring synchronization at all)
+ring synchronization at all), ``f32_products`` (the phase above),
+``f32_gemm_probe`` (the exact-f32 products' tile split into ring waits,
+FMAs, refills and epilogue by clock marks in a copy of their header, and,
+with a parent tree unpacked in build/parent, the parent's kernels split
+the same way; the SM clock under each product and torch.mm, the SASS mix,
+the kernels torch.mm runs) or ``f32_gemm_sweep`` (the products at each
+ring geometry of ``F32_SWEEP``, built with -D flags, in alternating
+rounds beside torch.mm)
 (``main_only``), and prints no result line.
 """
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -213,7 +227,7 @@ E2E_ROWS_BATCH = 8192  # call_mods --batch_size of the rows design's e2e runs
 REPS = 11
 AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# the simt design of K1 and K2 projects with K4's kernel (proj_f32_kernel,
+# the simt design of K1 and K2 projects with K4's kernel (f32_tma_kernel,
 # launched through bigru_train.cu's k4_proj_launch)
 SIMT_PROJECTION = "ccsmeth_tpu_torch/ops/csrc/rnn_train_gemm.cuh"
 # the tc design's kernels and the header of its wgmma, TMA and mbarrier pieces
@@ -2025,13 +2039,13 @@ def _train_phases_ms(torch, x, wih, bih, whh, bhh, dout, dt, cell, clusters):
     wgrad_ms = bwd_ms[k + "_wgrad"]
     # each product's tiles in waves of two CTAs an SM (every product
     # kernel's residency): dx's tile by C (16 .. 128 columns; the bf16 simt
-    # kernel always 128) and, in gemm_f32_kernel, 128 or 112 rows by the
+    # kernel always 128) and, in f32_tma_kernel, 128 or 112 rows by the
     # waves (``simt_dx_tile``), the weight gradients' 128 x 128 tiles of
     # every slice
     kernel = ("wgemm_kernel" if plan["design"] == "tc" else
-              "gemm_f32_kernel" if dt == torch.float32 else "gemm_simt_kernel")
+              F32_KERNEL if dt == torch.float32 else "gemm_simt_kernel")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    bm, bn = (V.simt_dx_tile(LN, cin, n_sm) if kernel == "gemm_f32_kernel" else
+    bm, bn = (V.simt_dx_tile(LN, cin, n_sm) if kernel == F32_KERNEL else
               (128, 128 if kernel == "gemm_simt_kernel" else
                next(b for b in (16, 32, 64, 128) if cin <= b or b == 128)))
     S = V.k5_wgrad_slices(LN, cin, Hh, n_sm, plan["gates"])
@@ -2662,6 +2676,529 @@ def phase_k46_fwd_simt_probe(torch, smi):
                       "clock_mhz": mhz, "card": smi})
 
 
+# ---- the exact-f32 products (csrc/rnn_train_gemm.cuh's f32_tma_kernel): the
+# projection of K1, K2 and the simt forwards, the simt backward's dx and
+# weight gradients. Each phase builds its own harness: a copy of the header
+# (edited by clock marks, or with -D geometry flags) and F32_ENTRY's C
+# entries, one nvcc each, in WORK.
+
+F32_KERNEL = "f32_tma_kernel"
+F32_ENTRY = """
+#include "rnn_train_gemm.cuh"
+extern "C" {
+int f32_proj(const void* x, const void* w, const float* bih, const float* bhh, float* xg,
+             int M, int C, int G, int nfold, void* s) {
+  return rnn_proj<float>(x, w, bih, bhh, xg, M, C, G, nfold, (cudaStream_t)s);
+}
+int f32_dx(const float* dxg, const void* w, float* dx, int M, int C, int G, void* s) {
+  return rnn_dx<float>(dxg, w, dx, M, C, G, (cudaStream_t)s);
+}
+int f32_wgrad(const void* x, const void* out, const float* dxg, const float* dhg, float* part,
+              int L, int N, int C, int H, int G, int S, void* s) {
+  return rnn_wgrad<float>(x, out, dxg, dhg, part, L, N, C, H, G, S, (cudaStream_t)s);
+}
+}
+"""
+# clock64 marks, lane 0 of each warp of CTA (0, 0, 0): k cycles since the
+# last mark into part k (F32_PROF); never in the shipped source
+F32_PROBE_PRELUDE = (
+    '#include "wgmma_tile.cuh"\n__device__ unsigned long long g_f32_prof[4][8];\n'
+    "#define F32_PROF(k) if (f32p_on) { const unsigned long long now = clock64(); "
+    "g_f32_prof[threadIdx.x >> 5][k] += now - f32p_t; f32p_t = now; }\n"
+    "#define F32_PROF_START unsigned long long f32p_t = clock64(); const bool f32p_on = "
+    "(threadIdx.x & 31) == 0 && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;\n"
+    'extern "C" void f32_probe(unsigned long long* out, int reset) {\n'
+    "  unsigned long long z[32] = {0};\n"
+    "  if (reset) cudaMemcpyToSymbol(g_f32_prof, z, sizeof(z));\n"
+    "  else cudaMemcpyFromSymbol(out, g_f32_prof, sizeof(z));\n}\n")
+F32_PROBE_PARTS = ["ring wait", "FMAs", "release and refill", "epilogue"]
+F32_PROBE_MARKS = [
+    ('#include "wgmma_tile.cuh"\n', F32_PROBE_PRELUDE),
+    ("  for (int q = 0; q < NT; ++q) {\n    const int s = q % ST, k0",
+     "  F32_PROF_START\n  for (int q = 0; q < NT; ++q) {\n    const int s = q % ST, k0"),
+    ("    ft_wait(full + 8 * s, (q / ST) & 1);\n",
+     "    ft_wait(full + 8 * s, (q / ST) & 1);\n    F32_PROF(0)\n"),
+    ("    if (live) ft_tile<AK, BK, RM, TN, PART ? 0 : KT / 4>(as, bs, tx, ty, acc, nc);\n",
+     "    if (live) ft_tile<AK, BK, RM, TN, PART ? 0 : KT / 4>(as, bs, tx, ty, acc, nc);\n"
+     "    F32_PROF(1)\n"),
+    ("        load(q + ST);\n      }\n    }\n  }\n",
+     "        load(q + ST);\n      }\n    }\n    F32_PROF(2)\n  }\n"),
+    ("      jb.colsum[so + n0 + tid] = sum;\n    }\n  }\n}\n",
+     "      jb.colsum[so + n0 + tid] = sum;\n    }\n  }\n  F32_PROF(3)\n}\n"),
+]
+# the same parts of the parent's kernels (proj_f32_kernel, gemm_f32_kernel:
+# cp.async rings, a CTA barrier a k tile), for ``--only f32_gemm_probe``
+# with a git archive of the parent unpacked in build/parent
+F32_PARENT_PROBE_PARTS = ["copy wait", "barrier", "copy issue", "FMAs", "epilogue"]
+F32_PARENT_PROBE_MARKS = [
+    ('#include "wgmma_tile.cuh"\n', F32_PROBE_PRELUDE),
+    ("  for (int kt = 0; kt < KT; ++kt) {\n    cp_async_wait<FP_STAGES - 2>();\n"
+     "    __syncthreads();  // tile kt is here; every thread is done with tile kt - 1's slot\n"
+     "    if (kt + FP_STAGES - 1 < KT) load_stage((kt + FP_STAGES - 1) % FP_STAGES, kt + "
+     "FP_STAGES - 1);\n    cp_async_commit();\n",
+     "  F32_PROF_START\n  for (int kt = 0; kt < KT; ++kt) {\n    cp_async_wait<FP_STAGES - 2>();\n"
+     "    F32_PROF(0)\n    __syncthreads();\n    F32_PROF(1)\n"
+     "    if (kt + FP_STAGES - 1 < KT) load_stage((kt + FP_STAGES - 1) % FP_STAGES, kt + "
+     "FP_STAGES - 1);\n    cp_async_commit();\n    F32_PROF(2)\n"),
+    ("          for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);\n"
+     "      }\n    }\n  }\n  cp_async_wait<0>();\n",
+     "          for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);\n"
+     "      }\n    }\n    F32_PROF(3)\n  }\n  cp_async_wait<0>();\n"),
+    ("          if (n + e < G) cp[e] = v[e] + bias[e];\n      }\n    }\n  }\n}\n",
+     "          if (n + e < G) cp[e] = v[e] + bias[e];\n      }\n    }\n  }\n  F32_PROF(4)\n}\n"),
+    ("  for (int t = 0; t < NT; ++t) {\n    cp_async_wait<GF_STAGES - 2>();\n"
+     "    __syncthreads();  // tile t is here; every thread is done with tile t - 1's slot\n"
+     "    if (t + GF_STAGES - 1 < NT) load_stage((t + GF_STAGES - 1) % GF_STAGES);\n"
+     "    cp_async_commit();\n",
+     "  F32_PROF_START\n  for (int t = 0; t < NT; ++t) {\n    cp_async_wait<GF_STAGES - 2>();\n"
+     "    F32_PROF(0)\n    __syncthreads();\n    F32_PROF(1)\n"
+     "    if (t + GF_STAGES - 1 < NT) load_stage((t + GF_STAGES - 1) % GF_STAGES);\n"
+     "    cp_async_commit();\n    F32_PROF(2)\n"),
+    ("    if (live) gf_tile<AK, BK, TN, RM>(as, bs, tx, ty, acc);\n  }\n",
+     "    if (live) gf_tile<AK, BK, TN, RM>(as, bs, tx, ty, acc);\n    F32_PROF(3)\n  }\n"),
+    ("      for (int r = 0; r < 8; ++r) s += cs[r];\n      jb.colsum[so + n0 + tid] = s;\n"
+     "    }\n  }\n}\n",
+     "      for (int r = 0; r < 8; ++r) s += cs[r];\n      jb.colsum[so + n0 + tid] = s;\n"
+     "    }\n  }\n  F32_PROF(4)\n}\n"),
+]
+PARENT_TREE = os.path.join(REPO, "build", "parent")
+# candidate geometries of the sweep, (FT_KT, FT_STAGES, FT_UNROLL, FT_ROWS):
+# k a slot, ring slots, the 4-k chunks of the k loop's body, and the rows a
+# thread of the projection and dx (0: by the waves); two CTAs an SM in
+# each; the first is the shipped one
+F32_SWEEP = [(32, 3, 2, 0), (32, 3, 2, 8), (16, 4, 2, 0), (16, 4, 2, 8), (32, 2, 2, 0)]
+F32_SWEEP_ROUNDS = 3
+
+
+def _f32_build(csrc, tag, marks=(), defines=()):
+    """The F32_ENTRY harness on ``csrc``'s rnn_train_gemm.cuh, edited by
+    ``marks`` and built with ``defines``, in WORK/f32_<tag>: (ctypes library,
+    its path, ptxas' lines)."""
+    import ctypes
+
+    from ccsmeth_tpu_torch.ops import nvcc
+
+    src = open(os.path.join(csrc, "rnn_train_gemm.cuh")).read()
+    for old, new in marks:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    d = os.path.join(WORK, "f32_" + tag)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "rnn_train_gemm.cuh"), "w") as f:
+        f.write(src)
+    path = os.path.join(d, "f32.cu")
+    with open(path, "w") as f:
+        f.write(F32_ENTRY)
+    so = path[:-3] + ".so"
+    proc = subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + list(defines)
+                          + ["-Xptxas", "-v", "-I", d, "-I", csrc, "-o", so, path],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn, args in (("f32_proj", [p] * 5 + [i] * 4 + [p]), ("f32_dx", [p] * 3 + [i] * 3 + [p]),
+                     ("f32_wgrad", [p] * 5 + [i] * 6 + [p])):
+        getattr(lib, fn).restype = i
+        getattr(lib, fn).argtypes = args
+    ptxas = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+             if "registers" in ln or "spill" in ln]
+    return lib, so, ptxas
+
+
+def _f32_builds(jobs):
+    """_f32_build over (csrc, tag, marks, defines) jobs, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        return list(ex.map(lambda j: _f32_build(*j), jobs))
+
+
+def _f32_inputs(torch, cell, rows, cin=2 * H, hidden=H, seq_len=L):
+    """Seeded operands of the three products at one layer's shape: x (L
+    rows, cin), W_ih (2, cin, G) and the biases, the gate gradients (dhg is
+    dxg for the LSTM), the layer output, and the outputs."""
+    from ccsmeth_tpu_torch.models.rnn import n_gates
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + rows + cin)
+    ng = n_gates(cell)
+    G, M = ng * hidden, seq_len * rows
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    S = V.k5_wgrad_slices(M, cin, hidden, n_sm, ng)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    t = {"cell": cell, "L": seq_len, "N": rows, "M": M, "C": cin, "H": hidden, "G": G,
+         "ng": ng, "S": S, "x": randn(M, cin), "wih": randn(2, cin, G, scale=hidden ** -0.5),
+         "bih": randn(2, G), "bhh": randn(2, G), "dxg": randn(2, M, G),
+         "out": randn(M, 2 * hidden)}
+    t["dhg"] = randn(2, M, G) if ng == 3 else t["dxg"]
+    t["xg"] = torch.empty(2, M, G, device="cuda")
+    t["dx"] = torch.empty(M, cin, device="cuda")
+    t["part"] = torch.empty(S * 2 * G * (cin + hidden + 1 + (ng == 3)), device="cuda")
+    return t
+
+
+def _f32_calls(torch, lib, t):
+    """The three products of ``t`` through ``lib``'s entries (F32_ENTRY)."""
+    s = torch.cuda.current_stream().cuda_stream
+    nfold = (2 if t["ng"] == 3 else 4) * t["H"]
+
+    def ok(rc):
+        assert rc == 0, rc
+
+    return {
+        "projection": lambda: ok(lib.f32_proj(
+            t["x"].data_ptr(), t["wih"].data_ptr(), t["bih"].data_ptr(), t["bhh"].data_ptr(),
+            t["xg"].data_ptr(), t["M"], t["C"], t["G"], nfold, s)),
+        "dx": lambda: ok(lib.f32_dx(t["dxg"].data_ptr(), t["wih"].data_ptr(), t["dx"].data_ptr(),
+                                    t["M"], t["C"], t["G"], s)),
+        "wgrad": lambda: ok(lib.f32_wgrad(
+            t["x"].data_ptr(), t["out"].data_ptr(), t["dxg"].data_ptr(), t["dhg"].data_ptr(),
+            t["part"].data_ptr(), t["L"], t["N"], t["C"], t["H"], t["G"], t["S"], s))}
+
+
+def _f32_output(t, name):
+    return t[{"projection": "xg", "dx": "dx", "wgrad": "part"}[name]].clone()
+
+
+def _f32_flops(t):
+    return {"projection": 2 * t["M"] * t["C"] * 2 * t["G"], "dx": 2 * t["M"] * t["C"] * 2 * t["G"],
+            "wgrad": 2 * t["M"] * 2 * t["G"] * (t["C"] + t["H"])}
+
+
+def _f32_bound_ms(t):
+    """Each product's bound on this card's published peaks: its FLOPs at
+    67 TFLOP/s or its bytes (each input read once, each output written
+    once) at 3.35 TB/s, whichever is longer."""
+    M, C, G, H_ = t["M"], t["C"], t["G"], t["H"]
+    nbytes = {"projection": 4 * (M * C + 2 * C * G + 4 * G + 2 * M * G),
+              "dx": 4 * (2 * M * G + 2 * C * G + M * C),
+              "wgrad": 4 * (M * C + 2 * M * H_ + 2 * M * G * (1 + (t["ng"] == 3))
+                            + 2 * G * (C + H_ + 2))}
+    return {k: _bound(f, nbytes[k], "float32") for k, f in _f32_flops(t).items()}
+
+
+def _f32_torch_mm(torch, t):
+    """torch.mm on each product's operands (TF32 off): the projection's two
+    directions, dx as one product over both directions' k, the weight
+    gradients' four products (X^T dxg[d], h_prev^T dhg[d])."""
+    x, w, G, H_, M, N = t["x"], t["wih"], t["G"], t["H"], t["M"], t["N"]
+    a_dx = torch.cat([t["dxg"][0], t["dxg"][1]], dim=1)
+    b_dx = torch.cat([w[0].t(), w[1].t()], dim=0).contiguous()
+    hp = [torch.cat([torch.zeros(N, H_, device="cuda"), t["out"][:M - N, :H_]]),
+          torch.cat([t["out"][N:, H_:], torch.zeros(N, H_, device="cuda")])]
+    return {"projection": lambda: (torch.mm(x, w[0]), torch.mm(x, w[1])),
+            "dx": lambda: torch.mm(a_dx, b_dx),
+            "wgrad": lambda: [torch.mm(x.t(), t["dxg"][d]) for d in (0, 1)]
+            + [torch.mm(hp[d].t(), t["dhg"][d]) for d in (0, 1)]}
+
+
+def _sass_mix(so, kernel):
+    """The instruction mix of ``kernel``'s SASS in the library ``so``
+    (cuobjdump), over each instantiation: FFMA, LDS, BAR, other, over the
+    whole function and over its k loop (from the first FFMA to the last)."""
+    from ccsmeth_tpu_torch.ops import nvcc
+
+    tool = os.path.join(os.path.dirname(nvcc._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                          check=True).stdout
+    mixes = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        ops = []
+        for ln in part.splitlines():
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+            if m:
+                ops.append(m.group(2).split(".")[0])
+        ffma = [i for i, op in enumerate(ops) if op == "FFMA"]
+
+        def mix(seq):
+            c = {"FFMA": 0, "LDS": 0, "BAR": 0, "other": 0}
+            for op in seq:
+                c[op if op in c else "other"] += 1
+            c["total"] = len(seq)
+            c["ffma_share"] = c["FFMA"] / max(1, len(seq))
+            return c
+        mixes[name[:120]] = {"function": mix(ops),
+                             "k_loop": mix(ops[ffma[0]:ffma[-1] + 1] if ffma else [])}
+    return mixes
+
+
+def _torch_mm_kernels(torch, t):
+    """The kernels torch.mm runs for each product's operands: name, grid,
+    block and device us, from a torch.profiler trace (chrome format)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    res = {}
+    for name, fn in _f32_torch_mm(torch, t).items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(WORK, "mm_trace_{}.json".format(name))
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        res[name] = [{"kernel": e["name"][:160], "grid": e.get("args", {}).get("grid"),
+                      "block": e.get("args", {}).get("block"), "us": e.get("dur")}
+                     for e in events if e.get("cat") == "kernel"]
+    return res
+
+
+def _launches_for(fn, torch, seconds=3.0):
+    """Calls of fn that keep the card busy ``seconds`` (at least 20)."""
+    return max(20, int(seconds * 1e3 / time_ms(fn, torch, 3)))
+
+
+def phase_f32_gemm_probe(torch, smi, which=("change", "parent")):
+    """Where the f32 products' time goes. A build of the shipped
+    f32_tma_kernel with clock64 marks (``F32_PROBE_MARKS``, per warp of CTA
+    (0, 0, 0): ring wait, FMAs, release and refill, epilogue) and, where
+    build/parent holds the parent tree, of its kernels (proj_f32_kernel,
+    gemm_f32_kernel: ``F32_PARENT_PROBE_MARKS``: copy wait, barrier, copy
+    issue, FMAs, epilogue), each beside an unmarked build, at the main
+    path's shapes (1,024 rows, C = 512, both cells; the projection also at
+    16,384): k cycles a CTA tile by part and warp, the FMA rate inside the
+    FMA part (the SM's two CTAs' FMAs over 128 a clock), the CUDA-event
+    time of both builds, the waves of each launch; the SM clock while each
+    product and torch.mm run; the SASS mix of each kernel (cuobjdump); the
+    kernels torch.mm runs (torch.profiler). Every tree's outputs are bit
+    for bit the shipped build's."""
+    import ctypes
+    import math
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch.ops import bigru_vjp as V, nvcc
+
+    trees = [("change", nvcc.CSRC, F32_PROBE_MARKS, F32_PROBE_PARTS, F32_KERNEL)]
+    parent = os.path.join(PARENT_TREE, "ccsmeth_tpu_torch", "ops", "csrc")
+    if os.path.isdir(parent):
+        # the parent's marks: the cp.async kernels', or this design's
+        with open(os.path.join(parent, "rnn_train_gemm.cuh")) as fh:
+            old = F32_KERNEL not in fh.read()
+        trees.append(("parent", parent) + ((F32_PARENT_PROBE_MARKS, F32_PARENT_PROBE_PARTS,
+                                            "_f32_kernel") if old else
+                                           (F32_PROBE_MARKS, F32_PROBE_PARTS, F32_KERNEL)))
+    trees = [tr for tr in trees if tr[0] in which]
+    jobs = []
+    for tag, csrc, marks, _parts, _k in trees:
+        jobs += [(csrc, tag, (), ()), (csrc, tag + "_probe", marks, ())]
+    built = _f32_builds(jobs)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for j, (tag, _c, _m, parts, kname) in enumerate(trees):
+        emit({"phase": "f32_gemm_probe", "tree": tag, "ptxas": built[2 * j][2],
+              "sass": _sass_mix(built[2 * j][1], kname), "card": smi})
+    for cell in MODELS:
+        for rows in ROWS:
+            t = _f32_inputs(torch, cell, rows)
+            names = ("projection",) if rows == ROWS[1] else ("projection", "dx", "wgrad")
+            flops = _f32_flops(t)
+            mm = _f32_torch_mm(torch, t)
+            ref = None
+            res = {"phase": "f32_gemm_probe", "cell": cell, "rows": rows, "C": t["C"],
+                   "S": t["S"], "card": smi, "trees": {}}
+            for j, (tag, _c, _m, parts, kname) in enumerate(trees):
+                plain, probed = built[2 * j][0], built[2 * j + 1][0]
+                calls, pcalls = _f32_calls(torch, plain, t), _f32_calls(torch, probed, t)
+                out = {}
+                for name in names:
+                    calls[name]()
+                    torch.cuda.synchronize()
+                    out[name] = _f32_output(t, name)
+                    if ref is not None:  # the parent's bits are the shipped build's
+                        assert torch.equal(out[name], ref[name]), (tag, name)
+                ref = ref or out
+                per = {}
+                for name in names:
+                    fn = ctypes.CDLL(built[2 * j + 1][1]).f32_probe
+                    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                    buf = (ctypes.c_ulonglong * 32)()
+                    fn(buf, 1)
+                    pcalls[name]()
+                    torch.cuda.synchronize()
+                    assert torch.equal(_f32_output(t, name), ref[name]), (tag, name, "probed")
+                    fn(buf, 0)
+                    cyc = np.array(buf[:]).reshape(4, 8)[:, :len(parts)].astype(float)
+                    # CTA (0, 0, 0)'s k: the whole C, dx's two segments, slice 0's rows
+                    kcta = {"projection": t["C"], "dx": 2 * t["G"],
+                            "wgrad": min(t["M"], -(-(-(-t["M"] // t["S"])) // 32) * 32)}[name]
+                    # proj_f32_kernel took 128 rows a tile always
+                    bm, bn = (V.simt_dx_tile(t["M"], t["C"], n_sm) if name == "dx" else
+                              V.simt_proj_tile(t["M"], t["G"], n_sm)
+                              if (name, kname) == ("projection", F32_KERNEL) else (128, 128))
+                    fmas = 2 * bm * bn * kcta  # the SM's two CTAs' tiles
+                    fma_part = parts.index("FMAs")
+                    ms = time_ms(calls[name], torch)
+                    tiles = {"projection": 2 * math.ceil(t["G"] / 128) * math.ceil(t["M"] / bm),
+                             "wgrad": t["S"] * 2 * math.ceil(t["G"] / 128) * (
+                                 math.ceil(t["C"] / 128) + math.ceil(t["H"] / 128))}.get(name)
+                    per[name] = {
+                        "ms": ms, "probed_ms": time_ms(pcalls[name], torch),
+                        "tflops": flops[name] / ms / 1e9,
+                        "kcycles_by_part_and_warp": [
+                            {p: c / 1e3 for p, c in zip(parts, row)} for row in cyc],
+                        "share_by_part": {p: float(cyc[:, k].sum() / cyc.sum())
+                                          for k, p in enumerate(parts)},
+                        "fma_rate_in_fma_part": float(fmas / cyc[:, fma_part].mean() / 128),
+                        "waves": tiles / (2 * n_sm) if tiles else None}
+                res["trees"][tag] = per
+            res["torch_mm"] = {}
+            for name in names:
+                ms = time_ms(mm[name], torch)
+                res["torch_mm"][name] = {"ms": ms, "tflops": flops[name] / ms / 1e9}
+            # the SM clock under each product's load and torch.mm's
+            lib = built[0][0]
+            calls = _f32_calls(torch, lib, t)
+            res["sm_clock_mhz"] = {name: _sm_clock_mhz_while(
+                calls[name], torch, _launches_for(calls[name], torch)) for name in names}
+            res["sm_clock_mhz_torch_mm"] = {name: _sm_clock_mhz_while(
+                mm[name], torch, _launches_for(mm[name], torch)) for name in names}
+            if rows == ROWS[0] and cell == "gru":
+                res["torch_mm_kernels"] = _torch_mm_kernels(torch, t)
+            emit(res)
+            del t
+
+
+def phase_f32_gemm_sweep(torch, smi):
+    """The f32 products at each geometry of ``F32_SWEEP`` (builds of the
+    shipped header with -DFT_KT=k -DFT_STAGES=s -DFT_UNROLL=u -DFT_ROWS=r)
+    and, with a parent tree in build/parent, its kernels, in
+    ``F32_SWEEP_ROUNDS`` alternating rounds beside torch.mm, at the main
+    path's shapes (both cells; the projection at 1,024 and 16,384 rows, dx
+    and the weight gradients at 1,024, C = 512; the projection also at
+    layer 0's C = 11 and 28): medians, TFLOP/s, the bound and each build's
+    registers; every build's bits the first's; the SM clock while each
+    build's projection runs at 16,384 rows."""
+    from ccsmeth_tpu_torch.ops import nvcc
+
+    jobs = [(nvcc.CSRC, "sweep_{}_{}_{}_{}".format(kt, st, u, rm), (),
+             ("-DFT_KT={}".format(kt), "-DFT_STAGES={}".format(st), "-DFT_UNROLL={}".format(u),
+              "-DFT_ROWS={}".format(rm))) for kt, st, u, rm in F32_SWEEP]
+    tags = ["KT={} stages={} unroll={} rows={}".format(kt, st, u, rm)
+            for kt, st, u, rm in F32_SWEEP]
+    parent = os.path.join(PARENT_TREE, "ccsmeth_tpu_torch", "ops", "csrc")
+    if os.path.isdir(parent):  # the parent's kernels, one more candidate
+        jobs.append((parent, "sweep_parent", (), ()))
+        tags.append("parent")
+    builds = _f32_builds(jobs)
+    emit({"phase": "f32_gemm_sweep", "ptxas": {tag: b[2] for tag, b in zip(tags, builds)},
+          "card": smi})
+    for cell in MODELS:
+        for rows, cin in ((ROWS[0], 2 * H), (ROWS[1], 2 * H), (ROWS[0], C), (ROWS[0], C2S2)):
+            t = _f32_inputs(torch, cell, rows, cin)
+            names = (("projection", "dx", "wgrad") if (rows, cin) == (ROWS[0], 2 * H)
+                     else ("projection",))
+            flops, bound = _f32_flops(t), _f32_bound_ms(t)
+            mm = _f32_torch_mm(torch, t)
+            calls = [_f32_calls(torch, b[0], t) for b in builds]
+            for name in names:
+                ref = None
+                for c in calls:
+                    c[name]()
+                    torch.cuda.synchronize()
+                    got = _f32_output(t, name)
+                    assert ref is None or torch.equal(got, ref), name
+                    ref = got if ref is None else ref
+            ms = {name: {tag: [] for tag in tags + ["torch.mm"]} for name in names}
+            for r in range(F32_SWEEP_ROUNDS):
+                order = list(range(len(builds)))
+                order = order if r % 2 == 0 else order[::-1]
+                for name in names:
+                    for i in order:
+                        ms[name][tags[i]].append(time_ms(calls[i][name], torch))
+                    ms[name]["torch.mm"].append(time_ms(mm[name], torch))
+            res = {"phase": "f32_gemm_sweep", "cell": cell, "rows": rows, "C": t["C"],
+                   "card": smi, "bound_ms": {n: bound[n][0] for n in names}, "products": {}}
+            for name in names:
+                res["products"][name] = {
+                    tag: {"ms": statistics.median(v), "runs": v,
+                          "tflops": flops[name] / statistics.median(v) / 1e9}
+                    for tag, v in ms[name].items()}
+            if (rows, cin) == (ROWS[1], 2 * H):
+                res["sm_clock_mhz"] = {tag: _sm_clock_mhz_while(
+                    c["projection"], torch, _launches_for(c["projection"], torch))
+                    for tag, c in zip(tags, calls)}
+                res["sm_clock_mhz"]["torch.mm"] = _sm_clock_mhz_while(
+                    mm["projection"], torch, _launches_for(mm["projection"], torch))
+            emit(res)
+            del t, calls
+
+
+def phase_f32_products(torch, smi):
+    """The exact-f32 products through the port's wrappers at the main
+    path's shapes (one layer at C = 512, 1,024 rows; the projection also at
+    16,384; both cells), each held against its plain PyTorch version on the
+    card (float32 matmuls, TF32 off; relative tolerance 1e-5 of the largest
+    magnitude: the plain version sums in another order) and timed beside it,
+    torch.mm and the bound; the counts of ``bigru_vjp.f32_products`` move
+    by one a call."""
+    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp as V
+
+    res = {"phase": "f32_products", "kernel": F32_KERNEL, "card": smi, "cells": []}
+    for cell in MODELS:
+        for rows in ROWS:
+            t = _f32_inputs(torch, cell, rows)
+            plan = V.k45_plan(H, torch.float32, cell)
+            x3 = t["x"].view(L, rows, t["C"])
+            out3 = t["out"].view(L, rows, 2 * H)
+            nfold = (2 if t["ng"] == 3 else 4) * H
+            bias = t["bih"] + torch.where(torch.arange(t["G"], device="cuda") < nfold,
+                                          t["bhh"], torch.zeros_like(t["bhh"]))
+            fns = {"projection": lambda: bigru.simt_projection(t["x"], t["wih"], t["bih"],
+                                                               t["bhh"], cell, t["xg"])}
+            plain = {"projection": lambda: torch.stack([t["x"] @ t["wih"][d] + bias[d]
+                                                        for d in (0, 1)])}
+            if rows == ROWS[0]:
+                fns["dx"] = lambda: V.k5_dx(t["dxg"], t["wih"], plan, torch.float32)
+                fns["wgrad"] = lambda: V.k5_weight_grads(x3, out3, t["dxg"], t["dhg"], plan,
+                                                         torch.float32)
+                hp = [torch.cat([torch.zeros(rows, H, device="cuda"), t["out"][:-rows, :H]]),
+                      torch.cat([t["out"][rows:, H:], torch.zeros(rows, H, device="cuda")])]
+                plain["dx"] = lambda: (t["dxg"][0] @ t["wih"][0].t()
+                                       + t["dxg"][1] @ t["wih"][1].t())
+
+                def plain_wgrad():
+                    dw_ih = torch.stack([t["x"].t() @ t["dxg"][d] for d in (0, 1)])
+                    dw_hh = torch.stack([hp[d].t() @ t["dhg"][d] for d in (0, 1)])
+                    db_ih = t["dxg"].sum(1)
+                    return (dw_ih, db_ih, dw_hh, t["dhg"].sum(1))
+                plain["wgrad"] = plain_wgrad
+            mm = _f32_torch_mm(torch, t)
+            flops, bound = _f32_flops(t), _f32_bound_ms(t)
+            for name, fn in fns.items():
+                before = V.f32_products[name]
+                got = fn()
+                torch.cuda.synchronize()
+                assert V.f32_products[name] == before + 1, (name, V.f32_products)
+                want = plain[name]()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                scale = max(float(b.abs().max()) for b in want)
+                assert all(torch.isfinite(a).all() for a in got), name
+                assert err <= 1e-5 * scale, (cell, rows, name, err, scale)
+                ms = time_ms(fn, torch)
+                mm_ms = time_ms(mm[name], torch)
+                lib_ms = (time_ms(lambda: torch.matmul(t["x"], t["wih"]), torch)
+                          if name == "projection" else None)
+                res["cells"].append({
+                    "cell": cell, "rows": rows, "C": t["C"], "product": name, "ms": ms,
+                    "plain_ms": time_ms(plain[name], torch), "torch_mm_ms": mm_ms,
+                    "bound_ms": bound[name][0], "bound_by": bound[name][1], "library_ms": lib_ms,
+                    "tflops": flops[name] / ms / 1e9, "torch_mm_tflops": flops[name] / mm_ms / 1e9,
+                    "max_abs_err": err, "max_abs_ref": scale})
+            del t
+    emit(res)
+    return res
+
+
 def phase_train_kernels(torch, smi, cell, cins=(C, 2 * H), rows=ROWS[0], hidden=H,
                         seq_len=L):
     """One layer's training kernels at the train path's shapes (C = 11 and
@@ -2969,7 +3506,7 @@ def _e2e_input():
 
 def _zero_counts():
     from ccsmeth_tpu_torch.models import attrnn
-    from ccsmeth_tpu_torch.ops import bigru, transenc
+    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp, transenc
 
     attrnn.h0_plain_calls = 0
     bigru.launches = bigru.plain_calls = 0
@@ -2978,7 +3515,7 @@ def _zero_counts():
     for mod in (bigru, transenc):
         mod.cuda_launches = 0
     for calls in (bigru.design_calls, bigru.layer_design_calls, transenc.design_calls,
-                  bigru.tc_projection_calls):
+                  bigru.tc_projection_calls, bigru_vjp.f32_products):
         for k in calls:
             calls[k] = 0
 
@@ -3157,7 +3694,7 @@ def phase_e2e(torch, smi, model_type):
     another row (the JAX package does the same); their numerics are gated at
     the kernel and model phases."""
     from ccsmeth_tpu_torch.models.params_io import save_params
-    from ccsmeth_tpu_torch.ops import bigru
+    from ccsmeth_tpu_torch.ops import bigru, bigru_vjp
 
     _cfg, params = _config_params(model_type)
     os.makedirs(WORK, exist_ok=True)
@@ -3186,6 +3723,10 @@ def phase_e2e(torch, smi, model_type):
         assert cuda[name] == per_call * n and sum(cuda.values()) == cuda[name], cuda
         tc_proj = dict(bigru.tc_projection_calls)
         assert tc_proj == {k: v * n for k, v in proj.items()}, tc_proj
+        # fp32 K1 projects each layer with the f32 product kernel
+        f32 = dict(bigru_vjp.f32_products)
+        assert f32 == {"projection": NL * n if (name, prec) == ("k1", "fp32") else 0,
+                       "dx": 0, "wgrad": 0}, f32
         n_tagged = sum(1 for mm, ml in tags[prec].values() if ml is not None)
         assert n_tagged >= 0.9 * len(tags[prec]), (prec, n_tagged)
         # one model replica a visible card, batches padded to a multiple
@@ -3193,6 +3734,7 @@ def phase_e2e(torch, smi, model_type):
         assert run["pad_n"] % run["replicas"] == 0, run
         run.update(phase="e2e", model=model_type, precision=prec, launches=counts,
                    designs=designs, cuda_launches=cuda, tc_projections=tc_proj,
+                   f32_products=f32,
                    sites_per_s=run["sites"] / run["seconds"],
                    reads_with_mm_ml=n_tagged, card=smi)
         emit(run)
@@ -3345,10 +3887,10 @@ def phase_flags(torch, smi, single_tags):
     states); ``--num_processes 2`` as two runs, each through K1 once a
     batch, whose records together equal the single run's (``single_tags``,
     the fp32 e2e run); ``--profile_dir``: one trace file, whose kernel
-    events name K1's two kernels (the simt design: K4's projection
-    ``proj_f32_kernel`` and the recurrence ``birnn_rec_kernel``), and with
-    ``--batch_size 8192`` the rows design's (``proj_f32_kernel`` and
-    ``birnn_rows_kernel``)."""
+    events name K1's two kernels (the simt design: K4's projection, the
+    exact-f32 product kernel ``f32_tma_kernel``, and the recurrence
+    ``birnn_rec_kernel``), and with ``--batch_size 8192`` the rows design's
+    (``f32_tma_kernel`` and ``birnn_rows_kernel``)."""
     import glob
     import shutil
 
@@ -3398,10 +3940,10 @@ def phase_flags(torch, smi, single_tags):
     # the trace names K1's two kernels of the design that runs: simt at the
     # default batch, rows at batch 8,192 (and not the other recurrence)
     for key, tag, extra, names, absent in (
-            ("profile", "profiled", [], ("proj_f32_kernel", "birnn_rec_kernel"),
+            ("profile", "profiled", [], (F32_KERNEL, "birnn_rec_kernel"),
              "birnn_rows_kernel"),
             ("profile_rows", "profiled_rows", ["--batch_size", str(E2E_ROWS_BATCH)],
-             ("proj_f32_kernel", "birnn_rows_kernel"), "birnn_rec_kernel")):
+             (F32_KERNEL, "birnn_rows_kernel"), "birnn_rec_kernel")):
         tdir = os.path.join(WORK, "trace_" + tag)
         shutil.rmtree(tdir, ignore_errors=True)
         _zero_counts()
@@ -3836,6 +4378,8 @@ def phase_train(torch, smi, cell, epochs, models=MODELS):
         V.launches_fwd = V.launches_bwd = V.plain_calls = 0
     _zero_k45_designs()
     bigru.launches = bigru.plain_calls = 0
+    for k in bigru_vjp.f32_products:
+        bigru_vjp.f32_products[k] = 0
     t0 = time.time()
     _train_cli(cli, model_type, tr, va, os.path.join(WORK, model_type + "_fp32"),
                "fp32", epochs, STEP_INTERVAL)
@@ -3845,7 +4389,8 @@ def phase_train(torch, smi, cell, epochs, models=MODELS):
     counts = {"fwd": mine.launches_fwd, "bwd": mine.launches_bwd,
               "k1": bigru.launches, "plain_vjp": mine.plain_calls,
               "plain_k1": bigru.plain_calls,
-              "other_cell": other.launches_fwd + other.launches_bwd + other.plain_calls}
+              "other_cell": other.launches_fwd + other.launches_bwd + other.plain_calls,
+              "f32_products": dict(bigru_vjp.f32_products)}
     steps = run["steps"]
     n_valid = len(run["valid_losses"])
     assert steps == epochs * (TRAIN_ROWS // 512), steps
@@ -3853,6 +4398,11 @@ def phase_train(torch, smi, cell, epochs, models=MODELS):
     assert counts["k1"] == n_valid * math.ceil(VALID_ROWS / 512) > 0, counts
     assert counts["plain_vjp"] == counts["plain_k1"] == counts["other_cell"] == 0, \
         counts
+    # the f32 product kernel: a projection a layer of each forward and of
+    # each validation's K1 call, dx and the weight gradients a layer a step
+    assert counts["f32_products"] == {"projection": counts["fwd"] + NL * counts["k1"],
+                                      "dx": counts["bwd"],
+                                      "wgrad": counts["bwd"]}, counts
     # fp32 trains the cell's kernels (K4/K5 or K6) through the simt design
     # only, each call's CUDA launches counted where they are made, and
     # launches nothing of the other cell's
@@ -3953,7 +4503,7 @@ def phase_profile(torch, smi, cell, steps=5, check_kernels=True):
     dropout 0.5, Adam)
     after two warm-up steps; device time per kernel name, the device's busy
     time against the host clock, and the step time; the trace names the
-    backward's exact-f32 product kernel (``gemm_f32_kernel``) and
+    backward's exact-f32 product kernel (``f32_tma_kernel``) and
     ``gemm_simt_kernel`` for none (``check_kernels``: off in
     ``--ab-step``'s turns, whose parent tree has other kernels). Launches
     here are not the train path's and are read nowhere."""
@@ -3989,13 +4539,13 @@ def phase_profile(torch, smi, cell, steps=5, check_kernels=True):
             rows.append((dev_us / steps / 1e3, e.count / steps, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    # the fp32 step's backward products (K5/K6's dx and weight gradients, 2
-    # a layer) run gemm_f32_kernel, none gemm_simt_kernel (the counts a step
-    # are the trace's, which may miss an event of the window)
+    # the fp32 step's products (K4/K6's projections, K5/K6's dx and weight
+    # gradients, a layer each) run f32_tma_kernel, none gemm_simt_kernel (the
+    # counts a step are the trace's, which may miss an event of the window)
     products = {name: sum(n for _ms, n, k in rows if name in k)
-                for name in ("gemm_f32_kernel", "gemm_simt_kernel")}
+                for name in (F32_KERNEL, "gemm_simt_kernel")}
     assert not (check_kernels and rows) or (
-        products["gemm_f32_kernel"] > 0 and products["gemm_simt_kernel"] == 0), products
+        products[F32_KERNEL] > 0 and products["gemm_simt_kernel"] == 0), products
     res = {"phase": "profile",
            "what": "train step, {} 3x256, batch 512, fp32".format(MODELS[cell]),
            "steps": steps, "step_ms_host": wall_ms, "device_ms_per_step": device_ms,
@@ -4953,8 +5503,10 @@ def _time_tree(tree):
     (forward and backward) at the train-kernel phase's (1024 rows, C = 11
     and 512, and 28 in fp32), fp32 and bf16, and K4's to K6's fp32
     forwards and backwards at 512 rows (C = 11, 28, 512) and at the
-    aggregate trainer's shape, through the tree's own wrappers; medians of CUDA-event timings,
-    one JSON line."""
+    aggregate trainer's shape, and the exact-f32 products alone (the
+    projection at C = 512, 1,024 and 16,384 rows; dx and the weight
+    gradients at 1,024), through the tree's own wrappers; medians of
+    CUDA-event timings, one JSON line."""
     sys.path.insert(0, os.path.abspath(tree))
     import numpy as np
     import torch
@@ -5064,6 +5616,33 @@ def _time_tree(tree):
                     + (torch.float32,)
                 res["ms"]["{} {} float32".format(kb, tag)] = time_ms(
                     lambda: bwd(*args), torch, AB_REPS)
+        # the exact-f32 products alone through the tree's wrappers, C = 512:
+        # the projection at both row counts, dx and the weight gradients at
+        # 1,024 rows
+        for cell in MODELS:
+            plan = bigru_vjp.k45_plan(H, torch.float32, cell)
+            for rows in ROWS:
+                rng = np.random.RandomState(SEED + rows)
+                wih, bih, _whh, bhh = layer_weights(
+                    init_rnn_params(rng, 2 * H, H, 1, cell)[0], torch.float32, "cuda")
+                G = wih.shape[2]
+                x = torch.from_numpy(rng.randn(L, rows, 2 * H).astype(np.float32)).cuda()
+                res["ms"]["proj {} rows={} float32".format(cell, rows)] = time_ms(
+                    lambda: bigru.simt_projection(x.view(L * rows, 2 * H), wih, bih, bhh, cell),
+                    torch, AB_REPS)
+                if rows != ROWS[0]:
+                    continue
+                dxg = torch.from_numpy(rng.randn(2, L * rows, G).astype(np.float32)).cuda()
+                dhg = (torch.from_numpy(rng.randn(2, L * rows, G).astype(np.float32)).cuda()
+                       if cell == "gru" else dxg)
+                out = torch.from_numpy(rng.randn(L, rows, 2 * H).astype(np.float32)).cuda()
+                res["ms"]["dx {} rows={} float32".format(cell, rows)] = time_ms(
+                    lambda: bigru_vjp.k5_dx(dxg, wih, plan, torch.float32), torch, AB_REPS)
+                res["ms"]["wgrad {} rows={} float32".format(cell, rows)] = time_ms(
+                    lambda: bigru_vjp.k5_weight_grads(x, out, dxg, dhg, plan, torch.float32),
+                    torch, AB_REPS)
+                del dxg, dhg, out
+            del x
     emit(res)
 
 
@@ -5236,7 +5815,9 @@ def main_only(names):
     """``--only a,b,...``: the card, the build, then only the named phases of
     the one-card training paths (train_kernels, train_kernels_small,
     train_kernels_2s2, determinism, train1s, train_te, transfer, aggr_train,
-    wrappers, profile), the simt backward's sweep and probe
+    wrappers, profile), the exact-f32 products' phase, probe and sweep
+    (f32_products, f32_gemm_probe, f32_gemm_sweep), the simt backward's
+    sweep and probe
     (k56_bwd_simt_sweep, k56_bwd_simt_probe), the
     multi-process one (dist), K1's and K2's kernel phases (k1_kernels: K1
     at 1,024 and 16,384 rows, K2 at C = 11, 2H and, fp32, the 2s2 family's
@@ -5290,6 +5871,9 @@ def main_only(names):
         "k3_simt_probe": lambda: phase_k3_simt_probe(torch, smi),
         "k3_simt_sweep": lambda: phase_k3_simt_sweep(torch, smi),
         "dist": lambda: phase_dist(torch, smi),
+        "f32_products": lambda: phase_f32_products(torch, smi),
+        "f32_gemm_probe": lambda: phase_f32_gemm_probe(torch, smi),
+        "f32_gemm_sweep": lambda: phase_f32_gemm_sweep(torch, smi),
         "wrappers": phase_wrappers}
     unknown = [n for n in names if n not in phases]
     if unknown:
@@ -5360,6 +5944,7 @@ def main():
     taggr_cells = {cell: phase_train_kernels(torch, smi, cell, cins=(AGGR_C,), rows=512,
                                              hidden=AGGR_H, seq_len=AGGR_L)
                    for cell in MODELS}
+    f32 = phase_f32_products(torch, smi)
     lap("train_kernels")
     for model_type in list(MODELS.values()) + [TRANSENC]:
         phase_model(torch, model_type)
@@ -5640,6 +6225,33 @@ def main():
             "phases_ms": mc["phases_ms"], "rows_geometry": mc["rows_design"],
             "simt_forced": mc["simt_forced"],
             "cell": "{} rows={} C={} float32".format(MODELS[cell], mc["rows"], mc["C"])})
+    # the exact-f32 product kernel: the projection of K1's and K2's fp32
+    # designs and of the simt forwards, and the simt backward's dx and weight
+    # gradients; main cell attbigru2s's layer at C = 512, 1,024 rows
+    for prod, names, line in (("projection", ("projection",), "bigru_pallas.py:198"),
+                              ("backward", ("dx", "wgrad"), "bigru_pallas_vjp.py:63")):
+        cells = [c for c in f32["cells"] if c["product"] in names]
+        main_cells = [c for c in cells if (c["cell"], c["rows"]) == ("gru", ROWS[0])]
+        launches = (sum(e2e[cell]["runs"]["fp32"]["f32_products"]["projection"]
+                        for cell in MODELS) if prod == "projection" else
+                    sum(train_runs[cell]["launches"]["f32_products"][n] for cell in MODELS
+                        for n in names))
+        kernels.append({
+            "name": "{}_{}".format(F32_KERNEL, prod), "route": "cuda",
+            "source": SIMT_PROJECTION, "replaces": "ccsmeth_tpu/ops/" + line,
+            "launches": launches,
+            "launches_by": ("call_mods fp32 e2e runs, both RNN cells" if prod == "projection"
+                            else "fp32 train runs, both RNN cells"),
+            "max_abs_err": max(c["max_abs_err"] for c in cells),
+            "ms": sum(c["ms"] for c in main_cells),
+            "plain_ms": sum(c["plain_ms"] for c in main_cells),
+            "bound_ms": sum(c["bound_ms"] for c in main_cells), "bound_by": "operations",
+            # one call: torch.matmul of x with both directions' W_ih (TF32 off);
+            # the backward's products take five torch.mm calls (torch_mm_ms)
+            "library_ms": main_cells[0]["library_ms"] if prod == "projection" else None,
+            "torch_mm_ms": sum(c["torch_mm_ms"] for c in main_cells),
+            "cell": "attbigru2s layer C=512 rows={} float32".format(ROWS[0]),
+            "cells": cells})
     emit({"kernels": kernels})
     log("chip_smoke: {:.1f} s on {}".format(time.time() - t_start, smi))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -993,69 +993,88 @@ def proj_chain(x, w, b0, b1, nfold, bk):
     return (acc + bias).astype(np.float32)
 
 
-def f32_proj_owners(M, G):
-    """proj_f32_kernel's tile -> element map: CTA (bx, by) of each direction
-    d, thread (tx, ty) = (t % 8, t / 8) of 128, accumulator (i, j) holds
-    xg[d][m][n], m = 128 by + (4 ty + i, i < 4; 64 + 4 ty + i - 4), n = 128
-    bx + 32 (j / 4) + 4 tx + j % 4. Returns the count of owners of each
-    element of (2, M, G) within the matrix."""
+def f32_proj_owners(M, G, rm=8):
+    """f32_tma_kernel's projection tile -> element map: CTA (bx, by) of each
+    direction d, thread (tx, ty) = (t % 8, t / 8) of 128, accumulator (i, j)
+    holds xg[d][m][n], m = 16 rm by + ty + 16 i (i < rm; X K-major: one
+    swizzle a thread), n = 128 bx + 32 (j / 4) + 4 tx + j % 4. Returns the
+    count of owners of each element of (2, M, G) within the matrix."""
     count = np.zeros((2, M, G), np.int64)
     t = np.arange(128)
     tx, ty = t % 8, t // 8
-    i, j = np.arange(8), np.arange(16)
-    rows = np.where(i < 4, 4 * ty[:, None] + i, 64 + 4 * ty[:, None] + i - 4)  # (128, 8)
+    i, j = np.arange(rm), np.arange(16)
+    rows = ty[:, None] + 16 * i                                              # (128, rm)
     cols = 32 * (j // 4) + 4 * tx[:, None] + j % 4                           # (128, 16)
     for d in range(2):
-        for by in range(-(-M // 128)):
+        for by in range(-(-M // (16 * rm))):
             for bx in range(-(-G // 128)):
-                m = np.broadcast_to((128 * by + rows)[:, :, None], (128, 8, 16))
-                n = np.broadcast_to((128 * bx + cols)[:, None, :], (128, 8, 16))
+                m = np.broadcast_to((16 * rm * by + rows)[:, :, None], (128, rm, 16))
+                n = np.broadcast_to((128 * bx + cols)[:, None, :], (128, rm, 16))
                 ok = (m < M) & (n < G)
                 np.add.at(count[d], (m[ok], n[ok]), 1)
     return count
 
 
+@pytest.mark.parametrize("rm", [7, 8])
 @pytest.mark.parametrize("M,G", [(1, 48), (13, 64), (200, 96), (1029, 768), (300, 1024)])
-def test_f32_projection_owns_every_element_once(M, G):
+def test_f32_projection_owns_every_element_once(M, G, rm):
     """Every element of xg (2, M, G) has exactly one owning thread (one
-    accumulator of one CTA), at ragged rows and widths below a tile."""
-    assert (f32_proj_owners(M, G) == 1).all()
+    accumulator of one CTA), at ragged rows and widths below a tile, in
+    tiles of 128 and of 112 rows."""
+    assert (f32_proj_owners(M, G, rm) == 1).all()
 
 
 def test_f32_projection_model_follows_the_kernel_source():
     """The ownership and the order of the sums above are the kernel's: the
-    thread's rows and columns, k tiles ascending (kt), 4-k quads ascending
-    (kq) and k within a quad ascending (kk), each fmaf onto the one
-    accumulator from 0.0f, and the bias added once after the chain as
+    thread's rows and columns, the CTA's k tiles ascending (q), 4-k chunks
+    ascending (c) and k within a chunk ascending (kk), each fmaf onto the
+    one accumulator from 0.0f, and the bias added once after the chain as
     gemm_simt_kernel adds it."""
     src = _csrc("rnn_train_gemm.cuh")
-    for line in ("#define FP_BM 128", "#define FP_BN 128", "#define FP_BK 16",
-                 "#define FP_TX (FP_BN / 16)", "#define FP_THREADS (FP_TX * 16)",
-                 "const int tid = threadIdx.x, tx = tid % FP_TX, ty = tid / FP_TX;",
-                 "const int m0 = blockIdx.y * FP_BM, n0 = blockIdx.x * FP_BN;",
-                 "const int r = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;",
-                 "const float4 v = *reinterpret_cast<const float4*>(bs + k * FP_BN + c * (FP_BN / 4) "
-                 "+ tx * 4);",
-                 "for (int kt = 0; kt < KT; ++kt) {",
-                 "for (int kq = 0; kq < FP_BK; kq += 4) {",
-                 "for (int kk = 0; kk < 4; ++kk) {",
-                 "const float* b = bb[(kq + kk) & 1];",
-                 "for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);",
+    for line in ("#define FT_THREADS 128", "#define FT_BM 128",
+                 "static constexpr int BM = 16 * RM, BN = 8 * TN;",
+                 "const int tid = threadIdx.x, lane = tid & 31, tx = tid % 8, ty = tid / 8;",
+                 "const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;",
+                 "if (AK) return ty + 16 * i;",
+                 "const float* ar = as + ty * KT;",
+                 "const float4 v = *reinterpret_cast<const float4*>(ar + 16 * KT * i + ((c ^ asw) << 2));",
+                 "const float4 v = *reinterpret_cast<const float4*>(bs + k * BN + q * 32 + tx * 4);",
+                 "for (int q = 0; q < NT; ++q) {",
+                 "for (int c = 0; c < nc; ++c) {",
+                 "for (int kk = 0; kk < 4; ++kk) { if (kk < 3) load_b(4 * c + kk + 1, bb[(kk + 1) & 1]);",
+                 "for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i][kk], bb[kk & 1][j], acc[i][j]);",
                  "acc[i][j] = 0.0f;",
-                 "bias[e] = n + e < G ? b0[n + e] + (n + e < p.nfold ? b1[n + e] : 0.0f) : 0.0f;",
-                 "const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);",
-                 "const int n = n0 + c * (FP_BN / 4) + tx * 4;",
+                 "return jb.bias0[n] + (n < jb.nfold ? jb.bias1[n] : 0.0f);",
+                 "for (int e = 0; e < 4; ++e) bias[e] = n + e < N ? bias_of(n + e) : 0.0f;",
+                 "const int m = m0 + ft_row<AK>(ty, i);",
+                 "const int n = n0 + q * 32 + tx * 4;",
                  "make_float4(v[0] + bias[0], v[1] + bias[1], v[2] + bias[2], v[3] + bias[3]);",
                  # the simt kernel's bias, which the new one keeps
                  "return jb.bias0[n] + (n < jb.nfold ? jb.bias1[n] : 0.0f);",
+                 # both directions one launch, 112 or 128 rows by the waves,
+                 # b_hh's first nfold columns folded
+                 "const int RM = ft_rows(M, 2LL * ((G + FT_BM - 1) / FT_BM));",
+                 "return RM == 7 ? proj_launch<7>(maps, p, grid, s, x_tma, C % FT_KT != 0) "
+                 ": proj_launch<8>(maps, p, grid, s, x_tma, C % FT_KT != 0);",
+                 "if (!x_tma) return ft_launch<true, false, RM, 16, true, true>(maps, p, grid, s);",
+                 "return part ? ft_launch<true, false, RM, 16, false, true>(maps, p, grid, s) "
+                 ": ft_launch<true, false, RM, 16, false, false>(maps, p, grid, s);",
+                 "p.job[d] = FtJob{{0, 0, 0, 0, 0}, {0, 0, 0, d, d}, M, G, !x_tma, "
+                 "xg + (size_t)d * M * G, G, bih + d * G, bhh + d * G, nfold, nullptr};",
+
                  # every f32 projection runs it
                  "if constexpr (std::is_same<T, float>::value) return proj_f32_run("):
         assert line in src, line
 
 
+def ft_kt():
+    """FT_KT, the k of a ring slot of f32_tma_kernel, as the source sets it."""
+    return int(re.search(r"#define FT_KT (\d+)", _csrc("rnn_train_gemm.cuh")).group(1))
+
+
 @pytest.mark.parametrize("cin", [11, 21, 28, 52, 64])
 def test_f32_projection_chain_equals_the_simt_gemm_chain(cin):
-    """The new projection's sums (k tiles of 16, zeros past C) and
+    """The new projection's sums (k tiles of FT_KT, zeros past C) and
     gemm_simt_kernel's (k tiles of 8) are the same fmaf chain over k
     ascending from 0.0f, so xg keeps every bit at the models' widths (C =
     11, 21, 28, 52) and a width of whole tiles; both within a few float32
@@ -1065,7 +1084,7 @@ def test_f32_projection_chain_equals_the_simt_gemm_chain(cin):
     x = rng.randn(M, cin).astype(np.float32)
     w = (0.3 * rng.randn(cin, G)).astype(np.float32)
     b0, b1 = rng.randn(2, G).astype(np.float32)
-    new = proj_chain(x, w, b0, b1, 64, 16)
+    new = proj_chain(x, w, b0, b1, 64, ft_kt())
     old = proj_chain(x, w, b0, b1, 64, 8)
     assert np.array_equal(new.view(np.uint32), old.view(np.uint32))
     exact = (x.astype(np.float64) @ w.astype(np.float64) + b0
@@ -1118,7 +1137,7 @@ def test_f32_projection_model_matches_the_plain_version(cell):
         outs = []
         for d in (0, 1):
             xg = torch.from_numpy(proj_chain(flat, wih[d].numpy(), bih[d].numpy(),
-                                             bhh[d].numpy(), nfold, 16)).view(L, N, -1)
+                                             bhh[d].numpy(), nfold, ft_kt())).view(L, N, -1)
             # the recurrence adds only what the projection did not fold
             b_rest = bhh[d].clone()
             b_rest[:nfold] = 0.0

@@ -310,12 +310,12 @@ def test_k6_simt_staged_backward_equals_the_jax_layer(hidden):
 @pytest.mark.parametrize("cin,kernel,slices", [
     (512, "gemm_simt_kernel", 11), (11, "gemm_simt_kernel", 11),
     (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 11),
-    (512, "gemm_f32_kernel", 11), (11, "gemm_f32_kernel", 11)])
+    (512, "f32_tma_kernel", 11), (11, "f32_tma_kernel", 11)])
 def test_k6_wgrad_slices_at_four_gates(cin, kernel, slices):
     """1024 rows, H = 256, 132 SMs, G = 4H = 1024 columns: 2 x 8 x (C/128 + 2)
     tiles of 128 x 128 (96 at C = 512, 48 at C = 11); the slices that fill
     whole waves of blocks (2 an SM for either design's kernel, simt
-    gemm_f32_kernel on f32 and gemm_simt_kernel on bf16, tc wgemm_kernel), the fewest on a tie: 11 x 96
+    f32_tma_kernel on f32 and gemm_simt_kernel on bf16, tc wgemm_kernel), the fewest on a tie: 11 x 96
     tiles = 4 waves of 264 blocks."""
     assert wgrad_residency(kernel) == 2
     S = bigru_vjp.k5_wgrad_slices(21 * 1024, cin, 256, 132, 4)
@@ -329,7 +329,7 @@ def test_k6_wgrad_slices_at_four_gates(cin, kernel, slices):
 def test_f32_lstm_products_own_every_element_once(C, H):
     """K6's products at four gates, G = 4H columns: dx (L N, C) with its
     column tile by C, and the weight-gradient jobs dW_ih (C, G) and dW_hh
-    (H, G); every element one owner (gemm_f32_kernel's thread map)."""
+    (H, G); every element one owner (f32_tma_kernel's thread map)."""
     assert (gf_owners(21 * 13, C, True, True, gf_dx_tn(C)) == 1).all()
     for M in (C, H):
         assert (gf_owners(M, 4 * H, False, False, 16) == 1).all()

@@ -536,7 +536,7 @@ def wgrad_residency(kernel):
     with open(path) as f:
         src = " ".join(f.read().split())
     threads = {"gemm_simt_kernel": "GM_THREADS", "wgemm_kernel": "WG_THREADS",
-               "gemm_f32_kernel": "GF_THREADS"}[kernel]
+               "f32_tma_kernel": "FT_THREADS"}[kernel]
     bounds = "__launch_bounds__({}, ".format(threads)
     i = src.index(kernel + "(")
     j = src.rindex(bounds, 0, i)
@@ -546,11 +546,11 @@ def wgrad_residency(kernel):
 @pytest.mark.parametrize("cin,kernel,slices", [
     (512, "gemm_simt_kernel", 11), (11, "gemm_simt_kernel", 22),
     (512, "wgemm_kernel", 11), (11, "wgemm_kernel", 22),
-    (512, "gemm_f32_kernel", 11), (11, "gemm_f32_kernel", 22)])
+    (512, "f32_tma_kernel", 11), (11, "f32_tma_kernel", 22)])
 def test_k5_wgrad_slices_fill_whole_waves(cin, kernel, slices):
     """1024 rows, H = 256, 132 SMs: the slices whose tiles fill the last wave
     of blocks, 2 an SM for the weight-gradient kernel of either design (simt:
-    gemm_f32_kernel on f32, gemm_simt_kernel on bf16; tc: wgemm_kernel); e.g. 11 x 72 tiles = 3 full waves
+    f32_tma_kernel on f32, gemm_simt_kernel on bf16; tc: wgemm_kernel); e.g. 11 x 72 tiles = 3 full waves
     of 264 blocks, where 4 slices (288 blocks) would leave a second wave of
     24."""
     assert wgrad_residency(kernel) == bigru_vjp.WGRAD_CTAS_PER_SM == 2
@@ -1390,11 +1390,11 @@ def test_recurrence_probe_marks_each_apply_once(marks, parts):
 
 
 # ---- the simt design's fp32 products (csrc/rnn_train_gemm.cuh's
-# gemm_f32_kernel): which thread owns each element of the dx and weight-
+# f32_tma_kernel): which thread owns each element of the dx and weight-
 # gradient jobs, and the order of each sum against gemm_simt_kernel's
 
 def gf_thread_map(ak, bk, tn, rm=8):
-    """gemm_f32_kernel's thread map: thread t of 128, (tx, ty) = (t % 8,
+    """f32_tma_kernel's thread map: thread t of 128, (tx, ty) = (t % 8,
     t / 8), owns rows (rm,) and columns (tn,) of its CTA's 16 rm x 8 tn
     tile: rows ty + 16 i where A is K-major (ak), else 4 ty + i and 64 + 4
     ty + i - 4 (rm = 8); columns tx + 8 j where B is K-major (bk), else 32 (j
@@ -1485,8 +1485,8 @@ def simt_chain(a, b, bk):
 def simt_colsum(b, bk):
     """B's column sums as the kernels take them over one slice's rows b (K,
     N): gemm_simt_kernel (bk = 8) lets thread row r of a k tile of 8 add row
-    k0 + r into its partial; gemm_f32_kernel (bk = 16) adds row k0 + kk into
-    partial kk % 8; either way eight plain f32 partials from 0.0f, rows r
+    k0 + r into its partial; f32_tma_kernel (bk = FT_KT) adds row k0 + kk
+    into partial kk % 8; either way eight plain f32 partials from 0.0f, rows r
     (mod 8) ascending, then added for r = 0 .. 7 from 0.0f."""
     K, N = b.shape
     cs = np.zeros((8, N), np.float32)
@@ -1532,7 +1532,7 @@ def wgrad_slices(x, out, dxg, dhg, L, N, S, bk):
 
 
 def check_f32_products(L, N, C, H, S, ng, seed):
-    """The new kernel's sums (k tiles of 16) against gemm_simt_kernel's (k
+    """The new kernel's sums (k tiles of FT_KT) against gemm_simt_kernel's (k
     tiles of 8), bit for bit, for dx (two direction segments in one chain)
     and each weight- and bias-gradient slice partial; and their slice sums
     against the exact products, where H_prev's shift and zero rows show."""
@@ -1546,8 +1546,11 @@ def check_f32_products(L, N, C, H, S, ng, seed):
     # dx: segment 0's k then segment 1's, one accumulator
     a = np.concatenate([dxg[0].T, dxg[1].T])  # (2G, LN): A(m, k) read K-major
     b = np.concatenate([wih[0].T, wih[1].T])  # (2G, C): W_ih[d] read as (c, g)
-    assert np.array_equal(simt_chain(a, b, 16).view(np.uint32), simt_chain(a, b, 8).view(np.uint32))
-    new, old = (wgrad_slices(x, out, dxg, dhg, L, N, S, bk) for bk in (16, 8))
+    from tests.test_torch_kernel_layouts import ft_kt
+
+    assert np.array_equal(simt_chain(a, b, ft_kt()).view(np.uint32),
+                          simt_chain(a, b, 8).view(np.uint32))
+    new, old = (wgrad_slices(x, out, dxg, dhg, L, N, S, bk) for bk in (ft_kt(), 8))
     for pn, po in zip(new, old):
         assert pn.keys() == po.keys() == ({"w_ih", "w_hh", "b_ih"} | ({"b_hh"} if ng == 3 else set()))
         for k in pn:
@@ -1574,64 +1577,75 @@ def test_f32_products_sum_as_the_simt_gemm(L, N, C, H, S):
 
 
 def test_f32_products_follow_the_kernel_source():
-    """The models above are the kernels': gemm_f32_kernel's thread map, k
+    """The models above are the kernels': f32_tma_kernel's thread map, k
     tiles, FMA loops, slice rows, segments, column sums and epilogue, dx's
     tile by C and by its waves, the backward's f32 products routed to it;
     and gemm_simt_kernel's column sums, which the new kernel's equal."""
     path = os.path.join(os.path.dirname(bigru_vjp.__file__), "csrc", "rnn_train_gemm.cuh")
     with open(path) as f:
         src = " ".join(f.read().split())
-    for line in ("#define GF_BM 128", "#define GF_THREADS 128", "#define GF_BK 16",
-                 "#define GF_STAGES 4",
-                 "__global__ void __launch_bounds__(GF_THREADS, 2) gemm_f32_kernel(",
-                 "constexpr int BN = 8 * TN;",
-                 "const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;",
+    for line in ("#define FT_BM 128", "#define FT_THREADS 128",
+                 "__launch_bounds__(FT_THREADS, 2) f32_tma_kernel(",
+                 "static constexpr int BM = 16 * RM, BN = 8 * TN;",
+                 "const int tid = threadIdx.x, lane = tid & 31, tx = tid % 8, ty = tid / 8;",
                  "const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;",
-                 "constexpr int BN = 8 * TN, BM = 16 * RM;",
                  "if (AK) return ty + 16 * i; return i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;",
                  "const int ji = blockIdx.z / p.S, slice = blockIdx.z % p.S;",
                  "const int kb = slice * p.Ks, ke = min(p.K, kb + p.Ks);",
-                 "if (SEG2 && lkt == KT) { // dx: direction 1's segment",
-                 "a_jump = static_cast<const float*>(jb.a[1].p) - ga.base - (long long)KT * ga.kstep;",
-                 "const int k0 = kb + lkt * GF_BK;",
-                 "g.lo = max(kb, o.klo); g.hi = min(ke, o.khi);",
-                 "const bool ok = ((g.in >> j) & 1u) && k >= g.lo && k < g.hi;",
-                 "g.src = g.base + (kb + kk + o.koff) * o.ld + i0 + iq;",
-                 "g.src = g.base + (long long)(i0 + r) * o.ld + o.koff + kb + kq;",
-                 "const bool live = m0 + gf_row<AK>(tid / 32 * 4, 0) < M;",
-                 "for (int t = 0; t < NT; ++t) {",
-                 "as + gf_row<true>(ty, i) * GF_KST + kq",
-                 "bs + (tx + 8 * j) * GF_KST + kq",
+                 "const int KTS = ke > kb ? (ke - kb + KT - 1) / KT : 0;",
+                 "const int NT = KTS * p.nseg;",
+                 "const int s = q % ST, seg = q / KTS, k0 = kb + (q % KTS) * KT;",
+                 "const int z = seg ? o.z1 : o.z0;",
+                 "const bool live = m0 + ft_row<AK>(tid / 32 * 4, 0) < M;",
+                 "for (int q = 0; q < NT; ++q) {",
+                 "const float* ar = as + ty * KT;",
+                 "ar + 16 * KT * i + ((c ^ asw) << 2)",
+                 "bs + (tx + 8 * j) * KT + ((c ^ bsw) << 2)",
                  "for (int kk = 0; kk < 4; ++kk) #pragma unroll for (int i = 0; i < RM; ++i) "
                  "#pragma unroll for (int j = 0; j < TN; ++j) "
                  "acc[i][j] = fmaf(a[i][kk], b[j][kk], acc[i][j]);",
                  "bs + k * BN + q * 32 + tx * 4",
-                 "as + k * GF_BM + 64 * h + ty * 4",
-                 "for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(aa[k & 1][i], bb[k & 1][j], acc[i][j]);",
+                 "as + k * FT_BM + 64 * h + ty * 4",
+                 "const int k = 4 * c + kk; if (k + 1 < 4 * nc) load(k + 1, aa[(kk + 1) & 1], bb[(kk + 1) & 1]);",
+                 "const int nc = PART ? min(KT / 4, (ke - k0 + 3) / 4) : KT / 4;",
+                 "if (live) ft_tile<AK, BK, RM, TN, PART ? 0 : KT / 4>(as, bs, tx, ty, acc, nc);",
+                 "for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(aa[kk & 1][i], bb[kk & 1][j], acc[i][j]);",
                  "acc[i][j] = 0.0f;",
-                 "constexpr bool CS = !AK && !BK, SEG2 = AK && BK;",
+                 "constexpr bool CS = !AK && !BK;",
                  "const bool do_cs = CS && jb.colsum != nullptr && blockIdx.y == 0;",
-                 "for (int kk = 0; kk < GF_BK; ++kk) cs[kk % 8] += bs[kk * BN + tid];",
-                 "for (int r = 0; r < 8; ++r) s += cs[r];",
-                 "jb.colsum[so + n0 + tid] = s;",
+                 "for (int kk = 0; kk < KT; ++kk) cs[kk % 8] += bs[kk * BN + tid];",
+                 "for (int r = 0; r < 8; ++r) sum += cs[r];",
+                 "jb.colsum[so + n0 + tid] = sum;",
                  "const int n = n0 + tx + 8 * j;",
-                 "const int m = m0 + gf_row<true>(ty, i);",
                  "if (m < M) c[(size_t)m * jb.ldc + n] = acc[i][j] + bias;",
-                 "const int m = m0 + gf_row<AK>(ty, i);",
+                 "const int m = m0 + ft_row<AK>(ty, i);",
                  "const int n = n0 + q * 32 + tx * 4;",
                  "static int dx_cols(int C) { return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 128; }",
-                 "const long long slots = 2LL * sms, nt = (C + dx_cols(C) - 1) / dx_cols(C);",
-                 "const long long tiles = nt * ((M + 16 * rm - 1) / (16 * rm)); "
+                 "const long long slots = 2LL * sms;",
+                 "const long long tiles = col_tiles * ((M + 16 * rm - 1) / (16 * rm)); "
                  "return (tiles + slots - 1) / slots * rm;",
+                 "const int BN = dx_cols(C), RM = ft_rows(M, (C + BN - 1) / BN);",
+                 "if (FT_ROWS != 0) return FT_ROWS;",
+                 "#define FT_ROWS 0",
                  "return cost(7) < cost(8) ? 7 : 8;",
-                 "if (BN == 16) return gf_run<true, true, 2, 8>(gp, 1, M, C, s);",
-                 "if (BN == 32) return gf_run<true, true, 4, 7>(gp, 1, M, C, s);",
-                 "if (BN == 64) return gf_run<true, true, 8, 7>(gp, 1, M, C, s);",
-                 "return gf_run<true, true, 16, 7>(gp, 1, M, C, s);",
-                 "if constexpr (f32) return gf_run<false, false, 16>(gp, 4, C > H ? C : H, G, s);",
-                 "gp.Ks = slice_rows(LN, S, SLICE_K);",
-                 "hh.a[0] = op(static_cast<const T*>(out) + d * H, 2 * H, d == 0 ? -N : N, "
-                 "d == 0 ? N : 0, d == 0 ? LN : LN - N, H, false);",
+                 # dx: both directions two segments of one chain, z = the direction
+                 "p.job[0] = FtJob{{0, 0, 0, 0, 1}, {0, 0, 0, 0, 1}, M, C, 0, dx, C, nullptr, "
+                 "nullptr, 0, nullptr};",
+                 "p.nseg = 2;",
+                 "if (BN == 16) return ft_launch<true, true, 8, 2, false>(maps, p, grid, s);",
+                 "return x_tma ? ft_launch<false, false, 8, 16, false>(maps, p, grid, s) "
+                 ": ft_launch<false, false, 8, 16, true>(maps, p, grid, s);",
+                 "if (BN == 32) return ft_launch<true, true, 7, 4, false>(maps, p, grid, s);",
+                 "if (BN == 64) return ft_launch<true, true, 7, 8, false>(maps, p, grid, s);",
+                 "return ft_launch<true, true, 7, 16, false>(maps, p, grid, s);",
+                 "return dx_f32_run(dxg, static_cast<const float*>(wih), dx, M, C, G, s);",
+                 "return wgrad_f32_run(static_cast<const float*>(x), static_cast<const float*>(out), "
+                 "dxg, dhg, part, L, N, C, H, G, S, s);",
+                 "p.Ks = slice_rows(LN, S, SLICE_K);",
+                 "static_assert(SLICE_K % FT_KT == 0, \"k tiles end at slice ends\");",
+                 # h_prev: out's columns d H .., rows k - N (d = 0) or k + N
+                 "p.job[2 + d] = FtJob{{1, d * H, d == 0 ? -N : N, 0, 0}, {1, 0, 0, d, d}, H, G, 0,",
+                 "one ? nullptr : part + o_bhh + d * G};",
                  # gemm_simt_kernel's column sums (the bf16 simt shapes keep it)
                  "const int b_i = B_KC ? tid / 2 : (tid % 32) * 4, b_k = B_KC ? (tid % 2) * 4 : tid / 32;",
                  "for (int e = 0; e < 4; ++e) cs[e] += rb[e];",
