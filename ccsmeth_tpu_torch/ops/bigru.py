@@ -66,7 +66,9 @@ design):
   forward's recurrence (``rnn_train_rec.cuh``) with ``k45_plan``'s simt
   geometry;
 - ``rows`` (``csrc/birnn_rows.cu``), fp32 at H = 256 from ``ROWS_CROSSOVER``
-  rows up (both cells): simt's projection, then a recurrence in which one
+  rows up (both cells), and at 64 rows a CTA in ``ROWS_SMALL_WINDOW``
+  (``ROWS_SMALL_GEOMETRY``: one wave): simt's projection, then a
+  recurrence in which one
   CTA owns a block of R rows (``ROWS_GEOMETRY``) with every unit and gate,
   each step a local product streamed from W_hh in L2 through a TMA ring; no
   cluster, so the grid runs in whole waves. Its bits are simt's;
@@ -114,6 +116,11 @@ SIMT_PRODUCT_THREADS = 128  # the f32 recurrence's product threads; a CTA has tw
 # slab ROWS_KB k rows
 ROWS_CROSSOVER = 6144
 ROWS_GEOMETRY = {"gru": (128, 4), "lstm": (128, 3)}
+# and below the crossover, in this window of rows, the rows design's
+# 64-row geometry: 2 ceil(N / 64) <= 132 CTAs, one wave of one CTA an SM on
+# an H100, where simt needs 7 or 8 waves of its clusters (k1_rows_sweep)
+ROWS_SMALL_WINDOW = (3584, 4224)
+ROWS_SMALL_GEOMETRY = {"gru": (64, 2), "lstm": (64, 2)}
 ROWS_UNITS = 64
 ROWS_KB = 32
 _CELL_CODE = {"gru": 0, "lstm": 1}
@@ -389,6 +396,8 @@ def k1_plan(H: int, cell: str = "gru", compute_dtype=torch.bfloat16, rows=None,
                 "rows": simt["rows_fwd"], "smem": simt["smem_fwd"], "why": why}
     if H == 256 and rows is not None and rows >= ROWS_CROSSOVER:
         return dict(rows_geometry(H, cell), design="rows", why=why)
+    if H == 256 and rows is not None and ROWS_SMALL_WINDOW[0] <= rows <= ROWS_SMALL_WINDOW[1]:
+        return dict(rows_geometry(H, cell, ROWS_SMALL_GEOMETRY[cell]), design="rows", why=why)
     return dict(simt_geometry(H, cell), design="simt", why=why)
 
 

@@ -52,10 +52,14 @@
 //   of 8, U = 32) R = 72: 15 tiles a direction at 1,024 rows, 30 clusters,
 //   two full waves of the 15 clusters of 8 that the H100 holds at one CTA
 //   an SM (the one CTA's shared memory: W_hh's slice, h and the gate warps'
-//   sums, 185,888 bytes for the GRU, 223,264 for the LSTM). On the card
-//   (chip_smoke.py's K1 fp32 cells) a step runs at ~0.4 of the FMA rate:
-//   beside the product (5 loads and 54 / 72 FFMAs a k, one warp a
-//   scheduler) the gate math and the exchange's waits take their time.
+//   sums, 185,888 bytes for the GRU, 223,264 for the LSTM). On the card a
+//   step at 1,024 rows (chip_smoke.py --only k1_simt_probe) is ~65% the
+//   product, at ~0.7 of the FMA rate inside it (5 loads and 54 / 72 FFMAs
+//   a k, one warp a scheduler), ~15% the wait on `full` for the peers' h
+//   and ~14% the gate math: the recurrence runs at ~0.35 of its bound. A
+//   variant that streams W_hh through a TMA ring to fit 160-row tiles in
+//   one wave at 1,024 rows ran slower at every row count (its product's
+//   operand rate, its gate math in series, its copies' count).
 //
 // Numerics: exact f32 FMAs, no TF32, accurate expf and tanhf. Every
 //   recurrent sum is taken by one thread over k ascending from 0.0f, and the

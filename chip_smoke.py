@@ -226,6 +226,10 @@ ROWS = (1024, 16384)  # 2B for batch 512 (the CLI default) and batch 8192
 E2E_ROWS_BATCH = 8192  # call_mods --batch_size of the rows design's e2e runs
 REPS = 11
 AB_REPS = 31  # --ab turns: more timings a median, for ratios near 1
+# K1 fp32's row counts in --ab beside the default batch's: the 72-row
+# tiles' last count in one wave and the first in two, a ragged default
+# batch, and about ROWS_SMALL_WINDOW's ends and ROWS_CROSSOVER
+AB_CROSSOVER_ROWS = (504, 505, 1031, 3583, 3584, 4096, 4224, 4225, 6143, 6144)
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the simt design of K1 and K2 projects with K4's kernel (f32_tma_kernel,
 # launched through bigru_train.cu's k4_proj_launch)
@@ -1407,50 +1411,73 @@ def _simt_report(torch, cell, plan, ly):
 
 # the fp32 recurrence's candidate geometries at H = 256 (U, R), each
 # instantiated in csrc/birnn_simt.cu; the first of a cell is its
-# SIMT_GEOMETRY: 9 rows a thread (72 a tile, 2 waves at 1,024 rows); the
-# GRU's 10 (80: 2 waves at 1,024, 28 at 16,384 rows against 31), the
-# LSTM's 8 (64: 3 waves at 1,024; its CTA of 80 rows does not fit)
+# SIMT_GEOMETRY: 9 rows a thread (72 a tile, one wave of 15 clusters up to
+# 504 rows, two at 1,024); the GRU's 10 (80), the LSTM's 8 (64; its CTA of
+# 80 rows does not fit); the row counts at which they are timed against
+# each other (2B, batch 192 .. 512, and 8,192; 504 and 505 the 72-row
+# tiles' last row count in one wave and the first in two)
 SIMT_SWEEP = {"gru": [(32, 72), (32, 80)],
               "lstm": [(32, 72), (32, 64)]}
+SIMT_SWEEP_ROWS = (384, 448, 504, 505, 576, 640, 768, 1024, 16384)
+SIMT_SWEEP_ROUNDS = 3
 
 
 def phase_k1_simt_sweep(torch, smi):
     """K1's fp32 simt design at every candidate geometry (``SIMT_SWEEP``),
-    the models' 3 x 256 stack at 1,024 and 16,384 rows: out and h_n against
-    a chain of the training forwards (bit-equal), ``_simt_report`` and K1's
-    time at both row counts."""
+    the models' 3 x 256 stack (C = 11): out and h_n against a chain of the
+    training forwards (bit-equal) at 1,024, 1,031 and 16,384 rows,
+    ``_simt_report`` of each geometry, and K1's time at each row count of
+    ``SIMT_SWEEP_ROWS`` in ``SIMT_SWEEP_ROUNDS`` alternating rounds (the
+    order reversed every other round), cuDNN's ``nn.GRU`` / ``nn.LSTM``
+    beside."""
     import numpy as np
 
     from ccsmeth_tpu_torch.ops import bigru
 
     dt = torch.float32
     for cell, geoms in SIMT_SWEEP.items():
-        _np, ly = _layers(torch, dt, "cuda", cell)
+        layers_np, ly = _layers(torch, dt, "cuda", cell)
+        lib = _cudnn(torch, cell, C, NL, layers_np, dt)
         xs = {rows: torch.from_numpy(np.random.RandomState(SEED + rows).randn(
-            L, rows, C).astype(np.float32)).cuda() for rows in ROWS}
+            L, rows, C).astype(np.float32)).cuda() for rows in (1024, 1031, ROWS[1])}
         refs = {rows: _chain_fwd(torch, ly, x, cell) for rows, x in xs.items()}
-        for geometry in geoms:
-            plan = dict(bigru.simt_geometry(H, cell, geometry), design="simt")
-            equal = {}
+        variants = {str(g): dict(bigru.simt_geometry(H, cell, g), design="simt") for g in geoms}
+        reports, equal = {}, {}
+        for key, plan in variants.items():
             for rows, x in xs.items():
                 out, hn = bigru._stack_layers(ly, x, dt, cell, H, plan)
                 torch.cuda.synchronize()
-                equal[str(rows)] = bool(torch.equal(out, refs[rows][0])
-                                        and torch.equal(hn, refs[rows][1]))
-            rep = _simt_report(torch, cell, plan, ly)
+                equal["{} {}".format(key, rows)] = bool(torch.equal(out, refs[rows][0])
+                                                        and torch.equal(hn, refs[rows][1]))
+                del out, hn
+            reports[key] = _simt_report(torch, cell, plan, ly)
+        del xs, refs
+        ms, library = {}, {}
+        for rows in SIMT_SWEEP_ROWS:
+            x = torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+                L, rows, C).astype(np.float32)).cuda()
+            got = {key: [] for key in variants}
             with torch.inference_mode():
-                k1_ms = {str(rows): time_ms(
-                    lambda: bigru._stack_layers(ly, x, dt, cell, H, plan), torch)
-                    for rows, x in xs.items()}
-            emit(dict(rep, phase="k1_simt_sweep", cell=cell, bit_equal_to_chain=equal,
-                      k1_ms=k1_ms, card=smi))
+                for rnd in range(SIMT_SWEEP_ROUNDS):
+                    order = list(variants) if rnd % 2 == 0 else list(reversed(variants))
+                    for key in order:
+                        plan = variants[key]
+                        got[key].append(time_ms(
+                            lambda: bigru._stack_layers(ly, x, dt, cell, H, plan), torch, 7))
+                library[str(rows)] = time_ms(lambda: lib(x), torch)
+            ms[str(rows)] = {key: statistics.median(v) for key, v in got.items()}
+            del x
+        emit({"phase": "k1_simt_sweep", "cell": cell, "geometries": reports, "ms": ms,
+              "library_ms": library, "rounds": SIMT_SWEEP_ROUNDS,
+              "bit_equal_to_chain": equal, "card": smi})
+        assert all(equal.values()), equal
 
 
 # the row counts of K1's fp32 design sweep (2B: batch 512 .. 8,192), and the
 # rows design's candidate geometries (R, ring slots), each instantiated in
 # csrc/birnn_rows.cu (ROWS_GEOMETRIES); the first of a cell is its
 # ROWS_GEOMETRY
-ROWS_SWEEP_ROWS = (1024, 2048, 3072, 4096, 5120, 6144, 8192, 16384)
+ROWS_SWEEP_ROWS = (1024, 2048, 3072, 3584, 4096, 4224, 5120, 6144, 8192, 16384)
 ROWS_SWEEP = {"gru": [(128, 4), (128, 3), (64, 2)],
               "lstm": [(128, 3), (128, 2), (64, 2)]}
 ROWS_SWEEP_ROUNDS = 3
@@ -1465,7 +1492,9 @@ def phase_k1_rows_sweep(torch, smi):
     ``nn.GRU`` / ``nn.LSTM`` and the bound at each row count, the rows
     design's geometry (registers, CTAs an SM) and the crossover, the
     smallest row count from which the rows design at ``ROWS_GEOMETRY`` is
-    faster than simt at every count swept, which ``ROWS_CROSSOVER`` holds."""
+    faster than simt at every count swept, which ``ROWS_CROSSOVER`` holds;
+    and at each count swept in ``ROWS_SMALL_WINDOW``, whether the rows
+    design at ``ROWS_SMALL_GEOMETRY`` is faster than simt there."""
     import numpy as np
 
     from ccsmeth_tpu_torch.ops import bigru
@@ -1511,11 +1540,16 @@ def phase_k1_rows_sweep(torch, smi):
         faster = [int(r) for r, m in ms.items() if m[shipped] < m["simt"]]
         crossover = next((r for r in ROWS_SWEEP_ROWS
                           if all(q in faster for q in ROWS_SWEEP_ROWS if q >= r)), None)
+        small = "rows R={} stages={}".format(*bigru.ROWS_SMALL_GEOMETRY[cell])
+        lo, hi = bigru.ROWS_SMALL_WINDOW
+        window = {str(r): ms[str(r)][small] < ms[str(r)]["simt"]
+                  for r in ROWS_SWEEP_ROWS if lo <= r <= hi}
         emit({"phase": "k1_rows_sweep", "cell": cell, "ms": ms, "library_ms": library,
               "bound_ms": bound, "geometries": geos,
               "shipped": shipped, "bit_equal_to_simt": all(equal.values()),
               "rounds": ROWS_SWEEP_ROUNDS,
               "crossover_measured": crossover, "crossover_in_use": bigru.ROWS_CROSSOVER,
+              "small_window": bigru.ROWS_SMALL_WINDOW, "small_faster_than_simt": window,
               "card": smi})
         assert all(equal.values()), equal
 
@@ -1559,6 +1593,29 @@ K1_ROWS_PROBE_MARKS = [
 ]
 
 
+def _probe_build(src_name, marks, tag):
+    """A copy of csrc/<src_name> with ``marks`` applied (each old text
+    present once), built with the port's nvcc flags into build/chip_smoke/
+    as <tag>.so; returns the loaded library."""
+    import ctypes
+
+    from ccsmeth_tpu_torch.ops import nvcc
+
+    src = open(os.path.join(nvcc.CSRC, src_name)).read()
+    for old, new in marks:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    os.makedirs(WORK, exist_ok=True)
+    path = os.path.join(WORK, tag + ".cu")
+    with open(path, "w") as f:
+        f.write(src)
+    so = path[:-3] + ".so"
+    proc = subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-I", nvcc.CSRC, "-o", so, path],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return ctypes.CDLL(so)
+
+
 def phase_k1_rows_probe(torch, smi):
     """K1's rows design split into its parts (``K1_ROWS_PROBE_MARKS``): one
     layer's recurrence at 16,384 rows (C = 512's projection), both cells, at
@@ -1572,21 +1629,9 @@ def phase_k1_rows_probe(torch, smi):
     import numpy as np
 
     from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights, n_gates
-    from ccsmeth_tpu_torch.ops import bigru, nvcc
+    from ccsmeth_tpu_torch.ops import bigru
 
-    src = open(os.path.join(nvcc.CSRC, bigru.ROWS_SRC)).read()
-    for old, new in K1_ROWS_PROBE_MARKS:
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    os.makedirs(WORK, exist_ok=True)
-    path = os.path.join(WORK, "birnn_rows_probe.cu")
-    with open(path, "w") as f:
-        f.write(src)
-    so = path[:-3] + ".so"
-    proc = subprocess.run([nvcc._nvcc()] + nvcc.NVCC_FLAGS + ["-I", nvcc.CSRC, "-o", so, path],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    lib = ctypes.CDLL(so)
+    lib = _probe_build(bigru.ROWS_SRC, K1_ROWS_PROBE_MARKS, "birnn_rows_probe")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.birnn_rows_rec_launch.restype = i
     lib.birnn_rows_rec_launch.argtypes = [i] + [p] * 5 + [i] * 5 + [p, i]
@@ -1627,6 +1672,160 @@ def phase_k1_rows_probe(torch, smi):
               "stages": plan["stages"], "probed_ms": probed_ms, "shipped_ms": shipped_ms,
               "step_kcycles_by_part_and_warp": warps,
               "step_fma_kcycles_at_peak": fmas / 128 / 1e3, "card": smi})
+        del x, xg, out, hn, ref
+
+
+# clock64 marks for a copy of csrc/birnn_simt.cu (never in the shipped
+# source) that split a step of birnn_rec_kernel into its parts
+# (K1_SIMT_PROBE_PARTS), summed over the L steps by lane 0 of each warp of
+# every CTA: the wait on `full` (product warps), the product (with the
+# `pre` writes), the first block barrier (for the gate warps the whole
+# product: they wait there), the gate math (with the `empty` arrivals, the
+# `pre` reads and the out stores), the issue of the next step's xg loads,
+# the h block write and its barrier, and thread 0's wait on `empty` with the
+# bulk copies' issue (warp 0); each CTA's start and end on %globaltimer,
+# from which the phase tells the first wave of clusters from the second
+K1_SIMT_PROBE_PARTS = ("full_wait", "product", "barrier_after_product", "gate_math",
+                       "xg_loads", "h_write_and_barrier", "empty_wait_and_copies")
+K1_SIMT_PROBE_MARKS = [
+    ("  const bool prod = tid < K1_PW;  // a product thread (else a gate thread)\n",
+     "  const bool prod = tid < K1_PW;  // a product thread (else a gate thread)\n"
+     "  long long pr_t[7] = {0, 0, 0, 0, 0, 0, 0};\n"
+     "  unsigned long long pr_g0;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(pr_g0));\n"
+     "  long long pr_m = clock64();\n"),
+    ("      if (cn > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);\n",
+     "      if (cn > 1 && s > 0) mbar_wait(full_bar, (s - 1) & 1);\n"
+     "      { const long long n = clock64(); pr_t[0] += n - pr_m; pr_m = n; }\n"),
+    ("          sum[i][gate] = acc[i][gate][0];\n        }\n    }\n",
+     "          sum[i][gate] = acc[i][gate][0];\n        }\n"
+     "      { const long long n = clock64(); pr_t[1] += n - pr_m; pr_m = n; }\n    }\n"),
+    ("    __syncthreads();  // every thread has read h(s) (the peers may send h(s + 1)); `pre` is whole\n",
+     "    __syncthreads();  // every thread has read h(s) (the peers may send h(s + 1)); `pre` is whole\n"
+     "    { const long long n = clock64(); pr_t[2] += n - pr_m; pr_m = n; }\n"),
+    ("    if (last) break;\n    load_x(d == 0 ? s + 1 : L - 2 - s);\n",
+     "    { const long long n = clock64(); pr_t[3] += n - pr_m; pr_m = n; }\n"
+     "    if (last) break;\n    load_x(d == 0 ? s + 1 : L - 2 - s);\n"
+     "    { const long long n = clock64(); pr_t[4] += n - pr_m; pr_m = n; }\n"),
+    ("    __syncthreads();  // the block is whole\n",
+     "    __syncthreads();  // the block is whole\n"
+     "    { const long long n = clock64(); pr_t[5] += n - pr_m; pr_m = n; }\n"),
+    ("      asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: \"memory\");\n    }\n  }\n",
+     "      asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: \"memory\");\n    }\n"
+     "    { const long long n = clock64(); pr_t[6] += n - pr_m; pr_m = n; }\n  }\n"),
+    ("  cluster_sync_all();  // no CTA leaves while another may still reach its shared memory\n}\n",
+     "  cluster_sync_all();  // no CTA leaves while another may still reach its shared memory\n"
+     "  if ((tid & 31) == 0 && blockIdx.x < 256)\n"
+     "    for (int q = 0; q < 7; ++q) g_probe[blockIdx.y][blockIdx.x][tid >> 5][q] = pr_t[q];\n"
+     "  if (tid == 0 && blockIdx.x < 256) {\n"
+     "    unsigned long long g1;\n"
+     "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(g1));\n"
+     "    g_time[blockIdx.y][blockIdx.x][0] = (long long)pr_g0;\n"
+     "    g_time[blockIdx.y][blockIdx.x][1] = (long long)g1;\n"
+     "    g_time[blockIdx.y][blockIdx.x][2] = (long long)__mysmid();\n"
+     "  }\n}\n"),
+    ("template <bool LSTM, int U, int RT>\n__global__",
+     "__device__ long long g_probe[2][256][8][7];\n__device__ long long g_time[2][256][3];\n"
+     "__device__ __forceinline__ unsigned __mysmid() {\n"
+     "  unsigned r;\n  asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(r));\n  return r;\n}\n"
+     "template <bool LSTM, int U, int RT>\n__global__"),
+    ("}  // extern \"C\"\n",
+     "int simt_probe_read(long long* parts, long long* times) {\n"
+     "  cudaError_t e = cudaMemcpyFromSymbol(parts, g_probe, sizeof(g_probe));\n"
+     "  if (e != cudaSuccess) return (int)e;\n"
+     "  return (int)cudaMemcpyFromSymbol(times, g_time, sizeof(g_time));\n}\n\n"
+     "}  // extern \"C\"\n"),
+]
+
+
+def _probe_waves(times, n_ctas):
+    """The CTAs' waves from their start times (ns, [d][cta]): sorted, the
+    starts split at the largest gap; {cta key: 0 or 1}."""
+    starts = sorted((int(times[d][c][0]), (d, c)) for d in range(2) for c in range(n_ctas))
+    gaps = [starts[i + 1][0] - starts[i][0] for i in range(len(starts) - 1)]
+    cut = max(range(len(gaps)), key=gaps.__getitem__) + 1 if gaps else len(starts)
+    # one wave only: the largest gap is no gap
+    if gaps and gaps[cut - 1] < 10 * (sorted(gaps)[len(gaps) // 2] + 1000):
+        cut = len(starts)
+    return {key: (0 if i < cut else 1) for i, (_t, key) in enumerate(starts)}
+
+
+def phase_k1_simt_probe(torch, smi):
+    """K1's fp32 simt recurrence (``birnn_rec_kernel`` at ``SIMT_GEOMETRY``)
+    split into its parts by ``K1_SIMT_PROBE_MARKS``: one layer's recurrence
+    at 1,024 rows (C = 512's projection), both cells; for the first wave of
+    clusters and the second, the median over their CTAs of each warp's k
+    cycles a step in each part, the product's FMA rate inside its part (the
+    CTA's R U NG H FMAs a step over 128 a clock), the step a wave in us
+    (the wave's span on %globaltimer over L), beside the recurrence's
+    CUDA-event time, the shipped build's, and the SM clock during a run
+    (``_sm_clock_mhz_while``); the probed build's out equal to the shipped
+    one's."""
+    import ctypes
+
+    import numpy as np
+
+    from ccsmeth_tpu_torch.models.rnn import init_rnn_params, layer_weights, n_gates
+    from ccsmeth_tpu_torch.ops import bigru
+
+    lib = _probe_build(bigru.SIMT_SRC, K1_SIMT_PROBE_MARKS, "birnn_simt_probe")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.birnn_simt_rec_launch.restype = i
+    lib.birnn_simt_rec_launch.argtypes = [i, i] + [p] * 5 + [i] * 5 + [p, i]
+    lib.simt_probe_read.restype = i
+    rows, f32 = ROWS[0], torch.float32
+    for cell in MODELS:
+        G = n_gates(cell) * H
+        plan = dict(bigru.simt_geometry(H, cell, bigru.SIMT_GEOMETRY[cell]), design="simt")
+        rng = np.random.RandomState(SEED)
+        wih, bih, whh, bhh = layer_weights(init_rnn_params(rng, 2 * H, H, 1, cell)[0], f32, "cuda")
+        x = torch.from_numpy(rng.randn(L * rows, 2 * H).astype(np.float32)).cuda()
+        xg = bigru.simt_projection(x, wih, bih, bhh, cell)
+        out = torch.empty((L, rows, 2 * H), device="cuda")
+        hn = torch.empty((2, rows, H), device="cuda")
+
+        def probed():
+            rc = lib.birnn_simt_rec_launch(
+                0 if cell == "gru" else 1, 0, xg.data_ptr(), whh.data_ptr(), bhh.data_ptr(),
+                out.data_ptr(), hn.data_ptr(), L, rows, H, plan["U"], plan["rows"],
+                torch.cuda.current_stream().cuda_stream, 0)
+            assert rc == 0, rc
+
+        ref = bigru.simt_recurrence(xg, whh, bhh, L, rows, plan, cell)[0]
+        probed()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        probed_ms = time_ms(probed, torch)
+        shipped_ms = time_ms(lambda: bigru.simt_recurrence(xg, whh, bhh, L, rows, plan, cell,
+                                                           ref), torch)
+        mhz = _sm_clock_mhz_while(probed, torch, 1500)
+        probed()  # the parts of one run alone
+        torch.cuda.synchronize()
+        parts = (ctypes.c_longlong * (2 * 256 * 8 * 7))()
+        times = (ctypes.c_longlong * (2 * 256 * 3))()
+        assert lib.simt_probe_read(parts, times) == 0
+        parts = np.array(parts[:]).reshape(2, 256, 8, 7)
+        times = np.array(times[:]).reshape(2, 256, 3)
+        n_ctas = plan["CN"] * -(-rows // plan["rows"])
+        wave = _probe_waves(times, n_ctas)
+        fmas = plan["rows"] * plan["U"] * G  # a CTA's product a step
+        waves = []
+        for w in sorted(set(wave.values())):
+            keys = [k for k, v in wave.items() if v == w]
+            per = np.stack([parts[d, c] for d, c in keys]) / L / 1e3  # k cycles a step
+            med = np.median(per, axis=0)  # (warp, part)
+            span = (max(times[d, c, 1] for d, c in keys)
+                    - min(times[d, c, 0] for d, c in keys))
+            waves.append({
+                "wave": w, "ctas": len(keys), "step_us_from_span": span / 1e3 / L,
+                "warps": [dict({k: float(v) for k, v in zip(K1_SIMT_PROBE_PARTS, row)},
+                               step_kcycles=float(row.sum())) for row in med],
+                "fma_rate_in_product": float(fmas / 128 / 1e3 / np.median(per[:, :4, 1])),
+                "sms": len({int(times[d, c, 2]) for d, c in keys})})
+        emit({"phase": "k1_simt_probe", "cell": cell, "rows": rows, "U": plan["U"],
+              "R": plan["rows"], "CN": plan["CN"], "probed_ms": probed_ms,
+              "shipped_ms": shipped_ms, "sm_clock_mhz": mhz,
+              "step_fma_kcycles_at_peak": fmas / 128 / 1e3, "waves": waves, "card": smi})
         del x, xg, out, hn, ref
 
 
@@ -5499,7 +5698,8 @@ def phase_wrappers():
 
 def _time_tree(tree):
     """One turn of ``--ab``: K1 and K2 (both cells) and K3 of the checkout at
-    ``tree`` at the kernel phase's shapes and inputs, and K4, K5 and K6
+    ``tree`` at the kernel phase's shapes and inputs (K1 fp32 also at the
+    2s2 widths and at ``AB_CROSSOVER_ROWS``), and K4, K5 and K6
     (forward and backward) at the train-kernel phase's (1024 rows, C = 11
     and 512, and 28 in fp32), fp32 and bf16, and K4's to K6's fp32
     forwards and backwards at 512 rows (C = 11, 28, 512) and at the
@@ -5531,6 +5731,16 @@ def _time_tree(tree):
                     x = torch.from_numpy(x_np).to("cuda", dt).contiguous()
                     res["ms"]["k1 {} {} {}".format(cell, rows, dname)] = time_ms(
                         lambda: bigru.birnn_stack(ly, x, dt, cell), torch, AB_REPS)
+            # K1 fp32 at the 2s2 widths (C = 28 and 52, 1,024 rows) and about
+            # the fp32 rules' crossovers (AB_CROSSOVER_ROWS, C = 11)
+            for cin, rows in ([(c, ROWS[0]) for c in (C2S2, C2S2_WIDE)]
+                              + [(C, r) for r in AB_CROSSOVER_ROWS]):
+                x = torch.from_numpy(np.random.RandomState(SEED + rows).randn(
+                    L, rows, cin).astype(np.float32)).cuda()
+                ly = [layer_weights(ld, torch.float32, "cuda") for ld in
+                      init_rnn_params(np.random.RandomState(SEED), cin, H, NL, cell)]
+                res["ms"]["k1 {} {} C={} float32".format(cell, rows, cin)] = time_ms(
+                    lambda: bigru.birnn_stack(ly, x, torch.float32, cell), torch, AB_REPS)
             # K1 fp32 at call_freqb's aggregate shape (NL 1, H 32, L 11, C 21)
             x = torch.from_numpy(np.random.RandomState(SEED).randn(
                 AGGR_L, ROWS[0], AGGR_C).astype(np.float32)).cuda()
@@ -5648,7 +5858,9 @@ def _time_tree(tree):
 
 def main_ab(parent):
     """Parent, change, change, parent: one process a turn (``_time_tree``);
-    the last line holds each shape's two medians per tree and their ratio."""
+    the last line holds each shape's two medians per tree, their ratio and
+    the parent's own spread (its larger turn over its smaller: a ratio
+    within it is noise)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5668,7 +5880,8 @@ def main_ab(parent):
         parent_ms, change_ms = [turns[0][key], turns[3][key]], [turns[1][key], turns[2][key]]
         summary[key] = {"parent_ms": parent_ms, "change_ms": change_ms,
                         "change_over_parent": statistics.mean(change_ms)
-                        / statistics.mean(parent_ms)}
+                        / statistics.mean(parent_ms),
+                        "parent_spread": max(parent_ms) / min(parent_ms)}
     emit({"phase": "ab", "order": "parent, change, change, parent",
           "parent": os.path.abspath(parent), "card": smi, "ms": summary})
 
@@ -5863,6 +6076,7 @@ def main_only(names):
         "k1_simt_sweep": lambda: phase_k1_simt_sweep(torch, smi),
         "k1_rows_sweep": lambda: phase_k1_rows_sweep(torch, smi),
         "k1_rows_probe": lambda: phase_k1_rows_probe(torch, smi),
+        "k1_simt_probe": lambda: phase_k1_simt_probe(torch, smi),
         "k1_tc_sweep": lambda: phase_k1_tc_sweep(torch, smi),
         "k1_tc_probe": lambda: phase_k1_tc_probe(torch, smi),
         "k3_kernels": lambda: phase_k3_kernels(torch, smi),

@@ -728,6 +728,50 @@ def test_simt_waves_at_the_main_path_rows():
         assert {rows: -(-n // 15) for rows, n in clusters.items()} == {1024: 2, 16384: 31}
 
 
+def simt_tile_walk(rows, plan):
+    """The grid of a call as birnn_simt_rec_launch makes it, (CN tiles, 2)
+    CTAs in clusters of CN along x: CTA (bx, d) is rank bx % CN of the
+    cluster of tile bx / CN, direction d. Returns {(d, tile): [rank, ...]}
+    and the count of the (row, direction, unit) micro-tile entries over the
+    call's (N, 2, H), each with every gate."""
+    cn, R, H = plan["CN"], plan["rows"], plan["CN"] * plan["U"]
+    tiles = -(-rows // R)
+    prows, punits = simt_product_tiles(plan, cn)  # (CN, 128, RT), (CN, 128, 2)
+    count = np.zeros((rows, 2, H), np.int64)
+    clusters = {}
+    for d in range(2):
+        for bx in range(cn * tiles):
+            tile, rank = bx // cn, bx % cn
+            clusters.setdefault((d, tile), []).append(rank)
+            r = tile * R + prows[rank][:, :, None]  # (128, RT, 1)
+            u = np.broadcast_to(punits[rank][:, None, :], (prows.shape[1], prows.shape[2], 2))
+            r = np.broadcast_to(r, u.shape)
+            live = r < rows
+            np.add.at(count, (r[live], d, u[live]), 1)
+    return clusters, count
+
+
+@pytest.mark.parametrize("rows", [504, 505, 1000, 1024, 1031, 6143])
+def test_simt_tile_walk_covers_every_row_and_direction_in_the_claimed_waves(rows):
+    """At H = 256 and each row count below the rows crossover, the grid's
+    clusters of 8 cover every (row, direction, unit) of the call once (each
+    with every gate: a product thread's micro-tile holds them all), past no
+    row N; the clusters number 2 ceil(N / 72): one wave of the 15 the card
+    holds up to 504 rows, two at the default batch's 1,024 (30 clusters),
+    ceil(clusters / 15) beyond."""
+    plan = bigru.k1_plan(256, "gru", torch.float32, rows)
+    assert (plan["design"], plan["rows"], plan["CN"]) == ("simt", 72, 8)
+    clusters, count = simt_tile_walk(rows, plan)
+    assert (count == 1).all()
+    assert all(sorted(ranks) == list(range(8)) for ranks in clusters.values())
+    n = len(clusters)
+    assert n == 2 * -(-rows // 72)
+    waves = -(-n // 15)
+    assert (waves == 1) == (rows <= 504)
+    if rows == 1024:
+        assert (n, waves) == (30, 2)
+
+
 def simt_model(layers, x, cell, plan):
     """K1's fp32 simt design on the CPU, structured as the kernel: per layer
     and direction, tiles of R rows; each CTA of the cluster keeps the tile's
@@ -786,11 +830,11 @@ def simt_model(layers, x, cell, plan):
 
 
 @pytest.mark.parametrize("cell", ["gru", "lstm"])
-@pytest.mark.parametrize("hidden,rows", [(16, 13), (32, 70), (64, 5)])
+@pytest.mark.parametrize("hidden,rows", [(16, 13), (32, 70), (64, 5), (256, 21)])
 def test_simt_model_is_bit_equal_to_the_plain_version(hidden, rows, cell):
     """In fp32 on the CPU the model of the kernel's ownership and exchange,
-    over ragged row tiles and clusters of 1 and 2 CTAs, gives the plain
-    version's out and h_n bit for bit."""
+    over ragged row tiles and clusters of 1, 2 and 8 CTAs (H = 256: the
+    72-row tiles), gives the plain version's out and h_n bit for bit."""
     rng = np.random.RandomState(hidden + rows)
     layers = [layer_weights(ld) for ld in init_rnn_params(rng, 11, hidden, 2, cell)]
     x = torch.from_numpy(rng.randn(7, rows, 11).astype(np.float32))
@@ -1249,3 +1293,24 @@ def test_cpu_encoder_launches_nothing(dtype):
     got = transenc.encoder_pooled(st, x, dt, nhead=4)
     assert _counts() == before and transenc.plain_calls == plain + 1
     assert got.shape == (3, D) and bool(torch.isfinite(got).all())
+
+
+def test_simt_probe_marks_apply_once():
+    """chip_smoke.py's k1_simt_probe builds a copy of csrc/birnn_simt.cu
+    with clock64 marks put in by text replacement: each anchor of
+    ``K1_SIMT_PROBE_MARKS`` is in the shipped source exactly once (and in
+    the source as marked so far), and every part of a step is marked."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_k1_marks", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    with open(os.path.join(os.path.dirname(bigru.__file__), "csrc", bigru.SIMT_SRC)) as f:
+        src = f.read()
+    for old, new in smoke.K1_SIMT_PROBE_MARKS:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    marked = "".join(new for _old, new in smoke.K1_SIMT_PROBE_MARKS)
+    assert all("pr_t[{}]".format(k) in marked for k in range(len(smoke.K1_SIMT_PROBE_PARTS)))

@@ -563,7 +563,67 @@ K1_WAVE_DIGESTS = {
 def test_k1_simt_outputs_bit_equal_at_several_waves(case):
     _need_card()
     assert bigru.k1_plan(case[1], case[0], torch.float32)["design"] == "simt"
+    assert k1_digest(*case, design="simt") == K1_WAVE_DIGESTS[case]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_WAVE_DIGESTS))
+def test_k1_rows_small_window_keeps_the_wave_digests(case):
+    """At 4,096 rows, in ``ROWS_SMALL_WINDOW``, the rule picks the rows
+    design's 64-row geometry; K1's and K2's outputs there equal the
+    digests taken on the simt design."""
+    _need_card()
+    cell, hidden, rows = case[:3]
+    plan = bigru.k1_plan(hidden, cell, torch.float32, rows)
+    assert (plan["design"], plan["rows"]) == ("rows", 64)
     assert k1_digest(*case) == K1_WAVE_DIGESTS[case]
+
+
+# sha256 of ``k1_digest(*case)`` at the default batch's 1,024 rows, at
+# ragged 1,000 and 1,031, at 504 and 506 (the 72-row tiles' last row count
+# in one wave, and past it), and one row either side of ``ROWS_CROSSOVER``,
+# 3 layers at C = 11 (and K2's one layer at C = 512 at the default batch's
+# rows), taken on an H100 from ``birnn_rec_kernel`` and the rows design:
+# the bits that any redesign of the default batch's recurrence keeps.
+K1_DEFAULT_BATCH_DIGESTS = {
+    ('gru', 256, 1000, 3, 11): "f507454f91356b10ed96180b1cbcd00489b8d439b0d27dace836dee367fef5c2",
+    ('gru', 256, 1000, 1, 512): "580552feb9abc8dc74d862ce3a775c34b8dc770a2e669cecd871def5a3570e7c",
+    ('gru', 256, 1024, 3, 11): "e3fd81c5c63a8aaaa7d4d56edd994a8d871e8f183dbabf03a64c981fb74f0c06",
+    ('gru', 256, 1024, 1, 512): "a7123ae0fdc766fbc618f09e256a53d7bb3ef07c12d2a2168257cfd0b90c5690",
+    ('gru', 256, 1031, 3, 11): "d482f3887facad41ea3b1445285c6e99fa844ad0aa88360b0094e55fde30a7e3",
+    ('gru', 256, 1031, 1, 512): "fd5271afddd0da2cdc358a8e74d7e85b6f4f75910942d1d798f3f17faf8f921a",
+    ('gru', 256, 504, 3, 11): "1f29aad7458e6cf097877893239687b6df9f8efddbbb11f1947c59fec6aa1145",
+    ('gru', 256, 506, 3, 11): "1fd0a77b481275f33c0fa399412af0737bbfb75bfded5db2fc0d29adfb1d4c82",
+    ('gru', 256, 6143, 3, 11): "5596c6189e52a27d986538254cb485d4dc35b967052599887446e1e59fd0f3c7",
+    ('gru', 256, 6145, 3, 11): "7c4dcb22d006185d6dde817df4e1971210153e6afb845f893427d7031f5026ec",
+    ('lstm', 256, 1000, 3, 11): "c499fb6345daa94a63933b266e230dbba9fe59b4e4971df9e6f31d370c5ed057",
+    ('lstm', 256, 1000, 1, 512): "1ddac84be0afc7b2995f89a8136ebb695a5a2b98ae3399bb52abd8203bf79f25",
+    ('lstm', 256, 1024, 3, 11): "013aa5279c3c60b1127853b01cb62cb818dd1eb7e5c6cb6ded6b409d3021ed42",
+    ('lstm', 256, 1024, 1, 512): "bb87a01a26ba8207e40a37ef4796100fd309cf6252949d243f10063c0ce10ac0",
+    ('lstm', 256, 1031, 3, 11): "106c36fa969f96adcd4196489cbedb2341377204bbbd518ae3a200913d2b6a21",
+    ('lstm', 256, 1031, 1, 512): "38b21d818315312e64b0a3eec9e7783e95a2607db8a12f8ee9e735fca2385f6b",
+    ('lstm', 256, 504, 3, 11): "32b499438fb6cbb38a7d90d660bac57af140c305106b12f0763bd7874de5d3a1",
+    ('lstm', 256, 506, 3, 11): "6f6d84576df7fd0d9f3f85b308b65e816333a987cec561368e8ed352c097f75a",
+    ('lstm', 256, 6143, 3, 11): "e9ac685d1735effccbe32496ab97be48b3e6dfbf9ca4ab29d67ce6006d0b4432",
+    ('lstm', 256, 6145, 3, 11): "0f22c9775f5ffd0e912b1c2580b63b9390014fea563a4cb17404065f171fc164",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K1_DEFAULT_BATCH_DIGESTS))
+def test_k1_fp32_outputs_bit_equal_at_the_default_batch(case):
+    """K1's and K2's fp32 outputs at the default batch, ragged batches and
+    either side of the rows crossover, in the design ``k1_plan`` picks
+    there, equal the digests: simt's 72-row tiles below the crossover, the
+    rows design from it."""
+    _need_card()
+    cell, hidden, rows, layers, cin = case
+    plan = bigru.k1_plan(hidden, cell, torch.float32, rows)
+    if rows < bigru.ROWS_CROSSOVER:
+        assert plan["design"] == "simt" and plan["rows"] == 72
+    else:
+        assert plan["design"] == "rows"
+    assert k1_digest(*case) == K1_DEFAULT_BATCH_DIGESTS[case]
 
 
 # sha256 of ``k1_digest(*case)`` at many rows, taken on an H100 from the
